@@ -1,6 +1,6 @@
 """Where the serving path's time goes on one GPU.
 
-    python -m sprc_tpu_torch.cli.profile_serving [--out DIR]
+    python -m sprc_tpu_torch.cli.profile_serving [--int8] [--out DIR]
 
 Builds ``blip2_cir_align_prompt`` / ``pretrain_vitL`` at full width with
 random weights from seed 0 and takes one encode batch (64 images, 224 px,
@@ -17,6 +17,14 @@ features). For each it reports:
   stream, so the times do not overlap) and the bf16 GEMM rate of the tower
   (its dense FLOPs, 24 M W^2 per block with M = batch x 257 rows, over the
   bf16 GEMM time).
+
+With ``--int8`` the model is the int8 serving configuration (the tower's
+activation scales calibrated on 16 seeded images, ``vit_quant="int8_static"``,
+``qformer_int8=True``); the tower's rate is then its dense integer
+operations over the int8 GEMM time. ``other_kernels`` lists every device
+kernel that is not one of the port's own, with its launches and time: the
+patch convolution and the ``vision_proj`` / ``text_proj`` products are
+PyTorch calls, and no other library GEMM may appear there.
 
 It prints one JSON object and writes it, the profiler's tables and chrome
 traces under ``--out`` (default ``sprc_tpu_torch/_build/profile``). Needs CUDA.
@@ -35,7 +43,8 @@ import numpy as np
 import torch
 
 SEED, ENCODE_BATCH, QUERY_BATCH, GALLERY, REPEATS = 0, 64, 32, 512, 5
-GROUPS = (("gemm_bf16", "bf16 GEMM"), ("gemm_f32", "fp32 GEMM"),
+GROUPS = (("gemm_i8_kernel", "int8 GEMM"), ("quantize_", "quantize"),
+          ("gemm_bf16_kernel", "bf16 GEMM"), ("gemm_f32_kernel", "fp32 GEMM"),
           ("attention_bf16", "bf16 attention"), ("attention_f32", "fp32 attention"),
           ("layernorm", "LayerNorm"), ("token_max_sim", "token-max sim"),
           ("Memcpy", "copies"), ("Memset", "copies"))
@@ -69,13 +78,17 @@ def _profile(fn, name: str, out: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, launches = {}, {}
+    groups, launches, others = {}, {}, {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         label = _group(evt.name)
-        groups[label] = groups.get(label, 0.0) + evt.time_range.elapsed_us() / 1e3
+        ms = evt.time_range.elapsed_us() / 1e3
+        groups[label] = groups.get(label, 0.0) + ms
         launches[label] = launches.get(label, 0) + 1
+        if label == "other (torch ops)":
+            n, t = others.get(evt.name[:80], (0, 0.0))
+            others[evt.name[:80]] = (n + 1, t + ms)
     device_ms = sum(groups.values())
     prof.export_chrome_trace(os.path.join(out, f"{name}_trace.json"))
     with open(os.path.join(out, f"{name}_table.txt"), "w") as f:
@@ -83,26 +96,36 @@ def _profile(fn, name: str, out: str) -> dict:
     return {"profiled_wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "launches_by_group": launches}
+            "launches_by_group": launches,
+            "other_kernels": {k: {"launches": n, "ms": t} for k, (n, t) in
+                              sorted(others.items(), key=lambda kv: -kv[1][1])}}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default="sprc_tpu_torch/_build/profile")
+    ap.add_argument("--out", default=None,
+                    help="default sprc_tpu_torch/_build/profile, profile_int8 with --int8")
+    ap.add_argument("--int8", action="store_true", help="the int8 serving configuration")
     args = ap.parse_args(argv)
+    args.out = args.out or "sprc_tpu_torch/_build/profile" + ("_int8" if args.int8 else "")
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.loader import calibrate_vit_act_scales, load_model
     from sprc_tpu_torch.ops import primitives
     from sprc_tpu_torch.ops.layers import l2_normalize
+    from sprc_tpu_torch.utils.artifacts import synthetic_calibration_images
 
     os.makedirs(args.out, exist_ok=True)
     dev = "cuda"
-    model = load_model("blip2_cir_align_prompt", "pretrain_vitL", device=dev, seed=SEED)
-    cfg, vcfg = model.cfg, model.cfg.vit_config()
     rng = np.random.default_rng(SEED)
+    int8_kwargs = {"vit_quant": "int8_calib", "qformer_int8": True} if args.int8 else {}
+    model = load_model("blip2_cir_align_prompt", "pretrain_vitL", device=dev, seed=SEED,
+                       **int8_kwargs)
+    if args.int8:  # set-up: the tower then serves in "int8_static"
+        calibrate_vit_act_scales(model, synthetic_calibration_images(SEED + 99))
+    cfg, vcfg = model.cfg, model.cfg.vit_config()
     EB, QB, L = ENCODE_BATCH, QUERY_BATCH, cfg.max_txt_len
     images = torch.from_numpy(rng.standard_normal(
         (EB, cfg.image_size, cfg.image_size, 3), dtype=np.float32)).to(dev)
@@ -121,7 +144,9 @@ def main(argv=None) -> dict:
         "encode.queries_pass": lambda: model.target_features(frozen),
         "query": lambda: model.inference(refs, targets, ids, mask),
     }
-    result = {"device": torch.cuda.get_device_name(0), "encode_batch": EB, "query_batch": QB,
+    result = {"device": torch.cuda.get_device_name(0), "int8": args.int8,
+              "vit_act_scales": model.cfg.vit_act_scales,
+              "encode_batch": EB, "query_batch": QB,
               "gallery": GALLERY, "repeats": REPEATS, "wall_ms": {}}
     for mode, ctx in (("kernels", contextlib.nullcontext), ("plain", primitives.plain_reference)):
         with torch.inference_mode(), ctx():
@@ -130,10 +155,23 @@ def main(argv=None) -> dict:
         for name in ("encode", "query"):
             result[name] = _profile(steps[name], name, args.out)
     flops = 24 * EB * vcfg.seq_len * vcfg.width ** 2 * vcfg.depth
-    gemm_ms = result["encode"]["device_ms_by_group"].get("bf16 GEMM")
     result["encode"]["tower_dense_tflop"] = flops / 1e12
-    if gemm_ms:
-        result["encode"]["bf16_gemm_tflop_per_s"] = flops / (gemm_ms * 1e-3) / 1e12
+    if args.int8:
+        # the int8 GEMM group also holds the queries pass's products
+        q = cfg.qformer_config()
+        R, Wq, Mq, Si = EB * cfg.num_query_token, q.hidden_size, q.intermediate_size, vcfg.seq_len
+        per_layer, cross = 8 * R * Wq * Wq + 4 * R * Wq * Mq, (
+            4 * R * Wq * Wq + 4 * EB * Si * q.encoder_width * Wq)
+        n_cross = len(range(0, q.num_layers, q.cross_attention_freq))
+        qf_ops = q.num_layers * per_layer + n_cross * cross
+        result["encode"]["queries_pass_dense_tera_op"] = qf_ops / 1e12
+        gemm_ms = result["encode"]["device_ms_by_group"].get("int8 GEMM")
+        if gemm_ms:
+            result["encode"]["int8_gemm_tera_op_per_s"] = (flops + qf_ops) / (gemm_ms * 1e-3) / 1e12
+    else:
+        gemm_ms = result["encode"]["device_ms_by_group"].get("bf16 GEMM")
+        if gemm_ms:
+            result["encode"]["bf16_gemm_tflop_per_s"] = flops / (gemm_ms * 1e-3) / 1e12
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)

@@ -19,6 +19,12 @@ API:
                    or {"queries": [{reference, caption}...], "k": 10}
                    -> {"results": [[{"name", "score"}...] per query]}
 
+``--qformer-int8`` runs the Q-Former's dense projections in int8 (the JAX
+server's ``SPRC_QF_INT8=1``). The tower's int8 mode has no flag, as in the
+JAX server: an int8 index is built through the engine
+(``load_model(..., vit_quant="int8_static", vit_act_scales=...)``) and
+served with ``--index-path``.
+
 Without ``--model-path`` the weights are random, drawn from ``--seed``.
 ``--device cuda`` with no GPU exits nonzero; nothing moves to the CPU
 quietly. Device work is serialized behind a lock; the query path is warmed
@@ -129,6 +135,7 @@ def build_service(args) -> RetrievalService:
     model = load_model(
         args.model_name, args.model_type, checkpoint_path=args.model_path, device=device,
         seed=args.seed, vit_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        qformer_int8=args.qformer_int8,
     )
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
     engine = RetrievalEngine(
@@ -172,6 +179,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--qformer-int8", action="store_true",
+                   help="int8 dense projections in the Q-Former (query fusion and encode)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)

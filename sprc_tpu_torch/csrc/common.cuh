@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace sprc {
 
@@ -34,6 +35,27 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   if (act == kActQuickGelu) return v / (1.0f + expf(-1.702f * v));
   if (act == kActGelu) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
   return v;
+}
+
+// symmetric int8 code of an already scaled value: clip(rint(v), -127, 127),
+// round half to even (jnp.round, torch.round)
+__device__ __forceinline__ int8_t quantize_s8(float v) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
+}
+
+// 16-byte asynchronous copy into shared memory; pred false fills zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(saddr), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

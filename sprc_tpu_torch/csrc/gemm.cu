@@ -39,19 +39,9 @@ constexpr int BM = 128, BN = 128, BK = 32, LDS = BK + 8, STAGES = 3, THREADS = 2
 constexpr int STAGE_ELEMS = (BM + BN) * LDS;
 constexpr size_t SMEM_BF16 = STAGES * STAGE_ELEMS * sizeof(__nv_bfloat16);
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int bytes = pred ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(saddr), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+using sprc::cp_async16;
+using sprc::cp_async_commit;
+using sprc::cp_async_wait;
 
 __device__ __forceinline__ void load_stage(__nv_bfloat16* stage, const __nv_bfloat16* X,
                                            const __nv_bfloat16* W, int m0, int n0, int k0,

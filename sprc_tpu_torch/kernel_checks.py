@@ -1,11 +1,30 @@
 """Each Hopper kernel against its plain PyTorch version on the card, at the
-shapes the serving path gives it.
+shapes the serving path gives it: gallery encode in batches of
+:data:`ENCODE_BATCH` images, queries in batches of :data:`QUERY_BATCH`
+against a gallery of :data:`GALLERY` images.
 
-Used by ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``. Every
+Used by ``chip_smoke.py`` and ``tests/test_torch_kernels*_cuda.py``. Every
 check draws its inputs from a seeded generator on the device, runs the
 kernel wrapper and the plain version on the same tensors, and returns a row
 with the errors, both times (CUDA events, mean over ``iters`` launches after
 a warm-up) and ``ok``; the tolerances are stated beside each check.
+
+A chain of blocks or layers is held stage by stage
+(:class:`StageRecorder` inside ``primitives.stage_check``): every kernel
+launch of the chain is compared with its plain version on the inputs the
+kernel run gave it. Two free-running int8 chains drift apart, because a
+value that differs in its last bit flips a code at a half step and the flip
+feeds the next quantiser, so a bound on their final difference can tell
+little; held stage by stage they cannot drift, and each stage is held as
+tightly as the primitive alone (:data:`STAGE_BOUNDS`).
+
+A timed row also carries the work of its call, from the shapes alone:
+``bytes`` (each input read once, each output written once) and
+``op_seconds`` (its operations over the card's peak rate for their type,
+:data:`PEAK_OPS`, summed over the types). :func:`bound_ms` turns them into
+the least time the card could take. Where one PyTorch call computes the same
+function, ``library_ms`` is that call's time on the same inputs; the port
+itself never makes that call.
 """
 
 from __future__ import annotations
@@ -14,9 +33,28 @@ from typing import Callable, Dict, List
 
 import torch
 
-from sprc_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_plain
-from sprc_tpu_torch.ops.fused_qformer import fused_qformer_layer, fused_qformer_layer_plain
+from sprc_tpu_torch.ops import primitives, quant
+from sprc_tpu_torch.ops.fused_block import (fused_vit_block, fused_vit_block_i8,
+                                            fused_vit_block_i8_plain, fused_vit_block_plain)
+from sprc_tpu_torch.ops.fused_qformer import (fused_qformer_layer, fused_qformer_layer_plain,
+                                              quantize_layer_params)
 from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain
+
+# the main path's batches: what chip_smoke.py drives and the engine's defaults
+ENCODE_BATCH, QUERY_BATCH, GALLERY = 64, 32, 512
+
+# NVIDIA H100 SXM data sheet, dense rates: operations per second by type, and
+# bytes per second of HBM3
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(row: dict) -> Dict[str, object]:
+    """The least time the card could take for a row's work, and which of the
+    two limits sets it."""
+    by_bytes, by_ops = row["bytes"] / PEAK_BYTES, row["op_seconds"]
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def cuda_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float:
@@ -48,10 +86,84 @@ class _Rand:
         return t.to(dtype)
 
 
+# ------------------------------------------------- a chain, stage by stage
+
+_TYPE = {torch.int8: "s8", torch.bfloat16: "bf16", torch.float32: "f32"}
+
+# kind of stage -> (the largest share of a call's elements that may differ
+# from the plain version on the same inputs, the largest difference: in
+# codes for an int8 output, else relative to the call's largest |plain
+# value|). A stage that repeats the plain version's fp32 roundings step by
+# step is held equal: the s8 GEMM's f32 and bf16 epilogues and the two
+# quantisers. The others are held at 2 to 4 times the worst reading over the
+# main path's real activations (chip_smoke.py) and the random chains below,
+# on an H100; the reading stands beside each bound. One bf16 step at the top
+# of a call's range is 2^-8 to 2^-7 = 3.9e-3 to 7.8e-3 in these units.
+STAGE_BOUNDS = {
+    # the int8 chains
+    "gemm_i8 -> bf16": (0.0, 0.0),           # 0, 0
+    "gemm_i8 -> f32": (0.0, 0.0),            # 0, 0 (exact GELU included)
+    "gemm_i8 -> s8": (1.5e-6, 1),            # 3.6e-7, by one code: expf against sigmoid
+    "quantize_static -> s8": (0.0, 0),       # 0, 0
+    "quantize_rows codes": (0.0, 0),         # 0, 0
+    "quantize_rows scales": (0.0, 0.0),      # 0, 0
+    "layer_norm -> s8": (5e-6, 1),           # 1.4e-6, by one code: the row sum's order
+    # shared with the bf16 / fp32 chains
+    "attention -> bf16": (1.0, 1.6e-2),      # 0.49, 7.6e-3: one bf16 step; held to two
+    "attention -> f32": (1.0, 5e-6),         # 0.93, 1.3e-6
+    "layer_norm -> bf16": (5e-5, 7.9e-3),    # 1.2e-5, 3.0e-3: one bf16 step
+    "layer_norm -> f32": (1.0, 1e-6),        # 0.50, 2.3e-7
+    "gemm -> bf16": (0.75, 1.6e-2),          # 0.26, 6.7e-3: plain rounds twice (product, then bias)
+    "gemm -> f32": (1.0, 1.5e-5),            # 0.97, 3.8e-6
+}
+
+
+class StageRecorder:
+    """The ``record`` of ``primitives.stage_check``: per kind of stage (the
+    primitive and its output type), the calls, and over them the worst share
+    of elements that differ and the worst difference, in the units of
+    :data:`STAGE_BOUNDS`."""
+
+    def __init__(self):
+        self.stats: Dict[str, dict] = {}
+
+    def __call__(self, name: str, got, want) -> None:
+        if isinstance(got, tuple):  # quantize_rows
+            self._add(f"{name} codes", got[0], want[0])
+            self._add(f"{name} scales", got[1], want[1])
+        else:
+            self._add(f"{name} -> {_TYPE[got.dtype]}", got, want)
+
+    def _add(self, kind: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        d = (got.float() - want.float()).abs()
+        differ, worst, top = torch.stack(
+            [(d > 0).float().mean(), d.max(), want.float().abs().max()]).tolist()
+        err = worst if got.dtype == torch.int8 else worst / max(top, 1e-30)
+        s = self.stats.setdefault(kind, {"calls": 0, "differ": 0.0, "err": 0.0})
+        s["calls"] += 1
+        s["differ"], s["err"] = max(s["differ"], differ), max(s["err"], err)
+
+    def rows(self) -> List[dict]:
+        """One row per kind: ``kind``, ``calls``, ``differ``, ``err`` and
+        ``ok`` (a kind without a bound fails)."""
+        out = []
+        for kind, s in sorted(self.stats.items()):
+            share, err = STAGE_BOUNDS.get(kind, (-1.0, -1.0))
+            out.append({"kind": kind, **s, "ok": s["differ"] <= share and s["err"] <= err})
+        return out
+
+    def describe(self) -> str:
+        return "; ".join(f"{r['kind']} x{r['calls']}: differ {r['differ']:.1e} err {r['err']:.1e}"
+                         f"{'' if r['ok'] else ' FAIL'}" for r in self.rows())
+
+    def ok(self) -> bool:
+        return bool(self.stats) and all(r["ok"] for r in self.rows())
+
+
 # ------------------------------------------------------------------- K1
 
 
-def check_token_max_sim(device="cuda", B=32, N=4099, Q=32, E=256, seed=0) -> dict:
+def check_token_max_sim(device="cuda", B=QUERY_BATCH, N=GALLERY, Q=32, E=256, seed=0) -> dict:
     """fp32 throughout: atol 1e-4 and the same top-10 order per query."""
     r = _Rand(device, seed)
     f = torch.nn.functional.normalize(r.normal(B, E), dim=-1)
@@ -68,6 +180,8 @@ def check_token_max_sim(device="cuda", B=32, N=4099, Q=32, E=256, seed=0) -> dic
         row["plain_ms"] = cuda_ms(lambda: token_max_sim_plain(f, t))
     row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4 and row["top10_equal"]
     row["shape"] = f"B={B} N={N} Q={Q} E={E} fp32"
+    row["bytes"] = 4 * (B * E + N * Q * E + B * N)
+    row["op_seconds"] = 2 * B * N * Q * E / PEAK_OPS["fp32"]
     return row
 
 
@@ -85,7 +199,21 @@ def vit_block_params(r: _Rand, W=1024, M=4096, dtype=torch.bfloat16) -> tuple:
             r.normal(W, M, std=0.02, dtype=dtype), r.normal(W, std=0.02))
 
 
-def check_vit_block(device="cuda", B=8, S=257, W=1024, M=4096, heads=16, seed=1) -> dict:
+def _vit_block_work(B, S, W, M, int8: bool) -> Dict[str, float]:
+    """One ViT block: dense 2 B S (4 W^2 + 2 W M) operations (bf16 or int8),
+    attention 4 B S^2 W in bf16; x in and out in bf16, the weights once (two
+    bytes each in bf16, one in int8 plus an fp32 scale per output channel),
+    biases and LayerNorm parameters in fp32."""
+    dense, attn = 2 * B * S * (4 * W * W + 2 * W * M), 4 * B * S * S * W
+    weights = 4 * W * W + 2 * W * M
+    vectors = 4 * (3 * W + W + M + W + 4 * W)
+    scales = 4 * (3 * W + W + M + W) if int8 else 0
+    return {"bytes": 2 * 2 * B * S * W + weights * (1 if int8 else 2) + vectors + scales,
+            "op_seconds": dense / PEAK_OPS["int8" if int8 else "bf16"] + attn / PEAK_OPS["bf16"]}
+
+
+def check_vit_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=16,
+                    seed=1) -> dict:
     """bf16, output scale ~5: max-abs <= 0.0625 and mean-abs <= 4e-3 (twice
     the JAX kernel's own envelope against XLA, for another accumulation
     order)."""
@@ -103,28 +231,46 @@ def check_vit_block(device="cuda", B=8, S=257, W=1024, M=4096, heads=16, seed=1)
         row["plain_ms"] = cuda_ms(lambda: fused_vit_block_plain(x, *params, **kw))
     row["ok"] = row["finite"] and row["max_abs_err"] <= 0.0625 and row["mean_abs_err"] <= 4e-3
     row["shape"] = f"B={B} S={S} W={W} M={M} H={heads} bf16"
+    row.update(_vit_block_work(B, S, W, M, int8=False))
+    return row
+
+
+def _vit_chain(device, seed, depth, B, S, W, M, heads, int8: bool) -> dict:
+    """``depth`` random blocks. The kernel chain runs inside ``stage_check``
+    and is held stage by stage; the plain chain beside it runs free from the
+    same input, and their final difference is reported, not bounded (bf16
+    rounding, and in int8 flipped codes, compound over depth)."""
+    r = _Rand(device, seed)
+    x = r.normal(B, S, W, dtype=torch.bfloat16)
+    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True)
+    stages = StageRecorder()
+    with torch.inference_mode():
+        got, want = x, x
+        for _ in range(depth):
+            if int8:
+                p = quantize_vit_block(vit_block_params(r, W, M, dtype=torch.float32))
+                with primitives.stage_check(stages):
+                    got = fused_vit_block_i8(got, *p, **kw, acts=VIT_I8_ACTS)
+                want = fused_vit_block_i8_plain(want, *p, **kw, acts=VIT_I8_ACTS)
+            else:
+                p = vit_block_params(r, W, M)
+                with primitives.stage_check(stages):
+                    got = fused_vit_block(got, *p, **kw)
+                want = fused_vit_block_plain(want, *p, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        row["out_max_abs"] = want.float().abs().max().item()
+    row["stages"] = stages.rows()
+    row["ok"] = row["finite"] and stages.ok()
+    row["shape"] = (f"depth={depth} B={B} S={S} W={W} {'int8 dense, ' if int8 else ''}bf16; "
+                    f"stage by stage: {stages.describe()}; free-running plain chain")
     return row
 
 
 def check_vit_tower(device="cuda", depth=23, B=8, S=257, W=1024, M=4096, heads=16,
                     seed=2) -> dict:
-    """The whole 23-block chain, kernel against plain (reported; bf16
-    rounding compounds over depth, so no bound beyond finiteness)."""
-    r = _Rand(device, seed)
-    x = r.normal(B, S, W, dtype=torch.bfloat16)
-    blocks = [vit_block_params(r, W, M) for _ in range(depth)]
-    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True)
-    with torch.inference_mode():
-        got, want = x, x
-        for p in blocks:
-            got = fused_vit_block(got, *p, **kw)
-            want = fused_vit_block_plain(want, *p, **kw)
-        torch.cuda.synchronize()
-        row = _errors(got, want)
-        row["out_max_abs"] = want.float().abs().max().item()
-    row["ok"] = row["finite"]
-    row["shape"] = f"depth={depth} B={B} S={S} W={W} bf16"
-    return row
+    """The 23-block bf16 chain: every stage within :data:`STAGE_BOUNDS`."""
+    return _vit_chain(device, seed, depth, B, S, W, M, heads, int8=False)
 
 
 # ------------------------------------------------------------------- K3
@@ -149,15 +295,15 @@ def qformer_layer_params(r: _Rand, cross: bool, W=768, Wi=1024, M=3072) -> dict:
             "ffn_q_p": _ffn_p(r, W, M), "ffn_t_p": _ffn_p(r, W, M)}
 
 
-SERVING_SHAPES = {  # name -> (S, with image, with a padded text mask)
-    "queries": (32, True, False),   # gallery encode: queries only
-    "fusion": (64, True, True),     # composed query, pass 1
-    "prompt": (64, False, True),    # composed query, pass 2 (no image)
+SERVING_SHAPES = {  # name -> (B, S, with image, with a padded text mask)
+    "queries": (ENCODE_BATCH, 32, True, False),  # gallery encode: queries only
+    "fusion": (QUERY_BATCH, 64, True, True),     # composed query, pass 1
+    "prompt": (QUERY_BATCH, 64, False, True),    # composed query, pass 2 (no image)
 }
 
 
-def _qf_inputs(r, shape, B, Q, Si, W, Wi):
-    S, with_img, with_mask = SERVING_SHAPES[shape]
+def _qf_inputs(r, shape, Q, Si, W, Wi):
+    B, S, with_img, with_mask = SERVING_SHAPES[shape]
     x = r.normal(B, S, W)
     img = r.normal(B, Si, Wi) if with_img else None
     bias = None
@@ -168,13 +314,54 @@ def _qf_inputs(r, shape, B, Q, Si, W, Wi):
     return x, bias, img
 
 
-def check_qformer_layer(shape: str, device="cuda", B=16, Q=32, Si=257, W=768, Wi=1024,
-                        M=3072, heads=12, seed=3) -> dict:
-    """fp32 (true fp32 on both sides, TF32 off): atol 1e-4 per layer."""
+def _qformer_layer_work(shape, Q, Si, W, Wi, M, int8: bool) -> Dict[str, float]:
+    """One Q-Former layer in a serving shape: the dense operations (fp32 or
+    int8) and the fp32 attention; x in and out, the image rows and the column
+    bias in fp32, and the weights the shape uses, once."""
+    B, S, with_img, with_mask = SERVING_SHAPES[shape]
+    R = B * S
+    dense = 4 * 2 * R * W * W + 4 * R * W * M  # q, k, v, out; one FFN per row
+    attn = 4 * B * S * S * W
+    weights, vectors = 4 * W * W, 4 * W + 2 * W
+    ffns = 1 if (not with_img or S == Q) else 2
+    weights += ffns * 2 * W * M
+    vectors += ffns * (M + W + 2 * W)
+    if with_img:
+        dense += 2 * 2 * B * Q * W * W + 2 * 2 * B * Si * Wi * W
+        attn += 4 * B * Q * Si * W
+        weights += 2 * W * W + 2 * Wi * W
+        vectors += 4 * W + 2 * W
+    acts = 2 * R * W + (B * Si * Wi if with_img else 0) + (B * S if with_mask else 0)
+    # int8: one byte a weight and an fp32 scale per output channel (as many as biases)
+    w_bytes = weights + 4 * vectors if int8 else 4 * weights
+    return {"bytes": 4 * acts + w_bytes + 4 * vectors,
+            "op_seconds": dense / PEAK_OPS["int8" if int8 else "fp32"] + attn / PEAK_OPS["fp32"]}
+
+
+def _int8_layer(p: dict) -> dict:
+    return {k: quantize_layer_params(v) for k, v in p.items()}
+
+
+# K4, one layer, against its plain version on identical inputs. Every GEMM
+# and quantiser is equal to plain on equal inputs; the fp32 attention and
+# LayerNorm kernels sum in another order, so a value that sits within 1e-6
+# of a half step flips a code in the next quantiser, and one flip moves a row
+# of outputs by about scale x |w| ~ 1e-3. The bounds are about 3x the
+# readings on an H100 (max-abs 1.21e-2, mean-abs 1.9e-5, at output scale ~4).
+QF_INT8_LAYER_MAX_ABS, QF_INT8_LAYER_MEAN_ABS = 4e-2, 6e-5
+
+
+def check_qformer_layer(shape: str, device="cuda", Q=32, Si=257, W=768, Wi=1024,
+                        M=3072, heads=12, seed=3, int8=False) -> dict:
+    """fp32 (true fp32 on both sides, TF32 off): atol 1e-4 per layer. With
+    ``int8`` (K4): QF_INT8_LAYER_MAX_ABS and QF_INT8_LAYER_MEAN_ABS."""
     r = _Rand(device, seed)
-    x, bias, img = _qf_inputs(r, shape, B, Q, Si, W, Wi)
+    B, S = SERVING_SHAPES[shape][:2]
+    x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
     p = qformer_layer_params(r, cross=img is not None, W=W, Wi=Wi, M=M)
-    kw = dict(heads=heads, eps=1e-12, Q=Q, text_ffn_all=img is None)
+    if int8:
+        p = _int8_layer(p)
+    kw = dict(heads=heads, eps=1e-12, Q=Q, text_ffn_all=img is None, int8=int8)
 
     def run(fn):
         return fn(x, bias, p["self_p"], img, p["cross_p"], p["ffn_q_p"], p["ffn_t_p"], **kw)
@@ -184,31 +371,287 @@ def check_qformer_layer(shape: str, device="cuda", B=16, Q=32, Si=257, W=768, Wi
         torch.cuda.synchronize()
         row = _errors(got, want)
         row["ms"] = cuda_ms(lambda: run(fused_qformer_layer))
-        row["plain_ms"] = cuda_ms(lambda: run(fused_qformer_layer_plain))
-    row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4
-    row["shape"] = f"{shape}: B={B} S={SERVING_SHAPES[shape][0]} W={W} fp32"
+        row["plain_ms"] = cuda_ms(lambda: run(fused_qformer_layer_plain), iters=3, warmup=1)
+    if int8:
+        row["ok"] = (row["finite"] and row["max_abs_err"] <= QF_INT8_LAYER_MAX_ABS
+                     and row["mean_abs_err"] <= QF_INT8_LAYER_MEAN_ABS)
+    else:
+        row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4
+    row["shape"] = f"{shape}: B={B} S={S} W={W} {'int8 dense, ' if int8 else ''}fp32"
+    row.update(_qformer_layer_work(shape, Q, Si, W, Wi, M, int8))
     return row
 
 
-def check_qformer_trunk(shape: str, device="cuda", layers=12, B=16, Q=32, Si=257, W=768,
-                        Wi=1024, M=3072, heads=12, seed=4) -> dict:
-    """The 12-layer chain (cross-attention on even layers): atol 5e-4."""
+def check_qformer_trunk(shape: str, device="cuda", layers=12, Q=32, Si=257, W=768,
+                        Wi=1024, M=3072, heads=12, seed=4, int8=False) -> dict:
+    """The 12-layer chain (cross-attention on even layers), the kernel chain
+    inside ``stage_check``: every stage within :data:`STAGE_BOUNDS`, and in
+    fp32 the final difference from the free-running plain chain within 5e-4.
+    With ``int8`` that difference is reported, not bounded."""
     r = _Rand(device, seed)
-    x, bias, img = _qf_inputs(r, shape, B, Q, Si, W, Wi)
-    ps = [qformer_layer_params(r, cross=(i % 2 == 0) and img is not None, W=W, Wi=Wi, M=M)
-          for i in range(layers)]
-    kw = dict(heads=heads, eps=1e-12, Q=Q, text_ffn_all=img is None)
+    B, S = SERVING_SHAPES[shape][:2]
+    x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
+    kw = dict(heads=heads, eps=1e-12, Q=Q, text_ffn_all=img is None, int8=int8)
+    stages = StageRecorder()
     with torch.inference_mode():
         got, want = x, x
-        for p in ps:
+        for i in range(layers):
+            p = qformer_layer_params(r, cross=(i % 2 == 0) and img is not None, W=W, Wi=Wi, M=M)
+            if int8:
+                p = _int8_layer(p)
             args = (p["self_p"], img, p["cross_p"], p["ffn_q_p"], p["ffn_t_p"])
-            got = fused_qformer_layer(got, bias, *args, **kw)
+            with primitives.stage_check(stages):
+                got = fused_qformer_layer(got, bias, *args, **kw)
             want = fused_qformer_layer_plain(want, bias, *args, **kw)
         torch.cuda.synchronize()
         row = _errors(got, want)
-    row["ok"] = row["finite"] and row["max_abs_err"] <= 5e-4
-    row["shape"] = f"{shape}: {layers} layers B={B} S={SERVING_SHAPES[shape][0]} fp32"
+    row["stages"] = stages.rows()
+    row["ok"] = row["finite"] and stages.ok() and (int8 or row["max_abs_err"] <= 5e-4)
+    row["shape"] = (f"{shape}: {layers} layers B={B} S={S} {'int8 dense, ' if int8 else ''}fp32; "
+                    f"stage by stage: {stages.describe()}; free-running plain chain")
     return row
+
+
+# ------------------------------------------------------- the dense kernels
+
+# The s8 products of the int8 main path, and the tiled matmul of
+# scripts/ablate_int8.py. name -> (M, N, K, the epilogue the path runs on it).
+# Tower: ENCODE_BATCH images of 257 tokens. Q-Former: the queries pass has
+# ENCODE_BATCH items of 32 rows and 257 image rows of width 1024; a query
+# batch has QUERY_BATCH items of 64 rows (32 query rows, 32 text rows).
+_VIT_M, _Q_M, _F_M = ENCODE_BATCH * 257, ENCODE_BATCH * 32, QUERY_BATCH * 64
+GEMM_I8_PRODUCTS = {
+    "ablate 4096^3": (4096, 4096, 4096, None),
+    "vit qkv": (_VIT_M, 3072, 1024, "bf16"),
+    "vit proj": (_VIT_M, 1024, 1024, "bf16+residual"),
+    "vit fc1": (_VIT_M, 4096, 1024, "quick_gelu->s8"),
+    "vit fc2": (_VIT_M, 1024, 4096, "bf16+residual"),
+    "qformer self, all rows": (_F_M, 768, 768, "rows->f32"),
+    "qformer self, query rows": (_F_M // 2, 768, 768, "rows->f32"),
+    "qformer cross kv, queries pass": (_VIT_M, 768, 1024, "rows->f32"),
+    "qformer cross kv, fusion pass": (QUERY_BATCH * 257, 768, 1024, "rows->f32"),
+    "qformer fc1, all rows": (_Q_M, 3072, 768, "rows,gelu->f32"),
+    "qformer fc2, all rows": (_Q_M, 768, 3072, "rows->f32"),
+    "qformer fc1, half the rows": (_F_M // 2, 3072, 768, "rows,gelu->f32"),
+    "qformer fc2, half the rows": (_F_M // 2, 768, 3072, "rows->f32"),
+}
+assert _Q_M == _F_M  # the queries pass and a query batch give the same self and FFN products
+
+
+def _codes(r: _Rand, *shape) -> torch.Tensor:
+    return torch.randint(-127, 128, shape, generator=r.gen, device=r.device).to(torch.int8)
+
+
+def _epilogue(r: _Rand, epilogue: str, M: int, N: int) -> tuple:
+    """(its kind of stage in STAGE_BOUNDS, the keyword arguments of ``gemm_i8``)."""
+    if epilogue.startswith("rows"):  # the Q-Former's: a dynamic scale per row
+        kw = dict(row_scale=r.normal(M).abs() * 1e-2 + 1e-3)
+        return "gemm_i8 -> f32", dict(kw, act="gelu") if "gelu" in epilogue else kw
+    kw = dict(col_alpha=0.037)  # the tower's: one static scale
+    if epilogue == "quick_gelu->s8":
+        return "gemm_i8 -> s8", dict(kw, act="quick_gelu", out_scale=0.05)
+    if epilogue == "bf16+residual":
+        kw["residual"] = r.normal(M, N, dtype=torch.bfloat16)
+    return "gemm_i8 -> bf16", dict(kw, out_dtype=torch.bfloat16)
+
+
+def check_gemm_i8(name: str, device="cuda", seed=5) -> dict:
+    """One product of :data:`GEMM_I8_PRODUCTS` on random codes. The raw s32
+    output (the tiled s8 matmul of scripts/ablate_int8.py) is integer
+    arithmetic: equal to the plain version, max-abs 0. Then the epilogue the
+    main path runs on this product, against the plain version on the same
+    codes, within the bound of its stage in :data:`STAGE_BOUNDS`: the same
+    fp32 roundings step by step, so equal too, except that QuickGELU -> int8
+    moves a code in a million by one. The times are the raw product's; the
+    library call is ``torch._int_mm``."""
+    M, N, K, epilogue = GEMM_I8_PRODUCTS[name]
+    r = _Rand(device, seed)
+    a8, w8 = _codes(r, M, K), _codes(r, N, K)
+    with torch.inference_mode():
+        got = primitives.gemm_i8_cuda(a8, w8)
+        want = primitives.gemm_i8_plain(a8, w8)
+        torch.cuda.synchronize()
+        d = (got.long() - want.long()).abs()
+        row = {"max_abs_err": d.max().item(), "mean_abs_err": d.double().mean().item(),
+               "finite": True, "epilogue_differ": 0.0, "epilogue_max_abs_err": 0.0}
+        row["ok"] = got.dtype == torch.int32 and row["max_abs_err"] == 0
+        del got, want, d
+        if epilogue is not None:
+            cs, bias = r.normal(N).abs() * 1e-5 + 1e-6, r.normal(N, std=0.1)
+            kind, kw = _epilogue(r, epilogue, M, N)
+            d = (primitives.gemm_i8_cuda(a8, w8, cs, bias, **kw).float()
+                 - primitives.gemm_i8_plain(a8, w8, cs, bias, **kw).float()).abs()
+            row["epilogue_differ"] = (d > 0).float().mean().item()
+            row["epilogue_max_abs_err"] = d.max().item()
+            share, by = STAGE_BOUNDS[kind]
+            row["ok"] = (row["ok"] and row["epilogue_differ"] <= share
+                         and row["epilogue_max_abs_err"] <= by)
+            del d
+        row["ms"] = cuda_ms(lambda: primitives.gemm_i8_cuda(a8, w8))
+        row["plain_ms"] = cuda_ms(lambda: primitives.gemm_i8_plain(a8, w8), iters=3, warmup=1)
+        wt = w8.t()
+        row["library_ms"] = cuda_ms(lambda: torch._int_mm(a8, wt))
+    row["shape"] = (f"M={M} N={N} K={K} s8 x s8 -> s32; epilogue {epilogue}: differ "
+                    f"{row['epilogue_differ']:.1e}, max_abs {row['epilogue_max_abs_err']:.1e}; "
+                    f"torch._int_mm {row['library_ms']:.4f} ms")
+    row["bytes"] = M * K + N * K + 4 * M * N
+    row["op_seconds"] = 2 * M * N * K / PEAK_OPS["int8"]
+    return row
+
+
+def check_gemm_bf16_ablate(device="cuda", n=4096, seed=11) -> dict:
+    """The bf16 -> bf16 mode of the tiled matmul of scripts/ablate_int8.py,
+    at its shape: the bf16 GEMM kernel against its plain version and
+    ``F.linear``. fp32 accumulation in another order, then one rounding:
+    at most one bf16 step at the top of the output's range (2^-7 of the
+    largest |value|)."""
+    r = _Rand(device, seed)
+    x, w = r.normal(n, n, dtype=torch.bfloat16), r.normal(n, n, std=0.02, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        got, want = primitives.gemm_cuda(x, w), primitives.gemm_plain(x, w)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        row["out_max_abs"] = want.float().abs().max().item()
+        row["ms"] = cuda_ms(lambda: primitives.gemm_cuda(x, w))
+        row["plain_ms"] = cuda_ms(lambda: primitives.gemm_plain(x, w))
+        row["library_ms"] = cuda_ms(lambda: torch.nn.functional.linear(x, w))
+    row["ok"] = row["finite"] and row["max_abs_err"] <= row["out_max_abs"] * 2.0 ** -7
+    row["shape"] = f"M=N=K={n} bf16 -> bf16; F.linear {row['library_ms']:.4f} ms"
+    row["bytes"] = 2 * 3 * n * n
+    row["op_seconds"] = 2 * n ** 3 / PEAK_OPS["bf16"]
+    return row
+
+
+def check_quantizers(device="cuda", B=ENCODE_BATCH, S=257, W=1024, seed=7) -> dict:
+    """``quantize_static`` (bf16 in) and ``quantize_rows`` (fp32 in) round the
+    same fp32 values as their plain versions: codes and scales bit-equal.
+    LayerNorm -> int8 sums a row in another order, so its fp32 value moves by
+    an ulp or two before the rounding: a few codes in a million differ, by
+    one (held to the bound of its stage in :data:`STAGE_BOUNDS`)."""
+    r = _Rand(device, seed)
+    xb = r.normal(B, S, W, std=2.0, dtype=torch.bfloat16)
+    xf = r.normal(B, S, W, std=2.0)
+    lw, lb = r.normal(W, std=0.1, mean=1.0), r.normal(W, std=0.02)
+    with torch.inference_mode():
+        st = primitives.quantize_static_cuda(xb, 0.05).int() - quant.quantize_static(xb, 0.05)
+        codes, sc = primitives.quantize_rows_cuda(xf)
+        pcodes, psc = quant.quantize_rows(xf)
+        ln = (primitives.layer_norm_cuda(xb, lw, lb, 1e-5, out_scale=0.04).int()
+              - primitives.layer_norm_plain(xb, lw, lb, 1e-5, out_scale=0.04))
+        torch.cuda.synchronize()
+        row = {"finite": True, "static_differ": (st != 0).float().mean().item(),
+               "rows_differ": (codes != pcodes).float().mean().item(),
+               "rows_scale_max_abs": (sc - psc).abs().max().item(),
+               "ln_differ": (ln != 0).float().mean().item(),
+               "max_abs_err": float(ln.abs().max().item()), "mean_abs_err": 0.0}
+        row["static_ms"] = cuda_ms(lambda: primitives.quantize_static_cuda(xb, 0.05))
+        row["rows_ms"] = cuda_ms(lambda: primitives.quantize_rows_cuda(xf))
+        row["ln_q8_ms"] = cuda_ms(lambda: primitives.layer_norm_cuda(xb, lw, lb, 1e-5,
+                                                                     out_scale=0.04))
+    share, by = STAGE_BOUNDS["layer_norm -> s8"]
+    row["ok"] = (row["static_differ"] == 0 and row["rows_differ"] == 0
+                 and row["rows_scale_max_abs"] == 0 and row["ln_differ"] <= share
+                 and row["max_abs_err"] <= by)
+    row["shape"] = (f"[{B},{S},{W}]: codes that differ: static {row['static_differ']:.1e}, rows "
+                    f"{row['rows_differ']:.1e}, LN->s8 {row['ln_differ']:.1e}; ms static "
+                    f"{row['static_ms']:.4f}, rows {row['rows_ms']:.4f}, LN->s8 "
+                    f"{row['ln_q8_ms']:.4f}")
+    return row
+
+
+# ------------------------------------------------------------------- K5
+
+
+def quantize_vit_block(fp: tuple) -> tuple:
+    """K5's parameters from fp32 :func:`vit_block_params`: each weight as
+    codes and scales, in the JAX kernel's order."""
+    l1s, l1b, wqkv, bqkv, wproj, bproj, l2s, l2b, w1, b1, w2, b2 = fp
+    q = quant.quantize_weight
+    return (l1s, l1b, *q(wqkv), bqkv, *q(wproj), bproj, l2s, l2b, *q(w1), b1, *q(w2), b2)
+
+
+# static activation scales (qkv, proj, fc1, fc2) that cover these random
+# blocks' activations about as a calibration would: amax / 127
+VIT_I8_ACTS = (6.0 / 127, 0.5 / 127, 6.0 / 127, 4.0 / 127)
+
+
+def check_vit_block_i8(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=16,
+                       seed=8) -> dict:
+    """K5 against its plain version, bf16 activations, output scale ~5.75:
+    max-abs <= 0.125 and mean-abs <= 0.015, 2 to 2.5x the readings on an H100
+    (0.0625 and 5.76e-3 at B=64). The GEMM epilogues and the quantisers are bit-equal
+    to plain and LN -> s8 all but (``check_quantizers``); the bf16 attention
+    kernel differs from plain by a bf16 step, which the ctx quantiser and then
+    the fc1 / fc2 quantisers turn into flipped codes, so more outputs land on
+    the other side of a bf16 rounding than in K2 (mean-abs 1.6e-3 there)."""
+    r = _Rand(device, seed)
+    x = r.normal(B, S, W, dtype=torch.bfloat16)
+    params = quantize_vit_block(vit_block_params(r, W, M, dtype=torch.float32))
+    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True, acts=VIT_I8_ACTS)
+    with torch.inference_mode():
+        got = fused_vit_block_i8(x, *params, **kw)
+        want = fused_vit_block_i8_plain(x, *params, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        row["out_max_abs"] = want.float().abs().max().item()
+        row["ms"] = cuda_ms(lambda: fused_vit_block_i8(x, *params, **kw))
+        row["plain_ms"] = cuda_ms(lambda: fused_vit_block_i8_plain(x, *params, **kw),
+                                  iters=3, warmup=1)
+    row["ok"] = row["finite"] and row["max_abs_err"] <= 0.125 and row["mean_abs_err"] <= 0.015
+    row["shape"] = f"B={B} S={S} W={W} M={M} H={heads} int8 dense, bf16"
+    row.update(_vit_block_work(B, S, W, M, int8=True))
+    return row
+
+
+def check_vit_tower_i8(device="cuda", depth=23, B=8, S=257, W=1024, M=4096, heads=16,
+                       seed=9) -> dict:
+    """The 23-block int8 chain: every stage within :data:`STAGE_BOUNDS`."""
+    return _vit_chain(device, seed, depth, B, S, W, M, heads, int8=True)
+
+
+def check_library_yardsticks(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads=16,
+                             seed=10) -> dict:
+    """The building-block kernels beside the one PyTorch call that computes
+    the same function, at the tower's shapes (times only; the errors of these
+    kernels are held through the chains above)."""
+    F = torch.nn.functional
+    r = _Rand(device, seed)
+    x = r.normal(B, S, W, dtype=torch.bfloat16)
+    w, b = r.normal(3 * W, W, std=0.02, dtype=torch.bfloat16), r.normal(3 * W, std=0.02)
+    lw, lb = r.normal(W, std=0.1, mean=1.0), r.normal(W, std=0.02)
+    qkv = r.normal(B, S, 3 * W, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+    heads4 = [t.reshape(B, S, heads, W // heads).transpose(1, 2) for t in (q, k, v)]
+    bb = b.to(torch.bfloat16)
+    with torch.inference_mode():
+        row = {"finite": True, "max_abs_err": 0.0, "mean_abs_err": 0.0, "ok": True,
+               "gemm_bf16_ms": cuda_ms(lambda: primitives.gemm_cuda(x, w, b)),
+               "linear_ms": cuda_ms(lambda: F.linear(x, w, bb)),
+               "attention_ms": cuda_ms(lambda: primitives.attention_cuda(
+                   q, k, v, heads, (W // heads) ** -0.5)),
+               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads4)),
+               "layer_norm_ms": cuda_ms(lambda: primitives.layer_norm_cuda(x, lw, lb, 1e-5)),
+               "f_layer_norm_ms": cuda_ms(lambda: F.layer_norm(x.float(), (W,), lw, lb, 1e-5))}
+    row["shape"] = (f"B={B} S={S} W={W} bf16, kernel / library ms: gemm [3W,W] "
+                    f"{row['gemm_bf16_ms']:.4f} / F.linear {row['linear_ms']:.4f}; attention "
+                    f"{row['attention_ms']:.4f} / SDPA {row['sdpa_ms']:.4f}; LayerNorm "
+                    f"{row['layer_norm_ms']:.4f} / F.layer_norm(fp32) {row['f_layer_norm_ms']:.4f}")
+    return row
+
+
+def run_int8(device="cuda") -> List[dict]:
+    """The checks of the int8 serving path's kernels."""
+    rows = [dict(check=f"gemm_i8 {name}", **check_gemm_i8(name, device))
+            for name in GEMM_I8_PRODUCTS]
+    rows += [dict(check="quantizers", **check_quantizers(device)),
+             dict(check="K5 vit_block_i8", **check_vit_block_i8(device)),
+             dict(check="K5 vit_tower_i8", **check_vit_tower_i8(device))]
+    for shape in SERVING_SHAPES:
+        rows.append(dict(check=f"K4 qformer_layer_int8 {shape}",
+                         **check_qformer_layer(shape, device, int8=True)))
+        rows.append(dict(check=f"K4 qformer_trunk_int8 {shape}",
+                         **check_qformer_trunk(shape, device, int8=True)))
+    return rows
 
 
 def run_all(device="cuda") -> List[dict]:
@@ -219,4 +662,6 @@ def run_all(device="cuda") -> List[dict]:
     for shape in SERVING_SHAPES:
         rows.append(dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device)))
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
-    return rows
+    rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
+             dict(check="library yardsticks", **check_library_yardsticks(device))]
+    return rows + run_int8(device)

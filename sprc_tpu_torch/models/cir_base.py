@@ -42,27 +42,38 @@ class CirConfig:
     vocab_size: int = 30523
     vit_dtype: torch.dtype = torch.bfloat16
     qformer_dtype: torch.dtype = torch.float32
+    # int8 serving: the tower's mode (ViTConfig.quant) with its calibrated
+    # activation scales, and the Q-Former's int8 dense projections
+    vit_quant: Optional[str] = None
+    vit_act_scales: Optional[Tuple[Tuple[str, float], ...]] = None
+    qformer_int8: bool = False
     # test-size overrides (None = full size)
     vit_config_override: Optional[ViTConfig] = None
     qformer_config_override: Optional[QFormerConfig] = None
 
     def vit_config(self) -> ViTConfig:
         if self.vit_config_override is not None:
-            return self.vit_config_override
-        if self.vit_model == "clip_L":
-            return clip_vit_l_config(self.image_size, dtype=self.vit_dtype)
-        raise NotImplementedError(
-            f"vit_model {self.vit_model!r}: the port has CLIP ViT-L (clip_L); "
-            "EVA ViT-g is still to be ported")
+            cfg = self.vit_config_override
+        elif self.vit_model == "clip_L":
+            cfg = clip_vit_l_config(self.image_size, dtype=self.vit_dtype)
+        else:
+            raise NotImplementedError(
+                f"vit_model {self.vit_model!r}: the port has CLIP ViT-L (clip_L); "
+                "EVA ViT-g is still to be ported")
+        if self.vit_quant:
+            cfg = dataclasses.replace(cfg, quant=self.vit_quant, act_scales=self.vit_act_scales)
+        return cfg
 
     def qformer_config(self) -> QFormerConfig:
         if self.qformer_config_override is not None:
-            return self.qformer_config_override
-        return QFormerConfig(
-            vocab_size=self.vocab_size, encoder_width=self.vit_config().width,
-            cross_attention_freq=self.cross_attention_freq,
-            query_length=self.num_query_token, dtype=self.qformer_dtype,
-        )
+            cfg = self.qformer_config_override
+        else:
+            cfg = QFormerConfig(
+                vocab_size=self.vocab_size, encoder_width=self.vit_config().width,
+                cross_attention_freq=self.cross_attention_freq,
+                query_length=self.num_query_token, dtype=self.qformer_dtype,
+            )
+        return dataclasses.replace(cfg, int8=True) if self.qformer_int8 else cfg
 
 
 class Blip2CirBase(nn.Module):

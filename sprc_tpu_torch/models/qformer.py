@@ -22,7 +22,10 @@ Each layer calls kernel K3's wrapper
 (:func:`sprc_tpu_torch.ops.fused_qformer.fused_qformer_layer`), which launches
 the kernel on CUDA tensors and is inference-only; only inside
 :func:`sprc_tpu_torch.ops.primitives.plain_reference` does a layer run its
-plain PyTorch version. The
+plain PyTorch version. With ``QFormerConfig.int8`` (the explicit form of the
+JAX package's ``SPRC_QF_INT8=1``; the port reads no environment variable)
+every layer runs kernel K4, the same wrapper with ``int8=True``: the ten
+dense projections as int8 products over codes derived at load time. The
 decoder (UniLM) mask, the ``no_img`` splice and the attention-probability
 outputs belong to training and the variant zoo and are not here yet.
 """
@@ -55,6 +58,7 @@ class QFormerConfig:
     layer_norm_eps: float = 1e-12
     query_length: int = 32
     dtype: torch.dtype = torch.float32
+    int8: bool = False  # int8 dense projections in every layer (serving only)
 
     @property
     def head_dim(self) -> int:
@@ -90,45 +94,52 @@ class QFormerEmbeddings(nn.Module):
 
 
 class SelfProjections(nn.Module):
-    def __init__(self, hidden: int, kv_width: int):
+    def __init__(self, hidden: int, kv_width: int, int8: bool):
         super().__init__()
-        self.query = Linear(hidden, hidden)
-        self.key = Linear(kv_width, hidden)
-        self.value = Linear(kv_width, hidden)
+        self.query = Linear(hidden, hidden, int8=int8)
+        self.key = Linear(kv_width, hidden, int8=int8)
+        self.value = Linear(kv_width, hidden, int8=int8)
 
 
 class DenseLN(nn.Module):
     """``dense`` followed by the post-LN residual ``LayerNorm``."""
 
-    def __init__(self, in_features: int, hidden: int, eps: float):
+    def __init__(self, in_features: int, hidden: int, eps: float, int8: bool):
         super().__init__()
-        self.dense = Linear(in_features, hidden)
+        self.dense = Linear(in_features, hidden, int8=int8)
         self.LayerNorm = LayerNormFP32(hidden, eps)
 
 
 class Dense(nn.Module):
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, int8: bool):
         super().__init__()
-        self.dense = Linear(in_features, out_features)
+        self.dense = Linear(in_features, out_features, int8=int8)
+
+
+def _dense_params(linear: Linear, int8: bool) -> tuple:
+    """``(weight, bias)``, or K4's ``(codes, scale, bias)``."""
+    return linear.int8_params() if int8 else (linear.weight, linear.bias)
 
 
 class QFormerAttention(nn.Module):
     def __init__(self, cfg: QFormerConfig, kv_width: int):
         super().__init__()
-        self.self = SelfProjections(cfg.hidden_size, kv_width)
-        self.output = DenseLN(cfg.hidden_size, cfg.hidden_size, cfg.layer_norm_eps)
+        self.int8 = cfg.int8
+        self.self = SelfProjections(cfg.hidden_size, kv_width, cfg.int8)
+        self.output = DenseLN(cfg.hidden_size, cfg.hidden_size, cfg.layer_norm_eps, cfg.int8)
 
     def kernel_params(self) -> dict:
         s, o = self.self, self.output
-        return {"query": (s.query.weight, s.query.bias), "key": (s.key.weight, s.key.bias),
-                "value": (s.value.weight, s.value.bias),
-                "out": (o.dense.weight, o.dense.bias),
+        return {"query": _dense_params(s.query, self.int8),
+                "key": _dense_params(s.key, self.int8),
+                "value": _dense_params(s.value, self.int8),
+                "out": _dense_params(o.dense, self.int8),
                 "ln": (o.LayerNorm.weight, o.LayerNorm.bias)}
 
 
-def _ffn_params(intermediate: Dense, output: DenseLN) -> dict:
-    return {"fc1": (intermediate.dense.weight, intermediate.dense.bias),
-            "fc2": (output.dense.weight, output.dense.bias),
+def _ffn_params(intermediate: Dense, output: DenseLN, int8: bool) -> dict:
+    return {"fc1": _dense_params(intermediate.dense, int8),
+            "fc2": _dense_params(output.dense, int8),
             "ln": (output.LayerNorm.weight, output.LayerNorm.bias)}
 
 
@@ -141,10 +152,10 @@ class QFormerLayer(nn.Module):
         self.attention = QFormerAttention(cfg, H)
         if has_cross_attention:
             self.crossattention = QFormerAttention(cfg, cfg.encoder_width)
-        self.intermediate = Dense(H, M)
-        self.output = DenseLN(M, H, eps)
-        self.intermediate_query = Dense(H, M)
-        self.output_query = DenseLN(M, H, eps)
+        self.intermediate = Dense(H, M, cfg.int8)
+        self.output = DenseLN(M, H, eps, cfg.int8)
+        self.intermediate_query = Dense(H, M, cfg.int8)
+        self.output_query = DenseLN(M, H, eps, cfg.int8)
 
     def forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
                 image_embeds: Optional[torch.Tensor], query_length: int) -> torch.Tensor:
@@ -155,10 +166,10 @@ class QFormerLayer(nn.Module):
             hidden, col_bias, self.attention.kernel_params(),
             image_embeds if cross else None,
             self.crossattention.kernel_params() if cross else None,
-            _ffn_params(self.intermediate_query, self.output_query),
-            _ffn_params(self.intermediate, self.output),
+            _ffn_params(self.intermediate_query, self.output_query, cfg.int8),
+            _ffn_params(self.intermediate, self.output, cfg.int8),
             heads=cfg.num_heads, eps=cfg.layer_norm_eps, Q=query_length,
-            text_ffn_all=image_embeds is None,
+            text_ffn_all=image_embeds is None, int8=cfg.int8,
         )
 
 

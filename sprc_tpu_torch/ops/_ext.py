@@ -1,11 +1,18 @@
 """Build and bind the CUDA kernels of ``sprc_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface and loaded through ``ctypes``. The
-build happens at the first call of :func:`library`, never at import (the CPU
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one process
+per ``.cu`` file and all of them at once, and linked into one shared library
+with a plain C interface that is loaded through ``ctypes``. The build
+happens at the first call of :func:`library`, never at import (the CPU
 tests import every module of the package), and its output is cached in
 ``sprc_tpu_torch/_build/`` under a hash of the sources and flags, so a
 second process reuses it.
+
+    python -m sprc_tpu_torch.ops._ext [--jobs N]
+
+rebuilds the library whatever the cache holds and prints the seconds it
+took, as JSON: with ``--jobs 1`` the time of the build one source after
+another, beside which the default stands.
 
 Every C entry point launches on the stream it is given, does not
 synchronise and returns ``cudaGetLastError()``; :func:`check` turns a
@@ -20,19 +27,24 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # dtype / activation codes shared with csrc/common.cuh
 F32, BF16 = 0, 1
 ACT = {None: 0, "quick_gelu": 1, "gelu": 2}
+# output modes of sprc_gemm_i8, shared with csrc/gemm_i8.cu
+OUT_S32, OUT_F32, OUT_BF16, OUT_S8 = 0, 1, 2, 3
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -40,6 +52,10 @@ _SIGNATURES = {
     "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P],
     "sprc_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "sprc_layernorm_q8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    "sprc_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "sprc_quantize_static": [_P, _P, _LL, _F, _I, _P],
+    "sprc_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "sprc_token_max_sim": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -69,24 +85,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsprc_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the cached library for them exists."""
+def build(jobs: Optional[int] = None, force: bool = False) -> Path:
+    """Compile the sources unless the cached library for them exists (or
+    ``force``). ``jobs`` nvcc processes run at once; by default one per
+    source, all started together."""
     out = library_path()
-    if out.exists():
+    if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+
+        def compile_one(src):
+            obj = os.path.join(tmp, src.stem + ".o")
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return obj, proc.returncode, (f"==> {src.name} (exit {proc.returncode}, done "
+                                          f"{time.perf_counter() - t0:.1f} s after the start)\n"
+                                          f"{proc.stdout}")
+
+        with ThreadPoolExecutor(max_workers=jobs or len(srcs)) as pool:
+            done = list(pool.map(compile_one, srcs))
+        logs = [log for _, _, log in done]
+        failed = [src.name for src, (_, code, _) in zip(srcs, done) if code != 0]
+        lib = os.path.join(tmp, "lib.so")
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", lib, *(obj for obj, _, _ in done)],
+                                  capture_output=True, text=True)
+            logs.append(f"==> link (exit {link.returncode})\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs)[-4000:])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
     return out
 
 
@@ -105,3 +139,21 @@ def library() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def main(argv=None) -> None:
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description="Rebuild the kernel library and time the build.")
+    ap.add_argument("--jobs", type=int, default=None,
+                    help="nvcc processes at once (default: one per source)")
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    build(jobs=args.jobs, force=True)
+    print(json.dumps({"sources": len(list(CSRC.glob("*.cu"))), "jobs": args.jobs,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.primitives import gemm_plain, layer_norm_plain, quick_gelu
 
 __all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize"]
@@ -18,12 +19,26 @@ __all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize"]
 class Linear(nn.Module):
     """``y = x W^T + b`` with ``weight [out, in]`` in the compute dtype and
     an fp32 ``bias`` (``torch.nn.Linear`` names; parameters start
-    uninitialised, the loader fills them)."""
+    uninitialised, the loader fills them). With ``int8`` it also holds the
+    weight's int8 codes and per-channel scales, derived from the fp32 source
+    at load time (:mod:`sprc_tpu_torch.ops.quant`); the state-dict keys are
+    the same either way."""
 
-    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
+                 int8: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(out_features))
+        if int8:
+            quant.register_int8_weights(self, {"weight": "weight"})
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        quant.load_int8_weights(self, state_dict, prefix)
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
+    def int8_params(self):
+        """``(codes [out, in], scale [out], bias)`` for the int8 dense kernels."""
+        return (*quant.int8_weight(self, "weight"), self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gemm_plain(x.to(self.weight.dtype), self.weight, self.bias)

@@ -8,7 +8,13 @@ kernels, all in ``csrc/``:
   exact GELU / ``+ residual`` (``csrc/gemm.cu``);
 - ``attention``: ``softmax(q k^T scale + col_bias) v`` per item and head,
   head dim 64, ``Sq != Sk`` allowed (``csrc/attention.cu``);
-- ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``).
+- ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``), in
+  the model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
+- ``gemm_i8``: ``Y = epi(s32(A8 . W8^T))``, the int8 dense layer on the
+  tensor cores with its rescale, bias, activation, residual and
+  re-quantising epilogues (``csrc/gemm_i8.cu``);
+- ``quantize_static`` / ``quantize_rows``: activations to int8 codes with one
+  calibrated scale, or with a scale per row (``csrc/quantize.cu``).
 
 Each comes in two forms with one signature: ``CUDA`` launches the kernel
 (and only takes CUDA tensors), ``PLAIN`` is the same math in plain PyTorch
@@ -33,7 +39,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from sprc_tpu_torch.ops import _ext
+from sprc_tpu_torch.ops import _ext, quant
 
 Tensor = torch.Tensor
 
@@ -81,13 +87,46 @@ def attention_plain(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
 
 
 def layer_norm_plain(x: Tensor, w: Tensor, b: Tensor, eps: float,
-                     residual: Optional[Tensor] = None) -> Tensor:
+                     residual: Optional[Tensor] = None,
+                     out_scale: Optional[float] = None) -> Tensor:
+    """LayerNorm in fp32, rounded to ``x.dtype``; with ``out_scale`` the fp32
+    result is quantised instead (int8 codes, no rounding in between)."""
     v = x.float()
     if residual is not None:
         v = v + residual.float()
     mean = v.mean(-1, keepdim=True)
     var = (v - mean).square().mean(-1, keepdim=True)
-    return ((v - mean) * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+    y = (v - mean) * torch.rsqrt(var + eps) * w.float() + b.float()
+    return y.to(x.dtype) if out_scale is None else quant.quantize_static(y, out_scale)
+
+
+def gemm_i8_plain(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
+                  bias: Optional[Tensor] = None, *, row_scale: Optional[Tensor] = None,
+                  col_alpha: float = 1.0, act: Optional[str] = None,
+                  residual: Optional[Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32,
+                  out_scale: Optional[float] = None) -> Tensor:
+    """a8 [.., K] int8 x w8 [N, K] int8 -> [.., N]. Without ``col_scale`` the
+    raw int32 product. Else, in fp32 and every step rounded on its own:
+    ``v = act(acc (* row_scale[m]) * (col_scale[n] * col_alpha) (+ bias[n]))``
+    (``col_alpha``: a static activation scale, folded here so that the vector
+    ``w_scale * a`` needs no launch of its own), returned as
+    ``out_dtype`` (a ``residual`` of that dtype added after the rounding) or,
+    with ``out_scale``, as the int8 codes ``clip(rint(v * (1 / out_scale)))``."""
+    acc = quant.int_matmul_exact(a8, w8)
+    if col_scale is None:
+        return acc
+    v = acc.float()
+    if row_scale is not None:
+        v = v * row_scale[..., None]
+    v = v * (col_scale if col_alpha == 1.0 else col_scale * col_alpha)
+    if bias is not None:
+        v = v + bias
+    v = _ACT_FNS[act](v)
+    if out_scale is not None:
+        return quant.quantize_static(v, out_scale)
+    y = v.to(out_dtype)
+    return y if residual is None else residual + y
 
 
 # ------------------------------------------------------------------- CUDA
@@ -128,6 +167,9 @@ def _stream():
 
 def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[str] = None,
               residual: Optional[Tensor] = None) -> Tensor:
+    """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 on the tensor
+    cores, true fp32 on the CUDA cores). ``gemm_cuda.launches`` counts the
+    kernel's launches."""
     dt = _check("gemm", x, w, b, residual)
     K = x.shape[-1]
     N = w.shape[0]
@@ -149,7 +191,11 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
     lib = _ext.library()
     _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(residual), y.data_ptr(),
                              M, N, K, dt, _ext.ACT[act], _stream()), "gemm")
+    gemm_cuda.launches += 1
     return y
+
+
+gemm_cuda.launches = 0
 
 
 def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
@@ -185,7 +231,8 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
 
 
 def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
-                    residual: Optional[Tensor] = None) -> Tensor:
+                    residual: Optional[Tensor] = None,
+                    out_scale: Optional[float] = None) -> Tensor:
     dt = _check("layer_norm", x, w, b, residual)
     W = x.shape[-1]
     if W > 4096 or not x.is_contiguous():
@@ -195,28 +242,167 @@ def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
     if residual is not None and (residual.dtype != x.dtype or residual.shape != x.shape
                                  or not residual.is_contiguous()):
         raise ValueError("layer_norm: residual must match x")
-    y = torch.empty_like(x)
     lib = _ext.library()
+    if out_scale is not None:
+        y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        _ext.check(lib.sprc_layernorm_q8(
+            x.data_ptr(), _ptr(residual), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.numel() // W, W, ctypes.c_float(eps), ctypes.c_float(1.0 / out_scale), dt,
+            _stream()), "layer_norm")
+        return y
+    y = torch.empty_like(x)
     _ext.check(lib.sprc_layernorm(x.data_ptr(), _ptr(residual), w.data_ptr(), b.data_ptr(),
                                   y.data_ptr(), x.numel() // W, W, ctypes.c_float(eps), dt,
                                   _stream()), "layer_norm")
     return y
 
 
+_GEMM_I8_OUT = {torch.float32: _ext.OUT_F32, torch.bfloat16: _ext.OUT_BF16}
+
+
+def _check_i8(name: str, t: Tensor) -> None:
+    if not t.is_cuda or t.dtype != torch.int8 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: expected a contiguous, 16-byte aligned int8 CUDA tensor, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def gemm_i8_cuda(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
+                 bias: Optional[Tensor] = None, *, row_scale: Optional[Tensor] = None,
+                 col_alpha: float = 1.0, act: Optional[str] = None,
+                 residual: Optional[Tensor] = None,
+                 out_dtype: torch.dtype = torch.float32,
+                 out_scale: Optional[float] = None) -> Tensor:
+    """:func:`gemm_i8_plain` on the tensor cores (``csrc/gemm_i8.cu``).
+    ``gemm_i8_cuda.launches`` counts the kernel's launches."""
+    _check_i8("gemm_i8 a8", a8)
+    _check_i8("gemm_i8 w8", w8)
+    for t in (w8, col_scale, bias, row_scale, residual):
+        if t is not None and t.device != a8.device:
+            raise ValueError(f"gemm_i8: tensors on {a8.device} and {t.device}")
+    K = a8.shape[-1]
+    N = w8.shape[0]
+    M = a8.numel() // K
+    if w8.shape != (N, K) or K % 16 or N % 2:
+        raise ValueError(f"gemm_i8: a8 {tuple(a8.shape)} x w8 {tuple(w8.shape)}: the kernel takes "
+                         "[.., K] x [N, K] with K % 16 == 0 (16-byte rows) and N % 2 == 0")
+    if max(M * K, N * K, M * N) >= 2 ** 31:
+        raise ValueError("gemm_i8: tensor too large for 32-bit indexing")
+    out_shape = a8.shape[:-1] + (N,)
+    if col_scale is None:
+        if any(t is not None for t in (bias, row_scale, residual, act, out_scale)):
+            raise ValueError("gemm_i8: the raw int32 output takes no epilogue")
+        out, y_dtype = _ext.OUT_S32, torch.int32
+    elif out_scale is not None:
+        if residual is not None:
+            raise ValueError("gemm_i8: the int8 output takes no residual")
+        out, y_dtype = _ext.OUT_S8, torch.int8
+    elif out_dtype in _GEMM_I8_OUT:
+        out, y_dtype = _GEMM_I8_OUT[out_dtype], out_dtype
+    else:
+        raise TypeError(f"gemm_i8: out_dtype float32 or bfloat16, got {out_dtype}")
+    _fp32_vec("gemm_i8 col_scale", col_scale, N)
+    _fp32_vec("gemm_i8 bias", bias, N)
+    if row_scale is not None and (row_scale.dtype != torch.float32 or row_scale.numel() != M
+                                  or not row_scale.is_contiguous()):
+        raise ValueError(f"gemm_i8: row_scale must be contiguous fp32 with one value per row "
+                         f"({M}), got {row_scale.dtype} {tuple(row_scale.shape)}")
+    if residual is not None and (residual.dtype != y_dtype or residual.shape != out_shape
+                                 or not residual.is_contiguous() or residual.data_ptr() % 8):
+        raise ValueError("gemm_i8: residual must match the output's shape and dtype")
+    y = torch.empty(out_shape, dtype=y_dtype, device=a8.device)
+    lib = _ext.library()
+    _ext.check(lib.sprc_gemm_i8(
+        a8.data_ptr(), w8.data_ptr(), _ptr(row_scale), _ptr(col_scale), _ptr(bias),
+        _ptr(residual), y.data_ptr(), M, N, K, out, _ext.ACT[act],
+        ctypes.c_float(1.0 / out_scale if out_scale is not None else 0.0),
+        ctypes.c_float(col_alpha), _stream()), "gemm_i8")
+    gemm_i8_cuda.launches += 1
+    return y
+
+
+gemm_i8_cuda.launches = 0
+
+
+def quantize_static_cuda(x: Tensor, act_scale: float) -> Tensor:
+    """:func:`quant.quantize_static` as a kernel (``csrc/quantize.cu``)."""
+    dt = _check("quantize_static", x)
+    if not x.is_contiguous():
+        raise ValueError("quantize_static: contiguous input")
+    y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _ext.check(_ext.library().sprc_quantize_static(
+        x.data_ptr(), y.data_ptr(), x.numel(), ctypes.c_float(1.0 / act_scale), dt, _stream()),
+        "quantize_static")
+    return y
+
+
+def quantize_rows_cuda(x: Tensor):
+    """:func:`quant.quantize_rows` as a kernel: (codes like x, scales x.shape[:-1])."""
+    dt = _check("quantize_rows", x)
+    W = x.shape[-1]
+    if not x.is_contiguous() or W < 1:
+        raise ValueError("quantize_rows: contiguous rows")
+    y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    _ext.check(_ext.library().sprc_quantize_rows(
+        x.data_ptr(), y.data_ptr(), scales.data_ptr(), x.numel() // W, W, dt, _stream()),
+        "quantize_rows")
+    return y, scales
+
+
 PLAIN = types.SimpleNamespace(gemm=gemm_plain, attention=attention_plain,
-                              layer_norm=layer_norm_plain)
+                              layer_norm=layer_norm_plain, gemm_i8=gemm_i8_plain,
+                              quantize_static=quant.quantize_static,
+                              quantize_rows=quant.quantize_rows)
 CUDA = types.SimpleNamespace(gemm=gemm_cuda, attention=attention_cuda,
-                             layer_norm=layer_norm_cuda)
+                             layer_norm=layer_norm_cuda, gemm_i8=gemm_i8_cuda,
+                             quantize_static=quantize_static_cuda,
+                             quantize_rows=quantize_rows_cuda)
+
+
+_STAGE_CHECK = contextvars.ContextVar("sprc_stage_check", default=None)
+
+
+@contextlib.contextmanager
+def stage_check(record: Callable[[str, object, object], None]) -> Iterator[None]:
+    """Inside this context every stage of a kernel chain on the card is held
+    against its plain version on the inputs that the kernel run gave it: each
+    primitive launches its kernel, runs the plain version on the same
+    tensors, calls ``record(name, kernel_out, plain_out)`` and passes the
+    kernel's result on. The two runs cannot drift apart, so each stage can
+    be held as tightly as the primitive alone. It exists for the checks on
+    the card; the serving path never enters it, and a chain run inside it
+    does not count as a launch of its wrapper."""
+    token = _STAGE_CHECK.set(record)
+    try:
+        yield
+    finally:
+        _STAGE_CHECK.reset(token)
+
+
+def _checked(record) -> types.SimpleNamespace:
+    def both(name):
+        kernel, plain = getattr(CUDA, name), getattr(PLAIN, name)
+
+        def run(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            record(name, got, plain(*args, **kwargs))
+            return got
+
+        return run
+
+    return types.SimpleNamespace(**{name: both(name) for name in vars(CUDA)})
 
 
 def for_device(x: Tensor):
     """The primitive set a wrapper runs on ``x``: the plain one only because
     ``x`` lies on the CPU; on CUDA the kernels (which raise on what they do
-    not take); any other device is refused."""
+    not take; inside :func:`stage_check`, each with its plain version beside
+    it); any other device is refused."""
     if x.device.type == "cpu":
         return PLAIN
     if x.device.type == "cuda":
-        return CUDA
+        record = _STAGE_CHECK.get()
+        return CUDA if record is None else _checked(record)
     raise ValueError(f"no kernels for device {x.device}")
 
 

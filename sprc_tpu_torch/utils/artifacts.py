@@ -10,6 +10,8 @@ The port never downloads: place bert-base-uncased's vocab.txt in the cache
 or pass its path. :func:`write_synthetic_bert_vocab` writes a mechanically
 valid WordPiece vocab (specials + ascii chars + ##suffixes) for smoke runs;
 it is NOT the real bert-base-uncased vocab, never for real checkpoints.
+:func:`synthetic_calibration_images` is the same kind of stand-in for the
+int8 tower's calibration set.
 """
 
 from __future__ import annotations
@@ -44,6 +46,15 @@ def write_synthetic_bert_vocab(path: str, *, size: int = 30522) -> str:
     with open(path, "w") as f:
         f.write("\n".join(rows[:size]) + "\n")
     return path
+
+
+def synthetic_calibration_images(seed: int, n: int = 16, size: int = 224):
+    """The seeded stand-in for a calibration set: ``n`` images of normalised
+    pixels [n, size, size, 3] float32, for smoke and profiling runs on random
+    weights (one definition, so that every tool calibrates the same scales)."""
+    import numpy as np
+
+    return np.random.default_rng(seed).standard_normal((n, size, size, 3), dtype=np.float32)
 
 
 def ensure_bert_vocab(path: Optional[str] = None) -> str:

@@ -34,9 +34,11 @@ def test_token_max_sim_kernel(cuda):
 
 
 def test_vit_block_kernel(cuda):
-    """One block within its bounds, then the 23-block chain."""
+    """One block within its bounds, the 23-block chain stage by stage, and
+    the bf16 GEMM at the 4096^3 ablation shape."""
     _assert_ok(kernel_checks.check_vit_block(cuda))
     _assert_ok(kernel_checks.check_vit_tower(cuda))
+    _assert_ok(kernel_checks.check_gemm_bf16_ablate(cuda))
 
 
 @pytest.mark.parametrize("shape", sorted(kernel_checks.SERVING_SHAPES))

@@ -65,7 +65,7 @@ def japply(model, params, method):
     return lambda *a: fn(params, *a)
 
 
-def port_model(state, q=Q):
+def port_model(state, q=Q, **overrides):
     vcfg = ViTConfig(image_size=IMG, patch_size=14, width=128, depth=2, num_heads=2,
                      mlp_hidden=256, layer_norm_eps=1e-5, dtype=torch.float32)
     qcfg = QFormerConfig(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=2,
@@ -73,7 +73,7 @@ def port_model(state, q=Q):
     model = build_model("blip2_cir_align_prompt", "pretrain_vitL", image_size=IMG,
                         num_query_token=q, max_txt_len=TXT, vocab_size=VOCAB, embed_dim=EMBED,
                         vit_dtype=torch.float32, vit_config_override=vcfg,
-                        qformer_config_override=qcfg)
+                        qformer_config_override=qcfg, device="cpu", **overrides)
     model.load_state_dict(state, strict=True)
     return model.eval()
 
@@ -183,3 +183,19 @@ def test_pretrain_vitl_config_equals_jax_yaml():
               "encoder_width", "cross_attention_freq", "max_position_embeddings",
               "layer_norm_eps", "query_length"):
         assert getattr(q, f) == getattr(jq, f), f
+
+
+def test_build_and_load_default_to_the_gpu():
+    """The port's entry points run on the card unless asked for the CPU:
+    without a GPU the default raises, it does not build on the CPU."""
+    import inspect
+
+    from sprc_tpu_torch.loader import load_model
+
+    for fn in (build_model, load_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for fn in (build_model, load_model):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn("blip2_cir_align_prompt", "pretrain_vitL")
