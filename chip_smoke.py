@@ -14,9 +14,12 @@ Phases (any failure raises and exits nonzero before the last line):
    the bf16 GEMM at 4096^3; then the int8 kernels: the s8 GEMM's raw s32
    product at 4096^3 and at every product of the main path (equal to plain),
    each with the epilogue the path runs on it, the quantisers, K5 (int8 ViT
-   block) and K4 (int8 Q-Former layer); and every chain of 23 blocks or 12
+   block) and K4 (int8 Q-Former layer); every chain of 23 blocks or 12
    layers stage by stage (each kernel launch against its plain version on
-   the same inputs);
+   the same inputs); then the validate path's kernels: K8 (flash_attention)
+   at head dims 64 and 88, the attention kernel at head dim 88 in bf16 and
+   fp32, K6 (attention half) and K7 (MLP half) at ViT-L's and EVA ViT-g's
+   shapes, K2 and K5 at EVA's shapes, and EVA's dense products;
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),
@@ -35,8 +38,22 @@ Phases (any failure raises and exits nonzero before the last line):
    runs with --qformer-int8. The stage-by-stage comparison is the gate; the
    free-running all-plain comparison and the int8 answers against phase 4's
    (random weights) are reports;
-5. counters: every kernel of each path launched on that path, and no kernel
-   of the other configuration moved.
+   its calibration pass launches flash_attention (23 blocks a batch);
+5. validate on blip2_cir_align_prompt / pretrain at full width (EVA ViT-g:
+   39 blocks, W 1408, head dim 88; the Q-Former over 1408-wide embeds;
+   random weights from seed 0): a synthetic CIRR val split (512 gallery
+   images as the seeded pixel batches of phase 4, 64 queries with 6-member
+   groups) is written to a temporary directory and the metric dict comes
+   through the port's cli/validate (build_engine, cirr_queries,
+   evaluate_cirr), once on each tower route: the whole block (K2); the
+   attention half + MLP kernel (K6, K7); unfused with flash_attention (K8).
+   Each route's JSON is printed with its encode rate, its launch counters
+   are checked (39 launches per image batch of its own kernels, none of the
+   other routes'), the first 64 images and 32 queries are held stage by
+   stage and against the all-plain path, and the three routes' target
+   features are held within a bf16 bound of each other;
+6. counters: every kernel of each path launched on that path, and no kernel
+   of another configuration moved.
 
 Then it prints one JSON line with each kernel's numbers, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -76,6 +93,26 @@ BOUNDS = {"frozen": (FROZEN_MAX_ABS, FROZEN_MEAN_ABS), "target": (TARGET_MAX_ABS
 # 12 layers, the runs drift as far apart as int8 lies from bf16/fp32: a bound
 # on that difference could not tell a wrong kernel from a right one.
 CALIB_IMAGES = 16
+# The validate phase (EVA ViT-g, 39 bf16 blocks) against its all-plain version:
+# the same kinds of bound as BOUNDS, over a deeper and wider tower. Readings on
+# an H100, worst of the three routes: frozen embeds 0.193 / 1.34e-2 (max / mean
+# abs), target feats 4.71e-4 / 7.42e-5, scores 4.3e-7; the bounds are about 3x
+# those.
+EVA_BOUNDS = {"frozen": (0.5, 0.04), "target": (1.5e-3, 2.5e-4), "score": 1e-5,
+              "top1": QUERY_BATCH - 1}
+# the three routes' target features against the whole-block route's (bf16
+# towers that round at other places): max / mean abs; readings 5.21e-4 / 7.56e-5
+ROUTE_TARGET_MAX_ABS, ROUTE_TARGET_MEAN_ABS = 1.5e-3, 2.5e-4
+VALIDATE_QUERIES = 64
+# tower route -> (the --model-overrides that select it, the kernels whose
+# count must be 39 per image batch, the other routes' kernels: 0)
+ROUTES = {
+    "block": ([], ("fused_vit_block",)),
+    "attn+mlp": (["vit_fused_block=attn", "vit_fused_mlp=true"],
+                 ("fused_attn_block", "fused_mlp_block")),
+    "unfused": (["vit_fused_block=none"], ("flash_attention",)),
+}
+ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
 
 
 def log(msg):
@@ -156,12 +193,17 @@ def _check_answer(results, refs, names):
 def _counters():
     """name -> (object, attribute) of every wrapper's launch count."""
     from sprc_tpu_torch.ops import primitives
-    from sprc_tpu_torch.ops.fused_block import fused_vit_block, fused_vit_block_i8
+    from sprc_tpu_torch.ops.attention import flash_attention
+    from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_mlp_block,
+                                                fused_vit_block, fused_vit_block_i8)
     from sprc_tpu_torch.ops.fused_qformer import fused_qformer_layer
     from sprc_tpu_torch.ops.sim_kernels import token_max_sim
 
     return {"token_max_sim": (token_max_sim, "launches"),
             "fused_vit_block": (fused_vit_block, "launches"),
+            "fused_attn_block": (fused_attn_block, "launches"),
+            "fused_mlp_block": (fused_mlp_block, "launches"),
+            "flash_attention": (flash_attention, "launches"),
             "fused_qformer_layer": (fused_qformer_layer, "launches"),
             "fused_vit_block_i8": (fused_vit_block_i8, "launches"),
             "fused_qformer_layer_int8": (fused_qformer_layer, "launches_int8"),
@@ -224,13 +266,19 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[main {tag}] model blip2_cir_align_prompt/pretrain_vitL on {DEVICE}: "
         f"{n_params / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
-    if calibrate:  # set-up, plain PyTorch: the tower then serves in "int8_static"
+    if calibrate:  # set-up: the tower then serves in "int8_static"
         t0 = time.perf_counter()
+        flash, attr = counters["flash_attention"]
+        before = getattr(flash, attr)
         scales = calibrate_vit_act_scales(
             model, synthetic_calibration_images(SEED + 99, CALIB_IMAGES), batch=CALIB_IMAGES)
         sync()
+        calib_flash = getattr(flash, attr) - before
         log(f"[main {tag}] calibrated on {CALIB_IMAGES} seeded images in "
-            f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} {v:.5f}" for k, v in scales))
+            f"{time.perf_counter() - t0:.1f} s, {calib_flash} flash_attention launches: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in scales))
+        depth = model.visual_encoder.cfg.depth
+        assert calib_flash == depth, f"the calibration pass launched flash_attention {calib_flash}x"
         assert all(np.isfinite(v) and v > 0 for _, v in scales), scales
         assert model.visual_encoder.cfg.quant == "int8_static"
     cfg = model.cfg
@@ -350,6 +398,169 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
             "target_feats": target_feats, "served": served}
 
 
+def _write_cirr_val(root, names, n_queries, seed):
+    """A synthetic CIRR val split in the reference's on-disk layout (JSON
+    only: the images are the seeded pixel batches, never files)."""
+    rng = np.random.default_rng(seed)
+    words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
+    triplets = []
+    for i in range(n_queries):
+        members = [names[j] for j in rng.choice(len(names), 6, replace=False)]
+        triplets.append({"pairid": i, "reference": members[0], "target_hard": members[1],
+                         "caption": " ".join(rng.choice(words, rng.integers(3, 9))),
+                         "img_set": {"members": members}})
+    for sub, name, payload in (("captions", "cap.rc2.val.json", triplets),
+                               ("image_splits", "split.rc2.val.json",
+                                {n: f"dev/{n}.png" for n in names})):
+        os.makedirs(os.path.join(root, "cirr", sub), exist_ok=True)
+        with open(os.path.join(root, "cirr", sub, name), "w") as f:
+            json.dump(payload, f)
+    return root
+
+
+CIRR_KEYS = ["group_recall_at1", "group_recall_at2", "group_recall_at3", "recall_at1",
+             "recall_at5", "recall_at10", "recall_at50", "mean(R@5+R_s@1)", "arithmetic_mean",
+             "harmonic_mean", "geometric_mean"]
+
+
+def phase_validate(work, route, gallery):
+    """The port's validate path on blip2_cir_align_prompt / pretrain (EVA
+    ViT-g, full width) with the tower on ``route``."""
+    from sprc_tpu_torch.cli import validate
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = f"validate {route}"
+    overrides, own = ROUTES[route]
+    os.makedirs(work, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    names = [n for batch_names, _ in gallery for n in batch_names]
+    data = _write_cirr_val(os.path.join(work, "cirr_val"), names, VALIDATE_QUERIES, SEED + 2)
+    argv = ["--dataset", "CIRR", "--data-path", data, "--vocab-path", vocab,
+            "--encode-batch", str(ENCODE_BATCH), "--query-batch", str(QUERY_BATCH)]
+    args = validate.make_parser().parse_args(argv + (["--model-overrides", *overrides]
+                                                    if overrides else []))
+    assert (args.device, args.model_type, args.model_path) == ("cuda", "pretrain", None)
+    counters = _counters()
+
+    t0 = time.perf_counter()
+    model, engine = validate.build_engine(args)
+    sync()
+    vcfg = model.cfg.vit_config()
+    assert (vcfg.width, vcfg.depth, vcfg.head_dim, vcfg.mlp_hidden) == (1408, 39, 88, 6144)
+    assert model.cfg.qformer_config().encoder_width == 1408
+    log(f"[{tag}] model blip2_cir_align_prompt/pretrain on {DEVICE}: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, tower route "
+        f"fused_block={vcfg.fused_block!r} fused_mlp={vcfg.fused_mlp}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine.build_index(iter(gallery[:1]))  # warm-up
+    sync()
+
+    timed = {}
+    inner = engine.build_index
+
+    def build_index(batches):  # the engine's own, with a clock around it
+        t0 = time.perf_counter()
+        timed["index"] = inner(batches)
+        sync()
+        timed["encode_s"] = time.perf_counter() - t0
+        return timed["index"]
+
+    engine.build_index = build_index
+    queries = validate.cirr_queries(data)
+    assert len(queries["refs"]) == VALIDATE_QUERIES and all(len(g) == 6 for g in queries["groups"])
+    for obj, attr in counters.values():  # count only the main path from here on
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    results = validate.evaluate_cirr(engine, iter(gallery), queries)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    engine.build_index = inner
+    index = timed["index"]
+
+    assert list(results) == CIRR_KEYS, list(results)
+    assert all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in results.values()), results
+    assert results["recall_at50"] >= results["recall_at10"] >= results["recall_at1"]
+    assert results["group_recall_at3"] >= results["group_recall_at2"] >= results["group_recall_at1"]
+    tf = index.target_feats
+    assert tf.shape == (GALLERY, model.cfg.num_query_token, model.cfg.embed_dim), tf.shape
+    assert bool(torch.isfinite(tf).all())
+    assert bool(((tf.norm(dim=-1) - 1).abs() < 1e-3).all()), "target features are not unit norm"
+    assert tuple(index.frozen_embeds.shape) == (GALLERY, vcfg.seq_len, vcfg.width)
+    imgs_per_s = GALLERY / timed["encode_s"]
+    log(f"[{tag}] {GALLERY} images encoded in {timed['encode_s']:.3f} s = {imgs_per_s:.2f} "
+        f"imgs/s (encode_batch {ENCODE_BATCH}); {VALIDATE_QUERIES} queries scored; "
+        f"{total_s:.3f} s in all")
+    log(f"[{tag}] " + json.dumps({"route": route, "encode_imgs_per_s": imgs_per_s,
+                                  "metrics": results}))
+
+    # counters: the route's own kernels 39 times per image batch, the other routes' never
+    log(f"[counters] launches during the {tag} path: {launches}")
+    batches = len(gallery)
+    for name in ROUTE_KERNELS:
+        want = vcfg.depth * batches if name in own else 0
+        if launches[name] != want:
+            raise RuntimeError(f"{tag}: {name} launched {launches[name]}x, expected {want}")
+    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm") if launches[k] <= 0]
+    moved = [k for k in ("fused_vit_block_i8", "fused_qformer_layer_int8", "gemm_i8")
+             if launches[k] != 0]
+    if missing or moved:
+        raise RuntimeError(f"{tag}: not launched {missing}; launched from the int8 path {moved}")
+
+    # the first gallery batch and the first 32 queries again: stage by stage,
+    # then through the all-plain path on the card
+    first = torch.from_numpy(gallery[0][1]).to(DEVICE)
+    stage_pass(tag, f"gallery encode, {ENCODE_BATCH} images", counters,
+               lambda: model.extract_target_features(first))
+    with torch.inference_mode(), primitives.plain_reference():
+        plain_tf, plain_frozen = model.extract_target_features(first)
+    sync()
+    b = ENCODE_BATCH
+    err_frozen = (plain_frozen.cpu() - index.frozen_embeds[:b].float()).abs()
+    err_tf = (plain_tf.float() - tf[:b]).abs()
+    log(f"[{tag}] all-plain gallery encode on the card, {b} images: frozen embeds max_abs "
+        f"{err_frozen.max().item():.3e} mean_abs {err_frozen.mean().item():.3e}; target feats "
+        f"max_abs {err_tf.max().item():.3e} mean_abs {err_tf.mean().item():.3e}")
+    assert err_frozen.max().item() <= EVA_BOUNDS["frozen"][0]
+    assert err_frozen.mean().item() <= EVA_BOUNDS["frozen"][1]
+    assert err_tf.max().item() <= EVA_BOUNDS["target"][0]
+    assert err_tf.mean().item() <= EVA_BOUNDS["target"][1]
+
+    refs, caps = queries["refs"][:QUERY_BATCH], queries["captions"][:QUERY_BATCH]
+    tok = engine.tokenizer(caps, max_length=model.cfg.max_txt_len)
+    query = (index.reference_embeds(refs).to(DEVICE), index.target_feats,
+             torch.as_tensor(tok["input_ids"], device=DEVICE),
+             torch.as_tensor(tok["attention_mask"], device=DEVICE))
+    stage_pass(tag, f"{len(refs)} queries", counters, lambda: model.inference(*query))
+    with torch.inference_mode():
+        got = model.inference(*query).cpu().numpy()
+        with primitives.plain_reference():
+            plain = model.inference(*query).cpu().numpy()
+    for k, (obj, attr) in counters.items():  # that comparison is not the main path either
+        setattr(obj, attr, launches[k])
+    top1_same = int((got.argmax(-1) == plain.argmax(-1)).sum())
+    log(f"[{tag}] all-plain path on the card: max |score diff| {np.abs(got - plain).max():.3e} "
+        f"over {got.shape}; top-1 equal on {top1_same}/{len(refs)}")
+    assert np.abs(got - plain).max() <= EVA_BOUNDS["score"]
+    assert top1_same >= EVA_BOUNDS["top1"]
+    target_feats = tf.cpu()
+    del engine, model, index, tf, first, query
+    torch.cuda.empty_cache()
+    return {"route": route, "launches": launches, "encode_imgs_per_s": imgs_per_s,
+            "metrics": results, "target_feats": target_feats}
+
+
+def check_routes_agree(runs):
+    base = runs["block"]["target_feats"]
+    for route, run in runs.items():
+        d = (run["target_feats"] - base).abs()
+        log(f"[validate] route {route} against the whole-block route, target feats of "
+            f"{GALLERY} images: max_abs {d.max().item():.3e} mean_abs {d.mean().item():.3e}")
+        assert d.max().item() <= ROUTE_TARGET_MAX_ABS, (route, d.max().item())
+        assert d.mean().item() <= ROUTE_TARGET_MEAN_ABS, (route, d.mean().item())
+
+
 def report_int8_against_bf16(bf16, int8):
     """Not a gate: how far the int8 configuration's answers lie from the
     bf16/fp32 configuration's, on random weights (near-tied scores)."""
@@ -381,12 +592,13 @@ def kernel_table(rows, launches):
 
     by_check = {r["check"]: r for r in rows}
 
-    def entry(name, source, replaces, checks, library_ms=None):
+    def entry(name, source, replaces, checks, library_ms=None, count=None):
         rs = [by_check[c] for c in checks]
         work = {"bytes": sum(r["bytes"] for r in rs),
                 "op_seconds": sum(r["op_seconds"] for r in rs)}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "launches": launches[count or name],
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
                 **bound_ms(work), "library_ms": library_ms}
 
@@ -403,6 +615,20 @@ def kernel_table(rows, launches):
               [f"K4 qformer_layer_int8 {s}" for s in shapes]),
         entry("fused_vit_block_i8", "sprc_tpu_torch/ops/fused_block.py",
               "sprc_tpu/ops/pallas_block.py:535", ["K5 vit_block_i8"]),
+        # K6 to K8 at the shapes of the validate path (EVA ViT-g, 64 images)
+        entry("fused_attn_block", "sprc_tpu_torch/ops/fused_block.py",
+              "sprc_tpu/ops/pallas_block.py:640", ["K6 attn_block eva_g"]),
+        entry("fused_mlp_block", "sprc_tpu_torch/ops/fused_block.py",
+              "sprc_tpu/ops/pallas_mlp.py:129", ["K7 mlp_block eva_g"]),
+        entry("flash_attention", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_attention.py:428", ["K8 flash_attention D=88"],
+              library_ms=by_check["K8 flash_attention D=88"]["library_ms"]),
+        # the SPRC_ATTN_V variants (v4 to v11) are TPU schedules of the same
+        # function: the one kernel above, its numbers again
+        entry("flash_attention_variants", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_attention.py:84", ["K8 flash_attention D=88"],
+              library_ms=by_check["K8 flash_attention D=88"]["library_ms"],
+              count="flash_attention"),
         # the tiled matmul of scripts/ablate_int8.py, at its shape, in both its modes
         entry("gemm_i8", "sprc_tpu_torch/csrc/gemm_i8.cu", "scripts/ablate_int8.py:194",
               ["gemm_i8 ablate 4096^3"],
@@ -427,14 +653,23 @@ def main():
         serve_flags=["--qformer-int8"], calibrate=True)
     check_counters("int8", int8["launches"])
     against = report_int8_against_bf16(bf16, int8)
+    del bf16["target_feats"], int8["target_feats"]
+    runs = {route: phase_validate(work, route, gallery) for route in ROUTES}
+    check_routes_agree(runs)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
     launches = {**int8["launches"], **{k: bf16["launches"][k] for k in PATH_KERNELS["bf16"]}}
+    for route, (_, own) in ROUTES.items():
+        if route != "block":  # K2's count stays the pretrain_vitL path's
+            launches.update({k: runs[route]["launches"][k] for k in own})
     keep = ("encode_imgs_per_s", "query_1_median_ms", "query_32_median_ms")
     print(json.dumps({"kernels": kernel_table(rows, launches),
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
-                      "int8_vs_bf16_random_weights": against}), flush=True)
+                      "int8_vs_bf16_random_weights": against,
+                      "validate_pretrain": {route: {k: run[k] for k in
+                                                    ("encode_imgs_per_s", "metrics", "launches")}
+                                            for route, run in runs.items()}}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)

@@ -1,9 +1,13 @@
 """Where the serving path's time goes on one GPU.
 
-    python -m sprc_tpu_torch.cli.profile_serving [--int8] [--out DIR]
+    python -m sprc_tpu_torch.cli.profile_serving [--model-type pretrain|pretrain_vitL]
+        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--out DIR]
 
-Builds ``blip2_cir_align_prompt`` / ``pretrain_vitL`` at full width with
-random weights from seed 0 and takes one encode batch (64 images, 224 px,
+Builds ``blip2_cir_align_prompt`` / ``--model-type`` (``pretrain_vitL``: CLIP
+ViT-L, the default; ``pretrain``: EVA ViT-g) at full width with random
+weights from seed 0, the tower on the route that ``--fused-block`` and
+``--fused-mlp`` name (``ViTConfig.fused_block`` / ``fused_mlp``; the default
+is the whole-block kernel), and takes one encode batch (64 images, 224 px,
 as the engine's ``encode_batch``) and one query batch (32 composed queries,
 the engine's ``query_batch``, scored against 512 random unit target
 features). For each it reports:
@@ -15,8 +19,8 @@ features). For each it reports:
 - from one ``torch.profiler`` run of the kernel path: device time by kernel
   group, the device busy share (device time over the profiled wall time; one
   stream, so the times do not overlap) and the bf16 GEMM rate of the tower
-  (its dense FLOPs, 24 M W^2 per block with M = batch x 257 rows, over the
-  bf16 GEMM time).
+  (its dense FLOPs, 2 R (4 W^2 + 2 W M) per block with R = batch x 257 rows
+  and M the MLP width, over the bf16 GEMM time).
 
 With ``--int8`` the model is the int8 serving configuration (the tower's
 activation scales calibrated on 16 seeded images, ``vit_quant="int8_static"``,
@@ -27,7 +31,8 @@ patch convolution and the ``vision_proj`` / ``text_proj`` products are
 PyTorch calls, and no other library GEMM may appear there.
 
 It prints one JSON object and writes it, the profiler's tables and chrome
-traces under ``--out`` (default ``sprc_tpu_torch/_build/profile``). Needs CUDA.
+traces under ``--out`` (default ``sprc_tpu_torch/_build/profile`` with the
+options appended). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -104,10 +109,19 @@ def _profile(fn, name: str, out: str) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
-                    help="default sprc_tpu_torch/_build/profile, profile_int8 with --int8")
+                    help="default sprc_tpu_torch/_build/profile, with the options appended")
+    ap.add_argument("--model-type", default="pretrain_vitL", choices=["pretrain_vitL", "pretrain"])
+    ap.add_argument("--fused-block", default="block", choices=["block", "attn", "none"],
+                    help="the tower's route (ViTConfig.fused_block)")
+    ap.add_argument("--fused-mlp", action="store_true",
+                    help="the MLP half through fused_mlp_block (ViTConfig.fused_mlp)")
     ap.add_argument("--int8", action="store_true", help="the int8 serving configuration")
     args = ap.parse_args(argv)
-    args.out = args.out or "sprc_tpu_torch/_build/profile" + ("_int8" if args.int8 else "")
+    suffix = "".join(f"_{part}" for part, on in (
+        (args.model_type, args.model_type != "pretrain_vitL"),
+        (args.fused_block, args.fused_block != "block"), ("mlp", args.fused_mlp),
+        ("int8", args.int8)) if on)
+    args.out = args.out or "sprc_tpu_torch/_build/profile" + suffix
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -121,7 +135,8 @@ def main(argv=None) -> dict:
     dev = "cuda"
     rng = np.random.default_rng(SEED)
     int8_kwargs = {"vit_quant": "int8_calib", "qformer_int8": True} if args.int8 else {}
-    model = load_model("blip2_cir_align_prompt", "pretrain_vitL", device=dev, seed=SEED,
+    model = load_model("blip2_cir_align_prompt", args.model_type, device=dev, seed=SEED,
+                       vit_fused_block=args.fused_block, vit_fused_mlp=args.fused_mlp,
                        **int8_kwargs)
     if args.int8:  # set-up: the tower then serves in "int8_static"
         calibrate_vit_act_scales(model, synthetic_calibration_images(SEED + 99))
@@ -144,7 +159,8 @@ def main(argv=None) -> dict:
         "encode.queries_pass": lambda: model.target_features(frozen),
         "query": lambda: model.inference(refs, targets, ids, mask),
     }
-    result = {"device": torch.cuda.get_device_name(0), "int8": args.int8,
+    result = {"device": torch.cuda.get_device_name(0), "model_type": args.model_type,
+              "fused_block": args.fused_block, "fused_mlp": args.fused_mlp, "int8": args.int8,
               "vit_act_scales": model.cfg.vit_act_scales,
               "encode_batch": EB, "query_batch": QB,
               "gallery": GALLERY, "repeats": REPEATS, "wall_ms": {}}
@@ -154,7 +170,8 @@ def main(argv=None) -> dict:
     with torch.inference_mode():
         for name in ("encode", "query"):
             result[name] = _profile(steps[name], name, args.out)
-    flops = 24 * EB * vcfg.seq_len * vcfg.width ** 2 * vcfg.depth
+    flops = 2 * EB * vcfg.seq_len * (4 * vcfg.width ** 2
+                                     + 2 * vcfg.width * vcfg.mlp_hidden) * vcfg.depth
     result["encode"]["tower_dense_tflop"] = flops / 1e12
     if args.int8:
         # the int8 GEMM group also holds the queries pass's products

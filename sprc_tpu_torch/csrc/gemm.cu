@@ -8,8 +8,11 @@
 // Layouts: X [M, K] row-major, W [N, K] row-major (torch Linear [out, in]),
 // b [N] fp32 or null, R [M, N] (residual, model dtype) or null, Y [M, N].
 // Epilogue, all in fp32: v = acc + b; v = act(v); then either Y = v or, with
-// a residual, Y = R + round(v) in the model dtype (the JAX kernel's
-// `x + out.astype(x.dtype)`). Rows and columns past M and N are masked
+// a residual, one of two modes: Y = R + round(v) in the model dtype (the JAX
+// block kernels' `x + out.astype(x.dtype)`), or, with res_f32, Y = round(v + R)
+// with the sum in fp32 and one rounding (the `acc + b2 + f32(x)` of
+// sprc_tpu/ops/pallas_mlp.py::_mlp_kernel). In fp32 the two modes are the same
+// sum. Rows and columns past M and N are masked
 // (M = 257 B in the ViT; 32 B or 64 B in the Q-Former); K must be a
 // multiple of 8 (bf16) or 4 (fp32), which the wrapper checks.
 //
@@ -61,12 +64,12 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* stage, const __nv_bflo
 
 __device__ __forceinline__ void epilogue_store_bf16(
     float v, int row, int col, int N, const float* bias,
-    const __nv_bfloat16* res, __nv_bfloat16* Y, int act) {
+    const __nv_bfloat16* res, __nv_bfloat16* Y, int act, int res_f32) {
   if (bias) v += bias[col];
   v = sprc::apply_act(v, act);
   if (res) {
     float r = __bfloat162float(res[(size_t)row * N + col]);
-    v = r + __bfloat162float(__float2bfloat16(v));
+    v = res_f32 ? v + r : r + __bfloat162float(__float2bfloat16(v));
   }
   Y[(size_t)row * N + col] = __float2bfloat16(v);
 }
@@ -74,7 +77,7 @@ __device__ __forceinline__ void epilogue_store_bf16(
 __global__ void __launch_bounds__(THREADS) gemm_bf16_kernel(
     const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ W,
     const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-    __nv_bfloat16* __restrict__ Y, int M, int N, int K, int act) {
+    __nv_bfloat16* __restrict__ Y, int M, int N, int K, int act, int res_f32) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
 
@@ -136,7 +139,8 @@ __global__ void __launch_bounds__(THREADS) gemm_bf16_kernel(
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           int col = colb + t;
-          if (col < N) epilogue_store_bf16(cs[r * 16 + c + t], row, col, N, bias, res, Y, act);
+          if (col < N) epilogue_store_bf16(cs[r * 16 + c + t], row, col, N, bias, res, Y, act,
+                                               res_f32);
         }
       }
       __syncwarp();
@@ -230,7 +234,8 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(
 }  // namespace
 
 extern "C" int sprc_gemm(const void* x, const void* w, const void* bias, const void* res,
-                         void* y, int M, int N, int K, int dtype, int act, void* stream) {
+                         void* y, int M, int N, int K, int dtype, int act, int res_f32,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sprc::kBF16) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -240,7 +245,7 @@ extern "C" int sprc_gemm(const void* x, const void* w, const void* bias, const v
     gemm_bf16_kernel<<<grid, THREADS, SMEM_BF16, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
         static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res),
-        static_cast<__nv_bfloat16*>(y), M, N, K, act);
+        static_cast<__nv_bfloat16*>(y), M, N, K, act, res_f32);
   } else {
     const float* xf = static_cast<const float*>(x);
     const float* wf = static_cast<const float*>(w);

@@ -1,16 +1,17 @@
-"""CIRR dataset (counterpart of ``sprc_tpu/data/datasets.py``).
+"""CIR datasets: CIRR, FashionIQ, CIRCO (counterpart of
+``sprc_tpu/data/datasets.py``).
 
-The reference's on-disk layout and split semantics (reference
-src/data_utils.py:203-286), framework-free: an indexable returning
+The reference's on-disk layouts and split semantics (reference
+src/data_utils.py:108-426), framework-free: indexables returning
 numpy-ready samples, consumed by :mod:`sprc_tpu_torch.data.loader`. Copied
 so that the port imports nothing of ``sprc_tpu``; tests/test_torch_inputs.py
-pins its items equal to the original's. FashionIQ and CIRCO are not ported
-yet.
+pins their items equal to the originals'. PIL is imported only when an image
+is decoded: the relative modes of the val splits read JSON only.
 
 Modes follow the reference contract:
 - ``classic``: (image_name, image) — the gallery index stream.
-- ``relative``: query triplets (train -> names [+ images]; val -> names and
-  group members; test1 -> pair ids and names).
+- ``relative``: query triplets; per-split payloads mirror data_utils.py
+  (train -> images; val -> names; test -> ids/names for submissions).
 
 Decode errors raise (the reference swallows them silently).
 """
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 
 def _open_image(path):
@@ -102,3 +103,157 @@ class CIRRDataset:
             "caption": caption,
             "group_members": members,
         }
+
+
+class FashionIQDataset:
+    """FashionIQ (reference data_utils.py:108-200).
+
+    relative mode items:
+      train -> dict(reference_name, target_name, captions
+                    [+ reference_image, target_image when a transform is set])
+      val   -> dict(reference_name, target_name, captions)
+      test  -> dict(reference_name, reference_image, captions)
+    classic mode items: dict(image_name, image)
+    """
+
+    DRESS_TYPES = ("dress", "shirt", "toptee")
+
+    def __init__(
+        self,
+        data_path: Union[str, Path],
+        split: str,
+        dress_types: Sequence[str],
+        mode: str,
+        preprocess: Optional[Callable] = None,
+    ):
+        if mode not in ("relative", "classic"):
+            raise ValueError("mode should be in ['relative', 'classic']")
+        if split not in ("test", "train", "val"):
+            raise ValueError("split should be in ['test', 'train', 'val']")
+        for dt in dress_types:
+            if dt not in self.DRESS_TYPES:
+                raise ValueError(f"dress_type should be in {self.DRESS_TYPES}")
+
+        self.base = Path(data_path)
+        self.split = split
+        self.mode = mode
+        self.dress_types = list(dress_types)
+        self._has_preprocess = preprocess is not None
+        self.preprocess = preprocess or (lambda x: x)
+
+        self.triplets: List[dict] = []
+        for dt in dress_types:
+            with open(self.base / "captions" / f"cap.{dt}.{split}.json") as f:
+                self.triplets.extend(json.load(f))
+        self.image_names: List[str] = []
+        for dt in dress_types:
+            with open(self.base / "image_splits" / f"split.{dt}.{split}.json") as f:
+                self.image_names.extend(json.load(f))
+
+    def _img(self, name: str):
+        return self.preprocess(_open_image(self.base / "images" / f"{name}.png"))
+
+    def __len__(self) -> int:
+        return len(self.triplets) if self.mode == "relative" else len(self.image_names)
+
+    def __getitem__(self, index: int):
+        if self.mode == "classic":
+            name = self.image_names[index]
+            return {"image_name": name, "image": self._img(name)}
+        t = self.triplets[index]
+        captions = t["captions"]
+        ref = t["candidate"]
+        if self.split == "train":
+            item = {
+                "reference_name": ref,
+                "target_name": t["target"],
+                "captions": captions,
+            }
+            if self._has_preprocess:
+                item["reference_image"] = self._img(ref)
+                item["target_image"] = self._img(t["target"])
+            return item
+        if self.split == "val":
+            return {
+                "reference_name": ref,
+                "target_name": t["target"],
+                "captions": captions,
+            }
+        return {
+            "reference_name": ref,
+            "reference_image": self._img(ref),
+            "captions": captions,
+        }
+
+
+class CIRCODataset:
+    """CIRCO (reference data_utils.py:289-426): COCO-unlabeled gallery with
+    multi-ground-truth annotations (val) / query-only (test)."""
+
+    MAX_NUM_GTS = 23
+
+    def __init__(
+        self,
+        data_path: Union[str, Path],
+        split: str,
+        mode: str,
+        preprocess: Optional[Callable] = None,
+        load_images: bool = True,
+    ):
+        if mode not in ("relative", "classic"):
+            raise ValueError("mode should be in ['relative', 'classic']")
+        if split not in ("test", "val"):
+            raise ValueError("split should be in ['test', 'val']")
+        self.base = Path(data_path)
+        self.split = split
+        self.mode = mode
+        self.preprocess = preprocess or (lambda x: x)
+        # metadata-only relative iteration (query scoring reuses the gallery
+        # index's frozen embeds, so decoding reference images is wasted work)
+        self.load_images = load_images
+
+        with open(
+            self.base / "COCO2017_unlabeled" / "annotations" / "image_info_unlabeled2017.json"
+        ) as f:
+            imgs_info = json.load(f)
+        self.img_paths = [
+            self.base / "COCO2017_unlabeled" / "unlabeled2017" / info["file_name"]
+            for info in imgs_info["images"]
+        ]
+        self.img_ids = [info["id"] for info in imgs_info["images"]]
+        self.img_id_to_idx = {str(i): n for n, i in enumerate(self.img_ids)}
+
+        with open(self.base / "annotations" / f"{split}.json") as f:
+            self.annotations: List[dict] = json.load(f)
+
+    def __len__(self) -> int:
+        return len(self.annotations) if self.mode == "relative" else len(self.img_ids)
+
+    def __getitem__(self, index: int):
+        if self.mode == "classic":
+            return {
+                "img_id": str(self.img_ids[index]),
+                "image": self.preprocess(_open_image(self.img_paths[index])),
+            }
+        ann = self.annotations[index]
+        ref_id = str(ann["reference_img_id"])
+        item = {
+            "query_id": str(ann["id"]),
+            "reference_img_id": ref_id,
+            "relative_caption": ann["relative_caption"],
+            "shared_concept": ann["shared_concept"],
+        }
+        if self.load_images:
+            item["reference_image"] = self.preprocess(
+                _open_image(self.img_paths[self.img_id_to_idx[ref_id]])
+            )
+        if self.split == "val":
+            tgt_id = str(ann["target_img_id"])
+            gt = [str(x) for x in ann["gt_img_ids"]]
+            gt += [""] * (self.MAX_NUM_GTS - len(gt))
+            item.update(target_img_id=tgt_id, gt_img_ids=gt)
+            if self.load_images:
+                item["target_image"] = self.preprocess(
+                    _open_image(self.img_paths[self.img_id_to_idx[tgt_id]])
+                )
+        return item

@@ -1,12 +1,12 @@
-"""Host image preprocessing: TargetPad -> bicubic resize -> center crop ->
-normalize (CLIP statistics).
+"""Host image preprocessing: TargetPad or SquarePad -> bicubic resize ->
+center crop -> normalize (CLIP statistics).
 
 The PIL-exact host path of ``sprc_tpu/data/transforms.py`` (reference
 src/data_utils.py:49-105), framework-free and copied so that the port
 imports nothing of ``sprc_tpu``; tests/test_torch_inputs.py pins its pixels
 equal to the original's. PIL is imported only when a transform runs. Output
 is NHWC float32, as the port's models take it. The device path
-(``device_preprocess``) and squarepad are not ported yet.
+(``device_preprocess``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +35,14 @@ def _target_pad(image, target_ratio: float):
     scaled_max_wh = max(w, h) / target_ratio
     hp = max(int((scaled_max_wh - w) / 2), 0)
     vp = max(int((scaled_max_wh - h) / 2), 0)
+    return _pad_pil(image, hp, vp)
+
+
+def _square_pad(image):
+    w, h = image.size
+    max_wh = max(w, h)
+    hp = int((max_wh - w) / 2)
+    vp = int((max_wh - h) / 2)
     return _pad_pil(image, hp, vp)
 
 
@@ -79,14 +87,22 @@ class HostTransform:
     """Picklable host-side preprocess: PIL image -> float32 [H, W, 3]."""
 
     dim: int
+    pad: str = "target"  # "target" | "square" | "none"
     target_ratio: float = 1.25
 
     def __call__(self, image) -> np.ndarray:
-        image = _target_pad(image, self.target_ratio)
+        if self.pad == "target":
+            image = _target_pad(image, self.target_ratio)
+        elif self.pad == "square":
+            image = _square_pad(image)
         image = _resize_shorter(image, self.dim)
         image = _center_crop(image, self.dim)
         return _finalize(image, self.dim)
 
 
 def targetpad_transform(target_ratio: float, dim: int) -> HostTransform:
-    return HostTransform(dim=dim, target_ratio=target_ratio)
+    return HostTransform(dim=dim, pad="target", target_ratio=target_ratio)
+
+
+def squarepad_transform(dim: int) -> HostTransform:
+    return HostTransform(dim=dim, pad="square")

@@ -1,6 +1,6 @@
 """JAX parameter tree -> the port's state dict.
 
-``state_dict_from_jax(params_np, vit="clip_L")`` takes the flagship's JAX
+``state_dict_from_jax(params_np, vit="clip_L" | "eva_clip_g")`` takes the flagship's JAX
 parameter pytree (nested dicts of numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns reference-named
 torch tensors, the same keys and layouts as
@@ -79,6 +79,30 @@ def clip_vit_from_jax(params: Mapping[str, Any], prefix: str = "visual_encoder."
     return out
 
 
+def eva_vit_from_jax(params: Mapping[str, Any], prefix: str = "visual_encoder.") -> Dict[str, np.ndarray]:
+    """EvaViT params (``{"trunk": ...}``) -> reference-named numpy arrays, the
+    keys of ``torch_export.eva_vit_to_torch`` (and every block of a scanned
+    tree, which that function drops)."""
+    out: Dict[str, np.ndarray] = {}
+    trunk = params["trunk"]
+    out[f"{prefix}cls_token"] = _np(trunk["cls_token"])
+    out[f"{prefix}pos_embed"] = _np(trunk["pos_embed"])
+    out[f"{prefix}patch_embed.proj.weight"] = _np(
+        trunk["patch_embed"]["proj"]["kernel"]).transpose(3, 2, 0, 1)
+    out[f"{prefix}patch_embed.proj.bias"] = _np(trunk["patch_embed"]["proj"]["bias"])
+    for i, block in _vit_blocks(trunk):
+        bp = f"{prefix}blocks.{i}."
+        _ln(out, f"{bp}norm1", block["norm1"])
+        out[f"{bp}attn.qkv.weight"] = _np(block["attn"]["qkv"]["kernel"]).T
+        out[f"{bp}attn.q_bias"] = _np(block["attn"]["q_bias"])
+        out[f"{bp}attn.v_bias"] = _np(block["attn"]["v_bias"])
+        _linear(out, f"{bp}attn.proj", block["attn"]["proj"])
+        _ln(out, f"{bp}norm2", block["norm2"])
+        _linear(out, f"{bp}mlp.fc1", block["mlp_fc1"])
+        _linear(out, f"{bp}mlp.fc2", block["mlp_fc2"])
+    return out
+
+
 def qformer_layer_from_jax(layer: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     """One QFormerLayer's params -> reference-named numpy arrays."""
     out: Dict[str, np.ndarray] = {}
@@ -119,9 +143,10 @@ def to_torch(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") -> Dict[str, torch.Tensor]:
     """Flagship JAX params -> reference-named state dict of torch tensors."""
-    if vit != "clip_L":
-        raise NotImplementedError(f"vit {vit!r}: the port has CLIP ViT-L (clip_L) only")
-    out = clip_vit_from_jax(params_np["visual_encoder"])
+    if vit not in ("clip_L", "eva_clip_g"):
+        raise ValueError(f"vit {vit!r}: expected 'clip_L' or 'eva_clip_g'")
+    tower = clip_vit_from_jax if vit == "clip_L" else eva_vit_from_jax
+    out = tower(params_np["visual_encoder"])
     _ln(out, "ln_vision", params_np["ln_vision"])
     out.update(qformer_from_jax(params_np["qformer"]))
     for name in ("query_tokens", "prompt_tokens", "temp"):

@@ -34,7 +34,10 @@ from typing import Callable, Dict, List
 import torch
 
 from sprc_tpu_torch.ops import primitives, quant
-from sprc_tpu_torch.ops.fused_block import (fused_vit_block, fused_vit_block_i8,
+from sprc_tpu_torch.ops.attention import flash_attention
+from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_attn_block_plain,
+                                            fused_mlp_block, fused_mlp_block_plain,
+                                            fused_vit_block, fused_vit_block_i8,
                                             fused_vit_block_i8_plain, fused_vit_block_plain)
 from sprc_tpu_torch.ops.fused_qformer import (fused_qformer_layer, fused_qformer_layer_plain,
                                               quantize_layer_params)
@@ -115,6 +118,20 @@ STAGE_BOUNDS = {
     "layer_norm -> f32": (1.0, 1e-6),        # 0.50, 2.3e-7
     "gemm -> bf16": (0.75, 1.6e-2),          # 0.26, 6.7e-3: plain rounds twice (product, then bias)
     "gemm -> f32": (1.0, 1.5e-5),            # 0.97, 3.8e-6
+    # the MLP kernel's fc2: the residual joins the fp32 sum before the one
+    # rounding; plain rounds the product first, so a bf16 step apart as above
+    "gemm, fp32 residual -> bf16": (0.75, 1.6e-2),   # 0.29, 7.2e-3
+    "gemm, fp32 residual -> f32": (1.0, 1.5e-5),     # 0.96, 2.5e-6
+    # head dim 88 (EVA ViT-g): the head padded to 96 with zero lanes
+    "attention D=88 -> bf16": (1.0, 1.6e-2),         # 0.49, 7.7e-3: one bf16 step, as at D=64
+    "attention D=88 -> f32": (1.0, 5e-6),            # 0.93, 1.2e-6
+    # flash_attention: the kernel rounds the unnormalised probabilities and
+    # divides after P V, its plain version normalises first (the Pallas v3):
+    # one bf16 step, as for "attention" (the same kernel and the same order)
+    "flash_attention -> bf16": (1.0, 1.6e-2),        # 0.49, 5.2e-3
+    "flash_attention -> f32": (1.0, 5e-6),           # 0.93, 1.2e-6
+    "flash_attention D=88 -> bf16": (1.0, 1.6e-2),   # 0.49, 7.7e-3
+    "flash_attention D=88 -> f32": (1.0, 5e-6),      # 0.93, 5.9e-7
 }
 
 
@@ -129,12 +146,12 @@ class StageRecorder:
 
     def __call__(self, name: str, got, want) -> None:
         if isinstance(got, tuple):  # quantize_rows
-            self._add(f"{name} codes", got[0], want[0])
-            self._add(f"{name} scales", got[1], want[1])
+            self.add(f"{name} codes", got[0], want[0])
+            self.add(f"{name} scales", got[1], want[1])
         else:
-            self._add(f"{name} -> {_TYPE[got.dtype]}", got, want)
+            self.add(f"{name} -> {_TYPE[got.dtype]}", got, want)
 
-    def _add(self, kind: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    def add(self, kind: str, got: torch.Tensor, want: torch.Tensor) -> None:
         d = (got.float() - want.float()).abs()
         differ, worst, top = torch.stack(
             [(d > 0).float().mean(), d.max(), want.float().abs().max()]).tolist()
@@ -212,15 +229,19 @@ def _vit_block_work(B, S, W, M, int8: bool) -> Dict[str, float]:
             "op_seconds": dense / PEAK_OPS["int8" if int8 else "bf16"] + attn / PEAK_OPS["bf16"]}
 
 
+# the two towers' block shapes: (W, M, heads, QuickGELU, LN eps)
+TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6)}
+
+
 def check_vit_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=16,
-                    seed=1) -> dict:
+                    seed=1, quick=True, eps=1e-5) -> dict:
     """bf16, output scale ~5: max-abs <= 0.0625 and mean-abs <= 4e-3 (twice
     the JAX kernel's own envelope against XLA, for another accumulation
     order)."""
     r = _Rand(device, seed)
     x = r.normal(B, S, W, dtype=torch.bfloat16)
     params = vit_block_params(r, W, M)
-    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True)
+    kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5, quick=quick)
     with torch.inference_mode():
         got = fused_vit_block(x, *params, **kw)
         want = fused_vit_block_plain(x, *params, **kw)
@@ -434,6 +455,12 @@ GEMM_I8_PRODUCTS = {
     "qformer fc2, all rows": (_Q_M, 768, 3072, "rows->f32"),
     "qformer fc1, half the rows": (_F_M // 2, 3072, 768, "rows,gelu->f32"),
     "qformer fc2, half the rows": (_F_M // 2, 768, 3072, "rows->f32"),
+    # EVA ViT-g: 1408 = 11 x 128 and 4224 = 33 x 128 are odd multiples of the tile
+    "eva qkv": (_VIT_M, 4224, 1408, "bf16"),
+    "eva proj": (_VIT_M, 1408, 1408, "bf16+residual"),
+    "eva fc1": (_VIT_M, 6144, 1408, "gelu->s8"),
+    "eva fc2": (_VIT_M, 1408, 6144, "bf16+residual"),
+    "qformer cross kv, queries pass, EVA": (_VIT_M, 768, 1408, "rows->f32"),
 }
 assert _Q_M == _F_M  # the queries pass and a query batch give the same self and FFN products
 
@@ -448,8 +475,8 @@ def _epilogue(r: _Rand, epilogue: str, M: int, N: int) -> tuple:
         kw = dict(row_scale=r.normal(M).abs() * 1e-2 + 1e-3)
         return "gemm_i8 -> f32", dict(kw, act="gelu") if "gelu" in epilogue else kw
     kw = dict(col_alpha=0.037)  # the tower's: one static scale
-    if epilogue == "quick_gelu->s8":
-        return "gemm_i8 -> s8", dict(kw, act="quick_gelu", out_scale=0.05)
+    if epilogue.endswith("->s8"):
+        return "gemm_i8 -> s8", dict(kw, act=epilogue.split("->")[0], out_scale=0.05)
     if epilogue == "bf16+residual":
         kw["residual"] = r.normal(M, N, dtype=torch.bfloat16)
     return "gemm_i8 -> bf16", dict(kw, out_dtype=torch.bfloat16)
@@ -576,7 +603,7 @@ VIT_I8_ACTS = (6.0 / 127, 0.5 / 127, 6.0 / 127, 4.0 / 127)
 
 
 def check_vit_block_i8(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=16,
-                       seed=8) -> dict:
+                       seed=8, quick=True, eps=1e-5) -> dict:
     """K5 against its plain version, bf16 activations, output scale ~5.75:
     max-abs <= 0.125 and mean-abs <= 0.015, 2 to 2.5x the readings on an H100
     (0.0625 and 5.76e-3 at B=64). The GEMM epilogues and the quantisers are bit-equal
@@ -587,7 +614,7 @@ def check_vit_block_i8(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, hea
     r = _Rand(device, seed)
     x = r.normal(B, S, W, dtype=torch.bfloat16)
     params = quantize_vit_block(vit_block_params(r, W, M, dtype=torch.float32))
-    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True, acts=VIT_I8_ACTS)
+    kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5, quick=quick, acts=VIT_I8_ACTS)
     with torch.inference_mode():
         got = fused_vit_block_i8(x, *params, **kw)
         want = fused_vit_block_i8_plain(x, *params, **kw)
@@ -639,6 +666,210 @@ def check_library_yardsticks(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads
     return row
 
 
+# ------------------------------------------- the bf16 / fp32 dense kernel
+
+# The products of EVA ViT-g's encode (ENCODE_BATCH images) beside the ViT-L
+# ones that the block checks already run: name -> (M, N, K, dtype, epilogue).
+GEMM_PRODUCTS = {
+    "eva qkv": (_VIT_M, 4224, 1408, torch.bfloat16, "bias"),
+    "eva proj": (_VIT_M, 1408, 1408, torch.bfloat16, "bias+residual"),
+    "eva fc1": (_VIT_M, 6144, 1408, torch.bfloat16, "bias,gelu"),
+    "eva fc2": (_VIT_M, 1408, 6144, torch.bfloat16, "bias+residual_f32"),
+    "vit fc2, fp32 residual": (_VIT_M, 1024, 4096, torch.bfloat16, "bias+residual_f32"),
+    "qformer cross kv, queries pass, EVA": (_VIT_M, 768, 1408, torch.float32, "bias"),
+    "fp32 tower fc2, fp32 residual": (8 * 257, 1024, 4096, torch.float32, "bias+residual_f32"),
+}
+
+
+def _held(kind: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """One call held as a stage of ``kind``: its row of :class:`StageRecorder`."""
+    rec = StageRecorder()
+    rec.add(f"{kind} -> {_TYPE[got.dtype]}", got, want)
+    return rec.rows()[0]
+
+
+def check_gemm(name: str, device="cuda", seed=12) -> dict:
+    """One product of :data:`GEMM_PRODUCTS` with the epilogue its path runs,
+    against the plain version, within the bound of its stage in
+    :data:`STAGE_BOUNDS`; the library call is ``F.linear`` (without the
+    epilogue's residual)."""
+    M, N, K, dtype, epilogue = GEMM_PRODUCTS[name]
+    r = _Rand(device, seed)
+    x, w = r.normal(M, K, dtype=dtype), r.normal(N, K, std=0.02, dtype=dtype)
+    b = r.normal(N, std=0.02)
+    kw = {}
+    if "gelu" in epilogue:
+        kw["act"] = "gelu"
+    if "residual" in epilogue:
+        kw["residual"] = r.normal(M, N, dtype=dtype)
+        kw["residual_f32"] = epilogue.endswith("_f32")
+    kind = "gemm, fp32 residual" if kw.get("residual_f32") else "gemm"
+    with torch.inference_mode():
+        got, want = primitives.gemm_cuda(x, w, b, **kw), primitives.gemm_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held(kind, got, want)
+        del got, want
+        row["ms"] = cuda_ms(lambda: primitives.gemm_cuda(x, w, b, **kw))
+        row["plain_ms"] = cuda_ms(lambda: primitives.gemm_plain(x, w, b, **kw), iters=3, warmup=1)
+        bb = b.to(dtype)
+        row["library_ms"] = cuda_ms(lambda: torch.nn.functional.linear(x, w, bb))
+    row["ok"] = row["finite"] and stage["ok"]
+    row["shape"] = (f"M={M} N={N} K={K} {_TYPE[dtype]} {epilogue}: differ {stage['differ']:.2e}, "
+                    f"relative err {stage['err']:.2e}; F.linear {row['library_ms']:.4f} ms")
+    elt = 2 if dtype == torch.bfloat16 else 4
+    row["bytes"] = elt * (M * K + N * K + M * N * (2 if "residual" in kw else 1)) + 4 * N
+    row["op_seconds"] = 2 * M * N * K / PEAK_OPS["bf16" if elt == 2 else "fp32"]
+    return row
+
+
+# ------------------------------------------------------------- attention
+
+
+def _sdpa_ms(q, k, v) -> float:
+    """``F.scaled_dot_product_attention`` on BSHD tensors (its BHSD views)."""
+    h = [t.transpose(1, 2) for t in (q, k, v)]
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*h))
+
+
+def check_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_BATCH, S=257,
+                    heads=16, seed=13) -> dict:
+    """The attention kernel on a packed qkv, read in place, at head dim ``D``
+    against its plain version, within the bound of its stage."""
+    r = _Rand(device, seed)
+    W = heads * D
+    qkv = r.normal(B, S, 3 * W, dtype=dtype)
+    q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+    scale = D ** -0.5
+    kind = "attention" if D == 64 else f"attention D={D}"
+    with torch.inference_mode():
+        got = primitives.attention_cuda(q, k, v, heads, scale)
+        want = primitives.attention_plain(q, k, v, heads, scale)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held(kind, got, want)
+        row["ms"] = cuda_ms(lambda: primitives.attention_cuda(q, k, v, heads, scale))
+        row["plain_ms"] = cuda_ms(lambda: primitives.attention_plain(q, k, v, heads, scale),
+                                  iters=3, warmup=1)
+        row["library_ms"] = _sdpa_ms(*(t.reshape(B, S, heads, D) for t in (q, k, v)))
+    row["ok"] = row["finite"] and stage["ok"]
+    row["shape"] = (f"B={B} S={S} H={heads} D={D} {_TYPE[dtype]}, packed qkv: differ "
+                    f"{stage['differ']:.2e}, relative err {stage['err']:.2e}; SDPA "
+                    f"{row['library_ms']:.4f} ms")
+    elt = 2 if dtype == torch.bfloat16 else 4
+    row["bytes"] = elt * 4 * B * S * W
+    row["op_seconds"] = 4 * B * S * S * W / PEAK_OPS["bf16" if elt == 2 else "fp32"]
+    return row
+
+
+def check_flash_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_BATCH, Sq=257,
+                          Sk=257, heads=16, seed=14) -> dict:
+    """K8 on separate BSHD tensors against its plain version (normalise,
+    then round), within the bound of its stage; the library call is
+    ``F.scaled_dot_product_attention``."""
+    r = _Rand(device, seed)
+    q = r.normal(B, Sq, heads, D, dtype=dtype)
+    k, v = r.normal(B, Sk, heads, D, dtype=dtype), r.normal(B, Sk, heads, D, dtype=dtype)
+    scale = D ** -0.5
+    kind = "flash_attention" if D == 64 else f"flash_attention D={D}"
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, scale)
+        want = primitives.flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held(kind, got, want)
+        row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, scale))
+        row["plain_ms"] = cuda_ms(lambda: primitives.flash_attention_plain(q, k, v, scale),
+                                  iters=3, warmup=1)
+        row["library_ms"] = _sdpa_ms(q, k, v)
+    row["ok"] = row["finite"] and stage["ok"] and got.shape == q.shape
+    row["shape"] = (f"B={B} Sq={Sq} Sk={Sk} H={heads} D={D} {_TYPE[dtype]} BSHD: differ "
+                    f"{stage['differ']:.2e}, relative err {stage['err']:.2e}; SDPA "
+                    f"{row['library_ms']:.4f} ms")
+    elt = 2 if dtype == torch.bfloat16 else 4
+    row["bytes"] = elt * 2 * B * (Sq + Sk) * heads * D
+    row["op_seconds"] = 4 * B * Sq * Sk * heads * D / PEAK_OPS["bf16" if elt == 2 else "fp32"]
+    return row
+
+
+# -------------------------------------------------------------- K6 and K7
+
+
+def check_attn_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads=16, eps=1e-5,
+                     seed=15) -> dict:
+    """K6 against its plain version, bf16, output scale ~5: max-abs <= 0.0625
+    and mean-abs <= 4e-3 (K2's bounds: the same four stages, and the residual
+    carries the output's scale)."""
+    r = _Rand(device, seed)
+    x = r.normal(B, S, W, dtype=torch.bfloat16)
+    params = vit_block_params(r, W, 128)[:6]
+    kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5)
+    with torch.inference_mode():
+        got = fused_attn_block(x, *params, **kw)
+        want = fused_attn_block_plain(x, *params, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        row["ms"] = cuda_ms(lambda: fused_attn_block(x, *params, **kw))
+        row["plain_ms"] = cuda_ms(lambda: fused_attn_block_plain(x, *params, **kw),
+                                  iters=3, warmup=1)
+    row["ok"] = row["finite"] and row["max_abs_err"] <= 0.0625 and row["mean_abs_err"] <= 4e-3
+    row["shape"] = f"B={B} S={S} W={W} H={heads} D={W // heads} bf16"
+    row["bytes"] = 2 * 2 * B * S * W + 2 * 4 * W * W + 4 * (3 * W + W + 2 * W)
+    row["op_seconds"] = (8 * B * S * W * W + 4 * B * S * S * W) / PEAK_OPS["bf16"]
+    return row
+
+
+def check_mlp_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, quick=True, eps=1e-5,
+                    seed=16) -> dict:
+    """K7 against its plain version, bf16: max-abs <= 0.0625 and mean-abs <=
+    4e-3 (K2's bounds; the fc2 stage alone is held in ``check_gemm``)."""
+    r = _Rand(device, seed)
+    x = r.normal(B, S, W, dtype=torch.bfloat16)
+    params = vit_block_params(r, W, M)[6:]
+    kw = dict(eps=eps, quick=quick)
+    with torch.inference_mode():
+        got = fused_mlp_block(x, *params, **kw)
+        want = fused_mlp_block_plain(x, *params, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        row["ms"] = cuda_ms(lambda: fused_mlp_block(x, *params, **kw))
+        row["plain_ms"] = cuda_ms(lambda: fused_mlp_block_plain(x, *params, **kw),
+                                  iters=3, warmup=1)
+    row["ok"] = row["finite"] and row["max_abs_err"] <= 0.0625 and row["mean_abs_err"] <= 4e-3
+    row["shape"] = f"B={B} S={S} W={W} M={M} {'QuickGELU' if quick else 'exact GELU'} bf16"
+    row["bytes"] = 2 * 2 * B * S * W + 2 * 2 * W * M + 4 * (M + W + 2 * W)
+    row["op_seconds"] = 4 * B * S * W * M / PEAK_OPS["bf16"]
+    return row
+
+
+def run_validate_path(device="cuda") -> List[dict]:
+    """The checks of the validate path's kernels: K6, K7 and K8 at both
+    towers' shapes, the attention kernel at head dim 88, K2 and K5 at EVA
+    ViT-g's shapes and EVA's dense products."""
+    rows = []
+    for D in (64, 88):
+        rows.append(dict(check=f"K8 flash_attention D={D}", **check_flash_attention(D, device=device)))
+    rows += [dict(check="K8 flash_attention D=88 fp32 Sq=32",
+                  **check_flash_attention(88, torch.float32, device, B=8, Sq=32)),
+             dict(check="K8 flash_attention D=64 fp32",
+                  **check_flash_attention(64, torch.float32, device, B=8)),
+             dict(check="attention D=88 bf16", **check_attention(88, device=device)),
+             dict(check="attention D=88 fp32",
+                  **check_attention(88, torch.float32, device, B=8))]
+    for tower, (W, M, heads, quick, eps) in TOWERS.items():
+        rows += [dict(check=f"K6 attn_block {tower}",
+                      **check_attn_block(device, W=W, heads=heads, eps=eps)),
+                 dict(check=f"K7 mlp_block {tower}",
+                      **check_mlp_block(device, W=W, M=M, quick=quick, eps=eps))]
+    W, M, heads, quick, eps = TOWERS["eva_g"]
+    rows += [dict(check="K2 vit_block eva_g",
+                  **check_vit_block(device, W=W, M=M, heads=heads, quick=quick, eps=eps)),
+             dict(check="K5 vit_block_i8 eva_g",
+                  **check_vit_block_i8(device, W=W, M=M, heads=heads, quick=quick, eps=eps))]
+    rows += [dict(check=f"gemm {name}", **check_gemm(name, device)) for name in GEMM_PRODUCTS]
+    return rows
+
+
 def run_int8(device="cuda") -> List[dict]:
     """The checks of the int8 serving path's kernels."""
     rows = [dict(check=f"gemm_i8 {name}", **check_gemm_i8(name, device))
@@ -664,4 +895,4 @@ def run_all(device="cuda") -> List[dict]:
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
-    return rows + run_int8(device)
+    return rows + run_int8(device) + run_validate_path(device)

@@ -4,10 +4,16 @@
 its configuration from :data:`MODEL_CONFIGS`, which mirrors the model
 sections of ``configs/models/<name>/<model_type>.yaml`` (a test pins them
 equal to what ``sprc_tpu.loader`` builds from the YAML; the port reads no
-YAML, so it needs no PyYAML). ``load_model`` fills the weights: from a
-reference-layout state dict (``checkpoint_path``, loaded with
-``strict=True``) or at random from a seeded ``torch.Generator``. Both run
-on the GPU unless the caller asks for another device.
+YAML, so it needs no PyYAML). Overrides may come as the validate CLI's
+``--model-overrides`` gives them: precisions as ``"fp32"`` / ``"bf16"`` and the
+two sub-configs as dicts. ``load_model`` fills the weights: from a
+reference-layout checkpoint (``checkpoint_path``: a bare state dict, a
+``{"model": ...}`` file or the released ``{epoch, ClassName: state_dict}``
+layout; keys the model does not hold are dropped, as the reference's
+``strict=False`` load and the JAX importer's template filter drop them, and
+what is left is loaded with ``strict=True``, so a missing weight raises) or
+at random from a seeded ``torch.Generator``. Both run on the GPU unless the
+caller asks for another device.
 
 The int8 serving configuration is ``load_model(..., vit_quant="int8_calib",
 qformer_int8=True)`` followed by :func:`calibrate_vit_act_scales` on that
@@ -29,7 +35,8 @@ from torch import nn
 
 from sprc_tpu_torch import models as _models  # noqa: F401  (registers the models)
 from sprc_tpu_torch.models.cir_base import CirConfig
-from sprc_tpu_torch.models.vit import calibrate_act_scales
+from sprc_tpu_torch.models.qformer import QFormerConfig
+from sprc_tpu_torch.models.vit import ViTConfig, calibrate_act_scales
 from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
 from sprc_tpu_torch.registry import registry
@@ -37,6 +44,11 @@ from sprc_tpu_torch.registry import registry
 # (name, model_type) -> CirConfig fields, as configs/models/<name>/<type>.yaml
 # gives them (vit_precision bf16 -> vit_dtype, qformer_precision fp32).
 MODEL_CONFIGS = {
+    ("blip2_cir_align_prompt", "pretrain"): dict(
+        vit_model="eva_clip_g", image_size=224, num_query_token=32, cross_attention_freq=2,
+        embed_dim=256, max_txt_len=32, vit_dtype=torch.bfloat16,
+        qformer_dtype=torch.float32,
+    ),
     ("blip2_cir_align_prompt", "pretrain_vitL"): dict(
         vit_model="clip_L", image_size=224, num_query_token=32, cross_attention_freq=2,
         embed_dim=256, max_txt_len=32, vit_dtype=torch.bfloat16,
@@ -45,14 +57,48 @@ MODEL_CONFIGS = {
 }
 
 
-def model_config(name: str, model_type: str = "pretrain_vitL", **overrides: Any) -> CirConfig:
+_PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
+# sub-configs that an override may give as a dict, with the fields of the JAX
+# package's dataclass that only training or compilation reads: dropped here,
+# where any other unknown field raises
+_SUB_CONFIGS = {
+    "vit_config_override": (ViTConfig, {"remat", "scan_blocks"}),
+    "qformer_config_override": (QFormerConfig, {"dropout_rate", "attention_dropout_rate",
+                                                "initializer_range", "remat"}),
+}
+_JAX_ONLY_FIELDS = {"freeze_vit", "vit_remat", "qformer_remat"}
+
+
+def _precision(key: str, value: Any) -> Any:
+    if key.endswith("dtype") and isinstance(value, str):
+        return _PRECISIONS[value]
+    return value
+
+
+def coerce_overrides(overrides: dict) -> dict:
+    """YAML-friendly overrides (the JAX loader's ``_coerce``): precision
+    names on ``*dtype`` fields become dtypes, and a dict for
+    ``vit_config_override`` / ``qformer_config_override`` becomes that
+    dataclass."""
+    out = {}
+    for key, value in overrides.items():
+        if key in _JAX_ONLY_FIELDS:
+            continue
+        if key in _SUB_CONFIGS and isinstance(value, dict):
+            cls, jax_only = _SUB_CONFIGS[key]
+            value = cls(**{k: _precision(k, v) for k, v in value.items() if k not in jax_only})
+        out[key] = _precision(key, value)
+    return out
+
+
+def model_config(name: str, model_type: str = "pretrain", **overrides: Any) -> CirConfig:
     try:
         base = MODEL_CONFIGS[(name, model_type)]
     except KeyError:
         raise ValueError(
             f"no port configuration for ({name!r}, {model_type!r}); ported: "
             f"{sorted(MODEL_CONFIGS)}") from None
-    return CirConfig(**{**base, **overrides})
+    return CirConfig(**{**base, **coerce_overrides(overrides)})
 
 
 def _device(device) -> torch.device:
@@ -63,7 +109,7 @@ def _device(device) -> torch.device:
     return device
 
 
-def build_model(name: str, model_type: str = "pretrain_vitL", *, device="cuda",
+def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
                 **overrides: Any) -> nn.Module:
     """The model on ``device`` with UNINITIALISED weights (``load_model``
     fills them). ``overrides`` replace CirConfig fields."""
@@ -107,17 +153,20 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             const(mod.bias, 0.0)
         elif isinstance(mod, Linear):
             normal(mod.weight, 0.02)
-            const(mod.bias, 0.0)
+            if mod.bias is not None:
+                const(mod.bias, 0.0)
         elif isinstance(mod, nn.Embedding):
             normal(mod.weight, 0.02)
         elif isinstance(mod, nn.Conv2d):
             normal(mod.weight, mod.weight[0].numel() ** -0.5)
+            if mod.bias is not None:
+                const(mod.bias, 0.0)
     for name, p in model.named_parameters():
         if id(p) in done:
             continue
         if name == "temp":
             const(p, 0.07)
-        elif name.endswith("in_proj_bias"):
+        elif name.endswith(("in_proj_bias", "q_bias", "v_bias")):
             const(p, 0.0)
         else:  # in_proj_weight, class/positional embeddings, query/prompt tokens
             normal(p, 0.02)
@@ -130,7 +179,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             raise ValueError(f"init_weights: no rule for buffer {name}")
 
 
-def load_model(name: str, model_type: str = "pretrain_vitL",
+def load_model(name: str, model_type: str = "pretrain",
                checkpoint_path: Optional[str] = None, *, device="cuda", seed: int = 0,
                **overrides: Any) -> nn.Module:
     """Build a model and fill its weights; returns it in eval mode."""
@@ -138,11 +187,27 @@ def load_model(name: str, model_type: str = "pretrain_vitL",
     if checkpoint_path is None:
         init_weights(model, seed)
     else:
-        state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        if "model" in state and isinstance(state["model"], dict):
-            state = state["model"]
-        model.load_state_dict(state, strict=True)
+        model.load_state_dict(read_checkpoint(checkpoint_path, model), strict=True)
     return model.eval()
+
+
+def read_checkpoint(path: str, model: nn.Module) -> dict:
+    """The state dict of any of the reference checkpoint flavours, cut to the
+    keys ``model`` holds (a released checkpoint also carries the LM head and
+    buffers that this model has no module for)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in state and isinstance(state["model"], dict):
+        state = state["model"]  # blip2_pretrained.pth style
+    else:  # fine-tuned {epoch, ClassName: state_dict} style (reference utils.py:219-222)
+        for value in state.values():
+            if isinstance(value, dict) and any(torch.is_tensor(v) for v in value.values()):
+                state = value
+                break
+    own = model.state_dict()
+    state = {k: v for k, v in state.items() if k in own}
+    if "temp" in state:  # some save paths write the scalar as [1]
+        state["temp"] = state["temp"].reshape(())
+    return state
 
 
 def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
@@ -154,8 +219,9 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     ``"int8_static"`` with the scales found, which are returned
     (``model.cfg`` says the same). They are also the ``vit_act_scales`` of a
     later ``load_model(..., vit_quant="int8_static")``. The pass runs the
-    dynamic-int8 unfused block in plain PyTorch: it is set-up, no kernel is
-    launched."""
+    dynamic-int8 unfused block: its dense ops in plain PyTorch (it is
+    set-up), its attention through ``dot_product_attention``, which on the
+    card launches the ``flash_attention`` kernel, as in the JAX package."""
     tower = model.visual_encoder
     device = next(model.parameters()).device
     tower.set_quant("int8_calib")
@@ -172,5 +238,5 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     return scales
 
 
-__all__ = ["MODEL_CONFIGS", "model_config", "build_model", "init_weights", "load_model",
-           "calibrate_vit_act_scales"]
+__all__ = ["MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model", "init_weights",
+           "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

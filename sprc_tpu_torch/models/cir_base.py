@@ -21,7 +21,8 @@ import torch
 from torch import nn
 
 from sprc_tpu_torch.models.qformer import QFormer, QFormerConfig
-from sprc_tpu_torch.models.vit import ClipViT, ViTConfig, clip_vit_l_config
+from sprc_tpu_torch.models.vit import (ViTConfig, build_tower, clip_vit_l_config,
+                                       eva_vit_g_config)
 from sprc_tpu_torch.ops import primitives
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, l2_normalize
 from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain
@@ -33,7 +34,7 @@ Tensor = torch.Tensor
 class CirConfig:
     """Configuration of the BLIP-2 CIR models (the blip2_pretrain.yaml knobs)."""
 
-    vit_model: str = "clip_L"
+    vit_model: str = "eva_clip_g"  # or "clip_L"
     image_size: int = 224
     num_query_token: int = 32
     cross_attention_freq: int = 2
@@ -47,6 +48,10 @@ class CirConfig:
     vit_quant: Optional[str] = None
     vit_act_scales: Optional[Tuple[Tuple[str, float], ...]] = None
     qformer_int8: bool = False
+    # the tower's route (ViTConfig.fused_block / fused_mlp; None = the tower
+    # config's own, whose defaults are the whole-block kernel, MLP kernel off)
+    vit_fused_block: Optional[str] = None
+    vit_fused_mlp: Optional[bool] = None
     # test-size overrides (None = full size)
     vit_config_override: Optional[ViTConfig] = None
     qformer_config_override: Optional[QFormerConfig] = None
@@ -54,15 +59,17 @@ class CirConfig:
     def vit_config(self) -> ViTConfig:
         if self.vit_config_override is not None:
             cfg = self.vit_config_override
+        elif self.vit_model == "eva_clip_g":
+            cfg = eva_vit_g_config(self.image_size, dtype=self.vit_dtype)
         elif self.vit_model == "clip_L":
             cfg = clip_vit_l_config(self.image_size, dtype=self.vit_dtype)
         else:
-            raise NotImplementedError(
-                f"vit_model {self.vit_model!r}: the port has CLIP ViT-L (clip_L); "
-                "EVA ViT-g is still to be ported")
+            raise ValueError(f"unknown vit_model {self.vit_model!r}")
+        route = {k: v for k, v in (("fused_block", self.vit_fused_block),
+                                   ("fused_mlp", self.vit_fused_mlp)) if v is not None}
         if self.vit_quant:
-            cfg = dataclasses.replace(cfg, quant=self.vit_quant, act_scales=self.vit_act_scales)
-        return cfg
+            route.update(quant=self.vit_quant, act_scales=self.vit_act_scales)
+        return dataclasses.replace(cfg, **route) if route else cfg
 
     def qformer_config(self) -> QFormerConfig:
         if self.qformer_config_override is not None:
@@ -84,7 +91,8 @@ class Blip2CirBase(nn.Module):
         self.cfg = cfg
         vcfg, qcfg = cfg.vit_config(), cfg.qformer_config()
         H = qcfg.hidden_size
-        self.visual_encoder = ClipViT(vcfg)
+        # EvaViT or ClipViT, by the checkpoint layout the tower's config describes
+        self.visual_encoder = build_tower(vcfg)
         # fp32 LayerNorm bridging the (b)f16 tower into the Q-Former (eps 1e-5)
         self.ln_vision = LayerNormFP32(vcfg.width, 1e-5)
         self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg)})

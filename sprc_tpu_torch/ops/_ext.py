@@ -48,8 +48,8 @@ OUT_S32, OUT_F32, OUT_BF16, OUT_S8 = 0, 1, 2, 3
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P],
     "sprc_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sprc_layernorm_q8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],

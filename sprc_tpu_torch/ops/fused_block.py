@@ -1,6 +1,7 @@
-"""Kernels K2 and K5: one pre-LN ViT block, ``x + proj(MHA(LN1 x))`` then
-``y + fc2(act(fc1(LN2 y)))``, in bf16/fp32 (K2) and with the four dense ops
-in int8 (K5, at the end of this file).
+"""Kernels K2, K5, K6 and K7: one pre-LN ViT block, ``x + proj(MHA(LN1 x))``
+then ``y + fc2(act(fc1(LN2 y)))``, in bf16/fp32 (K2), with the four dense ops
+in int8 (K5), and its two halves on their own (K6 ``fused_attn_block``, K7
+``fused_mlp_block``, at the end of this file).
 
 Replaces ``sprc_tpu/ops/pallas_block.py::fused_vit_block`` (``_full_kernel``),
 which runs a whole block as one Pallas program with the block's weights
@@ -134,3 +135,107 @@ def fused_vit_block_i8(x: Tensor, *params: Tensor, heads: int, eps: float, scale
 
 
 fused_vit_block_i8.launches = 0
+
+
+# ------------------------------------------------------------------- K6
+#
+# Replaces ``sprc_tpu/ops/pallas_block.py::fused_attn_block`` (``_kernel``):
+# the attention half, ``x + bf16(proj(MHA(bf16(LN_f32 x) Wqkv + bqkv)))``. On
+# the TPU its point is that Wqkv and Wproj (8 MB in bf16 at W = 1024, 15.9 MB
+# at 1408) stay in VMEM across the grid; an SM has 227 KB, so on Hopper it is
+# the first four launches of K2's chain:
+#
+#     LN (fp32, rounds to the model dtype) -> qkv GEMM (+bias, rounds)
+#         -> attention on the packed qkv, read in place
+#         -> proj GEMM (+bias, rounds; + x in the model dtype)
+#
+# The Pallas body scales q by ``scale * log2(e)`` before the product, takes
+# exp2 without a max subtraction (clamped at 120) and divides after ``P V``;
+# the attention kernel here keeps its max-subtracted online softmax, which is
+# equal in exact arithmetic and decides what a fully masked row gives. The
+# plain version is the unfused composition (``pallas_block._xla_ref``).
+
+
+def _attn_half(ops, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, *, heads: int, eps: float,
+               scale: float) -> Tensor:
+    W = x.shape[-1]
+    h = ops.layer_norm(x, ln_s, ln_b, eps)
+    qkv = ops.gemm(h, wqkv, bqkv)
+    ctx = ops.attention(qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:], heads, scale)
+    return ops.gemm(ctx, wproj, bproj, residual=x)
+
+
+def fused_attn_block_plain(x: Tensor, *params: Tensor, heads: int, eps: float,
+                           scale: float) -> Tensor:
+    """The same half block in plain PyTorch, on any device (the reference)."""
+    return _attn_half(primitives.PLAIN, x, *params, heads=heads, eps=eps, scale=scale)
+
+
+def fused_attn_block(x: Tensor, *params: Tensor, heads: int, eps: float, scale: float) -> Tensor:
+    """x [B, S, W] -> [B, S, W]. ``params`` = (ln_s, ln_b, wqkv [3W, W] packed
+    q|k|v, bqkv [3W], wproj [W, W], bproj). On a CUDA tensor it launches the
+    kernel chain (and raises on what it does not take); on a CPU tensor it
+    runs the plain version. ``launches`` counts the chains launched in full
+    (four kernel launches each)."""
+    primitives.check_no_grad("fused_attn_block", x, *params)
+    ops = primitives.for_device(x)
+    y = _attn_half(ops, x, *params, heads=heads, eps=eps, scale=scale)
+    if ops is primitives.CUDA:
+        fused_attn_block.launches += 1
+    return y
+
+
+fused_attn_block.launches = 0
+
+
+# ------------------------------------------------------------------- K7
+#
+# Replaces ``sprc_tpu/ops/pallas_mlp.py::fused_mlp_block`` (``_mlp_kernel``):
+# the MLP half, ``x + fc2(act(fc1(LN x)))``. On the TPU the hidden activation
+# [B S, M] never reaches HBM: the grid streams M in chunks of 512 against an
+# fp32 accumulator of [512, W] in VMEM. The same design does not fit an SM:
+# an fp32 accumulator of even [64, 1024] is 256 KB, the whole register file,
+# and with row tiles that small the 16.8 MB of weights (34.6 MB for EVA
+# ViT-g) would be read again for every tile, several GB per block at
+# B = 64, against 2 x 16448 x 4096 x 2 bytes = 270 MB (0.08 ms at 3.35 TB/s)
+# for writing the hidden activation in bf16 and reading it back, much of it
+# from the 50 MB L2. So on Hopper it is three launches:
+#
+#     LN (fp32, rounds) -> fc1 GEMM (+bias, act in fp32, rounds to the model
+#         dtype: the kernel's ``h.astype(w2.dtype)``)
+#         -> fc2 GEMM (+bias, + x in fp32, then the one rounding)
+#
+# The last step is where this kernel differs from K2 and K6, which round the
+# branch and add the residual in the model dtype: ``acc + b2 + f32(x)`` and
+# one cast (the GEMM's ``residual_f32`` epilogue). The JAX kernel gives way
+# to XLA when M is not a multiple of 512; the GEMM here has no such limit.
+# Exact GELU is ``erff`` (the Pallas kernel's rational erf is the same
+# function to 1.5e-7).
+
+
+def _mlp_half(ops, x, ln_s, ln_b, w1, b1, w2, b2, *, eps: float, quick: bool) -> Tensor:
+    u = ops.layer_norm(x, ln_s, ln_b, eps)
+    hid = ops.gemm(u, w1, b1, act="quick_gelu" if quick else "gelu")
+    return ops.gemm(hid, w2, b2, residual=x, residual_f32=True)
+
+
+def fused_mlp_block_plain(x: Tensor, *params: Tensor, eps: float, quick: bool) -> Tensor:
+    """The same half block in plain PyTorch, on any device (the reference)."""
+    return _mlp_half(primitives.PLAIN, x, *params, eps=eps, quick=quick)
+
+
+def fused_mlp_block(x: Tensor, *params: Tensor, eps: float, quick: bool) -> Tensor:
+    """x [B, S, W] -> [B, S, W]. ``params`` = (ln_s, ln_b, w1 [M, W], b1,
+    w2 [W, M], b2). On a CUDA tensor it launches the kernel chain (and raises
+    on what it does not take); on a CPU tensor it runs the plain version.
+    ``launches`` counts the chains launched in full (three kernel launches
+    each)."""
+    primitives.check_no_grad("fused_mlp_block", x, *params)
+    ops = primitives.for_device(x)
+    y = _mlp_half(ops, x, *params, eps=eps, quick=quick)
+    if ops is primitives.CUDA:
+        fused_mlp_block.launches += 1
+    return y
+
+
+fused_mlp_block.launches = 0

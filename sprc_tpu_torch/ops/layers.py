@@ -18,17 +18,17 @@ __all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize"]
 
 class Linear(nn.Module):
     """``y = x W^T + b`` with ``weight [out, in]`` in the compute dtype and
-    an fp32 ``bias`` (``torch.nn.Linear`` names; parameters start
+    an fp32 ``bias`` (or none) (``torch.nn.Linear`` names; parameters start
     uninitialised, the loader fills them). With ``int8`` it also holds the
     weight's int8 codes and per-channel scales, derived from the fp32 source
     at load time (:mod:`sprc_tpu_torch.ops.quant`); the state-dict keys are
     the same either way."""
 
     def __init__(self, in_features: int, out_features: int, dtype=torch.float32,
-                 int8: bool = False):
+                 int8: bool = False, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         if int8:
             quant.register_int8_weights(self, {"weight": "weight"})
 

@@ -5,9 +5,12 @@ it as one Pallas program. On Hopper the same function is a short chain of
 kernels, all in ``csrc/``:
 
 - ``gemm``: ``Y = epi(X . W^T + b)`` with the epilogues none / QuickGELU /
-  exact GELU / ``+ residual`` (``csrc/gemm.cu``);
+  exact GELU / ``+ residual`` (added in the model dtype after the rounding,
+  or with ``residual_f32`` in fp32 before it) (``csrc/gemm.cu``);
 - ``attention``: ``softmax(q k^T scale + col_bias) v`` per item and head,
-  head dim 64, ``Sq != Sk`` allowed (``csrc/attention.cu``);
+  head dim one of :data:`HEAD_DIMS`, ``Sq != Sk`` allowed
+  (``csrc/attention.cu``); ``flash_attention`` is the same kernel without a
+  bias on BSHD tensors, read in place;
 - ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``), in
   the model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
 - ``gemm_i8``: ``Y = epi(s32(A8 . W8^T))``, the int8 dense layer on the
@@ -25,7 +28,8 @@ operation.
 
 Numerics follow the JAX kernels: matmuls accumulate in fp32, the bias and
 the activation apply in fp32, the result rounds to the model dtype, and a
-residual adds in the model dtype. Weights are ``[out, in]`` (torch Linear);
+residual adds in the model dtype (the MLP kernel's fc2 alone adds it in fp32,
+before its one rounding). Weights are ``[out, in]`` (torch Linear);
 biases and LayerNorm parameters are fp32.
 """
 
@@ -52,18 +56,24 @@ def gelu(x: Tensor) -> Tensor:
     return 0.5 * x * (1.0 + torch.erf(x * 0.7071067811865476))
 
 
-_ACT_FNS = {None: lambda x: x, "quick_gelu": quick_gelu, "gelu": gelu}
+ACT_FNS = {None: lambda x: x, "quick_gelu": quick_gelu, "gelu": gelu}
 
 
 # ------------------------------------------------------------------ plain
 
 
 def gemm_plain(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[str] = None,
-               residual: Optional[Tensor] = None) -> Tensor:
+               residual: Optional[Tensor] = None, residual_f32: bool = False) -> Tensor:
+    """``residual_f32``: the residual joins the fp32 sum before the one
+    rounding (``acc + b + f32(x)``, the JAX MLP kernel); else it is added in
+    the model dtype to the rounded branch (the JAX block kernels)."""
     y = torch.matmul(x, w.t()).float()
     if b is not None:
         y = y + b.float()
-    y = _ACT_FNS[act](y).to(x.dtype)
+    y = ACT_FNS[act](y)
+    if residual is not None and residual_f32:
+        return (y + residual.float()).to(x.dtype)
+    y = y.to(x.dtype)
     if residual is not None:
         y = residual + y
     return y
@@ -72,18 +82,33 @@ def gemm_plain(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[s
 def attention_plain(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
                     col_bias: Optional[Tensor] = None) -> Tensor:
     """q [B, Sq, H*D], k/v [B, Sk, H*D], col_bias [B, Sk] fp32 -> [B, Sq, H*D]
-    (the unfused JAX attention: fp32 scores, bias after the scale)."""
+    (the unfused JAX attention: :func:`einsum_attention` on the BSHD views)."""
     B, Sq, W = q.shape
-    Sk, D = k.shape[1], W // heads
-    qh = q.reshape(B, Sq, heads, D).transpose(1, 2)
-    kh = k.reshape(B, Sk, heads, D).transpose(1, 2)
-    vh = v.reshape(B, Sk, heads, D).transpose(1, 2)
-    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
-    if col_bias is not None:
-        s = s + col_bias.float()[:, None, None, :]
+    D = W // heads
+    bias = None if col_bias is None else col_bias.float()[:, None, None, :]
+    out = einsum_attention(q.reshape(B, Sq, heads, D), k.reshape(B, -1, heads, D),
+                           v.reshape(B, -1, heads, D), bias, scale)
+    return out.reshape(B, Sq, W)
+
+
+def einsum_attention(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor],
+                     scale: float) -> Tensor:
+    """q [B, Sq, H, D], k/v [B, Sk, H, D], bias broadcastable to
+    [B, H, Sq, Sk] -> [B, Sq, H, D]: the JAX package's ``_xla_attention``
+    (fp32 scores, the scale after the product, the bias after the scale, the
+    probabilities normalised in fp32 and then rounded to v's dtype)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.to(s.dtype)
     p = torch.softmax(s, dim=-1)
-    ctx = torch.matmul(p.to(v.dtype), vh)
-    return ctx.transpose(1, 2).reshape(B, Sq, W)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """The plain version of the ``flash_attention`` kernel: unmasked
+    attention on BSHD, numerics of ``pallas_attention._attn_kernel``
+    (normalise, then round)."""
+    return einsum_attention(q, k, v, None, scale)
 
 
 def layer_norm_plain(x: Tensor, w: Tensor, b: Tensor, eps: float,
@@ -122,7 +147,7 @@ def gemm_i8_plain(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
     v = v * (col_scale if col_alpha == 1.0 else col_scale * col_alpha)
     if bias is not None:
         v = v + bias
-    v = _ACT_FNS[act](v)
+    v = ACT_FNS[act](v)
     if out_scale is not None:
         return quant.quantize_static(v, out_scale)
     y = v.to(out_dtype)
@@ -166,7 +191,7 @@ def _stream():
 
 
 def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[str] = None,
-              residual: Optional[Tensor] = None) -> Tensor:
+              residual: Optional[Tensor] = None, residual_f32: bool = False) -> Tensor:
     """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 on the tensor
     cores, true fp32 on the CUDA cores). ``gemm_cuda.launches`` counts the
     kernel's launches."""
@@ -190,7 +215,7 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = _ext.library()
     _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(residual), y.data_ptr(),
-                             M, N, K, dt, _ext.ACT[act], _stream()), "gemm")
+                             M, N, K, dt, _ext.ACT[act], int(residual_f32), _stream()), "gemm")
     gemm_cuda.launches += 1
     return y
 
@@ -198,13 +223,20 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
 gemm_cuda.launches = 0
 
 
+HEAD_DIMS = (64, 88)  # the head dims csrc/attention.cu is built for
+
+
 def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
                    col_bias: Optional[Tensor] = None) -> Tensor:
+    """:func:`attention_plain` as a kernel (``csrc/attention.cu``), for a head
+    dim in :data:`HEAD_DIMS`; q, k and v may be strided views (the thirds of
+    a packed qkv, a BSHD tensor flattened to ``[B, S, H*D]``)."""
     dt = _check("attention", q, k, v, col_bias)
     B, Sq, W = q.shape
     Sk = k.shape[1]
-    if W != heads * 64:
-        raise ValueError(f"attention: the kernel takes head dim 64, got {W} / {heads}")
+    if W % heads or W // heads not in HEAD_DIMS:
+        raise ValueError(f"attention: the kernel is built for head dims {HEAD_DIMS}, got "
+                         f"{W} / {heads}")
     for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.shape != (B, Sk, W):
             raise ValueError(f"attention: {name} {t.dtype} {tuple(t.shape)} vs q {q.dtype} "
@@ -224,10 +256,27 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
     lib = _ext.library()
     _ext.check(lib.sprc_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(col_bias), out.data_ptr(),
-        B, heads, Sq, Sk, q.stride(1), q.stride(0), k.stride(1), k.stride(0),
+        B, heads, W // heads, Sq, Sk, q.stride(1), q.stride(0), k.stride(1), k.stride(0),
         v.stride(1), v.stride(0), out.stride(1), out.stride(0), ctypes.c_float(scale),
         dt, _stream()), "attention")
     return out
+
+
+def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """:func:`flash_attention_plain` as a kernel: the attention kernel of
+    ``csrc/attention.cu`` reads each BSHD tensor in place as its
+    ``[B, S, H*D]`` view (heads contiguous within a row), so no transpose is
+    made. q [B, Sq, H, D], k/v [B, Sk, H, D] -> [B, Sq, H, D]."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention: BSHD tensors, got {tuple(q.shape)}")
+    B, Sq, H, D = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or t.stride(2) != D:
+            raise ValueError(f"flash_attention: {name} must hold its heads contiguously within "
+                             f"a row (strides {t.stride()})")
+    flat = [t.as_strided((t.shape[0], t.shape[1], H * D), (t.stride(0), t.stride(1), 1))
+            for t in (q, k, v)]
+    return attention_cuda(*flat, H, scale).view(B, Sq, H, D)
 
 
 def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
@@ -350,10 +399,12 @@ def quantize_rows_cuda(x: Tensor):
 
 
 PLAIN = types.SimpleNamespace(gemm=gemm_plain, attention=attention_plain,
+                              flash_attention=flash_attention_plain,
                               layer_norm=layer_norm_plain, gemm_i8=gemm_i8_plain,
                               quantize_static=quant.quantize_static,
                               quantize_rows=quant.quantize_rows)
 CUDA = types.SimpleNamespace(gemm=gemm_cuda, attention=attention_cuda,
+                             flash_attention=flash_attention_cuda,
                              layer_norm=layer_norm_cuda, gemm_i8=gemm_i8_cuda,
                              quantize_static=quantize_static_cuda,
                              quantize_rows=quantize_rows_cuda)
@@ -379,13 +430,26 @@ def stage_check(record: Callable[[str, object, object], None]) -> Iterator[None]
         _STAGE_CHECK.reset(token)
 
 
+def _stage_name(name: str, args, kwargs) -> str:
+    """The kind of stage a call is recorded under: the primitive, told apart
+    where its kernel takes another path (the fp32 residual of the GEMM's
+    epilogue, a head dim other than 64)."""
+    if name == "gemm" and kwargs.get("residual_f32"):
+        return "gemm, fp32 residual"
+    if name == "attention" and args[0].shape[-1] // args[3] != 64:
+        return f"attention D={args[0].shape[-1] // args[3]}"
+    if name == "flash_attention" and args[0].shape[-1] != 64:
+        return f"flash_attention D={args[0].shape[-1]}"
+    return name
+
+
 def _checked(record) -> types.SimpleNamespace:
     def both(name):
         kernel, plain = getattr(CUDA, name), getattr(PLAIN, name)
 
         def run(*args, **kwargs):
             got = kernel(*args, **kwargs)
-            record(name, got, plain(*args, **kwargs))
+            record(_stage_name(name, args, kwargs), got, plain(*args, **kwargs))
             return got
 
         return run
@@ -420,6 +484,12 @@ def plain_reference() -> Iterator[None]:
         yield
     finally:
         _PLAIN_REFERENCE.reset(token)
+
+
+def ops_for(x: Tensor):
+    """The primitive set for a model's op-by-op pieces: :func:`for_device`, or
+    the plain set inside :func:`plain_reference`."""
+    return PLAIN if _PLAIN_REFERENCE.get() else for_device(x)
 
 
 def kernel_or_reference(kernel: Callable, plain: Callable) -> Callable:

@@ -67,7 +67,8 @@ def japply(model, params, method):
 
 def port_model(state, q=Q, **overrides):
     vcfg = ViTConfig(image_size=IMG, patch_size=14, width=128, depth=2, num_heads=2,
-                     mlp_hidden=256, layer_norm_eps=1e-5, dtype=torch.float32)
+                     mlp_hidden=256, layer_norm_eps=1e-5, use_ln_pre=True, quick_gelu=True,
+                     patch_bias=False, dtype=torch.float32)
     qcfg = QFormerConfig(vocab_size=VOCAB, hidden_size=128, num_layers=2, num_heads=2,
                          intermediate_size=256, encoder_width=128, query_length=q)
     model = build_model("blip2_cir_align_prompt", "pretrain_vitL", image_size=IMG,
@@ -163,11 +164,12 @@ def test_strict_load_fails_on_a_missing_block(flagship):
         port_model(state)
 
 
-def test_pretrain_vitl_config_equals_jax_yaml():
+@pytest.mark.parametrize("model_type", ["pretrain_vitL", "pretrain"])
+def test_pretrain_vitl_config_equals_jax_yaml(model_type):
     from sprc_tpu.loader import build_model as jbuild
 
-    jcfg = jbuild("blip2_cir_align_prompt", "pretrain_vitL").cfg
-    cfg = model_config("blip2_cir_align_prompt", "pretrain_vitL")
+    jcfg = jbuild("blip2_cir_align_prompt", model_type).cfg
+    cfg = model_config("blip2_cir_align_prompt", model_type)
     for f in ("vit_model", "image_size", "num_query_token", "cross_attention_freq",
               "embed_dim", "max_txt_len", "vocab_size"):
         assert getattr(cfg, f) == getattr(jcfg, f), f
@@ -175,9 +177,10 @@ def test_pretrain_vitl_config_equals_jax_yaml():
     assert str(cfg.qformer_dtype).split(".")[-1] == jnp.dtype(jcfg.qformer_dtype).name
     jv, v = jcfg.vit_config(), cfg.vit_config()
     for f in ("image_size", "patch_size", "width", "depth", "num_heads", "mlp_hidden",
-              "layer_norm_eps", "seq_len"):
+              "layer_norm_eps", "seq_len", "head_dim", "use_ln_pre", "qkv_fused_no_kbias",
+              "quick_gelu", "patch_bias"):
         assert getattr(v, f) == getattr(jv, f), f
-    assert jv.use_ln_pre and jv.quick_gelu and not jv.patch_bias and not jv.qkv_fused_no_kbias
+    assert (v.width, v.head_dim) == {"pretrain_vitL": (1024, 64), "pretrain": (1408, 88)}[model_type]
     jq, q = jcfg.qformer_config(), cfg.qformer_config()
     for f in ("vocab_size", "hidden_size", "num_layers", "num_heads", "intermediate_size",
               "encoder_width", "cross_attention_freq", "max_position_embeddings",

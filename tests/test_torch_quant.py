@@ -119,7 +119,8 @@ def test_mm_i8_matches_jax():
 
 def test_bf16_tower_codes_come_from_the_fp32_source():
     cfg = ViTConfig(image_size=28, patch_size=14, width=128, depth=2, num_heads=2,
-                    mlp_hidden=256, dtype=torch.bfloat16, quant="int8")
+                    mlp_hidden=256, use_ln_pre=True, quick_gelu=True, patch_bias=False,
+                    dtype=torch.bfloat16, quant="int8")
     rng = np.random.RandomState(6)
     tower = ClipViT(cfg)
     state = {k: _t((rng.randn(*v.shape) * 0.05).astype(np.float32))

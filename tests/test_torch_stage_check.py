@@ -59,7 +59,7 @@ def test_stage_check_runs_both_and_passes_the_kernel_result_on(monkeypatch):
 
 def test_set_quant_switches_int8_modes_only():
     cfg = ViTConfig(image_size=28, patch_size=14, width=32, depth=2, num_heads=2, mlp_hidden=64,
-                    dtype=torch.float32)
+                    use_ln_pre=True, quick_gelu=True, patch_bias=False, dtype=torch.float32)
     scales = (("mlp_fc1", 0.1), ("mlp_fc2", 0.1), ("proj", 0.1), ("qkv", 0.1))
     with torch.device("meta"):
         fp = ClipViT(cfg)

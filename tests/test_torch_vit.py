@@ -70,7 +70,8 @@ def test_clip_vit_matches_jax(flag, monkeypatch):
     want = np.asarray(jax.jit(jtower.apply)({"params": params}, jnp.asarray(images)))
 
     tower = ClipViT(ViTConfig(image_size=28, patch_size=14, width=W, depth=2, num_heads=H,
-                              mlp_hidden=M, layer_norm_eps=1e-5, dtype=torch.float32))
+                              mlp_hidden=M, layer_norm_eps=1e-5, use_ln_pre=True,
+                              quick_gelu=True, patch_bias=False, dtype=torch.float32))
     tower.load_state_dict(to_torch(clip_vit_from_jax(jax.tree_util.tree_map(np.asarray, params),
                                                      prefix="")), strict=True)
     with torch.inference_mode():
@@ -85,7 +86,8 @@ def test_blocks_call_the_wrapper_whatever_the_grad_mode():
     only ``plain_reference`` picks the plain block, and it equals the
     wrapper's output exactly on the CPU."""
     tower = ClipViT(ViTConfig(image_size=28, patch_size=14, width=W, depth=2, num_heads=H,
-                              mlp_hidden=M, layer_norm_eps=1e-5, dtype=torch.float32))
+                              mlp_hidden=M, layer_norm_eps=1e-5, use_ln_pre=True,
+                              quick_gelu=True, patch_bias=False, dtype=torch.float32))
     gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in tower.parameters():

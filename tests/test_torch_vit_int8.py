@@ -41,7 +41,7 @@ from test_torch_vit import B, H, M, S, W, _block_params  # noqa: E402
 MAX_ABS, MEAN_ABS = 5e-3, 5e-4
 ACTS = (0.05, 0.01, 0.05, 0.03)  # qkv, proj, fc1, fc2
 KW = dict(image_size=28, patch_size=14, width=W, depth=2, num_heads=H, mlp_hidden=M,
-          layer_norm_eps=1e-5)
+          layer_norm_eps=1e-5, use_ln_pre=True, quick_gelu=True, patch_bias=False)
 
 
 def _close(got, want):
@@ -76,8 +76,7 @@ def towers():
     the JAX package calibrates from them."""
     rng = np.random.RandomState(11)
     images = rng.rand(B, 28, 28, 3).astype(np.float32)
-    jcfg = JViTConfig(**KW, use_ln_pre=True, quick_gelu=True, patch_bias=False,
-                      dtype=jnp.float32)
+    jcfg = JViTConfig(**KW, dtype=jnp.float32)
     params = jax.jit(JClipViT(jcfg).init)(jax.random.PRNGKey(0), jnp.asarray(images))["params"]
     jcal = JClipViT(JViTConfig(**{**jcfg.__dict__, "quant": "int8_calib"}))
     scales = jcalibrate(jcal, params, jnp.asarray(images))
