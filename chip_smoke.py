@@ -19,7 +19,12 @@ Phases (any failure raises and exits nonzero before the last line):
    the same inputs); then the validate path's kernels: K8 (flash_attention)
    at head dims 64 and 88, the attention kernel at head dim 88 in bf16 and
    fp32, K6 (attention half) and K7 (MLP half) at ViT-L's and EVA ViT-g's
-   shapes, K2 and K5 at EVA's shapes, and EVA's dense products;
+   shapes, K2 and K5 at EVA's shapes, and both towers' dense products; then
+   the two tensor-core kernels at their tile edges: the bf16 GEMM over ragged
+   (M, N, K) with every epilogue and both residual modes, the bf16 attention
+   over ragged (Sq, Sk) at both head dims on strided packed views, BSHD
+   tensors and with a column bias that masks a whole row; and the host side
+   of one GEMM call;
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),
@@ -208,12 +213,14 @@ def _counters():
             "fused_vit_block_i8": (fused_vit_block_i8, "launches"),
             "fused_qformer_layer_int8": (fused_qformer_layer, "launches_int8"),
             "gemm_i8": (primitives.gemm_i8_cuda, "launches"),
-            "gemm": (primitives.gemm_cuda, "launches")}
+            "gemm": (primitives.gemm_cuda, "launches_bf16"),
+            "gemm_f32": (primitives.gemm_cuda, "launches_f32")}
 
 
 # the kernels each configuration's main path must launch; the other
 # configuration's must not move
-PATH_KERNELS = {"bf16": ("token_max_sim", "fused_vit_block", "fused_qformer_layer", "gemm"),
+PATH_KERNELS = {"bf16": ("token_max_sim", "fused_vit_block", "fused_qformer_layer", "gemm",
+                         "gemm_f32"),
                 "int8": ("token_max_sim", "fused_vit_block_i8", "fused_qformer_layer_int8",
                          "gemm_i8")}
 
@@ -266,7 +273,8 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[main {tag}] model blip2_cir_align_prompt/pretrain_vitL on {DEVICE}: "
         f"{n_params / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
-    if calibrate:  # set-up: the tower then serves in "int8_static"
+    calibration = {}  # launches of the calibration pass (set-up)
+    if calibrate:  # the tower then serves in "int8_static"
         t0 = time.perf_counter()
         flash, attr = counters["flash_attention"]
         before = getattr(flash, attr)
@@ -274,6 +282,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
             model, synthetic_calibration_images(SEED + 99, CALIB_IMAGES), batch=CALIB_IMAGES)
         sync()
         calib_flash = getattr(flash, attr) - before
+        calibration = {"flash_attention": calib_flash}
         log(f"[main {tag}] calibrated on {CALIB_IMAGES} seeded images in "
             f"{time.perf_counter() - t0:.1f} s, {calib_flash} flash_attention launches: "
             + ", ".join(f"{k} {v:.5f}" for k, v in scales))
@@ -392,7 +401,8 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
         assert top1_same >= bounds["top1"], top1_same
     del service, engine, index
     torch.cuda.empty_cache()
-    return {"launches": launches, "encode_imgs_per_s": GALLERY / encode_s,
+    return {"launches": launches, "calibration_launches": calibration,
+            "encode_imgs_per_s": GALLERY / encode_s,
             "query_1_median_ms": float(np.median(single_ms)),
             "query_32_median_ms": float(np.median(batch_ms)),
             "target_feats": target_feats, "served": served}
@@ -502,7 +512,8 @@ def phase_validate(work, route, gallery):
         want = vcfg.depth * batches if name in own else 0
         if launches[name] != want:
             raise RuntimeError(f"{tag}: {name} launched {launches[name]}x, expected {want}")
-    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm") if launches[k] <= 0]
+    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm", "gemm_f32")
+               if launches[k] <= 0]
     moved = [k for k in ("fused_vit_block_i8", "fused_qformer_layer_int8", "gemm_i8")
              if launches[k] != 0]
     if missing or moved:
@@ -623,6 +634,12 @@ def kernel_table(rows, launches):
         entry("flash_attention", "sprc_tpu_torch/csrc/attention.cu",
               "sprc_tpu/ops/pallas_attention.py:428", ["K8 flash_attention D=88"],
               library_ms=by_check["K8 flash_attention D=88"]["library_ms"]),
+        # the same kernel at ViT-L's head dim: its launches are those of the int8
+        # configuration's calibration pass (set-up of that main path)
+        entry("flash_attention D=64", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_attention.py:428", ["K8 flash_attention D=64"],
+              library_ms=by_check["K8 flash_attention D=64"]["library_ms"],
+              count="flash_attention_calibration"),
         # the SPRC_ATTN_V variants (v4 to v11) are TPU schedules of the same
         # function: the one kernel above, its numbers again
         entry("flash_attention_variants", "sprc_tpu_torch/csrc/attention.cu",
@@ -659,12 +676,14 @@ def main():
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
-    launches = {**int8["launches"], **{k: bf16["launches"][k] for k in PATH_KERNELS["bf16"]}}
+    launches = {**int8["launches"], **{k: bf16["launches"][k] for k in PATH_KERNELS["bf16"]},
+                "flash_attention_calibration": int8["calibration_launches"]["flash_attention"]}
     for route, (_, own) in ROUTES.items():
         if route != "block":  # K2's count stays the pretrain_vitL path's
             launches.update({k: runs[route]["launches"][k] for k in own})
     keep = ("encode_imgs_per_s", "query_1_median_ms", "query_32_median_ms")
     print(json.dumps({"kernels": kernel_table(rows, launches),
+                      "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "int8_vs_bf16_random_weights": against,
                       "validate_pretrain": {route: {k: run[k] for k in

@@ -26,30 +26,42 @@
 // bf16 the two lie within one bf16 step of each other, in fp32 they agree to
 // rounding).
 //
-// - bf16 (the ViT, S = 257): tensor cores through WMMA. A block owns 64
-//   query rows of one (item, head), 16 per warp. The head is padded in shared
-//   memory to DP = D rounded up to 16 (88 -> 96) with zero lanes: zero q/k
-//   lanes add nothing to a score, and the extra output lanes are not stored.
+// - bf16 (the ViT, S = 257): tensor cores through mma.sync.m16n8k16 PTX, whose
+//   fragment layouts are documented, so scores, probabilities and the output
+//   accumulator never leave registers: a warp owns 16 query rows, a thread two
+//   of them (lane / 4 and + 8) with its row's columns spread over its quad.
+//   Row max and row sum are two shuffles inside the quad, the running output
+//   is rescaled in registers, and the score fragment of Q K^T, rounded to
+//   bf16, is already the A fragment of P V. Shared memory holds only the Q
+//   tile and a two-stage ring of K / V chunks (64 keys) filled by cp.async, so
+//   the next chunk arrives while this one multiplies; fragments come from it
+//   through ldmatrix (rows pitched DP + 8 elements: conflict-free). The op is
+//   small (4 S^2 D operations a head) and bound by the softmax's fp32 and
+//   exp2 work beside the tensor cores, not by device memory.
+//   Tiles for S = 257: a block is 6 warps = 96 query rows, so 257 rows are 3
+//   blocks and 17 warp tiles of 16 (272 rows computed, 5.8 % padding); a warp
+//   whose rows all lie past Sq only helps to load. Keys: 5 chunks of 64, but
+//   inside a chunk only the 8-key score tiles and 16-key P V steps that hold a
+//   valid key are computed, so the last chunk (one key) costs one tile and one
+//   step: 264 key columns for 257 in Q K^T and 272 in P V. Together 272 x 264
+//   and 272 x 272 products for 257 x 257: 8.7 % and 12 % padding (the old
+//   64 x 64 tiling computed 320 x 320: 55 %).
+//   The head is padded in shared memory to DP = D rounded up to 16 (88 -> 96)
+//   with zero lanes for the depth of Q K^T; P V has N = D and needs none.
 //   Device memory is never read past a head's D columns (the next head's data
 //   lies there); D * 2 bytes is a multiple of 16 for both head dims, so the
-//   16-byte loads of a head's row stay aligned. Per chunk, S = Q K^T goes
-//   through mma.sync into a per-warp fp32 tile in shared memory; two lanes
-//   per row rescale the running output and write P in bf16; O += P V runs on
-//   the tensor cores again, with O held in shared memory in fp32 (WMMA
-//   fragments do not expose their row layout, so the per-row rescale works
-//   on the stored tile). At S = 257 the op is small (4 S^2 D flops per
-//   head) and bound by the softmax pass and shared-memory traffic between
-//   the two products, not by device memory. Shared memory: 70 KB at D = 64,
-//   90 KB at D = 88 (dynamic, opted in; the limit is 227 KB).
+//   16-byte copies of a head's row stay aligned.
+//   Scores are s = (q . k) * scale + bias in fp32 with both roundings of the
+//   plain version, and p = exp2((s - m) * log2 e): the subtraction happens
+//   before the change of base, because with the -10000 bias of a masked key
+//   a folded scale would round the exponent at a magnitude of 14427 and move
+//   a fully masked row's probabilities by 1e-3.
+//   Shared memory: 50 KB at D = 64, 72 KB at D = 88 (dynamic, opted in).
 // - fp32 (the Q-Former, and fp32 towers): true fp32 on the CUDA cores. A
 //   block owns 16 query rows; each warp keeps four rows, one lane per key for
 //   the scores and ceil(D / 32) output dims per lane for P.V. Bound by the
 //   fp32 FMA rate. Shared memory: 36 KB at D = 64, 52 KB at D = 88 (dynamic).
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -164,41 +176,69 @@ __global__ void __launch_bounds__(128) attention_f32_kernel(
 
 // ----------------------------------------------------------------- bf16
 
-constexpr int BQ = 64;  // query rows per block (4 warps x 16)
+constexpr int BF_WARPS = 6;               // warps per block, 16 query rows each
+constexpr int BF_THREADS = BF_WARPS * 32;
+constexpr int BQ = BF_WARPS * 16;         // query rows per block
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct BF16Layout {
-  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma tile
-  static constexpr int LDH = DP + 8;             // Q / K / V tile row pitch (bf16 elements)
-  static constexpr int LDS = KC + 4;             // score tile row pitch (floats)
-  static constexpr int LDO = DP + 4;             // output tile row pitch (floats)
-  static constexpr int LDP = KC + 8;             // P tile row pitch (bf16 elements)
-  static constexpr int TILE_H = BQ * LDH;        // Q / K / V tile, bf16 elements
-  static constexpr int WARP_S = 16 * LDS;        // per-warp score tile, floats
-  static constexpr int WARP_O = 16 * LDO;        // per-warp output tile, floats
-  static constexpr int WARP_P = 16 * LDP;        // per-warp P tile, bf16 elements
-  static constexpr size_t SMEM = 3 * TILE_H * sizeof(__nv_bfloat16) +
-                                 4 * ((WARP_S + WARP_O) * sizeof(float) +
-                                      WARP_P * sizeof(__nv_bfloat16));
+  static constexpr int DP = (D + 15) / 16 * 16;  // head dim padded to the mma depth
+  static constexpr int LDH = DP + 8;             // tile row pitch (bf16 elements): 16-byte units odd
+  static constexpr int Q_ELEMS = BQ * LDH;
+  static constexpr int KV_ELEMS = KC * LDH;      // one K or V chunk
+  // Q, two stages of K and V, two stages of the per-key additive term
+  static constexpr size_t SMEM = (Q_ELEMS + 4 * KV_ELEMS) * sizeof(__nv_bfloat16) +
+                                 2 * KC * sizeof(float);
 };
 
-// rows [row0, row0 + 64) of one head (D bf16 = D / 8 chunks of 16 bytes each)
-// into a padded tile; rows past `rows` and the lanes D..DP-1 are zero
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long rs, int row0, int rows) {
+// rows [row0, row0 + ROWS) of one head (D bf16 = D / 8 copies of 16 bytes a
+// row) into a padded tile, asynchronously; rows past `rows` and the lanes
+// D..DP-1 arrive as zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long rs, int row0, int rows) {
   using L = BF16Layout<D>;
   constexpr int CH = L::DP / 8;
-  for (int e = threadIdx.x; e < BQ * CH; e += blockDim.x) {
-    int r = e / CH, c = (e % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows && c < D) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * L::LDH + c) = val;
+  for (int e = threadIdx.x; e < ROWS * CH; e += BF_THREADS) {
+    const int r = e / CH, c = (e % CH) * 8;
+    const bool ok = row0 + r < rows && c < D;
+    sprc::cp_async16(dst + r * L::LDH + c, ok ? src + (row0 + r) * rs + c : src, ok);
   }
 }
 
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, fp32 out. Per thread (g =
+// lane / 4, t = lane % 4): a0 (g, 2t..), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
+// a3 (g + 8, 2t + 8..); b0 (k = 2t.., n = g), b1 (k = 2t + 8.., n = g);
+// c0 c1 (g, 2t..), c2 c3 (g + 8, 2t..)
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 template <int D>
-__global__ void __launch_bounds__(128) attention_bf16_kernel(
+__global__ void __launch_bounds__(BF_THREADS, 2) attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, long long q_rs, long long q_bs,
@@ -206,103 +246,167 @@ __global__ void __launch_bounds__(128) attention_bf16_kernel(
     long long o_bs, float scale) {
   static_assert(D % 8 == 0, "a head's row is read in 16-byte chunks");
   using L = BF16Layout<D>;
-  constexpr int DP = L::DP, LDH = L::LDH, LDS = L::LDS, LDO = L::LDO, LDP = L::LDP;
-  constexpr int HALF = DP / 2;  // output columns per lane of a row's pair
+  constexpr int DP = L::DP, LDH = L::LDH;
+  constexpr int KS = DP / 16;       // depth steps of Q K^T
+  constexpr int NT = KC / 8;        // 8-key score tiles a chunk
+  constexpr int OT = D / 8;         // 8-column output tiles
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + L::TILE_H;
-  __nv_bfloat16* Vs = Ks + L::TILE_H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* fbase = reinterpret_cast<float*>(Vs + L::TILE_H);
-  float* Sf = fbase + warp * (L::WARP_S + L::WARP_O);  // scores
-  float* Of = Sf + L::WARP_S;                          // output acc
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(fbase + 4 * (L::WARP_S + L::WARP_O)) +
-                      warp * L::WARP_P;
+  __nv_bfloat16* Ks = Qs + L::Q_ELEMS;           // [2][KC][LDH]
+  __nv_bfloat16* Vs = Ks + 2 * L::KV_ELEMS;      // [2][KC][LDH]
+  float* adds = reinterpret_cast<float*>(Vs + 2 * L::KV_ELEMS);  // [2][KC]: bias, or -inf past Sk
 
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int r0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const __nv_bfloat16* kb = k + b * k_bs + h * D;
   const __nv_bfloat16* vb = v + b * v_bs + h * D;
   const float* bb = bias ? bias + (long long)b * Sk : nullptr;
-  load_tile<D>(Qs, q + b * q_bs + h * D, q_rs, r0, Sq);
-  for (int e = lane; e < L::WARP_O; e += 32) Of[e] = 0.0f;
+  const int chunks = (Sk + KC - 1) / KC;
+  const bool active = r0 + warp * 16 < Sq;  // else every row of this warp lies past Sq
 
-  // softmax bookkeeping: two lanes per row, 32 score columns and HALF output
-  // columns each
-  const int row = lane / 2, cb = (lane % 2) * 32, ob0 = (lane % 2) * HALF;
-  float m = -INFINITY, l = 0.0f;
+  auto load_chunk = [&](int c) {
+    const int st = c & 1, c0 = c * KC;
+    load_tile_async<D, KC>(Ks + st * L::KV_ELEMS, kb, k_rs, c0, Sk);
+    load_tile_async<D, KC>(Vs + st * L::KV_ELEMS, vb, v_rs, c0, Sk);
+    if (threadIdx.x < KC) {
+      const int j = c0 + threadIdx.x;
+      adds[st * KC + threadIdx.x] = j < Sk ? (bb ? bb[j] : 0.0f) : -INFINITY;
+    }
+  };
 
-  for (int c0 = 0; c0 < Sk; c0 += KC) {
-    __syncthreads();  // previous chunk consumed by every warp
-    load_tile<D>(Ks, kb, k_rs, c0, Sk);
-    load_tile<D>(Vs, vb, v_rs, c0, Sk);
+  load_tile_async<D, BQ>(Qs, q + b * q_bs + h * D, q_rs, r0, Sq);
+  load_chunk(0);
+  sprc::cp_async_commit();
+  if (chunks > 1) load_chunk(1);
+  sprc::cp_async_commit();
+
+  uint32_t qf[KS][4];
+  float o[OT][4];
+#pragma unroll
+  for (int j = 0; j < OT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // rows g and g + 8
+
+  // ldmatrix row addresses: lane supplies row (lane % 8) of matrix (lane / 8)
+  const int lm = lane / 8, lr = lane % 8;
+
+  for (int c = 0; c < chunks; ++c) {
+    sprc::cp_async_wait<1>();  // chunk c (and Q) has landed; chunk c + 1 may be in flight
     __syncthreads();
-
+    const int st = c & 1;
+    const int kv = min(KC, Sk - c * KC);  // valid keys in this chunk
+    if (active) {
+      if (c == 0) {
 #pragma unroll
-    for (int j = 0; j < KC / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * LDH + kk, LDH);
-        wmma::load_matrix_sync(bt, Ks + j * 16 * LDH + kk, LDH);
-        wmma::mma_sync(s, a, bt, s);
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lm % 2) * 8 + lr) * LDH + kk * 16 + (lm / 2) * 8);
       }
-      wmma::store_matrix_sync(Sf + j * 16, s, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
+      const __nv_bfloat16* Kc = Ks + st * L::KV_ELEMS;
+      const __nv_bfloat16* Vc = Vs + st * L::KV_ELEMS;
+      const float* add = adds + st * KC;
 
-    float sv[32];
-    float mx = -INFINITY;
+      // S = Q K^T on the score tiles that hold a valid key
+      float s[NT][4];
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      int j = c0 + cb + c;
-      float add = (j < Sk) ? (bb ? bb[j] : 0.0f) : -INFINITY;
-      sv[c] = Sf[row * LDS + cb + c] * scale + add;
-      mx = fmaxf(mx, sv[c]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);
-    float sum = 0.0f;
+      for (int j = 0; j < NT; j += 2) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        s[j + 1][0] = s[j + 1][1] = s[j + 1][2] = s[j + 1][3] = 0.0f;
+        if (j * 8 < kv) {
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      float p = expf(sv[c] - m_new);
-      sum += p;
-      Ps[row * LDP + cb + c] = __float2bfloat16(p);
-    }
-#pragma unroll
-    for (int c = 0; c < HALF; ++c) Of[row * LDO + ob0 + c] *= corr;
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * corr + sum;
-    m = m_new;
-    __syncwarp();
-
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      wmma::load_matrix_sync(o, Of + j * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, Ps + kk, LDP);
-        wmma::load_matrix_sync(bv, Vs + kk * LDH + j * 16, LDH);
-        wmma::mma_sync(o, a, bv, o);
+          for (int kk = 0; kk < KS; ++kk) {
+            uint32_t kf[4];  // tiles j (k low, k high) and j + 1 (k low, k high)
+            ldmatrix_x4(kf, Kc + ((j + lm / 2) * 8 + lr) * LDH + kk * 16 + (lm % 2) * 8);
+            mma_16816(s[j], qf[kk], kf[0], kf[1]);
+            mma_16816(s[j + 1], qf[kk], kf[2], kf[3]);
+          }
+        }
       }
-      wmma::store_matrix_sync(Of + j * 16, o, LDO, wmma::mem_row_major);
+
+      // online softmax on rows g (values 0, 1) and g + 8 (values 2, 3)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j * 8 < kv) {
+          const float a0 = add[j * 8 + 2 * t], a1 = add[j * 8 + 2 * t + 1];
+          s[j][0] = __fadd_rn(__fmul_rn(s[j][0], scale), a0);
+          s[j][1] = __fadd_rn(__fmul_rn(s[j][1], scale), a1);
+          s[j][2] = __fadd_rn(__fmul_rn(s[j][2], scale), a0);
+          s[j][3] = __fadd_rn(__fmul_rn(s[j][3], scale), a1);
+          mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        }
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);  // finite: chunk 0 holds a valid key
+        corr[i] = exp2f((m[i] - m_new) * LOG2E);
+        m[i] = m_new;
+      }
+      uint32_t pf[NT][2];  // P in bf16: [tile][row g, row g + 8]
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
+        if (j * 8 < kv) {
+          p0 = exp2f((s[j][0] - m[0]) * LOG2E);
+          p1 = exp2f((s[j][1] - m[0]) * LOG2E);
+          p2 = exp2f((s[j][2] - m[1]) * LOG2E);
+          p3 = exp2f((s[j][3] - m[1]) * LOG2E);
+          sum[0] += p0 + p1;
+          sum[1] += p2 + p3;
+        }
+        pf[j][0] = pack_bf16(p0, p1);
+        pf[j][1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * corr[i] + sum[i];
+      }
+#pragma unroll
+      for (int j = 0; j < OT; ++j) {
+        o[j][0] *= corr[0];
+        o[j][1] *= corr[0];
+        o[j][2] *= corr[1];
+        o[j][3] *= corr[1];
+      }
+
+      // O += P V on the 16-key steps that hold a valid key
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        if (kk * 16 < kv) {
+          const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+#pragma unroll
+          for (int j = 0; j < OT; j += 2) {
+            uint32_t vf[4];  // output tiles j (keys low, high) and j + 1 (keys low, high)
+            ldmatrix_x4_trans(vf, Vc + (kk * 16 + (lm % 2) * 8 + lr) * LDH + (j + lm / 2) * 8);
+            mma_16816(o[j], a, vf[0], vf[1]);
+            if (j + 1 < OT) mma_16816(o[j + 1], a, vf[2], vf[3]);
+          }
+        }
+      }
     }
-    __syncwarp();
+    __syncthreads();  // every warp is done with stage st
+    if (c + 2 < chunks) load_chunk(c + 2);
+    sprc::cp_async_commit();
   }
 
-  const int orow = r0 + warp * 16 + row;
-  if (orow < Sq) {
-    __nv_bfloat16* ob = out + b * o_bs + orow * o_rs + h * D;
-    const float inv = 1.0f / l;
+  if (active) {
 #pragma unroll
-    for (int c = 0; c < HALF; ++c)
-      if (ob0 + c < D) ob[ob0 + c] = __float2bfloat16(Of[row * LDO + ob0 + c] * inv);
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + warp * 16 + g + 8 * i;
+      if (row < Sq) {
+        __nv_bfloat16* ob = out + b * o_bs + row * o_rs + h * D + 2 * t;
+        const float inv = 1.0f / l[i];
+#pragma unroll
+        for (int j = 0; j < OT; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(ob + j * 8) =
+              __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      }
+    }
   }
 }
 
@@ -318,7 +422,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
         attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    attention_bf16_kernel<D><<<grid, 128, SMEM, s>>>(
+    attention_bf16_kernel<D><<<grid, BF_THREADS, SMEM, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<T*>(out), Sq, Sk,
         q_rs, q_bs, k_rs, k_bs, v_rs, v_bs, o_rs, o_bs, scale);

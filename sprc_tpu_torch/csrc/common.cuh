@@ -31,9 +31,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// the activation as a compile-time choice: a loop built on it holds one
+// activation's code (with a run-time code the compiler may evaluate all of
+// them for every element and select)
+template <int ACT>
+__device__ __forceinline__ float apply_act_static(float v) {
+  if constexpr (ACT == kActQuickGelu) return v / (1.0f + expf(-1.702f * v));
+  else if constexpr (ACT == kActGelu) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  else return v;
+}
+
 __device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == kActQuickGelu) return v / (1.0f + expf(-1.702f * v));
-  if (act == kActGelu) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  if (act == kActQuickGelu) return apply_act_static<kActQuickGelu>(v);
+  if (act == kActGelu) return apply_act_static<kActGelu>(v);
   return v;
 }
 

@@ -18,6 +18,10 @@ feeds the next quantiser, so a bound on their final difference can tell
 little; held stage by stage they cannot drift, and each stage is held as
 tightly as the primitive alone (:data:`STAGE_BOUNDS`).
 
+The two tensor-core kernels written for Hopper (the bf16 GEMM and the bf16
+attention) are also run over ragged shapes (:func:`run_edges`): a fault at a
+tile edge shows only there, not at the towers' shapes.
+
 A timed row also carries the work of its call, from the shapes alone:
 ``bytes`` (each input read once, each output written once) and
 ``op_seconds`` (its operations over the card's peak rate for their type,
@@ -671,6 +675,9 @@ def check_library_yardsticks(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads
 # The products of EVA ViT-g's encode (ENCODE_BATCH images) beside the ViT-L
 # ones that the block checks already run: name -> (M, N, K, dtype, epilogue).
 GEMM_PRODUCTS = {
+    "vit qkv": (_VIT_M, 3072, 1024, torch.bfloat16, "bias"),
+    "vit proj": (_VIT_M, 1024, 1024, torch.bfloat16, "bias+residual"),
+    "vit fc1": (_VIT_M, 4096, 1024, torch.bfloat16, "bias,quick_gelu"),
     "eva qkv": (_VIT_M, 4224, 1408, torch.bfloat16, "bias"),
     "eva proj": (_VIT_M, 1408, 1408, torch.bfloat16, "bias+residual"),
     "eva fc1": (_VIT_M, 6144, 1408, torch.bfloat16, "bias,gelu"),
@@ -699,7 +706,7 @@ def check_gemm(name: str, device="cuda", seed=12) -> dict:
     b = r.normal(N, std=0.02)
     kw = {}
     if "gelu" in epilogue:
-        kw["act"] = "gelu"
+        kw["act"] = "quick_gelu" if "quick_gelu" in epilogue else "gelu"
     if "residual" in epilogue:
         kw["residual"] = r.normal(M, N, dtype=dtype)
         kw["residual_f32"] = epilogue.endswith("_f32")
@@ -720,7 +727,88 @@ def check_gemm(name: str, device="cuda", seed=12) -> dict:
     elt = 2 if dtype == torch.bfloat16 else 4
     row["bytes"] = elt * (M * K + N * K + M * N * (2 if "residual" in kw else 1)) + 4 * N
     row["op_seconds"] = 2 * M * N * K / PEAK_OPS["bf16" if elt == 2 else "fp32"]
+    row["tflops"] = 2 * M * N * K / (row["ms"] * 1e-3) / 1e12
     return row
+
+
+# Ragged products for the bf16 kernel's tile edges: a last row tile of 1, 63
+# and 65 rows, N beside a multiple of either tile width (and odd, which takes
+# the epilogue's scalar stores), K of 8 and 72 (a depth box that hangs over
+# the edge), a product smaller than one tile and one of several tiles each way.
+GEMM_EDGE_SHAPES = [(1, 8, 8), (63, 72, 72), (65, 130, 8), (257, 1000, 72), (129, 257, 136),
+                    (127, 255, 200), (300, 37, 64), (128, 256, 64), (385, 384, 1032),
+                    (16 * 257, 520, 328)]
+# name -> (with a bias, activation, residual: None, "model dtype" or "fp32")
+GEMM_EPILOGUES = {"none": (False, None, None), "bias": (True, None, None),
+                  "quick_gelu": (True, "quick_gelu", None), "gelu": (True, "gelu", None),
+                  "residual": (True, None, "model dtype"), "residual_f32": (True, None, "fp32")}
+
+
+def check_gemm_edges(device="cuda", seed=17) -> dict:
+    """The bf16 GEMM kernel over :data:`GEMM_EDGE_SHAPES`, each with every
+    epilogue and both residual modes, against the plain version within the
+    bound of its stage; every output element is compared, so a fault at a
+    tile's edge (a row or column dropped, a depth box not zero-filled) fails
+    it. The wrapper must refuse K % 8 != 0."""
+    r = _Rand(device, seed)
+    worst = {"differ": 0.0, "err": 0.0}
+    bad, cases = [], 0
+    with torch.inference_mode():
+        for M, N, K in GEMM_EDGE_SHAPES:
+            x = r.normal(M, K, dtype=torch.bfloat16)
+            w = r.normal(N, K, std=0.05, dtype=torch.bfloat16)
+            b, res = r.normal(N, std=0.05), r.normal(M, N, dtype=torch.bfloat16)
+            for name, (with_bias, act, residual) in GEMM_EPILOGUES.items():
+                kw = {"act": act}
+                if residual is not None:
+                    kw.update(residual=res, residual_f32=residual == "fp32")
+                bias = b if with_bias else None
+                got = primitives.gemm_cuda(x, w, bias, **kw)
+                want = primitives.gemm_plain(x, w, bias, **kw)
+                kind = "gemm, fp32 residual" if kw.get("residual_f32") else "gemm"
+                stage = _held(kind, got, want)
+                cases += 1
+                worst = {k: max(worst[k], stage[k]) for k in worst}
+                if not stage["ok"] or not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+                    bad.append(f"{M}x{N}x{K} {name}: differ {stage['differ']:.2e} err {stage['err']:.2e}")
+        try:
+            primitives.gemm_cuda(r.normal(4, 12, dtype=torch.bfloat16),
+                                 r.normal(4, 12, dtype=torch.bfloat16))
+            bad.append("K=12 was not refused")
+        except ValueError:
+            pass
+        torch.cuda.synchronize()
+    return {"ok": not bad, "finite": True, "max_abs_err": worst["err"], "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases over {len(GEMM_EDGE_SHAPES)} ragged shapes x "
+                      f"{len(GEMM_EPILOGUES)} epilogues: worst differ {worst['differ']:.2e}, worst "
+                      f"relative err {worst['err']:.2e}" + (f"; FAILED: {bad}" if bad else ""))}
+
+
+def check_gemm_host_cost(device="cuda", calls=200, seed=18) -> dict:
+    """What one call of ``gemm_cuda`` costs on the host (the wrapper's checks,
+    the plan, two tensor maps encoded and the launch), on a product so small
+    that the device never falls behind: wall time of ``calls`` calls without
+    a synchronise, over their number."""
+    import time
+
+    r = _Rand(device, seed)
+    x, w = r.normal(128, 64, dtype=torch.bfloat16), r.normal(128, 64, dtype=torch.bfloat16)
+    xf, wf = x.float(), w.float()
+    out = {}
+    with torch.inference_mode():
+        for name, (a, b) in {"bf16": (x, w), "f32": (xf, wf)}.items():
+            for _ in range(10):
+                primitives.gemm_cuda(a, b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                primitives.gemm_cuda(a, b)
+            out[name] = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+    return {"ok": True, "finite": True, "max_abs_err": 0.0, "mean_abs_err": 0.0,
+            "host_us_bf16": out["bf16"], "host_us_f32": out["f32"],
+            "shape": (f"host side of one gemm_cuda call, 128x128x64: bf16 (plan, 2 tensor maps, "
+                      f"launch) {out['bf16']:.1f} us; fp32 (launch only) {out['f32']:.1f} us")}
 
 
 # ------------------------------------------------------------- attention
@@ -790,6 +878,70 @@ def check_flash_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_
     row["bytes"] = elt * 2 * B * (Sq + Sk) * heads * D
     row["op_seconds"] = 4 * B * Sq * Sk * heads * D / PEAK_OPS["bf16" if elt == 2 else "fp32"]
     return row
+
+
+# (Sq, Sk) for the bf16 attention kernel's tile edges: one row, one key, a
+# last warp tile of 1 and of 15 rows, a block of exactly 96 rows and one more,
+# a last key chunk of 1, 63 and 64 keys, a last score tile or P V step half
+# full, the Q-Former's 32 into 257
+ATTN_EDGE_SHAPES = [(1, 1), (1, 257), (257, 1), (31, 32), (32, 257), (257, 257), (96, 64),
+                    (97, 130), (16, 65), (200, 63), (130, 72), (113, 120)]
+
+
+def check_attention_edges(device="cuda", seed=19) -> dict:
+    """The bf16 attention kernel over :data:`ATTN_EDGE_SHAPES` at both head
+    dims, against the plain version within the bound of its stage: q, k and v
+    as strided views of one packed tensor (read in place), as BSHD tensors
+    through ``flash_attention_cuda``, and with a 0 / -10000 column bias whose
+    first item is fully masked (spread evenly, as the plain softmax does)."""
+    r = _Rand(device, seed)
+    B, heads = 3, 4
+    worst = {"differ": 0.0, "err": 0.0}
+    bad, cases = [], 0
+
+    def hold(kind, what, got, want):
+        nonlocal worst, cases
+        stage = _held(kind, got, want)
+        cases += 1
+        worst = {k: max(worst[k], stage[k]) for k in worst}
+        if not stage["ok"] or not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+            bad.append(f"{what}: differ {stage['differ']:.2e} err {stage['err']:.2e}")
+
+    with torch.inference_mode():
+        for D in primitives.HEAD_DIMS:
+            W, scale = heads * D, D ** -0.5
+            kind = "attention" if D == 64 else f"attention D={D}"
+            for Sq, Sk in ATTN_EDGE_SHAPES:
+                S = max(Sq, Sk)
+                packed = r.normal(B, S, 3 * W, dtype=torch.bfloat16)
+                q, k, v = packed[:, :Sq, :W], packed[:, :Sk, W:2 * W], packed[:, :Sk, 2 * W:]
+                hold(kind, f"D={D} {Sq}x{Sk} packed", primitives.attention_cuda(q, k, v, heads, scale),
+                     primitives.attention_plain(q, k, v, heads, scale))
+                bias = torch.where(torch.rand(B, Sk, generator=r.gen, device=device) < 0.7,
+                                   0.0, -10000.0).float()
+                bias[0] = -10000.0
+                hold(kind, f"D={D} {Sq}x{Sk} bias",
+                     primitives.attention_cuda(q, k, v, heads, scale, bias.contiguous()),
+                     primitives.attention_plain(q, k, v, heads, scale, bias))
+                q4 = r.normal(B, Sq, heads, D, dtype=torch.bfloat16)
+                k4, v4 = (r.normal(B, Sk, heads, D, dtype=torch.bfloat16) for _ in range(2))
+                hold(f"flash_{kind}", f"D={D} {Sq}x{Sk} BSHD",
+                     primitives.flash_attention_cuda(q4, k4, v4, scale),
+                     primitives.flash_attention_plain(q4, k4, v4, scale))
+        torch.cuda.synchronize()
+    return {"ok": not bad, "finite": True, "max_abs_err": worst["err"], "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases over {len(ATTN_EDGE_SHAPES)} ragged (Sq, Sk) x head dims "
+                      f"{primitives.HEAD_DIMS} x packed / bias / BSHD: worst differ "
+                      f"{worst['differ']:.2e}, worst relative err {worst['err']:.2e}"
+                      + (f"; FAILED: {bad}" if bad else ""))}
+
+
+def run_edges(device="cuda") -> List[dict]:
+    """The two tensor-core kernels at their tile edges, and the host side of
+    a GEMM call."""
+    return [dict(check="gemm bf16 edges", **check_gemm_edges(device)),
+            dict(check="attention bf16 edges", **check_attention_edges(device)),
+            dict(check="gemm host cost", **check_gemm_host_cost(device))]
 
 
 # -------------------------------------------------------------- K6 and K7
@@ -895,4 +1047,4 @@ def run_all(device="cuda") -> List[dict]:
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
-    return rows + run_int8(device) + run_validate_path(device)
+    return rows + run_int8(device) + run_validate_path(device) + run_edges(device)

@@ -1,8 +1,11 @@
 """Build and bind the CUDA kernels of ``sprc_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one process
-per ``.cu`` file and all of them at once, and linked into one shared library
-with a plain C interface that is loaded through ``ctypes``. The build
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``, which
+``wgmma`` and ``setmaxnreg`` need; C++20), one process per ``.cu`` file and
+all of them at once, and linked into one shared library with a plain C
+interface that is loaded through ``ctypes``. The link step names no library:
+the one function of ``libcuda`` the kernels need (``cuTensorMapEncodeTiled``,
+for the GEMM's TMA tensor maps) is looked up there by name at run time. The build
 happens at the first call of :func:`library`, never at import (the CPU
 tests import every module of the package), and its output is cached in
 ``sprc_tpu_torch/_build/`` under a hash of the sources and flags, so a
@@ -36,7 +39,7 @@ PKG_ROOT = Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++20", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
@@ -48,7 +51,7 @@ OUT_S32, OUT_F32, OUT_BF16, OUT_S8 = 0, 1, 2, 3
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P],
     "sprc_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
@@ -118,8 +121,9 @@ def build(jobs: Optional[int] = None, force: bool = False) -> Path:
             if link.returncode != 0:
                 failed.append("link")
         (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
-        if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs)[-4000:])
+        if failed:  # the message ends with the failed steps' own output
+            failed_logs = [log for log in logs if "(exit 0" not in log.split("\n", 1)[0]]
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(failed_logs)[-4000:])
         os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
     return out
 

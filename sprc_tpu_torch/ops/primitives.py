@@ -6,11 +6,13 @@ kernels, all in ``csrc/``:
 
 - ``gemm``: ``Y = epi(X . W^T + b)`` with the epilogues none / QuickGELU /
   exact GELU / ``+ residual`` (added in the model dtype after the rounding,
-  or with ``residual_f32`` in fp32 before it) (``csrc/gemm.cu``);
+  or with ``residual_f32`` in fp32 before it) (``csrc/gemm.cu``; the bf16
+  path is cut as :func:`schedules.gemm_bf16_plan` says);
 - ``attention``: ``softmax(q k^T scale + col_bias) v`` per item and head,
   head dim one of :data:`HEAD_DIMS`, ``Sq != Sk`` allowed
-  (``csrc/attention.cu``); ``flash_attention`` is the same kernel without a
-  bias on BSHD tensors, read in place;
+  (``csrc/attention.cu``; :func:`schedules.attention_emulated` walks the bf16
+  path's schedule in plain PyTorch); ``flash_attention`` is the same kernel
+  without a bias on BSHD tensors, read in place;
 - ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``), in
   the model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
 - ``gemm_i8``: ``Y = epi(s32(A8 . W8^T))``, the int8 dense layer on the
@@ -43,7 +45,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from sprc_tpu_torch.ops import _ext, quant
+from sprc_tpu_torch.ops import _ext, quant, schedules
 
 Tensor = torch.Tensor
 
@@ -192,9 +194,10 @@ def _stream():
 
 def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[str] = None,
               residual: Optional[Tensor] = None, residual_f32: bool = False) -> Tensor:
-    """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 on the tensor
-    cores, true fp32 on the CUDA cores). ``gemm_cuda.launches`` counts the
-    kernel's launches."""
+    """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 through wgmma
+    and TMA, cut as :func:`schedules.gemm_bf16_plan` says; true fp32 on the
+    CUDA cores). ``gemm_cuda.launches_bf16`` and ``gemm_cuda.launches_f32``
+    count the launches of the two kernels."""
     dt = _check("gemm", x, w, b, residual)
     K = x.shape[-1]
     N = w.shape[0]
@@ -210,17 +213,25 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
     if residual is not None and (residual.dtype != x.dtype or residual.shape != out_shape
                                  or not residual.is_contiguous()):
         raise ValueError("gemm: residual must match the output's shape and dtype")
+    if any(t is not None and t.data_ptr() % 16 for t in (b, residual)):
+        raise ValueError("gemm: the epilogue reads bias and residual as vectors: aligned data")
     if max(M * K, N * K, M * N) >= 2 ** 31:
         raise ValueError("gemm: tensor too large for 32-bit indexing")
+    tile_n = schedules.gemm_bf16_plan(M, N, K, act)["tile_n"] if dt == _ext.BF16 else 0
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = _ext.library()
     _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(residual), y.data_ptr(),
-                             M, N, K, dt, _ext.ACT[act], int(residual_f32), _stream()), "gemm")
-    gemm_cuda.launches += 1
+                             M, N, K, dt, _ext.ACT[act], int(residual_f32), tile_n, _stream()),
+               "gemm")
+    if dt == _ext.BF16:
+        gemm_cuda.launches_bf16 += 1
+    else:
+        gemm_cuda.launches_f32 += 1
     return y
 
 
-gemm_cuda.launches = 0
+gemm_cuda.launches_bf16 = 0
+gemm_cuda.launches_f32 = 0
 
 
 HEAD_DIMS = (64, 88)  # the head dims csrc/attention.cu is built for
