@@ -11,20 +11,23 @@ Phases (any failure raises and exits nonzero before the last line):
 3. kernels: K1 (token-max sim), K2 (ViT block) and K3 (Q-Former layer in the
    three serving shapes) against their plain PyTorch versions on the card, at
    the shapes the main path gives them (64 images, 32 queries, 512 items);
-   the bf16 GEMM at 4096^3; then the int8 kernels: the s8 GEMM's raw s32
-   product at 4096^3 and at every product of the main path (equal to plain),
-   each with the epilogue the path runs on it, the quantisers, K5 (int8 ViT
-   block) and K4 (int8 Q-Former layer); every chain of 23 blocks or 12
-   layers stage by stage (each kernel launch against its plain version on
-   the same inputs); then the validate path's kernels: K8 (flash_attention)
-   at head dims 64 and 88, the attention kernel at head dim 88 in bf16 and
-   fp32, K6 (attention half) and K7 (MLP half) at ViT-L's and EVA ViT-g's
-   shapes, K2 and K5 at EVA's shapes, and both towers' dense products; then
-   the two tensor-core kernels at their tile edges: the bf16 GEMM over ragged
-   (M, N, K) with every epilogue and both residual modes, the bf16 attention
-   over ragged (Sq, Sk) at both head dims on strided packed views, BSHD
-   tensors and with a column bias that masks a whole row; and the host side
-   of one GEMM call;
+   the Q-Former's fp32 GEMM at each of its products and its fp32 attention at
+   each of its calls (beside F.linear and SDPA); the bf16 GEMM at 4096^3; then
+   the int8 kernels: the s8 GEMM's raw s32 product at 4096^3 and at every
+   product of the main path (equal to plain), each with the epilogue the path
+   runs on it, the quantisers, K5 (int8 ViT block) and K4 (int8 Q-Former
+   layer); every chain of 23 blocks or 12 layers stage by stage (each kernel
+   launch against its plain version on the same inputs); then the validate
+   path's kernels: K8 (flash_attention) at head dims 64 and 88, the attention
+   kernel at head dim 88 in bf16 and fp32, K6 (attention half) and K7 (MLP
+   half) at ViT-L's and EVA ViT-g's shapes, K2 and K5 at EVA's shapes, and
+   the towers' bf16 dense products; then the kernels redesigned for Hopper at
+   their tile edges: the bf16 and fp32 GEMMs over ragged (M, N, K) with every
+   epilogue and both residual modes, the s8 GEMM over ragged (M, N, K) raw
+   and with every output mode and epilogue, each GEMM refusing a K it cannot
+   take before any launch, the bf16 attention over ragged (Sq, Sk) at both
+   head dims on strided packed views, BSHD tensors and with a column bias
+   that masks a whole row; and the host side of one call of each GEMM;
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),
@@ -653,6 +656,11 @@ def kernel_table(rows, launches):
         entry("gemm", "sprc_tpu_torch/csrc/gemm.cu", "scripts/ablate_int8.py:194",
               ["gemm bf16 ablate 4096^3"],
               library_ms=by_check["gemm bf16 ablate 4096^3"]["library_ms"]),
+        # the true-fp32 GEMM of K3's ten dense ops, at its largest product (the
+        # image's key / value projection of the queries pass)
+        entry("gemm_f32", "sprc_tpu_torch/csrc/gemm.cu", "sprc_tpu/ops/pallas_qformer.py:168",
+              ["gemm f32 qformer cross kv, queries pass"],
+              library_ms=by_check["gemm f32 qformer cross kv, queries pass"]["library_ms"]),
     ]
 
 

@@ -1,15 +1,19 @@
-"""The two tensor-core kernels (bf16 GEMM, bf16 attention) alone on the card.
+"""The kernels redesigned for Hopper alone on the card: the bf16 GEMM, the s8
+GEMM, the true-fp32 GEMM and the bf16 attention.
 
-    python -m sprc_tpu_torch.cli.kernel_sweep [--only gemm|attention] [--no-times]
+    python -m sprc_tpu_torch.cli.kernel_sweep [--only gemm|gemm_i8|gemm_f32|attention]
+        [--no-times]
 
-Builds the kernel library, prints what ``ptxas -v`` said about the two
-kernels (registers, shared memory, spills), holds both against their plain
-versions over the ragged shapes of ``kernel_checks`` (tile edges, every
-epilogue, strided and BSHD layouts, a fully masked row), and then times them
-at the towers' shapes beside ``F.linear`` and
-``F.scaled_dot_product_attention``: one JSON line per check, with the achieved
-TFLOP/s and the share of the card's bound for each tower product, both GEMM
-tile widths side by side, and the host cost of one GEMM call. Ends with the
+Builds the kernel library, prints what ``ptxas -v`` said about those kernels
+(registers, shared memory, spills), holds them against their plain versions
+over the ragged shapes of ``kernel_checks`` (tile edges, every epilogue and
+output mode, strided and BSHD layouts, a fully masked row), and then times
+them at the main paths' shapes beside the one PyTorch call that computes the
+same function (``F.linear``, ``torch._int_mm``,
+``F.scaled_dot_product_attention``): one JSON line per check, with the
+achieved TFLOP/s or TOP/s and the share of the card's bound for each
+product, every tile the kernel is built with side by side (whatever its plan
+would choose), and the host cost of one call of each GEMM. Ends with the
 card's name and power limit. Needs CUDA and ``nvcc``; exits nonzero when a
 check fails.
 """
@@ -26,14 +30,17 @@ import time
 import torch
 
 
+KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16")
+
+
 def ptxas_report(log_text: str) -> list:
-    """(kernel, registers, spill bytes, static shared bytes) for the bf16 GEMM
-    and attention kernels, from the build's ``nvcc.log``."""
+    """(kernel, registers, spill bytes, static shared bytes) for the kernels
+    of :data:`KERNELS`, from the build's ``nvcc.log``."""
     rows = []
     entries = re.split(r"ptxas info\s+: Compiling entry function '", log_text)[1:]
     for entry in entries:
         name = entry.split("'", 1)[0]
-        if "gemm_bf16" not in name and "attention_bf16" not in name:
+        if not any(k in name for k in KERNELS):
             continue
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
@@ -67,7 +74,7 @@ def time_tile_widths(device: str) -> list:
             for act in (None, "quick_gelu", "gelu"):
                 def run():
                     _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), None, None, y.data_ptr(),
-                                             M, N, K, _ext.BF16, _ext.ACT[act], 0, tile_n,
+                                             M, N, K, _ext.BF16, _ext.ACT[act], 0, 128, tile_n,
                                              primitives._stream()), "gemm")
                 row[f"tile_{tile_n}_{act or 'none'}_ms"] = kc.cuda_ms(run, iters=20, warmup=3)
         row["linear_ms"] = kc.cuda_ms(lambda: torch.nn.functional.linear(x, w), iters=20, warmup=3)
@@ -75,9 +82,85 @@ def time_tile_widths(device: str) -> list:
     return rows
 
 
+def time_i8_tiles(device: str) -> list:
+    """Both tile widths of the s8 GEMM on every product of
+    ``GEMM_I8_PRODUCTS``, raw (s32 out; the wide tile is built only for the
+    raw, bf16 and int8 outputs without an activation) and, on the narrow
+    tile, with the main path's output type, beside ``torch._int_mm`` and the
+    TOP/s of each."""
+    from sprc_tpu_torch import kernel_checks as kc
+    from sprc_tpu_torch.ops import _ext, primitives
+
+    lib = _ext.library()
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, (M, N, K, epilogue) in kc.GEMM_I8_PRODUCTS.items():
+        a8 = torch.randint(-127, 128, (M, K), generator=gen, device=device).to(torch.int8)
+        w8 = torch.randint(-127, 128, (N, K), generator=gen, device=device).to(torch.int8)
+        cs = torch.rand(N, generator=gen, device=device) * 1e-4
+        y32 = torch.empty(M, N, device=device, dtype=torch.int32)
+        row = {"product": name, "M": M, "N": N, "K": K}
+        for tile_n in (128, 256):
+            def run():
+                _ext.check(lib.sprc_gemm_i8(a8.data_ptr(), w8.data_ptr(), None, None, None, None,
+                                            y32.data_ptr(), M, N, K, _ext.OUT_S32, 0,
+                                            0.0, 1.0, tile_n, primitives._stream()), "gemm_i8")
+            ms = kc.cuda_ms(run, iters=20, warmup=3)
+            row[f"tile_{tile_n}_s32_ms"] = ms
+            row[f"tile_{tile_n}_s32_tops"] = 2 * M * N * K / (ms * 1e-3) / 1e12
+        if epilogue is not None:
+            out = {"f32": _ext.OUT_F32, "s8": _ext.OUT_S8}.get(epilogue.split("->")[-1],
+                                                               _ext.OUT_BF16)
+            dt = {_ext.OUT_F32: torch.float32, _ext.OUT_S8: torch.int8}.get(out, torch.bfloat16)
+            y = torch.empty(M, N, device=device, dtype=dt)
+
+            def run_epilogue():
+                _ext.check(lib.sprc_gemm_i8(a8.data_ptr(), w8.data_ptr(), None, cs.data_ptr(),
+                                            None, None, y.data_ptr(), M, N, K, out, 0, 20.0, 1.0,
+                                            128, primitives._stream()), "gemm_i8")
+            row["tile_128_out_ms"] = kc.cuda_ms(run_epilogue, iters=20, warmup=3)
+        wt = w8.t()
+        row["int_mm_ms"] = kc.cuda_ms(lambda: torch._int_mm(a8, wt), iters=20, warmup=3)
+        rows.append(row)
+    return rows
+
+
+def time_f32_tiles(device: str) -> list:
+    """Every block tile of the fp32 GEMM on every product of
+    ``GEMM_F32_PRODUCTS`` (bias only), beside the one its plan chooses and
+    ``F.linear``, with the TFLOP/s of each."""
+    from sprc_tpu_torch import kernel_checks as kc
+    from sprc_tpu_torch.ops import _ext, primitives, schedules
+
+    lib = _ext.library()
+    rows = []
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, (M, N, K, _) in kc.GEMM_F32_PRODUCTS.items():
+        x = torch.empty(M, K, device=device).normal_(generator=gen)
+        w = torch.empty(N, K, device=device).normal_(0, 0.02, generator=gen)
+        b = torch.empty(N, device=device).normal_(0, 0.02, generator=gen)
+        y = torch.empty(M, N, device=device)
+        plan = schedules.gemm_f32_plan(M, N, K)
+        row = {"product": name, "M": M, "N": N, "K": K,
+               "plan": f"{plan['tile_m']}x{plan['tile_n']}"}
+        for tm, tn in schedules.GEMM_F32_TILES:
+            def run():
+                _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                                         y.data_ptr(), M, N, K, _ext.F32, 0, 0, tm, tn,
+                                         primitives._stream()), "gemm")
+            ms = kc.cuda_ms(run, iters=20, warmup=3)
+            row[f"tile_{tm}x{tn}_ms"] = ms
+            row[f"tile_{tm}x{tn}_tflops"] = 2 * M * N * K / (ms * 1e-3) / 1e12
+        row["linear_ms"] = kc.cuda_ms(lambda: torch.nn.functional.linear(x, w, b), iters=20,
+                                      warmup=3)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gemm", "attention"), default=None)
+    ap.add_argument("--only", choices=("gemm", "gemm_i8", "gemm_f32", "attention"),
+                    default=None)
     ap.add_argument("--no-times", action="store_true", help="the checks of rightness only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -107,20 +190,40 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
 
     dev = "cuda"
-    if args.only != "attention":
+
+    def on(what):
+        return args.only in (None, what)
+
+    if on("gemm"):
         run("gemm bf16 edges", kc.check_gemm_edges, dev)
-    if args.only != "gemm":
+    if on("gemm_f32"):
+        run("gemm f32 edges", kc.check_gemm_edges, dev, dtype=torch.float32)
+    if on("gemm_i8"):
+        run("gemm_i8 edges", kc.check_gemm_i8_edges, dev)
+    if on("attention"):
         run("attention bf16 edges", kc.check_attention_edges, dev)
     if not args.no_times:
-        if args.only != "attention":
+        if on("gemm"):
             run("gemm bf16 ablate 4096^3", kc.check_gemm_bf16_ablate, dev)
-            for name, spec in kc.GEMM_PRODUCTS.items():
-                if spec[3] == torch.bfloat16:
-                    run(f"gemm {name}", kc.check_gemm, name, dev)
-            run("gemm host cost", kc.check_gemm_host_cost, dev)
+            for name in kc.GEMM_PRODUCTS:
+                run(f"gemm {name}", kc.check_gemm, name, dev)
             for row in time_tile_widths(dev):
                 print(json.dumps(row), flush=True)
-        if args.only != "gemm":
+        if on("gemm_i8"):
+            for name in kc.GEMM_I8_PRODUCTS:
+                run(f"gemm_i8 {name}", kc.check_gemm_i8, name, dev)
+            for row in time_i8_tiles(dev):
+                print(json.dumps(row), flush=True)
+        if on("gemm_f32"):
+            for row in kc.run_qformer_fp32(dev):
+                row.pop("stages", None)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            for row in time_f32_tiles(dev):
+                print(json.dumps(row), flush=True)
+        if any(on(k) for k in ("gemm", "gemm_i8", "gemm_f32")):
+            run("gemm host cost", kc.check_gemm_host_cost, dev)
+        if on("attention"):
             for D in (64, 88):
                 run(f"K8 flash_attention D={D}", kc.check_flash_attention, D, device=dev)
                 run(f"attention D={D} bf16", kc.check_attention, D, device=dev)

@@ -18,9 +18,11 @@ features). For each it reports:
   queries pass (with ``vision_proj``);
 - from one ``torch.profiler`` run of the kernel path: device time by kernel
   group, the device busy share (device time over the profiled wall time; one
-  stream, so the times do not overlap) and the bf16 GEMM rate of the tower
-  (its dense FLOPs, 2 R (4 W^2 + 2 W M) per block with R = batch x 257 rows
-  and M the MLP width, over the bf16 GEMM time).
+  stream, so the times do not overlap), the encode's images per second (the
+  batch over its median wall time), the bf16 GEMM rate of the tower (its
+  dense FLOPs, 2 R (4 W^2 + 2 W M) per block with R = batch x 257 rows and M
+  the MLP width, over the bf16 GEMM time) and the fp32 GEMM rate of the
+  queries pass (its dense FLOPs over the fp32 GEMM time).
 
 With ``--int8`` the model is the int8 serving configuration (the tower's
 activation scales calibrated on 16 seeded images, ``vit_quant="int8_static"``,
@@ -173,22 +175,26 @@ def main(argv=None) -> dict:
     flops = 2 * EB * vcfg.seq_len * (4 * vcfg.width ** 2
                                      + 2 * vcfg.width * vcfg.mlp_hidden) * vcfg.depth
     result["encode"]["tower_dense_tflop"] = flops / 1e12
+    result["encode"]["imgs_per_s"] = EB / (result["wall_ms"]["kernels"]["encode"] * 1e-3)
+    # the queries pass's dense operations: the int8 GEMM group also holds them,
+    # and they are the whole fp32 GEMM group of the bf16/fp32 encode
+    q = cfg.qformer_config()
+    R, Wq, Mq, Si = EB * cfg.num_query_token, q.hidden_size, q.intermediate_size, vcfg.seq_len
+    per_layer, cross = 8 * R * Wq * Wq + 4 * R * Wq * Mq, (
+        4 * R * Wq * Wq + 4 * EB * Si * q.encoder_width * Wq)
+    n_cross = len(range(0, q.num_layers, q.cross_attention_freq))
+    qf_ops = q.num_layers * per_layer + n_cross * cross
+    result["encode"]["queries_pass_dense_tera_op"] = qf_ops / 1e12
+    by_group = result["encode"]["device_ms_by_group"]
     if args.int8:
-        # the int8 GEMM group also holds the queries pass's products
-        q = cfg.qformer_config()
-        R, Wq, Mq, Si = EB * cfg.num_query_token, q.hidden_size, q.intermediate_size, vcfg.seq_len
-        per_layer, cross = 8 * R * Wq * Wq + 4 * R * Wq * Mq, (
-            4 * R * Wq * Wq + 4 * EB * Si * q.encoder_width * Wq)
-        n_cross = len(range(0, q.num_layers, q.cross_attention_freq))
-        qf_ops = q.num_layers * per_layer + n_cross * cross
-        result["encode"]["queries_pass_dense_tera_op"] = qf_ops / 1e12
-        gemm_ms = result["encode"]["device_ms_by_group"].get("int8 GEMM")
-        if gemm_ms:
-            result["encode"]["int8_gemm_tera_op_per_s"] = (flops + qf_ops) / (gemm_ms * 1e-3) / 1e12
+        if by_group.get("int8 GEMM"):
+            result["encode"]["int8_gemm_tera_op_per_s"] = (
+                (flops + qf_ops) / (by_group["int8 GEMM"] * 1e-3) / 1e12)
     else:
-        gemm_ms = result["encode"]["device_ms_by_group"].get("bf16 GEMM")
-        if gemm_ms:
-            result["encode"]["bf16_gemm_tflop_per_s"] = flops / (gemm_ms * 1e-3) / 1e12
+        if by_group.get("bf16 GEMM"):
+            result["encode"]["bf16_gemm_tflop_per_s"] = flops / (by_group["bf16 GEMM"] * 1e-3) / 1e12
+        if by_group.get("fp32 GEMM"):
+            result["encode"]["fp32_gemm_tflop_per_s"] = qf_ops / (by_group["fp32 GEMM"] * 1e-3) / 1e12
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)

@@ -48,17 +48,22 @@
 //   device memory, R doubled the time of a product with a residual). Where
 //   N % 8 != 0 (no 16-byte row pitch, so no
 //   tensor map over Y) the pairs are stored straight from the registers.
-//   The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
-//   looked up in libcuda by name, so the library links against nothing new)
-//   and passed by value.
-// - fp32: true fp32 FMA on the CUDA cores (no TF32), so that the Q-Former
-//   matches the JAX fp32 Q-Former. 128x128 tile (8x8 outputs per thread), or
-//   64x64 (4x4) when the problem is too small to fill the card with the
-//   larger tile; K step 8, float4 shared-memory reads, two shared buffers
-//   with the next tile staged through registers. Bound by the fp32 FMA rate.
-#include <cuda.h>  // CUtensorMap and its enums (header only)
-#include <dlfcn.h>
-
+//   The tensor maps are made on the host (hopper.cuh::make_map, which keeps
+//   the last ones made and encodes only new ones) and passed by value.
+// - fp32 (the Q-Former's ten dense ops; M = 1024 to 16448, N = 768 or 3072):
+//   true fp32 FMA on the CUDA cores (no TF32), so that the Q-Former matches the
+//   JAX fp32 Q-Former; bound by the FMA rate (67 TFLOP/s). 256 threads as a
+//   16 x 16 grid, each with TM x TN outputs (8 x 8 or 4 x 6: block tiles 128 x
+//   128 or 64 x 96; the wrapper's gemm_f32_plan chooses the one that fills the
+//   132 SMs in the fewest waves). Both operands are
+//   K-major, and both are read as they lie: a four-stage cp.async ring of
+//   16-byte copies brings [tile x 32] slices of X and W into shared memory
+//   with a 36-float row pitch, so a thread reads its rows as float4 along K
+//   without conflicts (8 consecutive rows fall on 8 different groups of 4
+//   banks) and each float it reads feeds TM or TN FMAs. A thread owns rows ty
+//   + 16 i and columns tx + 16 j; a warp is 4 x 8 threads, so a float4 read
+//   of W touches 8 rows and one of X 4. Each sum runs along K in order, as
+//   before. Epilogue: bias, activation (a template parameter), residual.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -281,47 +286,6 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda, which every process that runs a
-// kernel has loaded, not in the runtime library: it is looked up there once,
-// by name, so the link step names no library
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return reinterpret_cast<EncodeTiled>(lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
-  }();
-  return fn;
-}
-
-// a [rows, cols] row-major bf16 matrix cut into boxes of box_rows x 64 columns
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};  // bytes between rows: a multiple of 16
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-    return sms;
-  }();
-  return n;
-}
-
 template <int BN, int ACT>
 cudaError_t launch_bf16(const void* x, const void* w, const float* bias, const __nv_bfloat16* res,
                         __nv_bfloat16* y, int M, int N, int K, int res_f32, cudaStream_t s) {
@@ -329,17 +293,19 @@ cudaError_t launch_bf16(const void* x, const void* w, const float* bias, const _
   // Y and R through 64 x 64 boxes; without them (no TMA for Y, no residual) the
   // parameter still has to be a valid map: X's stands in and is never used
   const bool r_tma = y_tma && res;
+  constexpr CUtensorMapDataType B16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap map_x, map_w, map_y, map_r;
-  if (!make_map(&map_x, x, M, K, BM) || !make_map(&map_w, w, N, K, BN) ||
-      !make_map(&map_y, y_tma ? y : x, M, y_tma ? N : K, 64) ||
-      !make_map(&map_r, r_tma ? static_cast<const void*>(res) : x, M, r_tma ? N : K, 64) ||
-      sm_count() <= 0)
+  if (!sprc::make_map(&map_x, x, M, K, B16, 2, BM) || !sprc::make_map(&map_w, w, N, K, B16, 2, BN) ||
+      sprc::sm_count() <= 0)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_bf16_kernel<BN, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
+  map_y = map_r = map_x;
+  if ((y_tma && !sprc::make_map(&map_y, y, M, N, B16, 2, 64)) ||
+      (r_tma && !sprc::make_map(&map_r, res, M, N, B16, 2, 64)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = sprc::allow_smem<&gemm_bf16_kernel<BN, ACT>>(Tile<BN>::SMEM);
   if (err != cudaSuccess) return err;
   const int tiles_n = (N + BN - 1) / BN, tiles = ((M + BM - 1) / BM) * tiles_n;
-  const int grid = tiles < sm_count() ? tiles : sm_count();
+  const int grid = tiles < sprc::sm_count() ? tiles : sprc::sm_count();
   gemm_bf16_kernel<BN, ACT><<<grid, THREADS, Tile<BN>::SMEM, s>>>(
       map_x, map_w, map_y, map_r, bias, res, y, M, N, K, tiles_n, tiles, res_f32, y_tma);
   return cudaGetLastError();
@@ -360,117 +326,148 @@ cudaError_t launch_bf16_act(const void* x, const void* w, const float* bias,
 
 // ----------------------------------------------------------------- fp32
 
-constexpr int FK = 8;
+constexpr int FBK = 32;        // depth of one stage: 32 floats, eight 16-byte copies a row
+constexpr int FLD = FBK + 4;   // row pitch in floats: row r starts on bank 4 r (mod 32)
+constexpr int F_THREADS = 256;
 
-__device__ __forceinline__ float4 load4(const float* base, int row, int rows, int k, int K) {
-  if (row < rows && k < K) return *reinterpret_cast<const float4*>(base + (size_t)row * K + k);
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+template <int TM, int TN>
+struct FTile {
+  static constexpr int BM = 16 * TM, BN = 16 * TN;
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE_FLOATS = (BM + BN) * FLD;
+  static constexpr int SMEM = STAGES * STAGE_FLOATS * 4;  // 144 or 90 KB
+};
+
+// one stage: rows [r0, r0 + ROWS) of a [rows, K] matrix, columns [k0, k0 + 32),
+// as 16-byte copies; what lies past the edges is filled with zeros
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int rows, int k0,
+                                          int K) {
+  static_assert(ROWS * (FBK / 4) % F_THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * (FBK / 4) / F_THREADS; ++n) {
+    const int idx = threadIdx.x + n * F_THREADS;
+    const int r = idx / (FBK / 4), c = (idx % (FBK / 4)) * 4;
+    const bool p = r0 + r < rows && k0 + c < K;
+    sprc::cp_async16(dst + r * FLD + c, p ? src + (size_t)(r0 + r) * K + k0 + c : src, p);
+  }
 }
 
-// TILE x TILE outputs per block (TILE 128: 8x8 per thread; TILE 64: 4x4, for
-// problems too small to give the 128 tile enough blocks)
-template <int TILE>
-__global__ void __launch_bounds__(256) gemm_f32_kernel(
-    const float* __restrict__ X, const float* __restrict__ W,
-    const float* __restrict__ bias, const float* __restrict__ res,
-    float* __restrict__ Y, int M, int N, int K, int act) {
-  constexpr int R = TILE / 16;   // outputs per thread along each axis
-  constexpr int LD = TILE + 4;
-  __shared__ __align__(16) float As[2][FK][LD];  // transposed: As[k][m]
-  __shared__ __align__(16) float Bs[2][FK][LD];  // transposed: Bs[k][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const bool loader = tid < TILE * 2;  // TILE rows x 8 columns, one float4 per loader
-  const int lr = tid / 2, lc = (tid % 2) * 4;
-  const int KT = (K + FK - 1) / FK;
-  float acc[R][R] = {};
+template <int TM, int TN, int ACT>
+__global__ void __launch_bounds__(F_THREADS, 1) gemm_f32_kernel(
+    const float* __restrict__ X, const float* __restrict__ W, const float* __restrict__ bias,
+    const float* __restrict__ res, float* __restrict__ Y, int M, int N, int K) {
+  using T = FTile<TM, TN>;
+  extern __shared__ float4 fsmem[];
+  float* smem = reinterpret_cast<float*>(fsmem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = (warp / 2) * 4 + lane / 8, tx = (warp % 2) * 8 + lane % 8;  // a warp: 4 x 8
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int KT = (K + FBK - 1) / FBK;
+  float acc[TM][TN] = {};
 
-  float4 ra = make_float4(0.0f, 0.0f, 0.0f, 0.0f), rb = ra;
-  if (loader) {
-    ra = load4(X, m0 + lr, M, lc, K);
-    rb = load4(W, n0 + lr, N, lc, K);
-    As[0][lc + 0][lr] = ra.x; As[0][lc + 1][lr] = ra.y; As[0][lc + 2][lr] = ra.z; As[0][lc + 3][lr] = ra.w;
-    Bs[0][lc + 0][lr] = rb.x; Bs[0][lc + 1][lr] = rb.y; Bs[0][lc + 2][lr] = rb.z; Bs[0][lc + 3][lr] = rb.w;
+  auto load = [&](int stage, int kt) {
+    float* st = smem + stage * T::STAGE_FLOATS;
+    load_rows<T::BM>(st, X, m0, M, kt * FBK, K);
+    load_rows<T::BN>(st + T::BM * FLD, W, n0, N, kt * FBK, K);
+  };
+#pragma unroll
+  for (int s = 0; s < T::STAGES - 1; ++s) {
+    if (s < KT) load(s, s);
+    sprc::cp_async_commit();
   }
-  __syncthreads();
-
   for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt % 2;
-    const bool more = loader && kt + 1 < KT;
-    if (more) {
-      ra = load4(X, m0 + lr, M, (kt + 1) * FK + lc, K);
-      rb = load4(W, n0 + lr, N, (kt + 1) * FK + lc, K);
+    sprc::cp_async_wait<T::STAGES - 2>();  // step kt has landed
+    __syncthreads();                       // ... for every thread, and step kt - 1 is consumed
+    if (kt + T::STAGES - 1 < KT) load((kt + T::STAGES - 1) % T::STAGES, kt + T::STAGES - 1);
+    sprc::cp_async_commit();
+    const float* As = smem + (kt % T::STAGES) * T::STAGE_FLOATS;
+    const float* Bs = As + T::BM * FLD;
+#pragma unroll
+    for (int kk = 0; kk < FBK; kk += 4) {
+      float4 a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * FLD + kk);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * FLD + kk);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
     }
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float a[R], b[R];
-#pragma unroll
-      for (int q = 0; q < R / 4; ++q) {
-        *reinterpret_cast<float4*>(a + 4 * q) =
-            *reinterpret_cast<const float4*>(&As[cur][k][64 * q + ty * 4]);
-        *reinterpret_cast<float4*>(b + 4 * q) =
-            *reinterpret_cast<const float4*>(&Bs[cur][k][64 * q + tx * 4]);
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) {
-      const int nxt = cur ^ 1;
-      As[nxt][lc + 0][lr] = ra.x; As[nxt][lc + 1][lr] = ra.y; As[nxt][lc + 2][lr] = ra.z; As[nxt][lc + 3][lr] = ra.w;
-      Bs[nxt][lc + 0][lr] = rb.x; Bs[nxt][lc + 1][lr] = rb.y; Bs[nxt][lc + 2][lr] = rb.z; Bs[nxt][lc + 3][lr] = rb.w;
-    }
-    __syncthreads();
   }
+  sprc::cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = m0 + 64 * (i / 4) + ty * 4 + i % 4;
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty + 16 * i;
     if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int col = n0 + 64 * (j / 4) + tx * 4 + j % 4;
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + tx + 16 * j;
       if (col >= N) continue;
       float v = acc[i][j];
       if (bias) v += bias[col];
-      v = sprc::apply_act(v, act);
+      v = sprc::apply_act_static<ACT>(v);
       if (res) v += res[(size_t)row * N + col];
       Y[(size_t)row * N + col] = v;
     }
   }
 }
 
+template <int TM, int TN, int ACT>
+cudaError_t launch_f32(const float* x, const float* w, const float* bias, const float* res,
+                       float* y, int M, int N, int K, cudaStream_t s) {
+  using T = FTile<TM, TN>;
+  cudaError_t err = sprc::allow_smem<&gemm_f32_kernel<TM, TN, ACT>>(T::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  gemm_f32_kernel<TM, TN, ACT><<<grid, F_THREADS, T::SMEM, s>>>(x, w, bias, res, y, M, N, K);
+  return cudaGetLastError();
+}
+
+template <int TM, int TN>
+cudaError_t launch_f32_act(const float* x, const float* w, const float* bias, const float* res,
+                           float* y, int M, int N, int K, int act, cudaStream_t s) {
+  if (act == sprc::kActNone) return launch_f32<TM, TN, sprc::kActNone>(x, w, bias, res, y, M, N, K, s);
+  if (act == sprc::kActGelu) return launch_f32<TM, TN, sprc::kActGelu>(x, w, bias, res, y, M, N, K, s);
+  if (act == sprc::kActQuickGelu)
+    return launch_f32<TM, TN, sprc::kActQuickGelu>(x, w, bias, res, y, M, N, K, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// tile_n: the bf16 path's output tile width, 128 or 256 (the wrapper's
-// gemm_bf16_plan chooses it); the fp32 path ignores it
+// tile_m x tile_n: the output tile the wrapper's plan chose (gemm_bf16_plan:
+// 128 x 256 or 128 x 128; gemm_f32_plan: 128 x 128 or 64 x 96); a tile that
+// is not built is refused
 extern "C" int sprc_gemm(const void* x, const void* w, const void* bias, const void* res,
                          void* y, int M, int N, int K, int dtype, int act, int res_f32,
-                         int tile_n, void* stream) {
+                         int tile_m, int tile_n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   if (dtype == sprc::kBF16) {
     const float* bf = static_cast<const float*>(bias);
     const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(res);
     __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    cudaError_t err = cudaErrorInvalidValue;
+    if (tile_m != BM) return static_cast<int>(err);
     if (tile_n == 256) err = launch_bf16_act<256>(x, w, bf, rb, yb, M, N, K, act, res_f32, s);
     else if (tile_n == 128) err = launch_bf16_act<128>(x, w, bf, rb, yb, M, N, K, act, res_f32, s);
-    return static_cast<int>(err);
-  } else {
+  } else if (dtype == sprc::kF32) {
     const float* xf = static_cast<const float*>(x);
     const float* wf = static_cast<const float*>(w);
     const float* bf = static_cast<const float*>(bias);
     const float* rf = static_cast<const float*>(res);
     float* yf = static_cast<float*>(y);
-    // the 128 tile when it still gives two blocks per SM (132 SMs), else 64
-    if ((long long)((M + 127) / 128) * ((N + 127) / 128) >= 264) {
-      dim3 grid((N + 127) / 128, (M + 127) / 128);
-      gemm_f32_kernel<128><<<grid, 256, 0, s>>>(xf, wf, bf, rf, yf, M, N, K, act);
-    } else {
-      dim3 grid((N + 63) / 64, (M + 63) / 64);
-      gemm_f32_kernel<64><<<grid, 256, 0, s>>>(xf, wf, bf, rf, yf, M, N, K, act);
-    }
+    if (tile_m == 128 && tile_n == 128)
+      err = launch_f32_act<8, 8>(xf, wf, bf, rf, yf, M, N, K, act, s);
+    else if (tile_m == 64 && tile_n == 96)
+      err = launch_f32_act<4, 6>(xf, wf, bf, rf, yf, M, N, K, act, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -1,8 +1,13 @@
-// Hopper building blocks of the bf16 GEMM: the warpgroup matrix product
-// (wgmma.mma_async), its fences, shared-memory matrix descriptors, mbarriers,
-// the TMA tile load and store, and setmaxnreg. Inline PTX for sm_90a only.
+// Hopper building blocks of the bf16 and s8 GEMMs: the warpgroup matrix
+// products (wgmma.mma_async, bf16 -> fp32 and s8 -> s32), their fences,
+// shared-memory matrix descriptors, mbarriers, the TMA tile load and store and
+// setmaxnreg (inline PTX for sm_90a only); and on the host, the TMA tensor maps
+// the kernels are launched with.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (header only)
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace sprc {
@@ -87,11 +92,11 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 // ------------------------------------------------------------------- wgmma
 
-// descriptor of a K-major bf16 tile whose rows are 128 bytes (64 elements),
-// stored with the 128-byte swizzle (what a TMA load with SWIZZLE_128B writes):
-// 8-row groups lie 1024 bytes apart; the leading offset is unused. The tile
-// must start on a 1024-byte boundary; a step of 16 along K adds 32 bytes,
-// i.e. 2 to the descriptor.
+// descriptor of a K-major tile whose rows are 128 bytes (64 bf16 or 128 int8
+// values), stored with the 128-byte swizzle (what a TMA load with SWIZZLE_128B
+// writes): 8-row groups lie 1024 bytes apart; the leading offset is unused. The
+// tile must start on a 1024-byte boundary; one product's depth (16 bf16 or 32
+// int8 values) is 32 bytes, i.e. 2 added to the descriptor.
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t smem_addr) {
   uint64_t d = (smem_addr & 0x3FFFF) >> 4;
   d |= uint64_t(1) << 16;
@@ -174,6 +179,143 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T, s8 in, s32 out (exact); A and B through
+// shared-memory descriptors (both K-major: the only form s8 wgmma takes); scale_d 0
+// overwrites D, else accumulates
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 256] (+)= A[64 x 32] . B[256 x 32]^T, s8 in, s32 out (exact); A and B through
+// shared-memory descriptors (both K-major: the only form s8 wgmma takes); scale_d 0
+// overwrites D, else accumulates
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// -------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which every process that runs a
+// kernel has loaded, not in the runtime library: it is looked up there once,
+// by name, so the link step names no library
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return reinterpret_cast<EncodeTiled>(lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr);
+  }();
+  return fn;
+}
+
+// A [rows, cols] row-major matrix of `elt`-byte elements (`type`: its TMA data
+// type; TMA copies bits) cut into boxes of 128 bytes x box_rows, with the
+// 128-byte swizzle; what lies past the edges loads as zeros. A map holds the
+// address and the geometry, never the data, so one made for the same
+// arguments is the same map: the last ones made are kept per host thread and
+// handed out again (the weights recur on every call, and so do most
+// activation buffers, which the caching allocator gives back), which takes the
+// encode off most calls.
+inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
+                     CUtensorMapDataType type, int elt, int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    int rows, cols, type, box_rows;
+  };
+  constexpr unsigned SLOTS = 64;
+  thread_local Entry cache[SLOTS] = {};
+  const uintptr_t key = (reinterpret_cast<uintptr_t>(base) >> 4) ^ (uintptr_t)rows * 40503u ^
+                        (uintptr_t)cols * 2654435761u ^ (uintptr_t)box_rows * 97u;
+  Entry& hit = cache[(key ^ (key >> 16)) % SLOTS];
+  if (hit.base == base && hit.rows == rows && hit.cols == cols && hit.type == (int)type &&
+      hit.box_rows == box_rows) {
+    *map = hit.map;
+    return true;
+  }
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};  // bytes between rows: a multiple of 16
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elt), (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  if (encode(map, type, 2, const_cast<void*>(base), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  hit = {*map, base, rows, cols, (int)type, box_rows};
+  return true;
+}
+
+// the SMs of the current device, read once (the kernels run on one card)
+inline int sm_count() {
+  static int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+    return sms;
+  }();
+  return n;
+}
+
+// opts a kernel in to `bytes` of dynamic shared memory, once per kernel
+template <auto KERNEL>
+cudaError_t allow_smem(int bytes) {
+  static cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return err;
 }
 
 }  // namespace sprc

@@ -18,7 +18,7 @@ feeds the next quantiser, so a bound on their final difference can tell
 little; held stage by stage they cannot drift, and each stage is held as
 tightly as the primitive alone (:data:`STAGE_BOUNDS`).
 
-The two tensor-core kernels written for Hopper (the bf16 GEMM and the bf16
+The kernels redesigned for Hopper (the bf16, s8 and fp32 GEMMs and the bf16
 attention) are also run over ragged shapes (:func:`run_edges`): a fault at a
 tile edge shows only there, not at the towers' shapes.
 
@@ -493,8 +493,9 @@ def check_gemm_i8(name: str, device="cuda", seed=5) -> dict:
     main path runs on this product, against the plain version on the same
     codes, within the bound of its stage in :data:`STAGE_BOUNDS`: the same
     fp32 roundings step by step, so equal too, except that QuickGELU -> int8
-    moves a code in a million by one. The times are the raw product's; the
-    library call is ``torch._int_mm``."""
+    moves a code in a million by one. The times are the raw product's (and
+    ``epilogue_ms`` the call with the path's epilogue); the library call is
+    ``torch._int_mm``."""
     M, N, K, epilogue = GEMM_I8_PRODUCTS[name]
     r = _Rand(device, seed)
     a8, w8 = _codes(r, M, K), _codes(r, N, K)
@@ -518,6 +519,7 @@ def check_gemm_i8(name: str, device="cuda", seed=5) -> dict:
             row["ok"] = (row["ok"] and row["epilogue_differ"] <= share
                          and row["epilogue_max_abs_err"] <= by)
             del d
+            row["epilogue_ms"] = cuda_ms(lambda: primitives.gemm_i8_cuda(a8, w8, cs, bias, **kw))
         row["ms"] = cuda_ms(lambda: primitives.gemm_i8_cuda(a8, w8))
         row["plain_ms"] = cuda_ms(lambda: primitives.gemm_i8_plain(a8, w8), iters=3, warmup=1)
         wt = w8.t()
@@ -527,6 +529,7 @@ def check_gemm_i8(name: str, device="cuda", seed=5) -> dict:
                     f"torch._int_mm {row['library_ms']:.4f} ms")
     row["bytes"] = M * K + N * K + 4 * M * N
     row["op_seconds"] = 2 * M * N * K / PEAK_OPS["int8"]
+    row["tops"] = 2 * M * N * K / (row["ms"] * 1e-3) / 1e12
     return row
 
 
@@ -672,8 +675,8 @@ def check_library_yardsticks(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads
 
 # ------------------------------------------- the bf16 / fp32 dense kernel
 
-# The products of EVA ViT-g's encode (ENCODE_BATCH images) beside the ViT-L
-# ones that the block checks already run: name -> (M, N, K, dtype, epilogue).
+# The bf16 products of the towers' encode (ENCODE_BATCH images): name -> (M,
+# N, K, dtype, epilogue).
 GEMM_PRODUCTS = {
     "vit qkv": (_VIT_M, 3072, 1024, torch.bfloat16, "bias"),
     "vit proj": (_VIT_M, 1024, 1024, torch.bfloat16, "bias+residual"),
@@ -683,9 +686,34 @@ GEMM_PRODUCTS = {
     "eva fc1": (_VIT_M, 6144, 1408, torch.bfloat16, "bias,gelu"),
     "eva fc2": (_VIT_M, 1408, 6144, torch.bfloat16, "bias+residual_f32"),
     "vit fc2, fp32 residual": (_VIT_M, 1024, 4096, torch.bfloat16, "bias+residual_f32"),
-    "qformer cross kv, queries pass, EVA": (_VIT_M, 768, 1408, torch.float32, "bias"),
-    "fp32 tower fc2, fp32 residual": (8 * 257, 1024, 4096, torch.float32, "bias+residual_f32"),
 }
+
+# The fp32 products of the Q-Former (K3's ten dense ops) at the main paths'
+# shapes: the queries pass (ENCODE_BATCH items of 32 rows, 257 image rows) and
+# a query batch (QUERY_BATCH items of 64 rows: 32 query rows, 32 text rows),
+# over ViT-L's 1024-wide and EVA's 1408-wide image rows; and an fp32 tower's
+# fc2. name -> (M, N, K, epilogue).
+_QF_W, _QF_M = 768, 3072
+GEMM_F32_PRODUCTS = {
+    "qformer self qkv / out, 2048 rows": (_F_M, _QF_W, _QF_W, "bias"),
+    "qformer cross q / out, query rows": (_F_M // 2, _QF_W, _QF_W, "bias"),
+    "qformer cross kv, queries pass": (_VIT_M, _QF_W, 1024, "bias"),
+    "qformer cross kv, fusion pass": (QUERY_BATCH * 257, _QF_W, 1024, "bias"),
+    "qformer cross kv, queries pass, EVA": (_VIT_M, _QF_W, 1408, "bias"),
+    "qformer cross kv, fusion pass, EVA": (QUERY_BATCH * 257, _QF_W, 1408, "bias"),
+    "qformer fc1, 2048 rows": (_F_M, _QF_M, _QF_W, "bias,gelu"),
+    "qformer fc2, 2048 rows": (_F_M, _QF_W, _QF_M, "bias"),
+    "qformer fc1, half the rows": (_F_M // 2, _QF_M, _QF_W, "bias,gelu"),
+    "qformer fc2, half the rows": (_F_M // 2, _QF_W, _QF_M, "bias"),
+    "fp32 tower fc2, fp32 residual": (8 * 257, 1024, 4096, "bias+residual_f32"),
+}
+
+
+def _gemm_spec(name: str) -> tuple:
+    if name in GEMM_PRODUCTS:
+        return GEMM_PRODUCTS[name]
+    M, N, K, epilogue = GEMM_F32_PRODUCTS[name]
+    return M, N, K, torch.float32, epilogue
 
 
 def _held(kind: str, got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -696,11 +724,12 @@ def _held(kind: str, got: torch.Tensor, want: torch.Tensor) -> dict:
 
 
 def check_gemm(name: str, device="cuda", seed=12) -> dict:
-    """One product of :data:`GEMM_PRODUCTS` with the epilogue its path runs,
-    against the plain version, within the bound of its stage in
-    :data:`STAGE_BOUNDS`; the library call is ``F.linear`` (without the
-    epilogue's residual)."""
-    M, N, K, dtype, epilogue = GEMM_PRODUCTS[name]
+    """One product of :data:`GEMM_PRODUCTS` or :data:`GEMM_F32_PRODUCTS` with
+    the epilogue its path runs, against the plain version, within the bound
+    of its stage in :data:`STAGE_BOUNDS`; the library call is ``F.linear``
+    (without the epilogue's residual; in fp32 with TF32 off, as the caller
+    sets it)."""
+    M, N, K, dtype, epilogue = _gemm_spec(name)
     r = _Rand(device, seed)
     x, w = r.normal(M, K, dtype=dtype), r.normal(N, K, std=0.02, dtype=dtype)
     b = r.normal(N, std=0.02)
@@ -738,26 +767,36 @@ def check_gemm(name: str, device="cuda", seed=12) -> dict:
 GEMM_EDGE_SHAPES = [(1, 8, 8), (63, 72, 72), (65, 130, 8), (257, 1000, 72), (129, 257, 136),
                     (127, 255, 200), (300, 37, 64), (128, 256, 64), (385, 384, 1032),
                     (16 * 257, 520, 328)]
+# The same kinds of shape for the fp32 kernel (K % 4 == 0; depth steps of 32),
+# with products that take each of its block tiles (128 x 128 where a product
+# needs several waves of it: 2047 x 3070; 64 x 96 elsewhere)
+GEMM_F32_EDGE_SHAPES = [(1, 8, 4), (63, 72, 36), (65, 130, 4), (257, 1000, 72), (129, 257, 132),
+                        (127, 255, 200), (300, 37, 64), (64, 96, 32), (385, 384, 1028),
+                        (1024, 768, 768), (2048, 768, 100), (16 * 257, 520, 328),
+                        (2047, 3070, 68)]
 # name -> (with a bias, activation, residual: None, "model dtype" or "fp32")
 GEMM_EPILOGUES = {"none": (False, None, None), "bias": (True, None, None),
                   "quick_gelu": (True, "quick_gelu", None), "gelu": (True, "gelu", None),
                   "residual": (True, None, "model dtype"), "residual_f32": (True, None, "fp32")}
 
 
-def check_gemm_edges(device="cuda", seed=17) -> dict:
-    """The bf16 GEMM kernel over :data:`GEMM_EDGE_SHAPES`, each with every
-    epilogue and both residual modes, against the plain version within the
-    bound of its stage; every output element is compared, so a fault at a
-    tile's edge (a row or column dropped, a depth box not zero-filled) fails
-    it. The wrapper must refuse K % 8 != 0."""
+def check_gemm_edges(device="cuda", seed=17, dtype=torch.bfloat16) -> dict:
+    """The bf16 (or fp32) GEMM kernel over :data:`GEMM_EDGE_SHAPES` (or
+    :data:`GEMM_F32_EDGE_SHAPES`), each with every epilogue and both residual
+    modes, against the plain version within the bound of its stage; every
+    output element is compared, so a fault at a tile's edge (a row or column
+    dropped, a depth box not zero-filled) fails it. The wrapper must refuse a
+    K that is not a whole number of 16-byte units (K % 8 in bf16, K % 4 in
+    fp32) before any launch."""
     r = _Rand(device, seed)
     worst = {"differ": 0.0, "err": 0.0}
     bad, cases = [], 0
+    shapes = GEMM_EDGE_SHAPES if dtype == torch.bfloat16 else GEMM_F32_EDGE_SHAPES
     with torch.inference_mode():
-        for M, N, K in GEMM_EDGE_SHAPES:
-            x = r.normal(M, K, dtype=torch.bfloat16)
-            w = r.normal(N, K, std=0.05, dtype=torch.bfloat16)
-            b, res = r.normal(N, std=0.05), r.normal(M, N, dtype=torch.bfloat16)
+        for M, N, K in shapes:
+            x = r.normal(M, K, dtype=dtype)
+            w = r.normal(N, K, std=0.05, dtype=dtype)
+            b, res = r.normal(N, std=0.05), r.normal(M, N, dtype=dtype)
             for name, (with_bias, act, residual) in GEMM_EPILOGUES.items():
                 kw = {"act": act}
                 if residual is not None:
@@ -771,44 +810,155 @@ def check_gemm_edges(device="cuda", seed=17) -> dict:
                 worst = {k: max(worst[k], stage[k]) for k in worst}
                 if not stage["ok"] or not bool(torch.isfinite(got).all()) or got.shape != want.shape:
                     bad.append(f"{M}x{N}x{K} {name}: differ {stage['differ']:.2e} err {stage['err']:.2e}")
+        bad_k = 12 if dtype == torch.bfloat16 else 6
+        before = (primitives.gemm_cuda.launches_bf16, primitives.gemm_cuda.launches_f32)
         try:
-            primitives.gemm_cuda(r.normal(4, 12, dtype=torch.bfloat16),
-                                 r.normal(4, 12, dtype=torch.bfloat16))
-            bad.append("K=12 was not refused")
+            primitives.gemm_cuda(r.normal(4, bad_k, dtype=dtype), r.normal(4, bad_k, dtype=dtype))
+            bad.append(f"K={bad_k} was not refused")
         except ValueError:
             pass
+        if (primitives.gemm_cuda.launches_bf16, primitives.gemm_cuda.launches_f32) != before:
+            bad.append(f"K={bad_k} was counted as a launch")
         torch.cuda.synchronize()
     return {"ok": not bad, "finite": True, "max_abs_err": worst["err"], "mean_abs_err": 0.0,
-            "shape": (f"{cases} cases over {len(GEMM_EDGE_SHAPES)} ragged shapes x "
-                      f"{len(GEMM_EPILOGUES)} epilogues: worst differ {worst['differ']:.2e}, worst "
+            "shape": (f"{cases} cases over {len(shapes)} ragged shapes x {len(GEMM_EPILOGUES)} "
+                      f"epilogues, {_TYPE[dtype]}: worst differ {worst['differ']:.2e}, worst "
                       f"relative err {worst['err']:.2e}" + (f"; FAILED: {bad}" if bad else ""))}
 
 
+# Ragged products for the s8 kernel's tile edges: a last row tile of 1, 63 and
+# 65 rows; N = 2 mod 16 (no TMA for int8 rows: 18, 130, 34), 2 mod 8 (none for
+# bf16 rows either: 266, 34) and 8 mod 16 (bf16 through TMA, int8 not: 1000,
+# 520); K of 16, 48 and 144 (a depth box that hangs over the edge) and 1040
+# (several steps, the last one ragged); one tile, several each way, the
+# Q-Former's one-wave 2048 x 768 x 768, and a product on the wide tile.
+GEMM_I8_EDGE_SHAPES = [(1, 18, 16), (63, 130, 48), (65, 266, 144), (129, 256, 144),
+                       (257, 1000, 48), (300, 34, 16), (385, 384, 1040), (2048, 768, 768),
+                       (16 * 257, 2048, 80), (16 * 257, 520, 336)]
+# name -> (kind of stage, row scales, bias, activation, output: "f32" / "bf16" /
+# "s8", residual: None, "aligned" or "8-byte": a view whose data starts 8
+# bytes past a 16-byte boundary, which the kernel must store without TMA)
+GEMM_I8_EPILOGUES = {
+    "rows->f32": ("gemm_i8 -> f32", True, True, None, "f32", None),
+    "rows,gelu->f32": ("gemm_i8 -> f32", True, True, "gelu", "f32", None),
+    "->f32+residual, no bias": ("gemm_i8 -> f32", False, False, None, "f32", "aligned"),
+    "bf16": ("gemm_i8 -> bf16", False, True, None, "bf16", None),
+    "bf16, no bias": ("gemm_i8 -> bf16", False, False, None, "bf16", None),
+    "bf16+residual": ("gemm_i8 -> bf16", False, True, None, "bf16", "aligned"),
+    "bf16+residual, 8-byte aligned": ("gemm_i8 -> bf16", False, True, None, "bf16", "8-byte"),
+    "gelu->bf16": ("gemm_i8 -> bf16", False, True, "gelu", "bf16", None),
+    "->s8": ("gemm_i8 -> s8", False, True, None, "s8", None),
+    "gelu->s8": ("gemm_i8 -> s8", False, True, "gelu", "s8", None),
+    "quick_gelu->s8": ("gemm_i8 -> s8", False, True, "quick_gelu", "s8", None),
+}
+
+
+def check_gemm_i8_edges(device="cuda", seed=20) -> dict:
+    """The s8 GEMM kernel over :data:`GEMM_I8_EDGE_SHAPES`: the raw s32
+    product equal to plain, and every epilogue of :data:`GEMM_I8_EPILOGUES`
+    within the bound of its stage in :data:`STAGE_BOUNDS`, the share of
+    elements that differ counted over all the cases of that kind (QuickGELU
+    -> int8 moves a code in a million by one, so one small product alone
+    could not hold a share). The wrapper must refuse K % 16 != 0 and odd N
+    before any launch."""
+    r = _Rand(device, seed)
+    tally: Dict[str, List[float]] = {}  # kind -> [elements that differ, elements, worst]
+    bad, cases = [], 0
+    with torch.inference_mode():
+        for M, N, K in GEMM_I8_EDGE_SHAPES:
+            a8, w8 = _codes(r, M, K), _codes(r, N, K)
+            got, want = primitives.gemm_i8_cuda(a8, w8), primitives.gemm_i8_plain(a8, w8)
+            cases += 1
+            if got.dtype != torch.int32 or got.shape != want.shape or not torch.equal(
+                    got.long(), want.long()):
+                bad.append(f"{M}x{N}x{K} raw s32")
+            # sums of K products of codes: about 5400 sqrt(K); rescaled to about 2
+            unit = 2.0 / (5400.0 * K ** 0.5)
+            rs = r.normal(M).abs() + 0.5
+            cs = (r.normal(N).abs() + 0.5) * unit
+            bias = r.normal(N, std=0.5)
+            for name, (kind, rows, with_bias, act, out, residual) in GEMM_I8_EPILOGUES.items():
+                kw = {"act": act, "bias": bias if with_bias else None,
+                      "row_scale": rs if rows else None, "col_alpha": 1.0 if rows else 0.5}
+                if out == "s8":
+                    kw["out_scale"] = 0.05
+                else:
+                    kw["out_dtype"] = torch.float32 if out == "f32" else torch.bfloat16
+                if residual is not None:
+                    dt = kw["out_dtype"]
+                    pad = 8 // dt.itemsize if residual == "8-byte" else 0
+                    kw["residual"] = r.normal(M * N + pad, dtype=dt)[pad:].view(M, N)
+                got = primitives.gemm_i8_cuda(a8, w8, cs, **kw)
+                want = primitives.gemm_i8_plain(a8, w8, cs, **kw)
+                cases += 1
+                d = (got.float() - want.float()).abs()
+                top = max(want.float().abs().max().item(), 1e-30)
+                worst = d.max().item() if got.dtype == torch.int8 else d.max().item() / top
+                t = tally.setdefault(kind, [0.0, 0.0, 0.0])
+                t[0] += (d > 0).sum().item()
+                t[1] += d.numel()
+                t[2] = max(t[2], worst)
+                if got.dtype != want.dtype or got.shape != want.shape or not bool(
+                        torch.isfinite(got.float()).all()):
+                    bad.append(f"{M}x{N}x{K} {name}: {got.dtype} {tuple(got.shape)}")
+        for kind, (differ, n, worst) in tally.items():
+            share, by = STAGE_BOUNDS[kind]
+            if differ / n > share or worst > by:
+                bad.append(f"{kind}: share that differs {differ / n:.2e}, worst {worst:.2e}")
+        before = primitives.gemm_i8_cuda.launches
+        for M, N, K in ((4, 8, 24), (4, 7, 32)):
+            try:
+                primitives.gemm_i8_cuda(_codes(r, M, K), _codes(r, N, K))
+                bad.append(f"N={N} K={K} was not refused")
+            except ValueError:
+                pass
+        if primitives.gemm_i8_cuda.launches != before:
+            bad.append("a refused call was counted as a launch")
+        torch.cuda.synchronize()
+    summary = "; ".join(f"{kind}: differ {d / n:.1e} of {int(n)}, worst {w:.1e}"
+                        for kind, (d, n, w) in sorted(tally.items()))
+    return {"ok": not bad, "finite": True,
+            "max_abs_err": max(w for _, _, w in tally.values()), "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases over {len(GEMM_I8_EDGE_SHAPES)} ragged shapes (raw s32 and "
+                      f"{len(GEMM_I8_EPILOGUES)} epilogues): {summary}"
+                      + (f"; FAILED: {bad}" if bad else ""))}
+
+
 def check_gemm_host_cost(device="cuda", calls=200, seed=18) -> dict:
-    """What one call of ``gemm_cuda`` costs on the host (the wrapper's checks,
-    the plan, two tensor maps encoded and the launch), on a product so small
-    that the device never falls behind: wall time of ``calls`` calls without
-    a synchronise, over their number."""
+    """What one call of ``gemm_cuda`` and of ``gemm_i8_cuda`` costs on the
+    host (the wrapper's checks, the plan, the tensor maps and the launch), on
+    a product so small that the device never falls behind: wall time of
+    ``calls`` calls without a synchronise, over their number. The s8 GEMM is
+    taken raw and with the Q-Former's epilogue (row and column scales, bias,
+    fp32 out)."""
     import time
 
     r = _Rand(device, seed)
     x, w = r.normal(128, 64, dtype=torch.bfloat16), r.normal(128, 64, dtype=torch.bfloat16)
     xf, wf = x.float(), w.float()
+    a8, w8 = _codes(r, 128, 64), _codes(r, 128, 64)
+    cs, b, rs = r.normal(128).abs() * 1e-3, r.normal(128), r.normal(128).abs()
+    calls_of = {"bf16": lambda: primitives.gemm_cuda(x, w),
+                "f32": lambda: primitives.gemm_cuda(xf, wf),
+                "s8": lambda: primitives.gemm_i8_cuda(a8, w8),
+                "s8_rows": lambda: primitives.gemm_i8_cuda(a8, w8, cs, b, row_scale=rs)}
     out = {}
     with torch.inference_mode():
-        for name, (a, b) in {"bf16": (x, w), "f32": (xf, wf)}.items():
+        for name, fn in calls_of.items():
             for _ in range(10):
-                primitives.gemm_cuda(a, b)
+                fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(calls):
-                primitives.gemm_cuda(a, b)
+                fn()
             out[name] = (time.perf_counter() - t0) / calls * 1e6
             torch.cuda.synchronize()
     return {"ok": True, "finite": True, "max_abs_err": 0.0, "mean_abs_err": 0.0,
-            "host_us_bf16": out["bf16"], "host_us_f32": out["f32"],
-            "shape": (f"host side of one gemm_cuda call, 128x128x64: bf16 (plan, 2 tensor maps, "
-                      f"launch) {out['bf16']:.1f} us; fp32 (launch only) {out['f32']:.1f} us")}
+            **{f"host_us_{k}": v for k, v in out.items()},
+            "shape": (f"host side of one call, 128x128x64: gemm_cuda bf16 (plan, 2 tensor maps, "
+                      f"launch) {out['bf16']:.1f} us, fp32 (plan, launch) {out['f32']:.1f} us; "
+                      f"gemm_i8_cuda (plan, 2 tensor maps, launch) raw {out['s8']:.1f} us, row "
+                      f"and column scales, bias -> fp32 {out['s8_rows']:.1f} us")}
 
 
 # ------------------------------------------------------------- attention
@@ -880,6 +1030,67 @@ def check_flash_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_
     return row
 
 
+# The Q-Former's fp32 attention calls (12 heads of 64) in the three serving
+# shapes: name -> (B, Sq, Sk, with the padded text mask's column bias). The
+# queries pass attends over its 32 query rows, then into the 257 image rows;
+# a query batch's fusion pass over 64 rows (masked), then its 32 query rows
+# into the image; the prompt pass over 64 rows (masked).
+QF_ATTENTION = {
+    "queries self": (ENCODE_BATCH, 32, 32, False),
+    "queries cross": (ENCODE_BATCH, 32, 257, False),
+    "fusion self": (QUERY_BATCH, 64, 64, True),
+    "fusion cross": (QUERY_BATCH, 32, 257, False),
+    "prompt self": (QUERY_BATCH, 64, 64, True),
+}
+
+
+def check_qformer_attention(name: str, device="cuda", heads=12, W=768, seed=21) -> dict:
+    """The attention kernel's fp32 path at one Q-Former call of
+    :data:`QF_ATTENTION` against its plain version, within the bound of its
+    stage; the library call is ``F.scaled_dot_product_attention`` in fp32
+    (TF32 off, as the caller sets it) with the same additive column bias."""
+    B, Sq, Sk, masked = QF_ATTENTION[name]
+    r = _Rand(device, seed)
+    q, k, v = r.normal(B, Sq, W), r.normal(B, Sk, W), r.normal(B, Sk, W)
+    bias = None
+    if masked:
+        lengths = torch.randint(Sk // 2, Sk + 1, (B,), generator=r.gen, device=device)
+        cols = torch.arange(Sk, device=device)[None]
+        bias = torch.where(cols < lengths[:, None], 0.0, -10000.0).float().contiguous()
+    scale = (W // heads) ** -0.5
+    heads4 = [t.reshape(B, -1, heads, W // heads).transpose(1, 2) for t in (q, k, v)]
+    mask = None if bias is None else bias[:, None, None, :]
+    with torch.inference_mode():
+        got = primitives.attention_cuda(q, k, v, heads, scale, bias)
+        want = primitives.attention_plain(q, k, v, heads, scale, bias)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held("attention", got, want)
+        row["ms"] = cuda_ms(lambda: primitives.attention_cuda(q, k, v, heads, scale, bias))
+        row["plain_ms"] = cuda_ms(lambda: primitives.attention_plain(q, k, v, heads, scale, bias),
+                                  iters=3, warmup=1)
+        row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads4, attn_mask=mask, scale=scale))
+    row["ok"] = row["finite"] and stage["ok"]
+    row["shape"] = (f"B={B} Sq={Sq} Sk={Sk} H={heads} D={W // heads} fp32"
+                    f"{', column bias' if masked else ''}: differ {stage['differ']:.2e}, relative "
+                    f"err {stage['err']:.2e}; SDPA {row['library_ms']:.4f} ms")
+    row["bytes"] = 4 * (2 * B * Sq * W + 2 * B * Sk * W + (B * Sk if masked else 0))
+    row["op_seconds"] = 4 * B * Sq * Sk * W / PEAK_OPS["fp32"]
+    return row
+
+
+def run_qformer_fp32(device="cuda") -> List[dict]:
+    """The Q-Former's two fp32 kernels alone at the main paths' shapes: the
+    GEMM at every product of :data:`GEMM_F32_PRODUCTS` beside ``F.linear``,
+    and the attention at every call of :data:`QF_ATTENTION` beside SDPA."""
+    rows = [dict(check=f"gemm f32 {name}", **check_gemm(name, device))
+            for name in GEMM_F32_PRODUCTS]
+    rows += [dict(check=f"attention f32 qformer {name}", **check_qformer_attention(name, device))
+             for name in QF_ATTENTION]
+    return rows
+
+
 # (Sq, Sk) for the bf16 attention kernel's tile edges: one row, one key, a
 # last warp tile of 1 and of 15 rows, a block of exactly 96 rows and one more,
 # a last key chunk of 1, 63 and 64 keys, a last score tile or P V step half
@@ -937,9 +1148,11 @@ def check_attention_edges(device="cuda", seed=19) -> dict:
 
 
 def run_edges(device="cuda") -> List[dict]:
-    """The two tensor-core kernels at their tile edges, and the host side of
-    a GEMM call."""
+    """The kernels redesigned for Hopper at their tile edges, and the host
+    side of a GEMM call."""
     return [dict(check="gemm bf16 edges", **check_gemm_edges(device)),
+            dict(check="gemm f32 edges", **check_gemm_edges(device, dtype=torch.float32)),
+            dict(check="gemm_i8 edges", **check_gemm_i8_edges(device)),
             dict(check="attention bf16 edges", **check_attention_edges(device)),
             dict(check="gemm host cost", **check_gemm_host_cost(device))]
 
@@ -997,7 +1210,7 @@ def check_mlp_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, quick=
 def run_validate_path(device="cuda") -> List[dict]:
     """The checks of the validate path's kernels: K6, K7 and K8 at both
     towers' shapes, the attention kernel at head dim 88, K2 and K5 at EVA
-    ViT-g's shapes and EVA's dense products."""
+    ViT-g's shapes and the towers' bf16 dense products."""
     rows = []
     for D in (64, 88):
         rows.append(dict(check=f"K8 flash_attention D={D}", **check_flash_attention(D, device=device)))
@@ -1045,6 +1258,7 @@ def run_all(device="cuda") -> List[dict]:
     for shape in SERVING_SHAPES:
         rows.append(dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device)))
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
+    rows += run_qformer_fp32(device)
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return rows + run_int8(device) + run_validate_path(device) + run_edges(device)

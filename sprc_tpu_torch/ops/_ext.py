@@ -5,7 +5,7 @@ The sources are compiled with ``nvcc`` for Hopper (``sm_90a``, which
 all of them at once, and linked into one shared library with a plain C
 interface that is loaded through ``ctypes``. The link step names no library:
 the one function of ``libcuda`` the kernels need (``cuTensorMapEncodeTiled``,
-for the GEMM's TMA tensor maps) is looked up there by name at run time. The build
+for the GEMMs' TMA tensor maps) is looked up there by name at run time. The build
 happens at the first call of :func:`library`, never at import (the CPU
 tests import every module of the package), and its output is cached in
 ``sprc_tpu_torch/_build/`` under a hash of the sources and flags, so a
@@ -51,12 +51,12 @@ OUT_S32, OUT_F32, OUT_BF16, OUT_S8 = 0, 1, 2, 3
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P],
     "sprc_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sprc_layernorm_q8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
-    "sprc_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    "sprc_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "sprc_quantize_static": [_P, _P, _LL, _F, _I, _P],
     "sprc_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "sprc_token_max_sim": [_P, _P, _P, _I, _I, _I, _I, _P],

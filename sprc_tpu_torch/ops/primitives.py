@@ -7,7 +7,8 @@ kernels, all in ``csrc/``:
 - ``gemm``: ``Y = epi(X . W^T + b)`` with the epilogues none / QuickGELU /
   exact GELU / ``+ residual`` (added in the model dtype after the rounding,
   or with ``residual_f32`` in fp32 before it) (``csrc/gemm.cu``; the bf16
-  path is cut as :func:`schedules.gemm_bf16_plan` says);
+  path is cut as :func:`schedules.gemm_bf16_plan` says, the fp32 path as
+  :func:`schedules.gemm_f32_plan`);
 - ``attention``: ``softmax(q k^T scale + col_bias) v`` per item and head,
   head dim one of :data:`HEAD_DIMS`, ``Sq != Sk`` allowed
   (``csrc/attention.cu``; :func:`schedules.attention_emulated` walks the bf16
@@ -17,7 +18,8 @@ kernels, all in ``csrc/``:
   the model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
 - ``gemm_i8``: ``Y = epi(s32(A8 . W8^T))``, the int8 dense layer on the
   tensor cores with its rescale, bias, activation, residual and
-  re-quantising epilogues (``csrc/gemm_i8.cu``);
+  re-quantising epilogues (``csrc/gemm_i8.cu``, cut as
+  :func:`schedules.gemm_i8_plan` says);
 - ``quantize_static`` / ``quantize_rows``: activations to int8 codes with one
   calibrated scale, or with a scale per row (``csrc/quantize.cu``).
 
@@ -196,8 +198,9 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
               residual: Optional[Tensor] = None, residual_f32: bool = False) -> Tensor:
     """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 through wgmma
     and TMA, cut as :func:`schedules.gemm_bf16_plan` says; true fp32 on the
-    CUDA cores). ``gemm_cuda.launches_bf16`` and ``gemm_cuda.launches_f32``
-    count the launches of the two kernels."""
+    CUDA cores, cut as :func:`schedules.gemm_f32_plan` says).
+    ``gemm_cuda.launches_bf16`` and ``gemm_cuda.launches_f32`` count the
+    launches of the two kernels."""
     dt = _check("gemm", x, w, b, residual)
     K = x.shape[-1]
     N = w.shape[0]
@@ -217,12 +220,13 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
         raise ValueError("gemm: the epilogue reads bias and residual as vectors: aligned data")
     if max(M * K, N * K, M * N) >= 2 ** 31:
         raise ValueError("gemm: tensor too large for 32-bit indexing")
-    tile_n = schedules.gemm_bf16_plan(M, N, K, act)["tile_n"] if dt == _ext.BF16 else 0
+    plan = (schedules.gemm_bf16_plan(M, N, K, act) if dt == _ext.BF16
+            else schedules.gemm_f32_plan(M, N, K))
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     lib = _ext.library()
     _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), _ptr(b), _ptr(residual), y.data_ptr(),
-                             M, N, K, dt, _ext.ACT[act], int(residual_f32), tile_n, _stream()),
-               "gemm")
+                             M, N, K, dt, _ext.ACT[act], int(residual_f32), plan["tile_m"],
+                             plan["tile_n"], _stream()), "gemm")
     if dt == _ext.BF16:
         gemm_cuda.launches_bf16 += 1
     else:
@@ -332,8 +336,9 @@ def gemm_i8_cuda(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
                  residual: Optional[Tensor] = None,
                  out_dtype: torch.dtype = torch.float32,
                  out_scale: Optional[float] = None) -> Tensor:
-    """:func:`gemm_i8_plain` on the tensor cores (``csrc/gemm_i8.cu``).
-    ``gemm_i8_cuda.launches`` counts the kernel's launches."""
+    """:func:`gemm_i8_plain` on the tensor cores (``csrc/gemm_i8.cu``, cut as
+    :func:`schedules.gemm_i8_plan` says). ``gemm_i8_cuda.launches`` counts the
+    kernel's launches."""
     _check_i8("gemm_i8 a8", a8)
     _check_i8("gemm_i8 w8", w8)
     for t in (w8, col_scale, bias, row_scale, residual):
@@ -345,8 +350,6 @@ def gemm_i8_cuda(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
     if w8.shape != (N, K) or K % 16 or N % 2:
         raise ValueError(f"gemm_i8: a8 {tuple(a8.shape)} x w8 {tuple(w8.shape)}: the kernel takes "
                          "[.., K] x [N, K] with K % 16 == 0 (16-byte rows) and N % 2 == 0")
-    if max(M * K, N * K, M * N) >= 2 ** 31:
-        raise ValueError("gemm_i8: tensor too large for 32-bit indexing")
     out_shape = a8.shape[:-1] + (N,)
     if col_scale is None:
         if any(t is not None for t in (bias, row_scale, residual, act, out_scale)):
@@ -369,13 +372,14 @@ def gemm_i8_cuda(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
     if residual is not None and (residual.dtype != y_dtype or residual.shape != out_shape
                                  or not residual.is_contiguous() or residual.data_ptr() % 8):
         raise ValueError("gemm_i8: residual must match the output's shape and dtype")
+    plan = schedules.gemm_i8_plan(M, N, K, schedules.GEMM_I8_OUTS[out], act)
     y = torch.empty(out_shape, dtype=y_dtype, device=a8.device)
     lib = _ext.library()
     _ext.check(lib.sprc_gemm_i8(
         a8.data_ptr(), w8.data_ptr(), _ptr(row_scale), _ptr(col_scale), _ptr(bias),
         _ptr(residual), y.data_ptr(), M, N, K, out, _ext.ACT[act],
         ctypes.c_float(1.0 / out_scale if out_scale is not None else 0.0),
-        ctypes.c_float(col_alpha), _stream()), "gemm_i8")
+        ctypes.c_float(col_alpha), plan["tile_n"], _stream()), "gemm_i8")
     gemm_i8_cuda.launches += 1
     return y
 

@@ -54,15 +54,15 @@ def test_gemm_bf16_both_tile_widths(tile_n, cuda):
         res = torch.empty(M, N, device=cuda).normal_(generator=gen).bfloat16()
         y = torch.empty(M, N, device=cuda, dtype=torch.bfloat16)
         _ext.check(lib.sprc_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), res.data_ptr(),
-                                 y.data_ptr(), M, N, K, _ext.BF16, _ext.ACT["gelu"], 1, tile_n,
-                                 primitives._stream()), "gemm")
+                                 y.data_ptr(), M, N, K, _ext.BF16, _ext.ACT["gelu"], 1, 128,
+                                 tile_n, primitives._stream()), "gemm")
         torch.cuda.synchronize()
         want = primitives.gemm_plain(x, w, b, "gelu", res, True)
         stage = kernel_checks._held("gemm, fp32 residual", y, want)
         assert stage["ok"] and bool(torch.isfinite(y).all()), (M, N, K, stage)
     y = torch.empty(8, 8, device=cuda, dtype=torch.bfloat16)
     code = lib.sprc_gemm(y.data_ptr(), y.data_ptr(), None, None, y.data_ptr(), 8, 8, 8, _ext.BF16,
-                         0, 0, 64, primitives._stream())
+                         0, 0, 128, 64, primitives._stream())
     assert code != 0  # a tile width that is not built is refused, not replaced
 
 
