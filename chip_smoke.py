@@ -12,7 +12,10 @@ Phases (any failure raises and exits nonzero before the last line):
    three serving shapes) against their plain PyTorch versions on the card, at
    the shapes the main path gives them (64 images, 32 queries, 512 items);
    the Q-Former's fp32 GEMM at each of its products and its fp32 attention at
-   each of its calls (beside F.linear and SDPA); the bf16 GEMM at 4096^3; then
+   each of its calls (beside F.linear and SDPA in fp32, with both sides'
+   device times); the LayerNorm at each call of kernel_checks.LN_CALLS (the
+   towers' bf16 and LN -> int8 calls, the Q-Former's fp32 post-LN, an fp32
+   tower's; beside F.layer_norm in the model dtype); the bf16 GEMM at 4096^3; then
    the int8 kernels: the s8 GEMM's raw s32 product at 4096^3 and at every
    product of the main path (equal to plain), each with the epilogue the path
    runs on it, the quantisers, K5 (int8 ViT block) and K4 (int8 Q-Former
@@ -25,9 +28,10 @@ Phases (any failure raises and exits nonzero before the last line):
    their tile edges: the bf16 and fp32 GEMMs over ragged (M, N, K) with every
    epilogue and both residual modes, the s8 GEMM over ragged (M, N, K) raw
    and with every output mode and epilogue, each GEMM refusing a K it cannot
-   take before any launch, the bf16 attention over ragged (Sq, Sk) at both
-   head dims on strided packed views, BSHD tensors and with a column bias
-   that masks a whole row; and the host side of one call of each GEMM;
+   take before any launch, the bf16 and fp32 attention over ragged (Sq, Sk)
+   at both head dims on strided packed views, BSHD tensors and with a column
+   bias that masks a whole row, the LayerNorm over ragged widths and row
+   counts in its three modes; and the host side of one call of each GEMM;
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),
@@ -60,8 +64,9 @@ Phases (any failure raises and exits nonzero before the last line):
    other routes'), the first 64 images and 32 queries are held stage by
    stage and against the all-plain path, and the three routes' target
    features are held within a bf16 bound of each other;
-6. counters: every kernel of each path launched on that path, and no kernel
-   of another configuration moved.
+6. counters: every kernel of each path launched on that path (the chains'
+   own kernels too: the bf16 and fp32 attention, the LayerNorm and its int8
+   output), and no kernel of another configuration moved.
 
 Then it prints one JSON line with each kernel's numbers, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -217,15 +222,20 @@ def _counters():
             "fused_qformer_layer_int8": (fused_qformer_layer, "launches_int8"),
             "gemm_i8": (primitives.gemm_i8_cuda, "launches"),
             "gemm": (primitives.gemm_cuda, "launches_bf16"),
-            "gemm_f32": (primitives.gemm_cuda, "launches_f32")}
+            "gemm_f32": (primitives.gemm_cuda, "launches_f32"),
+            "attention_bf16": (primitives.attention_cuda, "launches_bf16"),
+            "attention_f32": (primitives.attention_cuda, "launches_f32"),
+            "layer_norm": (primitives.layer_norm_cuda, "launches"),
+            "layer_norm_q8": (primitives.layer_norm_cuda, "launches_q8")}
 
 
 # the kernels each configuration's main path must launch; the other
 # configuration's must not move
 PATH_KERNELS = {"bf16": ("token_max_sim", "fused_vit_block", "fused_qformer_layer", "gemm",
-                         "gemm_f32"),
+                         "gemm_f32", "attention_bf16", "attention_f32", "layer_norm"),
                 "int8": ("token_max_sim", "fused_vit_block_i8", "fused_qformer_layer_int8",
-                         "gemm_i8")}
+                         "gemm_i8", "attention_bf16", "attention_f32", "layer_norm",
+                         "layer_norm_q8")}
 
 
 def stage_pass(tag, what, counters, fn):
@@ -342,6 +352,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     torch.cuda.empty_cache()
 
     args = make_parser().parse_args(["--index-path", index_path, "--device", DEVICE,
+                                     "--model-type", "pretrain_vitL",
                                      "--vocab-path", vocab, "--seed", str(SEED),
                                      "--query-batch", str(QUERY_BATCH), "--port", "0",
                                      *serve_flags])
@@ -515,10 +526,10 @@ def phase_validate(work, route, gallery):
         want = vcfg.depth * batches if name in own else 0
         if launches[name] != want:
             raise RuntimeError(f"{tag}: {name} launched {launches[name]}x, expected {want}")
-    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm", "gemm_f32")
-               if launches[k] <= 0]
-    moved = [k for k in ("fused_vit_block_i8", "fused_qformer_layer_int8", "gemm_i8")
-             if launches[k] != 0]
+    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm", "gemm_f32",
+                           "attention_bf16", "attention_f32", "layer_norm") if launches[k] <= 0]
+    moved = [k for k in ("fused_vit_block_i8", "fused_qformer_layer_int8", "gemm_i8",
+                         "layer_norm_q8") if launches[k] != 0]
     if missing or moved:
         raise RuntimeError(f"{tag}: not launched {missing}; launched from the int8 path {moved}")
 
@@ -617,6 +628,7 @@ def kernel_table(rows, launches):
                 **bound_ms(work), "library_ms": library_ms}
 
     shapes = ("queries", "fusion", "prompt")  # K3 / K4: summed over the serving shapes
+    qf_attention = [c for c in by_check if c.startswith("attention f32 qformer ")]
     return [
         entry("token_max_sim", "sprc_tpu_torch/csrc/token_max_sim.cu",
               "sprc_tpu/ops/pallas_sim.py:40", ["K1 token_max_sim"]),
@@ -661,6 +673,16 @@ def kernel_table(rows, launches):
         entry("gemm_f32", "sprc_tpu_torch/csrc/gemm.cu", "sprc_tpu/ops/pallas_qformer.py:168",
               ["gemm f32 qformer cross kv, queries pass"],
               library_ms=by_check["gemm f32 qformer cross kv, queries pass"]["library_ms"]),
+        # the chains' own kernels: the fp32 attention of K3 / K4 summed over the
+        # Q-Former's five calls (beside SDPA in fp32), the LayerNorm at ViT-L's
+        # encode batch in bf16 (beside F.layer_norm in bf16) and to int8
+        entry("attention_f32", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_qformer.py:74", qf_attention,
+              library_ms=sum(by_check[c]["library_ms"] for c in qf_attention)),
+        entry("layer_norm", "sprc_tpu_torch/csrc/layernorm.cu", "sprc_tpu/ops/pallas_block.py:261",
+              ["layer_norm vit_l bf16"], library_ms=by_check["layer_norm vit_l bf16"]["library_ms"]),
+        entry("layer_norm_q8", "sprc_tpu_torch/csrc/layernorm.cu",
+              "sprc_tpu/ops/pallas_block.py:417", ["layer_norm vit_l bf16 -> s8"]),
     ]
 
 

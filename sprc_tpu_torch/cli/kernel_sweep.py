@@ -1,8 +1,8 @@
 """The kernels redesigned for Hopper alone on the card: the bf16 GEMM, the s8
-GEMM, the true-fp32 GEMM and the bf16 attention.
+GEMM, the true-fp32 GEMM, the bf16 and fp32 attention and the LayerNorm.
 
-    python -m sprc_tpu_torch.cli.kernel_sweep [--only gemm|gemm_i8|gemm_f32|attention]
-        [--no-times]
+    python -m sprc_tpu_torch.cli.kernel_sweep
+        [--only gemm|gemm_i8|gemm_f32|attention|attention_f32|layernorm] [--no-times]
 
 Builds the kernel library, prints what ``ptxas -v`` said about those kernels
 (registers, shared memory, spills), holds them against their plain versions
@@ -10,7 +10,9 @@ over the ragged shapes of ``kernel_checks`` (tile edges, every epilogue and
 output mode, strided and BSHD layouts, a fully masked row), and then times
 them at the main paths' shapes beside the one PyTorch call that computes the
 same function (``F.linear``, ``torch._int_mm``,
-``F.scaled_dot_product_attention``): one JSON line per check, with the
+``F.scaled_dot_product_attention``, ``F.layer_norm``; the fp32 attention and
+LayerNorm rows also with both sides' device times from ``torch.profiler`` and
+the names of the kernels SDPA ran): one JSON line per check, with the
 achieved TFLOP/s or TOP/s and the share of the card's bound for each
 product, every tile the kernel is built with side by side (whatever its plan
 would choose), and the host cost of one call of each GEMM. Ends with the
@@ -30,7 +32,7 @@ import time
 import torch
 
 
-KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16")
+KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16", "attention_f32", "layernorm")
 
 
 def ptxas_report(log_text: str) -> list:
@@ -159,8 +161,8 @@ def time_f32_tiles(device: str) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gemm", "gemm_i8", "gemm_f32", "attention"),
-                    default=None)
+    ap.add_argument("--only", default=None, choices=(
+        "gemm", "gemm_i8", "gemm_f32", "attention", "attention_f32", "layernorm"))
     ap.add_argument("--no-times", action="store_true", help="the checks of rightness only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -202,6 +204,10 @@ def main(argv=None) -> int:
         run("gemm_i8 edges", kc.check_gemm_i8_edges, dev)
     if on("attention"):
         run("attention bf16 edges", kc.check_attention_edges, dev)
+    if on("attention_f32"):
+        run("attention f32 edges", kc.check_attention_f32_edges, dev)
+    if on("layernorm"):
+        run("layer_norm edges", kc.check_layer_norm_edges, dev)
     if not args.no_times:
         if on("gemm"):
             run("gemm bf16 ablate 4096^3", kc.check_gemm_bf16_ablate, dev)
@@ -227,15 +233,28 @@ def main(argv=None) -> int:
             for D in (64, 88):
                 run(f"K8 flash_attention D={D}", kc.check_flash_attention, D, device=dev)
                 run(f"attention D={D} bf16", kc.check_attention, D, device=dev)
+        if on("attention_f32"):
+            for row in kc.run_attention_f32(dev):
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+        if on("layernorm"):
+            for row in kc.run_layer_norm(dev):
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            run("library yardsticks", kc.check_library_yardsticks, dev)
     for row in rows:
         if "ms" in row:
             bound = kc.bound_ms(row)
             print(json.dumps({"check": row["check"], "ms": row["ms"],
                               "library_ms": row.get("library_ms"),
+                              "device_ms": row.get("device_ms"),
+                              "library_device_ms": row.get("library_device_ms"),
                               "over_library": row["ms"] / row["library_ms"]
                               if row.get("library_ms") else None,
                               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-                              "share_of_bound": bound["bound_ms"] / row["ms"]}), flush=True)
+                              "share_of_bound": bound["bound_ms"] / row["ms"],
+                              "device_share_of_bound": bound["bound_ms"] / row["device_ms"]
+                              if row.get("device_ms") else None}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)

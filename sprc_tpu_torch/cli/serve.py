@@ -6,7 +6,8 @@ Build or load a :class:`GalleryIndex` once, then answer composed queries
 small stdlib HTTP endpoint.
 
 Usage:
-  # build the index from a CIRR split, persist it, and serve on the GPU
+  # build the index from a dataset split (CIRR, or fashionIQ with
+  # --dress-types), persist it, and serve on the GPU
   python -m sprc_tpu_torch.cli.serve --dataset CIRR --data-path /data/cirr_dataset \\
       --model-path sprc_cirr.pt --save-index cirr_val_index --device cuda --port 8000
 
@@ -18,6 +19,9 @@ API:
   POST /query   -> body {"reference": name, "caption": str, "k": 10}
                    or {"queries": [{reference, caption}...], "k": 10}
                    -> {"results": [[{"name", "score"}...] per query]}
+                   A request that cannot be answered (malformed body, unknown
+                   reference, an error inside the engine) gets a 400 with
+                   {"error": "<Type>: <message>"}, as in the JAX server.
 
 ``--qformer-int8`` runs the Q-Former's dense projections in int8 (the JAX
 server's ``SPRC_QF_INT8=1``). The tower's int8 mode has no flag, as in the
@@ -25,11 +29,14 @@ JAX server: an int8 index is built through the engine
 (``load_model(..., vit_quant="int8_static", vit_act_scales=...)``) and
 served with ``--index-path``.
 
-Without ``--model-path`` the weights are random, drawn from ``--seed``.
-``--device cuda`` with no GPU exits nonzero; nothing moves to the CPU
-quietly. Device work is serialized behind a lock; the query path is warmed
-at startup so that first-request latency is execution only. The ITM rerank
-stage (``--rerank-top``), FashionIQ and the device mesh are not ported yet.
+The flags the two CLIs share have the JAX CLI's defaults (``--model-type
+pretrain``: EVA ViT-g). Without ``--model-path`` the weights are random,
+drawn from ``--seed``. ``--device cuda`` with no GPU exits nonzero; nothing
+moves to the CPU quietly. Device work is serialized behind a lock; the query
+path is warmed at startup so that first-request latency is execution only.
+The ITM rerank stage is not ported yet: there is no ``--rerank-top`` /
+``--rerank-step``, and a request with ``"rerank": true`` is refused with the
+JAX server's 400. The device mesh (``--mesh``) is not ported either.
 """
 
 from __future__ import annotations
@@ -55,15 +62,21 @@ class RetrievalService:
     def warm(self) -> None:
         self.query([(self.index.names[0], "warm up")], k=1)
 
-    def query(self, pairs, k: int = 10):
+    def query(self, pairs, k: int = 10, rerank: bool = False):
         """pairs: [(reference_name, caption)] -> per query top-k
         [{'name', 'score'}] (exact ranking, stable on ties, the reference
-        image masked out of its own results as in validate_blip.py:258-261)."""
+        image masked out of its own results as in validate_blip.py:258-261).
+        ``rerank=True`` raises ``ValueError``: this service has no second
+        stage, and answers as the JAX service does without one."""
         refs = [p[0] for p in pairs]
         caps = [p[1] for p in pairs]
         missing = [r for r in refs if r not in self._name_set]
         if missing:
             raise KeyError(f"unknown reference image(s): {missing[:5]}")
+        if rerank:
+            raise ValueError(
+                "rerank requested but the service was started without "
+                "--rerank-top (or the model has no inference_rerank)")
         with self._lock:
             sims = self.engine.score_queries(self.index, refs, caps)
         names = np.asarray(self.index.names)
@@ -107,10 +120,11 @@ class _Handler(BaseHTTPRequestHandler):
                 pairs = [(q["reference"], q["caption"]) for q in req["queries"]]
             else:
                 pairs = [(req["reference"], req["caption"])]
-            self._send(200, {"results": service.query(pairs, k=k)})
+            results = service.query(pairs, k=k, rerank=bool(req.get("rerank", False)))
+            self._send(200, {"results": results})
         except KeyError as e:
             self._send(400, {"error": str(e)})
-        except (ValueError, TypeError) as e:  # malformed payloads -> 400
+        except Exception as e:  # any other failure -> 400, never a dropped connection
             self._send(400, {"error": f"{type(e).__name__}: {e}"})
 
 
@@ -145,11 +159,14 @@ def build_service(args) -> RetrievalService:
     if args.index_path:
         return RetrievalService(engine, engine.load_index(args.index_path))
     from sprc_tpu_torch.cli.validate import index_batches
-    from sprc_tpu_torch.data.datasets import CIRRDataset
+    from sprc_tpu_torch.data.datasets import CIRRDataset, FashionIQDataset
     from sprc_tpu_torch.data.transforms import targetpad_transform
 
     tfm = targetpad_transform(args.target_ratio, model.cfg.image_size)
-    classic = CIRRDataset(args.data_path, args.split, "classic", tfm)
+    if args.dataset == "CIRR":
+        classic = CIRRDataset(args.data_path, args.split, "classic", tfm)
+    else:
+        classic = FashionIQDataset(args.data_path, args.split, args.dress_types, "classic", tfm)
     index = engine.build_index(index_batches(classic, args.encode_batch, args.workers))
     if args.save_index:
         index.save(args.save_index)
@@ -160,7 +177,7 @@ def build_service(args) -> RetrievalService:
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--dataset", choices=["CIRR"], default="CIRR")
+    p.add_argument("--dataset", choices=["CIRR", "fashionIQ"], default="CIRR")
     p.add_argument("--data-path", default=None)
     p.add_argument("--split", default="val")
     p.add_argument("--index-path", default=None,
@@ -168,7 +185,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-index", default=None,
                    help="persist the freshly built index here")
     p.add_argument("--model-name", default="blip2_cir_align_prompt")
-    p.add_argument("--model-type", default="pretrain_vitL")
+    p.add_argument("--model-type", default="pretrain")
     p.add_argument("--model-path", default=None)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when --model-path is not given")
@@ -177,6 +194,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--encode-batch", type=int, default=64)
     p.add_argument("--query-batch", type=int, default=32)
     p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--dress-types", nargs="+", default=["dress", "shirt", "toptee"])
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--qformer-int8", action="store_true",

@@ -16,8 +16,9 @@
 // and a BSHD tensor is read as its [B, S, H*D] view.
 // The output is [B, Sq, H*D] (row stride o_rs, batch stride o_bs).
 //
-// Both paths stream K and V through shared memory in chunks of 64 rows and
-// keep an online (max-subtracted) softmax in fp32; rows past Sk are masked.
+// Both paths stream K and V through shared memory in chunks (64 rows in
+// bf16, 32 in fp32) and keep an online (max-subtracted) softmax in fp32; rows
+// past Sk are masked.
 // A max-subtracted softmax equals jax.nn.softmax, including a fully masked
 // row, which it spreads evenly as the unfused JAX path does. The
 // probabilities are rounded to the model dtype unnormalised and the division
@@ -57,10 +58,47 @@
 //   a folded scale would round the exponent at a magnitude of 14427 and move
 //   a fully masked row's probabilities by 1e-3.
 //   Shared memory: 50 KB at D = 64, 72 KB at D = 88 (dynamic, opted in).
-// - fp32 (the Q-Former, and fp32 towers): true fp32 on the CUDA cores. A
-//   block owns 16 query rows; each warp keeps four rows, one lane per key for
-//   the scores and ceil(D / 32) output dims per lane for P.V. Bound by the
-//   fp32 FMA rate. Shared memory: 36 KB at D = 64, 52 KB at D = 88 (dynamic).
+// - fp32 (the Q-Former's attention, sprc_tpu/ops/pallas_qformer.py::_attend_bias:
+//   its self-attention over 32 or 64 rows and its cross-attention of 32 rows
+//   into 257; and the fp32 towers, S = 257). What bounds it: at S = 257 the
+//   products (4 S^2 D operations a head; 0.044 ms at EVA's 8-image batch on
+//   the fp32 CUDA-core rate), at the Q-Former's calls device memory (each K
+//   and V read once). The first design held one 4-byte shared load per FMA
+//   and re-read K / V for every 16 query rows through synchronous copies; a
+//   register-tiled CUDA-core design (4 rows x 4 keys a lane from float4
+//   reads) was still bound by the shared-memory port (PERF.md). This
+//   one runs on the tensor cores in 3xTF32, as PyTorch's fp32 SDPA kernel
+//   does (its CUTLASS "FastF32" operator):
+//   * every fp32 operand x is split into a TF32 big part (cvt.rna) and the
+//     TF32 rounding of x - big; a product is small . big + big . small +
+//     big . big through mma.sync.m16n8k8 tf32 with fp32 accumulation (about
+//     2^-22 of each product is lost: 0.7 to 1.5e-6 of the output's range
+//     against fp32 on random inputs, inside the stage bound of 5e-6);
+//   * the bf16 path's register-resident layout: a warp owns 16 query rows
+//     (a thread rows g and g + 8, g = lane / 4, with its quad); a score tile
+//     of 8 keys (keys 8 j + 2t and 8 j + 2t + 1 of the thread) is P's A
+//     fragment when the k-step takes those keys in that order and V's rows
+//     are read in it: scores, probabilities and the output never leave
+//     registers; row max and sum are two shuffles a quad. Q's A fragments
+//     are read from shared memory at each chunk and a chunk's P V goes to a
+//     fresh accumulator, which keeps two blocks an SM at D = 88;
+//   * a block owns all of a head's query rows up to 64 (2 or 4 warps: K and
+//     V read once), else 4 to 8 warps spread evenly over the rows (S = 257:
+//     6 warps, 96 rows, 3 blocks a head); ops/schedules.py::attention_f32_plan,
+//     mirrored by f32_warps below;
+//   * K and V stream through a two-stage ring of 32-key chunks filled by
+//     16-byte cp.async (rows pitched D + 4: a fragment's 32 lanes read 32
+//     banks); score tiles and P V k-steps past the chunk's last valid key
+//     are skipped.
+//   s = (q . k) * scale + bias with both roundings of the plain version,
+//   p = expf(s - m) with the running max m, l = l * corr + rowsum and o = o *
+//   corr + pv, each step rounded on its own, where pv is the chunk's
+//   unnormalised P V from a fresh accumulator (the tensor cores' fp32 sums,
+//   which truncate, chain over one chunk only), the division by the fp32 sum
+//   last; ops/schedules.py::attention_f32_emulated walks it, TF32 splits
+//   included. Shared memory (dynamic, opted in): 26 KB for a 32 x 32
+//   call, 52 KB for 64 x 64, 44 KB for 32 x 257, 83 KB for 257 x 257 at D =
+//   88.
 #include "common.cuh"
 
 namespace {
@@ -69,107 +107,247 @@ constexpr int KC = 64;  // key rows per chunk
 
 // ----------------------------------------------------------------- fp32
 
-constexpr int ROWS = 16;  // query rows per block
-constexpr int RPW = ROWS / 4;
+constexpr int F_KC = 32;        // keys of one chunk
+constexpr int F_MAX_WARPS = 8;  // warps of a block, 16 query rows each
 
 template <int D>
 struct F32Layout {
-  static constexpr int NO = (D + 31) / 32;  // output dims per lane
-  static constexpr int LDK = D + 1;         // odd pitch: lanes read distinct banks
-  static constexpr int LDV = NO * 32;       // V padded with zero lanes to 32 NO
-  static constexpr size_t SMEM = (ROWS * D + KC * LDK + KC * LDV) * sizeof(float);
+  static constexpr int KS = D / 8;  // depth steps of Q K^T, and output tiles of P V
+  static constexpr int LD = D + 4;  // Q, K and V rows: the fragments' 32 lanes in 32 banks
+  static constexpr int KV_ELEMS = F_KC * LD;  // one K or V chunk
+  // Q [rows][LD], then per stage K [KC][LD], V [KC][LD] and the column terms [KC]
+  static size_t smem(int warps, int stages) {
+    return sizeof(float) * ((size_t)warps * 16 * LD + (size_t)stages * (2 * KV_ELEMS + F_KC));
+  }
 };
 
+// rows [row0, row0 + n) of one head (D floats = D / 4 copies of 16 bytes a
+// row) into a tile of pitch LD, asynchronously; rows past `rows` arrive as
+// zeros
+template <int D, int LD>
+__device__ __forceinline__ void load_f32_async(float* dst, const float* src, long long rs,
+                                               int row0, int n, int rows) {
+  constexpr int CH = D / 4;
+  for (int e = threadIdx.x; e < n * CH; e += blockDim.x) {
+    const int r = e / CH, c = (e % CH) * 4;
+    const bool ok = row0 + r < rows;
+    sprc::cp_async16(dst + r * LD + c, ok ? src + (row0 + r) * rs + c : src, ok);
+  }
+}
+
+// x as a TF32 "big" part (round to nearest, ties away: the low 13 bits of
+// the mantissa cleared) and the TF32 rounding of what is left; x - big is
+// exact in fp32, and big + small is x to about 2^-22 of itself
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(__fsub_rn(x, __uint_as_float(big))));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 out. Per thread (g =
+// lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g +
+// 8, t + 4); b0 (k = t, n = g), b1 (k = t + 4, n = g); c0 c1 (g, 2t..), c2
+// c3 (g + 8, 2t..)
+__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A fragment a split once for the products it takes part in
+struct SplitA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(a[i], big[i], small[i]);
+  }
+};
+
+// c += a . b in 3xTF32: the small parts' products first, big . big last
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a, float b0, float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b0, bb0, bs0);
+  split_tf32(b1, bb1, bs1);
+  mma_1688_tf32(c, a.small, bb0, bb1);
+  mma_1688_tf32(c, a.big, bs0, bs1);
+  mma_1688_tf32(c, a.big, bb0, bb1);
+}
+
+// warps of a block for Sq query rows (ops/schedules.py::attention_f32_plan):
+// all of a head's rows up to 4 warp tiles of 16, else the fewest blocks of at
+// most 8 warps with the warp tiles spread evenly over them
+int f32_warps(int Sq) {
+  const int tiles = (Sq + 15) / 16;
+  if (tiles <= 4) return tiles;
+  const int blocks = (tiles + F_MAX_WARPS - 1) / F_MAX_WARPS;
+  return (tiles + blocks - 1) / blocks;
+}
+
 template <int D>
-__global__ void __launch_bounds__(128) attention_f32_kernel(
+__global__ void __launch_bounds__(F_MAX_WARPS * 32) attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ bias, float* __restrict__ out, int Sq, int Sk,
     long long q_rs, long long q_bs, long long k_rs, long long k_bs,
-    long long v_rs, long long v_bs, long long o_rs, long long o_bs, float scale) {
+    long long v_rs, long long v_bs, long long o_rs, long long o_bs, float scale, int stages) {
+  static_assert(D % 8 == 0, "the depth steps and output tiles of mma.m16n8k8");
   using L = F32Layout<D>;
-  constexpr int NO = L::NO, LDK = L::LDK, LDV = L::LDV;
+  constexpr int KS = L::KS, LD = L::LD;
+  constexpr int NT = F_KC / 8;  // 8-key score tiles a chunk, and k-steps of P V
+  const int rows = (blockDim.x / 32) * 16;
   extern __shared__ __align__(16) unsigned char smem_f32[];
-  float* Qs = reinterpret_cast<float*>(smem_f32);  // [ROWS][D]
-  float* Ks = Qs + ROWS * D;                       // [KC][LDK]
-  float* Vs = Ks + KC * LDK;                       // [KC][LDV]
+  float* Qs = reinterpret_cast<float*>(smem_f32);  // [rows][LD]
+  float* Ks = Qs + rows * LD;                      // [stages][KC][LD]
+  float* Vs = Ks + stages * L::KV_ELEMS;           // [stages][KC][LD]
+  float* adds = Vs + stages * L::KV_ELEMS;         // [stages][KC]: bias, or -inf past Sk
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + b * q_bs + h * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * rows, h = blockIdx.y, b = blockIdx.z;
   const float* kb = k + b * k_bs + h * D;
   const float* vb = v + b * v_bs + h * D;
   const float* bb = bias ? bias + (long long)b * Sk : nullptr;
+  const int chunks = (Sk + F_KC - 1) / F_KC;
+  const bool active = r0 + warp * 16 < Sq;  // else every row of this warp lies past Sq
 
-  for (int e = tid; e < ROWS * D; e += 128) {
-    int r = e / D, d = e % D;
-    Qs[r * D + d] = (r0 + r < Sq) ? qb[(r0 + r) * q_rs + d] : 0.0f;
-  }
-
-  float m[RPW], l[RPW], o[RPW][NO];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) o[i][n] = 0.0f;
-  }
-
-  for (int c0 = 0; c0 < Sk; c0 += KC) {
-    __syncthreads();  // previous chunk fully consumed (and Qs written, first time)
-    for (int e = tid; e < KC * LDV; e += 128) {
-      int r = e / LDV, d = e % LDV;
-      bool ok = c0 + r < Sk && d < D;
-      if (d < D) Ks[r * LDK + d] = ok ? kb[(c0 + r) * k_rs + d] : 0.0f;
-      Vs[r * LDV + d] = ok ? vb[(c0 + r) * v_rs + d] : 0.0f;
+  auto load_chunk = [&](int c) {
+    const int st = c % stages, c0 = c * F_KC;
+    load_f32_async<D, LD>(Ks + st * L::KV_ELEMS, kb, k_rs, c0, F_KC, Sk);
+    load_f32_async<D, LD>(Vs + st * L::KV_ELEMS, vb, v_rs, c0, F_KC, Sk);
+    for (int e = threadIdx.x; e < F_KC; e += blockDim.x) {
+      const int j = c0 + e;
+      adds[st * F_KC + e] = j < Sk ? (bb ? bb[j] : 0.0f) : -INFINITY;
     }
+  };
+
+  load_f32_async<D, LD>(Qs, q + b * q_bs + h * D, q_rs, r0, rows, Sq);
+  for (int c = 0; c < stages; ++c) {  // one group a stage: Q rides with chunk 0
+    if (c < chunks) load_chunk(c);
+    sprc::cp_async_commit();
+  }
+
+  float o[KS][4];   // output tiles of 8 dims: (g, 8 n + 2t..), (g + 8, 8 n + 2t..)
+#pragma unroll
+  for (int n = 0; n < KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // rows g and g + 8
+
+  for (int c = 0; c < chunks; ++c) {
+    // chunk c (and Q) has landed; the stages - 1 chunks after it may be in flight
+    if (stages == 3) sprc::cp_async_wait<2>();
+    else if (stages == 2) sprc::cp_async_wait<1>();
+    else sprc::cp_async_wait<0>();
     __syncthreads();
-    const int j0 = c0 + lane, j1 = c0 + lane + 32;
-    const float add0 = (j0 < Sk) ? (bb ? bb[j0] : 0.0f) : -INFINITY;
-    const float add1 = (j1 < Sk) ? (bb ? bb[j1] : 0.0f) : -INFINITY;
+    const int st = c % stages;
+    const int kv = min(F_KC, Sk - c * F_KC);  // valid keys in this chunk
+    if (active) {
+      const float* Qw = Qs + warp * 16 * LD + g * LD + t;  // A fragments of this warp's rows
+      const float* Kc = Ks + st * L::KV_ELEMS;
+      const float* Vc = Vs + st * L::KV_ELEMS;
+      const float* add = adds + st * F_KC;
+
+      // S = Q K^T on the score tiles that hold a valid key, 3xTF32
+      float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp * RPW + i;
-      float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float qd = Qs[r * D + d];
-        s0 = fmaf(qd, Ks[lane * LDK + d], s0);
-        s1 = fmaf(qd, Ks[(lane + 32) * LDK + d], s1);
+      for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const float qf[4] = {Qw[kk * 8], Qw[8 * LD + kk * 8], Qw[kk * 8 + 4],
+                             Qw[8 * LD + kk * 8 + 4]};
+        const SplitA qa(qf);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j * 8 < kv) {
+            const float* kr = Kc + (j * 8 + g) * LD + kk * 8 + t;
+            mma_3xtf32(s[j], qa, kr[0], kr[4]);
+          }
+        }
       }
-      s0 = s0 * scale + add0;
-      s1 = s1 * scale + add1;
-      float m_new = fmaxf(m[i], sprc::warp_max(fmaxf(s0, s1)));
-      float corr = expf(m[i] - m_new);
-      float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      l[i] = l[i] * corr + sprc::warp_sum(p0 + p1);
-      float a[NO];
+
+      // online softmax on rows g (values 0, 1) and g + 8 (values 2, 3): keys
+      // 8 j + 2t and 8 j + 2t + 1; a row's keys lie on the 4 lanes of a quad
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int n = 0; n < NO; ++n) a[n] = o[i][n] * corr;
-#pragma unroll 8
-      for (int jj = 0; jj < 32; ++jj) {
-        float pj = __shfl_sync(0xffffffffu, p0, jj);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) a[n] = fmaf(pj, Vs[jj * LDV + lane + 32 * n], a[n]);
+      for (int j = 0; j < NT; ++j) {
+        if (j * 8 < kv) {
+          const float a0 = add[j * 8 + 2 * t], a1 = add[j * 8 + 2 * t + 1];
+          s[j][0] = __fadd_rn(__fmul_rn(s[j][0], scale), a0);
+          s[j][1] = __fadd_rn(__fmul_rn(s[j][1], scale), a1);
+          s[j][2] = __fadd_rn(__fmul_rn(s[j][2], scale), a0);
+          s[j][3] = __fadd_rn(__fmul_rn(s[j][3], scale), a1);
+          mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        }
       }
-#pragma unroll 8
-      for (int jj = 0; jj < 32; ++jj) {
-        float pj = __shfl_sync(0xffffffffu, p1, jj);
+      float corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int n = 0; n < NO; ++n) a[n] = fmaf(pj, Vs[(jj + 32) * LDV + lane + 32 * n], a[n]);
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);  // finite: chunk 0 holds a valid key
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
       }
 #pragma unroll
-      for (int n = 0; n < NO; ++n) o[i][n] = a[n];
-      m[i] = m_new;
+      for (int j = 0; j < NT; ++j) {
+        if (j * 8 < kv) {  // a key past Sk has s = -inf: p = 0
+          s[j][0] = expf(s[j][0] - m[0]);
+          s[j][1] = expf(s[j][1] - m[0]);
+          s[j][2] = expf(s[j][2] - m[1]);
+          s[j][3] = expf(s[j][3] - m[1]);
+          sum[0] = __fadd_rn(__fadd_rn(sum[0], s[j][0]), s[j][1]);
+          sum[1] = __fadd_rn(__fadd_rn(sum[1], s[j][2]), s[j][3]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 1));
+        sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 2));
+        l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum[i]);
+      }
+      // O = O * corr + P V, the chunk's P V in 3xTF32 into a fresh
+      // accumulator (the tensor cores' fp32 sums chain over one chunk only)
+      // and added rounded to nearest. The score tile j (keys 8 j + 2t, 8 j +
+      // 2t + 1 of rows g, g + 8) is P's A fragment when its k-step takes the
+      // keys in the order 8 j + 2t (k = t) and 8 j + 2t + 1 (k = t + 4), and
+      // V's rows are read in that order
+      float pv[KS][4];
+#pragma unroll
+      for (int n = 0; n < KS; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j * 8 < kv) {
+          const float p[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+          const SplitA pa(p);
+          const float* v0 = Vc + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+          for (int n = 0; n < KS; ++n) mma_3xtf32(pv[n], pa, v0[n * 8], v0[LD + n * 8]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        o[n][0] = __fadd_rn(__fmul_rn(o[n][0], corr[0]), pv[n][0]);
+        o[n][1] = __fadd_rn(__fmul_rn(o[n][1], corr[0]), pv[n][1]);
+        o[n][2] = __fadd_rn(__fmul_rn(o[n][2], corr[1]), pv[n][2]);
+        o[n][3] = __fadd_rn(__fmul_rn(o[n][3], corr[1]), pv[n][3]);
+      }
     }
+    __syncthreads();  // every warp is done with stage st
+    if (c + stages < chunks) load_chunk(c + stages);
+    sprc::cp_async_commit();
   }
+
+  if (active) {
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int row = r0 + warp * RPW + i;
-    if (row < Sq) {
-      float* ob = out + b * o_bs + row * o_rs + h * D;
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + warp * 16 + g + 8 * i;
+      if (row < Sq) {
+        float* ob = out + b * o_bs + row * o_rs + h * D + 2 * t;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
-        if (lane + 32 * n < D) ob[lane + 32 * n] = o[i][n] / l[i];
+        for (int n = 0; n < KS; ++n)
+          *reinterpret_cast<float2*>(ob + n * 8) =
+              make_float2(o[n][2 * i] / l[i], o[n][2 * i + 1] / l[i]);
+      }
     }
   }
 }
@@ -427,15 +605,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
         static_cast<const float*>(bias), static_cast<T*>(out), Sq, Sk,
         q_rs, q_bs, k_rs, k_bs, v_rs, v_bs, o_rs, o_bs, scale);
   } else {
-    constexpr int SMEM = (int)F32Layout<D>::SMEM;
+    // warps a block and blocks along the queries: ops/schedules.py::attention_f32_plan
+    // (all of a head's rows in one block up to 64 rows; else 4 to 8 warps)
+    if (Sq < 1 || Sk < 1) return cudaErrorInvalidValue;
+    const int warps = f32_warps(Sq);
+    const int chunks = (Sk + F_KC - 1) / F_KC;
+    const int stages = chunks > 1 ? 2 : 1;
+    const size_t smem = F32Layout<D>::smem(warps, stages);
     cudaError_t err = cudaFuncSetAttribute(
-        attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+        attention_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
-    attention_f32_kernel<D><<<grid, 128, SMEM, s>>>(
+    dim3 grid((Sq + warps * 16 - 1) / (warps * 16), H, B);
+    attention_f32_kernel<D><<<grid, warps * 32, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(bias), static_cast<float*>(out), Sq, Sk,
-        q_rs, q_bs, k_rs, k_bs, v_rs, v_bs, o_rs, o_bs, scale);
+        q_rs, q_bs, k_rs, k_bs, v_rs, v_bs, o_rs, o_bs, scale, stages);
   }
   return cudaGetLastError();
 }
@@ -459,3 +643,7 @@ extern "C" int sprc_attention(const void* q, const void* k, const void* v, const
                      o_bs, scale, dtype, s);
   return static_cast<int>(err);
 }
+
+// the fp32 path's warps a block for Sq query rows (checked on the card
+// against ops/schedules.py::attention_f32_plan)
+extern "C" int sprc_attention_f32_warps(int Sq) { return Sq < 1 ? 0 : f32_warps(Sq); }

@@ -18,9 +18,10 @@ feeds the next quantiser, so a bound on their final difference can tell
 little; held stage by stage they cannot drift, and each stage is held as
 tightly as the primitive alone (:data:`STAGE_BOUNDS`).
 
-The kernels redesigned for Hopper (the bf16, s8 and fp32 GEMMs and the bf16
-attention) are also run over ragged shapes (:func:`run_edges`): a fault at a
-tile edge shows only there, not at the towers' shapes.
+The kernels redesigned for Hopper (the bf16, s8 and fp32 GEMMs, the bf16 and
+fp32 attention and the LayerNorm) are also run over ragged shapes
+(:func:`run_edges`): a fault at a tile edge shows only there, not at the
+towers' shapes.
 
 A timed row also carries the work of its call, from the shapes alone:
 ``bytes`` (each input read once, each output written once) and
@@ -28,7 +29,10 @@ A timed row also carries the work of its call, from the shapes alone:
 :data:`PEAK_OPS`, summed over the types). :func:`bound_ms` turns them into
 the least time the card could take. Where one PyTorch call computes the same
 function, ``library_ms`` is that call's time on the same inputs; the port
-itself never makes that call.
+itself never makes that call. The fp32 attention and LayerNorm rows also
+carry ``device_ms`` / ``library_device_ms``: the kernels' own time from
+``torch.profiler`` (:func:`device_ms`), which a loop through a Python wrapper
+hides where the host's cost of a call exceeds its kernel.
 """
 
 from __future__ import annotations
@@ -75,6 +79,25 @@ def cuda_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> tuple:
+    """(device ms per call of ``fn``, its kernels by name with their ms per
+    call) from one ``torch.profiler`` run of ``iters`` calls: the kernels'
+    own time, whatever the host's pace between them (``cuda_ms`` over a
+    loop measures the host where a call's host cost exceeds its kernel)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names: Dict[str, float] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            names[evt.name] = names.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3 / iters
+    return sum(names.values()), names
 
 
 def _errors(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
@@ -665,11 +688,15 @@ def check_library_yardsticks(device="cuda", B=ENCODE_BATCH, S=257, W=1024, heads
                    q, k, v, heads, (W // heads) ** -0.5)),
                "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*heads4)),
                "layer_norm_ms": cuda_ms(lambda: primitives.layer_norm_cuda(x, lw, lb, 1e-5)),
-               "f_layer_norm_ms": cuda_ms(lambda: F.layer_norm(x.float(), (W,), lw, lb, 1e-5))}
+               "f_layer_norm_ms": cuda_ms(lambda: F.layer_norm(x.float(), (W,), lw, lb, 1e-5)),
+               "f_layer_norm_bf16_ms": cuda_ms(lambda: F.layer_norm(
+                   x, (W,), lw.to(x.dtype), lb.to(x.dtype), 1e-5))}
     row["shape"] = (f"B={B} S={S} W={W} bf16, kernel / library ms: gemm [3W,W] "
                     f"{row['gemm_bf16_ms']:.4f} / F.linear {row['linear_ms']:.4f}; attention "
                     f"{row['attention_ms']:.4f} / SDPA {row['sdpa_ms']:.4f}; LayerNorm "
-                    f"{row['layer_norm_ms']:.4f} / F.layer_norm(fp32) {row['f_layer_norm_ms']:.4f}")
+                    f"{row['layer_norm_ms']:.4f} / F.layer_norm(fp32 copy) "
+                    f"{row['f_layer_norm_ms']:.4f}, F.layer_norm(bf16) "
+                    f"{row['f_layer_norm_bf16_ms']:.4f}")
     return row
 
 
@@ -964,10 +991,18 @@ def check_gemm_host_cost(device="cuda", calls=200, seed=18) -> dict:
 # ------------------------------------------------------------- attention
 
 
-def _sdpa_ms(q, k, v) -> float:
+def _sdpa_fn(q, k, v):
     """``F.scaled_dot_product_attention`` on BSHD tensors (its BHSD views)."""
     h = [t.transpose(1, 2) for t in (q, k, v)]
-    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*h))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(*h)
+
+
+def _device_times(row: dict, kernel: Callable[[], object], library: Callable[[], object]) -> None:
+    """The kernel's and the library call's device ms (:func:`device_ms`) on a
+    row, with the names of the kernels the library call ran."""
+    row["device_ms"], _ = device_ms(kernel)
+    row["library_device_ms"], names = device_ms(library)
+    row["library_kernels"] = sorted(names)
 
 
 def check_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_BATCH, S=257,
@@ -989,7 +1024,9 @@ def check_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_BATCH,
         row["ms"] = cuda_ms(lambda: primitives.attention_cuda(q, k, v, heads, scale))
         row["plain_ms"] = cuda_ms(lambda: primitives.attention_plain(q, k, v, heads, scale),
                                   iters=3, warmup=1)
-        row["library_ms"] = _sdpa_ms(*(t.reshape(B, S, heads, D) for t in (q, k, v)))
+        library = _sdpa_fn(*(t.reshape(B, S, heads, D) for t in (q, k, v)))
+        row["library_ms"] = cuda_ms(library)
+        _device_times(row, lambda: primitives.attention_cuda(q, k, v, heads, scale), library)
     row["ok"] = row["finite"] and stage["ok"]
     row["shape"] = (f"B={B} S={S} H={heads} D={D} {_TYPE[dtype]}, packed qkv: differ "
                     f"{stage['differ']:.2e}, relative err {stage['err']:.2e}; SDPA "
@@ -1019,7 +1056,9 @@ def check_flash_attention(D: int, dtype=torch.bfloat16, device="cuda", B=ENCODE_
         row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, scale))
         row["plain_ms"] = cuda_ms(lambda: primitives.flash_attention_plain(q, k, v, scale),
                                   iters=3, warmup=1)
-        row["library_ms"] = _sdpa_ms(q, k, v)
+        library = _sdpa_fn(q, k, v)
+        row["library_ms"] = cuda_ms(library)
+        _device_times(row, lambda: flash_attention(q, k, v, scale), library)
     row["ok"] = row["finite"] and stage["ok"] and got.shape == q.shape
     row["shape"] = (f"B={B} Sq={Sq} Sk={Sk} H={heads} D={D} {_TYPE[dtype]} BSHD: differ "
                     f"{stage['differ']:.2e}, relative err {stage['err']:.2e}; SDPA "
@@ -1069,8 +1108,10 @@ def check_qformer_attention(name: str, device="cuda", heads=12, W=768, seed=21) 
         row["ms"] = cuda_ms(lambda: primitives.attention_cuda(q, k, v, heads, scale, bias))
         row["plain_ms"] = cuda_ms(lambda: primitives.attention_plain(q, k, v, heads, scale, bias),
                                   iters=3, warmup=1)
-        row["library_ms"] = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            *heads4, attn_mask=mask, scale=scale))
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            *heads4, attn_mask=mask, scale=scale)
+        row["library_ms"] = cuda_ms(library)
+        _device_times(row, lambda: primitives.attention_cuda(q, k, v, heads, scale, bias), library)
     row["ok"] = row["finite"] and stage["ok"]
     row["shape"] = (f"B={B} Sq={Sq} Sk={Sk} H={heads} D={W // heads} fp32"
                     f"{', column bias' if masked else ''}: differ {stage['differ']:.2e}, relative "
@@ -1147,6 +1188,211 @@ def check_attention_edges(device="cuda", seed=19) -> dict:
                       + (f"; FAILED: {bad}" if bad else ""))}
 
 
+def _exact_scores(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as multiples of 1/8 of size at most 2: every product of two such
+    values is a multiple of 1/64, and a sum of a head's products is exact in
+    fp32 in any order."""
+    return (torch.round(t * 8).clamp(-16, 16) / 8).to(t.dtype)
+
+
+def check_attention_f32_edges(device="cuda", seed=22) -> dict:
+    """The fp32 attention kernel over :data:`ATTN_EDGE_SHAPES` at both head
+    dims, against the plain version within the bound of its stage: q, k and
+    v as strided views of one packed tensor, as BSHD tensors through
+    ``flash_attention_cuda``, with a 0 / -10000 column bias, and with an item
+    whose every key is masked (spread evenly, as the plain softmax does). The
+    masked item's q and k are multiples of 1/8 (:func:`_exact_scores`): at
+    -10000 the fp32 grid is 2^-10, so two right sums that differ in the last
+    bit can round a score to neighbouring points and move that row by 1e-5;
+    with exact scores the case checks the mask and the softmax alone. The
+    kernel's warps a block (``sprc_attention_f32_warps``) must equal
+    ``schedules.attention_f32_warps`` at every Sq."""
+    from sprc_tpu_torch.ops import _ext, schedules
+
+    r = _Rand(device, seed)
+    B, heads = 3, 4
+    worst = {"differ": 0.0, "err": 0.0}
+    bad, cases = [], 0
+
+    def hold(kind, what, got, want):
+        nonlocal worst, cases
+        stage = _held(kind, got, want)
+        cases += 1
+        worst = {k: max(worst[k], stage[k]) for k in worst}
+        if not stage["ok"] or not bool(torch.isfinite(got).all()) or got.shape != want.shape:
+            bad.append(f"{what}: differ {stage['differ']:.2e} err {stage['err']:.2e}")
+
+    lib = _ext.library()
+    with torch.inference_mode():
+        for Sq in sorted({sq for sq, _ in ATTN_EDGE_SHAPES} | {32, 64, 65, 128, 129}):
+            if lib.sprc_attention_f32_warps(Sq) != schedules.attention_f32_warps(Sq):
+                bad.append(f"Sq={Sq}: the kernel takes {lib.sprc_attention_f32_warps(Sq)} warps, "
+                           f"the plan {schedules.attention_f32_warps(Sq)}")
+        for D in primitives.HEAD_DIMS:
+            W, scale = heads * D, D ** -0.5
+            kind = "attention" if D == 64 else f"attention D={D}"
+            for Sq, Sk in ATTN_EDGE_SHAPES:
+                S = max(Sq, Sk)
+                packed = r.normal(B, S, 3 * W)
+                q, k, v = packed[:, :Sq, :W], packed[:, :Sk, W:2 * W], packed[:, :Sk, 2 * W:]
+                hold(kind, f"D={D} {Sq}x{Sk} packed",
+                     primitives.attention_cuda(q, k, v, heads, scale),
+                     primitives.attention_plain(q, k, v, heads, scale))
+                bias = torch.where(torch.rand(B, Sk, generator=r.gen, device=device) < 0.7,
+                                   0.0, -10000.0).float()
+                bias[:, 0] = 0.0
+                hold(kind, f"D={D} {Sq}x{Sk} bias",
+                     primitives.attention_cuda(q, k, v, heads, scale, bias.contiguous()),
+                     primitives.attention_plain(q, k, v, heads, scale, bias))
+                bias[0] = -10000.0
+                qe, ke = _exact_scores(q).contiguous(), _exact_scores(k).contiguous()
+                hold(kind, f"D={D} {Sq}x{Sk} item 0 fully masked",
+                     primitives.attention_cuda(qe, ke, v, heads, scale, bias.contiguous()),
+                     primitives.attention_plain(qe, ke, v, heads, scale, bias))
+                q4 = r.normal(B, Sq, heads, D)
+                k4, v4 = (r.normal(B, Sk, heads, D) for _ in range(2))
+                hold(f"flash_{kind}", f"D={D} {Sq}x{Sk} BSHD",
+                     primitives.flash_attention_cuda(q4, k4, v4, scale),
+                     primitives.flash_attention_plain(q4, k4, v4, scale))
+        torch.cuda.synchronize()
+    return {"ok": not bad, "finite": True, "max_abs_err": worst["err"], "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases over {len(ATTN_EDGE_SHAPES)} ragged (Sq, Sk) x head dims "
+                      f"{primitives.HEAD_DIMS} x packed / bias / fully masked item / BSHD, fp32: "
+                      f"worst differ {worst['differ']:.2e}, worst relative err {worst['err']:.2e}"
+                      + (f"; FAILED: {bad}" if bad else ""))}
+
+
+# LayerNorm calls of the main paths: name -> (rows, W, dtype, with a residual,
+# int8 out). The towers' pre-LNs (two a block) over an encode batch, the
+# int8 towers' LN -> s8, the Q-Former's post-LN (fp32, residual first) over
+# the queries pass and a query batch, and an fp32 tower's LN (validate
+# --no-bf16, 8 images).
+LN_CALLS = {
+    "vit_l bf16": (_VIT_M, 1024, torch.bfloat16, False, False),
+    "vit_l bf16 -> s8": (_VIT_M, 1024, torch.bfloat16, False, True),
+    "eva bf16": (_VIT_M, 1408, torch.bfloat16, False, False),
+    "eva bf16 -> s8": (_VIT_M, 1408, torch.bfloat16, False, True),
+    "qformer fp32 + residual, queries pass": (_Q_M, 768, torch.float32, True, False),
+    "qformer fp32 + residual, query batch": (_F_M, 768, torch.float32, True, False),
+    "fp32 tower vit_l": (8 * 257, 1024, torch.float32, False, False),
+}
+
+
+def check_layer_norm(name: str, device="cuda", seed=23) -> dict:
+    """The LayerNorm kernel at one call of :data:`LN_CALLS` against its plain
+    version, within the bound of its stage. The library call is
+    ``F.layer_norm`` on the same input in its own dtype (bf16 weights for a
+    bf16 input, as PyTorch needs them), where one call computes the same
+    function: not for the residual's sum nor the int8 codes (null)."""
+    rows, W, dtype, with_residual, int8 = LN_CALLS[name]
+    r = _Rand(device, seed)
+    x = r.normal(rows, W, std=2.0, mean=0.3, dtype=dtype)
+    res = r.normal(rows, W, dtype=dtype) if with_residual else None
+    lw, lb = r.normal(W, std=0.1, mean=1.0), r.normal(W, std=0.02)
+    eps = 1e-5
+    kw = {"residual": res, "out_scale": 0.04 if int8 else None}
+    with torch.inference_mode():
+        got = primitives.layer_norm_cuda(x, lw, lb, eps, **kw)
+        want = primitives.layer_norm_plain(x, lw, lb, eps, **kw)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held("layer_norm", got, want)
+        kernel = lambda: primitives.layer_norm_cuda(x, lw, lb, eps, **kw)  # noqa: E731
+        row["ms"] = cuda_ms(kernel, iters=20)
+        row["plain_ms"] = cuda_ms(lambda: primitives.layer_norm_plain(x, lw, lb, eps, **kw),
+                                  iters=5, warmup=1)
+        row["device_ms"], _ = device_ms(kernel)
+        row["library_ms"] = row["library_device_ms"] = None
+        if not with_residual and not int8:
+            wl, bl = lw.to(dtype), lb.to(dtype)
+            library = lambda: torch.nn.functional.layer_norm(x, (W,), wl, bl, eps)  # noqa: E731
+            row["library_ms"] = cuda_ms(library, iters=20)
+            row["library_device_ms"], _ = device_ms(library)
+    row["ok"] = row["finite"] and stage["ok"]
+    elt = x.element_size()
+    row["bytes"] = rows * W * (elt * (2 if with_residual else 1) + (1 if int8 else elt)) + 8 * W
+    row["op_seconds"] = 0.0
+    row["shape"] = (f"{rows} x {W} {_TYPE[dtype]}{' + residual' if with_residual else ''} -> "
+                    f"{'s8' if int8 else _TYPE[dtype]}: differ {stage['differ']:.2e}, err "
+                    f"{stage['err']:.2e}; device {row['device_ms']:.4f} ms"
+                    + (f", F.layer_norm {row['library_device_ms']:.4f} ms"
+                       if row["library_device_ms"] else ""))
+    return row
+
+
+# widths (the main path's, a generic multiple of 16 bytes, the largest, one
+# that is not a whole number of 16-byte loads) and ragged row counts (blocks
+# of 4 rows: 1, 7, 9 rows; 257; 1031)
+LN_EDGE_WIDTHS = (768, 1000, 1024, 1408, 4096, 77)
+LN_EDGE_ROWS = (1, 7, 9, 257, 1031)
+
+
+def check_layer_norm_edges(device="cuda", seed=24) -> dict:
+    """The LayerNorm kernel over :data:`LN_EDGE_WIDTHS` x :data:`LN_EDGE_ROWS`
+    in bf16 and fp32, in its three modes (model dtype out, the residual added
+    first, int8 out; the last two also together) and on rows that are not
+    16-byte aligned (a view one element into its buffer), against the plain
+    version. The worst difference is held per call to the bound of its stage;
+    the share of elements that differ is counted over all the calls of a kind
+    together (a one-row call has too few elements for a share of 5e-6 to
+    mean anything)."""
+    r = _Rand(device, seed)
+    totals: Dict[str, List[float]] = {}
+    bad, cases, worst = [], 0, 0.0
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for W in LN_EDGE_WIDTHS:
+                lw, lb = r.normal(W, std=0.1, mean=1.0), r.normal(W, std=0.02)
+                for rows in LN_EDGE_ROWS:
+                    x = r.normal(rows, W, std=2.0, mean=0.3, dtype=dtype)
+                    res = r.normal(rows, W, dtype=dtype)
+                    shifted = r.normal(rows * W + 1, std=2.0, dtype=dtype)[1:].view(rows, W)
+                    calls = [("", x, None, None), (" + residual", x, res, None),
+                             (" -> s8", x, None, 0.04), (" + residual -> s8", x, res, 0.04),
+                             (" unaligned", shifted, None, None)]
+                    for what, xi, ri, scale in calls:
+                        got = primitives.layer_norm_cuda(xi, lw, lb, 1e-5, ri, scale)
+                        want = primitives.layer_norm_plain(xi, lw, lb, 1e-5, ri, scale)
+                        kind = f"layer_norm -> {_TYPE[got.dtype]}"
+                        d = (got.float() - want.float()).abs()
+                        err = d.max().item()  # int8: in codes; else relative to the top
+                        if got.dtype != torch.int8:
+                            err /= max(want.float().abs().max().item(), 1e-30)
+                            worst = max(worst, err)
+                        t = totals.setdefault(kind, [0.0, 0.0])
+                        t[0] += (d > 0).sum().item()
+                        t[1] += d.numel()
+                        cases += 1
+                        if (err > STAGE_BOUNDS[kind][1] or got.shape != want.shape
+                                or not bool(torch.isfinite(got.float()).all())):
+                            bad.append(f"{_TYPE[dtype]} {rows}x{W}{what}: err {err:.2e}")
+        torch.cuda.synchronize()
+    shares = {kind: n / total for kind, (n, total) in totals.items()}
+    bad += [f"{kind}: share {v:.2e}" for kind, v in shares.items() if v > STAGE_BOUNDS[kind][0]]
+    return {"ok": not bad, "finite": True, "max_abs_err": worst, "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases: W {LN_EDGE_WIDTHS} x rows {LN_EDGE_ROWS} x bf16 / fp32 x "
+                      f"plain / residual / s8 / residual s8 / unaligned: share that differs "
+                      + ", ".join(f"{k} {v:.2e}" for k, v in sorted(shares.items()))
+                      + f"; worst relative err {worst:.2e}" + (f"; FAILED: {bad}" if bad else ""))}
+
+
+def run_attention_f32(device="cuda") -> List[dict]:
+    """The fp32 attention at its seven calls of the main paths (the Q-Former's
+    five, an fp32 tower's packed qkv and the unfused route's BSHD), each
+    beside SDPA in fp32, with device times."""
+    rows = [dict(check=f"attention f32 qformer {name}", **check_qformer_attention(name, device))
+            for name in QF_ATTENTION]
+    return rows + [
+        dict(check="attention D=88 fp32", **check_attention(88, torch.float32, device, B=8)),
+        dict(check="K8 flash_attention D=64 fp32",
+             **check_flash_attention(64, torch.float32, device, B=8))]
+
+
+def run_layer_norm(device="cuda") -> List[dict]:
+    """The LayerNorm kernel at every call of :data:`LN_CALLS`."""
+    return [dict(check=f"layer_norm {name}", **check_layer_norm(name, device)) for name in LN_CALLS]
+
+
 def run_edges(device="cuda") -> List[dict]:
     """The kernels redesigned for Hopper at their tile edges, and the host
     side of a GEMM call."""
@@ -1154,6 +1400,8 @@ def run_edges(device="cuda") -> List[dict]:
             dict(check="gemm f32 edges", **check_gemm_edges(device, dtype=torch.float32)),
             dict(check="gemm_i8 edges", **check_gemm_i8_edges(device)),
             dict(check="attention bf16 edges", **check_attention_edges(device)),
+            dict(check="attention f32 edges", **check_attention_f32_edges(device)),
+            dict(check="layer_norm edges", **check_layer_norm_edges(device)),
             dict(check="gemm host cost", **check_gemm_host_cost(device))]
 
 
@@ -1258,7 +1506,7 @@ def run_all(device="cuda") -> List[dict]:
     for shape in SERVING_SHAPES:
         rows.append(dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device)))
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
-    rows += run_qformer_fp32(device)
+    rows += run_qformer_fp32(device) + run_layer_norm(device)
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return rows + run_int8(device) + run_validate_path(device) + run_edges(device)

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "sprc_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sprc_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _P],
+    "sprc_attention_f32_warps": [_I],
     "sprc_layernorm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "sprc_layernorm_q8": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
     "sprc_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],

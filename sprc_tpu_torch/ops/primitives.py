@@ -11,11 +11,13 @@ kernels, all in ``csrc/``:
   :func:`schedules.gemm_f32_plan`);
 - ``attention``: ``softmax(q k^T scale + col_bias) v`` per item and head,
   head dim one of :data:`HEAD_DIMS`, ``Sq != Sk`` allowed
-  (``csrc/attention.cu``; :func:`schedules.attention_emulated` walks the bf16
-  path's schedule in plain PyTorch); ``flash_attention`` is the same kernel
+  (``csrc/attention.cu``; :func:`schedules.attention_emulated` and
+  :func:`schedules.attention_f32_emulated` walk the bf16 and fp32 paths'
+  schedules in plain PyTorch); ``flash_attention`` is the same kernel
   without a bias on BSHD tensors, read in place;
-- ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``), in
-  the model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
+- ``layer_norm``: fp32 LayerNorm of ``x (+ r)`` (``csrc/layernorm.cu``, one
+  warp a row; :func:`schedules.layer_norm_emulated` walks its sums), in the
+  model dtype or, with ``out_scale``, as int8 codes of the fp32 result;
 - ``gemm_i8``: ``Y = epi(s32(A8 . W8^T))``, the int8 dense layer on the
   tensor cores with its rescale, bias, activation, residual and
   re-quantising epilogues (``csrc/gemm_i8.cu``, cut as
@@ -245,7 +247,13 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
                    col_bias: Optional[Tensor] = None) -> Tensor:
     """:func:`attention_plain` as a kernel (``csrc/attention.cu``), for a head
     dim in :data:`HEAD_DIMS`; q, k and v may be strided views (the thirds of
-    a packed qkv, a BSHD tensor flattened to ``[B, S, H*D]``)."""
+    a packed qkv, a BSHD tensor flattened to ``[B, S, H*D]``) whose rows are
+    16-byte aligned. The bf16 path is walked by
+    :func:`schedules.attention_emulated`, the fp32 path (cut as
+    :func:`schedules.attention_f32_plan` says) by
+    :func:`schedules.attention_f32_emulated`. ``attention_cuda.launches_bf16``
+    and ``attention_cuda.launches_f32`` count the launches of the two paths
+    (``flash_attention_cuda``'s included)."""
     dt = _check("attention", q, k, v, col_bias)
     B, Sq, W = q.shape
     Sk = k.shape[1]
@@ -259,8 +267,9 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention: the feature dim must be contiguous")
-        if dt == _ext.BF16 and (t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16):
-            raise ValueError("attention: the bf16 path reads 16-byte rows: strides % 8 == 0 "
+        per16 = 8 if dt == _ext.BF16 else 4  # elements in 16 bytes
+        if t.stride(0) % per16 or t.stride(1) % per16 or t.data_ptr() % 16:
+            raise ValueError(f"attention: the kernel reads 16-byte rows: strides % {per16} == 0 "
                              "and aligned data")
     if Sk < 1:
         raise ValueError("attention: needs at least one key")
@@ -274,7 +283,15 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
         B, heads, W // heads, Sq, Sk, q.stride(1), q.stride(0), k.stride(1), k.stride(0),
         v.stride(1), v.stride(0), out.stride(1), out.stride(0), ctypes.c_float(scale),
         dt, _stream()), "attention")
+    if dt == _ext.BF16:
+        attention_cuda.launches_bf16 += 1
+    else:
+        attention_cuda.launches_f32 += 1
     return out
+
+
+attention_cuda.launches_bf16 = 0
+attention_cuda.launches_f32 = 0
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
@@ -297,6 +314,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tenso
 def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
                     residual: Optional[Tensor] = None,
                     out_scale: Optional[float] = None) -> Tensor:
+    """:func:`layer_norm_plain` as a kernel (``csrc/layernorm.cu``, read as
+    :func:`schedules.layer_norm_plan` says). ``layer_norm_cuda.launches`` and
+    ``layer_norm_cuda.launches_q8`` count the launches of the model-dtype and
+    the int8 outputs."""
     dt = _check("layer_norm", x, w, b, residual)
     W = x.shape[-1]
     if W > 4096 or not x.is_contiguous():
@@ -313,12 +334,18 @@ def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
             x.data_ptr(), _ptr(residual), w.data_ptr(), b.data_ptr(), y.data_ptr(),
             x.numel() // W, W, ctypes.c_float(eps), ctypes.c_float(1.0 / out_scale), dt,
             _stream()), "layer_norm")
+        layer_norm_cuda.launches_q8 += 1
         return y
     y = torch.empty_like(x)
     _ext.check(lib.sprc_layernorm(x.data_ptr(), _ptr(residual), w.data_ptr(), b.data_ptr(),
                                   y.data_ptr(), x.numel() // W, W, ctypes.c_float(eps), dt,
                                   _stream()), "layer_norm")
+    layer_norm_cuda.launches += 1
     return y
+
+
+layer_norm_cuda.launches = 0
+layer_norm_cuda.launches_q8 = 0
 
 
 _GEMM_I8_OUT = {torch.float32: _ext.OUT_F32, torch.bfloat16: _ext.OUT_BF16}

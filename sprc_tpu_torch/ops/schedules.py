@@ -345,3 +345,235 @@ def attention_emulated(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float
             m = m_new
         out[:, :, r] = (o / l).to(q.dtype)
     return out[:, :, :Sq].permute(0, 2, 1, 3).reshape(B, Sq, W)
+
+
+# ----------------------------------------------------------- fp32 attention
+
+ATTN_F32_KEY_CHUNK = 32      # keys of one shared-memory stage
+ATTN_F32_MAX_WARPS = 8       # warps of a block, 16 query rows each
+ATTN_F32_TILE = 8            # keys of a score tile, of a P V k-step; dims of an output tile
+
+
+def tf32_round(x: Tensor) -> Tensor:
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero, the low 13 bits of the mantissa cleared (done on the bits:
+    half of the dropped unit added to the magnitude, then masked)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: Tensor) -> tuple:
+    """(big, small): big = TF32(x), small = TF32(x - big), the kernel's
+    ``split_tf32``; x - big is exact in fp32."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def mma_3xtf32(acc: Tensor, a: Tensor, b: Tensor) -> Tensor:
+    """``acc + a @ b`` as the kernel's ``mma_3xtf32`` takes it over one
+    k-step of 8 (a [..., M, 8], b [..., 8, N]): small . big, big . small,
+    big . big, three ``mma.m16n8k8`` that each add the exact sum of their 8
+    products to the fp32 accumulator with one rounding (taken here in
+    float64, then rounded)."""
+    ab, as_ = split_tf32(a)
+    bb, bs = split_tf32(b)
+    for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+        acc = (acc.double() + x.double() @ y.double()).float()
+    return acc
+
+
+def attention_f32_warps(Sq: int) -> int:
+    """Warps of a block of the fp32 attention kernel for ``Sq`` query rows:
+    all of a head's rows up to 4 warp tiles of 16 (one block a head reads K
+    and V once), else the fewest blocks of at most 8 warps with the warp
+    tiles spread evenly (S = 257: 3 blocks of 6 warps, 96 rows).
+    ``csrc/attention.cu::f32_warps`` is the same rule."""
+    tiles = _ceil_div(Sq, ATTN_WARP_ROWS)
+    if tiles <= 4:
+        return tiles
+    blocks = _ceil_div(tiles, ATTN_F32_MAX_WARPS)
+    return _ceil_div(tiles, blocks)
+
+
+def attention_f32_plan(Sq: int, Sk: int, D: int, B: int = 1, H: int = 1) -> dict:
+    """How the fp32 attention kernel of ``csrc/attention.cu`` (3xTF32 on
+    ``mma.sync.m16n8k8``) cuts an ``Sq x Sk`` head at head dim ``D`` (``D %
+    8 == 0``; the card builds 64 and 88): ``warps`` of 16 query rows a block
+    (:func:`attention_f32_warps`), the grid ``(blocks, H, B)``, key chunks of
+    32 through ``stages`` cp.async stages (one where there is one chunk),
+    and per chunk the 8-key score tiles and P V k-steps that hold a valid
+    key (the others are skipped). ``smem_bytes`` is one block's dynamic
+    shared memory (Q, and per stage K, V and the column terms, rows pitched
+    D + 4); ``blocks_per_sm`` what that memory and the 64 warps of an SM
+    allow (the registers, 127 or 128 a thread as ``ptxas`` reads them, allow
+    two blocks of 8 warps). Raises ``ValueError`` on an
+    empty head or a head dim the mma tiles cannot take."""
+    if Sq < 1 or Sk < 1:
+        raise ValueError(f"attention: needs at least one query and one key, got {Sq} x {Sk}")
+    if D < ATTN_F32_TILE or D % ATTN_F32_TILE:
+        raise ValueError(f"attention: the fp32 path takes D % 8 == 0, got {D}")
+    warps = attention_f32_warps(Sq)
+    rows = warps * ATTN_WARP_ROWS
+    blocks = _ceil_div(Sq, rows)
+    chunks = []
+    for c0 in range(0, Sk, ATTN_F32_KEY_CHUNK):
+        kv = min(ATTN_F32_KEY_CHUNK, Sk - c0)
+        chunks.append({"first_key": c0, "valid": kv, "tiles": _ceil_div(kv, ATTN_F32_TILE)})
+    stages = 2 if len(chunks) > 1 else 1
+    ld = D + 4
+    smem = 4 * (rows * ld + stages * (2 * ATTN_F32_KEY_CHUNK * ld + ATTN_F32_KEY_CHUNK))
+    per_sm = min(_SMEM_LIMIT // smem, 64 // warps)
+    warp_tiles = _ceil_div(Sq, ATTN_WARP_ROWS)
+    keys = sum(c["tiles"] for c in chunks) * ATTN_F32_TILE
+    return {"warps": warps, "block_rows": rows, "blocks": blocks, "grid": (blocks, H, B),
+            "warp_tiles": warp_tiles, "chunks": chunks, "stages": stages,
+            "smem_bytes": smem, "blocks_per_sm": per_sm,
+            # computed over useful products (warps whose rows all lie past Sq skip)
+            "padding": warp_tiles * ATTN_WARP_ROWS * keys / (Sq * Sk) - 1.0}
+
+
+def attention_f32_emulated(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
+                           col_bias: Optional[Tensor] = None) -> Tensor:
+    """``attention_plain``'s function in fp32 computed the way the fp32
+    kernel of ``csrc/attention.cu`` walks it (a query row's arithmetic does
+    not depend on its block or warp, so all rows go at once): key chunks of
+    32 in order; per chunk the 8-key score tiles with a valid key, each the
+    3xTF32 product (:func:`mma_3xtf32`) over the depth steps of 8 in order;
+    ``s = (q . k) * scale + bias`` with two roundings, keys past Sk at -inf;
+    the running max ``m``; ``corr = exp(m_old - m)``; ``p = exp(s - m)``; the
+    row sum as the kernel takes it (each of the 4 lanes of a row's quad sums
+    its keys 8 j + 2t, 8 j + 2t + 1 in order, then two xor shuffles); ``l =
+    l * corr + rowsum`` and ``o = o * corr + pv``, each step rounded on its
+    own, where ``pv`` is the chunk's unnormalised P V in 3xTF32 over its
+    tiles in order, from zero; ``o / l`` last.
+    q [B, Sq, H*D], k/v [B, Sk, H*D], col_bias [B, Sk] -> [B, Sq, H*D] fp32."""
+    B, Sq, W = q.shape
+    Sk = k.shape[1]
+    D = W // heads
+    plan = attention_f32_plan(Sq, Sk, D)
+    f32, T = torch.float32, ATTN_F32_TILE
+
+    def heads_of(t):  # [B, S, H*D] -> [B, H, S, D]
+        return t.to(f32).reshape(B, t.shape[1], heads, D).permute(0, 2, 1, 3)
+
+    qh, kh, vh = heads_of(q), heads_of(k), heads_of(v)
+    keys_p = len(plan["chunks"]) * ATTN_F32_KEY_CHUNK
+    add = torch.full((B, keys_p), -math.inf, dtype=f32)
+    add[:, :Sk] = 0.0 if col_bias is None else col_bias.to(f32)
+    scale32 = torch.tensor(scale, dtype=f32)
+    quad = torch.arange(4)
+    m = torch.full((B, heads, Sq, 1), -math.inf, dtype=f32)
+    l = torch.zeros_like(m)
+    o = torch.zeros(B, heads, Sq, D, dtype=f32)
+    for ch in plan["chunks"]:
+        c0, kv, tiles = ch["first_key"], ch["valid"], ch["tiles"]
+        cols = tiles * T  # key columns computed; past kv they are zeros, then masked
+        kc = torch.zeros(B, heads, cols, D, dtype=f32)
+        vc = torch.zeros(B, heads, cols, D, dtype=f32)
+        kc[:, :, :kv], vc[:, :, :kv] = kh[:, :, c0:c0 + kv], vh[:, :, c0:c0 + kv]
+        s = torch.zeros(B, heads, Sq, cols, dtype=f32)
+        for kk in range(0, D, T):
+            s = mma_3xtf32(s, qh[..., kk:kk + T], kc[..., kk:kk + T].transpose(-1, -2))
+        s = s * scale32 + add[:, None, None, c0:c0 + cols]
+        m_new = torch.maximum(m, s.max(-1, keepdim=True).values)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        pair = p.reshape(B, heads, Sq, tiles, 4, 2)  # [.., tile j, lane t, key 2t + e]
+        part = torch.zeros(B, heads, Sq, 4, dtype=f32)
+        for j in range(tiles):
+            part = part + pair[..., j, :, 0]
+            part = part + pair[..., j, :, 1]
+        for x in (1, 2):
+            part = part + part[..., quad ^ x]
+        l = l * corr + part[..., :1]
+        pv = torch.zeros_like(o)
+        for j in range(0, cols, T):
+            pv = mma_3xtf32(pv, p[..., j:j + T], vc[:, :, j:j + T])
+        o = o * corr + pv
+        m = m_new
+    out = o / l
+    return out.permute(0, 2, 1, 3).reshape(B, Sq, W)
+
+
+# ---------------------------------------------------------------- LayerNorm
+
+LN_WIDTHS = (768, 1024, 1408)  # the widths built as template parameters
+LN_MAX_W = 4096              # the generic instantiation's largest row
+
+
+def layer_norm_plan(W: int, elt: int, aligned: bool = True) -> dict:
+    """How ``csrc/layernorm.cu`` reads a row of ``W`` elements of ``elt``
+    bytes: ``vec`` elements a lane loads at once (16 bytes where the row is
+    a whole number of 16-byte loads and the data is aligned, else 1), the
+    instantiation (``width``: a main-path width, or ``"generic"`` for every
+    other W <= 4096), ``loads`` a lane makes (the last one masked on the
+    lanes past the row's end: ``tail_lanes`` of them take part), ``registers``
+    the fp32 values a lane holds, and ``values_per_lane`` W / 32."""
+    if not 1 <= W <= LN_MAX_W:
+        raise ValueError(f"layer_norm: rows of 1 to {LN_MAX_W} elements, got {W}")
+    if elt not in (2, 4):
+        raise ValueError(f"layer_norm: bf16 or fp32 rows, got {elt}-byte elements")
+    per16 = 16 // elt
+    vec = per16 if aligned and W % per16 == 0 else 1
+    step = 32 * vec
+    loads = _ceil_div(W, step)
+    width = W if vec > 1 and W in LN_WIDTHS else "generic"
+    compiled = _ceil_div(W if width != "generic" else LN_MAX_W, step)
+    return {"vec": vec, "width": width, "step": step, "loads": loads,
+            "registers": compiled * vec, "tail_lanes": _ceil_div(W - (loads - 1) * step, vec),
+            "values_per_lane": W / 32}
+
+
+def layer_norm_lanes(W: int, elt: int, aligned: bool = True) -> Tensor:
+    """[32, loads * vec] element index per lane in the order the lane sums
+    them (-1 past the row's end)."""
+    plan = layer_norm_plan(W, elt, aligned)
+    vec, step = plan["vec"], plan["step"]
+    lane = torch.arange(32)[:, None, None]
+    c = torch.arange(plan["loads"])[None, :, None]
+    e = torch.arange(vec)[None, None, :]
+    idx = (c * step + lane * vec + e).reshape(32, -1)
+    return torch.where(idx < W, idx, torch.full_like(idx, -1))
+
+
+def _warp_sum(part: Tensor) -> Tensor:
+    """The xor butterfly of ``sprc::warp_sum`` over the last axis (32 lanes):
+    every lane ends with the same sum."""
+    lane = torch.arange(32)
+    for x in (16, 8, 4, 2, 1):
+        part = part + part[..., lane ^ x]
+    return part[..., 0]
+
+
+def layer_norm_emulated(x: Tensor, w: Tensor, b: Tensor, eps: float,
+                        residual: Optional[Tensor] = None,
+                        out_scale: Optional[float] = None) -> Tensor:
+    """``layer_norm_plain``'s function computed as the LayerNorm kernel
+    walks a row: ``v = x + r`` in fp32; each lane sums its elements in load
+    order (:func:`layer_norm_lanes`), the lanes meet in the butterfly; the
+    mean is that sum / W; the variance the same walk over ``(v - mean)^2``
+    (each square rounded) / W; ``y = ((v - mean) * rsqrt(var + eps)) * w +
+    b``, every step rounded; rounded to ``x.dtype``, or with ``out_scale``
+    the int8 codes ``clip(rint(y * (1 / out_scale)))``."""
+    W = x.shape[-1]
+    v = x.float().reshape(-1, W)
+    if residual is not None:
+        v = v + residual.float().reshape(-1, W)
+    idx = layer_norm_lanes(W, x.element_size())
+    valid = idx >= 0
+    vals = torch.where(valid, v[:, idx.clamp(min=0)], torch.zeros((), dtype=torch.float32))
+    part = torch.zeros(v.shape[0], 32, dtype=torch.float32)
+    for j in range(idx.shape[1]):
+        part = part + vals[:, :, j]
+    mean = (_warp_sum(part) / W)[:, None]
+    d = torch.where(valid, vals - mean[:, :, None], torch.zeros((), dtype=torch.float32))
+    sq = d * d
+    part = torch.zeros_like(part)
+    for j in range(idx.shape[1]):
+        part = part + sq[:, :, j]
+    var = (_warp_sum(part) / W)[:, None]
+    rstd = torch.rsqrt(var + eps)
+    y = ((v - mean) * rstd * w.float() + b.float()).reshape(x.shape)
+    if out_scale is not None:
+        return torch.clamp(torch.round(y * (1.0 / out_scale)), -127, 127).to(torch.int8)
+    return y.to(x.dtype)
