@@ -18,9 +18,11 @@ Phases (any failure raises and exits nonzero before the last line):
    tower's; beside F.layer_norm in the model dtype); the bf16 GEMM at 4096^3; then
    the int8 kernels: the s8 GEMM's raw s32 product at 4096^3 and at every
    product of the main path (equal to plain), each with the epilogue the path
-   runs on it, the quantisers, K5 (int8 ViT block) and K4 (int8 Q-Former
-   layer); every chain of 23 blocks or 12 layers stage by stage (each kernel
-   launch against its plain version on the same inputs); then the validate
+   runs on it, the quantisers (codes and scales equal to plain at every call
+   of kernel_checks.QUANT_CALLS, with their device times), K5 (int8 ViT
+   block) and K4 (int8 Q-Former layer); every chain of 23 blocks or 12
+   layers stage by stage (each kernel launch against its plain version on
+   the same inputs); then the validate
    path's kernels: K8 (flash_attention) at head dims 64 and 88, the attention
    kernel at head dim 88 in bf16 and fp32, K6 (attention half) and K7 (MLP
    half) at ViT-L's and EVA ViT-g's shapes, K2 and K5 at EVA's shapes, and
@@ -31,7 +33,9 @@ Phases (any failure raises and exits nonzero before the last line):
    take before any launch, the bf16 and fp32 attention over ragged (Sq, Sk)
    at both head dims on strided packed views, BSHD tensors and with a column
    bias that masks a whole row, the LayerNorm over ragged widths and row
-   counts in its three modes; and the host side of one call of each GEMM;
+   counts in its three modes, both quantisers over ragged rows and widths,
+   unaligned views, zero rows, clipped values and exact ties; and the host
+   side of one call of each GEMM;
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),
@@ -50,7 +54,14 @@ Phases (any failure raises and exits nonzero before the last line):
    runs with --qformer-int8. The stage-by-stage comparison is the gate; the
    free-running all-plain comparison and the int8 answers against phase 4's
    (random weights) are reports;
-   its calibration pass launches flash_attention (23 blocks a batch);
+   its calibration pass launches flash_attention (23 blocks a batch); the
+   quantisers' launches are held per batch, on the main path and in each
+   stage-by-stage pass: 23 quantize_static and 61 quantize_rows an encode
+   batch (the image rows once a pass), 133 quantize_rows a query batch;
+4c. one encode batch of the int8 configuration of blip2_cir_align_prompt /
+   pretrain (EVA ViT-g, full width, calibrated as in 4b): its launches (39
+   int8 blocks and 39 quantize_static, 12 int8 Q-Former layers and 61
+   quantize_rows), its output, and the batch stage by stage;
 5. validate on blip2_cir_align_prompt / pretrain at full width (EVA ViT-g:
    39 blocks, W 1408, head dim 88; the Q-Former over 1408-wide embeds;
    random weights from seed 0): a synthetic CIRR val split (512 gallery
@@ -66,7 +77,7 @@ Phases (any failure raises and exits nonzero before the last line):
    features are held within a bf16 bound of each other;
 6. counters: every kernel of each path launched on that path (the chains'
    own kernels too: the bf16 and fp32 attention, the LayerNorm and its int8
-   output), and no kernel of another configuration moved.
+   output, the two quantisers), and no kernel of another configuration moved.
 
 Then it prints one JSON line with each kernel's numbers, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -226,7 +237,9 @@ def _counters():
             "attention_bf16": (primitives.attention_cuda, "launches_bf16"),
             "attention_f32": (primitives.attention_cuda, "launches_f32"),
             "layer_norm": (primitives.layer_norm_cuda, "launches"),
-            "layer_norm_q8": (primitives.layer_norm_cuda, "launches_q8")}
+            "layer_norm_q8": (primitives.layer_norm_cuda, "launches_q8"),
+            "quantize_static": (primitives.quantize_static_cuda, "launches"),
+            "quantize_rows": (primitives.quantize_rows_cuda, "launches")}
 
 
 # the kernels each configuration's main path must launch; the other
@@ -235,13 +248,22 @@ PATH_KERNELS = {"bf16": ("token_max_sim", "fused_vit_block", "fused_qformer_laye
                          "gemm_f32", "attention_bf16", "attention_f32", "layer_norm"),
                 "int8": ("token_max_sim", "fused_vit_block_i8", "fused_qformer_layer_int8",
                          "gemm_i8", "attention_bf16", "attention_f32", "layer_norm",
-                         "layer_norm_q8")}
+                         "layer_norm_q8", "quantize_static", "quantize_rows")}
+# the int8 quantisers' launches per batch: an encode batch of either model
+# (the ctx of every block; the Q-Former's rows, ctx and GELU outputs and the
+# image rows once a pass) and a query batch (the fusion pass, with the image
+# rows once, and the prompt pass)
+INT8_QUANTIZE_PER_BATCH = {"encode": {"quantize_static": 23, "quantize_rows": 61},
+                           "encode EVA": {"quantize_static": 39, "quantize_rows": 61},
+                           "query": {"quantize_static": 0, "quantize_rows": 133}}
+QUANTIZERS = ("quantize_static", "quantize_rows")
 
 
-def stage_pass(tag, what, counters, fn):
+def stage_pass(tag, what, counters, fn, quantize=None):
     """``fn()`` once more through the kernels, every stage against its plain
-    version on the same inputs. The launches of this comparison are not the
-    main path's: the counters are put back."""
+    version on the same inputs, with the quantisers' launches of that one
+    batch (``quantize``: what they must be). The launches of this comparison
+    are not the main path's: the counters are put back."""
     from sprc_tpu_torch import kernel_checks
     from sprc_tpu_torch.ops import primitives
 
@@ -250,8 +272,14 @@ def stage_pass(tag, what, counters, fn):
     with torch.inference_mode(), primitives.stage_check(stages):
         fn()
     sync()
+    batch = {k: getattr(counters[k][0], counters[k][1]) - before[k] for k in QUANTIZERS}
     for k, (obj, attr) in counters.items():
         setattr(obj, attr, before[k])
+    log(f"[main {tag}] {what}, stage by stage: quantiser launches of the batch "
+        + ", ".join(f"{k} {v}" for k, v in batch.items()))
+    want = quantize or dict.fromkeys(QUANTIZERS, 0)
+    if batch != want:
+        raise RuntimeError(f"{tag} {what}: quantiser launches {batch}, expected {want}")
     for row in stages.rows():
         log(f"[main {tag}] {what}, stage by stage: {row['kind']}: {row['calls']} calls, worst "
             f"share that differs {row['differ']:.3e}, worst difference {row['err']:.3e} -> "
@@ -265,7 +293,10 @@ def stage_pass(tag, what, counters, fn):
 def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(), calibrate=False):
     """One configuration end to end. ``tag`` names it in the log ("bf16":
     bf16 tower and fp32 Q-Former; "int8": the int8 serving configuration).
-    ``bounds`` None: the free-running all-plain comparison is a report."""
+    ``bounds`` None: the free-running all-plain comparison is a report. The
+    quantisers' launches are held per encode batch and per query batch
+    (:data:`INT8_QUANTIZE_PER_BATCH` on the int8 path, none on the other)."""
+    per_batch = INT8_QUANTIZE_PER_BATCH if tag == "int8" else None
     from sprc_tpu_torch.cli.serve import build_service, make_parser, make_server
     from sprc_tpu_torch.loader import calibrate_vit_act_scales, load_model
     from sprc_tpu_torch.ops import primitives
@@ -317,6 +348,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     index = engine.build_index(iter(gallery))
     sync()
     encode_s = time.perf_counter() - t0
+    encode_launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     tf = index.target_feats
     assert tf.shape == (GALLERY, cfg.num_query_token, cfg.embed_dim), tf.shape
     assert bool(torch.isfinite(tf).all())
@@ -331,7 +363,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     # all-plain path on the card (plain versions: no kernel launches)
     first = torch.from_numpy(gallery[0][1]).to(DEVICE)
     stage_pass(tag, f"gallery encode, {ENCODE_BATCH} images", counters,
-               lambda: model.extract_target_features(first))
+               lambda: model.extract_target_features(first), per_batch and per_batch["encode"])
     with torch.inference_mode(), primitives.plain_reference():
         plain_tf, plain_frozen = model.extract_target_features(first)
     sync()
@@ -391,6 +423,17 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     log(f"[main {tag}] HTTP /health ok; POST /query 1 query: median {np.median(single_ms):.3f} ms "
         f"(5 runs); {len(refs)} queries: median {np.median(batch_ms):.3f} ms (3 runs)")
+    # the quantisers per batch: GALLERY / ENCODE_BATCH encode batches, then one
+    # query batch per request and one to warm the server (K1 launches once each)
+    batches = {"encode": GALLERY // ENCODE_BATCH, "query": launches["token_max_sim"]}
+    got = {"encode": {k: encode_launches[k] for k in QUANTIZERS},
+           "query": {k: launches[k] - encode_launches[k] for k in QUANTIZERS}}
+    want = {part: {k: (per_batch[part][k] if per_batch else 0) * n for k in QUANTIZERS}
+            for part, n in batches.items()}
+    log(f"[main {tag}] quantiser launches: {got['encode']} over {batches['encode']} encode "
+        f"batches, {got['query']} over {batches['query']} query batches")
+    if got != want:
+        raise RuntimeError(f"{tag}: quantiser launches {got}, expected {want}")
 
     # the same 32 queries (the same stored reference embeds and target feats):
     # stage by stage, then through the all-plain path on the card
@@ -399,7 +442,8 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     query = (index.reference_embeds(refs).to(DEVICE), index.target_feats,
              torch.as_tensor(tok["input_ids"], device=DEVICE),
              torch.as_tensor(tok["attention_mask"], device=DEVICE))
-    stage_pass(tag, f"{len(refs)} queries", counters, lambda: engine.model.inference(*query))
+    stage_pass(tag, f"{len(refs)} queries", counters, lambda: engine.model.inference(*query),
+               per_batch and per_batch["query"])
     with torch.inference_mode(), primitives.plain_reference():
         plain = engine.model.inference(*query).cpu().numpy()
     name_idx = {n: i for i, n in enumerate(index.names)}
@@ -420,6 +464,52 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
             "query_1_median_ms": float(np.median(single_ms)),
             "query_32_median_ms": float(np.median(batch_ms)),
             "target_feats": target_feats, "served": served}
+
+
+def phase_eva_int8(gallery):
+    """One encode batch of the int8 serving configuration of
+    blip2_cir_align_prompt / pretrain (EVA ViT-g, full width; scales
+    calibrated on the seeded images of phase 4b): the launches of that batch
+    (39 int8 blocks, each quantising its ctx once; 12 int8 Q-Former layers and
+    the image rows quantised once), its output, and the batch stage by
+    stage."""
+    from sprc_tpu_torch.loader import calibrate_vit_act_scales, load_model
+    from sprc_tpu_torch.utils.artifacts import synthetic_calibration_images
+
+    tag = "int8 EVA"
+    counters = _counters()
+    t0 = time.perf_counter()
+    model = load_model("blip2_cir_align_prompt", "pretrain", device=DEVICE, seed=SEED,
+                       vit_quant="int8_calib", qformer_int8=True)
+    calibrate_vit_act_scales(model, synthetic_calibration_images(SEED + 99, CALIB_IMAGES),
+                             batch=CALIB_IMAGES)
+    sync()
+    vcfg = model.cfg.vit_config()
+    log(f"[main {tag}] model blip2_cir_align_prompt/pretrain on {DEVICE}, tower "
+        f"{vcfg.quant!r}, W {vcfg.width}, depth {vcfg.depth}: built and calibrated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    first = torch.from_numpy(gallery[0][1]).to(DEVICE)
+    with torch.inference_mode():
+        model.extract_target_features(first)  # warm-up
+        sync()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        tf, frozen = model.extract_target_features(first)
+        sync()
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    log(f"[counters] launches of one {tag} encode batch: {launches}")
+    want = {"fused_vit_block_i8": vcfg.depth, "fused_qformer_layer_int8": 12,
+            **INT8_QUANTIZE_PER_BATCH["encode EVA"]}
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"{tag}: launches {launches}, expected {want}")
+    assert tf.shape == (ENCODE_BATCH, model.cfg.num_query_token, model.cfg.embed_dim), tf.shape
+    assert bool(torch.isfinite(tf).all()) and bool(torch.isfinite(frozen.float()).all())
+    assert bool(((tf.norm(dim=-1) - 1).abs() < 1e-3).all()), "target features are not unit norm"
+    stage_pass(tag, f"gallery encode, {ENCODE_BATCH} images", counters,
+               lambda: model.extract_target_features(first), INT8_QUANTIZE_PER_BATCH["encode EVA"])
+    del model, tf, frozen, first
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _write_cirr_val(root, names, n_queries, seed):
@@ -529,7 +619,7 @@ def phase_validate(work, route, gallery):
     missing = [k for k in ("fused_qformer_layer", "token_max_sim", "gemm", "gemm_f32",
                            "attention_bf16", "attention_f32", "layer_norm") if launches[k] <= 0]
     moved = [k for k in ("fused_vit_block_i8", "fused_qformer_layer_int8", "gemm_i8",
-                         "layer_norm_q8") if launches[k] != 0]
+                         "layer_norm_q8", "quantize_static", "quantize_rows") if launches[k] != 0]
     if missing or moved:
         raise RuntimeError(f"{tag}: not launched {missing}; launched from the int8 path {moved}")
 
@@ -683,6 +773,12 @@ def kernel_table(rows, launches):
               ["layer_norm vit_l bf16"], library_ms=by_check["layer_norm vit_l bf16"]["library_ms"]),
         entry("layer_norm_q8", "sprc_tpu_torch/csrc/layernorm.cu",
               "sprc_tpu/ops/pallas_block.py:417", ["layer_norm vit_l bf16 -> s8"]),
+        # the quantisers at ViT-L's ctx and the image rows of an encode batch
+        # (ms: the kernels' device time; no one PyTorch call computes either)
+        entry("quantize_static", "sprc_tpu_torch/csrc/quantize.cu",
+              "sprc_tpu/ops/pallas_block.py:417", ["quantize static vit_l ctx"]),
+        entry("quantize_rows", "sprc_tpu_torch/csrc/quantize.cu",
+              "sprc_tpu/ops/pallas_qformer.py:55", ["quantize rows image vit_l encode"]),
     ]
 
 
@@ -700,6 +796,7 @@ def main():
         serve_flags=["--qformer-int8"], calibrate=True)
     check_counters("int8", int8["launches"])
     against = report_int8_against_bf16(bf16, int8)
+    eva_int8 = phase_eva_int8(gallery)
     del bf16["target_feats"], int8["target_feats"]
     runs = {route: phase_validate(work, route, gallery) for route in ROUTES}
     check_routes_agree(runs)
@@ -716,6 +813,7 @@ def main():
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "int8_vs_bf16_random_weights": against,
+                      "int8_eva_encode_batch_launches": eva_int8,
                       "validate_pretrain": {route: {k: run[k] for k in
                                                     ("encode_imgs_per_s", "metrics", "launches")}
                                             for route, run in runs.items()}}), flush=True)

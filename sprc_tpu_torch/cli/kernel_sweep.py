@@ -1,8 +1,9 @@
 """The kernels redesigned for Hopper alone on the card: the bf16 GEMM, the s8
-GEMM, the true-fp32 GEMM, the bf16 and fp32 attention and the LayerNorm.
+GEMM, the true-fp32 GEMM, the bf16 and fp32 attention, the LayerNorm and the
+two activation quantisers.
 
     python -m sprc_tpu_torch.cli.kernel_sweep
-        [--only gemm|gemm_i8|gemm_f32|attention|attention_f32|layernorm] [--no-times]
+        [--only gemm|gemm_i8|gemm_f32|attention|attention_f32|layernorm|quantize] [--no-times]
 
 Builds the kernel library, prints what ``ptxas -v`` said about those kernels
 (registers, shared memory, spills), holds them against their plain versions
@@ -12,7 +13,9 @@ them at the main paths' shapes beside the one PyTorch call that computes the
 same function (``F.linear``, ``torch._int_mm``,
 ``F.scaled_dot_product_attention``, ``F.layer_norm``; the fp32 attention and
 LayerNorm rows also with both sides' device times from ``torch.profiler`` and
-the names of the kernels SDPA ran): one JSON line per check, with the
+the names of the kernels SDPA ran; the quantisers, which no one PyTorch call
+computes, by their device times at every call of ``kernel_checks.QUANT_CALLS``
+with the instantiation each call takes): one JSON line per check, with the
 achieved TFLOP/s or TOP/s and the share of the card's bound for each
 product, every tile the kernel is built with side by side (whatever its plan
 would choose), and the host cost of one call of each GEMM. Ends with the
@@ -32,7 +35,8 @@ import time
 import torch
 
 
-KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16", "attention_f32", "layernorm")
+KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16", "attention_f32", "layernorm",
+           "quantize")
 
 
 def ptxas_report(log_text: str) -> list:
@@ -162,7 +166,7 @@ def time_f32_tiles(device: str) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None, choices=(
-        "gemm", "gemm_i8", "gemm_f32", "attention", "attention_f32", "layernorm"))
+        "gemm", "gemm_i8", "gemm_f32", "attention", "attention_f32", "layernorm", "quantize"))
     ap.add_argument("--no-times", action="store_true", help="the checks of rightness only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -208,6 +212,8 @@ def main(argv=None) -> int:
         run("attention f32 edges", kc.check_attention_f32_edges, dev)
     if on("layernorm"):
         run("layer_norm edges", kc.check_layer_norm_edges, dev)
+    if on("quantize"):
+        run("quantizer edges", kc.check_quantizer_edges, dev)
     if not args.no_times:
         if on("gemm"):
             run("gemm bf16 ablate 4096^3", kc.check_gemm_bf16_ablate, dev)
@@ -242,6 +248,10 @@ def main(argv=None) -> int:
                 rows.append(row)
                 print(json.dumps(row), flush=True)
             run("library yardsticks", kc.check_library_yardsticks, dev)
+        if on("quantize"):
+            for row in kc.run_quantize(dev):
+                rows.append(row)
+                print(json.dumps(row), flush=True)
     for row in rows:
         if "ms" in row:
             bound = kc.bound_ms(row)

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 SEED, ENCODE_BATCH, QUERY_BATCH, GALLERY, REPEATS = 0, 64, 32, 512, 5
-GROUPS = (("gemm_i8_kernel", "int8 GEMM"), ("quantize_", "quantize"),
+GROUPS = (("gemm_i8_kernel", "int8 GEMM"), ("quantize_static", "quantize static"),
+          ("quantize_rows", "quantize rows"),
           ("gemm_bf16_kernel", "bf16 GEMM"), ("gemm_f32_kernel", "fp32 GEMM"),
           ("attention_bf16", "bf16 attention"), ("attention_f32", "fp32 attention"),
           ("layernorm", "LayerNorm"), ("token_max_sim", "token-max sim"),

@@ -19,9 +19,9 @@ little; held stage by stage they cannot drift, and each stage is held as
 tightly as the primitive alone (:data:`STAGE_BOUNDS`).
 
 The kernels redesigned for Hopper (the bf16, s8 and fp32 GEMMs, the bf16 and
-fp32 attention and the LayerNorm) are also run over ragged shapes
-(:func:`run_edges`): a fault at a tile edge shows only there, not at the
-towers' shapes.
+fp32 attention, the LayerNorm and the two quantisers) are also run over
+ragged shapes (:func:`run_edges`): a fault at a tile edge shows only there,
+not at the towers' shapes.
 
 A timed row also carries the work of its call, from the shapes alone:
 ``bytes`` (each input read once, each output written once) and
@@ -32,16 +32,18 @@ function, ``library_ms`` is that call's time on the same inputs; the port
 itself never makes that call. The fp32 attention and LayerNorm rows also
 carry ``device_ms`` / ``library_device_ms``: the kernels' own time from
 ``torch.profiler`` (:func:`device_ms`), which a loop through a Python wrapper
-hides where the host's cost of a call exceeds its kernel.
+hides where the host's cost of a call exceeds its kernel; the quantisers'
+rows (:func:`check_quantize`) take it as their ``ms``.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
-from sprc_tpu_torch.ops import primitives, quant
+from sprc_tpu_torch.ops import primitives, quant, schedules
 from sprc_tpu_torch.ops.attention import flash_attention
 from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_attn_block_plain,
                                             fused_mlp_block, fused_mlp_block_plain,
@@ -1376,6 +1378,165 @@ def check_layer_norm_edges(device="cuda", seed=24) -> dict:
                       + f"; worst relative err {worst:.2e}" + (f"; FAILED: {bad}" if bad else ""))}
 
 
+# The quantisers' calls on the main paths: name -> (kernel, rows, W, dtype).
+# quantize_static: the int8 tower's ctx before proj (one a block). quantize_rows:
+# the Q-Former's rows, ctx and cross q rows of the queries pass and of a query
+# batch (64 x 32 rows), the GELU output before fc2, the query batch's query
+# and text slices (32 x 32 rows), and the image rows once a pass (encode: 64
+# x 257; fusion: 32 x 257) at ViT-L's and EVA's widths.
+QUANT_CALLS = {
+    "static vit_l ctx": ("static", _VIT_M, 1024, torch.bfloat16),
+    "static eva ctx": ("static", _VIT_M, 1408, torch.bfloat16),
+    "rows qformer rows": ("rows", _Q_M, 768, torch.float32),
+    "rows qformer gelu": ("rows", _Q_M, 3072, torch.float32),
+    "rows query slice": ("rows", _F_M // 2, 768, torch.float32),
+    "rows query slice gelu": ("rows", _F_M // 2, 3072, torch.float32),
+    "rows image vit_l encode": ("rows", _VIT_M, 1024, torch.float32),
+    "rows image eva encode": ("rows", _VIT_M, 1408, torch.float32),
+    "rows image vit_l fusion": ("rows", QUERY_BATCH * 257, 1024, torch.float32),
+    "rows image eva fusion": ("rows", QUERY_BATCH * 257, 1408, torch.float32),
+}
+QUANT_SCALE = 0.05  # the static scale of the checks (inv = 20)
+
+
+def _quantize_fns(kind: str, x: torch.Tensor, scale: float = QUANT_SCALE) -> tuple:
+    """(kernel, plain) of one quantiser on ``x``, each returning (codes, scales
+    or None)."""
+    if kind == "static":
+        return (lambda: (primitives.quantize_static_cuda(x, scale), None),
+                lambda: (quant.quantize_static(x, scale), None))
+    return lambda: primitives.quantize_rows_cuda(x), lambda: quant.quantize_rows(x)
+
+
+def _quantize_differ(got: tuple, want: tuple) -> tuple:
+    """(codes that differ, worst difference in codes, worst scale difference)."""
+    d = (got[0].int() - want[0].int()).abs()
+    scale_err = 0.0 if got[1] is None else (got[1] - want[1]).abs().max().item()
+    return int((d > 0).sum().item()), int(d.max().item()), scale_err
+
+
+def check_quantize(name: str, device="cuda", seed=25) -> dict:
+    """One quantiser at one call of :data:`QUANT_CALLS` against its plain
+    version: codes and scales bit-equal. ``ms`` is the kernel's device time
+    (:func:`device_ms`): a loop through the wrapper (``wrapper_ms``) measures
+    the host's cost of a call (about 30 us) wherever the kernel is shorter.
+    No one PyTorch call computes either function (``torch.quantize_per_tensor``
+    clips to -128 and divides where ``quantize_static`` multiplies by
+    ``1 / a``): ``library_ms`` null."""
+    kind, rows, W, dtype = QUANT_CALLS[name]
+    x = _Rand(device, seed).normal(rows, W, std=2.0, dtype=dtype)
+    kernel, plain = _quantize_fns(kind, x)
+    with torch.inference_mode():
+        differ, worst, scale_err = _quantize_differ(kernel(), plain())
+        torch.cuda.synchronize()
+        row = {"finite": True, "max_abs_err": float(worst), "mean_abs_err": differ / x.numel(),
+               "scale_max_abs": scale_err}
+        row["device_ms"], row["device_kernels"] = device_ms(kernel)
+        row["ms"] = row["device_ms"]
+        row["wrapper_ms"] = cuda_ms(kernel, iters=20)
+        row["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+    row["library_ms"] = None
+    row["ok"] = differ == 0 and scale_err == 0.0
+    row["bytes"] = rows * W * (x.element_size() + 1) + (4 * rows if kind == "rows" else 0)
+    row["op_seconds"] = 0.0
+    plan = (schedules.quantize_static_plan(rows * W, x.element_size()) if kind == "static"
+            else schedules.quantize_rows_plan(W, x.element_size(), rows=rows))
+    row["plan"] = plan
+    row["shape"] = (f"{rows} x {W} {_TYPE[dtype]}: codes that differ {differ}, scale diff "
+                    f"{scale_err:.1e}; device {row['device_ms']:.4f} ms, through the wrapper "
+                    f"{row['wrapper_ms']:.4f} ms; {plan}")
+    return row
+
+
+def run_quantize(device="cuda") -> List[dict]:
+    """Both quantisers at every call of :data:`QUANT_CALLS`."""
+    return [dict(check=f"quantize {name}", **check_quantize(name, device)) for name in QUANT_CALLS]
+
+
+# rows and widths of the quantisers' edge checks: one row, a partial block of
+# four rows, a warp-count past a block, the encode's rows; widths below a
+# 16-byte load, ragged ones, the main path's, a generic multiple of 16 bytes
+# and the widest
+QUANT_EDGE_ROWS = (1, 3, 33, _VIT_M)
+QUANT_EDGE_WIDTHS = (1, 7, 13, 768, 1000, 1024, 1408, 3072, 4096)
+
+
+def _tie_rows(rows: int, W: int, dtype: torch.dtype) -> torch.Tensor:
+    """Rows whose values land on half steps in ``quantize_rows``: each row's
+    |max| A sets sc = f32(A) * f32(1 / 127) (a power of two where A = 127 x
+    2^e, so that every tie is exact in bf16 too), and the other values are
+    (k + 0.5) sc wherever f32(x / sc) is exactly k + 0.5."""
+    one = np.float32(1.0 / 127.0)
+    k = np.arange(-126, 127)
+    out = np.zeros((rows, W), np.float32)
+    amaxes = [127 * 2.0 ** -6, 127 * 2.0 ** 3] + ([3.7, 0.013] if dtype == torch.float32 else [])
+    for i in range(rows):
+        A = np.float32(amaxes[i % len(amaxes)])
+        sc = np.float32(A * one)
+        t = ((k + 0.5) * np.float64(sc)).astype(np.float32)
+        t = t[(t / sc) == (k + 0.5).astype(np.float32)]
+        out[i] = np.resize(t, W)
+        out[i, i % W] = A if i % 2 else -A
+    return torch.from_numpy(out).to(dtype)
+
+
+def _static_ties(n: int, dtype: torch.dtype) -> tuple:
+    """(values, scale) whose products land on half steps in ``quantize_static``:
+    (k + 0.5) / 4 with the scale 0.25 (inv 4, every product exact), and the
+    same past +-127 (clipped)."""
+    k = np.arange(-140, 140)
+    return torch.from_numpy(np.resize(((k + 0.5) / 4.0).astype(np.float32), n)).to(dtype), 0.25
+
+
+def check_quantizer_edges(device="cuda", seed=26) -> dict:
+    """Both quantisers, bf16 and fp32, over :data:`QUANT_EDGE_ROWS` x
+    :data:`QUANT_EDGE_WIDTHS` (``quantize_static`` on the same rows x W
+    values), against their plain versions: zero codes and zero scale
+    difference in every case. Each case runs on random rows (std 8: the
+    static codes clip at +-127), on a view whose base pointer is 2 or 4 bytes
+    past a 16-byte boundary (bf16: both; fp32: 4), on all-zero rows (the
+    scale clamped at 1e-8 / 127) and on rows whose values land exactly on
+    k + 0.5 before the rounding (ties to even)."""
+    r = _Rand(device, seed)
+    bad, cases, ties, worst_all = [], 0, 0, 0
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            elt = torch.tensor([], dtype=dtype).element_size()
+            for rows in QUANT_EDGE_ROWS:
+                for W in QUANT_EDGE_WIDTHS:
+                    n = rows * W
+                    pad = r.normal(n + 2, std=8.0, dtype=dtype)
+                    inputs = [("", r.normal(rows, W, std=8.0, dtype=dtype), QUANT_SCALE),
+                              ("zero", torch.zeros(rows, W, dtype=dtype, device=device),
+                               QUANT_SCALE)]
+                    inputs += [(f"+{k * elt} bytes", pad[k:k + n].view(rows, W), QUANT_SCALE)
+                               for k in (1, 2) if k * elt in (2, 4)]
+                    tied, scale = _static_ties(n, dtype)
+                    inputs.append(("static ties", tied.view(rows, W).to(device), scale))
+                    if rows <= 33 or W in (1024, 1408):
+                        inputs.append(("rows ties", _tie_rows(rows, W, dtype).to(device),
+                                       QUANT_SCALE))
+                    for what, x, sc in inputs:
+                        for kind in ("static", "rows"):
+                            kernel, plain = _quantize_fns(kind, x, sc)
+                            got, want = kernel(), plain()
+                            differ, worst, scale_err = _quantize_differ(got, want)
+                            cases += 1
+                            ties += "ties" in what
+                            worst_all = max(worst_all, worst)
+                            if (differ or scale_err or got[0].shape != want[0].shape
+                                    or (got[1] is not None and got[1].shape != want[1].shape)):
+                                bad.append(f"{kind} {_TYPE[dtype]} {rows}x{W} {what}: "
+                                           f"{differ} codes differ (by up to {worst}), "
+                                           f"scale {scale_err:.1e}")
+        torch.cuda.synchronize()
+    return {"ok": not bad, "finite": True, "max_abs_err": float(worst_all), "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases ({ties} on exact ties): rows {QUANT_EDGE_ROWS} x W "
+                      f"{QUANT_EDGE_WIDTHS} x bf16 / fp32 x random (clipped) / zero / base "
+                      f"+2, +4 bytes / ties, both kernels: codes and scales equal"
+                      + (f"; FAILED ({len(bad)}): {bad[:8]}" if bad else ""))}
+
+
 def run_attention_f32(device="cuda") -> List[dict]:
     """The fp32 attention at its seven calls of the main paths (the Q-Former's
     five, an fp32 tower's packed qkv and the unfused route's BSHD), each
@@ -1402,6 +1563,7 @@ def run_edges(device="cuda") -> List[dict]:
             dict(check="attention bf16 edges", **check_attention_edges(device)),
             dict(check="attention f32 edges", **check_attention_f32_edges(device)),
             dict(check="layer_norm edges", **check_layer_norm_edges(device)),
+            dict(check="quantizer edges", **check_quantizer_edges(device)),
             dict(check="gemm host cost", **check_gemm_host_cost(device))]
 
 
@@ -1487,8 +1649,8 @@ def run_int8(device="cuda") -> List[dict]:
     """The checks of the int8 serving path's kernels."""
     rows = [dict(check=f"gemm_i8 {name}", **check_gemm_i8(name, device))
             for name in GEMM_I8_PRODUCTS]
-    rows += [dict(check="quantizers", **check_quantizers(device)),
-             dict(check="K5 vit_block_i8", **check_vit_block_i8(device)),
+    rows += [dict(check="quantizers", **check_quantizers(device))] + run_quantize(device)
+    rows += [dict(check="K5 vit_block_i8", **check_vit_block_i8(device)),
              dict(check="K5 vit_tower_i8", **check_vit_tower_i8(device))]
     for shape in SERVING_SHAPES:
         rows.append(dict(check=f"K4 qformer_layer_int8 {shape}",

@@ -25,7 +25,10 @@ the kernel on CUDA tensors and is inference-only; only inside
 plain PyTorch version. With ``QFormerConfig.int8`` (the explicit form of the
 JAX package's ``SPRC_QF_INT8=1``; the port reads no environment variable)
 every layer runs kernel K4, the same wrapper with ``int8=True``: the ten
-dense projections as int8 products over codes derived at load time. The
+dense projections as int8 products over codes derived at load time; the
+image embeds are quantised once a pass (``quantize_rows``, by the same
+choice of kernel or plain version as the layers) and every cross layer
+takes their codes and row scales. The
 decoder (UniLM) mask, the ``no_img`` splice and the attention-probability
 outputs belong to training and the variant zoo and are not here yet.
 """
@@ -158,7 +161,9 @@ class QFormerLayer(nn.Module):
         self.output_query = DenseLN(M, H, eps, cfg.int8)
 
     def forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
-                image_embeds: Optional[torch.Tensor], query_length: int) -> torch.Tensor:
+                image_embeds, query_length: int) -> torch.Tensor:
+        """image_embeds: [B, Si, Wi], None, or with int8 the pair (codes,
+        scales) of :meth:`QFormer.forward`'s one quantisation a pass."""
         cfg = self.cfg
         cross = self.has_cross_attention and image_embeds is not None
         fn = primitives.kernel_or_reference(fused_qformer_layer, fused_qformer_layer_plain)
@@ -206,6 +211,8 @@ class QFormer(nn.Module):
             col_bias = make_additive_mask(attention_mask)
         if image_embeds is not None:
             image_embeds = image_embeds.to(self.cfg.dtype).contiguous()
+            if self.cfg.int8:  # the same rows in every cross layer: quantised once a pass
+                image_embeds = primitives.ops_for(image_embeds).quantize_rows(image_embeds)
         for layer in self.encoder.layer:
             hidden = layer(hidden, col_bias, image_embeds, Q)
         return hidden

@@ -35,7 +35,11 @@ on the tensor cores, and the epilogue computes ``(acc * row_scale) *
 w_scale + bias`` in fp32. Attention, LayerNorms and the GELU stay fp32. Rows
 are quantised once per distinct input: the self-attention's q, k and v share
 one set of codes, and so do the image's key and value projections (the TPU
-kernel quantises those rows twice, to the same codes). Between fc1 and fc2
+kernel quantises those rows twice, to the same codes). The image rows are
+the same in every cross layer of a pass, so the int8 Q-Former
+(``models/qformer.py``) quantises them once and hands each cross layer the
+pair ``(codes, scales)`` in place of ``img`` (the TPU kernel fuses one layer
+per call and quantises them in each). Between fc1 and fc2
 the GELU output goes through ``quantize_rows`` as a launch of its own: a
 row's scale over all 3072 columns is not known inside one column tile's
 epilogue. What bounds the int8 layer at serving sizes is launch count and
@@ -75,9 +79,13 @@ def _dense_i8(ops, codes, row_scale, p, act=None):
 
 
 def _attend_i8(ops, rows, kv, p, heads, eps, col_bias):
+    """``kv``: rows, or the pair (codes, scales) of rows already quantised."""
     W = rows.shape[-1]
     r8, rs = ops.quantize_rows(rows)
-    k8, ks = (r8, rs) if kv is rows else ops.quantize_rows(kv)
+    if kv is rows:
+        k8, ks = r8, rs
+    else:
+        k8, ks = kv if isinstance(kv, tuple) else ops.quantize_rows(kv)
     q = _dense_i8(ops, r8, rs, p["query"])
     k = _dense_i8(ops, k8, ks, p["key"])
     v = _dense_i8(ops, k8, ks, p["value"])
@@ -94,6 +102,8 @@ def _ffn_i8(ops, rows, p, eps):
 
 def _layer(ops, x, col_bias, self_p, img, cross_p, ffn_q_p, ffn_t_p, *, heads, eps, Q,
            text_ffn_all, int8=False):
+    if isinstance(img, tuple) and not int8:
+        raise ValueError("fused_qformer_layer: quantised image rows need int8=True")
     attend, ffn = (_attend_i8, _ffn_i8) if int8 else (_attend, _ffn)
     S = x.shape[1]
     attn = attend(ops, x, x, self_p, heads, eps, col_bias)
@@ -140,11 +150,14 @@ def fused_qformer_layer(x: Tensor, col_bias: Optional[Tensor], self_p: Mapping,
                         heads: int, eps: float, Q: int, text_ffn_all: bool,
                         int8: bool = False) -> Tensor:
     """x [B, S, W]; col_bias [B, S] fp32 additive or None; img [B, Si, Wi] or
-    None (cross-attention runs when both img and cross_p are given). On a
+    None (cross-attention runs when both img and cross_p are given), or with
+    ``int8`` the image rows already quantised, the pair ``quantize_rows``
+    returns (codes [B, Si, Wi] int8, scales [B, Si] fp32). On a
     CUDA tensor it launches the kernel chain (and raises on what it does not
     take); on a CPU tensor it runs the plain version. ``launches`` counts
     the fp32 chains launched in full, ``launches_int8`` the int8 ones."""
-    primitives.check_no_grad("fused_qformer_layer", x, col_bias, img,
+    imgs = img if isinstance(img, tuple) else (img,)
+    primitives.check_no_grad("fused_qformer_layer", x, col_bias, *imgs,
                              *_tensors(self_p, cross_p, ffn_q_p, ffn_t_p))
     ops = primitives.for_device(x)
     y = _layer(ops, x, col_bias, self_p, img, cross_p, ffn_q_p, ffn_t_p,

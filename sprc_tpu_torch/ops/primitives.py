@@ -23,7 +23,9 @@ kernels, all in ``csrc/``:
   re-quantising epilogues (``csrc/gemm_i8.cu``, cut as
   :func:`schedules.gemm_i8_plan` says);
 - ``quantize_static`` / ``quantize_rows``: activations to int8 codes with one
-  calibrated scale, or with a scale per row (``csrc/quantize.cu``).
+  calibrated scale, or with a scale per row (``csrc/quantize.cu``: a 16-byte
+  stream, and a warp a row; cut as :func:`schedules.quantize_static_plan` and
+  :func:`schedules.quantize_rows_plan` say).
 
 Each comes in two forms with one signature: ``CUDA`` launches the kernel
 (and only takes CUDA tensors), ``PLAIN`` is the same math in plain PyTorch
@@ -415,7 +417,9 @@ gemm_i8_cuda.launches = 0
 
 
 def quantize_static_cuda(x: Tensor, act_scale: float) -> Tensor:
-    """:func:`quant.quantize_static` as a kernel (``csrc/quantize.cu``)."""
+    """:func:`quant.quantize_static` as a kernel (``csrc/quantize.cu``, cut as
+    :func:`schedules.quantize_static_plan` says). ``quantize_static_cuda.
+    launches`` counts the kernel's launches."""
     dt = _check("quantize_static", x)
     if not x.is_contiguous():
         raise ValueError("quantize_static: contiguous input")
@@ -423,21 +427,32 @@ def quantize_static_cuda(x: Tensor, act_scale: float) -> Tensor:
     _ext.check(_ext.library().sprc_quantize_static(
         x.data_ptr(), y.data_ptr(), x.numel(), ctypes.c_float(1.0 / act_scale), dt, _stream()),
         "quantize_static")
+    quantize_static_cuda.launches += 1
     return y
 
 
+quantize_static_cuda.launches = 0
+
+
 def quantize_rows_cuda(x: Tensor):
-    """:func:`quant.quantize_rows` as a kernel: (codes like x, scales x.shape[:-1])."""
+    """:func:`quant.quantize_rows` as a kernel (``csrc/quantize.cu``, a warp a
+    row, read as :func:`schedules.quantize_rows_plan` says): (codes like x,
+    scales x.shape[:-1]). ``quantize_rows_cuda.launches`` counts the kernel's
+    launches."""
     dt = _check("quantize_rows", x)
     W = x.shape[-1]
-    if not x.is_contiguous() or W < 1:
-        raise ValueError("quantize_rows: contiguous rows")
+    if not x.is_contiguous() or not 1 <= W <= schedules.QUANT_MAX_W:
+        raise ValueError(f"quantize_rows: contiguous rows of 1 to {schedules.QUANT_MAX_W}")
     y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
     _ext.check(_ext.library().sprc_quantize_rows(
         x.data_ptr(), y.data_ptr(), scales.data_ptr(), x.numel() // W, W, dt, _stream()),
         "quantize_rows")
+    quantize_rows_cuda.launches += 1
     return y, scales
+
+
+quantize_rows_cuda.launches = 0
 
 
 PLAIN = types.SimpleNamespace(gemm=gemm_plain, attention=attention_plain,

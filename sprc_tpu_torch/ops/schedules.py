@@ -501,6 +501,34 @@ LN_WIDTHS = (768, 1024, 1408)  # the widths built as template parameters
 LN_MAX_W = 4096              # the generic instantiation's largest row
 
 
+def _warp_row_plan(name: str, W: int, elt: int, aligned: bool, widths: tuple, max_w: int) -> dict:
+    """How a warp-a-row kernel (``csrc/layernorm.cu``, ``csrc/quantize.cu``'s
+    rows kernel) reads a row of ``W`` elements of ``elt`` bytes, given the
+    widths it is built for as template parameters and its widest row."""
+    if not 1 <= W <= max_w:
+        raise ValueError(f"{name}: rows of 1 to {max_w} elements, got {W}")
+    if elt not in (2, 4):
+        raise ValueError(f"{name}: bf16 or fp32 rows, got {elt}-byte elements")
+    per16 = 16 // elt
+    vec = per16 if aligned and W % per16 == 0 else 1
+    step = 32 * vec
+    loads = _ceil_div(W, step)
+    width = W if vec > 1 and W in widths else "generic"
+    compiled = _ceil_div(W if width != "generic" else max_w, step)
+    return {"vec": vec, "width": width, "step": step, "loads": loads,
+            "registers": compiled * vec, "tail_lanes": _ceil_div(W - (loads - 1) * step, vec),
+            "values_per_lane": W / 32}
+
+
+def _warp_row_lanes(plan: dict, W: int) -> Tensor:
+    vec, step = plan["vec"], plan["step"]
+    lane = torch.arange(32)[:, None, None]
+    c = torch.arange(plan["loads"])[None, :, None]
+    e = torch.arange(vec)[None, None, :]
+    idx = (c * step + lane * vec + e).reshape(32, -1)
+    return torch.where(idx < W, idx, torch.full_like(idx, -1))
+
+
 def layer_norm_plan(W: int, elt: int, aligned: bool = True) -> dict:
     """How ``csrc/layernorm.cu`` reads a row of ``W`` elements of ``elt``
     bytes: ``vec`` elements a lane loads at once (16 bytes where the row is
@@ -509,31 +537,13 @@ def layer_norm_plan(W: int, elt: int, aligned: bool = True) -> dict:
     other W <= 4096), ``loads`` a lane makes (the last one masked on the
     lanes past the row's end: ``tail_lanes`` of them take part), ``registers``
     the fp32 values a lane holds, and ``values_per_lane`` W / 32."""
-    if not 1 <= W <= LN_MAX_W:
-        raise ValueError(f"layer_norm: rows of 1 to {LN_MAX_W} elements, got {W}")
-    if elt not in (2, 4):
-        raise ValueError(f"layer_norm: bf16 or fp32 rows, got {elt}-byte elements")
-    per16 = 16 // elt
-    vec = per16 if aligned and W % per16 == 0 else 1
-    step = 32 * vec
-    loads = _ceil_div(W, step)
-    width = W if vec > 1 and W in LN_WIDTHS else "generic"
-    compiled = _ceil_div(W if width != "generic" else LN_MAX_W, step)
-    return {"vec": vec, "width": width, "step": step, "loads": loads,
-            "registers": compiled * vec, "tail_lanes": _ceil_div(W - (loads - 1) * step, vec),
-            "values_per_lane": W / 32}
+    return _warp_row_plan("layer_norm", W, elt, aligned, LN_WIDTHS, LN_MAX_W)
 
 
 def layer_norm_lanes(W: int, elt: int, aligned: bool = True) -> Tensor:
     """[32, loads * vec] element index per lane in the order the lane sums
     them (-1 past the row's end)."""
-    plan = layer_norm_plan(W, elt, aligned)
-    vec, step = plan["vec"], plan["step"]
-    lane = torch.arange(32)[:, None, None]
-    c = torch.arange(plan["loads"])[None, :, None]
-    e = torch.arange(vec)[None, None, :]
-    idx = (c * step + lane * vec + e).reshape(32, -1)
-    return torch.where(idx < W, idx, torch.full_like(idx, -1))
+    return _warp_row_lanes(layer_norm_plan(W, elt, aligned), W)
 
 
 def _warp_sum(part: Tensor) -> Tensor:
@@ -577,3 +587,82 @@ def layer_norm_emulated(x: Tensor, w: Tensor, b: Tensor, eps: float,
     if out_scale is not None:
         return torch.clamp(torch.round(y * (1.0 / out_scale)), -127, 127).to(torch.int8)
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------- quantizers
+
+QUANT_WIDTHS = (768, 1024, 1408, 3072)  # quantize_rows' widths built as template parameters
+QUANT_MAX_W = 4096                     # the widest row quantize_rows takes
+QUANT_ROWS_WARPS = 4                   # rows (warps) a block of quantize_rows
+QUANT_STATIC_THREADS = 256             # threads a block of quantize_static
+QUANT_STATIC_UNROLL = 4                # 16-byte loads a thread of it has in flight
+QUANT_STATIC_BLOCKS_PER_SM = 4         # its blocks an SM, all resident
+
+
+def quantize_static_plan(n: int, elt: int, aligned: bool = True, sms: int = H100_SMS,
+                         blocks_per_sm: int = QUANT_STATIC_BLOCKS_PER_SM) -> dict:
+    """How ``csrc/quantize.cu`` streams ``n`` values of ``elt`` bytes through
+    ``quantize_static``: ``vec`` values a load (16 bytes where ``n`` is a
+    whole number of 16-byte loads and input and output are aligned, else 1),
+    ``loads`` in all, ``threads`` a block, ``unroll`` loads a thread issues
+    before it uses one, ``blocks`` (``sms`` x ``blocks_per_sm``, all resident
+    at once; fewer where the tensor is smaller) and ``steps`` of a thread's
+    loop, the last one masked."""
+    if elt not in (2, 4):
+        raise ValueError(f"quantize_static: bf16 or fp32 values, got {elt}-byte elements")
+    per16 = 16 // elt
+    vec = per16 if aligned and n % per16 == 0 else 1
+    loads = n // vec
+    per_block = QUANT_STATIC_THREADS * QUANT_STATIC_UNROLL
+    blocks = min(_ceil_div(loads, per_block), sms * blocks_per_sm)
+    return {"vec": vec, "loads": loads, "threads": QUANT_STATIC_THREADS,
+            "unroll": QUANT_STATIC_UNROLL, "blocks": blocks,
+            "steps": _ceil_div(loads, blocks * per_block) if blocks else 0}
+
+
+def quantize_static_loads(n: int, elt: int, aligned: bool = True, **kw) -> Tensor:
+    """[threads of the grid, steps x unroll, vec]: the element index each
+    thread of :func:`quantize_static_plan` converts, in its order (-1 where
+    its load is masked)."""
+    plan = quantize_static_plan(n, elt, aligned, **kw)
+    T = plan["blocks"] * plan["threads"]
+    t = torch.arange(T)[:, None, None]
+    k = torch.arange(plan["steps"] * plan["unroll"])[None, :, None]
+    e = torch.arange(plan["vec"])[None, None, :]
+    load = t + k * T  # the thread's u-th load of step s is t + (s * unroll + u) * T
+    idx = (load * plan["vec"] + e).reshape(T, -1)
+    return torch.where((load < plan["loads"]).expand(-1, -1, plan["vec"]).reshape(T, -1), idx,
+                       torch.full_like(idx, -1))
+
+
+def quantize_rows_plan(W: int, elt: int, aligned: bool = True, rows: int = 1) -> dict:
+    """How ``csrc/quantize.cu`` reads a row for ``quantize_rows``: the keys of
+    :func:`layer_norm_plan` (the same warp-a-row walk, built for
+    :data:`QUANT_WIDTHS`), ``rows_per_block`` and the ``blocks`` of a call
+    over ``rows`` rows."""
+    plan = _warp_row_plan("quantize_rows", W, elt, aligned, QUANT_WIDTHS, QUANT_MAX_W)
+    return {**plan, "rows_per_block": QUANT_ROWS_WARPS,
+            "blocks": _ceil_div(rows, QUANT_ROWS_WARPS)}
+
+
+def quantize_rows_emulated(x: Tensor) -> tuple:
+    """``quant.quantize_rows``'s function computed as the kernel walks a
+    row: each lane takes the |max| of its loads (:func:`quantize_rows_plan`,
+    16-byte chunks, the tail masked), the 32 lane maxima meet in the xor
+    butterfly of ``sprc::warp_max``, ``sc = max(amax, 1e-8) * f32(1 / 127)``,
+    and each value's code is ``clip(rint(x / sc))`` from the same lane's
+    chunk. x [.., W] -> (int8 [.., W], sc [..])."""
+    W = x.shape[-1]
+    v = x.float().reshape(-1, W)
+    idx = _warp_row_lanes(quantize_rows_plan(W, x.element_size()), W)
+    valid = idx >= 0
+    vals = torch.where(valid, v[:, idx.clamp(min=0)], torch.zeros((), dtype=torch.float32))
+    part = vals.abs().amax(-1)  # [rows, 32]: each lane's |max| (0 on a masked load)
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        part = torch.maximum(part, part[:, lane ^ o])
+    sc = part[:, :1].clamp_min(1e-8) * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    codes = torch.clamp(torch.round(vals / sc[:, :, None]), -127, 127).to(torch.int8)
+    out = torch.zeros_like(v, dtype=torch.int8)
+    out[:, idx[valid]] = codes[:, valid]
+    return out.reshape(x.shape), sc.reshape(x.shape[:-1])
