@@ -34,8 +34,12 @@ Phases (any failure raises and exits nonzero before the last line):
    at both head dims on strided packed views, BSHD tensors and with a column
    bias that masks a whole row, the LayerNorm over ragged widths and row
    counts in its three modes, both quantisers over ragged rows and widths,
-   unaligned views, zero rows, clipped values and exact ties; and the host
-   side of one call of each GEMM;
+   unaligned views, zero rows, clipped values and exact ties, K1 over ragged
+   query batches, galleries, token counts and depths (within 1e-5, a copied
+   item tied bit for bit, NaN and infinities where the plain version gives
+   them, and one gallery of 262,145 items, past 2^31 elements); and the host
+   side of one call of each GEMM (K1's line in the kernels JSON times the
+   wrapper, as every other's);
 4. main path: the full-width blip2_cir_align_prompt / pretrain_vitL model
    (random weights from seed 0, synthetic BERT vocab) encodes a 512-image
    synthetic gallery through RetrievalEngine.build_index (encode_batch 64),

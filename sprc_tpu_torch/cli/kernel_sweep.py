@@ -1,9 +1,10 @@
 """The kernels redesigned for Hopper alone on the card: the bf16 GEMM, the s8
-GEMM, the true-fp32 GEMM, the bf16 and fp32 attention, the LayerNorm and the
-two activation quantisers.
+GEMM, the true-fp32 GEMM, the bf16 and fp32 attention, the LayerNorm, the
+two activation quantisers and K1 (token-max similarity).
 
     python -m sprc_tpu_torch.cli.kernel_sweep
-        [--only gemm|gemm_i8|gemm_f32|attention|attention_f32|layernorm|quantize] [--no-times]
+        [--only gemm|gemm_i8|gemm_f32|attention|attention_f32|layernorm|quantize|sim]
+        [--no-times] [--baseline-sim SRC ...]
 
 Builds the kernel library, prints what ``ptxas -v`` said about those kernels
 (registers, shared memory, spills), holds them against their plain versions
@@ -15,7 +16,11 @@ same function (``F.linear``, ``torch._int_mm``,
 LayerNorm rows also with both sides' device times from ``torch.profiler`` and
 the names of the kernels SDPA ran; the quantisers, which no one PyTorch call
 computes, by their device times at every call of ``kernel_checks.QUANT_CALLS``
-with the instantiation each call takes): one JSON line per check, with the
+with the instantiation each call takes; K1 at the galleries of
+``kernel_checks.SIM_SWEEP`` by its device time, beside ``F.linear`` + ``amax``
+and, with ``--baseline-sim``, other ``token_max_sim.cu`` files built alone from
+SRC ... and timed on the same inputs; then the card's ``mma.sync`` tf32 rate,
+``csrc/probes/mma_tf32_rate.cu``): one JSON line per check, with the
 achieved TFLOP/s or TOP/s and the share of the card's bound for each
 product, every tile the kernel is built with side by side (whatever its plan
 would choose), and the host cost of one call of each GEMM. Ends with the
@@ -36,7 +41,7 @@ import torch
 
 
 KERNELS = ("gemm_bf16", "gemm_i8", "gemm_f32", "attention_bf16", "attention_f32", "layernorm",
-           "quantize")
+           "quantize", "token_max_sim", "mma_tf32_rate")
 
 
 def ptxas_report(log_text: str) -> list:
@@ -163,11 +168,63 @@ def time_f32_tiles(device: str) -> list:
     return rows
 
 
+def baseline_sim(src: str, index: int):
+    """Another ``token_max_sim.cu`` (its C entry ``sprc_token_max_sim`` with
+    the same signature; e.g. the parent commit's) built alone with the
+    library's flags; prints its ``ptxas`` report and returns that C entry."""
+    from sprc_tpu_torch.ops import _ext
+
+    name = "sprc_token_max_sim"
+    lib, log = _ext.build_alone(src, f"baseline_sim{index}", {name: _ext._SIGNATURES[name]})
+    for row in ptxas_report(log):
+        print(json.dumps({"baseline": src, **row}), flush=True)
+    return getattr(lib, name)
+
+
+def mma_tf32_rate(device: str) -> list:
+    """The card's issue rate of ``mma.sync.m16n8k8`` tf32
+    (``csrc/probes/mma_tf32_rate.cu``: nothing but the products, into 4 or 8
+    independent accumulators a warp) at 8 warps a block and 2 or 4 blocks an
+    SM (K1's 2 x 8 among them): products a microsecond, TFLOP/s (2,048
+    operations a product) and the share of the card's TF32 rate."""
+    import ctypes
+
+    from sprc_tpu_torch import kernel_checks as kc
+    from sprc_tpu_torch.ops import _ext
+
+    src = _ext.CSRC / "probes" / "mma_tf32_rate.cu"
+    lib, log = _ext.build_alone(src, "probe_mma_tf32",
+                                {"sprc_probe_mma_tf32": [ctypes.c_void_p] + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p]})
+    for row in ptxas_report(log):
+        print(json.dumps(row), flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    rows, warps, iters = [], 8, 4096
+    for per_sm, acc in ((2, 8), (2, 4), (4, 8)):
+        blocks = sms * per_sm
+        out = torch.empty(blocks * warps * 32, device=device)
+
+        def launch():
+            _ext.check(lib.sprc_probe_mma_tf32(out.data_ptr(), blocks, warps, iters, acc, stream),
+                       "mma_tf32_rate")
+        ms = kc.cuda_ms(launch, iters=5)
+        mma = blocks * warps * iters * acc
+        rows.append({"check": "mma.sync m16n8k8 tf32 rate", "blocks_per_sm": per_sm,
+                     "warps_per_block": warps, "accumulators_per_warp": acc, "ms": ms,
+                     "mma_per_us": mma / (ms * 1e3), "tflops": mma * 2048 / ms / 1e9,
+                     "share_of_tf32_peak": mma * 2048 / (ms * 1e-3) / kc.PEAK_OPS["tf32"]})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None, choices=(
-        "gemm", "gemm_i8", "gemm_f32", "attention", "attention_f32", "layernorm", "quantize"))
+        "gemm", "gemm_i8", "gemm_f32", "attention", "attention_f32", "layernorm", "quantize",
+        "sim"))
     ap.add_argument("--no-times", action="store_true", help="the checks of rightness only")
+    ap.add_argument("--baseline-sim", nargs="+", default=(), metavar="SRC",
+                    help="token_max_sim.cu files (same C entry) to build alone and time beside K1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: needs an NVIDIA GPU")
@@ -214,6 +271,9 @@ def main(argv=None) -> int:
         run("layer_norm edges", kc.check_layer_norm_edges, dev)
     if on("quantize"):
         run("quantizer edges", kc.check_quantizer_edges, dev)
+    if on("sim"):
+        run("token_max_sim edges", kc.check_token_max_sim_edges, dev)
+        run("token_max_sim plan", kc.check_token_max_sim_plan, dev)
     if not args.no_times:
         if on("gemm"):
             run("gemm bf16 ablate 4096^3", kc.check_gemm_bf16_ablate, dev)
@@ -252,6 +312,13 @@ def main(argv=None) -> int:
             for row in kc.run_quantize(dev):
                 rows.append(row)
                 print(json.dumps(row), flush=True)
+        if on("sim"):
+            baseline = {src: baseline_sim(src, i) for i, src in enumerate(args.baseline_sim)}
+            for row in kc.run_token_max_sim_sweep(dev, baseline):
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+            for row in mma_tf32_rate(dev):
+                print(json.dumps(row), flush=True)
     for row in rows:
         if "ms" in row:
             bound = kc.bound_ms(row)
@@ -264,7 +331,12 @@ def main(argv=None) -> int:
                               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
                               "share_of_bound": bound["bound_ms"] / row["ms"],
                               "device_share_of_bound": bound["bound_ms"] / row["device_ms"]
-                              if row.get("device_ms") else None}), flush=True)
+                              if row.get("device_ms") else None,
+                              **{k: row[k] for k in ("plain_device_ms", "baseline_ms",
+                                                     "yardstick_ms", "tf32x3_ms") if k in row},
+                              **({"mma_per_us": row["mma"] / (row["device_ms"] * 1e3)}
+                                 if "mma" in row else {})}),
+                  flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)

@@ -1,7 +1,7 @@
 """Where the serving path's time goes on one GPU.
 
     python -m sprc_tpu_torch.cli.profile_serving [--model-type pretrain|pretrain_vitL]
-        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--out DIR]
+        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N] [--out DIR]
 
 Builds ``blip2_cir_align_prompt`` / ``--model-type`` (``pretrain_vitL``: CLIP
 ViT-L, the default; ``pretrain``: EVA ViT-g) at full width with random
@@ -9,8 +9,9 @@ weights from seed 0, the tower on the route that ``--fused-block`` and
 ``--fused-mlp`` name (``ViTConfig.fused_block`` / ``fused_mlp``; the default
 is the whole-block kernel), and takes one encode batch (64 images, 224 px,
 as the engine's ``encode_batch``) and one query batch (32 composed queries,
-the engine's ``query_batch``, scored against 512 random unit target
-features). For each it reports:
+the engine's ``query_batch``, scored against ``--gallery`` random unit
+target features, 512 by default; 123,403 is CIRCO's gallery). For each it
+reports:
 
 - wall ms (CUDA-synchronised, median of 5 runs) of the kernel path
   and of the all-plain path (``primitives.plain_reference``), and for the
@@ -22,7 +23,8 @@ features). For each it reports:
   batch over its median wall time), the bf16 GEMM rate of the tower (its
   dense FLOPs, 2 R (4 W^2 + 2 W M) per block with R = batch x 257 rows and M
   the MLP width, over the bf16 GEMM time) and the fp32 GEMM rate of the
-  queries pass (its dense FLOPs over the fp32 GEMM time).
+  queries pass (its dense FLOPs over the fp32 GEMM time), and the query
+  batch's share of device time in K1 (``token_max_sim_share``).
 
 With ``--int8`` the model is the int8 serving configuration (the tower's
 activation scales calibrated on 16 seeded images, ``vit_quant="int8_static"``,
@@ -119,11 +121,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--fused-mlp", action="store_true",
                     help="the MLP half through fused_mlp_block (ViTConfig.fused_mlp)")
     ap.add_argument("--int8", action="store_true", help="the int8 serving configuration")
+    ap.add_argument("--gallery", type=int, default=GALLERY,
+                    help="items the query batch is scored against (default 512)")
     args = ap.parse_args(argv)
     suffix = "".join(f"_{part}" for part, on in (
         (args.model_type, args.model_type != "pretrain_vitL"),
         (args.fused_block, args.fused_block != "block"), ("mlp", args.fused_mlp),
-        ("int8", args.int8)) if on)
+        ("int8", args.int8), (f"gallery{args.gallery}", args.gallery != GALLERY)) if on)
     args.out = args.out or "sprc_tpu_torch/_build/profile" + suffix
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
@@ -151,7 +155,7 @@ def main(argv=None) -> dict:
         frozen = model.encode_image(images)
         refs = frozen[torch.arange(QB, device=dev) % EB].contiguous()
         targets = l2_normalize(torch.from_numpy(rng.standard_normal(
-            (GALLERY, cfg.num_query_token, cfg.embed_dim), dtype=np.float32)).to(dev))
+            (args.gallery, cfg.num_query_token, cfg.embed_dim), dtype=np.float32)).to(dev))
     ids = torch.from_numpy(rng.integers(1000, cfg.vocab_size, (QB, L)).astype(np.int64)).to(dev)
     lengths = rng.integers(4, L + 1, QB)
     mask = torch.from_numpy((np.arange(L)[None] < lengths[:, None]).astype(np.int64)).to(dev)
@@ -166,7 +170,7 @@ def main(argv=None) -> dict:
               "fused_block": args.fused_block, "fused_mlp": args.fused_mlp, "int8": args.int8,
               "vit_act_scales": model.cfg.vit_act_scales,
               "encode_batch": EB, "query_batch": QB,
-              "gallery": GALLERY, "repeats": REPEATS, "wall_ms": {}}
+              "gallery": args.gallery, "repeats": REPEATS, "wall_ms": {}}
     for mode, ctx in (("kernels", contextlib.nullcontext), ("plain", primitives.plain_reference)):
         with torch.inference_mode(), ctx():
             result["wall_ms"][mode] = {k: _wall_ms(fn) for k, fn in steps.items()}
@@ -175,6 +179,9 @@ def main(argv=None) -> dict:
             result[name] = _profile(steps[name], name, args.out)
     flops = 2 * EB * vcfg.seq_len * (4 * vcfg.width ** 2
                                      + 2 * vcfg.width * vcfg.mlp_hidden) * vcfg.depth
+    query = result["query"]
+    query["token_max_sim_share"] = (query["device_ms_by_group"].get("token-max sim", 0.0)
+                                    / query["device_ms"])
     result["encode"]["tower_dense_tflop"] = flops / 1e12
     result["encode"]["imgs_per_s"] = EB / (result["wall_ms"]["kernels"]["encode"] * 1e-3)
     # the queries pass's dense operations: the int8 GEMM group also holds them,

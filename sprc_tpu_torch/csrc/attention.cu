@@ -100,6 +100,7 @@
 //   call, 52 KB for 64 x 64, 44 KB for 32 x 257, 83 KB for 257 x 257 at D =
 //   88.
 #include "common.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -135,45 +136,9 @@ __device__ __forceinline__ void load_f32_async(float* dst, const float* src, lon
   }
 }
 
-// x as a TF32 "big" part (round to nearest, ties away: the low 13 bits of
-// the mantissa cleared) and the TF32 rounding of what is left; x - big is
-// exact in fp32, and big + small is x to about 2^-22 of itself
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(__fsub_rn(x, __uint_as_float(big))));
-}
-
-// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in, fp32 out. Per thread (g =
-// lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g +
-// 8, t + 4); b0 (k = t, n = g), b1 (k = t + 4, n = g); c0 c1 (g, 2t..), c2
-// c3 (g + 8, 2t..)
-__device__ __forceinline__ void mma_1688_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                              uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment a split once for the products it takes part in
-struct SplitA {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(a[i], big[i], small[i]);
-  }
-};
-
-// c += a . b in 3xTF32: the small parts' products first, big . big last
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a, float b0, float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split_tf32(b0, bb0, bs0);
-  split_tf32(b1, bb1, bs1);
-  mma_1688_tf32(c, a.small, bb0, bb1);
-  mma_1688_tf32(c, a.big, bs0, bs1);
-  mma_1688_tf32(c, a.big, bb0, bb1);
-}
+// the 3xTF32 helpers of tf32.cuh (shared with csrc/token_max_sim.cu)
+using sprc::mma_3xtf32;
+using sprc::SplitA;
 
 // warps of a block for Sq query rows (ops/schedules.py::attention_f32_plan):
 // all of a head's rows up to 4 warp tiles of 16, else the fewest blocks of at

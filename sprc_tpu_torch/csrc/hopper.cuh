@@ -1,6 +1,8 @@
-// Hopper building blocks of the bf16 and s8 GEMMs: the warpgroup matrix
+// Hopper building blocks of the bf16 and s8 GEMMs and the token-max
+// similarity: the warpgroup matrix
 // products (wgmma.mma_async, bf16 -> fp32 and s8 -> s32), their fences,
-// shared-memory matrix descriptors, mbarriers, the TMA tile load and store and
+// shared-memory matrix descriptors, mbarriers, the TMA tile load and store, the
+// 1-d bulk copy and
 // setmaxnreg (inline PTX for sm_90a only); and on the host, the TMA tensor maps
 // the kernels are launched with.
 #pragma once
@@ -53,6 +55,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // --------------------------------------------------------------------- TMA
+
+// `bytes` contiguous bytes of device memory into shared memory (a 1-d bulk
+// copy: both addresses 16-byte aligned, `bytes` a multiple of 16); completion
+// lands on `bar` as bytes
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(smem_u32(bar))
+      : "memory");
+}
 
 // one box of a 2-d tensor map into shared memory; c0 is the coordinate along
 // the contiguous dim, c1 along the rows; completion lands on `bar` as bytes.

@@ -19,7 +19,7 @@ little; held stage by stage they cannot drift, and each stage is held as
 tightly as the primitive alone (:data:`STAGE_BOUNDS`).
 
 The kernels redesigned for Hopper (the bf16, s8 and fp32 GEMMs, the bf16 and
-fp32 attention, the LayerNorm and the two quantisers) are also run over
+fp32 attention, the LayerNorm, the two quantisers and K1) are also run over
 ragged shapes (:func:`run_edges`): a fault at a tile edge shows only there,
 not at the towers' shapes.
 
@@ -33,7 +33,8 @@ itself never makes that call. The fp32 attention and LayerNorm rows also
 carry ``device_ms`` / ``library_device_ms``: the kernels' own time from
 ``torch.profiler`` (:func:`device_ms`), which a loop through a Python wrapper
 hides where the host's cost of a call exceeds its kernel; the quantisers'
-rows (:func:`check_quantize`) take it as their ``ms``.
+rows (:func:`check_quantize`) take it as their ``ms``, and K1's
+(:func:`check_token_max_sim`) carry it beside the wrapper loop's ``ms``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ ENCODE_BATCH, QUERY_BATCH, GALLERY = 64, 32, 512
 
 # NVIDIA H100 SXM data sheet, dense rates: operations per second by type, and
 # bytes per second of HBM3
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "fp32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -209,26 +210,209 @@ class StageRecorder:
 # ------------------------------------------------------------------- K1
 
 
-def check_token_max_sim(device="cuda", B=QUERY_BATCH, N=GALLERY, Q=32, E=256, seed=0) -> dict:
-    """fp32 throughout: atol 1e-4 and the same top-10 order per query."""
+def _unit(r: _Rand, *shape) -> torch.Tensor:
+    """L2-normalised rows, as the model's projections emit them."""
+    return torch.nn.functional.normalize(r.normal(*shape), dim=-1)
+
+
+def _sim_yardstick(f: torch.Tensor, t: torch.Tensor) -> Callable[[], object]:
+    """``F.linear`` over the gallery's tokens, then ``amax``: two PyTorch
+    calls, a yardstick beside K1, not a library call computing its function."""
+    flat = t.view(-1, t.shape[-1])
+    return lambda: torch.nn.functional.linear(f, flat).view(f.shape[0], t.shape[0], -1).amax(-1)
+
+
+def check_token_max_sim(device="cuda", B=QUERY_BATCH, N=GALLERY, Q=32, E=256, seed=0,
+                        baseline=None, plain=True) -> dict:
+    """K1 in fp32 against its plain version: atol 1e-4 and the same top-10
+    order per query (and 1e-5, the edge check's bound, reported as
+    ``within_1e-5``). ``ms`` and ``plain_ms`` are loops through the wrapper
+    and the plain version timed with CUDA events, as every other kernel's
+    row; ``device_ms`` and ``plain_device_ms`` their device times
+    (:func:`device_ms`: at small galleries the host's cost of a call, about
+    30 us, exceeds the kernel's, and the loop times the host);
+    ``tf32x3_ms`` the products' time at the card's TF32 rate, three products
+    each (what the tensor cores must do in 3xTF32: a tighter operations
+    bound than ``op_seconds``' fp32 rate); beside them the device time of
+    ``F.linear`` + ``amax`` in fp32 (``yardstick_ms``; two calls, so
+    ``library_ms`` stays null) and, for each entry of ``baseline``
+    (name -> a C entry with ``sprc_token_max_sim``'s signature), that
+    kernel's device time and its difference from K1 on the same inputs
+    (``baseline_ms``, ``baseline_max_abs_err``: dicts by name).
+    ``plain=False`` skips the plain version's time (its ``[B, N, Q]``
+    product at the largest galleries)."""
     r = _Rand(device, seed)
-    f = torch.nn.functional.normalize(r.normal(B, E), dim=-1)
-    t = torch.nn.functional.normalize(r.normal(N, Q, E), dim=-1)
+    f = _unit(r, B, E)
+    t = _unit(r, N, Q, E)
     with torch.inference_mode():
         got = token_max_sim(f, t)
         want = token_max_sim_plain(f, t)
         torch.cuda.synchronize()
         row = _errors(got, want)
-        top_k = torch.sort(got, dim=-1, descending=True, stable=True).indices[:, :10]
-        top_p = torch.sort(want, dim=-1, descending=True, stable=True).indices[:, :10]
+        k = min(10, N)
+        top_k = torch.sort(got, dim=-1, descending=True, stable=True).indices[:, :k]
+        top_p = torch.sort(want, dim=-1, descending=True, stable=True).indices[:, :k]
         row["top10_equal"] = bool(torch.equal(top_k, top_p))
+        del want
         row["ms"] = cuda_ms(lambda: token_max_sim(f, t))
-        row["plain_ms"] = cuda_ms(lambda: token_max_sim_plain(f, t))
+        row["device_ms"], row["device_kernels"] = device_ms(lambda: token_max_sim(f, t))
+        row["plain_ms"] = cuda_ms(lambda: token_max_sim_plain(f, t)) if plain else None
+        row["plain_device_ms"] = device_ms(lambda: token_max_sim_plain(f, t))[0] if plain else None
+        row["yardstick_ms"] = device_ms(_sim_yardstick(f, t))[0]
+        stream = torch.cuda.current_stream().cuda_stream
+        for name, entry in (baseline or {}).items():
+            out = torch.empty_like(got)
+
+            def other(entry=entry, out=out):
+                code = entry(f.data_ptr(), t.data_ptr(), out.data_ptr(), B, N, Q, E, stream)
+                if code:
+                    raise RuntimeError(f"{name}: cudaError {code}")
+            other()
+            torch.cuda.synchronize()
+            row.setdefault("baseline_max_abs_err", {})[name] = (out - got).abs().max().item()
+            row.setdefault("baseline_ms", {})[name] = device_ms(other)[0]
+    row["library_ms"] = None
+    row["within_1e-5"] = row["max_abs_err"] <= 1e-5
     row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4 and row["top10_equal"]
+    row["plan"] = plan = schedules.token_max_sim_plan(B, N, Q, E)
+    # the kernel's mma.sync m16n8k8: 3 a k-step for each m16 and n8 tile
+    row["mma"] = 3 * plan["ksteps"] * plan["mtiles"] * -(-Q // 8) * plan["tiles"] * N
     row["shape"] = f"B={B} N={N} Q={Q} E={E} fp32"
     row["bytes"] = 4 * (B * E + N * Q * E + B * N)
     row["op_seconds"] = 2 * B * N * Q * E / PEAK_OPS["fp32"]
+    row["tf32x3_ms"] = 3 * 2 * B * N * Q * E / PEAK_OPS["tf32"] * 1e3
     return row
+
+
+# the edge check's shapes: query batches around the 32-row tile, galleries
+# from one item to CIRR val's, token counts around the n8 tiles, depths from
+# one ragged k-step to the widest
+SIM_EDGE_B = (1, 17, 32, 33, 128)
+SIM_EDGE_N = (1, 7, 129, 2297)
+SIM_EDGE_Q = (1, 8, 31, 32)
+SIM_EDGE_E = (4, 128, 256, 512)
+SIM_PAST_INT32 = 262145  # N Q E >= 2^31 at Q = 32, E = 256
+
+
+def _nan_equal(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(NaN and each infinity where and only where plain has them, worst
+    |difference| elsewhere)."""
+    inf = torch.isinf(want)
+    same = (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf]))
+    d = (got - want).abs().masked_fill(~torch.isfinite(want), 0.0)
+    return same, d.max().item()
+
+
+def check_token_max_sim_edges(device="cuda", seed=27) -> dict:
+    """K1 against its plain version over :data:`SIM_EDGE_B` x
+    :data:`SIM_EDGE_N` x :data:`SIM_EDGE_Q` x :data:`SIM_EDGE_E` on
+    L2-normalised inputs, within 1e-5 absolute; in each gallery of two items
+    or more, the last item a copy of the first (their scores tie bit for bit,
+    so the stable top-k keeps gallery order); at B = 33 and N = 129, a NaN in
+    one query row and in one token of one item (NaN exactly where ``amax``
+    gives it: that row and that item), then infinities: -inf in one token
+    of item 23 at a depth every query row holds positive (those scores -inf:
+    the item's score is its other tokens' max), +inf in one token of item 41
+    and -inf in query row 9 (plus or minus inf, or NaN, exactly where the
+    plain version gives them); and one launch at N = 262,145, Q = 32, E =
+    256 (N Q E >= 2^31: 8.6 GB of gallery)."""
+    r = _Rand(device, seed)
+    bad, cases, worst = [], 0, 0.0
+
+    def hold(what, got, want):
+        nonlocal cases, worst
+        cases += 1
+        same, err = _nan_equal(got, want)
+        worst = max(worst, err)
+        if not same or err > 1e-5 or got.shape != want.shape:
+            bad.append(f"{what}: NaN where plain has it {same}, max_abs {err:.2e}")
+
+    with torch.inference_mode():
+        for E in SIM_EDGE_E:
+            for Q in SIM_EDGE_Q:
+                for N in SIM_EDGE_N:
+                    t = _unit(r, N, Q, E)
+                    if N > 1:
+                        t[N - 1] = t[0]
+                    for B in SIM_EDGE_B:
+                        f = _unit(r, B, E)
+                        got = token_max_sim(f, t)
+                        hold(f"B={B} N={N} Q={Q} E={E}", got, token_max_sim_plain(f, t))
+                        if N > 1 and not torch.equal(got[:, 0], got[:, N - 1]):
+                            bad.append(f"B={B} N={N} Q={Q} E={E}: a copied item does not tie")
+                        if B == 33 and N == 129:
+                            fn, tn = f.clone(), t.clone()
+                            fn[5, E // 2] = float("nan")
+                            tn[17, Q - 1, 0] = float("nan")
+                            hold(f"NaN B={B} N={N} Q={Q} E={E}", token_max_sim(fn, tn),
+                                 token_max_sim_plain(fn, tn))
+                            fi, ti = f.clone(), t.clone()
+                            fi[:, 0] = fi[:, 0].abs()
+                            ti[23, 0, 0] = -float("inf")
+                            ti[41, Q - 1, E - 1] = float("inf")
+                            fi[9, E // 2] = -float("inf")
+                            hold(f"inf B={B} N={N} Q={Q} E={E}", token_max_sim(fi, ti),
+                                 token_max_sim_plain(fi, ti))
+        f = _unit(r, QUERY_BATCH, 256)
+        t = _unit(r, SIM_PAST_INT32, 32, 256)
+        hold(f"B=32 N={SIM_PAST_INT32} Q=32 E=256", token_max_sim(f, t), token_max_sim_plain(f, t))
+        del t
+        torch.cuda.synchronize()
+    return {"ok": not bad, "finite": True, "max_abs_err": worst, "mean_abs_err": 0.0,
+            "shape": (f"{cases} cases: B {SIM_EDGE_B} x N {SIM_EDGE_N} x Q {SIM_EDGE_Q} x E "
+                      f"{SIM_EDGE_E}, a copied item in each gallery, NaN and inf at B=33 N=129, "
+                      f"N={SIM_PAST_INT32}: within 1e-5, ties exact"
+                      + (f"; FAILED ({len(bad)}): {bad[:8]}" if bad else ""))}
+
+
+def check_token_max_sim_plan(device="cuda") -> dict:
+    """The C entry's plan (``sprc_token_max_sim_plan``) against
+    ``schedules.token_max_sim_plan`` at every shape of :data:`SIM_SWEEP` and
+    of the edge check, and the card's resident blocks an SM at that shared
+    memory against the plan's ``blocks_per_sm``."""
+    import ctypes
+
+    from sprc_tpu_torch.ops import _ext
+
+    lib = _ext.library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    keys = ("warps", "pitch", "stages", "blocks_per_sm", "tiles", "groups", "grid", "smem_bytes")
+    shapes = [(B, N, 32, 256) for B, N in SIM_SWEEP] + [
+        (B, N, Q, E) for B in SIM_EDGE_B for N in SIM_EDGE_N for Q in SIM_EDGE_Q
+        for E in SIM_EDGE_E]
+    bad, resident = [], {}
+    for B, N, Q, E in shapes:
+        out = (ctypes.c_int * 9)()
+        _ext.check(lib.sprc_token_max_sim_plan(B, N, Q, E, sms, out), "token_max_sim_plan")
+        plan = schedules.token_max_sim_plan(B, N, Q, E, sms=sms)
+        got = dict(zip(keys, out[:8]))
+        if got != {k: plan[k] for k in keys} or out[8] < plan["blocks_per_sm"]:
+            bad.append({"shape": (B, N, Q, E), "launch": got, "resident": out[8]})
+        resident[f"Q={Q} E={E}"] = (plan["blocks_per_sm"], out[8])
+    return {"ok": not bad, "shapes": len(shapes), "sms": sms, "mismatch": bad[:4],
+            "blocks_per_sm_planned_vs_resident": resident}
+
+
+# K1's sweep: the galleries users score (chip_smoke's 512 items, CIRR val,
+# FashionIQ shirt val, CIRCO's COCO 2017 unlabeled split, and one past the old
+# 2^31-element limit) at the serving batch, and other query batches at two
+SIM_SWEEP = ([(QUERY_BATCH, n) for n in (GALLERY, 2297, 6346, 123403, SIM_PAST_INT32)]
+             + [(b, n) for n in (GALLERY, 123403) for b in (1, 128)])
+
+
+def run_token_max_sim_sweep(device="cuda", baseline=None) -> List[dict]:
+    """K1 at every (B, N) of :data:`SIM_SWEEP` (Q = 32, E = 256), with the
+    baseline kernels' device times where given (name -> C entry; not at 2^31
+    elements or more, which a kernel that indexes in 32 bits cannot read)."""
+    rows = []
+    for B, N in SIM_SWEEP:
+        big = N * 32 * 256 >= 2 ** 31
+        row = check_token_max_sim(device, B=B, N=N, baseline=None if big else baseline,
+                                  plain=N <= 6346)
+        rows.append(dict(check=f"K1 token_max_sim B={B} N={N}", **row))
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------------- K2
@@ -1564,6 +1748,7 @@ def run_edges(device="cuda") -> List[dict]:
             dict(check="attention f32 edges", **check_attention_f32_edges(device)),
             dict(check="layer_norm edges", **check_layer_norm_edges(device)),
             dict(check="quantizer edges", **check_quantizer_edges(device)),
+            dict(check="token_max_sim edges", **check_token_max_sim_edges(device)),
             dict(check="gemm host cost", **check_gemm_host_cost(device))]
 
 

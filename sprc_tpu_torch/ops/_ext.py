@@ -61,6 +61,7 @@ _SIGNATURES = {
     "sprc_quantize_static": [_P, _P, _LL, _F, _I, _P],
     "sprc_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "sprc_token_max_sim": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "sprc_token_max_sim_plan": [_I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -129,16 +130,34 @@ def build(jobs: Optional[int] = None, force: bool = False) -> Path:
     return out
 
 
+def _bind(lib: ctypes.CDLL, signatures: dict) -> ctypes.CDLL:
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(str(build())), _SIGNATURES)
     return _lib
+
+
+def build_alone(src, tag: str, signatures: dict) -> tuple:
+    """One ``.cu`` file outside the library (an older version of a kernel,
+    timed beside the library's; a probe) compiled with the library's flags
+    and headers into ``_build/alone/lib<tag>.so``, every time it is asked
+    for; returns (the loaded library with the C entries of ``signatures``
+    bound, nvcc's output with ``ptxas -v``'s report)."""
+    out = BUILD_DIR / "alone" / f"lib{tag}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o", str(out),
+                           str(Path(src).resolve())], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}"[-4000:])
+    return _bind(ctypes.CDLL(str(out)), signatures), proc.stdout + proc.stderr
 
 
 def check(code: int, name: str) -> None:

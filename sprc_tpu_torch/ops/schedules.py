@@ -11,7 +11,9 @@ the TMA boxes, what they refuse), and :func:`attention_emulated` walks
 the attention kernel's schedule in plain PyTorch (the same blocks, warp
 tiles, key chunks, skipped score tiles, padded head, score arithmetic and
 rounding points) so that the schedule itself is held against
-``attention_plain`` and against the JAX package.
+``attention_plain`` and against the JAX package. The same holds for the fp32
+attention, the LayerNorm, the quantisers and K1 (:func:`token_max_sim_plan`,
+:func:`token_max_sim_emulated`).
 """
 
 from __future__ import annotations
@@ -666,3 +668,123 @@ def quantize_rows_emulated(x: Tensor) -> tuple:
     out = torch.zeros_like(v, dtype=torch.int8)
     out[:, idx[valid]] = codes[:, valid]
     return out.reshape(x.shape), sc.reshape(x.shape[:-1])
+
+
+# ------------------------------------------------------ token-max similarity
+
+SIM_TILE_B = 32            # query rows of a block: two m16 tiles
+SIM_MAX_Q = 32             # tokens of an item: four n8 tiles
+SIM_MAX_E = 512
+SIM_KSTEPS_PER_WARP = 4    # k-steps of 8 a warp owns (its A fragments stay in registers)
+SIM_MAX_STAGES = 4
+SIM_BARRIER_BYTES = 64
+SIM_RED_BYTES = 4 * 2 * 32 * 16  # one warp's partial sums: 4 (m tile, row half) x 2 float4 a lane
+SMEM_RESERVED = 1024       # held back for each resident block
+SMEM_SM = _SMEM_LIMIT + SMEM_RESERVED  # shared memory of an SM
+_INT32_MAX = 2 ** 31 - 1
+
+
+@functools.lru_cache(maxsize=256)
+def token_max_sim_plan(B: int, N: int, Q: int, E: int, sms: int = H100_SMS) -> dict:
+    """How ``csrc/token_max_sim.cu`` (its ``make_plan``) cuts ``out[b, n] =
+    max_q <f[b], t[n, q]>``: ``warps`` (k-steps of 8 in runs of 4 a warp:
+    E / 32 warps, at most 16), rows of a ring slot pitched ``pitch`` floats
+    (E rounded up to 8 mod 16, so that a warp's float2 fragment reads hit 32
+    banks, and at least E + 4 where E % 8 == 4) and rounded up to whole n8
+    tiles (``slot_rows``); a slot holds an item, then (once every warp has
+    read it) the warps' partial sums; ``stages`` slots (as many as fit, at
+    most 4), two blocks an SM where that leaves at least two stages and the
+    block has at most 8 warps (at the 128 registers a thread that its launch
+    bounds allow, two such blocks fit), else one; ``tiles`` query tiles of
+    32 rows, ``mtiles`` m16 tiles built in each (1 where B <= 16);
+    ``groups`` of items (a block takes items ``group, group + groups, ...``),
+    as many as the resident blocks allow, ``grid`` = groups x tiles (the
+    tiles of a group neighbours). Raises ``ValueError`` on what the kernel
+    does not take: Q > 32, E > 512, E % 4, an empty input, or B or N past
+    the C entry's 32-bit ints. The gallery's size is no limit: offsets are
+    64-bit. The result is cached (the wrapper consults it on every call):
+    treat it as read-only."""
+    if B < 1 or N < 1 or not 1 <= Q <= SIM_MAX_Q or not 4 <= E <= SIM_MAX_E or E % 4:
+        raise ValueError(f"token_max_sim: B={B} N={N} Q={Q} E={E}; the kernel takes B, N >= 1, "
+                         "Q <= 32, E <= 512, E % 4 == 0")
+    if B > _INT32_MAX or N > _INT32_MAX:
+        raise ValueError(f"token_max_sim: B={B} N={N}; the C entry takes B and N as 32-bit ints")
+    ksteps = _ceil_div(E, 8)
+    warps = _ceil_div(ksteps, SIM_KSTEPS_PER_WARP)
+    pitch = E + (8 - E % 16) % 16
+    rows = _ceil_div(Q, 8) * 8
+    stage = max(rows * pitch * 4, warps * SIM_RED_BYTES)  # an item, then its partial sums
+    fixed = SIM_BARRIER_BYTES
+
+    def stages_for(bps):
+        return min(SIM_MAX_STAGES, (SMEM_SM // bps - SMEM_RESERVED - fixed) // stage)
+
+    bps = 2 if warps <= 8 and stages_for(2) >= 2 else 1
+    stages = stages_for(bps)
+    tiles = _ceil_div(B, SIM_TILE_B)
+    groups = max(1, min(N, max(sms, 1) * bps // tiles))
+    return {"warps": warps, "threads": 32 * warps, "ksteps": ksteps, "pitch": pitch,
+            "slot_rows": rows, "stages": stages, "blocks_per_sm": bps, "tiles": tiles,
+            "mtiles": 1 if B <= 16 else 2,
+            "groups": groups, "grid": groups * tiles, "smem_bytes": fixed + stages * stage,
+            "stage_bytes": stage}
+
+
+def token_max_sim_blocks(plan: dict, N: int) -> list:
+    """Per block of the plan's grid, in block order: (query tile, its items
+    in the order it streams them)."""
+    tiles, groups = plan["tiles"], plan["groups"]
+    return [(blk % tiles, range(blk // tiles, N, groups)) for blk in range(plan["grid"])]
+
+
+def split_tf32_trunc(x: Tensor) -> tuple:
+    """(big, small) as ``split_tf32_trunc`` of ``csrc/tf32.cuh`` takes
+    them: big = x with the low 13 bits of the mantissa cleared, small = the
+    same of x - big (exact in fp32)."""
+    def trunc(v):
+        return (v.to(torch.float32).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    big = trunc(x)
+    return big, trunc(x - big)
+
+
+def _mma_3xtf32_parts(acc: Tensor, a: tuple, b: tuple) -> Tensor:
+    """:func:`mma_3xtf32` on operands already split: small . big, big .
+    small, big . big, each the exact sum of its 8 products added to ``acc``
+    with one rounding."""
+    (ab, as_), (bb, bs) = a, b
+    for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+        acc = (acc.double() + x.double() @ y.double()).float()
+    return acc
+
+
+def token_max_sim_emulated(feats: Tensor, targets: Tensor) -> Tensor:
+    """``token_max_sim_plain``'s function computed as the kernel walks it:
+    the depth zero-padded to whole k-steps of 8; each warp's partial sums
+    over its k-steps in order, each step the 3xTF32 product from zero, the
+    queries split by rounding (:func:`split_tf32`), the gallery's values by
+    truncation (:func:`split_tf32_trunc`); the warps' partial sums added in
+    warp order; the max over the item's Q tokens, NaN propagated as ``amax``
+    does; a score that comes out NaN (a NaN or an infinity among its inputs:
+    an infinity's small part is inf - inf) taken again as plain fp32 sums,
+    as the kernel's ``exact_score`` does. (The kernel takes a k-step's 8
+    depths in another order; the emulation sums them exactly, so the order
+    does not show.) feats [B, E], targets [N, Q, E] -> [B, N] fp32."""
+    B, E = feats.shape
+    N, Q, _ = targets.shape
+    plan = token_max_sim_plan(B, N, Q, E)
+    kpad = plan["ksteps"] * 8 - E
+    f = torch.nn.functional.pad(feats.float(), (0, kpad))
+    t = torch.nn.functional.pad(targets.float(), (0, kpad))
+    total = None
+    for w in range(plan["warps"]):
+        acc = torch.zeros(N, B, Q, dtype=torch.float32)
+        for kk in range(w * SIM_KSTEPS_PER_WARP,
+                        min((w + 1) * SIM_KSTEPS_PER_WARP, plan["ksteps"])):
+            e = slice(8 * kk, 8 * kk + 8)
+            acc = _mma_3xtf32_parts(acc, split_tf32(f[:, e]),
+                                    split_tf32_trunc(t[:, :, e].transpose(1, 2)))
+        total = acc if total is None else total + acc
+    out = total.amax(-1).t().contiguous()
+    b, n = torch.isnan(out).nonzero(as_tuple=True)
+    out[b, n] = torch.einsum("ke,kqe->kq", feats[b].float(), targets[n].float()).amax(-1)
+    return out
