@@ -81,12 +81,38 @@ Phases (any failure raises and exits nonzero before the last line):
    features are held within a bf16 bound of each other;
 6. counters: every kernel of each path launched on that path (the chains'
    own kernels too: the bf16 and fp32 attention, the LayerNorm and its int8
-   output, the two quantisers), and no kernel of another configuration moved.
+   output, the two quantisers), and no kernel of another configuration moved;
+7. fine-tune on blip2_cir_align_prompt / pretrain at full width (EVA ViT-g,
+   bf16 tower, fp32 Q-Former, random weights from seed 0), batch 128, over a
+   synthetic CIRR train split (512 triplets over 256 seeded images, read by
+   cli/finetune.train_triplets) and its val split (64 queries):
+   (a) a live step's three losses and every trainable gradient through the
+       kernels (on the first step the tower stage by stage, STAGE_BOUNDS)
+       against the same step under primitives.plain_reference() from one
+       generator seed (the same dropout masks), and against the all-plain
+       step from the kernel tower's rows, for the first batch of 4 epochs,
+       each from its own seed; the worst tensors are named and K1's argmax
+       moves counted (TRAIN_BOUNDS);
+   (b) K1 with a gradient (TokenMaxSim) at B = N = 128, Q = 32, E = 256,
+       random and with exact ties, against autograd over the plain version;
+   (c) one live epoch (4 steps) through cli/finetune.finetune_epochs, then its
+       validation (evaluate_cirr): K1 twice a step, the tower's chain once a
+       step (39 blocks: 156 bf16 GEMMs, 39 attentions, 78 LayerNorms), no
+       Q-Former kernel inside the steps, K3 and K1 in the validation;
+   (d) the feature cache built over the 256 images (one tower call), then 4
+       cached steps from the same start state and seed: their losses equal
+       the live ones within TRAIN_BOUNDS["cached"];
+   (e) the cached run's state saved after step 2 (train/checkpoint.save_state)
+       and restored into a fresh trainer: steps 3 and 4 equal the
+       uninterrupted run's within TRAIN_BOUNDS["resume"].
+   It prints the live and cached step times (median) and samples/s, the
+   peak memory, and its launch counters.
 
 Then it prints one JSON line with each kernel's numbers, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -128,6 +154,34 @@ CALIB_IMAGES = 16
 # those.
 EVA_BOUNDS = {"frozen": (0.5, 0.04), "target": (1.5e-3, 2.5e-4), "score": 1e-5,
               "top1": QUERY_BATCH - 1}
+# The fine-tune phase (full-width pretrain, batch 128), over the first batch
+# of LIVE_SEEDS epochs, each step from its own dropout seed; losses relative,
+# gradients as kernel_checks.grad_gap (max |difference| over the tensor's max
+# |plain gradient|, that max floored at 1e-4 of the step's largest). Readings
+# on an H100 (worst of the 4 steps) beside each bound.
+# "rows": the live step through the kernels against the all-plain step from
+# the kernel tower's own rows: every kernel but the tower's (held stage by
+# stage, STAGE_BOUNDS) and the whole fp32 Q-Former with its backward; bounds
+# 2.7 and 5 times the readings.
+# "live": the same step against the all-plain step from pixels. Its gap is
+# the plain Q-Former's response to the tower's bf16 gap, read equal to the
+# gap between the two all-plain steps; and the gradient of K1's max jumps
+# where a score's argmax over the 32 query tokens moves, which the tower's
+# gap does for about 50 of the 32768 scores a step. A move on a diagonal
+# score (the label's, with the largest gradient) took the gradient gap from
+# 3.1e-2 (no such move) to 0.31-0.38 (one), in attention and FFN weights and
+# query_tokens, so three times the readings would check nothing; the bound
+# 0.9 still fails a gradient that is missing or doubled (gap 1) or of the
+# wrong sign (2), and the losses are held at 3 times their readings.
+# "cached" / "resume": cached steps against the live ones, resumed steps
+# against the uninterrupted ones (the same kernels on the same rows: equal
+# in the readings).
+LIVE_SEEDS = 4
+TRAIN_TRIPLETS = 512
+TRAIN_IMAGES = 256
+TRAIN_BOUNDS = {"live": {"loss": 2e-4, "grad": 0.9},     # 6.5e-5, 3.8e-1
+                "rows": {"loss": 5e-7, "grad": 1e-5},    # 9.8e-8, 3.7e-6
+                "cached": 1e-6, "resume": 1e-6}          # 0, 0
 # the three routes' target features against the whole-block route's (bf16
 # towers that round at other places): max / mean abs; readings 5.21e-4 / 7.56e-5
 ROUTE_TARGET_MAX_ABS, ROUTE_TARGET_MEAN_ABS = 1.5e-3, 2.5e-4
@@ -670,6 +724,332 @@ def phase_validate(work, route, gallery):
             "metrics": results, "target_feats": target_feats}
 
 
+def _write_cirr_train(root, names, n_triplets, seed):
+    """A synthetic CIRR train split in the reference's layout (JSON only)."""
+    rng = np.random.default_rng(seed)
+    words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
+    triplets = []
+    for i in range(n_triplets):
+        ref, tgt = rng.choice(len(names), 2, replace=False)
+        triplets.append({"pairid": i, "reference": names[ref], "target_hard": names[tgt],
+                         "caption": " ".join(rng.choice(words, rng.integers(3, 9))),
+                         "img_set": {"members": [names[ref], names[tgt]]}})
+    for sub, name, payload in (("captions", "cap.rc2.train.json", triplets),
+                               ("image_splits", "split.rc2.train.json",
+                                {n: f"train/{n}.png" for n in names})):
+        os.makedirs(os.path.join(root, "cirr", sub), exist_ok=True)
+        with open(os.path.join(root, "cirr", sub, name), "w") as f:
+            json.dump(payload, f)
+    return root
+
+
+def _loss_gap(got, want):
+    return max(abs(got[k].item() - want[k].item()) / abs(want[k].item()) for k in want)
+
+
+def phase_train(work):
+    """The fine-tune path (phase 7 of the docstring)."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.cli import finetune, validate
+    from sprc_tpu_torch.data.loader import DataLoader
+    from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.retrieval.engine import RetrievalEngine
+    from sprc_tpu_torch.text.processors import CaptionProcessor
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train.checkpoint import restore_state, save_state
+    from sprc_tpu_torch.train.feature_cache import build_feature_cache
+    from sprc_tpu_torch.train.loop import TrainConfig, Trainer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "train"
+    os.makedirs(work, exist_ok=True)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(
+        write_synthetic_bert_vocab(os.path.join(work, "vocab.txt")))
+    processor = CaptionProcessor()
+    names = [f"trn{i:04d}" for i in range(TRAIN_IMAGES)]
+    data = _write_cirr_train(os.path.join(work, "cirr_train"), names, TRAIN_TRIPLETS, SEED + 3)
+    _write_cirr_val(data, names, VALIDATE_QUERIES, SEED + 4)
+    triplets = finetune.train_triplets(data, "CIRR")
+    assert len(triplets) == TRAIN_TRIPLETS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)  # set-up: pixels on the card
+    pixels = torch.randn((TRAIN_IMAGES, 224, 224, 3), generator=gen, device=DEVICE)
+    pixels_host = pixels.cpu().numpy()
+    row = {n: i for i, n in enumerate(names)}
+    counters = _counters()
+
+    t0 = time.perf_counter()
+    model = load_model("blip2_cir_align_prompt", "pretrain", device=DEVICE, seed=SEED)
+    sync()
+    vcfg, qcfg = model.cfg.vit_config(), model.cfg.qformer_config()
+    assert (vcfg.width, vcfg.depth, qcfg.dropout_rate) == (1408, 39, 0.1)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    log(f"[{tag}] model blip2_cir_align_prompt/pretrain on {DEVICE}: {n_params / 1e6:.1f} M "
+        f"params, {n_train / 1e6:.1f} M trainable (the ViT frozen), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    loader = DataLoader(triplets, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                        seed=SEED, num_workers=1)
+    steps = len(loader)
+    tcfg = TrainConfig(total_steps=steps * 80)  # the CLI's: OneCycle over 80 epochs
+
+    def epoch_batches(epoch, cache=None):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            out = finetune.to_device(finetune.tokenize_captions(
+                batch, tokenizer, processor, model.cfg.max_txt_len), DEVICE)
+            for side in ("reference", "target"):
+                keys = batch[f"{side}_name"]
+                if cache is None:
+                    out[side] = pixels[torch.as_tensor([row[n] for n in keys], device=DEVICE)]
+                else:
+                    out[f"{side}_embeds"] = cache.gather(keys).to(DEVICE)
+            yield out
+
+    def reset_counters():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read_counters():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    # (a) a live step through the kernels (the tower stage by stage on the
+    # first) against the same step under plain_reference, and against the
+    # all-plain step from the kernel tower's rows, for the first batch of
+    # LIVE_SEEDS epochs, each from its own dropout seed
+    def k1_argmax(run):
+        """``run()`` with each K1 call's argmax over the query tokens
+        recorded ([B, N] indices, from its own inputs in plain fp32)."""
+        calls = []
+
+        def recording(feats, targets):
+            with torch.no_grad():
+                calls.append(torch.einsum("be,nqe->bnq", feats.float(),
+                                          targets.float()).argmax(-1))
+            return type(model).token_max_sim(feats, targets)
+
+        model.token_max_sim = recording
+        try:
+            return run(), calls
+        finally:
+            del model.token_max_sim
+
+    kept = read_counters()
+    stages = kernel_checks.StageRecorder()
+    param_names = [n for n, p in model.named_parameters() if p.requires_grad]
+    live_checks = []
+    t0 = time.perf_counter()
+    for i in range(LIVE_SEEDS):
+        batch, seed = next(iter(epoch_batches(i))), SEED + i
+        with primitives.stage_check(stages) if i == 0 else contextlib.nullcontext():
+            (_, k_losses, k_grads), k_idx = k1_argmax(
+                lambda: Trainer(model, tcfg, seed=seed).loss_and_grads(batch))
+        with primitives.plain_reference():
+            (_, p_losses, p_grads), p_idx = k1_argmax(
+                lambda: Trainer(model, tcfg, seed=seed).loss_and_grads(batch))
+        with torch.no_grad():
+            tower = model.encode_tower(torch.cat([batch["reference"], batch["target"]]))
+        rows = dict(batch, reference_embeds=tower[:TRAIN_BATCH],
+                    target_embeds=tower[TRAIN_BATCH:])
+        with primitives.plain_reference():
+            _, r_losses, r_grads = Trainer(model, tcfg, seed=seed,
+                                           from_embeds=True).loss_and_grads(rows)
+        check = {"seed": seed, "epoch": i, "k1_argmax_moved": 0, "k1_argmax_moved_diagonal": 0}
+        for part, (got, got_g, want, want_g) in {
+                "live": (k_losses, k_grads, p_losses, p_grads),
+                "rows": (k_losses, k_grads, r_losses, r_grads),
+                "inputs": (r_losses, r_grads, p_losses, p_grads)}.items():
+            check[part] = {"loss": _loss_gap(got, want),
+                           "grad": kernel_checks.grad_gap(got_g, want_g, param_names)}
+        for a, b in zip(k_idx, p_idx):  # itc, then rtc
+            check["k1_argmax_moved"] += int((a != b).sum())
+            check["k1_argmax_moved_diagonal"] += int((a != b).diagonal().sum())
+        live_checks.append(check)
+        if i == 0:
+            first, first_losses = batch, (k_losses, p_losses)
+        del k_grads, p_grads, r_grads, tower, rows
+    sync()
+    checks_s = time.perf_counter() - t0
+    k_losses, p_losses = first_losses
+    for k, (obj, attr) in counters.items():  # these comparisons are not the main path
+        setattr(obj, attr, kept[k])
+    gaps = {part: {"loss": max(c[part]["loss"] for c in live_checks),
+                   "grad": max(c[part]["grad"]["gap"] for c in live_checks)}
+            for part in ("live", "rows")}
+    for stage in stages.rows():
+        log(f"[{tag}] first live step, the tower stage by stage: {stage['kind']}: "
+            f"{stage['calls']} calls, worst share that differs {stage['differ']:.3e}, worst "
+            f"difference {stage['err']:.3e} -> {'ok' if stage['ok'] else 'FAIL'}")
+    log(f"[{tag}] first live step, kernels against plain_reference: losses "
+        + ", ".join(f"{k} {k_losses[k].item():.6f} / {p_losses[k].item():.6f}" for k in k_losses)
+        + f"; over {LIVE_SEEDS} steps ({checks_s:.1f} s), worst loss gap "
+        f"{gaps['live']['loss']:.3e} (bound {TRAIN_BOUNDS['live']['loss']}), worst gradient gap "
+        f"{gaps['live']['grad']:.3e} (bound {TRAIN_BOUNDS['live']['grad']}); against the "
+        f"all-plain step from the kernel tower's rows {gaps['rows']['loss']:.3e} (bound "
+        f"{TRAIN_BOUNDS['rows']['loss']}) / {gaps['rows']['grad']:.3e} (bound "
+        f"{TRAIN_BOUNDS['rows']['grad']})")
+    for c in live_checks:
+        parts = []
+        for part, what in (("live", "kernels against plain"),
+                           ("rows", "kernels against plain from their tower rows"),
+                           ("inputs", "plain from the kernel rows against plain")):
+            g = c[part]["grad"]
+            parts.append(
+                f"{what}: loss {c[part]['loss']:.3e}, gradient {g['gap']:.3e} in {g['tensor']} "
+                f"(max |difference| {g['err']:.3e}, scale {g['scale']:.3e}"
+                f"{', the floor' if g['at_floor'] else ''}; next "
+                + ", ".join(f"{n} {v:.3e}" for n, v, _ in g["worst"][1:]) + ")")
+        log(f"[{tag}] live step, epoch {c['epoch']}'s first batch, seed {c['seed']}: "
+            + "; ".join(parts) + f"; K1's argmax over the query tokens moved for "
+            f"{c['k1_argmax_moved']} of {2 * TRAIN_BATCH ** 2} scores "
+            f"({c['k1_argmax_moved_diagonal']} on the diagonals)")
+    if not stages.ok():
+        raise RuntimeError(f"{tag}: a tower stage disagrees with its plain version: "
+                           f"{[r['kind'] for r in stages.rows() if not r['ok']]}")
+    for part, bound in gaps.items():
+        for what, value in bound.items():
+            if not value <= TRAIN_BOUNDS[part][what]:
+                raise RuntimeError(f"{tag}: {part} {what} gap {value} over "
+                                   f"{TRAIN_BOUNDS[part][what]}")
+
+    # (b) K1 with a gradient at the training shape
+    kept = read_counters()
+    k1 = kernel_checks.check_token_max_sim_grad(DEVICE)
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    log(f"[{tag}] K1 TokenMaxSim ({k1['shape']}): forward max_abs {k1['max_abs_err']:.3e}, "
+        f"gradients max_abs {k1['grad_max_abs_err']:.3e}, ties split evenly "
+        f"{k1['tie_split_even']}, {k1['launches']} launches; forward (device) {k1['ms']:.4f} "
+        f"ms, plain {k1['plain_ms']:.4f} ms; forward + backward {k1['fwd_bwd_ms']:.4f} ms, "
+        f"plain {k1['plain_fwd_bwd_ms']:.4f} ms -> {'ok' if k1['ok'] else 'FAIL'}")
+    if not k1["ok"]:
+        raise RuntimeError(f"{tag}: TokenMaxSim disagrees with autograd over plain: {k1}")
+
+    # (c) one live epoch through finetune_epochs, then its validation
+    start = [p.detach().clone() for p in model.parameters() if p.requires_grad]
+    trainer = Trainer(model, tcfg, seed=SEED, skip_nonfinite=True)
+    live, live_ms, in_steps, peak, val = [], [], {}, {}, {}
+
+    def timed(t, out, times):
+        inner = t.train_step
+
+        def train_step(batch):
+            t0 = time.perf_counter()
+            metrics = inner(batch)  # ends in a host read of the losses
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(metrics)
+            return metrics
+
+        t.train_step = train_step
+
+    def validate_fn():
+        in_steps.update(read_counters())
+        peak["bytes"] = torch.cuda.max_memory_allocated()
+        engine = RetrievalEngine(model, tokenizer, device=DEVICE, encode_batch=ENCODE_BATCH,
+                                 query_batch=QUERY_BATCH)
+        batches = [(names[s:s + ENCODE_BATCH], pixels_host[s:s + ENCODE_BATCH])
+                   for s in range(0, TRAIN_IMAGES, ENCODE_BATCH)]
+        val["results"] = validate.evaluate_cirr(engine, iter(batches),
+                                                validate.cirr_queries(data))
+        return val["results"]
+
+    timed(trainer, live, live_ms)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    history = finetune.finetune_epochs(trainer, epoch_batches, num_epochs=1,
+                                       validate=validate_fn, log=lambda m: None)
+    sync()
+    epoch_s = time.perf_counter() - t0
+    launches = read_counters()
+    in_val = {k: launches[k] - in_steps[k] for k in launches}
+    results = val["results"]
+    assert list(results) == CIRR_KEYS, list(results)
+    assert all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in results.values()), results
+    log(f"[{tag}] live epoch: {steps} steps of {TRAIN_BATCH}, losses per step "
+        + "; ".join(f"{m['loss']:.5f}" for m in live)
+        + f"; step ms {', '.join(f'{t:.1f}' for t in live_ms)}; epoch and validation "
+        f"{epoch_s:.1f} s; peak memory {peak['bytes'] / 2**30:.2f} GiB")
+    log(f"[{tag}] validation after the epoch: " + json.dumps(results))
+    log(f"[counters] launches during the {tag} steps: {in_steps}")
+    log(f"[counters] launches during the {tag} validation: {in_val}")
+    depth = vcfg.depth
+    want = {"token_max_sim": 2 * steps, "fused_vit_block": depth * steps, "gemm": 4 * depth * steps,
+            "attention_bf16": depth * steps, "layer_norm": 2 * depth * steps}
+    bad = {k: in_steps[k] for k in in_steps if in_steps[k] != want.get(k, 0)}
+    if bad:
+        raise RuntimeError(f"{tag}: launches in the steps {bad}, expected {want} and 0 elsewhere")
+    missing = [k for k in ("fused_qformer_layer", "token_max_sim", "fused_vit_block", "gemm_f32",
+                           "attention_f32") if in_val[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{tag}: not launched in the validation: {missing}")
+    if not all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0 for m in live):
+        raise RuntimeError(f"{tag}: a live step was not finite: {live}")
+
+    # (d) the feature cache, then cached steps from the same start state and seed
+    with torch.no_grad():
+        for p, s0 in zip((p for p in model.parameters() if p.requires_grad), start):
+            p.copy_(s0)
+    del start
+    kept = read_counters()
+    t0 = time.perf_counter()
+    cache = build_feature_cache(model, [(names, pixels)])
+    sync()
+    cache_s = time.perf_counter() - t0
+    cache_launches = read_counters()["fused_vit_block"] - kept["fused_vit_block"]
+    assert cache_launches == depth and len(cache) == TRAIN_IMAGES, (cache_launches, len(cache))
+    cached_trainer = Trainer(model, tcfg, seed=SEED, from_embeds=True, skip_nonfinite=True)
+    cached, cached_ms = [], []
+    timed(cached_trainer, cached, cached_ms)
+    state_path = os.path.join(work, "train_state.pt")
+    batches = list(epoch_batches(0, cache))
+    for i, batch in enumerate(batches):
+        cached_trainer.train_step(batch)
+        if i == 1:
+            t0 = time.perf_counter()
+            save_state(state_path, cached_trainer)
+            save_s = time.perf_counter() - t0
+    sync()
+    keys = ("loss_itc", "loss_rtc", "loss_align", "loss")
+
+    def rel(a, b):
+        return max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(a, b) for k in keys)
+
+    cached_gap = rel(cached, live)
+    # (e) resume after step 2
+    resumed_trainer = Trainer(model, tcfg, seed=SEED + 1, from_embeds=True, skip_nonfinite=True)
+    restore_state(state_path, resumed_trainer)
+    os.remove(state_path)
+    resumed = [resumed_trainer.train_step(b) for b in batches[2:]]
+    resume_gap = rel(resumed, cached[2:])
+    log(f"[{tag}] feature cache: {len(cache)} images in {cache_s:.3f} s ({cache_launches} block "
+        f"launches); cached step ms {', '.join(f'{t:.1f}' for t in cached_ms)}; state saved in "
+        f"{save_s:.1f} s")
+    log(f"[{tag}] cached steps against live: worst relative loss gap {cached_gap:.3e} (bound "
+        f"{TRAIN_BOUNDS['cached']}); resumed steps 3-4 against uninterrupted: {resume_gap:.3e} "
+        f"(bound {TRAIN_BOUNDS['resume']}); step after resume {resumed_trainer.step}")
+    if not (cached_gap <= TRAIN_BOUNDS["cached"] and resume_gap <= TRAIN_BOUNDS["resume"]
+            and resumed_trainer.step == steps):
+        raise RuntimeError(f"{tag}: cached {cached_gap} / resumed {resume_gap} disagree")
+    live_med, cached_med = float(np.median(live_ms)), float(np.median(cached_ms))
+    out = {"batch": TRAIN_BATCH, "steps": steps, "live_step_ms": live_ms,
+           "live_step_median_ms": live_med, "live_samples_per_s": TRAIN_BATCH / live_med * 1e3,
+           "cached_step_ms": cached_ms, "cached_step_median_ms": cached_med,
+           "cached_samples_per_s": TRAIN_BATCH / cached_med * 1e3,
+           "feature_cache_s": cache_s, "peak_memory_gib": peak["bytes"] / 2 ** 30,
+           "gaps": gaps, "live_checks": live_checks, "cached_gap": cached_gap, "resume_gap": resume_gap,
+           "losses": [{k: m[k] for k in keys} for m in live], "epoch": history[-1],
+           "validation": results,
+           "launches_steps": in_steps, "launches_validation": in_val, "k1_grad": k1}
+    log(f"[{tag}] " + json.dumps({k: out[k] for k in (
+        "live_step_median_ms", "live_samples_per_s", "cached_step_median_ms",
+        "cached_samples_per_s", "peak_memory_gib")}))
+    del model, trainer, cached_trainer, resumed_trainer, cache, batches, pixels, first
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_routes_agree(runs):
     base = runs["block"]["target_feats"]
     for route, run in runs.items():
@@ -804,6 +1184,8 @@ def main():
     del bf16["target_feats"], int8["target_feats"]
     runs = {route: phase_validate(work, route, gallery) for route in ROUTES}
     check_routes_agree(runs)
+    del gallery
+    train = phase_train(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -813,14 +1195,29 @@ def main():
         if route != "block":  # K2's count stays the pretrain_vitL path's
             launches.update({k: runs[route]["launches"][k] for k in own})
     keep = ("encode_imgs_per_s", "query_1_median_ms", "query_32_median_ms")
-    print(json.dumps({"kernels": kernel_table(rows, launches),
+    from sprc_tpu_torch.kernel_checks import bound_ms
+
+    k1 = train.pop("k1_grad")
+    # K1 with a gradient: its forward launches on the fine-tune path, its
+    # numbers from the check at the training shape: ms / plain_ms the
+    # forward's device time (the kernel, the plain version); forward and
+    # backward through autograd beside them
+    k1_train = {"name": "token_max_sim (TokenMaxSim, fine-tune)", "route": "cuda",
+                "source": "sprc_tpu_torch/csrc/token_max_sim.cu",
+                "replaces": "sprc_tpu/ops/pallas_sim.py:40",
+                "launches": train["launches_steps"]["token_max_sim"],
+                "max_abs_err": max(k1["max_abs_err"], k1["grad_max_abs_err"]),
+                "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bound_ms(k1), "library_ms": None,
+                "fwd_bwd_ms": k1["fwd_bwd_ms"], "plain_fwd_bwd_ms": k1["plain_fwd_bwd_ms"]}
+    print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train],
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "int8_vs_bf16_random_weights": against,
                       "int8_eva_encode_batch_launches": eva_int8,
                       "validate_pretrain": {route: {k: run[k] for k in
                                                     ("encode_imgs_per_s", "metrics", "launches")}
-                                            for route, run in runs.items()}}), flush=True)
+                                            for route, run in runs.items()},
+                      "finetune_pretrain": train}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)

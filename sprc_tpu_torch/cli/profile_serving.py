@@ -1,7 +1,8 @@
 """Where the serving path's time goes on one GPU.
 
     python -m sprc_tpu_torch.cli.profile_serving [--model-type pretrain|pretrain_vitL]
-        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N] [--out DIR]
+        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N] [--train]
+        [--out DIR]
 
 Builds ``blip2_cir_align_prompt`` / ``--model-type`` (``pretrain_vitL``: CLIP
 ViT-L, the default; ``pretrain``: EVA ViT-g) at full width with random
@@ -34,6 +35,14 @@ kernel that is not one of the port's own, with its launches and time: the
 patch convolution and the ``vision_proj`` / ``text_proj`` products are
 PyTorch calls, and no other library GEMM may appear there.
 
+With ``--train`` it profiles the fine-tune step instead (``--model-type``,
+bf16 tower and fp32 Q-Former, batch 128, the CLI's trainer): the wall ms of
+a live step (pixels; the tower's K2 chain, then the Q-Former's forward and
+backward) and of a cached step (tower rows, ``forward_cached``), medians of
+5 steps, their samples/s and peak memory, and from one profiled step of
+each the device time by kernel group; the Q-Former's products in training
+are library GEMMs (``torch.matmul``), grouped as such.
+
 It prints one JSON object and writes it, the profiler's tables and chrome
 traces under ``--out`` (default ``sprc_tpu_torch/_build/profile`` with the
 options appended). Needs CUDA.
@@ -60,8 +69,13 @@ GROUPS = (("gemm_i8_kernel", "int8 GEMM"), ("quantize_static", "quantize static"
           ("Memcpy", "copies"), ("Memset", "copies"))
 
 
-def _group(name: str) -> str:
-    for key, label in GROUPS:
+# the fine-tune step's library products (the Q-Former trains through torch.matmul)
+TRAIN_GROUPS = GROUPS + (("gemm", "library GEMM"), ("cutlass", "library GEMM"),
+                         ("xmma", "library GEMM"))
+
+
+def _group(name: str, groups=GROUPS) -> str:
+    for key, label in groups:
         if key in name:
             return label
     return "other (torch ops)"
@@ -79,7 +93,7 @@ def _wall_ms(fn) -> float:
     return float(np.median(times))
 
 
-def _profile(fn, name: str, out: str) -> dict:
+def _profile(fn, name: str, out: str, kinds=GROUPS) -> dict:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -90,9 +104,10 @@ def _profile(fn, name: str, out: str) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, launches, others = {}, {}, {}
     for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False):  # a range over kernels, not a kernel
             continue
-        label = _group(evt.name)
+        label = _group(evt.name, kinds)
         ms = evt.time_range.elapsed_us() / 1e3
         groups[label] = groups.get(label, 0.0) + ms
         launches[label] = launches.get(label, 0) + 1
@@ -111,6 +126,63 @@ def _profile(fn, name: str, out: str) -> dict:
                               sorted(others.items(), key=lambda kv: -kv[1][1])}}
 
 
+def profile_train(model_type: str, out: str) -> dict:
+    """One live and one cached fine-tune step at batch 128 (``--train``)."""
+    from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.train.loop import TrainConfig, Trainer
+
+    dev = "cuda"
+    model = load_model("blip2_cir_align_prompt", model_type, device=dev, seed=SEED)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, L = TRAIN_BATCH, cfg.max_txt_len
+    pixels = torch.randn((2, B, cfg.image_size, cfg.image_size, 3), generator=gen, device=dev)
+    ids = torch.randint(1000, cfg.vocab_size, (B, L), generator=gen, device=dev)
+    lengths = torch.randint(4, L + 1, (B,), generator=gen, device=dev)
+    mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).long()
+    with torch.no_grad():
+        rows = model.encode_tower(pixels.flatten(0, 1))
+    live = {"reference": pixels[0], "target": pixels[1], "input_ids": ids, "text_mask": mask}
+    cached = {"reference_embeds": rows[:B], "target_embeds": rows[B:], "input_ids": ids,
+              "text_mask": mask}
+    result = {"device": torch.cuda.get_device_name(0), "model_type": model_type, "batch": B,
+              "repeats": REPEATS, "wall_ms": {},
+              "qformer_dense_tflop": qformer_train_flops(model, B) / 1e12}
+    for name, batch in (("live", live), ("cached", cached)):
+        trainer = Trainer(model, TrainConfig(total_steps=1000), seed=SEED,
+                          from_embeds=name == "cached", skip_nonfinite=True)
+        torch.cuda.reset_peak_memory_stats()
+        result["wall_ms"][name] = _wall_ms(lambda: trainer.train_step(batch))
+        result[name] = _profile(lambda: trainer.train_step(batch), f"train_{name}", out,
+                                TRAIN_GROUPS)
+        result[name]["samples_per_s"] = B / (result["wall_ms"][name] * 1e-3)
+        result[name]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        gemm_ms = result[name]["device_ms_by_group"].get("library GEMM")
+        if gemm_ms:
+            result[name]["library_gemm_tflop_per_s"] = (
+                result["qformer_dense_tflop"] / (gemm_ms * 1e-3))
+    return result
+
+
+def qformer_train_flops(model, batch: int) -> float:
+    """The dense products of one step's Q-Former passes, forward and
+    backward (twice the forward): the fusion pass (Q queries + L text rows,
+    cross-attention for the queries), the text pass of the fused queries,
+    the targets' queries pass (cross-attention) and the prompt pass, each
+    over every layer; a product of R x K by K x N counts 2 R K N, its
+    backward twice that. The projections to the embedding are left out."""
+    cfg, q = model.cfg, model.cfg.qformer_config()
+    H, M, Wi = q.hidden_size, q.intermediate_size, q.encoder_width
+    Q, L, Si = cfg.num_query_token, cfg.max_txt_len, cfg.vit_config().seq_len
+    layer = 2 * (4 * H * H + 2 * H * M)  # q, k, v, out and the FFN, a row
+    cross = 2 * Q * 2 * H * H + 2 * Si * 2 * Wi * H  # q / out a query row, k / v an image row
+    n_cross = len(range(0, q.num_layers, q.cross_attention_freq))
+    rows = 3 * (Q + L) + Q  # fusion, text, prompt passes; the queries pass
+    forward = batch * (q.num_layers * rows * layer + n_cross * 2 * cross)
+    return 3.0 * forward
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -123,22 +195,31 @@ def main(argv=None) -> dict:
     ap.add_argument("--int8", action="store_true", help="the int8 serving configuration")
     ap.add_argument("--gallery", type=int, default=GALLERY,
                     help="items the query batch is scored against (default 512)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile a live and a cached fine-tune step at batch 128 instead")
     args = ap.parse_args(argv)
     suffix = "".join(f"_{part}" for part, on in (
         (args.model_type, args.model_type != "pretrain_vitL"),
         (args.fused_block, args.fused_block != "block"), ("mlp", args.fused_mlp),
-        ("int8", args.int8), (f"gallery{args.gallery}", args.gallery != GALLERY)) if on)
+        ("int8", args.int8), (f"gallery{args.gallery}", args.gallery != GALLERY),
+        ("train", args.train)) if on)
     args.out = args.out or "sprc_tpu_torch/_build/profile" + suffix
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(args.out, exist_ok=True)
+    if args.train:
+        result = profile_train(args.model_type, args.out)
+        with open(os.path.join(args.out, "profile.json"), "w") as f:
+            json.dump(result, f, indent=1)
+        print(json.dumps(result), flush=True)
+        return result
     from sprc_tpu_torch.loader import calibrate_vit_act_scales, load_model
     from sprc_tpu_torch.ops import primitives
     from sprc_tpu_torch.ops.layers import l2_normalize
     from sprc_tpu_torch.utils.artifacts import synthetic_calibration_images
 
-    os.makedirs(args.out, exist_ok=True)
     dev = "cuda"
     rng = np.random.default_rng(SEED)
     int8_kwargs = {"vit_quant": "int8_calib", "qformer_int8": True} if args.int8 else {}

@@ -13,14 +13,22 @@ Modes follow the reference contract:
 - ``relative``: query triplets; per-split payloads mirror data_utils.py
   (train -> images; val -> names; test -> ids/names for submissions).
 
-Decode errors raise (the reference swallows them silently).
+Decode errors raise, unless a training split is built with
+``skip_errors=True`` (CIRR and FashionIQ): then a sample that fails to load
+is logged with its traceback and comes back as ``None``, which the
+:class:`~sprc_tpu_torch.data.loader.DataLoader` drops and counts (the
+reference swallows them silently).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Union
+
+
+log = logging.getLogger(__name__)
 
 
 def _open_image(path):
@@ -29,7 +37,21 @@ def _open_image(path):
     return PIL.Image.open(path)
 
 
-class CIRRDataset:
+class _SkipErrors:
+    """``__getitem__`` over ``_item``: with ``skip_errors`` a failing sample
+    is logged and returned as ``None``."""
+
+    def __getitem__(self, index: int):
+        try:
+            return self._item(index)
+        except Exception:  # the skip mode's boundary: logged, counted by the loader
+            if self.skip_errors:
+                log.warning("skipping unreadable sample %d", index, exc_info=True)
+                return None
+            raise
+
+
+class CIRRDataset(_SkipErrors):
     """CIRR (reference data_utils.py:203-286).
 
     relative mode items:
@@ -47,6 +69,7 @@ class CIRRDataset:
         split: str,
         mode: str,
         preprocess: Optional[Callable] = None,
+        skip_errors: bool = False,
     ):
         if split not in ("test1", "train", "val"):
             raise ValueError("split should be in ['test1', 'train', 'val']")
@@ -57,6 +80,7 @@ class CIRRDataset:
         self.mode = mode
         self._has_preprocess = preprocess is not None
         self.preprocess = preprocess or (lambda x: x)
+        self.skip_errors = skip_errors
 
         with open(self.base / "cirr" / "captions" / f"cap.rc2.{split}.json") as f:
             self.triplets = json.load(f)
@@ -70,7 +94,7 @@ class CIRRDataset:
     def __len__(self) -> int:
         return len(self.triplets) if self.mode == "relative" else len(self._names)
 
-    def __getitem__(self, index: int):
+    def _item(self, index: int):
         if self.mode == "classic":
             name = self._names[index]
             return {"image_name": name, "image": self._img(name)}
@@ -105,7 +129,7 @@ class CIRRDataset:
         }
 
 
-class FashionIQDataset:
+class FashionIQDataset(_SkipErrors):
     """FashionIQ (reference data_utils.py:108-200).
 
     relative mode items:
@@ -125,6 +149,7 @@ class FashionIQDataset:
         dress_types: Sequence[str],
         mode: str,
         preprocess: Optional[Callable] = None,
+        skip_errors: bool = False,
     ):
         if mode not in ("relative", "classic"):
             raise ValueError("mode should be in ['relative', 'classic']")
@@ -140,6 +165,7 @@ class FashionIQDataset:
         self.dress_types = list(dress_types)
         self._has_preprocess = preprocess is not None
         self.preprocess = preprocess or (lambda x: x)
+        self.skip_errors = skip_errors
 
         self.triplets: List[dict] = []
         for dt in dress_types:
@@ -156,7 +182,7 @@ class FashionIQDataset:
     def __len__(self) -> int:
         return len(self.triplets) if self.mode == "relative" else len(self.image_names)
 
-    def __getitem__(self, index: int):
+    def _item(self, index: int):
         if self.mode == "classic":
             name = self.image_names[index]
             return {"image_name": name, "image": self._img(name)}

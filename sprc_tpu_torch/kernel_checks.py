@@ -52,7 +52,7 @@ from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_attn_block_p
                                             fused_vit_block_i8_plain, fused_vit_block_plain)
 from sprc_tpu_torch.ops.fused_qformer import (fused_qformer_layer, fused_qformer_layer_plain,
                                               quantize_layer_params)
-from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain
+from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim, token_max_sim, token_max_sim_plain
 
 # the main path's batches: what chip_smoke.py drives and the engine's defaults
 ENCODE_BATCH, QUERY_BATCH, GALLERY = 64, 32, 512
@@ -413,6 +413,82 @@ def run_token_max_sim_sweep(device="cuda", baseline=None) -> List[dict]:
         rows.append(dict(check=f"K1 token_max_sim B={B} N={N}", **row))
         torch.cuda.empty_cache()
     return rows
+
+
+TRAIN_BATCH = 128  # the fine-tune CLI's default batch: K1's training shape is [128, 128]
+
+
+def grad_gap(got: List[torch.Tensor], want: List[torch.Tensor], names: List[str]) -> dict:
+    """How far one step's gradients lie from another's: per tensor, max
+    |got - want| over the tensor's scale, its max |want| floored at 1e-4 of
+    the largest of all (a gradient that is 0 in exact arithmetic keeps only
+    rounding). ``gap``: the worst; ``tensor``, ``err``, ``scale``,
+    ``at_floor``: that tensor's name, difference and scale, and whether the
+    scale is the floor; ``worst``: the three worst as (name, gap, scale)."""
+    tops = torch.stack([w.abs().max() for w in want]).tolist()
+    errs = torch.stack([(g - w).abs().max() for g, w in zip(got, want)]).tolist()
+    floor = 1e-4 * max(tops)
+    scales = [max(t, floor) for t in tops]
+    gaps = sorted(((e / sc, n, e, sc) for n, e, sc in zip(names, errs, scales)), reverse=True)
+    gap, name, err, scale = gaps[0]
+    return {"gap": gap, "tensor": name, "err": err, "scale": scale, "at_floor": scale == floor,
+            "worst": [(n, g, sc) for g, n, _, sc in gaps[:3]]}
+
+
+def check_token_max_sim_grad(device="cuda", B=TRAIN_BATCH, N=TRAIN_BATCH, Q=32, E=256,
+                             seed=31) -> dict:
+    """K1 with a gradient (``TokenMaxSim``, the in-batch losses' call) against
+    autograd over the plain version, on the same inputs and cotangent: the
+    forward within K1's edge bound 1e-5, both gradients within 1e-5; then
+    the same with exact ties (item n's tokens 0 and 1 both equal to query
+    n's feature, so query n's max is tied), where the gradient must split
+    evenly over the two tokens, as ``jnp.max``'s VJP splits it. ``launches``:
+    K1's launches in those two forwards (2). ``ms`` / ``plain_ms``: the
+    device time of the Function's forward (the kernel) and of the plain
+    forward (:func:`device_ms`), the work ``bytes`` / ``op_seconds`` count;
+    ``fwd_bwd_ms`` / ``plain_fwd_bwd_ms``: forward and backward of each
+    through autograd (CUDA events over a loop: the backward is the plain
+    version recomputed, and the host paces it)."""
+    r = _Rand(device, seed)
+    f, t, g = _unit(r, B, E), _unit(r, N, Q, E), r.normal(B, N)
+    row = {"max_abs_err": 0.0, "grad_max_abs_err": 0.0, "finite": True}
+    before = token_max_sim.launches
+
+    def run(fn, feats, targets):
+        fx = feats.clone().requires_grad_()
+        tx = targets.clone().requires_grad_()
+        out = fn(fx, tx)
+        out.backward(g)
+        return out.detach(), fx.grad, tx.grad
+
+    for case in ("random", "ties"):
+        if case == "ties":
+            t = t.clone()
+            t[:, 0] = t[:, 1] = f[torch.arange(N, device=device) % B]
+        got = run(TokenMaxSim.apply, f, t)
+        want = run(token_max_sim_plain, f, t)
+        row["max_abs_err"] = max(row["max_abs_err"], (got[0] - want[0]).abs().max().item())
+        row["grad_max_abs_err"] = max(row["grad_max_abs_err"], *(
+            (a - b).abs().max().item() for a, b in zip(got[1:], want[1:])))
+        row["finite"] &= all(bool(torch.isfinite(x).all()) for x in got)
+    torch.cuda.synchronize()
+    row["launches"] = token_max_sim.launches - before
+    tied = got[2]  # the tied case's target gradient
+    row["tie_split_even"] = bool(torch.equal(tied[:, 0], tied[:, 1])) and bool(
+        (tied[:min(B, N), 0].abs().sum(-1) > 0).all())
+    with torch.no_grad():
+        row["ms"] = device_ms(lambda: TokenMaxSim.apply(f, t))[0]
+        row["plain_ms"] = device_ms(lambda: token_max_sim_plain(f, t))[0]
+    row["fwd_bwd_ms"] = cuda_ms(lambda: run(TokenMaxSim.apply, f, t))
+    row["plain_fwd_bwd_ms"] = cuda_ms(lambda: run(token_max_sim_plain, f, t))
+    row["ok"] = (row["finite"] and row["max_abs_err"] <= 1e-5
+                 and row["grad_max_abs_err"] <= 1e-5 and row["tie_split_even"]
+                 and row["launches"] == 2)
+    row["shape"] = f"B={B} N={N} Q={Q} E={E} fp32, forward + backward, random and tied"
+    # the forward's work (``ms``): f and t read, the scores written; one product
+    row["bytes"] = 4 * (B * E + N * Q * E + B * N)
+    row["op_seconds"] = 2 * B * N * Q * E / PEAK_OPS["fp32"]
+    return row
 
 
 # ------------------------------------------------------------------- K2

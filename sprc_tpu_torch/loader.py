@@ -59,11 +59,12 @@ MODEL_CONFIGS = {
 
 _PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
 # sub-configs that an override may give as a dict, with the fields of the JAX
-# package's dataclass that only training or compilation reads: dropped here,
-# where any other unknown field raises
+# package's dataclass that the port does not read (attention dropout: the JAX
+# model never applies it; initialisers; rematerialisation and scanned blocks):
+# dropped here, where any other unknown field raises
 _SUB_CONFIGS = {
     "vit_config_override": (ViTConfig, {"remat", "scan_blocks"}),
-    "qformer_config_override": (QFormerConfig, {"dropout_rate", "attention_dropout_rate",
+    "qformer_config_override": (QFormerConfig, {"attention_dropout_rate",
                                                 "initializer_range", "remat"}),
 }
 _JAX_ONLY_FIELDS = {"freeze_vit", "vit_remat", "qformer_remat"}
@@ -82,6 +83,8 @@ def coerce_overrides(overrides: dict) -> dict:
     dataclass."""
     out = {}
     for key, value in overrides.items():
+        if key == "freeze_vit" and not value:
+            raise ValueError("freeze_vit=False: the port trains with the ViT frozen only")
         if key in _JAX_ONLY_FIELDS:
             continue
         if key in _SUB_CONFIGS and isinstance(value, dict):

@@ -4,12 +4,21 @@ Frozen ViT -> fp32 ``ln_vision`` -> Q-Former (learned queries,
 cross-attention every second layer) -> 256-d vision / text projections, an
 ITM head and a learned temperature (reference
 blip2_qformer_cir_align_prompt.py:44-92). This module carries the encode and
-scoring surface that serving runs; the training losses come later.
+scoring surface that serving runs and the training entry points shared by
+the losses of :mod:`.cir_align_prompt`.
 
 Attribute names are the reference torch module's (``visual_encoder``,
 ``ln_vision``, ``Qformer.bert``, ``query_tokens``, ``vision_proj``,
 ``text_proj``, ``itm_head``, ``temp``), so a reference-layout state dict
 loads with ``strict=True``. Images enter NHWC.
+
+Training (the losses live in the flagship subclass): the ViT is frozen, as
+in the recipe (``requires_grad`` off, kept in eval mode by :meth:`train`,
+LAVIS's ``disabled_train``) and runs under ``torch.no_grad()``, so its
+blocks launch kernel K2 on every live step. ``ln_vision`` and everything
+after it train. :meth:`encode_tower` is the boundary the feature cache
+stores (``sprc_tpu_torch/train/feature_cache.py``); the flagship's
+``forward_cached`` trains from it.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sprc_tpu_torch.models.qformer import QFormer, QFormerConfig
@@ -25,7 +35,7 @@ from sprc_tpu_torch.models.vit import (ViTConfig, build_tower, clip_vit_l_config
                                        eva_vit_g_config)
 from sprc_tpu_torch.ops import primitives
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, l2_normalize
-from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain
+from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim, token_max_sim, token_max_sim_plain
 
 Tensor = torch.Tensor
 
@@ -95,6 +105,7 @@ class Blip2CirBase(nn.Module):
         self.visual_encoder = build_tower(vcfg)
         # fp32 LayerNorm bridging the (b)f16 tower into the Q-Former (eps 1e-5)
         self.ln_vision = LayerNormFP32(vcfg.width, 1e-5)
+        self.visual_encoder.requires_grad_(False)  # frozen (reference freeze_vit=True)
         self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg)})
         self.query_tokens = nn.Parameter(torch.empty(1, cfg.num_query_token, H))
         self.vision_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
@@ -107,6 +118,13 @@ class Blip2CirBase(nn.Module):
     def qformer(self) -> QFormer:
         return self.Qformer["bert"]
 
+    def train(self, mode: bool = True) -> "Blip2CirBase":
+        """Training mode for everything but the frozen tower, which stays in
+        eval mode (LAVIS ``disabled_train``)."""
+        super().train(mode)
+        self.visual_encoder.eval()
+        return self
+
     # ---------------------------------------------------------------- towers
 
     def encode_tower(self, images: Tensor) -> Tensor:
@@ -118,22 +136,37 @@ class Blip2CirBase(nn.Module):
         of the tower features)."""
         return self.ln_vision(self.encode_tower(images).float())
 
+    def embed_cached(self, tower_feats: Tensor) -> Tensor:
+        """Cached or live tower features -> fp32 ln_vision embeddings (the
+        tower is frozen: no gradient flows into it)."""
+        return self.ln_vision(tower_feats.detach().float())
+
+    def encode_image_pair(self, reference: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+        """A training step's two image batches in one tower call of 2B
+        images (every op of the tower is per image), without a graph."""
+        B = reference.shape[0]
+        with torch.no_grad():
+            tower = self.encode_tower(torch.cat([reference, target]))
+        return self.embed_cached(tower[:B]), self.embed_cached(tower[B:])
+
     # ------------------------------------------------------------ Q-Former passes
 
     def _queries(self, batch: int) -> Tensor:
         return self.query_tokens.expand(batch, -1, -1)
 
-    def embed_image_queries(self, image_embeds: Tensor) -> Tensor:
+    def embed_image_queries(self, image_embeds: Tensor,
+                            generator: Optional[torch.Generator] = None) -> Tensor:
         """Queries-only Q-Former pass over image embeds -> [B, Q, hidden]."""
         return self.qformer(query_embeds=self._queries(image_embeds.shape[0]),
-                            image_embeds=image_embeds)
+                            image_embeds=image_embeds, generator=generator)
 
-    def target_features(self, image_embeds: Tensor) -> Tensor:
+    def target_features(self, image_embeds: Tensor,
+                        generator: Optional[torch.Generator] = None) -> Tensor:
         """L2-normalized per-query target features [B, Q, embed_dim]."""
-        return l2_normalize(self.vision_proj(self.embed_image_queries(image_embeds)))
+        return l2_normalize(self.vision_proj(self.embed_image_queries(image_embeds, generator)))
 
-    def fuse_reference(self, image_embeds: Tensor, input_ids: Tensor,
-                       text_mask: Tensor) -> Tuple[Tensor, Tensor]:
+    def fuse_reference(self, image_embeds: Tensor, input_ids: Tensor, text_mask: Tensor,
+                       generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         """The SPRC two-pass fusion (...cir_align_prompt.py:119-139): queries +
         text cross-attend into the reference image; the fused queries are
         re-fed with the text and no image; the hidden at the first text
@@ -145,10 +178,11 @@ class Blip2CirBase(nn.Module):
             [torch.ones((B, Q), dtype=text_mask.dtype, device=text_mask.device), text_mask],
             dim=1)
         fusion_hidden = self.qformer(input_ids=input_ids, query_embeds=self._queries(B),
-                                     attention_mask=attn_mask, image_embeds=image_embeds)
+                                     attention_mask=attn_mask, image_embeds=image_embeds,
+                                     generator=generator)
         fused_queries = fusion_hidden[:, :Q]
         text_hidden = self.qformer(input_ids=input_ids, query_embeds=fused_queries,
-                                   attention_mask=attn_mask)
+                                   attention_mask=attn_mask, generator=generator)
         fusion_feats = l2_normalize(self.text_proj(text_hidden[:, Q]))
         return fused_queries, fusion_feats
 
@@ -172,6 +206,17 @@ class Blip2CirBase(nn.Module):
 
     @staticmethod
     def token_max_sim(feats: Tensor, target_feats: Tensor) -> Tensor:
-        """max over target query tokens of <feat, token>: [B, E] x [N, Q, E] -> [B, N]."""
+        """max over target query tokens of <feat, token>: [B, E] x [N, Q, E] ->
+        [B, N]; with a gradient (grad on, an input that requires it) through
+        :class:`TokenMaxSim`, the same kernel forward."""
         fn = primitives.kernel_or_reference(token_max_sim, token_max_sim_plain)
+        if fn is token_max_sim and torch.is_grad_enabled() and (
+                feats.requires_grad or target_feats.requires_grad):
+            fn = TokenMaxSim.apply
         return fn(feats.float().contiguous(), target_feats.float().contiguous())
+
+
+def cross_entropy_diagonal(logits: Tensor) -> Tensor:
+    """Mean cross-entropy with the diagonal as labels (in-batch contrastive)."""
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return F.cross_entropy(logits.float(), labels)

@@ -28,9 +28,24 @@ every layer runs kernel K4, the same wrapper with ``int8=True``: the ten
 dense projections as int8 products over codes derived at load time; the
 image embeds are quantised once a pass (``quantize_rows``, by the same
 choice of kernel or plain version as the layers) and every cross layer
-takes their codes and row scales. The
-decoder (UniLM) mask, the ``no_img`` splice and the attention-probability
-outputs belong to training and the variant zoo and are not here yet.
+takes their codes and row scales.
+
+In training mode (``module.train()``, with autograd recording:
+:func:`training`) every layer runs instead the unfused
+composition of the JAX package's ``QFormerAttention`` / ``QFormerFFN``
+(``sprc_tpu/models/qformer.py:160-229``), which the JAX package also runs
+when not ``deterministic``: the dense products through :class:`Linear`
+(``torch.matmul``), attention through :func:`dot_product_attention` (its
+einsum path: every Q-Former call is masked or shorter than 128 rows), exact
+GELU, post-LN residuals, and hidden dropout at the JAX package's three
+places (the embeddings, after each attention's output projection, after
+each FFN's second product; ``attention_dropout_rate`` is never read there,
+and the port has no such field). The masks come from the ``generator``
+the caller passes down (:func:`sprc_tpu_torch.ops.layers.dropout`). The
+``no_img`` text pass (SPRC's prompt pass) splices the query embeds after
+the CLS token, with positions over the whole spliced sequence. The decoder
+(UniLM) mask and the attention-probability outputs belong to the variant zoo
+and are not here yet.
 """
 
 from __future__ import annotations
@@ -42,8 +57,9 @@ import torch
 from torch import nn
 
 from sprc_tpu_torch.ops import primitives
+from sprc_tpu_torch.ops.attention import dot_product_attention
 from sprc_tpu_torch.ops.fused_qformer import fused_qformer_layer, fused_qformer_layer_plain
-from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
+from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, dropout
 
 NEG_INF = -10000.0  # the reference's additive mask constant
 
@@ -60,12 +76,20 @@ class QFormerConfig:
     max_position_embeddings: int = 512
     layer_norm_eps: float = 1e-12
     query_length: int = 32
+    dropout_rate: float = 0.1  # hidden dropout in training mode
     dtype: torch.dtype = torch.float32
     int8: bool = False  # int8 dense projections in every layer (serving only)
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+def training(module: nn.Module) -> bool:
+    """The training branch runs where a module is in training mode and
+    autograd records (the JAX package's ``deterministic=False``); otherwise,
+    as under ``torch.no_grad()`` or ``inference_mode()``, the serving path."""
+    return module.training and torch.is_grad_enabled()
 
 
 def make_additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
@@ -84,16 +108,24 @@ class QFormerEmbeddings(nn.Module):
         self.register_buffer(
             "position_ids", torch.arange(cfg.max_position_embeddings)[None], persistent=True)
 
-    def forward(self, input_ids: Optional[torch.Tensor],
-                query_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, input_ids: Optional[torch.Tensor], query_embeds: Optional[torch.Tensor],
+                no_img: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if input_ids is not None:
-            L = input_ids.shape[1]
-            x = self.word_embeddings(input_ids) + self.position_embeddings(self.position_ids[:, :L])
-            if query_embeds is not None:
-                x = torch.cat([query_embeds.to(x.dtype), x], dim=1)
+            text = self.word_embeddings(input_ids)
+            if no_img and query_embeds is not None:
+                # queries after CLS, positions over the whole spliced sequence
+                x = torch.cat([text[:, :1], query_embeds.to(text.dtype), text[:, 1:]], dim=1)
+                x = x + self.position_embeddings(self.position_ids[:, :x.shape[1]])
+            else:
+                x = text + self.position_embeddings(self.position_ids[:, :text.shape[1]])
+                if query_embeds is not None:
+                    x = torch.cat([query_embeds.to(x.dtype), x], dim=1)
         else:
             x = query_embeds
-        return self.LayerNorm(x).to(self.cfg.dtype)
+        x = self.LayerNorm(x)
+        if training(self):
+            x = dropout(x, self.cfg.dropout_rate, generator)
+        return x.to(self.cfg.dtype)
 
 
 class SelfProjections(nn.Module):
@@ -131,6 +163,20 @@ class QFormerAttention(nn.Module):
         self.self = SelfProjections(cfg.hidden_size, kv_width, cfg.int8)
         self.output = DenseLN(cfg.hidden_size, cfg.hidden_size, cfg.layer_norm_eps, cfg.int8)
 
+    def train_forward(self, hidden: torch.Tensor, kv: torch.Tensor,
+                      bias: Optional[torch.Tensor], cfg: QFormerConfig,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The unfused block: q/k/v, attention, ``out``, dropout,
+        ``LN(out + hidden)``. ``bias``: [B, 1, 1, Sk] additive or None."""
+        B, S, W = hidden.shape
+        H, D = cfg.num_heads, cfg.head_dim
+        q = self.self.query(hidden).view(B, S, H, D)
+        k = self.self.key(kv).view(B, kv.shape[1], H, D)
+        v = self.self.value(kv).view(B, kv.shape[1], H, D)
+        ctx = dot_product_attention(q, k, v, bias).reshape(B, S, W)
+        out = dropout(self.output.dense(ctx), cfg.dropout_rate, generator)
+        return self.output.LayerNorm(out + hidden)
+
     def kernel_params(self) -> dict:
         s, o = self.self, self.output
         return {"query": _dense_params(s.query, self.int8),
@@ -138,6 +184,13 @@ class QFormerAttention(nn.Module):
                 "value": _dense_params(s.value, self.int8),
                 "out": _dense_params(o.dense, self.int8),
                 "ln": (o.LayerNorm.weight, o.LayerNorm.bias)}
+
+
+def _ffn_train(intermediate: Dense, output: DenseLN, x: torch.Tensor, cfg: QFormerConfig,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The unfused FFN: fc1, exact GELU, fc2, dropout, ``LN(h + x)``."""
+    h = output.dense(primitives.gelu(intermediate.dense(x)))
+    return output.LayerNorm(dropout(h, cfg.dropout_rate, generator) + x)
 
 
 def _ffn_params(intermediate: Dense, output: DenseLN, int8: bool) -> dict:
@@ -161,11 +214,14 @@ class QFormerLayer(nn.Module):
         self.output_query = DenseLN(M, H, eps, cfg.int8)
 
     def forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
-                image_embeds, query_length: int) -> torch.Tensor:
+                image_embeds, query_length: int,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """image_embeds: [B, Si, Wi], None, or with int8 the pair (codes,
         scales) of :meth:`QFormer.forward`'s one quantisation a pass."""
         cfg = self.cfg
         cross = self.has_cross_attention and image_embeds is not None
+        if training(self):
+            return self.train_forward(hidden, col_bias, image_embeds, query_length, generator)
         fn = primitives.kernel_or_reference(fused_qformer_layer, fused_qformer_layer_plain)
         return fn(
             hidden, col_bias, self.attention.kernel_params(),
@@ -176,6 +232,27 @@ class QFormerLayer(nn.Module):
             heads=cfg.num_heads, eps=cfg.layer_norm_eps, Q=query_length,
             text_ffn_all=image_embeds is None, int8=cfg.int8,
         )
+
+
+    def train_forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
+                      image_embeds: Optional[torch.Tensor], query_length: int,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The JAX package's unfused layer (``qformer.py:363-392``): query
+        rows take cross-attention (on cross layers) and the query FFN, text
+        rows the text FFN; without an image every row takes the text FFN."""
+        cfg = self.cfg
+        bias = None if col_bias is None else col_bias[:, None, None, :]
+        x = self.attention.train_forward(hidden, hidden, bias, cfg, generator)
+        if image_embeds is None:
+            return _ffn_train(self.intermediate, self.output, x, cfg, generator)
+        q = x[:, :query_length]
+        if self.has_cross_attention:
+            q = self.crossattention.train_forward(q, image_embeds, None, cfg, generator)
+        q = _ffn_train(self.intermediate_query, self.output_query, q, cfg, generator)
+        if x.shape[1] == query_length:
+            return q
+        t = _ffn_train(self.intermediate, self.output, x[:, query_length:], cfg, generator)
+        return torch.cat([q, t], dim=1)
 
 
 class Encoder(nn.Module):
@@ -198,11 +275,19 @@ class QFormer(nn.Module):
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 query_embeds: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                image_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                image_embeds: Optional[torch.Tensor] = None, *, no_img: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``no_img``: the text pass with the query embeds spliced after CLS
+        (the layers see no image). ``generator``: the dropout masks' source
+        in training mode (None: the device's default generator)."""
         if input_ids is None and query_embeds is None:
             raise ValueError("need input_ids and/or query_embeds")
+        if self.cfg.int8 and training(self):
+            raise ValueError("the int8 Q-Former serves only; train the fp32 configuration")
         Q = query_embeds.shape[1] if query_embeds is not None else 0
-        hidden = self.embeddings(input_ids, query_embeds)
+        hidden = self.embeddings(input_ids, query_embeds, no_img, generator)
+        if no_img:
+            image_embeds = None
         col_bias = None
         if attention_mask is not None:
             if attention_mask.shape[1] != hidden.shape[1]:
@@ -214,5 +299,5 @@ class QFormer(nn.Module):
             if self.cfg.int8:  # the same rows in every cross layer: quantised once a pass
                 image_embeds = primitives.ops_for(image_embeds).quantize_rows(image_embeds)
         for layer in self.encoder.layer:
-            hidden = layer(hidden, col_bias, image_embeds, Q)
+            hidden = layer(hidden, col_bias, image_embeds, Q, generator)
         return hidden

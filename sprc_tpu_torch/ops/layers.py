@@ -7,13 +7,15 @@ parameters are fp32 and named ``weight`` / ``bias`` as in ``torch.nn``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.primitives import gemm_plain, layer_norm_plain, quick_gelu
 
-__all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize"]
+__all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize", "dropout"]
 
 
 class Linear(nn.Module):
@@ -60,3 +62,15 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     x32 = x.float()
     norm = torch.linalg.vector_norm(x32, dim=dim, keepdim=True)
     return (x32 / norm.clamp_min(eps)).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` outside ``deterministic``: keep each element with
+    probability ``1 - rate`` and scale it by ``1 / (1 - rate)``. The mask is
+    drawn from ``generator`` (``torch.rand``; ``F.dropout`` takes none), so a
+    trainer that owns the generator repeats its masks."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -15,6 +15,12 @@ by bulk copies, which bounds it by reading the gallery's ``N Q E`` floats
 gallery size, with 64-bit offsets; there is no size threshold and no
 fallback. A NaN anywhere in ``feats[b]`` or ``targets[n]`` gives a NaN
 score, as ``amax`` does.
+
+Training needs its gradient: :class:`TokenMaxSim` runs the same kernel
+forward (counted as any launch of the wrapper) and, as the JAX package's
+custom VJPs do (``pallas_block.py:626-631``), differentiates the plain
+version recomputed in its backward. ``amax`` splits the gradient evenly
+over tied tokens, as ``jnp.max``'s VJP does; no backward kernel exists.
 """
 
 from __future__ import annotations
@@ -70,3 +76,21 @@ def token_max_sim(feats: Tensor, targets: Tensor) -> Tensor:
 
 
 token_max_sim.launches = 0
+
+
+class TokenMaxSim(torch.autograd.Function):
+    """:func:`token_max_sim` with a gradient: the kernel forward (the wrapper,
+    which on CPU tensors runs the plain version), autograd over
+    :func:`token_max_sim_plain` recomputed in the backward."""
+
+    @staticmethod
+    def forward(ctx, feats: Tensor, targets: Tensor) -> Tensor:
+        ctx.save_for_backward(feats, targets)
+        return token_max_sim(feats, targets)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        feats, targets = ctx.saved_tensors
+        with torch.enable_grad():
+            f, t = feats.detach().requires_grad_(), targets.detach().requires_grad_()
+            return torch.autograd.grad(token_max_sim_plain(f, t), (f, t), grad)

@@ -7,8 +7,9 @@ strip a fixed punctuation class, collapse whitespace, truncate to
 
 The port's own copy of what validation uses from
 ``sprc_tpu/text/processors.py`` (it imports nothing of ``sprc_tpu``);
-tests/test_torch_inputs.py pins the two equal. The train-time caption
-randomisation and the VQA question processor come with training and VQA.
+tests/test_torch_inputs.py pins the two equal (the train-time caption
+randomisation: tests/test_torch_train_data.py). The VQA question processor
+comes with VQA.
 """
 
 from __future__ import annotations
@@ -43,4 +44,24 @@ def combine_fiq_captions(flattened_captions: List[str]) -> List[str]:
         a = flattened_captions[i].strip(".?, ").capitalize()
         b = flattened_captions[i + 1].strip(".?, ")
         out.append(f"{a} and {b}")
+    return out
+
+
+def randomize_fiq_captions(flattened_captions: List[str], rng) -> List[str]:
+    """Train-time 4-way caption randomization (reference src/utils.py:117-138):
+    (a) cap1 and cap2, (b) cap2 and cap1, (c) cap1, (d) cap2; ``rng`` a
+    ``np.random.RandomState``."""
+    out = []
+    for i in range(0, len(flattened_captions), 2):
+        a = flattened_captions[i].strip(".?, ")
+        b = flattened_captions[i + 1].strip(".?, ")
+        r = rng.random()
+        if r < 0.25:
+            out.append(f"{a.capitalize()} and {b}")
+        elif r < 0.5:
+            out.append(f"{b.capitalize()} and {a}")
+        elif r < 0.75:
+            out.append(a.capitalize())
+        else:
+            out.append(b.capitalize())
     return out

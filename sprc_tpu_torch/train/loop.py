@@ -1,0 +1,174 @@
+"""The train step and its state (counterpart of ``sprc_tpu/train/loop.py``).
+
+The reference's fine-tune script (blip_fine_tune_2.py:257-307) as the JAX
+package has it:
+
+- AdamW (0.9, 0.98, eps 1e-7, weight decay 0.05) over every trainable
+  tensor, with no decay mask (``optax.adamw``), and the OneCycle schedule
+  counted in optimizer updates. The frozen tower is not trainable
+  (``requires_grad`` off) and gets no update. A trainable tensor the losses
+  do not reach (``itm_head``) gets a zero gradient and so decays, as in
+  optax.
+- loss = loss_itc + 0.4 loss_rtc + 0.4 loss_align.
+- Gradient accumulation as ``optax.MultiSteps``: the running mean of k
+  micro-step gradients, then one update; :attr:`Trainer.step` counts
+  micro-steps, :attr:`Trainer.updates` the updates.
+- ``skip_nonfinite``: a step whose loss or any gradient is not finite leaves
+  the parameters and the optimizer state (the accumulation included) as
+  they were; the step count and the dropout generator still advance, so the
+  data and dropout streams stay aligned.
+- Dropout masks come from the trainer's own device ``torch.Generator``
+  (seeded), which the JAX package threads as ``state.rng``.
+
+On the card the step launches kernel K2's chain in the frozen tower (live
+steps) and K1 in both in-batch losses; the Q-Former runs unfused in
+training mode (``torch.matmul``), as the JAX package runs it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from sprc_tpu_torch.train.schedules import onecycle_schedule
+
+Tensor = torch.Tensor
+
+# the reference's AdamW and OneCycleLR settings (blip_fine_tune_2.py:257-261)
+BETAS, EPS, WEIGHT_DECAY = (0.9, 0.98), 1e-7, 0.05
+PCT_START = 1.0 / 50.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-5
+    # reference flag defaults --loss-rtc / --loss-align 0.4 (blip_fine_tune_2.py:379-381)
+    loss_weights: Optional[Dict[str, float]] = None
+    total_steps: int = 10000
+    grad_accum_steps: int = 1
+
+    def weights(self) -> Dict[str, float]:
+        return self.loss_weights or {"loss_rtc": 0.4, "loss_align": 0.4}
+
+
+class Trainer:
+    """The train state (parameters, AdamW, the accumulation, the counters,
+    the dropout generator) and the step over it.
+
+    ``from_embeds``: batches carry ``encode_tower`` rows under
+    ``reference_embeds`` / ``target_embeds`` (the feature cache) and the step
+    runs ``model.forward_cached``; else pixels under ``reference`` /
+    ``target`` and the live forward. Both also carry ``input_ids`` and
+    ``text_mask``; every tensor on the model's device."""
+
+    def __init__(self, model, cfg: TrainConfig, *, seed: int = 0, from_embeds: bool = False,
+                 skip_nonfinite: bool = False):
+        self.model, self.cfg = model, cfg
+        self.from_embeds, self.skip_nonfinite = from_embeds, skip_nonfinite
+        self.names = [n for n, p in model.named_parameters() if p.requires_grad]
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.schedule = onecycle_schedule(cfg.learning_rate, cfg.total_steps,
+                                          pct_start=PCT_START)
+        self.optimizer = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=BETAS,
+                                           eps=EPS, weight_decay=WEIGHT_DECAY)
+        self.generator = torch.Generator(device=self.params[0].device).manual_seed(seed)
+        self.step = 0  # micro-steps taken
+        self.updates = 0  # optimizer updates applied: the schedule's count
+        self.mini_step = 0  # micro-steps in the open accumulation
+        self.acc: Optional[List[Tensor]] = None  # their running mean (grad_accum_steps > 1)
+        self.epoch = 0  # the loader's epoch, kept with the state
+
+    def loss_and_grads(self, batch: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor],
+                                                                List[Tensor]]:
+        """One forward and backward in training mode: (weighted total, the
+        losses, one gradient a trainable tensor, zeros where none flowed)."""
+        self.model.train()
+        for p in self.params:
+            p.grad = None
+        ids, mask = batch["input_ids"], batch["text_mask"]
+        if self.from_embeds:
+            losses = self.model.forward_cached(batch["reference_embeds"], batch["target_embeds"],
+                                               ids, mask, generator=self.generator)
+        else:
+            losses = self.model(batch["reference"], batch["target"], ids, mask,
+                                generator=self.generator)
+        weights = self.cfg.weights()
+        total = 0.0
+        for key, value in losses.items():
+            total = total + weights.get(key, 1.0) * value
+        total.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        for p in self.params:
+            p.grad = None
+        return total, losses, grads
+
+    def train_step(self, batch: Dict[str, Tensor]) -> Dict[str, float]:
+        """One micro-step; returns the losses, ``loss`` (the weighted total)
+        and, with ``skip_nonfinite``, ``skipped_nonfinite`` (1.0 or 0.0)."""
+        total, losses, grads = self.loss_and_grads(batch)
+        values = [total.detach()] + [v.detach() for v in losses.values()]
+        if self.skip_nonfinite:
+            finite = torch.stack([torch.isfinite(total)]
+                                 + [torch.isfinite(g).all() for g in grads]).all()
+            values.append(finite.float())
+        host = torch.stack(values).tolist()
+        ok = not self.skip_nonfinite or host[-1] == 1.0
+        if ok:
+            self.apply_gradients(grads)
+        self.step += 1
+        metrics = dict(zip(losses, host[1:1 + len(losses)]))
+        metrics["loss"] = host[0]
+        if self.skip_nonfinite:
+            metrics["skipped_nonfinite"] = 0.0 if ok else 1.0
+        return metrics
+
+    def apply_gradients(self, grads: List[Tensor]) -> None:
+        """One micro-step's gradients (one a trainable tensor, in
+        :attr:`params` order): accumulated, and every ``grad_accum_steps``-th
+        call one AdamW update at the schedule's rate."""
+        k = self.cfg.grad_accum_steps
+        if k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            for a, g in zip(self.acc, grads):  # optax.MultiSteps' running mean
+                a.add_((g - a) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < k:
+                return
+            grads, self.mini_step = self.acc, 0
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.updates)
+        self.optimizer.step()
+        for p in self.params:
+            p.grad = None
+        if self.acc is not None:
+            for a in self.acc:
+                a.zero_()
+        self.updates += 1
+
+    # ------------------------------------------------------------ state
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs (tensors by reference)."""
+        return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
+                "epoch": self.epoch,
+                "trainable": dict(zip(self.names, (p.detach() for p in self.params))),
+                "optimizer": self.optimizer.state_dict(), "acc": self.acc,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        if list(state["trainable"]) != self.names:
+            raise ValueError("the saved trainable tensors are not this model's")
+        with torch.no_grad():
+            for p, saved in zip(self.params, state["trainable"].values()):
+                p.copy_(saved)
+        self.optimizer.load_state_dict(state["optimizer"])
+        device = self.params[0].device
+        self.acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]
+        self.generator.set_state(state["generator"].cpu())
+        self.step, self.updates = state["step"], state["updates"]
+        self.mini_step, self.epoch = state["mini_step"], state["epoch"]
