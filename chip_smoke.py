@@ -62,6 +62,21 @@ Phases (any failure raises and exits nonzero before the last line):
    quantisers' launches are held per batch, on the main path and in each
    stage-by-stage pass: 23 quantize_static and 61 quantize_rows an encode
    batch (the image rows once a pass), 133 quantize_rows a query batch;
+4d. raw encode, on phase 4's model: the port's native data-plane is built
+   with g++ (the versions of libjpeg and libpng it linked are printed; where
+   the machine lacks their headers or libraries, the reason is printed and
+   the decode checks are left out); PNG bytes from a pure-Python encoder
+   (utils.artifacts.encode_png) over seeded pixels at several sizes decode
+   bit for bit, and the JPEG fixtures of tests/fixtures/dataplane decode and
+   preprocess within the JAX test's bound of Pillow's stored arrays;
+   device_preprocess on the card against the same function on the CPU (TF32
+   off) over 64 seeded uint8 images of mixed true sizes in one 320 x 320
+   buffer (padded wide and tall, unpadded near-square, upsampled small ones),
+   within 1e-5; build_index_raw over 500 such images (8 batches of 64, the
+   last one short) against build_index over the pixels device_preprocess
+   gave, within phase 4's TARGET_* bounds, its launches held as phase 4's (23
+   K2 and 12 K3 a batch; these launches are not phase 4's main path: the
+   counters are put back); its rate beside the model alone's;
 4c. one encode batch of the int8 configuration of blip2_cir_align_prompt /
    pretrain (EVA ViT-g, full width, calibrated as in 4b): its launches (39
    int8 blocks and 39 quantize_static, 12 int8 Q-Former layers and 61
@@ -107,6 +122,10 @@ Phases (any failure raises and exits nonzero before the last line):
        uninterrupted run's within TRAIN_BOUNDS["resume"].
    It prints the live and cached step times (median) and samples/s, the
    peak memory, and its launch counters.
+
+Phases 4, 4b and 5 print their encode rate beside the model alone's: the
+same batches already on the card through extract_target_features (and the
+frozen embeds' cast), one synchronize at the end.
 
 Then it prints one JSON line with each kernel's numbers, the card's name and
 power limit, and last {"ok": true, "device": {...}}.
@@ -186,6 +205,17 @@ TRAIN_BOUNDS = {"live": {"loss": 2e-4, "grad": 0.9},     # 6.5e-5, 3.8e-1
 # towers that round at other places): max / mean abs; readings 5.21e-4 / 7.56e-5
 ROUTE_TARGET_MAX_ABS, ROUTE_TARGET_MEAN_ABS = 1.5e-3, 2.5e-4
 VALIDATE_QUERIES = 64
+# phase 4d: the raw (uint8) gallery in a 320 x 320 buffer, 8 batches with the
+# last one short; device_preprocess on the card against the CPU (TF32 off;
+# the products' summation order: readings about 1e-6)
+RAW_BUFFER = 320
+RAW_IMAGES = GALLERY - 12
+PREPROCESS_MAX_ABS = 1e-5
+# the JAX test's preprocess bound (tests/test_native_dataplane.py): uint8
+# resample rounding differs by at most 1 step / 0.26 std; a decoded value by
+# at most the 2 levels that make that bound
+DATAPLANE_PREPROCESS_BOUND = (2.0 / 255.0) / 0.26 + 1e-5
+DATAPLANE_DECODE_LEVELS = 2
 # tower route -> (the --model-overrides that select it, the kernels whose
 # count must be 39 per image batch, the other routes' kernels: 0)
 ROUTES = {
@@ -348,7 +378,147 @@ def stage_pass(tag, what, counters, fn, quantize=None):
     return stages.rows()
 
 
-def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(), calibrate=False):
+def model_alone_rate(model, batches, frozen_dtype, encode=None, fills=(0,)):
+    """imgs/s of the model alone: the engine's device work on ``batches``
+    already on the card (``profile_serving.model_alone``), one synchronize
+    at the end, after one warm-up pass."""
+    from sprc_tpu_torch.cli.profile_serving import model_alone
+
+    run = model_alone(model, batches, frozen_dtype, encode or model.extract_target_features,
+                      fills, DEVICE)
+    with torch.inference_mode():
+        run()
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+    return sum(len(names) for names, *_ in batches) / (time.perf_counter() - t0)
+
+
+def check_dataplane():
+    """4d's decode checks (phase 4d of the docstring), or the reason the
+    machine cannot build the data-plane. A build that fails for another
+    reason fails the run."""
+    from sprc_tpu_torch.data import native
+    from sprc_tpu_torch.data.dataplane_fixtures import TARGETPAD_DIM
+    from sprc_tpu_torch.native import build as dataplane_build
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    t0 = time.perf_counter()
+    try:
+        path = dataplane_build.build()
+    except FileNotFoundError as e:  # no g++
+        reason = str(e)
+    except RuntimeError as e:
+        missing = [line.strip() for line in str(e).splitlines()
+                   if "No such file or directory" in line or "cannot find -l" in line]
+        if not missing:
+            raise
+        reason = missing[0]
+    else:
+        reason = None
+    if reason is not None:
+        log(f"[4d] data-plane not built on this machine ({reason}): the decode checks are "
+            f"left out (ROADMAP Queue C)")
+        return {"built": False, "reason": reason}
+    ldd = subprocess.run(["ldd", str(path)], capture_output=True, text=True, timeout=60).stdout
+    linked = [line.strip() for line in ldd.splitlines() if "jpeg" in line or "png" in line]
+    log(f"[4d] data-plane built with g++ in {time.perf_counter() - t0:.1f} s: "
+        f"{path.relative_to(ROOT)}; linked {linked}")
+    rng = np.random.default_rng(SEED + 201)
+    for h, w in [(1, 1), (37, 53), (224, 224), (480, 640), (333, 97)]:
+        arr = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if not np.array_equal(native.decode(encode_png(arr)), arr):
+            raise RuntimeError(f"data-plane: a {h} x {w} PNG did not decode bit for bit")
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "dataplane")
+    tfm = native.NativeTransform(dim=TARGETPAD_DIM)
+    worst = {"decode_max_levels": 0, "decode_values_differing": 0, "preprocess_max_abs": 0.0}
+    names = sorted(f[: -len(".jpg")] for f in os.listdir(fixtures) if f.endswith(".jpg"))
+    for name in names:
+        stem = os.path.join(fixtures, name)
+        with open(stem + ".jpg", "rb") as f:
+            decoded = native.decode(f.read()).astype(np.int16)
+        diff = np.abs(decoded - np.load(stem + ".decode.npy"))
+        worst["decode_max_levels"] = max(worst["decode_max_levels"], int(diff.max()))
+        worst["decode_values_differing"] += int((diff != 0).sum())
+        err = np.abs(tfm(stem + ".jpg") - np.load(stem + f".targetpad{TARGETPAD_DIM}.npy")).max()
+        worst["preprocess_max_abs"] = max(worst["preprocess_max_abs"], float(err))
+    log(f"[4d] data-plane: 5 PNGs decoded bit for bit; {len(names)} JPEG fixtures against "
+        f"Pillow's arrays: decode max {worst['decode_max_levels']} levels, "
+        f"{worst['decode_values_differing']} values differ; targetpad {TARGETPAD_DIM} max_abs "
+        f"{worst['preprocess_max_abs']:.3e} (bound {DATAPLANE_PREPROCESS_BOUND:.4f})")
+    if not (len(names) == 5 and worst["decode_max_levels"] <= DATAPLANE_DECODE_LEVELS
+            and worst["preprocess_max_abs"] <= DATAPLANE_PREPROCESS_BOUND):
+        raise RuntimeError(f"data-plane against the JPEG fixtures: {worst}")
+    return {"built": True, "linked": linked, **worst}
+
+
+def phase_raw_encode(model, engine, counters, bounds):
+    """Phase 4d (the docstring) on phase 4's model and engine; the counters
+    are put back, so phase 4's main path counts only its own launches."""
+    from sprc_tpu_torch.data.transforms import device_preprocess
+    from sprc_tpu_torch.utils.artifacts import synthetic_raw_batches
+
+    saved = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    dataplane = check_dataplane()
+    raw = list(synthetic_raw_batches(SEED + 200, RAW_IMAGES, ENCODE_BATCH, RAW_BUFFER))
+    pre = device_preprocess(dim=model.cfg.image_size)
+    _, images, sizes = raw[0]
+    with torch.inference_mode():
+        on_card = pre(torch.from_numpy(images).to(DEVICE), torch.from_numpy(sizes).to(DEVICE))
+        on_cpu = pre(torch.from_numpy(images), torch.from_numpy(sizes))
+        pre_err = (on_card.cpu() - on_cpu).abs().max().item()
+    kinds = {"padded": int((sizes.max(1) / sizes.min(1) >= 1.25).sum()),
+             "under 224": int((sizes.min(1) < 224).sum())}
+    log(f"[4d] device_preprocess, card against CPU (TF32 off), {len(sizes)} images in a "
+        f"{RAW_BUFFER} x {RAW_BUFFER} buffer ({kinds}): max_abs {pre_err:.3e} (bound "
+        f"{PREPROCESS_MAX_ABS})")
+    if not pre_err <= PREPROCESS_MAX_ABS:
+        raise RuntimeError(f"device_preprocess: card against CPU {pre_err}")
+
+    engine.build_index_raw(iter(raw[:1]))  # warm-up
+    sync()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    index = engine.build_index_raw(iter(raw))
+    sync()
+    raw_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    depth = model.visual_encoder.cfg.depth
+    want = {"fused_vit_block": depth * len(raw), "fused_qformer_layer": 12 * len(raw)}
+    log(f"[4d] build_index_raw: {RAW_IMAGES} images in {len(raw)} batches in {raw_s:.3f} s; "
+        f"launches {launches}")
+    if {k: launches[k] for k in want} != want:
+        raise RuntimeError(f"build_index_raw: launches {launches}, expected {want}")
+    with torch.inference_mode():
+        pixels = [(n, pre(torch.from_numpy(im).to(DEVICE), torch.from_numpy(sz).to(DEVICE))
+                   .cpu().numpy()) for n, im, sz in raw]
+    ref = engine.build_index(iter(pixels))
+    assert index.names == ref.names and index.n == ref.n == RAW_IMAGES
+    d = (index.target_feats - ref.target_feats).abs()
+    f = (index.frozen_embeds.float() - ref.frozen_embeds.float()).abs()
+    log(f"[4d] build_index_raw against build_index over device_preprocess's pixels: target "
+        f"feats max_abs {d.max().item():.3e} mean_abs {d.mean().item():.3e}; frozen embeds "
+        f"max_abs {f.max().item():.3e}")
+    if not (d.max().item() <= bounds["target"][0] and d.mean().item() <= bounds["target"][1]
+            and f.max().item() <= bounds["frozen"][0]):
+        raise RuntimeError("build_index_raw disagrees with build_index over the same pixels")
+    alone = model_alone_rate(model, raw, engine.frozen_host_dtype,
+                             lambda im, sz: model.extract_target_features(pre(im, sz)), (0, 1))
+    rate = RAW_IMAGES / raw_s
+    log(f"[4d] raw encode: build_index_raw {rate:.2f} imgs/s, the model alone (with "
+        f"device_preprocess) {alone:.2f} imgs/s: {rate / alone:.3f} of it")
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, saved[k])
+    del index, ref, pixels, on_card
+    return {"dataplane": dataplane, "preprocess_card_vs_cpu_max_abs": pre_err,
+            "target_feats_max_abs": d.max().item(), "launches": launches,
+            "encode_imgs_per_s": rate, "model_alone_imgs_per_s": alone}
+
+
+def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(), calibrate=False,
+                    raw_phase=False):
     """One configuration end to end. ``tag`` names it in the log ("bf16":
     bf16 tower and fp32 Q-Former; "int8": the int8 serving configuration).
     ``bounds`` None: the free-running all-plain comparison is a report. The
@@ -399,6 +569,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
                              frozen_host_dtype=torch.bfloat16)
     engine.build_index(_gallery_batches(ENCODE_BATCH, ENCODE_BATCH, size, SEED + 100))  # warm-up
     sync()
+    alone = model_alone_rate(model, gallery, engine.frozen_host_dtype)
 
     for obj, attr in counters.values():  # count only the main path from here on
         setattr(obj, attr, 0)
@@ -414,7 +585,8 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     assert bool(((norms - 1).abs() < 1e-3).all()), "target features are not unit norm"
     assert tuple(index.frozen_embeds.shape) == (GALLERY, S, D)
     log(f"[main {tag}] gallery encode: {GALLERY} images in {encode_s:.3f} s = "
-        f"{GALLERY / encode_s:.2f} imgs/s (encode_batch {ENCODE_BATCH})")
+        f"{GALLERY / encode_s:.2f} imgs/s (encode_batch {ENCODE_BATCH}); the model alone "
+        f"{alone:.2f} imgs/s: {GALLERY / encode_s / alone:.3f} of it")
     index.save(index_path)
 
     # the first gallery batch again: stage by stage, then through the
@@ -438,6 +610,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
         assert err_tf.max().item() <= bounds["target"][0]
         assert err_tf.mean().item() <= bounds["target"][1]
     target_feats = tf.cpu()
+    raw = phase_raw_encode(model, engine, counters, bounds) if raw_phase else None
     del engine, model, index, tf, first
     torch.cuda.empty_cache()
 
@@ -518,7 +691,7 @@ def phase_main_path(work, tag, gallery, bounds, model_kwargs=(), serve_flags=(),
     del service, engine, index
     torch.cuda.empty_cache()
     return {"launches": launches, "calibration_launches": calibration,
-            "encode_imgs_per_s": GALLERY / encode_s,
+            "encode_imgs_per_s": GALLERY / encode_s, "model_alone_imgs_per_s": alone, "raw": raw,
             "query_1_median_ms": float(np.median(single_ms)),
             "query_32_median_ms": float(np.median(batch_ms)),
             "target_feats": target_feats, "served": served}
@@ -627,6 +800,7 @@ def phase_validate(work, route, gallery):
         f"{time.perf_counter() - t0:.1f} s")
     engine.build_index(iter(gallery[:1]))  # warm-up
     sync()
+    alone = model_alone_rate(model, gallery, engine.frozen_host_dtype)
 
     timed = {}
     inner = engine.build_index
@@ -662,7 +836,8 @@ def phase_validate(work, route, gallery):
     assert tuple(index.frozen_embeds.shape) == (GALLERY, vcfg.seq_len, vcfg.width)
     imgs_per_s = GALLERY / timed["encode_s"]
     log(f"[{tag}] {GALLERY} images encoded in {timed['encode_s']:.3f} s = {imgs_per_s:.2f} "
-        f"imgs/s (encode_batch {ENCODE_BATCH}); {VALIDATE_QUERIES} queries scored; "
+        f"imgs/s (encode_batch {ENCODE_BATCH}; the model alone {alone:.2f} imgs/s: "
+        f"{imgs_per_s / alone:.3f} of it); {VALIDATE_QUERIES} queries scored; "
         f"{total_s:.3f} s in all")
     log(f"[{tag}] " + json.dumps({"route": route, "encode_imgs_per_s": imgs_per_s,
                                   "metrics": results}))
@@ -721,7 +896,7 @@ def phase_validate(work, route, gallery):
     del engine, model, index, tf, first, query
     torch.cuda.empty_cache()
     return {"route": route, "launches": launches, "encode_imgs_per_s": imgs_per_s,
-            "metrics": results, "target_feats": target_feats}
+            "model_alone_imgs_per_s": alone, "metrics": results, "target_feats": target_feats}
 
 
 def _write_cirr_train(root, names, n_triplets, seed):
@@ -1173,7 +1348,7 @@ def main():
     rows = phase_kernels()
     work = os.path.join(ROOT, "sprc_tpu_torch", "_build", "smoke")
     gallery = list(_gallery_batches(GALLERY, ENCODE_BATCH, 224, SEED))  # set-up, untimed
-    bf16 = phase_main_path(work, "bf16", gallery, BOUNDS)
+    bf16 = phase_main_path(work, "bf16", gallery, BOUNDS, raw_phase=True)
     check_counters("bf16", bf16["launches"])
     int8 = phase_main_path(
         work, "int8", gallery, None, model_kwargs={"vit_quant": "int8_calib", "qformer_int8": True},
@@ -1194,7 +1369,8 @@ def main():
     for route, (_, own) in ROUTES.items():
         if route != "block":  # K2's count stays the pretrain_vitL path's
             launches.update({k: runs[route]["launches"][k] for k in own})
-    keep = ("encode_imgs_per_s", "query_1_median_ms", "query_32_median_ms")
+    keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
+            "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
 
     k1 = train.pop("k1_grad")
@@ -1212,10 +1388,12 @@ def main():
     print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train],
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
+                      "raw_encode": bf16["raw"],
                       "int8_vs_bf16_random_weights": against,
                       "int8_eva_encode_batch_launches": eva_int8,
                       "validate_pretrain": {route: {k: run[k] for k in
-                                                    ("encode_imgs_per_s", "metrics", "launches")}
+                                                    ("encode_imgs_per_s", "model_alone_imgs_per_s",
+                                                     "metrics", "launches")}
                                             for route, run in runs.items()},
                       "finetune_pretrain": train}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -27,6 +27,19 @@ reports:
   queries pass (its dense FLOPs over the fp32 GEMM time), and the query
   batch's share of device time in K1 (``token_max_sim_share``).
 
+``encode.feed`` takes the engine over a 512-image gallery (8 batches of 64):
+``RetrievalEngine.build_index`` over seeded fp32 pixel batches and
+``build_index_raw`` over seeded uint8 batches in a 320 x 320 buffer (true
+sizes mixed: ``utils.artifacts.synthetic_raw_batches``), each against the
+model alone on the same batches already on the card (for raw, with
+``device_preprocess`` before it), medians of 3 wall times; the engine's
+host seconds by stage of the median run (``RetrievalEngine.feed_seconds``);
+``device_preprocess``'s device ms on one batch (CUDA events over 10 calls);
+and the native decoder's rate, ``NativeTransform.batch`` over the committed
+JPEG fixtures and seeded PNGs (imgs/s, threads), or why it could not run.
+The frozen embeds come back in bf16 for ``pretrain_vitL`` (the serve CLI's)
+and in fp32 for ``pretrain`` (the validate CLI's).
+
 With ``--int8`` the model is the int8 serving configuration (the tower's
 activation scales calibrated on 16 seeded images, ``vit_quant="int8_static"``,
 ``qformer_int8=True``); the tower's rate is then its dense integer
@@ -124,6 +137,130 @@ def _profile(fn, name: str, out: str, kinds=GROUPS) -> dict:
             "launches_by_group": launches,
             "other_kernels": {k: {"launches": n, "ms": t} for k, (n, t) in
                               sorted(others.items(), key=lambda kv: -kv[1][1])}}
+
+
+FEED_GALLERY, FEED_REPEATS, RAW_BUFFER = 512, 3, 320
+
+
+def _median_run(fn, repeats=FEED_REPEATS):
+    """(median wall ms, the result of the median run) of ``fn()`` after one
+    warm-up call, each run ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        runs.append(((time.perf_counter() - t0) * 1e3, res))
+    runs.sort(key=lambda r: r[0])
+    return runs[len(runs) // 2]
+
+
+def decode_rate() -> dict:
+    """``NativeTransform.batch`` over the JPEG fixtures and seeded PNGs
+    (256 inputs, ``dim`` 224), with every core and with one thread."""
+    import glob
+    from pathlib import Path
+
+    from sprc_tpu_torch.data.native import NativeTransform
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    root = os.path.join(os.path.dirname(__file__), "..", "..", "tests", "fixtures", "dataplane")
+    try:
+        tfm = NativeTransform(dim=224)
+    except (RuntimeError, OSError) as e:  # no compiler, headers or libraries here
+        lines = str(e).strip().splitlines()
+        first = next((line for line in lines if "error" in line), lines[-1])
+        return {"error": f"{type(e).__name__}: {first.strip()[:300]}"}
+    rng = np.random.default_rng(SEED + 7)
+    blobs = [Path(p).read_bytes() for p in sorted(glob.glob(os.path.join(root, "*.jpg")))]
+    blobs += [encode_png(rng.integers(0, 256, (int(h), int(w), 3), dtype=np.uint8))
+              for h, w in rng.integers(200, 500, (8, 2))]
+    sources = [blobs[i % len(blobs)] for i in range(256)]
+    result = {"inputs": len(sources), "distinct": len(blobs)}
+    for threads in (tfm.num_threads, 1):
+        tfm.num_threads = threads
+        tfm.batch(sources[:16])
+        t0 = time.perf_counter()
+        _, ok = tfm.batch(sources)
+        dt = time.perf_counter() - t0
+        if not ok.all():
+            raise RuntimeError(f"decode failed for {int((~ok).sum())} inputs")
+        result[f"imgs_per_s_{threads}_threads"] = len(sources) / dt
+    return result
+
+
+def model_alone(model, batches, frozen_dtype, encode, fills=(0,), dev: str = "cuda"):
+    """The engine's device work on ``batches`` (``(names, *arrays)``)
+    without its feed: each array padded to ``ENCODE_BATCH`` with ``fills``
+    and put on the device once; the returned function encodes them all
+    (``encode(*tensors)``) and casts the frozen embeds as the engine does."""
+    on_card = []
+    for _, *arrays in batches:
+        tensors = []
+        for a, fill in zip(arrays, fills):
+            t = torch.from_numpy(a).to(dev)
+            pad = ENCODE_BATCH - t.shape[0]
+            tensors.append(torch.cat([t, torch.full((pad,) + t.shape[1:], fill, dtype=t.dtype,
+                                                    device=dev)]) if pad else t)
+        on_card.append(tensors)
+
+    def run():
+        for tensors in on_card:
+            _, frozen = encode(*tensors)
+            if frozen_dtype is not None:
+                frozen.to(frozen_dtype)
+    return run
+
+
+def profile_feed(model, dev: str) -> dict:
+    """``encode.feed``: the engine's encode over a 512-image gallery against
+    the model alone, by stage (the module docstring)."""
+    from sprc_tpu_torch.data.transforms import device_preprocess
+    from sprc_tpu_torch.retrieval.engine import RetrievalEngine
+    from sprc_tpu_torch.utils.artifacts import synthetic_raw_batches
+
+    cfg = model.cfg
+    frozen_dtype = torch.bfloat16 if cfg.vit_config().width == 1024 else None
+    engine = RetrievalEngine(model, device=dev, encode_batch=ENCODE_BATCH,
+                             frozen_host_dtype=frozen_dtype)
+    rng = np.random.default_rng(SEED + 100)
+    size = cfg.image_size
+    pixels = [([f"img{s + i:05d}" for i in range(ENCODE_BATCH)],
+               rng.standard_normal((ENCODE_BATCH, size, size, 3), dtype=np.float32))
+              for s in range(0, FEED_GALLERY, ENCODE_BATCH)]
+    raw = list(synthetic_raw_batches(SEED + 101, FEED_GALLERY, ENCODE_BATCH, RAW_BUFFER))
+    pre = device_preprocess(dim=size)
+
+    result = {"gallery": FEED_GALLERY, "encode_batch": ENCODE_BATCH, "repeats": FEED_REPEATS,
+              "frozen_host_dtype": str(frozen_dtype or torch.float32)}
+    with torch.inference_mode():
+        for name, build, batches, encode, fills in (
+                ("build_index", engine.build_index, pixels, model.extract_target_features, (0,)),
+                ("build_index_raw", engine.build_index_raw, raw,
+                 lambda images, sizes: model.extract_target_features(pre(images, sizes)), (0, 1))):
+            model_ms, _ = _median_run(model_alone(model, batches, frozen_dtype, encode, fills, dev))
+            engine_ms, stages = _median_run(lambda: (build(iter(batches)),
+                                                     dict(engine.feed_seconds))[1])
+            result[name] = {
+                "engine_ms": engine_ms, "model_alone_ms": model_ms,
+                "engine_imgs_per_s": FEED_GALLERY / engine_ms * 1e3,
+                "model_alone_imgs_per_s": FEED_GALLERY / model_ms * 1e3,
+                "engine_over_model": engine_ms / model_ms,
+                "host_ms_by_stage": {k: v * 1e3 for k, v in stages.items()}}
+        images, sizes = (torch.from_numpy(a).to(dev) for a in raw[0][1:])
+        pre(images, sizes)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            pre(images, sizes)
+        end.record()
+        torch.cuda.synchronize()
+    result["device_preprocess_device_ms"] = start.elapsed_time(end) / 10
+    result["device_preprocess_shape"] = list(images.shape)
+    result["decode"] = decode_rate()
+    return result
 
 
 def profile_train(model_type: str, out: str) -> dict:
@@ -284,6 +421,7 @@ def main(argv=None) -> dict:
             result["encode"]["bf16_gemm_tflop_per_s"] = flops / (by_group["bf16 GEMM"] * 1e-3) / 1e12
         if by_group.get("fp32 GEMM"):
             result["encode"]["fp32_gemm_tflop_per_s"] = qf_ops / (by_group["fp32 GEMM"] * 1e-3) / 1e12
+    result["encode.feed"] = profile_feed(model, dev)
     with open(os.path.join(args.out, "profile.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)

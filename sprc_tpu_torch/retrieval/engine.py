@@ -7,6 +7,22 @@
   ``[N, Q, E]`` stay on the device, the frozen ViT embeddings ``[N, S, D]``
   (reused as reference embeddings by the protocol, validate_blip.py:377)
   go to the host, optionally cast down (``frozen_host_dtype``).
+  :meth:`RetrievalEngine.build_index` takes float32 pixels,
+  :meth:`RetrievalEngine.build_index_raw` decoded uint8 images with their
+  true sizes and runs ``device_preprocess`` before the tower. Both go
+  through the JAX engine's pipeline: a producer thread iterates the
+  caller's batches (``_prefetch_iter``), batches are submitted while the
+  readbacks of the batch ``DEPTH`` before complete (``_pipelined_encode``).
+- **The feed on CUDA**: uploads go from a ring of ``DEPTH + 1`` pinned
+  staging buffers (allocated once per shape and kept by the engine) over a
+  side stream, with an event per slot that the compute stream waits on and
+  one that the host waits on before refilling the slot; the frozen embeds
+  come back over a second stream into one pinned buffer that doubles when
+  full (no pinned allocation per batch, no host ``torch.cat`` of the
+  gallery: the index's ``frozen_embeds`` is a view of that buffer). The
+  host seconds of each stage of the last build are in
+  :attr:`RetrievalEngine.feed_seconds`. On the CPU a batch is padded, encoded
+  and kept, and the parts are concatenated at the end.
 - **Scoring**: per query batch, the two-pass fusion gives the composed
   feature, then token-max similarity (kernel K1 on CUDA) against the whole
   gallery gives ``[B, N]``; query batches pad to ``query_batch`` with zero
@@ -20,14 +36,132 @@ Everything runs under ``torch.inference_mode()``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
+import time
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sprc_tpu_torch.ops.sim_kernels import token_max_sim
+
+# host seconds of one build, by stage (RetrievalEngine.feed_seconds): waiting
+# for the producer thread, staging and enqueueing uploads, enqueueing the
+# model, pinned allocations (the upload ring; the frozen buffer's growth,
+# with its copy), enqueueing and waiting for downloads, the index's assembly
+FEED_STAGES = ("producer", "h2d", "model", "pinned_alloc", "d2h", "assembly")
+DEPTH = 2  # batches in flight in the encode pipeline (the JAX engine's)
+
+
+def _prefetch_iter(iterable, depth: int = 2):
+    """Producer-thread prefetch: the caller's batch preparation (decode,
+    pad) overlaps the device's compute. The queue holds ``depth`` items and
+    keeps their order; an exception in the producer is raised in the
+    consumer; a consumer that stops early (an error downstream) stops the
+    producer, which never blocks on a full queue for good."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    end = object()
+    err: List[BaseException] = []
+    stop = threading.Event()
+
+    def worker():
+        try:
+            for item in iterable:
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # raised again in the consumer
+            err.append(e)
+        finally:
+            while True:
+                try:
+                    q.put(end, timeout=0.1)
+                    break
+                except queue.Full:
+                    if stop.is_set():
+                        return
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                break
+            yield item
+        t.join()
+        if err:
+            raise err[0]
+    finally:
+        stop.set()
+
+
+class _Slot:
+    """One entry of the upload ring: pinned host buffers, their device
+    twins, ``uploaded`` (recorded on the upload stream after the copies;
+    the compute stream waits on it, and the host before refilling the
+    pinned buffers) and ``consumed`` (recorded on the compute stream after
+    the batch's encode is enqueued; the next upload into the device buffers
+    waits on it)."""
+
+    def __init__(self, specs, device):
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=True) for shape, dtype in specs]
+        self.dev = [torch.empty(shape, dtype=dtype, device=device) for shape, dtype in specs]
+        self.uploaded = torch.cuda.Event()
+        self.consumed = torch.cuda.Event()
+
+
+class _PinnedRows:
+    """The frozen embeds' host rows on CUDA: one pinned buffer, grown by
+    doubling its bytes when a batch does not fit (a power of two, as the
+    pinned allocator rounds), each batch copied in over the download
+    stream. A growth waits for the downloads in flight and copies the rows
+    so far into the new buffer."""
+
+    def __init__(self, stream, stages, first_rows: int):
+        self.stream, self.stages, self.first_rows = stream, stages, first_rows
+        self.buf: Optional[torch.Tensor] = None
+        self.n = 0
+
+    def _grow(self, rows: int, like: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        row_bytes = like[0].numel() * like.element_size()
+        nbytes = 1 << (max(rows, 2 * (0 if self.buf is None else len(self.buf))) * row_bytes
+                       - 1).bit_length()
+        buf = torch.empty((nbytes // row_bytes,) + like.shape[1:], dtype=like.dtype,
+                          pin_memory=True)
+        if self.buf is not None:
+            self.stream.synchronize()
+            buf[: self.n].copy_(self.buf[: self.n])
+        self.buf = buf
+        self.stages["pinned_alloc"] += time.perf_counter() - t0
+
+    def append(self, frozen: torch.Tensor) -> torch.cuda.Event:
+        """Enqueue the download of ``frozen`` (on the device, computed on the
+        current stream) into the next rows; returns its completion event."""
+        end = self.n + frozen.shape[0]
+        if self.buf is None or end > len(self.buf):
+            self._grow(max(end, self.first_rows), frozen)
+        self.stream.wait_stream(torch.cuda.current_stream(frozen.device))
+        done = torch.cuda.Event()
+        with torch.cuda.stream(self.stream):
+            self.buf[self.n: end].copy_(frozen, non_blocking=True)
+            done.record(self.stream)
+        self.n = end
+        return done
+
+    def rows(self) -> torch.Tensor:
+        return self.buf[: self.n]
 
 
 def _pack(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -76,35 +210,165 @@ class RetrievalEngine:
         self.encode_batch = encode_batch
         self.query_batch = query_batch
         self.frozen_host_dtype = frozen_host_dtype
+        self.feed_seconds = dict.fromkeys(FEED_STAGES, 0.0)
+        self._rings: dict = {}  # (shape, dtype) of a batch's arrays -> its upload ring
+        self._h2d = self._d2h = None  # the upload and download streams, made on first use
+        self._preprocess: dict = {}  # (target_ratio, decode_size) -> device_preprocess
 
     # ------------------------------------------------------------- index build
 
     def build_index(self, batches: Iterable[Tuple[Sequence[str], np.ndarray]]) -> GalleryIndex:
         """batches yield (names, images [b, H, W, 3] float32, targetpadded);
-        a short batch is padded to ``encode_batch``."""
+        a short batch is padded to ``encode_batch`` with zero images."""
+        return self._assemble_index(*self._pipelined_encode(
+            ((names, (images,)) for names, images in batches), ((torch.float32, 0),),
+            self.model.extract_target_features))
+
+    def build_index_raw(
+        self,
+        batches: Iterable[Tuple[Sequence[str], np.ndarray, np.ndarray]],
+        *,
+        decode_size: int = 256,
+        target_ratio: float = 1.25,
+    ) -> GalleryIndex:
+        """Index build over RAW uint8 batches: ``(names, images_u8 [b, H, W,
+        3], sizes [b, 2])``, images decoded but not resized (a uniform
+        buffer, the true (h, w) in ``sizes``). The targetpad, bicubic and
+        normalize preprocess (``device_preprocess``) runs on the device
+        before the tower, so the host only decodes, and the upload is a
+        quarter of float32 pixels' bytes. A short batch is padded with zero
+        images of size (1, 1). ``decode_size`` keys the cached preprocess,
+        as in the JAX engine."""
+        from sprc_tpu_torch.data.transforms import device_preprocess
+
+        key = (float(target_ratio), int(decode_size))
+        pre = self._preprocess.get(key)
+        if pre is None:
+            pre = self._preprocess[key] = device_preprocess(
+                dim=self.model.cfg.image_size, target_ratio=target_ratio)
+        return self._assemble_index(*self._pipelined_encode(
+            ((names, (raw, sizes)) for names, raw, sizes in batches),
+            ((torch.uint8, 0), (torch.int32, 1)),
+            lambda raw, sizes: self.model.extract_target_features(pre(raw, sizes))))
+
+    def _upload(self, arrays, specs, b: int):
+        """CUDA: stage one batch in the next slot of its ring (padding it to
+        ``encode_batch`` there) and copy it over the upload stream; returns
+        the slot, whose device buffers the compute stream may read."""
+        clock = time.perf_counter
+        key = tuple((a.shape[1:], dtype) for a, (dtype, _) in zip(arrays, specs))
+        ring = self._rings.get(key)
+        if ring is None:
+            t0 = clock()
+            ring = self._rings[key] = collections.deque(
+                _Slot([((self.encode_batch,) + shape, dtype) for shape, dtype in key],
+                      self.device) for _ in range(DEPTH + 1))
+            self.feed_seconds["pinned_alloc"] += clock() - t0
+        slot = ring[0]
+        ring.rotate(-1)
+        slot.uploaded.synchronize()  # its last copy out of the pinned buffers is done
+        for host, a, (_, fill) in zip(slot.host, arrays, specs):
+            host[:b].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            if b < self.encode_batch:
+                host[b:].fill_(fill)
+        self._h2d.wait_event(slot.consumed)
+        with torch.cuda.stream(self._h2d):
+            for dev, host in zip(slot.dev, slot.host):
+                dev.copy_(host, non_blocking=True)
+            slot.uploaded.record(self._h2d)
+        torch.cuda.current_stream(self.device).wait_event(slot.uploaded)
+        return slot
+
+    def _pipelined_encode(self, batches, specs, encode):
+        """The JAX engine's pipeline: a producer thread iterates ``batches``
+        (``(names, arrays)``), each batch is padded to ``encode_batch``
+        (``specs``: each array's dtype and pad value), uploaded and encoded,
+        and the readback of the batch ``DEPTH`` before is completed while it
+        computes. Returns (names, device target feats per batch, host frozen
+        embeds [N, S, D])."""
+        cuda = self.device.type == "cuda"
+        clock = time.perf_counter
+        stages = self.feed_seconds = dict.fromkeys(FEED_STAGES, 0.0)
+        if cuda and self._h2d is None:
+            self._h2d, self._d2h = torch.cuda.Stream(self.device), torch.cuda.Stream(self.device)
+        # the first pinned buffer holds 8 batches (512 images at the default encode_batch)
+        pinned = _PinnedRows(self._d2h, stages, 8 * self.encode_batch) if cuda else None
         names: List[str] = []
-        feats_parts, frozen_parts = [], []
-        # on CUDA the frozen embeds go to pinned host buffers asynchronously, so
-        # the host enqueues the next batch while this one computes and copies
-        pinned = self.device.type == "cuda"
-        with torch.inference_mode():
-            for batch_names, images in batches:
-                b = images.shape[0]
-                if b < self.encode_batch:
-                    pad = np.zeros((self.encode_batch - b,) + images.shape[1:], images.dtype)
-                    images = np.concatenate([images, pad], axis=0)
-                imgs = torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(self.device)
-                feats, frozen = self.model.extract_target_features(imgs)
-                if self.frozen_host_dtype is not None:
-                    frozen = frozen.to(self.frozen_host_dtype)
-                feats_parts.append(feats[:b].float())
-                host = torch.empty(frozen[:b].shape, dtype=frozen.dtype, pin_memory=pinned)
-                frozen_parts.append(host.copy_(frozen[:b], non_blocking=pinned))
-                names.extend(batch_names)
-            if pinned:  # the host buffers are read below
-                torch.cuda.current_stream(self.device).synchronize()
-        return GalleryIndex(names=names, target_feats=torch.cat(feats_parts).contiguous(),
-                            frozen_embeds=torch.cat(frozen_parts), n=len(names))
+        feats_parts: List[torch.Tensor] = []
+        frozen_parts: List[torch.Tensor] = []
+        inflight: collections.deque = collections.deque()
+
+        def submit(batch):
+            batch_names, arrays = batch
+            b = arrays[0].shape[0]
+            if b > self.encode_batch:
+                raise ValueError(f"a batch of {b} images is larger than encode_batch "
+                                 f"({self.encode_batch})")
+            t0 = clock()
+            if cuda:
+                slot = self._upload(arrays, specs, b)
+                tensors = slot.dev
+            else:
+                tensors = []
+                for a, (dtype, fill) in zip(arrays, specs):
+                    if b < self.encode_batch:
+                        pad = np.full((self.encode_batch - b,) + a.shape[1:], fill, a.dtype)
+                        a = np.concatenate([a, pad], axis=0)
+                    tensors.append(torch.from_numpy(np.ascontiguousarray(a)).to(dtype))
+            t1 = clock()
+            feats, frozen = encode(*tensors)
+            if self.frozen_host_dtype is not None:
+                frozen = frozen.to(self.frozen_host_dtype)
+            t2 = clock()
+            stages["h2d"] += t1 - t0
+            stages["model"] += t2 - t1
+            if not cuda:
+                return batch_names, feats[:b], frozen[:b], None
+            slot.consumed.record(torch.cuda.current_stream(self.device))
+            done = pinned.append(frozen[:b])
+            stages["d2h"] += clock() - t2
+            return batch_names, feats[:b], frozen, done
+
+        def drain():
+            t0 = clock()
+            batch_names, feats, frozen, done = inflight.popleft()
+            if done is None:
+                frozen_parts.append(frozen)
+            else:
+                done.synchronize()  # its rows are on the host; its device tensor may go
+            feats_parts.append(feats)
+            names.extend(batch_names)
+            stages["d2h"] += clock() - t0
+
+        it = _prefetch_iter(batches, depth=DEPTH)
+        try:  # on an error here, close() stops the producer thread at once
+            with torch.inference_mode():
+                while True:
+                    t0 = clock()
+                    batch = next(it, None)
+                    stages["producer"] += clock() - t0
+                    if batch is None:
+                        break
+                    inflight.append(submit(batch))
+                    if len(inflight) > DEPTH:
+                        drain()
+                while inflight:
+                    drain()
+        finally:
+            it.close()
+        if not names:
+            raise ValueError("the gallery is empty: no batch to encode")
+        return names, feats_parts, pinned.rows() if cuda else torch.cat(frozen_parts)
+
+    def _assemble_index(self, names, feats_parts, frozen) -> GalleryIndex:
+        """The index over the device's target feats (concatenated on the
+        device) and the host's frozen embeds."""
+        t0 = time.perf_counter()
+        feats = torch.cat([f.to(self.device, torch.float32) for f in feats_parts]).contiguous()
+        index = GalleryIndex(names=list(names), target_feats=feats, frozen_embeds=frozen,
+                             n=len(names))
+        self.feed_seconds["assembly"] += time.perf_counter() - t0
+        return index
 
     def load_index(self, path: str) -> GalleryIndex:
         """Reload a :meth:`GalleryIndex.save` file (from either package)."""
@@ -114,9 +378,7 @@ class RetrievalEngine:
         frozen = _unpack(npz["frozen_embeds"], meta["frozen_dtype"])
         if feats.shape[0] != meta["n"] or frozen.shape[0] != meta["n"]:
             raise ValueError(f"{path}: index holds {feats.shape[0]} rows, meta says {meta['n']}")
-        return GalleryIndex(names=list(meta["names"]),
-                            target_feats=feats.float().to(self.device).contiguous(),
-                            frozen_embeds=frozen, n=meta["n"])
+        return self._assemble_index(meta["names"], [feats], frozen)
 
     # --------------------------------------------------------------- scoring
 

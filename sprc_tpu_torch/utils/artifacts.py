@@ -11,7 +11,9 @@ or pass its path. :func:`write_synthetic_bert_vocab` writes a mechanically
 valid WordPiece vocab (specials + ascii chars + ##suffixes) for smoke runs;
 it is NOT the real bert-base-uncased vocab, never for real checkpoints.
 :func:`synthetic_calibration_images` is the same kind of stand-in for the
-int8 tower's calibration set.
+int8 tower's calibration set, :func:`synthetic_raw_batches` for the raw
+(uint8) gallery encode, and :func:`encode_png` makes PNG bytes without
+Pillow.
 """
 
 from __future__ import annotations
@@ -55,6 +57,68 @@ def synthetic_calibration_images(seed: int, n: int = 16, size: int = 224):
     import numpy as np
 
     return np.random.default_rng(seed).standard_normal((n, size, size, 3), dtype=np.float32)
+
+
+# true sizes (h, w) of the synthetic raw gallery, in turn: wide and tall
+# images that targetpad pads, near-square ones that it does not, and images
+# under 224 px that upsample
+RAW_SIZE_KINDS = ("wide", "tall", "square", "small")
+
+
+def synthetic_raw_batches(seed: int, n: int, batch: int, buffer: int = 320):
+    """Seeded raw gallery batches ``(names, images_u8 [b, buffer, buffer, 3],
+    sizes [b, 2] int32)``, the input of ``RetrievalEngine.build_index_raw``:
+    image ``i`` is of kind ``RAW_SIZE_KINDS[i % 4]``, its true ``(h, w)``
+    drawn inside the buffer (for a 320 buffer: the short side of wide and
+    tall images 96 to 199, near-square sides 230 to 320 within a ratio of
+    1.2, small images 40 to 199), its pixels seeded, the buffer zero beyond
+    it (as a decoder fills a uniform buffer). The last batch is short when ``batch``
+    does not divide ``n``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for s in range(0, n, batch):
+        b = min(batch, n - s)
+        images = rng.integers(0, 256, (b, buffer, buffer, 3), dtype=np.uint8)
+        sizes = np.empty((b, 2), np.int32)
+        for j in range(b):
+            kind = RAW_SIZE_KINDS[(s + j) % len(RAW_SIZE_KINDS)]
+            if kind in ("wide", "tall"):
+                short = int(rng.integers(buffer * 3 // 10, buffer * 5 // 8))
+                long = int(rng.integers(int(short * 1.3) + 1, buffer + 1))
+                h, w = (short, long) if kind == "wide" else (long, short)
+            elif kind == "square":
+                h = int(rng.integers(buffer * 18 // 25, buffer + 1))
+                w = int(rng.integers(int(h / 1.2), min(buffer, int(h * 1.2)) + 1))
+            else:
+                h, w = (int(v) for v in rng.integers(buffer // 8, buffer * 5 // 8, 2))
+            sizes[j] = (h, w)
+            images[j, h:] = 0
+            images[j, :, w:] = 0
+        yield [f"raw{i:05d}" for i in range(s, s + b)], images, sizes
+
+
+def encode_png(pixels) -> bytes:
+    """uint8 RGB ``[H, W, 3]`` -> PNG bytes (8-bit truecolour, no filter),
+    with zlib and struct only: a machine without Pillow can still make the
+    native decoder's inputs."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    h, w, c = pixels.shape
+    if c != 3:
+        raise ValueError(f"encode_png takes [H, W, 3] RGB, got {pixels.shape}")
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, w * 3)], axis=1)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def ensure_bert_vocab(path: Optional[str] = None) -> str:

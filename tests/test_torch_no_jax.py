@@ -2,7 +2,8 @@
 
 In a fresh interpreter, ``jax``, ``flax`` and ``sprc_tpu`` are made
 unimportable (``sys.modules[name] = None``) and every module of the port is
-imported; importing builds no kernel.
+imported (the native data-plane's ``native/`` and ``data/native.py`` among
+them); importing builds no kernel and no data-plane library.
 """
 
 import subprocess
@@ -22,6 +23,9 @@ for info in pkgutil.walk_packages(sprc_tpu_torch.__path__, "sprc_tpu_torch."):
     mods.append(info.name)
 from sprc_tpu_torch.ops import _ext
 assert _ext._lib is None, "importing built the kernels"
+from sprc_tpu_torch.data import native
+assert native._LIB is None, "importing built the data-plane"
+assert {"sprc_tpu_torch.native", "sprc_tpu_torch.native.build", "sprc_tpu_torch.data.native"} <= set(mods)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
