@@ -9,8 +9,9 @@ Phases (any failure raises and exits nonzero before the last line):
 2. build: the Hopper kernels of sprc_tpu_torch/csrc are compiled (nvcc,
    sm_90a) into sprc_tpu_torch/_build/;
 3. kernels: K1 (token-max sim), K2 (ViT block) and K3 (Q-Former layer in the
-   three serving shapes) against their plain PyTorch versions on the card, at
-   the shapes the main path gives them (64 images, 32 queries, 512 items);
+   serving shapes, the rerank's among them: phase 8d) against their plain
+   PyTorch versions on the card, at the shapes the main path gives them (64
+   images, 32 queries, 512 items);
    the Q-Former's fp32 GEMM at each of its products and its fp32 attention at
    each of its calls (beside F.linear and SDPA in fp32, with both sides'
    device times); the LayerNorm at each call of kernel_checks.LN_CALLS (the
@@ -123,6 +124,37 @@ Phases (any failure raises and exits nonzero before the last line):
    It prints the live and cached step times (median) and samples/s, the
    peak memory, and its launch counters.
 
+8. rerank (the two-stage ITM rerank, random weights from seed 0):
+   (a) serving on blip2_cir_rerank / pretrain_vitL at full width: the model
+       is saved in the release layout that loader.read_checkpoint reads, the
+       512-image gallery is indexed through its twin and saved, and
+       cli/serve runs with --model-name blip2_cir_rerank --model-path
+       --rerank-top 50 --rerank-step 15; POST /query with 1 and 32 queries
+       and "rerank": true: each reranked top 50 holds stage 1's top 50 (a
+       POST without rerank), the reference masked, the scores stage 1's, and
+       some order moved; a second service whose rerank needs the whole
+       gallery answers 400 ("gallery too small to rerank"); the medians are
+       printed;
+   (b) cli/validate_rerank --dataset CIRR at its defaults (top 200, step 15:
+       tiles of 3000 candidates) on blip2_cir_align_prompt / pretrain (EVA
+       ViT-g) over phase 5's synthetic val split, the rerank model
+       (blip2_cir_rerank / pretrain) saved and read back through
+       --rerank-model-path: the metric JSON, each tile's time with its host
+       gather, the peak memory; the tile's cross key / value products are
+       past 2^31 elements;
+   (c) one tile stage by stage (every K3 launch against its plain version,
+       STAGE_BOUNDS): the EVA CIRR tile of 3000, the ViT-L tile of 750, and
+       the ViT-L tile through blip2_cir_rerank with qformer_int8=True (K4,
+       its 85 quantize_rows held); beside each, the all-plain tile on the
+       card as a report;
+   (d) the kernel phase holds K3 and K4 at SERVING_SHAPES["rerank"] (750
+       pairs, Si = 514), the fp32 GEMM at the memory's key / value products
+       (EVA's at M = 1,542,000, K = 1408: past 2^31, one launch, beside
+       F.linear) and the s8 GEMM at EVA's, and the fp32 attention at a CIRR
+       tile's cross (32 x 514) and masked self (64 x 64) calls beside SDPA;
+   (e) the launch counters of the serving path, the int8 tile and the
+       validate_rerank path: their own kernels launched, no other's.
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -132,12 +164,14 @@ power limit, and last {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -216,6 +250,11 @@ PREPROCESS_MAX_ABS = 1e-5
 # at most the 2 levels that make that bound
 DATAPLANE_PREPROCESS_BOUND = (2.0 / 255.0) / 0.26 + 1e-5
 DATAPLANE_DECODE_LEVELS = 2
+# phase 8, the ITM rerank: serve's flags (bench.py's tile, 15 x 50), and the
+# validate_rerank CLI's CIRR defaults (15 x 200, 3000 candidates a tile, which
+# on EVA ViT-g puts the cross key / value products past 2^31 elements)
+RERANK_TOP, RERANK_STEP = 50, 15
+RERANK_CIRR = (200, 15)
 # tower route -> (the --model-overrides that select it, the kernels whose
 # count must be 39 per image batch, the other routes' kernels: 0)
 ROUTES = {
@@ -336,14 +375,25 @@ PATH_KERNELS = {"bf16": ("token_max_sim", "fused_vit_block", "fused_qformer_laye
                          "gemm_f32", "attention_bf16", "attention_f32", "layer_norm"),
                 "int8": ("token_max_sim", "fused_vit_block_i8", "fused_qformer_layer_int8",
                          "gemm_i8", "attention_bf16", "attention_f32", "layer_norm",
-                         "layer_norm_q8", "quantize_static", "quantize_rows")}
+                         "layer_norm_q8", "quantize_static", "quantize_rows"),
+                # phase 8: serving from a saved index (stage 1 and the rerank:
+                # no tower), one int8 rerank tile (the scorer alone), and
+                # validate_rerank on EVA ViT-g (the gallery encode too)
+                "rerank": ("token_max_sim", "fused_qformer_layer", "gemm_f32", "attention_f32",
+                           "layer_norm"),
+                "rerank int8": ("fused_qformer_layer_int8", "gemm_i8", "attention_f32",
+                                "layer_norm", "quantize_rows"),
+                "rerank EVA": ("token_max_sim", "fused_vit_block", "fused_qformer_layer", "gemm",
+                               "gemm_f32", "attention_bf16", "attention_f32", "layer_norm")}
 # the int8 quantisers' launches per batch: an encode batch of either model
 # (the ctx of every block; the Q-Former's rows, ctx and GELU outputs and the
 # image rows once a pass) and a query batch (the fusion pass, with the image
 # rows once, and the prompt pass)
 INT8_QUANTIZE_PER_BATCH = {"encode": {"quantize_static": 23, "quantize_rows": 61},
                            "encode EVA": {"quantize_static": 39, "quantize_rows": 61},
-                           "query": {"quantize_static": 0, "quantize_rows": 133}}
+                           "query": {"quantize_static": 0, "quantize_rows": 133},
+                           # a rerank tile: the fusion pass's 85 (no prompt pass)
+                           "rerank": {"quantize_static": 0, "quantize_rows": 85}}
 QUANTIZERS = ("quantize_static", "quantize_rows")
 
 
@@ -899,6 +949,297 @@ def phase_validate(work, route, gallery):
             "model_alone_imgs_per_s": alone, "metrics": results, "target_feats": target_feats}
 
 
+def _save_released(model, path):
+    """The model's weights in the fine-tuned release layout that
+    ``loader.read_checkpoint`` reads ({epoch, ClassName: state_dict})."""
+    torch.save({"epoch": 0, type(model).__name__: model.state_dict()}, path)
+    return path
+
+
+def _tile_rows(index, refs, cands):
+    """A rerank tile's reference and candidate rows, gathered from the
+    index's host store as rerank_rankings gathers them."""
+    return index.reference_embeds(refs), index.reference_embeds(list(np.asarray(cands).ravel()))
+
+
+def _hold_tile(tag, counters, scorer, rows, caps, quantize=None):
+    """One rerank tile through ``scorer``: stage by stage (every kernel launch
+    against its plain version on the same inputs), then the all-plain tile on
+    the card against the kernel tile (a report: max |score difference|, and
+    how many queries keep their reranked order). The launches are put back."""
+    from sprc_tpu_torch.ops import primitives
+
+    n = scorer.step * scorer.top
+    what = f"one tile, {len(caps)} x {scorer.top} = {n} candidates"
+    stages = stage_pass(tag, what, counters, lambda: scorer(*rows, caps), quantize)
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    got = scorer(*rows, caps)
+    with primitives.plain_reference():
+        plain = scorer(*rows, caps)
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    order = lambda v: np.argsort(1.0 - v.reshape(len(caps), -1), axis=-1, kind="stable")  # noqa: E731
+    same = int((order(got) == order(plain)).all(-1).sum())
+    err = float(np.abs(got - plain).max())
+    log(f"[{tag}] {what}: all-plain tile on the card against the kernel tile: max |score "
+        f"difference| {err:.3e} (scores {got.min():.4f} to {got.max():.4f}); reranked order "
+        f"equal for {same}/{len(caps)} queries")
+    assert np.isfinite(got).all() and ((got >= 0) & (got <= 1)).all()
+    return {"stages": stages, "plain_max_abs": err, "order_equal": same}
+
+
+def phase_rerank_serve(work, gallery):
+    """Phase 8a and 8c on ViT-L (the docstring): serving with the ITM rerank,
+    one tile stage by stage in fp32 and in int8."""
+    from sprc_tpu_torch.cli.serve import RetrievalService, build_service, make_parser, make_server
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.retrieval.engine import RetrievalEngine
+    from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "rerank"
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    counters = _counters()
+    t0 = time.perf_counter()
+    model = load_model("blip2_cir_rerank", "pretrain_vitL", device=DEVICE, seed=SEED)
+    ckpt = _save_released(model, os.path.join(work, "rerank_vitl.pt"))
+    engine = RetrievalEngine(model, device=DEVICE, encode_batch=ENCODE_BATCH,
+                             frozen_host_dtype=torch.bfloat16)
+    index_path = os.path.join(work, "gallery_index_rerank")
+    engine.build_index(iter(gallery)).save(index_path)  # set-up: the served index
+    sync()
+    log(f"[{tag}] blip2_cir_rerank/pretrain_vitL: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}"
+        f" M params (the twin included), saved to {os.path.relpath(ckpt, ROOT)}, "
+        f"{GALLERY}-image index built through the twin, in {time.perf_counter() - t0:.1f} s")
+    del model, engine
+    torch.cuda.empty_cache()
+
+    args = make_parser().parse_args([
+        "--index-path", index_path, "--device", DEVICE, "--model-name", "blip2_cir_rerank",
+        "--model-type", "pretrain_vitL", "--model-path", ckpt, "--vocab-path", vocab,
+        "--query-batch", str(QUERY_BATCH), "--rerank-top", str(RERANK_TOP),
+        "--rerank-step", str(RERANK_STEP), "--port", "0"])
+    for obj, attr in counters.values():  # count only the rerank serving path from here on
+        setattr(obj, attr, 0)
+    service = build_service(args)
+    service.warm()
+    scorer = service.rerank_scorer
+    servers = [make_server(service, "127.0.0.1", 0)]
+    # a second service on the same engine, whose rerank needs the whole gallery
+    small = RetrievalService(service.engine, service.index, rerank_scorer=ItmRerankScorer(
+        service.engine.model, service.engine.tokenizer, top=GALLERY, step=RERANK_STEP))
+    servers.append(make_server(small, "127.0.0.1", 0))
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True) for srv in servers]
+    for t in threads:
+        t.start()
+    base, base_small = (f"http://127.0.0.1:{srv.server_address[1]}" for srv in servers)
+    rng = np.random.default_rng(SEED + 7)
+    words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
+    names = service.index.names
+    refs = [names[i] for i in rng.choice(GALLERY, QUERY_BATCH, replace=False)]
+    caps = [" ".join(rng.choice(words, rng.integers(3, 9))) for _ in refs]
+    batch = [{"reference": r, "caption": c} for r, c in zip(refs, caps)]
+    times = {"single": [], "batch": [], "stage1_batch": []}
+    try:
+        for _ in range(3):
+            single, ms = _post(f"{base}/query", {**batch[0], "k": RERANK_TOP, "rerank": True})
+            times["single"].append(ms)
+        for _ in range(2):
+            reranked, ms = _post(f"{base}/query", {"queries": batch, "k": RERANK_TOP,
+                                                    "rerank": True})
+            times["batch"].append(ms)
+        stage1, ms = _post(f"{base}/query", {"queries": batch, "k": RERANK_TOP})
+        times["stage1_batch"].append(ms)
+        try:
+            _post(f"{base_small}/query", {**batch[0], "rerank": True})
+            refused = None
+        except urllib.error.HTTPError as err:
+            refused = (err.code, json.loads(err.read()))
+    finally:
+        for srv, t in zip(servers, threads):
+            srv.shutdown()
+            t.join(timeout=30)
+            srv.server_close()
+    assert not any(t.is_alive() for t in threads), "server thread did not stop"
+    sync()
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    # the answers: the reranked prefix is a permutation of stage 1's top 50,
+    # the reference masked, the scores stage 1's; some order moved
+    assert single["results"][0] == reranked["results"][0], "one query and a batch disagree"
+    moved, worst = 0, 0.0
+    for res, s1, ref in zip(reranked["results"], stage1["results"], refs):
+        got = [r["name"] for r in res]
+        assert len(got) == RERANK_TOP and ref not in got, "reference not masked"
+        assert set(got) == {r["name"] for r in s1}, "the reranked prefix left stage 1's top 50"
+        score = {r["name"]: r["score"] for r in s1}
+        worst = max(worst, max(abs(r["score"] - score[r["name"]]) for r in res))
+        moved += got != [r["name"] for r in s1]
+    assert worst <= 1e-6, f"the reranked answers' scores are not stage 1's: {worst}"
+    assert moved > 0, "the rerank moved no query's order"
+    assert refused is not None and refused[0] == 400 and refused[1]["error"].startswith(
+        "ValueError: gallery too small to rerank"), refused
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[{tag}] serve --model-name blip2_cir_rerank --rerank-top {RERANK_TOP} --rerank-step "
+        f"{RERANK_STEP}: POST /query rerank, 1 query: median {med['single']:.3f} ms (3 runs); "
+        f"{QUERY_BATCH} queries: median {med['batch']:.3f} ms (2 runs; stage 1 alone "
+        f"{med['stage1_batch']:.3f} ms); reranked prefix = stage 1's top {RERANK_TOP} on every "
+        f"query, order moved on {moved}/{QUERY_BATCH}, scores stage 1's (max diff {worst:.1e}), "
+        f"reference masked; a gallery too small gets {refused[0]}: {refused[1]['error']!r}")
+    check_counters(tag, launches)
+    out = {"launches": launches, "query_1_median_ms": med["single"],
+           "query_32_median_ms": med["batch"], "stage1_32_ms": med["stage1_batch"],
+           "order_moved": moved, "scorer_seconds": dict(scorer.seconds)}
+
+    # 8c: the first RERANK_STEP queries' tile (750 candidates), stage by stage
+    index = service.index
+    cands = [[r["name"] for r in s1] for s1 in stage1["results"][:RERANK_STEP]]
+    rows = _tile_rows(index, refs[:RERANK_STEP], cands)
+    out["tile_fp32"] = _hold_tile(f"{tag} ViT-L fp32", counters, scorer, rows,
+                                  caps[:RERANK_STEP])
+    tok = service.engine.tokenizer
+    del service, small, scorer
+    torch.cuda.empty_cache()
+
+    model8 = load_model("blip2_cir_rerank", "pretrain_vitL", device=DEVICE, seed=SEED,
+                        qformer_int8=True)
+    scorer8 = ItmRerankScorer(model8, tok, top=RERANK_TOP, step=RERANK_STEP)
+    scorer8(*rows, caps[:RERANK_STEP])  # warm-up
+    sync()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    scores8 = scorer8(*rows, caps[:RERANK_STEP])
+    tile8_s = time.perf_counter() - t0
+    launches8 = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    log(f"[{tag} int8] one tile of {RERANK_STEP * RERANK_TOP} candidates through the int8 "
+        f"Q-Former: {tile8_s * 1e3:.1f} ms; launches {launches8}")
+    want = {"fused_qformer_layer_int8": 12, **INT8_QUANTIZE_PER_BATCH["rerank"]}
+    if {k: launches8[k] for k in want} != want:
+        raise RuntimeError(f"{tag} int8: launches {launches8}, expected {want}")
+    check_counters(f"{tag} int8", launches8)
+    assert np.isfinite(scores8).all()
+    out["tile_int8"] = _hold_tile(f"{tag} ViT-L int8", counters, scorer8, rows,
+                                  caps[:RERANK_STEP], INT8_QUANTIZE_PER_BATCH["rerank"])
+    out.update(launches_int8=launches8, tile_int8_ms=tile8_s * 1e3)
+    del model8, scorer8, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rerank_validate(work, gallery):
+    """Phase 8b and 8c on EVA ViT-g (the docstring): cli/validate_rerank at
+    the CIRR defaults over phase 5's synthetic val split, then its first tile
+    (3000 candidates) stage by stage."""
+    from sprc_tpu_torch.cli import validate, validate_rerank
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.retrieval.metrics import drop_reference, sort_gallery
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "rerank EVA"
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    names = [n for batch_names, _ in gallery for n in batch_names]
+    data = _write_cirr_val(os.path.join(work, "cirr_val"), names, VALIDATE_QUERIES, SEED + 2)
+    counters = _counters()
+    t0 = time.perf_counter()
+    ckpt = _save_released(load_model("blip2_cir_rerank", "pretrain", device=DEVICE, seed=SEED),
+                          os.path.join(work, "rerank_eva.pt"))
+    torch.cuda.empty_cache()
+    args = validate_rerank.parse_args([
+        "--dataset", "CIRR", "--data-path", data, "--vocab-path", vocab,
+        "--encode-batch", str(ENCODE_BATCH), "--query-batch", str(QUERY_BATCH),
+        "--rerank-model-path", ckpt, "--device", DEVICE])
+    assert ((args.rerank_top, args.rerank_step), args.model_type,
+            args.rerank_model_name) == (RERANK_CIRR, "pretrain", "blip2_cir_rerank")
+    model, engine = validate.build_engine(args)
+    scorer = validate_rerank.make_scorer(args, engine)
+    vcfg = scorer.model.cfg.vit_config()
+    assert (vcfg.width, vcfg.depth, type(scorer.model).__name__) == (1408, 39, "CirRerank")
+    sync()
+    log(f"[{tag}] blip2_cir_align_prompt/pretrain (stage 1) and blip2_cir_rerank/pretrain "
+        f"(saved and read back through --rerank-model-path) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    queries = validate.cirr_queries(data)
+
+    # clocks around the index's host gathers and the scorer's tiles (the
+    # engine's and the scorer's own, the rows unchanged)
+    built, gathers, tiles = {}, [], []
+    inner_build = engine.build_index
+
+    def build_index(batches):
+        index = built["index"] = inner_build(batches)
+        inner_rows = index.reference_embeds
+
+        def reference_embeds(names):
+            t = time.perf_counter()
+            rows = inner_rows(names)
+            gathers.append((len(names), time.perf_counter() - t))
+            return rows
+
+        index.reference_embeds = reference_embeds
+        return index
+
+    class TimedScorer:
+        top, step = scorer.top, scorer.step
+
+        def __call__(self, refs, cands, caps):
+            sync()
+            t = time.perf_counter()
+            got = scorer(refs, cands, caps)
+            tiles.append({"candidates": len(cands), "s": time.perf_counter() - t})
+            return got
+
+    engine.build_index = build_index
+    for obj, attr in counters.values():  # count only the validate_rerank path from here on
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = validate_rerank.evaluate_rerank_cirr(engine, iter(gallery), queries, TimedScorer())
+    sync()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    index = built.pop("index")
+    del engine.build_index, index.reference_embeds  # the clocks off: the methods again
+    cand_gathers = [dt for n, dt in gathers if n == tiles[0]["candidates"]]
+    for tile, dt in zip(tiles, cand_gathers):
+        tile["gather_s"] = dt
+    keys = ["group_recall_at1", "group_recall_at2", "group_recall_at3", "recall_at1",
+            "recall_at5", "recall_at10", "recall_at50"]
+    assert list(results) == keys, list(results)
+    assert all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in results.values()), results
+    assert results["recall_at50"] >= results["recall_at10"] >= results["recall_at1"]
+    top, step = RERANK_CIRR
+    full = [t for t in tiles if t["candidates"] == top * step]
+    assert len(tiles) == -(-VALIDATE_QUERIES // step) and len(full) == VALIDATE_QUERIES // step
+    assert all("gather_s" in t for t in full), (gathers, tiles)
+    tile_s = float(np.median([t["s"] + t["gather_s"] for t in full]))
+    gather_s = float(np.median([t["gather_s"] for t in full]))
+    log(f"[{tag}] validate_rerank --dataset CIRR (top {top}, step {step}): {len(tiles)} tiles "
+        f"({len(full)} of {top * step} candidates: median {tile_s:.3f} s = "
+        f"{top * step / tile_s:.1f} candidates/s, of which the host gather of the candidates' "
+        f"rows {gather_s:.3f} s = {gather_s / tile_s:.3f}; the scorer's upload, kernels and "
+        f"readback the rest); {total_s:.3f} s in all with the {GALLERY}-image encode; peak "
+        f"memory {peak:.2f} GiB")
+    log(f"[{tag}] " + json.dumps({"dataset": "CIRR", "rerank_top": top, "rerank_step": step,
+                                  "metrics": results}))
+    check_counters(tag, launches)
+    refs, caps = queries["refs"][:step], queries["captions"][:step]
+    sims = engine.score_queries(index, refs, caps)
+    cands = drop_reference(sort_gallery(sims, index.names), refs)[:, :top]
+    rows = _tile_rows(index, refs, cands)
+    hold = _hold_tile(tag, counters, scorer, rows, caps)
+    log(f"[{tag}] one tile's candidate rows: {rows[1].dtype} {tuple(rows[1].shape)}, "
+        f"{rows[1].numel() * rows[1].element_size() / 2 ** 30:.2f} GiB on the host")
+    del engine, model, scorer, index, rows
+    torch.cuda.empty_cache()
+    return {"launches": launches, "metrics": results, "tile_s": tile_s,
+            "candidates_per_s": top * step / tile_s, "host_gather_s": gather_s,
+            "gather_share": gather_s / tile_s, "tiles": tiles, "peak_memory_gib": peak,
+            "total_s": total_s, "tile": hold}
+
+
 def _write_cirr_train(root, names, n_triplets, seed):
     """A synthetic CIRR train split in the reference's layout (JSON only)."""
     rng = np.random.default_rng(seed)
@@ -1277,7 +1618,9 @@ def kernel_table(rows, launches):
                 **bound_ms(work), "library_ms": library_ms}
 
     shapes = ("queries", "fusion", "prompt")  # K3 / K4: summed over the serving shapes
-    qf_attention = [c for c in by_check if c.startswith("attention f32 qformer ")]
+    qf_attention = [c for c in by_check if c.startswith("attention f32 qformer ")
+                    and " rerank " not in c]
+    rerank_attention = ["attention f32 qformer rerank cross", "attention f32 qformer rerank self"]
     return [
         entry("token_max_sim", "sprc_tpu_torch/csrc/token_max_sim.cu",
               "sprc_tpu/ops/pallas_sim.py:40", ["K1 token_max_sim"]),
@@ -1338,6 +1681,34 @@ def kernel_table(rows, launches):
               "sprc_tpu/ops/pallas_block.py:417", ["quantize static vit_l ctx"]),
         entry("quantize_rows", "sprc_tpu_torch/csrc/quantize.cu",
               "sprc_tpu/ops/pallas_qformer.py:55", ["quantize rows image vit_l encode"]),
+        # phase 8, the ITM rerank: K3 / K4 at bench.py's tile (750 pairs into the
+        # 514-row memory, ViT-L's width; launches: the serving path's and the
+        # int8 tile's), the fp32 GEMM at the memory's key / value products (ViT-L
+        # at that tile; EVA ViT-g at a CIRR tile of 3000, past 2^31 elements,
+        # launches: validate_rerank's), the s8 GEMM at EVA's (launches: the
+        # int8 tile's, ViT-L), the fp32 attention at a CIRR tile's two calls
+        entry("fused_qformer_layer (rerank)", "sprc_tpu_torch/ops/fused_qformer.py",
+              "sprc_tpu/ops/pallas_qformer.py:360", ["K3 qformer_layer rerank"],
+              count="fused_qformer_layer_rerank"),
+        entry("fused_qformer_layer_int8 (rerank)", "sprc_tpu_torch/ops/fused_qformer.py",
+              "sprc_tpu/ops/pallas_qformer.py:360", ["K4 qformer_layer_int8 rerank"],
+              count="fused_qformer_layer_int8_rerank"),
+        entry("gemm_f32 (rerank cross kv)", "sprc_tpu_torch/csrc/gemm.cu",
+              "sprc_tpu/ops/pallas_qformer.py:168", ["gemm f32 qformer cross kv, rerank"],
+              library_ms=by_check["gemm f32 qformer cross kv, rerank"]["library_ms"],
+              count="gemm_f32_rerank"),
+        entry("gemm_f32 (rerank cross kv, EVA)", "sprc_tpu_torch/csrc/gemm.cu",
+              "sprc_tpu/ops/pallas_qformer.py:168", ["gemm f32 qformer cross kv, rerank, EVA"],
+              library_ms=by_check["gemm f32 qformer cross kv, rerank, EVA"]["library_ms"],
+              count="gemm_f32_rerank_eva"),
+        entry("gemm_i8 (rerank cross kv, EVA)", "sprc_tpu_torch/csrc/gemm_i8.cu",
+              "scripts/ablate_int8.py:194", ["gemm_i8 qformer cross kv, rerank, EVA"],
+              library_ms=by_check["gemm_i8 qformer cross kv, rerank, EVA"]["library_ms"],
+              count="gemm_i8_rerank"),
+        entry("attention_f32 (rerank)", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_qformer.py:74", rerank_attention,
+              library_ms=sum(by_check[c]["library_ms"] for c in rerank_attention),
+              count="attention_f32_rerank"),
     ]
 
 
@@ -1359,6 +1730,10 @@ def main():
     del bf16["target_feats"], int8["target_feats"]
     runs = {route: phase_validate(work, route, gallery) for route in ROUTES}
     check_routes_agree(runs)
+    rerank = phase_rerank_serve(work, gallery)
+    rerank_eva = phase_rerank_validate(work, gallery)
+    gc.collect()  # phase 8's servers and clocks leave reference cycles over its models
+    torch.cuda.empty_cache()
     del gallery
     train = phase_train(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -1369,6 +1744,13 @@ def main():
     for route, (_, own) in ROUTES.items():
         if route != "block":  # K2's count stays the pretrain_vitL path's
             launches.update({k: runs[route]["launches"][k] for k in own})
+    launches.update({
+        "fused_qformer_layer_rerank": rerank["launches"]["fused_qformer_layer"],
+        "fused_qformer_layer_int8_rerank": rerank["launches_int8"]["fused_qformer_layer_int8"],
+        "gemm_f32_rerank": rerank["launches"]["gemm_f32"],
+        "gemm_f32_rerank_eva": rerank_eva["launches"]["gemm_f32"],
+        "gemm_i8_rerank": rerank["launches_int8"]["gemm_i8"],
+        "attention_f32_rerank": rerank["launches"]["attention_f32"]})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -1395,7 +1777,14 @@ def main():
                                                     ("encode_imgs_per_s", "model_alone_imgs_per_s",
                                                      "metrics", "launches")}
                                             for route, run in runs.items()},
-                      "finetune_pretrain": train}), flush=True)
+                      "finetune_pretrain": train,
+                      "rerank_vitl": {k: rerank[k] for k in (
+                          "query_1_median_ms", "query_32_median_ms", "stage1_32_ms",
+                          "order_moved", "tile_int8_ms", "launches", "launches_int8")},
+                      "rerank_eva_validate": {k: rerank_eva[k] for k in (
+                          "metrics", "tile_s", "candidates_per_s", "host_gather_s",
+                          "gather_share", "peak_memory_gib", "total_s", "launches")}}),
+          flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip(), flush=True)

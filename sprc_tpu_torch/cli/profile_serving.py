@@ -2,7 +2,7 @@
 
     python -m sprc_tpu_torch.cli.profile_serving [--model-type pretrain|pretrain_vitL]
         [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N] [--train]
-        [--out DIR]
+        [--rerank [--rerank-top N --rerank-step N]] [--out DIR]
 
 Builds ``blip2_cir_align_prompt`` / ``--model-type`` (``pretrain_vitL``: CLIP
 ViT-L, the default; ``pretrain``: EVA ViT-g) at full width with random
@@ -55,6 +55,25 @@ backward) and of a cached step (tower rows, ``forward_cached``), medians of
 5 steps, their samples/s and peak memory, and from one profiled step of
 each the device time by kernel group; the Q-Former's products in training
 are library GEMMs (``torch.matmul``), grouped as such.
+
+With ``--rerank`` it profiles one tile of the ITM rerank instead, on
+``blip2_cir_rerank`` / ``--model-type`` (random weights from seed 0; with
+``--int8`` the int8 Q-Former, the tower as it is: the tile runs no tower):
+``--rerank-step`` queries times their ``--rerank-top`` candidates (default
+15 x 50, bench.py's tile; a CIRR validation tile is 15 x 200), each query's
+32 learned queries and 32-token caption cross-attending the [reference;
+candidate] memory of 2 x 257 rows. The gallery is 64 seeded images encoded
+by the model, its frozen rows on the host as the CLIs keep them (bf16 for
+``pretrain_vitL``, the serve CLI's; fp32 for ``pretrain``, the validate
+CLI's), and the tile goes through ``rerank_rankings`` and
+``ItmRerankScorer`` as serving and validate_rerank run it: the candidates'
+rows gathered on the host, uploaded, the references and captions repeated on
+the card, ``inference_rerank``. It reports the tile's wall ms (median of 5)
+and candidates/s, the host seconds by stage (gather, tokenise, upload, the
+model with the scores' readback), the all-plain tile's wall ms, the peak
+device memory, and from one profiled tile the device time by kernel group,
+the busy share, the launches and the fp32 (or int8) GEMM rate over the
+tile's dense operations (:func:`rerank_dense_ops`).
 
 It prints one JSON object and writes it, the profiler's tables and chrome
 traces under ``--out`` (default ``sprc_tpu_torch/_build/profile`` with the
@@ -320,6 +339,114 @@ def qformer_train_flops(model, batch: int) -> float:
     return 3.0 * forward
 
 
+def rerank_dense_ops(model, candidates: int) -> float:
+    """The dense products of a rerank tile of ``candidates`` pairs: every
+    pair's Q query rows and L caption rows through every layer (q, k, v, out
+    and the FFN), and on the cross layers the query rows' q / out and the
+    memory's 2 S rows' k / v. A product of R x K by K x N counts 2 R K N; the
+    ``itm_head`` is left out."""
+    cfg, q = model.cfg, model.cfg.qformer_config()
+    H, M, Wi = q.hidden_size, q.intermediate_size, q.encoder_width
+    Q, L, S = cfg.num_query_token, cfg.max_txt_len, cfg.vit_config().seq_len
+    layer = 2 * (Q + L) * (4 * H * H + 2 * H * M)
+    cross = 2 * Q * 2 * H * H + 2 * (2 * S) * 2 * Wi * H
+    n_cross = len(range(0, q.num_layers, q.cross_attention_freq))
+    return float(candidates) * (q.num_layers * layer + n_cross * cross)
+
+
+def rerank_tile(model, step: int, top: int, host_dtype):
+    """One rerank tile as the serving path holds it: a gallery of
+    ENCODE_BATCH seeded images encoded by ``model`` (the engine's index, its
+    frozen rows on the host in ``host_dtype``), ``step`` queries whose
+    references are the first ``step`` images and whose captions are seeded
+    words, and each query's ``top`` candidates (the gallery cycled from a
+    seeded offset, the reference left out). Returns (index, reference names,
+    captions, candidate names [step, top])."""
+    from sprc_tpu_torch.retrieval.engine import RetrievalEngine
+
+    rng = np.random.default_rng(SEED + 300)
+    size = model.cfg.image_size
+    images = rng.standard_normal((ENCODE_BATCH, size, size, 3), dtype=np.float32)
+    names = [f"img{i:04d}" for i in range(ENCODE_BATCH)]
+    engine = RetrievalEngine(model, device="cuda", encode_batch=ENCODE_BATCH,
+                             frozen_host_dtype=host_dtype)
+    index = engine.build_index(iter([(names, images)]))
+    words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
+    refs = names[:step]
+    caps = [" ".join(rng.choice(words, rng.integers(3, 9))) for _ in refs]
+    cands = []
+    for i in range(step):
+        others = [n for n in names if n != refs[i]]
+        start = int(rng.integers(len(others)))
+        cands.append([others[(start + j) % len(others)] for j in range(top)])
+    return index, refs, caps, np.asarray(cands)
+
+
+def profile_rerank(model_type: str, int8: bool, top: int, step: int, out: str) -> dict:
+    """One rerank tile (``--rerank``)."""
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer, rerank_rankings
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    dev = "cuda"
+    model = load_model("blip2_cir_rerank", model_type, device=dev, seed=SEED, qformer_int8=int8)
+    host = torch.bfloat16 if model_type == "pretrain_vitL" else None
+    index, refs, caps, cands = rerank_tile(model, step, top, host)
+    tok = BertWordPieceTokenizer.from_vocab_file(
+        write_synthetic_bert_vocab(os.path.join(out, "vocab.txt")))
+    scorer = ItmRerankScorer(model, tok, top=top, step=step)
+
+    def tile():
+        return rerank_rankings(cands, refs, caps, scorer, index.reference_embeds, top=top,
+                               step=step)
+
+    n = step * top
+    result = {"device": torch.cuda.get_device_name(0), "model_type": model_type, "int8": int8,
+              "step": step, "top": top, "candidates": n, "repeats": REPEATS,
+              "memory_rows": 2 * model.cfg.vit_config().seq_len,
+              "frozen_host_dtype": str(index.frozen_embeds.dtype),
+              "dense_tera_op": rerank_dense_ops(model, n) / 1e12}
+    with torch.inference_mode():
+        tile()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        scorer.seconds = dict.fromkeys(scorer.seconds, 0.0)
+        gather = []
+        inner = index.reference_embeds
+
+        def timed_gather(names):
+            t0 = time.perf_counter()
+            rows = inner(names)
+            gather.append(time.perf_counter() - t0)
+            return rows
+
+        index.reference_embeds = timed_gather
+        result["wall_ms"] = _wall_ms(tile)
+        index.reference_embeds = inner
+        runs = REPEATS + 1
+        result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        result["peak_memory_above_model_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        result["candidates_per_s"] = n / (result["wall_ms"] * 1e-3)
+        result["host_ms_per_tile"] = {"gather": 1e3 * sum(gather) / runs,
+                                      **{k: 1e3 * v / runs for k, v in scorer.seconds.items()}}
+        result["gather_share"] = result["host_ms_per_tile"]["gather"] / result["wall_ms"]
+        with primitives.plain_reference():
+            t0 = time.perf_counter()
+            tile()
+            torch.cuda.synchronize()
+            result["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        result["tile"] = _profile(tile, "rerank", out)
+    group = "int8 GEMM" if int8 else "fp32 GEMM"
+    gemm_ms = result["tile"]["device_ms_by_group"].get(group)
+    if gemm_ms:
+        result["tile"][f"{group.split()[0]}_gemm_tera_op_per_s"] = (
+            result["dense_tera_op"] / (gemm_ms * 1e-3))
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None,
@@ -334,20 +461,26 @@ def main(argv=None) -> dict:
                     help="items the query batch is scored against (default 512)")
     ap.add_argument("--train", action="store_true",
                     help="profile a live and a cached fine-tune step at batch 128 instead")
+    ap.add_argument("--rerank", action="store_true",
+                    help="profile one tile of the ITM rerank (blip2_cir_rerank) instead")
+    ap.add_argument("--rerank-top", type=int, default=50)
+    ap.add_argument("--rerank-step", type=int, default=15)
     args = ap.parse_args(argv)
     suffix = "".join(f"_{part}" for part, on in (
         (args.model_type, args.model_type != "pretrain_vitL"),
         (args.fused_block, args.fused_block != "block"), ("mlp", args.fused_mlp),
         ("int8", args.int8), (f"gallery{args.gallery}", args.gallery != GALLERY),
-        ("train", args.train)) if on)
+        ("train", args.train),
+        (f"rerank{args.rerank_step}x{args.rerank_top}", args.rerank)) if on)
     args.out = args.out or "sprc_tpu_torch/_build/profile" + suffix
     if not torch.cuda.is_available():
         sys.exit("profile_serving: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
-    if args.train:
-        result = profile_train(args.model_type, args.out)
+    if args.train or args.rerank:
+        result = (profile_train(args.model_type, args.out) if args.train else profile_rerank(
+            args.model_type, args.int8, args.rerank_top, args.rerank_step, args.out))
         with open(os.path.join(args.out, "profile.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result), flush=True)

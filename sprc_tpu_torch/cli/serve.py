@@ -14,14 +14,24 @@ Usage:
   # later processes skip the encode pass entirely
   python -m sprc_tpu_torch.cli.serve --index-path cirr_val_index --device cuda ...
 
+  # the ITM second stage over the top 50 stage-1 candidates, 15 queries a tile
+  python -m sprc_tpu_torch.cli.serve --index-path idx --model-name blip2_cir_rerank \
+      --model-path rerank.pt --rerank-top 50 --rerank-step 15 --device cuda
+
 API:
   GET  /health  -> {"status": "ok", "gallery": N}
   POST /query   -> body {"reference": name, "caption": str, "k": 10}
                    or {"queries": [{reference, caption}...], "k": 10}
                    -> {"results": [[{"name", "score"}...] per query]}
-                   A request that cannot be answered (malformed body, unknown
-                   reference, an error inside the engine) gets a 400 with
-                   {"error": "<Type>: <message>"}, as in the JAX server.
+                   optional "rerank": true runs the ITM second stage over the
+                   top --rerank-top candidates (a rerank-capable model:
+                   blip2_cir_rerank or blip2_cir_cat; the two-stage flow of
+                   cirr_test_submission.py:87-112); the scores returned stay
+                   stage 1's. A request that cannot be answered (malformed
+                   body, unknown reference, "rerank" without --rerank-top, a
+                   gallery too small to rerank, an error inside the engine)
+                   gets a 400 with {"error": "<Type>: <message>"}, as in the
+                   JAX server.
 
 ``--qformer-int8`` runs the Q-Former's dense projections in int8 (the JAX
 server's ``SPRC_QF_INT8=1``). The tower's int8 mode has no flag, as in the
@@ -33,10 +43,10 @@ The flags the two CLIs share have the JAX CLI's defaults (``--model-type
 pretrain``: EVA ViT-g). Without ``--model-path`` the weights are random,
 drawn from ``--seed``. ``--device cuda`` with no GPU exits nonzero; nothing
 moves to the CPU quietly. Device work is serialized behind a lock; the query
-path is warmed at startup so that first-request latency is execution only.
-The ITM rerank stage is not ported yet: there is no ``--rerank-top`` /
-``--rerank-step``, and a request with ``"rerank": true`` is refused with the
-JAX server's 400. The device mesh (``--mesh``) is not ported either.
+path (and, with ``--rerank-top``, the rerank path) is warmed at startup so
+that first-request latency is execution only. ``--rerank-top`` with a model
+that has no ``inference_rerank`` (the flagship ``blip2_cir_align_prompt``)
+exits at start. The device mesh (``--mesh``) is not ported.
 """
 
 from __future__ import annotations
@@ -53,39 +63,70 @@ import numpy as np
 class RetrievalService:
     """Engine + index + the query path shared by HTTP and tests."""
 
-    def __init__(self, engine, index):
+    def __init__(self, engine, index, rerank_scorer=None):
         self.engine = engine
         self.index = index
+        self.rerank_scorer = rerank_scorer
         self._lock = threading.Lock()
         self._name_set = set(index.names)
+        # the rerank stage's candidates, by the model's tag: an ITM reranker
+        # reads their frozen embeds again, a feature-space one (blip2_cir_cat)
+        # their target feats
+        if getattr(engine.model, "RERANK_INPUT", "frozen") == "feats":
+            self._cand_gather = index.target_feat_rows
+        else:
+            self._cand_gather = index.reference_embeds
 
     def warm(self) -> None:
-        self.query([(self.index.names[0], "warm up")], k=1)
+        name = self.index.names[0]
+        self.query([(name, "warm up")], k=1)
+        if self.rerank_scorer is not None:
+            self.query([(name, "warm up")], k=1, rerank=True)
 
     def query(self, pairs, k: int = 10, rerank: bool = False):
         """pairs: [(reference_name, caption)] -> per query top-k
         [{'name', 'score'}] (exact ranking, stable on ties, the reference
         image masked out of its own results as in validate_blip.py:258-261).
-        ``rerank=True`` raises ``ValueError``: this service has no second
-        stage, and answers as the JAX service does without one."""
+
+        With ``rerank=True`` the top ``rerank_scorer.top`` stage-1 candidates
+        are scored again by the model's ``inference_rerank`` and that prefix
+        reordered (the two-stage flow of cirr_test_submission.py:87-112); the
+        scores returned stay stage 1's. Without a scorer, or on a gallery
+        with fewer maskable candidates than ``top``, it raises
+        ``ValueError``."""
         refs = [p[0] for p in pairs]
         caps = [p[1] for p in pairs]
         missing = [r for r in refs if r not in self._name_set]
         if missing:
             raise KeyError(f"unknown reference image(s): {missing[:5]}")
-        if rerank:
+        if rerank and self.rerank_scorer is None:
             raise ValueError(
                 "rerank requested but the service was started without "
                 "--rerank-top (or the model has no inference_rerank)")
         with self._lock:
             sims = self.engine.score_queries(self.index, refs, caps)
         names = np.asarray(self.index.names)
-        results = []
+        orders = []
         for row, ref in zip(sims, refs):
             order = np.argsort(-row, kind="stable")
-            top = [j for j in order if names[j] != ref][:k]
-            results.append([{"name": str(names[j]), "score": float(row[j])} for j in top])
-        return results
+            orders.append([j for j in order if names[j] != ref])
+        if rerank:
+            from sprc_tpu_torch.retrieval.rerank import rerank_rankings
+
+            top = self.rerank_scorer.top
+            m = min(len(o) for o in orders)
+            if m < top:
+                raise ValueError(f"gallery too small to rerank: {m} maskable candidates "
+                                 f"< --rerank-top {top}")
+            with self._lock:
+                sorted_names = rerank_rankings(
+                    names[np.asarray([o[:m] for o in orders])], refs, caps,
+                    self.rerank_scorer, self.index.reference_embeds, top=top,
+                    step=self.rerank_scorer.step, cand_to_embed=self._cand_gather)
+            pos = {str(n): j for j, n in enumerate(names)}
+            orders = [[pos[str(n)] for n in row] for row in sorted_names]
+        return [[{"name": str(names[j]), "score": float(row[j])} for j in order[:k]]
+                for row, order in zip(sims, orders)]
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -156,8 +197,16 @@ def build_service(args) -> RetrievalService:
         model, tokenizer, device=device, encode_batch=args.encode_batch,
         query_batch=args.query_batch, frozen_host_dtype=torch.bfloat16,
     )
+    scorer = None
+    if args.rerank_top > 0:
+        if not hasattr(model, "inference_rerank"):
+            raise SystemExit(f"--rerank-top needs a rerank-capable model; {args.model_name} "
+                             "has no inference_rerank")
+        from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer
+
+        scorer = ItmRerankScorer(model, tokenizer, top=args.rerank_top, step=args.rerank_step)
     if args.index_path:
-        return RetrievalService(engine, engine.load_index(args.index_path))
+        return RetrievalService(engine, engine.load_index(args.index_path), rerank_scorer=scorer)
     from sprc_tpu_torch.cli.validate import index_batches
     from sprc_tpu_torch.data.datasets import CIRRDataset, FashionIQDataset
     from sprc_tpu_torch.data.transforms import targetpad_transform
@@ -171,7 +220,7 @@ def build_service(args) -> RetrievalService:
     if args.save_index:
         index.save(args.save_index)
         print(f"index saved to {args.save_index}.npz ({index.n} images)")
-    return RetrievalService(engine, index)
+    return RetrievalService(engine, index, rerank_scorer=scorer)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -194,6 +243,12 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--encode-batch", type=int, default=64)
     p.add_argument("--query-batch", type=int, default=32)
     p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--rerank-top", type=int, default=0,
+                   help="enable the ITM second stage over this many stage-1 candidates per "
+                        "query (0 = off); needs a model with inference_rerank "
+                        "(blip2_cir_rerank, blip2_cir_cat)")
+    p.add_argument("--rerank-step", type=int, default=15,
+                   help="queries per rerank tile (the CIRR eval tile)")
     p.add_argument("--dress-types", nargs="+", default=["dress", "shirt", "toptee"])
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")

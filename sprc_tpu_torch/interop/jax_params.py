@@ -4,7 +4,11 @@
 parameter pytree (nested dicts of numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns reference-named
 torch tensors, the same keys and layouts as
-``sprc_tpu/interop/torch_export.py::params_to_torch_state_dict``: dense
+``sprc_tpu/interop/torch_export.py::params_to_torch_state_dict``. The
+rerank model's frozen twin (``fformer``, ``query_tokens_f``,
+``vision_proj_f``, ``text_proj_f``) goes to ``Fformer.bert.*`` and the
+``*_f`` names, and ``itm_head`` wherever the tree holds it (a JAX tree holds
+it only after a ``compute_itm`` / rerank init, or ``CirRerank``'s). Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
 becomes OIHW, and the BERT ``position_ids`` buffer is emitted.
 
@@ -149,10 +153,12 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") ->
     out = tower(params_np["visual_encoder"])
     _ln(out, "ln_vision", params_np["ln_vision"])
     out.update(qformer_from_jax(params_np["qformer"]))
-    for name in ("query_tokens", "prompt_tokens", "temp"):
+    if "fformer" in params_np:  # the rerank model's frozen twin
+        out.update(qformer_from_jax(params_np["fformer"], "Fformer.bert."))
+    for name in ("query_tokens", "prompt_tokens", "query_tokens_f", "temp"):
         if name in params_np:
             out[name] = _np(params_np[name])
-    for name in ("vision_proj", "text_proj", "itm_head"):
+    for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f"):
         if name in params_np:
             _linear(out, name, params_np[name])
     return to_torch(out)

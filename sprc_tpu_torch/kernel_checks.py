@@ -605,15 +605,22 @@ def qformer_layer_params(r: _Rand, cross: bool, W=768, Wi=1024, M=3072) -> dict:
             "ffn_q_p": _ffn_p(r, W, M), "ffn_t_p": _ffn_p(r, W, M)}
 
 
-SERVING_SHAPES = {  # name -> (B, S, with image, with a padded text mask)
-    "queries": (ENCODE_BATCH, 32, True, False),  # gallery encode: queries only
-    "fusion": (QUERY_BATCH, 64, True, True),     # composed query, pass 1
-    "prompt": (QUERY_BATCH, 64, False, True),    # composed query, pass 2 (no image)
+# the rerank's tiles: bench.py's (15 queries x their top 50 candidates, as
+# serving's defaults take them) and a CIRR validation tile (15 x 200)
+RERANK_TILE, RERANK_CIRR_TILE = 15 * 50, 15 * 200
+RERANK_MEMORY = 2 * 257  # [reference; candidate] image rows at 224 px
+
+SERVING_SHAPES = {  # name -> (B, S, with image, with a padded text mask, image rows)
+    "queries": (ENCODE_BATCH, 32, True, False, 257),  # gallery encode: queries only
+    "fusion": (QUERY_BATCH, 64, True, True, 257),     # composed query, pass 1
+    "prompt": (QUERY_BATCH, 64, False, True, 257),    # composed query, pass 2 (no image)
+    # the ITM rerank: queries and caption into the [reference; candidate] memory
+    "rerank": (RERANK_TILE, 64, True, True, RERANK_MEMORY),
 }
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
-    B, S, with_img, with_mask = SERVING_SHAPES[shape]
+    B, S, with_img, with_mask, _ = SERVING_SHAPES[shape]
     x = r.normal(B, S, W)
     img = r.normal(B, Si, Wi) if with_img else None
     bias = None
@@ -628,7 +635,7 @@ def _qformer_layer_work(shape, Q, Si, W, Wi, M, int8: bool) -> Dict[str, float]:
     """One Q-Former layer in a serving shape: the dense operations (fp32 or
     int8) and the fp32 attention; x in and out, the image rows and the column
     bias in fp32, and the weights the shape uses, once."""
-    B, S, with_img, with_mask = SERVING_SHAPES[shape]
+    B, S, with_img, with_mask, _ = SERVING_SHAPES[shape]
     R = B * S
     dense = 4 * 2 * R * W * W + 4 * R * W * M  # q, k, v, out; one FFN per row
     attn = 4 * B * S * S * W
@@ -661,12 +668,12 @@ def _int8_layer(p: dict) -> dict:
 QF_INT8_LAYER_MAX_ABS, QF_INT8_LAYER_MEAN_ABS = 4e-2, 6e-5
 
 
-def check_qformer_layer(shape: str, device="cuda", Q=32, Si=257, W=768, Wi=1024,
+def check_qformer_layer(shape: str, device="cuda", Q=32, W=768, Wi=1024,
                         M=3072, heads=12, seed=3, int8=False) -> dict:
     """fp32 (true fp32 on both sides, TF32 off): atol 1e-4 per layer. With
     ``int8`` (K4): QF_INT8_LAYER_MAX_ABS and QF_INT8_LAYER_MEAN_ABS."""
     r = _Rand(device, seed)
-    B, S = SERVING_SHAPES[shape][:2]
+    B, S, Si = (SERVING_SHAPES[shape][i] for i in (0, 1, 4))
     x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
     p = qformer_layer_params(r, cross=img is not None, W=W, Wi=Wi, M=M)
     if int8:
@@ -687,19 +694,20 @@ def check_qformer_layer(shape: str, device="cuda", Q=32, Si=257, W=768, Wi=1024,
                      and row["mean_abs_err"] <= QF_INT8_LAYER_MEAN_ABS)
     else:
         row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4
-    row["shape"] = f"{shape}: B={B} S={S} W={W} {'int8 dense, ' if int8 else ''}fp32"
+    row["shape"] = (f"{shape}: B={B} S={S} Si={Si} W={W} "
+                    f"{'int8 dense, ' if int8 else ''}fp32")
     row.update(_qformer_layer_work(shape, Q, Si, W, Wi, M, int8))
     return row
 
 
-def check_qformer_trunk(shape: str, device="cuda", layers=12, Q=32, Si=257, W=768,
+def check_qformer_trunk(shape: str, device="cuda", layers=12, Q=32, W=768,
                         Wi=1024, M=3072, heads=12, seed=4, int8=False) -> dict:
     """The 12-layer chain (cross-attention on even layers), the kernel chain
     inside ``stage_check``: every stage within :data:`STAGE_BOUNDS`, and in
     fp32 the final difference from the free-running plain chain within 5e-4.
     With ``int8`` that difference is reported, not bounded."""
     r = _Rand(device, seed)
-    B, S = SERVING_SHAPES[shape][:2]
+    B, S, Si = (SERVING_SHAPES[shape][i] for i in (0, 1, 4))
     x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
     kw = dict(heads=heads, eps=1e-12, Q=Q, text_ffn_all=img is None, int8=int8)
     stages = StageRecorder()
@@ -750,6 +758,9 @@ GEMM_I8_PRODUCTS = {
     "eva fc1": (_VIT_M, 6144, 1408, "gelu->s8"),
     "eva fc2": (_VIT_M, 1408, 6144, "bf16+residual"),
     "qformer cross kv, queries pass, EVA": (_VIT_M, 768, 1408, "rows->f32"),
+    # the int8 rerank on EVA ViT-g at a CIRR tile: M K = 2.17e9, past 2^31
+    "qformer cross kv, rerank, EVA": (RERANK_CIRR_TILE * RERANK_MEMORY, 768, 1408,
+                                      "rows->f32"),
 }
 assert _Q_M == _F_M  # the queries pass and a query batch give the same self and FFN products
 
@@ -995,6 +1006,10 @@ GEMM_F32_PRODUCTS = {
     "qformer fc1, half the rows": (_F_M // 2, _QF_M, _QF_W, "bias,gelu"),
     "qformer fc2, half the rows": (_F_M // 2, _QF_W, _QF_M, "bias"),
     "fp32 tower fc2, fp32 residual": (8 * 257, 1024, 4096, "bias+residual_f32"),
+    # the rerank's memory: bench.py's tile on ViT-L, and a CIRR validation tile
+    # on EVA ViT-g, whose M K = 1,542,000 x 1408 is past 2^31 (one launch)
+    "qformer cross kv, rerank": (RERANK_TILE * RERANK_MEMORY, _QF_W, 1024, "bias"),
+    "qformer cross kv, rerank, EVA": (RERANK_CIRR_TILE * RERANK_MEMORY, _QF_W, 1408, "bias"),
 }
 
 
@@ -1342,6 +1357,10 @@ QF_ATTENTION = {
     "fusion self": (QUERY_BATCH, 64, 64, True),
     "fusion cross": (QUERY_BATCH, 32, 257, False),
     "prompt self": (QUERY_BATCH, 64, 64, True),
+    # a CIRR rerank tile: the queries into the 514-row memory (the last 32-key
+    # chunk holds 2 keys; B = 3000 in gridDim.z), and the masked self-attention
+    "rerank cross": (RERANK_CIRR_TILE, 32, RERANK_MEMORY, False),
+    "rerank self": (RERANK_CIRR_TILE, 64, 64, True),
 }
 
 

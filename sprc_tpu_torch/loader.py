@@ -42,18 +42,17 @@ from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
 from sprc_tpu_torch.registry import registry
 
 # (name, model_type) -> CirConfig fields, as configs/models/<name>/<type>.yaml
-# gives them (vit_precision bf16 -> vit_dtype, qformer_precision fp32).
+# gives them (vit_precision bf16 -> vit_dtype, qformer_precision fp32): the
+# same knobs for the three ported models
+_VIT_MODELS = {"pretrain": "eva_clip_g", "pretrain_vitL": "clip_L"}
 MODEL_CONFIGS = {
-    ("blip2_cir_align_prompt", "pretrain"): dict(
-        vit_model="eva_clip_g", image_size=224, num_query_token=32, cross_attention_freq=2,
+    (name, model_type): dict(
+        vit_model=vit_model, image_size=224, num_query_token=32, cross_attention_freq=2,
         embed_dim=256, max_txt_len=32, vit_dtype=torch.bfloat16,
         qformer_dtype=torch.float32,
-    ),
-    ("blip2_cir_align_prompt", "pretrain_vitL"): dict(
-        vit_model="clip_L", image_size=224, num_query_token=32, cross_attention_freq=2,
-        embed_dim=256, max_txt_len=32, vit_dtype=torch.bfloat16,
-        qformer_dtype=torch.float32,
-    ),
+    )
+    for name in ("blip2_cir_align_prompt", "blip2_cir_rerank", "blip2_cir_cat")
+    for model_type, vit_model in _VIT_MODELS.items()
 }
 
 
@@ -129,7 +128,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``, with
     the JAX package's initialisers: normal(0.02) for dense, embedding, token
     and position tables; fan-in normal for the patch conv; zero biases; unit
-    LayerNorms; temperature 0.07."""
+    LayerNorms; temperature 0.07. The rerank model's frozen twin is drawn
+    like every other module, independently of the tower it copies (as a
+    JAX init draws ``fformer``); ``CirRerank.sync_fformer`` on the state
+    dict makes it a copy."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     done = set()

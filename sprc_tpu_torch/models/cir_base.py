@@ -4,8 +4,8 @@ Frozen ViT -> fp32 ``ln_vision`` -> Q-Former (learned queries,
 cross-attention every second layer) -> 256-d vision / text projections, an
 ITM head and a learned temperature (reference
 blip2_qformer_cir_align_prompt.py:44-92). This module carries the encode and
-scoring surface that serving runs and the training entry points shared by
-the losses of :mod:`.cir_align_prompt`.
+scoring surface that serving runs (with ``compute_itm``, the ITM score), and
+the training entry points shared by the losses of :mod:`.cir_align_prompt`.
 
 Attribute names are the reference torch module's (``visual_encoder``,
 ``ln_vision``, ``Qformer.bert``, ``query_tokens``, ``vision_proj``,
@@ -203,6 +203,18 @@ class Blip2CirBase(nn.Module):
         """Composed-query scoring -> [B, N] raw max-sims."""
         return self.token_max_sim(self.fusion_feature(reference_embeds, input_ids, text_mask),
                                   target_feats)
+
+    def compute_itm(self, image_embeds: Tensor, input_ids: Tensor, text_mask: Tensor) -> Tensor:
+        """ITM score [B]: queries and text cross-attend the image, the
+        ``itm_head`` logits are averaged over the query positions, and the
+        positive class's mean logit is returned (...cir_align_prompt.py:
+        289-309). The rerank's reduction differs: a softmax of the mean
+        logits (:meth:`CirRerank.inference_rerank`)."""
+        B, Q = input_ids.shape[0], self.cfg.num_query_token
+        attn_mask = torch.cat([text_mask.new_ones((B, Q)), text_mask], dim=1)
+        hidden = self.qformer(input_ids=input_ids, query_embeds=self._queries(B),
+                              attention_mask=attn_mask, image_embeds=image_embeds)
+        return self.itm_head(hidden[:, :Q])[:, :, 1].mean(dim=1)
 
     @staticmethod
     def token_max_sim(feats: Tensor, target_feats: Tensor) -> Tensor:

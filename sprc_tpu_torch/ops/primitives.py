@@ -202,7 +202,9 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
               residual: Optional[Tensor] = None, residual_f32: bool = False) -> Tensor:
     """:func:`gemm_plain` as a kernel (``csrc/gemm.cu``: bf16 through wgmma
     and TMA, cut as :func:`schedules.gemm_bf16_plan` says; true fp32 on the
-    CUDA cores, cut as :func:`schedules.gemm_f32_plan` says).
+    CUDA cores, cut as :func:`schedules.gemm_f32_plan` says). The fp32 path
+    forms its offsets in 64 bits and takes products of 2^31 elements or more;
+    the bf16 path refuses them.
     ``gemm_cuda.launches_bf16`` and ``gemm_cuda.launches_f32`` count the
     launches of the two kernels."""
     dt = _check("gemm", x, w, b, residual)
@@ -222,8 +224,6 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
         raise ValueError("gemm: residual must match the output's shape and dtype")
     if any(t is not None and t.data_ptr() % 16 for t in (b, residual)):
         raise ValueError("gemm: the epilogue reads bias and residual as vectors: aligned data")
-    if max(M * K, N * K, M * N) >= 2 ** 31:
-        raise ValueError("gemm: tensor too large for 32-bit indexing")
     plan = (schedules.gemm_bf16_plan(M, N, K, act) if dt == _ext.BF16
             else schedules.gemm_f32_plan(M, N, K))
     y = torch.empty(out_shape, dtype=x.dtype, device=x.device)
@@ -275,6 +275,7 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
                              "and aligned data")
     if Sk < 1:
         raise ValueError("attention: needs at least one key")
+    schedules.check_attention_grid(B, heads)
     if col_bias is not None and (col_bias.dtype != torch.float32 or col_bias.shape != (B, Sk)
                                  or not col_bias.is_contiguous()):
         raise ValueError("attention: col_bias must be contiguous fp32 [B, Sk]")

@@ -45,6 +45,18 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+GRID_YZ_MAX = 65535  # the largest gridDim.y and gridDim.z CUDA launches
+
+
+def _int32_dims(name: str, M: int, N: int, K: int) -> None:
+    """The fp32 and s8 GEMMs' C entries take M, N and K as 32-bit ints and
+    form every element offset in 64 bits (``(size_t)row * N + col``, TMA
+    coordinates per row and column), so a product may hold more than 2^31
+    elements; each of M, N and K must fit an int."""
+    if max(M, N, K) > 2 ** 31 - 1:
+        raise ValueError(f"{name}: M={M} N={N} K={K}; the C entry takes each as a 32-bit int")
+
+
 @functools.lru_cache(maxsize=256)
 def gemm_bf16_plan(M: int, N: int, K: int, act: Optional[str] = None, sms: int = H100_SMS) -> dict:
     """How the bf16 GEMM kernel cuts ``[M, K] x [N, K] -> [M, N]``.
@@ -143,7 +155,8 @@ def gemm_i8_plan(M: int, N: int, K: int, out: str = "s32", act: Optional[str] = 
     (``y_tma``: N % 8 == 0 in bf16, N % 16 == 0 in int8; the kernel also
     needs a residual to be 16-byte aligned), the rest straight from the
     registers. Needs K % 16 == 0 (the 16-byte row pitch of TMA) and N % 2 ==
-    0 (the epilogue's column pairs); raises ``ValueError`` on anything else.
+    0 (the epilogue's column pairs); a product may hold 2^31 elements or
+    more (:func:`_int32_dims`); raises ``ValueError`` on anything else.
     Cached: treat the result as read-only."""
     if M < 1 or N < 1 or K < 1:
         raise ValueError(f"gemm_i8: empty product M={M} N={N} K={K}")
@@ -154,8 +167,7 @@ def gemm_i8_plan(M: int, N: int, K: int, out: str = "s32", act: Optional[str] = 
         raise ValueError(f"gemm_i8: output mode one of {GEMM_I8_OUTS}, got {out!r}")
     if out == "s32" and act is not None:
         raise ValueError("gemm_i8: the raw int32 output takes no epilogue")
-    if max(M * K, N * K, M * N) >= 2 ** 31:
-        raise ValueError("gemm_i8: tensor too large for 32-bit indexing")
+    _int32_dims("gemm_i8", M, N, K)
     wide, narrow = GEMM_TILES_N
     padded = {t: _ceil_div(N, t) * t for t in GEMM_TILES_N}
     tiles_m = _ceil_div(M, GEMM_TILE_M)
@@ -163,6 +175,8 @@ def gemm_i8_plan(M: int, N: int, K: int, out: str = "s32", act: Optional[str] = 
                       and padded[wide] <= padded[narrow] * (1.0 + _WIDE_TILE_EXTRA_PADDING)
                       and tiles_m * _ceil_div(N, wide) >= sms) else narrow
     tiles_n = _ceil_div(N, tile_n)
+    if tiles_m * tiles_n > 2 ** 31 - 1:
+        raise ValueError(f"gemm_i8: {tiles_m} x {tiles_n} tiles; the kernel counts them in an int")
     elt = {"s32": 4, "f32": 4, "bf16": 2, "s8": 1}[out]
     stage_bytes = GEMM_I8_TILE_K * (GEMM_TILE_M + tile_n)
     stages = 3 if tile_n == 256 else 5
@@ -220,16 +234,21 @@ def gemm_f32_plan(M: int, N: int, K: int, sms: int = H100_SMS) -> dict:
     at N = 768 take 64 x 96 (M = 1024: 128 tiles, one wave; M = 2048: two
     waves), the image's k/v products (M = 8224 or 16448) and fc1 (N = 3072, M
     = 2048) 128 x 128. A row is read as 16-byte
-    copies: K % 4 == 0. Raises ``ValueError`` on anything else. Cached: treat
-    the result as read-only."""
+    copies: K % 4 == 0. A product may hold 2^31 elements or more
+    (:func:`_int32_dims`; the rerank's cross key / value products on EVA
+    ViT-g: M = 3000 x 514, K = 1408) as long as its row tiles fit gridDim.y.
+    Raises ``ValueError`` on anything else. Cached: treat the result as
+    read-only."""
     if M < 1 or N < 1 or K < 1:
         raise ValueError(f"gemm: empty product M={M} N={N} K={K}")
     if K % 4:
         raise ValueError(f"gemm: the fp32 kernel reads 16-byte rows: K % 4 == 0, got K={K}")
-    if max(M * K, N * K, M * N) >= 2 ** 31:
-        raise ValueError("gemm: tensor too large for 32-bit indexing")
+    _int32_dims("gemm", M, N, K)
     tm, tn = min(GEMM_F32_TILES, key=lambda t: (gemm_f32_cost(M, N, t, sms), -t[0] * t[1]))
     tiles_m, tiles_n = _ceil_div(M, tm), _ceil_div(N, tn)
+    if tiles_m > GRID_YZ_MAX:
+        raise ValueError(f"gemm: M={M} gives {tiles_m} row tiles of {tm}; the fp32 kernel's "
+                         f"grid takes at most {GRID_YZ_MAX} in gridDim.y")
     stage_bytes = 4 * GEMM_F32_PITCH * (tm + tn)
     return {
         "tile_m": tm, "tile_n": tn, "tile_k": GEMM_F32_TILE_K, "thread_tile": (tm // 16, tn // 16),
@@ -397,6 +416,15 @@ def attention_f32_warps(Sq: int) -> int:
     return _ceil_div(tiles, blocks)
 
 
+def check_attention_grid(B: int, H: int) -> None:
+    """Both attention paths launch the grid ``(blocks, H, B)``: a batch of
+    more than :data:`GRID_YZ_MAX` items (a rerank tile of ``step x top``
+    candidates) or heads is refused here, not launched wrongly."""
+    if B > GRID_YZ_MAX or H > GRID_YZ_MAX:
+        raise ValueError(f"attention: B={B} H={H}; the kernel's grid takes at most "
+                         f"{GRID_YZ_MAX} of each (gridDim.z, gridDim.y)")
+
+
 def attention_f32_plan(Sq: int, Sk: int, D: int, B: int = 1, H: int = 1) -> dict:
     """How the fp32 attention kernel of ``csrc/attention.cu`` (3xTF32 on
     ``mma.sync.m16n8k8``) cuts an ``Sq x Sk`` head at head dim ``D`` (``D %
@@ -412,6 +440,7 @@ def attention_f32_plan(Sq: int, Sk: int, D: int, B: int = 1, H: int = 1) -> dict
     empty head or a head dim the mma tiles cannot take."""
     if Sq < 1 or Sk < 1:
         raise ValueError(f"attention: needs at least one query and one key, got {Sq} x {Sk}")
+    check_attention_grid(B, H)
     if D < ATTN_F32_TILE or D % ATTN_F32_TILE:
         raise ValueError(f"attention: the fp32 path takes D % 8 == 0, got {D}")
     warps = attention_f32_warps(Sq)

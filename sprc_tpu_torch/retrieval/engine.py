@@ -13,6 +13,9 @@
   through the JAX engine's pipeline: a producer thread iterates the
   caller's batches (``_prefetch_iter``), batches are submitted while the
   readbacks of the batch ``DEPTH`` before complete (``_pipelined_encode``).
+  A batch larger than ``encode_batch`` is encoded as consecutive slices of
+  ``encode_batch`` (``_slices``), so either build gives the JAX engine's
+  index for any batch size.
 - **The feed on CUDA**: uploads go from a ring of ``DEPTH + 1`` pinned
   staging buffers (allocated once per shape and kept by the engine) over a
   side stream, with an event per slot that the compute stream waits on and
@@ -106,6 +109,20 @@ def _prefetch_iter(iterable, depth: int = 2):
         stop.set()
 
 
+def _slices(batches, size: int):
+    """``(names, arrays)`` batches with every batch larger than ``size`` cut
+    into consecutive slices of ``size`` (the last one shorter), in order: the
+    JAX engine encodes such a batch whole, at a shape of its own; here it
+    goes through the same ring and padding as any other."""
+    for names, arrays in batches:
+        b = arrays[0].shape[0]
+        if b <= size:
+            yield names, arrays
+            continue
+        for s in range(0, b, size):
+            yield names[s: s + size], tuple(a[s: s + size] for a in arrays)
+
+
 class _Slot:
     """One entry of the upload ring: pinned host buffers, their device
     twins, ``uploaded`` (recorded on the upload stream after the copies;
@@ -190,6 +207,14 @@ class GalleryIndex:
         name_to_feat dict, validate_blip.py:377)."""
         index = {name: i for i, name in enumerate(self.names)}
         return self.frozen_embeds[[index[n] for n in names]]
+
+    def target_feat_rows(self, names: Sequence[str]) -> torch.Tensor:
+        """Projected target feats [n, Q, E] fp32 by name, on the engine's
+        device: the candidates of a feature-space reranker (``RERANK_INPUT ==
+        "feats"``, blip2_cir_cat)."""
+        index = {name: i for i, name in enumerate(self.names)}
+        rows = torch.as_tensor([index[n] for n in names], device=self.target_feats.device)
+        return self.target_feats[rows].float()
 
     def save(self, path: str) -> None:
         """Persist to <path>.npz in the format both packages read."""
@@ -301,9 +326,6 @@ class RetrievalEngine:
         def submit(batch):
             batch_names, arrays = batch
             b = arrays[0].shape[0]
-            if b > self.encode_batch:
-                raise ValueError(f"a batch of {b} images is larger than encode_batch "
-                                 f"({self.encode_batch})")
             t0 = clock()
             if cuda:
                 slot = self._upload(arrays, specs, b)
@@ -340,7 +362,7 @@ class RetrievalEngine:
             names.extend(batch_names)
             stages["d2h"] += clock() - t0
 
-        it = _prefetch_iter(batches, depth=DEPTH)
+        it = _prefetch_iter(_slices(batches, self.encode_batch), depth=DEPTH)
         try:  # on an error here, close() stops the producer thread at once
             with torch.inference_mode():
                 while True:

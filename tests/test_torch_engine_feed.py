@@ -90,8 +90,37 @@ def test_short_last_batch_pads_without_leaking(models):
                                          np.concatenate([sizes, sizes[:1]]))]))
     short = engine.build_index_raw(iter([(names, raw, sizes)]))
     torch.testing.assert_close(short.target_feats, full.target_feats[:3], atol=1e-6, rtol=0)
-    with pytest.raises(ValueError, match="larger than encode_batch"):
-        engine.build_index(iter([(["a"] * 5, np.zeros((5, IMG, IMG, 3), np.float32))]))
+
+
+def test_batch_larger_than_encode_batch_is_encoded_in_slices(models):
+    """A batch of encode_batch + 1 images gives the index of the same images
+    sent as two batches (4, then 1 padded), bit for bit, on both paths; and
+    the JAX engine's index of that batch (which it encodes whole) within
+    ATOL."""
+    jm, params, pm = models
+    engine = RetrievalEngine(pm, device="cpu", encode_batch=BATCH)
+    n = BATCH + 1
+    images = np.random.RandomState(3).rand(n, IMG, IMG, 3).astype(np.float32)
+    names = [f"o{i}" for i in range(n)]
+    whole = engine.build_index(iter([(names, images)]))
+    split = engine.build_index(iter([(names[:BATCH], images[:BATCH]),
+                                     (names[BATCH:], images[BATCH:])]))
+    assert whole.names == split.names == names and whole.n == n
+    assert torch.equal(whole.target_feats, split.target_feats)
+    assert torch.equal(whole.frozen_embeds, split.frozen_embeds)
+    jindex = JRetrievalEngine(jm, params, encode_batch=BATCH).build_index(
+        iter([(names, images)]))
+    np.testing.assert_allclose(whole.target_feats.numpy(), np.asarray(jindex.target_feats)[:n],
+                               atol=ATOL, rtol=0)
+
+    _, raw, sizes = next(iter(synthetic_raw_batches(9, n, n, BUFFER)))
+    whole = engine.build_index_raw(iter([(names, raw, sizes)]), decode_size=BUFFER)
+    split = engine.build_index_raw(iter([(names[:BATCH], raw[:BATCH], sizes[:BATCH]),
+                                         (names[BATCH:], raw[BATCH:], sizes[BATCH:])]),
+                                   decode_size=BUFFER)
+    assert whole.names == split.names == names
+    assert torch.equal(whole.target_feats, split.target_feats)
+    assert torch.equal(whole.frozen_embeds, split.frozen_embeds)
 
 
 def test_index_files_cross_load(built, tmp_path):

@@ -142,7 +142,9 @@ def test_the_cut_computes_gemm_plain():
 
 
 def test_plan_and_wrapper_refuse_what_the_kernel_cannot_take():
-    for bad in ((4, 4, 6), (4, 4, 2 + 4 * 3 + 1), (0, 8, 8), (8, 0, 8), (1 << 16, 8, 1 << 15)):
+    # K % 4, an empty product, M past the C entry's int, row tiles past gridDim.y
+    for bad in ((4, 4, 6), (4, 4, 2 + 4 * 3 + 1), (0, 8, 8), (8, 0, 8), (2 ** 31, 8, 8),
+                (128 * 65536, 8, 8)):
         with pytest.raises(ValueError):
             schedules.gemm_f32_plan(*bad)
     x, w = torch.zeros(4, 8), torch.zeros(4, 8)
@@ -150,3 +152,55 @@ def test_plan_and_wrapper_refuse_what_the_kernel_cannot_take():
         primitives.gemm_cuda(x, w)
     assert primitives.gemm_cuda.launches_f32 == 0 and primitives.gemm_cuda.launches_bf16 == 0
     torch.testing.assert_close(primitives.for_device(x).gemm(x, w), torch.zeros(4, 4))
+
+
+# the rerank's cross key / value product on EVA ViT-g at a CIRR validation
+# tile: 3000 candidates x 514 memory rows, K = 1408 (2,171,136,000 elements)
+RERANK_KV_EVA = (3000 * 514, 768, 1408)
+
+
+def test_plans_and_wrappers_take_products_past_2_31_elements(monkeypatch):
+    """The fp32 and s8 GEMMs form every offset in 64 bits: their plans take
+    M K >= 2^31 (one launch, no slicing), and so do their wrappers, driven on
+    ``meta`` tensors through the CUDA branch with the C entry faked: each is
+    called once with the whole M and counted once. The bf16 plan still
+    refuses it."""
+    M, N, K = RERANK_KV_EVA
+    assert M * K >= 2 ** 31
+    f32 = schedules.gemm_f32_plan(M, N, K)
+    assert f32["tile_m"] * f32["tiles_m"] >= M and f32["tiles_m"] <= schedules.GRID_YZ_MAX
+    i8 = schedules.gemm_i8_plan(M, N, K, "f32")
+    assert i8["a_map"]["dims"] == (K, M) and i8["tiles"] == i8["tiles_m"] * i8["tiles_n"]
+    with pytest.raises(ValueError, match="32-bit"):
+        schedules.gemm_bf16_plan(M, N, K)
+    # the tile's attention: B = 3000 items fit gridDim.z, 65,536 do not
+    assert schedules.attention_f32_plan(32, 514, 64, B=3000, H=12)["grid"] == (1, 12, 3000)
+    with pytest.raises(ValueError, match="gridDim.z"):
+        schedules.attention_f32_plan(32, 514, 64, B=schedules.GRID_YZ_MAX + 1, H=12)
+
+    calls = []
+
+    class FakeLib:
+        def sprc_gemm(self, *args):
+            calls.append(("gemm", args[5:8]))
+            return 0
+
+        def sprc_gemm_i8(self, *args):
+            calls.append(("gemm_i8", args[7:10]))
+            return 0
+
+    monkeypatch.setattr(primitives._ext, "library", lambda: FakeLib())
+    monkeypatch.setattr(primitives, "_check", lambda name, x, *o: primitives._ext.F32)
+    monkeypatch.setattr(primitives, "_check_i8", lambda name, t: None)
+    monkeypatch.setattr(primitives, "_stream", lambda: None)
+    monkeypatch.setattr(primitives.gemm_cuda, "launches_f32", 0)
+    monkeypatch.setattr(primitives.gemm_i8_cuda, "launches", 0)
+    x = torch.empty(3000, 514, K, device="meta")
+    y = primitives.gemm_cuda(x, torch.empty(N, K, device="meta"), torch.empty(N, device="meta"))
+    x8 = torch.empty(3000, 514, K, dtype=torch.int8, device="meta")
+    y8 = primitives.gemm_i8_cuda(x8, torch.empty(N, K, dtype=torch.int8, device="meta"),
+                                 torch.empty(N, device="meta"), torch.empty(N, device="meta"),
+                                 row_scale=torch.empty(3000, 514, device="meta"))
+    assert y.shape == y8.shape == (3000, 514, N) and y8.dtype == torch.float32
+    assert calls == [("gemm", (M, N, K)), ("gemm_i8", (M, N, K))]
+    assert primitives.gemm_cuda.launches_f32 == 1 and primitives.gemm_i8_cuda.launches == 1

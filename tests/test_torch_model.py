@@ -166,10 +166,16 @@ def test_strict_load_fails_on_a_missing_block(flagship):
 
 @pytest.mark.parametrize("model_type", ["pretrain_vitL", "pretrain"])
 def test_pretrain_vitl_config_equals_jax_yaml(model_type):
+    assert_config_equals_jax("blip2_cir_align_prompt", model_type)
+
+
+def assert_config_equals_jax(name, model_type):
+    """MODEL_CONFIGS' row against what sprc_tpu.loader builds from the YAML
+    (test_torch_rerank.py holds the variants' rows with it)."""
     from sprc_tpu.loader import build_model as jbuild
 
-    jcfg = jbuild("blip2_cir_align_prompt", model_type).cfg
-    cfg = model_config("blip2_cir_align_prompt", model_type)
+    jcfg = jbuild(name, model_type).cfg
+    cfg = model_config(name, model_type)
     for f in ("vit_model", "image_size", "num_query_token", "cross_attention_freq",
               "embed_dim", "max_txt_len", "vocab_size"):
         assert getattr(cfg, f) == getattr(jcfg, f), f

@@ -1,5 +1,6 @@
 """The port's serve CLI against ``sprc_tpu.cli.serve``: the HTTP handler's
-answers to bad requests, the refusal of ``"rerank": true``, the parser's
+answers to bad requests, the refusal of ``"rerank": true`` by a service
+started without a rerank stage, the parser's
 defaults, and a FashionIQ gallery built by ``build_service``.
 
 The handler tests run both servers over one fake engine (scores from a
@@ -131,12 +132,12 @@ def test_rerank_is_refused_by_the_service():
     assert errors[0] == errors[1] and "--rerank-top" in errors[1]
 
 
-# the flags both parsers have (the JAX CLI's --rerank-top / --rerank-step and
-# --mesh come with rerank and the device mesh; the port's --seed,
-# --qformer-int8 and --device are its own)
+# the flags both parsers have (the JAX CLI's --mesh comes with the device
+# mesh; the port's --seed, --qformer-int8 and --device are its own)
 SHARED = ["dataset", "data_path", "split", "index_path", "save_index", "model_name",
           "model_type", "model_path", "vocab_path", "target_ratio", "encode_batch",
-          "query_batch", "workers", "dress_types", "bf16", "host", "port"]
+          "query_batch", "workers", "rerank_top", "rerank_step", "dress_types", "bf16", "host",
+          "port"]
 
 
 def _actions(parser):
@@ -146,7 +147,7 @@ def _actions(parser):
 def test_the_shared_flags_are_the_listed_ones():
     jax_only, port_only = set(_actions(jserve.make_parser())), set(_actions(pserve.make_parser()))
     assert sorted(jax_only & port_only) == sorted(SHARED)
-    assert jax_only - port_only == {"rerank_top", "rerank_step", "mesh"}
+    assert jax_only - port_only == {"mesh"}
 
 
 @pytest.mark.parametrize("dest", SHARED)
