@@ -155,6 +155,29 @@ Phases (any failure raises and exits nonzero before the last line):
    (e) the launch counters of the serving path, the int8 tile and the
        validate_rerank path: their own kernels launched, no other's.
 
+9. the variant zoo (models/cir_variants.py) on pretrain_vitL at full width
+   (CLIP ViT-L bf16, the Q-Former fp32, random weights from seed 0), batch
+   128, over phase 7's synthetic CIRR train split:
+   (a) for each of the eight variants whose forward returns losses, one live
+       step through the kernels against the all-plain step
+       (primitives.plain_reference) from the kernel tower's rows with the
+       same dropout seed, the kernel run's hard negatives handed to the plain
+       step (patched here; how many of its own picks differ is printed):
+       losses and gradients within VARIANT_BOUNDS; the step's launches held
+       (K2's chain once, K1 and K3 as VARIANT_STEP_LAUNCHES says: K3 inside
+       the rerank twin's and blip2_cir_cls's no-grad passes, none elsewhere);
+       then 3 timed steps (the median, samples/s, peak memory printed);
+   (b) cli/finetune.finetune on the split written as PNG files:
+       blip2_cir_neg for one epoch with its validation, and blip2_cir_rerank
+       live and with --cache-features, whose steps equal the live ones
+       within TRAIN_BOUNDS["cached"];
+   (c) blip2_cir_slt's and blip2_cir_prompt's eval forwards (and the
+       prompt model's inference) at 32 queries, stage by stage, against the
+       all-plain forwards as a report: K3 with 4 query rows and the
+       Q-Former's output_attentions pass on the card.
+   The kernel phase holds K3 at the variants' no-grad shapes
+   (kernel_checks.VARIANT_SHAPES).
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -1566,6 +1589,355 @@ def phase_train(work):
     return out
 
 
+# phase 9: the variant zoo's trainable models (models/cir_variants.py) on
+# pretrain_vitL at batch 128, over phase 7's synthetic CIRR train split
+VARIANTS = ("blip2_cir_cat", "blip2_cir_rel", "blip2_cir_z_learn_pos_align", "blip2_cir_neg",
+            "blip2_cir_neg_rel", "blip2_cir_full", "blip2_cir_rerank", "blip2_cir_cls")
+# a step's launches of K1 and K3 by variant: K1 once an in-batch loss (ITC,
+# RTC) or for the rerank twin's scores; K3 in the no-grad passes of 12
+# layers (the rerank twin's targets and text, blip2_cir_cls's text and
+# candidates); every pass with a gradient runs the Q-Former unfused
+VARIANT_STEP_LAUNCHES = {"blip2_cir_cat": (1, 0), "blip2_cir_rel": (2, 0),
+                         "blip2_cir_z_learn_pos_align": (2, 0), "blip2_cir_neg": (1, 0),
+                         "blip2_cir_neg_rel": (2, 0), "blip2_cir_full": (2, 0),
+                         "blip2_cir_rerank": (1, 24), "blip2_cir_cls": (1, 24)}
+# The live step through the kernels against the all-plain step from the kernel
+# tower's rows with the same dropout seed and the kernel run's hard negatives
+# (injected): TRAIN_BOUNDS["rows"] (5e-7 / 1e-5), except where a loss reads
+# K3's output: blip2_cir_cls's loss_p2p reads its candidate pass (gradient gap
+# read 5.95e-6, in temp2; bound 3 times that). Readings on an H100, loss /
+# gradient: cat 9.7e-8 / 5.8e-6, rel 9.7e-8 / 5.8e-6, z_learn_pos_align 0 /
+# 2.7e-6, neg 9.7e-8 / 5.8e-6, neg_rel 0 / 2.2e-6, full 0 / 4.7e-6, rerank 0 /
+# 0 (its mining reads K3 and K1, its loss neither: the picks are injected),
+# cls 9.7e-8 / 5.95e-6; no hard negative moved.
+VARIANT_BOUNDS = {name: TRAIN_BOUNDS["rows"] for name in VARIANTS}
+VARIANT_BOUNDS["blip2_cir_cls"] = {"loss": 5e-7, "grad": 1.8e-5}
+VARIANT_TIMED_STEPS = 3
+VARIANT_EVAL = ("blip2_cir_slt", "blip2_cir_prompt")
+
+
+@contextlib.contextmanager
+def hard_negatives(model, picks, inject):
+    """Record each hard-negative pick of ``model`` (``_neg_indices``,
+    ``blip2_cir_cls``'s ``_candidates``) in ``picks``; with ``inject``, hand
+    back the recorded picks in order instead and count how many of the
+    run's own differ (``moved`` of ``of``)."""
+    attrs = [a for a in ("_neg_indices", "_candidates") if hasattr(model, a)]
+    count, calls = {"moved": 0, "of": 0}, dict.fromkeys(attrs, 0)
+
+    def wrap(attr):
+        own_fn = getattr(model, attr)
+
+        def fn(*args, **kw):
+            own = own_fn(*args, **kw)
+            if not inject:
+                picks.setdefault(attr, []).append(own)
+                return own
+            kept = picks[attr][calls[attr]]
+            calls[attr] += 1
+            for a, b in zip(own, kept):
+                count["moved"] += int((a != b).sum())
+                count["of"] += a.numel()
+            return kept
+
+        setattr(model, attr, fn)
+
+    for attr in attrs:
+        wrap(attr)
+    try:
+        yield count
+    finally:
+        for attr in attrs:
+            delattr(model, attr)
+
+
+def _write_pngs(root, subdirs, names, size, seed):
+    """Seeded uint8 images as PNG files (utils.artifacts.encode_png) under
+    each of ``subdirs`` of ``root``, the same image under each."""
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    rng = np.random.default_rng(seed)
+    for sub in subdirs:
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for name in names:
+        data = encode_png(rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
+        for sub in subdirs:
+            with open(os.path.join(root, sub, f"{name}.png"), "wb") as f:
+                f.write(data)
+
+
+def phase_variants(work):
+    """The variant zoo (phase 9 of the docstring)."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.cli import finetune
+    from sprc_tpu_torch.data.loader import DataLoader
+    from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.text.processors import CaptionProcessor
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import loop
+    from sprc_tpu_torch.train.loop import TrainConfig, Trainer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "variants"
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    names = [f"trn{i:04d}" for i in range(TRAIN_IMAGES)]
+    data = _write_cirr_train(os.path.join(work, "cirr_variants"), names, TRAIN_TRIPLETS,
+                             SEED + 3)
+    _write_cirr_val(data, names, VALIDATE_QUERIES, SEED + 4)
+    triplets = finetune.train_triplets(data, "CIRR")
+    loader = DataLoader(triplets, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True,
+                        seed=SEED, num_workers=1)
+    batch = next(iter(loader))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)  # set-up: pixels on the card
+    pixels = torch.randn((TRAIN_IMAGES, 224, 224, 3), generator=gen, device=DEVICE)
+    row = {n: i for i, n in enumerate(names)}
+    step_batch = finetune.to_device(finetune.tokenize_captions(
+        batch, tokenizer, CaptionProcessor(), 32), DEVICE)
+    for side in ("reference", "target"):
+        step_batch[side] = pixels[torch.as_tensor([row[n] for n in batch[f"{side}_name"]],
+                                                  device=DEVICE)]
+    counters = _counters()
+    tcfg = TrainConfig(total_steps=len(loader) * 80)
+
+    def reset_counters():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read_counters():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def restore(kept):
+        for k, (obj, attr) in counters.items():
+            setattr(obj, attr, kept[k])
+
+    # (a) one live step per variant through the kernels, against the
+    # all-plain step from the kernel tower's rows (same seed, the kernel
+    # run's hard negatives injected); then timed steps
+    results, steps_launches = {}, dict.fromkeys(counters, 0)
+    for name in VARIANTS:
+        t0 = time.perf_counter()
+        model = load_model(name, "pretrain_vitL", device=DEVICE, seed=SEED)
+        sync()
+        build_s = time.perf_counter() - t0
+        depth = model.cfg.vit_config().depth
+        param_names = [n for n, p in model.named_parameters() if p.requires_grad]
+        picks = {}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        with hard_negatives(model, picks, inject=False):
+            _, k_losses, k_grads = Trainer(model, tcfg, seed=SEED).loss_and_grads(step_batch)
+        sync()
+        launches = read_counters()
+        peak_check = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            tower = model.encode_tower(torch.cat([step_batch["reference"],
+                                                  step_batch["target"]]))
+        rows_batch = dict(step_batch, reference_embeds=tower[:TRAIN_BATCH],
+                          target_embeds=tower[TRAIN_BATCH:])
+        with primitives.plain_reference(), hard_negatives(model, picks, inject=True) as moved:
+            _, p_losses, p_grads = Trainer(model, tcfg, seed=SEED,
+                                           from_embeds=True).loss_and_grads(rows_batch)
+        sync()
+        gap = {"loss": _loss_gap(k_losses, p_losses),
+               "grad": kernel_checks.grad_gap(k_grads, p_grads, param_names)}
+        del k_grads, p_grads, tower, rows_batch
+        # timed steps (the optimizer's update included): the main path's launches
+        trainer = Trainer(model, tcfg, seed=SEED, skip_nonfinite=True)
+        kept = read_counters()
+        times, metrics = [], []
+        for _ in range(VARIANT_TIMED_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(trainer.train_step(step_batch))  # ends in a host read
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed = {k: v - kept[k] for k, v in read_counters().items()}
+        peak = max(peak_check, torch.cuda.max_memory_allocated())
+        for k in steps_launches:
+            steps_launches[k] += timed[k]
+        k1, k3 = VARIANT_STEP_LAUNCHES[name]
+        want = {"token_max_sim": k1, "fused_qformer_layer": k3, "fused_vit_block": depth,
+                "gemm": 4 * depth, "attention_bf16": depth}
+        bad = {k: launches[k] for k in want if launches[k] != want[k]}
+        bad.update({k: timed[k] for k in want if timed[k] != VARIANT_TIMED_STEPS * want[k]})
+        chain = ("gemm_f32", "attention_f32")
+        if k3:
+            bad.update({k: launches[k] for k in chain if launches[k] <= 0})
+            if launches["layer_norm"] <= 2 * depth:
+                bad["layer_norm"] = launches["layer_norm"]
+        else:
+            bad.update({k: launches[k] for k in chain if launches[k] != 0})
+            if launches["layer_norm"] != 2 * depth:
+                bad["layer_norm"] = launches["layer_norm"]
+        bad.update({k: v for k, v in launches.items()
+                    if k not in want and k not in chain + ("layer_norm",) and v != 0})
+        median = float(np.median(times))
+        bound = VARIANT_BOUNDS[name]
+        res = {"build_s": build_s, "losses": {k: v.item() for k, v in k_losses.items()},
+               "plain_losses": {k: v.item() for k, v in p_losses.items()},
+               "loss_gap": gap["loss"], "grad_gap": gap["grad"]["gap"],
+               "grad_gap_tensor": gap["grad"]["tensor"], "bound": bound,
+               "hard_negatives_moved": moved["moved"], "hard_negatives": moved["of"],
+               "step_ms": times, "step_median_ms": median,
+               "samples_per_s": TRAIN_BATCH / median * 1e3, "peak_memory_gib": peak / 2 ** 30,
+               "launches_step": {k: v for k, v in launches.items() if v},
+               "finite": all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0
+                             for m in metrics)}
+        results[name] = res
+        log(f"[{tag}] {name}: built in {build_s:.1f} s; losses "
+            + ", ".join(f"{k} {res['losses'][k]:.6f} / {res['plain_losses'][k]:.6f}"
+                        for k in res["losses"])
+            + f" (kernels / plain from the kernel tower's rows): loss gap {gap['loss']:.3e} "
+            f"(bound {bound['loss']}), gradient gap {gap['grad']['gap']:.3e} in "
+            f"{gap['grad']['tensor']} (bound {bound['grad']}); hard negatives the plain step "
+            f"would have picked otherwise: {moved['moved']} of {moved['of']}; step ms "
+            + ", ".join(f"{t:.1f}" for t in times)
+            + f" (median {median:.1f}, {res['samples_per_s']:.1f} samples/s), peak "
+            f"{res['peak_memory_gib']:.2f} GiB; launches a step: K1 {launches['token_max_sim']}, "
+            f"K2 {launches['fused_vit_block']}, K3 {launches['fused_qformer_layer']}")
+        del model, trainer
+        torch.cuda.empty_cache()
+        if bad:
+            raise RuntimeError(f"{tag} {name}: launches {bad}; expected {want} a step (K3's "
+                               "chain kernels only with K3, none of another configuration)")
+        if not (gap["loss"] <= bound["loss"] and gap["grad"]["gap"] <= bound["grad"]):
+            raise RuntimeError(f"{tag} {name}: the kernel step is off the plain step: {gap}")
+        if not res["finite"]:
+            raise RuntimeError(f"{tag} {name}: a timed step was not finite: {metrics}")
+    log(f"[counters] launches during the {tag} timed steps: {steps_launches}")
+
+    # (b) the entry point: blip2_cir_neg through cli/finetune.finetune for one
+    # epoch with its validation; blip2_cir_rerank live and with --cache-features
+    _write_pngs(os.path.join(data), ("train", "dev"), names, 96, SEED + 6)
+    step_log = []
+    inner_step = loop.Trainer.train_step
+
+    def logged_step(self, b):
+        out = inner_step(self, b)
+        step_log.append(out)
+        return out
+
+    def cli(name, out_dir, *extra):
+        args = finetune.make_parser().parse_args([
+            "--dataset", "CIRR", "--data-path", data, "--vocab-path", vocab,
+            "--output-dir", os.path.join(work, out_dir), "--model-name", name,
+            "--model-type", "pretrain_vitL", "--batch-size", str(TRAIN_BATCH),
+            "--num-epochs", "1", "--workers", "4", "--seed", str(SEED),
+            "--encode-batch", str(ENCODE_BATCH), "--query-batch", str(QUERY_BATCH),
+            "--device", DEVICE, *extra])
+        step_log.clear()
+        kept = read_counters()
+        t0 = time.perf_counter()
+        loop.Trainer.train_step = logged_step
+        try:
+            history = finetune.finetune(args)
+        finally:
+            loop.Trainer.train_step = inner_step
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: v - kept[k] for k, v in read_counters().items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return history, list(step_log), launches, seconds
+
+    history, neg_steps, neg_launches, neg_s = cli("blip2_cir_neg", "cli_neg")
+    results_dir = os.path.join(work, "cli_neg")
+    with open(os.path.join(results_dir, "log.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    val = [e for e in logs if e.get("kind") == "val"]
+    log(f"[{tag}] cli/finetune --model-name blip2_cir_neg, one epoch of {len(neg_steps)} steps "
+        f"and its validation in {neg_s:.1f} s: epoch {json.dumps(history[-1])}; validation "
+        f"{json.dumps(val[-1] if val else None)}; launches {neg_launches}")
+    if not (len(neg_steps) == TRAIN_TRIPLETS // TRAIN_BATCH and val
+            and all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0 for m in neg_steps)
+            and os.path.exists(os.path.join(results_dir, "best_arithmetic_mean.pt"))):
+        raise RuntimeError(f"{tag}: the blip2_cir_neg CLI epoch failed: {history}, {val}")
+    missing = [k for k in ("token_max_sim", "fused_vit_block", "fused_qformer_layer")
+               if neg_launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{tag}: the CLI epoch did not launch {missing}")
+    _, live_steps, _, live_s = cli("blip2_cir_rerank", "cli_rerank_live", "--validate-every", "0")
+    _, cached_steps, cached_launches, cached_s = cli(
+        "blip2_cir_rerank", "cli_rerank_cached", "--validate-every", "0", "--cache-features")
+    cached_gap = max(abs(c[k] - l[k]) / abs(l[k]) for c, l in zip(cached_steps, live_steps)
+                     for k in ("loss_itm", "loss"))
+    log(f"[{tag}] cli/finetune --model-name blip2_cir_rerank: live {len(live_steps)} steps in "
+        f"{live_s:.1f} s, --cache-features {len(cached_steps)} steps in {cached_s:.1f} s (the "
+        f"cache built in the run); losses live "
+        + ", ".join(f"{m['loss']:.6f}" for m in live_steps) + "; cached "
+        + ", ".join(f"{m['loss']:.6f}" for m in cached_steps)
+        + f"; worst relative gap {cached_gap:.3e} (bound {TRAIN_BOUNDS['cached']}); the cached "
+        f"run's launches {cached_launches}")
+    if not (len(live_steps) == len(cached_steps) == TRAIN_TRIPLETS // TRAIN_BATCH
+            and cached_gap <= TRAIN_BOUNDS["cached"]):
+        raise RuntimeError(f"{tag}: the cached rerank steps are off the live ones: {cached_gap}")
+    for sub in ("cli_neg", "cli_rerank_live", "cli_rerank_cached"):
+        for f in os.listdir(os.path.join(work, sub)):
+            if f.endswith((".pt", ".npz")):
+                os.remove(os.path.join(work, sub, f))
+
+    # (c) the eval forwards of blip2_cir_slt and blip2_cir_prompt: once through
+    # the kernels (the main path's launches), once stage by stage, once all-plain
+    eval_out = {}
+    ids, mask = step_batch["input_ids"][:QUERY_BATCH], step_batch["text_mask"][:QUERY_BATCH]
+    ref, tgt = step_batch["reference"][:QUERY_BATCH], step_batch["target"][:QUERY_BATCH]
+    for name in VARIANT_EVAL:
+        model = load_model(name, "pretrain_vitL", device=DEVICE, seed=SEED)
+        runs = {"forward": lambda: model(ref, tgt, ids, mask)}
+        if name == "blip2_cir_prompt":
+            def infer():
+                feats, _ = model.extract_target_features(tgt)
+                return model.inference(model.encode_image(ref), feats, ids, mask)
+            runs["inference"] = infer
+        kept = read_counters()
+        with torch.inference_mode():
+            got = {k: fn() for k, fn in runs.items()}
+        sync()
+        launches = {k: v - kept[k] for k, v in read_counters().items()}
+        kept = read_counters()
+        stages = kernel_checks.StageRecorder()
+        with torch.inference_mode(), primitives.stage_check(stages):
+            for fn in runs.values():
+                fn()
+        sync()
+        with torch.inference_mode(), primitives.plain_reference():
+            plain = {k: fn() for k, fn in runs.items()}
+        sync()
+        restore(kept)
+        diffs = {k: (got[k].float() - plain[k].float()).abs().max().item() for k in got}
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        eval_out[name] = {"launches": {k: v for k, v in launches.items() if v},
+                          "stages": stages.rows(), "plain_max_abs": diffs,
+                          "shapes": {k: list(v.shape) for k, v in got.items()}}
+        for stage in stages.rows():
+            log(f"[{tag}] {name} eval forwards stage by stage: {stage['kind']}: "
+                f"{stage['calls']} calls, worst share that differs {stage['differ']:.3e}, worst "
+                f"difference {stage['err']:.3e} -> {'ok' if stage['ok'] else 'FAIL'}")
+        log(f"[{tag}] {name} eval forwards {eval_out[name]['shapes']}: against the all-plain "
+            f"forwards (a report) max_abs {diffs}; launches {eval_out[name]['launches']}")
+        del model
+        torch.cuda.empty_cache()
+        if not (stages.ok() and finite and launches["fused_qformer_layer"] > 0):
+            raise RuntimeError(f"{tag} {name}: the eval forwards failed: {eval_out[name]}")
+    for k in steps_launches:
+        steps_launches[k] += sum(e["launches"].get(k, 0) for e in eval_out.values())
+    total_s = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 9 in {total_s:.1f} s")
+    out = {"variants": results, "cli_neg": {"history": history, "validation": val[-1],
+                                            "seconds": neg_s, "launches": neg_launches},
+           "cli_rerank_cached_gap": cached_gap, "eval": eval_out, "launches": steps_launches,
+           "seconds": total_s}
+    log(f"[{tag}] " + json.dumps({n: {k: r[k] for k in ("step_median_ms", "samples_per_s",
+                                                        "peak_memory_gib")}
+                                  for n, r in results.items()}))
+    del pixels, step_batch
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_routes_agree(runs):
     base = runs["block"]["target_feats"]
     for route, run in runs.items():
@@ -1603,7 +1975,7 @@ def check_counters(tag, launches):
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
-    from sprc_tpu_torch.kernel_checks import bound_ms
+    from sprc_tpu_torch.kernel_checks import VARIANT_SHAPES, bound_ms
 
     by_check = {r["check"]: r for r in rows}
 
@@ -1709,6 +2081,12 @@ def kernel_table(rows, launches):
               "sprc_tpu/ops/pallas_qformer.py:74", rerank_attention,
               library_ms=sum(by_check[c]["library_ms"] for c in rerank_attention),
               count="attention_f32_rerank"),
+        # phase 9, the variant zoo: K3 at its no-grad passes' shapes (summed),
+        # launches: the variants' timed steps and eval forwards
+        entry("fused_qformer_layer (variant zoo)", "sprc_tpu_torch/ops/fused_qformer.py",
+              "sprc_tpu/ops/pallas_qformer.py:360",
+              [f"K3 qformer_layer {s}" for s in VARIANT_SHAPES],
+              count="fused_qformer_layer_variants"),
     ]
 
 
@@ -1736,6 +2114,9 @@ def main():
     torch.cuda.empty_cache()
     del gallery
     train = phase_train(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    variants = phase_variants(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -1750,7 +2131,8 @@ def main():
         "gemm_f32_rerank": rerank["launches"]["gemm_f32"],
         "gemm_f32_rerank_eva": rerank_eva["launches"]["gemm_f32"],
         "gemm_i8_rerank": rerank["launches_int8"]["gemm_i8"],
-        "attention_f32_rerank": rerank["launches"]["attention_f32"]})
+        "attention_f32_rerank": rerank["launches"]["attention_f32"],
+        "fused_qformer_layer_variants": variants["launches"]["fused_qformer_layer"]})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -1767,7 +2149,11 @@ def main():
                 "max_abs_err": max(k1["max_abs_err"], k1["grad_max_abs_err"]),
                 "ms": k1["ms"], "plain_ms": k1["plain_ms"], **bound_ms(k1), "library_ms": None,
                 "fwd_bwd_ms": k1["fwd_bwd_ms"], "plain_fwd_bwd_ms": k1["plain_fwd_bwd_ms"]}
-    print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train],
+    # K1 without a gradient at the same shape: the rerank twin's scores, and
+    # with one the variants' in-batch losses (phase 9's launches)
+    k1_variants = dict(k1_train, name="token_max_sim (variant zoo, fine-tune)",
+                       launches=variants["launches"]["token_max_sim"])
+    print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants],
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -1781,6 +2167,13 @@ def main():
                       "rerank_vitl": {k: rerank[k] for k in (
                           "query_1_median_ms", "query_32_median_ms", "stage1_32_ms",
                           "order_moved", "tile_int8_ms", "launches", "launches_int8")},
+                      "variants_vitl": {
+                          "steps": {n: {k: r[k] for k in (
+                              "step_median_ms", "samples_per_s", "peak_memory_gib", "loss_gap",
+                              "grad_gap", "hard_negatives_moved", "launches_step")}
+                              for n, r in variants["variants"].items()},
+                          "cli_rerank_cached_gap": variants["cli_rerank_cached_gap"],
+                          "launches": variants["launches"], "seconds": variants["seconds"]},
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

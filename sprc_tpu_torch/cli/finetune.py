@@ -8,7 +8,8 @@ Usage:
 
 The reference recipe (blip_fine_tune_2.py:196-354): AdamW (0.9, 0.98, eps
 1e-7, wd 0.05), OneCycle over 80 scheduled epochs with pct_start 1/50, loss
-= itc + 0.4 rtc + 0.4 align, targetpad 1.25, per-epoch validation keeping
+= itc + 0.4 rtc + 0.4 align (the variants' ``loss_itm`` and ``loss_p2p`` at
+1), targetpad 1.25, per-epoch validation keeping
 the best checkpoint by the selection metric (CIRR ``arithmetic_mean``,
 FashionIQ ``average_recall``). The flags are the JAX CLI's without
 ``--mesh`` and ``--remat`` (one device; the tower is frozen and runs without
@@ -20,7 +21,14 @@ epoch logs (``train_metrics.csv``, ``validation_metrics.csv``,
 ``log.jsonl``), ``best_<metric>.pt`` in the released layout and
 ``last_state.pt`` (resume it with ``--resume``). With ``--cache-features``
 the train split's tower rows are computed once (``feature_cache.npz``) and
-every step trains from them.
+every step trains from them (``forward_cached``, which every model has).
+
+``--model-name`` takes every CIR model whose training forward returns a loss
+dict (``LOSSES``): the flagship and the eight variants of
+``models/cir_variants.py`` (``blip2_cir_cat``, ``_rel``,
+``_z_learn_pos_align``, ``_neg``, ``_neg_rel``, ``_full``, ``_rerank``,
+``_cls``). ``blip2_cir_slt`` and ``blip2_cir_prompt`` return tensors and are
+refused before the model is built.
 
 As in ``cli/validate.py``, what reads the split (JSON only:
 :func:`train_triplets`) is apart from what trains:
@@ -152,6 +160,7 @@ def _feature_cache(args, model, tfm):
     t0 = time.perf_counter()
     cache = build_feature_cache(model, index_batches(classic, args.encode_batch, args.workers))
     print(f"built feature cache: {len(cache)} images in {time.perf_counter() - t0:.1f}s")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)  # before the run's first output
     cache.save(path)
     return cache
 
@@ -197,6 +206,13 @@ def finetune(args) -> List[dict]:
     from sprc_tpu_torch.utils.artifacts import ensure_bert_vocab
     from sprc_tpu_torch.utils.logging import MetricsLogger
 
+    from sprc_tpu_torch.registry import registry
+
+    if not registry.get_model_class(args.model_name).LOSSES:
+        raise SystemExit(f"--model-name {args.model_name}: its forward returns tensors, not "
+                         "losses, so there is nothing to train (the JAX step fails on it at "
+                         "losses.items()); train one of the CIR models whose forward returns "
+                         "a loss dict")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

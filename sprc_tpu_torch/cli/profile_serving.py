@@ -1,7 +1,8 @@
 """Where the serving path's time goes on one GPU.
 
     python -m sprc_tpu_torch.cli.profile_serving [--model-type pretrain|pretrain_vitL]
-        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N] [--train]
+        [--fused-block block|attn|none] [--fused-mlp] [--int8] [--gallery N]
+        [--train [--model-name NAME ...]]
         [--rerank [--rerank-top N --rerank-step N]] [--out DIR]
 
 Builds ``blip2_cir_align_prompt`` / ``--model-type`` (``pretrain_vitL``: CLIP
@@ -49,12 +50,16 @@ patch convolution and the ``vision_proj`` / ``text_proj`` products are
 PyTorch calls, and no other library GEMM may appear there.
 
 With ``--train`` it profiles the fine-tune step instead (``--model-type``,
-bf16 tower and fp32 Q-Former, batch 128, the CLI's trainer): the wall ms of
-a live step (pixels; the tower's K2 chain, then the Q-Former's forward and
-backward) and of a cached step (tower rows, ``forward_cached``), medians of
-5 steps, their samples/s and peak memory, and from one profiled step of
-each the device time by kernel group; the Q-Former's products in training
-are library GEMMs (``torch.matmul``), grouped as such.
+bf16 tower and fp32 Q-Former, batch 128, the CLI's trainer) of each
+``--model-name`` (default the flagship; several names give one result per
+model, their traces under ``--out/<name>``): the wall ms of a live step
+(pixels; the tower's K2 chain, then the Q-Former's forward and backward) and
+of a cached step (tower rows, ``forward_cached``), medians of 5 steps, their
+samples/s and peak memory, and from one profiled step of each the device
+time by kernel group; the Q-Former's products in training are library GEMMs
+(``torch.matmul``), grouped as such, and ``qformer_product_ms`` adds the
+fp32 GEMMs of K3 in the no-grad passes of ``blip2_cir_rerank`` and
+``blip2_cir_cls``.
 
 With ``--rerank`` it profiles one tile of the ITM rerank instead, on
 ``blip2_cir_rerank`` / ``--model-type`` (random weights from seed 0; with
@@ -282,14 +287,15 @@ def profile_feed(model, dev: str) -> dict:
     return result
 
 
-def profile_train(model_type: str, out: str) -> dict:
+def profile_train(model_type: str, out: str, model_name: str = "blip2_cir_align_prompt") -> dict:
     """One live and one cached fine-tune step at batch 128 (``--train``)."""
     from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
     from sprc_tpu_torch.loader import load_model
     from sprc_tpu_torch.train.loop import TrainConfig, Trainer
 
     dev = "cuda"
-    model = load_model("blip2_cir_align_prompt", model_type, device=dev, seed=SEED)
+    os.makedirs(out, exist_ok=True)
+    model = load_model(model_name, model_type, device=dev, seed=SEED)
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(SEED)
     B, L = TRAIN_BATCH, cfg.max_txt_len
@@ -302,9 +308,11 @@ def profile_train(model_type: str, out: str) -> dict:
     live = {"reference": pixels[0], "target": pixels[1], "input_ids": ids, "text_mask": mask}
     cached = {"reference_embeds": rows[:B], "target_embeds": rows[B:], "input_ids": ids,
               "text_mask": mask}
-    result = {"device": torch.cuda.get_device_name(0), "model_type": model_type, "batch": B,
-              "repeats": REPEATS, "wall_ms": {},
-              "qformer_dense_tflop": qformer_train_flops(model, B) / 1e12}
+    # the flagship's dense operations (qformer_train_flops counts its passes)
+    flagship = model_name == "blip2_cir_align_prompt"
+    result = {"device": torch.cuda.get_device_name(0), "model_name": model_name,
+              "model_type": model_type, "batch": B, "repeats": REPEATS, "wall_ms": {},
+              "qformer_dense_tflop": qformer_train_flops(model, B) / 1e12 if flagship else None}
     for name, batch in (("live", live), ("cached", cached)):
         trainer = Trainer(model, TrainConfig(total_steps=1000), seed=SEED,
                           from_embeds=name == "cached", skip_nonfinite=True)
@@ -314,10 +322,18 @@ def profile_train(model_type: str, out: str) -> dict:
                                 TRAIN_GROUPS)
         result[name]["samples_per_s"] = B / (result["wall_ms"][name] * 1e-3)
         result[name]["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        gemm_ms = result[name]["device_ms_by_group"].get("library GEMM")
-        if gemm_ms:
+        # the Q-Former's products: the training branch's library GEMMs, and
+        # the fp32 GEMMs of K3 in the step's no-grad passes (rerank, cls)
+        by_group = result[name]["device_ms_by_group"]
+        result[name]["qformer_product_ms"] = (by_group.get("library GEMM", 0.0)
+                                              + by_group.get("fp32 GEMM", 0.0))
+        gemm_ms = by_group.get("library GEMM")
+        if gemm_ms and flagship:
             result[name]["library_gemm_tflop_per_s"] = (
                 result["qformer_dense_tflop"] / (gemm_ms * 1e-3))
+        del trainer
+    del model
+    torch.cuda.empty_cache()
     return result
 
 
@@ -461,6 +477,9 @@ def main(argv=None) -> dict:
                     help="items the query batch is scored against (default 512)")
     ap.add_argument("--train", action="store_true",
                     help="profile a live and a cached fine-tune step at batch 128 instead")
+    ap.add_argument("--model-name", nargs="+", default=["blip2_cir_align_prompt"],
+                    help="with --train: the CIR models to profile, one after another (any "
+                         "whose training forward returns losses; loader.CIR_MODELS)")
     ap.add_argument("--rerank", action="store_true",
                     help="profile one tile of the ITM rerank (blip2_cir_rerank) instead")
     ap.add_argument("--rerank-top", type=int, default=50)
@@ -479,8 +498,14 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.out, exist_ok=True)
     if args.train or args.rerank:
-        result = (profile_train(args.model_type, args.out) if args.train else profile_rerank(
-            args.model_type, args.int8, args.rerank_top, args.rerank_step, args.out))
+        if args.rerank:
+            result = profile_rerank(args.model_type, args.int8, args.rerank_top,
+                                    args.rerank_step, args.out)
+        elif len(args.model_name) == 1:
+            result = profile_train(args.model_type, args.out, args.model_name[0])
+        else:
+            result = {name: profile_train(args.model_type, os.path.join(args.out, name), name)
+                      for name in args.model_name}
         with open(os.path.join(args.out, "profile.json"), "w") as f:
             json.dump(result, f, indent=1)
         print(json.dumps(result), flush=True)

@@ -7,8 +7,11 @@ torch tensors, the same keys and layouts as
 ``sprc_tpu/interop/torch_export.py::params_to_torch_state_dict``. The
 rerank model's frozen twin (``fformer``, ``query_tokens_f``,
 ``vision_proj_f``, ``text_proj_f``) goes to ``Fformer.bert.*`` and the
-``*_f`` names, and ``itm_head`` wherever the tree holds it (a JAX tree holds
-it only after a ``compute_itm`` / rerank init, or ``CirRerank``'s). Dense
+``*_f`` names, the variants' own leaves (``rel_tokens`` of
+``blip2_cir_neg_rel``, ``temp2`` of ``blip2_cir_cls``) by their names, and
+``itm_head`` wherever the tree holds it (a JAX tree holds it only after a
+``compute_itm`` / rerank init, or an init of a variant whose training
+forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``). Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
 becomes OIHW, and the BERT ``position_ids`` buffer is emitted.
 
@@ -146,7 +149,7 @@ def to_torch(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") -> Dict[str, torch.Tensor]:
-    """Flagship JAX params -> reference-named state dict of torch tensors."""
+    """A CIR model's JAX params -> reference-named state dict of torch tensors."""
     if vit not in ("clip_L", "eva_clip_g"):
         raise ValueError(f"vit {vit!r}: expected 'clip_L' or 'eva_clip_g'")
     tower = clip_vit_from_jax if vit == "clip_L" else eva_vit_from_jax
@@ -155,7 +158,8 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") ->
     out.update(qformer_from_jax(params_np["qformer"]))
     if "fformer" in params_np:  # the rerank model's frozen twin
         out.update(qformer_from_jax(params_np["fformer"], "Fformer.bert."))
-    for name in ("query_tokens", "prompt_tokens", "query_tokens_f", "temp"):
+    for name in ("query_tokens", "prompt_tokens", "query_tokens_f", "rel_tokens", "temp",
+                 "temp2"):
         if name in params_np:
             out[name] = _np(params_np[name])
     for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f"):

@@ -617,10 +617,22 @@ SERVING_SHAPES = {  # name -> (B, S, with image, with a padded text mask, image 
     # the ITM rerank: queries and caption into the [reference; candidate] memory
     "rerank": (RERANK_TILE, 64, True, True, RERANK_MEMORY),
 }
+# the variant zoo's no-grad passes inside a training step or a forward
+# (models/cir_variants.py): blip2_cir_cls's 5 candidate captions a sample
+# fused with its reference, the plain text pass (no queries) at the training
+# batch, and blip2_cir_slt's second pass (its 4 selected query tokens and
+# the caption, no image)
+VARIANT_SHAPES = {
+    "cls candidates": (TRAIN_BATCH * 5, 64, True, True, 257),
+    "text": (TRAIN_BATCH, 32, False, True, 257),
+    "slt prompt": (QUERY_BATCH, 36, False, True, 257),
+}
+SHAPE_Q = {"text": 0, "slt prompt": 4}  # a shape's query rows where they are not 32
+QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
-    B, S, with_img, with_mask, _ = SERVING_SHAPES[shape]
+    B, S, with_img, with_mask, _ = QF_SHAPES[shape]
     x = r.normal(B, S, W)
     img = r.normal(B, Si, Wi) if with_img else None
     bias = None
@@ -635,7 +647,7 @@ def _qformer_layer_work(shape, Q, Si, W, Wi, M, int8: bool) -> Dict[str, float]:
     """One Q-Former layer in a serving shape: the dense operations (fp32 or
     int8) and the fp32 attention; x in and out, the image rows and the column
     bias in fp32, and the weights the shape uses, once."""
-    B, S, with_img, with_mask, _ = SERVING_SHAPES[shape]
+    B, S, with_img, with_mask, _ = QF_SHAPES[shape]
     R = B * S
     dense = 4 * 2 * R * W * W + 4 * R * W * M  # q, k, v, out; one FFN per row
     attn = 4 * B * S * S * W
@@ -673,7 +685,8 @@ def check_qformer_layer(shape: str, device="cuda", Q=32, W=768, Wi=1024,
     """fp32 (true fp32 on both sides, TF32 off): atol 1e-4 per layer. With
     ``int8`` (K4): QF_INT8_LAYER_MAX_ABS and QF_INT8_LAYER_MEAN_ABS."""
     r = _Rand(device, seed)
-    B, S, Si = (SERVING_SHAPES[shape][i] for i in (0, 1, 4))
+    Q = SHAPE_Q.get(shape, Q)
+    B, S, Si = (QF_SHAPES[shape][i] for i in (0, 1, 4))
     x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
     p = qformer_layer_params(r, cross=img is not None, W=W, Wi=Wi, M=M)
     if int8:
@@ -1948,6 +1961,8 @@ def run_all(device="cuda") -> List[dict]:
     for shape in SERVING_SHAPES:
         rows.append(dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device)))
         rows.append(dict(check=f"K3 qformer_trunk {shape}", **check_qformer_trunk(shape, device)))
+    rows += [dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device))
+             for shape in VARIANT_SHAPES]
     rows += run_qformer_fp32(device) + run_layer_norm(device)
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]

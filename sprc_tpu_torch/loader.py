@@ -43,15 +43,19 @@ from sprc_tpu_torch.registry import registry
 
 # (name, model_type) -> CirConfig fields, as configs/models/<name>/<type>.yaml
 # gives them (vit_precision bf16 -> vit_dtype, qformer_precision fp32): the
-# same knobs for the three ported models
+# same knobs for the eleven CIR models (their YAMLs differ only in ``arch``)
 _VIT_MODELS = {"pretrain": "eva_clip_g", "pretrain_vitL": "clip_L"}
+CIR_MODELS = ("blip2_cir_align_prompt", "blip2_cir_cat", "blip2_cir_rel",
+              "blip2_cir_z_learn_pos_align", "blip2_cir_neg", "blip2_cir_neg_rel",
+              "blip2_cir_full", "blip2_cir_rerank", "blip2_cir_cls", "blip2_cir_slt",
+              "blip2_cir_prompt")
 MODEL_CONFIGS = {
     (name, model_type): dict(
         vit_model=vit_model, image_size=224, num_query_token=32, cross_attention_freq=2,
         embed_dim=256, max_txt_len=32, vit_dtype=torch.bfloat16,
         qformer_dtype=torch.float32,
     )
-    for name in ("blip2_cir_align_prompt", "blip2_cir_rerank", "blip2_cir_cat")
+    for name in CIR_MODELS
     for model_type, vit_model in _VIT_MODELS.items()
 }
 
@@ -169,11 +173,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     for name, p in model.named_parameters():
         if id(p) in done:
             continue
-        if name == "temp":
+        if name in ("temp", "temp2"):
             const(p, 0.07)
         elif name.endswith(("in_proj_bias", "q_bias", "v_bias")):
             const(p, 0.0)
-        else:  # in_proj_weight, class/positional embeddings, query/prompt tokens
+        else:  # in_proj_weight, class/positional embeddings, query/prompt/rel tokens
             normal(p, 0.02)
     for name, buf in model.named_buffers():
         if id(buf) in int8_buffers:
@@ -243,5 +247,6 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     return scales
 
 
-__all__ = ["MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model", "init_weights",
+__all__ = ["CIR_MODELS", "MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model",
+           "init_weights",
            "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

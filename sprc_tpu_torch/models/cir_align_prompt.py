@@ -13,7 +13,8 @@ trunk's. Its training forward gives the three SPRC losses (reference
 - ``loss_align``: MSE between the mean fused query and the mean of the
   detached prompt tokens (:193-194).
 
-Both max-sims go through kernel K1 with a gradient
+The live forward and ``forward_cached`` are the trunk's; both end here in
+``losses_from_embeds``. Both max-sims go through kernel K1 with a gradient
 (:class:`sprc_tpu_torch.ops.sim_kernels.TokenMaxSim`). The trainer weighs
 them 1 / 0.4 / 0.4 (``sprc_tpu_torch/train/loop.py``).
 """
@@ -41,22 +42,7 @@ class CirAlignPrompt(Blip2CirBase):
         self.prompt_tokens = nn.Parameter(
             torch.empty(1, cfg.num_query_token, cfg.qformer_config().hidden_size))
 
-    def forward(self, reference_images: Tensor, target_images: Tensor, input_ids: Tensor,
-                text_mask: Tensor, *,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
-        """The live training forward: images [B, H, W, 3] -> the three losses."""
-        ref_embeds, tgt_embeds = self.encode_image_pair(reference_images, target_images)
-        return self.losses_from_embeds(ref_embeds, tgt_embeds, input_ids, text_mask,
-                                       generator=generator)
-
-    def forward_cached(self, reference_tower: Tensor, target_tower: Tensor, input_ids: Tensor,
-                       text_mask: Tensor, *,
-                       generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
-        """The losses from :meth:`encode_tower` outputs (the feature cache's
-        rows): the live forward without the tower."""
-        return self.losses_from_embeds(self.embed_cached(reference_tower),
-                                       self.embed_cached(target_tower), input_ids, text_mask,
-                                       generator=generator)
+    LOSSES = ("loss_itc", "loss_rtc", "loss_align")
 
     def losses_from_embeds(self, ref_embeds: Tensor, tgt_embeds: Tensor, input_ids: Tensor,
                            text_mask: Tensor, *,

@@ -5,7 +5,10 @@ cross-attention every second layer) -> 256-d vision / text projections, an
 ITM head and a learned temperature (reference
 blip2_qformer_cir_align_prompt.py:44-92). This module carries the encode and
 scoring surface that serving runs (with ``compute_itm``, the ITM score), and
-the training entry points shared by the losses of :mod:`.cir_align_prompt`.
+the training entry points every model shares: :meth:`Blip2CirBase.forward`
+from pixels and :meth:`Blip2CirBase.forward_cached` from the tower's rows,
+both handing post-``ln_vision`` embeds to the class's ``losses_from_embeds``
+(:mod:`.cir_align_prompt`, :mod:`.cir_variants`).
 
 Attribute names are the reference torch module's (``visual_encoder``,
 ``ln_vision``, ``Qformer.bert``, ``query_tokens``, ``vision_proj``,
@@ -17,8 +20,8 @@ in the recipe (``requires_grad`` off, kept in eval mode by :meth:`train`,
 LAVIS's ``disabled_train``) and runs under ``torch.no_grad()``, so its
 blocks launch kernel K2 on every live step. ``ln_vision`` and everything
 after it train. :meth:`encode_tower` is the boundary the feature cache
-stores (``sprc_tpu_torch/train/feature_cache.py``); the flagship's
-``forward_cached`` trains from it.
+stores (``sprc_tpu_torch/train/feature_cache.py``); ``forward_cached``
+trains every model from it (the JAX base's generic ``forward_cached``).
 """
 
 from __future__ import annotations
@@ -149,6 +152,34 @@ class Blip2CirBase(nn.Module):
             tower = self.encode_tower(torch.cat([reference, target]))
         return self.embed_cached(tower[:B]), self.embed_cached(tower[B:])
 
+    # ---------------------------------------------------------------- training
+
+    # the losses the training forward returns (empty: it returns tensors, and
+    # the fine-tune CLI refuses the model)
+    LOSSES: Tuple[str, ...] = ()
+
+    def forward(self, reference_images: Tensor, target_images: Tensor, input_ids: Tensor,
+                text_mask: Tensor, **kw):
+        """The live training forward: images [B, H, W, 3] through the frozen
+        tower (one call of 2B images, no graph), then ``losses_from_embeds``.
+        ``kw``: ``generator`` (dropout), and for the hard-negative models
+        ``sample_generator``."""
+        ref_embeds, tgt_embeds = self.encode_image_pair(reference_images, target_images)
+        return self.losses_from_embeds(ref_embeds, tgt_embeds, input_ids, text_mask, **kw)
+
+    def forward_cached(self, reference_tower: Tensor, target_tower: Tensor, input_ids: Tensor,
+                       text_mask: Tensor, **kw):
+        """The training forward from :meth:`encode_tower` outputs (the feature
+        cache's rows): the live forward without the tower
+        (``sprc_tpu/models/cir_base.py:170-191``)."""
+        return self.losses_from_embeds(self.embed_cached(reference_tower),
+                                       self.embed_cached(target_tower), input_ids, text_mask,
+                                       **kw)
+
+    def losses_from_embeds(self, ref_embeds: Tensor, tgt_embeds: Tensor, input_ids: Tensor,
+                           text_mask: Tensor, **kw):
+        raise NotImplementedError(f"{type(self).__name__} has no training forward")
+
     # ------------------------------------------------------------ Q-Former passes
 
     def _queries(self, batch: int) -> Tensor:
@@ -185,6 +216,13 @@ class Blip2CirBase(nn.Module):
                                    attention_mask=attn_mask, generator=generator)
         fusion_feats = l2_normalize(self.text_proj(text_hidden[:, Q]))
         return fused_queries, fusion_feats
+
+    def encode_text_cls(self, input_ids: Tensor, text_mask: Tensor,
+                        generator: Optional[torch.Generator] = None) -> Tensor:
+        """The plain text pass (no queries, no image): the normalised CLS
+        feature through ``text_proj`` [B, E] (``cir_base.py:278-285``)."""
+        hidden = self.qformer(input_ids=input_ids, attention_mask=text_mask, generator=generator)
+        return l2_normalize(self.text_proj(hidden[:, 0]))
 
     # ----------------------------------------------------- default eval contract
 

@@ -40,12 +40,21 @@ einsum path: every Q-Former call is masked or shorter than 128 rows), exact
 GELU, post-LN residuals, and hidden dropout at the JAX package's three
 places (the embeddings, after each attention's output projection, after
 each FFN's second product; ``attention_dropout_rate`` is never read there,
-and the port has no such field). The masks come from the ``generator``
+and the port has no such field). Inside
+:func:`sprc_tpu_torch.ops.layers.recomputing` the softmax attention, the
+GELUs and the post-LN LayerNorms keep only their inputs for the backward and
+run again there (:func:`~sprc_tpu_torch.ops.layers.recompute`: the same
+gradients bit for bit, about 40 % fewer activations); the variants' largest
+passes (the hard-negative ITM's 384 items) run so, to fit on one card at
+batch 128. The masks come from the ``generator``
 the caller passes down (:func:`sprc_tpu_torch.ops.layers.dropout`). The
 ``no_img`` text pass (SPRC's prompt pass) splices the query embeds after
-the CLS token, with positions over the whole spliced sequence. The decoder
-(UniLM) mask and the attention-probability outputs belong to the variant zoo
-and are not here yet.
+the CLS token, with positions over the whole spliced sequence.
+``output_attentions`` (``blip2_cir_slt``'s token selection) returns the last
+layer's self-attention probabilities; that one layer runs the unfused
+composition in any mode, without dropout outside training, as the JAX
+package sends it past its fused kernel. The decoder (UniLM) mask is not
+ported: no CIR model uses it.
 """
 
 from __future__ import annotations
@@ -59,7 +68,7 @@ from torch import nn
 from sprc_tpu_torch.ops import primitives
 from sprc_tpu_torch.ops.attention import dot_product_attention
 from sprc_tpu_torch.ops.fused_qformer import fused_qformer_layer, fused_qformer_layer_plain
-from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, dropout
+from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, dropout, recompute
 
 NEG_INF = -10000.0  # the reference's additive mask constant
 
@@ -165,17 +174,29 @@ class QFormerAttention(nn.Module):
 
     def train_forward(self, hidden: torch.Tensor, kv: torch.Tensor,
                       bias: Optional[torch.Tensor], cfg: QFormerConfig,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator], return_probs: bool = False):
         """The unfused block: q/k/v, attention, ``out``, dropout,
-        ``LN(out + hidden)``. ``bias``: [B, 1, 1, Sk] additive or None."""
+        ``LN(out + hidden)``. ``bias``: [B, 1, 1, Sk] additive or None.
+        ``return_probs``: also the softmax probabilities [B, H, S, Sk], from
+        the JAX package's explicit path (fp32 scores, the bias after the
+        scale)."""
         B, S, W = hidden.shape
         H, D = cfg.num_heads, cfg.head_dim
         q = self.self.query(hidden).view(B, S, H, D)
         k = self.self.key(kv).view(B, kv.shape[1], H, D)
         v = self.self.value(kv).view(B, kv.shape[1], H, D)
-        ctx = dot_product_attention(q, k, v, bias).reshape(B, S, W)
+        probs = None
+        if return_probs:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+            if bias is not None:
+                scores = scores + bias.to(scores.dtype)
+            probs = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).reshape(B, S, W)
+        else:
+            ctx = recompute(dot_product_attention, q, k, v, bias).reshape(B, S, W)
         out = dropout(self.output.dense(ctx), cfg.dropout_rate, generator)
-        return self.output.LayerNorm(out + hidden)
+        out = recompute(self.output.LayerNorm, out + hidden)
+        return (out, probs) if return_probs else out
 
     def kernel_params(self) -> dict:
         s, o = self.self, self.output
@@ -189,8 +210,8 @@ class QFormerAttention(nn.Module):
 def _ffn_train(intermediate: Dense, output: DenseLN, x: torch.Tensor, cfg: QFormerConfig,
                generator: Optional[torch.Generator]) -> torch.Tensor:
     """The unfused FFN: fc1, exact GELU, fc2, dropout, ``LN(h + x)``."""
-    h = output.dense(primitives.gelu(intermediate.dense(x)))
-    return output.LayerNorm(dropout(h, cfg.dropout_rate, generator) + x)
+    h = output.dense(recompute(primitives.gelu, intermediate.dense(x)))
+    return recompute(output.LayerNorm, dropout(h, cfg.dropout_rate, generator) + x)
 
 
 def _ffn_params(intermediate: Dense, output: DenseLN, int8: bool) -> dict:
@@ -236,23 +257,29 @@ class QFormerLayer(nn.Module):
 
     def train_forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
                       image_embeds: Optional[torch.Tensor], query_length: int,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator], return_probs: bool = False):
         """The JAX package's unfused layer (``qformer.py:363-392``): query
         rows take cross-attention (on cross layers) and the query FFN, text
-        rows the text FFN; without an image every row takes the text FFN."""
-        cfg = self.cfg
+        rows the text FFN; without an image every row takes the text FFN.
+        ``return_probs``: ``(out, the self-attention's probabilities)``;
+        outside training (:func:`training`) with no dropout, as the JAX
+        package runs its last layer for ``output_attentions``."""
+        cfg = self.cfg if training(self) else dataclasses.replace(self.cfg, dropout_rate=0.0)
         bias = None if col_bias is None else col_bias[:, None, None, :]
-        x = self.attention.train_forward(hidden, hidden, bias, cfg, generator)
+        x = self.attention.train_forward(hidden, hidden, bias, cfg, generator, return_probs)
+        x, probs = x if return_probs else (x, None)
         if image_embeds is None:
-            return _ffn_train(self.intermediate, self.output, x, cfg, generator)
-        q = x[:, :query_length]
-        if self.has_cross_attention:
-            q = self.crossattention.train_forward(q, image_embeds, None, cfg, generator)
-        q = _ffn_train(self.intermediate_query, self.output_query, q, cfg, generator)
-        if x.shape[1] == query_length:
-            return q
-        t = _ffn_train(self.intermediate, self.output, x[:, query_length:], cfg, generator)
-        return torch.cat([q, t], dim=1)
+            out = _ffn_train(self.intermediate, self.output, x, cfg, generator)
+        else:
+            q = x[:, :query_length]
+            if self.has_cross_attention:
+                q = self.crossattention.train_forward(q, image_embeds, None, cfg, generator)
+            out = _ffn_train(self.intermediate_query, self.output_query, q, cfg, generator)
+            if x.shape[1] > query_length:
+                t = _ffn_train(self.intermediate, self.output, x[:, query_length:], cfg,
+                               generator)
+                out = torch.cat([out, t], dim=1)
+        return (out, probs) if return_probs else out
 
 
 class Encoder(nn.Module):
@@ -276,10 +303,14 @@ class QFormer(nn.Module):
                 query_embeds: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None, *, no_img: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, output_attentions: bool = False):
         """``no_img``: the text pass with the query embeds spliced after CLS
         (the layers see no image). ``generator``: the dropout masks' source
-        in training mode (None: the device's default generator)."""
+        in training mode (None: the device's default generator).
+        ``output_attentions``: ``(hidden, the last layer's self-attention
+        probabilities [B, H, S, S])``; that layer runs the unfused
+        composition (the JAX gate ``not return_self_probs``), the others as
+        without it."""
         if input_ids is None and query_embeds is None:
             raise ValueError("need input_ids and/or query_embeds")
         if self.cfg.int8 and training(self):
@@ -294,10 +325,15 @@ class QFormer(nn.Module):
                 raise ValueError(f"attention_mask length {attention_mask.shape[1]} != "
                                  f"sequence {hidden.shape[1]}")
             col_bias = make_additive_mask(attention_mask)
+        layers = list(self.encoder.layer)
+        last = layers.pop() if output_attentions else None
+        image = None
         if image_embeds is not None:
-            image_embeds = image_embeds.to(self.cfg.dtype).contiguous()
-            if self.cfg.int8:  # the same rows in every cross layer: quantised once a pass
+            image = image_embeds = image_embeds.to(self.cfg.dtype).contiguous()
+            if self.cfg.int8 and layers:  # the same rows in every cross layer: quantised once
                 image_embeds = primitives.ops_for(image_embeds).quantize_rows(image_embeds)
-        for layer in self.encoder.layer:
+        for layer in layers:
             hidden = layer(hidden, col_bias, image_embeds, Q, generator)
-        return hidden
+        if last is None:
+            return hidden
+        return last.train_forward(hidden, col_bias, image, Q, generator, return_probs=True)

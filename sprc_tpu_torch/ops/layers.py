@@ -7,15 +7,19 @@ parameters are fp32 and named ``weight`` / ``bias`` as in ``torch.nn``.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.primitives import gemm_plain, layer_norm_plain, quick_gelu
 
-__all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize", "dropout"]
+__all__ = ["Linear", "LayerNormFP32", "quick_gelu", "l2_normalize", "dropout", "recompute",
+           "recomputing"]
 
 
 class Linear(nn.Module):
@@ -74,3 +78,33 @@ def dropout(x: torch.Tensor, rate: float,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+_RECOMPUTE = contextvars.ContextVar("recompute", default=False)
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """Inside this context :func:`recompute` keeps only its pieces' inputs
+    for the backward. The variants' largest passes with a gradient (the
+    hard-negative ITM's 384 items at batch 128) run in it, so that they fit
+    on one card; every other pass keeps its intermediates and saves the
+    second run."""
+    token = _RECOMPUTE.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTE.reset(token)
+
+
+def recompute(fn, *args):
+    """``fn(*args)``; inside :func:`recomputing`, while autograd records, it
+    keeps only its inputs for the backward, which runs ``fn`` again
+    (``torch.utils.checkpoint``, non-reentrant): the same values and
+    gradients bit for bit, with fewer activations held. For pieces that draw
+    no random numbers (the training Q-Former's softmax attention, GELUs and
+    LayerNorms, whose intermediates are several times their inputs)."""
+    if not (_RECOMPUTE.get() and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)

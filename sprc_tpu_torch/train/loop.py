@@ -5,11 +5,20 @@ package has it:
 
 - AdamW (0.9, 0.98, eps 1e-7, weight decay 0.05) over every trainable
   tensor, with no decay mask (``optax.adamw``), and the OneCycle schedule
-  counted in optimizer updates. The frozen tower is not trainable
-  (``requires_grad`` off) and gets no update. A trainable tensor the losses
-  do not reach (``itm_head``) gets a zero gradient and so decays, as in
-  optax.
-- loss = loss_itc + 0.4 loss_rtc + 0.4 loss_align.
+  counted in optimizer updates. The rule for which tensors it touches: every
+  tensor with ``requires_grad``. The model turns it off for the frozen
+  tower and for its class's ``FROZEN_PREFIXES`` (the rerank model's twin),
+  as the JAX package's ``frozen_prefixes`` partition gives those leaves
+  ``set_to_zero``; they get no update. A trainable tensor the losses do not
+  reach (the flagship's ``itm_head``, the rerank model's ``vision_proj`` /
+  ``text_proj``) gets a zero gradient and so decays, as an optax leaf does.
+  optax updates only the leaves its tree holds, and a tree from the JAX
+  ``init_params`` lacks the modules the training forward never calls, so
+  there the JAX CLI leaves those tensors where they are; on a tree that
+  holds them (a strict load needs them) one step is the same in both
+  (``tests/test_torch_variants_eval.py``).
+- loss = loss_itc + 0.4 loss_rtc + 0.4 loss_align, every other loss a
+  variant returns (``loss_itm``, ``loss_p2p``) at weight 1, as in JAX.
 - Gradient accumulation as ``optax.MultiSteps``: the running mean of k
   micro-step gradients, then one update; :attr:`Trainer.step` counts
   micro-steps, :attr:`Trainer.updates` the updates.
@@ -21,8 +30,10 @@ package has it:
   (seeded), which the JAX package threads as ``state.rng``.
 
 On the card the step launches kernel K2's chain in the frozen tower (live
-steps) and K1 in both in-batch losses; the Q-Former runs unfused in
-training mode (``torch.matmul``), as the JAX package runs it.
+steps) and K1 in the in-batch losses; the Q-Former runs unfused in
+training mode (``torch.matmul``), as the JAX package runs it, except in the
+variants' no-grad passes (the rerank twin, ``blip2_cir_cls``'s caption
+picks), which launch K3.
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ packages are compared (their masks come from different generators); with
 dropout 0.1, cached and live steps from one seed are held equal.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -249,3 +251,22 @@ def test_token_max_sim_gradient_equals_jax_vjp(ties, monkeypatch):
     with torch.no_grad():  # no gradient wanted: the wrapper itself
         Blip2CirBase.token_max_sim(ft, tt)
     assert len(calls) == 1
+
+
+def test_recompute_keeps_the_step_bit_for_bit(shared):
+    """Inside ``layers.recomputing`` the training Q-Former's attention,
+    GELUs and LayerNorms keep only their inputs and run again in the
+    backward: the losses and every gradient of the flagship's step equal
+    those of the step that keeps every intermediate, bit for bit, dropout
+    0.1 included (the variants' ITM passes run so)."""
+    from sprc_tpu_torch.ops.layers import recomputing
+
+    _, params, batch = shared
+    model = port_model(params, dropout=0.1)
+    runs = []
+    for ctx in (recomputing, contextlib.nullcontext):
+        with ctx():
+            runs.append(Trainer(model, TrainConfig(), seed=5).loss_and_grads(torch_batch(batch)))
+    (t0, l0, g0), (t1, l1, g1) = runs
+    assert torch.equal(t0, t1) and all(torch.equal(l0[k], l1[k]) for k in l0)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
