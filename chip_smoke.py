@@ -178,6 +178,33 @@ Phases (any failure raises and exits nonzero before the last line):
    The kernel phase holds K3 at the variants' no-grad shapes
    (kernel_checks.VARIANT_SHAPES).
 
+10. BLIP-2 stage 1 through the YAML run layer (random weights from seed 0,
+   the synthetic vocab, full width; the two CLIs get configs/runs/<name> as
+   --cfg-path and --options give it, or, without PyYAML, Config(defaults=)
+   from RUN_CONFIGS, and the script prints which):
+   (a) cli/evaluate.py on eval/ret_coco_blip2_eval.yaml (blip2 / coco: EVA
+       ViT-g at 364 px, the fp32 tower; 677 image rows) over 64 seeded PNG
+       images of mixed sizes, 5 captions each, run.k_test 16: the metric
+       JSON, seconds by stage (image encode, text encode, stage 1 (K1), the
+       ITM rescoring both ways), the launches (K1 once, the tower's 39 blocks,
+       K3's 12 layers a Q-Former call), the peak; against the all-plain run:
+       K1's scores on the kernel run's features within its bound, one ITM
+       chunk a direction within the 12-layer chain's, its K3 launches stage
+       by stage; the frozen rows, both features, the stage-1 and the rescored
+       scores within STAGE1_RUN_BOUNDS; the top-16 sets equal but at a near
+       tie, recalls equal but at a near tie (both ties fixed by those bounds);
+   (b) cli/train.py on pretrain_stage1.yaml (blip2 / pretrain: EVA ViT-g 224
+       px bf16, frozen) at the YAML's batch of 100 over 200 seeded PNG pairs
+       (one epoch, 2 steps): ms a step, samples/s, the peak (under 80 GB),
+       the launches a step (K1 once, the tower's chain once, no K3); then one
+       step through the kernels against the all-plain step from the kernel
+       tower's rows and from the pixels (STAGE1_BOUNDS; the kernel step's hard
+       negatives handed over, how many the plain step would move printed);
+       K1 with a gradient at B = N = 100.
+   The kernel phase holds K1 at COCO's 25,000 x 5,000, K2 in fp32 at S = 677
+   and in bf16 at B = 100, and K3 against 677 memory rows
+   (kernel_checks.run_stage1).
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -287,6 +314,27 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
+# phase 10's run configs as configs/runs/<name> gives them (the card machine
+# may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
+# each dict equal to its file)
+RUN_CONFIGS = {
+    "eval/ret_coco_blip2_eval.yaml": {
+        "run": {"task": "retrieval", "evaluate": True, "k_test": 128, "max_txt_len": 35,
+                "test_splits": ["test"]},
+        "model": {"arch": "blip2", "model_type": "coco"},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "pretrain_stage1.yaml": {
+        "run": {"task": "image_text_pretrain", "batch_size": 100, "max_epochs": 10,
+                "learning_rate": "1e-4", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
+        "model": {"arch": "blip2", "image_size": 224, "num_query_token": 32},
+        "datasets": {"conceptual_caption_3m": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 224}},
+            "text_processor": {"train": {"name": "blip_caption"}}}}},
+}
 
 
 def log(msg):
@@ -328,6 +376,8 @@ def phase_kernels():
     for row in rows:
         timing = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
                   if "ms" in row else "")
+        if "tf32x3_ms" in row:
+            timing += f", 3xTF32 bound {row['tf32x3_ms']:.4f} ms"
         log(f"[kernels] {row['check']} ({row['shape']}): max_abs {row['max_abs_err']:.3e} "
             f"mean_abs {row['mean_abs_err']:.3e}{timing} -> {'ok' if row['ok'] else 'FAIL'}")
     bad = [r["check"] for r in rows if not r["ok"]]
@@ -1938,6 +1988,424 @@ def phase_variants(work):
     return out
 
 
+# phase 10, BLIP-2 stage 1 (models/blip2_stage1.py) through the YAML run layer:
+# 10a cli/evaluate.py on ret_coco_blip2_eval.yaml (blip2 / coco: EVA ViT-g at
+# 364 px, the fp32 tower) over STAGE1_IMAGES seeded images of mixed sizes
+# written as PNG files, STAGE1_CAPTIONS captions each, run.k_test
+# STAGE1_K_TEST; 10b cli/train.py on pretrain_stage1.yaml (blip2 / pretrain:
+# EVA ViT-g 224 px, bf16, frozen) at the YAML's batch of 100 over STAGE1_PAIRS
+# pairs (one epoch: 2 steps)
+STAGE1_IMAGES, STAGE1_CAPTIONS, STAGE1_K_TEST = 64, 5, 16
+STAGE1_PAIRS = 200
+# 10a against the all-plain run (primitives.plain_reference), stage by stage:
+# K1's scores on the kernel run's features within K1's own bound (1e-4, as
+# check_token_max_sim), the ITM scores of one chunk of each direction on the
+# kernel run's frozen rows within the 12-layer chain's (5e-4, as
+# check_qformer_trunk), every K3 launch of those chunks within STAGE_BOUNDS
+STAGE1_SIM_MAX_ABS, STAGE1_ITM_MAX_ABS = 1e-4, 5e-4
+# 10a's kernel run against the all-plain run end to end, at fixed bounds about
+# 4 times the readings on an H100 80GB HBM3 at 700 W (the same in two runs):
+# the fp32 tower's frozen rows (max / mean |difference|: 1.395e-5 / 1.847e-6),
+# the images' query features and the captions' features (unit rows: 4.601e-7,
+# 4.843e-7), the stage-1 scores (5.066e-7) and the rescored scores
+# (1.043e-6). A top-k set may differ only where its k-th and (k+1)-th scores
+# lie within twice the stage-1 bound, a recall only where the top-1 gap is
+# within twice the rescored bound.
+STAGE1_RUN_BOUNDS = {"frozen": (6e-5, 8e-6), "feats": 2e-6, "text_feats": 2e-6,
+                     "scores": 2e-6, "rescored": 4e-6}
+# 10b's kernel step against the all-plain step: from the kernel tower's rows
+# within TRAIN_BOUNDS["rows"] (readings on an H100: losses 0, gradients
+# 1.5e-6); from the pixels, the plain bf16 tower's rows feed the Q-Former, and
+# the losses read 1.9e-4 (at phase 7's bound of 2e-4, set from the flagship's
+# 6.5e-5), held at 3 times that reading; gradients as phase 7's (2.1e-2)
+STAGE1_BOUNDS = {"rows": TRAIN_BOUNDS["rows"], "live": {"loss": 6e-4, "grad": 0.9}}
+# 10b's launches a step: K1 once (the ITC, through TokenMaxSim), the tower's
+# chain once (39 blocks: 4 bf16 GEMMs, one attention and 2 LayerNorms each),
+# no Q-Former layer kernel (every pass of the step trains, unfused)
+STAGE1_STEP_LAUNCHES = {"token_max_sim": 1, "fused_vit_block": 39, "gemm": 156,
+                        "attention_bf16": 39, "layer_norm": 78}
+STAGE1_WORDS = ("a", "the", "dog", "cat", "man", "woman", "red", "blue", "on", "in", "street",
+                "table", "two", "small", "large", "sitting", "standing", "with", "near", "car")
+
+
+def _run_config(name, overrides):
+    """``(Config, how)``: configs/runs/<name> with ``overrides`` (a nested
+    dict), read through the file and a dotlist, as ``--cfg-path`` and
+    ``--options`` give it, where PyYAML exists; else ``Config(defaults=...)``
+    from its mirror in RUN_CONFIGS."""
+    from sprc_tpu_torch.config import Config, deep_merge
+
+    want = deep_merge(RUN_CONFIGS[name], overrides)
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        return Config(defaults=want), "Config(defaults=RUN_CONFIGS[...]) (no PyYAML here)"
+    dotlist = []
+
+    def walk(prefix, node):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(f"{prefix}{key}.", value)
+            else:
+                dotlist.append(f"{prefix}{key}={json.dumps(value)}")
+
+    walk("", overrides)
+    cfg = Config(os.path.join(ROOT, "configs", "runs", name), overrides=dotlist)
+    assert cfg.to_dict() == want, (name, cfg.to_dict(), want)
+    return cfg, f"--cfg-path configs/runs/{name} --options {' '.join(dotlist)}"
+
+
+def _write_pairs(root, n, captions, seed, prefix):
+    """``n`` seeded PNG images of mixed sizes under ``root`` and their
+    annotations: ``captions`` a list each (retrieval) or one string (pairs)."""
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ann = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(160, 480, 2))
+        name = f"{prefix}{i:04d}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+        caps = [" ".join(rng.choice(STAGE1_WORDS, 8)) for _ in range(max(1, captions))]
+        ann.append({"image": name, "caption": caps if captions else caps[0], "image_id": i})
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def _near_ties(rows_a, rows_b, scores, bound):
+    """Rows where the two runs' top sets (their non -100 entries) differ,
+    and of those the ones whose k-th and (k+1)-th ``scores`` are further
+    apart than ``bound`` (a difference no rounding explains)."""
+    differ, far = 0, 0
+    for a, b, s in zip(rows_a, rows_b, scores):
+        if np.array_equal(a != -100.0, b != -100.0):
+            continue
+        differ += 1
+        k = int((a != -100.0).sum())
+        top = np.sort(s)[::-1]
+        far += int(k < len(top) and top[k - 1] - top[k] > bound)
+    return differ, far
+
+
+def phase_stage1_eval(work):
+    """10a: the retrieval evaluation of BLIP-2 stage 1 (phase 10 of the docstring)."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain
+    from sprc_tpu_torch.retrieval import sim_matrix
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "stage1 eval"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "coco_retrieval")
+    ann = _write_pairs(root, STAGE1_IMAGES, STAGE1_CAPTIONS, SEED + 10, "coco")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config("eval/ret_coco_blip2_eval.yaml", {
+        "run": {"k_test": STAGE1_K_TEST, "seed": SEED},
+        "datasets": {"coco_retrieval": {"build_info": {"annotations": {"test": [ann]},
+                                                       "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
+                              output_dir=os.path.join(work, "stage1_eval"))
+    counters = _counters()
+    runs = []
+    real = sim_matrix.compute_sim_matrix
+
+    def recording(model, frozen, feats, ids, mask, text_feats, **kw):
+        out = real(model, frozen, feats, ids, mask, text_feats, **kw)
+        runs.append({"model": model, "frozen": frozen, "feats": feats, "ids": ids, "mask": mask,
+                     "text_feats": text_feats, "out": out})
+        return out
+
+    sim_matrix.compute_sim_matrix = recording
+    try:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        t0 = time.perf_counter()
+        metrics = evaluate.evaluate(cfg, args, stats)
+        sync()
+        total_s = time.perf_counter() - t0
+        launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
+        plain_stats = {}
+        t0 = time.perf_counter()
+        with primitives.plain_reference():
+            plain_metrics = evaluate.evaluate(cfg, args, plain_stats)
+        sync()
+        plain_s = time.perf_counter() - t0
+    finally:
+        sim_matrix.compute_sim_matrix = real
+    kern, plain = runs
+    stages = ("image_encode_s", "text_encode_s", "stage1_s", "itm_i2t_s", "itm_t2i_s")
+    log(f"[{tag}] seconds by stage, kernels: "
+        + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
+        + f"; {stats['itm_calls']} ITM calls; total {total_s:.2f} s; peak {peak:.2f} GiB")
+    log(f"[{tag}] seconds by stage, all-plain: "
+        + ", ".join(f"{k} {plain_stats[k]:.3f}" for k in stages) + f"; total {plain_s:.2f} s")
+    n_txt = STAGE1_IMAGES * STAGE1_CAPTIONS
+    depth, layers = 39, 12
+    want = {"token_max_sim": 1, "fused_vit_block": depth,
+            "fused_qformer_layer": layers * (1 + -(-n_txt // 256) + STAGE1_IMAGES + n_txt)}
+    log(f"[{tag}] launches: {launches}")
+    bad = {k: launches[k] for k in want if launches[k] != want[k]}
+    bad.update({k: launches[k] for k in ("gemm_f32", "attention_f32", "layer_norm")
+                if launches[k] <= 0})
+    bad.update({k: v for k, v in launches.items()
+                if k not in want and k not in ("gemm_f32", "attention_f32", "layer_norm")
+                and v != 0})
+    if bad:
+        raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the fp32 chain's")
+
+    # stage by stage, on the kernel run's own inputs
+    model = kern["model"]
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    with torch.inference_mode():
+        sims_k = token_max_sim(kern["text_feats"], kern["feats"])
+        sims_p = token_max_sim_plain(kern["text_feats"], kern["feats"])
+        sim_err = (sims_k - sims_p).abs().max().item()
+        device = kern["feats"].device
+        # image 0's best captions (a column of the [captions, images] scores),
+        # then caption 0's best images
+        topk = torch.sort(-sims_k[:, 0], stable=True).indices[:STAGE1_K_TEST].cpu().numpy()
+        img = torch.from_numpy(kern["frozen"][0:1]).to(device).expand(STAGE1_K_TEST, -1, -1)
+        chunks = {"i2t": (img, kern["ids"][topk], kern["mask"][topk])}
+        topk = torch.sort(-sims_k[0], stable=True).indices[:STAGE1_K_TEST].cpu().numpy()
+        chunks["t2i"] = (torch.from_numpy(kern["frozen"][topk]).to(device),
+                         np.repeat(kern["ids"][:1], len(topk), 0),
+                         np.repeat(kern["mask"][:1], len(topk), 0))
+        itm_err = {}
+        for name, (im, ids, mask) in chunks.items():
+            ids, mask = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+            got = model.compute_itm(im, ids, mask)
+            with primitives.plain_reference():
+                ref = model.compute_itm(im, ids, mask)
+            itm_err[name] = (got - ref).abs().max().item()
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    stage_rows = stage_pass(tag, "one ITM chunk (t2i)", counters,
+                            lambda: model.compute_itm(chunks["t2i"][0],
+                                                      torch.from_numpy(chunks["t2i"][1]).to(device),
+                                                      torch.from_numpy(chunks["t2i"][2]).to(device)))
+    log(f"[{tag}] K1 scores ({n_txt} x {STAGE1_IMAGES}) against plain on the same features: "
+        f"max_abs {sim_err:.3e} (bound {STAGE1_SIM_MAX_ABS:.0e}); ITM scores of one chunk a "
+        f"direction against plain on the same frozen rows: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in itm_err.items())
+        + f" (bound {STAGE1_ITM_MAX_ABS:.0e})")
+    if sim_err > STAGE1_SIM_MAX_ABS or max(itm_err.values()) > STAGE1_ITM_MAX_ABS:
+        raise RuntimeError(f"{tag}: K1 {sim_err}, ITM {itm_err} beyond their bounds")
+
+    # the two runs side by side: frozen rows, features, scores, top sets, recalls
+    frozen_d = np.abs(kern["frozen"] - plain["frozen"])
+    feats_d = (kern["feats"] - plain["feats"]).abs().max().item()
+    text_d = (kern["text_feats"] - plain["text_feats"]).abs().max().item()
+    free = {}
+    for i, name in enumerate(("i2t", "t2i")):
+        a, b = kern["out"][i], plain["out"][i]
+        both = (a != -100.0) & (b != -100.0)
+        free[name] = float(np.abs(a - b)[both].max())
+    sims_plain = token_max_sim_plain(plain["text_feats"], plain["feats"]).cpu().numpy()
+    score_d = float(np.abs(sims_k.cpu().numpy() - sims_plain).max())
+    tie = 2 * STAGE1_RUN_BOUNDS["scores"]
+    ties = {"i2t": _near_ties(kern["out"][0], plain["out"][0], sims_plain.T, tie),
+            "t2i": _near_ties(kern["out"][1], plain["out"][1], sims_plain, tie)}
+    log(f"[{tag}] kernel run against the all-plain run: frozen rows max_abs "
+        f"{frozen_d.max():.3e} mean_abs {frozen_d.mean():.3e}; query features max_abs "
+        f"{feats_d:.3e}; caption features max_abs {text_d:.3e}; stage-1 scores max_abs "
+        f"{score_d:.3e}; rescored scores max_abs " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                                              free.items())
+        + f" (bounds {STAGE1_RUN_BOUNDS}); rows whose top-k sets differ (of them past a "
+        "near tie): " + ", ".join(f"{k} {d} ({f})" for k, (d, f) in ties.items()))
+    readings = {"frozen": (frozen_d.max(), frozen_d.mean()), "feats": feats_d,
+                "text_feats": text_d, "scores": score_d, "rescored": max(free.values())}
+    past = {k: v for k, v in readings.items()
+            if np.any(np.asarray(v) > np.asarray(STAGE1_RUN_BOUNDS[k]))}
+    if past:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past "
+                           f"{STAGE1_RUN_BOUNDS}: {past}")
+    if any(f for _, f in ties.values()):
+        raise RuntimeError(f"{tag}: top-{STAGE1_K_TEST} sets differ past a near tie: {ties}")
+    recall_keys = [k for k in metrics if k != "agg_metrics"]
+    if any(metrics[k] != plain_metrics[k] for k in recall_keys):
+        # a recall may move only where the rescored scores nearly tie
+        gaps = []
+        for i, name in enumerate(("i2t", "t2i")):
+            for a, b in zip(kern["out"][i], plain["out"][i]):
+                if np.argmax(a) != np.argmax(b):
+                    gaps.append(abs(b[np.argmax(a)] - b[np.argmax(b)]))
+        log(f"[{tag}] recalls differ: {metrics} against {plain_metrics}; top-1 gaps "
+            f"{sorted(gaps)[:8]}")
+        if max(gaps, default=0.0) > 2 * STAGE1_RUN_BOUNDS["rescored"]:
+            raise RuntimeError(f"{tag}: recalls differ past a near tie")
+    else:
+        log(f"[{tag}] recalls equal to the all-plain run's")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    del runs, kern, plain, model
+    return {"metrics": metrics, "plain_metrics": plain_metrics, "stage_seconds":
+            {k: stats[k] for k in stages}, "plain_stage_seconds":
+            {k: plain_stats[k] for k in stages}, "itm_calls": stats["itm_calls"],
+            "total_s": total_s, "peak_memory_gib": peak, "launches": launches,
+            "k1_max_abs": sim_err, "itm_max_abs": itm_err, "free_running": free,
+            "frozen_max_abs": float(frozen_d.max()), "feats_max_abs": feats_d,
+            "text_feats_max_abs": text_d, "top_sets_differ": ties,
+            "stages": stage_rows, "seconds": seconds}
+
+
+def phase_stage1_train(work):
+    """10b: BLIP-2 stage-1 pretraining through cli/train.py (phase 10 of the docstring)."""
+    import argparse
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "stage1 train"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "cc3m")
+    ann = _write_pairs(root, STAGE1_PAIRS, 0, SEED + 11, "cc")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, "stage1_train")
+    if os.path.isdir(out):
+        import shutil
+
+        shutil.rmtree(out)
+    cfg, how = _run_config("pretrain_stage1.yaml", {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {"conceptual_caption_3m": {"build_info": {"annotations": {"train": [ann]},
+                                                              "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    real_step = generic.GenericTrainer.train_step
+    times, per_step = [], []
+
+    def timed(self, batch):
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items()})
+        return metrics
+
+    generic.GenericTrainer.train_step = timed
+    try:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step = real_step
+    with open(os.path.join(out, "log.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    batch_size = cfg.run["batch_size"]
+    log(f"[{tag}] {len(steps)} steps at batch {batch_size}: ms "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; samples/s (last step) "
+        f"{batch_size / times[-1] * 1e3:.1f}; peak {peak:.2f} GiB; run {run_s:.1f} s; losses "
+        + "; ".join(", ".join(f"{k} {r[k]:.4f}" for k in ("loss_itc", "loss_itm", "loss_lm"))
+                    for r in steps))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}")
+    if len(steps) != STAGE1_PAIRS // batch_size or any(r["skipped_nonfinite"] for r in steps):
+        raise RuntimeError(f"{tag}: steps {steps}")
+    if not all(np.isfinite(r[k]) for r in steps for k in ("loss_itc", "loss_itm", "loss_lm")):
+        raise RuntimeError(f"{tag}: a loss is not finite: {steps}")
+    for launch in per_step:
+        bad = {k: v for k, v in launch.items() if v != STAGE1_STEP_LAUNCHES.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"{tag}: a step's launches {bad}, expected {STAGE1_STEP_LAUNCHES}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) one step through the kernels against the all-plain step: from the
+    # kernel tower's rows (TRAIN_BOUNDS["rows"]) and from the pixels
+    # (TRAIN_BOUNDS["live"]); the kernel step's hard negatives handed over
+    model = load_model("blip2", "pretrain", device=DEVICE, seed=SEED)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", "conceptual_caption_3m")(
+        dict(cfg.datasets["conceptual_caption_3m"])).build()
+    task = generic.BuilderTask(datasets, generic.PretrainAdapter(
+        tokenizer, max_txt_len=cfg.run["max_txt_len"]), batch_size=batch_size, seed=SEED,
+        device=DEVICE)
+    batch = task.prepare_batch(next(iter(task.train_loader(0))))
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]), total_steps=2)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    class RowsTrainer(generic.GenericTrainer):
+        def forward(self, b):
+            return self.model.forward_cached(b["tower"], b["input_ids"], b["text_mask"],
+                                             generator=self.generator)
+
+    kept = read()
+    picks = {}
+    with hard_negatives(model, picks, inject=False):
+        _, k_losses, k_grads = generic.GenericTrainer(model, tcfg, seed=SEED).loss_and_grads(batch)
+    with torch.no_grad():
+        tower = model.encode_tower(batch["images"])
+    gaps, moved = {}, {}
+    for case, trainer_cls, step in (("rows", RowsTrainer, dict(batch, tower=tower)),
+                                    ("live", generic.GenericTrainer, batch)):
+        with primitives.plain_reference(), hard_negatives(model, picks, inject=True) as m:
+            _, p_losses, p_grads = trainer_cls(model, tcfg, seed=SEED).loss_and_grads(step)
+        sync()
+        gaps[case] = {"loss": _loss_gap(k_losses, p_losses),
+                      "grad": kernel_checks.grad_gap(k_grads, p_grads, names)}
+        moved[case] = dict(m)
+        del p_grads
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    for case, gap in gaps.items():
+        log(f"[{tag}] the kernel step against the all-plain step from the "
+            f"{'tower rows' if case == 'rows' else 'pixels'}: losses {gap['loss']:.3e} "
+            f"(bound {STAGE1_BOUNDS[case]['loss']:.0e}), gradients {gap['grad']['gap']:.3e} "
+            f"(bound {STAGE1_BOUNDS[case]['grad']:.0e}; worst {gap['grad']['worst']}); hard "
+            f"negatives the plain step would move: {moved[case]['moved']} of {moved[case]['of']}")
+        if (gap["loss"] > STAGE1_BOUNDS[case]["loss"]
+                or gap["grad"]["gap"] > STAGE1_BOUNDS[case]["grad"]):
+            raise RuntimeError(f"{tag}: the {case} step beyond STAGE1_BOUNDS: {gap}")
+    del model, k_grads, tower, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = kernel_checks.check_token_max_sim_grad(DEVICE, B=batch_size, N=batch_size)
+    log(f"[{tag}] K1 with a gradient at {k1['shape']}: max_abs {k1['max_abs_err']:.3e}, "
+        f"gradients {k1['grad_max_abs_err']:.3e} -> {'ok' if k1['ok'] else 'FAIL'}")
+    if not k1["ok"]:
+        raise RuntimeError(f"{tag}: K1 with a gradient disagrees: {k1}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "losses": steps, "launches": launches,
+            "launches_step": per_step, "gaps": {c: {"loss": g["loss"], "grad": g["grad"]["gap"]}
+                                                for c, g in gaps.items()},
+            "hard_negatives_moved": {c: m["moved"] for c, m in moved.items()},
+            "k1_grad": k1, "seconds": seconds}
+
+
 def check_routes_agree(runs):
     base = runs["block"]["target_feats"]
     for route, run in runs.items():
@@ -1975,7 +2443,7 @@ def check_counters(tag, launches):
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
-    from sprc_tpu_torch.kernel_checks import VARIANT_SHAPES, bound_ms
+    from sprc_tpu_torch.kernel_checks import RETRIEVAL_SHAPES, VARIANT_SHAPES, bound_ms
 
     by_check = {r["check"]: r for r in rows}
 
@@ -1987,7 +2455,10 @@ def kernel_table(rows, launches):
                 "launches": launches[count or name],
                 "max_abs_err": max(r["max_abs_err"] for r in rs),
                 "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
-                **bound_ms(work), "library_ms": library_ms}
+                **bound_ms(work), "library_ms": library_ms,
+                # K1's products run in 3xTF32 on the tensor cores: that rate's bound too
+                **({"tf32x3_ms": sum(r["tf32x3_ms"] for r in rs)}
+                   if all("tf32x3_ms" in r for r in rs) else {})}
 
     shapes = ("queries", "fusion", "prompt")  # K3 / K4: summed over the serving shapes
     qf_attention = [c for c in by_check if c.startswith("attention f32 qformer ")
@@ -2087,6 +2558,29 @@ def kernel_table(rows, launches):
               "sprc_tpu/ops/pallas_qformer.py:360",
               [f"K3 qformer_layer {s}" for s in VARIANT_SHAPES],
               count="fused_qformer_layer_variants"),
+        # phase 10, BLIP-2 stage 1: K1 at COCO's retrieval call (25,000 captions x
+        # 5,000 images), K2 in fp32 at 364 px and K3 against 677 memory rows
+        # (summed over the queries, text and ITM shapes), launches: 10a's; K2 in
+        # bf16 at pretraining's batch of 100, launches: 10b's
+        entry("token_max_sim (stage-1 retrieval)", "sprc_tpu_torch/csrc/token_max_sim.cu",
+              "sprc_tpu/ops/pallas_sim.py:40", ["K1 token_max_sim coco"],
+              count="token_max_sim_stage1_eval"),
+        entry("fused_vit_block (fp32 tower, 364 px)", "sprc_tpu_torch/ops/fused_block.py",
+              "sprc_tpu/ops/pallas_block.py:609", ["K2 vit_block eva_g fp32 S=677"],
+              count="fused_vit_block_stage1_eval"),
+        entry("fused_qformer_layer (stage-1 retrieval)", "sprc_tpu_torch/ops/fused_qformer.py",
+              "sprc_tpu/ops/pallas_qformer.py:360",
+              [f"K3 qformer_layer {s}" for s in RETRIEVAL_SHAPES],
+              count="fused_qformer_layer_stage1_eval"),
+        entry("fused_vit_block (stage-1 pretraining)", "sprc_tpu_torch/ops/fused_block.py",
+              "sprc_tpu/ops/pallas_block.py:609", ["K2 vit_block eva_g B=100"],
+              count="fused_vit_block_stage1_train"),
+        # the fp32 attention at the fp32 tower's call (S = 677, D 88, beside
+        # SDPA); launches: 10a's, the tower's 39 and the Q-Former's
+        entry("attention_f32 (fp32 tower, 364 px)", "sprc_tpu_torch/csrc/attention.cu",
+              "sprc_tpu/ops/pallas_attention.py:428", ["attention D=88 fp32 S=677"],
+              library_ms=by_check["attention D=88 fp32 S=677"]["library_ms"],
+              count="attention_f32_stage1_eval"),
     ]
 
 
@@ -2117,6 +2611,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     variants = phase_variants(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage1_eval = phase_stage1_eval(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage1_train = phase_stage1_train(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -2132,7 +2632,12 @@ def main():
         "gemm_f32_rerank_eva": rerank_eva["launches"]["gemm_f32"],
         "gemm_i8_rerank": rerank["launches_int8"]["gemm_i8"],
         "attention_f32_rerank": rerank["launches"]["attention_f32"],
-        "fused_qformer_layer_variants": variants["launches"]["fused_qformer_layer"]})
+        "fused_qformer_layer_variants": variants["launches"]["fused_qformer_layer"],
+        "token_max_sim_stage1_eval": stage1_eval["launches"]["token_max_sim"],
+        "fused_vit_block_stage1_eval": stage1_eval["launches"]["fused_vit_block"],
+        "fused_qformer_layer_stage1_eval": stage1_eval["launches"]["fused_qformer_layer"],
+        "fused_vit_block_stage1_train": stage1_train["launches"]["fused_vit_block"],
+        "attention_f32_stage1_eval": stage1_eval["launches"]["attention_f32"]})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -2153,7 +2658,15 @@ def main():
     # with one the variants' in-batch losses (phase 9's launches)
     k1_variants = dict(k1_train, name="token_max_sim (variant zoo, fine-tune)",
                        launches=variants["launches"]["token_max_sim"])
-    print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants],
+    # K1 with a gradient at stage-1 pretraining's in-batch shape (B = N = 100)
+    k1 = stage1_train.pop("k1_grad")
+    k1_stage1 = dict(k1_train, name="token_max_sim (TokenMaxSim, stage-1 pretraining)",
+                     launches=stage1_train["launches"]["token_max_sim"],
+                     max_abs_err=max(k1["max_abs_err"], k1["grad_max_abs_err"]), ms=k1["ms"],
+                     plain_ms=k1["plain_ms"], **bound_ms(k1), fwd_bwd_ms=k1["fwd_bwd_ms"],
+                     plain_fwd_bwd_ms=k1["plain_fwd_bwd_ms"])
+    print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants,
+                                                                 k1_stage1],
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -2174,6 +2687,9 @@ def main():
                               for n, r in variants["variants"].items()},
                           "cli_rerank_cached_gap": variants["cli_rerank_cached_gap"],
                           "launches": variants["launches"], "seconds": variants["seconds"]},
+                      "stage1_eval_coco": {k: v for k, v in stage1_eval.items()
+                                           if k != "stages"},
+                      "stage1_train": stage1_train,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

@@ -206,8 +206,12 @@ def finetune(args) -> List[dict]:
     from sprc_tpu_torch.utils.artifacts import ensure_bert_vocab
     from sprc_tpu_torch.utils.logging import MetricsLogger
 
+    from sprc_tpu_torch.loader import CIR_MODELS
     from sprc_tpu_torch.registry import registry
 
+    if args.model_name not in CIR_MODELS:
+        raise SystemExit(f"--model-name {args.model_name}: not a CIR model; BLIP-2 stage 1 "
+                         "trains through cli/train.py (configs/runs/pretrain_stage1.yaml)")
     if not registry.get_model_class(args.model_name).LOSSES:
         raise SystemExit(f"--model-name {args.model_name}: its forward returns tensors, not "
                          "losses, so there is nothing to train (the JAX step fails on it at "

@@ -59,7 +59,10 @@ samples/s and peak memory, and from one profiled step of each the device
 time by kernel group; the Q-Former's products in training are library GEMMs
 (``torch.matmul``), grouped as such, and ``qformer_product_ms`` adds the
 fp32 GEMMs of K3 in the no-grad passes of ``blip2_cir_rerank`` and
-``blip2_cir_cls``.
+``blip2_cir_cls``. A BLIP-2 stage-1 name (``--model-name blip2
+--model-type pretrain``) profiles the live step of ``cli/train.py``'s
+trainer instead (``train/generic.py::GenericTrainer``, the frozen tower
+decayed) at pretraining's batch of 100: ITC, hard-negative ITM, LM.
 
 With ``--rerank`` it profiles one tile of the ITM rerank instead, on
 ``blip2_cir_rerank`` / ``--model-type`` (random weights from seed 0; with
@@ -288,9 +291,11 @@ def profile_feed(model, dev: str) -> dict:
 
 
 def profile_train(model_type: str, out: str, model_name: str = "blip2_cir_align_prompt") -> dict:
-    """One live and one cached fine-tune step at batch 128 (``--train``)."""
-    from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
-    from sprc_tpu_torch.loader import load_model
+    """One live and one cached fine-tune step at batch 128 (``--train``);
+    for a stage-1 model one live pretraining step at batch 100."""
+    from sprc_tpu_torch.kernel_checks import STAGE1_BATCH, TRAIN_BATCH
+    from sprc_tpu_torch.loader import STAGE1_MODELS, load_model
+    from sprc_tpu_torch.train.generic import GenericTrainer
     from sprc_tpu_torch.train.loop import TrainConfig, Trainer
 
     dev = "cuda"
@@ -298,24 +303,33 @@ def profile_train(model_type: str, out: str, model_name: str = "blip2_cir_align_
     model = load_model(model_name, model_type, device=dev, seed=SEED)
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    B, L = TRAIN_BATCH, cfg.max_txt_len
+    stage1 = model_name in STAGE1_MODELS
+    B, L = STAGE1_BATCH if stage1 else TRAIN_BATCH, cfg.max_txt_len
     pixels = torch.randn((2, B, cfg.image_size, cfg.image_size, 3), generator=gen, device=dev)
     ids = torch.randint(1000, cfg.vocab_size, (B, L), generator=gen, device=dev)
     lengths = torch.randint(4, L + 1, (B,), generator=gen, device=dev)
     mask = (torch.arange(L, device=dev)[None] < lengths[:, None]).long()
-    with torch.no_grad():
-        rows = model.encode_tower(pixels.flatten(0, 1))
-    live = {"reference": pixels[0], "target": pixels[1], "input_ids": ids, "text_mask": mask}
-    cached = {"reference_embeds": rows[:B], "target_embeds": rows[B:], "input_ids": ids,
-              "text_mask": mask}
+    if stage1:
+        runs = (("live", {"images": pixels[0], "input_ids": ids, "text_mask": mask}),)
+    else:
+        with torch.no_grad():
+            rows = model.encode_tower(pixels.flatten(0, 1))
+        runs = (("live", {"reference": pixels[0], "target": pixels[1], "input_ids": ids,
+                          "text_mask": mask}),
+                ("cached", {"reference_embeds": rows[:B], "target_embeds": rows[B:],
+                            "input_ids": ids, "text_mask": mask}))
     # the flagship's dense operations (qformer_train_flops counts its passes)
     flagship = model_name == "blip2_cir_align_prompt"
     result = {"device": torch.cuda.get_device_name(0), "model_name": model_name,
               "model_type": model_type, "batch": B, "repeats": REPEATS, "wall_ms": {},
               "qformer_dense_tflop": qformer_train_flops(model, B) / 1e12 if flagship else None}
-    for name, batch in (("live", live), ("cached", cached)):
-        trainer = Trainer(model, TrainConfig(total_steps=1000), seed=SEED,
-                          from_embeds=name == "cached", skip_nonfinite=True)
+    for name, batch in runs:
+        if stage1:
+            trainer = GenericTrainer(model, TrainConfig(learning_rate=1e-4, total_steps=1000),
+                                     seed=SEED, skip_nonfinite=True, decay_frozen=True)
+        else:
+            trainer = Trainer(model, TrainConfig(total_steps=1000), seed=SEED,
+                              from_embeds=name == "cached", skip_nonfinite=True)
         torch.cuda.reset_peak_memory_stats()
         result["wall_ms"][name] = _wall_ms(lambda: trainer.train_step(batch))
         result[name] = _profile(lambda: trainer.train_step(batch), f"train_{name}", out,
@@ -478,8 +492,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--train", action="store_true",
                     help="profile a live and a cached fine-tune step at batch 128 instead")
     ap.add_argument("--model-name", nargs="+", default=["blip2_cir_align_prompt"],
-                    help="with --train: the CIR models to profile, one after another (any "
-                         "whose training forward returns losses; loader.CIR_MODELS)")
+                    help="with --train: the models to profile, one after another (a CIR "
+                         "model whose training forward returns losses, or a stage-1 name)")
     ap.add_argument("--rerank", action="store_true",
                     help="profile one tile of the ITM rerank (blip2_cir_rerank) instead")
     ap.add_argument("--rerank-top", type=int, default=50)

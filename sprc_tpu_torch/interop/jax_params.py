@@ -9,7 +9,8 @@ rerank model's frozen twin (``fformer``, ``query_tokens_f``,
 ``vision_proj_f``, ``text_proj_f``) goes to ``Fformer.bert.*`` and the
 ``*_f`` names, the variants' own leaves (``rel_tokens`` of
 ``blip2_cir_neg_rel``, ``temp2`` of ``blip2_cir_cls``) by their names, and
-``itm_head`` wherever the tree holds it (a JAX tree holds it only after a
+BLIP-2 stage 1's ``lm_head`` to ``Qformer.cls.predictions.*`` (the
+reference's names), ``itm_head`` wherever the tree holds it (a JAX tree holds it only after a
 ``compute_itm`` / rerank init, or an init of a variant whose training
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``). Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
@@ -165,4 +166,9 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") ->
     for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f"):
         if name in params_np:
             _linear(out, name, params_np[name])
+    if "lm_head" in params_np:  # BLIP-2 stage 1's QFormerLMHead
+        head, prefix = params_np["lm_head"], "Qformer.cls.predictions."
+        _linear(out, f"{prefix}transform.dense", head["transform"])
+        _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
+        _linear(out, f"{prefix}decoder", head["decoder"])
     return to_torch(out)

@@ -88,19 +88,26 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> tup
     """(device ms per call of ``fn``, its kernels by name with their ms per
     call) from one ``torch.profiler`` run of ``iters`` calls: the kernels'
     own time, whatever the host's pace between them (``cuda_ms`` over a
-    loop measures the host where a call's host cost exceeds its kernel)."""
+    loop measures the host where a call's host cost exceeds its kernel).
+    A profile that recorded no device time is taken again; after three it
+    raises, so that no other clock stands in for the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    names: Dict[str, float] = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            names[evt.name] = names.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3 / iters
-    return sum(names.values()), names
+    for _ in range(3):  # a profile that caught no device time is taken again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        names: Dict[str, float] = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                names[evt.name] = (names.get(evt.name, 0.0)
+                                   + evt.time_range.elapsed_us() / 1e3 / iters)
+        if sum(names.values()) > 0:
+            return sum(names.values()), names
+    raise RuntimeError(f"torch.profiler recorded no device time in three profiles of "
+                       f"{iters} calls")
 
 
 def _errors(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
@@ -505,31 +512,41 @@ def vit_block_params(r: _Rand, W=1024, M=4096, dtype=torch.bfloat16) -> tuple:
             r.normal(W, M, std=0.02, dtype=dtype), r.normal(W, std=0.02))
 
 
-def _vit_block_work(B, S, W, M, int8: bool) -> Dict[str, float]:
-    """One ViT block: dense 2 B S (4 W^2 + 2 W M) operations (bf16 or int8),
-    attention 4 B S^2 W in bf16; x in and out in bf16, the weights once (two
-    bytes each in bf16, one in int8 plus an fp32 scale per output channel),
-    biases and LayerNorm parameters in fp32."""
+def _vit_block_work(B, S, W, M, int8: bool, dtype=torch.bfloat16) -> Dict[str, float]:
+    """One ViT block: dense 2 B S (4 W^2 + 2 W M) operations (bf16, int8 or
+    fp32), attention 4 B S^2 W in bf16 (fp32 in an fp32 tower); x in and out
+    in the model dtype, the weights once (two bytes each in bf16, four in
+    fp32, one in int8 plus an fp32 scale per output channel), biases and
+    LayerNorm parameters in fp32."""
     dense, attn = 2 * B * S * (4 * W * W + 2 * W * M), 4 * B * S * S * W
     weights = 4 * W * W + 2 * W * M
     vectors = 4 * (3 * W + W + M + W + 4 * W)
     scales = 4 * (3 * W + W + M + W) if int8 else 0
-    return {"bytes": 2 * 2 * B * S * W + weights * (1 if int8 else 2) + vectors + scales,
-            "op_seconds": dense / PEAK_OPS["int8" if int8 else "bf16"] + attn / PEAK_OPS["bf16"]}
+    size = 1 if int8 else dtype.itemsize
+    peak = "int8" if int8 else ("fp32" if dtype == torch.float32 else "bf16")
+    return {"bytes": 2 * dtype.itemsize * B * S * W + weights * size + vectors + scales,
+            "op_seconds": (dense / PEAK_OPS[peak]
+                           + attn / PEAK_OPS["fp32" if dtype == torch.float32 else "bf16"])}
 
 
 # the two towers' block shapes: (W, M, heads, QuickGELU, LN eps)
 TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6)}
 
 
+# K2 in fp32 (the fp32 tower of the COCO retrieval models, 364 px: S = 677):
+# max |difference| over the output's max |value| (the fp32 GEMMs and attention
+# in 3xTF32 against true fp32); reading on an H100 7.4e-7 (5.5e-6 of 7.41)
+VIT_F32_REL = 3e-6
+
+
 def check_vit_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=16,
-                    seed=1, quick=True, eps=1e-5) -> dict:
+                    seed=1, quick=True, eps=1e-5, dtype=torch.bfloat16) -> dict:
     """bf16, output scale ~5: max-abs <= 0.0625 and mean-abs <= 4e-3 (twice
     the JAX kernel's own envelope against XLA, for another accumulation
-    order)."""
+    order). fp32: max-abs <= VIT_F32_REL of the output's max |value|."""
     r = _Rand(device, seed)
-    x = r.normal(B, S, W, dtype=torch.bfloat16)
-    params = vit_block_params(r, W, M)
+    x = r.normal(B, S, W, dtype=dtype)
+    params = vit_block_params(r, W, M, dtype=dtype)
     kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5, quick=quick)
     with torch.inference_mode():
         got = fused_vit_block(x, *params, **kw)
@@ -539,9 +556,13 @@ def check_vit_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=
         row["out_max_abs"] = want.float().abs().max().item()
         row["ms"] = cuda_ms(lambda: fused_vit_block(x, *params, **kw))
         row["plain_ms"] = cuda_ms(lambda: fused_vit_block_plain(x, *params, **kw))
-    row["ok"] = row["finite"] and row["max_abs_err"] <= 0.0625 and row["mean_abs_err"] <= 4e-3
-    row["shape"] = f"B={B} S={S} W={W} M={M} H={heads} bf16"
-    row.update(_vit_block_work(B, S, W, M, int8=False))
+    if dtype == torch.float32:
+        row["ok"] = row["finite"] and row["max_abs_err"] <= VIT_F32_REL * row["out_max_abs"]
+    else:
+        row["ok"] = (row["finite"] and row["max_abs_err"] <= 0.0625
+                     and row["mean_abs_err"] <= 4e-3)
+    row["shape"] = f"B={B} S={S} W={W} M={M} H={heads} {_TYPE[dtype]}"
+    row.update(_vit_block_work(B, S, W, M, int8=False, dtype=dtype))
     return row
 
 
@@ -627,8 +648,21 @@ VARIANT_SHAPES = {
     "text": (TRAIN_BATCH, 32, False, True, 257),
     "slt prompt": (QUERY_BATCH, 36, False, True, 257),
 }
-SHAPE_Q = {"text": 0, "slt prompt": 4}  # a shape's query rows where they are not 32
-QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES}
+# the image <-> text retrieval of BLIP-2 stage 1 at COCO's 364 px (677 image
+# rows of EVA ViT-g's width): the gallery's queries pass at the encode batch,
+# the captions' CLS pass (256 a call, max_txt_len 35, no queries), and the ITM
+# rescoring (itm_batch 16 candidates of 32 queries + 35 text rows)
+RETRIEVAL_MEMORY = 677
+RETRIEVAL_SHAPES = {
+    "coco queries": (ENCODE_BATCH, 32, True, False, RETRIEVAL_MEMORY),
+    "coco text": (256, 35, False, True, RETRIEVAL_MEMORY),
+    "coco itm": (16, 67, True, True, RETRIEVAL_MEMORY),
+}
+# COCO's test split: 25,010 captions against 5,000 images (K1's retrieval call)
+RETRIEVAL_SIM = (25000, 5000)
+SHAPE_Q = {"text": 0, "slt prompt": 4, "coco text": 0}  # query rows where they are not 32
+SHAPE_WI = {s: 1408 for s in RETRIEVAL_SHAPES}  # image rows' width where it is not 1024
+QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
@@ -686,6 +720,7 @@ def check_qformer_layer(shape: str, device="cuda", Q=32, W=768, Wi=1024,
     ``int8`` (K4): QF_INT8_LAYER_MAX_ABS and QF_INT8_LAYER_MEAN_ABS."""
     r = _Rand(device, seed)
     Q = SHAPE_Q.get(shape, Q)
+    Wi = SHAPE_WI.get(shape, Wi)
     B, S, Si = (QF_SHAPES[shape][i] for i in (0, 1, 4))
     x, bias, img = _qf_inputs(r, shape, Q, Si, W, Wi)
     p = qformer_layer_params(r, cross=img is not None, W=W, Wi=Wi, M=M)
@@ -1938,6 +1973,64 @@ def run_validate_path(device="cuda") -> List[dict]:
     return rows
 
 
+def check_token_max_sim_retrieval(device="cuda", B=RETRIEVAL_SIM[0], N=RETRIEVAL_SIM[1], Q=32,
+                                  E=256, seed=31) -> dict:
+    """K1 at COCO's retrieval call (25,000 captions against 5,000 images;
+    the plain version's [B, N, Q] product is 16 GB): within 1e-4, as
+    :func:`check_token_max_sim`; ``top16_rows_differ``, the rows whose 16
+    best items differ in order (``k_test`` of the smoke run; a swap needs
+    two scores within the error), reported. Times over fewer launches;
+    ``tf32x3_ms`` as :func:`check_token_max_sim`'s (the tensor cores' bound
+    in 3xTF32, beside ``op_seconds``' fp32 rate)."""
+    r = _Rand(device, seed)
+    f = _unit(r, B, E)
+    t = _unit(r, N, Q, E)
+    with torch.inference_mode():
+        got = token_max_sim(f, t)
+        want = token_max_sim_plain(f, t)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        top_k = torch.sort(got, dim=-1, descending=True, stable=True).indices[:, :16]
+        top_p = torch.sort(want, dim=-1, descending=True, stable=True).indices[:, :16]
+        row["top16_rows_differ"] = int((top_k != top_p).any(dim=1).sum().item())
+        del want, top_k, top_p
+        row["ms"] = cuda_ms(lambda: token_max_sim(f, t), iters=5, warmup=1)
+        row["plain_ms"] = cuda_ms(lambda: token_max_sim_plain(f, t), iters=2, warmup=1)
+        row["yardstick_ms"] = cuda_ms(_sim_yardstick(f, t), iters=2, warmup=1)
+    row["library_ms"] = None
+    row["ok"] = row["finite"] and row["max_abs_err"] <= 1e-4
+    row["shape"] = f"B={B} N={N} Q={Q} E={E} fp32 (COCO test: captions x images)"
+    row["bytes"] = 4 * (B * E + N * Q * E + B * N)
+    row["op_seconds"] = 2 * B * N * Q * E / PEAK_OPS["fp32"]
+    row["tf32x3_ms"] = 3 * 2 * B * N * Q * E / PEAK_OPS["tf32"] * 1e3
+    return row
+
+
+STAGE1_BATCH = 100  # configs/runs/pretrain_stage1.yaml's batch
+
+
+def run_stage1(device="cuda") -> List[dict]:
+    """The checks of BLIP-2 stage 1's paths: its retrieval evaluation at
+    COCO's shapes (K1 at 25,000 x 5,000, K2 in fp32 at 364 px: S = 677, EVA
+    ViT-g's block, its fp32 attention call, and K3 against 677 memory rows:
+    :data:`RETRIEVAL_SHAPES`) and its pretraining's frozen tower (K2 in bf16
+    at the YAML's batch of 100, 224 px)."""
+    W, M, heads, quick, eps = TOWERS["eva_g"]
+    rows = [dict(check="K1 token_max_sim coco", **check_token_max_sim_retrieval(device)),
+            dict(check="K2 vit_block eva_g fp32 S=677",
+                 **check_vit_block(device, S=RETRIEVAL_MEMORY, W=W, M=M, heads=heads,
+                                   quick=quick, eps=eps, dtype=torch.float32)),
+            dict(check="K2 vit_block eva_g B=100",
+                 **check_vit_block(device, B=STAGE1_BATCH, W=W, M=M, heads=heads, quick=quick,
+                                   eps=eps)),
+            # the fp32 tower's attention call (packed qkv, D 88) at S = 677
+            dict(check="attention D=88 fp32 S=677",
+                 **check_attention(88, torch.float32, device, S=RETRIEVAL_MEMORY))]
+    rows += [dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device))
+             for shape in RETRIEVAL_SHAPES]
+    return rows
+
+
 def run_int8(device="cuda") -> List[dict]:
     """The checks of the int8 serving path's kernels."""
     rows = [dict(check=f"gemm_i8 {name}", **check_gemm_i8(name, device))
@@ -1966,4 +2059,5 @@ def run_all(device="cuda") -> List[dict]:
     rows += run_qformer_fp32(device) + run_layer_norm(device)
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
-    return rows + run_int8(device) + run_validate_path(device) + run_edges(device)
+    return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
+            + run_edges(device))

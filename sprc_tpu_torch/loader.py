@@ -58,8 +58,28 @@ MODEL_CONFIGS = {
     for name in CIR_MODELS
     for model_type, vit_model in _VIT_MODELS.items()
 }
+# the BLIP-2 stage-1 family, as configs/models/{blip2,blip2_feature_extractor,
+# blip2_image_text_matching}/*.yaml give it: pretrain (EVA ViT-g 224 px, bf16
+# tower, frozen) and coco (364 px, an fp32 tower, which that YAML trains
+# unfrozen: UNFROZEN_VIT)
+STAGE1_MODELS = ("blip2", "blip2_feature_extractor", "blip2_image_text_matching")
+_STAGE1_TYPES = {"pretrain": (224, torch.bfloat16), "coco": (364, torch.float32)}
+MODEL_CONFIGS.update({
+    (name, model_type): dict(
+        vit_model="eva_clip_g", image_size=size, num_query_token=32, cross_attention_freq=2,
+        embed_dim=256, max_txt_len=32, vit_dtype=vit_dtype, qformer_dtype=torch.float32,
+    )
+    for name in STAGE1_MODELS
+    for model_type, (size, vit_dtype) in _STAGE1_TYPES.items()
+    if (name, model_type) != ("blip2_feature_extractor", "coco")
+})
+# the rows whose YAML says freeze_vit: false (trained in the next slice)
+UNFROZEN_VIT = {("blip2", "coco"), ("blip2_image_text_matching", "coco")}
 
 
+UNFROZEN_MESSAGE = ("freeze_vit=False: the port trains with the ViT frozen only; training the "
+                    "tower (autograd over K2 / K6 / K7 / K8, --remat, layer decay) is ROADMAP "
+                    "A3b's unfrozen-ViT item")
 _PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
 # sub-configs that an override may give as a dict, with the fields of the JAX
 # package's dataclass that the port does not read (attention dropout: the JAX
@@ -87,7 +107,7 @@ def coerce_overrides(overrides: dict) -> dict:
     out = {}
     for key, value in overrides.items():
         if key == "freeze_vit" and not value:
-            raise ValueError("freeze_vit=False: the port trains with the ViT frozen only")
+            raise ValueError(UNFROZEN_MESSAGE)
         if key in _JAX_ONLY_FIELDS:
             continue
         if key in _SUB_CONFIGS and isinstance(value, dict):
@@ -247,6 +267,6 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     return scales
 
 
-__all__ = ["CIR_MODELS", "MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model",
+__all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model",
            "init_weights",
            "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

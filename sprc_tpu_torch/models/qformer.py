@@ -53,8 +53,15 @@ the CLS token, with positions over the whole spliced sequence.
 ``output_attentions`` (``blip2_cir_slt``'s token selection) returns the last
 layer's self-attention probabilities; that one layer runs the unfused
 composition in any mode, without dropout outside training, as the JAX
-package sends it past its fused kernel. The decoder (UniLM) mask is not
-ported: no CIR model uses it.
+package sends it past its fused kernel.
+
+``is_decoder`` (the LM pass of ``blip2``, :mod:`.blip2_stage1`) builds the
+UniLM mask of :func:`make_unilm_mask` (queries see the queries; text row i
+sees every query and the text up to i; both times the padding mask), a full
+``[B, 1, S, S]`` bias. As in the JAX gate (``qformer.py:306-320``), a pass
+with a bias that is not a column bias runs the unfused composition in any
+mode: a decoder pass never reaches K3. The JAX ``image_mask`` (only
+``vqa.py`` sets it) waits for the VQA family.
 """
 
 from __future__ import annotations
@@ -105,6 +112,23 @@ def make_additive_mask(attention_mask: torch.Tensor) -> torch.Tensor:
     """[B, S] {0, 1} -> [B, S] fp32 column bias, -10000 at masked slots (the
     JAX function's [B, 1, 1, S] bias without its broadcast axes)."""
     return (1.0 - attention_mask.float()) * NEG_INF
+
+
+def make_unilm_mask(attention_mask: torch.Tensor, query_length: int) -> torch.Tensor:
+    """UniLM decoder mask (``sprc_tpu/models/qformer.py:80-99``; reference
+    Qformer.py:749-789): layout ``[queries (Q) | text (L)]``; query rows see
+    the query columns, text row i the query columns and text columns <= i;
+    times the padding mask. [B, S] {0, 1} -> additive [B, 1, S, S] fp32."""
+    S = attention_mask.shape[1]
+    rows = torch.arange(S, device=attention_mask.device)[:, None]
+    cols = torch.arange(S, device=attention_mask.device)[None, :]
+    is_query_col = cols < query_length
+    query_rows = is_query_col & (rows < query_length)
+    text_causal = (cols - query_length) <= (rows - query_length)
+    text_rows = (rows >= query_length) & (is_query_col | ((cols >= query_length) & text_causal))
+    structural = (query_rows | text_rows).float()
+    combined = structural[None] * attention_mask.float()[:, None, :]
+    return ((1.0 - combined) * NEG_INF)[:, None, :, :]
 
 
 class QFormerEmbeddings(nn.Module):
@@ -238,10 +262,13 @@ class QFormerLayer(nn.Module):
                 image_embeds, query_length: int,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """image_embeds: [B, Si, Wi], None, or with int8 the pair (codes,
-        scales) of :meth:`QFormer.forward`'s one quantisation a pass."""
+        scales) of :meth:`QFormer.forward`'s one quantisation a pass.
+        ``col_bias``: [B, S] column bias, or a full [B, 1, S, S] bias (the
+        decoder's), which takes the unfused composition."""
         cfg = self.cfg
         cross = self.has_cross_attention and image_embeds is not None
-        if training(self):
+        full_bias = col_bias is not None and col_bias.dim() == 4
+        if training(self) or full_bias:
             return self.train_forward(hidden, col_bias, image_embeds, query_length, generator)
         fn = primitives.kernel_or_reference(fused_qformer_layer, fused_qformer_layer_plain)
         return fn(
@@ -265,7 +292,7 @@ class QFormerLayer(nn.Module):
         outside training (:func:`training`) with no dropout, as the JAX
         package runs its last layer for ``output_attentions``."""
         cfg = self.cfg if training(self) else dataclasses.replace(self.cfg, dropout_rate=0.0)
-        bias = None if col_bias is None else col_bias[:, None, None, :]
+        bias = col_bias if col_bias is None or col_bias.dim() == 4 else col_bias[:, None, None, :]
         x = self.attention.train_forward(hidden, hidden, bias, cfg, generator, return_probs)
         x, probs = x if return_probs else (x, None)
         if image_embeds is None:
@@ -303,9 +330,12 @@ class QFormer(nn.Module):
                 query_embeds: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 image_embeds: Optional[torch.Tensor] = None, *, no_img: bool = False,
-                generator: Optional[torch.Generator] = None, output_attentions: bool = False):
+                is_decoder: bool = False, generator: Optional[torch.Generator] = None,
+                output_attentions: bool = False):
         """``no_img``: the text pass with the query embeds spliced after CLS
-        (the layers see no image). ``generator``: the dropout masks' source
+        (the layers see no image). ``is_decoder``: the UniLM mask
+        (:func:`make_unilm_mask`; no ``attention_mask``: all ones), run
+        through the unfused layers. ``generator``: the dropout masks' source
         in training mode (None: the device's default generator).
         ``output_attentions``: ``(hidden, the last layer's self-attention
         probabilities [B, H, S, S])``; that layer runs the unfused
@@ -319,12 +349,19 @@ class QFormer(nn.Module):
         hidden = self.embeddings(input_ids, query_embeds, no_img, generator)
         if no_img:
             image_embeds = None
+        B, S = hidden.shape[:2]
+        if attention_mask is None and is_decoder:
+            attention_mask = torch.ones((B, S), dtype=torch.int32, device=hidden.device)
         col_bias = None
         if attention_mask is not None:
-            if attention_mask.shape[1] != hidden.shape[1]:
+            if attention_mask.shape[1] != S:
                 raise ValueError(f"attention_mask length {attention_mask.shape[1]} != "
-                                 f"sequence {hidden.shape[1]}")
-            col_bias = make_additive_mask(attention_mask)
+                                 f"sequence {S}")
+            col_bias = (make_unilm_mask(attention_mask, Q) if is_decoder
+                        else make_additive_mask(attention_mask))
+        if self.cfg.int8 and is_decoder:
+            raise ValueError("the int8 Q-Former serves the column-bias passes only "
+                             "(no decoder mask)")
         layers = list(self.encoder.layer)
         last = layers.pop() if output_attentions else None
         image = None

@@ -3,7 +3,8 @@
 The reference's fine-tune script (blip_fine_tune_2.py:257-307) as the JAX
 package has it:
 
-- AdamW (0.9, 0.98, eps 1e-7, weight decay 0.05) over every trainable
+- AdamW (0.9, 0.98, eps 1e-7, weight decay 0.05 unless the config says
+  otherwise) over every trainable
   tensor, with no decay mask (``optax.adamw``), and the OneCycle schedule
   counted in optimizer updates. The rule for which tensors it touches: every
   tensor with ``requires_grad``. The model turns it off for the frozen
@@ -59,6 +60,7 @@ class TrainConfig:
     loss_weights: Optional[Dict[str, float]] = None
     total_steps: int = 10000
     grad_accum_steps: int = 1
+    weight_decay: float = WEIGHT_DECAY  # a run config's run.weight_decay (train/generic.py)
 
     def weights(self) -> Dict[str, float]:
         return self.loss_weights or {"loss_rtc": 0.4, "loss_align": 0.4}
@@ -72,18 +74,32 @@ class Trainer:
     ``reference_embeds`` / ``target_embeds`` (the feature cache) and the step
     runs ``model.forward_cached``; else pixels under ``reference`` /
     ``target`` and the live forward. Both also carry ``input_ids`` and
-    ``text_mask``; every tensor on the model's device."""
+    ``text_mask``; every tensor on the model's device.
+
+    ``decay_frozen``: the frozen tensors (``requires_grad`` off) take the
+    update AdamW gives a tensor whose gradient is always zero, as the JAX
+    generic trainer's partition gives a frozen tower that only a
+    ``stop_gradient`` cuts off (``train/generic.py``): each update multiplies
+    it by ``1 - lr * weight_decay`` (its moments stay zero, and so the
+    Adam term is 0; they are not held). A tensor that is not fp32 keeps an
+    fp32 master, which takes the decay and is copied into it (a bf16 tensor
+    would round a decay of lr x 0.05 away)."""
 
     def __init__(self, model, cfg: TrainConfig, *, seed: int = 0, from_embeds: bool = False,
-                 skip_nonfinite: bool = False):
+                 skip_nonfinite: bool = False, decay_frozen: bool = False):
         self.model, self.cfg = model, cfg
         self.from_embeds, self.skip_nonfinite = from_embeds, skip_nonfinite
         self.names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for p in model.parameters() if p.requires_grad]
+        frozen = [(n, p) for n, p in model.named_parameters() if decay_frozen and not p.requires_grad]
+        self.decayed_names = [n for n, _ in frozen]
+        self.decayed = [p for _, p in frozen]
+        self.masters = [p if p.dtype == torch.float32 else p.detach().float().clone()
+                        for p in self.decayed]
         self.schedule = onecycle_schedule(cfg.learning_rate, cfg.total_steps,
                                           pct_start=PCT_START)
         self.optimizer = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=BETAS,
-                                           eps=EPS, weight_decay=WEIGHT_DECAY)
+                                           eps=EPS, weight_decay=cfg.weight_decay)
         self.generator = torch.Generator(device=self.params[0].device).manual_seed(seed)
         self.step = 0  # micro-steps taken
         self.updates = 0  # optimizer updates applied: the schedule's count
@@ -98,13 +114,7 @@ class Trainer:
         self.model.train()
         for p in self.params:
             p.grad = None
-        ids, mask = batch["input_ids"], batch["text_mask"]
-        if self.from_embeds:
-            losses = self.model.forward_cached(batch["reference_embeds"], batch["target_embeds"],
-                                               ids, mask, generator=self.generator)
-        else:
-            losses = self.model(batch["reference"], batch["target"], ids, mask,
-                                generator=self.generator)
+        losses = self.forward(batch)
         weights = self.cfg.weights()
         total = 0.0
         for key, value in losses.items():
@@ -114,6 +124,15 @@ class Trainer:
         for p in self.params:
             p.grad = None
         return total, losses, grads
+
+    def forward(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The model's losses on one batch, in training mode."""
+        ids, mask = batch["input_ids"], batch["text_mask"]
+        if self.from_embeds:
+            return self.model.forward_cached(batch["reference_embeds"], batch["target_embeds"],
+                                             ids, mask, generator=self.generator)
+        return self.model(batch["reference"], batch["target"], ids, mask,
+                          generator=self.generator)
 
     def train_step(self, batch: Dict[str, Tensor]) -> Dict[str, float]:
         """One micro-step; returns the losses, ``loss`` (the weighted total)
@@ -151,9 +170,15 @@ class Trainer:
             grads, self.mini_step = self.acc, 0
         for p, g in zip(self.params, grads):
             p.grad = g
+        lr = self.schedule(self.updates)
         for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.updates)
+            group["lr"] = lr
         self.optimizer.step()
+        with torch.no_grad():
+            for master, p in zip(self.masters, self.decayed):
+                master.mul_(1.0 - lr * self.cfg.weight_decay)
+                if master is not p:
+                    p.copy_(master)
         for p in self.params:
             p.grad = None
         if self.acc is not None:
@@ -168,15 +193,23 @@ class Trainer:
         return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
                 "epoch": self.epoch,
                 "trainable": dict(zip(self.names, (p.detach() for p in self.params))),
+                "decayed": dict(zip(self.decayed_names, (m.detach() for m in self.masters))),
                 "optimizer": self.optimizer.state_dict(), "acc": self.acc,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: dict) -> None:
         if list(state["trainable"]) != self.names:
             raise ValueError("the saved trainable tensors are not this model's")
+        if list(state.get("decayed", {})) != self.decayed_names:
+            raise ValueError("the saved decayed tensors are not this trainer's")
         with torch.no_grad():
             for p, saved in zip(self.params, state["trainable"].values()):
                 p.copy_(saved)
+            for master, p, saved in zip(self.masters, self.decayed,
+                                        state.get("decayed", {}).values()):
+                master.copy_(saved)
+                if master is not p:
+                    p.copy_(master)
         self.optimizer.load_state_dict(state["optimizer"])
         device = self.params[0].device
         self.acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]

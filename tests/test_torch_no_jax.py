@@ -1,6 +1,6 @@
 """sprc_tpu_torch imports neither JAX, Flax nor any sprc_tpu module.
 
-In a fresh interpreter, ``jax``, ``flax`` and ``sprc_tpu`` are made
+In a fresh interpreter, ``jax``, ``flax``, ``sprc_tpu`` and PyYAML are made
 unimportable (``sys.modules[name] = None``) and every module of the port is
 imported (the native data-plane's ``native/`` and ``data/native.py`` among
 them); importing builds no kernel and no data-plane library.
@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "sprc_tpu"):
+for name in ("jax", "flax", "sprc_tpu", "yaml"):
     sys.modules[name] = None
 import sprc_tpu_torch
 mods = ["sprc_tpu_torch"]
@@ -26,11 +26,45 @@ assert _ext._lib is None, "importing built the kernels"
 from sprc_tpu_torch.data import native
 assert native._LIB is None, "importing built the data-plane"
 assert {"sprc_tpu_torch.native", "sprc_tpu_torch.native.build", "sprc_tpu_torch.data.native"} <= set(mods)
+# the YAML run layer and BLIP-2 stage 1, which import PyYAML only to parse
+assert {"sprc_tpu_torch.config", "sprc_tpu_torch.registry", "sprc_tpu_torch.data.builders",
+        "sprc_tpu_torch.data.processors", "sprc_tpu_torch.models.blip2_stage1",
+        "sprc_tpu_torch.models.lm", "sprc_tpu_torch.retrieval.sim_matrix",
+        "sprc_tpu_torch.train.tasks", "sprc_tpu_torch.train.runner",
+        "sprc_tpu_torch.train.generic", "sprc_tpu_torch.cli.train",
+        "sprc_tpu_torch.cli.evaluate", "sprc_tpu_torch.utils.preempt"} <= set(mods)
+from sprc_tpu_torch.registry import registry
+assert {"blip2", "blip2_feature_extractor", "blip2_image_text_matching"} <= set(registry.list("model"))
+assert "coco_retrieval" in registry.list("dataset") and "blip_image_eval" in registry.list("processor")
+assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print(len(mods))
 """
+
+
+CHIP_SMOKE = r"""
+import sys
+for name in ("jax", "flax", "sprc_tpu", "yaml"):
+    sys.modules[name] = None
+import chip_smoke
+from sprc_tpu_torch.cli import evaluate, train
+from sprc_tpu_torch.config import Config
+cfg = Config(defaults=chip_smoke.RUN_CONFIGS["pretrain_stage1.yaml"])
+assert cfg.run["batch_size"] == 100 and cfg.model["arch"] == "blip2"
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+"""
+
+
+def test_chip_smoke_and_the_run_layer_need_no_jax_nor_yaml():
+    """chip_smoke.py imports no JAX, and its PyYAML-free route (a Config
+    from its dict mirrors) builds without PyYAML."""
+    proc = subprocess.run([sys.executable, "-c", CHIP_SMOKE], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_port_imports_without_jax():

@@ -245,13 +245,17 @@ def test_adamw_touches_the_jax_trees_leaves_and_not_the_twin():
 
 @pytest.mark.parametrize("model_type", ["pretrain_vitL", "pretrain"])
 def test_model_configs_pinned_to_the_yamls(model_type):
-    """MODEL_CONFIGS holds all eleven CIR names, each row equal to what
-    sprc_tpu.loader builds from its YAML, the class the JAX registry's."""
+    """MODEL_CONFIGS holds all eleven CIR names (and, at ``pretrain``, the
+    three BLIP-2 stage-1 names, held by test_torch_stage1.py), each row
+    equal to what sprc_tpu.loader builds from its YAML, the class the JAX
+    registry's."""
     from sprc_tpu.loader import build_model as jbuild
 
+    from sprc_tpu_torch.loader import STAGE1_MODELS
     from test_torch_model import assert_config_equals_jax
 
-    assert sorted(n for n, t in MODEL_CONFIGS if t == model_type) == sorted(CIR_MODELS)
+    stage1 = STAGE1_MODELS if model_type == "pretrain" else ()
+    assert sorted(n for n, t in MODEL_CONFIGS if t == model_type) == sorted(CIR_MODELS + stage1)
     assert len(CIR_MODELS) == 11
     for name in CIR_MODELS:
         assert_config_equals_jax(name, model_type)
