@@ -205,6 +205,31 @@ Phases (any failure raises and exits nonzero before the last line):
    and in bf16 at B = 100, and K3 against 677 memory rows
    (kernel_checks.run_stage1).
 
+11. the unfrozen ViT: cli/train.py on retrieval_coco_blip2_ft.yaml (blip2 /
+   coco: EVA ViT-g at 364 px, S = 677, the fp32 tower with freeze_vit false;
+   random weights from seed 0, the synthetic vocab) at the YAML's batch of
+   32 over 96 seeded PNG pairs (one epoch, 3 steps): ms a step, samples/s,
+   the peak (under 80 GB), the launches a step (K1 once, K2 39 times through
+   FusedViTBlock, no K3), every tower block moved by the updates; then
+   (a) one step through the kernels on each tower route (the whole block;
+       the attention half and the MLP half, FusedAttnBlock and FusedMlpBlock;
+       unfused, FlashAttention) against the all-plain step with vit_remat
+       from the same pixels (UNFROZEN_BOUNDS; the kernel step's hard
+       negatives handed over), each route's launches, the gradient norm of
+       every tower block (each positive);
+   (b) the tower alone, on each route: forward and backward ms through the
+       kernels and all plain, and its gradients from one cotangent within
+       UNFROZEN_BOUNDS["tower_grad"] of the plain blocks' (the step's
+       gradients in (a) pass through the Q-Former's token-max picks and are
+       held loosely; these hold each route's Functions tightly at the
+       step's batch);
+   (c) one block's backward at the step's batch, FusedViTBlock's against
+       the plain block's under vit_remat's checkpoint, with and without its
+       early stop (kernel_checks.profile_block_backward).
+   The kernel phase holds the four Functions at the tower's shapes (fp32, S =
+   677, a batch of 4) and K2's in bf16 at ViT-L's (kernel_checks.run_unfrozen),
+   and the kernels line carries their launches in this phase.
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -333,6 +358,14 @@ RUN_CONFIGS = {
         "datasets": {"conceptual_caption_3m": {
             "build_info": {"annotations": {"train": []}, "images": ""},
             "vis_processor": {"train": {"name": "blip_image_train", "image_size": 224}},
+            "text_processor": {"train": {"name": "blip_caption"}}}}},
+    "retrieval_coco_blip2_ft.yaml": {
+        "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
+                "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
+        "model": {"arch": "blip2", "model_type": "coco"},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip2_image_train", "image_size": 364}},
             "text_processor": {"train": {"name": "blip_caption"}}}}},
 }
 
@@ -2069,7 +2102,8 @@ def _write_pairs(root, n, captions, seed, prefix):
         with open(os.path.join(root, name), "wb") as f:
             f.write(encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
         caps = [" ".join(rng.choice(STAGE1_WORDS, 8)) for _ in range(max(1, captions))]
-        ann.append({"image": name, "caption": caps if captions else caps[0], "image_id": i})
+        ann.append({"image": name, "caption": caps if captions else caps[0], "image_id": i,
+                    "instance_id": str(i)})
     path = os.path.join(root, "annotations.json")
     with open(path, "w") as f:
         json.dump(ann, f)
@@ -2406,6 +2440,319 @@ def phase_stage1_train(work):
             "k1_grad": k1, "seconds": seconds}
 
 
+# phase 11, the unfrozen ViT: cli/train.py on retrieval_coco_blip2_ft.yaml
+# (blip2 / coco: EVA ViT-g at 364 px, S = 677, the fp32 tower, freeze_vit
+# false: every tower tensor gets a gradient and AdamW moments) at the YAML's
+# batch of 32 over UNFROZEN_PAIRS seeded PNG pairs (one epoch: 3 steps)
+UNFROZEN_PAIRS = 96
+# a step's launches on the main path (the whole-block route): K1 once (ITC),
+# the tower's chain once through FusedViTBlock (39 blocks: 4 fp32 GEMMs, one
+# fp32 attention, 2 LayerNorms each); the backward recomputes the plain
+# blocks (the library's products, no launch); no Q-Former layer kernel
+UNFROZEN_STEP_LAUNCHES = {"token_max_sim": 1, "fused_vit_block": 39, "gemm_f32": 156,
+                          "attention_f32": 39, "layer_norm": 78}
+# the tower's other routes, one step each (their Functions' kernels once a
+# block; the unfused route twice: its blocks keep their intermediates, so
+# vit_remat runs each again in the backward, flash_attention included)
+UNFROZEN_ROUTES = {"attn+mlp": ({"fused_block": "attn", "fused_mlp": True},
+                                {"fused_attn_block": 39, "fused_mlp_block": 39}),
+                   "unfused": ({"fused_block": "none", "fused_mlp": False},
+                               {"flash_attention": 78})}
+# Bounds, fixed before the first reading. A kernel step against the
+# all-plain step (primitives.plain_reference, vit_remat on: without it the
+# plain tower's intermediates do not fit) from the same pixels, the kernel
+# step's hard negatives handed over. The fp32 tower's rows differ from the
+# plain tower's by about 1.4e-5 (phase 10a's reading); the losses of the fp32
+# Q-Former on them are held at 1e-5 relative; the gradients as phase 7's
+# "live" (0.9: a token-max argmax that such a difference moves makes the
+# gradient jump, up to 0.38 in phase 7; a missing, doubled or reversed
+# gradient gives 1 or 2). "tower_grad": the tower alone from the same pixels
+# and one seeded cotangent, each route's kernel Functions against the plain
+# blocks: every tower gradient within 1e-3 of its tensor's largest (grad_gap;
+# the block inputs differ by the fp32 chain's 1e-6 a block, through 39
+# blocks; a gradient scaled by 0.5 or lost gives 0.5 or 1)
+UNFROZEN_BOUNDS = {"loss": 1e-5, "grad": 0.9, "tower_grad": 1e-3}
+
+
+def _set_tower_route(model, **route):
+    """Switch a built tower to another route over the same weights."""
+    import dataclasses
+
+    tower = model.visual_encoder
+    tower.cfg = dataclasses.replace(tower.cfg, **route)
+    for block in tower.vit_blocks():
+        block.cfg = tower.cfg
+
+
+def _block_grad_norms(model, names, grads):
+    """The gradient norm of each tower block (over all its tensors)."""
+    blocks = model.visual_encoder.vit_blocks()
+    owner = {id(p): i for i, block in enumerate(blocks) for p in block.parameters()}
+    params = dict(model.named_parameters())
+    sums = [0.0] * len(blocks)
+    for n, g in zip(names, grads):
+        i = owner.get(id(params[n]))
+        if i is not None:
+            sums[i] += g.double().square().sum().item()
+    return [v ** 0.5 for v in sums]
+
+
+def phase_unfrozen_train(work):
+    """11: BLIP-2 stage 1's COCO fine-tune through cli/train.py with the tower
+    trained (phase 11 of the docstring)."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "unfrozen"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "coco_train")
+    ann = _write_pairs(root, UNFROZEN_PAIRS, 0, SEED + 12, "ct")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, "unfrozen_train")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, how = _run_config("retrieval_coco_blip2_ft.yaml", {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {"coco_retrieval": {"build_info": {"annotations": {"train": [ann]},
+                                                       "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def zero():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    real_step = generic.GenericTrainer.train_step
+    times, per_step, first = [], [], {}
+
+    def timed(self, batch):
+        if not first:  # two tensors of each block before the first update
+            first["model"] = self.model
+            first["blocks"] = [(b.norm1.weight.detach().clone(), b.mlp.fc2.bias.detach().clone())
+                               for b in self.model.visual_encoder.vit_blocks()]
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items()})
+        return metrics
+
+    generic.GenericTrainer.train_step = timed
+    try:
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step = real_step
+    trained = first.pop("model")
+    moved = [max((b.norm1.weight - w).abs().max().item(), (b.mlp.fc2.bias - c).abs().max().item())
+             for b, (w, c) in zip(trained.visual_encoder.vit_blocks(), first.pop("blocks"))]
+    del trained
+    with open(os.path.join(out, "log.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    batch_size = cfg.run["batch_size"]
+    log(f"[{tag}] {len(steps)} steps at batch {batch_size}: ms "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; samples/s (last step) "
+        f"{batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; run {run_s:.1f} s; losses "
+        + "; ".join(", ".join(f"{k} {r[k]:.4f}" for k in ("loss_itc", "loss_itm", "loss_lm"))
+                    for r in steps))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}")
+    log(f"[{tag}] the tower's blocks moved by the 3 updates (max |change| of norm1.weight and "
+        f"fc2.bias): min {min(moved):.3e}, max {max(moved):.3e}")
+    if len(steps) != UNFROZEN_PAIRS // batch_size or any(r["skipped_nonfinite"] for r in steps):
+        raise RuntimeError(f"{tag}: steps {steps}")
+    if not all(np.isfinite(r[k]) for r in steps for k in ("loss_itc", "loss_itm", "loss_lm")):
+        raise RuntimeError(f"{tag}: a loss is not finite: {steps}")
+    for launch in per_step:
+        bad = {k: v for k, v in launch.items() if v != UNFROZEN_STEP_LAUNCHES.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"{tag}: a step's launches {bad}, expected {UNFROZEN_STEP_LAUNCHES}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+    if min(moved) <= 0.0:
+        raise RuntimeError(f"{tag}: a tower block did not move: {moved}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) one step through the kernels on each tower route against the
+    # all-plain step, from the same pixels, the kernel step's hard negatives
+    # handed over (UNFROZEN_BOUNDS); the gradient norm of every tower block
+    model = load_model("blip2", "coco", device=DEVICE, seed=SEED, vit_remat=True)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", "coco_retrieval")(
+        dict(cfg.datasets["coco_retrieval"])).build()
+    task = generic.BuilderTask(datasets, generic.PretrainAdapter(
+        tokenizer, max_txt_len=cfg.run["max_txt_len"]), batch_size=batch_size, seed=SEED,
+        device=DEVICE)
+    batch = task.prepare_batch(next(iter(task.train_loader(0))))
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]), total_steps=2)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    tower_names = [n for n in names if n.startswith("visual_encoder.")]
+    assert len(tower_names) == sum(1 for _ in model.visual_encoder.parameters())
+
+    def step(**kw):
+        return generic.GenericTrainer(model, tcfg, seed=SEED).loss_and_grads(batch)[1:]
+
+    kept = read()
+    picks = {}
+    zero()
+    with hard_negatives(model, picks, inject=False):
+        k_losses, k_grads = step()
+    sync()
+    step_launches = {k: v for k, v in read().items() if v}
+    norms = _block_grad_norms(model, names, k_grads)
+    with primitives.plain_reference(), hard_negatives(model, picks, inject=True) as m:
+        p_losses, p_grads = step()
+    sync()
+    gaps = {"block": {"loss": _loss_gap(k_losses, p_losses),
+                      "grad": kernel_checks.grad_gap(k_grads, p_grads, names)}}
+    moved_negs = {"block": dict(m)}
+    route_launches = {}
+    del k_grads
+    for route, (fields, own) in UNFROZEN_ROUTES.items():
+        _set_tower_route(model, **fields)
+        zero()
+        with hard_negatives(model, picks, inject=True) as m:
+            r_losses, r_grads = step()
+        sync()
+        route_launches[route] = {k: v for k, v in read().items() if v}
+        gaps[route] = {"loss": _loss_gap(r_losses, p_losses),
+                       "grad": kernel_checks.grad_gap(r_grads, p_grads, names)}
+        moved_negs[route] = dict(m)
+        del r_grads
+        bad = {k: route_launches[route].get(k, 0) for k in own
+               if route_launches[route].get(k, 0) != own[k]}
+        if bad:
+            raise RuntimeError(f"{tag}: the {route} route's step launched {bad}, expected {own}")
+    _set_tower_route(model, fused_block="block", fused_mlp=False)
+    del p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the tower alone on each route: forward and backward ms, and its
+    # gradients from one seeded cotangent against the plain blocks'
+    images = batch["images"]
+    tower_params = list(model.visual_encoder.parameters())
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    cot = None
+
+    def tower_pass():
+        nonlocal cot
+        sync()
+        t0 = time.perf_counter()
+        rows = model.encode_tower(images)
+        sync()
+        t1 = time.perf_counter()
+        if cot is None:
+            cot = torch.randn(rows.shape, generator=gen, device=DEVICE)
+        grads = torch.autograd.grad(rows, tower_params, cot)
+        sync()
+        return grads, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    tower_pass()  # warm-up
+    zero()
+    k_tower, fwd_ms, bwd_ms = tower_pass()
+    tower_launches = read()["fused_vit_block"]
+    with primitives.plain_reference():
+        p_tower, plain_fwd_ms, plain_bwd_ms = tower_pass()
+    gaps["tower"] = {"grad": kernel_checks.grad_gap(list(k_tower), list(p_tower), tower_names)}
+    del k_tower
+    route_towers = {}
+    for route, (fields, own) in UNFROZEN_ROUTES.items():
+        _set_tower_route(model, **fields)
+        zero()
+        r_tower, r_fwd_ms, r_bwd_ms = tower_pass()
+        r_launches = {k: v for k, v in read().items() if v}
+        gaps[f"tower {route}"] = {"grad": kernel_checks.grad_gap(list(r_tower), list(p_tower),
+                                                                 tower_names)}
+        route_towers[route] = {"forward_ms": r_fwd_ms, "backward_ms": r_bwd_ms,
+                               "launches": r_launches}
+        del r_tower
+        bad = {k: r_launches.get(k, 0) for k in own if r_launches.get(k, 0) != own[k]}
+        if bad:
+            raise RuntimeError(f"{tag}: the {route} route's tower pass launched {bad}, "
+                               f"expected {own}")
+    del p_tower, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one block's backward at the step's batch, three ways that keep only
+    # the block's input (kernel_checks.profile_block_backward)
+    block_bwd = kernel_checks.profile_block_backward(DEVICE, B=batch_size)
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+
+    log(f"[{tag}] a kernel step's launches (whole-block route): {step_launches}; K2 launches a "
+        f"step {step_launches.get('fused_vit_block', 0)} (39 blocks)")
+    log(f"[{tag}] gradient norms of the 39 tower blocks (the kernel step): "
+        + ", ".join(f"{v:.3e}" for v in norms))
+    log(f"[{tag}] the tower at batch {batch_size}: forward {fwd_ms:.1f} ms, backward "
+        f"{bwd_ms:.1f} ms (K2 launches {tower_launches}); all-plain with remat: forward "
+        f"{plain_fwd_ms:.1f} ms, backward {plain_bwd_ms:.1f} ms")
+    for route, t in route_towers.items():
+        log(f"[{tag}] the tower on the {route} route: forward {t['forward_ms']:.1f} ms, backward "
+            f"{t['backward_ms']:.1f} ms; launches {t['launches']}")
+    for way, b in block_bwd.items():
+        log(f"[{tag}] one block at batch {batch_size}, {way}: forward {b['forward_ms']:.2f} ms, "
+            f"backward {b['backward_ms']:.2f} ms (device {b['backward_device_ms']:.2f} ms; "
+            f"{b['backward_kernels']} kernels, {b['backward_gemms']} GEMMs in "
+            f"{b['backward_gemm_ms']:.2f} ms; {b['backward_new_segments']} new segments; kernels "
+            f"in each profile {b['profiles_kernels']})")
+    for route, gap in gaps.items():
+        if route.startswith("tower"):
+            log(f"[{tag}] the tower's gradients from one cotangent, kernels against plain "
+                f"({route}): {gap['grad']['gap']:.3e} (bound "
+                f"{UNFROZEN_BOUNDS['tower_grad']:.0e}; worst {gap['grad']['worst']})")
+            continue
+        log(f"[{tag}] the {route} route's kernel step against the all-plain step: losses "
+            f"{gap['loss']:.3e} (bound {UNFROZEN_BOUNDS['loss']:.0e}), gradients "
+            f"{gap['grad']['gap']:.3e} (bound {UNFROZEN_BOUNDS['grad']:.0e}; worst "
+            f"{gap['grad']['worst']}); launches {route_launches.get(route, step_launches)}; "
+            f"hard negatives the step would move: {moved_negs[route]['moved']} of "
+            f"{moved_negs[route]['of']}")
+    failed = [r for r, g in gaps.items() if (
+        g["grad"]["gap"] > UNFROZEN_BOUNDS["tower_grad"] if r.startswith("tower") else
+        (g["loss"] > UNFROZEN_BOUNDS["loss"] or g["grad"]["gap"] > UNFROZEN_BOUNDS["grad"]))]
+    if failed:
+        raise RuntimeError(f"{tag}: beyond UNFROZEN_BOUNDS: {failed}")
+    if step_launches.get("fused_vit_block") != 39 or tower_launches != 39:
+        raise RuntimeError(f"{tag}: K2 launched {step_launches} in a step, {tower_launches} in "
+                           "the tower's pass; expected 39")
+    if len(norms) != 39 or min(norms) <= 0.0 or not all(np.isfinite(norms)):
+        raise RuntimeError(f"{tag}: a tower block's gradient norm is not positive: {norms}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "losses": steps, "launches": launches,
+            "launches_step": per_step, "tower_forward_ms": fwd_ms, "tower_backward_ms": bwd_ms,
+            "tower_plain_forward_ms": plain_fwd_ms, "tower_plain_backward_ms": plain_bwd_ms,
+            "tower_routes": route_towers, "block_backward": block_bwd,
+            "block_grad_norms": norms, "blocks_moved": moved, "route_launches": route_launches,
+            "gaps": {r: {k: (v["gap"] if isinstance(v, dict) else v) for k, v in g.items()}
+                     for r, g in gaps.items()},
+            "hard_negatives_moved": {r: m["moved"] for r, m in moved_negs.items()},
+            "seconds": seconds}
+
+
 def check_routes_agree(runs):
     base = runs["block"]["target_feats"]
     for route, run in runs.items():
@@ -2581,7 +2928,22 @@ def kernel_table(rows, launches):
               "sprc_tpu/ops/pallas_attention.py:428", ["attention D=88 fp32 S=677"],
               library_ms=by_check["attention D=88 fp32 S=677"]["library_ms"],
               count="attention_f32_stage1_eval"),
-    ]
+    ] + [  # phase 11, a tower that trains: each kernel through its autograd Function
+        dict(entry(f"{kernel} ({function}, unfrozen tower)", source, replaces,
+                   [f"{function} eva_g fp32 S=677"], count=function,
+                   library_ms=by_check[f"{function} eva_g fp32 S=677"]["library_ms"]),
+             grad_rel=by_check[f"{function} eva_g fp32 S=677"]["grad_rel"],
+             fwd_bwd_ms=by_check[f"{function} eva_g fp32 S=677"]["fwd_bwd_ms"],
+             plain_fwd_bwd_ms=by_check[f"{function} eva_g fp32 S=677"]["plain_fwd_bwd_ms"])
+        for kernel, function, source, replaces in (
+            ("fused_vit_block", "FusedViTBlock", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609"),
+            ("fused_attn_block", "FusedAttnBlock", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:640"),
+            ("fused_mlp_block", "FusedMlpBlock", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_mlp.py:129"),
+            ("flash_attention", "FlashAttention", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428"))]
 
 
 def main():
@@ -2617,6 +2979,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     stage1_train = phase_stage1_train(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    unfrozen = phase_unfrozen_train(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -2637,7 +3002,13 @@ def main():
         "fused_vit_block_stage1_eval": stage1_eval["launches"]["fused_vit_block"],
         "fused_qformer_layer_stage1_eval": stage1_eval["launches"]["fused_qformer_layer"],
         "fused_vit_block_stage1_train": stage1_train["launches"]["fused_vit_block"],
-        "attention_f32_stage1_eval": stage1_eval["launches"]["attention_f32"]})
+        "attention_f32_stage1_eval": stage1_eval["launches"]["attention_f32"],
+        # phase 11: the Functions of a tower that trains (the CLI run's, and one
+        # step on each other route)
+        "FusedViTBlock": unfrozen["launches"]["fused_vit_block"],
+        "FusedAttnBlock": unfrozen["route_launches"]["attn+mlp"]["fused_attn_block"],
+        "FusedMlpBlock": unfrozen["route_launches"]["attn+mlp"]["fused_mlp_block"],
+        "FlashAttention": unfrozen["route_launches"]["unfused"]["flash_attention"]})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -2690,6 +3061,7 @@ def main():
                       "stage1_eval_coco": {k: v for k, v in stage1_eval.items()
                                            if k != "stages"},
                       "stage1_train": stage1_train,
+                      "unfrozen_train_coco": unfrozen,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

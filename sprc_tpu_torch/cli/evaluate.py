@@ -70,7 +70,7 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
             raise SystemExit(f"--device {args.device}: no CUDA device is available")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model_cfg.pop("freeze_vit", None)  # evaluation runs no optimizer
+    model_cfg["freeze_vit"] = True  # evaluation trains nothing: the tower is built frozen
     model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
                               seed=int(run.get("seed", 42)), **model_cfg)
 

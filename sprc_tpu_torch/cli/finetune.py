@@ -12,9 +12,11 @@ The reference recipe (blip_fine_tune_2.py:196-354): AdamW (0.9, 0.98, eps
 1), targetpad 1.25, per-epoch validation keeping
 the best checkpoint by the selection metric (CIRR ``arithmetic_mean``,
 FashionIQ ``average_recall``). The flags are the JAX CLI's without
-``--mesh`` and ``--remat`` (one device; the tower is frozen and runs without
-a graph), plus ``--device`` (default ``cuda``; without a GPU the command
-exits nonzero). On the card TF32 is off: the Q-Former trains in true fp32.
+``--mesh`` (one device), plus ``--device`` (default ``cuda``; without a GPU
+the command exits nonzero). ``--remat`` keeps only each tower block's and
+Q-Former layer's input for the backward (``vit_remat`` and
+``qformer_remat``, as in JAX; the same step bit for bit, dropout
+included). On the card TF32 is off: the Q-Former trains in true fp32.
 
 Outputs under ``--output-dir``: ``training_hyperparameters.json``, the
 epoch logs (``train_metrics.csv``, ``validation_metrics.csv``,
@@ -225,7 +227,8 @@ def finetune(args) -> List[dict]:
         torch.backends.cudnn.allow_tf32 = False
     model = load_model(args.model_name, args.model_type, checkpoint_path=args.model_path,
                        device=device, seed=args.seed,
-                       vit_dtype=torch.bfloat16 if args.bf16 else torch.float32)
+                       vit_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                       vit_remat=args.remat, qformer_remat=args.remat)
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
     processor = CaptionProcessor()
     tfm = targetpad_transform(args.target_ratio, model.cfg.image_size)
@@ -304,6 +307,9 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--remat", action="store_true",
+                   help="keep only each ViT block's and Q-Former layer's input for the backward "
+                        "and recompute the rest there (fewer activations, more time)")
     p.add_argument("--cache-features", action="store_true",
                    help="compute the frozen tower's outputs once (one encode pass over the "
                         "split's unique images) and train the Q-Former from them: the same "

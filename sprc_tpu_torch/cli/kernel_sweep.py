@@ -13,8 +13,8 @@ output mode, strided and BSHD layouts, a fully masked row), and then times
 them at the main paths' shapes beside the one PyTorch call that computes the
 same function (``F.linear``, ``torch._int_mm``,
 ``F.scaled_dot_product_attention``, ``F.layer_norm``; the fp32 attention and
-LayerNorm rows also with both sides' device times from ``torch.profiler`` and
-the names of the kernels SDPA ran; the quantisers, which no one PyTorch call
+LayerNorm rows also with both sides' device times (``kernel_checks.device_ms``)
+and the names of the kernels SDPA ran; the quantisers, which no one PyTorch call
 computes, by their device times at every call of ``kernel_checks.QUANT_CALLS``
 with the instantiation each call takes; K1 at the galleries of
 ``kernel_checks.SIM_SWEEP`` by its device time, beside ``F.linear`` + ``amax``

@@ -5,6 +5,9 @@ Usage:
   python -m sprc_tpu_torch.cli.train --cfg-path configs/runs/pretrain_stage1.yaml \
       --vocab-path vocab.txt --options datasets.conceptual_caption_3m.build_info.annotations.train=a.json \
       datasets.conceptual_caption_3m.build_info.images=/data/images [--device cuda]
+  python -m sprc_tpu_torch.cli.train --cfg-path configs/runs/retrieval_coco_blip2_ft.yaml \
+      --vocab-path vocab.txt --options datasets.coco_retrieval.build_info.annotations.train=[a.json] \
+      datasets.coco_retrieval.build_info.images=/data/coco
   python -m sprc_tpu_torch.cli.train --cfg-path configs/runs/cirr_finetune.yaml \
       --data-path /data/cirr_dataset --vocab-path vocab.txt
 
@@ -13,14 +16,16 @@ The run, model and datasets sections come through
 routes, as in JAX:
 
 - a generic task (``run.task`` in ``train/generic.py::TASK_ADAPTERS``, e.g.
-  ``image_text_pretrain``) goes to :func:`~sprc_tpu_torch.train.generic.run_generic`;
+  ``image_text_pretrain``) goes to :func:`~sprc_tpu_torch.train.generic.run_generic`
+  (``retrieval_coco_blip2_ft.yaml``: ``blip2`` / ``coco``, whose EVA ViT-g
+  tower trains);
 - anything else is a CIR fine-tune: the run section's keys become the flags
   of ``cli/finetune.py`` by their argparse names (``dataset`` and
   ``--data-path`` first, ``model.arch`` the ``--model-name``,
   ``model.vit_model: clip_L`` the ``pretrain_vitL`` model type), and the
-  port's ``cli/finetune.finetune`` runs. A key it has no flag for (the JAX
-  CLI's ``remat``, ``mesh``) is not applied: it warns, as the JAX CLI warns
-  on unknown keys.
+  port's ``cli/finetune.finetune`` runs (``run.remat`` as ``--remat``). A
+  key it has no flag for (the JAX CLI's ``mesh``) is not applied: it warns,
+  as the JAX CLI warns on unknown keys.
 
 The flags are the JAX CLI's without ``--mesh`` (one device), plus
 ``--device`` (default ``cuda``; without a GPU the command exits nonzero).

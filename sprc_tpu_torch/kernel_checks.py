@@ -30,28 +30,32 @@ A timed row also carries the work of its call, from the shapes alone:
 the least time the card could take. Where one PyTorch call computes the same
 function, ``library_ms`` is that call's time on the same inputs; the port
 itself never makes that call. The fp32 attention and LayerNorm rows also
-carry ``device_ms`` / ``library_device_ms``: the kernels' own time from
-``torch.profiler`` (:func:`device_ms`), which a loop through a Python wrapper
-hides where the host's cost of a call exceeds its kernel; the quantisers'
+carry ``device_ms`` / ``library_device_ms``: the calls' time on the
+device's clock with the host's pace out of it (:func:`device_ms`), which a
+loop through a Python wrapper hides where the host's cost of a call exceeds
+its kernel; the quantisers'
 rows (:func:`check_quantize`) take it as their ``ms``, and K1's
 (:func:`check_token_max_sim`) carry it beside the wrapper loop's ``ms``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List
 
 import numpy as np
 import torch
 
 from sprc_tpu_torch.ops import primitives, quant, schedules
-from sprc_tpu_torch.ops.attention import flash_attention
-from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_attn_block_plain,
+from sprc_tpu_torch.ops.attention import FlashAttention, flash_attention
+from sprc_tpu_torch.ops.fused_block import (FusedAttnBlock, FusedMlpBlock, FusedViTBlock,
+                                            fused_attn_block, fused_attn_block_plain,
                                             fused_mlp_block, fused_mlp_block_plain,
                                             fused_vit_block, fused_vit_block_i8,
                                             fused_vit_block_i8_plain, fused_vit_block_plain)
 from sprc_tpu_torch.ops.fused_qformer import (fused_qformer_layer, fused_qformer_layer_plain,
                                               quantize_layer_params)
+from sprc_tpu_torch.ops.layers import recompute
 from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim, token_max_sim, token_max_sim_plain
 
 # the main path's batches: what chip_smoke.py drives and the engine's defaults
@@ -84,30 +88,61 @@ def cuda_ms(fn: Callable[[], object], iters: int = 10, warmup: int = 2) -> float
     return start.elapsed_time(end) / iters
 
 
+# the clock rate at which device_ms reckons its hold on the stream (the H100
+# SXM's boost clock, cycles a second; a slower clock holds it longer)
+HOLD_HZ = 1.98e9
+
+
 def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> tuple:
-    """(device ms per call of ``fn``, its kernels by name with their ms per
-    call) from one ``torch.profiler`` run of ``iters`` calls: the kernels'
-    own time, whatever the host's pace between them (``cuda_ms`` over a
-    loop measures the host where a call's host cost exceeds its kernel).
-    A profile that recorded no device time is taken again; after three it
-    raises, so that no other clock stands in for the device's."""
+    """(device ms per call of ``fn``, the kernels that one ``torch.profiler``
+    run of a call saw, by name, with the mean device ms of one launch).
+
+    The time is read on the device's clock with the host's pace out of it:
+    a spin (``torch.cuda._sleep``) holds the stream while the host queues
+    the ``iters`` calls, and two CUDA events time the calls from the spin's
+    end, back to back (the gaps between dependent kernels included;
+    ``cuda_ms`` over a loop measures the host where a call's host cost
+    exceeds its kernel). The spin lasts twice the host's time for the calls
+    and doubles until the start event is still pending once every call is
+    queued; after four tries it raises, so that no host-paced time stands in
+    for the device's. The profile only names the kernels: a profile loses
+    launches at random (``cli/profile_window.py``), so its counts give no
+    time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profile that caught no device time is taken again
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    hold_s = max(2 * (time.perf_counter() - t0), 1e-3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        torch.cuda._sleep(int(hold_s * HOLD_HZ))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            break
+        hold_s *= 2
+    else:
+        raise RuntimeError(f"device_ms: the host did not queue {iters} calls within a hold "
+                           f"of {hold_s / 2:.3f} s")
+    launches: Dict[str, List[float]] = {}
+    for _ in range(3):  # a profile that saw no kernel is taken again
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
+            fn()
             torch.cuda.synchronize()
-        names: Dict[str, float] = {}
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
-                names[evt.name] = (names.get(evt.name, 0.0)
-                                   + evt.time_range.elapsed_us() / 1e3 / iters)
-        if sum(names.values()) > 0:
-            return sum(names.values()), names
-    raise RuntimeError(f"torch.profiler recorded no device time in three profiles of "
-                       f"{iters} calls")
+                launches.setdefault(evt.name, []).append(evt.time_range.elapsed_us() / 1e3)
+        if launches:
+            break
+    return (start.elapsed_time(end) / iters,
+            {name: sum(ms) / len(ms) for name, ms in launches.items()})
 
 
 def _errors(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
@@ -472,7 +507,7 @@ def check_token_max_sim_grad(device="cuda", B=TRAIN_BATCH, N=TRAIN_BATCH, Q=32, 
         if case == "ties":
             t = t.clone()
             t[:, 0] = t[:, 1] = f[torch.arange(N, device=device) % B]
-        got = run(TokenMaxSim.apply, f, t)
+        got = run(TokenMaxSim.call, f, t)
         want = run(token_max_sim_plain, f, t)
         row["max_abs_err"] = max(row["max_abs_err"], (got[0] - want[0]).abs().max().item())
         row["grad_max_abs_err"] = max(row["grad_max_abs_err"], *(
@@ -484,9 +519,9 @@ def check_token_max_sim_grad(device="cuda", B=TRAIN_BATCH, N=TRAIN_BATCH, Q=32, 
     row["tie_split_even"] = bool(torch.equal(tied[:, 0], tied[:, 1])) and bool(
         (tied[:min(B, N), 0].abs().sum(-1) > 0).all())
     with torch.no_grad():
-        row["ms"] = device_ms(lambda: TokenMaxSim.apply(f, t))[0]
+        row["ms"] = device_ms(lambda: TokenMaxSim.call(f, t))[0]
         row["plain_ms"] = device_ms(lambda: token_max_sim_plain(f, t))[0]
-    row["fwd_bwd_ms"] = cuda_ms(lambda: run(TokenMaxSim.apply, f, t))
+    row["fwd_bwd_ms"] = cuda_ms(lambda: run(TokenMaxSim.call, f, t))
     row["plain_fwd_bwd_ms"] = cuda_ms(lambda: run(token_max_sim_plain, f, t))
     row["ok"] = (row["finite"] and row["max_abs_err"] <= 1e-5
                  and row["grad_max_abs_err"] <= 1e-5 and row["tie_split_even"]
@@ -1283,7 +1318,6 @@ def check_gemm_host_cost(device="cuda", calls=200, seed=18) -> dict:
     ``calls`` calls without a synchronise, over their number. The s8 GEMM is
     taken raw and with the Q-Former's epilogue (row and column scales, bias,
     fp32 out)."""
-    import time
 
     r = _Rand(device, seed)
     x, w = r.normal(128, 64, dtype=torch.bfloat16), r.normal(128, 64, dtype=torch.bfloat16)
@@ -2031,6 +2065,202 @@ def run_stage1(device="cuda") -> List[dict]:
     return rows
 
 
+# ---------------------------------------------- the Functions of a tower that trains
+
+# The autograd Functions of K2, K6, K7 and K8 (a tower that trains, BLIP-2
+# stage 1's coco fine-tune) against autograd over the plain version on the
+# same card, inputs and cotangent, at the tower's shapes: EVA ViT-g fp32 at
+# 364 px (S = 677, W 1408, D 88) and a batch of UNFROZEN_BATCH, and K2 in bf16
+# at ViT-L's shapes. Bounds, fixed before the first reading: the forward is
+# the kernel's, held as its own check (K2, K6, K7 fp32: VIT_F32_REL of the
+# output's largest |value|; K2 bf16: K2's 0.0625 / 4e-3; K8 fp32: its stage
+# bound); the backward recomputes the plain version from the same inputs, so
+# the input's and every parameter's gradient equal autograd's over the plain
+# version but for the order of the library's sums: max |difference| within
+# GRAD_REL of the tensor's largest |gradient| (fp32 1e-5; bf16 one step of
+# the largest, 2^-7, should a product round otherwise).
+UNFROZEN_BATCH = 4
+GRAD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+FUNCTIONS = {  # name -> (Function, wrapper, plain)
+    "FusedViTBlock": (FusedViTBlock, fused_vit_block, fused_vit_block_plain),
+    "FusedAttnBlock": (FusedAttnBlock, fused_attn_block, fused_attn_block_plain),
+    "FusedMlpBlock": (FusedMlpBlock, fused_mlp_block, fused_mlp_block_plain),
+    "FlashAttention": (FlashAttention, flash_attention, primitives.flash_attention_plain),
+}
+
+
+def check_function_grad(name: str, device="cuda", tower="eva_g", dtype=torch.float32,
+                        B=UNFROZEN_BATCH, S=RETRIEVAL_MEMORY, seed=41) -> dict:
+    """One Function of :data:`FUNCTIONS` with a gradient: its forward output,
+    the input's and every parameter's gradient against autograd over the
+    plain version, within the bounds above. ``launches``: the wrapper's
+    launches in the Function's forward (1; its backward launches none).
+    ``ms`` / ``plain_ms``: the forward, kernel and plain (CUDA events);
+    ``fwd_bwd_ms`` / ``plain_fwd_bwd_ms``: forward and backward through the
+    Function and through autograd over the plain version; ``library_ms``:
+    SDPA's forward on K8's inputs (none for the chains)."""
+    function, wrapper, plain = FUNCTIONS[name]
+    W, M, heads, quick, eps = TOWERS[tower]
+    r = _Rand(device, seed)
+    scale = (W // heads) ** -0.5
+    if name == "FlashAttention":
+        ins = [r.normal(B, S, heads, W // heads, dtype=dtype) for _ in range(3)]
+        kw = dict(scale=scale)
+    else:
+        params = list(vit_block_params(r, W, M, dtype=dtype))
+        params = {"FusedViTBlock": params, "FusedAttnBlock": params[:6],
+                  "FusedMlpBlock": params[6:]}[name]
+        ins = [r.normal(B, S, W, dtype=dtype)] + params
+        kw = dict(heads=heads, eps=eps, scale=scale, quick=quick)
+        if name != "FusedViTBlock":
+            kw = {k: kw[k] for k in (("heads", "eps", "scale") if name == "FusedAttnBlock"
+                                     else ("eps", "quick"))}
+    cot = r.normal(*ins[0].shape, dtype=dtype)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in ins]
+        out = fn(*leaves, **kw)
+        out.backward(cot)
+        return out.detach(), [t.grad for t in leaves]
+
+    before = wrapper.launches
+    got, got_grads = run(function.call)
+    row = {"launches": wrapper.launches - before}
+    want, want_grads = run(plain)
+    torch.cuda.synchronize()
+    row.update(_errors(got, want))
+    row["out_max_abs"] = want.float().abs().max().item()
+    gap = grad_gap([g.float() for g in got_grads], [w.float() for w in want_grads],
+                   [str(i) for i in range(len(ins))])
+    row["grad_rel"], row["grad_worst"] = gap["gap"], gap["tensor"]
+    row["grads_finite"] = all(bool(torch.isfinite(g).all()) for g in got_grads)
+    del got_grads, want_grads
+    if name == "FlashAttention":
+        fwd_ok = _held(f"flash_attention D={W // heads}", got, want)["ok"]
+    elif dtype == torch.float32:
+        fwd_ok = row["max_abs_err"] <= VIT_F32_REL * row["out_max_abs"]
+    else:
+        fwd_ok = row["max_abs_err"] <= 0.0625 and row["mean_abs_err"] <= 4e-3
+    with torch.inference_mode():
+        row["ms"] = cuda_ms(lambda: wrapper(*ins, **kw), iters=3, warmup=1)
+        row["plain_ms"] = cuda_ms(lambda: plain(*ins, **kw), iters=3, warmup=1)
+        row["library_ms"] = (cuda_ms(_sdpa_fn(*ins), iters=3, warmup=1)
+                             if name == "FlashAttention" else None)
+    row["fwd_bwd_ms"] = cuda_ms(lambda: run(function.call), iters=3, warmup=1)
+    row["plain_fwd_bwd_ms"] = cuda_ms(lambda: run(plain), iters=3, warmup=1)
+    row["ok"] = (row["finite"] and row["grads_finite"] and fwd_ok and row["launches"] == 1
+                 and row["grad_rel"] <= GRAD_REL[dtype])
+    row["shape"] = (f"B={B} S={S} W={W} {_TYPE[dtype]}, forward + backward: gradients "
+                    f"{row['grad_rel']:.2e} of their scale (input {row['grad_worst']})")
+    # the forward's work (``ms``), as the serving checks count it
+    elt = dtype.itemsize
+    if name == "FusedViTBlock":
+        row.update(_vit_block_work(B, S, W, M, int8=False, dtype=dtype))
+    else:
+        peak = PEAK_OPS["fp32" if dtype == torch.float32 else "bf16"]
+        ops, weights, vectors = {
+            "FusedAttnBlock": (8 * B * S * W * W + 4 * B * S * S * W, 4 * W * W, 6 * W),
+            "FusedMlpBlock": (4 * B * S * W * M, 2 * W * M, M + 3 * W),
+            "FlashAttention": (4 * B * S * S * W, 0, 0)}[name]
+        moved = (4 if name == "FlashAttention" else 2) * B * S * W
+        row["bytes"] = elt * (moved + weights) + 4 * vectors
+        row["op_seconds"] = ops / peak
+    return row
+
+
+def run_unfrozen(device="cuda") -> List[dict]:
+    """The four Functions at the COCO tower's shapes (fp32, S = 677), and
+    K2's in bf16 at ViT-L's."""
+    rows = [dict(check=f"{name} eva_g fp32 S=677", **check_function_grad(name, device))
+            for name in FUNCTIONS]
+    rows.append(dict(check="FusedViTBlock vit_l bf16 S=257",
+                     **check_function_grad("FusedViTBlock", device, "vit_l", torch.bfloat16,
+                                           S=257)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profile_block_backward(device="cuda", B=32, S=RETRIEVAL_MEMORY, iters=3,
+                           seed=43) -> Dict[str, dict]:
+    """One EVA ViT-g block (fp32, S = 677) at the COCO fine-tune's batch,
+    three ways that each keep only the block's input: ``function``
+    (``FusedViTBlock``: the kernel forward; the backward recomputes the
+    whole plain block and calls ``torch.autograd.grad`` on it), ``remat``
+    (the plain block through ``layers.recompute``, as ``vit_remat`` runs it:
+    ``torch.utils.checkpoint``, non-reentrant, whose recompute stops once
+    every tensor the backward saved is back) and ``remat_full`` (the same
+    with that early stop off, so that its recompute runs the whole block).
+    Per way: the forward's and the backward's ms (CUDA events, the median of
+    ``iters`` after a warm-up), and from a profiled backward its device ms,
+    its GEMM kernels (launches and device ms), all its kernel launches, and
+    the allocator's new segments (``cudaMalloc`` calls) in it. A profile loses
+    launches at random (31 of this backward's 141 in one card run;
+    ``cli/profile_window.py``), so ``iters`` backwards are profiled and the one with the
+    most kernels is kept (``profiles_kernels``: each profile's count)."""
+    _, _, plain = FUNCTIONS["FusedViTBlock"]
+    W, M, heads, quick, eps = TOWERS["eva_g"]
+    r = _Rand(device, seed)
+    leaves = [t.requires_grad_() for t in [r.normal(B, S, W)]
+              + list(vit_block_params(r, W, M, dtype=torch.float32))]
+    cot = r.normal(B, S, W)
+    kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5, quick=quick)
+
+    def remat(*t):
+        return recompute(lambda *a: plain(*a, **kw), *t, always=True)
+
+    def remat_full(*t):
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return remat(*t)
+
+    ways = {"function": lambda *t: FusedViTBlock.call(*t, **kw), "remat": remat,
+            "remat_full": remat_full}
+    rows: Dict[str, dict] = {}
+    for name, fwd in ways.items():
+        times = []
+        for i in range(iters + 1):
+            for t in leaves:
+                t.grad = None
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda.synchronize()
+            events[0].record()
+            out = fwd(*leaves)
+            events[1].record()
+            out.backward(cot)
+            events[2].record()
+            torch.cuda.synchronize()
+            if i:
+                times.append((events[0].elapsed_time(events[1]),
+                              events[1].elapsed_time(events[2])))
+        kernels, counts, segments = [], [], 0
+        for _ in range(iters):
+            for t in leaves:
+                t.grad = None
+            out = fwd(*leaves)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out.backward(cot)
+                torch.cuda.synchronize()
+            segments = max(segments,
+                           torch.cuda.memory_stats().get("segment.all.allocated", 0) - before)
+            seen = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = max(kernels, seen, key=len)
+            counts.append(len(seen))
+            del out
+        gemms = [e for e in kernels if "gemm" in e.name.lower()]
+        rows[name] = {"forward_ms": float(np.median([f for f, _ in times])),
+                      "backward_ms": float(np.median([b for _, b in times])),
+                      "backward_device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+                      "backward_kernels": len(kernels), "profiles_kernels": counts,
+                      "backward_gemms": len(gemms),
+                      "backward_gemm_ms": sum(e.time_range.elapsed_us() for e in gemms) / 1e3,
+                      "backward_new_segments": segments}
+    for t in leaves:
+        t.grad = None
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_int8(device="cuda") -> List[dict]:
     """The checks of the int8 serving path's kernels."""
     rows = [dict(check=f"gemm_i8 {name}", **check_gemm_i8(name, device))
@@ -2060,4 +2290,4 @@ def run_all(device="cuda") -> List[dict]:
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
-            + run_edges(device))
+            + run_unfrozen(device) + run_edges(device))

@@ -60,37 +60,32 @@ MODEL_CONFIGS = {
 }
 # the BLIP-2 stage-1 family, as configs/models/{blip2,blip2_feature_extractor,
 # blip2_image_text_matching}/*.yaml give it: pretrain (EVA ViT-g 224 px, bf16
-# tower, frozen) and coco (364 px, an fp32 tower, which that YAML trains
-# unfrozen: UNFROZEN_VIT)
+# tower, frozen) and coco (364 px, an fp32 tower, which that YAML trains:
+# freeze_vit false, the rows of UNFROZEN_VIT)
 STAGE1_MODELS = ("blip2", "blip2_feature_extractor", "blip2_image_text_matching")
 _STAGE1_TYPES = {"pretrain": (224, torch.bfloat16), "coco": (364, torch.float32)}
+UNFROZEN_VIT = {("blip2", "coco"), ("blip2_image_text_matching", "coco")}
 MODEL_CONFIGS.update({
     (name, model_type): dict(
         vit_model="eva_clip_g", image_size=size, num_query_token=32, cross_attention_freq=2,
         embed_dim=256, max_txt_len=32, vit_dtype=vit_dtype, qformer_dtype=torch.float32,
+        freeze_vit=(name, model_type) not in UNFROZEN_VIT,
     )
     for name in STAGE1_MODELS
     for model_type, (size, vit_dtype) in _STAGE1_TYPES.items()
     if (name, model_type) != ("blip2_feature_extractor", "coco")
 })
-# the rows whose YAML says freeze_vit: false (trained in the next slice)
-UNFROZEN_VIT = {("blip2", "coco"), ("blip2_image_text_matching", "coco")}
 
-
-UNFROZEN_MESSAGE = ("freeze_vit=False: the port trains with the ViT frozen only; training the "
-                    "tower (autograd over K2 / K6 / K7 / K8, --remat, layer decay) is ROADMAP "
-                    "A3b's unfrozen-ViT item")
 _PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
 # sub-configs that an override may give as a dict, with the fields of the JAX
 # package's dataclass that the port does not read (attention dropout: the JAX
-# model never applies it; initialisers; rematerialisation and scanned blocks):
-# dropped here, where any other unknown field raises
+# model never applies it; initialisers; scanned blocks): dropped here, where
+# any other unknown field raises
 _SUB_CONFIGS = {
-    "vit_config_override": (ViTConfig, {"remat", "scan_blocks"}),
+    "vit_config_override": (ViTConfig, {"scan_blocks"}),
     "qformer_config_override": (QFormerConfig, {"attention_dropout_rate",
-                                                "initializer_range", "remat"}),
+                                                "initializer_range"}),
 }
-_JAX_ONLY_FIELDS = {"freeze_vit", "vit_remat", "qformer_remat"}
 
 
 def _precision(key: str, value: Any) -> Any:
@@ -103,13 +98,12 @@ def coerce_overrides(overrides: dict) -> dict:
     """YAML-friendly overrides (the JAX loader's ``_coerce``): precision
     names on ``*dtype`` fields become dtypes, and a dict for
     ``vit_config_override`` / ``qformer_config_override`` becomes that
-    dataclass."""
+    dataclass; the YAML's ``use_grad_checkpoint`` becomes ``vit_remat``, as
+    the JAX loader translates it."""
     out = {}
     for key, value in overrides.items():
-        if key == "freeze_vit" and not value:
-            raise ValueError(UNFROZEN_MESSAGE)
-        if key in _JAX_ONLY_FIELDS:
-            continue
+        if key == "use_grad_checkpoint":
+            key, value = "vit_remat", bool(value)
         if key in _SUB_CONFIGS and isinstance(value, dict):
             cls, jax_only = _SUB_CONFIGS[key]
             value = cls(**{k: _precision(k, v) for k, v in value.items() if k not in jax_only})

@@ -24,11 +24,15 @@ Registered as ``blip2`` and ``blip2_feature_extractor``
   cross-entropy smoothed by 0.1, pads ignored. The pass never reaches K3
   (the Q-Former's decoder mask takes the unfused layers), as in JAX.
 
-The tower is frozen (no gradient reaches it), as in the JAX model, whose
-``embed_cached`` stops the gradient; what the optimizer does with the
-tower's tensors is the trainer's business (``train/generic.py``). Losses and
-gradients are held against JAX's ``Blip2Stage1.__call__`` in
-``tests/test_torch_stage1.py``.
+The tower is frozen on the ``pretrain`` rows (no gradient reaches it), as in
+the JAX model, whose ``embed_cached`` stops the gradient only under
+``freeze_vit``; what the optimizer does with a frozen tower's tensors is the
+trainer's business (``train/generic.py``). The ``coco`` rows say
+``freeze_vit: false``: there the tower runs with a graph and trains, its
+blocks through the kernels' autograd Functions (``models/vit.py``). Losses
+and gradients are held against JAX's ``Blip2Stage1.__call__`` in
+``tests/test_torch_stage1.py`` (frozen) and
+``tests/test_torch_unfrozen_vit.py`` (the tower's gradients).
 """
 
 from __future__ import annotations
@@ -76,10 +80,11 @@ class Blip2Stage1(Blip2CirBase, _HardNegMixin):
                 bos_token_id: int = BOS_TOKEN_ID, pad_token_id: int = 0,
                 generator: Generator = None, sample_generator: Generator = None
                 ) -> Dict[str, Tensor]:
-        """images [B, H, W, 3] through the frozen tower (no graph), then the
-        three losses. ``generator``: the dropout masks; ``sample_generator``:
-        drawn hard negatives (the JAX package's opt-in ``sample`` rng)."""
-        with torch.no_grad():
+        """images [B, H, W, 3] through the tower (a frozen one without a
+        graph), then the three losses. ``generator``: the dropout masks;
+        ``sample_generator``: drawn hard negatives (the JAX package's opt-in
+        ``sample`` rng)."""
+        with self.tower_grad():
             tower = self.encode_tower(images)
         return self.losses_from_embeds(self.embed_cached(tower), input_ids, text_mask,
                                        bos_token_id=bos_token_id, pad_token_id=pad_token_id,

@@ -1,6 +1,6 @@
 """Shared trunk of the BLIP-2 CIR models (counterpart of ``sprc_tpu/models/cir_base.py``).
 
-Frozen ViT -> fp32 ``ln_vision`` -> Q-Former (learned queries,
+ViT -> fp32 ``ln_vision`` -> Q-Former (learned queries,
 cross-attention every second layer) -> 256-d vision / text projections, an
 ITM head and a learned temperature (reference
 blip2_qformer_cir_align_prompt.py:44-92). This module carries the encode and
@@ -15,17 +15,23 @@ Attribute names are the reference torch module's (``visual_encoder``,
 ``text_proj``, ``itm_head``, ``temp``), so a reference-layout state dict
 loads with ``strict=True``. Images enter NHWC.
 
-Training (the losses live in the flagship subclass): the ViT is frozen, as
-in the recipe (``requires_grad`` off, kept in eval mode by :meth:`train`,
-LAVIS's ``disabled_train``) and runs under ``torch.no_grad()``, so its
-blocks launch kernel K2 on every live step. ``ln_vision`` and everything
-after it train. :meth:`encode_tower` is the boundary the feature cache
-stores (``sprc_tpu_torch/train/feature_cache.py``); ``forward_cached``
-trains every model from it (the JAX base's generic ``forward_cached``).
+Training (the losses live in the flagship subclass): with
+``freeze_vit`` (the default, the recipe's) the ViT is frozen
+(``requires_grad`` off, kept in eval mode by :meth:`train`, LAVIS's
+``disabled_train``) and runs under ``torch.no_grad()``, so its blocks
+launch kernel K2 on every live step; ``ln_vision`` and everything after it
+train. With ``freeze_vit=False`` (BLIP-2 stage 1's ``coco`` fine-tune) the
+tower trains too: it takes training mode, runs with a graph and gets its
+gradient through the kernels' autograd Functions (``models/vit.py``), as
+the JAX model, which stops the gradient only under ``freeze_vit``.
+:meth:`encode_tower` is the boundary the feature cache stores
+(``sprc_tpu_torch/train/feature_cache.py``); ``forward_cached`` trains
+every model from it (the JAX base's generic ``forward_cached``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -38,7 +44,7 @@ from sprc_tpu_torch.models.vit import (ViTConfig, build_tower, clip_vit_l_config
                                        eva_vit_g_config)
 from sprc_tpu_torch.ops import primitives
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, l2_normalize
-from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim, token_max_sim, token_max_sim_plain
+from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim
 
 Tensor = torch.Tensor
 
@@ -53,6 +59,7 @@ class CirConfig:
     cross_attention_freq: int = 2
     embed_dim: int = 256
     max_txt_len: int = 32
+    freeze_vit: bool = True  # False: the tower trains (BLIP-2 stage 1's coco rows)
     vocab_size: int = 30523
     vit_dtype: torch.dtype = torch.bfloat16
     qformer_dtype: torch.dtype = torch.float32
@@ -65,9 +72,19 @@ class CirConfig:
     # config's own, whose defaults are the whole-block kernel, MLP kernel off)
     vit_fused_block: Optional[str] = None
     vit_fused_mlp: Optional[bool] = None
+    # keep only each tower block's / Q-Former layer's input for the backward
+    # (ViTConfig.remat / QFormerConfig.remat; the finetune CLI's --remat, the
+    # YAML's use_grad_checkpoint for the tower)
+    vit_remat: bool = False
+    qformer_remat: bool = False
     # test-size overrides (None = full size)
     vit_config_override: Optional[ViTConfig] = None
     qformer_config_override: Optional[QFormerConfig] = None
+
+    def __post_init__(self):
+        if not self.freeze_vit and self.vit_quant:
+            raise ValueError(f"freeze_vit=False with vit_quant={self.vit_quant!r}: the int8 "
+                             "modes serve only; train the bf16/fp32 tower")
 
     def vit_config(self) -> ViTConfig:
         if self.vit_config_override is not None:
@@ -82,6 +99,8 @@ class CirConfig:
                                    ("fused_mlp", self.vit_fused_mlp)) if v is not None}
         if self.vit_quant:
             route.update(quant=self.vit_quant, act_scales=self.vit_act_scales)
+        if self.vit_remat:
+            route.update(remat=True)
         return dataclasses.replace(cfg, **route) if route else cfg
 
     def qformer_config(self) -> QFormerConfig:
@@ -93,11 +112,14 @@ class CirConfig:
                 cross_attention_freq=self.cross_attention_freq,
                 query_length=self.num_query_token, dtype=self.qformer_dtype,
             )
-        return dataclasses.replace(cfg, int8=True) if self.qformer_int8 else cfg
+        extra = {k: True for k, on in (("int8", self.qformer_int8),
+                                       ("remat", self.qformer_remat)) if on}
+        return dataclasses.replace(cfg, **extra) if extra else cfg
 
 
 class Blip2CirBase(nn.Module):
-    """Frozen ViT + ln_vision + Q-Former + projection heads."""
+    """ViT (frozen unless ``freeze_vit=False``) + ln_vision + Q-Former +
+    projection heads."""
 
     def __init__(self, cfg: CirConfig):
         super().__init__()
@@ -108,7 +130,8 @@ class Blip2CirBase(nn.Module):
         self.visual_encoder = build_tower(vcfg)
         # fp32 LayerNorm bridging the (b)f16 tower into the Q-Former (eps 1e-5)
         self.ln_vision = LayerNormFP32(vcfg.width, 1e-5)
-        self.visual_encoder.requires_grad_(False)  # frozen (reference freeze_vit=True)
+        if cfg.freeze_vit:  # the reference's freeze_vit=True
+            self.visual_encoder.requires_grad_(False)
         self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg)})
         self.query_tokens = nn.Parameter(torch.empty(1, cfg.num_query_token, H))
         self.vision_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
@@ -122,33 +145,44 @@ class Blip2CirBase(nn.Module):
         return self.Qformer["bert"]
 
     def train(self, mode: bool = True) -> "Blip2CirBase":
-        """Training mode for everything but the frozen tower, which stays in
-        eval mode (LAVIS ``disabled_train``)."""
+        """Training mode for everything but a frozen tower, which stays in
+        eval mode (LAVIS ``disabled_train``). A trainable tower takes
+        training mode, as in LAVIS; it has no dropout, so no value changes."""
         super().train(mode)
-        self.visual_encoder.eval()
+        if self.cfg.freeze_vit:
+            self.visual_encoder.eval()
         return self
+
+    def tower_grad(self):
+        """The context a training forward runs the tower in: ``no_grad`` for
+        a frozen tower, none for a trainable one."""
+        return torch.no_grad() if self.cfg.freeze_vit else contextlib.nullcontext()
 
     # ---------------------------------------------------------------- towers
 
     def encode_tower(self, images: Tensor) -> Tensor:
-        """Raw frozen-tower features [B, S, D] (pre-ln_vision, tower dtype)."""
+        """Raw tower features [B, S, D] (pre-ln_vision, tower dtype)."""
         return self.visual_encoder(images)
 
     def encode_image(self, images: Tensor) -> Tensor:
-        """images [B, H, W, 3] -> frozen embeddings [B, S, D] fp32 (ln_vision
+        """images [B, H, W, 3] -> image embeddings [B, S, D] fp32 (ln_vision
         of the tower features)."""
         return self.ln_vision(self.encode_tower(images).float())
 
     def embed_cached(self, tower_feats: Tensor) -> Tensor:
-        """Cached or live tower features -> fp32 ln_vision embeddings (the
-        tower is frozen: no gradient flows into it)."""
-        return self.ln_vision(tower_feats.detach().float())
+        """Cached or live tower features -> fp32 ln_vision embeddings; with
+        ``freeze_vit`` no gradient flows into the tower (JAX's
+        ``stop_gradient``)."""
+        if self.cfg.freeze_vit:
+            tower_feats = tower_feats.detach()
+        return self.ln_vision(tower_feats.float())
 
     def encode_image_pair(self, reference: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
         """A training step's two image batches in one tower call of 2B
-        images (every op of the tower is per image), without a graph."""
+        images (every op of the tower is per image), without a graph unless
+        the tower trains."""
         B = reference.shape[0]
-        with torch.no_grad():
+        with self.tower_grad():
             tower = self.encode_tower(torch.cat([reference, target]))
         return self.embed_cached(tower[:B]), self.embed_cached(tower[B:])
 
@@ -160,8 +194,9 @@ class Blip2CirBase(nn.Module):
 
     def forward(self, reference_images: Tensor, target_images: Tensor, input_ids: Tensor,
                 text_mask: Tensor, **kw):
-        """The live training forward: images [B, H, W, 3] through the frozen
-        tower (one call of 2B images, no graph), then ``losses_from_embeds``.
+        """The live training forward: images [B, H, W, 3] through the tower
+        (one call of 2B images, :meth:`encode_image_pair`), then
+        ``losses_from_embeds``.
         ``kw``: ``generator`` (dropout), and for the hard-negative models
         ``sample_generator``."""
         ref_embeds, tgt_embeds = self.encode_image_pair(reference_images, target_images)
@@ -259,11 +294,8 @@ class Blip2CirBase(nn.Module):
         """max over target query tokens of <feat, token>: [B, E] x [N, Q, E] ->
         [B, N]; with a gradient (grad on, an input that requires it) through
         :class:`TokenMaxSim`, the same kernel forward."""
-        fn = primitives.kernel_or_reference(token_max_sim, token_max_sim_plain)
-        if fn is token_max_sim and torch.is_grad_enabled() and (
-                feats.requires_grad or target_feats.requires_grad):
-            fn = TokenMaxSim.apply
-        return fn(feats.float().contiguous(), target_feats.float().contiguous())
+        return primitives.dispatch(TokenMaxSim, feats.float().contiguous(),
+                                   target_feats.float().contiguous())
 
 
 def cross_entropy_diagonal(logits: Tensor) -> Tensor:

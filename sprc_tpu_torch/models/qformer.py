@@ -55,6 +55,14 @@ layer's self-attention probabilities; that one layer runs the unfused
 composition in any mode, without dropout outside training, as the JAX
 package sends it past its fused kernel.
 
+``QFormerConfig.remat`` (the JAX ``nn.remat`` of ``qformer.py:463-471``;
+the finetune CLI's ``--remat``) keeps only each training layer's input for
+the backward and runs the layer again there, all but the layer that returns
+attention probabilities. Its dropout masks are drawn again from the state
+the ``generator`` had at the forward call
+(:func:`~sprc_tpu_torch.ops.layers.recompute`), so the step equals the step
+without it bit for bit.
+
 ``is_decoder`` (the LM pass of ``blip2``, :mod:`.blip2_stage1`) builds the
 UniLM mask of :func:`make_unilm_mask` (queries see the queries; text row i
 sees every query and the text up to i; both times the padding mask), a full
@@ -95,6 +103,7 @@ class QFormerConfig:
     dropout_rate: float = 0.1  # hidden dropout in training mode
     dtype: torch.dtype = torch.float32
     int8: bool = False  # int8 dense projections in every layer (serving only)
+    remat: bool = False  # training: keep only each layer's input for the backward
 
     @property
     def head_dim(self) -> int:
@@ -370,7 +379,11 @@ class QFormer(nn.Module):
             if self.cfg.int8 and layers:  # the same rows in every cross layer: quantised once
                 image_embeds = primitives.ops_for(image_embeds).quantize_rows(image_embeds)
         for layer in layers:
-            hidden = layer(hidden, col_bias, image_embeds, Q, generator)
+            if self.cfg.remat and training(layer):
+                hidden = recompute(layer, hidden, col_bias, image_embeds, Q, generator,
+                                   always=True, generator=generator)
+            else:
+                hidden = layer(hidden, col_bias, image_embeds, Q, generator)
         if last is None:
             return hidden
         return last.train_forward(hidden, col_bias, image, Q, generator, return_probs=True)

@@ -1,4 +1,4 @@
-"""Frozen vision towers: EVA ViT-g and CLIP ViT-L (counterpart of
+"""The vision towers: EVA ViT-g and CLIP ViT-L (counterpart of
 ``sprc_tpu/models/vit.py``).
 
 - EVA ViT-g (reference eva_vit.py:428-455): patch 14, width 1408, 39 blocks,
@@ -37,13 +37,25 @@ parameters and state-dict keys are the same on every route:
   :func:`sprc_tpu_torch.ops.attention.dot_product_attention` and so, on the
   card, the ``flash_attention`` kernel; ``fused_mlp`` applies here too.
 
-Every wrapper launches its kernel on CUDA tensors and is inference-only; the
-op-by-op pieces run the kernels of :mod:`sprc_tpu_torch.ops.primitives` on
-the card; only inside :func:`sprc_tpu_torch.ops.primitives.plain_reference`
-does a block run plain PyTorch there.
+Every wrapper launches its kernel on CUDA tensors; the op-by-op pieces run
+the kernels of :mod:`sprc_tpu_torch.ops.primitives` on the card; only
+inside :func:`sprc_tpu_torch.ops.primitives.plain_reference` does a block
+run plain PyTorch there. A trainable tower (``freeze_vit=False``) keeps
+its routes: where autograd records, each wrapper is called through its
+autograd Function (``FusedViTBlock``, ``FusedAttnBlock``, ``FusedMlpBlock``,
+``FlashAttention``: the kernel forward, the plain version recomputed in the
+backward, as the JAX custom VJPs), and the op-by-op pieces compute their
+dense ops and LayerNorms with the plain set (``torch.matmul``, as XLA
+computes them in the JAX package), their attention through
+``FlashAttention``. ``ViTConfig.remat`` (the JAX ``remat``, the YAML's
+``use_grad_checkpoint``) keeps only each block's input for the backward
+where a block would keep its intermediates: on the unfused pieces, and on
+every route inside ``plain_reference``; the Functions keep only their
+inputs anyway.
 
 ``ViTConfig.quant`` switches the four dense ops of every block to int8
-(serving only; the tower is frozen), as in the JAX package:
+(serving only: ``CirConfig`` refuses it with ``freeze_vit=False``), as in
+the JAX package:
 
 - ``"int8_static"``: calibrated per-tensor activation scales from
   ``ViTConfig.act_scales``; every block calls kernel K5's wrapper
@@ -72,11 +84,9 @@ from torch import nn
 
 from sprc_tpu_torch.ops import primitives, quant
 from sprc_tpu_torch.ops.attention import dot_product_attention
-from sprc_tpu_torch.ops.fused_block import (fused_attn_block, fused_attn_block_plain,
-                                            fused_mlp_block, fused_mlp_block_plain,
-                                            fused_vit_block, fused_vit_block_i8,
-                                            fused_vit_block_i8_plain, fused_vit_block_plain)
-from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
+from sprc_tpu_torch.ops.fused_block import (FusedAttnBlock, FusedMlpBlock, FusedViTBlock,
+                                            fused_vit_block_i8, fused_vit_block_i8_plain)
+from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, recompute
 
 QUANT_MODES = (None, "int8", "int8_calib", "int8_static")
 FUSED_BLOCK_ROUTES = ("block", "attn", "none")  # SPRC_PALLAS_BLOCK = 1 / attn / 0
@@ -103,6 +113,7 @@ class ViTConfig:
     # (("mlp_fc1", s), ("mlp_fc2", s), ("proj", s), ("qkv", s)), shared by all
     # blocks: what calibrate_act_scales returns
     act_scales: Optional[Tuple[Tuple[str, float], ...]] = None
+    remat: bool = False  # keep only each block's input for the backward (training)
 
     def __post_init__(self):
         if self.quant not in QUANT_MODES:
@@ -217,15 +228,15 @@ class _Block(nn.Module):
         return ctx.reshape(B, S, W)
 
     def _attn_unfused(self, x: torch.Tensor) -> torch.Tensor:
-        ops = primitives.ops_for(x)
         ln1, proj, _, _, _ = self._parts()
+        ops = primitives.ops_for(x, ln1.weight, proj.weight)
         h = ops.layer_norm(x, ln1.weight, ln1.bias, self.cfg.layer_norm_eps)
         ctx = self._attend(ops.gemm(h, self._qkv_weight(), self._qkv_dense_bias()))
         return ops.gemm(ctx, proj.weight, proj.bias, residual=x)
 
     def _mlp_unfused(self, x: torch.Tensor) -> torch.Tensor:
-        ops = primitives.ops_for(x)
         _, _, ln2, fc1, fc2 = self._parts()
+        ops = primitives.ops_for(x, ln2.weight, fc1.weight)
         h = ops.layer_norm(x, ln2.weight, ln2.bias, self.cfg.layer_norm_eps)
         h = primitives.ACT_FNS[self.cfg.act](ops.gemm(h, fc1.weight, fc1.bias))
         return ops.gemm(h, fc2.weight, fc2.bias, residual=x)
@@ -255,6 +266,16 @@ class _Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        # remat where the route keeps more than its input: an op-by-op piece,
+        # or any route inside plain_reference (the Functions keep x alone)
+        unfused = cfg.fused_block == "none" or (cfg.fused_block == "attn" and not cfg.fused_mlp)
+        if (cfg.remat and (unfused or primitives.in_plain_reference())
+                and primitives.records(x, *self.parameters())):
+            return recompute(self._route, x, always=True)
+        return self._route(x)
+
+    def _route(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
         attn_kw = dict(heads=cfg.num_heads, eps=cfg.layer_norm_eps, scale=cfg.head_dim ** -0.5)
         kw = dict(attn_kw, quick=cfg.quick_gelu)
         if cfg.quant == "int8_static":
@@ -263,18 +284,16 @@ class _Block(nn.Module):
             return fn(x, *self.kernel_params_i8(), **kw, acts=tuple(sc[n] for n in DENSE_NAMES))
         if cfg.quant is not None:
             return self._forward_dynamic_int8(x)
-        if cfg.fused_block == "block":
-            fn = primitives.kernel_or_reference(fused_vit_block, fused_vit_block_plain)
-            return fn(x, *self.kernel_params(), **kw)
         params = self.kernel_params()
+        if cfg.fused_block == "block":
+            return primitives.dispatch(FusedViTBlock, x, *params, **kw)
         if cfg.fused_block == "attn":
-            fn = primitives.kernel_or_reference(fused_attn_block, fused_attn_block_plain)
-            x = fn(x, *params[:6], **attn_kw)
+            x = primitives.dispatch(FusedAttnBlock, x, *params[:6], **attn_kw)
         else:
             x = self._attn_unfused(x)
         if cfg.fused_mlp:
-            fn = primitives.kernel_or_reference(fused_mlp_block, fused_mlp_block_plain)
-            return fn(x, *params[6:], eps=cfg.layer_norm_eps, quick=cfg.quick_gelu)
+            return primitives.dispatch(FusedMlpBlock, x, *params[6:], eps=cfg.layer_norm_eps,
+                                       quick=cfg.quick_gelu)
         return self._mlp_unfused(x)
 
 

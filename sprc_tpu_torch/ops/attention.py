@@ -19,6 +19,12 @@ Otherwise (a bias, a short sequence, CPU tensors) it computes the einsum
 path in plain PyTorch, which the JAX package also computes outside any
 kernel. Nothing is caught around the kernel: on what the kernel does not
 take (a head dim it is not built for) the call raises.
+
+Where autograd records (a trainable tower's unfused route) the kernel goes
+through :class:`FlashAttention`: the kernel forward, autograd over
+:func:`~sprc_tpu_torch.ops.primitives.flash_attention_plain` recomputed in
+the backward, as the JAX package's custom VJP
+(``pallas_attention.py:427-448``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,14 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
 flash_attention.launches = 0
 
 
+class FlashAttention(primitives.RecomputedVJP):
+    """:func:`flash_attention` with a gradient: ``FlashAttention.call(q, k, v,
+    scale=)``; it keeps q, k and v for the backward."""
+
+    kernel = flash_attention
+    plain = primitives.flash_attention_plain
+
+
 def dot_product_attention(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor] = None, *,
                           scale: Optional[float] = None) -> Tensor:
     """Multi-head attention over ``[B, S, H, D]`` tensors -> ``[B, Sq, H, D]``;
@@ -58,6 +72,5 @@ def dot_product_attention(q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda and bias is None and q.shape[1] >= _KERNEL_MIN_SEQ:
-        fn = primitives.kernel_or_reference(flash_attention, primitives.flash_attention_plain)
-        return fn(q, k, v, scale)
+        return primitives.dispatch(FlashAttention, q, k, v, scale=scale)
     return primitives.einsum_attention(q, k, v, bias, scale)

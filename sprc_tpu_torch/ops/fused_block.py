@@ -23,6 +23,12 @@ are the ones the chain needs (h, qkv, ctx, y, u, hid).
 Numerics (the JAX kernel's): fp32 LayerNorm, matmuls with fp32
 accumulation, bias and activation in fp32, residuals in the model dtype.
 Weights are ``[out, in]``.
+
+The wrappers serve (they raise under grad); a trainable tower calls K2, K6
+and K7 through :class:`FusedViTBlock`, :class:`FusedAttnBlock` and
+:class:`FusedMlpBlock` (the kernel forward, autograd over the plain version
+recomputed in the backward, as the JAX custom VJPs; at the end of this
+file).
 """
 
 from __future__ import annotations
@@ -239,3 +245,37 @@ def fused_mlp_block(x: Tensor, *params: Tensor, eps: float, quick: bool) -> Tens
 
 
 fused_mlp_block.launches = 0
+
+
+# ------------------------------------------------------- with a gradient
+#
+# The JAX package gives K2, K6 and K7 custom VJPs whose forward is the
+# Pallas kernel and whose backward is ``jax.vjp`` over the XLA composition
+# (``pallas_block.py:608-662``, ``pallas_mlp.py:128-148``); they save only
+# the block's input and parameters. These Functions do the same over the
+# wrappers and the plain versions: a trainable tower keeps one input a
+# block (39 of [B, 677, 1408] fp32 for the COCO tower) and recomputes each
+# block's intermediates in its backward. K5 (int8) serves only, in both
+# packages, and has none.
+
+
+class FusedViTBlock(primitives.RecomputedVJP):
+    """:func:`fused_vit_block` with a gradient: ``FusedViTBlock.call(x,
+    *params, heads=, eps=, scale=, quick=)``."""
+
+    kernel = fused_vit_block
+    plain = fused_vit_block_plain
+
+
+class FusedAttnBlock(primitives.RecomputedVJP):
+    """:func:`fused_attn_block` with a gradient."""
+
+    kernel = fused_attn_block
+    plain = fused_attn_block_plain
+
+
+class FusedMlpBlock(primitives.RecomputedVJP):
+    """:func:`fused_mlp_block` with a gradient."""
+
+    kernel = fused_mlp_block
+    plain = fused_mlp_block_plain

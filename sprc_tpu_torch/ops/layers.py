@@ -97,14 +97,47 @@ def recomputing() -> Iterator[None]:
         _RECOMPUTE.reset(token)
 
 
-def recompute(fn, *args):
-    """``fn(*args)``; inside :func:`recomputing`, while autograd records, it
-    keeps only its inputs for the backward, which runs ``fn`` again
-    (``torch.utils.checkpoint``, non-reentrant): the same values and
-    gradients bit for bit, with fewer activations held. For pieces that draw
-    no random numbers (the training Q-Former's softmax attention, GELUs and
-    LayerNorms, whose intermediates are several times their inputs)."""
-    if not (_RECOMPUTE.get() and torch.is_grad_enabled()):
+def recompute(fn, *args, always: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """``fn(*args)``; inside :func:`recomputing`, or with ``always``, while
+    autograd records, it keeps only its inputs for the backward, which runs
+    ``fn`` again (``torch.utils.checkpoint``, non-reentrant): the same values
+    and gradients bit for bit, with fewer activations held.
+
+    Inside :func:`recomputing` it serves pieces that draw no random numbers
+    (the training Q-Former's softmax attention, GELUs and LayerNorms, whose
+    intermediates are several times their inputs). ``always`` serves the
+    ``remat`` options (a tower block, a Q-Former layer, the JAX package's
+    ``nn.remat``): the pieces inside ``fn`` then run with
+    :func:`recomputing` off, in the forward and in the recompute alike, so
+    that both runs take one path. The recompute runs in the context the
+    forward ran in (the backward may run on another thread), so it takes the
+    forward's path. ``fn`` may draw dropout masks from
+    ``generator``: the recompute starts from the state the generator had at
+    the forward call and leaves it as it found it, so it draws the same masks
+    (without a generator, the default generators' states are kept)."""
+    if not ((always or _RECOMPUTE.get()) and torch.is_grad_enabled()):
         return fn(*args)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             preserve_rng_state=False)
+    # the recompute runs in the forward's context (primitives.plain_reference,
+    # stage_check, recomputing): the backward may run on another thread (the
+    # card's autograd thread), which starts without it
+    context = contextvars.copy_context()
+    if always:
+        context.run(_RECOMPUTE.set, False)
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*a):
+        later = None
+        if calls and generator is not None:  # the recompute: the forward's masks
+            later = generator.get_state()
+            generator.set_state(start)
+        calls.append(1)
+        try:
+            return context.run(fn, *a)
+        finally:
+            if later is not None:
+                generator.set_state(later)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             preserve_rng_state=always and generator is None)

@@ -34,6 +34,15 @@ Each comes in two forms with one signature: ``CUDA`` launches the kernel
 set, so the plain chain is the kernel chain's reference operation by
 operation.
 
+The CUDA set writes into buffers of its own through ``ctypes``, so
+autograd records nothing through it: every CUDA primitive, like every
+kernel wrapper, raises on a tensor that autograd records through
+(:func:`check_no_grad`) rather than return an output without a
+``grad_fn``. Training goes through a kernel's :class:`RecomputedVJP`
+(the kernel forward, autograd over the plain version recomputed in the
+backward), and a model's op-by-op pieces take the plain set there
+(:func:`ops_for`).
+
 Numerics follow the JAX kernels: matmuls accumulate in fp32, the bias and
 the activation apply in fp32, the result rounds to the model dtype, and a
 residual adds in the model dtype (the MLP kernel's fc2 alone adds it in fp32,
@@ -207,6 +216,7 @@ def gemm_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, act: Optional[st
     the bf16 path refuses them.
     ``gemm_cuda.launches_bf16`` and ``gemm_cuda.launches_f32`` count the
     launches of the two kernels."""
+    check_no_grad("gemm", x, w, b, residual)
     dt = _check("gemm", x, w, b, residual)
     K = x.shape[-1]
     N = w.shape[0]
@@ -256,6 +266,7 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor, heads: int, scale: float,
     :func:`schedules.attention_f32_emulated`. ``attention_cuda.launches_bf16``
     and ``attention_cuda.launches_f32`` count the launches of the two paths
     (``flash_attention_cuda``'s included)."""
+    check_no_grad("attention", q, k, v, col_bias)
     dt = _check("attention", q, k, v, col_bias)
     B, Sq, W = q.shape
     Sk = k.shape[1]
@@ -321,6 +332,7 @@ def layer_norm_cuda(x: Tensor, w: Tensor, b: Tensor, eps: float,
     :func:`schedules.layer_norm_plan` says). ``layer_norm_cuda.launches`` and
     ``layer_norm_cuda.launches_q8`` count the launches of the model-dtype and
     the int8 outputs."""
+    check_no_grad("layer_norm", x, w, b, residual)
     dt = _check("layer_norm", x, w, b, residual)
     W = x.shape[-1]
     if W > 4096 or not x.is_contiguous():
@@ -369,6 +381,7 @@ def gemm_i8_cuda(a8: Tensor, w8: Tensor, col_scale: Optional[Tensor] = None,
     """:func:`gemm_i8_plain` on the tensor cores (``csrc/gemm_i8.cu``, cut as
     :func:`schedules.gemm_i8_plan` says). ``gemm_i8_cuda.launches`` counts the
     kernel's launches."""
+    check_no_grad("gemm_i8", col_scale, bias, row_scale, residual)
     _check_i8("gemm_i8 a8", a8)
     _check_i8("gemm_i8 w8", w8)
     for t in (w8, col_scale, bias, row_scale, residual):
@@ -421,6 +434,7 @@ def quantize_static_cuda(x: Tensor, act_scale: float) -> Tensor:
     """:func:`quant.quantize_static` as a kernel (``csrc/quantize.cu``, cut as
     :func:`schedules.quantize_static_plan` says). ``quantize_static_cuda.
     launches`` counts the kernel's launches."""
+    check_no_grad("quantize_static", x)
     dt = _check("quantize_static", x)
     if not x.is_contiguous():
         raise ValueError("quantize_static: contiguous input")
@@ -440,6 +454,7 @@ def quantize_rows_cuda(x: Tensor):
     row, read as :func:`schedules.quantize_rows_plan` says): (codes like x,
     scales x.shape[:-1]). ``quantize_rows_cuda.launches`` counts the kernel's
     launches."""
+    check_no_grad("quantize_rows", x)
     dt = _check("quantize_rows", x)
     W = x.shape[-1]
     if not x.is_contiguous() or not 1 <= W <= schedules.QUANT_MAX_W:
@@ -544,18 +559,84 @@ def plain_reference() -> Iterator[None]:
         _PLAIN_REFERENCE.reset(token)
 
 
-def ops_for(x: Tensor):
-    """The primitive set for a model's op-by-op pieces: :func:`for_device`, or
-    the plain set inside :func:`plain_reference`."""
-    return PLAIN if _PLAIN_REFERENCE.get() else for_device(x)
+def in_plain_reference() -> bool:
+    return _PLAIN_REFERENCE.get()
+
+
+def records(*tensors: Optional[Tensor]) -> bool:
+    """Whether autograd records through any of ``tensors``: grad is on and
+    one of them requires it."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def ops_for(x: Tensor, *grad_inputs: Optional[Tensor]):
+    """The primitive set for a model's op-by-op pieces: :func:`for_device`,
+    or the plain set inside :func:`plain_reference` and where autograd
+    records through ``x`` or ``grad_inputs`` (the CUDA set refuses those: it
+    writes into buffers of its own through ``ctypes``, which autograd does
+    not see)."""
+    return PLAIN if in_plain_reference() or records(x, *grad_inputs) else for_device(x)
 
 
 def kernel_or_reference(kernel: Callable, plain: Callable) -> Callable:
     """What a model module calls: the kernel wrapper (which routes by device
     alone), or the plain version inside :func:`plain_reference`."""
-    return plain if _PLAIN_REFERENCE.get() else kernel
+    return plain if in_plain_reference() else kernel
+
+
+def dispatch(function, *tensors: Optional[Tensor], **kw):
+    """What a model module calls for a kernel that has a gradient: its
+    :class:`RecomputedVJP` ``function`` (which, where autograd does not
+    record, only runs the wrapper), or its plain version inside
+    :func:`plain_reference`."""
+    if in_plain_reference():
+        return function.plain(*tensors, **kw)
+    return function.call(*tensors, **kw)
 
 
 def check_no_grad(name: str, *tensors: Optional[Tensor]) -> None:
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} is inference-only; call it under torch.no_grad()")
+    """Every kernel wrapper and CUDA primitive refuses a tensor that autograd
+    records through: its output would have no ``grad_fn``, and a model
+    trained through it would train nothing. A kernel with a gradient is
+    called through its :class:`RecomputedVJP`, whose forward runs with grad
+    off."""
+    if records(*tensors):
+        raise RuntimeError(f"{name} is inference-only; call it under torch.no_grad() or "
+                           "through its autograd Function")
+
+
+class RecomputedVJP(torch.autograd.Function):
+    """The base of the kernels' autograd Functions: ``Sub.call(*tensors,
+    **kw)`` takes the wrapper's arguments. The forward is the wrapper
+    (``Sub.kernel``: the kernel on the card, its plain version on the CPU)
+    and keeps only its input tensors for the backward; the backward runs
+    ``Sub.plain`` on them again under autograd, as the JAX package's custom
+    VJPs run ``jax.vjp`` over their XLA composition. It returns a gradient
+    for every tensor that needs one and None for the rest (a None bias). No
+    backward kernel exists in either package; the recompute's products are
+    the library's (``torch.matmul``)."""
+
+    kernel: Callable
+    plain: Callable
+
+    @classmethod
+    def call(cls, *tensors: Optional[Tensor], **kw) -> Tensor:
+        return cls.apply(cls, kw, *tensors)
+
+    @staticmethod
+    def forward(ctx, cls, kw, *tensors):
+        ctx.plain, ctx.kw = cls.plain, kw
+        ctx.save_for_backward(*tensors)
+        return cls.kernel(*tensors, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [t if t is None else t.detach().requires_grad_(need)
+                   for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*ins, **ctx.kw)
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, grad) if wrt else ())
+        return (None, None, *(next(grads) if t is not None and t.requires_grad else None
+                              for t in ins))

@@ -16,10 +16,11 @@ gallery size, with 64-bit offsets; there is no size threshold and no
 fallback. A NaN anywhere in ``feats[b]`` or ``targets[n]`` gives a NaN
 score, as ``amax`` does.
 
-Training needs its gradient: :class:`TokenMaxSim` runs the same kernel
-forward (counted as any launch of the wrapper) and, as the JAX package's
-custom VJPs do (``pallas_block.py:626-631``), differentiates the plain
-version recomputed in its backward. ``amax`` splits the gradient evenly
+Training needs its gradient: :class:`TokenMaxSim` (a
+``primitives.RecomputedVJP``, as the ViT kernels' Functions) runs the same
+kernel forward (counted as any launch of the wrapper) and, as the JAX
+package's custom VJPs do (``pallas_block.py:626-631``), differentiates the
+plain version recomputed in its backward. ``amax`` splits the gradient evenly
 over tied tokens, as ``jnp.max``'s VJP does; no backward kernel exists.
 """
 
@@ -78,19 +79,11 @@ def token_max_sim(feats: Tensor, targets: Tensor) -> Tensor:
 token_max_sim.launches = 0
 
 
-class TokenMaxSim(torch.autograd.Function):
+class TokenMaxSim(primitives.RecomputedVJP):
     """:func:`token_max_sim` with a gradient: the kernel forward (the wrapper,
     which on CPU tensors runs the plain version), autograd over
-    :func:`token_max_sim_plain` recomputed in the backward."""
+    :func:`token_max_sim_plain` recomputed in the backward;
+    ``TokenMaxSim.call(feats, targets)``."""
 
-    @staticmethod
-    def forward(ctx, feats: Tensor, targets: Tensor) -> Tensor:
-        ctx.save_for_backward(feats, targets)
-        return token_max_sim(feats, targets)
-
-    @staticmethod
-    def backward(ctx, grad: Tensor):
-        feats, targets = ctx.saved_tensors
-        with torch.enable_grad():
-            f, t = feats.detach().requires_grad_(), targets.detach().requires_grad_()
-            return torch.autograd.grad(token_max_sim_plain(f, t), (f, t), grad)
+    kernel = token_max_sim
+    plain = token_max_sim_plain

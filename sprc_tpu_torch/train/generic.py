@@ -19,11 +19,13 @@ What the JAX run does and the port keeps:
   last partial batch is dropped;
 - ``run.weight_decay`` (0.05 by default) is AdamW's;
 - the frozen partition is the model's ``FROZEN_PREFIXES``, which
-  ``Blip2Stage1`` does not have: its tower, cut off from the losses by a
-  stop-gradient only, stays in AdamW's partition with zero gradients, so
-  every update decays it by ``lr x weight_decay``
+  ``Blip2Stage1`` does not have: a frozen tower (``pretrain``), cut off
+  from the losses by a stop-gradient only, stays in AdamW's partition with
+  zero gradients, so every update decays it by ``lr x weight_decay``
   (``Trainer(decay_frozen=True)``, with fp32 masters for a bf16 tower);
-  LAVIS takes a frozen tower out of the optimizer instead (ROADMAP Queue C);
+  LAVIS takes a frozen tower out of the optimizer instead (ROADMAP Queue C).
+  A ``coco`` model type (``freeze_vit: false``) trains its tower: every
+  tower tensor gets its gradient and AdamW moments, as in the JAX run;
 - ``run.skip_nonfinite`` (on by default) and the consecutive-skip abort.
 
 Adapters: ``image_text_pretrain`` (:class:`PretrainAdapter`) and
@@ -31,8 +33,7 @@ Adapters: ``image_text_pretrain`` (:class:`PretrainAdapter`) and
 which in the port are BLIP-2 stage 1 (``blip2``,
 ``blip2_feature_extractor``, ``blip2_image_text_matching``). The other
 task names of the JAX table refuse by name: their families come with
-ROADMAP A8. A ``coco`` model type (``freeze_vit: false``) is refused too:
-training the tower is the next slice (ROADMAP A3b).
+ROADMAP A8.
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -153,9 +154,6 @@ def run_generic(cfg, args) -> Dict[str, float]:
     model_type = model_cfg.pop("model_type", "pretrain")
     if arch not in loader.STAGE1_MODELS:
         raise SystemExit(f"model {arch!r}: not ported for generic training (ROADMAP A8)")
-    if (arch, model_type) in loader.UNFROZEN_VIT and model_cfg.get("freeze_vit") is not True:
-        raise SystemExit(f"({arch}, {model_type}) trains its tower (freeze_vit: false): "
-                         + loader.UNFROZEN_MESSAGE)
     if isinstance(run.get("tokenizer"), dict):
         raise SystemExit("run.tokenizer: the LLM tokenizers come with the LLM families "
                          "(ROADMAP A8)")
@@ -187,7 +185,7 @@ def run_generic(cfg, args) -> Dict[str, float]:
         weight_decay=float(run.get("weight_decay", 0.05)),
         total_steps=int(run.get("total_steps", run.get(
             "max_iters", max_epochs * task.steps_per_epoch()))))
-    # the stage-1 models have no FROZEN_PREFIXES: the frozen tower decays
+    # the stage-1 models have no FROZEN_PREFIXES: a frozen tower decays
     trainer = GenericTrainer(model, tcfg, seed=seed,
                              skip_nonfinite=bool(run.get("skip_nonfinite", True)),
                              decay_frozen=True)

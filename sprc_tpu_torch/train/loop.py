@@ -20,6 +20,11 @@ package has it:
   (``tests/test_torch_variants_eval.py``).
 - loss = loss_itc + 0.4 loss_rtc + 0.4 loss_align, every other loss a
   variant returns (``loss_itm``, ``loss_p2p``) at weight 1, as in JAX.
+- ``TrainConfig.layer_decay``: per-layer learning-rate scales for a
+  trainable tower, as the JAX package's ``layer_decay_scales`` (LAVIS'
+  ``lr_layer_decay``; :func:`layer_decay_scales`), applied to the whole
+  update, the Adam step and the decay step alike. No CLI sets it, in either
+  package.
 - Gradient accumulation as ``optax.MultiSteps``: the running mean of k
   micro-step gradients, then one update; :attr:`Trainer.step` counts
   micro-steps, :attr:`Trainer.updates` the updates.
@@ -30,16 +35,19 @@ package has it:
 - Dropout masks come from the trainer's own device ``torch.Generator``
   (seeded), which the JAX package threads as ``state.rng``.
 
-On the card the step launches kernel K2's chain in the frozen tower (live
-steps) and K1 in the in-batch losses; the Q-Former runs unfused in
+On the card the step launches kernel K2's chain in the tower (live steps;
+with a trainable tower through ``FusedViTBlock``, whose backward recomputes
+the plain block) and K1 in the in-batch losses; the Q-Former runs unfused in
 training mode (``torch.matmul``), as the JAX package runs it, except in the
 variants' no-grad passes (the rerank twin, ``blip2_cir_cls``'s caption
-picks), which launch K3.
+picks), which launch K3; and, unfrozen, the tower's backward runs the
+plain blocks recomputed (``torch.matmul``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -61,9 +69,31 @@ class TrainConfig:
     total_steps: int = 10000
     grad_accum_steps: int = 1
     weight_decay: float = WEIGHT_DECAY  # a run config's run.weight_decay (train/generic.py)
+    # per-layer learning-rate decay of a trainable tower; None: one rate
+    layer_decay: Optional[float] = None
 
     def weights(self) -> Dict[str, float]:
         return self.loss_weights or {"loss_rtc": 0.4, "loss_align": 0.4}
+
+
+_BLOCK = re.compile(r"^visual_encoder\.(?:blocks|transformer\.resblocks)\.(\d+)\.")
+
+
+def layer_decay_scales(names: List[str], depth: int, lr_scale: float) -> List[float]:
+    """Learning-rate scales of the named tensors (the JAX package's
+    ``layer_decay_scales``, from the reference's get_optimizer_params,
+    blip2.py:105-148): block i of the tower's ``depth`` (from 0) gets
+    ``lr_scale ** (depth - i)``, the tower's other tensors (patch embedding,
+    class token, positions, ``ln_pre``) the layer-0 scale
+    ``lr_scale ** (depth + 1)``, and every tensor outside the tower 1."""
+    scales = []
+    for name in names:
+        block = _BLOCK.match(name)
+        if block:
+            scales.append(lr_scale ** (depth - int(block.group(1))))
+        else:
+            scales.append(lr_scale ** (depth + 1) if name.startswith("visual_encoder.") else 1.0)
+    return scales
 
 
 class Trainer:
@@ -98,7 +128,15 @@ class Trainer:
                         for p in self.decayed]
         self.schedule = onecycle_schedule(cfg.learning_rate, cfg.total_steps,
                                           pct_start=PCT_START)
-        self.optimizer = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=BETAS,
+        groups = [{"params": self.params, "lr_scale": 1.0}]
+        self.decayed_scales = [1.0] * len(self.decayed)
+        if cfg.layer_decay is not None:
+            depth = model.visual_encoder.cfg.depth
+            scales = layer_decay_scales(self.names, depth, cfg.layer_decay)
+            self.decayed_scales = layer_decay_scales(self.decayed_names, depth, cfg.layer_decay)
+            groups = [{"params": [p for p, s in zip(self.params, scales) if s == scale],
+                       "lr_scale": scale} for scale in dict.fromkeys(scales)]
+        self.optimizer = torch.optim.AdamW(groups, lr=self.schedule(0), betas=BETAS,
                                            eps=EPS, weight_decay=cfg.weight_decay)
         self.generator = torch.Generator(device=self.params[0].device).manual_seed(seed)
         self.step = 0  # micro-steps taken
@@ -172,11 +210,11 @@ class Trainer:
             p.grad = g
         lr = self.schedule(self.updates)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
         self.optimizer.step()
         with torch.no_grad():
-            for master, p in zip(self.masters, self.decayed):
-                master.mul_(1.0 - lr * self.cfg.weight_decay)
+            for master, p, scale in zip(self.masters, self.decayed, self.decayed_scales):
+                master.mul_(1.0 - lr * scale * self.cfg.weight_decay)
                 if master is not p:
                     p.copy_(master)
         for p in self.params:

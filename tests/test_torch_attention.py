@@ -22,6 +22,7 @@ from sprc_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 
 from sprc_tpu_torch.ops import primitives  # noqa: E402
 from sprc_tpu_torch.ops.attention import dot_product_attention, flash_attention  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 2e-5
 

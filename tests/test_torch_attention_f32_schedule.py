@@ -37,6 +37,7 @@ from sprc_tpu.ops.pallas_qformer import _attend_bias  # noqa: E402
 
 from sprc_tpu_torch import kernel_checks  # noqa: E402
 from sprc_tpu_torch.ops import primitives, schedules  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 B, H = 2, 2
 # ragged (Sq, Sk): one row and one key, a last chunk of 1, 31 and 32 keys, a

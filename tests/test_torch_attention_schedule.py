@@ -27,6 +27,7 @@ from sprc_tpu.ops import pallas_block  # noqa: E402
 from sprc_tpu.ops.pallas_attention import flash_attention as jax_flash_attention  # noqa: E402
 
 from sprc_tpu_torch.ops import primitives, schedules  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 SHAPES = [(1, 1), (1, 257), (257, 1), (31, 32), (32, 31), (32, 257), (257, 32), (257, 31)]
 B, H = 2, 2

@@ -14,6 +14,7 @@ from sprc_tpu_torch.data.datasets import CIRRDataset
 from sprc_tpu_torch.data.transforms import targetpad_transform
 
 from test_data import cirr_root  # noqa: F401  (fixture)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 @pytest.mark.parametrize("split,mode", [("val", "classic"), ("val", "relative"),

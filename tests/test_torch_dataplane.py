@@ -27,6 +27,7 @@ import pytest
 from sprc_tpu_torch.data import native
 from sprc_tpu_torch.native import build as port_build
 from sprc_tpu_torch.utils.artifacts import encode_png
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures" / "dataplane"

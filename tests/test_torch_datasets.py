@@ -17,6 +17,7 @@ from sprc_tpu_torch.cli.validate import circo_queries, fiq_queries, index_batche
 from sprc_tpu_torch.data.datasets import CIRCODataset, FashionIQDataset
 from sprc_tpu_torch.data.transforms import squarepad_transform
 from sprc_tpu_torch.text import processors as pproc
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def _same(a, b):

@@ -20,6 +20,7 @@ from jax._src.image.scale import _fill_keys_cubic_kernel, compute_weight_mat  # 
 from sprc_tpu.data.transforms import device_preprocess as jax_device_preprocess  # noqa: E402
 
 from sprc_tpu_torch.data.transforms import device_preprocess, resample_weights  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-5
 BUFFER = (320, 320)

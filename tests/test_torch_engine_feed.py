@@ -29,6 +29,7 @@ from sprc_tpu_torch.retrieval.engine import RetrievalEngine, _prefetch_iter  # n
 from sprc_tpu_torch.utils.artifacts import synthetic_raw_batches  # noqa: E402
 
 from test_torch_model import IMG, jax_model, jax_params, port_model  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-4
 N, BATCH, BUFFER = 11, 4, 48  # 3 batches, the last one short

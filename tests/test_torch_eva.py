@@ -31,6 +31,7 @@ from sprc_tpu_torch.models.vit import ClipViT, EvaViT, ViTConfig, build_tower  #
 from sprc_tpu_torch.ops import quant  # noqa: E402
 
 from test_torch_vit_int8 import _close  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 B, S, W = 2, 5, 176
 KW = dict(image_size=28, patch_size=14, width=W, depth=2, num_heads=2, mlp_hidden=256,

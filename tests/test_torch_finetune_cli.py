@@ -33,6 +33,7 @@ import sprc_tpu_torch.cli.finetune as pcli  # noqa: E402
 import sprc_tpu_torch.loader as port_loader  # noqa: E402
 from sprc_tpu_torch.cli.validate import parse_model_overrides  # noqa: E402
 from sprc_tpu_torch.loader import load_model  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-4
 OVERRIDES = [
@@ -191,14 +192,14 @@ def test_flags_are_the_jax_clis_without_mesh_and_remat():
         return {a.dest: a.default for a in parser._actions if a.dest != "help"}
 
     jax_flags, port_flags = flags(jcli.make_parser()), flags(pcli.make_parser())
-    assert set(jax_flags) - set(port_flags) == {"mesh", "remat"}
+    assert set(jax_flags) - set(port_flags) == {"mesh"}  # --remat came with the unfrozen tower
     assert set(port_flags) - set(jax_flags) == {"device"}
     assert all(port_flags[k] == v for k, v in jax_flags.items() if k in port_flags)
     assert port_flags["device"] == "cuda"
     parser = pcli.make_parser()
-    for flag in ("--mesh", "--remat"):
-        with pytest.raises(SystemExit):
-            parser.parse_args(["--dataset", "CIRR", "--data-path", "x", flag])
+    with pytest.raises(SystemExit):
+        parser.parse_args(["--dataset", "CIRR", "--data-path", "x", "--mesh"])
+    assert parser.parse_args(["--dataset", "CIRR", "--data-path", "x", "--remat"]).remat
     if torch.cuda.is_available():
         return
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -26,11 +26,13 @@ from sprc_tpu_torch.data import builders as _builders  # noqa: E402,F401  (regis
 from sprc_tpu_torch.data import processors  # noqa: E402
 from sprc_tpu_torch.registry import registry  # noqa: E402
 from sprc_tpu_torch.utils import preempt  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the run configs this slice reads
 RUN_CONFIGS = ("pretrain_stage1.yaml", "cirr_finetune.yaml", "fiq_finetune.yaml",
-               "eval/ret_coco_blip2_eval.yaml", "eval/ret_flickr_blip2_eval.yaml")
+               "eval/ret_coco_blip2_eval.yaml", "eval/ret_flickr_blip2_eval.yaml",
+               "retrieval_coco_blip2_ft.yaml")
 OVERRIDES = ["run.learning_rate=2e-5", "run.k_test=16", "model.image_size=364",
              "datasets.x.build_info.images=/d", "run.flag=true", "run.name=none"]
 
@@ -70,7 +72,8 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
     import chip_smoke
 
     assert set(chip_smoke.RUN_CONFIGS) == {"eval/ret_coco_blip2_eval.yaml",
-                                           "pretrain_stage1.yaml"}
+                                           "pretrain_stage1.yaml",
+                                           "retrieval_coco_blip2_ft.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sprc_tpu_torch.ops import primitives, schedules
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 # the Q-Former's fp32 products (K3) and an fp32 tower's fc2: (M, N, K) ->
 # (block tile, waves of 132 SMs)

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from sprc_tpu_torch.ops import primitives, schedules
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 VIT_M, Q_M = 64 * 257, 32 * 64
 # the main path's products: name -> (M, N, K, output, activation, tile width)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from sprc_tpu_torch.ops import primitives, schedules
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 VIT_M = 64 * 257  # one encode batch
 TOWER_PRODUCTS = {  # name -> (M, N, K, activation, tile width the plan must choose)

@@ -44,6 +44,7 @@ from sprc_tpu_torch.interop.jax_params import state_dict_from_jax  # noqa: E402
 from sprc_tpu_torch.train import generic, runner  # noqa: E402
 from test_torch_stage1 import jax_params  # noqa: E402
 from test_torch_train_losses import EMBED, IMG, Q, QF, TXT, VIT  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 30523
@@ -265,9 +266,9 @@ def test_iter_runner_step_count_equals_jax(tmp_path, monkeypatch):
 def test_cli_train_routes_as_jax(data, tmp_path, monkeypatch, caplog):
     """A CIR run config (configs/runs/cirr_finetune.yaml) starts the fine-tune
     that the equivalent cli/finetune.py flags start, with the JAX CLI's
-    translation; a key the port's finetune has no flag for warns and is not
-    applied; the generic route trains configs/runs/pretrain_stage1.yaml on
-    the tiny model."""
+    translation (``run.remat`` as ``--remat``); a key the port's finetune has
+    no flag for (``run.mesh``) warns and is not applied; the generic route
+    trains configs/runs/pretrain_stage1.yaml on the tiny model."""
     from sprc_tpu.cli import finetune as jfinetune
     from sprc_tpu.cli import train as jtrain
 
@@ -278,19 +279,20 @@ def test_cli_train_routes_as_jax(data, tmp_path, monkeypatch, caplog):
     monkeypatch.setattr(finetune, "finetune", lambda ft: seen.setdefault("port", ft))
     argv = ["--cfg-path", os.path.join(ROOT, "configs", "runs", "cirr_finetune.yaml"),
             "--data-path", "/data/cirr", "--vocab-path", data["vocab"], "--output-dir",
-            str(tmp_path / "cir"), "--options", "run.remat=true", "run.learning_rate=2e-5"]
+            str(tmp_path / "cir"), "--options", "run.remat=true", "run.learning_rate=2e-5",
+            "run.mesh=1x1"]
     jtrain.main(argv)
     with caplog.at_level("WARNING"):
         train.main(argv)
-    assert any("run.remat is not a finetune flag" in r.getMessage() for r in caplog.records)
+    assert any("run.mesh is not a finetune flag" in r.getMessage() for r in caplog.records)
     want = finetune.make_parser().parse_args(
         ["--dataset", "CIRR", "--data-path", "/data/cirr", "--vocab-path", data["vocab"],
          "--output-dir", str(tmp_path / "cir"), "--batch-size", "128", "--num-epochs", "50",
          "--schedule-epochs", "80", "--learning-rate", "2e-5", "--loss-rtc", "0.4",
          "--loss-align", "0.4", "--target-ratio", "1.25", "--selection-metric",
-         "arithmetic_mean"])
+         "arithmetic_mean", "--remat"])
     got = vars(seen["port"])
-    assert got == vars(want) and not hasattr(seen["port"], "remat")
+    assert got == vars(want) and got["remat"] is True and not hasattr(seen["port"], "mesh")
     port_only = {"device"}  # the port's flag beyond the JAX CLI's
     assert {k: v for k, v in vars(seen["jax"]).items() if k in got} == {
         k: v for k, v in got.items() if k not in port_only}

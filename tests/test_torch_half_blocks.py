@@ -26,6 +26,7 @@ from sprc_tpu.ops.pallas_mlp import fused_mlp_block as jax_fused_mlp_block  # no
 
 from sprc_tpu_torch.ops import primitives  # noqa: E402
 from sprc_tpu_torch.ops.fused_block import fused_attn_block, fused_mlp_block  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def _port(arrays, dtype=torch.float32):

@@ -13,6 +13,7 @@ from sprc_tpu.utils.artifacts import write_synthetic_bert_vocab as jax_write_voc
 from sprc_tpu_torch.data.transforms import targetpad_transform
 from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
 from sprc_tpu_torch.utils.artifacts import ensure_bert_vocab, write_synthetic_bert_vocab
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 CAPTIONS = ["Is red and has long sleeves", "no dog!", "Café-au-lait coloured, 3 buttons",
             "", "x" * 120, "[CLS] literal specials [SEP]"]

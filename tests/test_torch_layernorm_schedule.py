@@ -26,6 +26,7 @@ from sprc_tpu.ops import pallas_block, pallas_qformer  # noqa: E402
 
 from sprc_tpu_torch import kernel_checks  # noqa: E402
 from sprc_tpu_torch.ops import primitives, schedules  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 WIDTHS = [768, 1000, 1024, 1408, 77]  # the main path's widths, a generic one, a ragged one
 

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from sprc_tpu_torch.cli.validate import index_batches
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 class _Items:

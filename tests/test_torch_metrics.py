@@ -11,6 +11,7 @@ import pytest
 from sprc_tpu.retrieval import metrics as jm
 
 from sprc_tpu_torch.retrieval import metrics as pm
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 N, B = 60, 24
 NAMES = [f"img{i:03d}" for i in range(N)]

@@ -26,6 +26,7 @@ from sprc_tpu_torch.interop.jax_params import state_dict_from_jax  # noqa: E402
 from sprc_tpu_torch.loader import build_model, model_config  # noqa: E402
 from sprc_tpu_torch.models.qformer import QFormerConfig  # noqa: E402
 from sprc_tpu_torch.models.vit import ViTConfig  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 IMG, Q, TXT, VOCAB, EMBED, B = 28, 4, 8, 60, 64, 3
 ATOL = 1e-4

@@ -9,6 +9,7 @@ them); importing builds no kernel and no data-plane library.
 import subprocess
 import sys
 from pathlib import Path
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -36,6 +37,14 @@ assert {"sprc_tpu_torch.config", "sprc_tpu_torch.registry", "sprc_tpu_torch.data
 from sprc_tpu_torch.registry import registry
 assert {"blip2", "blip2_feature_extractor", "blip2_image_text_matching"} <= set(registry.list("model"))
 assert "coco_retrieval" in registry.list("dataset") and "blip_image_eval" in registry.list("processor")
+# the trainable tower: the kernels' autograd Functions and what routes to them
+from sprc_tpu_torch.ops import attention, fused_block, layers, primitives
+for fn in (fused_block.FusedViTBlock, fused_block.FusedAttnBlock, fused_block.FusedMlpBlock,
+           attention.FlashAttention):
+    assert issubclass(fn, primitives.RecomputedVJP)
+assert callable(primitives.dispatch) and callable(layers.recompute)
+from sprc_tpu_torch.train import loop
+assert callable(loop.layer_decay_scales)
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
@@ -53,6 +62,10 @@ from sprc_tpu_torch.cli import evaluate, train
 from sprc_tpu_torch.config import Config
 cfg = Config(defaults=chip_smoke.RUN_CONFIGS["pretrain_stage1.yaml"])
 assert cfg.run["batch_size"] == 100 and cfg.model["arch"] == "blip2"
+cfg = Config(defaults=chip_smoke.RUN_CONFIGS["retrieval_coco_blip2_ft.yaml"])
+assert cfg.run["batch_size"] == 32 and cfg.model["model_type"] == "coco"
+from sprc_tpu_torch import loader
+assert loader.model_config("blip2", "coco").freeze_vit is False
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -26,6 +26,7 @@ from sprc_tpu.models.qformer import make_additive_mask as jmask  # noqa: E402
 from sprc_tpu_torch.interop.jax_params import qformer_layer_from_jax, to_torch  # noqa: E402
 from sprc_tpu_torch.models.qformer import (  # noqa: E402
     QFormerConfig, QFormerLayer, make_additive_mask)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 B, Q, L, SI, W = 3, 4, 8, 5, 128
 KW = dict(vocab_size=60, hidden_size=W, num_layers=2, num_heads=2, intermediate_size=256,

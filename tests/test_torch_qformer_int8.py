@@ -39,6 +39,7 @@ from sprc_tpu_torch.models.qformer import (  # noqa: E402
 from test_torch_qformer import (  # noqa: E402,F401  (fixtures)
     CFG, JCFG, Q, SHAPES, _jrun, _layer_case, data, layer_params)
 from test_torch_qformer_trunk import _trunk_kwargs  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 CFG8 = dataclasses.replace(CFG, int8=True)
 BOUND = (2e-3, 5e-5)  # (max-abs, mean-abs)

@@ -25,6 +25,7 @@ from sprc_tpu_torch.interop.jax_params import qformer_from_jax, to_torch  # noqa
 from sprc_tpu_torch.models.qformer import QFormer  # noqa: E402
 
 from test_torch_qformer import CFG, JCFG, SHAPES, _jrun, data  # noqa: E402,F401  (fixture)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,7 @@ from sprc_tpu_torch.loader import load_model  # noqa: E402
 from sprc_tpu_torch.models.qformer import QFormerConfig  # noqa: E402
 from sprc_tpu_torch.models.vit import ClipViT, ViTConfig  # noqa: E402
 from sprc_tpu_torch.ops import primitives, quant  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 R, K, N = 37, 128, 96  # ragged row count; K a multiple of 16 as the kernel wants
 RTOL = 1e-6

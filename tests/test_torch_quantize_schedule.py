@@ -28,6 +28,7 @@ from sprc_tpu_torch.models.qformer import QFormer, QFormerConfig, _ffn_params  #
 from sprc_tpu_torch.ops import primitives, quant, schedules  # noqa: E402
 from sprc_tpu_torch.ops.fused_qformer import (  # noqa: E402
     fused_qformer_layer, fused_qformer_layer_plain)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 WIDTHS = (1, 7, 13, 768, 1000, 1024, 1408, 3072, 4096)
 # a 12-layer int8 Q-Former, narrow: cross-attention on the six even layers

@@ -36,6 +36,7 @@ from sprc_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer, rerank_rankings  # noqa: E402
 
 from test_torch_model import EMBED, IMG, Q, TXT, VOCAB, inputs  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-4
 FLAGS = ["0", "force"]

@@ -48,6 +48,7 @@ from test_torch_model import IMG, inputs, jax_model, jax_params, port_model  # n
 from test_torch_rerank import jax_variant, jax_variant_params, port_variant  # noqa: E402
 from test_torch_serve import TOKENS  # noqa: E402
 from test_torch_serve_cli import _post  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-4
 RERANK_FLAGS = ["--rerank-top", "3", "--rerank-step", "2"]

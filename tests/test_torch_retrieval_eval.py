@@ -30,6 +30,7 @@ from sprc_tpu_torch.interop.jax_params import state_dict_from_jax  # noqa: E402
 from sprc_tpu_torch.retrieval import sim_matrix  # noqa: E402
 from test_torch_stage1 import jax_model, jax_params, port_model  # noqa: E402
 from test_torch_train_losses import EMBED, IMG, Q, QF, TXT, VIT, VOCAB  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-5
 N_IMG, N_TXT = 7, 11

@@ -24,6 +24,7 @@ from sprc_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from sprc_tpu_torch.ops import primitives  # noqa: E402
 
 from test_torch_eva import ATOL, B, KW, _jax_tower, _port_tower  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ROUTES = {"block": dict(), "attn": dict(fused_block="attn"),
           "attn+mlp": dict(fused_block="attn", fused_mlp=True),

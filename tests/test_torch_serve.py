@@ -29,6 +29,7 @@ from sprc_tpu_torch.retrieval.engine import RetrievalEngine  # noqa: E402
 from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer  # noqa: E402
 
 from test_torch_model import IMG, jax_model, jax_params, port_model  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 TOKENS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "red", "dress", "long"]
 NAMES = [f"g{i}" for i in range(7)]  # odd size: the last encode batch pads

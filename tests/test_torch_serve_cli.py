@@ -33,6 +33,7 @@ from sprc_tpu_torch.interop.jax_params import state_dict_from_jax  # noqa: E402
 
 from test_torch_model import jax_model, jax_params, port_model  # noqa: E402
 from test_torch_serve import TOKENS  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 NAMES = [f"g{i}" for i in range(5)]
 

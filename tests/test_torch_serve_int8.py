@@ -45,6 +45,7 @@ from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer  # noqa: E402
 
 from test_torch_model import IMG, jax_model, jax_params, port_model  # noqa: E402
 from test_torch_serve import K, PAIRS, TOKENS, _batches  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 2e-3
 

@@ -23,6 +23,7 @@ from sprc_tpu.ops.sim_kernels import _xla_token_max_sim  # noqa: E402
 from sprc_tpu_torch.ops import primitives, schedules, sim_kernels  # noqa: E402
 from sprc_tpu_torch.ops.sim_kernels import token_max_sim, token_max_sim_plain  # noqa: E402
 from sprc_tpu_torch.retrieval.engine import GalleryIndex, RetrievalEngine  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 E, Q = 128, 4
 

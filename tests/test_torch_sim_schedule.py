@@ -28,6 +28,7 @@ from sprc_tpu.ops.pallas_sim import token_max_sim_pallas  # noqa: E402
 from sprc_tpu.ops.sim_kernels import _xla_token_max_sim  # noqa: E402
 
 from sprc_tpu_torch.ops import schedules  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def _unit(x):

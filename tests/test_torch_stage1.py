@@ -39,6 +39,7 @@ from sprc_tpu_torch.models import qformer as port_qformer  # noqa: E402
 from sprc_tpu_torch.models.qformer import QFormer, QFormerConfig, make_unilm_mask  # noqa: E402
 from sprc_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from test_torch_train_losses import B, EMBED, IMG, Q, QF, TXT, VIT, VOCAB, W  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 LOSS_RTOL, GRAD_TOL, ATOL = 1e-5, 1e-4, 1e-5
 # The ITC-only gradients are sums with cancellation over 1 / temp ~ 14 times
@@ -207,8 +208,10 @@ def test_unilm_mask_and_decoder_pass_equal_jax(shared, monkeypatch):
 
 def test_model_configs_equal_the_yaml():
     """The stage-1 rows of ``loader.MODEL_CONFIGS`` against what
-    ``sprc_tpu.loader`` builds from configs/models/<name>/<type>.yaml, and
-    training a ``freeze_vit: false`` row refused by name."""
+    ``sprc_tpu.loader`` builds from configs/models/<name>/<type>.yaml
+    (``freeze_vit`` included: the ``coco`` rows train their tower); the
+    loader takes ``freeze_vit=False`` on any row and refuses it with an int8
+    tower."""
     from sprc_tpu.loader import build_model as jbuild
 
     from sprc_tpu_torch import loader
@@ -222,7 +225,7 @@ def test_model_configs_equal_the_yaml():
         jcfg = jbuild(name, model_type).cfg
         cfg = loader.model_config(name, model_type)
         for f in ("vit_model", "image_size", "num_query_token", "cross_attention_freq",
-                  "embed_dim", "max_txt_len", "vocab_size"):
+                  "embed_dim", "max_txt_len", "vocab_size", "freeze_vit"):
             assert getattr(cfg, f) == getattr(jcfg, f), (name, model_type, f)
         assert str(cfg.vit_dtype).split(".")[-1] == jnp.dtype(jcfg.vit_dtype).name
         assert str(cfg.qformer_dtype).split(".")[-1] == jnp.dtype(jcfg.qformer_dtype).name
@@ -231,5 +234,6 @@ def test_model_configs_equal_the_yaml():
         for f in ("image_size", "width", "depth", "num_heads", "mlp_hidden", "seq_len"):
             assert getattr(v, f) == getattr(jv, f), f
     assert loader.model_config("blip2", "coco").vit_config().seq_len == 677
-    with pytest.raises(ValueError, match="A3b"):
-        loader.model_config("blip2", "pretrain", freeze_vit=False)
+    assert loader.model_config("blip2", "pretrain", freeze_vit=False).freeze_vit is False
+    with pytest.raises(ValueError, match="freeze_vit=False with vit_quant"):
+        loader.model_config("blip2", "coco", vit_quant="int8")

@@ -14,6 +14,7 @@ import torch
 from sprc_tpu_torch import kernel_checks
 from sprc_tpu_torch.models.vit import ClipViT, ViTConfig
 from sprc_tpu_torch.ops import _ext, primitives
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def test_stage_recorder_units_and_bounds():

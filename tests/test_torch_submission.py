@@ -32,6 +32,7 @@ from test_torch_validate import STYLES, checkpoints  # noqa: E402,F401  (fixture
 
 import sprc_tpu_torch.cli.submission as pcli  # noqa: E402
 import sprc_tpu_torch.retrieval.submission as psub  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def _read(paths):

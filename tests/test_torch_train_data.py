@@ -35,6 +35,7 @@ from sprc_tpu_torch.data.transforms import targetpad_transform  # noqa: E402
 from sprc_tpu_torch.text.processors import randomize_fiq_captions  # noqa: E402
 from sprc_tpu_torch.train.feature_cache import FeatureCache, build_feature_cache  # noqa: E402
 from sprc_tpu_torch.utils.logging import MetricsLogger  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 class _Items:

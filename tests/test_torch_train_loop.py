@@ -29,6 +29,7 @@ from test_torch_train_losses import (B, jax_model, jax_params, make_batch,  # no
 from sprc_tpu_torch.ops.layers import dropout  # noqa: E402
 from sprc_tpu_torch.train.loop import TrainConfig, Trainer  # noqa: E402
 from sprc_tpu_torch.train.schedules import onecycle_schedule  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 PARAM_ATOL = 2e-7
 

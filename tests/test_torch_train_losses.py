@@ -42,6 +42,7 @@ from sprc_tpu_torch.models.qformer import QFormerConfig  # noqa: E402
 from sprc_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from sprc_tpu_torch.ops import sim_kernels  # noqa: E402
 from sprc_tpu_torch.train.loop import TrainConfig, Trainer  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 IMG, Q, TXT, VOCAB, EMBED, B, W = 28, 4, 8, 60, 64, 4, 128
 LOSS_RTOL, GRAD_TOL = 1e-5, 1e-4
@@ -219,8 +220,9 @@ def test_no_img_embeddings_and_prompt_feature_equal_jax(shared):
 def test_token_max_sim_gradient_equals_jax_vjp(ties, monkeypatch):
     """``TokenMaxSim`` against the VJP of ``_xla_token_max_sim``; with exact
     ties (item n's tokens 0 and 1 equal query n's feature) the gradient
-    splits evenly over them in both. Its forward is K1's wrapper, and the
-    model's scoring takes it exactly when a gradient is wanted."""
+    splits evenly over them in both. Its forward is K1's wrapper; the
+    model's scoring goes through it, and it records a graph exactly when a
+    gradient is wanted."""
     rng = np.random.RandomState(8)
     Bq, N, Qt, E = 6, 6, 4, 16
     f = rng.standard_normal((Bq, E)).astype(np.float32)
@@ -232,8 +234,8 @@ def test_token_max_sim_gradient_equals_jax_vjp(ties, monkeypatch):
     want_f, want_t = vjp(jnp.asarray(g))
 
     calls = []
-    wrapper = sim_kernels.token_max_sim
-    monkeypatch.setattr(sim_kernels, "token_max_sim",
+    wrapper = sim_kernels.TokenMaxSim.kernel
+    monkeypatch.setattr(sim_kernels.TokenMaxSim, "kernel",
                         lambda *a: calls.append(1) or wrapper(*a))
     from sprc_tpu_torch.models.cir_base import Blip2CirBase
 
@@ -248,9 +250,10 @@ def test_token_max_sim_gradient_equals_jax_vjp(ties, monkeypatch):
     if ties:
         assert np.array_equal(tt.grad[:, 0].numpy(), tt.grad[:, 1].numpy())
         assert np.abs(tt.grad[:, 0].numpy()).sum() > 0
-    with torch.no_grad():  # no gradient wanted: the wrapper itself
-        Blip2CirBase.token_max_sim(ft, tt)
-    assert len(calls) == 1
+    with torch.no_grad():  # no gradient wanted: the wrapper once, nothing recorded
+        again = Blip2CirBase.token_max_sim(ft, tt)
+    assert len(calls) == 2 and again.grad_fn is None
+    assert torch.equal(again, got.detach())
 
 
 def test_recompute_keeps_the_step_bit_for_bit(shared):

@@ -27,6 +27,7 @@ from test_golden_rehearsal import VOCAB, _wrap  # noqa: E402
 
 import sprc_tpu_torch.cli.validate as pcli  # noqa: E402
 import sprc_tpu_torch.retrieval.engine as pengine  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 COMMON = ["image_size=28", "num_query_token=4", "max_txt_len=8", "embed_dim=16", "vit_dtype=fp32",
           "qformer_dtype=fp32",

@@ -25,6 +25,7 @@ import sprc_tpu_torch.cli.validate as pvalidate  # noqa: E402
 from sprc_tpu_torch.loader import CIR_MODELS, load_model  # noqa: E402
 from test_data import cirr_root  # noqa: E402,F401  (fixture)
 from test_torch_finetune_cli import OVERRIDES, TINY, _argv, tiny_cli_model, vocab  # noqa: E402,F401
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 
 def _logs(out):

@@ -32,6 +32,7 @@ from sprc_tpu_torch.train.loop import TrainConfig, Trainer  # noqa: E402
 from test_torch_train_losses import QF, Q, TXT, VIT, W, torch_batch  # noqa: E402
 from test_torch_variants_losses import (B, TRAINABLE, jax_variant, port_variant,  # noqa: E402
                                         variant_batch, variant_params)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 ATOL = 1e-5
 

@@ -39,6 +39,7 @@ from sprc_tpu_torch.train.loop import TrainConfig, Trainer  # noqa: E402
 from test_torch_train_losses import (IMG, LOSS_RTOL, GRAD_TOL, QF, Q, TXT, VIT,  # noqa: E402
                                      VOCAB, EMBED, W, port_model as _flagship_port_model,
                                      make_batch, torch_batch)
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 B = 8
 TRAINABLE = ("blip2_cir_cat", "blip2_cir_rel", "blip2_cir_z_learn_pos_align", "blip2_cir_neg",

@@ -25,6 +25,7 @@ from sprc_tpu_torch.interop.jax_params import clip_vit_from_jax, to_torch  # noq
 from sprc_tpu_torch.models.vit import ClipViT, ViTConfig  # noqa: E402
 from sprc_tpu_torch.ops import primitives  # noqa: E402
 from sprc_tpu_torch.ops.fused_block import fused_vit_block  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 B, S, W, H, M = 2, 5, 128, 2, 256
 ATOL = 5e-5
@@ -82,9 +83,10 @@ def test_clip_vit_matches_jax(flag, monkeypatch):
 
 def test_blocks_call_the_wrapper_whatever_the_grad_mode():
     """A block routes by device alone: with grad on and parameters that
-    require grad it still calls K2's inference-only wrapper, which raises;
-    only ``plain_reference`` picks the plain block, and it equals the
-    wrapper's output exactly on the CPU."""
+    require grad it calls K2's wrapper through its autograd Function
+    (``FusedViTBlock``; the wrapper alone raises there, it serves only);
+    only ``plain_reference`` picks the plain block, and both equal the
+    wrapper's output without a graph exactly on the CPU."""
     tower = ClipViT(ViTConfig(image_size=28, patch_size=14, width=W, depth=2, num_heads=H,
                               mlp_hidden=M, layer_norm_eps=1e-5, use_ln_pre=True,
                               quick_gelu=True, patch_bias=False, dtype=torch.float32))
@@ -93,11 +95,17 @@ def test_blocks_call_the_wrapper_whatever_the_grad_mode():
         for p in tower.parameters():
             p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
     images = torch.from_numpy(np.random.RandomState(2).rand(B, 28, 28, 3).astype(np.float32))
+    block = tower.vit_blocks()[0]
+    x = torch.randn(B, 5, W, generator=gen)
     with pytest.raises(RuntimeError, match="inference-only"):
-        tower(images)
+        fused_vit_block(x, *block.kernel_params(), heads=H, eps=1e-5, scale=(W // H) ** -0.5,
+                        quick=True)
+    trained = tower(images)
+    assert type(trained.grad_fn).__name__ == "FusedViTBlockBackward"
     with primitives.plain_reference():
         plain = tower(images)
-    assert plain.requires_grad
+    assert plain.requires_grad and type(plain.grad_fn).__name__ != "FusedViTBlockBackward"
     with torch.inference_mode():
         got = tower(images)
     np.testing.assert_array_equal(got.numpy(), plain.detach().numpy())
+    np.testing.assert_array_equal(got.numpy(), trained.detach().numpy())

@@ -37,6 +37,7 @@ from sprc_tpu_torch.ops import quant  # noqa: E402
 from sprc_tpu_torch.ops.fused_block import fused_vit_block_i8  # noqa: E402
 
 from test_torch_vit import B, H, M, S, W, _block_params  # noqa: E402
+from test_torch_threads import one_torch_thread  # noqa: E402,F401  (one thread a module)
 
 MAX_ABS, MEAN_ABS = 5e-3, 5e-4
 ACTS = (0.05, 0.01, 0.05, 0.03)  # qkv, proj, fc1, fc2
