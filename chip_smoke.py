@@ -230,6 +230,43 @@ Phases (any failure raises and exits nonzero before the last line):
    677, a batch of 4) and K2's in bf16 at ViT-L's (kernel_checks.run_unfrozen),
    and the kernels line carries their launches in this phase.
 
+12. BLIP-2 stage 2, the LLM caption heads (random weights from seed 0, the
+   synthetic vocab, full width; the run configs as phase 10 gives them):
+   (a) cli/evaluate.py on eval/caption_coco_opt2.7b_eval.yaml (blip2_opt /
+       caption_coco_opt2.7b: EVA ViT-g at 364 px, the fp32 tower, 32
+       queries, OPT-2.7b in fp32) over 40 seeded PNG images of mixed sizes,
+       5 captions each (the coco_caption test layout): batches of 16, 16
+       and 8 padded to 16, max_len 30, the BERT tokenizer. A clean run,
+       nothing recorded, gives the metric JSON, seconds by stage (image
+       encode, Q-Former + projection, prefill, decode), ms a decoded token,
+       the peak (under 80 GB) and the launches (39 K2 blocks and 12 K3
+       layers a batch, the fp32 chain's own kernels, nothing else). A
+       second kernel run records each stage and every decode step's
+       logits; from it one cached decode step at batch 16 is timed on the
+       host's clock and on the device's, as one CUDA graph
+       (kernel_checks.profile_decode_step: the device's busy share, the ATen
+       operators and the launches a step). generate_ids(use_cache=False) on the kernel route over the
+       first batch: every step's logits up to each row's first differing
+       id within the head's logits bound. The all-plain run
+       (primitives.plain_reference) on the same weights: the frozen rows,
+       the query rows, the projected rows and the prefill logits within
+       CAPTION_BOUNDS, the LLM's prefill on the kernel run's own projected
+       rows equal to the kernel run's; the witness, the all-plain LLM on
+       the all-plain projected rows plus seeded noise of the kernel run's
+       measured difference, says how far the LLM moves for such an input
+       difference; every decode step's logits of the kernel run, up to
+       each row's first differing id, within CAPTION_WITNESS_FACTOR times
+       the witness's (a row's ids may differ only at a step so held; each
+       such row is printed with the top-2 gap and the difference there);
+   (b) the same for eval/caption_coco_flant5xl_eval.yaml (blip2_t5 /
+       caption_coco_flant5xl, FlanT5-XL in fp32);
+   (c) cli/instruct.py --synthetic for blip2_opt and blip2_t5 on the card,
+       one JSON line each.
+   The kernel phase holds K2 in fp32 at S = 677 and B = 16, its fp32
+   attention call and K3's queries-only pass into 677 rows at B = 16
+   (kernel_checks.run_caption); the kernels line carries their launches in
+   12a and 12b.
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -339,7 +376,7 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
-# phase 10's run configs as configs/runs/<name> gives them (the card machine
+# phase 10's, 11's and 12's run configs as configs/runs/<name> gives them (the card machine
 # may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
 # each dict equal to its file)
 RUN_CONFIGS = {
@@ -359,6 +396,22 @@ RUN_CONFIGS = {
             "build_info": {"annotations": {"train": []}, "images": ""},
             "vis_processor": {"train": {"name": "blip_image_train", "image_size": 224}},
             "text_processor": {"train": {"name": "blip_caption"}}}}},
+    "eval/caption_coco_opt2.7b_eval.yaml": {
+        "run": {"task": "captioning", "evaluate": True, "batch_size_eval": 16, "num_beams": 1,
+                "max_len": 30, "min_len": 8, "prompt": "a photo of", "test_splits": ["test"]},
+        "model": {"arch": "blip2_opt", "model_type": "caption_coco_opt2.7b"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "eval/caption_coco_flant5xl_eval.yaml": {
+        "run": {"task": "captioning", "evaluate": True, "batch_size_eval": 16, "num_beams": 1,
+                "max_len": 30, "min_len": 8, "prompt": "a photo of", "test_splits": ["test"]},
+        "model": {"arch": "blip2_t5", "model_type": "caption_coco_flant5xl"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
                 "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
@@ -2787,6 +2840,403 @@ def check_counters(tag, launches):
         raise RuntimeError(f"the {tag} main path launched another configuration's kernels: {moved}")
 
 
+# phase 12, BLIP-2 stage 2 (models/blip2_opt.py, models/blip2_t5.py): cli/evaluate.py
+# on eval/caption_coco_{opt2.7b,flant5xl}_eval.yaml (EVA ViT-g at 364 px, the fp32
+# tower, 32 queries; OPT-2.7b or FlanT5-XL in fp32) over CAPTION_IMAGES seeded PNG
+# images of mixed sizes, CAPTION_REFS captions each (the coco_caption test layout):
+# batches of 16, 16 and 8 padded to 16, max_len 30, the BERT tokenizer
+CAPTION_IMAGES, CAPTION_REFS = 40, 5
+CAPTION_HEADS = {"opt": ("eval/caption_coco_opt2.7b_eval.yaml", "blip2_opt"),
+                 "t5": ("eval/caption_coco_flant5xl_eval.yaml", "blip2_t5")}
+# the kernel run against the all-plain run (primitives.plain_reference) on the
+# same weights, stage by stage over every batch: the frozen rows (max / mean
+# |difference|: phase 10a's bound, the same tower and resolution), the Q-Former's
+# query rows, the projected rows handed to the LLM and the prefill's logits
+# (max |difference|), each about 4 times its reading on an H100 80GB HBM3 at
+# 700 W: frozen 1.299e-5 / 1.844e-6 (OPT run), 1.317e-5 / 1.846e-6 (T5 run);
+# queries 7.21e-6, 7.11e-6; projected 4.29e-6, 5.13e-6; logits OPT-2.7b
+# 1.43e-5, FlanT5-XL 4.79e-3 (the FlanT5 bound is its own: the random
+# FlanT5-XL moves its logits far more for the same input difference, which
+# the witness below measures in every run: there, on the same card, noise of
+# the kernel run's RMS difference moved FlanT5-XL's prefill logits by
+# 5.93e-3 and its step logits by 4.30e-2, 13 of 48 rows taking another
+# token, against the kernel run's 4.79e-3, 4.75e-2 and 8 rows; OPT-2.7b's
+# 1.36e-5 and 1.43e-5, no row, against 1.43e-5, 1.43e-5, none); "llm": the
+# prefill's logits on the kernel run's own projected rows through the
+# all-plain model, which the LLM (no kernel) computes again to the bit; the
+# recompute loop read 1.45e-5 (OPT) and 3.47e-4 (T5). Every decode step's logits of a
+# row, up to its first differing id or its eos, are held too: the kernel
+# run's against the all-plain run's at CAPTION_WITNESS_FACTOR times the
+# witness's same reading (the all-plain LLM on the all-plain projected rows
+# plus seeded normal noise of the RMS of the kernel run's difference there,
+# batch by batch), and the recompute loop's against the cached decode's at
+# the head's logits bound. A row's ids may differ only at a step so held.
+CAPTION_BOUNDS = {"frozen": STAGE1_RUN_BOUNDS["frozen"], "queries": 3e-5, "proj": 2e-5,
+                  "logits": {"opt": 6e-5, "t5": 2e-2}, "llm": 1e-6}
+CAPTION_WITNESS_FACTOR = 4
+# K2's blocks and K3's layers a batch on this path (the fp32 chain's own kernels,
+# the fp32 GEMM, attention and LayerNorm, launch too; nothing else does)
+CAPTION_BATCH_LAUNCHES = {"fused_vit_block": 39, "fused_qformer_layer": 12}
+CAPTION_CHAIN = ("gemm_f32", "attention_f32", "layer_norm")
+
+
+@contextlib.contextmanager
+def _recording_caption(cls, rec):
+    """Record, batch by batch, what a caption head computes on its way to the
+    ids: the tower's rows after ln_vision, the Q-Former's query rows, the
+    projected rows, the prefill's logits, every decode step's logits [B,
+    steps, V] and the ids; and the model, its first batch of images and the
+    first batch's decode step with its cache."""
+    from sprc_tpu_torch.models import blip2_opt, blip2_t5, generation
+
+    real_encode, real_queries = cls.encode_image, cls.embed_image_queries
+    real_prefix, real_loop = blip2_opt.query_prefix, generation.cached_greedy_loop
+    for key in ("frozen", "queries", "proj", "logits0", "steps", "ids"):
+        rec[key] = []
+
+    def encode_image(self, images):
+        out = real_encode(self, images)
+        rec.setdefault("model", self)
+        rec.setdefault("images", images)
+        rec["frozen"].append(out)
+        return out
+
+    def embed_image_queries(self, image_embeds, generator=None):
+        out = real_queries(self, image_embeds, generator)
+        rec["queries"].append(out)
+        return out
+
+    def query_prefix(model, proj, images, stats):
+        out = real_prefix(model, proj, images, stats)
+        rec["proj"].append(out)
+        return out
+
+    def loop(logits0, cache, pos0, step_fn, **kw):
+        rec["logits0"].append(logits0.float())
+        rec.setdefault("step", (step_fn, cache, pos0))
+        steps = [logits0.float()]
+
+        def step(tok, pos, c):
+            logits, c = step_fn(tok, pos, c)
+            steps.append(logits.float())
+            return logits, c
+
+        ids = real_loop(logits0, cache, pos0, step, **kw)
+        rec["steps"].append(torch.stack(steps, dim=1))
+        rec["ids"].append(ids)
+        return ids
+
+    cls.encode_image, cls.embed_image_queries = encode_image, embed_image_queries
+    blip2_opt.query_prefix = blip2_t5.query_prefix = query_prefix
+    generation.cached_greedy_loop = loop
+    try:
+        yield rec
+    finally:
+        del cls.encode_image, cls.embed_image_queries
+        blip2_opt.query_prefix = blip2_t5.query_prefix = real_prefix
+        generation.cached_greedy_loop = real_loop
+
+
+@contextlib.contextmanager
+def _recording_recompute(model, steps):
+    """Append to ``steps`` each token's logits [B, V] of a caption head's
+    recompute loop (generate_ids(use_cache=False))."""
+    if hasattr(model, "opt_model"):
+        owner, name, pick = model.opt_model, "logits", lambda out: out
+    else:  # T5 decodes the whole sequence a token: the token's logits are column len(steps)
+        owner, name, pick = model.t5_model, "decode", lambda out: out[:, len(steps)]
+    real = getattr(owner, name)
+
+    def recorded(*args, **kw):
+        out = real(*args, **kw)
+        steps.append(pick(out).float())
+        return out
+
+    setattr(owner, name, recorded)
+    try:
+        yield steps
+    finally:
+        delattr(owner, name)
+
+
+def _held_steps(got_ids, want_ids, got_steps, want_steps, eos):
+    """Two greedy decodes of one batch held step by step -> (the largest
+    |logit difference| over every row's steps up to its first differing id
+    or its eos, [(row, that step, the reference's top-2 gap there, the
+    largest |difference| there)] for each row whose ids differ). A flip
+    that the steps cannot show, or whose gap exceeds twice the difference
+    there, reads NaN."""
+    n = min(got_steps.shape[1], want_steps.shape[1])
+    diff = (got_steps[:, :n] - want_steps[:, :n]).abs().amax(dim=-1).cpu().numpy()
+    top2 = torch.topk(want_steps[:, :n], 2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    worst, flips = 0.0, []
+    for r, (a, b) in enumerate(zip(got_ids.cpu().numpy(), want_ids.cpu().numpy())):
+        differ, ends = np.nonzero(a != b)[0], np.nonzero(b == eos)[0]
+        end = min([n - 1] + [int(i[0]) for i in (differ, ends) if len(i)])
+        worst = max(worst, float(diff[r, :end + 1].max()))
+        if len(differ):
+            t = int(differ[0])
+            held = t < n and gap[r, t] <= 2 * diff[r, t]
+            flips.append((r, t, float(gap[r, t]) if held else float("nan"),
+                          float(diff[r, t]) if held else float("nan")))
+    return worst, flips
+
+
+def _step_weight_bytes(model):
+    """The bytes of the LLM weights one cached decode step reads (OPT: all
+    but the position table; T5: the decoder but its cross-attention k and v,
+    projected once at prefill, and its bias tables, and the head)."""
+    if hasattr(model, "opt_model"):
+        named = [(n, p) for n, p in model.opt_model.named_parameters()
+                 if "embed_positions" not in n]
+    else:
+        named = [(n, p) for n, p in model.t5_model.named_parameters()
+                 if (n.startswith("decoder.") or n.startswith("lm_head."))
+                 and not any(k in n for k in ("EncDecAttention.k.", "EncDecAttention.v.",
+                                              "relative_attention_bias"))]
+    return sum(p.numel() * p.element_size() for _, p in named)
+
+
+def phase_caption(work, head):
+    """12a / 12b: the caption evaluation of one BLIP-2 stage-2 head (phase 12
+    of the docstring)."""
+    import argparse
+    import inspect
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch import models as _models  # noqa: F401  (registers them)
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.models import blip2_opt, blip2_t5
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, arch = CAPTION_HEADS[head]
+    cls = registry.get_model_class(arch)
+    eos = inspect.signature(cls.generate_ids).parameters["eos_token_id"].default
+    tag = f"caption {head}"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "coco_caption")
+    ann = _write_pairs(root, CAPTION_IMAGES, CAPTION_REFS, SEED + 12, "cap")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(name, {
+        "run": {"seed": SEED},
+        "datasets": {"coco_caption": {"build_info": {"annotations": {"test": [ann]},
+                                                     "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    out_dir = os.path.join(work, f"caption_{head}")
+    args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
+                              output_dir=out_dir)
+
+    def run_as(suffix):
+        return argparse.Namespace(**{**vars(args), "output_dir": out_dir + suffix})
+
+    # the clean run: timed and counted, nothing recorded
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    metrics = evaluate.evaluate(cfg, args, stats)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
+    with open(os.path.join(out_dir, "result", "test_epochx.json")) as f:
+        result = json.load(f)
+    batches = -(-CAPTION_IMAGES // cfg.run["batch_size_eval"])
+    ms_token = stats["decode_s"] / stats["decode_steps"] * 1e3
+    stages = ("image_encode_s", "qformer_s", "prefill_s", "decode_s")
+    log(f"[{tag}] {batches} batches of {cfg.run['batch_size_eval']}: seconds by stage "
+        + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
+        + f"; {stats['decode_steps']} cached decode steps, {ms_token:.2f} ms a decoded token "
+        f"({cfg.run['batch_size_eval']} rows); total {total_s:.2f} s; peak {peak:.2f} GiB; "
+        f"{len(result)} captions, e.g. {result[0]['caption'][:80]!r}")
+    want = {k: v * batches for k, v in CAPTION_BATCH_LAUNCHES.items()}
+    log(f"[{tag}] launches: {launches}")
+    bad = {k: launches[k] for k in want if launches[k] != want[k]}
+    bad.update({k: launches[k] for k in CAPTION_CHAIN if launches[k] <= 0})
+    bad.update({k: v for k, v in launches.items()
+                if k not in want and k not in CAPTION_CHAIN and v != 0})
+    if bad:
+        raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the fp32 chain's")
+    if len(result) != CAPTION_IMAGES or not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"{tag}: {len(result)} captions, metrics {metrics}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+
+    # the kernel route again, recorded; none of what follows is a main path's launch
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    kern = {}
+    with _recording_caption(cls, kern):
+        kern_metrics = evaluate.evaluate(cfg, run_as("_kern"), None)
+    model, images = kern.pop("model"), kern.pop("images")
+    step_fn, cache, pos0 = kern.pop("step")
+    tok0 = kern["ids"][0][:, 0]
+    with torch.inference_mode():
+        decode = kernel_checks.profile_decode_step(lambda: step_fn(tok0, pos0, cache))
+    del step_fn, cache
+    weight_bytes = _step_weight_bytes(model)
+    decode.update(weights_gb=weight_bytes / 1e9,
+                  weights_ms=weight_bytes / kernel_checks.PEAK_BYTES * 1e3, loop_ms=ms_token)
+    log(f"[{tag}] one cached decode step at batch {images.shape[0]} (the first token's "
+        f"position): host {decode['host_ms']:.3f} ms, device {decode['device_ms']:.3f} ms, busy "
+        f"share {decode['busy_share']:.3f} (the graph's output against the step's: max_abs "
+        f"{decode['graph_max_abs']:.3e}); {decode['aten_ops']} ATen operators a step "
+        f"({decode['aten_views']} views), {decode['kernels_profiled']} launches seen by one "
+        f"profile, {decode['kernel_ms_profiled']:.3f} ms of kernels, the most in (name, "
+        f"launches, ms) {decode['top_kernels']}; the weights it reads {decode['weights_gb']:.2f} GB, "
+        f"{decode['weights_ms']:.3f} ms at the card's memory rate; the clean run's loop "
+        f"{ms_token:.2f} ms a token; the recorded run's metrics "
+        f"{'equal the clean run' if kern_metrics == metrics else kern_metrics}")
+
+    # the recompute loop on the kernel route against the cached decode, first batch
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    tok = tokenizer([cfg.run["prompt"]] * images.shape[0], max_length=16)
+    prompt = [torch.from_numpy(tok[k]).to(images.device) for k in ("input_ids", "attention_mask")]
+    logits_bound = CAPTION_BOUNDS["logits"][head]
+    t0 = time.perf_counter()
+    with _recording_recompute(model, []) as re_steps, torch.inference_mode():
+        recomputed = model.generate_ids(images, *prompt, max_new_tokens=cfg.run["max_len"],
+                                        use_cache=False)
+    sync()
+    recompute_s = time.perf_counter() - t0
+    re_worst, re_flips = _held_steps(recomputed, kern["ids"][0], torch.stack(re_steps, dim=1),
+                                     kern["steps"][0], eos)
+    del re_steps
+    log(f"[{tag}] recompute loop (kernel route, batch 0): {recompute_s:.2f} s; its step logits "
+        f"against the cached decode's, up to each row's first differing id or eos: max_abs "
+        f"{re_worst:.3e} (bound {logits_bound}); rows whose ids differ (row, step, top-2 gap, "
+        f"|difference| there): {re_flips}")
+    if not re_worst <= logits_bound or any(np.isnan(f[2]) for f in re_flips):
+        raise RuntimeError(f"{tag}: the recompute loop against the cached decode: {re_worst}, "
+                           f"{re_flips}")
+    del model, images
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run on the same weights, stage by stage
+    plain, plain_stats = {}, {}
+    t0 = time.perf_counter()
+    with _recording_caption(cls, plain), primitives.plain_reference():
+        plain_metrics = evaluate.evaluate(cfg, run_as("_plain"), plain_stats)
+    sync()
+    plain_s = time.perf_counter() - t0
+    model, images = plain.pop("model"), plain.pop("images")
+    plain.pop("step")
+    real_prefix = blip2_opt.query_prefix
+
+    def llm_on(rows):
+        """The all-plain model's decode on the given projected rows of each
+        batch, recorded."""
+        again = {}
+        with _recording_caption(cls, again), torch.inference_mode():
+            for r in rows:
+                blip2_opt.query_prefix = blip2_t5.query_prefix = lambda *a, r=r: r
+                model.generate_ids(images, *prompt, max_new_tokens=cfg.run["max_len"])
+        return again
+
+    try:
+        # the LLM alone on the kernel run's projected rows, batch 0
+        again = llm_on(kern["proj"][:1])
+        # the witness: the all-plain projected rows plus seeded noise of the
+        # RMS of the kernel run's difference from them, batch by batch
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 120)
+        noise_rms = [(k - p).pow(2).mean().sqrt().item()
+                     for k, p in zip(kern["proj"], plain["proj"])]
+        witness = llm_on([p + torch.randn(p.shape, generator=gen, device=p.device,
+                                          dtype=p.dtype) * s
+                          for p, s in zip(plain["proj"], noise_rms)])
+    finally:
+        blip2_opt.query_prefix = blip2_t5.query_prefix = real_prefix
+    llm_d = (again["logits0"][0] - kern["logits0"][0]).abs().max().item()
+    del model, images, again
+    readings = {}
+    for key in ("frozen", "queries", "proj", "logits0"):
+        d = [(a - b).abs() for a, b in zip(kern[key], plain[key])]
+        readings[key] = (max(x.max().item() for x in d),
+                         float(np.mean([x.mean().item() for x in d])))
+
+    def against_plain(run):
+        held = [_held_steps(a, b, s, t, eos)
+                for a, b, s, t in zip(run["ids"], plain["ids"], run["steps"], plain["steps"])]
+        return (max(h[0] for h in held),
+                [(b,) + f for b, h in enumerate(held) for f in h[1]],
+                max((w - p).abs().max().item()
+                    for w, p in zip(run["logits0"], plain["logits0"])))
+
+    steps_d, flips, _ = against_plain(kern)
+    w_steps_d, w_flips, w_logits0 = against_plain(witness)
+    steps_bound = CAPTION_WITNESS_FACTOR * w_steps_d
+    rows = sum(len(i) for i in kern["ids"])
+    log(f"[{tag}] kernel run against the all-plain run: "
+        + ", ".join(f"{k} max_abs {v[0]:.3e} mean_abs {v[1]:.3e}" for k, v in readings.items())
+        + f"; the LLM on the kernel run's projected rows: logits max_abs {llm_d:.3e} (bounds "
+        f"{CAPTION_BOUNDS}, logits {logits_bound}); the witness (noise of RMS "
+        f"{[float(f'{s:.3e}') for s in noise_rms]} on the all-plain projected rows): prefill "
+        f"logits max_abs {w_logits0:.3e}, step logits max_abs {w_steps_d:.3e}, rows whose ids "
+        f"differ {len(w_flips)} of {rows} (batch, row, step, top-2 gap, |difference| there) "
+        f"{w_flips}; the kernel run's step logits max_abs {steps_d:.3e} (bound "
+        f"{CAPTION_WITNESS_FACTOR} x the witness's, {steps_bound:.3e}), rows whose ids differ "
+        f"{len(flips)} of {rows}: {flips}; all-plain (recorded) total {plain_s:.2f} s, seconds "
+        "by stage " + ", ".join(f"{k} {plain_stats[k]:.3f}" for k in stages)
+        + f"; metrics {'equal' if plain_metrics == metrics else plain_metrics}")
+    checks = {"frozen": readings["frozen"], "queries": readings["queries"][0],
+              "proj": readings["proj"][0], "logits": readings["logits0"][0], "llm": llm_d,
+              "steps": steps_d}
+    bounds = dict(CAPTION_BOUNDS, logits=logits_bound, steps=steps_bound)
+    past = {k: v for k, v in checks.items() if not np.all(np.asarray(v) <= np.asarray(bounds[k]))}
+    if past:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past "
+                           f"{bounds}: {past}")
+    if any(np.isnan(f[3]) for f in flips):
+        raise RuntimeError(f"{tag}: generated ids differ where the steps do not show it: {flips}")
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": metrics, "stage_seconds": {k: stats[k] for k in stages},
+            "decode_steps": stats["decode_steps"], "ms_per_token": ms_token,
+            "total_s": total_s, "peak_memory_gib": peak, "launches": launches,
+            "decode_step": decode,
+            "plain_stage_seconds": {k: plain_stats[k] for k in stages},
+            "against_plain": {k: list(v) for k, v in readings.items()}, "llm_max_abs": llm_d,
+            "step_logits_max_abs": steps_d, "ids_differ": flips,
+            "witness": {"noise_rms": noise_rms, "logits0_max_abs": w_logits0,
+                        "step_logits_max_abs": w_steps_d, "ids_differ": w_flips},
+            "recompute_s": recompute_s, "recompute_step_logits_max_abs": re_worst,
+            "recompute_ids_differ": re_flips, "seconds": seconds}
+
+
+def phase_instruct():
+    """12c: cli/instruct.py --synthetic with both heads on the card; the
+    launches of these tiny runs are not a main path's (the counters are put
+    back)."""
+    import io
+
+    from sprc_tpu_torch.cli import instruct
+
+    counters = _counters()
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    out = {}
+    for arch in ("blip2_opt", "blip2_t5"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            instruct.main(["--model-name", arch, "--synthetic"])
+        line = buf.getvalue().strip().splitlines()[-1]
+        log(f"[instruct] {line}")
+        out[arch] = json.loads(line)
+        if out[arch]["n_outputs"] != 2 or out[arch]["model"] != arch:
+            raise RuntimeError(f"instruct {arch}: {out[arch]}")
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    return out
+
+
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
@@ -2943,7 +3393,20 @@ def kernel_table(rows, launches):
             ("fused_mlp_block", "FusedMlpBlock", "sprc_tpu_torch/ops/fused_block.py",
              "sprc_tpu/ops/pallas_mlp.py:129"),
             ("flash_attention", "FlashAttention", "sprc_tpu_torch/csrc/attention.cu",
-             "sprc_tpu/ops/pallas_attention.py:428"))]
+             "sprc_tpu/ops/pallas_attention.py:428"))] + [
+        # phase 12, BLIP-2 stage 2's caption evaluation at its batch of 16: K2 in
+        # fp32 at 364 px, its fp32 attention call (launches: the tower's 39 and the
+        # Q-Former's a batch) and K3's queries-only pass; launches: 12a's / 12b's
+        entry(f"{kernel}_caption_{head}", source, replaces, [check],
+              count=f"{kernel}_caption_{head}", library_ms=by_check[check].get("library_ms"))
+        for head in ("opt", "t5")
+        for kernel, source, replaces, check in (
+            ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609", "K2 vit_block eva_g fp32 S=677 B=16"),
+            ("attention_f32", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428", "attention D=88 fp32 S=677 B=16"),
+            ("fused_qformer_layer", "sprc_tpu_torch/ops/fused_qformer.py",
+             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer caption queries"))]
 
 
 def main():
@@ -2982,6 +3445,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     unfrozen = phase_unfrozen_train(work)
+    caption = {}
+    for head in CAPTION_HEADS:  # one model on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        caption[head] = phase_caption(work, head)
+    instruct = phase_instruct()
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -3009,6 +3478,9 @@ def main():
         "FusedAttnBlock": unfrozen["route_launches"]["attn+mlp"]["fused_attn_block"],
         "FusedMlpBlock": unfrozen["route_launches"]["attn+mlp"]["fused_mlp_block"],
         "FlashAttention": unfrozen["route_launches"]["unfused"]["flash_attention"]})
+    for head, run in caption.items():  # phase 12
+        launches.update({f"{k}_caption_{head}": run["launches"][k]
+                         for k in ("fused_vit_block", "fused_qformer_layer", "attention_f32")})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -3062,6 +3534,7 @@ def main():
                                            if k != "stages"},
                       "stage1_train": stage1_train,
                       "unfrozen_train_coco": unfrozen,
+                      "caption_coco": caption, "instruct_synthetic": instruct,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

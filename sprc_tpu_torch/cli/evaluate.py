@@ -11,11 +11,18 @@ Ported: the ``retrieval`` task for the BLIP-2 stage-1 models (``blip2``,
 images stream through ``extract_target_features`` 64 at a time, the
 captions through ``encode_text_cls``, then the two-stage
 ``compute_sim_matrix`` (K1, then the ITM head over each query's top
-``k_test``) and the recalls, printed as the JAX CLI prints them: one JSON
-line of the scalar metrics, ``agg_metrics`` = ``r_mean``. Every other task
-or family exits with a message naming its ROADMAP entry; CIR datasets keep
-their CLIs (``cli/validate.py``, ``cli/validate_rerank.py``,
-``cli/submission.py``).
+``k_test``) and the recalls, ``agg_metrics`` = ``r_mean``. And the
+``captioning`` task for the BLIP-2 stage-2 heads (``blip2_opt``,
+``blip2_t5``; configs/runs/eval/caption_coco_{opt2.7b,flant5xl}_eval.yaml):
+batches of ``run.batch_size_eval`` through the head's KV-cached greedy
+decode of ``run.max_len`` tokens after ``run.prompt``, the prompt tokenized
+and the ids decoded by the BERT tokenizer unless ``run.tokenizer`` names an
+LLM ``tokenizer.json`` (as in the JAX CLI), the result file
+``--output-dir/result/<split>_epochx.json`` and CIDEr / BLEU against the
+annotations' captions. Either prints as the JAX CLI prints: one JSON line
+of the scalar metrics. Every other task or family exits with a message
+naming its ROADMAP entry; CIR datasets keep their CLIs
+(``cli/validate.py``, ``cli/validate_rerank.py``, ``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
 GPU the command exits nonzero). Without ``--model-path`` the weights are
@@ -42,14 +49,40 @@ def _image_stream(ds, chunk: int = 64):
                         for i in range(s, min(s + chunk, len(ds)))])
 
 
+def _llm_tokenizer(run: dict, default):
+    """``run.tokenizer`` = {opt | t5: tokenizer.json} -> that LLM tokenizer;
+    without it, ``default`` (the BERT tokenizer, as in the JAX CLI)."""
+    tok_cfg = run.get("tokenizer")
+    if not isinstance(tok_cfg, dict):
+        return default
+    from sprc_tpu_torch.text.llm_tokenizers import opt_tokenizer, t5_tokenizer
+
+    (kind, path), = tok_cfg.items()
+    if kind == "llama":
+        raise SystemExit("run.tokenizer llama: the LLaMA heads come with their family "
+                         "(ROADMAP A8)")
+    return {"opt": opt_tokenizer, "t5": t5_tokenizer}[kind](path)
+
+
+def _caption_ground_truth(ds) -> Dict[int, list]:
+    """image_id -> its captions, from the annotations that carry them."""
+    gt: Dict[int, list] = {}
+    for ann in getattr(ds, "annotation", []):
+        if "caption" in ann and "image_id" in ann:
+            caps = ann["caption"]
+            gt.setdefault(int(ann["image_id"]), []).extend(
+                [caps] if isinstance(caps, str) else list(caps))
+    return gt
+
+
 def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     """The metrics of ``cfg`` (a Config); ``stats`` receives the seconds by
-    stage (``ImageTextRetrievalTask.evaluate_pairs``)."""
+    stage (retrieval: ``ImageTextRetrievalTask.evaluate_pairs``'s; captioning:
+    the head's ``generate_ids``', summed over the batches)."""
     from sprc_tpu_torch import loader
     from sprc_tpu_torch.data import builders as _builders  # noqa: F401  (registers them)
     from sprc_tpu_torch.registry import registry
     from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
-    from sprc_tpu_torch.train.tasks import ImageTextRetrievalTask
     from sprc_tpu_torch.utils.artifacts import ensure_bert_vocab
 
     run = dict(cfg.run)
@@ -57,13 +90,17 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
-    if task_name != "retrieval":
-        raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py (captioning, VQA, "
+    if task_name not in ("retrieval", "captioning"):
+        raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py (VQA, "
                          "classification and dialogue come with their families, ROADMAP A8; "
                          "CIR -> cli/validate.py)")
-    if arch not in loader.STAGE1_MODELS:
+    if task_name == "retrieval" and arch not in loader.STAGE1_MODELS:
         raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (BLIP-1, "
                          "ALBEF, CLIP, ALPRO: ROADMAP A8)")
+    if task_name == "captioning" and arch not in loader.LLM_HEADS:
+        raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
+                         f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption and the "
+                         "other families: ROADMAP A8)")
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -84,12 +121,39 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
                                f"'{split}' not among them")
     ds = datasets[split]
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
+    if task_name == "captioning":
+        return _evaluate_captions(model, ds, split, run, tokenizer, args, stats)
+    from sprc_tpu_torch.train.tasks import ImageTextRetrievalTask
+
     task = ImageTextRetrievalTask(tokenizer, k_test=int(run.get("k_test", 128)),
                                   max_txt_len=int(run.get("max_txt_len", 35)))
     metrics = task.evaluate_pairs(model, _image_stream(ds), ds.text, ds.img2txt, ds.txt2img,
                                   stats=stats)
     metrics["agg_metrics"] = metrics["r_mean"]
     return metrics
+
+
+def _evaluate_captions(model, ds, split, run, tokenizer, args, stats) -> dict:
+    """The ``captioning`` task (``sprc_tpu/cli/evaluate.py:239-257,327-``):
+    batches of ``batch_size_eval`` through the head's greedy decode, the
+    result file under ``--output-dir``/result, CIDEr / BLEU against the
+    annotations' captions."""
+    from sprc_tpu_torch.train.eval_glue import (collate_eval, eval_loader,
+                                                make_caption_generate_fn)
+    from sprc_tpu_torch.train.eval_tasks import CaptionTask
+
+    task = CaptionTask(num_beams=int(run.get("num_beams", 3)), max_len=int(run.get("max_len", 30)),
+                       min_len=int(run.get("min_len", 10)),
+                       report_metric=bool(run.get("report_metric", True)),
+                       output_dir=args.output_dir)
+    glue = make_caption_generate_fn(model, _llm_tokenizer(run, tokenizer),
+                                    prompt=run.get("prompt", "a picture of "), stats=stats)
+    batch_size = int(run.get("batch_size_eval", run.get("batch_size", 8)))
+    results = []
+    for idx, items in eval_loader(ds, batch_size):
+        rows = task.valid_step(glue, collate_eval(items))
+        results.extend(rows[: len(idx)])  # drop the last batch's padding
+    return task.after_evaluation(results, split, ground_truth=_caption_ground_truth(ds) or None)
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -10,8 +10,11 @@ rerank model's frozen twin (``fformer``, ``query_tokens_f``,
 ``*_f`` names, the variants' own leaves (``rel_tokens`` of
 ``blip2_cir_neg_rel``, ``temp2`` of ``blip2_cir_cls``) by their names, and
 BLIP-2 stage 1's ``lm_head`` to ``Qformer.cls.predictions.*`` (the
-reference's names), ``itm_head`` wherever the tree holds it (a JAX tree holds it only after a
-``compute_itm`` / rerank init, or an init of a variant whose training
+reference's names), the stage-2 heads' ``opt`` / ``t5`` towers to HF's
+names under ``opt_model.`` / ``t5_model.`` (:func:`opt_from_jax`,
+:func:`t5_from_jax`) with ``opt_proj`` / ``t5_proj``, a Q-Former without a
+text side (those heads') as it is, ``itm_head`` wherever the tree holds
+it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init of a variant whose training
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``). Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
 becomes OIHW, and the BERT ``position_ids`` buffer is emitted.
@@ -122,7 +125,10 @@ def qformer_layer_from_jax(layer: Mapping[str, Any], prefix: str) -> Dict[str, n
             _linear(out, f"{prefix}{name}.self.{proj}", att[proj])
         _linear(out, f"{prefix}{name}.output.dense", att["out"])
         _ln(out, f"{prefix}{name}.output.LayerNorm", att["ln"])
-    for suffix, ffn in (("", layer["ffn_text"]), ("_query", layer["ffn_query"])):
+    for suffix, key in (("", "ffn_text"), ("_query", "ffn_query")):
+        if key not in layer:  # the LLM heads' trunk has no text FFN
+            continue
+        ffn = layer[key]
         _linear(out, f"{prefix}intermediate{suffix}.dense", ffn["fc1"])
         _linear(out, f"{prefix}output{suffix}.dense", ffn["fc2"])
         _ln(out, f"{prefix}output{suffix}.LayerNorm", ffn["ln"])
@@ -133,15 +139,72 @@ def qformer_from_jax(params: Mapping[str, Any], prefix: str = "Qformer.bert.") -
     """QFormer params -> reference-named numpy arrays (with position_ids)."""
     out: Dict[str, np.ndarray] = {}
     emb = params["embeddings"]
-    out[f"{prefix}embeddings.word_embeddings.weight"] = _np(emb["word_embeddings"]["embedding"])
-    pos = _np(emb["position_embeddings"]["embedding"])
-    out[f"{prefix}embeddings.position_embeddings.weight"] = pos
-    out[f"{prefix}embeddings.position_ids"] = np.arange(pos.shape[0], dtype=np.int64)[None]
+    if "word_embeddings" in emb:  # the LLM heads' trunk has no text side
+        out[f"{prefix}embeddings.word_embeddings.weight"] = _np(
+            emb["word_embeddings"]["embedding"])
+        pos = _np(emb["position_embeddings"]["embedding"])
+        out[f"{prefix}embeddings.position_embeddings.weight"] = pos
+        out[f"{prefix}embeddings.position_ids"] = np.arange(pos.shape[0], dtype=np.int64)[None]
     _ln(out, f"{prefix}embeddings.LayerNorm", emb["ln"])
     for key, layer in params.items():
         if not key.startswith("layer_"):
             continue
         out.update(qformer_layer_from_jax(layer, f"{prefix}encoder.layer.{int(key.split('_')[1])}."))
+    return out
+
+
+def opt_from_jax(params: Mapping[str, Any], prefix: str = "opt_model.") -> Dict[str, np.ndarray]:
+    """``OPTForCausalLM`` params -> HF-named arrays (the LM head is tied: no key)."""
+    out: Dict[str, np.ndarray] = {}
+    dp = f"{prefix}model.decoder."
+    out[f"{dp}embed_tokens.weight"] = _np(params["embed_tokens"]["embedding"])
+    out[f"{dp}embed_positions.weight"] = _np(params["embed_positions"]["embedding"])
+    _ln(out, f"{dp}final_layer_norm", params["final_ln"])
+    for key, layer in params.items():
+        if not key.startswith("layer_"):
+            continue
+        lp = f"{dp}layers.{int(key.split('_')[1])}."
+        _ln(out, f"{lp}self_attn_layer_norm", layer["self_attn_ln"])
+        _ln(out, f"{lp}final_layer_norm", layer["final_ln"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(out, f"{lp}self_attn.{proj}", layer["attn"][proj])
+        _linear(out, f"{lp}fc1", layer["fc1"])
+        _linear(out, f"{lp}fc2", layer["fc2"])
+    return out
+
+
+def _rms(out: Dict[str, np.ndarray], name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _np(p["scale"])
+
+
+def t5_from_jax(params: Mapping[str, Any], prefix: str = "t5_model.") -> Dict[str, np.ndarray]:
+    """``T5ForConditionalGeneration`` params -> HF-named arrays: each stack's
+    ``rel_bias`` table goes to its first block's
+    ``SelfAttention.relative_attention_bias``."""
+    out: Dict[str, np.ndarray] = {}
+    out[f"{prefix}shared.weight"] = _np(params["shared"]["embedding"])
+    if "lm_head" in params:
+        _linear(out, f"{prefix}lm_head", params["lm_head"])
+    for side in ("encoder", "decoder"):
+        stack, sp = params[side], f"{prefix}{side}."
+        _rms(out, f"{sp}final_layer_norm", stack["final_ln"])
+        out[f"{sp}block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = _np(
+            stack["rel_bias"]["embedding"])
+        for key, block in stack.items():
+            if not key.startswith("block_"):
+                continue
+            bp = f"{sp}block.{int(key.split('_')[1])}.layer."
+            parts = [("0", "self_ln", "SelfAttention", "self_attn")]
+            if "cross_attn" in block:
+                parts.append(("1", "cross_ln", "EncDecAttention", "cross_attn"))
+            for idx, ln, name, att in parts:
+                _rms(out, f"{bp}{idx}.layer_norm", block[ln])
+                for proj in ("q", "k", "v", "o"):
+                    _linear(out, f"{bp}{idx}.{name}.{proj}", block[att][proj])
+            ff = str(len(parts))
+            _rms(out, f"{bp}{ff}.layer_norm", block["ff_ln"])
+            for proj, p in block["ff"].items():
+                _linear(out, f"{bp}{ff}.DenseReluDense.{proj}", p)
     return out
 
 
@@ -163,7 +226,12 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") ->
                  "temp2"):
         if name in params_np:
             out[name] = _np(params_np[name])
-    for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f"):
+    if "opt" in params_np:  # the BLIP-2 LLM heads' towers
+        out.update(opt_from_jax(params_np["opt"]))
+    if "t5" in params_np:
+        out.update(t5_from_jax(params_np["t5"]))
+    for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f",
+                 "opt_proj", "t5_proj"):
         if name in params_np:
             _linear(out, name, params_np[name])
     if "lm_head" in params_np:  # BLIP-2 stage 1's QFormerLMHead

@@ -145,6 +145,76 @@ def device_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 2) -> tup
             {name: sum(ms) / len(ms) for name, ms in launches.items()})
 
 
+def profile_decode_step(step: Callable[[], tuple], iters: int = 20) -> Dict[str, float]:
+    """One cached decode step of an LLM head, the host's pace against the
+    device's. ``host_ms``: the wall time a step when steps run back to back,
+    as the decode loop runs them (one synchronisation at the end);
+    ``device_ms``: the device's time a step with no host in the way, the
+    step captured once in a CUDA graph and the graph replayed ``iters``
+    times between two CUDA events (:func:`device_ms`'s spin cannot hold
+    decode steps: on an H100 the host was still queueing 20 of them, some
+    30,000 launches, when an 8.5 s spin ended);
+    ``graph_max_abs``: the replay's first output against the step's;
+    ``busy_share``: ``device_ms / host_ms``; ``aten_ops``: the ATen
+    operators one step dispatches, of them ``aten_views`` views, which queue
+    no kernel; ``kernels_profiled`` / ``kernel_ms_profiled``: the launches
+    one ``torch.profiler`` run of a step saw and their summed device time (a
+    floor: a profile can lose launches on the card), ``top_kernels`` the five
+    kernel names of most time there (name, launches, ms). ``step`` must give the
+    same result every call, as a decode step at a fixed position does (it
+    rewrites its cache slot with the same values)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = views = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.views += bool(getattr(func, "is_view", False))
+            return func(*args, **(kwargs or {}))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture's stream, as CUDA graphs ask
+        for _ in range(2):
+            want = step()[0].clone()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()[0]
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    dev_ms = start.elapsed_time(end) / iters
+    graph_err = (got.float() - want.float()).abs().max().item()
+    del graph
+    with Count() as count:
+        step()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name: Dict[str, List[float]] = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(evt.name, []).append(evt.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:5]
+    return {"host_ms": host_ms, "device_ms": dev_ms, "graph_max_abs": graph_err,
+            "busy_share": dev_ms / host_ms, "aten_ops": count.ops, "aten_views": count.views,
+            "kernels_profiled": sum(len(ms) for ms in by_name.values()),
+            "kernel_ms_profiled": sum(sum(ms) for ms in by_name.values()),
+            "top_kernels": [(name[:80], len(ms), sum(ms)) for name, ms in top]}
+
+
 def _errors(got: torch.Tensor, want: torch.Tensor) -> Dict[str, float]:
     d = (got.float() - want.float()).abs()
     return {"max_abs_err": d.max().item(), "mean_abs_err": d.mean().item(),
@@ -695,9 +765,15 @@ RETRIEVAL_SHAPES = {
 }
 # COCO's test split: 25,010 captions against 5,000 images (K1's retrieval call)
 RETRIEVAL_SIM = (25000, 5000)
+# BLIP-2 stage 2's caption evaluation (caption_coco_{opt2.7b,flant5xl}_eval.yaml):
+# the fp32 EVA ViT-g tower at 364 px and the Q-Former's queries-only pass into
+# its 677 rows, at the YAML's batch_size_eval of 16
+CAPTION_BATCH = 16
+CAPTION_SHAPES = {"caption queries": (CAPTION_BATCH, 32, True, False, RETRIEVAL_MEMORY)}
 SHAPE_Q = {"text": 0, "slt prompt": 4, "coco text": 0}  # query rows where they are not 32
-SHAPE_WI = {s: 1408 for s in RETRIEVAL_SHAPES}  # image rows' width where it is not 1024
-QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES}
+# image rows' width where it is not 1024
+SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES)}
+QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES, **CAPTION_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
@@ -2065,6 +2141,22 @@ def run_stage1(device="cuda") -> List[dict]:
     return rows
 
 
+def run_caption(device="cuda") -> List[dict]:
+    """The checks of BLIP-2 stage 2's caption path at its batch of 16: K2 in
+    fp32 at 364 px (S = 677, EVA ViT-g's block), its fp32 attention call
+    (packed qkv, D 88), and K3's queries-only pass into the 677 rows
+    (:data:`CAPTION_SHAPES`)."""
+    W, M, heads, quick, eps = TOWERS["eva_g"]
+    B, S = CAPTION_BATCH, RETRIEVAL_MEMORY
+    return [dict(check="K2 vit_block eva_g fp32 S=677 B=16",
+                 **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick, eps=eps,
+                                   dtype=torch.float32)),
+            dict(check="attention D=88 fp32 S=677 B=16",
+                 **check_attention(88, torch.float32, device, B=B, S=S)),
+            dict(check="K3 qformer_layer caption queries",
+                 **check_qformer_layer("caption queries", device))]
+
+
 # ---------------------------------------------- the Functions of a tower that trains
 
 # The autograd Functions of K2, K6, K7 and K8 (a tower that trains, BLIP-2
@@ -2290,4 +2382,4 @@ def run_all(device="cuda") -> List[dict]:
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
-            + run_unfrozen(device) + run_edges(device))
+            + run_unfrozen(device) + run_caption(device) + run_edges(device))

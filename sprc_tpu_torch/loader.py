@@ -35,7 +35,10 @@ from torch import nn
 
 from sprc_tpu_torch import models as _models  # noqa: F401  (registers the models)
 from sprc_tpu_torch.models.cir_base import CirConfig
+from sprc_tpu_torch.models.llm_presets import LLM_KEYS
+from sprc_tpu_torch.models.opt import OPTConfig
 from sprc_tpu_torch.models.qformer import QFormerConfig
+from sprc_tpu_torch.models.t5 import T5Config, T5LayerNorm
 from sprc_tpu_torch.models.vit import ViTConfig, calibrate_act_scales
 from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
@@ -76,6 +79,36 @@ MODEL_CONFIGS.update({
     if (name, model_type) != ("blip2_feature_extractor", "coco")
 })
 
+# BLIP-2 stage 2, the LLM caption heads, as configs/models/{blip2_opt,blip2_t5}/*.yaml
+# give them: EVA ViT-g (ViT-L for pretrain_flant5xl_vitL), bf16 and frozen at
+# 224 px (pretrain), fp32 at 364 px with freeze_vit false (the COCO caption
+# fine-tunes); the LLM tower by its HF name, resolved through
+# models/llm_presets.py. The YAMLs' ``prompt`` is a generation key (below).
+LLM_HEADS = ("blip2_opt", "blip2_t5")
+_LLM_ROWS = {
+    ("blip2_opt", "pretrain_opt2.7b"): ("eva_clip_g", 224, "opt_model", "facebook/opt-2.7b"),
+    ("blip2_opt", "pretrain_opt6.7b"): ("eva_clip_g", 224, "opt_model", "facebook/opt-6.7b"),
+    ("blip2_opt", "caption_coco_opt2.7b"): ("eva_clip_g", 364, "opt_model", "facebook/opt-2.7b"),
+    ("blip2_opt", "caption_coco_opt6.7b"): ("eva_clip_g", 364, "opt_model", "facebook/opt-6.7b"),
+    ("blip2_t5", "pretrain_flant5xl"): ("eva_clip_g", 224, "t5_model", "google/flan-t5-xl"),
+    ("blip2_t5", "pretrain_flant5xl_vitL"): ("clip_L", 224, "t5_model", "google/flan-t5-xl"),
+    ("blip2_t5", "pretrain_flant5xxl"): ("eva_clip_g", 224, "t5_model", "google/flan-t5-xxl"),
+    ("blip2_t5", "caption_coco_flant5xl"): ("eva_clip_g", 364, "t5_model", "google/flan-t5-xl"),
+}
+MODEL_CONFIGS.update({
+    key: {"vit_model": vit_model, "image_size": size, "num_query_token": 32,
+          "freeze_vit": size == 224,
+          "vit_dtype": torch.bfloat16 if size == 224 else torch.float32, llm_key: llm_name}
+    for key, (vit_model, size, llm_key, llm_name) in _LLM_ROWS.items()
+})
+# decoding keys of the model YAMLs (blip2_caption_opt2.7b.yaml's ``prompt``):
+# the JAX loader drops them from the model section; the caption glue reads
+# the run section's
+GENERATION_KEYS = ("prompt", "max_output_txt_len", "num_beams")
+# an LLM tower in a model row or override: its HF name (the YAML key) or its
+# config (a dict or the dataclass) on the model's keyword
+_LLM_CONFIGS = {"opt_config": OPTConfig, "t5_config": T5Config}
+
 _PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
 # sub-configs that an override may give as a dict, with the fields of the JAX
 # package's dataclass that the port does not read (attention dropout: the JAX
@@ -111,14 +144,44 @@ def coerce_overrides(overrides: dict) -> dict:
     return out
 
 
-def model_config(name: str, model_type: str = "pretrain", **overrides: Any) -> CirConfig:
+def _split_llm(fields: dict) -> dict:
+    """Pop the LLM tower from ``fields`` -> the model's keyword arguments
+    (``{"opt_config": OPTConfig}``, ``{"t5_config": T5Config}`` or none), as
+    the JAX loader resolves ``opt_model`` / ``t5_model`` / ``llm_model`` and
+    ``opt_config`` / ``t5_config``."""
+    out = {}
+    for key, (field, resolve) in LLM_KEYS.items():
+        if key in fields:
+            out[field] = resolve(fields.pop(key))
+    for field, cls in _LLM_CONFIGS.items():
+        if field in fields:
+            value = fields.pop(field)
+            out[field] = cls(**{k: _precision(k, v) for k, v in value.items()}) \
+                if isinstance(value, dict) else value
+    return out
+
+
+def _fields(name: str, model_type: str, overrides: dict) -> dict:
     try:
         base = MODEL_CONFIGS[(name, model_type)]
     except KeyError:
         raise ValueError(
             f"no port configuration for ({name!r}, {model_type!r}); ported: "
             f"{sorted(MODEL_CONFIGS)}") from None
-    return CirConfig(**{**base, **coerce_overrides(overrides)})
+    return {**base, **coerce_overrides(overrides)}
+
+
+def model_config(name: str, model_type: str = "pretrain", **overrides: Any) -> CirConfig:
+    fields = _fields(name, model_type, overrides)
+    _split_llm(fields)
+    return CirConfig(**fields)
+
+
+def llm_config(name: str, model_type: str = "pretrain", **overrides: Any) -> dict:
+    """The LLM tower of an LLM head's row (with ``overrides``) as the model's
+    keyword argument: ``{"opt_config": ...}`` or ``{"t5_config": ...}``; empty
+    for every other model."""
+    return _split_llm(_fields(name, model_type, overrides))
 
 
 def _device(device) -> torch.device:
@@ -136,8 +199,9 @@ def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
     device = _device(device)
     cls = registry.get_model_class(name)
     cfg = model_config(name, model_type, **overrides)
+    llm = llm_config(name, model_type, **overrides)
     with torch.device("meta"):
-        model = cls(cfg)
+        model = cls(cfg, **llm)
     return model.to_empty(device=device)
 
 
@@ -145,8 +209,10 @@ def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``, with
     the JAX package's initialisers: normal(0.02) for dense, embedding, token
-    and position tables; fan-in normal for the patch conv; zero biases; unit
-    LayerNorms; temperature 0.07. The rerank model's frozen twin is drawn
+    and position tables (OPT's among them), normal(1.0) for an embedding that
+    says so in its ``init_std`` (T5's ``shared`` and relative-position
+    tables); fan-in normal for the patch conv; zero biases; unit LayerNorms
+    and T5 RMS scales; temperature 0.07. The rerank model's frozen twin is drawn
     like every other module, independently of the tower it copies (as a
     JAX init draws ``fformer``); ``CirRerank.sync_fformer`` on the state
     dict makes it a copy."""
@@ -174,12 +240,14 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
         if isinstance(mod, LayerNormFP32):
             const(mod.weight, 1.0)
             const(mod.bias, 0.0)
+        elif isinstance(mod, T5LayerNorm):
+            const(mod.weight, 1.0)
         elif isinstance(mod, Linear):
             normal(mod.weight, 0.02)
             if mod.bias is not None:
                 const(mod.bias, 0.0)
         elif isinstance(mod, nn.Embedding):
-            normal(mod.weight, 0.02)
+            normal(mod.weight, getattr(mod, "init_std", 0.02))
         elif isinstance(mod, nn.Conv2d):
             normal(mod.weight, mod.weight[0].numel() ** -0.5)
             if mod.bias is not None:
@@ -261,6 +329,7 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     return scales
 
 
-__all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "MODEL_CONFIGS", "model_config", "coerce_overrides", "build_model",
+__all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "GENERATION_KEYS",
+           "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",
            "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

@@ -121,6 +121,11 @@ class Blip2CirBase(nn.Module):
     """ViT (frozen unless ``freeze_vit=False``) + ln_vision + Q-Former +
     projection heads."""
 
+    # False (the LLM caption heads, models/blip2_opt.py and blip2_t5.py): no
+    # vision / text projections, no ITM head, and a Q-Former without its
+    # text side; the JAX init of those heads holds none of them
+    RETRIEVAL_HEADS = True
+
     def __init__(self, cfg: CirConfig):
         super().__init__()
         self.cfg = cfg
@@ -132,11 +137,12 @@ class Blip2CirBase(nn.Module):
         self.ln_vision = LayerNormFP32(vcfg.width, 1e-5)
         if cfg.freeze_vit:  # the reference's freeze_vit=True
             self.visual_encoder.requires_grad_(False)
-        self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg)})
+        self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg, text=self.RETRIEVAL_HEADS)})
         self.query_tokens = nn.Parameter(torch.empty(1, cfg.num_query_token, H))
-        self.vision_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
-        self.text_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
-        self.itm_head = Linear(H, 2, dtype=qcfg.dtype)
+        if self.RETRIEVAL_HEADS:
+            self.vision_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
+            self.text_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
+            self.itm_head = Linear(H, 2, dtype=qcfg.dtype)
         # learned temperature, a direct divisor (init 0.07)
         self.temp = nn.Parameter(torch.empty(()))
 

@@ -141,14 +141,17 @@ def make_unilm_mask(attention_mask: torch.Tensor, query_length: int) -> torch.Te
 
 
 class QFormerEmbeddings(nn.Module):
-    def __init__(self, cfg: QFormerConfig):
+    def __init__(self, cfg: QFormerConfig, text: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.LayerNorm = LayerNormFP32(cfg.hidden_size, cfg.layer_norm_eps)
-        self.register_buffer(
-            "position_ids", torch.arange(cfg.max_position_embeddings)[None], persistent=True)
+        if text:
+            self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                    cfg.hidden_size)
+            self.register_buffer(
+                "position_ids", torch.arange(cfg.max_position_embeddings)[None],
+                persistent=True)
 
     def forward(self, input_ids: Optional[torch.Tensor], query_embeds: Optional[torch.Tensor],
                 no_img: bool = False, generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -254,7 +257,7 @@ def _ffn_params(intermediate: Dense, output: DenseLN, int8: bool) -> dict:
 
 
 class QFormerLayer(nn.Module):
-    def __init__(self, cfg: QFormerConfig, has_cross_attention: bool):
+    def __init__(self, cfg: QFormerConfig, has_cross_attention: bool, text: bool = True):
         super().__init__()
         H, M, eps = cfg.hidden_size, cfg.intermediate_size, cfg.layer_norm_eps
         self.cfg = cfg
@@ -262,10 +265,15 @@ class QFormerLayer(nn.Module):
         self.attention = QFormerAttention(cfg, H)
         if has_cross_attention:
             self.crossattention = QFormerAttention(cfg, cfg.encoder_width)
-        self.intermediate = Dense(H, M, cfg.int8)
-        self.output = DenseLN(M, H, eps, cfg.int8)
+        if text:  # the text FFN
+            self.intermediate = Dense(H, M, cfg.int8)
+            self.output = DenseLN(M, H, eps, cfg.int8)
         self.intermediate_query = Dense(H, M, cfg.int8)
         self.output_query = DenseLN(M, H, eps, cfg.int8)
+
+    @property
+    def text(self) -> bool:
+        return hasattr(self, "intermediate")
 
     def forward(self, hidden: torch.Tensor, col_bias: Optional[torch.Tensor],
                 image_embeds, query_length: int,
@@ -285,7 +293,7 @@ class QFormerLayer(nn.Module):
             image_embeds if cross else None,
             self.crossattention.kernel_params() if cross else None,
             _ffn_params(self.intermediate_query, self.output_query, cfg.int8),
-            _ffn_params(self.intermediate, self.output, cfg.int8),
+            _ffn_params(self.intermediate, self.output, cfg.int8) if self.text else None,
             heads=cfg.num_heads, eps=cfg.layer_norm_eps, Q=query_length,
             text_ffn_all=image_embeds is None, int8=cfg.int8,
         )
@@ -319,21 +327,26 @@ class QFormerLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: QFormerConfig):
+    def __init__(self, cfg: QFormerConfig, text: bool = True):
         super().__init__()
         self.layer = nn.ModuleList(
-            QFormerLayer(cfg, has_cross_attention=(i % cfg.cross_attention_freq == 0))
+            QFormerLayer(cfg, has_cross_attention=(i % cfg.cross_attention_freq == 0),
+                         text=text)
             for i in range(cfg.num_layers))
 
 
 class QFormer(nn.Module):
-    """The Q-Former trunk (BertModel analogue; no LM head)."""
+    """The Q-Former trunk (BertModel analogue; no LM head). ``text=False``
+    builds it without its text side (word and position embeddings, the text
+    FFN): the queries-only trunk of the LLM caption heads, whose JAX init
+    holds only what the queries pass reaches."""
 
-    def __init__(self, cfg: QFormerConfig):
+    def __init__(self, cfg: QFormerConfig, text: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = QFormerEmbeddings(cfg)
-        self.encoder = Encoder(cfg)
+        self.text = text
+        self.embeddings = QFormerEmbeddings(cfg, text)
+        self.encoder = Encoder(cfg, text)
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 query_embeds: Optional[torch.Tensor] = None,
@@ -352,6 +365,9 @@ class QFormer(nn.Module):
         without it."""
         if input_ids is None and query_embeds is None:
             raise ValueError("need input_ids and/or query_embeds")
+        if not self.text and (input_ids is not None or image_embeds is None or no_img):
+            raise ValueError("this Q-Former has no text side: it runs the queries-only pass "
+                             "over an image")
         if self.cfg.int8 and training(self):
             raise ValueError("the int8 Q-Former serves only; train the fp32 configuration")
         Q = query_embeds.shape[1] if query_embeds is not None else 0

@@ -32,7 +32,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the run configs this slice reads
 RUN_CONFIGS = ("pretrain_stage1.yaml", "cirr_finetune.yaml", "fiq_finetune.yaml",
                "eval/ret_coco_blip2_eval.yaml", "eval/ret_flickr_blip2_eval.yaml",
-               "retrieval_coco_blip2_ft.yaml")
+               "retrieval_coco_blip2_ft.yaml", "eval/caption_coco_opt2.7b_eval.yaml",
+               "eval/caption_coco_flant5xl_eval.yaml")
 OVERRIDES = ["run.learning_rate=2e-5", "run.k_test=16", "model.image_size=364",
              "datasets.x.build_info.images=/d", "run.flag=true", "run.name=none"]
 
@@ -67,13 +68,15 @@ def test_config_equals_jax_on_the_run_configs():
 
 
 def test_chip_smoke_config_dicts_equal_their_yaml():
-    """chip_smoke.py drives the two CLIs with ``--cfg-path`` where PyYAML
+    """chip_smoke.py drives the CLIs with ``--cfg-path`` where PyYAML
     exists, else with ``Config(defaults=<dict>)``: each dict is its file."""
     import chip_smoke
 
     assert set(chip_smoke.RUN_CONFIGS) == {"eval/ret_coco_blip2_eval.yaml",
                                            "pretrain_stage1.yaml",
-                                           "retrieval_coco_blip2_ft.yaml"}
+                                           "retrieval_coco_blip2_ft.yaml",
+                                           "eval/caption_coco_opt2.7b_eval.yaml",
+                                           "eval/caption_coco_flant5xl_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 

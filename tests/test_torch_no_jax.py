@@ -45,6 +45,16 @@ for fn in (fused_block.FusedViTBlock, fused_block.FusedAttnBlock, fused_block.Fu
 assert callable(primitives.dispatch) and callable(layers.recompute)
 from sprc_tpu_torch.train import loop
 assert callable(loop.layer_decay_scales)
+# BLIP-2 stage 2: the LLM caption heads, their decode and the caption evaluation
+assert {"sprc_tpu_torch.models.opt", "sprc_tpu_torch.models.t5",
+        "sprc_tpu_torch.models.llm_presets", "sprc_tpu_torch.models.generation",
+        "sprc_tpu_torch.models.blip2_opt", "sprc_tpu_torch.models.blip2_t5",
+        "sprc_tpu_torch.text.llm_tokenizers", "sprc_tpu_torch.retrieval.caption_eval",
+        "sprc_tpu_torch.train.eval_tasks", "sprc_tpu_torch.train.eval_glue",
+        "sprc_tpu_torch.cli.instruct"} <= set(mods)
+assert {"blip2_opt", "blip2_t5"} <= set(registry.list("model"))
+assert "captioning" in registry.list("task") and "coco_caption" in registry.list("dataset")
+assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
@@ -66,6 +76,11 @@ cfg = Config(defaults=chip_smoke.RUN_CONFIGS["retrieval_coco_blip2_ft.yaml"])
 assert cfg.run["batch_size"] == 32 and cfg.model["model_type"] == "coco"
 from sprc_tpu_torch import loader
 assert loader.model_config("blip2", "coco").freeze_vit is False
+for name, arch in (("eval/caption_coco_opt2.7b_eval.yaml", "blip2_opt"),
+                   ("eval/caption_coco_flant5xl_eval.yaml", "blip2_t5")):
+    cfg = Config(defaults=chip_smoke.RUN_CONFIGS[name])
+    assert cfg.run["task"] == "captioning" and cfg.model["arch"] == arch
+assert loader.llm_config("blip2_t5", "caption_coco_flant5xl")["t5_config"].d_model == 2048
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
