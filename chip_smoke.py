@@ -267,6 +267,46 @@ Phases (any failure raises and exits nonzero before the last line):
    (kernel_checks.run_caption); the kernels line carries their launches in
    12a and 12b.
 
+13. BLIP-2 stage 2 trains its caption heads and answers zero-shot VQA (random
+   weights from seed 0, the synthetic vocab, full width; the run configs as
+   phase 10 gives them; one model on the card at a time):
+   (a) cli/train.py on caption_coco_blip2_ft.yaml (blip2_opt /
+       caption_coco_opt2.7b: EVA ViT-g at 364 px, the fp32 tower, whose YAML
+       sets freeze_vit false; OPT-2.7b in fp32) at the YAML's batch of 16 over
+       48 seeded PNG images with a caption each (one epoch, 3 steps): ms a
+       step, samples/s, the peak (under 80 GB), the launches a step (the
+       frozen tower's chain once: K2 39 times, no K3: the Q-Former trains
+       unfused, the LLM is torch.matmul); then every tower and LLM tensor
+       against a fresh model of the same seed, bit for bit, and the steps again
+       on that model through the kernels (the tower's rows recorded) against
+       the all-plain steps (primitives.plain_reference) from those rows: each
+       step's loss, the first step's gradients, every trainable tensor after
+       the steps (STAGE2_BOUNDS), the frozen tensors unchanged; the kernel
+       tower's rows against the plain tower's; the kernel run's first step
+       against the all-plain step from the pixels (the loss and the
+       gradients): OPT at phase 7's live bound; FlanT5 at
+       CAPTION_WITNESS_FACTOR times its witnesses' gaps, the all-plain step
+       from the plain tower's rows moved by a draw of the kernel rows'
+       difference's size (STAGE2_WITNESS), against the same step;
+   (b) the same for pretrain_stage2.yaml (blip2_t5 / pretrain_flant5xl: the
+       bf16 tower at 224 px, FlanT5-XL in fp32) at its batch of 32 (96 images);
+   (c) cli/evaluate.py on eval/vqav2_zeroshot_opt_eval.yaml (blip2_opt /
+       pretrain_opt2.7b, task vqa) over 48 seeded questions on PNG images with
+       ten synthetic answers each (3 batches of 16, max_len 10): the metric
+       JSON, seconds by stage, ms a decoded token, the peak and the launches
+       (39 K2 blocks and 12 K3 layers a batch, the chains' own kernels); a
+       recorded kernel run, the all-plain Q-Former on its own rows (K3's
+       chain) and the all-plain LLM on its projected rows; the free-running
+       all-plain run and its witnesses (VQA_WITNESS), as phase 12 holds them
+       (VQA_BOUNDS; the steps at CAPTION_WITNESS_FACTOR times the witnesses'
+       median);
+   (d) the same for eval/gqa_zeroshot_flant5xl_eval.yaml (blip2_t5 /
+       pretrain_flant5xl, task gqa).
+   The kernel phase holds K2 and its bf16 attention call at 224 px at batches
+   32 and 16, and K3's queries-only pass into 257 rows at 16
+   (kernel_checks.run_stage2); the kernels line carries their launches in 13a
+   to 13d.
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -376,7 +416,7 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
-# phase 10's, 11's and 12's run configs as configs/runs/<name> gives them (the card machine
+# phase 10's to 13's run configs as configs/runs/<name> gives them (the card machine
 # may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
 # each dict equal to its file)
 RUN_CONFIGS = {
@@ -412,6 +452,40 @@ RUN_CONFIGS = {
             "build_info": {"annotations": {"test": []}, "images": ""},
             "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
             "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "caption_coco_blip2_ft.yaml": {
+        "run": {"task": "captioning", "batch_size": 16, "max_epochs": 5, "learning_rate": "1e-5",
+                "weight_decay": 0.05, "max_txt_len": 40, "seed": 42},
+        "model": {"arch": "blip2_opt", "model_type": "caption_coco_opt2.7b"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 364}},
+            "text_processor": {"train": {"name": "blip_caption"}}}}},
+    "pretrain_stage2.yaml": {
+        "run": {"task": "captioning", "batch_size": 32, "max_epochs": 1, "learning_rate": "1e-4",
+                "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
+        "model": {"arch": "blip2_t5", "model_type": "pretrain_flant5xl"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 224}},
+            "text_processor": {"train": {"name": "blip_caption"}}}}},
+    "eval/vqav2_zeroshot_opt_eval.yaml": {
+        "run": {"task": "vqa", "evaluate": True, "batch_size_eval": 16,
+                "inference_method": "generate", "prompt": "Question: {} Short answer:",
+                "max_len": 10, "min_len": 1, "test_splits": ["val"]},
+        "model": {"arch": "blip2_opt", "model_type": "pretrain_opt2.7b"},
+        "datasets": {"coco_vqa": {
+            "build_info": {"annotations": {"val": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 224}},
+            "text_processor": {"eval": {"name": "blip_question"}}}}},
+    "eval/gqa_zeroshot_flant5xl_eval.yaml": {
+        "run": {"task": "gqa", "evaluate": True, "batch_size_eval": 16,
+                "inference_method": "generate", "prompt": "Question: {} Short answer:",
+                "max_len": 10, "min_len": 1, "test_splits": ["val"]},
+        "model": {"arch": "blip2_t5", "model_type": "pretrain_flant5xl"},
+        "datasets": {"gqa": {
+            "build_info": {"annotations": {"val": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 224}},
+            "text_processor": {"eval": {"name": "blip_question"}}}}},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
                 "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
@@ -2883,16 +2957,21 @@ CAPTION_CHAIN = ("gemm_f32", "attention_f32", "layer_norm")
 @contextlib.contextmanager
 def _recording_caption(cls, rec):
     """Record, batch by batch, what a caption head computes on its way to the
-    ids: the tower's rows after ln_vision, the Q-Former's query rows, the
-    projected rows, the prefill's logits, every decode step's logits [B,
-    steps, V] and the ids; and the model, its first batch of images and the
-    first batch's decode step with its cache."""
+    ids: the prompt's ids and mask, the tower's rows after ln_vision, the
+    Q-Former's query rows, the projected rows, the prefill's logits, every
+    decode step's logits [B, steps, V] and the ids; and the model, its first
+    batch of images and the first batch's decode step with its cache."""
     from sprc_tpu_torch.models import blip2_opt, blip2_t5, generation
 
     real_encode, real_queries = cls.encode_image, cls.embed_image_queries
+    real_generate = cls.generate_ids
     real_prefix, real_loop = blip2_opt.query_prefix, generation.cached_greedy_loop
-    for key in ("frozen", "queries", "proj", "logits0", "steps", "ids"):
+    for key in ("prompts", "frozen", "queries", "proj", "logits0", "steps", "ids"):
         rec[key] = []
+
+    def generate_ids(self, images, ids, mask, **kw):
+        rec["prompts"].append((ids, mask))
+        return real_generate(self, images, ids, mask, **kw)
 
     def encode_image(self, images):
         out = real_encode(self, images)
@@ -2906,8 +2985,8 @@ def _recording_caption(cls, rec):
         rec["queries"].append(out)
         return out
 
-    def query_prefix(model, proj, images, stats):
-        out = real_prefix(model, proj, images, stats)
+    def query_prefix(model, proj, images, stats, generator=None):
+        out = real_prefix(model, proj, images, stats, generator)
         rec["proj"].append(out)
         return out
 
@@ -2927,12 +3006,14 @@ def _recording_caption(cls, rec):
         return ids
 
     cls.encode_image, cls.embed_image_queries = encode_image, embed_image_queries
+    cls.generate_ids = generate_ids
     blip2_opt.query_prefix = blip2_t5.query_prefix = query_prefix
     generation.cached_greedy_loop = loop
     try:
         yield rec
     finally:
         del cls.encode_image, cls.embed_image_queries
+        cls.generate_ids = real_generate
         blip2_opt.query_prefix = blip2_t5.query_prefix = real_prefix
         generation.cached_greedy_loop = real_loop
 
@@ -2998,6 +3079,103 @@ def _step_weight_bytes(model):
     return sum(p.numel() * p.element_size() for _, p in named)
 
 
+def _witness_rows(plain, kern, kind, gen):
+    """The all-plain rows ``plain`` [B, ...] (fp32) moved by a draw of the
+    size and kind of the kernel run's difference ``kern - plain``, from the
+    generator ``gen``: "noise", normal noise of its RMS; "shuffled", the
+    difference of another row of the batch (a seeded derangement of the
+    rows: the same size and structure across tokens and features, from
+    another image)."""
+    diff = kern.float() - plain.float()
+    if kind == "noise":
+        return plain.float() + torch.randn(plain.shape, generator=gen, device=plain.device,
+                                           dtype=torch.float32) * diff.pow(2).mean().sqrt()
+    n = plain.shape[0]
+    if kind != "shuffled" or n < 2:
+        raise ValueError(f"witness {kind!r} over {n} rows")
+    order = torch.randperm(n, generator=gen, device=plain.device)
+    shift = int(torch.randint(1, n, (1,), generator=gen, device=plain.device).item())
+    perm = torch.empty_like(order)
+    perm[order] = order.roll(-shift)  # row order[j] takes row order[j + shift]'s difference
+    return plain.float() + diff[perm]
+
+
+def _all_plain_and_witness(cls, cfg, run_as, kern, eos, max_len, draws):
+    """A head's evaluation again under ``primitives.plain_reference()`` on
+    the same weights, recorded as the kernel run ``kern`` was, and the
+    readings that hold one against the other: ``readings`` (max / mean
+    |difference| of the frozen rows, the query rows, the projected rows and
+    the prefill's logits), ``llm`` (the all-plain LLM on the kernel run's
+    first projected rows against the kernel run's logits), ``steps`` /
+    ``flips`` (every decode step's logits up to each row's first differing
+    id, and the rows whose ids differ, by ``_held_steps``); and the
+    witnesses, one for each (kind, seed) of ``draws``: the all-plain LLM on
+    the all-plain projected rows moved by ``_witness_rows`` batch by batch
+    (one generator a draw), read the same way; ``noise_rms``, the RMS of the
+    kernel run's difference from them, batch by batch."""
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.models import blip2_opt, blip2_t5
+    from sprc_tpu_torch.ops import primitives
+
+    plain, plain_stats = {}, {}
+    t0 = time.perf_counter()
+    with _recording_caption(cls, plain), primitives.plain_reference():
+        plain_metrics = evaluate.evaluate(cfg, run_as("_plain"), plain_stats)
+    sync()
+    plain_s = time.perf_counter() - t0
+    model, images = plain.pop("model"), plain.pop("images")
+    plain.pop("step")
+    real_prefix = blip2_opt.query_prefix
+
+    def llm_on(rows):
+        """The all-plain model's decode on the given projected rows of each
+        batch (after that batch's prompt), recorded."""
+        again = {}
+        with _recording_caption(cls, again), torch.inference_mode():
+            for r, prompt in zip(rows, kern["prompts"]):
+                blip2_opt.query_prefix = blip2_t5.query_prefix = lambda *a, r=r: r
+                model.generate_ids(images, *prompt, max_new_tokens=max_len)
+        return again
+
+    try:
+        # the LLM alone on the kernel run's projected rows, batch 0
+        again = llm_on(kern["proj"][:1])
+        noise_rms = [(k - p).pow(2).mean().sqrt().item()
+                     for k, p in zip(kern["proj"], plain["proj"])]
+        witnesses = []
+        for kind, seed in draws:
+            gen = torch.Generator(device=DEVICE).manual_seed(seed)
+            witnesses.append((kind, seed, llm_on([_witness_rows(p, k, kind, gen) for p, k in
+                                                  zip(plain["proj"], kern["proj"])])))
+    finally:
+        blip2_opt.query_prefix = blip2_t5.query_prefix = real_prefix
+    llm_d = (again["logits0"][0] - kern["logits0"][0]).abs().max().item()
+    del model, images, again
+    readings = {}
+    for key in ("frozen", "queries", "proj", "logits0"):
+        d = [(a - b).abs() for a, b in zip(kern[key], plain[key])]
+        readings[key] = (max(x.max().item() for x in d),
+                         float(np.mean([x.mean().item() for x in d])))
+
+    def against_plain(run):
+        held = [_held_steps(a, b, s, t, eos)
+                for a, b, s, t in zip(run["ids"], plain["ids"], run["steps"], plain["steps"])]
+        return (max(h[0] for h in held),
+                [(b,) + f for b, h in enumerate(held) for f in h[1]],
+                max((w - p).abs().max().item()
+                    for w, p in zip(run["logits0"], plain["logits0"])))
+
+    steps_d, flips, _ = against_plain(kern)
+    read = []
+    for kind, seed, run in witnesses:
+        w_steps_d, w_flips, w_logits0 = against_plain(run)
+        read.append({"kind": kind, "seed": seed, "logits0": w_logits0, "steps": w_steps_d,
+                     "flips": w_flips})
+    return {"metrics": plain_metrics, "stats": plain_stats, "seconds": plain_s, "llm": llm_d,
+            "readings": readings, "steps": steps_d, "flips": flips, "noise_rms": noise_rms,
+            "witnesses": read}
+
+
 def phase_caption(work, head):
     """12a / 12b: the caption evaluation of one BLIP-2 stage-2 head (phase 12
     of the docstring)."""
@@ -3007,8 +3185,6 @@ def phase_caption(work, head):
     from sprc_tpu_torch import kernel_checks
     from sprc_tpu_torch import models as _models  # noqa: F401  (registers them)
     from sprc_tpu_torch.cli import evaluate
-    from sprc_tpu_torch.models import blip2_opt, blip2_t5
-    from sprc_tpu_torch.ops import primitives
     from sprc_tpu_torch.registry import registry
     from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
     from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
@@ -3119,58 +3295,14 @@ def phase_caption(work, head):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the all-plain run on the same weights, stage by stage
-    plain, plain_stats = {}, {}
-    t0 = time.perf_counter()
-    with _recording_caption(cls, plain), primitives.plain_reference():
-        plain_metrics = evaluate.evaluate(cfg, run_as("_plain"), plain_stats)
-    sync()
-    plain_s = time.perf_counter() - t0
-    model, images = plain.pop("model"), plain.pop("images")
-    plain.pop("step")
-    real_prefix = blip2_opt.query_prefix
-
-    def llm_on(rows):
-        """The all-plain model's decode on the given projected rows of each
-        batch, recorded."""
-        again = {}
-        with _recording_caption(cls, again), torch.inference_mode():
-            for r in rows:
-                blip2_opt.query_prefix = blip2_t5.query_prefix = lambda *a, r=r: r
-                model.generate_ids(images, *prompt, max_new_tokens=cfg.run["max_len"])
-        return again
-
-    try:
-        # the LLM alone on the kernel run's projected rows, batch 0
-        again = llm_on(kern["proj"][:1])
-        # the witness: the all-plain projected rows plus seeded noise of the
-        # RMS of the kernel run's difference from them, batch by batch
-        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 120)
-        noise_rms = [(k - p).pow(2).mean().sqrt().item()
-                     for k, p in zip(kern["proj"], plain["proj"])]
-        witness = llm_on([p + torch.randn(p.shape, generator=gen, device=p.device,
-                                          dtype=p.dtype) * s
-                          for p, s in zip(plain["proj"], noise_rms)])
-    finally:
-        blip2_opt.query_prefix = blip2_t5.query_prefix = real_prefix
-    llm_d = (again["logits0"][0] - kern["logits0"][0]).abs().max().item()
-    del model, images, again
-    readings = {}
-    for key in ("frozen", "queries", "proj", "logits0"):
-        d = [(a - b).abs() for a, b in zip(kern[key], plain[key])]
-        readings[key] = (max(x.max().item() for x in d),
-                         float(np.mean([x.mean().item() for x in d])))
-
-    def against_plain(run):
-        held = [_held_steps(a, b, s, t, eos)
-                for a, b, s, t in zip(run["ids"], plain["ids"], run["steps"], plain["steps"])]
-        return (max(h[0] for h in held),
-                [(b,) + f for b, h in enumerate(held) for f in h[1]],
-                max((w - p).abs().max().item()
-                    for w, p in zip(run["logits0"], plain["logits0"])))
-
-    steps_d, flips, _ = against_plain(kern)
-    w_steps_d, w_flips, w_logits0 = against_plain(witness)
+    # the all-plain run on the same weights, stage by stage, and the witness
+    plain_run = _all_plain_and_witness(cls, cfg, run_as, kern, eos, cfg.run["max_len"],
+                                       [("noise", SEED + 120)])
+    plain_metrics, plain_stats, plain_s, llm_d, readings, noise_rms = (
+        plain_run[k] for k in ("metrics", "stats", "seconds", "llm", "readings", "noise_rms"))
+    steps_d, flips = plain_run["steps"], plain_run["flips"]
+    w_steps_d, w_flips, w_logits0 = (plain_run["witnesses"][0][k]
+                                     for k in ("steps", "flips", "logits0"))
     steps_bound = CAPTION_WITNESS_FACTOR * w_steps_d
     rows = sum(len(i) for i in kern["ids"])
     log(f"[{tag}] kernel run against the all-plain run: "
@@ -3235,6 +3367,496 @@ def phase_instruct():
     for k, (obj, attr) in counters.items():
         setattr(obj, attr, kept[k])
     return out
+
+
+# phase 13, BLIP-2 stage 2 trains its caption heads (train/generic.py over
+# models/blip2_{opt,t5}.py): cli/train.py on caption_coco_blip2_ft.yaml (blip2_opt /
+# caption_coco_opt2.7b: EVA ViT-g fp32 at 364 px, its YAML's freeze_vit false,
+# OPT-2.7b; batch 16) and pretrain_stage2.yaml (blip2_t5 / pretrain_flant5xl: the
+# bf16 tower at 224 px, FlanT5-XL; batch 32), STAGE2_STEPS steps each over seeded
+# PNG images; then zero-shot VQA through cli/evaluate.py
+STAGE2_TRAIN = {"opt": ("caption_coco_blip2_ft.yaml", "blip2_opt"),
+                "t5": ("pretrain_stage2.yaml", "blip2_t5")}
+STAGE2_STEPS = 3
+# a step's launches: the frozen tower's chain once, without a graph (39 blocks: 4
+# GEMMs, one attention and 2 LayerNorms each; fp32 for the COCO row, bf16 for
+# pretrain_flant5xl); the Q-Former trains unfused and the LLM is torch.matmul
+STAGE2_STEP_LAUNCHES = {
+    "opt": {"fused_vit_block": 39, "gemm_f32": 156, "attention_f32": 39, "layer_norm": 78},
+    "t5": {"fused_vit_block": 39, "gemm": 156, "attention_bf16": 39, "layer_norm": 78}}
+# Bounds, fixed before the first reading. "rows": the kernel run's steps against
+# the all-plain run (primitives.plain_reference) from the kernel tower's rows of
+# each batch, as 10b's "rows" case: everything after the tower (ln_vision, the
+# Q-Former's training branch, the projection, the frozen LLM, AdamW) makes the
+# same library calls in both, so each step's loss (relative), the first step's
+# gradients (grad_gap) and every trainable tensor after the steps (max abs) are
+# held at TRAIN_BOUNDS["rows"] and 1e-7; "frozen": the kernel tower's rows after
+# ln_vision against the plain tower's on the first batch, phase 12's fp32 bound
+# (the same tower at 364 px) and phase 5's bf16 one (EVA ViT-g at 224 px);
+# "live": the kernel run's first step against the all-plain step from the
+# pixels (the plain tower's own rows), the loss (relative) and the gradients
+# (grad_gap): OPT's fp32 tower at phase 7's TRAIN_BOUNDS["live"]. The bf16
+# tower's difference reaches a random FlanT5-XL, which phase 12's witness
+# showed moves its logits about 1000 times its input's difference: a head
+# without a "live" bound (t5) is held at CAPTION_WITNESS_FACTOR times the
+# median of its witnesses' gaps, each the all-plain step from the plain
+# tower's rows moved by _witness_rows (STAGE2_WITNESS: (kind, seed)) against
+# the all-plain step from the pixels; shuffled draws, as VQA_WITNESS's (with
+# white noise the route's loss gap came to 0.66 to 22 times a draw's: one
+# signed scalar a draw).
+STAGE2_BOUNDS = {"rows": dict(TRAIN_BOUNDS["rows"], params=1e-7),
+                 "frozen": {"opt": CAPTION_BOUNDS["frozen"], "t5": EVA_BOUNDS["frozen"]},
+                 "live": {"opt": TRAIN_BOUNDS["live"]}}
+STAGE2_WITNESS = [("shuffled", SEED + 140 + j) for j in range(3)]
+
+
+def _bits_digest(tensors):
+    """Two int64 sums over each tensor's raw bits, plain and weighted by the
+    position (mod 65521): a change of any one element changes them."""
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view({4: torch.int32, 2: torch.int16}[t.element_size()])
+        s1 = s2 = 0
+        for c in range(0, bits.numel(), 1 << 24):
+            chunk = bits[c:c + (1 << 24)].long()
+            w = torch.arange(c, c + chunk.numel(), device=t.device) % 65521 + 1
+            s1 += chunk.sum().item()
+            s2 += (chunk * w).sum().item()
+        out.append((s1, s2))
+    return out
+
+
+def phase_stage2_train(work, head):
+    """13a / 13b: the caption training of one BLIP-2 stage-2 head (phase 13
+    of the docstring)."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, arch = STAGE2_TRAIN[head]
+    tag = f"stage2 train {head}"
+    t_phase = time.perf_counter()
+    batch_size = RUN_CONFIGS[name]["run"]["batch_size"]
+    root = os.path.join(work, f"stage2_{head}")
+    ann = _write_pairs(root, STAGE2_STEPS * batch_size, 0, SEED + 13, "s2")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, f"stage2_train_{head}")
+    if os.path.isdir(out):
+        shutil.rmtree(out)
+    cfg, how = _run_config(name, {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {"coco_caption": {"build_info": {"annotations": {"train": [ann]},
+                                                     "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    real_step = generic.GenericTrainer.train_step
+    times, per_step, trainers = [], [], []
+
+    def timed(self, batch):
+        trainers[:] = [self]
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items()})
+        return metrics
+
+    generic.GenericTrainer.train_step = timed
+    try:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step = real_step
+    with open(os.path.join(out, "log.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    trained = trainers.pop().model
+    step_ms = float(np.median(times))
+    n_train = sum(p.numel() for p in trained.parameters() if p.requires_grad)
+    log(f"[{tag}] {len(steps)} steps at batch {batch_size}: ms "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; samples/s (median step) "
+        f"{batch_size / step_ms * 1e3:.1f}; peak {peak:.2f} GiB; run {run_s:.1f} s; losses "
+        + ", ".join(f"{r['loss']:.4f}" for r in steps) + f"; {n_train / 1e6:.1f} M trainable "
+        f"of {sum(p.numel() for p in trained.parameters()) / 1e6:.1f} M")
+    log(f"[{tag}] launches: {({k: v for k, v in launches.items() if v})}; a step: "
+        f"{[{k: v for k, v in d.items() if v} for d in per_step]}")
+    if len(steps) != STAGE2_STEPS or any(r["skipped_nonfinite"] for r in steps):
+        raise RuntimeError(f"{tag}: steps {steps}")
+    if not all(np.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError(f"{tag}: a loss is not finite: {steps}")
+    want_step = STAGE2_STEP_LAUNCHES[head]
+    for launch in per_step:
+        bad = {k: v for k, v in launch.items() if v != want_step.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"{tag}: a step's launches {bad}, expected {want_step}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tower and the LLM after the CLI's steps against a fresh model of the
+    # same seed, bit for bit; every trainable tensor moved
+    kept = read()
+    model = load_model(arch, cfg.model["model_type"], device=DEVICE, seed=SEED)
+    fresh = dict(model.named_parameters())
+    after = dict(trained.named_parameters())
+    frozen = [n for n in fresh if n.startswith(model.FROZEN_PREFIXES)]
+    changed = [n for n in frozen if not torch.equal(fresh[n], after[n])]
+    names = [n for n in fresh if after[n].requires_grad]
+    moved = sum(not torch.equal(fresh[n], after[n]) for n in names)
+    trained_after = {n: after[n].detach().clone() for n in names}
+    del trained, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] after the CLI's steps: {len(changed)} of {len(frozen)} frozen tensors (the "
+        f"tower and the LLM, {sum(fresh[n].numel() for n in frozen) / 1e9:.3f} G values) "
+        f"changed, {moved} of {len(names)} trainable tensors moved (freeze_vit "
+        f"{model.cfg.freeze_vit}, the tower frozen by FROZEN_PREFIXES {model.FROZEN_PREFIXES})")
+    if changed or moved == 0 or any(fresh[n].requires_grad for n in frozen):
+        raise RuntimeError(f"{tag}: frozen tensors changed {changed[:5]}, trainable moved {moved}")
+    digest = _bits_digest(fresh[n] for n in frozen)
+
+    # the same steps again on the fresh model, through the kernels (the tower's
+    # rows recorded) and all plain from those rows; one all-plain step from the
+    # pixels beside them
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", "coco_caption")(dict(cfg.datasets["coco_caption"])).build()
+    adapter = generic.CaptionAdapter(tokenizer, max_txt_len=cfg.run["max_txt_len"]).specialize(
+        model)
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED, device=DEVICE)
+    batches = [task.prepare_batch(b) for b in task.train_loader(0)]
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]),
+                       weight_decay=float(cfg.run["weight_decay"]), total_steps=len(batches))
+    start = {n: fresh[n].detach().clone() for n in names}
+
+    def run(plain, rows=None, record=None, n_steps=len(batches)):
+        with torch.no_grad():
+            for n in names:
+                fresh[n].copy_(start[n])
+        trainer = generic.GenericTrainer(model, tcfg, seed=SEED, adapter=adapter)
+        real_encode = model.encode_tower
+        if rows is not None:
+            feed = iter(rows)
+            model.encode_tower = lambda images: next(feed)
+        elif record is not None:
+            model.encode_tower = lambda images: record.append(real_encode(images)) or record[-1]
+        losses, first = [], None
+        try:
+            with primitives.plain_reference() if plain else contextlib.nullcontext():
+                for b in batches[:n_steps]:
+                    total, _, grads = trainer.loss_and_grads(b)
+                    first = grads if first is None else first
+                    trainer.apply_gradients(grads)
+                    losses.append(total.item())
+        finally:
+            model.__dict__.pop("encode_tower", None)
+        return losses, first, {n: p.detach().clone() for n, p in zip(trainer.names,
+                                                                      trainer.params)}
+
+    rows = []
+    k_losses, k_grads, k_params = run(False, record=rows)
+    r_losses, r_grads, r_params = run(True, rows=rows)
+    l_losses, l_grads, _ = run(True, n_steps=1)
+    with torch.no_grad(), primitives.plain_reference():
+        plain_rows = model.encode_tower(batches[0]["images"])
+        frozen_k, frozen_p = (model.ln_vision(r.float()) for r in (rows[0], plain_rows))
+    frozen_d = (frozen_k - frozen_p).abs()
+    frozen_gap = (frozen_d.max().item(), frozen_d.mean().item())
+    rows_rms = (rows[0].float() - plain_rows.float()).pow(2).mean().sqrt().item()
+    witnesses = []
+    for kind, seed in STAGE2_WITNESS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        w_losses, w_grads, _ = run(True, rows=[_witness_rows(plain_rows, rows[0], kind, gen)],
+                                   n_steps=1)
+        witnesses.append({"kind": kind, "seed": seed,
+                          "loss": abs(w_losses[0] - l_losses[0]) / abs(l_losses[0]),
+                          "grad": kernel_checks.grad_gap(w_grads, l_grads, names)})
+        del w_grads
+    del rows, plain_rows, frozen_k, frozen_p, frozen_d
+    gaps = {"rows": {"loss": max(abs(a - b) / abs(b) for a, b in zip(k_losses, r_losses)),
+                     "grad": kernel_checks.grad_gap(k_grads, r_grads, names),
+                     "params": max((k_params[n] - r_params[n]).abs().max().item() for n in names)},
+            "live": {"loss": abs(k_losses[0] - l_losses[0]) / abs(l_losses[0]),
+                     "grad": kernel_checks.grad_gap(k_grads, l_grads, names)}}
+    rerun = {"loss": max(abs(a - r["loss"]) for a, r in zip(k_losses, steps)),
+             "params": max((k_params[n] - trained_after[n]).abs().max().item() for n in names)}
+    unchanged = _bits_digest(fresh[n] for n in frozen) == digest
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    bounds = STAGE2_BOUNDS["rows"]
+    live_bound = STAGE2_BOUNDS["live"].get(head) or {
+        k: CAPTION_WITNESS_FACTOR * float(np.median([w[k] if k == "loss" else w[k]["gap"]
+                                                     for w in witnesses]))
+        for k in ("loss", "grad")}
+    log(f"[{tag}] the kernel steps against the all-plain steps from the kernel tower's rows: "
+        f"losses {gaps['rows']['loss']:.3e} (bound {bounds['loss']:.0e}), the first step's "
+        f"gradients {gaps['rows']['grad']['gap']:.3e} (bound {bounds['grad']:.0e}; worst "
+        f"{gaps['rows']['grad']['worst']}), the parameters after {len(batches)} steps "
+        f"{gaps['rows']['params']:.3e} (bound {bounds['params']:.0e}); the kernel tower's rows "
+        f"after ln_vision against the plain tower's (batch 0): max_abs {frozen_gap[0]:.3e} "
+        f"mean_abs {frozen_gap[1]:.3e} (bound {STAGE2_BOUNDS['frozen'][head]}); the all-plain "
+        f"step from the pixels: loss {gaps['live']['loss']:.3e}, gradients "
+        f"{gaps['live']['grad']['gap']:.3e} (worst {gaps['live']['grad']['worst']}; bounds "
+        f"{live_bound}{'' if head in STAGE2_BOUNDS['live'] else ', by the witnesses'}); the "
+        f"tower rows' difference has RMS {rows_rms:.3e}; the witnesses against the all-plain "
+        "step from the pixels: "
+        + "; ".join(f"{w['kind']} (seed {w['seed']}): loss {w['loss']:.3e} (the kernel run's / "
+                    f"this {gaps['live']['loss'] / max(w['loss'], 1e-30):.3f}), gradients "
+                    f"{w['grad']['gap']:.3e} (the kernel run's / this "
+                    f"{gaps['live']['grad']['gap'] / max(w['grad']['gap'], 1e-30):.3f}; worst "
+                    f"{w['grad']['worst']})" for w in witnesses)
+        + "; these "
+        f"kernel steps against the CLI's: losses {rerun['loss']:.3e}, parameters "
+        f"{rerun['params']:.3e}; the frozen tensors unchanged by these "
+        f"{2 * len(batches) + 1 + len(witnesses)} "
+        f"steps: {unchanged}")
+    if (gaps["rows"]["loss"] > bounds["loss"] or gaps["rows"]["grad"]["gap"] > bounds["grad"]
+            or gaps["rows"]["params"] > bounds["params"]):
+        raise RuntimeError(f"{tag}: the kernel steps beyond STAGE2_BOUNDS['rows']: {gaps['rows']}")
+    if not (gaps["live"]["loss"] <= live_bound["loss"]
+            and gaps["live"]["grad"]["gap"] <= live_bound["grad"]):
+        raise RuntimeError(f"{tag}: the kernel step against the all-plain step from the pixels: "
+                           f"loss {gaps['live']['loss']}, gradients "
+                           f"{gaps['live']['grad']['gap']}, bounds {live_bound}")
+    fb = STAGE2_BOUNDS["frozen"][head]
+    if not (frozen_gap[0] <= fb[0] and frozen_gap[1] <= fb[1]):
+        raise RuntimeError(f"{tag}: the tower's rows against plain: {frozen_gap}, bound {fb}")
+    if not unchanged:
+        raise RuntimeError(f"{tag}: a frozen tensor changed in the comparison steps")
+    del model, fresh, start, k_grads, r_grads, l_grads, k_params, r_params, trained_after, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / step_ms * 1e3,
+            "peak_memory_gib": peak, "losses": [r["loss"] for r in steps],
+            "trainable_params": n_train, "launches": launches, "launches_step": per_step,
+            "frozen_tensors": len(frozen), "frozen_changed": len(changed),
+            "gaps": {"rows": {"loss": gaps["rows"]["loss"], "grad": gaps["rows"]["grad"]["gap"],
+                              "params": gaps["rows"]["params"]},
+                     "live": {"loss": gaps["live"]["loss"],
+                              "grad": gaps["live"]["grad"]["gap"], "bounds": live_bound},
+                     "frozen_rows": frozen_gap, "rows_rms": rows_rms,
+                     "witnesses": [{"kind": w["kind"], "seed": w["seed"], "loss": w["loss"],
+                                    "grad": w["grad"]["gap"]} for w in witnesses]},
+            "rerun_against_cli": rerun, "seconds": seconds}
+
+
+# 13c / 13d: cli/evaluate.py on eval/vqav2_zeroshot_opt_eval.yaml (blip2_opt /
+# pretrain_opt2.7b) and eval/gqa_zeroshot_flant5xl_eval.yaml (blip2_t5 /
+# pretrain_flant5xl): the bf16 EVA ViT-g at 224 px, the queries-only pass (K3),
+# the fp32 LLM's greedy answer of max_len 10 after "Question: {} Short answer:",
+# VQA_QUESTIONS seeded questions over as many PNG images (3 batches of 16), with
+# synthetic answers (ten a question for vqa, one for gqa)
+STAGE2_VQA = {"opt": ("eval/vqav2_zeroshot_opt_eval.yaml", "blip2_opt", "coco_vqa"),
+              "t5": ("eval/gqa_zeroshot_flant5xl_eval.yaml", "blip2_t5", "gqa")}
+VQA_QUESTIONS = 48
+VQA_BATCH_LAUNCHES = {"fused_vit_block": 39, "fused_qformer_layer": 12}
+# the chains' own kernels: the bf16 tower's and K3's fp32 ones
+VQA_CHAIN = ("gemm", "attention_bf16", "gemm_f32", "attention_f32", "layer_norm")
+# Bounds, fixed before the first reading: "frozen", the kernel run's rows after
+# ln_vision against the all-plain run's (phase 5's bound for this bf16 tower);
+# "queries" / "proj": the all-plain Q-Former (and projection) on the kernel run's
+# own rows against the kernel run's (K3's 12-layer chain in fp32: phase 12's
+# bounds); "llm": the all-plain LLM on the kernel run's projected rows (no
+# kernel: to the bit). The free-running all-plain run's query rows, projected
+# rows and logits are reported: its bf16 tower's rows differ from the kernel
+# tower's at the bf16 level, which the LLMs move by as much as the witness
+# shows; every decode step is held at CAPTION_WITNESS_FACTOR times the witness's
+# reading, and a row's answer may differ only where the steps so held show it
+VQA_BOUNDS = {"frozen": EVA_BOUNDS["frozen"], "queries": CAPTION_BOUNDS["queries"],
+              "proj": CAPTION_BOUNDS["proj"], "llm": CAPTION_BOUNDS["llm"]}
+# the witnesses' draws, (kind, seed) for _witness_rows; the steps are held at
+# CAPTION_WITNESS_FACTOR times the median of their readings. Shuffled draws:
+# white noise of the same RMS moves OPT-2.7b's step logits 3.6 to 3.9 times
+# less than the route's own difference does (three draws each, PERF.md §6),
+# another row's difference as much (1.03 to 1.06)
+VQA_WITNESS = [("shuffled", SEED + 140 + j) for j in range(3)]
+
+
+def _write_vqa(root, n, seed):
+    """``n`` seeded PNG images of mixed sizes under ``root`` and a question
+    each: ten answers with their types (VQAv2), and one (GQA)."""
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ann = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(160, 480, 2))
+        name = f"vqa{i:04d}.png"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+        words = [str(x) for x in rng.choice(STAGE1_WORDS, 3)]
+        ann.append({"image": name, "question": f"What is the {words[0]} {words[1]} near the "
+                                               f"{words[2]}?", "question_id": 9000 + i,
+                    "answers": [{"answer": str(rng.choice(words))} for _ in range(10)],
+                    "answer": str(rng.choice(words)), "question_type": "what is the",
+                    "answer_type": "other"})
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def phase_vqa(work, head):
+    """13c / 13d: the zero-shot VQA of one BLIP-2 stage-2 head (phase 13 of
+    the docstring)."""
+    import argparse
+    import inspect
+
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, arch, ds_name = STAGE2_VQA[head]
+    cls = registry.get_model_class(arch)
+    eos = inspect.signature(cls.generate_ids).parameters["eos_token_id"].default
+    tag = f"vqa {head}"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, f"vqa_{head}")
+    ann = _write_vqa(root, VQA_QUESTIONS, SEED + 130)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(name, {
+        "run": {"seed": SEED},
+        "datasets": {ds_name: {"build_info": {"annotations": {"val": [ann]}, "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    out_dir = os.path.join(work, f"vqa_{head}_out")
+    args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
+                              output_dir=out_dir)
+
+    def run_as(suffix):
+        return argparse.Namespace(**{**vars(args), "output_dir": out_dir + suffix})
+
+    # the clean run: timed and counted, nothing recorded
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    metrics = evaluate.evaluate(cfg, args, stats)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
+    task = cfg.run["task"]
+    with open(os.path.join(out_dir, "result", f"val_{task}_result.json")) as f:
+        result = json.load(f)
+    key = "answer" if task == "vqa" else "pred_ans"
+    batch = cfg.run["batch_size_eval"]
+    batches = -(-VQA_QUESTIONS // batch)
+    ms_token = stats["decode_s"] / max(stats["decode_steps"], 1) * 1e3
+    stages = ("image_encode_s", "qformer_s", "prefill_s", "decode_s")
+    log(f"[{tag}] {batches} batches of {batch}: seconds by stage "
+        + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
+        + f"; {stats['decode_steps']} cached decode steps, {ms_token:.2f} ms a decoded token "
+        f"({batch} rows); total {total_s:.2f} s; peak {peak:.2f} GiB; {len(result)} answers, "
+        f"e.g. {[r[key][:30] for r in result[:3]]}")
+    want = {k: v * batches for k, v in VQA_BATCH_LAUNCHES.items()}
+    log(f"[{tag}] launches: {launches}")
+    bad = {k: launches[k] for k in want if launches[k] != want[k]}
+    bad.update({k: launches[k] for k in VQA_CHAIN if launches[k] <= 0})
+    bad.update({k: v for k, v in launches.items()
+                if k not in want and k not in VQA_CHAIN and v != 0})
+    if bad:
+        raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the chains'")
+    if (len(result) != VQA_QUESTIONS or "agg_metrics" not in metrics
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise RuntimeError(f"{tag}: {len(result)} answers, metrics {metrics}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+
+    # the kernel route again, recorded; none of what follows is a main path's launch
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    kern = {}
+    with _recording_caption(cls, kern):
+        kern_metrics = evaluate.evaluate(cfg, run_as("_kern"), None)
+    model = kern.pop("model")
+    kern.pop("images"), kern.pop("step")
+    proj = model.opt_proj if head == "opt" else model.t5_proj
+    with torch.inference_mode(), primitives.plain_reference():
+        again = [model.embed_image_queries(f) for f in kern["frozen"]]
+        own = {"queries": max((a - q).abs().max().item() for a, q in zip(again, kern["queries"])),
+               "proj": max((proj(a) - p).abs().max().item() for a, p in zip(again, kern["proj"]))}
+    del model, again, proj
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run on the same weights, stage by stage, and the witness
+    plain = _all_plain_and_witness(cls, cfg, run_as, kern, eos, cfg.run["max_len"],
+                                   VQA_WITNESS)
+    readings, witnesses = plain["readings"], plain["witnesses"]
+    witness_steps = float(np.median([w["steps"] for w in witnesses]))
+    steps_bound = CAPTION_WITNESS_FACTOR * witness_steps
+    rows = sum(len(i) for i in kern["ids"])
+    log(f"[{tag}] the all-plain Q-Former on the kernel run's rows: queries max_abs "
+        f"{own['queries']:.3e}, projected {own['proj']:.3e}; the all-plain LLM on the kernel "
+        f"run's projected rows: logits max_abs {plain['llm']:.3e} (bounds {VQA_BOUNDS}); the "
+        "free-running all-plain run: "
+        + ", ".join(f"{k} max_abs {v[0]:.3e} mean_abs {v[1]:.3e}" for k, v in readings.items())
+        + f"; the kernel run's projected rows' difference has RMS "
+        f"{[float(f'{x:.3e}') for x in plain['noise_rms']]}; the witnesses: "
+        + "; ".join(f"{w['kind']} (seed {w['seed']}): prefill logits max_abs "
+                    f"{w['logits0']:.3e}, step logits max_abs {w['steps']:.3e} (the kernel "
+                    f"run's / this {plain['steps'] / max(w['steps'], 1e-30):.3f}), rows whose ids differ "
+                    f"{len(w['flips'])} of {rows} {w['flips']}" for w in witnesses)
+        + f"; the kernel run's step logits max_abs {plain['steps']:.3e} (bound "
+        f"{CAPTION_WITNESS_FACTOR} x the witnesses' median, {steps_bound:.3e}), rows whose answers "
+        f"differ {len(plain['flips'])} of {rows}: {plain['flips']}; all-plain (recorded) "
+        f"total {plain['seconds']:.2f} s, seconds by stage "
+        + ", ".join(f"{k} {plain['stats'][k]:.3f}" for k in stages)
+        + f"; metrics {'equal' if plain['metrics'] == metrics else plain['metrics']}; the "
+        f"recorded kernel run's {'equal the clean run' if kern_metrics == metrics else kern_metrics}")
+    checks = {"frozen": readings["frozen"], "queries": own["queries"], "proj": own["proj"],
+              "llm": plain["llm"], "steps": plain["steps"]}
+    bounds = dict(VQA_BOUNDS, steps=steps_bound)
+    past = {k: v for k, v in checks.items() if not np.all(np.asarray(v) <= np.asarray(bounds[k]))}
+    if past:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past {bounds}: "
+                           f"{past}")
+    if any(np.isnan(f[3]) for f in plain["flips"]):
+        raise RuntimeError(f"{tag}: answers differ where the steps do not show it: "
+                           f"{plain['flips']}")
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": metrics, "stage_seconds": {k: stats[k] for k in stages},
+            "decode_steps": stats["decode_steps"], "ms_per_token": ms_token, "total_s": total_s,
+            "peak_memory_gib": peak, "launches": launches,
+            "plain_stage_seconds": {k: plain["stats"][k] for k in stages},
+            "own_rows": own, "against_plain": {k: list(v) for k, v in readings.items()},
+            "llm_max_abs": plain["llm"], "step_logits_max_abs": plain["steps"],
+            "answers_differ": plain["flips"],
+            "noise_rms": plain["noise_rms"],
+            "witnesses": [{"kind": w["kind"], "seed": w["seed"], "logits0_max_abs": w["logits0"],
+                           "step_logits_max_abs": w["steps"], "ids_differ": w["flips"]}
+                          for w in witnesses],
+            "seconds": seconds}
 
 
 def kernel_table(rows, launches):
@@ -3406,7 +4028,36 @@ def kernel_table(rows, launches):
             ("attention_f32", "sprc_tpu_torch/csrc/attention.cu",
              "sprc_tpu/ops/pallas_attention.py:428", "attention D=88 fp32 S=677 B=16"),
             ("fused_qformer_layer", "sprc_tpu_torch/ops/fused_qformer.py",
-             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer caption queries"))]
+             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer caption queries"))] + [
+        # phase 13, BLIP-2 stage 2's training: the frozen tower without a graph, K2
+        # in fp32 at 364 px and batch 16 (caption_coco_blip2_ft.yaml; the caption
+        # path's checks) and in bf16 at 224 px and batch 32 (pretrain_stage2.yaml),
+        # each with its attention call; launches: 13a's / 13b's
+        entry(f"{kernel}_stage2_train_{head}", source, replaces, [check],
+              count=f"{kernel}_stage2_train_{head}",
+              library_ms=by_check[check].get("library_ms"))
+        for head, attention, checks in (
+            ("opt", "attention_f32", ("K2 vit_block eva_g fp32 S=677 B=16",
+                                      "attention D=88 fp32 S=677 B=16")),
+            ("t5", "attention_bf16", ("K2 vit_block eva_g B=32", "attention D=88 bf16 B=32")))
+        for kernel, source, replaces, check in (
+            ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609", checks[0]),
+            (attention, "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428", checks[1]))] + [
+        # phase 13's zero-shot VQA at its batch of 16: K2 in bf16 at 224 px, its
+        # attention call and K3's queries-only pass into 257 rows; launches: 13c's
+        # / 13d's
+        entry(f"{kernel}_vqa_{head}", source, replaces, [check], count=f"{kernel}_vqa_{head}",
+              library_ms=by_check[check].get("library_ms"))
+        for head in ("opt", "t5")
+        for kernel, source, replaces, check in (
+            ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609", "K2 vit_block eva_g B=16"),
+            ("attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428", "attention D=88 bf16 B=16"),
+            ("fused_qformer_layer", "sprc_tpu_torch/ops/fused_qformer.py",
+             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer vqa queries"))]
 
 
 def main():
@@ -3451,6 +4102,15 @@ def main():
         torch.cuda.empty_cache()
         caption[head] = phase_caption(work, head)
     instruct = phase_instruct()
+    stage2_train, vqa = {}, {}
+    for head in STAGE2_TRAIN:  # phase 13, one model on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        stage2_train[head] = phase_stage2_train(work, head)
+    for head in STAGE2_VQA:
+        gc.collect()
+        torch.cuda.empty_cache()
+        vqa[head] = phase_vqa(work, head)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -3481,6 +4141,12 @@ def main():
     for head, run in caption.items():  # phase 12
         launches.update({f"{k}_caption_{head}": run["launches"][k]
                          for k in ("fused_vit_block", "fused_qformer_layer", "attention_f32")})
+    for head, run in stage2_train.items():  # phase 13
+        launches.update({f"{k}_stage2_train_{head}": run["launches"][k]
+                         for k in ("fused_vit_block", "attention_f32", "attention_bf16")})
+    for head, run in vqa.items():
+        launches.update({f"{k}_vqa_{head}": run["launches"][k]
+                         for k in ("fused_vit_block", "fused_qformer_layer", "attention_bf16")})
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -3535,6 +4201,7 @@ def main():
                       "stage1_train": stage1_train,
                       "unfrozen_train_coco": unfrozen,
                       "caption_coco": caption, "instruct_synthetic": instruct,
+                      "stage2_train": stage2_train, "vqa_zeroshot": vqa,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

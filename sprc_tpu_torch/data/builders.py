@@ -15,13 +15,16 @@ A builder resolves a config dict into ``{split: dataset}``::
 
 The annotation schemas are the reference's: caption and pair data
 ``{"image", "caption", "image_id"}``; retrieval evaluation ``{"image",
-"caption": [...]}``. Nothing is downloaded: annotations and images must be
-on disk. Registered: the image builders of the JAX package
-(``coco_caption``, ``nocaps``, ``vg_caption``, ``sbu_caption``,
-``conceptual_caption_3m`` / ``_12m``, ``laion2B_multi``, ``coco_retrieval``,
-``flickr30k``); the video, VQA, NLVR and dialogue builders come with their
-families. The classes repeat the JAX ones line for line (a test builds
-both on the same files).
+"caption": [...]}``; VQA ``{"image", "question", "answer": [...]}`` (with
+``"weights"``, ``"question_id"``, ``"direct_answers"`` where the split has
+them). Nothing is downloaded: annotations and images must be on disk.
+Registered: the image builders of the JAX package (``coco_caption``,
+``nocaps``, ``vg_caption``, ``sbu_caption``, ``conceptual_caption_3m`` /
+``_12m``, ``laion2B_multi``, ``coco_retrieval``, ``flickr30k``, and the VQA
+builders ``coco_vqa``, ``ok_vqa``, ``aok_vqa``, ``gqa``, ``vg_vqa``); the
+video, NLVR and dialogue builders come with their families (ROADMAP A8.6).
+The classes repeat the JAX ones line for line (a test builds both on the
+same files).
 """
 
 from __future__ import annotations
@@ -142,6 +145,38 @@ class RetrievalEvalDataset(AnnotationDataset):
         return {"image": self._media(ann), "index": index}
 
 
+class VQADataset(AnnotationDataset):
+    """(image, question, weighted answers) (vqa_datasets.py:15-50)."""
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        answers = ann.get("answer", ann.get("answers", []))
+        if isinstance(answers, str):
+            answers = [answers]
+        weights = ann.get("weights")
+        if weights is None:
+            uniq: Dict[str, float] = {}
+            for a in answers:
+                uniq[a] = uniq.get(a, 0.0) + 1.0 / max(len(answers), 1)
+            answers, weights = list(uniq), list(uniq.values())
+        return {"image": self._media(ann), "text_input": self.text_processor(ann["question"]),
+                "answers": answers, "weights": weights}
+
+
+class VQAEvalDataset(AnnotationDataset):
+    """(image, question, its id) and the ground truth where the split has
+    it (None on leaderboard splits): GQA's exact-match target
+    (gqa_datasets.py:60) and AOKVQA's direct answers (aokvqa_datasets.py:79)."""
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        answer = ann.get("answer")
+        return {"image": self._media(ann), "text_input": self.text_processor(ann["question"]),
+                "question_id": ann.get("question_id", ann["instance_id"]),
+                "answer": answer[0] if isinstance(answer, list) and answer else answer,
+                "direct_answers": ann.get("direct_answers")}
+
+
 class DatasetBuilder:
     """Config -> {split: dataset} (base_dataset_builder.py:23-120, minus the
     download step)."""
@@ -193,3 +228,5 @@ for _n in ("conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi"):
     _register(_n, ImageTextPairDataset, None)
 for _n in ("coco_retrieval", "flickr30k"):
     _register(_n, RetrievalDataset, RetrievalEvalDataset)
+for _n in ("coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"):
+    _register(_n, VQADataset, VQAEvalDataset)

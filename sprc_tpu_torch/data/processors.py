@@ -7,7 +7,8 @@ src/lavis/processors/blip_processors.py).
   list) + normalize;
 - ``blip2_image_train`` (:197-239): the same without RandAugment;
 - ``blip_image_eval`` (:166-194): resize to (dim, dim) bicubic + normalize;
-- ``blip_caption``: the port's :class:`~sprc_tpu_torch.text.processors.CaptionProcessor`.
+- ``blip_caption``: the port's :class:`~sprc_tpu_torch.text.processors.CaptionProcessor`;
+- ``blip_question``: its :class:`~sprc_tpu_torch.text.processors.QuestionProcessor`.
 
 Host-side (PIL + numpy), float32 HWC arrays out. Every random draw comes
 from the processor's ``numpy.random.RandomState`` in the JAX package's order,
@@ -24,7 +25,7 @@ from typing import Sequence
 import numpy as np
 
 from sprc_tpu_torch.registry import registry
-from sprc_tpu_torch.text.processors import CaptionProcessor
+from sprc_tpu_torch.text.processors import CaptionProcessor, QuestionProcessor
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -177,3 +178,4 @@ registry.register_processor("blip2_image_train")(
     )
 )
 registry.register_processor("blip_caption")(CaptionProcessor)
+registry.register_processor("blip_question")(QuestionProcessor)

@@ -770,10 +770,19 @@ RETRIEVAL_SIM = (25000, 5000)
 # its 677 rows, at the YAML's batch_size_eval of 16
 CAPTION_BATCH = 16
 CAPTION_SHAPES = {"caption queries": (CAPTION_BATCH, 32, True, False, RETRIEVAL_MEMORY)}
+# BLIP-2 stage 2's training and zero-shot VQA: pretrain_stage2.yaml's frozen bf16
+# EVA ViT-g at 224 px and its batch of 32 (caption_coco_blip2_ft.yaml's fp32 tower
+# at 364 px and batch 16 is the caption path's check), and the VQA YAMLs'
+# batch_size_eval of 16 through the bf16 tower and the queries-only pass into
+# its 257 rows (the training steps run the Q-Former unfused)
+STAGE2_TRAIN_BATCH = 32
+VQA_BATCH = 16
+VQA_SHAPES = {"vqa queries": (VQA_BATCH, 32, True, False, 257)}
 SHAPE_Q = {"text": 0, "slt prompt": 4, "coco text": 0}  # query rows where they are not 32
 # image rows' width where it is not 1024
-SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES)}
-QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES, **CAPTION_SHAPES}
+SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES, *VQA_SHAPES)}
+QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES, **CAPTION_SHAPES,
+             **VQA_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
@@ -2157,6 +2166,24 @@ def run_caption(device="cuda") -> List[dict]:
                  **check_qformer_layer("caption queries", device))]
 
 
+def run_stage2(device="cuda") -> List[dict]:
+    """The checks of BLIP-2 stage 2's training and zero-shot VQA paths that
+    the caption path's do not cover: K2 in bf16 at 224 px (S = 257, EVA
+    ViT-g's block) and its bf16 attention call (packed qkv, D 88) at
+    pretrain_stage2.yaml's batch of 32 and at the VQA batch of 16, and K3's
+    queries-only pass into the 257 rows (:data:`VQA_SHAPES`)."""
+    W, M, heads, quick, eps = TOWERS["eva_g"]
+    rows = []
+    for B in (STAGE2_TRAIN_BATCH, VQA_BATCH):
+        rows += [dict(check=f"K2 vit_block eva_g B={B}",
+                      **check_vit_block(device, B=B, W=W, M=M, heads=heads, quick=quick,
+                                        eps=eps)),
+                 dict(check=f"attention D=88 bf16 B={B}",
+                      **check_attention(88, torch.bfloat16, device, B=B))]
+    return rows + [dict(check="K3 qformer_layer vqa queries",
+                        **check_qformer_layer("vqa queries", device))]
+
+
 # ---------------------------------------------- the Functions of a tower that trains
 
 # The autograd Functions of K2, K6, K7 and K8 (a tower that trains, BLIP-2
@@ -2382,4 +2409,5 @@ def run_all(device="cuda") -> List[dict]:
     rows += [dict(check="gemm bf16 ablate 4096^3", **check_gemm_bf16_ablate(device)),
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
-            + run_unfrozen(device) + run_caption(device) + run_edges(device))
+            + run_unfrozen(device) + run_caption(device) + run_stage2(device)
+            + run_edges(device))

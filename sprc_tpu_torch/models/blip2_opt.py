@@ -10,8 +10,14 @@ has no text side and the model no retrieval heads
 it, loads with ``strict=True``.
 
 :meth:`Blip2OPT.forward` is the LM loss (labels -100 over the queries, the
-``prompt_length`` prefix and the pads), a forward only: training the head
-waits for its slice (ROADMAP A8). :meth:`Blip2OPT.generate_ids` is the
+``prompt_length`` prefix and the pads), the training forward of
+``train/generic.py``: ``FROZEN_PREFIXES`` (the JAX model's ``("visual_encoder",
+"opt")`` in the port's module names) keep the tower and the OPT out of the
+gradient and the optimizer, whatever ``freeze_vit`` says (the COCO row says
+false), so the tower runs without a graph (K2 on the card) and the gradient
+flows through the frozen OPT's activations into ``opt_proj``, the Q-Former
+(unfused in training mode, its dropout drawn from ``generator``),
+``query_tokens`` and ``ln_vision``. :meth:`Blip2OPT.generate_ids` is the
 greedy caption decode, KV-cached (prefill of ``[queries | prompt]``, then
 :func:`~sprc_tpu_torch.models.generation.cached_greedy_loop`) or with the
 whole sequence recomputed every token (the JAX recompute loop; the image
@@ -34,14 +40,16 @@ Tensor = torch.Tensor
 
 
 def query_prefix(model: Blip2CirBase, proj: Linear, images: Tensor,
-                 stats: Optional[Dict[str, float]]) -> Tensor:
+                 stats: Optional[Dict[str, float]],
+                 generator: Optional[torch.Generator] = None) -> Tensor:
     """images -> the projected query rows [B, Q, h]; ``stats`` gets
     ``image_encode_s`` (tower and ln_vision) and ``qformer_s`` (the
-    queries-only pass and the projection)."""
+    queries-only pass and the projection); ``generator``: the Q-Former's
+    dropout masks in training mode."""
     with generation.stage(stats, "image_encode_s", images.device):
         image_embeds = model.encode_image(images)
     with generation.stage(stats, "qformer_s", images.device):
-        return proj(model.embed_image_queries(image_embeds))
+        return proj(model.embed_image_queries(image_embeds, generator))
 
 
 def lm_loss(logits: Tensor, labels: Tensor) -> Tensor:
@@ -57,17 +65,19 @@ class Blip2OPT(Blip2CirBase):
     """LM captioning through a frozen OPT decoder."""
 
     RETRIEVAL_HEADS = False
+    FROZEN_PREFIXES = ("visual_encoder", "opt_model")
 
     def __init__(self, cfg: CirConfig, opt_config: OPTConfig = OPTConfig()):
         super().__init__(cfg)
         self.opt_config = opt_config
         self.opt_model = OPTForCausalLM(opt_config)
-        self.opt_model.requires_grad_(False)
         qcfg = cfg.qformer_config()
         self.opt_proj = Linear(qcfg.hidden_size, opt_config.hidden_size, dtype=qcfg.dtype)
+        self.freeze_prefixes()
 
-    def inputs_opt(self, images: Tensor, stats: Optional[Dict[str, float]] = None) -> Tensor:
-        return query_prefix(self, self.opt_proj, images, stats)
+    def inputs_opt(self, images: Tensor, stats: Optional[Dict[str, float]] = None,
+                   generator: Optional[torch.Generator] = None) -> Tensor:
+        return query_prefix(self, self.opt_proj, images, stats, generator)
 
     def _prefix(self, inputs_opt: Tensor, ids: Tensor, mask: Tensor):
         """``[queries | tokens]`` embeddings and their mask."""
@@ -77,11 +87,13 @@ class Blip2OPT(Blip2CirBase):
         return embeds, torch.cat([mask.new_ones(B, Q), mask], dim=1)
 
     def forward(self, images: Tensor, opt_input_ids: Tensor, opt_mask: Tensor, *,
-                pad_token_id: int = 1, prompt_length: int = 0) -> Dict[str, Tensor]:
+                pad_token_id: int = 1, prompt_length: int = 0,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """-> {"loss", "logits" [B, Q + L, V]}: the LM loss over the caption
-        tokens (``sprc_tpu/models/blip2_opt.py:51-88``)."""
+        tokens (``sprc_tpu/models/blip2_opt.py:51-88``); ``generator``: the
+        Q-Former's dropout in training mode (JAX's ``deterministic=False``)."""
         B, L = opt_input_ids.shape
-        inputs_opt = self.inputs_opt(images)
+        inputs_opt = self.inputs_opt(images, generator=generator)
         Q = inputs_opt.shape[1]
         embeds, mask = self._prefix(inputs_opt, opt_input_ids, opt_mask)
         logits = self.opt_model.logits(self.opt_model.hidden_states(embeds, mask))

@@ -5,8 +5,9 @@ src/lavis/models/blip2_models/blip2_t5.py).
 The frozen tower -> ``ln_vision`` -> the Q-Former's queries-only pass (K2,
 K3 on the card) -> ``t5_proj`` -> the 32 query rows prepended to the prompt's
 token embeddings in the frozen T5 ENCODER. :meth:`Blip2T5.forward` is the
-seq2seq loss (decoder teacher forcing with T5's shift-right, pads -100), a
-forward only (training waits for its slice, ROADMAP A8);
+seq2seq loss (decoder teacher forcing with T5's shift-right, pads -100), the
+training forward of ``train/generic.py``'s seq2seq adapter, with the tower
+and the T5 frozen by ``FROZEN_PREFIXES`` as ``blip2_opt``'s;
 :meth:`Blip2T5.generate_ids` decodes greedily from the decoder start token
 0, KV-cached or recomputing the decoder every token. As for ``blip2_opt``,
 the Q-Former has no text side and the model no retrieval heads.
@@ -33,21 +34,23 @@ class Blip2T5(Blip2CirBase):
     """Seq2seq captioning through a frozen T5."""
 
     RETRIEVAL_HEADS = False
+    FROZEN_PREFIXES = ("visual_encoder", "t5_model")  # the JAX ("visual_encoder", "t5")
 
     def __init__(self, cfg: CirConfig, t5_config: T5Config = T5Config()):
         super().__init__(cfg)
         self.t5_config = t5_config
         self.t5_model = T5ForConditionalGeneration(t5_config)
-        self.t5_model.requires_grad_(False)
         qcfg = cfg.qformer_config()
         self.t5_proj = Linear(qcfg.hidden_size, t5_config.d_model, dtype=qcfg.dtype)
+        self.freeze_prefixes()
 
     def encode(self, images: Tensor, input_ids: Tensor, input_mask: Tensor,
-               stats: Optional[Dict[str, float]] = None) -> Tuple[Tensor, Tensor]:
+               stats: Optional[Dict[str, float]] = None,
+               generator: Optional[torch.Generator] = None) -> Tuple[Tensor, Tensor]:
         """The encoder over ``[t5_proj(queries) | prompt]`` -> (memory, its
         mask); ``stats`` as :meth:`generate_ids` says (the encoder is part of
-        ``prefill_s``)."""
-        inputs_t5 = query_prefix(self, self.t5_proj, images, stats)
+        ``prefill_s``); ``generator``: the Q-Former's dropout in training mode."""
+        inputs_t5 = query_prefix(self, self.t5_proj, images, stats, generator)
         with generation.stage(stats, "prefill_s", images.device):
             tok = self.t5_model.embed(input_ids.long())
             B, Q = inputs_t5.shape[:2]
@@ -57,10 +60,12 @@ class Blip2T5(Blip2CirBase):
 
     def forward(self, images: Tensor, input_ids: Tensor, input_mask: Tensor, output_ids: Tensor,
                 output_mask: Tensor, *, pad_token_id: int = 0,
-                decoder_start_token_id: int = 0) -> Dict[str, Tensor]:
+                decoder_start_token_id: int = 0,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """-> {"loss", "logits" [B, L_out, V]}
-        (``sprc_tpu/models/blip2_t5.py:58-88``)."""
-        enc_out, enc_mask = self.encode(images, input_ids, input_mask)
+        (``sprc_tpu/models/blip2_t5.py:58-88``); ``generator`` as
+        :meth:`Blip2OPT.forward`'s."""
+        enc_out, enc_mask = self.encode(images, input_ids, input_mask, generator=generator)
         output_ids = output_ids.long()
         dec_in = torch.cat([output_ids.new_full((output_ids.shape[0], 1), decoder_start_token_id),
                             output_ids[:, :-1]], dim=1)

@@ -23,7 +23,11 @@ launch kernel K2 on every live step; ``ln_vision`` and everything after it
 train. With ``freeze_vit=False`` (BLIP-2 stage 1's ``coco`` fine-tune) the
 tower trains too: it takes training mode, runs with a graph and gets its
 gradient through the kernels' autograd Functions (``models/vit.py``), as
-the JAX model, which stops the gradient only under ``freeze_vit``.
+the JAX model, which stops the gradient only under ``freeze_vit``. A class
+whose ``FROZEN_PREFIXES`` name ``visual_encoder`` (the BLIP-2 stage-2 heads)
+keeps its tower frozen whatever ``freeze_vit`` says, as the JAX optimizer's
+partition does: no tower tensor takes a gradient or an update, and the
+tower runs without a graph, so K2 launches as in serving.
 :meth:`encode_tower` is the boundary the feature cache stores
 (``sprc_tpu_torch/train/feature_cache.py``); ``forward_cached`` trains
 every model from it (the JAX base's generic ``forward_cached``).
@@ -125,6 +129,10 @@ class Blip2CirBase(nn.Module):
     # vision / text projections, no ITM head, and a Q-Former without its
     # text side; the JAX init of those heads holds none of them
     RETRIEVAL_HEADS = True
+    # the parameter-name prefixes that neither take a gradient nor an update
+    # (the JAX model's FROZEN_PREFIXES, in the port's module names); a class
+    # that sets them calls :meth:`freeze_prefixes` once its modules exist
+    FROZEN_PREFIXES: Tuple[str, ...] = ()
 
     def __init__(self, cfg: CirConfig):
         super().__init__()
@@ -150,19 +158,32 @@ class Blip2CirBase(nn.Module):
     def qformer(self) -> QFormer:
         return self.Qformer["bert"]
 
+    def freeze_prefixes(self) -> None:
+        """``requires_grad`` off for every parameter under
+        :attr:`FROZEN_PREFIXES`."""
+        for name, p in self.named_parameters():
+            if name.startswith(self.FROZEN_PREFIXES):
+                p.requires_grad_(False)
+
+    @property
+    def tower_frozen(self) -> bool:
+        """The tower takes no gradient: ``freeze_vit``, or the class's
+        ``FROZEN_PREFIXES`` hold it."""
+        return self.cfg.freeze_vit or "visual_encoder" in self.FROZEN_PREFIXES
+
     def train(self, mode: bool = True) -> "Blip2CirBase":
         """Training mode for everything but a frozen tower, which stays in
         eval mode (LAVIS ``disabled_train``). A trainable tower takes
         training mode, as in LAVIS; it has no dropout, so no value changes."""
         super().train(mode)
-        if self.cfg.freeze_vit:
+        if self.tower_frozen:
             self.visual_encoder.eval()
         return self
 
     def tower_grad(self):
-        """The context a training forward runs the tower in: ``no_grad`` for
-        a frozen tower, none for a trainable one."""
-        return torch.no_grad() if self.cfg.freeze_vit else contextlib.nullcontext()
+        """The context the tower runs in: ``no_grad`` for a frozen tower,
+        none for a trainable one."""
+        return torch.no_grad() if self.tower_frozen else contextlib.nullcontext()
 
     # ---------------------------------------------------------------- towers
 
@@ -172,14 +193,16 @@ class Blip2CirBase(nn.Module):
 
     def encode_image(self, images: Tensor) -> Tensor:
         """images [B, H, W, 3] -> image embeddings [B, S, D] fp32 (ln_vision
-        of the tower features)."""
-        return self.ln_vision(self.encode_tower(images).float())
+        of the tower features); the tower without a graph where it is frozen."""
+        with self.tower_grad():
+            tower = self.encode_tower(images)
+        return self.ln_vision(tower.float())
 
     def embed_cached(self, tower_feats: Tensor) -> Tensor:
         """Cached or live tower features -> fp32 ln_vision embeddings; with
         ``freeze_vit`` no gradient flows into the tower (JAX's
         ``stop_gradient``)."""
-        if self.cfg.freeze_vit:
+        if self.tower_frozen:
             tower_feats = tower_feats.detach()
         return self.ln_vision(tower_feats.float())
 

@@ -331,9 +331,7 @@ class CirRerank(Blip2CirBase, _HardNegMixin):
         self.query_tokens_f = nn.Parameter(torch.empty(1, cfg.num_query_token, H))
         self.vision_proj_f = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
         self.text_proj_f = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)
-        for name, p in self.named_parameters():
-            if name.startswith(self.FROZEN_PREFIXES):
-                p.requires_grad_(False)
+        self.freeze_prefixes()
 
     @property
     def fformer(self) -> QFormer:

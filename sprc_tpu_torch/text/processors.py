@@ -8,8 +8,8 @@ strip a fixed punctuation class, collapse whitespace, truncate to
 The port's own copy of what validation uses from
 ``sprc_tpu/text/processors.py`` (it imports nothing of ``sprc_tpu``);
 tests/test_torch_inputs.py pins the two equal (the train-time caption
-randomisation: tests/test_torch_train_data.py). The VQA question processor
-comes with VQA.
+randomisation: tests/test_torch_train_data.py; the VQA question processor:
+tests/test_torch_vqa.py).
 """
 
 from __future__ import annotations
@@ -65,3 +65,23 @@ def randomize_fiq_captions(flattened_captions: List[str], rng) -> List[str]:
         else:
             out.append(b.capitalize())
     return out
+
+
+class QuestionProcessor:
+    """VQA question cleanup (reference blip_processors.py:71-101): strip
+    punctuation (removed, not space-replaced, unlike captions), lowercase,
+    truncate to max_words."""
+
+    def __init__(self, max_words: int = 50):
+        self.max_words = max_words
+
+    def __call__(self, question: str) -> str:
+        return self.pre_question(question)
+
+    def pre_question(self, question: str) -> str:
+        question = re.sub(r"([.!\"()*#:;~])", "", question.lower())
+        question = question.rstrip(" ")
+        words = question.split(" ")
+        if len(words) > self.max_words:
+            question = " ".join(words[: self.max_words])
+        return question

@@ -18,22 +18,38 @@ What the JAX run does and the port keeps:
 - the epoch's order is ``RandomState(seed + epoch).permutation``, and the
   last partial batch is dropped;
 - ``run.weight_decay`` (0.05 by default) is AdamW's;
-- the frozen partition is the model's ``FROZEN_PREFIXES``, which
-  ``Blip2Stage1`` does not have: a frozen tower (``pretrain``), cut off
-  from the losses by a stop-gradient only, stays in AdamW's partition with
-  zero gradients, so every update decays it by ``lr x weight_decay``
+- the frozen partition is the model's ``FROZEN_PREFIXES``. The BLIP-2
+  stage-2 heads have them (the tower and the LLM: ``("visual_encoder",
+  "opt_model")``, ``("visual_encoder", "t5_model")``): those tensors take no
+  gradient, no moments and no update, as JAX's ``set_to_zero`` leaves, even
+  on the COCO caption row whose YAML sets ``freeze_vit: false``, so only
+  ``ln_vision``, the Q-Former, ``query_tokens``, the projection and ``temp``
+  (no gradient reaches it, so AdamW decays it) train. ``Blip2Stage1`` has
+  none: a frozen tower (``pretrain``), cut off from the losses by a
+  stop-gradient only, stays in AdamW's partition with zero gradients, so
+  every update decays it by ``lr x weight_decay``
   (``Trainer(decay_frozen=True)``, with fp32 masters for a bf16 tower);
   LAVIS takes a frozen tower out of the optimizer instead (ROADMAP Queue C).
-  A ``coco`` model type (``freeze_vit: false``) trains its tower: every
-  tower tensor gets its gradient and AdamW moments, as in the JAX run;
-- ``run.skip_nonfinite`` (on by default) and the consecutive-skip abort.
+  A stage-1 ``coco`` model type (``freeze_vit: false``) trains its tower:
+  every tower tensor gets its gradient and AdamW moments, as in the JAX run;
+- ``run.skip_nonfinite`` (on by default) and the consecutive-skip abort;
+- ``run.tokenizer`` (``{opt | t5: tokenizer.json}``) tokenizes with the
+  LLM's own tokenizer; without it, the BERT WordPiece tokenizer of
+  ``--vocab-path``. Under that fallback the OPT head masks its default pad
+  id 1 (BERT's ``[UNK]``) and not BERT's pads (0), which count in the loss,
+  as in the JAX run (the adapter passes no ``pad_token_id``);
+- the caption adapter passes no ``prompt_length``: no prompt prefix is
+  masked (LAVIS masks the model YAML's ``"a photo of"``).
 
 Adapters: ``image_text_pretrain`` (:class:`PretrainAdapter`) and
-``captioning`` (:class:`CaptionAdapter`) for the parameter-only families,
-which in the port are BLIP-2 stage 1 (``blip2``,
-``blip2_feature_extractor``, ``blip2_image_text_matching``). The other
-task names of the JAX table refuse by name: their families come with
-ROADMAP A8.
+``captioning`` (:class:`CaptionAdapter`; :class:`Seq2SeqCaptionAdapter`
+for ``blip2_t5``) for the parameter-only families, which in the port are
+BLIP-2 stage 1 (``blip2``, ``blip2_feature_extractor``,
+``blip2_image_text_matching``) and stage 2's ``blip2_opt`` and
+``blip2_t5``. The other task names of the JAX table refuse by name, with
+their ROADMAP entry: VQA training (``vqa``, ``gqa``, ``aok_vqa``) trains
+BLIP-1 / ALBEF's VQA models (A8.6), as do ``retrieval``,
+``multimodal_classification`` and ``dialogue``.
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -64,15 +80,48 @@ class CaptionAdapter:
         return {"images": np.stack([np.asarray(it["image"], np.float32) for it in items]),
                 "input_ids": tok["input_ids"], "text_mask": tok["attention_mask"]}
 
-    def specialize(self, model):
-        """Parameter-only families keep this adapter; the port has no other
-        (``Blip2T5``'s seq2seq adapter comes with it, ROADMAP A8)."""
-        from sprc_tpu_torch.models.blip2_stage1 import Blip2Stage1
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator):
+        """The model's training outputs on one collated batch (JAX's
+        ``loss_fn``)."""
+        return model(batch["images"], batch["input_ids"], batch["text_mask"],
+                     generator=generator)
 
-        if not isinstance(model, Blip2Stage1):
+    def specialize(self, model):
+        """``Blip2T5`` is seq2seq (prompt in the encoder, caption in the
+        decoder); stage 1 and ``Blip2OPT`` keep the decoder-only contract;
+        another family refuses (ROADMAP A8.6)."""
+        from sprc_tpu_torch.models.blip2_opt import Blip2OPT
+        from sprc_tpu_torch.models.blip2_stage1 import Blip2Stage1
+        from sprc_tpu_torch.models.blip2_t5 import Blip2T5
+
+        if isinstance(model, Blip2T5):
+            return Seq2SeqCaptionAdapter(self.tokenizer, self.max_txt_len)
+        if not isinstance(model, (Blip2Stage1, Blip2OPT)):
             raise SystemExit(f"{type(model).__name__}: no generic adapter in the port "
-                             "(its family is ROADMAP A8)")
+                             "(its family is ROADMAP A8.6)")
         return self
+
+
+class Seq2SeqCaptionAdapter(CaptionAdapter):
+    """Caption training of the BLIP-2 T5 head (``sprc_tpu/train/generic.py:
+    75-115``): the prompt (``""``) is the encoder's input at ``max_length``
+    4, the caption the decoder's output, its pads masked; the pad and the
+    decoder's start id are both the tokenizer's ``pad_id``."""
+
+    prompt: str = ""
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        in_tok = self.tokenizer([self.prompt or "" for _ in items], max_length=4)
+        out_tok = self.tokenizer([it["text_input"] for it in items], max_length=self.max_txt_len)
+        return {"images": np.stack([np.asarray(it["image"], np.float32) for it in items]),
+                "input_ids": in_tok["input_ids"], "input_mask": in_tok["attention_mask"],
+                "output_ids": out_tok["input_ids"], "output_mask": out_tok["attention_mask"]}
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator):
+        pad_id = getattr(self.tokenizer, "pad_id", 0)
+        return model(batch["images"], batch["input_ids"], batch["input_mask"],
+                     batch["output_ids"], batch["output_mask"], pad_token_id=pad_id,
+                     decoder_start_token_id=pad_id, generator=generator)
 
 
 class PretrainAdapter(CaptionAdapter):
@@ -84,8 +133,9 @@ class PretrainAdapter(CaptionAdapter):
 
 def _not_ported(task: str):
     def refuse(*_a, **_k):
-        raise SystemExit(f"run.task {task!r}: its adapter and models are not ported "
-                         "(ROADMAP A8)")
+        raise SystemExit(f"run.task {task!r}: its adapter and models (BLIP-1, ALBEF, ALPRO, "
+                         "the GPT dialogue) are not ported (ROADMAP A8.6)")
+    refuse.not_ported = True
     return refuse
 
 
@@ -125,11 +175,31 @@ class BuilderTask(BaseTask):
 
 
 class GenericTrainer(Trainer):
-    """The Trainer over a (images, input_ids, text_mask) forward."""
+    """The Trainer over an adapter's forward (default: the caption collate's
+    (images, input_ids, text_mask))."""
+
+    def __init__(self, model, cfg, *, adapter=None, **kw):
+        super().__init__(model, cfg, **kw)
+        self.adapter = adapter or CaptionAdapter(None)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self.model(batch["images"], batch["input_ids"], batch["text_mask"],
-                          generator=self.generator)
+        return self.adapter.forward(self.model, batch, self.generator)
+
+
+def llm_tokenizer(run: dict, default):
+    """``run.tokenizer`` = {opt | t5: tokenizer.json} -> that LLM's tokenizer
+    (``text/llm_tokenizers.py``); without it, ``default()``. LLaMA's waits
+    for its heads (ROADMAP A8.3)."""
+    tok_cfg = run.get("tokenizer")
+    if not isinstance(tok_cfg, dict):
+        return default()
+    from sprc_tpu_torch.text.llm_tokenizers import opt_tokenizer, t5_tokenizer
+
+    (kind, path), = tok_cfg.items()
+    if kind == "llama":
+        raise SystemExit("run.tokenizer llama: the LLaMA heads come with their family "
+                         "(ROADMAP A8.3)")
+    return {"opt": opt_tokenizer, "t5": t5_tokenizer}[kind](path)
 
 
 def run_generic(cfg, args) -> Dict[str, float]:
@@ -149,14 +219,14 @@ def run_generic(cfg, args) -> Dict[str, float]:
     if task_name not in TASK_ADAPTERS:
         raise ValueError(f"run.task {task_name!r} has no generic adapter (available: "
                          f"{sorted(TASK_ADAPTERS)}); CIR tasks go through cli.finetune")
+    if getattr(TASK_ADAPTERS[task_name], "not_ported", False):
+        TASK_ADAPTERS[task_name]()
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
-    if arch not in loader.STAGE1_MODELS:
-        raise SystemExit(f"model {arch!r}: not ported for generic training (ROADMAP A8)")
-    if isinstance(run.get("tokenizer"), dict):
-        raise SystemExit("run.tokenizer: the LLM tokenizers come with the LLM families "
-                         "(ROADMAP A8)")
+    if arch not in loader.STAGE1_MODELS + loader.LLM_HEADS:
+        raise SystemExit(f"model {arch!r}: not ported for generic training (LLaMA heads: "
+                         "ROADMAP A8.3; BLIP-1, ALBEF and the rest of the zoo: ROADMAP A8.6)")
 
     datasets_cfg = dict(cfg.datasets or {})
     assert len(datasets_cfg) == 1, "one dataset builder per run config"
@@ -171,8 +241,8 @@ def run_generic(cfg, args) -> Dict[str, float]:
     seed = int(run.get("seed", 42))
     model = loader.load_model(arch, model_type, checkpoint_path=getattr(args, "model_path", None),
                               device=device, seed=seed, **model_cfg)
-    tokenizer = BertWordPieceTokenizer.from_vocab_file(
-        ensure_bert_vocab(getattr(args, "vocab_path", None)))
+    tokenizer = llm_tokenizer(run, lambda: BertWordPieceTokenizer.from_vocab_file(
+        ensure_bert_vocab(getattr(args, "vocab_path", None))))
     adapter = TASK_ADAPTERS[task_name](tokenizer, max_txt_len=int(run.get("max_txt_len", 35)))
     adapter = adapter.specialize(model)
     batch_size = int(run.get("batch_size", 8))
@@ -185,10 +255,11 @@ def run_generic(cfg, args) -> Dict[str, float]:
         weight_decay=float(run.get("weight_decay", 0.05)),
         total_steps=int(run.get("total_steps", run.get(
             "max_iters", max_epochs * task.steps_per_epoch()))))
-    # the stage-1 models have no FROZEN_PREFIXES: a frozen tower decays
-    trainer = GenericTrainer(model, tcfg, seed=seed,
+    # the stage-1 models have no FROZEN_PREFIXES: a frozen tower decays; the
+    # stage-2 heads' frozen prefixes take no update
+    trainer = GenericTrainer(model, tcfg, seed=seed, adapter=adapter,
                              skip_nonfinite=bool(run.get("skip_nonfinite", True)),
-                             decay_frozen=True)
+                             decay_frozen=not getattr(model, "FROZEN_PREFIXES", ()))
     rcfg = RunnerConfig(output_dir=args.output_dir, max_epochs=max_epochs,
                         log_every_steps=int(run.get("log_freq", 10)),
                         resume=getattr(args, "resume", None),

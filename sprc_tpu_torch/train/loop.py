@@ -8,9 +8,11 @@ package has it:
   tensor, with no decay mask (``optax.adamw``), and the OneCycle schedule
   counted in optimizer updates. The rule for which tensors it touches: every
   tensor with ``requires_grad``. The model turns it off for the frozen
-  tower and for its class's ``FROZEN_PREFIXES`` (the rerank model's twin),
+  tower and for its class's ``FROZEN_PREFIXES`` (the rerank model's twin;
+  the BLIP-2 stage-2 heads' tower and LLM, whatever ``freeze_vit`` says),
   as the JAX package's ``frozen_prefixes`` partition gives those leaves
-  ``set_to_zero``; they get no update. A trainable tensor the losses do not
+  ``set_to_zero``: they get no gradient, no moments and no update. A
+  trainable tensor the losses do not
   reach (the flagship's ``itm_head``, the rerank model's ``vision_proj`` /
   ``text_proj``) gets a zero gradient and so decays, as an optax leaf does.
   optax updates only the leaves its tree holds, and a tree from the JAX
@@ -19,7 +21,10 @@ package has it:
   holds them (a strict load needs them) one step is the same in both
   (``tests/test_torch_variants_eval.py``).
 - loss = loss_itc + 0.4 loss_rtc + 0.4 loss_align, every other loss a
-  variant returns (``loss_itm``, ``loss_p2p``) at weight 1, as in JAX.
+  variant returns (``loss_itm``, ``loss_p2p``) at weight 1, as in JAX (the
+  LM heads' one ``loss`` among them); only a forward's scalar outputs are
+  losses (the LM heads also return logits), as the JAX generic step's
+  ``_total_and_scalars``.
 - ``TrainConfig.layer_decay``: per-layer learning-rate scales for a
   trainable tower, as the JAX package's ``layer_decay_scales`` (LAVIS'
   ``lr_layer_decay``; :func:`layer_decay_scales`), applied to the whole
@@ -152,7 +157,7 @@ class Trainer:
         self.model.train()
         for p in self.params:
             p.grad = None
-        losses = self.forward(batch)
+        losses = {k: v for k, v in self.forward(batch).items() if v.ndim == 0}
         weights = self.cfg.weights()
         total = 0.0
         for key, value in losses.items():

@@ -76,7 +76,10 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "pretrain_stage1.yaml",
                                            "retrieval_coco_blip2_ft.yaml",
                                            "eval/caption_coco_opt2.7b_eval.yaml",
-                                           "eval/caption_coco_flant5xl_eval.yaml"}
+                                           "eval/caption_coco_flant5xl_eval.yaml",
+                                           "caption_coco_blip2_ft.yaml", "pretrain_stage2.yaml",
+                                           "eval/vqav2_zeroshot_opt_eval.yaml",
+                                           "eval/gqa_zeroshot_flant5xl_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 
@@ -112,12 +115,14 @@ def test_processors_equal_jax(tmp_path):
 
 
 def test_builders_equal_jax(tmp_path):
-    """Every registered image builder of JAX's list is the port's, and on
-    the same annotation files both build the same splits and items."""
+    """Every registered image builder of JAX's list is the port's (the VQA
+    builders' items: test_torch_vqa.py), and on the same annotation files
+    both build the same splits and items."""
     mine = set(registry.list("dataset"))
     assert mine == {"coco_caption", "nocaps", "vg_caption", "sbu_caption",
                     "conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi",
-                    "coco_retrieval", "flickr30k"}
+                    "coco_retrieval", "flickr30k", "coco_vqa", "ok_vqa", "aok_vqa", "gqa",
+                    "vg_vqa"}
     assert mine <= set(jregistry.list("dataset"))
     names = _images(tmp_path)
     pairs = [{"image": n, "caption": f"A photo {i}!", "image_id": f"id{i % 3}"}

@@ -54,6 +54,11 @@ assert {"sprc_tpu_torch.models.opt", "sprc_tpu_torch.models.t5",
         "sprc_tpu_torch.cli.instruct"} <= set(mods)
 assert {"blip2_opt", "blip2_t5"} <= set(registry.list("model"))
 assert "captioning" in registry.list("task") and "coco_caption" in registry.list("dataset")
+# their zero-shot VQA: the official accuracy, the tasks, the question processor, the builders
+assert "sprc_tpu_torch.retrieval.vqa_eval" in mods
+assert {"vqa", "gqa", "aok_vqa"} <= set(registry.list("task"))
+assert {"coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"} <= set(registry.list("dataset"))
+assert "blip_question" in registry.list("processor")
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
