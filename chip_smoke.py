@@ -307,6 +307,40 @@ Phases (any failure raises and exits nonzero before the last line):
    (kernel_checks.run_stage2); the kernels line carries their launches in 13a
    to 13d.
 
+14. the LLaMA heads (models/instruct_cir.py over models/llama.py; random
+   weights from seed 0, full width: the vicuna7b rows, EVA ViT-g bf16 at 224
+   px, the BERT-base Q-Former with 32 queries, Vicuna-7B in fp32; one model on
+   the card at a time):
+   (a) blip2_vicuna_instruct / vicuna7b: a 64-image seeded gallery through
+       extract_target_features in batches of 16, 32 composed queries in two
+       batches through encode_image and inference (the BERT text at the row's
+       max_txt_len of 128, the LLaMA ids 8 to 32 long from a whitespace
+       tokenizer, right-padded): seconds by stage (image encode, Q-Former,
+       LLaMA), the peak, the launches (39 K2 blocks and 12 K3 layers a batch,
+       the chains' own kernels, nothing else); a gallery and a query batch
+       stage by stage; the frozen rows and the gallery features against the
+       all-plain run (INSTRUCT_BOUNDS), the all-plain Q-Former on the kernel
+       run's rows and the all-plain LLaMA on its query rows, and the reference
+       features and scores of the free-running all-plain run held by its
+       witnesses (VQA_WITNESS); then 3 ITC steps at batch 8 through
+       GenericTrainer with models.instruct_cir.InstructAdapter, held as
+       phase 13 holds its steps (the bf16 tower's chain once a step, no K3;
+       every frozen tensor bit for bit; the steps from the kernel tower's rows
+       against all-plain at STAGE2_BOUNDS["rows"], from the pixels by the
+       witnesses);
+   (b) blip2_instruct_cir / vicuna7b: instruct_generate (KV-cached) over 32
+       prompts in two batches of 16 (unequal lengths, max_new_tokens 30):
+       seconds by stage, ms a decoded token, one cached step's host and
+       device ms (kernel_checks.profile_decode_step), the peak, the launches;
+       the recompute path on 4 rows and 8 tokens against the cached path;
+       the all-plain Q-Former and LLaMA on the kernel run's rows, and every
+       decode step of the free-running all-plain run held by the witnesses,
+       as phase 13's VQA; then 3 LM-loss steps at batch 8 over [instruction |
+       output] ids, held as in (a);
+   (c) phase 12c runs cli/instruct.py --synthetic for both LLaMA names too.
+   The kernel phase holds K3 at the two fusion shapes (kernel_checks.
+   run_instruct); K2 and its attention at B = 16 are phase 13's checks.
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -3345,9 +3379,10 @@ def phase_caption(work, head):
 
 
 def phase_instruct():
-    """12c: cli/instruct.py --synthetic with both heads on the card; the
-    launches of these tiny runs are not a main path's (the counters are put
-    back)."""
+    """12c and 14c: cli/instruct.py --synthetic with every head on the card (the
+    LLaMA names: blip2_vicuna_instruct retrieves over 8 gallery images,
+    blip2_instruct_cir generates); the launches of these tiny runs are not a
+    main path's (the counters are put back)."""
     import io
 
     from sprc_tpu_torch.cli import instruct
@@ -3355,14 +3390,18 @@ def phase_instruct():
     counters = _counters()
     kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     out = {}
-    for arch in ("blip2_opt", "blip2_t5"):
+    for arch in ("blip2_opt", "blip2_t5", "blip2_vicuna_instruct", "blip2_instruct_cir"):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             instruct.main(["--model-name", arch, "--synthetic"])
         line = buf.getvalue().strip().splitlines()[-1]
         log(f"[instruct] {line}")
         out[arch] = json.loads(line)
-        if out[arch]["n_outputs"] != 2 or out[arch]["model"] != arch:
+        if arch == "blip2_vicuna_instruct":
+            ok = out[arch]["sims_shape"] == [2, 8] and out[arch]["finite"]
+        else:
+            ok = out[arch]["n_outputs"] == 2
+        if not ok or out[arch]["model"] != arch:
             raise RuntimeError(f"instruct {arch}: {out[arch]}")
     for k, (obj, attr) in counters.items():
         setattr(obj, attr, kept[k])
@@ -3859,6 +3898,751 @@ def phase_vqa(work, head):
             "seconds": seconds}
 
 
+# phase 14, the LLaMA heads (models/instruct_cir.py over models/llama.py): one
+# Vicuna-7B on the card at a time, random weights from seed 0 (the vicuna7b rows:
+# EVA ViT-g bf16 at 224 px, the BERT-base Q-Former with 32 queries, Vicuna-7B in
+# fp32: hidden 4096, 32 layers, 32 heads of 128, FFN 11008, vocabulary 32001).
+# 14a, blip2_vicuna_instruct: a seeded gallery of INSTRUCT_GALLERY images encoded
+# in batches of INSTRUCT_BATCH (extract_target_features), INSTRUCT_QUERIES
+# composed queries in batches of INSTRUCT_BATCH through inference (the BERT text
+# at the row's max_txt_len of 128, the LLaMA ids 8 to 32 long with bos and eos,
+# right-padded, from a whitespace tokenizer), then INSTRUCT_STEPS ITC steps at
+# INSTRUCT_TRAIN_BATCH; 14b, blip2_instruct_cir: instruct_generate over
+# INSTRUCT_QUERIES prompts (max_new_tokens INSTRUCT_NEW_TOKENS, KV-cached), the
+# recompute path on INSTRUCT_UNCACHED rows and tokens, then INSTRUCT_STEPS LM-loss
+# steps at INSTRUCT_TRAIN_BATCH
+INSTRUCT = {"retrieval": ("blip2_vicuna_instruct", "vicuna7b"),
+            "generate": ("blip2_instruct_cir", "vicuna7b")}
+INSTRUCT_GALLERY, INSTRUCT_BATCH, INSTRUCT_QUERIES = 64, 16, 32
+INSTRUCT_LLM_LENGTHS = (8, 32)  # a LLaMA prompt's ids, bos and eos included; padded to 32
+INSTRUCT_NEW_TOKENS = 30
+INSTRUCT_UNCACHED = (4, 8)
+INSTRUCT_TRAIN_BATCH, INSTRUCT_STEPS = 8, 3
+LLAMA_IDS = {"pad": 0, "eos": 2, "bos": 1}  # LLaMA's tokenizer convention
+# an image batch: the tower's 39 blocks; a Q-Former pass: its 12 layers (the
+# gallery's queries-only pass, a query batch's fusion pass); the chains' own
+# kernels (the bf16 tower's, K3's fp32 ones) launch too, nothing else does. A
+# training step: the frozen tower's bf16 chain once (a call of 2B images for the
+# retrieval model), no K3 (the Q-Former trains unfused), the LLaMA torch.matmul
+INSTRUCT_BATCH_LAUNCHES = {"fused_vit_block": 39, "fused_qformer_layer": 12}
+INSTRUCT_STEP_LAUNCHES = STAGE2_STEP_LAUNCHES["t5"]
+# Bounds, fixed before the first reading. "frozen": the kernel run's rows after
+# ln_vision (gallery and references) against the all-plain run's, and "target":
+# the gallery features (the mean query output, normalised), phase 5's bf16 EVA
+# bounds (EVA_BOUNDS); "queries": the all-plain Q-Former on the kernel run's rows
+# against the kernel run's query rows (K3's 12-layer fp32 chain: phase 12's
+# bound, which also holds the fusion pass here; K3's chain is held stage by stage
+# at STAGE_BOUNDS besides); "llm": the all-plain LLaMA on the kernel run's query
+# rows against the kernel run's reference features / prefill logits (no kernel:
+# to the bit). The reference features, the scores and every decode step's logits
+# of the free-running all-plain run take the bf16 tower's difference through
+# the Q-Former and a random 7B LLaMA, which may move it as far as FlanT5-XL
+# moved its own (PERF.md §6, PR 16): they are held at CAPTION_WITNESS_FACTOR
+# times the median of the witnesses (VQA_WITNESS: the all-plain run's query
+# rows moved by another row's difference), as phase 13's VQA holds its steps;
+# the witness's scores take the kernel run's gallery features, so they carry the
+# kernel run's gallery difference too. The recompute loop against the cached
+# decode (the same kernels, the same rows; a wrong cache slot or position moves
+# a logit by about its own size, 1): INSTRUCT_RECOMPUTE_LOGITS. Training: the
+# steps from the kernel tower's rows at STAGE2_BOUNDS["rows"]; from the pixels
+# by the witnesses (STAGE2_WITNESS), as 13b holds FlanT5-XL: the same random
+# LLM behind a bf16 tower.
+INSTRUCT_BOUNDS = {"frozen": EVA_BOUNDS["frozen"], "target": EVA_BOUNDS["target"],
+                   "queries": CAPTION_BOUNDS["queries"], "llm": CAPTION_BOUNDS["llm"]}
+INSTRUCT_RECOMPUTE_LOGITS = 1e-3
+
+
+def _instruct_texts(rng, n, lengths=INSTRUCT_LLM_LENGTHS):
+    """``n`` instructions over STAGE1_WORDS whose LLaMA ids (a word each, bos
+    and eos) run from ``lengths[0]`` to ``lengths[1]``."""
+    return [" ".join(str(w) for w in rng.choice(STAGE1_WORDS, int(k)))
+            for k in rng.integers(lengths[0] - 2, lengths[1] - 1, n)]
+
+
+def _tokens(tok, texts, max_length):
+    enc = tok(texts, max_length=max_length)
+    return [torch.from_numpy(np.asarray(enc[k])).to(DEVICE) for k in ("input_ids",
+                                                                        "attention_mask")]
+
+
+def _instruct_tokenizers(work, model):
+    """(the BERT tokenizer over the synthetic vocab, the whitespace LLaMA
+    tokenizer over the model's vocabulary)."""
+    from sprc_tpu_torch.text.llm_tokenizers import WhitespaceTokenizer
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    bert = BertWordPieceTokenizer.from_vocab_file(
+        write_synthetic_bert_vocab(os.path.join(work, "vocab.txt")))
+    llama = WhitespaceTokenizer(vocab_size=model.llama_config.vocab_size - 4,
+                                pad_id=LLAMA_IDS["pad"], eos_id=LLAMA_IDS["eos"],
+                                bos_id=LLAMA_IDS["bos"])
+    return bert, llama
+
+
+def _pixels(n, batch, seed):
+    return [torch.from_numpy(x).to(DEVICE) for _, x in _gallery_batches(n, batch, 224, seed)]
+
+
+def _check_launches(tag, launches, want, chain):
+    bad = {k: launches[k] for k in want if launches[k] != want[k]}
+    bad.update({k: launches[k] for k in chain if launches[k] <= 0})
+    bad.update({k: v for k, v in launches.items() if k not in want and k not in chain and v != 0})
+    if bad:
+        raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the chains' {chain}")
+
+
+def _stage_rows(tag, what, fn):
+    """``fn()`` once more through the kernels, every stage against its plain
+    version on the same inputs (kernel_checks.STAGE_BOUNDS); the launches are
+    not the main path's (the counters are put back)."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.ops import primitives
+
+    counters = _counters()
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    stages = kernel_checks.StageRecorder()
+    with torch.inference_mode(), primitives.stage_check(stages):
+        fn()
+    sync()
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    for row in stages.rows():
+        log(f"[{tag}] {what}, stage by stage: {row['kind']}: {row['calls']} calls, worst share "
+            f"that differs {row['differ']:.3e}, worst difference {row['err']:.3e} -> "
+            f"{'ok' if row['ok'] else 'FAIL'}")
+    if not stages.ok():
+        raise RuntimeError(f"{tag} {what}: a stage disagrees with its plain version: "
+                           f"{[r['kind'] for r in stages.rows() if not r['ok']]}")
+    return stages.rows()
+
+
+def _max_mean(got, want):
+    d = [(a.float() - b.float()).abs() for a, b in zip(got, want)]
+    return (max(x.max().item() for x in d), float(np.mean([x.mean().item() for x in d])))
+
+
+def _instruct_train(tag, model, batches):
+    """INSTRUCT_STEPS steps of ``model``'s training forward at
+    INSTRUCT_TRAIN_BATCH through GenericTrainer and models.instruct_cir.
+    InstructAdapter (the frozen partition by FROZEN_PREFIXES): ms a step,
+    samples/s, the peak, the launches a step (INSTRUCT_STEP_LAUNCHES);
+    every frozen tensor bit for bit unchanged after these and the comparison
+    steps, the projections and the Q-Former moved; the steps again from the
+    same start through the kernels (the tower's rows recorded) against the
+    all-plain steps from those rows (STAGE2_BOUNDS["rows"]), and the kernel
+    run's first step against the all-plain step from the pixels, held by the
+    witnesses (STAGE2_WITNESS), as phase 13 holds its steps."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.models.instruct_cir import InstructAdapter
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.train.generic import GenericTrainer
+    from sprc_tpu_torch.train.loop import TrainConfig
+
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    params = dict(model.named_parameters())
+    names = [n for n, p in params.items() if p.requires_grad]
+    frozen = [n for n in params if n.startswith(model.FROZEN_PREFIXES)]
+    start = {n: params[n].detach().clone() for n in names}
+    digest = _bits_digest(params[n] for n in frozen)
+    tcfg = TrainConfig(total_steps=len(batches))
+    trainer = GenericTrainer(model, tcfg, seed=SEED, adapter=InstructAdapter())
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step, steps = [], [], []
+    for b in batches:
+        before = read()
+        t0 = time.perf_counter()
+        steps.append(trainer.train_step(b))  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items()})
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(times))
+    B = INSTRUCT_TRAIN_BATCH
+    moved = {p: sum(not torch.equal(params[n], start[n]) for n in names if n.startswith(p))
+             for p in ("llm_proj.", "l2q_proj.", "Qformer.", "query_tokens")
+             if any(n.startswith(p) for n in names)}
+    after = {n: params[n].detach().clone() for n in names}
+    log(f"[{tag}] {len(steps)} steps at batch {B}: ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; samples/s (median step) {B / step_ms * 1e3:.1f}; peak {peak:.2f} GiB; losses "
+        + ", ".join(f"{s['loss']:.4f}" for s in steps) + f"; {sum(start[n].numel() for n in names)
+        / 1e6:.1f} M trainable of {sum(p.numel() for p in params.values()) / 1e9:.3f} G; moved "
+        f"tensors by prefix {moved}; launches {({k: v for k, v in launches.items() if v})}, a "
+        f"step {[{k: v for k, v in d.items() if v} for d in per_step]}")
+    if not all(np.isfinite(s["loss"]) for s in steps):
+        raise RuntimeError(f"{tag}: a loss is not finite: {steps}")
+    for launch in per_step:
+        bad = {k: v for k, v in launch.items() if v != INSTRUCT_STEP_LAUNCHES.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"{tag}: a step's launches {bad}, expected {INSTRUCT_STEP_LAUNCHES}")
+    if peak >= 80.0 or not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB, moved {moved}")
+    kept = read()
+
+    def run(plain, rows=None, record=None, n_steps=len(batches)):
+        with torch.no_grad():
+            for n in names:
+                params[n].copy_(start[n])
+        tr = GenericTrainer(model, tcfg, seed=SEED, adapter=InstructAdapter())
+        real_encode = model.encode_tower
+        if rows is not None:
+            feed = iter(rows)
+            model.encode_tower = lambda images: next(feed)
+        elif record is not None:
+            model.encode_tower = lambda images: record.append(real_encode(images)) or record[-1]
+        losses, first = [], None
+        try:
+            with primitives.plain_reference() if plain else contextlib.nullcontext():
+                for b in batches[:n_steps]:
+                    total, _, grads = tr.loss_and_grads(b)
+                    first = grads if first is None else first
+                    tr.apply_gradients(grads)
+                    losses.append(total.item())
+        finally:
+            model.__dict__.pop("encode_tower", None)
+        return losses, first, {n: p.detach().clone() for n, p in zip(tr.names, tr.params)}
+
+    rows = []
+    k_losses, k_grads, k_params = run(False, record=rows)
+    r_losses, r_grads, r_params = run(True, rows=rows)
+    l_losses, l_grads, _ = run(True, n_steps=1)
+    with torch.no_grad(), primitives.plain_reference():
+        first = batches[0]
+        pixels = torch.cat([first["reference"], first["target"]]) if "target" in first else \
+            first["images"]
+        plain_rows = model.encode_tower(pixels)
+    frozen_gap = _max_mean([model.ln_vision(rows[0].float())],
+                           [model.ln_vision(plain_rows.float())])
+    rows_rms = (rows[0].float() - plain_rows.float()).pow(2).mean().sqrt().item()
+    witnesses = []
+    for kind, seed in STAGE2_WITNESS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        w_losses, w_grads, _ = run(True, rows=[_witness_rows(plain_rows, rows[0], kind, gen)],
+                                   n_steps=1)
+        witnesses.append({"kind": kind, "seed": seed,
+                          "loss": abs(w_losses[0] - l_losses[0]) / abs(l_losses[0]),
+                          "grad": kernel_checks.grad_gap(w_grads, l_grads, names)["gap"]})
+        del w_grads
+    del rows, plain_rows
+    gaps = {"rows": {"loss": max(abs(a - b) / abs(b) for a, b in zip(k_losses, r_losses)),
+                     "grad": kernel_checks.grad_gap(k_grads, r_grads, names),
+                     "params": max((k_params[n] - r_params[n]).abs().max().item()
+                                   for n in names)},
+            "live": {"loss": abs(k_losses[0] - l_losses[0]) / abs(l_losses[0]),
+                     "grad": kernel_checks.grad_gap(k_grads, l_grads, names)}}
+    rerun = {"loss": max(abs(a - s["loss"]) for a, s in zip(k_losses, steps)),
+             "params": max((k_params[n] - after[n]).abs().max().item() for n in names)}
+    with torch.no_grad():
+        for n in names:
+            params[n].copy_(start[n])
+    unchanged = _bits_digest(params[n] for n in frozen) == digest
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    bounds = STAGE2_BOUNDS["rows"]
+    live_bound = {k: CAPTION_WITNESS_FACTOR * float(np.median([w[k] for w in witnesses]))
+                  for k in ("loss", "grad")}
+    log(f"[{tag}] the kernel steps against the all-plain steps from the kernel tower's rows: "
+        f"losses {gaps['rows']['loss']:.3e} (bound {bounds['loss']:.0e}), the first step's "
+        f"gradients {gaps['rows']['grad']['gap']:.3e} (bound {bounds['grad']:.0e}; worst "
+        f"{gaps['rows']['grad']['worst']}), the parameters after {len(batches)} steps "
+        f"{gaps['rows']['params']:.3e} (bound {bounds['params']:.0e}); the kernel tower's rows "
+        f"after ln_vision against the plain tower's (batch 0): max_abs {frozen_gap[0]:.3e} "
+        f"mean_abs {frozen_gap[1]:.3e} (bound {INSTRUCT_BOUNDS['frozen']}), their RMS "
+        f"difference {rows_rms:.3e}; the all-plain step from the pixels: loss "
+        f"{gaps['live']['loss']:.3e}, gradients {gaps['live']['grad']['gap']:.3e} (worst "
+        f"{gaps['live']['grad']['worst']}; bounds {live_bound}, {CAPTION_WITNESS_FACTOR} x the "
+        f"witnesses' median; phase 7's live bounds {TRAIN_BOUNDS['live']}); the witnesses: "
+        + "; ".join(f"{w['kind']} (seed {w['seed']}): loss {w['loss']:.3e} (the kernel run's / "
+                    f"this {gaps['live']['loss'] / max(w['loss'], 1e-30):.3f}), gradients "
+                    f"{w['grad']:.3e} (the kernel run's / this "
+                    f"{gaps['live']['grad']['gap'] / max(w['grad'], 1e-30):.3f})"
+                    for w in witnesses)
+        + f"; these kernel steps against the main path's: losses {rerun['loss']:.3e}, "
+        f"parameters {rerun['params']:.3e}; {len(frozen)} frozen tensors unchanged by "
+        f"{3 * len(batches) + 1 + len(witnesses)} steps: {unchanged}")
+    if (gaps["rows"]["loss"] > bounds["loss"] or gaps["rows"]["grad"]["gap"] > bounds["grad"]
+            or gaps["rows"]["params"] > bounds["params"]):
+        raise RuntimeError(f"{tag}: the kernel steps beyond STAGE2_BOUNDS['rows']: {gaps['rows']}")
+    if not (gaps["live"]["loss"] <= live_bound["loss"]
+            and gaps["live"]["grad"]["gap"] <= live_bound["grad"]):
+        raise RuntimeError(f"{tag}: the kernel step against the all-plain step from the pixels: "
+                           f"loss {gaps['live']['loss']}, gradients "
+                           f"{gaps['live']['grad']['gap']}, bounds {live_bound}")
+    fb = INSTRUCT_BOUNDS["frozen"]
+    if not (frozen_gap[0] <= fb[0] and frozen_gap[1] <= fb[1]):
+        raise RuntimeError(f"{tag}: the tower's rows against plain: {frozen_gap}, bound {fb}")
+    if not unchanged:
+        raise RuntimeError(f"{tag}: a frozen tensor changed in the training steps")
+    del k_grads, r_grads, l_grads, k_params, r_params, start, after
+    return {"step_ms": times, "samples_per_s": B / step_ms * 1e3, "peak_memory_gib": peak,
+            "losses": [s["loss"] for s in steps], "launches": launches,
+            "launches_step": per_step, "frozen_tensors": len(frozen), "moved": moved,
+            "gaps": {"rows": {"loss": gaps["rows"]["loss"], "grad": gaps["rows"]["grad"]["gap"],
+                              "params": gaps["rows"]["params"]},
+                     "live": {"loss": gaps["live"]["loss"], "grad": gaps["live"]["grad"]["gap"],
+                              "bounds": live_bound},
+                     "frozen_rows": frozen_gap, "rows_rms": rows_rms, "witnesses": witnesses},
+            "rerun_against_main": rerun}
+
+
+def phase_instruct_retrieval(work):
+    """14a: blip2_vicuna_instruct / vicuna7b retrieves and trains (phase 14 of
+    the docstring)."""
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+
+    name, model_type = INSTRUCT["retrieval"]
+    tag = "instruct retrieval"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = load_model(name, model_type, device=DEVICE, seed=SEED)
+    sync()
+    load_s = time.perf_counter() - t0
+    bert, llama = _instruct_tokenizers(work, model)
+    rng = np.random.default_rng(SEED + 141)
+    gallery = _pixels(INSTRUCT_GALLERY, INSTRUCT_BATCH, SEED + 142)
+    refs = _pixels(INSTRUCT_QUERIES, INSTRUCT_BATCH, SEED + 143)
+    texts = _instruct_texts(rng, INSTRUCT_QUERIES)
+    queries = [_tokens(bert, texts[s:s + INSTRUCT_BATCH], model.cfg.max_txt_len)
+               + _tokens(llama, texts[s:s + INSTRUCT_BATCH], INSTRUCT_LLM_LENGTHS[1])
+               for s in range(0, INSTRUCT_QUERIES, INSTRUCT_BATCH)]
+    lengths = torch.cat([q[3].sum(1) for q in queries]).tolist()
+    log(f"[{tag}] {name} / {model_type}: built and drawn in {load_s:.1f} s; "
+        f"{sum(p.numel() for p in model.llm_model.parameters()) / 1e9:.3f} G LLaMA values "
+        f"({model.llama_config.dtype}), BERT text {queries[0][0].shape[1]} wide, LLaMA ids "
+        f"{min(lengths)} to {max(lengths)} long")
+
+    # the main path: the gallery, then the composed queries; timed and counted
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        feats = torch.cat([model.extract_target_features(g, stats)[0] for g in gallery])
+        scores = torch.cat([model.inference(model.encode_image(r, stats), feats, *q, stats=stats)
+                            for r, q in zip(refs, queries)])
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batches = len(gallery) + len(refs)
+    stages = ("image_encode_s", "qformer_s", "llm_s")
+    top1 = scores.argmax(dim=1).tolist()
+    log(f"[{tag}] {len(gallery)} gallery and {len(refs)} query batches of {INSTRUCT_BATCH}: "
+        "seconds by stage " + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
+        + f"; total {total_s:.2f} s; peak {peak:.2f} GiB; scores {list(scores.shape)}, top-1 "
+        f"{top1[:8]}...")
+    log(f"[{tag}] launches: {launches}")
+    _check_launches(tag, launches, {k: v * batches for k, v in INSTRUCT_BATCH_LAUNCHES.items()},
+                    VQA_CHAIN)
+    if scores.shape != (INSTRUCT_QUERIES, INSTRUCT_GALLERY) or not bool(
+            torch.isfinite(scores).all()) or peak >= 80.0:
+        raise RuntimeError(f"{tag}: scores {list(scores.shape)}, peak {peak:.2f} GiB")
+
+    # K3's chain (and the tower's) stage by stage: a gallery and a query batch
+    stage_rows = _stage_rows(tag, "a gallery and a query batch", lambda: model.inference(
+        model.encode_image(refs[0]), model.extract_target_features(gallery[0])[0], *queries[0]))
+
+    # recorded runs (none of these launches is the main path's): the kernel run,
+    # the all-plain run, the all-plain query side on the kernel run's rows, and
+    # the witnesses
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def recorded(plain, query_rows=None, target=None):
+        rec = {"frozen": [], "feats": [], "rows": [], "queries": [], "ref": []}
+        with torch.inference_mode(), (primitives.plain_reference() if plain
+                                      else contextlib.nullcontext()):
+            if target is None:
+                for g in gallery:
+                    f, fr = model.extract_target_features(g)
+                    rec["feats"].append(f)
+                    rec["frozen"].append(fr)
+                target = torch.cat(rec["feats"])
+            for i, (r, q) in enumerate(zip(refs, queries)):
+                if query_rows is None:
+                    rec["rows"].append(model.encode_image(r))
+                    rec["queries"].append(model._query_fusion(rec["rows"][-1], q[0], q[1]))
+                rec["ref"].append(model._ref_feature(
+                    rec["queries"][i] if query_rows is None else query_rows[i], q[2], q[3]))
+            rec["scores"] = torch.cat(rec["ref"]).float() @ target.float().t()
+        return rec
+
+    kern = recorded(False)
+    plain = recorded(True)
+    with torch.inference_mode(), primitives.plain_reference():
+        own_q = [model._query_fusion(rows, q[0], q[1]) for rows, q in zip(kern["rows"], queries)]
+    own_llm = recorded(True, query_rows=kern["queries"], target=torch.cat(kern["feats"]))
+    witnesses = []
+    for kind, seed in VQA_WITNESS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        moved = [_witness_rows(p, k, kind, gen) for p, k in zip(plain["queries"],
+                                                                 kern["queries"])]
+        w = recorded(True, query_rows=moved, target=torch.cat(kern["feats"]))
+        witnesses.append({"kind": kind, "seed": seed,
+                          "ref": _max_mean(w["ref"], plain["ref"])[0],
+                          "score": (w["scores"] - plain["scores"]).abs().max().item()})
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    readings = {"frozen": _max_mean(kern["frozen"] + kern["rows"], plain["frozen"] + plain["rows"]),
+                "target": _max_mean(kern["feats"], plain["feats"]),
+                "queries": _max_mean(own_q, kern["queries"])[0],
+                "llm": max(_max_mean(own_llm["ref"], kern["ref"])[0],
+                           (own_llm["scores"] - kern["scores"]).abs().max().item()),
+                "ref": _max_mean(kern["ref"], plain["ref"])[0],
+                "score": (kern["scores"] - plain["scores"]).abs().max().item(),
+                "clean": (kern["scores"] - scores.float()).abs().max().item()}
+    bounds = dict(INSTRUCT_BOUNDS, **{k: CAPTION_WITNESS_FACTOR * float(np.median(
+        [w[k] for w in witnesses])) for k in ("ref", "score")})
+    same_top1 = sum(a == b for a, b in zip(top1, plain["scores"].argmax(dim=1).tolist()))
+    noise_rms = [(k - p).pow(2).mean().sqrt().item() for k, p in zip(kern["queries"],
+                                                                   plain["queries"])]
+    log(f"[{tag}] the kernel run against the all-plain run: frozen rows max_abs "
+        f"{readings['frozen'][0]:.3e} mean_abs {readings['frozen'][1]:.3e}, gallery features "
+        f"{readings['target'][0]:.3e} / {readings['target'][1]:.3e}; the all-plain Q-Former on "
+        f"the kernel run's rows: query rows {readings['queries']:.3e}; the all-plain LLaMA on the "
+        f"kernel run's query rows: reference features and scores {readings['llm']:.3e}; the "
+        f"free-running all-plain run: reference features {readings['ref']:.3e}, scores "
+        f"{readings['score']:.3e} (its top-1 equal for {same_top1} of {len(top1)} queries); "
+        f"the query rows' difference has RMS "
+        f"{[float(f'{x:.3e}') for x in noise_rms]}; the witnesses: "
+        + "; ".join(f"{w['kind']} (seed {w['seed']}): reference features {w['ref']:.3e} (the "
+                    f"kernel run's / this {readings['ref'] / max(w['ref'], 1e-30):.3f}), scores "
+                    f"{w['score']:.3e} ({readings['score'] / max(w['score'], 1e-30):.3f})"
+                    for w in witnesses)
+        + f"; bounds {bounds}; the recorded kernel run's scores against the clean run's "
+        f"{readings['clean']:.3e}")
+    past = {k: readings[k] for k in bounds
+            if not np.all(np.asarray(readings[k]) <= np.asarray(bounds[k]))}
+    if past:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past {bounds}: "
+                           f"{past}")
+    del kern, plain, own_q, own_llm, feats, scores, gallery, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14a's training: INSTRUCT_STEPS ITC steps at INSTRUCT_TRAIN_BATCH
+    train_texts = _instruct_texts(rng, INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH)
+    pix = _pixels(2 * INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH, INSTRUCT_TRAIN_BATCH, SEED + 144)
+    train_batches = []
+    for s in range(INSTRUCT_STEPS):
+        chunk = train_texts[s * INSTRUCT_TRAIN_BATCH:(s + 1) * INSTRUCT_TRAIN_BATCH]
+        ids, mask = _tokens(bert, chunk, model.cfg.max_txt_len)
+        llm_ids, llm_mask = _tokens(llama, chunk, INSTRUCT_LLM_LENGTHS[1])
+        train_batches.append({"reference": pix[2 * s], "target": pix[2 * s + 1],
+                              "input_ids": ids, "text_mask": mask, "llm_input_ids": llm_ids,
+                              "llm_mask": llm_mask})
+    train = _instruct_train(f"{tag} train", model, train_batches)
+    del model, train_batches, pix
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"stage_seconds": {k: stats[k] for k in stages}, "total_s": total_s,
+            "peak_memory_gib": peak, "launches": launches, "stages": stage_rows,
+            "against_plain": readings, "bounds": bounds, "witnesses": witnesses,
+            "train": train, "load_s": load_s, "seconds": seconds}
+
+
+@contextlib.contextmanager
+def _recording_instruct(model, rec, query_rows=None):
+    """Record what instruct_generate computes on its way to the ids, batch by
+    batch: the rows after ln_vision, the Q-Former's query rows (or hand it
+    ``query_rows`` in their place), the prefill's logits, every decode step's
+    logits [B, steps, V] and the ids; and the first batch's decode step with
+    its cache."""
+    from sprc_tpu_torch.models import generation
+
+    real_encode, real_fusion = model.encode_image, model._query_fusion
+    real_loop = generation.cached_greedy_loop
+    feed = None if query_rows is None else iter(query_rows)
+    for key in ("frozen", "queries", "logits0", "steps", "ids"):
+        rec[key] = []
+
+    def encode_image(images, stats=None):
+        rec["frozen"].append(real_encode(images, stats))
+        return rec["frozen"][-1]
+
+    def query_fusion(image_embeds, input_ids, text_mask, generator=None, stats=None):
+        out = real_fusion(image_embeds, input_ids, text_mask, generator, stats) if feed is None \
+            else next(feed)
+        rec["queries"].append(out)
+        return out
+
+    def loop(logits0, cache, pos0, step_fn, **kw):
+        rec["logits0"].append(logits0.float())
+        rec.setdefault("step", (step_fn, cache, pos0))
+        steps = [logits0.float()]
+
+        def step(tok, pos, c):
+            logits, c = step_fn(tok, pos, c)
+            steps.append(logits.float())
+            return logits, c
+
+        ids = real_loop(logits0, cache, pos0, step, **kw)
+        rec["steps"].append(torch.stack(steps, dim=1))
+        rec["ids"].append(ids)
+        return ids
+
+    model.encode_image, model._query_fusion = encode_image, query_fusion
+    generation.cached_greedy_loop = loop
+    try:
+        yield rec
+    finally:
+        del model.encode_image, model._query_fusion
+        generation.cached_greedy_loop = real_loop
+
+
+def phase_instruct_generate(work):
+    """14b: blip2_instruct_cir / vicuna7b generates and trains (phase 14 of
+    the docstring)."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.models.instruct_cir import instruct_generate
+    from sprc_tpu_torch.ops import primitives
+
+    name, model_type = INSTRUCT["generate"]
+    tag = "instruct generate"
+    eos, pad = LLAMA_IDS["eos"], LLAMA_IDS["pad"]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    model = load_model(name, model_type, device=DEVICE, seed=SEED)
+    sync()
+    load_s = time.perf_counter() - t0
+    bert, llama = _instruct_tokenizers(work, model)
+    rng = np.random.default_rng(SEED + 145)
+    images = _pixels(INSTRUCT_QUERIES, INSTRUCT_BATCH, SEED + 146)
+    texts = _instruct_texts(rng, INSTRUCT_QUERIES)
+    prompts = [_tokens(bert, texts[s:s + INSTRUCT_BATCH], model.cfg.max_txt_len)
+               + _tokens(llama, texts[s:s + INSTRUCT_BATCH], INSTRUCT_LLM_LENGTHS[1])
+               for s in range(0, INSTRUCT_QUERIES, INSTRUCT_BATCH)]
+    kw = dict(eos_token_id=eos, pad_token_id=pad, max_new_tokens=INSTRUCT_NEW_TOKENS)
+
+    def generate(stats=None, **extra):
+        return [instruct_generate(model, im, *p, stats=stats, **dict(kw, **extra))
+                for im, p in zip(images, prompts)]
+
+    # the main path: timed and counted, nothing recorded
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ids = generate(stats)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = ("image_encode_s", "qformer_s", "prefill_s", "decode_s")
+    ms_token = stats["decode_s"] / max(stats["decode_steps"], 1) * 1e3
+    texts_out = [llama.decode(r) for r in torch.cat(ids).cpu().numpy()]
+    log(f"[{tag}] {name} / {model_type}: built and drawn in {load_s:.1f} s; {len(images)} batches "
+        f"of {INSTRUCT_BATCH}, BERT prompts {prompts[0][0].shape[1]} wide, LLaMA prompts "
+        f"{min(int(p[3].sum(1).min()) for p in prompts)} to "
+        f"{max(int(p[3].sum(1).max()) for p in prompts)} long: seconds by stage "
+        + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
+        + f"; {stats['decode_steps']} cached decode steps, {ms_token:.2f} ms a decoded token "
+        f"({INSTRUCT_BATCH} rows); total {total_s:.2f} s; peak {peak:.2f} GiB; e.g. "
+        f"{texts_out[0][:60]!r}")
+    log(f"[{tag}] launches: {launches}")
+    _check_launches(tag, launches, {k: v * len(images) for k, v in
+                                    INSTRUCT_BATCH_LAUNCHES.items()}, VQA_CHAIN)
+    if any(i.shape != (INSTRUCT_BATCH, INSTRUCT_NEW_TOKENS) for i in ids) or peak >= 80.0:
+        raise RuntimeError(f"{tag}: ids {[list(i.shape) for i in ids]}, peak {peak:.2f} GiB")
+
+    # the kernel route again, recorded; none of what follows is a main path's launch
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    stage_rows = _stage_rows(tag, "a generate batch's image encode and fusion pass",
+                             lambda: model._query_fusion(model.encode_image(images[0]),
+                                                         *prompts[0][:2]))
+    kern = {}
+    with _recording_instruct(model, kern), torch.inference_mode():
+        generate()
+    step_fn, cache, pos0 = kern.pop("step")
+    tok0 = kern["ids"][0][:, 0]
+    with torch.inference_mode():
+        decode = kernel_checks.profile_decode_step(lambda: step_fn(tok0, pos0, cache))
+    del step_fn, cache
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in
+                       model.llm_model.named_parameters() if "embed_tokens" not in n)
+    decode.update(weights_gb=weight_bytes / 1e9,
+                  weights_ms=weight_bytes / kernel_checks.PEAK_BYTES * 1e3, loop_ms=ms_token)
+    log(f"[{tag}] one cached decode step at batch {INSTRUCT_BATCH} (the first token's "
+        f"position): host {decode['host_ms']:.3f} ms, device {decode['device_ms']:.3f} ms, busy "
+        f"share {decode['busy_share']:.3f} (the graph's output against the step's: max_abs "
+        f"{decode['graph_max_abs']:.3e}); {decode['aten_ops']} ATen operators a step "
+        f"({decode['aten_views']} views), {decode['kernels_profiled']} launches seen by one "
+        f"profile, {decode['kernel_ms_profiled']:.3f} ms of kernels, the most in (name, "
+        f"launches, ms) {decode['top_kernels']}; the weights it reads "
+        f"{decode['weights_gb']:.2f} GB, {decode['weights_ms']:.3f} ms at the card's memory "
+        f"rate; the clean run's loop {ms_token:.2f} ms a token; the recorded run's ids "
+        f"{'equal' if all(torch.equal(a, b) for a, b in zip(kern['ids'], ids)) else 'differ from'}"
+        " the clean run's")
+
+    # the recompute path against the cached one: INSTRUCT_UNCACHED rows and tokens
+    rows_n, new_n = INSTRUCT_UNCACHED
+    sub = [t[:rows_n] for t in prompts[0]]
+    small = dict(kw, max_new_tokens=new_n)
+    cached_steps, re_steps = {}, []
+    real_logits = model.llm_model.logits
+
+    def logged(hidden):
+        out = real_logits(hidden)
+        re_steps.append(out.reshape(out.shape[0], -1).float())
+        return out
+
+    t0 = time.perf_counter()
+    with _recording_instruct(model, cached_steps), torch.inference_mode():
+        cached = instruct_generate(model, images[0][:rows_n], *sub, **small)
+    model.llm_model.logits = logged
+    try:
+        with torch.inference_mode():
+            recomputed = instruct_generate(model, images[0][:rows_n], *sub, use_cache=False,
+                                           **small)
+    finally:
+        del model.llm_model.logits
+    sync()
+    recompute_s = time.perf_counter() - t0
+    re_worst, re_flips = _held_steps(recomputed, cached, torch.stack(re_steps, dim=1),
+                                     cached_steps["steps"][0], eos)
+    same = torch.equal(recomputed, cached)
+    log(f"[{tag}] the recompute path on {rows_n} rows and {new_n} tokens (kernel route): "
+        f"{recompute_s:.2f} s with its cached run; ids {'equal' if same else 'differ'}: "
+        f"{recomputed.tolist()}; its step logits against the cached decode's, up to each row's "
+        f"first differing id or eos: max_abs {re_worst:.3e} (bound "
+        f"{INSTRUCT_RECOMPUTE_LOGITS}); rows whose ids differ (row, step, top-2 gap, "
+        f"|difference| there): {re_flips}")
+    if not re_worst <= INSTRUCT_RECOMPUTE_LOGITS or any(np.isnan(f[2]) for f in re_flips):
+        raise RuntimeError(f"{tag}: the recompute path against the cached decode: {re_worst}, "
+                           f"{re_flips}")
+    del cached_steps, re_steps
+
+    # the all-plain Q-Former and LLaMA on the kernel run's own rows; the
+    # free-running all-plain run; the witnesses
+    with torch.inference_mode(), primitives.plain_reference():
+        own_q = [model._query_fusion(f, *p[:2]) for f, p in zip(kern["frozen"], prompts)]
+    own = {}
+    with _recording_instruct(model, own, query_rows=kern["queries"]), torch.inference_mode(), \
+            primitives.plain_reference():
+        generate()
+    plain, plain_stats = {}, {}
+    t0 = time.perf_counter()
+    with _recording_instruct(model, plain), torch.inference_mode(), \
+            primitives.plain_reference():
+        generate(plain_stats)
+    sync()
+    plain_s = time.perf_counter() - t0
+    plain.pop("step"), own.pop("step")
+
+    def against_plain(run):
+        held = [_held_steps(a, b, s, t, eos) for a, b, s, t in zip(
+            run["ids"], plain["ids"], run["steps"], plain["steps"])]
+        return (max(h[0] for h in held), [(b,) + f for b, h in enumerate(held) for f in h[1]],
+                max((w - p).abs().max().item() for w, p in zip(run["logits0"],
+                                                               plain["logits0"])))
+
+    witnesses = []
+    for kind, seed in VQA_WITNESS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        moved = [_witness_rows(p, k, kind, gen) for p, k in zip(plain["queries"],
+                                                                 kern["queries"])]
+        run = {}
+        with _recording_instruct(model, run, query_rows=moved), torch.inference_mode(), \
+                primitives.plain_reference():
+            generate()
+        run.pop("step")
+        steps_d, flips, logits0_d = against_plain(run)
+        witnesses.append({"kind": kind, "seed": seed, "logits0": logits0_d, "steps": steps_d,
+                          "flips": flips})
+        del run, moved
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    steps_d, flips, logits0_d = against_plain(kern)
+    readings = {"frozen": _max_mean(kern["frozen"], plain["frozen"]),
+                "queries": _max_mean(own_q, kern["queries"])[0],
+                "llm": _max_mean(own["logits0"], kern["logits0"])[0],
+                "free queries": _max_mean(kern["queries"], plain["queries"]),
+                "logits0": logits0_d, "steps": steps_d}
+    witness_steps = float(np.median([w["steps"] for w in witnesses]))
+    bounds = {"frozen": INSTRUCT_BOUNDS["frozen"], "queries": INSTRUCT_BOUNDS["queries"],
+              "llm": INSTRUCT_BOUNDS["llm"], "steps": CAPTION_WITNESS_FACTOR * witness_steps}
+    n_rows = sum(len(i) for i in kern["ids"])
+    noise_rms = [(k - p).pow(2).mean().sqrt().item() for k, p in zip(kern["queries"],
+                                                                   plain["queries"])]
+    log(f"[{tag}] the kernel run against the all-plain run: frozen rows max_abs "
+        f"{readings['frozen'][0]:.3e} mean_abs {readings['frozen'][1]:.3e}; the all-plain "
+        f"Q-Former on the kernel run's rows: query rows {readings['queries']:.3e}; the all-plain "
+        f"LLaMA on the kernel run's query rows: prefill logits {readings['llm']:.3e}; the "
+        f"free-running all-plain run: query rows {readings['free queries'][0]:.3e}, prefill "
+        f"logits {logits0_d:.3e}; the query rows' difference has RMS "
+        f"{[float(f'{x:.3e}') for x in noise_rms]}; the witnesses: "
+        + "; ".join(f"{w['kind']} (seed {w['seed']}): prefill logits {w['logits0']:.3e}, step "
+                    f"logits {w['steps']:.3e} (the kernel run's / this "
+                    f"{steps_d / max(w['steps'], 1e-30):.3f}), rows whose ids differ "
+                    f"{len(w['flips'])} of {n_rows} {w['flips']}" for w in witnesses)
+        + f"; the kernel run's step logits max_abs {steps_d:.3e} (bound "
+        f"{CAPTION_WITNESS_FACTOR} x the witnesses' median, {bounds['steps']:.3e}), rows whose "
+        f"ids differ {len(flips)} of {n_rows}: {flips}; all-plain (recorded) total "
+        f"{plain_s:.2f} s, seconds by stage "
+        + ", ".join(f"{k} {plain_stats[k]:.3f}" for k in stages))
+    checks = {k: readings[k] for k in bounds}
+    past = {k: v for k, v in checks.items() if not np.all(np.asarray(v) <= np.asarray(bounds[k]))}
+    if past:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past {bounds}: "
+                           f"{past}")
+    if any(np.isnan(f[3]) for f in flips):
+        raise RuntimeError(f"{tag}: generated ids differ where the steps do not show it: {flips}")
+    del kern, plain, own, own_q, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 14b's training: INSTRUCT_STEPS LM-loss steps at INSTRUCT_TRAIN_BATCH over
+    # [instruction | output] ids, the loss on the output span (and its eos)
+    n = INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH
+    instr = _instruct_texts(rng, n, (6, 18))
+    outputs = _instruct_texts(rng, n, (4, 14))
+    pix = _pixels(n, INSTRUCT_TRAIN_BATCH, SEED + 147)
+    train_batches = []
+    for s in range(INSTRUCT_STEPS):
+        part = slice(s * INSTRUCT_TRAIN_BATCH, (s + 1) * INSTRUCT_TRAIN_BATCH)
+        ids_, mask = _tokens(bert, instr[part], model.cfg.max_txt_len)
+        full = [f"{a} {b}" for a, b in zip(instr[part], outputs[part])]
+        llm_ids, llm_mask = _tokens(llama, full, INSTRUCT_LLM_LENGTHS[1])
+        start = torch.tensor([1 + len(a.split()) for a in instr[part]], device=DEVICE)
+        cols = torch.arange(llm_ids.shape[1], device=DEVICE)[None]
+        target = ((cols >= start[:, None]) & llm_mask.bool()).long()
+        train_batches.append({"images": pix[s], "input_ids": ids_, "text_mask": mask,
+                              "llm_input_ids": llm_ids, "llm_mask": llm_mask,
+                              "target_mask": target})
+    train = _instruct_train(f"{tag} train", model, train_batches)
+    del model, train_batches, pix
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"stage_seconds": {k: stats[k] for k in stages}, "decode_steps": stats["decode_steps"],
+            "ms_per_token": ms_token, "total_s": total_s, "peak_memory_gib": peak,
+            "launches": launches, "stages": stage_rows, "decode_step": decode,
+            "plain_stage_seconds": {k: plain_stats[k] for k in stages},
+            "against_plain": readings, "bounds": bounds, "ids_differ": flips,
+            "noise_rms": noise_rms,
+            "witnesses": [{"kind": w["kind"], "seed": w["seed"], "logits0_max_abs": w["logits0"],
+                           "step_logits_max_abs": w["steps"], "ids_differ": w["flips"]}
+                          for w in witnesses],
+            "recompute_s": recompute_s, "recompute_ids_equal": same,
+            "recompute_step_logits_max_abs": re_worst, "recompute_ids_differ": re_flips,
+            "train": train, "load_s": load_s, "seconds": seconds}
+
+
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
@@ -4057,7 +4841,22 @@ def kernel_table(rows, launches):
             ("attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
              "sprc_tpu/ops/pallas_attention.py:428", "attention D=88 bf16 B=16"),
             ("fused_qformer_layer", "sprc_tpu_torch/ops/fused_qformer.py",
-             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer vqa queries"))]
+             "sprc_tpu/ops/pallas_qformer.py:360", "K3 qformer_layer vqa queries"))] + [
+        # phase 14, the LLaMA heads at their batch of 16: K2 in bf16 at 224 px
+        # (training's tower calls: 2 x 8 images for the retrieval model, 8 for the
+        # LM model), K3's queries-only pass and its fusion passes (queries and
+        # 128 or 32 BERT tokens into 257 rows); launches: 14a's / 14b's, their
+        # training steps' summed
+        entry(f"fused_vit_block_instruct_{kind}", "sprc_tpu_torch/ops/fused_block.py",
+              "sprc_tpu/ops/pallas_block.py:609", ["K2 vit_block eva_g B=16"],
+              count=f"fused_vit_block_instruct_{kind}")
+        for kind in ("retrieval", "generate", "train")] + [
+        entry(f"fused_qformer_layer_instruct_{kind}", "sprc_tpu_torch/ops/fused_qformer.py",
+              "sprc_tpu/ops/pallas_qformer.py:360", checks,
+              count=f"fused_qformer_layer_instruct_{kind}")
+        for kind, checks in (("retrieval", ["K3 qformer_layer vqa queries",
+                                            "K3 qformer_layer instruct fusion L=128"]),
+                             ("generate", ["K3 qformer_layer instruct fusion L=32"]))]
 
 
 def main():
@@ -4111,6 +4910,12 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         vqa[head] = phase_vqa(work, head)
+    instruct_runs = {}
+    for kind, phase in (("retrieval", phase_instruct_retrieval),
+                        ("generate", phase_instruct_generate)):  # phase 14, one 7B at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        instruct_runs[kind] = phase(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -4147,6 +4952,11 @@ def main():
     for head, run in vqa.items():
         launches.update({f"{k}_vqa_{head}": run["launches"][k]
                          for k in ("fused_vit_block", "fused_qformer_layer", "attention_bf16")})
+    for kind, run in instruct_runs.items():  # phase 14
+        launches.update({f"{k}_instruct_{kind}": run["launches"][k]
+                         for k in ("fused_vit_block", "fused_qformer_layer")})
+    launches["fused_vit_block_instruct_train"] = sum(
+        run["train"]["launches"]["fused_vit_block"] for run in instruct_runs.values())
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
             "query_32_median_ms")
     from sprc_tpu_torch.kernel_checks import bound_ms
@@ -4202,6 +5012,7 @@ def main():
                       "unfrozen_train_coco": unfrozen,
                       "caption_coco": caption, "instruct_synthetic": instruct,
                       "stage2_train": stage2_train, "vqa_zeroshot": vqa,
+                      "instruct_vicuna7b": instruct_runs,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

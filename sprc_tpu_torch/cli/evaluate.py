@@ -13,12 +13,13 @@ captions through ``encode_text_cls``, then the two-stage
 ``compute_sim_matrix`` (K1, then the ITM head over each query's top
 ``k_test``) and the recalls, ``agg_metrics`` = ``r_mean``. And the
 ``captioning`` task for the BLIP-2 stage-2 heads (``blip2_opt``,
-``blip2_t5``; configs/runs/eval/caption_coco_{opt2.7b,flant5xl}_eval.yaml):
+``blip2_t5``, and ``blip2_t5_instruct``, its class under the InstructBLIP
+name; configs/runs/eval/caption_coco_{opt2.7b,flant5xl}_eval.yaml):
 batches of ``run.batch_size_eval`` through the head's KV-cached greedy
 decode of ``run.max_len`` tokens after ``run.prompt``, the prompt tokenized
 and the ids decoded by the BERT tokenizer unless ``run.tokenizer`` names an
-LLM ``tokenizer.json`` (as in the JAX CLI), the result file
-``--output-dir/result/<split>_epochx.json`` and CIDEr / BLEU against the
+LLM ``tokenizer.json`` (``opt``, ``t5`` or ``llama``, as in the JAX CLI),
+the result file ``--output-dir/result/<split>_epochx.json`` and CIDEr / BLEU against the
 annotations' captions. And the zero-shot VQA tasks of the same two heads
 (``vqa``, ``gqa``, ``aok_vqa``; configs/runs/eval/vqav2_zeroshot_opt_eval.yaml,
 {vqav2,okvqa,gqa}_zeroshot_flant5xl_eval.yaml): batches of
@@ -26,7 +27,10 @@ annotations' captions. And the zero-shot VQA tasks of the same two heads
 tokens after each question rendered through ``run.prompt``, the result file
 ``--output-dir/result/<split>_{vqa,gqa,aokvqa}_result.json`` and the task's
 accuracy against the split's own answers (``agg_metrics``; none on a split
-without them); ``run.inference_method`` must be ``generate``. Each prints as the JAX CLI prints: one JSON line of the
+without them); ``run.inference_method`` must be ``generate``. The LLaMA
+models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
+glue fits their signatures (the JAX CLI builds them and fails at the call);
+``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
 scalar metrics. Every other task or family exits with a message naming its
 ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6; ``pnp_vqa``: A8.4); CIR
 datasets keep their CLIs (``cli/validate.py``, ``cli/validate_rerank.py``,
@@ -91,6 +95,10 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py "
                          "(classification and dialogue come with their families, ROADMAP "
                          "A8.6; CIR -> cli/validate.py)")
+    if arch in loader.INSTRUCT_MODELS:
+        raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
+                         "instruction and LLaMA token batches), in either package; "
+                         "cli/instruct.py runs it")
     if task_name == "retrieval" and arch not in loader.STAGE1_MODELS:
         raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (BLIP-1, "
                          "ALBEF, CLIP, ALPRO: ROADMAP A8.6)")

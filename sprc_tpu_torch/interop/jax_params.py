@@ -12,8 +12,10 @@ rerank model's frozen twin (``fformer``, ``query_tokens_f``,
 BLIP-2 stage 1's ``lm_head`` to ``Qformer.cls.predictions.*`` (the
 reference's names), the stage-2 heads' ``opt`` / ``t5`` towers to HF's
 names under ``opt_model.`` / ``t5_model.`` (:func:`opt_from_jax`,
-:func:`t5_from_jax`) with ``opt_proj`` / ``t5_proj``, a Q-Former without a
-text side (those heads') as it is, ``itm_head`` wherever the tree holds
+:func:`t5_from_jax`) with ``opt_proj`` / ``t5_proj``, the instruct models'
+``llm`` to HF's LLaMA names under ``llm_model.`` (:func:`llama_from_jax`)
+with ``llm_proj`` / ``l2q_proj``, a Q-Former with or without its text side
+(the caption heads' has none) as it is, ``itm_head`` wherever the tree holds
 it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init of a variant whose training
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``). Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
@@ -208,6 +210,28 @@ def t5_from_jax(params: Mapping[str, Any], prefix: str = "t5_model.") -> Dict[st
     return out
 
 
+def llama_from_jax(params: Mapping[str, Any], prefix: str = "llm_model.") -> Dict[str, np.ndarray]:
+    """``LlamaForCausalLM`` params -> HF-named arrays; ``lm_head`` where the
+    tree holds it (a JAX init through the retrieval forward makes none)."""
+    out: Dict[str, np.ndarray] = {}
+    mp = f"{prefix}model."
+    out[f"{mp}embed_tokens.weight"] = _np(params["embed_tokens"]["embedding"])
+    _rms(out, f"{mp}norm", params["model"]["norm"])
+    for key, layer in params["model"].items():
+        if not key.startswith("layer_"):
+            continue
+        lp = f"{mp}layers.{int(key.split('_')[1])}."
+        _rms(out, f"{lp}input_layernorm", layer["input_ln"])
+        _rms(out, f"{lp}post_attention_layernorm", layer["post_ln"])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(out, f"{lp}self_attn.{proj}", layer["attn"][proj])
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            _linear(out, f"{lp}mlp.{proj}", layer["mlp"][proj])
+    if "lm_head" in params:
+        _linear(out, f"{prefix}lm_head", params["lm_head"])
+    return out
+
+
 def to_torch(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in arrays.items()}
 
@@ -230,8 +254,10 @@ def state_dict_from_jax(params_np: Mapping[str, Any], *, vit: str = "clip_L") ->
         out.update(opt_from_jax(params_np["opt"]))
     if "t5" in params_np:
         out.update(t5_from_jax(params_np["t5"]))
+    if "llm" in params_np:  # the instruct models' LLaMA
+        out.update(llama_from_jax(params_np["llm"]))
     for name in ("vision_proj", "text_proj", "itm_head", "vision_proj_f", "text_proj_f",
-                 "opt_proj", "t5_proj"):
+                 "opt_proj", "t5_proj", "llm_proj", "l2q_proj"):
         if name in params_np:
             _linear(out, name, params_np[name])
     if "lm_head" in params_np:  # BLIP-2 stage 1's QFormerLMHead

@@ -778,11 +778,19 @@ CAPTION_SHAPES = {"caption queries": (CAPTION_BATCH, 32, True, False, RETRIEVAL_
 STAGE2_TRAIN_BATCH = 32
 VQA_BATCH = 16
 VQA_SHAPES = {"vqa queries": (VQA_BATCH, 32, True, False, 257)}
+# the InstructBLIP-style CIR models (models/instruct_cir.py) at their batch of
+# 16 over the bf16 EVA ViT-g's 257 rows: the 32 queries and the instruction's
+# BERT text cross-attending the image, at blip2_vicuna_instruct's max_txt_len of
+# 128 (retrieval) and blip2_instruct_cir's 32 (generation); the gallery's
+# queries-only pass is VQA_SHAPES' shape
+INSTRUCT_SHAPES = {"instruct fusion L=128": (VQA_BATCH, 32 + 128, True, True, 257),
+                   "instruct fusion L=32": (VQA_BATCH, 32 + 32, True, True, 257)}
 SHAPE_Q = {"text": 0, "slt prompt": 4, "coco text": 0}  # query rows where they are not 32
 # image rows' width where it is not 1024
-SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES, *VQA_SHAPES)}
+SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES, *VQA_SHAPES,
+                              *INSTRUCT_SHAPES)}
 QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES, **CAPTION_SHAPES,
-             **VQA_SHAPES}
+             **VQA_SHAPES, **INSTRUCT_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
@@ -2184,6 +2192,14 @@ def run_stage2(device="cuda") -> List[dict]:
                         **check_qformer_layer("vqa queries", device))]
 
 
+def run_instruct(device="cuda") -> List[dict]:
+    """K3 at the InstructBLIP-style models' fusion passes
+    (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
+    16 and the gallery's queries-only pass are :func:`run_stage2`'s checks."""
+    return [dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device))
+            for shape in INSTRUCT_SHAPES]
+
+
 # ---------------------------------------------- the Functions of a tower that trains
 
 # The autograd Functions of K2, K6, K7 and K8 (a tower that trains, BLIP-2
@@ -2410,4 +2426,4 @@ def run_all(device="cuda") -> List[dict]:
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
-            + run_edges(device))
+            + run_instruct(device) + run_edges(device))

@@ -35,6 +35,7 @@ from torch import nn
 
 from sprc_tpu_torch import models as _models  # noqa: F401  (registers the models)
 from sprc_tpu_torch.models.cir_base import CirConfig
+from sprc_tpu_torch.models.llama import LlamaConfig
 from sprc_tpu_torch.models.llm_presets import LLM_KEYS
 from sprc_tpu_torch.models.opt import OPTConfig
 from sprc_tpu_torch.models.qformer import QFormerConfig
@@ -84,7 +85,7 @@ MODEL_CONFIGS.update({
 # 224 px (pretrain), fp32 at 364 px with freeze_vit false (the COCO caption
 # fine-tunes); the LLM tower by its HF name, resolved through
 # models/llm_presets.py. The YAMLs' ``prompt`` is a generation key (below).
-LLM_HEADS = ("blip2_opt", "blip2_t5")
+LLM_HEADS = ("blip2_opt", "blip2_t5", "blip2_t5_instruct")
 _LLM_ROWS = {
     ("blip2_opt", "pretrain_opt2.7b"): ("eva_clip_g", 224, "opt_model", "facebook/opt-2.7b"),
     ("blip2_opt", "pretrain_opt6.7b"): ("eva_clip_g", 224, "opt_model", "facebook/opt-6.7b"),
@@ -101,13 +102,33 @@ MODEL_CONFIGS.update({
           "vit_dtype": torch.bfloat16 if size == 224 else torch.float32, llm_key: llm_name}
     for key, (vit_model, size, llm_key, llm_name) in _LLM_ROWS.items()
 })
+# the InstructBLIP rows, as configs/models/{blip2_vicuna_instruct,blip2_instruct_cir,
+# blip2_t5_instruct}/*.yaml give them: EVA ViT-g, bf16 and frozen at 224 px, 32
+# queries; the LLM by its HF name (LLaMA / Vicuna under ``llm_model``, fp32 as
+# the JAX preset leaves it: Vicuna-7B is 26.95 GB) and the YAML's max_txt_len
+# (blip2_instruct_cir's YAML sets none: the default 32).
+# ``blip2_t5_instruct`` is ``blip2_t5``'s class (an LLM head above)
+INSTRUCT_MODELS = ("blip2_vicuna_instruct", "blip2_instruct_cir")
+_INSTRUCT_ROWS = {
+    ("blip2_vicuna_instruct", "vicuna7b"): ("llm_model", "lmsys/vicuna-7b-v1.1", 128),
+    ("blip2_vicuna_instruct", "vicuna13b"): ("llm_model", "lmsys/vicuna-13b-v1.1", 128),
+    ("blip2_instruct_cir", "vicuna7b"): ("llm_model", "lmsys/vicuna-7b-v1.1", 32),
+    ("blip2_t5_instruct", "flant5xl"): ("t5_model", "google/flan-t5-xl", 128),
+    ("blip2_t5_instruct", "flant5xxl"): ("t5_model", "google/flan-t5-xxl", 128),
+}
+MODEL_CONFIGS.update({
+    key: {"vit_model": "eva_clip_g", "image_size": 224, "num_query_token": 32,
+          "freeze_vit": True, "vit_dtype": torch.bfloat16, "max_txt_len": max_txt_len,
+          llm_key: llm_name}
+    for key, (llm_key, llm_name, max_txt_len) in _INSTRUCT_ROWS.items()
+})
 # decoding keys of the model YAMLs (blip2_caption_opt2.7b.yaml's ``prompt``):
 # the JAX loader drops them from the model section; the caption glue reads
 # the run section's
 GENERATION_KEYS = ("prompt", "max_output_txt_len", "num_beams")
 # an LLM tower in a model row or override: its HF name (the YAML key) or its
 # config (a dict or the dataclass) on the model's keyword
-_LLM_CONFIGS = {"opt_config": OPTConfig, "t5_config": T5Config}
+_LLM_CONFIGS = {"opt_config": OPTConfig, "t5_config": T5Config, "llama_config": LlamaConfig}
 
 _PRECISIONS = {"fp32": torch.float32, "fp16": torch.bfloat16, "bf16": torch.bfloat16}
 # sub-configs that an override may give as a dict, with the fields of the JAX
@@ -146,9 +167,10 @@ def coerce_overrides(overrides: dict) -> dict:
 
 def _split_llm(fields: dict) -> dict:
     """Pop the LLM tower from ``fields`` -> the model's keyword arguments
-    (``{"opt_config": OPTConfig}``, ``{"t5_config": T5Config}`` or none), as
-    the JAX loader resolves ``opt_model`` / ``t5_model`` / ``llm_model`` and
-    ``opt_config`` / ``t5_config``."""
+    (``{"opt_config": OPTConfig}``, ``{"t5_config": T5Config}``,
+    ``{"llama_config": LlamaConfig}`` or none), as the JAX loader resolves
+    ``opt_model`` / ``t5_model`` / ``llm_model`` and ``opt_config`` /
+    ``t5_config`` / ``llama_config`` (each a dict or the dataclass)."""
     out = {}
     for key, (field, resolve) in LLM_KEYS.items():
         if key in fields:
@@ -179,8 +201,8 @@ def model_config(name: str, model_type: str = "pretrain", **overrides: Any) -> C
 
 def llm_config(name: str, model_type: str = "pretrain", **overrides: Any) -> dict:
     """The LLM tower of an LLM head's row (with ``overrides``) as the model's
-    keyword argument: ``{"opt_config": ...}`` or ``{"t5_config": ...}``; empty
-    for every other model."""
+    keyword argument: ``{"opt_config": ...}``, ``{"t5_config": ...}`` or
+    ``{"llama_config": ...}``; empty for every other model."""
     return _split_llm(_fields(name, model_type, overrides))
 
 
@@ -195,7 +217,9 @@ def _device(device) -> torch.device:
 def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
                 **overrides: Any) -> nn.Module:
     """The model on ``device`` with UNINITIALISED weights (``load_model``
-    fills them). ``overrides`` replace CirConfig fields."""
+    fills them). ``overrides`` replace CirConfig fields. The modules are made
+    on the meta device and then given storage on ``device``, so a 7B LLaMA
+    is never materialised on the host."""
     device = _device(device)
     cls = registry.get_model_class(name)
     cfg = model_config(name, model_type, **overrides)
@@ -212,7 +236,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     and position tables (OPT's among them), normal(1.0) for an embedding that
     says so in its ``init_std`` (T5's ``shared`` and relative-position
     tables); fan-in normal for the patch conv; zero biases; unit LayerNorms
-    and T5 RMS scales; temperature 0.07. The rerank model's frozen twin is drawn
+    and RMS scales (T5's, LLaMA's); temperature 0.07. The rerank model's frozen twin is drawn
     like every other module, independently of the tower it copies (as a
     JAX init draws ``fformer``); ``CirRerank.sync_fformer`` on the state
     dict makes it a copy."""
@@ -329,7 +353,8 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
     return scales
 
 
-__all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "GENERATION_KEYS",
+__all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
+           "GENERATION_KEYS",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",
            "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

@@ -6,7 +6,7 @@ The frozen tower -> ``ln_vision`` -> the Q-Former's queries-only pass (K2
 in the tower, K3 in each Q-Former layer on the card) -> ``opt_proj`` -> the
 32 query rows prepended to the frozen OPT's token embeddings. The Q-Former
 has no text side and the model no retrieval heads
-(``Blip2CirBase.RETRIEVAL_HEADS``), so the JAX init tree, ``temp`` among
+(``Blip2CirBase.QFORMER_TEXT``, ``RETRIEVAL_HEADS``), so the JAX init tree, ``temp`` among
 it, loads with ``strict=True``.
 
 :meth:`Blip2OPT.forward` is the LM loss (labels -100 over the queries, the
@@ -65,6 +65,7 @@ class Blip2OPT(Blip2CirBase):
     """LM captioning through a frozen OPT decoder."""
 
     RETRIEVAL_HEADS = False
+    QFORMER_TEXT = False
     FROZEN_PREFIXES = ("visual_encoder", "opt_model")
 
     def __init__(self, cfg: CirConfig, opt_config: OPTConfig = OPTConfig()):

@@ -1,6 +1,7 @@
 """BLIP-2 stage 2 with the T5 encoder-decoder (registry ``blip2_t5``;
 counterpart of ``sprc_tpu/models/blip2_t5.py``, reference
-src/lavis/models/blip2_models/blip2_t5.py).
+src/lavis/models/blip2_models/blip2_t5.py; also registered as
+``blip2_t5_instruct``, the same class, as the JAX package registers it).
 
 The frozen tower -> ``ln_vision`` -> the Q-Former's queries-only pass (K2,
 K3 on the card) -> ``t5_proj`` -> the 32 query rows prepended to the prompt's
@@ -29,11 +30,13 @@ from sprc_tpu_torch.registry import registry
 Tensor = torch.Tensor
 
 
+@registry.register_model("blip2_t5_instruct")  # the same class, as in JAX (its YAMLs' rows)
 @registry.register_model("blip2_t5")
 class Blip2T5(Blip2CirBase):
     """Seq2seq captioning through a frozen T5."""
 
     RETRIEVAL_HEADS = False
+    QFORMER_TEXT = False
     FROZEN_PREFIXES = ("visual_encoder", "t5_model")  # the JAX ("visual_encoder", "t5")
 
     def __init__(self, cfg: CirConfig, t5_config: T5Config = T5Config()):

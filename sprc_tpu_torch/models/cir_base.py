@@ -125,10 +125,13 @@ class Blip2CirBase(nn.Module):
     """ViT (frozen unless ``freeze_vit=False``) + ln_vision + Q-Former +
     projection heads."""
 
-    # False (the LLM caption heads, models/blip2_opt.py and blip2_t5.py): no
-    # vision / text projections, no ITM head, and a Q-Former without its
-    # text side; the JAX init of those heads holds none of them
+    # False (the LLM heads, models/blip2_opt.py, blip2_t5.py, instruct_cir.py):
+    # no vision / text projections and no ITM head; the JAX init of those
+    # heads holds none of them
     RETRIEVAL_HEADS = True
+    # False (the caption heads): a Q-Former without its text side, which
+    # their queries-only pass never reaches
+    QFORMER_TEXT = True
     # the parameter-name prefixes that neither take a gradient nor an update
     # (the JAX model's FROZEN_PREFIXES, in the port's module names); a class
     # that sets them calls :meth:`freeze_prefixes` once its modules exist
@@ -145,7 +148,7 @@ class Blip2CirBase(nn.Module):
         self.ln_vision = LayerNormFP32(vcfg.width, 1e-5)
         if cfg.freeze_vit:  # the reference's freeze_vit=True
             self.visual_encoder.requires_grad_(False)
-        self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg, text=self.RETRIEVAL_HEADS)})
+        self.Qformer = nn.ModuleDict({"bert": QFormer(qcfg, text=self.QFORMER_TEXT)})
         self.query_tokens = nn.Parameter(torch.empty(1, cfg.num_query_token, H))
         if self.RETRIEVAL_HEADS:
             self.vision_proj = Linear(H, cfg.embed_dim, dtype=qcfg.dtype)

@@ -6,14 +6,16 @@ The model YAMLs name their language tower by its hub name
 without a download the architecture is what is needed, so the dimensions of
 each published ``config.json`` are pinned here, table for table as in the
 JAX package (a test holds them equal), and :mod:`sprc_tpu_torch.loader`
-resolves the YAML keys through :data:`LLM_KEYS`. The LLaMA row
-(``llm_model``) comes with ``llama`` / ``instruct_cir`` (ROADMAP A8).
+resolves the YAML keys through :data:`LLM_KEYS` (``llm_model``: LLaMA /
+Vicuna, whose 32001-word vocabulary counts Vicuna's pad token). Every
+tower is fp32, as the JAX presets leave each config's dtype at its default.
 """
 
 from __future__ import annotations
 
 import re
 
+from sprc_tpu_torch.models.llama import LlamaConfig
 from sprc_tpu_torch.models.opt import OPTConfig
 from sprc_tpu_torch.models.t5 import T5Config
 
@@ -61,9 +63,24 @@ def opt_preset(name: str) -> OPTConfig:
     return OPTConfig(hidden_size=hidden, ffn_dim=ffn, num_layers=layers, num_heads=heads)
 
 
-def llama_preset(name: str):
-    raise NotImplementedError(f"llm_model {name!r}: the LLaMA tower comes with llama / "
-                              "instruct_cir (ROADMAP A8)")
+def llama_preset(name: str) -> LlamaConfig:
+    """LLaMA / Vicuna dims (HF config.json; Vicuna adds a pad token: vocabulary
+    32001, reference blip2_vicuna_instruct.py's tokenizer setup)."""
+    short = name.split("/")[-1].lower()
+    table = {
+        # hidden, intermediate, layers, heads, vocab
+        "vicuna-7b-v1.1": (4096, 11008, 32, 32, 32001),
+        "vicuna-7b": (4096, 11008, 32, 32, 32001),
+        "vicuna-13b-v1.1": (5120, 13824, 40, 40, 32001),
+        "vicuna-13b": (5120, 13824, 40, 40, 32001),
+        "llama-7b": (4096, 11008, 32, 32, 32000),
+        "llama-13b": (5120, 13824, 40, 40, 32000),
+    }
+    if short not in table:
+        raise KeyError(f"unknown llm_model {name!r}; known: {sorted(table)}")
+    hidden, inter, layers, heads, vocab = table[short]
+    return LlamaConfig(hidden_size=hidden, intermediate_size=inter, num_layers=layers,
+                       num_heads=heads, vocab_size=vocab)
 
 
 # YAML model-section key -> (the model's construction keyword, its resolver);

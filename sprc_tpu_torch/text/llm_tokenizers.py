@@ -60,6 +60,11 @@ class HFFileTokenizer:
         return self._tok.decode([int(i) for i in ids if int(i) not in (self.pad_id, self.eos_id)])
 
 
+def llama_tokenizer(path: str) -> HFFileTokenizer:
+    """LLaMA / Vicuna: pad 0, eos 2, bos 1 first (HF's convention)."""
+    return HFFileTokenizer(path, pad_id=0, eos_id=2, bos_id=1, add_bos=True)
+
+
 def opt_tokenizer(path: str) -> HFFileTokenizer:
     """OPT (GPT2 BPE): pad 1, bos / eos 2 (facebook/opt-*)."""
     return HFFileTokenizer(path, pad_id=1, eos_id=2, bos_id=2, add_bos=True)

@@ -187,19 +187,15 @@ class GenericTrainer(Trainer):
 
 
 def llm_tokenizer(run: dict, default):
-    """``run.tokenizer`` = {opt | t5: tokenizer.json} -> that LLM's tokenizer
-    (``text/llm_tokenizers.py``); without it, ``default()``. LLaMA's waits
-    for its heads (ROADMAP A8.3)."""
+    """``run.tokenizer`` = {opt | t5 | llama: tokenizer.json} -> that LLM's
+    tokenizer (``text/llm_tokenizers.py``); without it, ``default()``."""
     tok_cfg = run.get("tokenizer")
     if not isinstance(tok_cfg, dict):
         return default()
-    from sprc_tpu_torch.text.llm_tokenizers import opt_tokenizer, t5_tokenizer
+    from sprc_tpu_torch.text.llm_tokenizers import llama_tokenizer, opt_tokenizer, t5_tokenizer
 
     (kind, path), = tok_cfg.items()
-    if kind == "llama":
-        raise SystemExit("run.tokenizer llama: the LLaMA heads come with their family "
-                         "(ROADMAP A8.3)")
-    return {"opt": opt_tokenizer, "t5": t5_tokenizer}[kind](path)
+    return {"opt": opt_tokenizer, "t5": t5_tokenizer, "llama": llama_tokenizer}[kind](path)
 
 
 def run_generic(cfg, args) -> Dict[str, float]:
@@ -224,9 +220,14 @@ def run_generic(cfg, args) -> Dict[str, float]:
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
+    if arch in loader.INSTRUCT_MODELS:
+        # the JAX run builds the model and then fails at the adapter's call
+        raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (the "
+                         "instruction and LLaMA token batches), in either package; its "
+                         "training forward runs through models.instruct_cir.InstructAdapter")
     if arch not in loader.STAGE1_MODELS + loader.LLM_HEADS:
-        raise SystemExit(f"model {arch!r}: not ported for generic training (LLaMA heads: "
-                         "ROADMAP A8.3; BLIP-1, ALBEF and the rest of the zoo: ROADMAP A8.6)")
+        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1, ALBEF and "
+                         "the rest of the zoo: ROADMAP A8.6)")
 
     datasets_cfg = dict(cfg.datasets or {})
     assert len(datasets_cfg) == 1, "one dataset builder per run config"

@@ -140,9 +140,12 @@ def test_evaluate_captioning_refusals(tmp_path):
     cfg["run"]["tokenizer"] = {"opt": str(tmp_path / "missing" / "tokenizer.json")}
     with pytest.raises(FileNotFoundError, match="missing/tokenizer.json"):
         evaluate.evaluate(Config(defaults=cfg), args)
-    cfg["run"]["tokenizer"] = {"llama": "x"}
-    with pytest.raises(SystemExit, match="ROADMAP A8"):
+    cfg["run"]["tokenizer"] = {"llama": str(tmp_path / "missing" / "llama.json")}
+    with pytest.raises(FileNotFoundError, match="missing/llama.json"):
         evaluate.evaluate(Config(defaults=cfg), args)
+    with pytest.raises(SystemExit, match="no evaluation glue fits its signature"):
+        evaluate.evaluate(Config(defaults=dict(cfg, model={"arch": "blip2_instruct_cir",
+                                                           "model_type": "vicuna7b"})), args)
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA"):
             evaluate.evaluate(Config(defaults=cfg), argparse.Namespace(device="cuda",
@@ -150,17 +153,21 @@ def test_evaluate_captioning_refusals(tmp_path):
 
 
 def test_instruct_cli_generates_with_both_heads_and_refuses_llama(capsys):
+    """Each head generates; the LLaMA names run too (the retrieval branch
+    for blip2_vicuna_instruct, generation for blip2_instruct_cir; their
+    outputs are held in test_torch_instruct_cir.py); without --synthetic
+    the CLI refuses, and its default device is the card."""
     from sprc_tpu_torch.cli import instruct
 
-    for name in ("blip2_opt", "blip2_t5"):
+    for name in ("blip2_opt", "blip2_t5", "blip2_instruct_cir"):
         instruct.main(["--model-name", name, "--synthetic", "--device", "cpu", "--batch", "3",
                        "--max-new-tokens", "5"])
         out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert out["model"] == name and out["task"] == "generate" and out["n_outputs"] == 3
         assert all(len(t.split()) <= 5 for t in out["outputs"])
-    for name in ("blip2_vicuna_instruct", "blip2_instruct_cir"):
-        with pytest.raises(SystemExit, match="ROADMAP A8"):
-            instruct.main(["--model-name", name, "--synthetic", "--device", "cpu"])
+    instruct.main(["--model-name", "blip2_vicuna_instruct", "--synthetic", "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["task"] == "retrieval" and out["sims_shape"] == [2, 8] and out["finite"]
     with pytest.raises(SystemExit, match="non-synthetic"):
         instruct.main(["--model-name", "blip2_opt", "--device", "cpu"])
     assert instruct.make_parser().parse_args(["--model-name", "blip2_t5"]).device == "cuda"

@@ -74,9 +74,12 @@ def test_presets_and_llm_keys_equal_jax():
                     "google/flan-t5-xl", "google/flan-t5-xxl", "t5-base", "t5-large", "t5-3b",
                     "allenai/unifiedqa-v2-t5-base-1363200"],
              "opt": ["facebook/opt-125m", "facebook/opt-1.3b", "facebook/opt-2.7b",
-                     "facebook/opt-6.7b"]}
+                     "facebook/opt-6.7b"],
+             "llama": ["lmsys/vicuna-7b-v1.1", "vicuna-7b", "lmsys/vicuna-13b-v1.1",
+                       "vicuna-13b", "llama-7b", "huggyllama/llama-13b"]}
     for kind, resolve, jresolve in (("t5", p.t5_preset, jp.t5_preset),
-                                    ("opt", p.opt_preset, jp.opt_preset)):
+                                    ("opt", p.opt_preset, jp.opt_preset),
+                                    ("llama", p.llama_preset, jp.llama_preset)):
         for name in names[kind]:
             got, want = resolve(name), jresolve(name)
             fields = {f.name for f in dataclasses.fields(want)} - {"dtype"}
@@ -84,9 +87,8 @@ def test_presets_and_llm_keys_equal_jax():
             assert {k: getattr(got, k) for k in fields} == {k: getattr(want, k) for k in fields}
             assert got.dtype == torch.float32 and jnp.dtype(want.dtype) == jnp.float32
         with pytest.raises(KeyError, match="unknown"):
-            resolve("facebook/opt-13b" if kind == "opt" else "t5-11b")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        p.LLM_KEYS["llm_model"][1]("lmsys/vicuna-7b-v1.1")
+            resolve({"opt": "facebook/opt-13b", "t5": "t5-11b", "llama": "llama-65b"}[kind])
+    assert p.LLM_KEYS["llm_model"][1]("lmsys/vicuna-7b-v1.1").vocab_size == 32001
 
 
 V, B, EOS, PAD = 11, 4, 3, 0
@@ -200,7 +202,8 @@ def test_caption_task_result_file_and_metrics_equal_jax(tmp_path):
 ROWS = [("blip2_opt", t) for t in ("pretrain_opt2.7b", "pretrain_opt6.7b", "caption_coco_opt2.7b",
                                    "caption_coco_opt6.7b")] + \
        [("blip2_t5", t) for t in ("pretrain_flant5xl", "pretrain_flant5xl_vitL",
-                                  "pretrain_flant5xxl", "caption_coco_flant5xl")]
+                                  "pretrain_flant5xxl", "caption_coco_flant5xl")] + \
+       [("blip2_t5_instruct", t) for t in ("flant5xl", "flant5xxl")]
 
 
 def test_stage2_model_configs_equal_the_jax_yaml():

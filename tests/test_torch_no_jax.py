@@ -59,6 +59,12 @@ assert "sprc_tpu_torch.retrieval.vqa_eval" in mods
 assert {"vqa", "gqa", "aok_vqa"} <= set(registry.list("task"))
 assert {"coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"} <= set(registry.list("dataset"))
 assert "blip_question" in registry.list("processor")
+# the LLaMA heads: the decoder, the two InstructBLIP-style CIR models, blip2_t5_instruct
+assert {"sprc_tpu_torch.models.llama", "sprc_tpu_torch.models.instruct_cir"} <= set(mods)
+assert {"blip2_vicuna_instruct", "blip2_instruct_cir",
+        "blip2_t5_instruct"} <= set(registry.list("model"))
+from sprc_tpu_torch.text import llm_tokenizers
+assert callable(llm_tokenizers.llama_tokenizer)
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -86,6 +92,7 @@ for name, arch in (("eval/caption_coco_opt2.7b_eval.yaml", "blip2_opt"),
     cfg = Config(defaults=chip_smoke.RUN_CONFIGS[name])
     assert cfg.run["task"] == "captioning" and cfg.model["arch"] == arch
 assert loader.llm_config("blip2_t5", "caption_coco_flant5xl")["t5_config"].d_model == 2048
+assert loader.llm_config("blip2_vicuna_instruct", "vicuna7b")["llama_config"].hidden_size == 4096
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

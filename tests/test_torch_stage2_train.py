@@ -328,10 +328,15 @@ def test_frozen_prefixes_never_take_a_gradient():
 
     with_prefixes = {n for n in registry.list("model")
                      if getattr(registry.get_model_class(n), "FROZEN_PREFIXES", ())}
-    assert with_prefixes == {"blip2_opt", "blip2_t5", "blip2_cir_rerank"}
-    builds = [("blip2_cir_rerank", dict(model_type="pretrain", image_size=IMG, num_query_token=Q,
-                                        max_txt_len=6, vocab_size=VOCAB, embed_dim=16,
-                                        vit_config_override=VIT, qformer_config_override=QF))]
+    assert with_prefixes == {"blip2_opt", "blip2_t5", "blip2_t5_instruct", "blip2_cir_rerank",
+                             "blip2_vicuna_instruct", "blip2_instruct_cir"}
+    tiny = dict(image_size=IMG, num_query_token=Q, max_txt_len=6, vocab_size=VOCAB, embed_dim=16,
+                vit_config_override=VIT, qformer_config_override=QF)
+    builds = [("blip2_cir_rerank", dict(tiny, model_type="pretrain"))]
+    builds += [(arch, dict(tiny, model_type="vicuna7b", freeze_vit=False,
+                           llama_config=dict(vocab_size=80, hidden_size=48, intermediate_size=96,
+                                             num_layers=2, num_heads=4)))
+               for arch in ("blip2_vicuna_instruct", "blip2_instruct_cir")]
     builds += [(arch, dict(model_section(arch), freeze_vit=freeze))
                for arch in RUNS for freeze in (False, True)]
     for arch, section in builds:
@@ -350,8 +355,9 @@ def test_frozen_prefixes_never_take_a_gradient():
 
 
 def test_train_refuses_what_is_not_ported(data, tmp_path):
-    """LLaMA's tokenizer names ROADMAP A8.3, a family without a generic
-    adapter A8.6, VQA training A8.6."""
+    """``run.tokenizer`` llama reads its tokenizer.json (a missing one is a
+    FileNotFoundError that names it); the LLaMA models have no generic
+    adapter; a family without one names ROADMAP A8.6, VQA training A8.6."""
     from sprc_tpu_torch.config import Config
 
     args = argparse.Namespace(output_dir=str(tmp_path), vocab_path=data["vocab"], device="cpu")
@@ -360,9 +366,14 @@ def test_train_refuses_what_is_not_ported(data, tmp_path):
     cfg["datasets"]["coco_caption"]["build_info"] = {
         "annotations": {"train": [os.path.join(data["root"], "train.json")]},
         "images": data["root"]}
-    cfg["run"]["tokenizer"] = {"llama": "x"}
-    with pytest.raises(SystemExit, match="ROADMAP A8.3"):
+    cfg["run"]["tokenizer"] = {"llama": str(tmp_path / "missing" / "tokenizer.json")}
+    with pytest.raises(FileNotFoundError, match="missing/tokenizer.json"):
         generic.run_generic(Config(defaults=cfg), args)
+    for arch in ("blip2_vicuna_instruct", "blip2_instruct_cir"):
+        with pytest.raises(SystemExit, match="no generic task adapter fits its forward"):
+            generic.run_generic(Config(defaults=dict(cfg, model={"arch": arch,
+                                                                 "model_type": "vicuna7b"})),
+                                args)
     for run, model in (({"task": "captioning"}, {"arch": "blip_caption"}),
                        ({"task": "vqa"}, {"arch": "blip2_opt"})):
         with pytest.raises(SystemExit, match="ROADMAP A8.6"):
