@@ -341,6 +341,27 @@ Phases (any failure raises and exits nonzero before the last line):
    The kernel phase holds K3 at the two fusion shapes (kernel_checks.
    run_instruct); K2 and its attention at B = 16 are phase 13's checks.
 
+15. PNP-VQA (models/pnp_vqa.py; random weights from seed 0, the synthetic
+   vocab, full width: pnp_vqa / base, BLIP-1's ITM large and caption
+   large_coco, each a ViT-L/16 at 384 px in bf16 (S = 577, 24 blocks through
+   K2), 12-layer med-BERTs in fp32, the UnifiedQA-v2 t5-base FiD reader in
+   fp32): cli/evaluate.py on eval/pnp_vqa_vqav2_eval.yaml over 8 seeded
+   questions on PNG images (2 batches of 4; num_captions 50, num_patches
+   20, block_num 7, max_len 10, min_len 1): the metric JSON, the result
+   file, seconds by stage (the towers, GradCAM, caption sampling, FiD
+   encode, FiD decode), ms a sampled token, the peak, the launches (48 K2
+   blocks a batch, the bf16 chain's own kernels, no K1 or K3); then the
+   first batch recorded through the kernels and held against the all-plain
+   run: both towers' rows (PNP_BOUNDS), the all-plain GradCAM over the
+   kernel run's rows, the GradCAM maps from the all-plain rows and the
+   caption decoder's logits over the same sampled ids and gathered patches
+   at CAPTION_WITNESS_FACTOR times their shuffled witnesses' median
+   (PNP_WITNESS), the all-plain FiD's answers from the kernel run's
+   captions equal to the kernel run's; the free-running all-plain batch is
+   a report. The kernel phase holds K2 at BLIP's ViT-L/16 shapes (B = 4, S
+   = 577), its bf16 attention call and the 24-block chain stage by stage
+   (kernel_checks.run_pnp).
+
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
 frozen embeds' cast), one synchronize at the end.
@@ -450,7 +471,7 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
-# phase 10's to 13's run configs as configs/runs/<name> gives them (the card machine
+# phase 10's to 13's and 15's run configs as configs/runs/<name> gives them (the card machine
 # may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
 # each dict equal to its file)
 RUN_CONFIGS = {
@@ -519,6 +540,15 @@ RUN_CONFIGS = {
         "datasets": {"gqa": {
             "build_info": {"annotations": {"val": []}, "images": ""},
             "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 224}},
+            "text_processor": {"eval": {"name": "blip_question"}}}}},
+    "eval/pnp_vqa_vqav2_eval.yaml": {
+        "run": {"task": "vqa", "evaluate": True, "batch_size_eval": 4, "num_captions": 50,
+                "num_captions_fid": 1, "num_patches": 20, "block_num": 7, "max_len": 10,
+                "min_len": 1, "test_splits": ["val"]},
+        "model": {"arch": "pnp_vqa", "model_type": "base"},
+        "datasets": {"coco_vqa": {
+            "build_info": {"annotations": {"val": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
             "text_processor": {"eval": {"name": "blip_question"}}}}},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
@@ -4643,6 +4673,255 @@ def phase_instruct_generate(work):
             "train": train, "load_s": load_s, "seconds": seconds}
 
 
+# phase 15, PNP-VQA (models/pnp_vqa.py): cli/evaluate.py on eval/pnp_vqa_vqav2_eval.yaml
+# (pnp_vqa / base: BLIP-1's ITM large and caption large_coco, each a ViT-L/16 at
+# 384 px in bf16, S = 577, 24 blocks a call through K2; the 12-layer med-BERTs in
+# fp32, unfused; the UnifiedQA-v2 t5-base FiD reader in fp32; random weights from
+# run.seed, the synthetic BERT vocab, the reader's WhitespaceTokenizer) over
+# PNP_QUESTIONS seeded questions on PNG images: 2 batches of 4, num_captions 50,
+# num_patches 20, block_num 7, max_len 10, min_len 1, as the YAML says
+PNP_RUN = "eval/pnp_vqa_vqav2_eval.yaml"
+PNP_QUESTIONS = 8
+# a batch: 24 K2 blocks in the ITM tower and 24 in the caption tower; the bf16
+# chain's own kernels launch too; nothing else does (no K1, no K3: the med-BERTs
+# and the T5 are torch.matmul, as the JAX package's are XLA)
+PNP_BATCH_LAUNCHES = {"fused_vit_block": 48}
+PNP_CHAIN = ("gemm", "attention_bf16", "layer_norm")
+# Bounds, fixed before the first reading. "rows": each tower's rows (after BLIP's
+# final LayerNorm) through the kernels against the all-plain tower's on the same
+# pixels, max / mean |difference| (phase 5's bound for a bf16 tower of 39
+# blocks; this one has 24 at S = 577). "own": the all-plain GradCAM over the
+# kernel run's own ITM rows against the kernel run's maps, relative to their
+# largest |value| (no kernel runs after the tower: equal but for the order of
+# the library's sums). The GradCAM maps from the all-plain rows, and the caption
+# decoder's logits over the same sampled ids and the same gathered patches of
+# the all-plain caption rows, are held at CAPTION_WITNESS_FACTOR times the median
+# of the witnesses' readings (the all-plain rows moved by another row's
+# difference, PNP_WITNESS). The FiD answers from the kernel run's captions
+# through the all-plain pipeline equal the kernel run's (the reader has no
+# kernel). Sampled captions are not compared: they move with the tower's rounding.
+PNP_BOUNDS = {"rows": EVA_BOUNDS["frozen"], "own": 1e-6}
+PNP_WITNESS = [("shuffled", SEED + 150 + j) for j in range(3)]
+PNP_STAGES = ("tower_s", "gradcam_s", "caption_sample_s", "fid_encode_s", "fid_decode_s")
+
+
+@contextlib.contextmanager
+def _recording_pnp(rec):
+    """Record a pipeline's first batch (the first call of each): its pixels
+    and questions, the ITM and caption towers' rows, the GradCAM maps (token
+    average and full), the first round's patch indices and sampled ids, the
+    captions and answers; and every call's (pipeline, pixels, questions,
+    answers)."""
+    from sprc_tpu_torch.models import blip1, pnp_vqa
+
+    cls = pnp_vqa.PnpVqaPipeline
+    real = {"predict": cls.predict_answers, "patches": pnp_vqa.sample_patches,
+            "sample": pnp_vqa.sample_generate, "gradcam": pnp_vqa.compute_gradcam,
+            "itm": blip1.BlipITM.encode_image, "cap": blip1.BlipCaption.encode_image}
+    rec["calls"] = []
+
+    def keep(key, value):
+        rec.setdefault(key, value)
+        return value
+
+    def predict(self, images, questions, **kw):
+        out = real["predict"](self, images, questions, **kw)
+        rec["calls"].append((self, np.asarray(images), list(questions), out))
+        return out
+
+    inherited = "encode_image" not in vars(blip1.BlipITM)
+    pnp_vqa.PnpVqaPipeline.predict_answers = predict
+    pnp_vqa.sample_patches = lambda *a, **kw: keep("idx", real["patches"](*a, **kw))
+    pnp_vqa.sample_generate = lambda *a, **kw: keep("ids", real["sample"](*a, **kw))
+    pnp_vqa.compute_gradcam = lambda *a, **kw: keep("gradcam", real["gradcam"](*a, **kw))
+    blip1.BlipITM.encode_image = lambda self, im: keep("itm_rows", real["itm"](self, im))
+    blip1.BlipCaption.encode_image = lambda self, im: keep("cap_rows", real["cap"](self, im))
+    try:
+        yield rec
+    finally:
+        pnp_vqa.PnpVqaPipeline.predict_answers = real["predict"]
+        pnp_vqa.sample_patches, pnp_vqa.sample_generate = real["patches"], real["sample"]
+        pnp_vqa.compute_gradcam = real["gradcam"]
+        blip1.BlipCaption.encode_image = real["cap"]
+        if inherited:
+            del blip1.BlipITM.encode_image
+        else:
+            blip1.BlipITM.encode_image = real["itm"]
+
+
+def phase_pnp(work):
+    """15: PNP-VQA answers through cli/evaluate.py (phase 15 of the docstring)."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+    from sprc_tpu_torch.utils.gradcam import compute_gradcam
+
+    tag = "pnp_vqa"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "pnp_vqa")
+    ann = _write_vqa(root, PNP_QUESTIONS, SEED + 150)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(PNP_RUN, {
+        "run": {"seed": SEED},
+        "datasets": {"coco_vqa": {"build_info": {"annotations": {"val": [ann]}, "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    out_dir = os.path.join(work, "pnp_vqa_out")
+    args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
+                              output_dir=out_dir)
+    run = cfg.run
+    settings = dict(num_captions=run["num_captions"], num_captions_fid=run["num_captions_fid"],
+                    num_patches=run["num_patches"], block_num=run["block_num"],
+                    max_len=run["max_len"], min_len=run["min_len"])
+
+    # the clean run: timed and counted; only each batch's (pipeline, pixels,
+    # questions, answers) is kept
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats, clean = {}, {}
+    t0 = time.perf_counter()
+    with _recording_pnp(clean):
+        metrics = evaluate.evaluate(cfg, args, stats)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
+    with open(os.path.join(out_dir, "result", "val_vqa_result.json")) as f:
+        result = json.load(f)
+    batch = run["batch_size_eval"]
+    batches = -(-PNP_QUESTIONS // batch)
+    ms_token = stats["caption_sample_s"] / max(stats["caption_steps"], 1) * 1e3
+    log(f"[{tag}] {batches} batches of {batch}: seconds by stage "
+        + ", ".join(f"{k} {stats[k]:.3f}" for k in PNP_STAGES)
+        + f"; {stats['caption_steps']} sampled steps of {batch * run['num_captions']} rows, "
+        f"{ms_token:.2f} ms a sampled token; {stats['fid_steps']} FiD decode steps; total "
+        f"{total_s:.2f} s; peak {peak:.2f} GiB; {len(result)} answers, e.g. "
+        f"{[r['answer'][:30] for r in result[:3]]}")
+    want = {k: v * batches for k, v in PNP_BATCH_LAUNCHES.items()}
+    log(f"[{tag}] launches: {launches}")
+    bad = {k: launches[k] for k in want if launches[k] != want[k]}
+    bad.update({k: launches[k] for k in PNP_CHAIN if launches[k] <= 0})
+    bad.update({k: v for k, v in launches.items()
+                if k not in want and k not in PNP_CHAIN and v != 0})
+    if bad:
+        raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the chain's")
+    if (len(result) != PNP_QUESTIONS or "agg_metrics" not in metrics
+            or not all(np.isfinite(v) for v in metrics.values())
+            or len(clean["calls"]) != batches):
+        raise RuntimeError(f"{tag}: {len(result)} answers, metrics {metrics}")
+    if peak >= 80.0:
+        raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+
+    # the first batch again through the kernels, recorded; none of what follows
+    # is the main path's launches
+    kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    pipe, images, questions, clean_out = clean["calls"][0]
+    kern = {}
+    with _recording_pnp(kern):
+        answers, captions, _ = pipe.predict_answers(images, questions, **settings)
+    device = pipe.device
+    pixels = torch.as_tensor(images, device=device)
+    ids, mask = pipe._ids(pipe.tokenizer([q.strip("?") for q in questions], max_length=35,
+                                         enc_token=True))
+    block = settings["block_num"]
+    with torch.no_grad(), primitives.plain_reference():
+        plain_itm = pipe.itm_model.encode_image(pixels)
+        plain_cap = pipe.cap_model.encode_image(pixels)
+    readings = {"itm_rows": _max_mean([kern["itm_rows"]], [plain_itm]),
+                "cap_rows": _max_mean([kern["cap_rows"]], [plain_cap])}
+    with primitives.plain_reference():
+        _, own_full = compute_gradcam(pipe.itm_model, None, ids, mask, block_num=block,
+                                      image_embeds=kern["itm_rows"])
+        _, plain_full = compute_gradcam(pipe.itm_model, None, ids, mask, block_num=block,
+                                        image_embeds=plain_itm)
+    kern_full = kern["gradcam"][1]
+    scale = float(np.abs(plain_full).max())
+    own = float(np.abs(own_full - kern_full).max()) / max(scale, 1e-30)
+    gradcam_d = float(np.abs(kern_full - plain_full).max())
+    idx, sampled = kern["idx"] + 1, kern["ids"]  # the first round's patches (CLS skipped)
+    B, n_cap, n_patch = idx.shape
+
+    def caption_logits(rows):
+        with torch.no_grad(), primitives.plain_reference():
+            D = rows.shape[-1]
+            gathered = torch.gather(rows[:, None].expand(B, n_cap, *rows.shape[1:]), 2,
+                                    idx[..., None].expand(*idx.shape, D))
+            return pipe.cap_model.decode_logits(sampled, torch.ones_like(sampled),
+                                                gathered.reshape(B * n_cap, n_patch, D))
+
+    plain_logits = caption_logits(plain_cap)
+    logits_d = (caption_logits(kern["cap_rows"]) - plain_logits).abs().max().item()
+    witnesses = []
+    for kind, seed in PNP_WITNESS:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        rows = _witness_rows(plain_itm, kern["itm_rows"], kind, gen)
+        with primitives.plain_reference():
+            _, w_full = compute_gradcam(pipe.itm_model, None, ids, mask, block_num=block,
+                                        image_embeds=rows)
+        w_logits = caption_logits(_witness_rows(plain_cap, kern["cap_rows"], kind, gen))
+        witnesses.append({"kind": kind, "seed": seed,
+                          "gradcam": float(np.abs(w_full - plain_full).max()),
+                          "caption_logits": (w_logits - plain_logits).abs().max().item()})
+        del w_logits
+    median = {k: float(np.median([w[k] for w in witnesses]))
+              for k in ("gradcam", "caption_logits")}
+    t0 = time.perf_counter()
+    with primitives.plain_reference():
+        fid_answers = pipe.forward_qa(questions, captions, num_captions=settings["num_captions"],
+                                      num_captions_fid=settings["num_captions_fid"],
+                                      max_len=settings["max_len"], min_len=settings["min_len"])
+        sync()
+        fid_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain_answers, plain_captions, _ = pipe.predict_answers(images, questions, **settings)
+        sync()
+        plain_s = time.perf_counter() - t0
+    del plain_logits
+    log(f"[{tag}] the first batch against the all-plain run: tower rows (max / mean abs) "
+        + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in readings.items())
+        + f" (bound {PNP_BOUNDS['rows']}); GradCAM maps (largest |value| {scale:.3e}): the "
+        f"all-plain over the kernel run's rows {own:.3e} of it (bound {PNP_BOUNDS['own']}), "
+        f"from the all-plain rows max_abs {gradcam_d:.3e}; the caption decoder over the same "
+        f"{B * n_cap} sampled ids and gathered patches: logits max_abs {logits_d:.3e}; the "
+        f"witnesses: " + "; ".join(
+            f"{w['kind']} (seed {w['seed']}): GradCAM {w['gradcam']:.3e} (the kernel run's / "
+            f"this {gradcam_d / max(w['gradcam'], 1e-30):.3f}), caption logits "
+            f"{w['caption_logits']:.3e} ({logits_d / max(w['caption_logits'], 1e-30):.3f})"
+            for w in witnesses)
+        + f" (bound {CAPTION_WITNESS_FACTOR} x the median); the all-plain FiD on the kernel "
+        f"run's captions: answers {'equal' if fid_answers == answers else fid_answers} "
+        f"({fid_s:.2f} s); the recorded kernel run's answers "
+        f"{'equal the clean run' if answers == clean_out[0] else answers}; the free-running "
+        f"all-plain batch ({plain_s:.2f} s): {sum(a == b for a, b in zip(plain_answers, answers))} "
+        f"of {len(answers)} answers and {sum(len(set(a) & set(b)) for a, b in zip(plain_captions, captions))} "
+        f"of {sum(len(c) for c in captions)} captions the same")
+    checks = {"itm_rows": readings["itm_rows"], "cap_rows": readings["cap_rows"], "own": own,
+              "gradcam": gradcam_d, "caption_logits": logits_d}
+    bounds = {"itm_rows": PNP_BOUNDS["rows"], "cap_rows": PNP_BOUNDS["rows"],
+              "own": PNP_BOUNDS["own"],
+              **{k: CAPTION_WITNESS_FACTOR * v for k, v in median.items()}}
+    past = {k: v for k, v in checks.items() if not np.all(np.asarray(v) <= np.asarray(bounds[k]))}
+    if past or fid_answers != answers:
+        raise RuntimeError(f"{tag}: the kernel run against the all-plain run past {bounds}: "
+                           f"{past}; FiD answers {fid_answers} against {answers}")
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    del clean, kern, pipe
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": metrics, "stage_seconds": {k: stats[k] for k in PNP_STAGES},
+            "caption_steps": stats["caption_steps"], "fid_steps": stats["fid_steps"],
+            "ms_per_sampled_token": ms_token, "total_s": total_s, "peak_memory_gib": peak,
+            "launches": launches, "against_plain": {k: list(v) for k, v in readings.items()},
+            "gradcam_own_rel": own, "gradcam_max_abs": gradcam_d, "gradcam_scale": scale,
+            "caption_logits_max_abs": logits_d, "witnesses": witnesses,
+            "fid_answers_equal": fid_answers == answers, "seconds": seconds}
+
+
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
@@ -4856,7 +5135,17 @@ def kernel_table(rows, launches):
               count=f"fused_qformer_layer_instruct_{kind}")
         for kind, checks in (("retrieval", ["K3 qformer_layer vqa queries",
                                             "K3 qformer_layer instruct fusion L=128"]),
-                             ("generate", ["K3 qformer_layer instruct fusion L=32"]))]
+                             ("generate", ["K3 qformer_layer instruct fusion L=32"]))] + [
+        # phase 15, PNP-VQA: K2 at BLIP's ViT-L/16 at 384 px (S = 577, D 64, exact
+        # GELU, eps 1e-6, B = 4) and its bf16 attention call; launches: phase 15's
+        # (48 blocks a batch: the ITM and the caption tower)
+        entry(f"{kernel}_pnp", source, replaces, [check], count=f"{kernel}_pnp",
+              library_ms=by_check[check].get("library_ms"))
+        for kernel, source, replaces, check in (
+            ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609", "K2 vit_block blip_l S=577 B=4"),
+            ("attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428", "attention D=64 bf16 S=577 B=4"))]
 
 
 def main():
@@ -4916,6 +5205,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         instruct_runs[kind] = phase(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pnp = phase_pnp(work)  # phase 15
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -4955,6 +5247,8 @@ def main():
     for kind, run in instruct_runs.items():  # phase 14
         launches.update({f"{k}_instruct_{kind}": run["launches"][k]
                          for k in ("fused_vit_block", "fused_qformer_layer")})
+    launches.update({f"{k}_pnp": pnp["launches"][k]  # phase 15
+                     for k in ("fused_vit_block", "attention_bf16")})
     launches["fused_vit_block_instruct_train"] = sum(
         run["train"]["launches"]["fused_vit_block"] for run in instruct_runs.values())
     keep = ("encode_imgs_per_s", "model_alone_imgs_per_s", "query_1_median_ms",
@@ -5012,7 +5306,7 @@ def main():
                       "unfrozen_train_coco": unfrozen,
                       "caption_coco": caption, "instruct_synthetic": instruct,
                       "stage2_train": stage2_train, "vqa_zeroshot": vqa,
-                      "instruct_vicuna7b": instruct_runs,
+                      "instruct_vicuna7b": instruct_runs, "pnp_vqa": pnp,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

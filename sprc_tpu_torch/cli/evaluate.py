@@ -27,14 +27,22 @@ annotations' captions. And the zero-shot VQA tasks of the same two heads
 tokens after each question rendered through ``run.prompt``, the result file
 ``--output-dir/result/<split>_{vqa,gqa,aokvqa}_result.json`` and the task's
 accuracy against the split's own answers (``agg_metrics``; none on a split
-without them); ``run.inference_method`` must be ``generate``. The LLaMA
+without them); ``run.inference_method`` must be ``generate``. And the same
+VQA tasks through the ``pnp_vqa`` pipeline
+(configs/runs/eval/pnp_vqa_{vqav2,okvqa,gqa}_eval{,_large,_3b}.yaml): every
+batch through ``PnpVqaPipeline.predict_answers`` with the run's
+``num_captions``, ``num_captions_fid``, ``num_patches``, ``block_num``,
+``max_len`` and ``min_len`` (``inference_method`` is not read, as in the JAX
+CLI), the same result file and accuracy; its three models take their
+weights from each sub-section's ``finetuned:`` path, so ``--model-path``
+exits. The LLaMA
 models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
 glue fits their signatures (the JAX CLI builds them and fails at the call);
 ``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
 scalar metrics. Every other task or family exits with a message naming its
-ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6; ``pnp_vqa``: A8.4); CIR
-datasets keep their CLIs (``cli/validate.py``, ``cli/validate_rerank.py``,
-``cli/submission.py``).
+ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6; ``img2prompt_vqa``:
+A8.4b); CIR datasets keep their CLIs (``cli/validate.py``,
+``cli/validate_rerank.py``, ``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
 GPU the command exits nonzero). Without ``--model-path`` the weights are
@@ -52,6 +60,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from sprc_tpu_torch.models.pnp_vqa import PnpVqaPipeline
 from sprc_tpu_torch.train.generic import llm_tokenizer
 
 VQA_TASKS = ("vqa", "gqa", "aok_vqa")
@@ -106,13 +115,19 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
                          f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption and the "
                          "other families: ROADMAP A8.6)")
-    if task_name in VQA_TASKS and arch not in loader.LLM_HEADS:
+    pnp = arch == "pnp_vqa"
+    if arch == "img2prompt_vqa":
+        raise SystemExit("model 'img2prompt_vqa': not ported (its question-generation beam "
+                         "search and LLM prompt: ROADMAP A8.4b)")
+    if pnp and args.model_path:
+        raise SystemExit("pnp pipelines load per-submodel checkpoints: put `finetuned: <path>` "
+                         "inside each model sub-section of the YAML instead of --model-path")
+    if task_name in VQA_TASKS and arch not in loader.LLM_HEADS and not pnp:
         raise SystemExit(f"model {arch!r}: its {task_name} evaluation is not ported (ported: "
-                         f"the generative {', '.join(loader.LLM_HEADS)}; "
-                         + ("pnp_vqa and img2prompt_vqa: ROADMAP A8.4)"
-                            if arch in ("pnp_vqa", "img2prompt_vqa") else
-                            "BLIP-1 / ALBEF's ranked VQA: ROADMAP A8.6)"))
-    if task_name in VQA_TASKS and run.get("inference_method", "rank") != "generate":
+                         f"the generative {', '.join(loader.LLM_HEADS)} and pnp_vqa; "
+                         "BLIP-1 / ALBEF's ranked VQA: ROADMAP A8.6)")
+    if (task_name in VQA_TASKS and not pnp
+            and run.get("inference_method", "rank") != "generate"):
         raise SystemExit(f"run.inference_method {run.get('inference_method', 'rank')!r}: the "
                          "BLIP-2 heads answer generatively ('generate'; ranked VQA over "
                          "run.answer_list: ROADMAP A8.6)")
@@ -122,7 +137,10 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
             raise SystemExit(f"--device {args.device}: no CUDA device is available")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    model_cfg["freeze_vit"] = True  # evaluation trains nothing: the tower is built frozen
+    if pnp:  # three models from their sub-sections, the BERT tokenizer from --vocab-path
+        model_cfg.setdefault("vocab_path", args.vocab_path)
+    else:
+        model_cfg["freeze_vit"] = True  # evaluation trains nothing: the tower is built frozen
     model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
                               seed=int(run.get("seed", 42)), **model_cfg)
 
@@ -200,10 +218,34 @@ def _evaluate_vqa(model, ds, split, run, tokenizer, args, stats) -> dict:
             "answer_type": ann.get("answer_type", "")}
         for ann in getattr(ds, "annotation", []) if "answers" in ann or "answer" in ann}
     task = cls(num_beams=int(run.get("num_beams", 3)), max_len=int(run.get("max_len", 10)),
-               min_len=int(run.get("min_len", 1)), inference_method=run["inference_method"],
+               min_len=int(run.get("min_len", 1)),
+               inference_method=run.get("inference_method", "rank"),
                prompt=run.get("prompt", ""), annotations=annotations, output_dir=args.output_dir)
-    glue = make_blip2_vqa_predict_fn(model, llm_tokenizer(run, lambda: tokenizer), stats=stats)
+    if isinstance(model, PnpVqaPipeline):
+        glue = _pnp_predict_fn(model, run, stats)
+    else:
+        glue = make_blip2_vqa_predict_fn(model, llm_tokenizer(run, lambda: tokenizer),
+                                         stats=stats)
     return task.after_evaluation(_valid_steps(task, glue, ds, run), split)
+
+
+def _pnp_predict_fn(model, run, stats):
+    """PNP-VQA's glue (``sprc_tpu/cli/evaluate.py:242-256``): every batch
+    through ``predict_answers`` with the run's ``num_captions``,
+    ``num_captions_fid``, ``num_patches`` and ``block_num``, and the task's
+    ``max_len`` / ``min_len``; the method, beams and prompt are not read.
+    Every batch draws from ``predict_answers``' default seed 0, as in the
+    JAX glue."""
+    def predict_fn(samples, *, max_len=10, min_len=1, **_):
+        answers, _, _ = model.predict_answers(
+            np.asarray(samples["image"]), list(samples["text_input"]),
+            num_captions=int(run.get("num_captions", 50)),
+            num_captions_fid=int(run.get("num_captions_fid", 1)),
+            num_patches=int(run.get("num_patches", 20)), block_num=int(run.get("block_num", 7)),
+            max_len=max_len, min_len=min_len, stats=stats)
+        return answers
+
+    return predict_fn
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -17,7 +17,10 @@ names under ``opt_model.`` / ``t5_model.`` (:func:`opt_from_jax`,
 with ``llm_proj`` / ``l2q_proj``, a Q-Former with or without its text side
 (the caption heads' has none) as it is, ``itm_head`` wherever the tree holds
 it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init of a variant whose training
-forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``). Dense
+forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``).
+PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
+:func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
+LAVIS's names) and :func:`fid_t5_from_jax`. Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
 becomes OIHW, and the BERT ``position_ids`` buffer is emitted.
 
@@ -95,7 +98,9 @@ def clip_vit_from_jax(params: Mapping[str, Any], prefix: str = "visual_encoder."
 def eva_vit_from_jax(params: Mapping[str, Any], prefix: str = "visual_encoder.") -> Dict[str, np.ndarray]:
     """EvaViT params (``{"trunk": ...}``) -> reference-named numpy arrays, the
     keys of ``torch_export.eva_vit_to_torch`` (and every block of a scanned
-    tree, which that function drops)."""
+    tree, which that function drops). BLIP-1's timm tower (a ``ClipViT``
+    tree with ``final_norm``: packed qkv with its bias, the final ``norm``)
+    takes the same names, its qkv bias and ``norm`` for EVA's q / v biases."""
     out: Dict[str, np.ndarray] = {}
     trunk = params["trunk"]
     out[f"{prefix}cls_token"] = _np(trunk["cls_token"])
@@ -106,13 +111,16 @@ def eva_vit_from_jax(params: Mapping[str, Any], prefix: str = "visual_encoder.")
     for i, block in _vit_blocks(trunk):
         bp = f"{prefix}blocks.{i}."
         _ln(out, f"{bp}norm1", block["norm1"])
-        out[f"{bp}attn.qkv.weight"] = _np(block["attn"]["qkv"]["kernel"]).T
-        out[f"{bp}attn.q_bias"] = _np(block["attn"]["q_bias"])
-        out[f"{bp}attn.v_bias"] = _np(block["attn"]["v_bias"])
+        _linear(out, f"{bp}attn.qkv", block["attn"]["qkv"])
+        if "q_bias" in block["attn"]:
+            out[f"{bp}attn.q_bias"] = _np(block["attn"]["q_bias"])
+            out[f"{bp}attn.v_bias"] = _np(block["attn"]["v_bias"])
         _linear(out, f"{bp}attn.proj", block["attn"]["proj"])
         _ln(out, f"{bp}norm2", block["norm2"])
         _linear(out, f"{bp}mlp.fc1", block["mlp_fc1"])
         _linear(out, f"{bp}mlp.fc2", block["mlp_fc2"])
+    if "norm" in trunk:
+        _ln(out, f"{prefix}norm", trunk["norm"])
     return out
 
 
@@ -230,6 +238,53 @@ def llama_from_jax(params: Mapping[str, Any], prefix: str = "llm_model.") -> Dic
     if "lm_head" in params:
         _linear(out, f"{prefix}lm_head", params["lm_head"])
     return out
+
+
+def med_from_jax(params: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """A ``MedEncoder`` tree (``word_embeddings``, ``embeddings_ln``,
+    ``layer_{i}_self`` / ``_cross`` / ``_ffn``) -> med.py's names under
+    ``prefix`` (with ``position_ids``)."""
+    out: Dict[str, np.ndarray] = {}
+    out[f"{prefix}embeddings.word_embeddings.weight"] = _np(params["word_embeddings"]["embedding"])
+    pos = _np(params["position_embeddings"]["embedding"])
+    out[f"{prefix}embeddings.position_embeddings.weight"] = pos
+    out[f"{prefix}embeddings.position_ids"] = np.arange(pos.shape[0], dtype=np.int64)[None]
+    _ln(out, f"{prefix}embeddings.LayerNorm", params["embeddings_ln"])
+    layers = sorted({int(k.split("_")[1]) for k in params if k.startswith("layer_")})
+    for i in layers:
+        layer = {"self_attn": params[f"layer_{i}_self"], "ffn_text": params[f"layer_{i}_ffn"]}
+        if f"layer_{i}_cross" in params:
+            layer["cross_attn"] = params[f"layer_{i}_cross"]
+        out.update(qformer_layer_from_jax(layer, f"{prefix}encoder.layer.{i}."))
+    return out
+
+
+def blip_itm_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``BlipITM`` tree -> the port's (LAVIS's) state dict."""
+    out = eva_vit_from_jax(params["visual_encoder"])
+    out.update(med_from_jax(params["text_encoder"], "text_encoder."))
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        _linear(out, name, params[name])
+    out["temp"] = _np(params["temp"]).reshape(())
+    return to_torch(out)
+
+
+def blip_caption_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``BlipCaption`` tree -> the port's state dict (the decoder under
+    ``text_decoder.bert.``, its LM head under ``text_decoder.cls.predictions.``)."""
+    out = eva_vit_from_jax(params["visual_encoder"])
+    out.update(med_from_jax(params["text_decoder"], "text_decoder.bert."))
+    head, prefix = params["lm_head"], "text_decoder.cls.predictions."
+    _linear(out, f"{prefix}transform.dense", head["transform"])
+    _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
+    _linear(out, f"{prefix}decoder", head["decoder"])
+    return to_torch(out)
+
+
+def fid_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``FiDT5`` tree (``{"t5": ...}``) -> the port's state dict, HF's T5
+    names without a prefix."""
+    return to_torch(t5_from_jax(params["t5"], prefix=""))
 
 
 def to_torch(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -634,8 +634,10 @@ def _vit_block_work(B, S, W, M, int8: bool, dtype=torch.bfloat16) -> Dict[str, f
                            + attn / PEAK_OPS["fp32" if dtype == torch.float32 else "bf16"])}
 
 
-# the two towers' block shapes: (W, M, heads, QuickGELU, LN eps)
-TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6)}
+# the towers' block shapes: (W, M, heads, QuickGELU, LN eps); blip_l: BLIP-1's
+# timm ViT-L/16 (exact GELU, eps 1e-6), PNP-VQA's two towers at 384 px
+TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6),
+          "blip_l": (1024, 4096, 16, False, 1e-6)}
 
 
 # K2 in fp32 (the fp32 tower of the COCO retrieval models, 364 px: S = 677):
@@ -671,14 +673,15 @@ def check_vit_block(device="cuda", B=ENCODE_BATCH, S=257, W=1024, M=4096, heads=
     return row
 
 
-def _vit_chain(device, seed, depth, B, S, W, M, heads, int8: bool) -> dict:
+def _vit_chain(device, seed, depth, B, S, W, M, heads, int8: bool, quick: bool = True,
+               eps: float = 1e-5) -> dict:
     """``depth`` random blocks. The kernel chain runs inside ``stage_check``
     and is held stage by stage; the plain chain beside it runs free from the
     same input, and their final difference is reported, not bounded (bf16
     rounding, and in int8 flipped codes, compound over depth)."""
     r = _Rand(device, seed)
     x = r.normal(B, S, W, dtype=torch.bfloat16)
-    kw = dict(heads=heads, eps=1e-5, scale=(W // heads) ** -0.5, quick=True)
+    kw = dict(heads=heads, eps=eps, scale=(W // heads) ** -0.5, quick=quick)
     stages = StageRecorder()
     with torch.inference_mode():
         got, want = x, x
@@ -2192,6 +2195,27 @@ def run_stage2(device="cuda") -> List[dict]:
                         **check_qformer_layer("vqa queries", device))]
 
 
+# PNP-VQA (pnp_vqa_{vqav2,okvqa,gqa}_eval.yaml): both BLIP towers are ViT-L/16 at
+# 384 px (S = 577, head dim 64, exact GELU, eps 1e-6), a batch of PNP_BATCH
+PNP_BATCH, PNP_SEQ, PNP_DEPTH = 4, 577, 24
+
+
+def run_pnp(device="cuda") -> List[dict]:
+    """The checks of PNP-VQA's path: K2 at BLIP ViT-L/16's shapes, its bf16
+    attention call (packed qkv, D 64, S = 577: K8's bf16 call in the chain),
+    and the 24-block chain stage by stage. No other kernel is on that path."""
+    W, M, heads, quick, eps = TOWERS["blip_l"]
+    B, S = PNP_BATCH, PNP_SEQ
+    return [dict(check=f"K2 vit_block blip_l S={S} B={B}",
+                 **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick,
+                                   eps=eps)),
+            dict(check=f"attention D=64 bf16 S={S} B={B}",
+                 **check_attention(64, torch.bfloat16, device, B=B, S=S)),
+            dict(check=f"K2 vit_tower blip_l S={S} B={B}",
+                 **_vit_chain(device, 3, PNP_DEPTH, B, S, W, M, heads, int8=False, quick=quick,
+                              eps=eps))]
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2426,4 +2450,4 @@ def run_all(device="cuda") -> List[dict]:
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
-            + run_instruct(device) + run_edges(device))
+            + run_instruct(device) + run_pnp(device) + run_edges(device))

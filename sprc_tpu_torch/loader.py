@@ -1,12 +1,16 @@
 """Model building and loading (counterpart of ``sprc_tpu/loader.py``).
 
 ``build_model(name, model_type)`` resolves the class from the registry and
-its configuration from :data:`MODEL_CONFIGS`, which mirrors the model
-sections of ``configs/models/<name>/<model_type>.yaml`` (a test pins them
-equal to what ``sprc_tpu.loader`` builds from the YAML; the port reads no
-YAML, so it needs no PyYAML). Overrides may come as the validate CLI's
+its configuration from :data:`MODEL_CONFIGS` (the BLIP-2 family's
+CirConfig), :data:`FAMILY_CONFIGS` (BLIP-1's ITM and captioner, the FiD
+reader: their own dataclasses) or, for the ``pnp_vqa`` pipeline,
+:data:`PIPELINE_CONFIGS`, which mirror the model sections of
+``configs/models/<name>/<model_type>.yaml`` (tests pin them equal to what
+``sprc_tpu.loader`` builds from the YAML; the port reads no YAML, so it
+needs no PyYAML). Overrides may come as the validate CLI's
 ``--model-overrides`` gives them: precisions as ``"fp32"`` / ``"bf16"`` and the
-two sub-configs as dicts. ``load_model`` fills the weights: from a
+sub-configs (``vit_config_override``, ``qformer_config_override``,
+``text_config_override``) as dicts. ``load_model`` fills the weights: from a
 reference-layout checkpoint (``checkpoint_path``: a bare state dict, a
 ``{"model": ...}`` file or the released ``{epoch, ClassName: state_dict}``
 layout; keys the model does not hold are dropped, as the reference's
@@ -122,6 +126,34 @@ MODEL_CONFIGS.update({
           llm_key: llm_name}
     for key, (llm_key, llm_name, max_txt_len) in _INSTRUCT_ROWS.items()
 })
+# the models with a configuration of their own (not CirConfig), as
+# configs/models/{blip_image_text_matching,blip_caption,pnp_unifiedqav2_fid}/*.yaml
+# give them: BLIP-1's ITM scorer and captioner (ViT-B/16, or the ViT-L/16 at 384
+# px of ``large`` / ``large_coco``: the YAMLs' vit_config_override, bf16) and the
+# UnifiedQA-v2 FiD reader (its ``t5_model``, the T5 v1.0 of that size, fp32)
+_BLIP_VIT_L = ViTConfig(image_size=384, patch_size=16, width=1024, depth=24, num_heads=16,
+                        mlp_hidden=4096, layer_norm_eps=1e-6, final_norm=True,
+                        dtype=torch.bfloat16)
+FAMILY_CONFIGS = {
+    ("blip_image_text_matching", "base"): {"image_size": 384, "max_txt_len": 35},
+    ("blip_image_text_matching", "large"): {"image_size": 384, "embed_dim": 256,
+                                            "vit_config_override": _BLIP_VIT_L},
+    ("blip_caption", "base_coco"): {"image_size": 384, "max_txt_len": 40, "prompt_length": 4},
+    ("blip_caption", "large_coco"): {"image_size": 384, "max_txt_len": 40, "prompt_length": 4,
+                                     "vit_config_override": _BLIP_VIT_L},
+    **{("pnp_unifiedqav2_fid", size): {"t5_model": f"allenai/unifiedqa-v2-t5-{size}-1363200"}
+       for size in ("base", "large", "3b")},
+}
+# the composed pipelines, as configs/models/pnp_vqa/*.yaml give them: the three
+# sub-models by (arch, model_type); the reader's size is the model type
+PIPELINE_CONFIGS = {
+    ("pnp_vqa", size): {
+        "prompt": "a picture of ",
+        "image_question_matching_model": {"arch": "blip_image_text_matching",
+                                          "model_type": "large"},
+        "image_captioning_model": {"arch": "blip_caption", "model_type": "large_coco"},
+        "question_answering_model": {"arch": "pnp_unifiedqav2_fid", "model_type": size}}
+    for size in ("base", "large", "3b")}
 # decoding keys of the model YAMLs (blip2_caption_opt2.7b.yaml's ``prompt``):
 # the JAX loader drops them from the model section; the caption glue reads
 # the run section's
@@ -139,6 +171,7 @@ _SUB_CONFIGS = {
     "vit_config_override": (ViTConfig, {"scan_blocks"}),
     "qformer_config_override": (QFormerConfig, {"attention_dropout_rate",
                                                 "initializer_range"}),
+    "text_config_override": (QFormerConfig, {"attention_dropout_rate", "initializer_range"}),
 }
 
 
@@ -193,6 +226,22 @@ def _fields(name: str, model_type: str, overrides: dict) -> dict:
     return {**base, **coerce_overrides(overrides)}
 
 
+def family_config(name: str, model_type: str, **overrides: Any):
+    """The configuration of a model of :data:`FAMILY_CONFIGS` with
+    ``overrides``: its class's ``CONFIG`` dataclass, or for the FiD reader
+    the preset of its ``t5_model`` with the T5Config fields replaced. An
+    unknown field raises, as in the JAX loader."""
+    try:
+        fields = {**FAMILY_CONFIGS[(name, model_type)], **coerce_overrides(overrides)}
+    except KeyError:
+        raise ValueError(f"no port configuration for ({name!r}, {model_type!r}); ported: "
+                         f"{sorted(FAMILY_CONFIGS)}") from None
+    if "t5_model" in fields:
+        base = LLM_KEYS["t5_model"][1](fields.pop("t5_model"))
+        return dataclasses.replace(base, **fields)
+    return registry.get_model_class(name).CONFIG(**fields)
+
+
 def model_config(name: str, model_type: str = "pretrain", **overrides: Any) -> CirConfig:
     fields = _fields(name, model_type, overrides)
     _split_llm(fields)
@@ -222,8 +271,14 @@ def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
     is never materialised on the host."""
     device = _device(device)
     cls = registry.get_model_class(name)
-    cfg = model_config(name, model_type, **overrides)
-    llm = llm_config(name, model_type, **overrides)
+    if (name, model_type) in PIPELINE_CONFIGS:
+        raise ValueError(f"{name!r} is a pipeline of three models with their weights: "
+                         "load_model assembles it")
+    if (name, model_type) in FAMILY_CONFIGS:
+        cfg, llm = family_config(name, model_type, **overrides), {}
+    else:
+        cfg = model_config(name, model_type, **overrides)
+        llm = llm_config(name, model_type, **overrides)
     with torch.device("meta"):
         model = cls(cfg, **llm)
     return model.to_empty(device=device)
@@ -297,7 +352,19 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 def load_model(name: str, model_type: str = "pretrain",
                checkpoint_path: Optional[str] = None, *, device="cuda", seed: int = 0,
                **overrides: Any) -> nn.Module:
-    """Build a model and fill its weights; returns it in eval mode."""
+    """Build a model and fill its weights; returns it in eval mode. A
+    pipeline of :data:`PIPELINE_CONFIGS` (``pnp_vqa``) comes from its
+    class's ``from_config`` over its row with ``overrides`` (each
+    sub-section a dict; ``vocab_path`` for its BERT tokenizer), its
+    sub-models from ``seed``; it takes no ``checkpoint_path`` (a sub-section's
+    ``finetuned:`` names its weights)."""
+    if (name, model_type) in PIPELINE_CONFIGS:
+        if checkpoint_path is not None:
+            raise ValueError(f"{name!r} loads each model's weights from its sub-section's "
+                             "`finetuned: <path>`, not from one checkpoint")
+        mcfg = {**PIPELINE_CONFIGS[(name, model_type)], **overrides}
+        return registry.get_model_class(name).from_config(
+            mcfg, device=_device(device), seed=seed, vocab_path=mcfg.pop("vocab_path", None))
     model = build_model(name, model_type, device=device, **overrides)
     if checkpoint_path is None:
         init_weights(model, seed)
@@ -354,7 +421,7 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
-           "GENERATION_KEYS",
+           "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",
            "load_model", "read_checkpoint", "calibrate_vit_act_scales"]

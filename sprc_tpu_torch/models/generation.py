@@ -2,12 +2,21 @@
 (counterpart of ``sprc_tpu/models/generation.py``).
 
 Ported: :func:`cached_greedy_loop`, the KV-cached greedy decode of the
-BLIP-2 LLM heads (``blip2_opt``, ``blip2_t5``). The JAX loop fuses token
-selection with the next cached step into one jitted dispatch a token; here
-it is a plain Python loop over the step function, whose operations queue on
-the device without a host read but for the early-exit check every
-``READBACK_EVERY`` tokens. ``cached_beam_loop``, ``sample_generate`` and
-``greedy_generate_fn`` come with ``pnp_vqa``, their only caller (ROADMAP A8).
+BLIP-2 LLM heads (``blip2_opt``, ``blip2_t5``) and of PNP-VQA's FiD reader.
+The JAX loop fuses token selection with the next cached step into one
+jitted dispatch a token; here it is a plain Python loop over the step
+function, whose operations queue on the device without a host read but for
+the early-exit check every ``READBACK_EVERY`` tokens.
+
+:func:`sample_generate` (PNP-VQA's caption sampler: top-k, top-p,
+temperature, repetition penalty, ``min_length``) and
+:func:`greedy_generate_fn` decode over a ``logits_fn(ids[, memory]) -> [B,
+L, V]`` that recomputes the whole fixed-width prefix every step, as the JAX
+functions do, and read the device once a step for the early exit. The
+draws come from an explicit ``torch.Generator`` (``torch.multinomial`` over
+the filtered softmax); ``jax.random`` draws other numbers, so a sampled
+sequence is not the JAX package's for the same seed. ``cached_beam_loop``
+comes with ``img2prompt_vqa``, its only caller (ROADMAP A8.4b).
 """
 
 from __future__ import annotations
@@ -73,5 +82,93 @@ def cached_greedy_loop(logits0: Tensor, cache, pos0: Tensor, step_fn: Callable, 
         logits, cache = step_fn(tok, pos, cache)
         pos = pos + 1
         if t % READBACK_EVERY == READBACK_EVERY - 1 and bool(finished.all()):
+            break
+    return ids
+
+
+def _apply_repetition_penalty(logits: Tensor, ids: Tensor, step: int, penalty: float) -> Tensor:
+    """HF semantics: the logits of the tokens in ``ids[:, :step]`` divided by
+    ``penalty`` where positive, multiplied where negative."""
+    if penalty == 1.0:
+        return logits
+    seen = torch.zeros_like(logits, dtype=torch.bool).scatter_(1, ids[:, :step], True)
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(seen, penalized, logits)
+
+
+def _filter_top_k(logits: Tensor, k: int) -> Tensor:
+    """-inf below the k-th largest logit of each row (ties at it kept)."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    thresh = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return logits.masked_fill(logits < thresh, float("-inf"))
+
+
+def _filter_top_p(logits: Tensor, p: float) -> Tensor:
+    """Nucleus filter: keep the largest logits until their softmax mass
+    before them exceeds ``p`` (the top one always kept)."""
+    if p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    cutoff = torch.where(cum - probs > p, float("inf"), sorted_logits).amin(dim=-1,
+                                                                            keepdim=True)
+    return logits.masked_fill(logits < cutoff, float("-inf"))
+
+
+def sample_generate(logits_fn: Callable, prompt_ids: Tensor, *, generator: torch.Generator,
+                    eos_token_id: int, pad_token_id: int, max_length: int = 20,
+                    min_length: int = 0, top_k: int = 50, top_p: float = 1.0,
+                    temperature: float = 1.0, repetition_penalty: float = 1.0,
+                    memory=None) -> Tensor:
+    """Top-k / nucleus sampling -> ids [B, max_length] (int64), the prompt
+    [B, P] first. ``logits_fn(ids)``, or ``logits_fn(ids, memory)`` where
+    ``memory`` is given, takes the whole padded buffer; the step reads
+    position ``step - 1``. Before ``min_length`` new tokens the eos logit is
+    -inf; a finished row gets ``pad_token_id``; the loop stops when every row
+    has finished."""
+    B, P = prompt_ids.shape
+    assert P < max_length
+    device = prompt_ids.device
+    ids = torch.full((B, max_length), pad_token_id, dtype=torch.long, device=device)
+    ids[:, :P] = prompt_ids
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    for step in range(P, max_length):
+        raw = logits_fn(ids) if memory is None else logits_fn(ids, memory)
+        logits = _apply_repetition_penalty(raw[:, step - 1, :].float(), ids, step,
+                                           repetition_penalty)
+        if step < min_length + P:
+            logits[:, eos_token_id] = float("-inf")
+        logits = _filter_top_p(_filter_top_k(logits / max(temperature, 1e-6), top_k), top_p)
+        tok = torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
+        tok = torch.where(finished, torch.full_like(tok, pad_token_id), tok)
+        ids[:, step] = tok
+        finished = finished | (tok == eos_token_id)
+        if bool(finished.all()):
+            break
+    return ids
+
+
+def greedy_generate_fn(logits_fn: Callable, prompt_ids: Tensor, *, eos_token_id: int,
+                       pad_token_id: int, max_length: int = 20, min_length: int = 0,
+                       memory=None) -> Tensor:
+    """Greedy decode over a recomputing ``logits_fn`` (as
+    :func:`sample_generate`'s) -> ids [B, max_length] (int64)."""
+    B, P = prompt_ids.shape
+    device = prompt_ids.device
+    ids = torch.full((B, max_length), pad_token_id, dtype=torch.long, device=device)
+    ids[:, :P] = prompt_ids
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    for step in range(P, max_length):
+        raw = logits_fn(ids) if memory is None else logits_fn(ids, memory)
+        logits = raw[:, step - 1, :].float()
+        if step < min_length + P:
+            logits[:, eos_token_id] = float("-inf")
+        tok = torch.argmax(logits, dim=-1)
+        tok = torch.where(finished, torch.full_like(tok, pad_token_id), tok)
+        ids[:, step] = tok
+        finished = finished | (tok == eos_token_id)
+        if bool(finished.all()):
             break
     return ids

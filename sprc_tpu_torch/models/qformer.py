@@ -210,12 +210,15 @@ class QFormerAttention(nn.Module):
 
     def train_forward(self, hidden: torch.Tensor, kv: torch.Tensor,
                       bias: Optional[torch.Tensor], cfg: QFormerConfig,
-                      generator: Optional[torch.Generator], return_probs: bool = False):
+                      generator: Optional[torch.Generator], return_probs: bool = False,
+                      probs_offset: Optional[torch.Tensor] = None):
         """The unfused block: q/k/v, attention, ``out``, dropout,
-        ``LN(out + hidden)``. ``bias``: [B, 1, 1, Sk] additive or None.
-        ``return_probs``: also the softmax probabilities [B, H, S, Sk], from
-        the JAX package's explicit path (fp32 scores, the bias after the
-        scale)."""
+        ``LN(out + hidden)``. ``bias``: [B, 1, 1, Sk] or [B, 1, S, Sk]
+        additive, or None. ``return_probs``: also the softmax probabilities
+        [B, H, S, Sk], from the JAX package's explicit path (fp32 scores, the
+        bias after the scale); ``probs_offset`` (the GradCAM probe, zeros of
+        their shape) is added to them before they weight v, so the gradient
+        with respect to it is the gradient with respect to the probabilities."""
         B, S, W = hidden.shape
         H, D = cfg.num_heads, cfg.head_dim
         q = self.self.query(hidden).view(B, S, H, D)
@@ -227,6 +230,8 @@ class QFormerAttention(nn.Module):
             if bias is not None:
                 scores = scores + bias.to(scores.dtype)
             probs = torch.softmax(scores, dim=-1)
+            if probs_offset is not None:
+                probs = probs + probs_offset
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v).reshape(B, S, W)
         else:
             ctx = recompute(dot_product_attention, q, k, v, bias).reshape(B, S, W)

@@ -1,5 +1,5 @@
-"""The vision towers: EVA ViT-g and CLIP ViT-L (counterpart of
-``sprc_tpu/models/vit.py``).
+"""The vision towers: EVA ViT-g, CLIP ViT-L and BLIP-1's timm ViT
+(counterpart of ``sprc_tpu/models/vit.py``).
 
 - EVA ViT-g (reference eva_vit.py:428-455): patch 14, width 1408, 39 blocks,
   16 heads of 88, MLP 6144, exact GELU, LN eps 1e-6, a patch conv with bias,
@@ -8,7 +8,14 @@
   1024, 23 blocks (the 24th dropped), 16 heads of 64, MLP 4096, QuickGELU,
   ``ln_pre``, packed qkv with bias, a patch conv without bias.
 
-Neither has a final LayerNorm: the raw 257-token sequence feeds ``ln_vision``.
+- BLIP-1's timm ViT (reference lavis/models/vit.py; :func:`blip_vit_b_config`,
+  and the ViT-L/16 at 384 px of the large ITM and caption YAMLs: width 1024,
+  24 blocks, 16 heads of 64, S = 577): exact GELU, LN eps 1e-6, a patch conv
+  with bias, no ``ln_pre``, packed qkv with its full bias, and a final
+  LayerNorm (``final_norm``), under the EVA tower's names plus ``norm``.
+
+EVA and CLIP have no final LayerNorm: the raw 257-token sequence feeds
+``ln_vision``.
 Module and parameter names follow the reference torch modules, so the
 state-dict keys are the ones ``sprc_tpu/interop/torch_export.py`` emits
 (:class:`EvaViT`: ``cls_token``, ``blocks.{i}.attn.qkv.weight``, ``q_bias``;
@@ -105,6 +112,7 @@ class ViTConfig:
     use_ln_pre: bool = False  # CLIP-style pre-transformer LN
     qkv_fused_no_kbias: bool = False  # EVA-style q/v bias, no k bias
     quick_gelu: bool = False
+    final_norm: bool = False  # BLIP-1's timm tower ends in a LayerNorm
     patch_bias: bool = True  # CLIP's conv1 has no bias
     dtype: torch.dtype = torch.bfloat16
     fused_block: str = "block"  # one of FUSED_BLOCK_ROUTES
@@ -160,6 +168,13 @@ def clip_vit_l_config(image_size: int = 224, dtype: torch.dtype = torch.bfloat16
     return ViTConfig(image_size=image_size, patch_size=14, width=1024, depth=23, num_heads=16,
                      mlp_hidden=4096, layer_norm_eps=1e-5, use_ln_pre=True, quick_gelu=True,
                      patch_bias=False, dtype=dtype)
+
+
+def blip_vit_b_config(image_size: int = 224, dtype: torch.dtype = torch.bfloat16) -> ViTConfig:
+    # BLIP-1's ViT-B/16 (reference vit.py:476-487): timm's ViT with a final
+    # LayerNorm, packed qkv with bias, exact GELU, no ln_pre
+    return ViTConfig(image_size=image_size, patch_size=16, width=768, depth=12, num_heads=12,
+                     mlp_hidden=3072, layer_norm_eps=1e-6, final_norm=True, dtype=dtype)
 
 
 class _Block(nn.Module):
@@ -361,14 +376,18 @@ class Transformer(nn.Module):
 
 class EvaAttention(nn.Module):
     """Parameters of EVA's attention: a fused ``qkv`` without bias, separate
-    ``q_bias`` and ``v_bias`` (the k third has none), and ``proj``."""
+    ``q_bias`` and ``v_bias`` (the k third has none), and ``proj``; timm's
+    (BLIP-1, ``qkv_fused_no_kbias=False``): a fused ``qkv`` with its full
+    bias, and ``proj``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         W, int8 = cfg.width, cfg.quant is not None
-        self.qkv = Linear(W, 3 * W, dtype=cfg.dtype, int8=int8, bias=False)
-        self.q_bias = nn.Parameter(torch.empty(W))
-        self.v_bias = nn.Parameter(torch.empty(W))
+        eva = cfg.qkv_fused_no_kbias
+        self.qkv = Linear(W, 3 * W, dtype=cfg.dtype, int8=int8, bias=not eva)
+        if eva:
+            self.q_bias = nn.Parameter(torch.empty(W))
+            self.v_bias = nn.Parameter(torch.empty(W))
         self.proj = Linear(W, W, dtype=cfg.dtype, int8=int8)
 
 
@@ -381,8 +400,9 @@ class EvaMlp(nn.Module):
 
 
 class EvaBlock(_Block):
-    """A block under EVA's names (``norm1``, ``attn.qkv``, ``attn.q_bias``,
-    ``attn.v_bias``, ``attn.proj``, ``norm2``, ``mlp.fc1``, ``mlp.fc2``)."""
+    """A block under EVA's and timm's names (``norm1``, ``attn.qkv``,
+    ``attn.q_bias``, ``attn.v_bias`` (EVA), ``attn.proj``, ``norm2``,
+    ``mlp.fc1``, ``mlp.fc2``)."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__(cfg)
@@ -401,9 +421,11 @@ class EvaBlock(_Block):
         return quant.int8_weight(self.attn.qkv, "weight")
 
     def _qkv_dense_bias(self):
-        return None
+        return self.attn.qkv.bias
 
     def _qv_bias(self):
+        if self.attn.qkv.bias is not None:
+            return None
         return self.attn.q_bias, self.attn.v_bias
 
 
@@ -472,6 +494,8 @@ class _Tower(nn.Module):
             x = ln_pre(x)
         for block in self.vit_blocks():
             x = block(x)
+        if self.cfg.final_norm:
+            x = self.norm(x)
         return x
 
 
@@ -481,9 +505,10 @@ class ClipViT(_Tower):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if not cfg.use_ln_pre or cfg.patch_bias or cfg.qkv_fused_no_kbias:
+        if not cfg.use_ln_pre or cfg.patch_bias or cfg.qkv_fused_no_kbias or cfg.final_norm:
             raise ValueError("ClipViT holds the CLIP layout: use_ln_pre=True, patch_bias=False, "
-                             "qkv_fused_no_kbias=False (EvaViT holds the other)")
+                             "qkv_fused_no_kbias=False, final_norm=False (EvaViT holds EVA's "
+                             "and BLIP-1's)")
         _require_scales(cfg)
         self.cfg = cfg
         W, p = cfg.width, cfg.patch_size
@@ -505,13 +530,18 @@ class ClipViT(_Tower):
 
 class EvaViT(_Tower):
     """EVA ViT-g tower under the EVA checkpoint's names: a conv with bias, no
-    ``ln_pre``, fused qkv with q and v biases only."""
+    ``ln_pre``, fused qkv with q and v biases only. With
+    ``qkv_fused_no_kbias=False`` and ``final_norm=True`` it is BLIP-1's timm
+    tower under LAVIS's names (reference lavis/models/vit.py): the same keys
+    but the packed qkv's full bias (``blocks.{i}.attn.qkv.bias``) and the
+    final LayerNorm ``norm``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.use_ln_pre or not cfg.patch_bias or not cfg.qkv_fused_no_kbias:
-            raise ValueError("EvaViT holds the EVA layout: use_ln_pre=False, patch_bias=True, "
-                             "qkv_fused_no_kbias=True (ClipViT holds the other)")
+        if cfg.use_ln_pre or not cfg.patch_bias or cfg.qkv_fused_no_kbias == cfg.final_norm:
+            raise ValueError("EvaViT holds the EVA layout (use_ln_pre=False, patch_bias=True, "
+                             "qkv_fused_no_kbias=True) or BLIP-1's (the same with "
+                             "qkv_fused_no_kbias=False, final_norm=True); ClipViT holds CLIP's")
         _require_scales(cfg)
         self.cfg = cfg
         W = cfg.width
@@ -519,6 +549,8 @@ class EvaViT(_Tower):
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.seq_len, W))
         self.patch_embed = PatchEmbed(cfg)
         self.blocks = nn.ModuleList(EvaBlock(cfg) for _ in range(cfg.depth))
+        if cfg.final_norm:
+            self.norm = LayerNormFP32(W, cfg.layer_norm_eps)
 
     def vit_blocks(self):
         return self.blocks
@@ -532,7 +564,7 @@ class EvaViT(_Tower):
 
 def build_tower(cfg: ViTConfig) -> _Tower:
     """The tower class whose checkpoint layout ``cfg`` describes."""
-    return EvaViT(cfg) if cfg.qkv_fused_no_kbias else ClipViT(cfg)
+    return EvaViT(cfg) if cfg.qkv_fused_no_kbias or cfg.final_norm else ClipViT(cfg)
 
 
 def calibrate_act_scales(tower: _Tower, run) -> Tuple[Tuple[str, float], ...]:

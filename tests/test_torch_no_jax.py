@@ -65,6 +65,11 @@ assert {"blip2_vicuna_instruct", "blip2_instruct_cir",
         "blip2_t5_instruct"} <= set(registry.list("model"))
 from sprc_tpu_torch.text import llm_tokenizers
 assert callable(llm_tokenizers.llama_tokenizer)
+# PNP-VQA: BLIP-1's ITM and captioner, the med-BERT, GradCAM, the pipeline and its reader
+assert {"sprc_tpu_torch.models.blip1", "sprc_tpu_torch.models.albef",
+        "sprc_tpu_torch.models.pnp_vqa", "sprc_tpu_torch.utils.gradcam"} <= set(mods)
+assert {"blip_image_text_matching", "blip_caption", "pnp_unifiedqav2_fid",
+        "pnp_vqa"} <= set(registry.list("model"))
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -93,6 +98,9 @@ for name, arch in (("eval/caption_coco_opt2.7b_eval.yaml", "blip2_opt"),
     assert cfg.run["task"] == "captioning" and cfg.model["arch"] == arch
 assert loader.llm_config("blip2_t5", "caption_coco_flant5xl")["t5_config"].d_model == 2048
 assert loader.llm_config("blip2_vicuna_instruct", "vicuna7b")["llama_config"].hidden_size == 4096
+cfg = Config(defaults=chip_smoke.RUN_CONFIGS["eval/pnp_vqa_vqav2_eval.yaml"])
+assert cfg.model["arch"] == "pnp_vqa" and cfg.run["num_captions"] == 50
+assert loader.family_config("blip_caption", "large_coco").vit_config().seq_len == 577
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

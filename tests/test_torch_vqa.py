@@ -228,7 +228,8 @@ def test_evaluate_cli_vqa_equals_jax(arch, task, tmp_path, monkeypatch, capsys):
 
 
 def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path):
-    """BLIP-1 / ALBEF's ranked VQA names ROADMAP A8.6, ``pnp_vqa`` A8.4; a
+    """BLIP-1 / ALBEF's ranked VQA names ROADMAP A8.6, ``img2prompt_vqa``
+    A8.4b (``pnp_vqa`` runs: test_torch_pnp_vqa.py); a
     BLIP-2 head asked for another ``inference_method`` than ``generate``
     (the run's default ``rank`` included) A8.6, in the CLI and in the
     glue; and the VQA glue refuses a model that is not an LLM head."""
@@ -241,7 +242,8 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path):
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
     for task, arch, entry in (("vqa", "blip_vqa", "A8.6"), ("aok_vqa", "albef_vqa", "A8.6"),
-                              ("gqa", "pnp_vqa", "A8.4"), ("vqa", "img2prompt_vqa", "A8.4")):
+                              ("gqa", "img2prompt_vqa", "A8.4b"),
+                              ("vqa", "img2prompt_vqa", "A8.4b")):
         with pytest.raises(SystemExit, match=f"ROADMAP {entry}"):
             evaluate.evaluate(Config(defaults={"run": {"task": task},
                                                "model": {"arch": arch}}), args)
