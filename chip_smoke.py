@@ -157,7 +157,8 @@ Phases (any failure raises and exits nonzero before the last line):
 
 9. the variant zoo (models/cir_variants.py) on pretrain_vitL at full width
    (CLIP ViT-L bf16, the Q-Former fp32, random weights from seed 0), batch
-   128, over phase 7's synthetic CIRR train split:
+   128, over a synthetic CIRR train split of 256 triplets over phase 7's
+   images (2 steps an epoch):
    (a) for each of the eight variants whose forward returns losses, one live
        step through the kernels against the all-plain step
        (primitives.plain_reference) from the kernel tower's rows with the
@@ -166,7 +167,9 @@ Phases (any failure raises and exits nonzero before the last line):
        losses and gradients within VARIANT_BOUNDS; the step's launches held
        (K2's chain once, K1 and K3 as VARIANT_STEP_LAUNCHES says: K3 inside
        the rerank twin's and blip2_cir_cls's no-grad passes, none elsewhere);
-       then 3 timed steps (the median, samples/s, peak memory printed);
+       then one timed step (its ms, samples/s, peak memory printed); the
+       Q-Former of these steps runs 4 of its 12 layers, so that the script
+       ends within half its limit;
    (b) cli/finetune.finetune on the split written as PNG files:
        blip2_cir_neg for one epoch with its validation, and blip2_cir_rerank
        live and with --cache-features, whose steps equal the live ones
@@ -206,10 +209,11 @@ Phases (any failure raises and exits nonzero before the last line):
    (kernel_checks.run_stage1).
 
 11. the unfrozen ViT: cli/train.py on retrieval_coco_blip2_ft.yaml (blip2 /
-   coco: EVA ViT-g at 364 px, S = 677, the fp32 tower with freeze_vit false;
-   random weights from seed 0, the synthetic vocab) at the YAML's batch of
+   coco: EVA ViT-g at 364 px, S = 677, the fp32 tower with freeze_vit false,
+   its depth cut to 13 of 39 blocks so that the script ends within half its
+   limit; random weights from seed 0, the synthetic vocab) at the YAML's batch of
    32 over 96 seeded PNG pairs (one epoch, 3 steps): ms a step, samples/s,
-   the peak (under 80 GB), the launches a step (K1 once, K2 39 times through
+   the peak (under 80 GB), the launches a step (K1 once, K2 once a block through
    FusedViTBlock, no K3), every tower block moved by the updates; then
    (a) one step through the kernels on each tower route (the whole block;
        the attention half and the MLP half, FusedAttnBlock and FusedMlpBlock;
@@ -231,7 +235,9 @@ Phases (any failure raises and exits nonzero before the last line):
    and the kernels line carries their launches in this phase.
 
 12. BLIP-2 stage 2, the LLM caption heads (random weights from seed 0, the
-   synthetic vocab, full width; the run configs as phase 10 gives them):
+   synthetic vocab, full width; the run configs as phase 10 gives them; the
+   LLM runs 8 of its layers, 8 + 8 for a T5, so that the script ends within
+   half its limit, here and in phases 13 and 14):
    (a) cli/evaluate.py on eval/caption_coco_opt2.7b_eval.yaml (blip2_opt /
        caption_coco_opt2.7b: EVA ViT-g at 364 px, the fp32 tower, 32
        queries, OPT-2.7b in fp32) over 40 seeded PNG images of mixed sizes,
@@ -309,8 +315,8 @@ Phases (any failure raises and exits nonzero before the last line):
 
 14. the LLaMA heads (models/instruct_cir.py over models/llama.py; random
    weights from seed 0, full width: the vicuna7b rows, EVA ViT-g bf16 at 224
-   px, the BERT-base Q-Former with 32 queries, Vicuna-7B in fp32; one model on
-   the card at a time):
+   px, the BERT-base Q-Former with 32 queries, Vicuna-7B in fp32 with 8 of
+   its 32 layers; one model on the card at a time):
    (a) blip2_vicuna_instruct / vicuna7b: a 64-image seeded gallery through
        extract_target_features in batches of 16, 32 composed queries in two
        batches through encode_image and inference (the BERT text at the row's
@@ -361,6 +367,27 @@ Phases (any failure raises and exits nonzero before the last line):
    a report. The kernel phase holds K2 at BLIP's ViT-L/16 shapes (B = 4, S
    = 577), its bf16 attention call and the 24-block chain stage by stage
    (kernel_checks.run_pnp).
+
+16. Img2Prompt-VQA (models/pnp_vqa.py's Img2PromptVqaPipeline; random weights
+   from seed 0, the synthetic vocab, full width: img2prompt_vqa / base,
+   phase 15's two BLIP towers and t5-large as the question generator, fp32):
+   predict_prompts on 2 seeded images and questions (num_captions 50,
+   num_patches 20, block_num 7; the filter's threshold 0.0, as the JAX test
+   runs a random model): seconds by stage (the towers, GradCAM, caption
+   sampling, the ITM filter, the question generator's encode and beam
+   decode), ms a beam step, the steps, the peak, the launches (24 K2 blocks a
+   tower call: the ITM's, the captioner's and the filter's once an image);
+   against the all-plain run: both towers' rows (phase 15's bounds), the
+   filter's match probabilities and its kept sets at 0.0 and 0.5
+   (IMG2PROMPT_BOUNDS; captions within the bound of a threshold counted and
+   printed), and the question generator's KV-cached beam over the first
+   image's first 10 contexts against the uncached beam (equal ids; the best
+   sequences' log-probabilities, cached against recomputed); then
+   cli/evaluate.py on eval/pnp_vqa_vqav2_eval.yaml with the model
+   img2prompt_vqa / base (threshold 0.5) over phase 15's 8 questions: the
+   metric JSON, the result file, the launches. The kernel phase holds K2 and
+   its bf16 attention at the filter's batch (B = 1;
+   kernel_checks.run_img2prompt).
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -1864,17 +1891,23 @@ def phase_train(work):
 
 
 # phase 9: the variant zoo's trainable models (models/cir_variants.py) on
-# pretrain_vitL at batch 128, over phase 7's synthetic CIRR train split
+# pretrain_vitL at batch 128, over a synthetic CIRR train split of
+# VARIANT_TRIPLETS triplets (2 steps an epoch) over phase 7's images; the
+# steps of (a) run 4 of the Q-Former's 12 layers (every width as the row's):
+# the fp32 Q-Former took most of a step (the run's time limit forces the cut)
+VARIANT_TRIPLETS = 256
+VARIANT_QFORMER_LAYERS = 4
 VARIANTS = ("blip2_cir_cat", "blip2_cir_rel", "blip2_cir_z_learn_pos_align", "blip2_cir_neg",
             "blip2_cir_neg_rel", "blip2_cir_full", "blip2_cir_rerank", "blip2_cir_cls")
 # a step's launches of K1 and K3 by variant: K1 once an in-batch loss (ITC,
-# RTC) or for the rerank twin's scores; K3 in the no-grad passes of 12
-# layers (the rerank twin's targets and text, blip2_cir_cls's text and
+# RTC) or for the rerank twin's scores; K3 in each layer of two no-grad
+# passes (the rerank twin's targets and text, blip2_cir_cls's text and
 # candidates); every pass with a gradient runs the Q-Former unfused
 VARIANT_STEP_LAUNCHES = {"blip2_cir_cat": (1, 0), "blip2_cir_rel": (2, 0),
                          "blip2_cir_z_learn_pos_align": (2, 0), "blip2_cir_neg": (1, 0),
                          "blip2_cir_neg_rel": (2, 0), "blip2_cir_full": (2, 0),
-                         "blip2_cir_rerank": (1, 24), "blip2_cir_cls": (1, 24)}
+                         "blip2_cir_rerank": (1, 2 * VARIANT_QFORMER_LAYERS),
+                         "blip2_cir_cls": (1, 2 * VARIANT_QFORMER_LAYERS)}
 # The live step through the kernels against the all-plain step from the kernel
 # tower's rows with the same dropout seed and the kernel run's hard negatives
 # (injected): TRAIN_BOUNDS["rows"] (5e-7 / 1e-5), except where a loss reads
@@ -1886,7 +1919,7 @@ VARIANT_STEP_LAUNCHES = {"blip2_cir_cat": (1, 0), "blip2_cir_rel": (2, 0),
 # cls 9.7e-8 / 5.95e-6; no hard negative moved.
 VARIANT_BOUNDS = {name: TRAIN_BOUNDS["rows"] for name in VARIANTS}
 VARIANT_BOUNDS["blip2_cir_cls"] = {"loss": 5e-7, "grad": 1.8e-5}
-VARIANT_TIMED_STEPS = 3
+VARIANT_TIMED_STEPS = 1  # the run's time limit: one timed step a variant (3 until PR 19)
 VARIANT_EVAL = ("blip2_cir_slt", "blip2_cir_prompt")
 
 
@@ -1960,7 +1993,7 @@ def phase_variants(work):
     vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
     tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
     names = [f"trn{i:04d}" for i in range(TRAIN_IMAGES)]
-    data = _write_cirr_train(os.path.join(work, "cirr_variants"), names, TRAIN_TRIPLETS,
+    data = _write_cirr_train(os.path.join(work, "cirr_variants"), names, VARIANT_TRIPLETS,
                              SEED + 3)
     _write_cirr_val(data, names, VALIDATE_QUERIES, SEED + 4)
     triplets = finetune.train_triplets(data, "CIRR")
@@ -1995,7 +2028,8 @@ def phase_variants(work):
     results, steps_launches = {}, dict.fromkeys(counters, 0)
     for name in VARIANTS:
         t0 = time.perf_counter()
-        model = load_model(name, "pretrain_vitL", device=DEVICE, seed=SEED)
+        model = load_model(name, "pretrain_vitL", device=DEVICE, seed=SEED, **_cut_depth(
+            name, "pretrain_vitL", qformer_layers=VARIANT_QFORMER_LAYERS))
         sync()
         build_s = time.perf_counter() - t0
         depth = model.cfg.vit_config().depth
@@ -2125,7 +2159,7 @@ def phase_variants(work):
     log(f"[{tag}] cli/finetune --model-name blip2_cir_neg, one epoch of {len(neg_steps)} steps "
         f"and its validation in {neg_s:.1f} s: epoch {json.dumps(history[-1])}; validation "
         f"{json.dumps(val[-1] if val else None)}; launches {neg_launches}")
-    if not (len(neg_steps) == TRAIN_TRIPLETS // TRAIN_BATCH and val
+    if not (len(neg_steps) == VARIANT_TRIPLETS // TRAIN_BATCH and val
             and all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0 for m in neg_steps)
             and os.path.exists(os.path.join(results_dir, "best_arithmetic_mean.pt"))):
         raise RuntimeError(f"{tag}: the blip2_cir_neg CLI epoch failed: {history}, {val}")
@@ -2145,7 +2179,7 @@ def phase_variants(work):
         + ", ".join(f"{m['loss']:.6f}" for m in cached_steps)
         + f"; worst relative gap {cached_gap:.3e} (bound {TRAIN_BOUNDS['cached']}); the cached "
         f"run's launches {cached_launches}")
-    if not (len(live_steps) == len(cached_steps) == TRAIN_TRIPLETS // TRAIN_BATCH
+    if not (len(live_steps) == len(cached_steps) == VARIANT_TRIPLETS // TRAIN_BATCH
             and cached_gap <= TRAIN_BOUNDS["cached"]):
         raise RuntimeError(f"{tag}: the cached rerank steps are off the live ones: {cached_gap}")
     for sub in ("cli_neg", "cli_rerank_live", "cli_rerank_cached"):
@@ -2277,6 +2311,33 @@ def _run_config(name, overrides):
     cfg = Config(os.path.join(ROOT, "configs", "runs", name), overrides=dotlist)
     assert cfg.to_dict() == want, (name, cfg.to_dict(), want)
     return cfg, f"--cfg-path configs/runs/{name} --options {' '.join(dotlist)}"
+
+
+def _cut_depth(name, model_type, vit_depth=None, qformer_layers=None):
+    """Model-section overrides that cut a row's depth (the run's time limit
+    forces it): its tower with ``vit_depth`` blocks and its Q-Former with
+    ``qformer_layers`` layers, every width as the row gives it; each
+    configuration as a dict of the fields that differ from the dataclass's
+    defaults, the form a run config's ``--options`` carries."""
+    import dataclasses
+
+    from sprc_tpu_torch import loader
+
+    cfg = loader.model_config(name, model_type)
+    names = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+
+    def fields(sub, **cut):
+        sub = dataclasses.replace(sub, **cut)
+        default = type(sub)()
+        return {f.name: names.get(v, v) for f in dataclasses.fields(sub)
+                if (v := getattr(sub, f.name)) != getattr(default, f.name)}
+
+    out = {}
+    if vit_depth is not None:
+        out["vit_config_override"] = fields(cfg.vit_config(), depth=vit_depth)
+    if qformer_layers is not None:
+        out["qformer_config_override"] = fields(cfg.qformer_config(), num_layers=qformer_layers)
+    return out
 
 
 def _write_pairs(root, n, captions, seed, prefix):
@@ -2636,19 +2697,24 @@ def phase_stage1_train(work):
 # false: every tower tensor gets a gradient and AdamW moments) at the YAML's
 # batch of 32 over UNFROZEN_PAIRS seeded PNG pairs (one epoch: 3 steps)
 UNFROZEN_PAIRS = 96
+# the tower trains 13 of EVA ViT-g's 39 blocks (every width as the row's): its
+# forward and backward took most of the phase
+UNFROZEN_DEPTH = 13
 # a step's launches on the main path (the whole-block route): K1 once (ITC),
-# the tower's chain once through FusedViTBlock (39 blocks: 4 fp32 GEMMs, one
-# fp32 attention, 2 LayerNorms each); the backward recomputes the plain
+# the tower's chain once through FusedViTBlock (a block: 4 fp32 GEMMs, one
+# fp32 attention, 2 LayerNorms); the backward recomputes the plain
 # blocks (the library's products, no launch); no Q-Former layer kernel
-UNFROZEN_STEP_LAUNCHES = {"token_max_sim": 1, "fused_vit_block": 39, "gemm_f32": 156,
-                          "attention_f32": 39, "layer_norm": 78}
+UNFROZEN_STEP_LAUNCHES = {"token_max_sim": 1, "fused_vit_block": UNFROZEN_DEPTH,
+                          "gemm_f32": 4 * UNFROZEN_DEPTH, "attention_f32": UNFROZEN_DEPTH,
+                          "layer_norm": 2 * UNFROZEN_DEPTH}
 # the tower's other routes, one step each (their Functions' kernels once a
 # block; the unfused route twice: its blocks keep their intermediates, so
 # vit_remat runs each again in the backward, flash_attention included)
 UNFROZEN_ROUTES = {"attn+mlp": ({"fused_block": "attn", "fused_mlp": True},
-                                {"fused_attn_block": 39, "fused_mlp_block": 39}),
+                                {"fused_attn_block": UNFROZEN_DEPTH,
+                                 "fused_mlp_block": UNFROZEN_DEPTH}),
                    "unfused": ({"fused_block": "none", "fused_mlp": False},
-                               {"flash_attention": 78})}
+                               {"flash_attention": 2 * UNFROZEN_DEPTH})}
 # Bounds, fixed before the first reading. A kernel step against the
 # all-plain step (primitives.plain_reference, vit_remat on: without it the
 # plain tower's intermediates do not fit) from the same pixels, the kernel
@@ -2660,7 +2726,7 @@ UNFROZEN_ROUTES = {"attn+mlp": ({"fused_block": "attn", "fused_mlp": True},
 # gradient gives 1 or 2). "tower_grad": the tower alone from the same pixels
 # and one seeded cotangent, each route's kernel Functions against the plain
 # blocks: every tower gradient within 1e-3 of its tensor's largest (grad_gap;
-# the block inputs differ by the fp32 chain's 1e-6 a block, through 39
+# the block inputs differ by the fp32 chain's 1e-6 a block, through the
 # blocks; a gradient scaled by 0.5 or lost gives 0.5 or 1)
 UNFROZEN_BOUNDS = {"loss": 1e-5, "grad": 0.9, "tower_grad": 1e-3}
 
@@ -2711,8 +2777,9 @@ def phase_unfrozen_train(work):
     vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
     out = os.path.join(work, "unfrozen_train")
     shutil.rmtree(out, ignore_errors=True)
+    cut = _cut_depth("blip2", "coco", vit_depth=UNFROZEN_DEPTH)
     cfg, how = _run_config("retrieval_coco_blip2_ft.yaml", {
-        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1}, "model": cut,
         "datasets": {"coco_retrieval": {"build_info": {"annotations": {"train": [ann]},
                                                        "images": root}}}})
     log(f"[{tag}] cli/train.py through {how}")
@@ -2767,7 +2834,8 @@ def phase_unfrozen_train(work):
         + "; ".join(", ".join(f"{k} {r[k]:.4f}" for k in ("loss_itc", "loss_itm", "loss_lm"))
                     for r in steps))
     log(f"[{tag}] launches: {launches}; a step: {per_step}")
-    log(f"[{tag}] the tower's blocks moved by the 3 updates (max |change| of norm1.weight and "
+    log(f"[{tag}] the tower's blocks moved by the {len(steps)} updates (max |change| of "
+        "norm1.weight and "
         f"fc2.bias): min {min(moved):.3e}, max {max(moved):.3e}")
     if len(steps) != UNFROZEN_PAIRS // batch_size or any(r["skipped_nonfinite"] for r in steps):
         raise RuntimeError(f"{tag}: steps {steps}")
@@ -2787,7 +2855,7 @@ def phase_unfrozen_train(work):
     # (a) one step through the kernels on each tower route against the
     # all-plain step, from the same pixels, the kernel step's hard negatives
     # handed over (UNFROZEN_BOUNDS); the gradient norm of every tower block
-    model = load_model("blip2", "coco", device=DEVICE, seed=SEED, vit_remat=True)
+    model = load_model("blip2", "coco", device=DEVICE, seed=SEED, vit_remat=True, **cut)
     tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
     datasets = registry.get("dataset", "coco_retrieval")(
         dict(cfg.datasets["coco_retrieval"])).build()
@@ -2893,8 +2961,8 @@ def phase_unfrozen_train(work):
         setattr(obj, attr, kept[k])
 
     log(f"[{tag}] a kernel step's launches (whole-block route): {step_launches}; K2 launches a "
-        f"step {step_launches.get('fused_vit_block', 0)} (39 blocks)")
-    log(f"[{tag}] gradient norms of the 39 tower blocks (the kernel step): "
+        f"step {step_launches.get('fused_vit_block', 0)} ({UNFROZEN_DEPTH} blocks)")
+    log(f"[{tag}] gradient norms of the {UNFROZEN_DEPTH} tower blocks (the kernel step): "
         + ", ".join(f"{v:.3e}" for v in norms))
     log(f"[{tag}] the tower at batch {batch_size}: forward {fwd_ms:.1f} ms, backward "
         f"{bwd_ms:.1f} ms (K2 launches {tower_launches}); all-plain with remat: forward "
@@ -2925,10 +2993,10 @@ def phase_unfrozen_train(work):
         (g["loss"] > UNFROZEN_BOUNDS["loss"] or g["grad"]["gap"] > UNFROZEN_BOUNDS["grad"]))]
     if failed:
         raise RuntimeError(f"{tag}: beyond UNFROZEN_BOUNDS: {failed}")
-    if step_launches.get("fused_vit_block") != 39 or tower_launches != 39:
+    if step_launches.get("fused_vit_block") != UNFROZEN_DEPTH or tower_launches != UNFROZEN_DEPTH:
         raise RuntimeError(f"{tag}: K2 launched {step_launches} in a step, {tower_launches} in "
-                           "the tower's pass; expected 39")
-    if len(norms) != 39 or min(norms) <= 0.0 or not all(np.isfinite(norms)):
+                           f"the tower's pass; expected {UNFROZEN_DEPTH}")
+    if len(norms) != UNFROZEN_DEPTH or min(norms) <= 0.0 or not all(np.isfinite(norms)):
         raise RuntimeError(f"{tag}: a tower block's gradient norm is not positive: {norms}")
     seconds = time.perf_counter() - t_phase
     log(f"[{tag}] phase {seconds:.1f} s")
@@ -3130,14 +3198,17 @@ def _held_steps(got_ids, want_ids, got_steps, want_steps, eos):
 
 def _step_weight_bytes(model):
     """The bytes of the LLM weights one cached decode step reads (OPT: all
-    but the position table; T5: the decoder but its cross-attention k and v,
-    projected once at prefill, and its bias tables, and the head)."""
+    but the position table; T5, a stage-2 head's or a T5 itself: the decoder
+    but its cross-attention k and v, projected once at prefill, and its bias
+    tables, and the head, ``shared`` where it is tied)."""
     if hasattr(model, "opt_model"):
         named = [(n, p) for n, p in model.opt_model.named_parameters()
                  if "embed_positions" not in n]
     else:
-        named = [(n, p) for n, p in model.t5_model.named_parameters()
-                 if (n.startswith("decoder.") or n.startswith("lm_head."))
+        t5 = getattr(model, "t5_model", model)
+        head = ("lm_head.", "shared.") if t5.cfg.tie_word_embeddings else ("lm_head.",)
+        named = [(n, p) for n, p in t5.named_parameters()
+                 if n.startswith(("decoder.",) + head)
                  and not any(k in n for k in ("EncDecAttention.k.", "EncDecAttention.v.",
                                               "relative_attention_bias"))]
     return sum(p.numel() * p.element_size() for _, p in named)
@@ -4922,6 +4993,353 @@ def phase_pnp(work):
             "fid_answers_equal": fid_answers == answers, "seconds": seconds}
 
 
+# phase 16, Img2Prompt-VQA (models/pnp_vqa.py's Img2PromptVqaPipeline): img2prompt_vqa /
+# base at full width (phase 15's BLIP-1 ITM large and caption large_coco, ViT-L/16 at
+# 384 px in bf16 through K2; t5-large as the question generator: d_model 1024, 24 + 24
+# layers, 16 heads of 64, ReLU FF 4096, the tied v1.0 head, vocabulary 32128, fp32;
+# random weights from seed 0, the synthetic BERT vocab, the WhitespaceTokenizer):
+# predict_prompts on IMG2PROMPT_IMAGES seeded images and questions with the pnp YAML's
+# caption settings, then cli/evaluate.py on eval/pnp_vqa_vqav2_eval.yaml with the model
+# img2prompt_vqa / base over phase 15's 8 questions (the YAML's filter threshold, 0.5).
+# Random weights put P(match) near 0.5, so predict_prompts runs at threshold
+# IMG2PROMPT_THRESHOLD and keeps every caption, as the JAX test does at 0.0
+# (tests/test_pnp_vqa.py:158); its kept sets are also held at 0.5 and at the median
+# of its P(match), and the CLI run's, which filters at 0.5, against all-plain.
+IMG2PROMPT_IMAGES = 2
+IMG2PROMPT_THRESHOLD = 0.0
+IMG2PROMPT_SETTINGS = dict(num_captions=50, num_patches=20, block_num=7)
+# K2 a call: 24 blocks in the ITM tower's (GradCAM) and the caption tower's, and
+# 24 for each image that has captions (the ITM filter encodes it again, alone);
+# each block launches 4 bf16 GEMMs, one bf16 attention and 2 LayerNorms; nothing
+# else launches (the med-BERTs and the T5 are torch.matmul)
+IMG2PROMPT_PER_BLOCK = {"fused_vit_block": 1, "gemm": 4, "attention_bf16": 1, "layer_norm": 2}
+# Bounds, fixed before the first reading. "rows": the towers' rows of the GradCAM
+# and caption calls against the all-plain towers' (phase 15's). "p_match": the
+# filter's match probabilities, the kernel run's against the all-plain tower's
+# rows and ITM over the same captions, max |difference| (the rows differ by
+# about 0.1 / 0.01 max / mean in phase 15; a softmax over two logits of a
+# random ITM head moves far less); the kept sets are equal but for captions
+# whose probability lies within that bound of the threshold. "qg_logp": the
+# question generator's best sequences over the first image's first 10 contexts,
+# the KV-cached beam against the uncached one that runs the decoder over the
+# whole prefix each step (equal ids); their summed log-probabilities under the
+# cached and the recomputed decoder, max |difference| (fp32 with TF32 off: the
+# same products in another order).
+IMG2PROMPT_BOUNDS = {"rows": PNP_BOUNDS["rows"], "p_match": 1e-2, "qg_logp": 1e-3}
+IMG2PROMPT_STAGES = ("tower_s", "gradcam_s", "caption_sample_s", "itm_filter_s", "qg_encode_s",
+                     "qg_decode_s")
+
+
+def _sequence_logp(model, enc, mask, ids, pad, eos, cached):
+    """Each row's summed log-probability of ``ids`` [B, T] up to its first
+    eos, under the cached decode (prefill, then one step a token) or one
+    pass of the decoder over the whole prefix."""
+    B, T = ids.shape
+    bos = torch.full((B, 1), pad, dtype=torch.long, device=ids.device)
+    with torch.no_grad():
+        if cached:
+            logits, cache = model.decode_prefill(bos, enc, mask, T + 1)
+            steps = [logits]
+            for t in range(T - 1):
+                logits, cache = model.decode_step_logits(
+                    ids[:, t], torch.tensor([t + 1], device=ids.device), cache, mask)
+                steps.append(logits)
+            logits = torch.stack(steps, 1)
+        else:
+            logits = model.decode(torch.cat([bos, ids[:, :-1]], 1), enc, mask)
+        logp = torch.log_softmax(logits.float(), -1).gather(2, ids[..., None])[..., 0]
+    ended = torch.cumsum((ids == eos).long(), 1) - (ids == eos).long()  # eos itself counts
+    return (logp * (ended == 0)).sum(1)
+
+
+def phase_img2prompt(work):
+    """16: Img2Prompt-VQA's prompts and its CLI run (phase 16 of the docstring)."""
+    import argparse
+
+    from sprc_tpu_torch import kernel_checks, loader
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.models import blip1, pnp_vqa
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "img2prompt"
+    t_phase = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def expect(n_blocks):
+        return {k: v * n_blocks for k, v in IMG2PROMPT_PER_BLOCK.items()}
+
+    def hold_filter(cuts):
+        """The recorded filter calls' P(match) against the all-plain tower's
+        rows and ITM over the same captions (none of it a main path's
+        launch): -> (kernel P, plain P a captioned image, max |difference|,
+        the captions kept on one side only at a cut in ``cuts`` (None: the
+        median of the kernel P) within the bound of it, and beyond it)."""
+        groups, p_kern, p_plain = [], [], []
+        with torch.no_grad(), primitives.plain_reference():
+            for (pipe_, images_), calls in zip(seen["calls"], seen["base"]):
+                for b, group in enumerate(calls):
+                    if not group:
+                        continue
+                    ids, mask = pipe_._ids(pipe_.tokenizer(group, max_length=35,
+                                                           enc_token=True))
+                    rows = pipe_.itm_model.encode_image(images_[b:b + 1])
+                    p_plain.append(real["p"](pipe_.itm_model, ids, mask,
+                                             rows.expand(len(group), -1, -1)).cpu().numpy())
+                    p_kern.append(seen["p_match"][len(p_kern)].cpu().numpy())
+                    groups.append(group)
+        # the kept sets are the kernel P's, cut at the pipeline's threshold
+        kept = [k for calls, bases in zip(seen["kept"], seen["base"])
+                for k, g in zip(calls, bases) if g]
+        cut0 = seen["calls"][0][0].itm_filter_threshold
+        if kept != [[c for c, p in zip(g, a) if p >= cut0] for g, a in zip(groups, p_kern)]:
+            raise RuntimeError(f"{tag}: kept {kept} is not the captions of P >= {cut0}")
+        cuts = [float(np.median(np.concatenate(p_kern))) if c is None else c for c in cuts]
+        near, differ = [], []
+        for cut in cuts:
+            for g, a, b in zip(groups, p_kern, p_plain):
+                for c, pa, pb in zip(g, a, b):
+                    if (pa >= cut) != (pb >= cut):
+                        close = min(abs(pa - cut), abs(pb - cut)) <= IMG2PROMPT_BOUNDS["p_match"]
+                        (near if close else differ).append((cut, c, float(pa), float(pb)))
+        p_diff = max(float(np.abs(a - b).max()) for a, b in zip(p_kern, p_plain))
+        return p_kern, p_diff, cuts, near, differ
+
+    # the base captions (before the filter), the filter's match probabilities
+    # and its kept captions, of every call; the pipeline and images of each
+    seen = {"base": [], "p_match": [], "kept": [], "calls": []}
+    real = {"cap": pnp_vqa.PnpVqaPipeline.forward_cap,
+            "filter": pnp_vqa.Img2PromptVqaPipeline.forward_cap,
+            "p": blip1.BlipITM.itm_embeds}
+
+    def base(self, *a, **kw):
+        seen["base"].append(real["cap"](self, *a, **kw))
+        return seen["base"][-1]
+
+    def filtered(self, *a, **kw):
+        seen["calls"].append((self, a[1]))
+        seen["kept"].append(real["filter"](self, *a, **kw))
+        return seen["kept"][-1]
+
+    def p_match(self, *a):
+        seen["p_match"].append(real["p"](self, *a))
+        return seen["p_match"][-1]
+
+    pnp_vqa.PnpVqaPipeline.forward_cap = base
+    pnp_vqa.Img2PromptVqaPipeline.forward_cap = filtered
+    blip1.BlipITM.itm_embeds = p_match
+    try:
+        t0 = time.perf_counter()
+        pipe = loader.load_model("img2prompt_vqa", "base", device=DEVICE, seed=SEED,
+                                 vocab_path=vocab)
+        sync()
+        load_s = time.perf_counter() - t0
+        pipe.itm_filter_threshold = IMG2PROMPT_THRESHOLD
+        qg = pipe.qa_model
+        qcfg = qg.cfg
+        ((_, images),) = _gallery_batches(IMG2PROMPT_IMAGES, IMG2PROMPT_IMAGES, 384, SEED + 160)
+        rng = np.random.default_rng(SEED + 161)
+        questions = [f"what is the {' '.join(rng.choice(STAGE1_WORDS, 2))}?"
+                     for _ in range(IMG2PROMPT_IMAGES)]
+        log(f"[{tag}] img2prompt_vqa / base built and drawn in {load_s:.1f} s: the question "
+            f"generator d_model {qcfg.d_model}, {qcfg.num_layers} + {qcfg.num_decoder_layers} "
+            f"layers, {qcfg.num_heads} heads of {qcfg.d_kv}, FF {qcfg.d_ff} "
+            f"({'ReLU' if not qcfg.gated_act else 'gated'}, "
+            f"{'tied' if qcfg.tie_word_embeddings else 'untied'} head), vocabulary "
+            f"{qcfg.vocab_size}, {qcfg.dtype}; the filter's threshold "
+            f"{pipe.itm_filter_threshold} (the YAML's 0.5 in the CLI run below)")
+
+        # the timed run of predict_prompts, recorded (phase 15's recording keeps
+        # only references to the first calls' tensors)
+        torch.cuda.reset_peak_memory_stats()
+        stats, rec = {}, {}
+        t0 = time.perf_counter()
+        with _recording_pnp(rec):
+            prompts = pipe.predict_prompts(images, questions, stats=stats, **IMG2PROMPT_SETTINGS)
+        sync()
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = read()
+        groups, kept = seen["base"][0], seen["kept"][0]
+        n_filtered = sum(1 for g in groups if g)
+        ms_step = stats["qg_decode_s"] / max(stats["qg_steps"], 1) * 1e3
+        log(f"[{tag}] predict_prompts on {len(images)} images: seconds by stage "
+            + ", ".join(f"{k} {stats[k]:.3f}" for k in IMG2PROMPT_STAGES)
+            + f"; {stats['caption_steps']} sampled caption steps; {stats['qg_steps']} beam steps "
+            f"(3 beams, batches of 10 contexts: up to 30 rows), {ms_step:.2f} ms a beam step; "
+            f"total {total_s:.2f} s; peak {peak:.2f} GiB; captions a image "
+            f"{[len(g) for g in groups]}, kept {[len(k) for k in kept]}")
+        log(f"[{tag}] the first prompt: {prompts[0][:600]!r}")
+        log(f"[{tag}] launches: {launches}")
+        _check_launches(tag, launches, expect(24 * (2 + n_filtered)), ())
+        if (len(prompts) != len(questions) or not all(
+                p.startswith("Please reason the answer") and p.endswith(f"Question:{q}\nAnswer:")
+                for p, q in zip(prompts, questions)) or kept != groups or not all(groups)):
+            raise RuntimeError(f"{tag}: prompts {prompts}; captions {groups}, kept {kept}")
+        if peak >= 80.0:
+            raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
+        main = dict(launches)
+
+        # against the all-plain run (none of this is the main path's launches)
+        pixels = torch.as_tensor(images, device=pipe.device)
+        with torch.no_grad(), primitives.plain_reference():
+            plain_itm = pipe.itm_model.encode_image(pixels)
+            plain_cap = pipe.cap_model.encode_image(pixels)
+        readings = {"itm_rows": _max_mean([rec["itm_rows"]], [plain_itm]),
+                    "cap_rows": _max_mean([rec["cap_rows"]], [plain_cap])}
+        del plain_itm, plain_cap
+        p_kern, p_diff, cuts, near, differ = hold_filter([IMG2PROMPT_THRESHOLD, 0.5, None])
+        kept_05 = sum(int((a >= 0.5).sum()) for a in p_kern)
+        # the question generator: the first image's first 10 contexts, cached
+        # against uncached beams, and the best sequences' log-probabilities
+        contexts = pipe.answer_extraction(kept[0])[0][:10]
+        tok = pipe.qa_tokenizer
+        ids, mask = pipe._ids(tok(contexts, max_length=128))
+        with torch.no_grad():
+            enc = qg.encode_ids(ids, mask)
+            beam = dict(num_beams=3, pad_id=tok.pad_id, eos_id=tok.eos_id, max_length=30)
+            t0 = time.perf_counter()
+            cached = pnp_vqa.qg_beam_search(qg, enc, mask, **beam)
+            sync()
+            cached_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = pnp_vqa.qg_beam_search(qg, enc, mask, use_cache=False, **beam)
+            sync()
+            uncached_s = time.perf_counter() - t0
+        logp = {way: _sequence_logp(qg, enc, mask, cached, tok.pad_id, tok.eos_id, way == "cached")
+                for way in ("cached", "recomputed")}
+        logp_diff = (logp["cached"] - logp["recomputed"]).abs().max().item()
+        same_ids = torch.equal(cached, again)
+        # one cached step of the question generator's decoder at the beam's 30
+        # rows (10 contexts x 3 beams, the first position), the host's pace
+        # against the device's (kernel_checks.profile_decode_step, as phase 12)
+        rows = len(contexts) * beam["num_beams"]
+        enc_rep = enc.repeat_interleave(beam["num_beams"], 0)
+        mask_rep = mask.repeat_interleave(beam["num_beams"], 0)
+        bos = torch.full((rows, 1), tok.pad_id, dtype=torch.long, device=enc.device)
+        pos0 = torch.ones(1, dtype=torch.long, device=enc.device)
+        with torch.inference_mode():
+            _, cache = qg.decode_prefill(bos, enc_rep, mask_rep, beam["max_length"])
+            decode = kernel_checks.profile_decode_step(
+                lambda: qg.decode_step_logits(bos[:, 0], pos0, cache, mask_rep))
+        del cache, enc_rep, mask_rep
+        weight_bytes = _step_weight_bytes(qg)
+        decode.update(rows=rows, weights_gb=weight_bytes / 1e9,
+                      weights_ms=weight_bytes / kernel_checks.PEAK_BYTES * 1e3, loop_ms=ms_step)
+        log(f"[{tag}] one cached decoder step of the question generator at {rows} rows: host "
+            f"{decode['host_ms']:.3f} ms, device {decode['device_ms']:.3f} ms (a CUDA graph), "
+            f"busy share {decode['busy_share']:.3f} (the graph's output against the step's: "
+            f"max_abs {decode['graph_max_abs']:.3e}); {decode['aten_ops']} ATen operators a step "
+            f"({decode['aten_views']} views), {decode['kernels_profiled']} launches seen by one "
+            f"profile, {decode['kernel_ms_profiled']:.3f} ms of kernels, the most in (name, "
+            f"launches, ms) {decode['top_kernels']}; the weights it reads "
+            f"{decode['weights_gb']:.3f} GB, {decode['weights_ms']:.3f} ms at the card's memory "
+            f"rate; predict_prompts' beam loop {ms_step:.2f} ms a step (the step's decoder, the "
+            f"top 3 of 3 x V, the caches' reorder)")
+        if not decode["graph_max_abs"] <= IMG2PROMPT_BOUNDS["qg_logp"]:
+            raise RuntimeError(f"{tag}: the decoder step's graph replay differs from the step "
+                               f"by {decode['graph_max_abs']}")
+        log(f"[{tag}] against the all-plain run: tower rows (max / mean abs) "
+            + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in readings.items())
+            + f" (bound {IMG2PROMPT_BOUNDS['rows']}); the filter's P(match) over "
+            f"{sum(map(len, p_kern))} captions: max_abs {p_diff:.3e} (bound "
+            f"{IMG2PROMPT_BOUNDS['p_match']}; P from {min(float(a.min()) for a in p_kern):.4f} to "
+            f"{max(float(a.max()) for a in p_kern):.4f}, {kept_05} kept at 0.5); kept sets at "
+            f"{[round(c, 4) for c in cuts]} (the last the median): {len(differ)} captions differ, {len(near)} within "
+            f"the bound of the threshold {near[:5]}; the question generator over {len(contexts)} "
+            f"contexts: the cached beam ({cached_s:.2f} s) against the uncached one "
+            f"({uncached_s:.2f} s): ids {'equal' if same_ids else 'DIFFER'}; the best sequences' "
+            f"log-probabilities {[round(v, 4) for v in logp['cached'].tolist()[:4]]}..., cached "
+            f"against recomputed max_abs {logp_diff:.3e} (bound {IMG2PROMPT_BOUNDS['qg_logp']}); "
+            f"questions e.g. {[tok.decode(r)[:40] for r in cached.cpu().numpy()[:2]]}")
+        past = {k: v for k, v in readings.items()
+                if not np.all(np.asarray(v) <= np.asarray(IMG2PROMPT_BOUNDS["rows"]))}
+        if past or differ or not same_ids or p_diff > IMG2PROMPT_BOUNDS["p_match"] \
+                or logp_diff > IMG2PROMPT_BOUNDS["qg_logp"]:
+            raise RuntimeError(f"{tag}: against the all-plain run: rows {past}, kept sets "
+                               f"{differ}, P {p_diff}, ids equal {same_ids}, logp {logp_diff}")
+        for k, (obj, attr) in counters.items():
+            setattr(obj, attr, main[k])
+        for key in seen:
+            seen[key].clear()
+        del pipe, qg, rec, enc, pixels
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # cli/evaluate.py on the pnp YAML with the model img2prompt_vqa / base
+        root = os.path.join(work, "pnp_vqa")
+        ann = _write_vqa(root, PNP_QUESTIONS, SEED + 150)
+        cfg, how = _run_config(PNP_RUN, {
+            "run": {"seed": SEED},
+            "model": {"arch": "img2prompt_vqa"},
+            "datasets": {"coco_vqa": {"build_info": {"annotations": {"val": [ann]},
+                                                     "images": root}}}})
+        log(f"[{tag}] cli/evaluate.py through {how}")
+        out_dir = os.path.join(work, "img2prompt_out")
+        args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
+                                  output_dir=out_dir)
+        cli_stats = {}
+        t0 = time.perf_counter()
+        metrics = evaluate.evaluate(cfg, args, cli_stats)
+        sync()
+        cli_s = time.perf_counter() - t0
+    finally:
+        pnp_vqa.PnpVqaPipeline.forward_cap = real["cap"]
+        pnp_vqa.Img2PromptVqaPipeline.forward_cap = real["filter"]
+        blip1.BlipITM.itm_embeds = real["p"]
+    cli_launches = {k: v - main[k] for k, v in read().items()}
+    with open(os.path.join(out_dir, "result", "val_vqa_result.json")) as f:
+        result = json.load(f)
+    batches = len(seen["base"])
+    n_filtered = sum(1 for calls in seen["base"] for g in calls if g)
+    log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
+    log(f"[{tag}] the CLI run, {batches} batches of {cfg.run['batch_size_eval']}: seconds by "
+        "stage " + ", ".join(f"{k} {cli_stats.get(k, 0.0):.3f}" for k in (
+            "tower_s", "gradcam_s", "caption_sample_s", "itm_filter_s", "fid_encode_s",
+            "fid_decode_s")) + f"; total {cli_s:.2f} s (the build included); captions kept at "
+        f"0.5: {sum(len(k) for calls in seen['kept'] for k in calls)} of "
+        f"{sum(len(g) for calls in seen['base'] for g in calls)}; {len(result)} answers, e.g. "
+        f"{[r['answer'][:30] for r in result[:3]]}; launches {cli_launches}")
+    _check_launches(f"{tag} CLI", cli_launches, expect(24 * (2 * batches + n_filtered)), ())
+    # the CLI's filter, at the YAML's 0.5 (and the median of its P), against all-plain
+    cli_p, cli_diff, cli_cuts, cli_near, cli_differ = hold_filter([0.5, None])
+    log(f"[{tag}] the CLI run's filter against the all-plain run: P(match) over "
+        f"{sum(map(len, cli_p))} captions of {len(cli_p)} images max_abs {cli_diff:.3e} (bound "
+        f"{IMG2PROMPT_BOUNDS['p_match']}; P from {min(float(a.min()) for a in cli_p):.4f} to "
+        f"{max(float(a.max()) for a in cli_p):.4f}); kept sets at "
+        f"{[round(c, 4) for c in cli_cuts]} (the last the median): {len(cli_differ)} captions "
+        f"differ, {len(cli_near)} within the bound of the threshold {cli_near[:5]}")
+    for key in seen:
+        seen[key].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cli_differ or cli_diff > IMG2PROMPT_BOUNDS["p_match"]:
+        raise RuntimeError(f"{tag} CLI: against the all-plain run: kept sets {cli_differ}, "
+                           f"P {cli_diff}")
+    if (len(result) != PNP_QUESTIONS or "agg_metrics" not in metrics
+            or not all(np.isfinite(v) for v in metrics.values() if isinstance(v, float))):
+        raise RuntimeError(f"{tag}: {len(result)} answers, metrics {metrics}")
+    launches = read()
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"stage_seconds": {k: stats[k] for k in IMG2PROMPT_STAGES},
+            "caption_steps": stats["caption_steps"], "qg_steps": stats["qg_steps"],
+            "ms_per_beam_step": ms_step, "beam_decoder_step": decode, "total_s": total_s, "peak_memory_gib": peak,
+            "load_s": load_s, "launches": launches, "predict_prompts_launches": main,
+            "cli_launches": cli_launches, "cli_metrics": metrics, "cli_s": cli_s,
+            "against_plain": {k: list(v) for k, v in readings.items()},
+            "p_match_max_abs": p_diff, "kept_near_threshold": len(near),
+            "cli_p_match_max_abs": cli_diff, "cli_kept_near_threshold": len(cli_near),
+            "qg_ids_equal": same_ids, "qg_logp_max_abs": logp_diff, "seconds": seconds}
+
+
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
@@ -5145,69 +5563,96 @@ def kernel_table(rows, launches):
             ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
              "sprc_tpu/ops/pallas_block.py:609", "K2 vit_block blip_l S=577 B=4"),
             ("attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
-             "sprc_tpu/ops/pallas_attention.py:428", "attention D=64 bf16 S=577 B=4"))]
+             "sprc_tpu/ops/pallas_attention.py:428", "attention D=64 bf16 S=577 B=4"))] + [
+        # phase 16, Img2Prompt-VQA: the same kernels at its two calls, the towers'
+        # (B = 4) and the ITM filter's (B = 1), summed; launches: phase 16's
+        # (predict_prompts and the CLI run)
+        entry(f"{kernel}_img2prompt", source, replaces, [f"{check} B=4", f"{check} B=1"],
+              count=f"{kernel}_img2prompt",
+              library_ms=(None if by_check[f"{check} B=4"].get("library_ms") is None else
+                          by_check[f"{check} B=4"]["library_ms"]
+                          + by_check[f"{check} B=1"]["library_ms"]))
+        for kernel, source, replaces, check in (
+            ("fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609", "K2 vit_block blip_l S=577"),
+            ("attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428", "attention D=64 bf16 S=577"))]
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"[seconds] phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
     t_start = time.perf_counter()
-    phase_device()
-    phase_build()
-    rows = phase_kernels()
+    timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    rows = timed("3 kernels", phase_kernels)
     work = os.path.join(ROOT, "sprc_tpu_torch", "_build", "smoke")
     gallery = list(_gallery_batches(GALLERY, ENCODE_BATCH, 224, SEED))  # set-up, untimed
-    bf16 = phase_main_path(work, "bf16", gallery, BOUNDS, raw_phase=True)
+    bf16 = timed("4 main path bf16 (with 4d)", phase_main_path, work, "bf16", gallery, BOUNDS,
+                 raw_phase=True)
     check_counters("bf16", bf16["launches"])
-    int8 = phase_main_path(
-        work, "int8", gallery, None, model_kwargs={"vit_quant": "int8_calib", "qformer_int8": True},
+    int8 = timed(
+        "4b main path int8", phase_main_path, work, "int8", gallery, None,
+        model_kwargs={"vit_quant": "int8_calib", "qformer_int8": True},
         serve_flags=["--qformer-int8"], calibrate=True)
     check_counters("int8", int8["launches"])
     against = report_int8_against_bf16(bf16, int8)
-    eva_int8 = phase_eva_int8(gallery)
+    eva_int8 = timed("4c int8 EVA", phase_eva_int8, gallery)
     del bf16["target_feats"], int8["target_feats"]
-    runs = {route: phase_validate(work, route, gallery) for route in ROUTES}
+    runs = {route: timed(f"5 validate {route}", phase_validate, work, route, gallery)
+            for route in ROUTES}
     check_routes_agree(runs)
-    rerank = phase_rerank_serve(work, gallery)
-    rerank_eva = phase_rerank_validate(work, gallery)
+    rerank = timed("8 rerank serve", phase_rerank_serve, work, gallery)
+    rerank_eva = timed("8 rerank validate", phase_rerank_validate, work, gallery)
     gc.collect()  # phase 8's servers and clocks leave reference cycles over its models
     torch.cuda.empty_cache()
     del gallery
-    train = phase_train(work)
+    train = timed("7 fine-tune", phase_train, work)
     gc.collect()
     torch.cuda.empty_cache()
-    variants = phase_variants(work)
+    variants = timed("9 variants", phase_variants, work)
     gc.collect()
     torch.cuda.empty_cache()
-    stage1_eval = phase_stage1_eval(work)
+    stage1_eval = timed("10a stage-1 eval", phase_stage1_eval, work)
     gc.collect()
     torch.cuda.empty_cache()
-    stage1_train = phase_stage1_train(work)
+    stage1_train = timed("10b stage-1 train", phase_stage1_train, work)
     gc.collect()
     torch.cuda.empty_cache()
-    unfrozen = phase_unfrozen_train(work)
+    unfrozen = timed("11 unfrozen", phase_unfrozen_train, work)
     caption = {}
     for head in CAPTION_HEADS:  # one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
-        caption[head] = phase_caption(work, head)
-    instruct = phase_instruct()
+        caption[head] = timed(f"12 caption {head}", phase_caption, work, head)
+    instruct = timed("12c instruct", phase_instruct)
     stage2_train, vqa = {}, {}
     for head in STAGE2_TRAIN:  # phase 13, one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
-        stage2_train[head] = phase_stage2_train(work, head)
+        stage2_train[head] = timed(f"13 stage-2 train {head}", phase_stage2_train, work, head)
     for head in STAGE2_VQA:
         gc.collect()
         torch.cuda.empty_cache()
-        vqa[head] = phase_vqa(work, head)
+        vqa[head] = timed(f"13 vqa {head}", phase_vqa, work, head)
     instruct_runs = {}
     for kind, phase in (("retrieval", phase_instruct_retrieval),
                         ("generate", phase_instruct_generate)):  # phase 14, one 7B at a time
         gc.collect()
         torch.cuda.empty_cache()
-        instruct_runs[kind] = phase(work)
+        instruct_runs[kind] = timed(f"14 instruct {kind}", phase, work)
     gc.collect()
     torch.cuda.empty_cache()
-    pnp = phase_pnp(work)  # phase 15
+    pnp = timed("15 pnp_vqa", phase_pnp, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    img2prompt = timed("16 img2prompt_vqa", phase_img2prompt, work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -5248,6 +5693,8 @@ def main():
         launches.update({f"{k}_instruct_{kind}": run["launches"][k]
                          for k in ("fused_vit_block", "fused_qformer_layer")})
     launches.update({f"{k}_pnp": pnp["launches"][k]  # phase 15
+                     for k in ("fused_vit_block", "attention_bf16")})
+    launches.update({f"{k}_img2prompt": img2prompt["launches"][k]  # phase 16
                      for k in ("fused_vit_block", "attention_bf16")})
     launches["fused_vit_block_instruct_train"] = sum(
         run["train"]["launches"]["fused_vit_block"] for run in instruct_runs.values())
@@ -5307,6 +5754,7 @@ def main():
                       "caption_coco": caption, "instruct_synthetic": instruct,
                       "stage2_train": stage2_train, "vqa_zeroshot": vqa,
                       "instruct_vicuna7b": instruct_runs, "pnp_vqa": pnp,
+                      "img2prompt_vqa": img2prompt,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

@@ -35,13 +35,15 @@ batch through ``PnpVqaPipeline.predict_answers`` with the run's
 ``max_len`` and ``min_len`` (``inference_method`` is not read, as in the JAX
 CLI), the same result file and accuracy; its three models take their
 weights from each sub-section's ``finetuned:`` path, so ``--model-path``
-exits. The LLaMA
+exits. ``img2prompt_vqa`` takes the same branch, as in the JAX CLI:
+its ``predict_answers`` is PNP-VQA's over the ITM-filtered captions, read by
+its question-generation T5 (``t5-large``) through ``forward_qa``; its LLM
+prompts come from ``predict_prompts``, which no task calls. The LLaMA
 models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
 glue fits their signatures (the JAX CLI builds them and fails at the call);
 ``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
 scalar metrics. Every other task or family exits with a message naming its
-ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6; ``img2prompt_vqa``:
-A8.4b); CIR datasets keep their CLIs (``cli/validate.py``,
+ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6); CIR datasets keep their CLIs (``cli/validate.py``,
 ``cli/validate_rerank.py``, ``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
@@ -115,16 +117,14 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
                          f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption and the "
                          "other families: ROADMAP A8.6)")
-    pnp = arch == "pnp_vqa"
-    if arch == "img2prompt_vqa":
-        raise SystemExit("model 'img2prompt_vqa': not ported (its question-generation beam "
-                         "search and LLM prompt: ROADMAP A8.4b)")
+    pnp = arch in ("pnp_vqa", "img2prompt_vqa")
     if pnp and args.model_path:
         raise SystemExit("pnp pipelines load per-submodel checkpoints: put `finetuned: <path>` "
                          "inside each model sub-section of the YAML instead of --model-path")
     if task_name in VQA_TASKS and arch not in loader.LLM_HEADS and not pnp:
         raise SystemExit(f"model {arch!r}: its {task_name} evaluation is not ported (ported: "
-                         f"the generative {', '.join(loader.LLM_HEADS)} and pnp_vqa; "
+                         f"the generative {', '.join(loader.LLM_HEADS)}, pnp_vqa and "
+                         "img2prompt_vqa; "
                          "BLIP-1 / ALBEF's ranked VQA: ROADMAP A8.6)")
     if (task_name in VQA_TASKS and not pnp
             and run.get("inference_method", "rank") != "generate"):

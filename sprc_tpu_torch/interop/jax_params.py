@@ -20,7 +20,8 @@ it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init o
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``).
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
-LAVIS's names) and :func:`fid_t5_from_jax`. Dense
+LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
+:func:`plain_t5_from_jax`. Dense
 kernels ``[in, out]`` become weights ``[out, in]``, the HWIO patch conv
 becomes OIHW, and the BERT ``position_ids`` buffer is emitted.
 
@@ -279,6 +280,12 @@ def blip_caption_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
     _linear(out, f"{prefix}decoder", head["decoder"])
     return to_torch(out)
+
+
+def plain_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``T5ForConditionalGeneration`` tree (Img2Prompt's question
+    generator) -> the port's state dict, HF's T5 names without a prefix."""
+    return to_torch(t5_from_jax(params, prefix=""))
 
 
 def fid_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -2216,6 +2216,23 @@ def run_pnp(device="cuda") -> List[dict]:
                               eps=eps))]
 
 
+# Img2Prompt-VQA's ITM filter re-encodes each image with captions through the
+# ITM tower alone: K2 and its bf16 attention at BLIP's ViT-L/16 shapes, B = 1
+IMG2PROMPT_FILTER_BATCH = 1
+
+
+def run_img2prompt(device="cuda") -> List[dict]:
+    """The checks of Img2Prompt-VQA's own call: K2 and its bf16 attention at
+    the filter's batch (its towers' calls at B = 4 are :func:`run_pnp`'s)."""
+    W, M, heads, quick, eps = TOWERS["blip_l"]
+    B, S = IMG2PROMPT_FILTER_BATCH, PNP_SEQ
+    return [dict(check=f"K2 vit_block blip_l S={S} B={B}",
+                 **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick,
+                                   eps=eps)),
+            dict(check=f"attention D=64 bf16 S={S} B={B}",
+                 **check_attention(64, torch.bfloat16, device, B=B, S=S))]
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2450,4 +2467,5 @@ def run_all(device="cuda") -> List[dict]:
              dict(check="library yardsticks", **check_library_yardsticks(device))]
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
-            + run_instruct(device) + run_pnp(device) + run_edges(device))
+            + run_instruct(device) + run_pnp(device) + run_img2prompt(device)
+            + run_edges(device))

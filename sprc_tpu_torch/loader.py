@@ -3,8 +3,8 @@
 ``build_model(name, model_type)`` resolves the class from the registry and
 its configuration from :data:`MODEL_CONFIGS` (the BLIP-2 family's
 CirConfig), :data:`FAMILY_CONFIGS` (BLIP-1's ITM and captioner, the FiD
-reader: their own dataclasses) or, for the ``pnp_vqa`` pipeline,
-:data:`PIPELINE_CONFIGS`, which mirror the model sections of
+reader: their own dataclasses) or, for the ``pnp_vqa`` and
+``img2prompt_vqa`` pipelines, :data:`PIPELINE_CONFIGS`, which mirror the model sections of
 ``configs/models/<name>/<model_type>.yaml`` (tests pin them equal to what
 ``sprc_tpu.loader`` builds from the YAML; the port reads no YAML, so it
 needs no PyYAML). Overrides may come as the validate CLI's
@@ -144,16 +144,21 @@ FAMILY_CONFIGS = {
     **{("pnp_unifiedqav2_fid", size): {"t5_model": f"allenai/unifiedqa-v2-t5-{size}-1363200"}
        for size in ("base", "large", "3b")},
 }
-# the composed pipelines, as configs/models/pnp_vqa/*.yaml give them: the three
-# sub-models by (arch, model_type); the reader's size is the model type
+# the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
+# them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
+# model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
+_PIPELINE_TOWERS = {
+    "prompt": "a picture of ",
+    "image_question_matching_model": {"arch": "blip_image_text_matching",
+                                      "model_type": "large"},
+    "image_captioning_model": {"arch": "blip_caption", "model_type": "large_coco"}}
 PIPELINE_CONFIGS = {
     ("pnp_vqa", size): {
-        "prompt": "a picture of ",
-        "image_question_matching_model": {"arch": "blip_image_text_matching",
-                                          "model_type": "large"},
-        "image_captioning_model": {"arch": "blip_caption", "model_type": "large_coco"},
+        **_PIPELINE_TOWERS,
         "question_answering_model": {"arch": "pnp_unifiedqav2_fid", "model_type": size}}
     for size in ("base", "large", "3b")}
+PIPELINE_CONFIGS[("img2prompt_vqa", "base")] = {
+    **_PIPELINE_TOWERS, "question_answering_model": {"arch": "t5", "t5_model": "t5-large"}}
 # decoding keys of the model YAMLs (blip2_caption_opt2.7b.yaml's ``prompt``):
 # the JAX loader drops them from the model section; the caption glue reads
 # the run section's
@@ -353,18 +358,20 @@ def load_model(name: str, model_type: str = "pretrain",
                checkpoint_path: Optional[str] = None, *, device="cuda", seed: int = 0,
                **overrides: Any) -> nn.Module:
     """Build a model and fill its weights; returns it in eval mode. A
-    pipeline of :data:`PIPELINE_CONFIGS` (``pnp_vqa``) comes from its
-    class's ``from_config`` over its row with ``overrides`` (each
-    sub-section a dict; ``vocab_path`` for its BERT tokenizer), its
-    sub-models from ``seed``; it takes no ``checkpoint_path`` (a sub-section's
-    ``finetuned:`` names its weights)."""
+    pipeline of :data:`PIPELINE_CONFIGS` (``pnp_vqa``, ``img2prompt_vqa``)
+    comes from its class's ``from_config`` over its row with ``overrides``
+    (each sub-section a dict; ``vocab_path`` for its BERT tokenizer,
+    ``qa_tokenizer`` and Img2Prompt's ``tagger`` passed on to the pipeline),
+    its sub-models from ``seed``; it takes no ``checkpoint_path`` (a
+    sub-section's ``finetuned:`` names its weights)."""
     if (name, model_type) in PIPELINE_CONFIGS:
         if checkpoint_path is not None:
             raise ValueError(f"{name!r} loads each model's weights from its sub-section's "
                              "`finetuned: <path>`, not from one checkpoint")
         mcfg = {**PIPELINE_CONFIGS[(name, model_type)], **overrides}
-        return registry.get_model_class(name).from_config(
-            mcfg, device=_device(device), seed=seed, vocab_path=mcfg.pop("vocab_path", None))
+        kw = {k: mcfg.pop(k) for k in ("vocab_path", "qa_tokenizer", "tagger") if k in mcfg}
+        return registry.get_model_class(name).from_config(mcfg, device=_device(device),
+                                                          seed=seed, **kw)
     model = build_model(name, model_type, device=device, **overrides)
     if checkpoint_path is None:
         init_weights(model, seed)
@@ -376,7 +383,19 @@ def load_model(name: str, model_type: str = "pretrain",
 def read_checkpoint(path: str, model: nn.Module) -> dict:
     """The state dict of any of the reference checkpoint flavours, cut to the
     keys ``model`` holds (a released checkpoint also carries the LM head and
-    buffers that this model has no module for)."""
+    buffers that this model has no module for).
+
+    The HF and LAVIS layouts the JAX readers take (``t5_params_from_hf``,
+    ``opt_params_from_hf``, ``llama_params_from_hf``,
+    ``blip2_llm_params_from_torch``) load by name, the port's modules having
+    HF's names: a T5 v1.0 (``shared.weight``; the ``encoder.`` /
+    ``decoder.embed_tokens.weight`` aliases and the tied ``lm_head.weight``
+    dropped), a FlanT5 (its own ``lm_head``), an OPT (the tied
+    ``lm_head.weight`` dropped, ``embed_positions`` with its offset rows), a
+    LLaMA (``rotary_emb.inv_freq`` buffers dropped), and LAVIS's stage-2
+    ``blip2_opt`` / ``blip2_t5`` checkpoints, which hold no ``temp``: it
+    takes its init value 0.07, as the JAX reader gives it. Any other weight
+    that is missing raises at the strict load."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in state and isinstance(state["model"], dict):
         state = state["model"]  # blip2_pretrained.pth style
@@ -389,6 +408,8 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
     state = {k: v for k, v in state.items() if k in own}
     if "temp" in state:  # some save paths write the scalar as [1]
         state["temp"] = state["temp"].reshape(())
+    elif "temp" in own and getattr(model, "LLM_HEAD", False):  # LAVIS stage 2 keeps none
+        state["temp"] = torch.tensor(0.07)
     return state
 
 

@@ -65,6 +65,7 @@ class Blip2OPT(Blip2CirBase):
     """LM captioning through a frozen OPT decoder."""
 
     RETRIEVAL_HEADS = False
+    LLM_HEAD = True  # LAVIS's stage-2 checkpoint holds no temp: loader.read_checkpoint
     QFORMER_TEXT = False
     FROZEN_PREFIXES = ("visual_encoder", "opt_model")
 

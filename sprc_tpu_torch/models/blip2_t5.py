@@ -36,6 +36,7 @@ class Blip2T5(Blip2CirBase):
     """Seq2seq captioning through a frozen T5."""
 
     RETRIEVAL_HEADS = False
+    LLM_HEAD = True  # LAVIS's stage-2 checkpoint holds no temp: loader.read_checkpoint
     QFORMER_TEXT = False
     FROZEN_PREFIXES = ("visual_encoder", "t5_model")  # the JAX ("visual_encoder", "t5")
 

@@ -2,11 +2,12 @@
 (counterpart of ``sprc_tpu/models/generation.py``).
 
 Ported: :func:`cached_greedy_loop`, the KV-cached greedy decode of the
-BLIP-2 LLM heads (``blip2_opt``, ``blip2_t5``) and of PNP-VQA's FiD reader.
-The JAX loop fuses token selection with the next cached step into one
-jitted dispatch a token; here it is a plain Python loop over the step
-function, whose operations queue on the device without a host read but for
-the early-exit check every ``READBACK_EVERY`` tokens.
+BLIP-2 LLM heads (``blip2_opt``, ``blip2_t5``) and of PNP-VQA's FiD reader,
+and :func:`cached_beam_loop`, the KV-cached beam search of Img2Prompt's
+question generator. The JAX loops fuse token selection with the next cached
+step into one jitted dispatch a token; here each is a plain Python loop over
+the step function, whose operations queue on the device without a host read
+but for the early-exit check every ``READBACK_EVERY`` tokens.
 
 :func:`sample_generate` (PNP-VQA's caption sampler: top-k, top-p,
 temperature, repetition penalty, ``min_length``) and
@@ -15,8 +16,7 @@ L, V]`` that recomputes the whole fixed-width prefix every step, as the JAX
 functions do, and read the device once a step for the early exit. The
 draws come from an explicit ``torch.Generator`` (``torch.multinomial`` over
 the filtered softmax); ``jax.random`` draws other numbers, so a sampled
-sequence is not the JAX package's for the same seed. ``cached_beam_loop``
-comes with ``img2prompt_vqa``, its only caller (ROADMAP A8.4b).
+sequence is not the JAX package's for the same seed.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import contextlib
 import time
 from typing import Callable, Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -84,6 +85,84 @@ def cached_greedy_loop(logits0: Tensor, cache, pos0: Tensor, step_fn: Callable, 
         if t % READBACK_EVERY == READBACK_EVERY - 1 and bool(finished.all()):
             break
     return ids
+
+
+def cached_beam_loop(logits0: Tensor, state0, pos0: Tensor, step_fn: Callable,
+                     gather_fn: Callable, *, num_beams: int, eos_token_id: int,
+                     pad_token_id: int, max_new_tokens: int, min_new_tokens: int = 0,
+                     length_penalty: float = 1.0) -> Tensor:
+    """Beam search over a prefill / cached-step surface -> each item's best
+    sequence [B, max_new_tokens] (int64).
+
+    The caller prefilled B * K rows, each item's prefix repeated once a beam
+    (``repeat_interleave(K, dim=0)``): ``logits0`` [B * K, V], ``state0`` its
+    step state, ``pos0`` [B * K] the position the next token takes;
+    ``step_fn(tok, pos, state) -> (logits, state)`` and ``gather_fn(state,
+    rows) -> state`` with the rows [B * K] reordered. A step: fp32 log-softmax
+    (the eos logit -1e9 before ``min_new_tokens``), a finished beam's
+    log-probabilities -1e9 but 0 for the pad, the top K of each item's K x V
+    running sums (only the first beam alive at the start), then the ids,
+    finished flags, state and positions follow the chosen rows. The top K is
+    a stable descending sort, so ties go to the lower index, as
+    ``jax.lax.top_k`` breaks them (``torch.topk`` promises no order). Every
+    ``READBACK_EVERY`` tokens the loop stops if every beam has finished; the
+    last position is selected without a step. The best beam of an item has
+    the largest ``score / length ** length_penalty``, the length counting the
+    non-pad ids and the implied start token (HF's), the first such beam on a
+    tie."""
+    BK, V = logits0.shape
+    K = num_beams
+    assert BK % K == 0
+    B = BK // K
+    device = logits0.device
+    ids = torch.full((BK, max_new_tokens), pad_token_id, dtype=torch.long, device=device)
+    scores = torch.zeros(B, K, dtype=torch.float32, device=device)
+    scores[:, 1:] = -1e9  # the beams are the same row at the start: keep one
+    finished = torch.zeros(BK, dtype=torch.bool, device=device)
+    base = torch.arange(B, device=device)[:, None] * K
+
+    def select(logits: Tensor, ids: Tensor, scores: Tensor, finished: Tensor, t: int):
+        logits = logits.float()
+        if t < min_new_tokens:
+            logits = logits.clone()
+            logits[:, eos_token_id] = -1e9
+        logp = torch.log_softmax(logits, dim=-1)
+        pad = torch.where(finished, 0.0, logp[:, pad_token_id])
+        logp = torch.where(finished[:, None], -1e9, logp)
+        logp[:, pad_token_id] = pad
+        total = (scores.reshape(BK, 1) + logp).reshape(B, K * V)
+        order = torch.sort(total, dim=-1, descending=True, stable=True).indices[:, :K]
+        new_scores = torch.gather(total, 1, order)
+        rows = (base + order // V).reshape(-1)
+        tok = (order % V).reshape(-1)
+        ids = ids[rows]
+        ids[:, t] = tok
+        return ids, new_scores, finished[rows] | (tok == eos_token_id), rows, tok
+
+    logits, pos, state = logits0, pos0, state0
+    for t in range(max_new_tokens):
+        if t == max_new_tokens - 1:  # the last position: no wasted cache step
+            ids, scores, finished, _, _ = select(logits, ids, scores, finished, t)
+            break
+        ids, scores, finished, rows, tok = select(logits, ids, scores, finished, t)
+        state = gather_fn(state, rows)
+        pos = pos[rows]
+        logits, state = step_fn(tok, pos, state)
+        pos = pos + 1
+        if t % READBACK_EVERY == READBACK_EVERY - 1 and bool(finished.all()):
+            break
+    ids_np = ids.cpu().numpy()
+    scores_np = scores.cpu().numpy().astype(np.float64)
+    best = []
+    for b in range(B):
+        best_k, best_score = 0, -np.inf
+        for k in range(K):
+            length = int((ids_np[b * K + k] != pad_token_id).sum()) + 1  # + the start token
+            score = scores_np[b, k] / (length ** length_penalty)
+            if score > best_score:
+                best_k, best_score = k, score
+        best.append(b * K + best_k)
+    return torch.from_numpy(ids_np[best]).to(device)
 
 
 def _apply_repetition_penalty(logits: Tensor, ids: Tensor, step: int, penalty: float) -> Tensor:

@@ -26,20 +26,31 @@ noise, token sampling) come from a ``torch.Generator`` seeded from
 ``predict_answers(seed=)``; they are not ``jax.random``'s, so the sampled
 captions (and so the answers) are not the JAX package's for the same seed;
 :func:`top_k_patches` takes given noise, so that the selection can be held
-against the JAX package's on its own draw. ``img2prompt_vqa`` (the
-question-generation beam search and the LLM prompt) is ROADMAP A8.4b.
+against the JAX package's on its own draw.
+
+``img2prompt_vqa`` (:class:`Img2PromptVqaPipeline`; reference
+img2prompt_models/img2prompt_vqa.py:30-587) builds a prompt for an external
+LLM from the same localisation and captioning: the captions whose ITM match
+probability, their image re-encoded through the ITM tower (K2 on the card,
+one call an image), reaches ``itm_filter_threshold``; answer candidates
+extracted from them (:mod:`sprc_tpu_torch.text.pos`, or an injected
+``tagger``); a question for each from a plain T5 (``t5-large``, ``arch: t5``)
+through the KV-cached beam search (:func:`qg_beam_search`, 3 beams,
+batches of 10 contexts); then the exemplar and context prompts. Its
+``predict_answers`` is PNP-VQA's over the filtered captions, read by that
+T5 through :meth:`PnpVqaPipeline.forward_qa`, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from sprc_tpu_torch.models.generation import (cached_greedy_loop, greedy_generate_fn,
-                                              sample_generate, stage)
+from sprc_tpu_torch.models.generation import (cached_beam_loop, cached_greedy_loop,
+                                              greedy_generate_fn, sample_generate, stage)
 from sprc_tpu_torch.models.t5 import T5ForConditionalGeneration
 from sprc_tpu_torch.registry import registry
 from sprc_tpu_torch.utils.gradcam import compute_gradcam
@@ -137,6 +148,70 @@ def fid_generate(model: FiDT5, input_ids: Tensor, attention_mask: Tensor, *, pad
         return torch.cat([bos, out], dim=1)
 
 
+def plain_t5(sub: Dict, *, device, seed: int, path: Optional[str] = None
+             ) -> T5ForConditionalGeneration:
+    """The ``arch: t5`` sub-model (``sprc_tpu/models/pnp_vqa.py:173-183``): the
+    preset of its ``t5_model`` (default ``t5-large``) with the other keys
+    replacing T5Config fields; random weights from ``seed``, or the HF-layout
+    state dict at ``path`` through :func:`~sprc_tpu_torch.loader.read_checkpoint`
+    with ``strict=True``."""
+    from sprc_tpu_torch import loader
+    from sprc_tpu_torch.models.llm_presets import t5_preset
+
+    sub = dict(sub)
+    cfg = dataclasses.replace(t5_preset(sub.pop("t5_model", "t5-large")),
+                              **loader.coerce_overrides(sub))
+    with torch.device("meta"):
+        model = T5ForConditionalGeneration(cfg)
+    model = model.to_empty(device=device)
+    if path is None:
+        loader.init_weights(model, seed)
+    else:
+        model.load_state_dict(loader.read_checkpoint(path, model), strict=True)
+    return model.eval()
+
+
+def qg_beam_search(model: T5ForConditionalGeneration, enc_out: Tensor, enc_mask: Tensor, *,
+                   num_beams: int, pad_id: int, eos_id: int, max_length: int,
+                   use_cache: bool = True, steps: Optional[List[int]] = None) -> Tensor:
+    """Beam search from encoded contexts [Bq, L, d] -> the best ids [Bq,
+    max_length - 1] (int64), the pad start token not among them. Each row is
+    repeated once a beam; ``use_cache``: the decoder's prefill at ``s_max =
+    max_length`` and one cached step a token, the self-attention caches
+    following the chosen beams (the cross K/V and the mask are the same for
+    every beam of an item, so they stay); else every step runs the decoder
+    over the whole prefix, the prefixes following the beams. Both give the
+    same ids. ``steps[0]`` counts the decoder steps."""
+    K = num_beams
+    enc_rep, mask_rep = enc_out.repeat_interleave(K, 0), enc_mask.repeat_interleave(K, 0)
+    BK = enc_rep.shape[0]
+    bos = torch.full((BK, 1), pad_id, dtype=torch.long, device=enc_out.device)
+    steps = steps if steps is not None else [0]
+    if use_cache:
+        logits0, state = model.decode_prefill(bos, enc_rep, mask_rep, max_length)
+
+        def step_fn(tok, pos, cache):
+            steps[0] += 1
+            return model.decode_step_logits(tok, pos[:1], cache, mask_rep)
+
+        def gather_fn(cache, rows):
+            return [dict(entry, k=entry["k"][rows], v=entry["v"][rows]) for entry in cache]
+    else:
+        logits0, state = model.decode(bos, enc_rep, mask_rep)[:, -1], bos
+
+        def step_fn(tok, pos, prefix):
+            steps[0] += 1
+            prefix = torch.cat([prefix, tok[:, None]], dim=1)
+            return model.decode(prefix, enc_rep, mask_rep)[:, -1], prefix
+
+        def gather_fn(prefix, rows):
+            return prefix[rows]
+
+    return cached_beam_loop(logits0, state, torch.ones(BK, dtype=torch.long, device=bos.device),
+                            step_fn, gather_fn, num_beams=K, eos_token_id=eos_id,
+                            pad_token_id=pad_id, max_new_tokens=max_length - 1)
+
+
 @dataclasses.dataclass
 class PnpVqaPipeline:
     """PNP-VQA (reference pnp_vqa.py): the three models on one device and
@@ -157,7 +232,8 @@ class PnpVqaPipeline:
         ``from_config`` over configs/models/pnp_vqa/*.yaml): each of the three
         sub-sections names its ``arch`` and ``model_type`` (extra keys
         override that model's configuration) and is built through
-        :func:`sprc_tpu_torch.loader.build_model`; its weights are random
+        :func:`sprc_tpu_torch.loader.build_model` (``arch: t5``:
+        :func:`plain_t5`, its ``model_type`` ignored); its weights are random
         from ``seed + i`` (i = 0, 1, 2 in section order) unless it carries
         ``finetuned: <local path>``, read through
         :func:`~sprc_tpu_torch.loader.read_checkpoint` and loaded with
@@ -174,7 +250,9 @@ class PnpVqaPipeline:
             sub = dict(mcfg.get(section) or {})
             path = sub.pop("finetuned", None)
             arch, model_type = sub.pop("arch"), sub.pop("model_type", "pretrain")
-            if path is None:
+            if arch == "t5":  # a plain T5 (Img2Prompt's question generator)
+                models.append(plain_t5(sub, device=device, seed=seed + i, path=path))
+            elif path is None:
                 models.append(loader.load_model(arch, model_type, device=device, seed=seed + i,
                                                 **sub))
             else:
@@ -325,3 +403,150 @@ class PnpVqaPipeline:
 
 
 registry.register_model("pnp_vqa")(PnpVqaPipeline)
+
+
+@dataclasses.dataclass
+class Img2PromptVqaPipeline(PnpVqaPipeline):
+    """Img2Prompt-VQA (reference img2prompt_vqa.py): PNP-VQA's localisation
+    and captioning with an ITM filter, then the prompt for an external LLM.
+    ``qa_model`` is the question-generation T5. ``tagger``: the answer
+    candidates of a caption (default :func:`sprc_tpu_torch.text.pos.
+    answer_candidates`; the reference uses spaCy's tags, entities and noun
+    chunks)."""
+
+    tagger: Optional[Callable[[str], List[str]]] = None
+    itm_filter_threshold: float = 0.5
+
+    @torch.no_grad()
+    def forward_cap(self, generator: torch.Generator, images: Tensor, gradcams: np.ndarray, *,
+                    stats: Optional[Dict[str, float]] = None, **kw) -> List[List[str]]:
+        """PNP-VQA's captions, kept where the ITM match probability of the
+        caption and its image reaches ``itm_filter_threshold``
+        (img2prompt_vqa.py:228-246); each image with captions re-encoded
+        through the ITM tower alone."""
+        caps = super().forward_cap(generator, images, gradcams, stats=stats, **kw)
+        kept: List[List[str]] = []
+        for b, group in enumerate(caps):
+            if not group:
+                kept.append(group)
+                continue
+            with stage(stats, "itm_filter_s", self.device):
+                ids, mask = self._ids(self.tokenizer(group, max_length=35, enc_token=True))
+                rows = self.itm_model.encode_image(images[b:b + 1])
+                p_match = self.itm_model.itm_embeds(
+                    ids, mask, rows.expand(len(group), *rows.shape[1:])).cpu().numpy()
+            kept.append([c for c, p in zip(group, p_match) if p >= self.itm_filter_threshold])
+        return kept
+
+    def answer_extraction(self, captions: Sequence[str], *, num_question_generation: int = 30):
+        """-> (the question generator's contexts, the answers with their ".",
+        answer -> caption indices) (img2prompt_vqa.py:252-310): the
+        candidates sorted by their count (stable), the first
+        ``num_question_generation`` kept and ``"yes."`` last."""
+        from sprc_tpu_torch.text.pos import answer_candidates
+
+        extract = self.tagger or answer_candidates
+        cap_use = ""
+        answers: List[str] = []
+        ans_to_cap: Dict[str, List[int]] = {}
+        for cap_idx, cap in enumerate(captions):
+            cap_use += cap
+            for cand in extract(cap):
+                key = cand.lower()
+                ans_to_cap.setdefault(key, [])
+                if cap_idx not in ans_to_cap[key]:
+                    ans_to_cap[key].append(cap_idx)
+                answers.append(cand)
+        answers = sorted(answers, key=answers.count, reverse=True)
+        real: List[str] = []
+        for a in answers:
+            a = a + "."
+            if a not in real:
+                real.append(a)
+        contexts = ["answer: %s  context: %s." % (a, cap_use)
+                    for a in real[:num_question_generation]]
+        contexts.append("answer: %s  context: %s." % ("yes.", cap_use))
+        return contexts, real[:num_question_generation] + ["yes."], ans_to_cap
+
+    @torch.no_grad()
+    def forward_qa_generation(self, captions: Sequence[str], *, max_length: int = 30,
+                              ctx_max_length: int = 128, num_beams: int = 3,
+                              stats: Optional[Dict[str, float]] = None) -> Dict:
+        """A question for each extracted answer (img2prompt_vqa.py:312-348):
+        contexts 10 at a time, encoded at ``ctx_max_length``, then
+        :func:`qg_beam_search` (``num_beams``, ``max_length - 1`` new tokens).
+        ``stats``: ``qg_encode_s``, ``qg_decode_s``, ``qg_steps``."""
+        contexts, answers, ans_to_cap = self.answer_extraction(captions)
+        model, tok, device = self.qa_model, self.qa_tokenizer, self.device
+        steps = [0]
+        questions: List[str] = []
+        for i in range(0, len(contexts), 10):
+            ids, mask = self._ids(tok(contexts[i:i + 10], max_length=ctx_max_length))
+            with stage(stats, "qg_encode_s", device):
+                enc_out = model.encode_ids(ids, mask)
+            with stage(stats, "qg_decode_s", device):
+                out = qg_beam_search(model, enc_out, mask, num_beams=num_beams,
+                                     pad_id=tok.pad_id, eos_id=tok.eos_id,
+                                     max_length=max_length, steps=steps).cpu().numpy()
+            questions += [tok.decode(row) for row in out]
+        if stats is not None:
+            stats["qg_steps"] = stats.get("qg_steps", 0) + steps[0]
+        return {"questions": questions, "answers": answers, "ans_to_cap_dict": ans_to_cap}
+
+    # -- the prompt (string logic, img2prompt_vqa.py:349-463) -------------
+    @staticmethod
+    def create_context_prompt(sample: Dict, num_caps_per_img: int = 30) -> str:
+        ans_to_cap = sample["ans_to_cap_dict"]
+        caption = sample["captions"]
+        answers = sample["answers"]
+        out, used = "", []
+        for idx in range(num_caps_per_img):
+            key = answers[(len(answers) - 1 - idx) % len(answers)][:-1].lower()
+            for cap_id in ans_to_cap.get(key, [0]):
+                if cap_id not in used and cap_id < len(caption):
+                    out += caption[cap_id]
+                    used.append(cap_id)
+                    break
+        return out
+
+    @staticmethod
+    def create_task_prompt(sample: Dict, num_question_per_img: int = 30) -> str:
+        """One yes / no exemplar pair (the reference's non-'rule' branch,
+        :390-404; its 'rule' branch compares a string with 'rule' and never
+        runs)."""
+        questions = sample["questions"]
+        out = ""
+        for _ in range(min(num_question_per_img, 1)):
+            out += "Question:" + questions[-1] + "\n" + "Answer:yes\n"
+            out += "Question:Is this a toilet?\nAnswer:no\n"
+        return out
+
+    def prompts_construction(self, sample: Dict, *, num_caps_per_img: int = 30,
+                             num_question_per_img: int = 30) -> str:
+        head = ("Please reason the answer of the questions according to the "
+                "given contexts.\n")
+        ctx = self.create_context_prompt(sample, num_caps_per_img)
+        task = self.create_task_prompt(sample, num_question_per_img)
+        return (head + "Contexts:" + ctx + "\n" + task + "Question:" + sample["text_input"]
+                + "\nAnswer:")
+
+    def predict_prompts(self, images, questions: Sequence[str], *, seed: int = 0,
+                        block_num: int = 7, stats: Optional[Dict[str, float]] = None,
+                        **kw) -> List[str]:
+        """-> one LLM prompt an image and question. ``kw``: the caption
+        keys of :meth:`PnpVqaPipeline.forward_cap`; ``stats`` as
+        :meth:`PnpVqaPipeline.predict_answers`' with ``itm_filter_s`` and
+        the question generator's keys."""
+        images = torch.as_tensor(np.asarray(images, np.float32), device=self.device)
+        gradcams = self.forward_itm(images, questions, block_num=block_num, stats=stats)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        captions = self.forward_cap(generator, images, gradcams, stats=stats, **kw)
+        prompts = []
+        for b, question in enumerate(questions):
+            qa = self.forward_qa_generation(captions[b], stats=stats)
+            sample = {"captions": captions[b], "text_input": question, **qa}
+            prompts.append(self.prompts_construction(sample))
+        return prompts
+
+
+registry.register_model("img2prompt_vqa")(Img2PromptVqaPipeline)

@@ -253,7 +253,7 @@ def test_loader_rows_equal_jax():
     builds from configs/models/: BLIP-1's ITM (base, large) and caption
     (base_coco, large_coco) configs field by field, their towers and
     med-BERTs, the FiD readers' T5 dimensions (v1.0: ReLU, tied), and the
-    pnp_vqa sections."""
+    pnp_vqa and img2prompt_vqa sections."""
     import os
 
     from sprc_tpu.config import load_yaml, model_config_path
@@ -288,6 +288,6 @@ def test_loader_rows_equal_jax():
         raw = dict(load_yaml(model_config_path(name, model_type))["model"])
         raw.pop("arch")
         assert raw == row, model_type
-    assert sorted(loader.PIPELINE_CONFIGS) == [
-        ("pnp_vqa", f[:-5]) for f in sorted(os.listdir(os.path.join(
-            os.path.dirname(model_config_path("pnp_vqa", "base")))))]
+    assert sorted(loader.PIPELINE_CONFIGS) == sorted(
+        (name, f[:-5]) for name in ("pnp_vqa", "img2prompt_vqa")
+        for f in os.listdir(os.path.dirname(model_config_path(name, "base"))))

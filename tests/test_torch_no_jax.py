@@ -70,6 +70,13 @@ assert {"sprc_tpu_torch.models.blip1", "sprc_tpu_torch.models.albef",
         "sprc_tpu_torch.models.pnp_vqa", "sprc_tpu_torch.utils.gradcam"} <= set(mods)
 assert {"blip_image_text_matching", "blip_caption", "pnp_unifiedqav2_fid",
         "pnp_vqa"} <= set(registry.list("model"))
+# Img2Prompt-VQA: the tagger, the beam search, the pipeline; the checkpoint readers
+assert "sprc_tpu_torch.text.pos" in mods and "img2prompt_vqa" in registry.list("model")
+from sprc_tpu_torch.models import generation, pnp_vqa
+assert callable(generation.cached_beam_loop) and callable(pnp_vqa.qg_beam_search)
+assert issubclass(pnp_vqa.Img2PromptVqaPipeline, pnp_vqa.PnpVqaPipeline)
+from sprc_tpu_torch import loader
+assert ("img2prompt_vqa", "base") in loader.PIPELINE_CONFIGS
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -101,6 +108,12 @@ assert loader.llm_config("blip2_vicuna_instruct", "vicuna7b")["llama_config"].hi
 cfg = Config(defaults=chip_smoke.RUN_CONFIGS["eval/pnp_vqa_vqav2_eval.yaml"])
 assert cfg.model["arch"] == "pnp_vqa" and cfg.run["num_captions"] == 50
 assert loader.family_config("blip_caption", "large_coco").vit_config().seq_len == 577
+cut = chip_smoke._cut_depth("blip2", "coco", vit_depth=chip_smoke.UNFROZEN_DEPTH,
+                            qformer_layers=chip_smoke.VARIANT_QFORMER_LAYERS)
+cfg = loader.model_config("blip2", "coco", **cut)
+assert (cfg.vit_config().depth, cfg.vit_config().width, cfg.qformer_config().num_layers) == (
+    chip_smoke.UNFROZEN_DEPTH, 1408, chip_smoke.VARIANT_QFORMER_LAYERS)
+assert loader.PIPELINE_CONFIGS[("img2prompt_vqa", "base")]["question_answering_model"]["arch"] == "t5"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

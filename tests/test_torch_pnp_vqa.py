@@ -437,9 +437,11 @@ def test_load_model_assembles_the_pipeline(pipelines, tmp_path):
 
 
 def test_evaluate_cli_refusals(tmp_path, capsys):
-    """``--model-path`` exits with the JAX CLI's advice; ``img2prompt_vqa``
-    exits naming ROADMAP A8.4b; ``--device cuda`` without a GPU exits
-    nonzero; a pnp pipeline is not a ``build_model`` model."""
+    """``--model-path`` exits with the JAX CLI's advice; ``--device cuda``
+    without a GPU exits nonzero; a pnp pipeline is not a ``build_model``
+    model; and ``img2prompt_vqa`` (once refused) runs on the same YAML, its
+    captions read by the same reader through ``forward_qa``, and writes its
+    result file."""
     from sprc_tpu_torch.cli import evaluate
 
     ann, images = _write_split(tmp_path, n=1)
@@ -456,10 +458,17 @@ def test_evaluate_cli_refusals(tmp_path, capsys):
             argv += ["--device", "cpu"]
         if name == "cuda" and torch.cuda.is_available():
             continue
+        if name == "img2prompt":
+            evaluate.main(argv + extra)
+            metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            assert "agg_metrics" in metrics
+            result = json.loads((tmp_path / name / "result" / "val_vqa_result.json").read_text())
+            assert len(result) == 1 and result[0]["question_id"] == 70
+            continue
         with pytest.raises(SystemExit) as exc:
             evaluate.main(argv + extra)
         runs.append((name, str(exc.value.code)))
-    assert "finetuned: <path>" in runs[0][1] and "A8.4b" in runs[1][1]
+    assert "finetuned: <path>" in runs[0][1]
     assert all(code not in ("0", "None") for _, code in runs)
     with pytest.raises(ValueError, match="load_model"):
         loader.build_model("pnp_vqa", "base", device="cpu")

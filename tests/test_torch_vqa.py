@@ -227,9 +227,11 @@ def test_evaluate_cli_vqa_equals_jax(arch, task, tmp_path, monkeypatch, capsys):
     assert any(r[key] for r in rows[1])
 
 
-def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path):
-    """BLIP-1 / ALBEF's ranked VQA names ROADMAP A8.6, ``img2prompt_vqa``
-    A8.4b (``pnp_vqa`` runs: test_torch_pnp_vqa.py); a
+def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """BLIP-1 / ALBEF's ranked VQA names ROADMAP A8.6; ``img2prompt_vqa``
+    (once refused) goes on to build its pipeline for any VQA task, whatever
+    the run's ``inference_method``, as ``pnp_vqa`` does (both run:
+    test_torch_pnp_vqa.py, test_torch_img2prompt.py); a
     BLIP-2 head asked for another ``inference_method`` than ``generate``
     (the run's default ``rank`` included) A8.6, in the CLI and in the
     glue; and the VQA glue refuses a model that is not an LLM head."""
@@ -241,12 +243,24 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path):
     from sprc_tpu_torch.train.eval_glue import make_blip2_vqa_predict_fn
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
-    for task, arch, entry in (("vqa", "blip_vqa", "A8.6"), ("aok_vqa", "albef_vqa", "A8.6"),
-                              ("gqa", "img2prompt_vqa", "A8.4b"),
-                              ("vqa", "img2prompt_vqa", "A8.4b")):
-        with pytest.raises(SystemExit, match=f"ROADMAP {entry}"):
+    for task, arch in (("vqa", "blip_vqa"), ("aok_vqa", "albef_vqa")):
+        with pytest.raises(SystemExit, match="ROADMAP A8.6"):
             evaluate.evaluate(Config(defaults={"run": {"task": task},
                                                "model": {"arch": arch}}), args)
+    built = []
+
+    def load_model(name, model_type, **kw):
+        built.append((name, model_type, kw["vocab_path"]))
+        raise LookupError("built")
+
+    monkeypatch.setattr(loader, "load_model", load_model)
+    for task in ("gqa", "vqa", "aok_vqa"):
+        with pytest.raises(LookupError, match="built"):
+            evaluate.evaluate(Config(defaults={"run": {"task": task},
+                                               "model": {"arch": "img2prompt_vqa",
+                                                         "model_type": "base"}}), args)
+    assert built == [("img2prompt_vqa", "base", None)] * 3
+    monkeypatch.undo()
     for run in ({"task": "vqa", "inference_method": "rank"}, {"task": "gqa"}):
         with pytest.raises(SystemExit, match="ROADMAP A8.6"):
             evaluate.evaluate(Config(defaults={"run": run, "model": {"arch": "blip2_t5"}}),
