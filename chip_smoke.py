@@ -388,6 +388,30 @@ Phases (any failure raises and exits nonzero before the last line):
    metric JSON, the result file, the launches. The kernel phase holds K2 and
    its bf16 attention at the filter's batch (B = 1;
    kernel_checks.run_img2prompt).
+17. The momentum-queue families (models/albef.py, models/blip1.py; random
+   weights from the run's seed, the synthetic vocab, full width: BLIP-1's
+   ViT-B/16 in bf16 trained through K2's FusedViTBlock, the BERT-base
+   med-BERT in fp32, the YAMLs' queues of 57,600 / 65,536). 17a:
+   cli/train.py on retrieval_coco_ft.yaml (blip_retrieval) and
+   retrieval_coco_albef_ft.yaml, 3 steps each at batch 32 and 384 px; 17b:
+   pretrain_14m.yaml (blip_pretrain) and pretrain_albef.yaml, 2 steps each at
+   batch 64 and 224 px (seeded PNG pairs): step ms, samples/s, peak, the
+   launches a step (MOMENTUM_STEP_LAUNCHES: 12 K2 blocks through the
+   Function in the live tower, 12 without a graph in the momentum tower);
+   then the same steps all-plain from the same weights and batches, the
+   kernel run's hard negatives replayed: each step's losses, the ITM logits,
+   the queues, the momentum copies (MOMENTUM_BOUNDS), ptr and idx_queue
+   equal. 17c: cli/evaluate.py on eval/ret_coco_eval.yaml and
+   ret_coco_albef_eval.yaml over a synthetic split (MOMENTUM_EVAL_SPLIT: 32
+   images x 5 captions, k_test 16): seconds by stage (image encode, text
+   encode, ITC, ITM rescoring), K2's 12 launches a 16-image encode; the
+   tower's rows against the plain tower's on the same pixels, and the
+   all-plain evaluation from the kernel tower's rows: the same recalls and
+   scores. The kernel phase holds K2
+   without a graph and through FusedViTBlock (forward, forward + backward)
+   at B = 32, S = 577 and B = 64, S = 197, at the evaluation's B = 16, its
+   bf16 attention and a block's four bf16 products
+   (kernel_checks.run_momentum).
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -498,7 +522,7 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
-# phase 10's to 13's and 15's run configs as configs/runs/<name> gives them (the card machine
+# phase 10's to 13's, 15's and 17's run configs as configs/runs/<name> gives them (the card machine
 # may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
 # each dict equal to its file)
 RUN_CONFIGS = {
@@ -577,6 +601,46 @@ RUN_CONFIGS = {
             "build_info": {"annotations": {"val": []}, "images": ""},
             "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
             "text_processor": {"eval": {"name": "blip_question"}}}}},
+    "retrieval_coco_ft.yaml": {
+        "run": {"task": "retrieval", "batch_size": 32, "max_epochs": 6, "learning_rate": "1e-5",
+                "weight_decay": 0.05, "max_txt_len": 35, "seed": 42},
+        "model": {"arch": "blip_retrieval", "image_size": 384, "embed_dim": 256,
+                  "queue_size": 57600, "momentum": 0.995, "alpha": 0.4},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 384},
+                              "eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"train": {"name": "blip_caption"},
+                               "eval": {"name": "blip_caption"}}}}},
+    "retrieval_coco_albef_ft.yaml": {
+        "run": {"task": "retrieval", "batch_size": 32, "max_epochs": 5, "learning_rate": "1e-5",
+                "weight_decay": 0.05, "max_txt_len": 30, "seed": 42},
+        "model": {"arch": "albef_retrieval", "image_size": 384, "embed_dim": 256,
+                  "queue_size": 65536, "momentum": 0.995, "alpha": 0.4},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 384},
+                              "eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"train": {"name": "blip_caption"},
+                               "eval": {"name": "blip_caption"}}}}},
+    **{f"pretrain_{which}.yaml": {
+        "run": {"task": "image_text_pretrain", "batch_size": 64, "max_epochs": 1,
+                "learning_rate": "3e-4", "weight_decay": 0.05, "max_txt_len": 30, "seed": 42},
+        "model": {"arch": arch, "model_type": "base"},
+        "datasets": {"conceptual_caption_3m": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 224}},
+            "text_processor": {"train": {"name": "blip_caption"}}}}}
+       for which, arch in (("14m", "blip_pretrain"), ("albef", "albef_pretrain"))},
+    **{f"eval/ret_coco{suffix}_eval.yaml": {
+        "run": {"task": "retrieval", "evaluate": True, "k_test": 128, "max_txt_len": 35,
+                "test_splits": ["test"]},
+        "model": {"arch": arch, "model_type": "coco"},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}}
+       for suffix, arch in (("", "blip_retrieval"), ("_albef", "albef_retrieval"))},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
                 "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
@@ -5340,6 +5404,337 @@ def phase_img2prompt(work):
             "qg_ids_equal": same_ids, "qg_logp_max_abs": logp_diff, "seconds": seconds}
 
 
+# phase 17: the momentum-queue families (BLIP-1 / ALBEF retrieval fine-tunes and
+# pretraining) through cli/train.py at full width (ViT-B/16 trained through K2's
+# FusedViTBlock, BERT-base med, the YAMLs' queues of 57,600 / 65,536), and their
+# evaluation through cli/evaluate.py. arch -> (run YAML, steps)
+MOMENTUM_TRAIN = {"blip_retrieval": ("retrieval_coco_ft.yaml", 3),
+                  "albef_retrieval": ("retrieval_coco_albef_ft.yaml", 3),
+                  "blip_pretrain": ("pretrain_14m.yaml", 2),
+                  "albef_pretrain": ("pretrain_albef.yaml", 2)}
+MOMENTUM_EVAL = {"blip_retrieval": "eval/ret_coco_eval.yaml",
+                 "albef_retrieval": "eval/ret_coco_albef_eval.yaml"}
+MOMENTUM_EVAL_SPLIT = (32, 5, 16)  # images, captions an image, k_test
+# K2 a step: the live tower's 12 blocks through FusedViTBlock and the momentum
+# tower's 12 without a graph (a pretrainer's heads share the live tower's rows);
+# an evaluation: 12 a 16-image encode
+MOMENTUM_STEP_LAUNCHES = 24
+MOMENTUM_EVAL_LAUNCHES = 12 * (MOMENTUM_EVAL_SPLIT[0] // 16)
+# Bounds, fixed before the first reading. The kernel run against the all-plain
+# run (primitives.plain_reference) of the same weights, batches and hard
+# negatives (the kernel run's draws replayed): the bf16 tower's rows differ by
+# bf16 rounding through 12 blocks, which the unit-norm features and the
+# ITM / MLM / LM heads carry: each loss within 2e-2 of its value, each ITM
+# logit within 0.1, each queue entry (the momentum features, unit-norm 256-d)
+# within 3e-2; the momentum copies are updated from fp32 masters that the two
+# runs move by Adam's steps (lr x steps at most, and 0.005 of that into a
+# copy), within 1e-4; ``ptr`` and ``idx_queue`` equal. The evaluation: the
+# tower's rows, kernel against plain on the same pixels, within phase 15's
+# rows bound (max, mean |difference|); everything after the tower runs no
+# kernel, so the all-plain evaluation from the kernel tower's rows gives the
+# same cosines, rescored scores (within 1e-6) and recalls. (Taken whole from
+# its own tower, the random model's cosines sit within 3e-3 of each other:
+# 29 of 320 t2i top sets moved past a 1e-3 tie bound in the first reading.)
+MOMENTUM_BOUNDS = {"loss": 2e-2, "itm": 0.1, "queue": 3e-2, "params_m": 1e-4,
+                   "rows": PNP_BOUNDS["rows"], "scores": 1e-6}
+
+
+def _tree_gap(got, want):
+    """max |a - b| over the tensors of two dicts with the same keys."""
+    return max((got[k].float() - want[k].float()).abs().max().item() for k in want)
+
+
+def phase_momentum_train(work, arch):
+    """17a / 17b: one momentum-queue YAML through cli/train.py (phase 17 of the
+    docstring), then the same steps all-plain."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.models import albef
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, steps = MOMENTUM_TRAIN[arch]
+    tag = f"momentum {arch}"
+    t_phase = time.perf_counter()
+    batch_size = RUN_CONFIGS[name]["run"]["batch_size"]
+    (builder,) = RUN_CONFIGS[name]["datasets"]
+    root = os.path.join(work, f"momentum_{arch}")
+    ann = _write_pairs(root, batch_size * steps, 0, SEED + 170, "mq")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, f"momentum_{arch}_train")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, how = _run_config(name, {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {builder: {"build_info": {"annotations": {"train": [ann]}, "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    def zero():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    real_step, real_sample = generic.GenericTrainer.train_step, albef.sample_negatives
+    times, per_step, picks, itm, kept = [], [], [], [], {}
+
+    def sample(weights, generator):
+        drawn = real_sample(weights, generator)
+        picks.append(drawn.clone())
+        return drawn
+
+    def timed_step(self, batch):
+        kept["trainer"] = self
+        hook = self.model.itm_head.register_forward_hook(
+            lambda m, i, o: itm.append(o.detach().float()))
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items() if v != before[k]})
+        hook.remove()
+        return metrics
+
+    generic.GenericTrainer.train_step, albef.sample_negatives = timed_step, sample
+    try:
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step, albef.sample_negatives = real_step, real_sample
+    trainer = kept.pop("trainer")
+    k_aux, k_itm = trainer.aux, itm[:]
+    param_count = sum(p.numel() for p in trainer.model.parameters())
+    del trainer
+    with open(os.path.join(out, "log.jsonl")) as f:
+        k_rows = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    loss_keys = [k for k in k_rows[0] if k.startswith("loss")]
+    log(f"[{tag}] {len(k_rows)} steps at batch {batch_size} ({param_count / 1e6:.1f} M "
+        f"parameters): ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; samples/s (last step) {batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; "
+        f"run {run_s:.1f} s; losses " + "; ".join(
+            ", ".join(f"{k} {r[k]:.4f}" for k in loss_keys) for r in k_rows))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}")
+    if len(k_rows) != steps or any(r["skipped_nonfinite"] for r in k_rows):
+        raise RuntimeError(f"{tag}: steps {k_rows}")
+    if not all(np.isfinite(r[k]) for r in k_rows for k in loss_keys):
+        raise RuntimeError(f"{tag}: a loss is not finite: {k_rows}")
+    bad = [p for p in per_step if p.get("fused_vit_block") != MOMENTUM_STEP_LAUNCHES]
+    if bad:
+        raise RuntimeError(f"{tag}: K2 launches a step {per_step}, expected "
+                           f"{MOMENTUM_STEP_LAUNCHES}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run: the same weights (the run's seed), batches (the builder's
+    # seeded transform and order) and hard negatives (the kernel run's, replayed)
+    model_cfg = dict(cfg.model)
+    model_cfg.pop("arch")
+    model = load_model(arch, model_cfg.pop("model_type", "pretrain"), device=DEVICE, seed=SEED,
+                       **model_cfg)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", builder)(dict(cfg.datasets[builder])).build()
+    adapter = generic.TASK_ADAPTERS[cfg.run["task"]](
+        tokenizer, max_txt_len=int(cfg.run["max_txt_len"])).specialize(model)
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED,
+                               device=DEVICE)
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]),
+                       weight_decay=float(cfg.run["weight_decay"]), total_steps=steps)
+    plain = generic.GenericTrainer(model, tcfg, seed=SEED, adapter=adapter, skip_nonfinite=True,
+                                   decay_frozen=True)
+    plain.aux = adapter.init_aux(model, plain.param_values())
+    replay, p_itm = list(picks), []
+    albef.sample_negatives = lambda weights, generator: replay.pop(0)
+    hook = model.itm_head.register_forward_hook(lambda m, i, o: p_itm.append(o.detach().float()))
+    try:
+        with primitives.plain_reference():
+            p_rows = [plain.train_step(task.prepare_batch(b)) for b in task.train_loader(0)]
+        sync()
+    finally:
+        albef.sample_negatives = real_sample
+        hook.remove()
+    p_aux = plain.aux
+    gaps = {"loss": max(abs(k[key] - p[key]) / max(abs(p[key]), 1e-6)
+                        for k, p in zip(k_rows, p_rows) for key in loss_keys),
+            "itm": max((a - b).abs().max().item() for a, b in zip(k_itm, p_itm)),
+            "queue": max(_tree_gap({q: k_aux[q]}, {q: p_aux[q]})
+                         for q in ("image_queue", "text_queue")),
+            "params_m": _tree_gap(k_aux["params_m"], p_aux["params_m"])}
+    same = (torch.equal(k_aux["idx_queue"], p_aux["idx_queue"])
+            and int(k_aux["ptr"]) == int(p_aux["ptr"]) == (batch_size * steps)
+            % k_aux["image_queue"].shape[1])
+    del model, plain, p_aux, k_aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the kernel run against the all-plain run (the same hard negatives, "
+        f"{len(picks)} draws replayed, {len(replay)} left): losses {gaps['loss']:.3e} (bound "
+        f"{MOMENTUM_BOUNDS['loss']:.0e}), ITM logits {gaps['itm']:.3e} (bound "
+        f"{MOMENTUM_BOUNDS['itm']:.0e}), queues {gaps['queue']:.3e} (bound "
+        f"{MOMENTUM_BOUNDS['queue']:.0e}), momentum copies {gaps['params_m']:.3e} (bound "
+        f"{MOMENTUM_BOUNDS['params_m']:.0e}); ptr and idx_queue equal: {same}")
+    failed = [k for k, v in gaps.items() if not v <= MOMENTUM_BOUNDS[k]]
+    if failed or not same or replay or len(p_rows) != steps:
+        raise RuntimeError(f"{tag}: against the all-plain run: beyond MOMENTUM_BOUNDS {failed}, "
+                           f"ptr / idx_queue equal {same}, {len(replay)} draws left")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "losses": k_rows, "launches": launches,
+            "launches_step": per_step, "k2_launches_per_step": per_step[-1].get("fused_vit_block"),
+            "gaps": gaps, "seconds": seconds}
+
+
+def phase_momentum_eval(work, arch):
+    """17c: one momentum-queue eval YAML through cli/evaluate.py over a synthetic
+    split (MOMENTUM_EVAL_SPLIT), then all-plain from the kernel tower's rows."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate as evaluate_cli
+    from sprc_tpu_torch.models import albef
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.train import tasks
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = f"momentum eval {arch}"
+    t_phase = time.perf_counter()
+    n_images, captions, k_test = MOMENTUM_EVAL_SPLIT
+    root = os.path.join(work, "momentum_eval")
+    ann = os.path.join(root, "annotations.json")
+    if not os.path.exists(ann):
+        _write_pairs(root, n_images, captions, SEED + 171, "me")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(MOMENTUM_EVAL[arch], {
+        "run": {"k_test": k_test},
+        "datasets": {"coco_retrieval": {"build_info": {"annotations": {"test": [ann]},
+                                                       "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}: {n_images} images x {captions} captions, "
+        f"k_test {k_test}")
+    args = argparse.Namespace(model_path=None, vocab_path=vocab, output_dir=work, split=None,
+                              device=DEVICE)
+    counters = _counters()
+    real_rescore, real_encode = tasks.rescore_topk, albef._QueueModel.encode_image
+    rows, row_gaps, runs = [], [], {}
+
+    def record(self, images):  # the kernel run: its tower rows kept
+        out = real_encode(self, images)
+        rows.append(out.clone())
+        return out
+
+    def replay(self, images):  # the plain run: the plain tower held against them
+        with primitives.plain_reference():
+            plain = real_encode(self, images)
+        kept = rows[len(row_gaps)]
+        row_gaps.append(((plain - kept).abs().max().item(), (plain - kept).abs().mean().item()))
+        return kept
+
+    for kind, encode in (("kernel", record), ("plain", replay)):
+        seen = []
+
+        def rescore(sims, *a, **kw):
+            out = real_rescore(sims, *a, **kw)
+            seen.append((sims, *out))
+            return out
+
+        tasks.rescore_topk, albef._QueueModel.encode_image = rescore, encode
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        stats = {}
+        try:
+            t0 = time.perf_counter()
+            if kind == "plain":
+                with primitives.plain_reference():
+                    metrics = evaluate_cli.evaluate(cfg, args, stats=stats)
+            else:
+                metrics = evaluate_cli.evaluate(cfg, args, stats=stats)
+            sync()
+            seconds = time.perf_counter() - t0
+        finally:
+            tasks.rescore_topk, albef._QueueModel.encode_image = real_rescore, real_encode
+        runs[kind] = {"metrics": {k: v for k, v in metrics.items()
+                                  if isinstance(v, (int, float))},
+                      "stats": stats, "seconds": seconds, "mats": seen[0],
+                      "launches": {k: getattr(o, a) for k, (o, a) in counters.items()
+                                   if getattr(o, a)}}
+        gc.collect()
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    score_gap = max(float(np.abs(a - b).max()) for a, b in zip(k.pop("mats"), p.pop("mats")))
+    rows_max, rows_mean = (max(g[i] for g in row_gaps) for i in (0, 1))
+    for kind, run in runs.items():
+        log(f"[{tag}] {kind}: {run['seconds']:.2f} s; by stage "
+            + ", ".join(f"{s} {v:.3f}" for s, v in run["stats"].items())
+            + f"; launches {run['launches']}; recalls {run['metrics']}")
+    log(f"[{tag}] the tower's rows, kernel against plain on the same pixels: max "
+        f"{rows_max:.3e}, mean {rows_mean:.3e} (bound {MOMENTUM_BOUNDS['rows']}); from the "
+        f"kernel tower's rows the all-plain cosines, rescored scores and recalls: "
+        f"max difference {score_gap:.3e}, recalls equal {k['metrics'] == p['metrics']}")
+    if k["launches"].get("fused_vit_block") != MOMENTUM_EVAL_LAUNCHES or p["launches"]:
+        raise RuntimeError(f"{tag}: launches {k['launches']} (kernel), {p['launches']} (plain); "
+                           f"expected {MOMENTUM_EVAL_LAUNCHES} K2 and none")
+    if (k["metrics"] != p["metrics"] or score_gap > MOMENTUM_BOUNDS["scores"]
+            or rows_max > MOMENTUM_BOUNDS["rows"][0] or rows_mean > MOMENTUM_BOUNDS["rows"][1]
+            or len(row_gaps) != len(rows)):
+        raise RuntimeError(f"{tag}: the kernel evaluation disagrees with the all-plain one")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": k["metrics"], "stages_s": k["stats"], "seconds_kernel": k["seconds"],
+            "seconds_plain": p["seconds"], "launches": k["launches"], "rows_gap": [rows_max,
+                                                                                  rows_mean],
+            "score_gap": score_gap, "seconds": seconds}
+
+
+def momentum_kernels(rows, train, evals):
+    """The kernel rows of the momentum-queue families: K2 through
+    FusedViTBlock at the retrieval fine-tune's shape (B = 32, S = 577; its
+    launches those of 17a / 17b, the momentum towers' and 17c's included), its
+    bf16 attention and the block's four bf16 products at that shape."""
+    from sprc_tpu_torch.kernel_checks import BLIP_B_PRODUCTS, bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    runs = list(train.values()) + list(evals.values())
+
+    def launches(counter):
+        return sum(run["launches"].get(counter, 0) for run in runs)
+
+    fvb = by_check["FusedViTBlock blip_b bf16 S=577 B=32"]
+    attn = by_check["attention D=64 bf16 blip_b S=577 B=32"]
+    gemms = [by_check[f"gemm bf16 {n} S=577 B=32"] for n in BLIP_B_PRODUCTS]
+    work = {"bytes": sum(r["bytes"] for r in gemms),
+            "op_seconds": sum(r["op_seconds"] for r in gemms)}
+    return [
+        {"name": "fused_vit_block (FusedViTBlock, momentum-queue families)", "route": "cuda",
+         "source": "sprc_tpu_torch/ops/fused_block.py",
+         "replaces": "sprc_tpu/ops/pallas_block.py:609", "launches": launches("fused_vit_block"),
+         "max_abs_err": fvb["max_abs_err"], "ms": fvb["ms"], "plain_ms": fvb["plain_ms"],
+         **bound_ms(fvb), "library_ms": None, "fwd_bwd_ms": fvb["fwd_bwd_ms"],
+         "plain_fwd_bwd_ms": fvb["plain_fwd_bwd_ms"]},
+        {"name": "attention bf16 (momentum-queue families)", "route": "cuda",
+         "source": "sprc_tpu_torch/csrc/attention.cu",
+         "replaces": "sprc_tpu/ops/pallas_attention.py:428", "launches": launches("attention_bf16"),
+         "max_abs_err": attn["max_abs_err"], "ms": attn["ms"], "plain_ms": attn["plain_ms"],
+         **bound_ms(attn), "library_ms": attn["library_ms"]},
+        {"name": "gemm bf16 (momentum-queue families, a block's four products)", "route": "cuda",
+         "source": "sprc_tpu_torch/csrc/gemm.cu", "replaces": "scripts/ablate_int8.py:194",
+         "launches": launches("gemm"), "max_abs_err": max(r["max_abs_err"] for r in gemms),
+         "ms": sum(r["ms"] for r in gemms), "plain_ms": sum(r["plain_ms"] for r in gemms),
+         **bound_ms(work), "library_ms": sum(r["library_ms"] for r in gemms)}]
+
+
 def kernel_table(rows, launches):
     """One entry per ported TPU kernel, from this run's checks and counts.
     A chain has no single PyTorch call that computes it: library_ms null."""
@@ -5653,6 +6048,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     img2prompt = timed("16 img2prompt_vqa", phase_img2prompt, work)
+    momentum, momentum_eval = {}, {}
+    for arch in MOMENTUM_TRAIN:  # phase 17a / 17b, one model (and its plain twin) at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        momentum[arch] = timed(f"17 momentum train {arch}", phase_momentum_train, work, arch)
+    for arch in MOMENTUM_EVAL:  # 17c
+        gc.collect()
+        torch.cuda.empty_cache()
+        momentum_eval[arch] = timed(f"17 momentum eval {arch}", phase_momentum_eval, work, arch)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -5726,7 +6130,8 @@ def main():
                      plain_ms=k1["plain_ms"], **bound_ms(k1), fwd_bwd_ms=k1["fwd_bwd_ms"],
                      plain_fwd_bwd_ms=k1["plain_fwd_bwd_ms"])
     print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants,
-                                                                 k1_stage1],
+                                                                 k1_stage1]
+                      + momentum_kernels(rows, momentum, momentum_eval),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -5755,6 +6160,7 @@ def main():
                       "stage2_train": stage2_train, "vqa_zeroshot": vqa,
                       "instruct_vicuna7b": instruct_runs, "pnp_vqa": pnp,
                       "img2prompt_vqa": img2prompt,
+                      "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

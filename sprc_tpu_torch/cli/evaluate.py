@@ -11,7 +11,14 @@ Ported: the ``retrieval`` task for the BLIP-2 stage-1 models (``blip2``,
 images stream through ``extract_target_features`` 64 at a time, the
 captions through ``encode_text_cls``, then the two-stage
 ``compute_sim_matrix`` (K1, then the ITM head over each query's top
-``k_test``) and the recalls, ``agg_metrics`` = ``r_mean``. And the
+``k_test``) and the recalls, ``agg_metrics`` = ``r_mean``; and for the
+momentum-queue families (``blip_retrieval``, ``albef_retrieval``,
+``albef_feature_extractor``, ``blip_pretrain``, ``albef_pretrain``;
+configs/runs/eval/ret_{coco,flickr}{,_albef}_eval.yaml) through
+``ImageTextRetrievalTask.evaluate_pairs_itc``: the images 16 a call through
+the tower, the CLS-projection cosines over every pair, each query's top
+``k_test`` rescored by the ITM head (BLIP-1 over ``[ENC]`` ids, ALBEF over
+the fusion layers), as the JAX CLI dispatches it. And the
 ``captioning`` task for the BLIP-2 stage-2 heads (``blip2_opt``,
 ``blip2_t5``, and ``blip2_t5_instruct``, its class under the InstructBLIP
 name; configs/runs/eval/caption_coco_{opt2.7b,flant5xl}_eval.yaml):
@@ -43,7 +50,8 @@ models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
 glue fits their signatures (the JAX CLI builds them and fails at the call);
 ``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
 scalar metrics. Every other task or family exits with a message naming its
-ROADMAP entry (BLIP-1 / ALBEF's ranked VQA: A8.6); CIR datasets keep their CLIs (``cli/validate.py``,
+ROADMAP entry (BLIP-1 / ALBEF's ranked VQA and captioning, CLIP, ALPRO:
+A8.6); CIR datasets keep their CLIs (``cli/validate.py``,
 ``cli/validate_rerank.py``, ``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
@@ -110,9 +118,9 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
                          "instruction and LLaMA token batches), in either package; "
                          "cli/instruct.py runs it")
-    if task_name == "retrieval" and arch not in loader.STAGE1_MODELS:
-        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (BLIP-1, "
-                         "ALBEF, CLIP, ALPRO: ROADMAP A8.6)")
+    if task_name == "retrieval" and arch not in loader.STAGE1_MODELS + loader.MOMENTUM_MODELS:
+        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (CLIP, "
+                         "ALPRO: ROADMAP A8.6)")
     if task_name == "captioning" and arch not in loader.LLM_HEADS:
         raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
                          f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption and the "
@@ -139,7 +147,7 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
     if pnp:  # three models from their sub-sections, the BERT tokenizer from --vocab-path
         model_cfg.setdefault("vocab_path", args.vocab_path)
-    else:
+    elif arch not in loader.MOMENTUM_MODELS:  # (their configs have no freeze_vit)
         model_cfg["freeze_vit"] = True  # evaluation trains nothing: the tower is built frozen
     model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
                               seed=int(run.get("seed", 42)), **model_cfg)
@@ -162,8 +170,12 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
 
     task = ImageTextRetrievalTask(tokenizer, k_test=int(run.get("k_test", 128)),
                                   max_txt_len=int(run.get("max_txt_len", 35)))
-    metrics = task.evaluate_pairs(model, _image_stream(ds), ds.text, ds.img2txt, ds.txt2img,
-                                  stats=stats)
+    if arch in loader.MOMENTUM_MODELS:  # 16 images a tower call
+        metrics = task.evaluate_pairs_itc(model, _image_stream(ds, 16), ds.text, ds.img2txt,
+                                          ds.txt2img, stats=stats)
+    else:
+        metrics = task.evaluate_pairs(model, _image_stream(ds), ds.text, ds.img2txt,
+                                      ds.txt2img, stats=stats)
     metrics["agg_metrics"] = metrics["r_mean"]
     return metrics
 

@@ -18,6 +18,9 @@ with ``llm_proj`` / ``l2q_proj``, a Q-Former with or without its text side
 (the caption heads' has none) as it is, ``itm_head`` wherever the tree holds
 it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init of a variant whose training
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``).
+The momentum-queue families have :func:`albef_retrieval_from_jax`,
+:func:`blip_retrieval_from_jax` (their pretraining heads included) and
+:func:`momentum_state_from_jax` (JAX's ``params_m`` and queues).
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
 LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
@@ -280,6 +283,69 @@ def blip_caption_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
     _linear(out, f"{prefix}decoder", head["decoder"])
     return to_torch(out)
+
+
+def _lm_head(out: Dict[str, np.ndarray], prefix: str, head: Mapping[str, Any]) -> None:
+    _linear(out, f"{prefix}transform.dense", head["transform"])
+    _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
+    _linear(out, f"{prefix}decoder", head["decoder"])
+
+
+def _queue_model_arrays(params: Mapping[str, Any], text_prefix: str) -> Dict[str, np.ndarray]:
+    """The subtrees of a BLIP-1 / ALBEF retrieval or pretraining tree that it
+    holds -> LAVIS's names: the tower, the med-BERT under ``text_prefix``,
+    the projections, ``itm_head``, ``temp``, ALBEF's MLM head
+    (``text_encoder.cls.predictions.``) and BLIP-1's decoder with its LM
+    head (``text_decoder.bert.``, ``text_decoder.cls.predictions.``)."""
+    out: Dict[str, np.ndarray] = {}
+    if "visual_encoder" in params:
+        out.update(eva_vit_from_jax(params["visual_encoder"]))
+    if "text_encoder" in params:
+        out.update(med_from_jax(params["text_encoder"], text_prefix))
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        if name in params:
+            _linear(out, name, params[name])
+    if "temp" in params:
+        out["temp"] = _np(params["temp"]).reshape(())
+    if "mlm_head" in params:
+        _lm_head(out, "text_encoder.cls.predictions.", params["mlm_head"])
+    if "text_decoder" in params:
+        out.update(med_from_jax(params["text_decoder"], "text_decoder.bert."))
+    if "lm_head" in params:
+        _lm_head(out, "text_decoder.cls.predictions.", params["lm_head"])
+    return out
+
+
+def albef_retrieval_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An ``AlbefRetrieval`` or ``AlbefPretrain`` tree -> the port's state
+    dict (the pretrainer's med-BERT under ``text_encoder.bert.``, its
+    ``mlm_head`` under ``text_encoder.cls.predictions.``)."""
+    prefix = "text_encoder.bert." if "mlm_head" in params else "text_encoder."
+    return to_torch(_queue_model_arrays(params, prefix))
+
+
+def blip_retrieval_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``BlipRetrieval`` or ``BlipPretrain`` tree (its ``text_decoder`` and
+    ``lm_head``) -> the port's state dict."""
+    return to_torch(_queue_model_arrays(params, "text_encoder."))
+
+
+def momentum_state_from_jax(aux: Mapping[str, Any], model) -> Dict[str, Any]:
+    """JAX's ``init_albef_state`` tree (``params_m``, the queues, ``ptr``)
+    -> the port's aux state for ``model``: every name under the model's
+    ``MOMENTUM_KEYS`` from ``params_m`` (a missing one raises), fp32; the
+    queues fp32, ``idx_queue`` and ``ptr`` int64."""
+    from sprc_tpu_torch.models.albef import momentum_names
+
+    names = momentum_names(model)
+    prefix = ("text_encoder.bert." if any(n.startswith("text_encoder.bert.") for n in names)
+              else "text_encoder.")
+    arrays = _queue_model_arrays(aux["params_m"], prefix)
+    return {"params_m": {n: torch.from_numpy(np.array(arrays[n], np.float32)) for n in names},
+            "image_queue": torch.from_numpy(np.array(aux["image_queue"], np.float32)),
+            "text_queue": torch.from_numpy(np.array(aux["text_queue"], np.float32)),
+            "idx_queue": torch.from_numpy(np.array(aux["idx_queue"], np.int64)),
+            "ptr": torch.tensor(int(np.asarray(aux["ptr"])), dtype=torch.int64)}
 
 
 def plain_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

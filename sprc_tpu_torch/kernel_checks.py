@@ -637,7 +637,7 @@ def _vit_block_work(B, S, W, M, int8: bool, dtype=torch.bfloat16) -> Dict[str, f
 # the towers' block shapes: (W, M, heads, QuickGELU, LN eps); blip_l: BLIP-1's
 # timm ViT-L/16 (exact GELU, eps 1e-6), PNP-VQA's two towers at 384 px
 TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6),
-          "blip_l": (1024, 4096, 16, False, 1e-6)}
+          "blip_l": (1024, 4096, 16, False, 1e-6), "blip_b": (768, 3072, 12, False, 1e-6)}
 
 
 # K2 in fp32 (the fp32 tower of the COCO retrieval models, 364 px: S = 677):
@@ -1195,6 +1195,8 @@ GEMM_F32_PRODUCTS = {
 def _gemm_spec(name: str) -> tuple:
     if name in GEMM_PRODUCTS:
         return GEMM_PRODUCTS[name]
+    if name in BLIP_B_PRODUCTS:
+        return BLIP_B_PRODUCTS[name]
     M, N, K, epilogue = GEMM_F32_PRODUCTS[name]
     return M, N, K, torch.float32, epilogue
 
@@ -2233,6 +2235,46 @@ def run_img2prompt(device="cuda") -> List[dict]:
                  **check_attention(64, torch.bfloat16, device, B=B, S=S))]
 
 
+# The momentum-queue families (BLIP-1 / ALBEF retrieval and pretraining) train
+# BLIP-1's ViT-B/16 (``blip_b``): the retrieval fine-tunes at batch 32 and 384
+# px (S = 577), the pretrainers at batch 64 and 224 px (S = 197); their
+# evaluation encodes 16 images a call at 384 px. name -> (B, S)
+MOMENTUM_SHAPES = {"retrieval": (32, 577), "pretrain": (64, 197), "eval": (16, 577)}
+# a ViT-B block's four bf16 products at the retrieval shape, with the
+# epilogues of K2's chain
+BLIP_B_PRODUCTS = {
+    "blip_b qkv": (32 * 577, 2304, 768, torch.bfloat16, "bias"),
+    "blip_b proj": (32 * 577, 768, 768, torch.bfloat16, "bias+residual"),
+    "blip_b fc1": (32 * 577, 3072, 768, torch.bfloat16, "bias,gelu"),
+    "blip_b fc2": (32 * 577, 768, 3072, torch.bfloat16, "bias+residual_f32"),
+}
+
+
+def run_momentum(device="cuda") -> List[dict]:
+    """The checks of the momentum-queue families' path: K2 at ViT-B/16's
+    shapes without a graph (the momentum tower, evaluation) and through
+    ``FusedViTBlock`` with one (forward, and forward + backward, against
+    autograd over the plain block), the bf16 attention of K2's chain (packed
+    qkv, 12 heads of 64) and the block's four bf16 products."""
+    W, M, heads, quick, eps = TOWERS["blip_b"]
+    rows = []
+    for what, (B, S) in MOMENTUM_SHAPES.items():
+        rows.append(dict(check=f"K2 vit_block blip_b S={S} B={B}",
+                         **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads,
+                                           quick=quick, eps=eps)))
+        rows.append(dict(check=f"attention D=64 bf16 blip_b S={S} B={B}",
+                         **check_attention(64, torch.bfloat16, device, B=B, S=S,
+                                           heads=heads)))
+        if what != "eval":
+            rows.append(dict(check=f"FusedViTBlock blip_b bf16 S={S} B={B}",
+                             **check_function_grad("FusedViTBlock", device, "blip_b",
+                                                   torch.bfloat16, B=B, S=S)))
+    rows += [dict(check=f"gemm bf16 {name} S=577 B=32", **check_gemm(name, device))
+             for name in BLIP_B_PRODUCTS]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2468,4 +2510,4 @@ def run_all(device="cuda") -> List[dict]:
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
             + run_instruct(device) + run_pnp(device) + run_img2prompt(device)
-            + run_edges(device))
+            + run_momentum(device) + run_edges(device))

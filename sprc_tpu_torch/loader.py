@@ -31,6 +31,7 @@ compute dtype (:mod:`sprc_tpu_torch.ops.quant`).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -144,6 +145,27 @@ FAMILY_CONFIGS = {
     **{("pnp_unifiedqav2_fid", size): {"t5_model": f"allenai/unifiedqa-v2-t5-{size}-1363200"}
        for size in ("base", "large", "3b")},
 }
+# the momentum-queue families, as configs/models/{blip_retrieval,albef_retrieval}/
+# {coco,flickr}.yaml, blip_pretrain/{base,large}.yaml, albef_pretrain/base.yaml and
+# albef_feature_extractor/base.yaml give them (ViT-B/16, bf16; blip_pretrain large:
+# the ViT-L/16 at 224 px); ``pretrain`` is the type a run YAML without one names,
+# which the JAX loader builds from the dataclass's defaults (no such YAML)
+MOMENTUM_MODELS = ("blip_retrieval", "blip_pretrain", "albef_retrieval",
+                   "albef_feature_extractor", "albef_pretrain")
+_QUEUE = {"blip": 57600, "albef": 65536}
+FAMILY_CONFIGS.update({
+    **{(f"{fam}_retrieval", "pretrain"): {} for fam in _QUEUE},
+    **{(f"{fam}_retrieval", "coco"): {"image_size": 384, "queue_size": q, "momentum": 0.995,
+                                      "alpha": 0.4} for fam, q in _QUEUE.items()},
+    **{(f"{fam}_retrieval", "flickr"): {"image_size": 384, "queue_size": q}
+       for fam, q in _QUEUE.items()},
+    ("albef_feature_extractor", "base"): {"image_size": 224, "embed_dim": 256},
+    ("blip_pretrain", "base"): {"image_size": 224, "queue_size": 57600},
+    ("blip_pretrain", "large"): {"image_size": 224, "embed_dim": 256,
+                                 "vit_config_override": dataclasses.replace(_BLIP_VIT_L,
+                                                                            image_size=224)},
+    ("albef_pretrain", "base"): {"image_size": 224, "queue_size": 65536},
+})
 # the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
 # them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
 # model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
@@ -405,12 +427,69 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
                 state = value
                 break
     own = model.state_dict()
+    if getattr(model, "MOMENTUM_LAYOUT", False):
+        state = _momentum_family_state(state, model, own)
     state = {k: v for k, v in state.items() if k in own}
     if "temp" in state:  # some save paths write the scalar as [1]
         state["temp"] = state["temp"].reshape(())
     elif "temp" in own and getattr(model, "LLM_HEAD", False):  # LAVIS stage 2 keeps none
         state["temp"] = torch.tensor(0.07)
     return state
+
+
+# what a LAVIS checkpoint of the momentum-queue families holds that the port's
+# models do not: the momentum modules and the queue buffers
+# (sprc_tpu/interop/lavis_import.py reads neither)
+MOMENTUM_CHECKPOINT_DROPS = re.compile(
+    r"^(?:(?:visual_encoder_m|text_encoder_m|vision_proj_m|text_proj_m)\.|"
+    r"(?:image_queue|text_queue|idx_queue|ptr_queue|queue_ptr)$)")
+
+
+def _momentum_family_state(state: dict, model: nn.Module, own: dict) -> dict:
+    """A LAVIS ``blip_retrieval`` / ``blip_pretrain`` / ``albef_retrieval`` /
+    ``albef_pretrain`` state dict for ``model``, strict: the momentum
+    modules and queues (:data:`MOMENTUM_CHECKPOINT_DROPS`) and the LM heads'
+    tied ``cls.predictions.bias`` are dropped; an ALBEF pretraining file
+    (``text_encoder.bert.``) feeds a retrieval model's ``text_encoder.``,
+    its MLM head (``text_encoder.cls.``) dropped, and a BLIP-1 pretraining
+    file's decoder (``text_decoder.``) is dropped for a retrieval model, as
+    the JAX readers (``albef_retrieval_params_from_torch``,
+    ``blip_retrieval_params_from_torch``) take them; any other key the model
+    does not hold raises."""
+    wraps = any(k.startswith("text_encoder.bert.") for k in own)
+    out, unknown = {}, []
+    for key, value in state.items():
+        if MOMENTUM_CHECKPOINT_DROPS.match(key):
+            continue
+        if key.endswith("cls.predictions.bias") and key.replace(
+                "predictions.bias", "predictions.decoder.bias") in state:
+            continue
+        if not wraps and key.startswith("text_encoder.bert."):
+            key = "text_encoder." + key[len("text_encoder.bert."):]
+        if key not in own and key.startswith(("text_encoder.cls.", "text_decoder.")):
+            continue
+        if key not in own:
+            unknown.append(key)
+        out[key] = value
+    if unknown:
+        raise ValueError(f"{type(model).__name__}: checkpoint keys the model does not hold: "
+                         f"{sorted(unknown)[:8]} ({len(unknown)} in all)")
+    return out
+
+
+def preprocessors(name: str, model_type: str) -> Tuple[dict, dict]:
+    """(image processors, text processors), each ``{"train", "eval"}``, of
+    the BLIP-1 / ALBEF families (the JAX ``load_model_and_preprocess``'
+    branch for them): BLIP's train and eval image processors at the row's
+    image size and the caption processor."""
+    from sprc_tpu_torch.data.processors import (BlipImageEvalProcessor,
+                                                BlipImageTrainProcessor)
+    from sprc_tpu_torch.text.processors import CaptionProcessor
+
+    size = family_config(name, model_type).image_size
+    return ({"train": BlipImageTrainProcessor(image_size=size),
+             "eval": BlipImageEvalProcessor(image_size=size)},
+            {"train": CaptionProcessor(), "eval": CaptionProcessor()})
 
 
 def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
@@ -442,6 +521,7 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
+           "MOMENTUM_MODELS", "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
            "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",

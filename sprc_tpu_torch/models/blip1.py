@@ -1,37 +1,39 @@
-"""BLIP-1's ITM scorer and captioner (counterpart of
-``sprc_tpu/models/blip1.py:216-510``; reference
-lavis/models/blip_models/blip_image_text_matching.py, blip_caption.py).
+"""BLIP-1's retrieval, pretraining, ITM scorer and captioner (counterpart of
+``sprc_tpu/models/blip1.py:216-676``; reference
+lavis/models/blip_models/blip_retrieval.py, blip_pretrain.py,
+blip_image_text_matching.py, blip_caption.py).
 
-Both hold BLIP-1's timm ViT (:func:`~sprc_tpu_torch.models.vit.blip_vit_b_config`,
-or the ViT-L/16 at 384 px of the ``large`` / ``large_coco`` YAMLs: 24 blocks
-of width 1024 through kernel K2 on the card) and a med-BERT
-(:class:`~sprc_tpu_torch.models.albef.MedEncoder`, cross-attention on every
-layer, unfused fp32 as in the JAX package):
+Each holds BLIP-1's timm ViT (:func:`~sprc_tpu_torch.models.vit.blip_vit_b_config`,
+or the ViT-L/16 of the ``large`` YAMLs: kernel K2 on the card) and a
+med-BERT (:class:`~sprc_tpu_torch.models.albef.MedEncoder`, cross-attention
+on every layer, unfused fp32 as in the JAX package):
 
-- :class:`BlipITM` (``blip_image_text_matching``): ``itm`` (the multimodal
-  pass over ``[ENC]``-prefixed ids, ``itm_head`` on its CLS row), ``itc``
-  (the cosine of the unimodal projections over the temperature),
-  ``itm_gradcam`` (the match logits' sum and the cross-attention
-  probabilities of one layer, with the GradCAM probe) and ``itm_embeds``
-  (the match probability for given image rows);
-- :class:`BlipCaption` (``blip_caption``): ``decode_logits`` (the causal
-  multimodal pass and the BERT LM head) and the forward's next-token loss
-  with label smoothing 0.1, pads and the prompt's ``prompt_length``
-  positions masked.
+- :class:`BlipRetrieval` (``blip_retrieval``): the momentum-queue training
+  forward (queue ITC with multi-positive targets by image id and
+  distillation by ``alpha``, in-batch hard negatives, ITM over ``[ENC]``
+  ids for 3B rows) and the two passes its evaluation runs (``unimodal``,
+  ``itm_logits``); :func:`blip_retrieval_train_step` threads the momentum
+  state of :mod:`sprc_tpu_torch.models.albef`;
+- :class:`BlipPretrain` (``blip_pretrain``): those losses plus the
+  captioning loss of a causal med decoder (``text_decoder.bert`` /
+  ``text_decoder.cls``) with label smoothing 0.1; the tower runs once a
+  step and both heads read its rows (JAX calls it twice and XLA merges the
+  calls); :func:`blip_pretrain_train_step`;
+- :class:`BlipITM` (``blip_image_text_matching``): ``itm``, ``itc``,
+  ``itm_gradcam`` and ``itm_embeds``;
+- :class:`BlipCaption` (``blip_caption``): ``decode_logits`` and the
+  captioning loss, the prompt's ``prompt_length`` positions masked.
 
-The tower runs without a graph (``torch.no_grad()``): it is frozen on every
-path of this slice, and on the card its blocks are the K2 wrapper, which
-refuses autograd. Module names are LAVIS's (``visual_encoder.blocks.{i}.attn.
-qkv``, ``text_encoder.encoder.layer.{i}.crossattention.self.key``,
+The retrieval models train their tower (no ``FROZEN_PREFIXES``): with a
+graph it runs through kernel K2's ``FusedViTBlock`` on the card; the ITM
+scorer and the captioner run it without one. Module names are LAVIS's
+(``visual_encoder.blocks.{i}.attn.qkv``,
+``text_encoder.encoder.layer.{i}.crossattention.self.key``,
 ``text_decoder.bert.embeddings.word_embeddings``,
 ``text_decoder.cls.predictions.decoder``, ``itm_head``, ``temp``), so a
 released checkpoint loads through ``loader.read_checkpoint`` with
-``strict=True`` (its tied ``cls.predictions.bias`` is the same tensor as
-``cls.predictions.decoder.bias``, which this module holds). BLIP-1's
-retrieval training (the momentum encoders and queues), pretraining,
-``generate_ids`` and ranked VQA come with that family (ROADMAP A8.6):
-:class:`BlipRetrieval` holds the modules and the two passes the ITM scorer
-shares with it.
+``strict=True``. ``generate_ids`` and ranked VQA come with their families
+(ROADMAP A8.6).
 """
 
 from __future__ import annotations
@@ -40,33 +42,18 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
-from torch import nn
 
-from sprc_tpu_torch.models.albef import MedEncoder
-from sprc_tpu_torch.models.lm import QFormerLMHead
+from sprc_tpu_torch.models.albef import (MedEncoder, MedTowers, MedWithHead, _QueueModel,
+                                         itm_loss, queue_step, tower_rows)
 from sprc_tpu_torch.models.qformer import QFormerConfig
-from sprc_tpu_torch.models.vit import ViTConfig, blip_vit_b_config, build_tower
-from sprc_tpu_torch.ops.layers import Linear, l2_normalize
+from sprc_tpu_torch.models.vit import ViTConfig, build_tower
 from sprc_tpu_torch.registry import registry
 
 Tensor = torch.Tensor
 
 
-class _Towers:
-    """The two sub-configs of a BLIP-1 config: its override, else BLIP-1's
-    ViT-B/16 and the med-BERT over its width."""
-
-    def vit_config(self) -> ViTConfig:
-        return self.vit_config_override or blip_vit_b_config(self.image_size, dtype=self.vit_dtype)
-
-    def text_config(self) -> QFormerConfig:
-        return self.text_config_override or QFormerConfig(
-            vocab_size=self.vocab_size, encoder_width=self.vit_config().width,
-            dtype=self.text_dtype)
-
-
 @dataclasses.dataclass(frozen=True)
-class BlipRetrievalConfig(_Towers):
+class BlipRetrievalConfig(MedTowers):
     image_size: int = 384
     embed_dim: int = 256
     max_txt_len: int = 35
@@ -82,7 +69,7 @@ class BlipRetrievalConfig(_Towers):
 
 
 @dataclasses.dataclass(frozen=True)
-class BlipCaptionConfig(_Towers):
+class BlipCaptionConfig(MedTowers):
     image_size: int = 384
     max_txt_len: int = 40
     vocab_size: int = 30524
@@ -93,15 +80,11 @@ class BlipCaptionConfig(_Towers):
     text_config_override: Optional[QFormerConfig] = None
 
 
-def _encode_image(tower: nn.Module, images: Tensor) -> Tensor:
-    """NHWC images -> the tower's rows [B, S, W] in fp32, without a graph."""
-    with torch.no_grad():
-        return tower(images).float()
-
-
-class BlipRetrieval(nn.Module):
-    """BLIP-1 retrieval's modules (reference blip_retrieval.py:47-330) and
-    its two eval passes; the training step comes with ROADMAP A8.6."""
+@registry.register_model("blip_retrieval")
+class BlipRetrieval(_QueueModel):
+    """BLIP-1 retrieval (reference blip_retrieval.py:47-330): ALBEF's
+    momentum-distilled queue ITC and hard-negative ITM, with cross-attention
+    on every med layer and the ITM pass over ``[ENC]``-prefixed ids."""
 
     CONFIG = BlipRetrievalConfig
 
@@ -109,27 +92,8 @@ class BlipRetrieval(nn.Module):
         super().__init__()
         self.cfg = cfg
         tcfg = cfg.text_config()
-        self.visual_encoder = build_tower(cfg.vit_config())
         # BLIP med: cross-attention on every layer; mode "text" spans them all
-        self.text_encoder = MedEncoder(tcfg, fusion_layer=tcfg.num_layers, cross_from=0)
-        width = cfg.vit_config().width
-        self.vision_proj = Linear(width, cfg.embed_dim, dtype=tcfg.dtype)
-        self.text_proj = Linear(tcfg.hidden_size, cfg.embed_dim, dtype=tcfg.dtype)
-        self.itm_head = Linear(tcfg.hidden_size, 2, dtype=tcfg.dtype)
-        self.temp = nn.Parameter(torch.empty(()))
-
-    def encode_image(self, images: Tensor) -> Tensor:
-        return _encode_image(self.visual_encoder, images)
-
-    def unimodal(self, images: Tensor, input_ids: Tensor, text_mask: Tensor):
-        """-> (image rows [B, S, W] fp32, image feature [B, E], text rows,
-        text feature [B, E]); the features L2-normalised."""
-        image_embeds = self.encode_image(images)
-        image_feat = l2_normalize(self.vision_proj(image_embeds[:, 0, :]))
-        text_embeds = self.text_encoder(input_ids=input_ids, attention_mask=text_mask,
-                                        mode="text")
-        text_feat = l2_normalize(self.text_proj(text_embeds[:, 0, :]))
-        return image_embeds, image_feat, text_embeds, text_feat
+        self._build(cfg, MedEncoder(tcfg, fusion_layer=tcfg.num_layers, cross_from=0))
 
     def itm_logits(self, enc_input_ids: Tensor, text_mask: Tensor,
                    image_embeds: Tensor) -> Tensor:
@@ -138,16 +102,95 @@ class BlipRetrieval(nn.Module):
                                    image_embeds=image_embeds, mode="multimodal")
         return self.itm_head(hidden[:, 0, :])
 
+    def retrieval_losses(self, rows, text_mask, enc_input_ids, image_ids, image_feat_m,
+                         text_feat_m, image_queue, text_queue, idx_queue, alpha, generator=None,
+                         negatives=None) -> Dict[str, Tensor]:
+        image_embeds, image_feat, _, text_feat = rows
+        bs = image_embeds.shape[0]
+        loss_itc, (neg_img, neg_txt) = self.queue_losses(
+            image_feat, text_feat, image_ids, image_feat_m, text_feat_m, image_queue,
+            text_queue, idx_queue, alpha, generator, negatives)
+        logits = self.itm_logits(
+            torch.cat([enc_input_ids, enc_input_ids, enc_input_ids[neg_txt]]),
+            torch.cat([text_mask, text_mask, text_mask[neg_txt]]),
+            torch.cat([image_embeds, image_embeds[neg_img], image_embeds]))
+        return {"loss_itc": loss_itc, "loss_itm": itm_loss(logits, bs)}
+
+    def forward(self, images, input_ids, text_mask, enc_input_ids, image_ids, image_feat_m,
+                text_feat_m, image_queue, text_queue, idx_queue, alpha, *, generator=None,
+                negatives=None) -> Dict[str, Tensor]:
+        """``{loss_itc, loss_itm}``. ``negatives``: ``(neg_img, neg_txt)``
+        [B] each, else drawn from ``generator``."""
+        return self.retrieval_losses(self.unimodal(images, input_ids, text_mask), text_mask,
+                                     enc_input_ids, image_ids, image_feat_m, text_feat_m,
+                                     image_queue, text_queue, idx_queue, alpha, generator,
+                                     negatives)
+
+
+@registry.register_model("blip_pretrain")
+class BlipPretrain(BlipRetrieval):
+    """BLIP-1 pretraining (reference blip_pretrain.py:114-345): the
+    retrieval losses (their idx-based targets are the reference's diagonal
+    as long as ``image_ids`` are globally unique, which the JAX collate
+    does not make them) plus the smoothed next-token loss of a causal med
+    decoder over ``[DEC]``-prefixed captions (:317-333)."""
+
+    def __init__(self, cfg: BlipRetrievalConfig):
+        super().__init__(cfg)
+        tcfg = cfg.text_config()
+        self.text_decoder = MedWithHead(tcfg, fusion_layer=tcfg.num_layers, cross_from=0)
+
+    def lm_loss(self, image_embeds: Tensor, dec_input_ids: Tensor, text_mask: Tensor, *,
+                pad_token_id: int = 0) -> Tensor:
+        hidden = self.text_decoder.bert(input_ids=dec_input_ids, attention_mask=text_mask,
+                                        image_embeds=image_embeds, mode="multimodal",
+                                        is_decoder=True)
+        logits = self.text_decoder.cls(hidden)
+        labels = torch.where(dec_input_ids == pad_token_id, -100, dec_input_ids)
+        logp = torch.log_softmax(logits[:, :-1, :].float(), dim=-1)
+        shifted = labels[:, 1:]
+        valid = shifted != -100
+        nll = -logp.gather(-1, torch.where(valid, shifted, 0).long()[..., None])[..., 0]
+        per_tok = 0.9 * nll + 0.1 * (-logp.mean(dim=-1))  # med.py:1246 label smoothing
+        return (per_tok * valid).sum() / valid.sum().clamp_min(1)
+
+    def forward(self, images, input_ids, text_mask, enc_input_ids, dec_input_ids, image_ids,
+                image_feat_m, text_feat_m, image_queue, text_queue, idx_queue, alpha, *,
+                pad_token_id: int = 0, generator=None, negatives=None) -> Dict[str, Tensor]:
+        rows = self.unimodal(images, input_ids, text_mask)
+        losses = self.retrieval_losses(rows, text_mask, enc_input_ids, image_ids, image_feat_m,
+                                       text_feat_m, image_queue, text_queue, idx_queue, alpha,
+                                       generator, negatives)
+        losses["loss_lm"] = self.lm_loss(rows[0], dec_input_ids, text_mask,
+                                         pad_token_id=pad_token_id)
+        losses["loss"] = losses["loss_itc"] + losses["loss_itm"] + losses["loss_lm"]
+        return losses
+
+
+def blip_retrieval_train_step(model, params, state, batch, **kw):
+    return queue_step(model, params, state, batch, ("images", "input_ids", "text_mask",
+                                                    "enc_input_ids", "image_ids"), **kw)
+
+
+def blip_pretrain_train_step(model, params, state, batch, **kw):
+    """``batch['image_ids']`` should be globally unique (the diagonal ITC)."""
+    return queue_step(model, params, state, batch, ("images", "input_ids", "text_mask",
+                                                    "enc_input_ids", "dec_input_ids",
+                                                    "image_ids"), **kw)
+
 
 @registry.register_model("blip_image_text_matching")
 class BlipITM(BlipRetrieval):
     """BLIP-1's ITM / ITC scorer (reference blip_image_text_matching.py)."""
 
+    MOMENTUM_LAYOUT = False  # LAVIS's ITM checkpoints hold no momentum state
+
     def itm(self, images: Tensor, enc_input_ids: Tensor, text_mask: Tensor) -> Tensor:
         return self.itm_logits(enc_input_ids, text_mask, self.encode_image(images))
 
     def itc(self, images: Tensor, input_ids: Tensor, text_mask: Tensor) -> Tensor:
-        _, image_feat, _, text_feat = self.unimodal(images, input_ids, text_mask)
+        _, image_feat, _, text_feat = self.unimodal(images, input_ids, text_mask,
+                                                    self.encode_image(images))
         return (image_feat * text_feat).sum(dim=-1) / self.temp.clamp(0.001, 0.5)
 
     def itm_gradcam(self, images: Optional[Tensor], enc_input_ids: Tensor, text_mask: Tensor,
@@ -172,18 +215,16 @@ class BlipITM(BlipRetrieval):
         return torch.softmax(self.itm_logits(enc_input_ids, text_mask, image_embeds), dim=-1)[:, 1]
 
 
-class MedLMHeadModel(nn.Module):
-    """``BertLMHeadModel``'s names: the med-BERT under ``bert``, its LM head
-    under ``cls`` (``cls.predictions.transform.dense``, ``...decoder``)."""
+class MedLMHeadModel(MedWithHead):
+    """``BertLMHeadModel``'s names over a med-BERT with cross-attention on
+    every layer."""
 
     def __init__(self, cfg: QFormerConfig):
-        super().__init__()
-        self.bert = MedEncoder(cfg, fusion_layer=cfg.num_layers, cross_from=0)
-        self.cls = QFormerLMHead(cfg)
+        super().__init__(cfg, fusion_layer=cfg.num_layers, cross_from=0)
 
 
 @registry.register_model("blip_caption")
-class BlipCaption(nn.Module):
+class BlipCaption(torch.nn.Module):
     """BLIP-1's captioner (reference blip_caption.py:40-135): the tower, a
     causal med decoder cross-attending the image on every layer, and the
     BERT LM head."""
@@ -197,7 +238,7 @@ class BlipCaption(nn.Module):
         self.text_decoder = MedLMHeadModel(cfg.text_config())
 
     def encode_image(self, images: Tensor) -> Tensor:
-        return _encode_image(self.visual_encoder, images)
+        return tower_rows(self.visual_encoder, images)
 
     def decode_logits(self, input_ids: Tensor, text_mask: Tensor, image_embeds: Tensor,
                       generator: Optional[torch.Generator] = None) -> Tensor:

@@ -46,10 +46,19 @@ Adapters: ``image_text_pretrain`` (:class:`PretrainAdapter`) and
 for ``blip2_t5``) for the parameter-only families, which in the port are
 BLIP-2 stage 1 (``blip2``, ``blip2_feature_extractor``,
 ``blip2_image_text_matching``) and stage 2's ``blip2_opt`` and
-``blip2_t5``. The other task names of the JAX table refuse by name, with
-their ROADMAP entry: VQA training (``vqa``, ``gqa``, ``aok_vqa``) trains
-BLIP-1 / ALBEF's VQA models (A8.6), as do ``retrieval``,
-``multimodal_classification`` and ``dialogue``.
+``blip2_t5``; ``retrieval`` (:class:`RetrievalAdapter`) for the
+momentum-queue families (``blip_retrieval``, ``albef_retrieval``), to
+which ``image_text_pretrain`` also sends ``blip_pretrain`` and
+``albef_pretrain``. Those carry the trainer's aux state (the momentum
+copies and queues, :mod:`sprc_tpu_torch.models.albef`), ramp ``alpha`` by
+``0.4 min(1, (epoch n + i) / 2n)`` a batch (``step_extras``), collate
+``[ENC]`` ids, ``[DEC]``-prefixed decoder ids (``blip_pretrain``) and host
+MLM masks from ``RandomState(0)`` (``albef_pretrain``; its state is saved
+with the trainer's), and draw hard negatives from the trainer's generator.
+The other task names of the JAX table refuse by name, with their ROADMAP
+entry: VQA training (``vqa``, ``gqa``, ``aok_vqa``) trains BLIP-1 /
+ALBEF's VQA models (A8.6), as do ``multimodal_classification`` and
+``dialogue``; ALPRO's retrieval refuses in ``RetrievalAdapter.specialize``.
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -124,17 +133,132 @@ class Seq2SeqCaptionAdapter(CaptionAdapter):
                      decoder_start_token_id=pad_id, generator=generator)
 
 
+class RetrievalAdapter:
+    """Items {image, text_input, image_id} -> the momentum-queue families'
+    ITC / ITM training (``sprc_tpu/train/generic.py:200-296``): the aux
+    state from ``init_albef_state``, ``alpha`` ramped over two epochs by
+    ``step_extras``, the family's step function."""
+
+    uses_aux = True
+
+    def __init__(self, tokenizer, max_txt_len: int = 35):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self._alpha = 0.4
+
+    def specialize(self, model):
+        if type(model).__name__ == "AlproRetrieval":
+            raise SystemExit("ALPRO's retrieval training (no momentum queues) is not ported "
+                             "(ROADMAP A8.6)")
+        if not hasattr(model, "MOMENTUM_KEYS"):
+            raise SystemExit(f"run.task 'retrieval' trains the momentum-queue models "
+                             f"(BLIP-1, ALBEF), not {type(model).__name__}")
+        return self
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        texts = [it["text_input"] for it in items]
+        tok = self.tokenizer(texts, max_length=self.max_txt_len)
+        enc = self.tokenizer(texts, max_length=self.max_txt_len, enc_token=True)
+        return {"images": np.stack([np.asarray(it["image"], np.float32) for it in items]),
+                "input_ids": tok["input_ids"], "text_mask": tok["attention_mask"],
+                "enc_input_ids": enc["input_ids"],
+                "image_ids": np.asarray([it["image_id"] for it in items], np.int32)}
+
+    def step_extras(self, epoch: int, i: int, iters_per_epoch: int) -> Dict[str, np.ndarray]:
+        """The batch's ``alpha`` (reference albef_retrieval.py:104-105)."""
+        ramp = min(1.0, (epoch * iters_per_epoch + i) / (2 * iters_per_epoch))
+        return {"alpha": np.float32(self._alpha * ramp)}
+
+    def init_aux(self, model, params: Dict[str, torch.Tensor]) -> dict:
+        from sprc_tpu_torch.models.albef import init_albef_state
+
+        self._alpha = float(getattr(model.cfg, "alpha", 0.4))
+        return init_albef_state(params, model.cfg, keys=model.MOMENTUM_KEYS)
+
+    @staticmethod
+    def step_fn(model):
+        from sprc_tpu_torch.models import albef, blip1
+
+        return {"AlbefRetrieval": albef.albef_train_step,
+                "AlbefPretrain": albef.albef_pretrain_train_step,
+                "BlipPretrain": blip1.blip_pretrain_train_step}.get(
+            type(model).__name__, blip1.blip_retrieval_train_step)
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator, params, aux):
+        """``(losses, new aux)`` of one step (JAX's ``apply_fn(params, aux,
+        batch, rng)``)."""
+        return self.step_fn(model)(model, params, aux, batch,
+                                   alpha=batch.get("alpha", self._alpha), generator=generator)
+
+
+class BlipPretrainAdapter(RetrievalAdapter):
+    """``blip_pretrain``: the retrieval collate plus ``dec_input_ids``, the
+    caption ids with ``[DEC]`` (the tokenizer's ``bos_id``; without one, the
+    first row's first id, as the JAX collate falls back) at position 0."""
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        out = super().collate(items)
+        dec = np.array(out["input_ids"])
+        bos = getattr(self.tokenizer, "bos_id", None)
+        dec[:, 0] = bos if bos is not None else dec[0, 0]
+        out["dec_input_ids"] = dec
+        return out
+
+
+class AlbefPretrainAdapter(RetrievalAdapter):
+    """``albef_pretrain``: the retrieval collate plus host BERT masking
+    (:func:`~sprc_tpu_torch.models.albef.mlm_mask`) of the ids from one
+    ``RandomState(0)`` over the run, ``[MASK]`` (or ``[CLS]`` where the
+    vocabulary has none) over the model's vocabulary; its state is saved
+    with the trainer's, so a resumed run draws on."""
+
+    def __init__(self, tokenizer, max_txt_len: int = 35, vocab_size: int = 30523):
+        super().__init__(tokenizer, max_txt_len)
+        self.vocab_size = vocab_size
+        self.rng = np.random.RandomState(0)
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        from sprc_tpu_torch.models.albef import mlm_mask
+
+        out = super().collate(items)
+        tok = self.tokenizer
+        out["masked_ids"], out["mlm_labels"] = mlm_mask(
+            self.rng, out["input_ids"], self.vocab_size, tok.vocab.get("[MASK]", tok.cls_id),
+            pad_token_id=tok.pad_id, cls_token_id=tok.cls_id)
+        return out
+
+    def state_dict(self) -> dict:
+        kind, keys, pos, has_gauss, gauss = self.rng.get_state()
+        return {"mlm_rng": [kind, torch.from_numpy(keys.astype(np.int64)), pos, has_gauss, gauss]}
+
+    def load_state_dict(self, state: dict) -> None:
+        kind, keys, pos, has_gauss, gauss = state["mlm_rng"]
+        self.rng.set_state((kind, keys.numpy().astype(np.uint32), pos, has_gauss, gauss))
+
+
 class PretrainAdapter(CaptionAdapter):
     """image_text_pretrain over (image, text) pairs: BLIP-2 stage 1's ITC +
-    ITM + LM take the caption collate (blip2_qformer.py forward). The
-    momentum-queue pretrainers (``blip_pretrain``, ALBEF), which JAX sends to
-    its ``RetrievalAdapter``, come with their families (ROADMAP A8)."""
+    ITM + LM take the caption collate (blip2_qformer.py forward); the
+    momentum-queue models go to :class:`RetrievalAdapter`'s machinery
+    (``blip_pretrain``: :class:`BlipPretrainAdapter`, ``albef_pretrain``:
+    :class:`AlbefPretrainAdapter`), as the JAX ``specialize`` sends them."""
+
+    def specialize(self, model):
+        name = type(model).__name__
+        if name == "BlipPretrain":
+            return BlipPretrainAdapter(self.tokenizer, self.max_txt_len)
+        if name == "AlbefPretrain":
+            return AlbefPretrainAdapter(self.tokenizer, self.max_txt_len,
+                                        model.cfg.text_config().vocab_size)
+        if name in ("AlbefRetrieval", "BlipRetrieval"):
+            return RetrievalAdapter(self.tokenizer, self.max_txt_len)
+        return super().specialize(model)
 
 
 def _not_ported(task: str):
     def refuse(*_a, **_k):
-        raise SystemExit(f"run.task {task!r}: its adapter and models (BLIP-1, ALBEF, ALPRO, "
-                         "the GPT dialogue) are not ported (ROADMAP A8.6)")
+        raise SystemExit(f"run.task {task!r}: its adapter and models (BLIP-1 / ALBEF's VQA and "
+                         "classification, the GPT dialogue) are not ported (ROADMAP A8.6)")
     refuse.not_ported = True
     return refuse
 
@@ -143,7 +267,8 @@ def _not_ported(task: str):
 TASK_ADAPTERS: Dict[str, Any] = {
     "captioning": CaptionAdapter,
     "image_text_pretrain": PretrainAdapter,
-    **{name: _not_ported(name) for name in ("vqa", "gqa", "aok_vqa", "retrieval",
+    "retrieval": RetrievalAdapter,
+    **{name: _not_ported(name) for name in ("vqa", "gqa", "aok_vqa",
                                            "multimodal_classification", "dialogue")},
 }
 
@@ -167,8 +292,12 @@ class BuilderTask(BaseTask):
         ds = self.datasets["train"]
         order = np.random.RandomState(self.seed + epoch).permutation(len(ds))
         bs = self.batch_size
-        for s in range(0, len(order) - bs + 1, bs):
-            yield self.adapter.collate([ds[int(i)] for i in order[s: s + bs]])
+        extras = getattr(self.adapter, "step_extras", None)
+        for i, s in enumerate(range(0, len(order) - bs + 1, bs)):
+            batch = self.adapter.collate([ds[int(j)] for j in order[s: s + bs]])
+            if extras is not None:  # the per-batch alpha of the ramp
+                batch.update(extras(epoch, i, self.steps_per_epoch()))
+            yield batch
 
     def prepare_batch(self, batch):
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
@@ -183,7 +312,22 @@ class GenericTrainer(Trainer):
         self.adapter = adapter or CaptionAdapter(None)
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if getattr(self.adapter, "uses_aux", False):
+            losses, self.next_aux = self.adapter.forward(self.model, batch, self.generator,
+                                                         self.param_values(), self.aux)
+            return losses
         return self.adapter.forward(self.model, batch, self.generator)
+
+    def state_dict(self) -> dict:
+        state = super().state_dict()
+        if hasattr(self.adapter, "state_dict"):
+            state["adapter"] = self.adapter.state_dict()
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        if "adapter" in state:
+            self.adapter.load_state_dict(state["adapter"])
 
 
 def llm_tokenizer(run: dict, default):
@@ -225,9 +369,10 @@ def run_generic(cfg, args) -> Dict[str, float]:
         raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (the "
                          "instruction and LLaMA token batches), in either package; its "
                          "training forward runs through models.instruct_cir.InstructAdapter")
-    if arch not in loader.STAGE1_MODELS + loader.LLM_HEADS:
-        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1, ALBEF and "
-                         "the rest of the zoo: ROADMAP A8.6)")
+    if arch not in loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS:
+        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1 / ALBEF's "
+                         "VQA, classification and captioning, CLIP, the video families, the "
+                         "dialogue: ROADMAP A8.6)")
 
     datasets_cfg = dict(cfg.datasets or {})
     assert len(datasets_cfg) == 1, "one dataset builder per run config"
@@ -261,6 +406,8 @@ def run_generic(cfg, args) -> Dict[str, float]:
     trainer = GenericTrainer(model, tcfg, seed=seed, adapter=adapter,
                              skip_nonfinite=bool(run.get("skip_nonfinite", True)),
                              decay_frozen=not getattr(model, "FROZEN_PREFIXES", ()))
+    if getattr(adapter, "uses_aux", False):  # the momentum copies and queues
+        trainer.aux = adapter.init_aux(model, trainer.param_values())
     rcfg = RunnerConfig(output_dir=args.output_dir, max_epochs=max_epochs,
                         log_every_steps=int(run.get("log_freq", 10)),
                         resume=getattr(args, "resume", None),

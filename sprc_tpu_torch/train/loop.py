@@ -39,6 +39,18 @@ package has it:
   data and dropout streams stay aligned.
 - Dropout masks come from the trainer's own device ``torch.Generator``
   (seeded), which the JAX package threads as ``state.rng``.
+- A trainable tensor that is not fp32 (BLIP-1's and ALBEF's bf16 ViT-B
+  tower) keeps an fp32 master, which AdamW updates and which is copied into
+  it after each update: the JAX package holds fp32 parameters and computes
+  in bf16, and an update of ``lr`` 1e-5 rounds away in a bf16 weight.
+- A forward that returns ``loss`` gives the total (the pretrainers' sum of
+  their losses), as the JAX generic step's ``_total_and_scalars``.
+- :attr:`Trainer.aux`: the momentum-queue families' state (JAX's
+  ``TrainState.aux``: the fp32 momentum copies, the feature queues, the id
+  queue, the pointer). A step's forward returns the new state with its
+  losses; the trainer keeps it where the step's update is applied (a step
+  skipped as non-finite keeps the old one, as JAX's), and saves and
+  restores it with the rest.
 
 On the card the step launches kernel K2's chain in the tower (live steps;
 with a trainable tower through ``FusedViTBlock``, whose backward recomputes
@@ -133,13 +145,16 @@ class Trainer:
                         for p in self.decayed]
         self.schedule = onecycle_schedule(cfg.learning_rate, cfg.total_steps,
                                           pct_start=PCT_START)
-        groups = [{"params": self.params, "lr_scale": 1.0}]
+        # what AdamW updates: the tensor itself, or its fp32 master
+        self.updated = [p if p.dtype == torch.float32 else p.detach().float().clone()
+                        for p in self.params]
+        groups = [{"params": self.updated, "lr_scale": 1.0}]
         self.decayed_scales = [1.0] * len(self.decayed)
         if cfg.layer_decay is not None:
             depth = model.visual_encoder.cfg.depth
             scales = layer_decay_scales(self.names, depth, cfg.layer_decay)
             self.decayed_scales = layer_decay_scales(self.decayed_names, depth, cfg.layer_decay)
-            groups = [{"params": [p for p, s in zip(self.params, scales) if s == scale],
+            groups = [{"params": [p for p, s in zip(self.updated, scales) if s == scale],
                        "lr_scale": scale} for scale in dict.fromkeys(scales)]
         self.optimizer = torch.optim.AdamW(groups, lr=self.schedule(0), betas=BETAS,
                                            eps=EPS, weight_decay=cfg.weight_decay)
@@ -149,6 +164,16 @@ class Trainer:
         self.mini_step = 0  # micro-steps in the open accumulation
         self.acc: Optional[List[Tensor]] = None  # their running mean (grad_accum_steps > 1)
         self.epoch = 0  # the loader's epoch, kept with the state
+        self.aux: Optional[dict] = None  # the momentum-queue state (JAX's TrainState.aux)
+        self.next_aux: Optional[dict] = None  # the state the open step's forward returned
+
+    def param_values(self) -> Dict[str, Tensor]:
+        """Every parameter's fp32 value by name: the master where the trainer
+        keeps one (JAX's fp32 ``params``), else the tensor."""
+        values = dict(self.model.named_parameters())
+        values.update(zip(self.names, self.updated))
+        values.update(zip(self.decayed_names, self.masters))
+        return values
 
     def loss_and_grads(self, batch: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor],
                                                                 List[Tensor]]:
@@ -158,12 +183,16 @@ class Trainer:
         for p in self.params:
             p.grad = None
         losses = {k: v for k, v in self.forward(batch).items() if v.ndim == 0}
-        weights = self.cfg.weights()
-        total = 0.0
-        for key, value in losses.items():
-            total = total + weights.get(key, 1.0) * value
+        if "loss" in losses:  # a family that sums its own losses
+            total = losses["loss"]
+        else:
+            weights = self.cfg.weights()
+            total = 0.0
+            for key, value in losses.items():
+                total = total + weights.get(key, 1.0) * value
         total.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads = [p.grad.float() if p.grad is not None else torch.zeros_like(u)
+                 for p, u in zip(self.params, self.updated)]
         for p in self.params:
             p.grad = None
         return total, losses, grads
@@ -180,6 +209,7 @@ class Trainer:
     def train_step(self, batch: Dict[str, Tensor]) -> Dict[str, float]:
         """One micro-step; returns the losses, ``loss`` (the weighted total)
         and, with ``skip_nonfinite``, ``skipped_nonfinite`` (1.0 or 0.0)."""
+        self.next_aux = None
         total, losses, grads = self.loss_and_grads(batch)
         values = [total.detach()] + [v.detach() for v in losses.values()]
         if self.skip_nonfinite:
@@ -190,6 +220,9 @@ class Trainer:
         ok = not self.skip_nonfinite or host[-1] == 1.0
         if ok:
             self.apply_gradients(grads)
+            if self.next_aux is not None:
+                self.aux = self.next_aux
+        self.next_aux = None
         self.step += 1
         metrics = dict(zip(losses, host[1:1 + len(losses)]))
         metrics["loss"] = host[0]
@@ -211,19 +244,22 @@ class Trainer:
             if self.mini_step < k:
                 return
             grads, self.mini_step = self.acc, 0
-        for p, g in zip(self.params, grads):
-            p.grad = g
+        for u, g in zip(self.updated, grads):
+            u.grad = g
         lr = self.schedule(self.updates)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group.get("lr_scale", 1.0)
         self.optimizer.step()
         with torch.no_grad():
+            for p, u in zip(self.params, self.updated):
+                if u is not p:
+                    p.copy_(u)
             for master, p, scale in zip(self.masters, self.decayed, self.decayed_scales):
                 master.mul_(1.0 - lr * scale * self.cfg.weight_decay)
                 if master is not p:
                     p.copy_(master)
-        for p in self.params:
-            p.grad = None
+        for u in self.updated:
+            u.grad = None
         if self.acc is not None:
             for a in self.acc:
                 a.zero_()
@@ -235,10 +271,10 @@ class Trainer:
         """Everything a resume needs (tensors by reference)."""
         return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
                 "epoch": self.epoch,
-                "trainable": dict(zip(self.names, (p.detach() for p in self.params))),
+                "trainable": dict(zip(self.names, (u.detach() for u in self.updated))),
                 "decayed": dict(zip(self.decayed_names, (m.detach() for m in self.masters))),
                 "optimizer": self.optimizer.state_dict(), "acc": self.acc,
-                "generator": self.generator.get_state()}
+                "generator": self.generator.get_state(), "aux": self.aux}
 
     def load_state_dict(self, state: dict) -> None:
         if list(state["trainable"]) != self.names:
@@ -246,8 +282,10 @@ class Trainer:
         if list(state.get("decayed", {})) != self.decayed_names:
             raise ValueError("the saved decayed tensors are not this trainer's")
         with torch.no_grad():
-            for p, saved in zip(self.params, state["trainable"].values()):
-                p.copy_(saved)
+            for p, u, saved in zip(self.params, self.updated, state["trainable"].values()):
+                u.copy_(saved)
+                if u is not p:
+                    p.copy_(u)
             for master, p, saved in zip(self.masters, self.decayed,
                                         state.get("decayed", {}).values()):
                 master.copy_(saved)
@@ -259,3 +297,11 @@ class Trainer:
         self.generator.set_state(state["generator"].cpu())
         self.step, self.updates = state["step"], state["updates"]
         self.mini_step, self.epoch = state["mini_step"], state["epoch"]
+        self.aux = _to_device(state.get("aux"), device)
+
+
+def _to_device(tree, device):
+    """A nested dict of tensors (the aux state) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if torch.is_tensor(tree) else tree

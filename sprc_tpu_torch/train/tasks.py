@@ -1,10 +1,12 @@
 """Tasks for the runners (counterpart of ``sprc_tpu/train/tasks.py``):
 :class:`ImageTextRetrievalTask`, the image <-> text retrieval evaluation of
 the BLIP-2 family (reference tasks/retrieval.py:19-120), over
-``extract_target_features`` and ``encode_text_cls``.
+``extract_target_features`` and ``encode_text_cls``, and of the BLIP-1 /
+ALBEF families (``evaluate_pairs_itc``: CLS-projection cosines rank every
+pair, the ITM head rescores each query's top ``k_test``).
 
-The JAX module's ITC-only, CLIP and video evaluations and its
-``CirTask`` come with their families (ROADMAP A8).
+The JAX module's CLIP and video evaluations and its ``CirTask`` come with
+their families (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -73,3 +75,96 @@ class ImageTextRetrievalTask(BaseTask):
         s_i2t, s_t2i = compute_sim_matrix(model, frozen, feats, ids, mask, text_feats,
                                           k_test=min(self.k_test, len(texts)), stats=stats)
         return retrieval_recalls(s_i2t, s_t2i, img2txt, txt2img)
+
+    def evaluate_pairs_itc(self, model, images, texts: Sequence[str],
+                           img2txt: Dict[int, Sequence[int]], txt2img: Dict[int, int], *,
+                           batch: int = 16,
+                           stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """ITC sims and top-k ITM rescoring of the BLIP-1 / ALBEF retrieval
+        models (``sprc_tpu/train/tasks.py:147-210``; reference
+        {blip,albef}_retrieval compute_sim_matrix): the images ``batch`` a
+        call through the tower (rows kept on the device), the captions 256 a
+        call through the text pass; the CLS projections normalised and their
+        cosines taken on the host, as JAX takes them; then the top
+        ``k_test`` of each image and each caption rescored by the ITM logit
+        ``[:, 1]`` (BLIP-1: ``itm_logits`` over ``[ENC]`` ids; ALBEF:
+        ``itm_head(fusion_cls(...))`` over the text rows) plus the cosine.
+        ``stats``: ``image_encode_s``, ``text_encode_s``, ``itc_s``,
+        ``itm_s``."""
+        from sprc_tpu_torch.retrieval.sim_matrix import retrieval_recalls
+
+        stats = {} if stats is None else stats
+        device = next(model.parameters()).device
+        tok = self.tokenizer(list(texts), max_length=self.max_txt_len)
+        enc_tok = self.tokenizer(list(texts), max_length=self.max_txt_len, enc_token=True)
+        t0 = time.perf_counter()
+        embeds, feats = [], []
+        with torch.inference_mode():
+            for chunk in _image_batches(images, batch):
+                rows = model.encode_image(
+                    torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(device))
+                embeds.append(rows)
+                feats.append(model.vision_proj(rows[:, 0, :]).float().cpu().numpy())
+        image_embeds, image_feat = torch.cat(embeds), _norm(np.concatenate(feats))
+        stats["image_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        te_l, tf_l = [], []
+        with torch.inference_mode():
+            for s in range(0, len(texts), 256):
+                te, tf = model.text_features(
+                    torch.from_numpy(tok["input_ids"][s: s + 256]).to(device),
+                    torch.from_numpy(tok["attention_mask"][s: s + 256]).to(device))
+                te_l.append(te)
+                tf_l.append(tf.float().cpu().numpy())
+        text_embeds, text_feat = torch.cat(te_l), _norm(np.concatenate(tf_l))
+        stats["text_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sims = image_feat @ text_feat.T
+        stats["itc_s"] = time.perf_counter() - t0
+        k_test = min(self.k_test, len(texts), image_embeds.shape[0])
+        enc_ids = torch.from_numpy(enc_tok["input_ids"]).to(device)
+        enc_mask = torch.from_numpy(enc_tok["attention_mask"]).to(device)
+
+        def score(img_rows, ids, mask, txt_rows) -> np.ndarray:
+            img_rows, ids, mask, txt_rows = (x.contiguous() for x in (img_rows, ids, mask,
+                                                                      txt_rows))
+            with torch.inference_mode():
+                if hasattr(model, "itm_logits"):  # BLIP-1: multimodal over [ENC] ids
+                    out = model.itm_logits(ids, mask, img_rows)[:, 1]
+                else:  # ALBEF: the fusion layers over the text rows
+                    out = model.itm_scores(txt_rows, mask, img_rows)
+            return out.float().cpu().numpy()
+
+        t0 = time.perf_counter()
+        s_i2t, s_t2i = rescore_topk(sims, k_test, image_embeds, text_embeds, enc_ids, enc_mask,
+                                    score)
+        stats["itm_s"] = time.perf_counter() - t0
+        return retrieval_recalls(s_i2t, s_t2i, img2txt, txt2img)
+
+
+def _norm(x: np.ndarray) -> np.ndarray:
+    x = np.asarray(x, np.float32)
+    return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+
+def rescore_topk(sims: np.ndarray, k_test: int, image_embeds, text_embeds, enc_ids, enc_mask,
+                 score):
+    """(s_i2t, s_t2i), -100 outside each row's top ``k_test`` by ``sims``
+    (a stable descending sort, ties to the lower index), inside it
+    ``score(image rows, ids, mask, text rows)`` plus the cosine
+    (``sprc_tpu/train/tasks.py:334-357``)."""
+    s_i2t = np.full_like(sims, -100.0)
+    for i in range(sims.shape[0]):
+        topk = np.argsort(-sims[i], kind="stable")[:k_test]
+        pick = torch.from_numpy(topk).to(text_embeds.device)
+        s_i2t[i, topk] = score(image_embeds[i: i + 1].expand(len(topk), -1, -1), enc_ids[pick],
+                               enc_mask[pick], text_embeds[pick]) + sims[i, topk]
+    s_t2i = np.full_like(sims.T, -100.0)
+    for t in range(sims.shape[1]):
+        topk = np.argsort(-sims[:, t], kind="stable")[:k_test]
+        pick = torch.from_numpy(topk).to(image_embeds.device)
+        n = len(topk)
+        s_t2i[t, topk] = score(image_embeds[pick], enc_ids[t: t + 1].expand(n, -1),
+                               enc_mask[t: t + 1].expand(n, -1),
+                               text_embeds[t: t + 1].expand(n, -1, -1)) + sims[topk, t]
+    return s_i2t, s_t2i

@@ -80,7 +80,11 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "caption_coco_blip2_ft.yaml", "pretrain_stage2.yaml",
                                            "eval/vqav2_zeroshot_opt_eval.yaml",
                                            "eval/gqa_zeroshot_flant5xl_eval.yaml",
-                                           "eval/pnp_vqa_vqav2_eval.yaml"}
+                                           "eval/pnp_vqa_vqav2_eval.yaml",
+                                           "retrieval_coco_ft.yaml",
+                                           "retrieval_coco_albef_ft.yaml", "pretrain_14m.yaml",
+                                           "pretrain_albef.yaml", "eval/ret_coco_eval.yaml",
+                                           "eval/ret_coco_albef_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 

@@ -77,6 +77,21 @@ assert callable(generation.cached_beam_loop) and callable(pnp_vqa.qg_beam_search
 assert issubclass(pnp_vqa.Img2PromptVqaPipeline, pnp_vqa.PnpVqaPipeline)
 from sprc_tpu_torch import loader
 assert ("img2prompt_vqa", "base") in loader.PIPELINE_CONFIGS
+# the momentum-queue families: the four models, their state, step functions,
+# adapters, evaluation and bridges
+assert {"blip_retrieval", "blip_pretrain", "albef_retrieval", "albef_pretrain",
+        "albef_feature_extractor"} <= set(registry.list("model"))
+from sprc_tpu_torch.models import albef, blip1
+assert all(callable(f) for f in (
+    albef.init_albef_state, albef.momentum_update, albef.enqueue, albef.mlm_mask,
+    albef.rampup_alpha, albef.momentum_weights, albef.albef_train_step,
+    albef.albef_pretrain_train_step, blip1.blip_retrieval_train_step,
+    blip1.blip_pretrain_train_step))
+from sprc_tpu_torch.train import generic, tasks
+assert generic.TASK_ADAPTERS["retrieval"] is generic.RetrievalAdapter
+assert callable(tasks.rescore_topk) and callable(loader.preprocessors)
+from sprc_tpu_torch.interop import jax_params
+assert callable(jax_params.momentum_state_from_jax) and callable(jax_params.albef_retrieval_from_jax)
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -114,6 +129,12 @@ cfg = loader.model_config("blip2", "coco", **cut)
 assert (cfg.vit_config().depth, cfg.vit_config().width, cfg.qformer_config().num_layers) == (
     chip_smoke.UNFROZEN_DEPTH, 1408, chip_smoke.VARIANT_QFORMER_LAYERS)
 assert loader.PIPELINE_CONFIGS[("img2prompt_vqa", "base")]["question_answering_model"]["arch"] == "t5"
+for name, (run_yaml, _) in chip_smoke.MOMENTUM_TRAIN.items():
+    cfg = Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml])
+    assert cfg.model["arch"] == name
+assert loader.family_config("blip_retrieval", "pretrain").vit_config().seq_len == 577
+assert loader.family_config("albef_pretrain", "base").vit_config().seq_len == 197
+assert loader.family_config("albef_retrieval", "coco").queue_size == 65536
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

@@ -154,7 +154,7 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path):
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
     for run, model in (({"task": "captioning"}, {"arch": "blip2"}),
-                       ({"task": "retrieval"}, {"arch": "blip_retrieval"})):
+                       ({"task": "retrieval"}, {"arch": "alpro_retrieval"})):
         with pytest.raises(SystemExit, match="ROADMAP A8"):
             evaluate.evaluate(Config(defaults={"run": run, "model": model}), args)
     assert evaluate.make_parser().parse_args(["--cfg-path", "x"]).device == "cuda"
