@@ -412,6 +412,34 @@ Phases (any failure raises and exits nonzero before the last line):
    at B = 32, S = 577 and B = 64, S = 197, at the evaluation's B = 16, its
    bf16 attention and a block's four bf16 products
    (kernel_checks.run_momentum).
+18. BLIP-1 / ALBEF VQA (models/vqa.py; random weights from the run's seed,
+   the synthetic vocab, full width: ViT-B/16 bf16 through K2, BERT-base
+   question encoder and answer decoder fp32, seeded PNG images). 18a:
+   cli/train.py on vqav2_ft.yaml (blip_vqa, 480 px: S = 901), 3 steps at
+   batch 16; 18b: vqav2_albef_ft.yaml (albef_vqa, 384 px) with
+   model.use_distill true (the YAML names no model type, so the dataclass
+   defaults do not distill), 3 steps at batch 32: step ms, samples/s, peak,
+   K2 a step (HEAD_STEP_LAUNCHES: 12 live through the Function, 12 in the
+   momentum tower where the head distills); then the same steps all-plain
+   from the same weights, batches and dropout masks: each step's loss and
+   the momentum copies (HEAD_BOUNDS). 18c: cli/evaluate.py on
+   eval/vqav2_eval.yaml (rank over a synthetic answer list of 3,129,
+   num_ans_candidates 128: the rescoring at [B k] = 2,048 rows) and 18d on
+   eval/gqa_eval.yaml (generate, max_len 10), 32 questions at batch 16:
+   seconds by stage (tower, question encode, probe, rescore or decode), 12
+   K2 a batch; the tower's rows against the plain tower's on the same
+   pixels, and the all-plain evaluation from the kernel tower's rows: the
+   same answers and metrics.
+19. SNLI-VE and NLVR2 (models/classification.py, models/nlvr.py). 19a:
+   cli/train.py on snli_ve_ft.yaml (albef_classification, batch 32) and
+   nlvr_ft.yaml (albef_nlvr, 16 pairs: 32 images a tower call), both
+   distilled, 2 steps each, held as 18a / 18b; 19b: cli/evaluate.py on
+   eval/snli_ve_eval.yaml, eval/nlvr_eval.yaml (BLIP's twin
+   cross-attention) and eval/nlvr_albef_eval.yaml over 32 items, held as 18c
+   (the logits within HEAD_BOUNDS, the accuracy equal). The kernel phase
+   holds K2 at S = 901 and B = 16 without a graph and through FusedViTBlock
+   (forward, forward + backward), its bf16 attention and a block's four bf16
+   products (kernel_checks.run_vqa); S = 577 is phase 17's.
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -522,7 +550,7 @@ ROUTES = {
     "unfused": (["vit_fused_block=none"], ("flash_attention",)),
 }
 ROUTE_KERNELS = ("fused_vit_block", "fused_attn_block", "fused_mlp_block", "flash_attention")
-# phase 10's to 13's, 15's and 17's run configs as configs/runs/<name> gives them (the card machine
+# phase 10's to 13's, 15's and 17's to 19's run configs as configs/runs/<name> gives them (the card machine
 # may lack PyYAML: then the CLIs get Config(defaults=<dict>); a CPU test pins
 # each dict equal to its file)
 RUN_CONFIGS = {
@@ -641,6 +669,54 @@ RUN_CONFIGS = {
             "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
             "text_processor": {"eval": {"name": "blip_caption"}}}}}
        for suffix, arch in (("", "blip_retrieval"), ("_albef", "albef_retrieval"))},
+    **{name: {
+        "run": {"task": "vqa", "batch_size": batch, "max_epochs": epochs, "learning_rate": "2e-5",
+                "weight_decay": 0.05, "max_txt_len": 35, "seed": 42},
+        "model": {"arch": arch, "flavor": arch.split("_")[0], "image_size": size},
+        "datasets": {"coco_vqa": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": size},
+                              "eval": {"name": "blip_image_eval", "image_size": size}},
+            "text_processor": {"train": {"name": "blip_question"},
+                               "eval": {"name": "blip_question"}}}}}
+       for name, arch, batch, epochs, size in (
+           ("vqav2_ft.yaml", "blip_vqa", 16, 10, 480),
+           ("vqav2_albef_ft.yaml", "albef_vqa", 32, 8, 384))},
+    **{f"eval/{name}_eval.yaml": {
+        "run": {"task": task, "evaluate": True, "batch_size_eval": 16, "inference_method": method,
+                "num_ans_candidates": 128, "max_len": 10, "test_splits": ["val"]},
+        "model": {"arch": "blip_vqa", "model_type": "vqav2"},
+        "datasets": {builder: {
+            "build_info": {"annotations": {"val": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 480}},
+            "text_processor": {"eval": {"name": "blip_question"}}}}}
+       for name, task, method, builder in (("vqav2", "vqa", "rank", "coco_vqa"),
+                                           ("gqa", "gqa", "generate", "gqa"))},
+    **{name: {
+        "run": {"task": "multimodal_classification", "batch_size": batch, "max_epochs": 10,
+                "learning_rate": "2e-5", "weight_decay": 0.05, "max_txt_len": 40, "seed": 42},
+        "model": {"arch": arch, **model, "image_size": 384, "use_distill": True,
+                  "momentum": 0.995, "alpha": 0.4},
+        "datasets": {builder: {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 384},
+                              "eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"train": {"name": "blip_caption"},
+                               "eval": {"name": "blip_caption"}}}}}
+       for name, arch, batch, builder, model in (
+           ("snli_ve_ft.yaml", "albef_classification", 32, "snli_ve", {"num_classes": 3}),
+           ("nlvr_ft.yaml", "albef_nlvr", 16, "nlvr", {"flavor": "albef", "num_classes": 2}))},
+    **{f"eval/{name}_eval.yaml": {
+        "run": {"task": "multimodal_classification", "evaluate": True, "batch_size_eval": 16,
+                "max_txt_len": 35, "test_splits": ["test"]},
+        "model": {"arch": arch, "model_type": model_type},
+        "datasets": {builder: {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}}
+       for name, arch, model_type, builder in (
+           ("snli_ve", "albef_classification", "ve", "snli_ve"),
+           ("nlvr", "blip_nlvr", "nlvr", "nlvr"), ("nlvr_albef", "albef_nlvr", "nlvr", "nlvr"))},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
                 "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
@@ -5974,6 +6050,395 @@ def kernel_table(rows, launches):
              "sprc_tpu/ops/pallas_attention.py:428", "attention D=64 bf16 S=577"))]
 
 
+# phases 18 and 19: BLIP-1 / ALBEF's VQA (18) and the SNLI-VE / NLVR2 heads (19)
+# through cli/train.py and cli/evaluate.py at full width (ViT-B/16 bf16 through
+# K2, BERT-base med-BERTs fp32), random weights from the run's seed, the synthetic
+# vocab, seeded PNG images. arch -> (run YAML, steps, model-section overrides):
+# vqav2_albef_ft.yaml names no model type, so both packages build albef_vqa from
+# the dataclass defaults, which do not distill; the override turns ALBEF's answer
+# distillation on, the path this phase drives
+HEAD_TRAIN = {"blip_vqa": ("vqav2_ft.yaml", 3, {}),
+              "albef_vqa": ("vqav2_albef_ft.yaml", 3, {"use_distill": True}),
+              "albef_classification": ("snli_ve_ft.yaml", 2, {}),
+              "albef_nlvr": ("nlvr_ft.yaml", 2, {})}
+HEAD_EVAL = {"rank": "eval/vqav2_eval.yaml", "generate": "eval/gqa_eval.yaml",
+             "snli_ve": "eval/snli_ve_eval.yaml", "nlvr": "eval/nlvr_eval.yaml",
+             "nlvr_albef": "eval/nlvr_albef_eval.yaml"}
+HEAD_EVAL_ITEMS = 32  # questions, sentences or pairs an evaluation
+VQA_ANSWER_LIST = 3129  # VQAv2's answer list's length (synthetic answers)
+# K2 a step: the live tower's 12 blocks through FusedViTBlock, and the momentum
+# tower's 12 without a graph where the head distills; an evaluation: 12 a batch
+HEAD_STEP_LAUNCHES = {"blip_vqa": 12, "albef_vqa": 24, "albef_classification": 24,
+                      "albef_nlvr": 24}
+HEAD_BATCH_LAUNCHES = 12
+# Bounds, fixed before the first reading. The steps against the all-plain steps
+# of the same weights and batches (the same dropout masks: the trainer's
+# generator, seeded alike; the med-BERTs run no kernel): the bf16 tower's rows
+# differ by bf16 rounding through 12 blocks (phase 17's 2e-2 of a loss); the
+# momentum copies move by 0.005 of two Adam steps (phase 17's 1e-4). The
+# evaluations: the tower's rows, kernel against plain on the same pixels,
+# within phase 15's rows bound; everything after the tower runs no kernel (the
+# med-BERTs' attention is masked or under 128 rows), so the all-plain run from
+# the kernel tower's rows gives the same answers, logits (within 1e-6) and
+# metrics.
+HEAD_BOUNDS = {"loss": 2e-2, "params_m": 1e-4, "rows": PNP_BOUNDS["rows"], "logits": 1e-6}
+
+
+def _write_heads_data(root, kind, n, seed, split):
+    """``n`` seeded items of ``kind`` (``vqa``: a question with weighted
+    answers for training, ten typed answers for evaluation; ``snli_ve``: a
+    sentence with a label of 3; ``nlvr``: a sentence over an image pair,
+    True / False) over ``n`` PNG images of mixed sizes; the annotation path."""
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    names = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(160, 640, 2))
+        names.append(f"{kind}{i:04d}.png")
+        with open(os.path.join(root, names[-1]), "wb") as f:
+            f.write(encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+    ann = []
+    for i, name in enumerate(names):
+        words = [str(x) for x in rng.choice(STAGE1_WORDS, 4, replace=False)]
+        sentence = " ".join(str(x) for x in rng.choice(STAGE1_WORDS, 10))
+        if kind == "vqa":
+            item = {"image": name, "question": f"what is the {words[0]} near the {words[1]}",
+                    "question_id": 18000 + i, "answer": words[1:]}
+            if split != "train":
+                item.update(answer=words[1], answers=[{"answer": words[1 + j % 3]}
+                                                      for j in range(10)],
+                            question_type="what is the", answer_type="other")
+        elif kind == "snli_ve":
+            item = {"image": name, "sentence": sentence, "label": int(rng.integers(3))}
+        else:
+            item = {"images": [name, names[(i + 1) % n]], "sentence": sentence,
+                    "label": str(bool(rng.integers(2)))}
+        ann.append(item)
+    path = os.path.join(root, f"{split}.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def _answer_list(seed):
+    """VQA_ANSWER_LIST distinct synthetic answers of one to three words of the
+    synthetic vocab (VQAv2's are mostly that short), the phase's words first."""
+    rng = np.random.default_rng(seed)
+    out, seen = list(STAGE1_WORDS), set(STAGE1_WORDS)
+    while len(out) < VQA_ANSWER_LIST:
+        answer = " ".join(f"tok{int(j)}" for j in rng.integers(0, 20000, int(rng.integers(1, 4))))
+        if answer not in seen:
+            seen.add(answer)
+            out.append(answer)
+    return out
+
+
+def phase_head_train(work, arch):
+    """18a / 18b / 19a: one VQA or classification YAML through cli/train.py,
+    then the same steps all-plain (phases 18 and 19 of the docstring)."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import checkpoint, generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, steps, model_over = HEAD_TRAIN[arch]
+    tag = f"heads {arch}"
+    t_phase = time.perf_counter()
+    batch_size = RUN_CONFIGS[name]["run"]["batch_size"]
+    (builder,) = RUN_CONFIGS[name]["datasets"]
+    kind = {"coco_vqa": "vqa"}.get(builder, builder)
+    root = os.path.join(work, f"heads_{arch}")
+    ann = _write_heads_data(root, kind, batch_size * steps, SEED + 180, "train")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, f"heads_{arch}_train")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, how = _run_config(name, {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1}, "model": model_over,
+        "datasets": {builder: {"build_info": {"annotations": {"train": [ann]}, "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    real_step, real_save = generic.GenericTrainer.train_step, checkpoint.save_state
+    times, per_step, kept, skipped = [], [], {}, []
+
+    def timed_step(self, batch):
+        kept["trainer"] = self
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)  # ends in a host read of the losses
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v - before[k] for k, v in read().items() if v != before[k]})
+        return metrics
+
+    # the run's last_state.pt (4 to 6 GB of fp32 weights, AdamW moments and
+    # momentum copies) is not written: the card machine's disk takes 45 GiB of
+    # writes a call, and the earlier phases' checkpoints use most of them
+    generic.GenericTrainer.train_step = timed_step
+    checkpoint.save_state = lambda path, trainer: skipped.append(os.path.basename(path))
+    try:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        run_s = time.perf_counter() - t0
+        launches = read()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step, checkpoint.save_state = real_step, real_save
+    trainer = kept.pop("trainer")
+    k_aux = trainer.aux
+    param_count = sum(p.numel() for p in trainer.model.parameters())
+    del trainer
+    with open(os.path.join(out, "log.jsonl")) as f:
+        k_rows = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    log(f"[{tag}] {len(k_rows)} steps at batch {batch_size} ({param_count / 1e6:.1f} M "
+        f"parameters): ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; samples/s (last step) {batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; "
+        f"run {run_s:.1f} s; losses " + ", ".join(f"{r['loss']:.4f}" for r in k_rows))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}; state writes skipped: {skipped}")
+    if len(k_rows) != steps or any(r["skipped_nonfinite"] for r in k_rows):
+        raise RuntimeError(f"{tag}: steps {k_rows}")
+    if not all(np.isfinite(r["loss"]) for r in k_rows):
+        raise RuntimeError(f"{tag}: a loss is not finite: {k_rows}")
+    if any(p.get("fused_vit_block") != HEAD_STEP_LAUNCHES[arch] for p in per_step):
+        raise RuntimeError(f"{tag}: K2 launches a step {per_step}, expected "
+                           f"{HEAD_STEP_LAUNCHES[arch]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run: the same weights (the run's seed), batches (the builder's
+    # seeded transform and order) and dropout masks (the trainer's seeded generator)
+    model_cfg = dict(cfg.model)
+    model_cfg.pop("arch")
+    model = load_model(arch, model_cfg.pop("model_type", "pretrain"), device=DEVICE, seed=SEED,
+                       **model_cfg)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", builder)(dict(cfg.datasets[builder])).build()
+    adapter = generic.TASK_ADAPTERS[cfg.run["task"]](
+        tokenizer, max_txt_len=int(cfg.run["max_txt_len"])).specialize(model)
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED, device=DEVICE)
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]),
+                       weight_decay=float(cfg.run["weight_decay"]), total_steps=steps)
+    plain = generic.GenericTrainer(model, tcfg, seed=SEED, adapter=adapter, skip_nonfinite=True,
+                                   decay_frozen=True)
+    if adapter.uses_aux:
+        plain.aux = adapter.init_aux(model, plain.param_values())
+    with primitives.plain_reference():
+        p_rows = [plain.train_step(task.prepare_batch(b)) for b in task.train_loader(0)]
+    sync()
+    p_aux = plain.aux
+    gaps = {"loss": max(abs(k["loss"] - p["loss"]) / max(abs(p["loss"]), 1e-6)
+                        for k, p in zip(k_rows, p_rows)),
+            "params_m": (_tree_gap(k_aux["params_m"], p_aux["params_m"]) if p_aux else 0.0)}
+    momentum = len(p_aux["params_m"]) if p_aux else 0
+    del model, plain, p_aux, k_aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the kernel run against the all-plain run: losses {gaps['loss']:.3e} (bound "
+        f"{HEAD_BOUNDS['loss']:.0e}), momentum copies ({momentum} tensors) "
+        f"{gaps['params_m']:.3e} (bound {HEAD_BOUNDS['params_m']:.0e})")
+    failed = [k for k, v in gaps.items() if not v <= HEAD_BOUNDS[k]]
+    if failed or len(p_rows) != steps or (momentum == 0) != (HEAD_STEP_LAUNCHES[arch] == 12):
+        raise RuntimeError(f"{tag}: against the all-plain run: beyond HEAD_BOUNDS {failed}, "
+                           f"{len(p_rows)} steps, {momentum} momentum copies")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "losses": [r["loss"] for r in k_rows],
+            "launches": launches, "launches_step": per_step,
+            "k2_launches_per_step": per_step[-1].get("fused_vit_block"), "gaps": gaps,
+            "seconds": seconds}
+
+
+def phase_head_eval(work, which):
+    """18c / 18d / 19b: one VQA or classification eval YAML through
+    cli/evaluate.py over HEAD_EVAL_ITEMS seeded items, then all-plain from the
+    kernel tower's rows."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate as evaluate_cli
+    from sprc_tpu_torch.models.classification import MultimodalClassifier, _Deterministic
+    from sprc_tpu_torch.models.nlvr import NLVRClassifier
+    from sprc_tpu_torch.models.vqa import VQAModel
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name = HEAD_EVAL[which]
+    tag = f"heads eval {which}"
+    t_phase = time.perf_counter()
+    (builder,) = RUN_CONFIGS[name]["datasets"]
+    kind = "vqa" if builder in ("coco_vqa", "gqa") else builder
+    split = RUN_CONFIGS[name]["run"]["test_splits"][0]
+    root = os.path.join(work, f"heads_eval_{kind}")
+    ann = _write_heads_data(root, kind, HEAD_EVAL_ITEMS, SEED + 181, split)
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    over = {"run": {"seed": SEED},
+            "datasets": {builder: {"build_info": {"annotations": {split: [ann]}, "images": root}}}}
+    if kind == "vqa":
+        over["run"]["answer_list"] = _answer_list(SEED + 182)
+    cfg, how = _run_config(name, over)
+    log(f"[{tag}] cli/evaluate.py through {how.split(' run.answer_list=')[0]}"
+        + (f" run.answer_list=<{VQA_ANSWER_LIST} answers>" if kind == "vqa" else ""))
+    counters = _counters()
+    cls = VQAModel if kind == "vqa" else _Deterministic
+    real_encode = cls.encode_image
+    rows, row_gaps, runs = [], [], {}
+
+    def record(self, images):  # the kernel run: its tower rows kept
+        out = real_encode(self, images)
+        rows.append(out.clone())
+        return out
+
+    def replay(self, images):  # the plain run: the plain tower held against them
+        with primitives.plain_reference():
+            plain = real_encode(self, images)
+        kept = rows[len(row_gaps)]
+        row_gaps.append(((plain - kept).abs().max().item(), (plain - kept).abs().mean().item()))
+        return kept
+
+    heads = [] if kind == "vqa" else [MultimodalClassifier, NLVRClassifier]
+    for run_kind, encode in (("kernel", record), ("plain", replay)):
+        logits = []
+        real_predict = {c: c.predict for c in heads}
+
+        def keep_logits(c):
+            def predict(self, *a, **kw):
+                out = real_predict[c](self, *a, **kw)
+                logits.append(out.float().cpu())
+                return out
+            return predict
+
+        cls.encode_image = encode
+        for c in heads:
+            c.predict = keep_logits(c)
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        stats = {}
+        args = argparse.Namespace(model_path=None, vocab_path=vocab, split=None, device=DEVICE,
+                                  output_dir=os.path.join(work, f"heads_eval_{which}_{run_kind}"))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            if run_kind == "plain":
+                with primitives.plain_reference():
+                    metrics = evaluate_cli.evaluate(cfg, args, stats=stats)
+            else:
+                metrics = evaluate_cli.evaluate(cfg, args, stats=stats)
+            sync()
+            seconds = time.perf_counter() - t0
+        finally:
+            cls.encode_image = real_encode
+            for c in heads:
+                c.predict = real_predict[c]
+        result_dir = os.path.join(args.output_dir, "result")
+        (result,) = os.listdir(result_dir)
+        with open(os.path.join(result_dir, result)) as f:
+            answers = json.load(f)
+        runs[run_kind] = {"metrics": metrics, "stats": stats, "seconds": seconds,
+                          "answers": answers, "logits": logits,
+                          "peak": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": {k: getattr(o, a) for k, (o, a) in counters.items()
+                                       if getattr(o, a)}}
+        gc.collect()
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    logit_gap = max([(a - b).abs().max().item() for a, b in zip(k["logits"], p["logits"])],
+                    default=0.0)
+    rows_max, rows_mean = (max(g[i] for g in row_gaps) for i in (0, 1))
+    batches = -(-HEAD_EVAL_ITEMS // RUN_CONFIGS[name]["run"]["batch_size_eval"])
+    for run_kind, run in runs.items():
+        log(f"[{tag}] {run_kind}: {run['seconds']:.2f} s; by stage "
+            + ", ".join(f"{s} {v:.3f}" for s, v in run["stats"].items())
+            + f"; peak {run['peak']:.2f} GiB; launches {run['launches']}; metrics "
+            f"{run['metrics']}; e.g. {[list(a.values())[1] for a in run['answers'][:3]]}")
+    log(f"[{tag}] the tower's rows, kernel against plain on the same pixels: max "
+        f"{rows_max:.3e}, mean {rows_mean:.3e} (bound {HEAD_BOUNDS['rows']}); from the kernel "
+        f"tower's rows the all-plain answers {'equal' if k['answers'] == p['answers'] else 'DIFFER'}"
+        f", logits max difference {logit_gap:.3e} (bound {HEAD_BOUNDS['logits']:.0e}), "
+        f"metrics {'equal' if k['metrics'] == p['metrics'] else 'DIFFER'}; K2 "
+        f"{HEAD_BATCH_LAUNCHES} a batch of {RUN_CONFIGS[name]['run']['batch_size_eval']}")
+    want = HEAD_BATCH_LAUNCHES * batches
+    if k["launches"].get("fused_vit_block") != want or p["launches"]:
+        raise RuntimeError(f"{tag}: launches {k['launches']} (kernel), {p['launches']} (plain); "
+                           f"expected {want} K2 and none")
+    if (k["metrics"] != p["metrics"] or k["answers"] != p["answers"]
+            or len(k["answers"]) != HEAD_EVAL_ITEMS or "agg_metrics" not in k["metrics"]
+            or logit_gap > HEAD_BOUNDS["logits"] or rows_max > HEAD_BOUNDS["rows"][0]
+            or rows_mean > HEAD_BOUNDS["rows"][1] or len(row_gaps) != len(rows)):
+        raise RuntimeError(f"{tag}: the kernel evaluation disagrees with the all-plain one")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": k["metrics"], "stages_s": k["stats"], "seconds_kernel": k["seconds"],
+            "seconds_plain": p["seconds"], "peak_memory_gib": k["peak"],
+            "launches": k["launches"], "rows_gap": [rows_max, rows_mean],
+            "logits_gap": logit_gap, "seconds": seconds}
+
+
+def heads_kernels(rows, train, evals):
+    """The kernel rows of phases 18 and 19: K2 through FusedViTBlock at BLIP's
+    VQA tower (B = 16, S = 901; its launches those of 18a and 18c / 18d), its
+    bf16 attention and the block's four bf16 products at that shape; and K2
+    at 384 px (S = 577, B = 32, the check phase 17 shares; launches: 18b and
+    phase 19's)."""
+    from sprc_tpu_torch.kernel_checks import VQA_PRODUCTS, VQA_SHAPE, bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    B, S = VQA_SHAPE
+    at_901 = [train["blip_vqa"], evals["rank"], evals["generate"]]
+    at_577 = [run for a, run in train.items() if a != "blip_vqa"] + [
+        run for w, run in evals.items() if w not in ("rank", "generate")]
+
+    def launches(runs, counter):
+        return sum(run["launches"].get(counter, 0) for run in runs)
+
+    def fvb_entry(label, check, runs):
+        fvb = by_check[check]
+        return {"name": f"fused_vit_block (FusedViTBlock, {label})", "route": "cuda",
+                "source": "sprc_tpu_torch/ops/fused_block.py",
+                "replaces": "sprc_tpu/ops/pallas_block.py:609",
+                "launches": launches(runs, "fused_vit_block"),
+                "max_abs_err": fvb["max_abs_err"], "ms": fvb["ms"], "plain_ms": fvb["plain_ms"],
+                **bound_ms(fvb), "library_ms": None, "fwd_bwd_ms": fvb["fwd_bwd_ms"],
+                "plain_fwd_bwd_ms": fvb["plain_fwd_bwd_ms"]}
+
+    attn = by_check[f"attention D=64 bf16 blip_b S={S} B={B}"]
+    gemms = [by_check[f"gemm bf16 {n} B={B}"] for n in VQA_PRODUCTS]
+    work = {"bytes": sum(r["bytes"] for r in gemms),
+            "op_seconds": sum(r["op_seconds"] for r in gemms)}
+    return [
+        fvb_entry("BLIP VQA, 480 px", f"FusedViTBlock blip_b bf16 S={S} B={B}", at_901),
+        fvb_entry("ALBEF VQA, SNLI-VE, NLVR2, 384 px", "FusedViTBlock blip_b bf16 S=577 B=32",
+                  at_577),
+        {"name": "attention bf16 (BLIP VQA, 480 px)", "route": "cuda",
+         "source": "sprc_tpu_torch/csrc/attention.cu",
+         "replaces": "sprc_tpu/ops/pallas_attention.py:428",
+         "launches": launches(at_901, "attention_bf16"), "max_abs_err": attn["max_abs_err"],
+         "ms": attn["ms"], "plain_ms": attn["plain_ms"], **bound_ms(attn),
+         "library_ms": attn["library_ms"]},
+        {"name": "gemm bf16 (BLIP VQA, 480 px, a block's four products)", "route": "cuda",
+         "source": "sprc_tpu_torch/csrc/gemm.cu", "replaces": "scripts/ablate_int8.py:194",
+         "launches": launches(at_901, "gemm"),
+         "max_abs_err": max(r["max_abs_err"] for r in gemms),
+         "ms": sum(r["ms"] for r in gemms), "plain_ms": sum(r["plain_ms"] for r in gemms),
+         **bound_ms(work), "library_ms": sum(r["library_ms"] for r in gemms)}]
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -6057,6 +6522,17 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         momentum_eval[arch] = timed(f"17 momentum eval {arch}", phase_momentum_eval, work, arch)
+    head_train, head_eval = {}, {}
+    for arch in HEAD_TRAIN:  # 18a / 18b, 19a: one model (and its plain twin) at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = 18 if arch.endswith("vqa") else 19
+        head_train[arch] = timed(f"{phase} heads train {arch}", phase_head_train, work, arch)
+    for which in HEAD_EVAL:  # 18c / 18d, 19b
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase = 18 if which in ("rank", "generate") else 19
+        head_eval[which] = timed(f"{phase} heads eval {which}", phase_head_eval, work, which)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -6131,7 +6607,8 @@ def main():
                      plain_fwd_bwd_ms=k1["plain_fwd_bwd_ms"])
     print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants,
                                                                  k1_stage1]
-                      + momentum_kernels(rows, momentum, momentum_eval),
+                      + momentum_kernels(rows, momentum, momentum_eval)
+                      + heads_kernels(rows, head_train, head_eval),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -6161,6 +6638,7 @@ def main():
                       "instruct_vicuna7b": instruct_runs, "pnp_vqa": pnp,
                       "img2prompt_vqa": img2prompt,
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
+                      "heads_train": head_train, "heads_eval": head_eval,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

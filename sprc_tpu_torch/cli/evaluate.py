@@ -45,13 +45,27 @@ weights from each sub-section's ``finetuned:`` path, so ``--model-path``
 exits. ``img2prompt_vqa`` takes the same branch, as in the JAX CLI:
 its ``predict_answers`` is PNP-VQA's over the ITM-filtered captions, read by
 its question-generation T5 (``t5-large``) through ``forward_qa``; its LLM
-prompts come from ``predict_prompts``, which no task calls. The LLaMA
+prompts come from ``predict_prompts``, which no task calls. And the same
+VQA tasks for BLIP-1 / ALBEF's VQA models (``blip_vqa``, ``albef_vqa``;
+configs/runs/eval/{vqav2,okvqa,gqa,aokvqa}_eval.yaml): ``run.inference_method``
+``rank`` (the default: the probe and rescoring of ``VQAModel.rank_answers``
+over ``run.answer_list`` with ``run.num_ans_candidates``) or ``generate``
+(greedy, ``run.max_len``). And the ``multimodal_classification`` task for
+the SNLI-VE classifiers and the NLVR2 pair models (``*_classification``,
+``*_nlvr``; configs/runs/eval/{snli_ve,nlvr,nlvr_albef}_eval.yaml): the
+sentences at ``run.max_txt_len``, the argmax accuracy, the result file
+``--output-dir/result/<split>_epochx.json``. For these two families an
+evaluation whose eval images (the dataset's ``vis_processor.eval``) are not
+the tower's size exits before building: the JAX CLI fails at the first
+batch there (``vqa_val_albef_eval.yaml`` gives 480 px images to ALBEF's
+384 px tower). The LLaMA
 models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
 glue fits their signatures (the JAX CLI builds them and fails at the call);
 ``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
 scalar metrics. Every other task or family exits with a message naming its
-ROADMAP entry (BLIP-1 / ALBEF's ranked VQA and captioning, CLIP, ALPRO:
-A8.6); CIR datasets keep their CLIs (``cli/validate.py``,
+ROADMAP entry (BLIP-1's captioning: A8.6.3; CLIP and its zero-shot
+classification: A8.6.4; ALPRO and video QA: A8.6.5; the dialogue: A8.6.6);
+CIR datasets keep their CLIs (``cli/validate.py``,
 ``cli/validate_rerank.py``, ``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
@@ -74,6 +88,7 @@ from sprc_tpu_torch.models.pnp_vqa import PnpVqaPipeline
 from sprc_tpu_torch.train.generic import llm_tokenizer
 
 VQA_TASKS = ("vqa", "gqa", "aok_vqa")
+CLASSIFICATION = "multimodal_classification"
 
 
 def _image_stream(ds, chunk: int = 64):
@@ -110,35 +125,41 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
-    if task_name not in ("retrieval", "captioning") + VQA_TASKS:
-        raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py "
-                         "(classification and dialogue come with their families, ROADMAP "
-                         "A8.6; CIR -> cli/validate.py)")
+    if task_name not in ("retrieval", "captioning", CLASSIFICATION) + VQA_TASKS:
+        raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py (the dialogue: "
+                         "ROADMAP A8.6.6; CIR -> cli/validate.py)")
     if arch in loader.INSTRUCT_MODELS:
         raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
                          "instruction and LLaMA token batches), in either package; "
                          "cli/instruct.py runs it")
     if task_name == "retrieval" and arch not in loader.STAGE1_MODELS + loader.MOMENTUM_MODELS:
-        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (CLIP, "
-                         "ALPRO: ROADMAP A8.6)")
+        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (CLIP: "
+                         "ROADMAP A8.6.4; ALPRO: A8.6.5)")
     if task_name == "captioning" and arch not in loader.LLM_HEADS:
         raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
-                         f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption and the "
-                         "other families: ROADMAP A8.6)")
+                         f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption: ROADMAP "
+                         "A8.6.3)")
+    if task_name == CLASSIFICATION and arch not in loader.CLASSIFICATION_MODELS:
+        raise SystemExit(f"model {arch!r}: its multimodal_classification evaluation is not "
+                         f"ported (ported: {', '.join(loader.CLASSIFICATION_MODELS)}; CLIP "
+                         "zero-shot: ROADMAP A8.6.4; ALPRO's video QA: A8.6.5)")
     pnp = arch in ("pnp_vqa", "img2prompt_vqa")
     if pnp and args.model_path:
         raise SystemExit("pnp pipelines load per-submodel checkpoints: put `finetuned: <path>` "
                          "inside each model sub-section of the YAML instead of --model-path")
-    if task_name in VQA_TASKS and arch not in loader.LLM_HEADS and not pnp:
+    if task_name in VQA_TASKS and arch not in loader.LLM_HEADS + loader.VQA_MODELS and not pnp:
         raise SystemExit(f"model {arch!r}: its {task_name} evaluation is not ported (ported: "
-                         f"the generative {', '.join(loader.LLM_HEADS)}, pnp_vqa and "
-                         "img2prompt_vqa; "
-                         "BLIP-1 / ALBEF's ranked VQA: ROADMAP A8.6)")
-    if (task_name in VQA_TASKS and not pnp
+                         f"the generative {', '.join(loader.LLM_HEADS)}, pnp_vqa, "
+                         f"img2prompt_vqa, {', '.join(loader.VQA_MODELS)}; ALPRO's video QA: "
+                         "ROADMAP A8.6.5)")
+    if (task_name in VQA_TASKS and arch in loader.LLM_HEADS
             and run.get("inference_method", "rank") != "generate"):
         raise SystemExit(f"run.inference_method {run.get('inference_method', 'rank')!r}: the "
-                         "BLIP-2 heads answer generatively ('generate'; ranked VQA over "
-                         "run.answer_list: ROADMAP A8.6)")
+                         "BLIP-2 heads answer generatively ('generate'; ranking "
+                         "run.answer_list is blip_vqa / albef_vqa's)")
+    own_config = arch in loader.MOMENTUM_MODELS + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS
+    if arch in loader.VQA_MODELS + loader.CLASSIFICATION_MODELS:
+        _check_eval_size(cfg, arch, model_type, model_cfg)
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -147,7 +168,7 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         torch.backends.cudnn.allow_tf32 = False
     if pnp:  # three models from their sub-sections, the BERT tokenizer from --vocab-path
         model_cfg.setdefault("vocab_path", args.vocab_path)
-    elif arch not in loader.MOMENTUM_MODELS:  # (their configs have no freeze_vit)
+    elif not own_config:  # (those configs have no freeze_vit)
         model_cfg["freeze_vit"] = True  # evaluation trains nothing: the tower is built frozen
     model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
                               seed=int(run.get("seed", 42)), **model_cfg)
@@ -166,6 +187,8 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         return _evaluate_captions(model, ds, split, run, tokenizer, args, stats)
     if task_name in VQA_TASKS:
         return _evaluate_vqa(model, ds, split, run, tokenizer, args, stats)
+    if task_name == CLASSIFICATION:
+        return _evaluate_classification(model, ds, split, run, tokenizer, args, stats)
     from sprc_tpu_torch.train.tasks import ImageTextRetrievalTask
 
     task = ImageTextRetrievalTask(tokenizer, k_test=int(run.get("k_test", 128)),
@@ -178,6 +201,25 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
                                       ds.txt2img, stats=stats)
     metrics["agg_metrics"] = metrics["r_mean"]
     return metrics
+
+
+def _check_eval_size(cfg, arch, model_type, model_cfg) -> None:
+    """Exit where the dataset's eval images give the tower another number of
+    patches than its own size: its positions are its own size's, and the JAX
+    CLI fails at the first batch there (``vqa_val_albef_eval.yaml``: 480 px
+    images, ALBEF's 384 px tower)."""
+    from sprc_tpu_torch import loader
+
+    vit = loader.family_config(arch, model_type, **model_cfg).vit_config()
+    tower = vit.image_size
+    for ds_name, ds_cfg in dict(cfg.datasets or {}).items():
+        proc = ((ds_cfg or {}).get("vis_processor") or {}).get("eval") or {}
+        size = proc.get("image_size")
+        if size is not None and int(size) // vit.patch_size != tower // vit.patch_size:
+            raise SystemExit(f"{ds_name}: its eval images are {size} px, the {arch} / "
+                             f"{model_type} tower's {tower} px (its positions are {tower} px's; "
+                             "the JAX CLI fails at the first batch): set "
+                             f"datasets.{ds_name}.vis_processor.eval.image_size={tower}")
 
 
 def _evaluate_captions(model, ds, split, run, tokenizer, args, stats) -> dict:
@@ -218,8 +260,9 @@ def _evaluate_vqa(model, ds, split, run, tokenizer, args, stats) -> dict:
     """The ``vqa`` / ``gqa`` / ``aok_vqa`` tasks of the BLIP-2 heads
     (``sprc_tpu/cli/evaluate.py:219-266``): the annotations' answers by
     question id, the generative glue, the task's result file and accuracy."""
+    from sprc_tpu_torch.models.vqa import VQAModel
     from sprc_tpu_torch.train import eval_tasks
-    from sprc_tpu_torch.train.eval_glue import make_blip2_vqa_predict_fn
+    from sprc_tpu_torch.train.eval_glue import make_blip2_vqa_predict_fn, make_vqa_predict_fn
 
     cls = {"vqa": eval_tasks.VQATask, "gqa": eval_tasks.GQATask,
            "aok_vqa": eval_tasks.AOKVQATask}[run["task"]]
@@ -231,13 +274,31 @@ def _evaluate_vqa(model, ds, split, run, tokenizer, args, stats) -> dict:
         for ann in getattr(ds, "annotation", []) if "answers" in ann or "answer" in ann}
     task = cls(num_beams=int(run.get("num_beams", 3)), max_len=int(run.get("max_len", 10)),
                min_len=int(run.get("min_len", 1)),
+               num_ans_candidates=int(run.get("num_ans_candidates", 128)),
                inference_method=run.get("inference_method", "rank"),
-               prompt=run.get("prompt", ""), annotations=annotations, output_dir=args.output_dir)
+               prompt=run.get("prompt", ""), answer_list=run.get("answer_list"),
+               annotations=annotations, output_dir=args.output_dir)
     if isinstance(model, PnpVqaPipeline):
         glue = _pnp_predict_fn(model, run, stats)
+    elif isinstance(model, VQAModel):
+        glue = make_vqa_predict_fn(model, tokenizer, stats=stats)
     else:
         glue = make_blip2_vqa_predict_fn(model, llm_tokenizer(run, lambda: tokenizer),
                                          stats=stats)
+    return task.after_evaluation(_valid_steps(task, glue, ds, run), split)
+
+
+def _evaluate_classification(model, ds, split, run, tokenizer, args, stats) -> dict:
+    """The ``multimodal_classification`` task (``sprc_tpu/cli/evaluate.py:
+    267-310``, its ``predict`` branch): the classifier's or the NLVR pair
+    model's logits, the argmax accuracy and the result file."""
+    from sprc_tpu_torch.train.eval_glue import make_classification_predict_fn
+    from sprc_tpu_torch.train.eval_tasks import MultimodalClassificationTask
+
+    task = MultimodalClassificationTask(output_dir=args.output_dir)
+    glue = make_classification_predict_fn(model, tokenizer,
+                                          max_txt_len=int(run.get("max_txt_len", 35)),
+                                          stats=stats)
     return task.after_evaluation(_valid_steps(task, glue, ds, run), split)
 
 

@@ -20,9 +20,13 @@ The annotation schemas are the reference's: caption and pair data
 them). Nothing is downloaded: annotations and images must be on disk.
 Registered: the image builders of the JAX package (``coco_caption``,
 ``nocaps``, ``vg_caption``, ``sbu_caption``, ``conceptual_caption_3m`` /
-``_12m``, ``laion2B_multi``, ``coco_retrieval``, ``flickr30k``, and the VQA
-builders ``coco_vqa``, ``ok_vqa``, ``aok_vqa``, ``gqa``, ``vg_vqa``); the
-video, NLVR and dialogue builders come with their families (ROADMAP A8.6).
+``_12m``, ``laion2B_multi``, ``coco_retrieval``, ``flickr30k``, the VQA
+builders ``coco_vqa``, ``ok_vqa``, ``aok_vqa``, ``gqa``, ``vg_vqa``, SNLI-VE's
+``snli_ve`` (``{"image", "sentence", "label"}``) and NLVR2's ``nlvr``
+(``{"images": [image0, image1], "sentence", "label"}``, the label
+``True`` / ``False`` to 0 / 1 as the reference's class labels); the
+video, ImageNet (CLIP zero-shot) and dialogue builders come with their
+families (ROADMAP A8.6.5, A8.6.4, A8.6.6).
 The classes repeat the JAX ones line for line (a test builds both on the
 same files).
 """
@@ -177,6 +181,33 @@ class VQAEvalDataset(AnnotationDataset):
                 "direct_answers": ann.get("direct_answers")}
 
 
+class MultimodalClassificationDataset(AnnotationDataset):
+    """snli_ve-style (image, sentence, label) (snli_ve_datasets.py)."""
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        return {"image": self._media(ann),
+                "text_input": self.text_processor(ann.get("sentence", ann.get("caption", ""))),
+                "label": ann["label"]}
+
+
+class NLVRPairDataset(AnnotationDataset):
+    """NLVR2 (image0, image1, sentence, label) (reference
+    datasets/nlvr_datasets.py:24-63; labels True / False -> 0 / 1, the
+    reference's class labels)."""
+
+    CLASS_LABELS = {"True": 0, "False": 1, True: 0, False: 1}
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        images = ann["images"]
+        label = self.CLASS_LABELS.get(ann["label"], ann["label"])
+        return {"image0": self.vis_processor(_load_image(os.path.join(self.vis_root, images[0]))),
+                "image1": self.vis_processor(_load_image(os.path.join(self.vis_root, images[1]))),
+                "text_input": self.text_processor(ann.get("sentence", ann.get("text_input", ""))),
+                "label": int(label)}
+
+
 class DatasetBuilder:
     """Config -> {split: dataset} (base_dataset_builder.py:23-120, minus the
     download step)."""
@@ -230,3 +261,5 @@ for _n in ("coco_retrieval", "flickr30k"):
     _register(_n, RetrievalDataset, RetrievalEvalDataset)
 for _n in ("coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"):
     _register(_n, VQADataset, VQAEvalDataset)
+_register("snli_ve", MultimodalClassificationDataset, MultimodalClassificationDataset)
+_register("nlvr", NLVRPairDataset, NLVRPairDataset)

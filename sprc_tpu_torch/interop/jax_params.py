@@ -20,7 +20,11 @@ it (a JAX tree holds it only after a ``compute_itm`` / rerank init, or an init o
 forward runs it: ``CirRerank``, ``CirNeg``, ``CirNegRel``, ``CirFull``).
 The momentum-queue families have :func:`albef_retrieval_from_jax`,
 :func:`blip_retrieval_from_jax` (their pretraining heads included) and
-:func:`momentum_state_from_jax` (JAX's ``params_m`` and queues).
+:func:`momentum_state_from_jax` (JAX's ``params_m`` and queues); BLIP-1 /
+ALBEF's VQA, classification and NLVR models have :func:`vqa_from_jax`,
+:func:`classifier_from_jax`, :func:`nlvr_from_jax` (BLIP's twin
+cross-attention and merge, ALBEF's tied cross key / value under both layers
+of a pair) and :func:`momentum_copies_from_jax` (their ``params_m``).
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
 LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
@@ -346,6 +350,100 @@ def momentum_state_from_jax(aux: Mapping[str, Any], model) -> Dict[str, Any]:
             "text_queue": torch.from_numpy(np.array(aux["text_queue"], np.float32)),
             "idx_queue": torch.from_numpy(np.array(aux["idx_queue"], np.int64)),
             "ptr": torch.tensor(int(np.asarray(aux["ptr"])), dtype=torch.int64)}
+
+
+def vqa_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``VQAModel`` tree (or the momentum copies' subtrees) -> the port's
+    state dict: the question encoder under ``text_encoder.``, the answer
+    decoder under ``text_decoder.bert.``, its LM head under
+    ``text_decoder.cls.predictions.``."""
+    out: Dict[str, np.ndarray] = {}
+    if "visual_encoder" in params:
+        out.update(eva_vit_from_jax(params["visual_encoder"]))
+    if "text_encoder" in params:
+        out.update(med_from_jax(params["text_encoder"], "text_encoder."))
+    if "text_decoder" in params:
+        out.update(med_from_jax(params["text_decoder"], "text_decoder.bert."))
+    if "lm_head" in params:
+        _lm_head(out, "text_decoder.cls.predictions.", params["lm_head"])
+    return to_torch(out)
+
+
+def _cls_head(out: Dict[str, np.ndarray], params: Mapping[str, Any]) -> None:
+    if "cls_head" in params:  # LAVIS's nn.Sequential: Linear, ReLU, Linear
+        _linear(out, "cls_head.0", params["cls_head"]["fc1"])
+        _linear(out, "cls_head.2", params["cls_head"]["fc2"])
+
+
+def classifier_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``MultimodalClassifier`` tree -> the port's state dict."""
+    out: Dict[str, np.ndarray] = {}
+    if "visual_encoder" in params:
+        out.update(eva_vit_from_jax(params["visual_encoder"]))
+    if "text_encoder" in params:
+        out.update(med_from_jax(params["text_encoder"], "text_encoder."))
+    _cls_head(out, params)
+    return to_torch(out)
+
+
+def _nlvr_text(text: Mapping[str, Any], prefix: str = "text_encoder.") -> Dict[str, np.ndarray]:
+    """``AlbefNLVRMed`` / ``BlipNLVRMed`` trees -> LAVIS's names: the tied
+    ALBEF ``cross_key_{p}`` / ``cross_value_{p}`` under both layers of pair
+    p, BLIP's twin ``cross{t}_*`` under ``crossattention.self{t}`` and
+    ``output.dense{t}``, its ``merge`` under ``output.merge_layer``."""
+    out: Dict[str, np.ndarray] = {}
+    emb = text["embeddings"]
+    out[f"{prefix}embeddings.word_embeddings.weight"] = _np(emb["word_embeddings"]["embedding"])
+    pos = _np(emb["position_embeddings"]["embedding"])
+    out[f"{prefix}embeddings.position_embeddings.weight"] = pos
+    out[f"{prefix}embeddings.position_ids"] = np.arange(pos.shape[0], dtype=np.int64)[None]
+    _ln(out, f"{prefix}embeddings.LayerNorm", emb["ln"])
+    layers = sorted({int(k.split("_")[1]) for k in text if k.startswith("layer_")})
+    cross = [i for i in layers if f"layer_{i}_cross_query" in text]
+    for i in layers:
+        lp = f"{prefix}encoder.layer.{i}."
+        out.update(qformer_layer_from_jax({"self_attn": text[f"layer_{i}_self"],
+                                           "ffn_text": text[f"layer_{i}_ffn"]}, lp))
+        cp = f"{lp}crossattention."
+        if f"layer_{i}_cross0_query" in text:  # BLIP: twin cross-attention
+            for t in (0, 1):
+                for proj in ("query", "key", "value"):
+                    _linear(out, f"{cp}self{t}.{proj}", text[f"layer_{i}_cross{t}_{proj}"])
+                _linear(out, f"{cp}output.dense{t}", text[f"layer_{i}_cross_dense{t}"])
+            if f"layer_{i}_merge" in text:
+                _linear(out, f"{cp}output.merge_layer", text[f"layer_{i}_merge"])
+            _ln(out, f"{cp}output.LayerNorm", text[f"layer_{i}_cross_ln"])
+        elif i in cross:  # ALBEF: the pair's tied key / value
+            pair = (i - cross[0]) // 2
+            _linear(out, f"{cp}self.query", text[f"layer_{i}_cross_query"])
+            _linear(out, f"{cp}self.key", text[f"cross_key_{pair}"])
+            _linear(out, f"{cp}self.value", text[f"cross_value_{pair}"])
+            _linear(out, f"{cp}output.dense", text[f"layer_{i}_cross_out"])
+            _ln(out, f"{cp}output.LayerNorm", text[f"layer_{i}_cross_ln"])
+    return out
+
+
+def nlvr_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An ``NLVRClassifier`` tree (either flavour) -> the port's state dict."""
+    out: Dict[str, np.ndarray] = {}
+    if "visual_encoder" in params:
+        out.update(eva_vit_from_jax(params["visual_encoder"]))
+    if "text_encoder" in params:
+        out.update(_nlvr_text(params["text_encoder"]))
+    _cls_head(out, params)
+    return to_torch(out)
+
+
+def momentum_copies_from_jax(aux: Mapping[str, Any], model, bridge) -> Dict[str, Any]:
+    """JAX's ``init_vqa_state`` / ``init_classifier_state`` /
+    ``init_nlvr_state`` tree (``params_m``) -> the port's aux state for
+    ``model``: every name under its ``MOMENTUM_KEYS`` from ``bridge``
+    (``vqa_from_jax``, ``classifier_from_jax`` or ``nlvr_from_jax``) over
+    the copies, fp32 (a missing one raises)."""
+    from sprc_tpu_torch.models.albef import momentum_names
+
+    arrays = bridge(aux["params_m"])
+    return {"params_m": {n: arrays[n].float() for n in momentum_names(model)}}
 
 
 def plain_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1197,6 +1197,8 @@ def _gemm_spec(name: str) -> tuple:
         return GEMM_PRODUCTS[name]
     if name in BLIP_B_PRODUCTS:
         return BLIP_B_PRODUCTS[name]
+    if name in VQA_PRODUCTS:
+        return VQA_PRODUCTS[name]
     M, N, K, epilogue = GEMM_F32_PRODUCTS[name]
     return M, N, K, torch.float32, epilogue
 
@@ -2275,6 +2277,38 @@ def run_momentum(device="cuda") -> List[dict]:
     return rows
 
 
+# BLIP-1's VQA model trains and evaluates its ViT-B/16 at 480 px: S = 901
+# (30 x 30 patches and the class row), a length that is no multiple of any
+# tile, at the fine-tune's and the evaluation's batch of 16. ALBEF's VQA,
+# SNLI-VE and NLVR2 run the tower at 384 px (S = 577) at batch 32 (NLVR: 16
+# pairs, 32 images a call), :data:`MOMENTUM_SHAPES`' retrieval shape.
+VQA_SHAPE = (16, 901)
+VQA_PRODUCTS = {f"{name} S=901": (VQA_SHAPE[0] * VQA_SHAPE[1], *spec[1:])
+                for name, spec in BLIP_B_PRODUCTS.items()}
+
+
+def run_vqa(device="cuda") -> List[dict]:
+    """The checks of BLIP-1's VQA tower at 480 px (B = 16, S = 901): K2
+    without a graph (the evaluation, the momentum tower) and through
+    ``FusedViTBlock`` (forward, forward + backward against autograd over the
+    plain block), its bf16 attention (packed qkv, 12 heads of 64) and the
+    block's four bf16 products."""
+    W, M, heads, quick, eps = TOWERS["blip_b"]
+    B, S = VQA_SHAPE
+    rows = [dict(check=f"K2 vit_block blip_b S={S} B={B}",
+                 **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick,
+                                   eps=eps)),
+            dict(check=f"attention D=64 bf16 blip_b S={S} B={B}",
+                 **check_attention(64, torch.bfloat16, device, B=B, S=S, heads=heads)),
+            dict(check=f"FusedViTBlock blip_b bf16 S={S} B={B}",
+                 **check_function_grad("FusedViTBlock", device, "blip_b", torch.bfloat16, B=B,
+                                       S=S))]
+    rows += [dict(check=f"gemm bf16 {name} B={B}", **check_gemm(name, device))
+             for name in VQA_PRODUCTS]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2510,4 +2544,4 @@ def run_all(device="cuda") -> List[dict]:
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
             + run_instruct(device) + run_pnp(device) + run_img2prompt(device)
-            + run_momentum(device) + run_edges(device))
+            + run_momentum(device) + run_vqa(device) + run_edges(device))

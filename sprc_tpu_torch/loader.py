@@ -166,6 +166,26 @@ FAMILY_CONFIGS.update({
                                                                             image_size=224)},
     ("albef_pretrain", "base"): {"image_size": 224, "queue_size": 65536},
 })
+# BLIP-1 / ALBEF's VQA, classification and NLVR heads, as configs/models/{blip_vqa,
+# albef_vqa,blip_classification,albef_classification,blip_nlvr,albef_nlvr}/*.yaml give
+# them (ViT-B/16, bf16; BLIP's VQA tower at 480 px, the others at 384); ``pretrain`` is
+# the type a run YAML without one names (the dataclass's defaults, as in JAX)
+VQA_MODELS = ("blip_vqa", "albef_vqa")
+CLASSIFICATION_MODELS = ("blip_classification", "albef_classification", "blip_nlvr",
+                         "albef_nlvr")
+FAMILY_CONFIGS.update({
+    **{(name, "pretrain"): {} for name in VQA_MODELS + CLASSIFICATION_MODELS},
+    ("blip_vqa", "vqav2"): {"flavor": "blip", "image_size": 480, "max_txt_len": 35},
+    ("blip_vqa", "okvqa"): {"flavor": "blip", "image_size": 480},
+    ("blip_vqa", "aokvqa"): {"flavor": "blip", "image_size": 480},
+    ("albef_vqa", "vqav2"): {"flavor": "albef", "image_size": 384, "fusion_layer": 6,
+                             "use_distill": True, "momentum": 0.995, "alpha": 0.4},
+    ("blip_classification", "base"): {"num_classes": 3, "image_size": 384,
+                                      "cross_on_all_layers": True},
+    ("albef_classification", "ve"): {"num_classes": 3, "image_size": 384, "fusion_layer": 6},
+    ("blip_nlvr", "nlvr"): {"flavor": "blip", "num_classes": 2, "image_size": 384},
+    ("albef_nlvr", "nlvr"): {"flavor": "albef", "num_classes": 2, "image_size": 384},
+})
 # the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
 # them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
 # model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
@@ -199,6 +219,7 @@ _SUB_CONFIGS = {
     "qformer_config_override": (QFormerConfig, {"attention_dropout_rate",
                                                 "initializer_range"}),
     "text_config_override": (QFormerConfig, {"attention_dropout_rate", "initializer_range"}),
+    "decoder_config_override": (QFormerConfig, {"attention_dropout_rate", "initializer_range"}),
 }
 
 
@@ -437,19 +458,23 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
     return state
 
 
-# what a LAVIS checkpoint of the momentum-queue families holds that the port's
-# models do not: the momentum modules and the queue buffers
+# what a LAVIS checkpoint of the momentum-queue, VQA and classification families
+# holds that the port's models do not: the momentum modules and the queue buffers
 # (sprc_tpu/interop/lavis_import.py reads neither)
 MOMENTUM_CHECKPOINT_DROPS = re.compile(
-    r"^(?:(?:visual_encoder_m|text_encoder_m|vision_proj_m|text_proj_m)\.|"
-    r"(?:image_queue|text_queue|idx_queue|ptr_queue|queue_ptr)$)")
+    r"^(?:(?:visual_encoder_m|text_encoder_m|text_decoder_m|vision_proj_m|text_proj_m|"
+    r"cls_head_m)\.|(?:image_queue|text_queue|idx_queue|ptr_queue|queue_ptr)$)")
 
 
 def _momentum_family_state(state: dict, model: nn.Module, own: dict) -> dict:
     """A LAVIS ``blip_retrieval`` / ``blip_pretrain`` / ``albef_retrieval`` /
-    ``albef_pretrain`` state dict for ``model``, strict: the momentum
-    modules and queues (:data:`MOMENTUM_CHECKPOINT_DROPS`) and the LM heads'
-    tied ``cls.predictions.bias`` are dropped; an ALBEF pretraining file
+    ``albef_pretrain`` / ``blip_vqa`` / ``albef_vqa`` / ``*_classification``
+    / ``*_nlvr`` state dict for ``model``, strict: the momentum modules and
+    queues (:data:`MOMENTUM_CHECKPOINT_DROPS`) and the LM heads' tied
+    ``cls.predictions.bias`` are dropped (a file that holds only that
+    bias gives it to ``decoder.bias``, as the JAX readers read it); a
+    wrapped ``text_encoder.bert.`` (ALBEF's VQA) feeds a model's
+    ``text_encoder.``; an ALBEF pretraining file
     (``text_encoder.bert.``) feeds a retrieval model's ``text_encoder.``,
     its MLM head (``text_encoder.cls.``) dropped, and a BLIP-1 pretraining
     file's decoder (``text_decoder.``) is dropped for a retrieval model, as
@@ -461,9 +486,11 @@ def _momentum_family_state(state: dict, model: nn.Module, own: dict) -> dict:
     for key, value in state.items():
         if MOMENTUM_CHECKPOINT_DROPS.match(key):
             continue
-        if key.endswith("cls.predictions.bias") and key.replace(
-                "predictions.bias", "predictions.decoder.bias") in state:
-            continue
+        if key.endswith("cls.predictions.bias"):
+            tied = key.replace("predictions.bias", "predictions.decoder.bias")
+            if tied in state:
+                continue
+            key = tied
         if not wraps and key.startswith("text_encoder.bert."):
             key = "text_encoder." + key[len("text_encoder.bert."):]
         if key not in own and key.startswith(("text_encoder.cls.", "text_decoder.")):
@@ -484,12 +511,15 @@ def preprocessors(name: str, model_type: str) -> Tuple[dict, dict]:
     image size and the caption processor."""
     from sprc_tpu_torch.data.processors import (BlipImageEvalProcessor,
                                                 BlipImageTrainProcessor)
-    from sprc_tpu_torch.text.processors import CaptionProcessor
+    from sprc_tpu_torch.text.processors import CaptionProcessor, QuestionProcessor
 
     size = family_config(name, model_type).image_size
+    # the VQA families resolve blip_question for train and eval
+    # (configs/models/{blip_vqa,albef_vqa}/*.yaml), the others blip_caption
+    text = QuestionProcessor if name in VQA_MODELS else CaptionProcessor
     return ({"train": BlipImageTrainProcessor(image_size=size),
              "eval": BlipImageEvalProcessor(image_size=size)},
-            {"train": CaptionProcessor(), "eval": CaptionProcessor()})
+            {"train": text(), "eval": text()})
 
 
 def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
@@ -521,7 +551,8 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
-           "MOMENTUM_MODELS", "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
+           "MOMENTUM_MODELS", "VQA_MODELS", "CLASSIFICATION_MODELS",
+           "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
            "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",

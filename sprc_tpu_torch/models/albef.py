@@ -456,12 +456,18 @@ def init_albef_state(params: Dict[str, Tensor], cfg, seed: int = 0,
     iq /= np.linalg.norm(iq, axis=0, keepdims=True)
     tq /= np.linalg.norm(tq, axis=0, keepdims=True)
     device = next(iter(params.values())).device
-    return {"params_m": {n: p.detach().to(torch.float32, copy=True)
-                         for n, p in params.items() if n.startswith(tuple(keys))},
-            "image_queue": torch.from_numpy(iq).to(device),
+    return {**momentum_copies(params, keys), "image_queue": torch.from_numpy(iq).to(device),
             "text_queue": torch.from_numpy(tq).to(device),
             "idx_queue": torch.full((cfg.queue_size,), -100, dtype=torch.int64, device=device),
             "ptr": torch.zeros((), dtype=torch.int64, device=device)}
+
+
+def momentum_copies(params: Dict[str, Tensor], keys: Tuple[str, ...]) -> Dict[str, Any]:
+    """``{"params_m": ...}``: fp32 copies, in fresh storage, of the
+    ``params`` (name -> value) under ``keys`` (the whole state of the JAX
+    ``init_vqa_state``, ``init_classifier_state`` and ``init_nlvr_state``)."""
+    return {"params_m": {n: p.detach().to(torch.float32, copy=True)
+                         for n, p in params.items() if n.startswith(tuple(keys))}}
 
 
 @torch.no_grad()

@@ -32,8 +32,8 @@ scorer and the captioner run it without one. Module names are LAVIS's
 ``text_decoder.bert.embeddings.word_embeddings``,
 ``text_decoder.cls.predictions.decoder``, ``itm_head``, ``temp``), so a
 released checkpoint loads through ``loader.read_checkpoint`` with
-``strict=True``. ``generate_ids`` and ranked VQA come with their families
-(ROADMAP A8.6).
+``strict=True``. ``generate_ids`` comes with BLIP-1's captioning (ROADMAP
+A8.6.3); ranked VQA is :mod:`sprc_tpu_torch.models.vqa`'s.
 """
 
 from __future__ import annotations

@@ -7,14 +7,17 @@ padded rows' results); :func:`collate_eval` stacks the images and lists
 everything else. :func:`make_caption_generate_fn` binds a model and a
 tokenizer into the ``generate_fn`` that ``CaptionTask.valid_step`` calls,
 and :func:`make_blip2_vqa_predict_fn` into the ``predict_fn`` of the VQA
-tasks. Ported: the BLIP-2 LLM heads' branches (``blip2_opt``,
-``blip2_t5``); the ``blip_caption`` branch and BLIP-1 / ALBEF's ranked VQA
-come with BLIP-1 (ROADMAP A8.6), the classification glue with its family.
+tasks: the BLIP-2 LLM heads' branches (``blip2_opt``, ``blip2_t5``).
+:func:`make_vqa_predict_fn` is BLIP-1 / ALBEF's VQA glue (``blip_vqa``,
+``albef_vqa``): ``rank`` over the run's answer list (tokenized once, at
+``max_len``) or ``generate``; :func:`make_classification_predict_fn` the
+classifiers' and NLVR's logits beside the targets. The ``blip_caption``
+branch comes with BLIP-1's captioning (ROADMAP A8.6.3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +58,7 @@ def _require_llm_head(model) -> None:
 
     if not isinstance(model, (Blip2OPT, Blip2T5)):
         raise NotImplementedError(f"{type(model).__name__}: its glue is not ported (BLIP-1's "
-                                  "blip_caption and ranked VQA: ROADMAP A8.6)")
+                                  "blip_caption: ROADMAP A8.6.3)")
 
 
 def _generate(model, tokenizer, samples: dict, texts: List[str], max_text: int,
@@ -99,18 +102,99 @@ def make_blip2_vqa_predict_fn(model, tokenizer, *,
     ``prompt`` (``prompt.format(q)`` where it holds ``{}``, else ``prompt +
     q``), tokenized at ``max_length=35``, and ``max_len`` tokens decoded
     greedily. Inference is generative only: another ``inference_method``
-    (ranked VQA, BLIP-1 / ALBEF's) refuses, naming ROADMAP A8.6;
+    refuses (ranking an answer list is BLIP-1 / ALBEF's,
+    :func:`make_vqa_predict_fn`);
     ``num_beams`` and ``min_len`` are not read, as in the JAX glue.
     ``stats`` as :func:`make_caption_generate_fn`'s."""
     _require_llm_head(model)
 
-    def predict_fn(samples: dict, *, inference_method: str = "generate", num_beams: int = 1,
-                   max_len: int = 10, min_len: int = 1, prompt: str = "") -> List[str]:
+    def predict_fn(samples: dict, *, answer_list=None, inference_method: str = "generate",
+                   num_beams: int = 1, max_len: int = 10, min_len: int = 1,
+                   num_ans_candidates: int = 0, prompt: str = "") -> List[str]:
         if inference_method != "generate":
             raise NotImplementedError(f"inference_method {inference_method!r}: the BLIP-2 "
-                                      "heads answer generatively (ranked VQA: ROADMAP A8.6)")
+                                      "heads answer generatively (ranked VQA is blip_vqa / "
+                                      "albef_vqa's)")
         questions = [prompt.format(q) if "{}" in prompt else (prompt + q if prompt else q)
                      for q in samples["text_input"]]
         return _generate(model, tokenizer, samples, questions, 35, max_len, stats)
+
+    return predict_fn
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+
+def make_vqa_predict_fn(model, tokenizer, *,
+                        stats: Optional[Dict[str, float]] = None) -> Callable:
+    """BLIP-1 / ALBEF's ``predict_fn(samples, answer_list, inference_method,
+    ...) -> [str]`` (``sprc_tpu/train/eval_glue.py:88-128``; reference
+    blip_vqa.py predict_answers): the questions (after ``prompt``) at
+    ``max_length=35``; ``rank`` tokenizes ``answer_list`` once at
+    ``max_len`` and returns ``answer_list[best]`` of
+    :meth:`~sprc_tpu_torch.models.vqa.VQAModel.rank_answers`; ``generate``
+    decodes ``max_len`` tokens greedily from the tokenizer's ``bos_id`` (or
+    ``cls_id``) to ``sep_id``. ``num_beams`` and ``min_len`` are not read, as
+    in the JAX glue. ``stats``: the model's seconds by stage, summed over
+    the batches."""
+    from sprc_tpu_torch.models.vqa import VQAModel
+
+    if not isinstance(model, VQAModel):
+        raise NotImplementedError(f"{type(model).__name__}: the ranked / generative VQA glue "
+                                  "is blip_vqa / albef_vqa's")
+    device = next(model.parameters()).device
+    answer_cache: Dict[int, tuple] = {}
+
+    def predict_fn(samples: dict, *, answer_list: Optional[Sequence[str]] = None,
+                   inference_method: str = "rank", num_beams: int = 3, max_len: int = 10,
+                   min_len: int = 1, num_ans_candidates: int = 128,
+                   prompt: str = "") -> List[str]:
+        images = _tensor(samples["image"], device, np.float32)
+        questions = [prompt + q if prompt else q for q in samples["text_input"]]
+        qtok = tokenizer(questions, max_length=35)
+        q_ids, q_mask = (_tensor(qtok[k], device) for k in ("input_ids", "attention_mask"))
+        with torch.inference_mode():
+            if inference_method == "rank":
+                if not answer_list:
+                    raise ValueError("rank inference needs run.answer_list")
+                if id(answer_list) not in answer_cache:
+                    answer_cache.clear()
+                    atok = tokenizer(list(answer_list), max_length=max_len)
+                    answer_cache[id(answer_list)] = tuple(
+                        _tensor(atok[k], device) for k in ("input_ids", "attention_mask"))
+                a_ids, a_mask = answer_cache[id(answer_list)]
+                best, _ = model.rank_answers(images, q_ids, q_mask, a_ids, a_mask,
+                                             num_ans_candidates=num_ans_candidates,
+                                             pad_token_id=tokenizer.pad_id, stats=stats)
+                return [answer_list[i] for i in best.tolist()]
+            ids = model.generate_answers(
+                images, q_ids, q_mask, bos_token_id=tokenizer.bos_id or tokenizer.cls_id,
+                eos_token_id=tokenizer.sep_id, pad_token_id=tokenizer.pad_id,
+                max_new_tokens=max_len, stats=stats)
+        return [tokenizer.decode(row) for row in ids.cpu().numpy()]
+
+    return predict_fn
+
+
+def make_classification_predict_fn(model, tokenizer, *, max_txt_len: int = 35,
+                                   stats: Optional[Dict[str, float]] = None) -> Callable:
+    """``predict_fn(samples) -> {"predictions", "targets"}``
+    (``sprc_tpu/train/eval_glue.py:131-155``; reference
+    {blip,albef}_classification predict, blip_nlvr.py:118-140): the
+    sentences at ``max_txt_len``, the logits of ``predict`` (an NLVR pair
+    when the samples hold ``image0`` / ``image1``) beside the labels.
+    ``stats``: the model's seconds by stage (``tower_s``, ``text_s``)."""
+    device = next(model.parameters()).device
+
+    def predict_fn(samples: dict) -> Dict[str, np.ndarray]:
+        tok = tokenizer(list(samples["text_input"]), max_length=max_txt_len)
+        ids, mask = (_tensor(tok[k], device) for k in ("input_ids", "attention_mask"))
+        keys = ("image0", "image1") if "image0" in samples else ("image",)
+        images = [_tensor(samples[k], device, np.float32) for k in keys]
+        with torch.inference_mode():
+            logits = model.predict(*images, ids, mask, stats=stats)
+        return {"predictions": logits.float().cpu().numpy(),
+                "targets": np.asarray(samples["label"])}
 
     return predict_fn

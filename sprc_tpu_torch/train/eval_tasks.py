@@ -15,8 +15,12 @@ after the VQA normalisation) and :class:`AOKVQATask` (min(matches / 3, 1)
 over the direct answers); each writes ``<split>_{vqa,gqa,aokvqa}_result``
 with one row a question id, and a leaderboard split without ground truth
 gets its result file and no metric. As in the JAX package,
-``AOKVQATask.valid_step`` hands the glue no ``prompt``. The classification
-and dialogue tasks come with their families (ROADMAP A8.6).
+``AOKVQATask.valid_step`` hands the glue no ``prompt``; the tasks hand it
+``answer_list`` and ``num_ans_candidates``, which BLIP-1 / ALBEF's ranked
+glue reads and the BLIP-2 heads' generative glue takes and ignores. And
+:class:`MultimodalClassificationTask` (``multimodal_classification``:
+argmax accuracy, reference tasks/multimodal_classification.py). The
+dialogue task comes with its family (ROADMAP A8.6.6).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from sprc_tpu_torch.registry import registry
 from sprc_tpu_torch.train.runner import BaseTask
@@ -95,26 +101,28 @@ class CaptionTask(BaseTask):
 @registry.register("task", "vqa")
 class VQATask(BaseTask):
     """valid_step -> [{"question_id", "answer"}]; the official VQA accuracy
-    (reference tasks/vqa.py:19-167). The port's only glue is the BLIP-2
-    heads' generative one: ranked VQA's ``answer_list`` and
-    ``num_ans_candidates`` come with BLIP-1 / ALBEF (ROADMAP A8.6)."""
+    (reference tasks/vqa.py:19-167)."""
 
     def __init__(self, *, num_beams: int = 3, max_len: int = 10, min_len: int = 1,
-                 inference_method: str = "rank", prompt: str = "",
+                 num_ans_candidates: int = 128, inference_method: str = "rank",
+                 prompt: str = "", answer_list: Optional[Sequence[str]] = None,
                  annotations: Optional[dict] = None, output_dir: str = "./output"):
         self.num_beams = num_beams
         self.max_len = max_len
         self.min_len = min_len
+        self.num_ans_candidates = num_ans_candidates
         self.inference_method = inference_method
         self.prompt = prompt
+        self.answer_list = answer_list
         # {question_id: {"answers": [...], "question_type", "answer_type"}}
         self.annotations = annotations or {}
         self.output_dir = output_dir
 
     def _predict(self, predict_fn: Callable, samples: dict, **prompt) -> List[str]:
-        return predict_fn(samples, inference_method=self.inference_method,
-                          num_beams=self.num_beams, max_len=self.max_len, min_len=self.min_len,
-                          **prompt)
+        return predict_fn(samples, answer_list=self.answer_list,
+                          inference_method=self.inference_method, num_beams=self.num_beams,
+                          max_len=self.max_len, min_len=self.min_len,
+                          num_ans_candidates=self.num_ans_candidates, **prompt)
 
     def valid_step(self, predict_fn: Callable, samples: dict) -> List[dict]:
         answers = self._predict(predict_fn, samples, prompt=self.prompt)
@@ -192,4 +200,36 @@ class AOKVQATask(VQATask):
         metrics = _exact_accuracy(rows, lambda r: min(
             1.0, sum(r["pred_ans"] == gt for gt in r["gt_ans"]) / 3.0))
         _append_eval_log(self.output_dir, metrics)
+        return metrics
+
+
+@registry.register("task", "multimodal_classification")
+class MultimodalClassificationTask(BaseTask):
+    """Argmax accuracy (reference multimodal_classification.py:19-85):
+    ``valid_step`` pairs each row's argmax with its target under
+    ``inst_id_key``; ``after_evaluation`` writes ``<split>_epoch<epoch>``
+    (one row an id) and returns ``agg_metrics`` = ``acc``, a fraction."""
+
+    def __init__(self, *, inst_id_key: str = "instance_id", output_dir: str = "./output"):
+        self.inst_id_key = inst_id_key
+        self.output_dir = output_dir
+
+    def valid_step(self, predict_fn: Callable, samples: dict) -> List[dict]:
+        out = predict_fn(samples)
+        preds = np.asarray(out["predictions"]).argmax(axis=1)
+        targets = np.asarray(out["targets"])
+        return [{self.inst_id_key: str(i), "prediction": int(p), "target": int(t)}
+                for p, t, i in zip(preds, targets, samples[self.inst_id_key])]
+
+    def after_evaluation(self, val_result: List[dict], split_name: str, epoch: Any = "x",
+                         **kw) -> Dict[str, float]:
+        path = save_result(val_result, os.path.join(self.output_dir, "result"),
+                           f"{split_name}_epoch{epoch}", remove_duplicate=self.inst_id_key)
+        with open(path) as f:
+            rows = json.load(f)
+        preds = np.asarray([r["prediction"] for r in rows])
+        targets = np.asarray([r["target"] for r in rows])
+        accuracy = float((preds == targets).sum() / max(targets.shape[0], 1))
+        metrics = {"agg_metrics": accuracy, "acc": accuracy}
+        _append_eval_log(self.output_dir, {split_name: metrics})
         return metrics

@@ -55,10 +55,19 @@ copies and queues, :mod:`sprc_tpu_torch.models.albef`), ramp ``alpha`` by
 ``[ENC]`` ids, ``[DEC]``-prefixed decoder ids (``blip_pretrain``) and host
 MLM masks from ``RandomState(0)`` (``albef_pretrain``; its state is saved
 with the trainer's), and draw hard negatives from the trainer's generator.
-The other task names of the JAX table refuse by name, with their ROADMAP
-entry: VQA training (``vqa``, ``gqa``, ``aok_vqa``) trains BLIP-1 /
-ALBEF's VQA models (A8.6), as do ``multimodal_classification`` and
-``dialogue``; ALPRO's retrieval refuses in ``RetrievalAdapter.specialize``.
+``vqa``, ``gqa`` and ``aok_vqa`` (:class:`VQAAdapter`) train BLIP-1 /
+ALBEF's VQA models (``blip_vqa``, ``albef_vqa``): the weighted answers
+flattened with ``ans_to_question``, dropout from the trainer's generator
+(the JAX steps apply the model with the step's rng) and, with
+``use_distill``, the momentum copies as aux state and ``alpha`` ramped over
+ONE epoch. ``multimodal_classification`` (:class:`ClassificationAdapter`)
+trains the SNLI-VE classifiers (``*_classification``) and the NLVR2 pair
+models (``*_nlvr``: ``image0`` / ``image1``), without dropout, with the
+momentum copies where the model distills (ALBEF's NLVR, a classifier with
+``use_distill``) and ``alpha`` ramped over one epoch (two for NLVR).
+``dialogue`` refuses by name (ROADMAP A8.6.6), as do ALPRO's retrieval in
+``RetrievalAdapter.specialize`` and its video QA in
+``ClassificationAdapter.specialize`` (A8.6.5).
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -98,7 +107,7 @@ class CaptionAdapter:
     def specialize(self, model):
         """``Blip2T5`` is seq2seq (prompt in the encoder, caption in the
         decoder); stage 1 and ``Blip2OPT`` keep the decoder-only contract;
-        another family refuses (ROADMAP A8.6)."""
+        another family refuses (BLIP-1's captioner: ROADMAP A8.6.3)."""
         from sprc_tpu_torch.models.blip2_opt import Blip2OPT
         from sprc_tpu_torch.models.blip2_stage1 import Blip2Stage1
         from sprc_tpu_torch.models.blip2_t5 import Blip2T5
@@ -106,8 +115,8 @@ class CaptionAdapter:
         if isinstance(model, Blip2T5):
             return Seq2SeqCaptionAdapter(self.tokenizer, self.max_txt_len)
         if not isinstance(model, (Blip2Stage1, Blip2OPT)):
-            raise SystemExit(f"{type(model).__name__}: no generic adapter in the port "
-                             "(its family is ROADMAP A8.6)")
+            raise SystemExit(f"{type(model).__name__}: no caption adapter in the port for it "
+                             "(BLIP-1's blip_caption: ROADMAP A8.6.3)")
         return self
 
 
@@ -149,7 +158,7 @@ class RetrievalAdapter:
     def specialize(self, model):
         if type(model).__name__ == "AlproRetrieval":
             raise SystemExit("ALPRO's retrieval training (no momentum queues) is not ported "
-                             "(ROADMAP A8.6)")
+                             "(ROADMAP A8.6.5)")
         if not hasattr(model, "MOMENTUM_KEYS"):
             raise SystemExit(f"run.task 'retrieval' trains the momentum-queue models "
                              f"(BLIP-1, ALBEF), not {type(model).__name__}")
@@ -255,10 +264,131 @@ class PretrainAdapter(CaptionAdapter):
         return super().specialize(model)
 
 
+class VQAAdapter:
+    """Items {image, text_input, answers, weights} -> the VQA model's
+    training (``sprc_tpu/train/generic.py:118-198``; reference
+    vqa_datasets collate + blip_vqa.py:94-160): the questions at
+    ``max_txt_len``, every question's answers flattened at 12 tokens with
+    their weights and ``ans_to_question``. With ``use_distill`` (ALBEF) the
+    step is :func:`~sprc_tpu_torch.models.vqa.vqa_train_step` over the aux
+    state (the momentum copies), ``alpha`` ramped over one epoch."""
+
+    uses_aux = False  # set by specialize from the model's use_distill
+
+    def __init__(self, tokenizer, max_txt_len: int = 35, max_answer_len: int = 12):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.max_answer_len = max_answer_len
+        self._alpha = 0.4
+
+    def specialize(self, model):
+        self._alpha = float(model.cfg.alpha)
+        self.uses_aux = bool(model.cfg.use_distill)
+        return self
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        qtok = self.tokenizer([it["text_input"] for it in items], max_length=self.max_txt_len)
+        answers, weights, ans_to_q = [], [], []
+        for qi, it in enumerate(items):
+            for a, w in zip(it["answers"], it["weights"]):
+                answers.append(a)
+                weights.append(float(w))
+                ans_to_q.append(qi)
+        atok = self.tokenizer(answers, max_length=self.max_answer_len)
+        return {"images": np.stack([np.asarray(it["image"], np.float32) for it in items]),
+                "question_ids": qtok["input_ids"], "question_mask": qtok["attention_mask"],
+                "answer_ids": atok["input_ids"], "answer_mask": atok["attention_mask"],
+                "ans_to_question": np.asarray(ans_to_q, np.int32),
+                "weights": np.asarray(weights, np.float32)}
+
+    def step_extras(self, epoch: int, i: int, iters_per_epoch: int) -> Dict[str, np.ndarray]:
+        """The batch's ``alpha``: the one-epoch ramp (albef_vqa.py:80-81)."""
+        ramp = min(1.0, (epoch * iters_per_epoch + i) / iters_per_epoch)
+        return {"alpha": np.float32(self._alpha * ramp)}
+
+    def init_aux(self, model, params: Dict[str, torch.Tensor]) -> dict:
+        from sprc_tpu_torch.models.vqa import init_vqa_state
+
+        return init_vqa_state(params)
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator, params=None, aux=None):
+        """The losses (and with ``use_distill`` the new aux state) of one step."""
+        if self.uses_aux:
+            from sprc_tpu_torch.models.vqa import vqa_train_step
+
+            return vqa_train_step(model, params, aux, batch,
+                                  alpha=batch.get("alpha", self._alpha), generator=generator)
+        return model(batch["images"], batch["question_ids"], batch["question_mask"],
+                     batch["answer_ids"], batch["answer_mask"], batch["ans_to_question"],
+                     batch["weights"], generator=generator)
+
+
+class ClassificationAdapter:
+    """``multimodal_classification`` (``sprc_tpu/train/generic.py:347-
+    443``): SNLI-VE's (image, sentence, label) and NLVR2's (image0, image1,
+    sentence, label) at ``max_txt_len``; the step distills where the model
+    does (a classifier with ``use_distill``, ALBEF's NLVR) over the aux
+    state, ``alpha`` ramped over one epoch (classifier) or two (NLVR); the
+    model runs deterministically, as the JAX steps apply it."""
+
+    uses_aux = False  # set by specialize
+
+    def __init__(self, tokenizer, max_txt_len: int = 40):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self._alpha = 0.4
+        self._ramp_epochs = 1
+        self._nlvr = False
+
+    def specialize(self, model):
+        from sprc_tpu_torch.models.classification import MultimodalClassifier
+        from sprc_tpu_torch.models.nlvr import NLVRClassifier
+
+        if not isinstance(model, (MultimodalClassifier, NLVRClassifier)):
+            raise SystemExit(f"run.task 'multimodal_classification' trains the SNLI-VE and "
+                             f"NLVR2 models, not {type(model).__name__} (ALPRO's video QA: "
+                             "ROADMAP A8.6.5)")
+        self._nlvr = isinstance(model, NLVRClassifier)
+        self._alpha = float(model.cfg.alpha)
+        self.uses_aux = model.distills if self._nlvr else bool(model.cfg.use_distill)
+        self._ramp_epochs = 2 if self._nlvr else 1
+        return self
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        tok = self.tokenizer([it["text_input"] for it in items], max_length=self.max_txt_len)
+        out = {"input_ids": tok["input_ids"], "text_mask": tok["attention_mask"],
+               "labels": np.asarray([int(it["label"]) for it in items], np.int32)}
+        keys = ("image0", "image1") if "image0" in items[0] else ("image",)
+        for key in keys:
+            out["images" if key == "image" else key] = np.stack(
+                [np.asarray(it[key], np.float32) for it in items])
+        return out
+
+    def step_extras(self, epoch: int, i: int, iters_per_epoch: int) -> Dict[str, np.ndarray]:
+        ramp = min(1.0, (epoch * iters_per_epoch + i) / (self._ramp_epochs * iters_per_epoch))
+        return {"alpha": np.float32(self._alpha * ramp)}
+
+    def init_aux(self, model, params: Dict[str, torch.Tensor]) -> dict:
+        from sprc_tpu_torch.models.classification import init_classifier_state
+        from sprc_tpu_torch.models.nlvr import init_nlvr_state
+
+        return (init_nlvr_state if self._nlvr else init_classifier_state)(params)
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator, params=None, aux=None):
+        images = ((batch["image0"], batch["image1"]) if self._nlvr else (batch["images"],))
+        if self.uses_aux:
+            from sprc_tpu_torch.models.classification import classifier_train_step
+            from sprc_tpu_torch.models.nlvr import nlvr_train_step
+
+            step = nlvr_train_step if self._nlvr else classifier_train_step
+            return step(model, params, aux, batch, alpha=batch.get("alpha", self._alpha))
+        return model(*images, batch["input_ids"], batch["text_mask"], batch["labels"], None, 0.0)
+
+
 def _not_ported(task: str):
     def refuse(*_a, **_k):
-        raise SystemExit(f"run.task {task!r}: its adapter and models (BLIP-1 / ALBEF's VQA and "
-                         "classification, the GPT dialogue) are not ported (ROADMAP A8.6)")
+        raise SystemExit(f"run.task {task!r}: its adapter and model (the GPT dialogue) are not "
+                         "ported (ROADMAP A8.6.6)")
     refuse.not_ported = True
     return refuse
 
@@ -266,10 +396,13 @@ def _not_ported(task: str):
 # the JAX table's task names (lavis/tasks/__init__.py names)
 TASK_ADAPTERS: Dict[str, Any] = {
     "captioning": CaptionAdapter,
+    "vqa": VQAAdapter,
+    "gqa": VQAAdapter,
+    "aok_vqa": VQAAdapter,
     "image_text_pretrain": PretrainAdapter,
     "retrieval": RetrievalAdapter,
-    **{name: _not_ported(name) for name in ("vqa", "gqa", "aok_vqa",
-                                           "multimodal_classification", "dialogue")},
+    "multimodal_classification": ClassificationAdapter,
+    "dialogue": _not_ported("dialogue"),
 }
 
 
@@ -369,10 +502,16 @@ def run_generic(cfg, args) -> Dict[str, float]:
         raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (the "
                          "instruction and LLaMA token batches), in either package; its "
                          "training forward runs through models.instruct_cir.InstructAdapter")
-    if arch not in loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS:
-        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1 / ALBEF's "
-                         "VQA, classification and captioning, CLIP, the video families, the "
-                         "dialogue: ROADMAP A8.6)")
+    if arch not in (loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS
+                    + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS):
+        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1's "
+                         "captioning: ROADMAP A8.6.3; CLIP: A8.6.4; the video families: "
+                         "A8.6.5; the dialogue: A8.6.6)")
+    if task_name in ("vqa", "gqa", "aok_vqa") and arch not in loader.VQA_MODELS:
+        # the JAX run builds the model and then fails at the adapter's call
+        raise SystemExit(f"run.task {task_name!r} trains BLIP-1 / ALBEF's VQA models "
+                         f"({', '.join(loader.VQA_MODELS)}), not {arch!r} (the BLIP-2 heads "
+                         "answer zero-shot through cli/evaluate.py)")
 
     datasets_cfg = dict(cfg.datasets or {})
     assert len(datasets_cfg) == 1, "one dataset builder per run config"

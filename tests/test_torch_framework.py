@@ -84,7 +84,11 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "retrieval_coco_ft.yaml",
                                            "retrieval_coco_albef_ft.yaml", "pretrain_14m.yaml",
                                            "pretrain_albef.yaml", "eval/ret_coco_eval.yaml",
-                                           "eval/ret_coco_albef_eval.yaml"}
+                                           "eval/ret_coco_albef_eval.yaml", "vqav2_ft.yaml",
+                                           "vqav2_albef_ft.yaml", "eval/vqav2_eval.yaml",
+                                           "eval/gqa_eval.yaml", "snli_ve_ft.yaml",
+                                           "nlvr_ft.yaml", "eval/snli_ve_eval.yaml",
+                                           "eval/nlvr_eval.yaml", "eval/nlvr_albef_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 
@@ -121,13 +125,13 @@ def test_processors_equal_jax(tmp_path):
 
 def test_builders_equal_jax(tmp_path):
     """Every registered image builder of JAX's list is the port's (the VQA
-    builders' items: test_torch_vqa.py), and on the same annotation files
-    both build the same splits and items."""
+    builders' items: test_torch_vqa.py; SNLI-VE's and NLVR2's here), and on
+    the same annotation files both build the same splits and items."""
     mine = set(registry.list("dataset"))
     assert mine == {"coco_caption", "nocaps", "vg_caption", "sbu_caption",
                     "conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi",
                     "coco_retrieval", "flickr30k", "coco_vqa", "ok_vqa", "aok_vqa", "gqa",
-                    "vg_vqa"}
+                    "vg_vqa", "snli_ve", "nlvr"}
     assert mine <= set(jregistry.list("dataset"))
     names = _images(tmp_path)
     pairs = [{"image": n, "caption": f"A photo {i}!", "image_id": f"id{i % 3}"}
@@ -135,13 +139,21 @@ def test_builders_equal_jax(tmp_path):
     ret = [{"image": n, "caption": [f"cap {i} a", f"cap {i} b"][: 1 + i % 2], "image_id": i}
            for i, n in enumerate(names)]
     (tmp_path / "pairs.json").write_text(json.dumps(pairs))
+    (tmp_path / "ve.json").write_text(json.dumps([
+        {"image": n, "sentence": f"A dog {i}.", "label": i % 3} for i, n in enumerate(names)]))
+    (tmp_path / "nlvr.json").write_text(json.dumps([
+        {"images": [n, names[(i + 1) % len(names)]], "sentence": f"Two {i}!",
+         "label": ["True", "False", True][i % 3]} for i, n in enumerate(names)]))
     (tmp_path / "ret.json").write_text(json.dumps({"annotations": ret}))
     vis = {"train": {"name": "blip2_image_train", "image_size": 20},
            "eval": {"name": "blip_image_eval", "image_size": 20}}
     cases = {"conceptual_caption_3m": {"train": [str(tmp_path / "pairs.json")]},
              "coco_retrieval": {"train": str(tmp_path / "pairs.json"),
                                 "test": [str(tmp_path / "ret.json")]},
-             "coco_caption": {"val": [str(tmp_path / "pairs.json")]}}
+             "coco_caption": {"val": [str(tmp_path / "pairs.json")]},
+             "snli_ve": {"train": [str(tmp_path / "ve.json")], "test": [str(tmp_path / "ve.json")]},
+             "nlvr": {"train": [str(tmp_path / "nlvr.json")],
+                      "test": [str(tmp_path / "nlvr.json")]}}
     for name, ann in cases.items():
         cfg = {"build_info": {"annotations": ann, "images": str(tmp_path)},
                "vis_processor": vis, "text_processor": {"train": {"name": "blip_caption"},

@@ -2,7 +2,8 @@
 ``run_generic``, and a resumed run against an uninterrupted one.
 
 Each of configs/runs/{retrieval_coco_ft, retrieval_flickr_ft,
-retrieval_coco_albef_ft, pretrain_14m, pretrain_albef}.yaml is read as it
+retrieval_coco_albef_ft, retrieval_flickr_albef_ft, pretrain_14m,
+pretrain_albef}.yaml is read as it
 is, with the tiny towers of test_torch_momentum.py (the med-BERT's
 vocabulary BLIP-1's 30,524 rows; the tokenizer's is the synthetic BERT
 vocabulary of 30,522 and ``[DEC]`` after it), batch 4, one epoch, its
@@ -44,6 +45,7 @@ TINY_TXT = dict(TXT, vocab_size=VOCAB)
 RUNS = {"retrieval_coco_ft.yaml": ("blip_retrieval", "pretrain", "coco_retrieval"),
         "retrieval_flickr_ft.yaml": ("blip_retrieval", "pretrain", "flickr30k"),
         "retrieval_coco_albef_ft.yaml": ("albef_retrieval", "pretrain", "coco_retrieval"),
+        "retrieval_flickr_albef_ft.yaml": ("albef_retrieval", "pretrain", "flickr30k"),
         "pretrain_14m.yaml": ("blip_pretrain", "base", "conceptual_caption_3m"),
         "pretrain_albef.yaml": ("albef_pretrain", "base", "conceptual_caption_3m")}
 LAVIS_EXTRAS = ("image_queue", "text_queue", "idx_queue", "ptr_queue", "queue_ptr")
@@ -181,7 +183,8 @@ def check_equal(name, model, jstate, state, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["retrieval_coco_ft.yaml", "retrieval_flickr_ft.yaml",
-                                  "retrieval_coco_albef_ft.yaml"])
+                                  "retrieval_coco_albef_ft.yaml",
+                                  "retrieval_flickr_albef_ft.yaml"])
 def test_cli_train_retrieval_equals_jax(name, pairs, tmp_path, monkeypatch):
     model, jstate, state = run_both(name, pairs, tmp_path, monkeypatch)
     check_equal(name, model, jstate, state, tmp_path)

@@ -92,6 +92,25 @@ assert generic.TASK_ADAPTERS["retrieval"] is generic.RetrievalAdapter
 assert callable(tasks.rescore_topk) and callable(loader.preprocessors)
 from sprc_tpu_torch.interop import jax_params
 assert callable(jax_params.momentum_state_from_jax) and callable(jax_params.albef_retrieval_from_jax)
+# BLIP-1 / ALBEF's VQA, SNLI-VE classification and NLVR2: the models, their
+# steps, the adapters, the glue, the tasks, the builders and the bridges
+assert {"sprc_tpu_torch.models.vqa", "sprc_tpu_torch.models.classification",
+        "sprc_tpu_torch.models.nlvr"} <= set(mods)
+assert {"blip_vqa", "albef_vqa", "blip_classification", "albef_classification", "blip_nlvr",
+        "albef_nlvr"} <= set(registry.list("model"))
+from sprc_tpu_torch.models import classification, nlvr, vqa
+assert all(callable(f) for f in (
+    vqa.vqa_train_step, vqa.init_vqa_state, vqa.VQAModel.rank_answers,
+    vqa.VQAModel.generate_answers, classification.classifier_train_step,
+    classification.classifier_rampup_alpha, nlvr.nlvr_train_step, nlvr.nlvr_rampup_alpha))
+assert generic.TASK_ADAPTERS["vqa"] is generic.VQAAdapter
+assert generic.TASK_ADAPTERS["multimodal_classification"] is generic.ClassificationAdapter
+from sprc_tpu_torch.train import eval_glue
+assert callable(eval_glue.make_vqa_predict_fn) and callable(eval_glue.make_classification_predict_fn)
+assert "multimodal_classification" in registry.list("task")
+assert {"snli_ve", "nlvr"} <= set(registry.list("dataset"))
+assert all(callable(f) for f in (jax_params.vqa_from_jax, jax_params.classifier_from_jax,
+                                 jax_params.nlvr_from_jax, jax_params.momentum_copies_from_jax))
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -135,7 +154,12 @@ for name, (run_yaml, _) in chip_smoke.MOMENTUM_TRAIN.items():
 assert loader.family_config("blip_retrieval", "pretrain").vit_config().seq_len == 577
 assert loader.family_config("albef_pretrain", "base").vit_config().seq_len == 197
 assert loader.family_config("albef_retrieval", "coco").queue_size == 65536
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
+for arch, (run_yaml, _, _) in chip_smoke.HEAD_TRAIN.items():
+    assert Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml]).model["arch"] == arch
+for which, run_yaml in chip_smoke.HEAD_EVAL.items():
+    assert Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml]).run["evaluate"] is True
+assert loader.family_config("blip_vqa", "vqav2").vit_config().seq_len == 901
+leaked =sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 """

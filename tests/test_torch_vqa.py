@@ -228,13 +228,15 @@ def test_evaluate_cli_vqa_equals_jax(arch, task, tmp_path, monkeypatch, capsys):
 
 
 def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """BLIP-1 / ALBEF's ranked VQA names ROADMAP A8.6; ``img2prompt_vqa``
+    """ALPRO's video QA names ROADMAP A8.6.5 (BLIP-1 / ALBEF's VQA, once
+    refused, runs: test_torch_blip_vqa_cli.py); ``img2prompt_vqa``
     (once refused) goes on to build its pipeline for any VQA task, whatever
     the run's ``inference_method``, as ``pnp_vqa`` does (both run:
     test_torch_pnp_vqa.py, test_torch_img2prompt.py); a
     BLIP-2 head asked for another ``inference_method`` than ``generate``
-    (the run's default ``rank`` included) A8.6, in the CLI and in the
-    glue; and the VQA glue refuses a model that is not an LLM head."""
+    (the run's default ``rank`` included) refuses, in the CLI and in the
+    glue, as ranking is BLIP-1 / ALBEF's; and the VQA glue refuses a model
+    that is not an LLM head."""
     import argparse
 
     from sprc_tpu_torch import loader
@@ -243,8 +245,8 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from sprc_tpu_torch.train.eval_glue import make_blip2_vqa_predict_fn
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
-    for task, arch in (("vqa", "blip_vqa"), ("aok_vqa", "albef_vqa")):
-        with pytest.raises(SystemExit, match="ROADMAP A8.6"):
+    for task, arch in (("vqa", "alpro_qa"), ("aok_vqa", "alpro_qa")):
+        with pytest.raises(SystemExit, match="ROADMAP A8.6.5"):
             evaluate.evaluate(Config(defaults={"run": {"task": task},
                                                "model": {"arch": arch}}), args)
     built = []
@@ -262,7 +264,7 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
     assert built == [("img2prompt_vqa", "base", None)] * 3
     monkeypatch.undo()
     for run in ({"task": "vqa", "inference_method": "rank"}, {"task": "gqa"}):
-        with pytest.raises(SystemExit, match="ROADMAP A8.6"):
+        with pytest.raises(SystemExit, match="answer generatively"):
             evaluate.evaluate(Config(defaults={"run": run, "model": {"arch": "blip2_t5"}}),
                               args)
     with pytest.raises(NotImplementedError, match="ROADMAP A8.6"):
@@ -270,5 +272,5 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
     section = _vqa_config("blip2_opt", "vqa", None, None)["model"]
     model = loader.load_model(section.pop("arch"), section.pop("model_type"), device="cpu",
                               **section)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.6"):
+    with pytest.raises(NotImplementedError, match="answer generatively"):
         make_blip2_vqa_predict_fn(model, None)({"text_input": ["q"]}, inference_method="rank")
