@@ -187,7 +187,7 @@ Phases (any failure raises and exits nonzero before the last line):
    from RUN_CONFIGS, and the script prints which):
    (a) cli/evaluate.py on eval/ret_coco_blip2_eval.yaml (blip2 / coco: EVA
        ViT-g at 364 px, the fp32 tower; 677 image rows) over 64 seeded PNG
-       images of mixed sizes, 5 captions each, run.k_test 16: the metric
+       images of mixed sizes, 2 captions each, run.k_test 16: the metric
        JSON, seconds by stage (image encode, text encode, stage 1 (K1), the
        ITM rescoring both ways), the launches (K1 once, the tower's 39 blocks,
        K3's 12 layers a Q-Former call), the peak; against the all-plain run:
@@ -335,7 +335,7 @@ Phases (any failure raises and exits nonzero before the last line):
        against all-plain at STAGE2_BOUNDS["rows"], from the pixels by the
        witnesses);
    (b) blip2_instruct_cir / vicuna7b: instruct_generate (KV-cached) over 32
-       prompts in two batches of 16 (unequal lengths, max_new_tokens 30):
+       prompts in two batches of 16 (unequal lengths, max_new_tokens 15):
        seconds by stage, ms a decoded token, one cached step's host and
        device ms (kernel_checks.profile_decode_step), the peak, the launches;
        the recompute path on 4 rows and 8 tokens against the cached path;
@@ -440,6 +440,37 @@ Phases (any failure raises and exits nonzero before the last line):
    holds K2 at S = 901 and B = 16 without a graph and through FusedViTBlock
    (forward, forward + backward), its bf16 attention and a block's four bf16
    products (kernel_checks.run_vqa); S = 577 is phase 17's.
+20. BLIP-1 captioning and the CIR feature extractor (models/blip1.py;
+   random weights from seed 0, the synthetic vocab, full width). 20a:
+   cli/train.py on caption_coco_ft.yaml (ViT-B/16) and
+   caption_coco_large_ft.yaml (ViT-L/16), both at 384 px and the YAMLs'
+   batch of 32, 3 and 2 steps: step ms, samples/s, peak, K2 a step (12 / 24,
+   the tower trained through FusedViTBlock); then the same steps all-plain
+   from the same weights, batches and dropout masks, and one step's
+   gradients with the tower's K2 launches stage by stage, within
+   TRAIN_BOUNDS["live"]; no last_state.pt is written. 20b: cli/evaluate.py
+   on eval/caption_coco_eval.yaml over 32 images at batch 16 (the greedy
+   decode of 20 tokens after "[DEC] a picture of"): seconds by stage, ms a
+   decoded token, 12 K2 a batch; the tower's rows against the plain tower's,
+   and the all-plain decode from the kernel tower's rows: the same captions
+   and metrics. 20c: extract_features of blip_feature_extractor / base on
+   64 images and 64 captions with seeded prompts: K2 12 (ViT-B/16, 224 px)
+   and K3 12 (the med-BERT's text pass) launches, both stage by stage
+   within STAGE_BOUNDS.
+21. CLIP (models/clip.py, models/resnet_clip.py): cli/evaluate.py on
+   eval/exp_coco_ret_eval.yaml (vit_large14_336, fp32, over 32 images x 5
+   captions) and eval/imnet_zs_eval.yaml (64 images at one batch, 50
+   label-derived classes x the 80 templates; the BERT WordPiece fallback
+   tokenizes, as in the JAX CLI): 24 K2 a tower call; the tower's features
+   against the plain tower's within CLIP_FEATURE_REL, and from the kernel
+   tower's features the all-plain recalls and predictions equal; then
+   extract_features of vit_base32 (K2 at S = 50, stage by stage) and
+   resnet50 (no kernel) on 64 images, and one 32-image ViT-L/14-336 batch
+   stage by stage. The kernel phase holds K2 through FusedViTBlock at the
+   ViT-L/16 captioner's B = 32, S = 577 with its bf16 attention, K3 at the
+   CIR text pass (kernel_checks.run_blip_caption), and K2 in fp32 with its
+   attention at CLIP ViT-L/14-336's B = 32 and 64 and ViT-B/32's S = 50
+   (kernel_checks.run_clip).
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -717,6 +748,42 @@ RUN_CONFIGS = {
        for name, arch, model_type, builder in (
            ("snli_ve", "albef_classification", "ve", "snli_ve"),
            ("nlvr", "blip_nlvr", "nlvr", "nlvr"), ("nlvr_albef", "albef_nlvr", "nlvr", "nlvr"))},
+    **{name: {
+        "run": {"task": "captioning", "batch_size": 32, "max_epochs": 5,
+                "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 40, "seed": 42},
+        "model": {"arch": "blip_caption", **model},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"train": []}, "images": ""},
+            "vis_processor": {"train": {"name": "blip_image_train", "image_size": 384},
+                              "eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"train": {"name": "blip_caption", "prompt": "a picture of "},
+                               "eval": {"name": "blip_caption"}}}}}
+       for name, model in (("caption_coco_ft.yaml", {"image_size": 384}),
+                           ("caption_coco_large_ft.yaml", {"model_type": "large_coco"}))},
+    "eval/caption_coco_eval.yaml": {
+        "run": {"task": "captioning", "evaluate": True, "batch_size_eval": 16, "num_beams": 3,
+                "max_len": 20, "min_len": 5, "prompt": "a picture of ", "test_splits": ["test"]},
+        "model": {"arch": "blip_caption", "model_type": "base_coco"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 384}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "eval/exp_coco_ret_eval.yaml": {
+        "run": {"task": "retrieval", "evaluate": True, "k_test": 128, "max_txt_len": 77,
+                "test_splits": ["test"]},
+        "model": {"arch": "clip", "model_type": "vit_large14_336"},
+        "datasets": {"coco_retrieval": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 336}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "eval/imnet_zs_eval.yaml": {
+        "run": {"task": "multimodal_classification", "evaluate": True, "batch_size_eval": 128,
+                "test_splits": ["val"]},
+        "model": {"arch": "clip", "model_type": "vit_large14_336"},
+        "datasets": {"imagenet": {
+            "build_info": {"annotations": {"val": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 336}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
     "retrieval_coco_blip2_ft.yaml": {
         "run": {"task": "image_text_pretrain", "batch_size": 32, "max_epochs": 5,
                 "learning_rate": "1e-5", "weight_decay": 0.05, "max_txt_len": 32, "seed": 42},
@@ -757,12 +824,12 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s (nvcc log: {(_ext.BUILD_DIR / 'nvcc.log').relative_to(ROOT)})")
 
 
-def phase_kernels():
+def phase_kernels(run=None):
     from sprc_tpu_torch import kernel_checks
 
     assert (kernel_checks.ENCODE_BATCH, kernel_checks.QUERY_BATCH, kernel_checks.GALLERY) == (
         ENCODE_BATCH, QUERY_BATCH, GALLERY), "the kernel checks run at the main path's shapes"
-    rows = kernel_checks.run_all("cuda")
+    rows = (run or kernel_checks.run_all)("cuda")
     sync()
     for row in rows:
         timing = (f" kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
@@ -2393,7 +2460,8 @@ def phase_variants(work):
 # STAGE1_K_TEST; 10b cli/train.py on pretrain_stage1.yaml (blip2 / pretrain:
 # EVA ViT-g 224 px, bf16, frozen) at the YAML's batch of 100 over STAGE1_PAIRS
 # pairs (one epoch: 2 steps)
-STAGE1_IMAGES, STAGE1_CAPTIONS, STAGE1_K_TEST = 64, 5, 16
+# (2 captions an image for the run's time limit; the ITM rescoring is a call a query)
+STAGE1_IMAGES, STAGE1_CAPTIONS, STAGE1_K_TEST = 64, 2, 16
 STAGE1_PAIRS = 200
 # 10a against the all-plain run (primitives.plain_reference), stage by stage:
 # K1's scores on the kernel run's features within K1's own bound (1e-4, as
@@ -4156,7 +4224,7 @@ INSTRUCT = {"retrieval": ("blip2_vicuna_instruct", "vicuna7b"),
             "generate": ("blip2_instruct_cir", "vicuna7b")}
 INSTRUCT_GALLERY, INSTRUCT_BATCH, INSTRUCT_QUERIES = 64, 16, 32
 INSTRUCT_LLM_LENGTHS = (8, 32)  # a LLaMA prompt's ids, bos and eos included; padded to 32
-INSTRUCT_NEW_TOKENS = 30
+INSTRUCT_NEW_TOKENS = 15  # cut for the run's time limit
 INSTRUCT_UNCACHED = (4, 8)
 INSTRUCT_TRAIN_BATCH, INSTRUCT_STEPS = 8, 3
 LLAMA_IDS = {"pad": 0, "eos": 2, "bos": 1}  # LLaMA's tokenizer convention
@@ -6135,18 +6203,64 @@ def _answer_list(seed):
     return out
 
 
+def _cli_train_run(cfg, args):
+    """cli/train.py on ``cfg`` with every step timed (each ends in a host
+    read of its losses) and its launches counted, and the run's
+    last_state.pt not written (4 to 6 GB of fp32 weights, AdamW moments and
+    momentum copies: the card machine's disk takes 45 GiB of writes a call,
+    and the earlier phases' checkpoints use most of them) -> a dict of the
+    log's step rows, step ms, per-step launches, the run's launches, peak
+    GiB, seconds, the skipped writes and the trainer."""
+    from sprc_tpu_torch.cli import train as train_cli
+    from sprc_tpu_torch.train import checkpoint, generic
+
+    counters = _counters()
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    real_step, real_save = generic.GenericTrainer.train_step, checkpoint.save_state
+    out = {"times": [], "per_step": [], "skipped": []}
+
+    def timed_step(self, batch):
+        out["trainer"] = self
+        before = read()
+        t0 = time.perf_counter()
+        metrics = real_step(self, batch)
+        out["times"].append((time.perf_counter() - t0) * 1e3)
+        out["per_step"].append({k: v - before[k] for k, v in read().items() if v != before[k]})
+        return metrics
+
+    generic.GenericTrainer.train_step = timed_step
+    checkpoint.save_state = lambda path, trainer: out["skipped"].append(os.path.basename(path))
+    try:
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.train(cfg, args)
+        sync()
+        out["run_s"] = time.perf_counter() - t0
+        out["launches"] = read()
+        out["peak"] = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        generic.GenericTrainer.train_step, checkpoint.save_state = real_step, real_save
+    with open(os.path.join(args.output_dir, "log.jsonl")) as f:
+        out["rows"] = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    return out
+
+
 def phase_head_train(work, arch):
     """18a / 18b / 19a: one VQA or classification YAML through cli/train.py,
     then the same steps all-plain (phases 18 and 19 of the docstring)."""
     import argparse
     import shutil
 
-    from sprc_tpu_torch.cli import train as train_cli
     from sprc_tpu_torch.loader import load_model
     from sprc_tpu_torch.ops import primitives
     from sprc_tpu_torch.registry import registry
     from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
-    from sprc_tpu_torch.train import checkpoint, generic
+    from sprc_tpu_torch.train import generic
     from sprc_tpu_torch.train.loop import TrainConfig
     from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
 
@@ -6167,46 +6281,13 @@ def phase_head_train(work, arch):
     log(f"[{tag}] cli/train.py through {how}")
     args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
                               device=DEVICE, data_path=None)
-    counters = _counters()
-
-    def read():
-        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-
-    real_step, real_save = generic.GenericTrainer.train_step, checkpoint.save_state
-    times, per_step, kept, skipped = [], [], {}, []
-
-    def timed_step(self, batch):
-        kept["trainer"] = self
-        before = read()
-        t0 = time.perf_counter()
-        metrics = real_step(self, batch)  # ends in a host read of the losses
-        times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append({k: v - before[k] for k, v in read().items() if v != before[k]})
-        return metrics
-
-    # the run's last_state.pt (4 to 6 GB of fp32 weights, AdamW moments and
-    # momentum copies) is not written: the card machine's disk takes 45 GiB of
-    # writes a call, and the earlier phases' checkpoints use most of them
-    generic.GenericTrainer.train_step = timed_step
-    checkpoint.save_state = lambda path, trainer: skipped.append(os.path.basename(path))
-    try:
-        for obj, attr in counters.values():
-            setattr(obj, attr, 0)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        train_cli.train(cfg, args)
-        sync()
-        run_s = time.perf_counter() - t0
-        launches = read()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        generic.GenericTrainer.train_step, checkpoint.save_state = real_step, real_save
-    trainer = kept.pop("trainer")
+    run = _cli_train_run(cfg, args)
+    k_rows, times, per_step, launches, peak, run_s, skipped = (run[k] for k in (
+        "rows", "times", "per_step", "launches", "peak", "run_s", "skipped"))
+    trainer = run.pop("trainer")
     k_aux = trainer.aux
     param_count = sum(p.numel() for p in trainer.model.parameters())
-    del trainer
-    with open(os.path.join(out, "log.jsonl")) as f:
-        k_rows = [r for r in map(json.loads, f) if r["kind"] == "step"]
+    del trainer, run
     log(f"[{tag}] {len(k_rows)} steps at batch {batch_size} ({param_count / 1e6:.1f} M "
         f"parameters): ms " + ", ".join(f"{t:.1f}" for t in times)
         + f"; samples/s (last step) {batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; "
@@ -6438,6 +6519,530 @@ def heads_kernels(rows, train, evals):
          "ms": sum(r["ms"] for r in gemms), "plain_ms": sum(r["plain_ms"] for r in gemms),
          **bound_ms(work), "library_ms": sum(r["library_ms"] for r in gemms)}]
 
+# Phase 20, BLIP-1 captioning and the CIR feature extractor; phase 21, CLIP (both
+# at full width, random weights from seed 0, the synthetic vocab, seeded PNG
+# images). 20a: cli/train.py on caption_coco_ft.yaml (ViT-B/16) and
+# caption_coco_large_ft.yaml (ViT-L/16), both at 384 px (S = 577) and the
+# YAMLs' batch of 32, the tower trained through FusedViTBlock; 20b:
+# cli/evaluate.py on eval/caption_coco_eval.yaml over CAPTION_EVAL_IMAGES;
+# 20c: extract_features of blip_feature_extractor / base (ViT-B/16 at 224 px,
+# the med-BERT's text pass through K3) on FEATURE_ITEMS images and captions.
+CAPTION_TRAIN = {"base": ("caption_coco_ft.yaml", 3, 12),
+                 "large": ("caption_coco_large_ft.yaml", 2, 24)}  # run, steps, K2 a step
+CAPTION_EVAL = "eval/caption_coco_eval.yaml"
+CAPTION_EVAL_IMAGES = 32
+FEATURE_ITEMS = 64
+# K2 a tower call: ViT-B 12 blocks, ViT-L 24; K3 a BlipCirBase text pass: 12 layers
+TOWER_LAUNCHES = {"vit_b": 12, "vit_l": 24}
+CIR_TEXT_LAUNCHES = 12
+# 21: CLIP vit_large14_336 (fp32, S = 577) through cli/evaluate.py:
+# exp_coco_ret_eval.yaml over CLIP_RET_SPLIT (images, captions an image) and
+# imnet_zs_eval.yaml over CLIP_ZS_SPLIT (images, label-derived classes) at one
+# batch of 64 (the YAML's 128 would pad the 64 images to 128); then
+# extract_features of vit_base32 (S = 50) and resnet50 on CLIP_FEATURE_IMAGES
+CLIP_RET = "eval/exp_coco_ret_eval.yaml"
+CLIP_ZS = "eval/imnet_zs_eval.yaml"
+CLIP_RET_SPLIT = (32, 5)
+CLIP_ZS_SPLIT = (64, 50)
+CLIP_FEATURE_IMAGES = 64
+# Bounds, fixed before the first reading. 20a: the kernel run's losses against
+# the all-plain run's on the same weights, batches and dropout masks, and one
+# step's gradients (the tower's K2 launches stage by stage inside it), within
+# TRAIN_BOUNDS["live"]; 20b, 21: the tower's rows (20b: bf16 ViT-B/16) or
+# features (21: the fp32 tower, every product in 3xTF32 against true fp32:
+# 24 blocks of VIT_F32_REL's 3e-6 at most, held at 1e-4 of the features'
+# largest |value|) against the plain tower's on the same pixels; from the
+# kernel tower's rows the all-plain run (the decoder, text tower and ranking
+# run no kernel) gives the same captions, recalls and predictions.
+CAPTION_ROW_BOUNDS = HEAD_BOUNDS["rows"]
+CLIP_FEATURE_REL = 1e-4
+
+
+def _write_labels(root, n, classes, seed):
+    """``n`` seeded PNG images with labels 0..classes-1 (each class at least
+    once: the labels are the zero-shot classes); the annotation path."""
+    path = _write_pairs(root, n, 0, seed, "zs")
+    with open(path) as f:
+        ann = [{"image": a["image"], "label": i % classes} for i, a in enumerate(json.load(f))]
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def _images(n, size, seed):
+    """``n`` seeded images [n, size, size, 3] float32 (the gallery's draws)."""
+    return next(iter(_gallery_batches(n, n, size, seed)))[1]
+
+
+# the layer-level kernels (each chain's primitives count apart)
+LAYER_KERNELS = ("token_max_sim", "fused_vit_block", "fused_attn_block", "fused_mlp_block",
+                 "flash_attention", "fused_qformer_layer", "fused_vit_block_i8",
+                 "fused_qformer_layer_int8")
+
+
+def _grads(model):
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    return [n for n, _ in named], [p.grad.detach().float().clone() for _, p in named]
+
+
+def phase_caption_train(work, which):
+    """20a: one BLIP-1 caption YAML through cli/train.py, then the same steps
+    all-plain, and one step's gradients kernel against plain."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name, steps, per_step_k2 = CAPTION_TRAIN[which]
+    tag = f"caption train {which}"
+    t_phase = time.perf_counter()
+    batch_size = RUN_CONFIGS[name]["run"]["batch_size"]
+    root = os.path.join(work, f"caption_{which}")
+    ann = _write_pairs(root, batch_size * steps, 0, SEED + 200, "cap")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, f"caption_{which}_train")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, how = _run_config(name, {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {"coco_caption": {"build_info": {"annotations": {"train": [ann]},
+                                                     "images": root}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    run = _cli_train_run(cfg, args)
+    run.pop("trainer")
+    k_rows, times, per_step, launches, peak, run_s, skipped = (run[k] for k in (
+        "rows", "times", "per_step", "launches", "peak", "run_s", "skipped"))
+    log(f"[{tag}] {len(k_rows)} steps at batch {batch_size}: ms "
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f"; samples/s (last step) {batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; "
+        f"run {run_s:.1f} s; losses " + ", ".join(f"{r['loss']:.4f}" for r in k_rows))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}; state writes skipped: {skipped}")
+    if len(k_rows) != steps or any(r["skipped_nonfinite"] for r in k_rows) or not all(
+            np.isfinite(r["loss"]) for r in k_rows):
+        raise RuntimeError(f"{tag}: steps {k_rows}")
+    if any(p.get("fused_vit_block") != per_step_k2 for p in per_step):
+        raise RuntimeError(f"{tag}: K2 launches a step {per_step}, expected {per_step_k2} "
+                           "(one FusedViTBlock a block)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run: the same weights (the run's seed), batches and dropout masks
+    model_cfg = dict(cfg.model)
+    model_cfg.pop("arch")
+    model_type = model_cfg.pop("model_type", "pretrain")
+    model = load_model("blip_caption", model_type, device=DEVICE, seed=SEED, **model_cfg)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+    datasets = registry.get("dataset", "coco_caption")(dict(cfg.datasets["coco_caption"])).build()
+    adapter = generic.TASK_ADAPTERS["captioning"](
+        tokenizer, max_txt_len=int(cfg.run["max_txt_len"])).specialize(model)
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED, device=DEVICE)
+    first = task.prepare_batch(next(iter(task.train_loader(0))))
+    # one step's gradients from the same weights, batch and dropout masks: the
+    # kernel forward with its K2 launches stage by stage, then all-plain
+    model.train()
+    grads, stages = {}, kernel_checks.StageRecorder()
+    for kind in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(primitives.stage_check(stages) if kind == "kernel"
+                                else primitives.plain_reference())
+            loss = adapter.forward(model, first, gen)["loss"]
+            loss.backward()
+        sync()
+        grads[kind] = (loss.item(), *_grads(model))
+    model.zero_grad(set_to_none=True)
+    (k_loss, names, k_grads), (p_loss, _, p_grads) = grads["kernel"], grads["plain"]
+    grad = kernel_checks.grad_gap(k_grads, p_grads, names)
+    del grads, k_grads, p_grads
+    # the all-plain steps, over batches drawn again (the train processor's
+    # random crops and RandAugment draw from its own seeded state)
+    datasets = registry.get("dataset", "coco_caption")(dict(cfg.datasets["coco_caption"])).build()
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED, device=DEVICE)
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]),
+                       weight_decay=float(cfg.run["weight_decay"]), total_steps=steps)
+    plain = generic.GenericTrainer(model, tcfg, seed=SEED, adapter=adapter, skip_nonfinite=True,
+                                   decay_frozen=True)
+    with primitives.plain_reference():
+        p_rows = [plain.train_step(task.prepare_batch(b)) for b in task.train_loader(0)]
+    sync()
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = TRAIN_BOUNDS["live"]
+    gaps = {"loss": max(abs(k["loss"] - p["loss"]) / max(abs(p["loss"]), 1e-6)
+                        for k, p in zip(k_rows, p_rows)),
+            "step_loss": abs(k_loss - p_loss) / max(abs(p_loss), 1e-6), "grad": grad["gap"]}
+    for row in stages.rows():
+        log(f"[{tag}] one step's tower, stage by stage: {row['kind']}: {row['calls']} calls, "
+            f"worst share that differs {row['differ']:.3e}, worst difference {row['err']:.3e} -> "
+            f"{'ok' if row['ok'] else 'FAIL'}")
+    log(f"[{tag}] all-plain losses " + ", ".join(f"{r['loss']:.6f}" for r in p_rows)
+        + "; the kernel run's " + ", ".join(f"{r['loss']:.6f}" for r in k_rows))
+    log(f"[{tag}] the kernel run against the all-plain run: losses {gaps['loss']:.3e}, one "
+        f"step's loss {gaps['step_loss']:.3e} (bound {bound['loss']:.0e}), its gradients "
+        f"{grad['gap']:.3e} (bound {bound['grad']}; worst {grad['worst']})")
+    if (not stages.ok() or max(gaps["loss"], gaps["step_loss"]) > bound["loss"]
+            or grad["gap"] > bound["grad"] or len(p_rows) != steps):
+        raise RuntimeError(f"{tag}: against the all-plain run {gaps}, stages ok "
+                           f"{stages.ok()}, {len(p_rows)} steps")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "losses": [r["loss"] for r in k_rows],
+            "launches": launches, "launches_step": per_step, "gaps": gaps,
+            "stages": stages.rows(), "seconds": seconds}
+
+
+@contextlib.contextmanager
+def _record_replay(cls, method, rows, gaps):
+    """``cls.method`` recorded (the kernel run: its outputs kept) while the
+    context's ``mode[0]`` is "kernel", replayed (the plain run: the plain
+    method's output held against the kept one, the kept one returned)
+    otherwise."""
+    from sprc_tpu_torch.ops import primitives
+
+    real = getattr(cls, method)
+    mode = ["kernel"]
+
+    def wrapped(self, *a, **kw):
+        if mode[0] == "kernel":
+            out = real(self, *a, **kw)
+            rows.append(out.clone())
+            return out
+        with primitives.plain_reference():
+            plain = real(self, *a, **kw)
+        kept = rows[len(gaps)]
+        d = (plain.float() - kept.float()).abs()
+        gaps.append((d.max().item(), d.mean().item(), kept.float().abs().max().item()))
+        return kept
+
+    setattr(cls, method, wrapped)
+    try:
+        yield mode
+    finally:
+        setattr(cls, method, real)
+
+
+def _eval_twice(tag, cfg, work, name, vocab, cls, method, counters):
+    """cli/evaluate.py on ``cfg`` with the kernels, then all-plain from the
+    kernel run's ``cls.method`` outputs -> (runs, rows gaps)."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate as evaluate_cli
+    from sprc_tpu_torch.ops import primitives
+
+    rows, gaps, runs = [], [], {}
+    with _record_replay(cls, method, rows, gaps) as mode:
+        for kind in ("kernel", "plain"):
+            mode[0] = kind
+            for obj, attr in counters.values():
+                setattr(obj, attr, 0)
+            stats = {}
+            args = argparse.Namespace(model_path=None, vocab_path=vocab, split=None,
+                                      device=DEVICE,
+                                      output_dir=os.path.join(work, f"{name}_{kind}"))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if kind == "plain":
+                    stack.enter_context(primitives.plain_reference())
+                metrics = evaluate_cli.evaluate(cfg, args, stats=stats)
+            sync()
+            seconds = time.perf_counter() - t0
+            result_dir = os.path.join(args.output_dir, "result")
+            results = []
+            if os.path.isdir(result_dir):
+                for fname in sorted(os.listdir(result_dir)):
+                    with open(os.path.join(result_dir, fname)) as f:
+                        results.append(json.load(f))
+            runs[kind] = {"metrics": metrics, "stats": stats, "seconds": seconds,
+                          "results": results, "peak": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": {k: getattr(o, a) for k, (o, a) in counters.items()
+                                       if getattr(o, a)}}
+            log(f"[{tag}] {kind}: {seconds:.2f} s; by stage "
+                + ", ".join(f"{s} {v:.3f}" for s, v in stats.items())
+                + f"; peak {runs[kind]['peak']:.2f} GiB; launches {runs[kind]['launches']}; "
+                f"metrics {metrics}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    if len(gaps) != len(rows) or not rows:
+        raise RuntimeError(f"{tag}: {len(rows)} kernel tower calls, {len(gaps)} replayed")
+    return runs, [max(g[i] for g in gaps) for i in range(3)]
+
+
+def phase_caption_eval(work):
+    """20b: cli/evaluate.py on eval/caption_coco_eval.yaml, then all-plain
+    from the kernel tower's rows."""
+    from sprc_tpu_torch.models.blip1 import BlipCaption
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "caption eval"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "caption_eval")
+    ann = _write_pairs(root, CAPTION_EVAL_IMAGES, 5, SEED + 201, "ce")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(CAPTION_EVAL, {
+        "run": {"seed": SEED},
+        "datasets": {"coco_caption": {"build_info": {"annotations": {"test": [ann]},
+                                                     "images": root}}}})
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    counters = _counters()
+    runs, (rows_max, rows_mean, _) = _eval_twice(tag, cfg, work, "caption_eval", vocab,
+                                                 BlipCaption, "encode_image", counters)
+    k, p = runs["kernel"], runs["plain"]
+    batches = -(-CAPTION_EVAL_IMAGES // RUN_CONFIGS[CAPTION_EVAL]["run"]["batch_size_eval"])
+    want = TOWER_LAUNCHES["vit_b"] * batches
+    ms_token = 1e3 * k["stats"]["decode"] / max(k["stats"]["steps"], 1)
+    captions = [r["caption"] for r in k["results"][0]] if k["results"] else []
+    log(f"[{tag}] the tower's rows, kernel against plain on the same pixels: max "
+        f"{rows_max:.3e}, mean {rows_mean:.3e} (bound {CAPTION_ROW_BOUNDS}); from the kernel "
+        f"tower's rows the all-plain captions "
+        f"{'equal' if k['results'] == p['results'] else 'DIFFER'}, metrics "
+        f"{'equal' if k['metrics'] == p['metrics'] else 'DIFFER'}; decode {ms_token:.2f} ms a "
+        f"token ({k['stats']['steps']} steps of 16 rows); K2 {want} expected; e.g. {captions[:2]}")
+    if k["launches"].get("fused_vit_block") != want or p["launches"]:
+        raise RuntimeError(f"{tag}: launches {k['launches']} (kernel), {p['launches']} (plain); "
+                           f"expected {want} K2 and none")
+    if (k["results"] != p["results"] or k["metrics"] != p["metrics"]
+            or len(captions) != CAPTION_EVAL_IMAGES or "agg_metrics" not in k["metrics"]
+            or rows_max > CAPTION_ROW_BOUNDS[0] or rows_mean > CAPTION_ROW_BOUNDS[1]):
+        raise RuntimeError(f"{tag}: the kernel evaluation disagrees with the all-plain one")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": k["metrics"], "stages_s": k["stats"], "ms_per_token": ms_token,
+            "seconds_kernel": k["seconds"], "seconds_plain": p["seconds"],
+            "peak_memory_gib": k["peak"], "launches": k["launches"],
+            "rows_gap": [rows_max, rows_mean], "seconds": seconds}
+
+
+def _features_pass(tag, model, samples, tokenizer, counters, modes, want):
+    """``extract_features`` in ``modes`` with the kernels (the layer kernels'
+    launches checked against ``want``), once more stage by stage and
+    all-plain: -> (features, every counter that moved, stage rows, the
+    free-running gaps, seconds)."""
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.features import extract_features
+    from sprc_tpu_torch.ops import primitives
+
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    got = {m: extract_features(model, samples, m, tokenizer=tokenizer) for m in modes}
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {k: getattr(o, a) for k, (o, a) in counters.items() if getattr(o, a)}
+    layers = {k: v for k, v in launches.items() if k in LAYER_KERNELS}
+    stages = kernel_checks.StageRecorder()
+    with primitives.stage_check(stages):
+        for m in modes:
+            extract_features(model, samples, m, tokenizer=tokenizer)
+    sync()
+    with primitives.plain_reference():
+        plain = {m: extract_features(model, samples, m, tokenizer=tokenizer) for m in modes}
+    free = {}
+    for m in modes:
+        for field in ("image_embeds_proj", "text_embeds_proj"):
+            a, b = getattr(got[m], field), getattr(plain[m], field)
+            if a is not None:
+                free[f"{m} {field}"] = float(np.abs(a - b).max())
+    log(f"[{tag}] extract_features {modes}: {seconds:.2f} s; launches {launches} (layers: "
+        f"{want} expected); the all-plain features, max |difference| {free}")
+    for row in stages.rows():
+        log(f"[{tag}] stage by stage: {row['kind']}: {row['calls']} calls, worst share that "
+            f"differs {row['differ']:.3e}, worst difference {row['err']:.3e} -> "
+            f"{'ok' if row['ok'] else 'FAIL'}")
+    if layers != want or (want and not stages.ok()) or (not want and launches):
+        raise RuntimeError(f"{tag}: launches {launches} (expected {want}), stages ok "
+                           f"{stages.ok()}")
+    return got, launches, stages.rows(), free, seconds
+
+
+def phase_cir_features(work):
+    """20c: extract_features of blip_feature_extractor / base."""
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "cir features"
+    t_phase = time.perf_counter()
+    model = load_model("blip_feature_extractor", "base", device=DEVICE, seed=SEED)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(
+        write_synthetic_bert_vocab(os.path.join(work, "vocab.txt")))
+    rng = np.random.default_rng(SEED + 202)
+    cfg = model.cfg
+    samples = {"image": _images(FEATURE_ITEMS, 224, SEED + 203),
+               "text_input": [" ".join(rng.choice(STAGE1_WORDS, int(rng.integers(4, 30))))
+                              for _ in range(FEATURE_ITEMS)],
+               "prompts": (0.02 * rng.standard_normal(
+                   (FEATURE_ITEMS, cfg.num_prompts, cfg.text_config().hidden_size))).astype(
+                       np.float32)}
+    counters = _counters()
+    want = {"fused_vit_block": TOWER_LAUNCHES["vit_b"], "fused_qformer_layer": CIR_TEXT_LAUNCHES}
+    got, launches, stages, free, seconds = _features_pass(
+        tag, model, samples, tokenizer, counters, ("image", "text"), want)
+    feats = (got["image"].image_embeds_proj, got["text"].text_embeds_proj)
+    ok = all(f.shape == (FEATURE_ITEMS, cfg.embed_dim) and np.isfinite(f).all()
+             and np.allclose(np.linalg.norm(f, axis=1), 1.0, atol=1e-4) for f in feats)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"{tag}: features not unit rows of [{FEATURE_ITEMS}, {cfg.embed_dim}]")
+    total = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {total:.1f} s")
+    return {"launches": launches, "stages": stages, "free_running": free,
+            "extract_s": seconds, "seconds": total}
+
+
+def phase_clip_eval(work, which):
+    """21: CLIP's retrieval or zero-shot evaluation through cli/evaluate.py,
+    then all-plain from the kernel tower's features; one batch stage by stage."""
+    from sprc_tpu_torch.models.clip import Clip
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name = CLIP_RET if which == "retrieval" else CLIP_ZS
+    tag = f"clip {which}"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, f"clip_{which}")
+    if which == "retrieval":
+        n, captions = CLIP_RET_SPLIT
+        ann = _write_pairs(root, n, captions, SEED + 210, "cr")
+        over = {"datasets": {"coco_retrieval": {"build_info": {
+            "annotations": {"test": [ann]}, "images": root}}}}
+    else:
+        n, classes = CLIP_ZS_SPLIT
+        ann = _write_labels(root, n, classes, SEED + 211)
+        over = {"run": {"batch_size_eval": n}, "datasets": {"imagenet": {"build_info": {
+            "annotations": {"val": [ann]}, "images": root}}}}
+    over.setdefault("run", {})["seed"] = SEED
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    cfg, how = _run_config(name, over)
+    log(f"[{tag}] cli/evaluate.py through {how}")
+    counters = _counters()
+    runs, (f_max, f_mean, f_top) = _eval_twice(tag, cfg, work, f"clip_{which}", vocab, Clip,
+                                               "encode_image", counters)
+    k, p = runs["kernel"], runs["plain"]
+    want = TOWER_LAUNCHES["vit_l"] * (1 if which == "zero_shot" else -(-n // 64))
+    log(f"[{tag}] the tower's features, kernel against plain on the same pixels: max "
+        f"{f_max:.3e} of {f_top:.3e} ({f_max / f_top:.3e}; bound {CLIP_FEATURE_REL:.0e}), mean "
+        f"{f_mean:.3e}; from the kernel tower's features the all-plain results "
+        f"{'equal' if k['results'] == p['results'] else 'DIFFER'}, metrics "
+        f"{'equal' if k['metrics'] == p['metrics'] else 'DIFFER'}; K2 {want} expected")
+    if k["launches"].get("fused_vit_block") != want or p["launches"]:
+        raise RuntimeError(f"{tag}: launches {k['launches']} (kernel), {p['launches']} (plain); "
+                           f"expected {want} K2 and none")
+    if (k["results"] != p["results"] or k["metrics"] != p["metrics"]
+            or "agg_metrics" not in k["metrics"] or f_max > CLIP_FEATURE_REL * f_top):
+        raise RuntimeError(f"{tag}: the kernel evaluation disagrees with the all-plain one")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": k["metrics"], "stages_s": k["stats"], "seconds_kernel": k["seconds"],
+            "seconds_plain": p["seconds"], "peak_memory_gib": k["peak"],
+            "launches": k["launches"], "features_gap": [f_max, f_mean, f_top],
+            "seconds": seconds}
+
+
+def phase_clip_features(work):
+    """21: extract_features of CLIP vit_base32 (K2 at S = 50) and resnet50 (no
+    kernel) on CLIP_FEATURE_IMAGES images; the CLIP ViT-L/14-336 tower's one
+    batch stage by stage."""
+    from sprc_tpu_torch.loader import load_model
+
+    tag = "clip features"
+    t_phase = time.perf_counter()
+    counters = _counters()
+    out = {}
+    for model_type, want in (("vit_base32", {"fused_vit_block": TOWER_LAUNCHES["vit_b"]}),
+                             ("resnet50", {})):
+        model = load_model("clip", model_type, device=DEVICE, seed=SEED)
+        samples = {"image": _images(CLIP_FEATURE_IMAGES, 224, SEED + 212)}
+        got, launches, stages, free, seconds = _features_pass(
+            f"{tag} {model_type}", model, samples, None, counters, ("image",), want)
+        feats = got["image"].image_embeds_proj
+        if feats.shape != (CLIP_FEATURE_IMAGES, model.cfg.embed_dim) or not np.isfinite(
+                feats).all():
+            raise RuntimeError(f"{tag} {model_type}: features {feats.shape}")
+        out[model_type] = {"launches": launches, "stages": stages, "free_running": free,
+                           "extract_s": seconds}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the ViT-L/14-336 tower of 21's evaluations, one 32-image batch stage by stage
+    model = load_model("clip", "vit_large14_336", device=DEVICE, seed=SEED)
+    images = torch.from_numpy(_images(CLIP_RET_SPLIT[0], 336, SEED + 213)).to(DEVICE)
+    out["vit_large14_336_stages"] = stage_pass(tag, "a 32-image ViT-L/14-336 batch", counters,
+                                               lambda: model.encode_image(images))
+    del model, images
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {out['seconds']:.1f} s")
+    return out
+
+
+def caption_clip_kernels(rows, caption_train, caption_eval, cir, clip_eval, clip_feats):
+    """The kernel rows of phases 20 and 21: K2 through FusedViTBlock at the
+    captioners' towers (its launches 20a's), K2 without a graph at the
+    caption evaluation's and the CIR extractor's shapes (20b, 20c), K3 at the
+    extractor's text pass (20c), K2 in fp32 at CLIP ViT-L/14-336 and ViT-B/32
+    and the fp32 attention of its chain (21), the ViT-L captioner's bf16
+    attention (20a)."""
+    from sprc_tpu_torch.kernel_checks import bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+
+    def entry(name, check, launches, source, replaces, library=True):
+        r = by_check[check]
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], **bound_ms(r),
+               "library_ms": r.get("library_ms") if library else None}
+        if "fwd_bwd_ms" in r:
+            out.update(fwd_bwd_ms=r["fwd_bwd_ms"], plain_fwd_bwd_ms=r["plain_fwd_bwd_ms"])
+        return out
+
+    k2 = ("sprc_tpu_torch/ops/fused_block.py", "sprc_tpu/ops/pallas_block.py:609")
+    k3 = ("sprc_tpu_torch/ops/fused_qformer.py", "sprc_tpu/ops/pallas_qformer.py:360")
+    k8 = ("sprc_tpu_torch/csrc/attention.cu", "sprc_tpu/ops/pallas_attention.py:428")
+    clip_l = sum(r["launches"].get("fused_vit_block", 0) for r in clip_eval.values())
+    clip_attn = sum(r["launches"].get("attention_f32", 0) for r in clip_eval.values())
+    return [
+        entry("fused_vit_block (FusedViTBlock, BLIP-1 caption ViT-B/16, 384 px)",
+              "FusedViTBlock blip_b bf16 S=577 B=32",
+              caption_train["base"]["launches"]["fused_vit_block"], *k2, library=False),
+        entry("fused_vit_block (FusedViTBlock, BLIP-1 caption ViT-L/16, 384 px)",
+              "FusedViTBlock blip_l bf16 S=577 B=32",
+              caption_train["large"]["launches"]["fused_vit_block"], *k2, library=False),
+        entry("attention bf16 (BLIP-1 caption ViT-L/16, 384 px)",
+              "attention D=64 bf16 blip_l S=577 B=32",
+              caption_train["large"]["launches"]["attention_bf16"], *k8),
+        entry("fused_vit_block (BLIP-1 caption evaluation, ViT-B/16, 384 px)",
+              "K2 vit_block blip_b S=577 B=16", caption_eval["launches"]["fused_vit_block"], *k2,
+              library=False),
+        entry("fused_vit_block (BLIP-1 CIR feature extractor, ViT-B/16, 224 px)",
+              "K2 vit_block blip_b S=197 B=64", cir["launches"]["fused_vit_block"], *k2,
+              library=False),
+        entry("fused_qformer_layer (BLIP-1 CIR feature extractor's text pass)",
+              "K3 qformer_layer cir text", cir["launches"]["fused_qformer_layer"], *k3,
+              library=False),
+        entry("fused_vit_block (CLIP ViT-L/14-336, fp32)", "K2 vit_block vit_l fp32 S=577 B=32",
+              clip_l, *k2, library=False),
+        entry("attention f32 (CLIP ViT-L/14-336)", "attention D=64 fp32 S=577 B=32", clip_attn,
+              *k8),
+        entry("fused_vit_block (CLIP ViT-B/32, S = 50, fp32)", "K2 vit_block clip_b fp32 S=50 B=64",
+              clip_feats["vit_base32"]["launches"]["fused_vit_block"], *k2, library=False),
+        entry("attention f32 (CLIP ViT-B/32, S = 50)", "attention D=64 fp32 S=50 B=64",
+              clip_feats["vit_base32"]["launches"]["attention_f32"], *k8)]
+
 
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds printed on a line of their own."""
@@ -6445,6 +7050,41 @@ def timed(name, fn, *args, **kw):
     out = fn(*args, **kw)
     log(f"[seconds] phase {name}: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def phases_20_21(work):
+    """Phases 20 and 21, each model (and its plain twin) on the card alone."""
+    caption_train = {}
+    for which in CAPTION_TRAIN:  # 20a
+        gc.collect()
+        torch.cuda.empty_cache()
+        caption_train[which] = timed(f"20a caption train {which}", phase_caption_train, work,
+                                     which)
+    gc.collect()
+    torch.cuda.empty_cache()
+    caption_eval = timed("20b caption eval", phase_caption_eval, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cir = timed("20c cir features", phase_cir_features, work)
+    clip_eval = {}
+    for which in ("retrieval", "zero_shot"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        clip_eval[which] = timed(f"21 clip {which}", phase_clip_eval, work, which)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip_feats = timed("21 clip features", phase_clip_features, work)
+    log(f"[counters] phases 20 and 21: K2 a tower call {TOWER_LAUNCHES} (ViT-B, ViT-L), K3 "
+        f"{CIR_TEXT_LAUNCHES} a CIR text pass; read: caption train "
+        + ", ".join(f"{w} {r['launches_step'][-1].get('fused_vit_block')} a step"
+                    for w, r in caption_train.items())
+        + f"; caption eval {caption_eval['launches'].get('fused_vit_block')} in "
+        f"{-(-CAPTION_EVAL_IMAGES // 16)} calls; CIR features {cir['launches']}; CLIP "
+        + ", ".join(f"{w} {r['launches'].get('fused_vit_block')}" for w, r in clip_eval.items())
+        + f"; ViT-B/32 {clip_feats['vit_base32']['launches']}; RN50 "
+        f"{clip_feats['resnet50']['launches'] or 'none'}")
+    return {"caption_train": caption_train, "caption_eval": caption_eval,
+            "cir_features": cir, "clip_eval": clip_eval, "clip_features": clip_feats}
 
 
 def main():
@@ -6533,6 +7173,7 @@ def main():
         torch.cuda.empty_cache()
         phase = 18 if which in ("rank", "generate") else 19
         head_eval[which] = timed(f"{phase} heads eval {which}", phase_head_eval, work, which)
+    new = phases_20_21(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -6608,7 +7249,8 @@ def main():
     print(json.dumps({"kernels": kernel_table(rows, launches) + [k1_train, k1_variants,
                                                                  k1_stage1]
                       + momentum_kernels(rows, momentum, momentum_eval)
-                      + heads_kernels(rows, head_train, head_eval),
+                      + heads_kernels(rows, head_train, head_eval)
+                      + caption_clip_kernels(rows, *new.values()),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -6639,6 +7281,7 @@ def main():
                       "img2prompt_vqa": img2prompt,
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "heads_train": head_train, "heads_eval": head_eval,
+                      **new,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

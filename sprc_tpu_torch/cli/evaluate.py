@@ -62,9 +62,23 @@ batch there (``vqa_val_albef_eval.yaml`` gives 480 px images to ALBEF's
 models (``blip2_vicuna_instruct``, ``blip2_instruct_cir``) exit: no task's
 glue fits their signatures (the JAX CLI builds them and fails at the call);
 ``cli/instruct.py`` runs them. Each prints as the JAX CLI prints: one JSON line of the
-scalar metrics. Every other task or family exits with a message naming its
-ROADMAP entry (BLIP-1's captioning: A8.6.3; CLIP and its zero-shot
-classification: A8.6.4; ALPRO and video QA: A8.6.5; the dialogue: A8.6.6);
+scalar metrics. And BLIP-1's ``captioning`` (``blip_caption``;
+configs/runs/eval/caption_coco{,_large}_eval.yaml, nocaps_eval.yaml):
+batches of ``run.batch_size_eval`` through ``BlipCaption.generate_ids``, the
+greedy decode of ``run.max_len`` tokens after the ``[DEC]``-prefixed
+``run.prompt`` (``num_beams`` and ``min_len`` are not read, as in the JAX
+glue), the result file and CIDEr / BLEU as the stage-2 heads'. And CLIP
+(``clip``, ``clip_feature_extractor``): ``retrieval``
+(configs/runs/eval/exp_{coco,flickr}_ret_eval.yaml) by the cosine of the two
+towers' features alone (``evaluate_pairs_clip``: 64 images a tower call, the
+captions through ``run.clip_tokenizer_json`` when set, else the BERT
+WordPiece fallback at ``run.max_txt_len``), and zero-shot
+``multimodal_classification`` (configs/runs/eval/imnet_zs_eval.yaml): the
+classifier from ``run.classnames`` / ``run.classnames_path`` (else the
+labels, which must be 0..C-1, as class names) through the 80 OpenAI
+templates, then ``100 * image features @ classifier`` and the argmax
+accuracy. Every other task or family exits with a message naming its
+ROADMAP entry (ALPRO and video QA: A8.6.5; the dialogue: A8.6.6);
 CIR datasets keep their CLIs (``cli/validate.py``,
 ``cli/validate_rerank.py``, ``cli/submission.py``).
 
@@ -132,17 +146,18 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
                          "instruction and LLaMA token batches), in either package; "
                          "cli/instruct.py runs it")
-    if task_name == "retrieval" and arch not in loader.STAGE1_MODELS + loader.MOMENTUM_MODELS:
-        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (CLIP: "
-                         "ROADMAP A8.6.4; ALPRO: A8.6.5)")
-    if task_name == "captioning" and arch not in loader.LLM_HEADS:
-        raise SystemExit(f"model {arch!r}: its captioning is not ported (ported: "
-                         f"{', '.join(loader.LLM_HEADS)}; BLIP-1's blip_caption: ROADMAP "
-                         "A8.6.3)")
-    if task_name == CLASSIFICATION and arch not in loader.CLASSIFICATION_MODELS:
+    if task_name == "retrieval" and arch not in (loader.STAGE1_MODELS + loader.MOMENTUM_MODELS
+                                                 + loader.CLIP_MODELS):
+        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (ALPRO: "
+                         "ROADMAP A8.6.5)")
+    if task_name == "captioning" and arch not in loader.LLM_HEADS + ("blip_caption",):
+        raise SystemExit(f"model {arch!r}: no captioning glue fits it, in either package (the "
+                         f"captioners: blip_caption, {', '.join(loader.LLM_HEADS)})")
+    if task_name == CLASSIFICATION and arch not in (loader.CLASSIFICATION_MODELS
+                                                    + loader.CLIP_MODELS):
         raise SystemExit(f"model {arch!r}: its multimodal_classification evaluation is not "
-                         f"ported (ported: {', '.join(loader.CLASSIFICATION_MODELS)}; CLIP "
-                         "zero-shot: ROADMAP A8.6.4; ALPRO's video QA: A8.6.5)")
+                         f"ported (ported: {', '.join(loader.CLASSIFICATION_MODELS)} and CLIP's "
+                         "zero-shot; ALPRO's video QA: ROADMAP A8.6.5)")
     pnp = arch in ("pnp_vqa", "img2prompt_vqa")
     if pnp and args.model_path:
         raise SystemExit("pnp pipelines load per-submodel checkpoints: put `finetuned: <path>` "
@@ -157,7 +172,7 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"run.inference_method {run.get('inference_method', 'rank')!r}: the "
                          "BLIP-2 heads answer generatively ('generate'; ranking "
                          "run.answer_list is blip_vqa / albef_vqa's)")
-    own_config = arch in loader.MOMENTUM_MODELS + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS
+    own_config = (arch, model_type) in loader.FAMILY_CONFIGS
     if arch in loader.VQA_MODELS + loader.CLASSIFICATION_MODELS:
         _check_eval_size(cfg, arch, model_type, model_cfg)
     device = torch.device(args.device)
@@ -187,13 +202,19 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         return _evaluate_captions(model, ds, split, run, tokenizer, args, stats)
     if task_name in VQA_TASKS:
         return _evaluate_vqa(model, ds, split, run, tokenizer, args, stats)
+    if task_name == CLASSIFICATION and arch in loader.CLIP_MODELS:
+        return _evaluate_zero_shot(model, ds, split, run, tokenizer, args, stats)
     if task_name == CLASSIFICATION:
         return _evaluate_classification(model, ds, split, run, tokenizer, args, stats)
     from sprc_tpu_torch.train.tasks import ImageTextRetrievalTask
 
     task = ImageTextRetrievalTask(tokenizer, k_test=int(run.get("k_test", 128)),
                                   max_txt_len=int(run.get("max_txt_len", 35)))
-    if arch in loader.MOMENTUM_MODELS:  # 16 images a tower call
+    if arch in loader.CLIP_MODELS:  # the cosine alone, no rescoring
+        metrics = task.evaluate_pairs_clip(model, _image_stream(ds), ds.text, ds.img2txt,
+                                           ds.txt2img, tokenize=_clip_tokenize(model, run),
+                                           stats=stats)
+    elif arch in loader.MOMENTUM_MODELS:  # 16 images a tower call
         metrics = task.evaluate_pairs_itc(model, _image_stream(ds, 16), ds.text, ds.img2txt,
                                           ds.txt2img, stats=stats)
     else:
@@ -299,6 +320,62 @@ def _evaluate_classification(model, ds, split, run, tokenizer, args, stats) -> d
     glue = make_classification_predict_fn(model, tokenizer,
                                           max_txt_len=int(run.get("max_txt_len", 35)),
                                           stats=stats)
+    return task.after_evaluation(_valid_steps(task, glue, ds, run), split)
+
+
+def _clip_tokenize(model, run, default=None):
+    """``run.clip_tokenizer_json``'s BPE at the text tower's context length
+    as ``tokenize(texts) -> (ids, eot_positions)``; without it ``default``
+    (None: the task's WordPiece fallback), as the JAX CLI."""
+    from sprc_tpu_torch.text.llm_tokenizers import clip_tokenize, clip_tokenizer
+
+    tok = clip_tokenizer(run["clip_tokenizer_json"]) if run.get("clip_tokenizer_json") else default
+    if tok is None:
+        return None
+    ctx = int(model.cfg.text.context_length)
+    return lambda texts: clip_tokenize(tok, texts, ctx)
+
+
+def _class_names(run, ds) -> list:
+    """``run.classnames``, the lines of ``run.classnames_path``, or the
+    labels as names where they are exactly 0..C-1 (their column order),
+    as the JAX CLI derives them."""
+    names = run.get("classnames")
+    if names is None and run.get("classnames_path"):
+        with open(run["classnames_path"]) as f:
+            names = [line.strip() for line in f if line.strip()]
+    if names is None:
+        labels = sorted({ann["label"] for ann in getattr(ds, "annotation", [])})
+        if labels != list(range(len(labels))):
+            raise SystemExit("zero-shot eval needs run.classnames or run.classnames_path (the "
+                             "labels are not a dense 0..C-1 integer range, so the column order "
+                             "cannot be derived)")
+        names = [str(label) for label in labels]
+    if not names:
+        raise SystemExit("zero-shot eval needs run.classnames[_path]")
+    return names
+
+
+def _evaluate_zero_shot(model, ds, split, run, tokenizer, args, stats) -> dict:
+    """CLIP's zero-shot ``multimodal_classification``
+    (``sprc_tpu/cli/evaluate.py:267-306``): the classifier over the class
+    names and the 80 templates (``run.clip_tokenizer_json``'s BPE, else the
+    WordPiece fallback, at the text tower's context length), then batches of
+    ``batch_size_eval`` through the image tower; the argmax accuracy and the
+    result file. ``stats``: ``classifier`` and ``tower`` seconds."""
+    import time
+
+    from sprc_tpu_torch.models.clip_zero_shot import (make_zero_shot_predict_fn,
+                                                      zero_shot_classifier)
+    from sprc_tpu_torch.train.eval_tasks import MultimodalClassificationTask
+
+    task = MultimodalClassificationTask(output_dir=args.output_dir)
+    t0 = time.perf_counter()
+    clf = zero_shot_classifier(model, _class_names(run, ds),
+                               _clip_tokenize(model, run, default=tokenizer))
+    if stats is not None:
+        stats["classifier"] = time.perf_counter() - t0
+    glue = make_zero_shot_predict_fn(model, clf, stats=stats)
     return task.after_evaluation(_valid_steps(task, glue, ds, run), split)
 
 

@@ -24,9 +24,11 @@ Registered: the image builders of the JAX package (``coco_caption``,
 builders ``coco_vqa``, ``ok_vqa``, ``aok_vqa``, ``gqa``, ``vg_vqa``, SNLI-VE's
 ``snli_ve`` (``{"image", "sentence", "label"}``) and NLVR2's ``nlvr``
 (``{"images": [image0, image1], "sentence", "label"}``, the label
-``True`` / ``False`` to 0 / 1 as the reference's class labels); the
-video, ImageNet (CLIP zero-shot) and dialogue builders come with their
-families (ROADMAP A8.6.5, A8.6.4, A8.6.6).
+``True`` / ``False`` to 0 / 1 as the reference's class labels), and
+``imagenet`` (CLIP's zero-shot classification: SNLI-VE's dataset,
+``{"image", "label"}`` with an empty sentence where there is none); the
+video and dialogue builders come with their families (ROADMAP A8.6.5,
+A8.6.6).
 The classes repeat the JAX ones line for line (a test builds both on the
 same files).
 """
@@ -261,5 +263,6 @@ for _n in ("coco_retrieval", "flickr30k"):
     _register(_n, RetrievalDataset, RetrievalEvalDataset)
 for _n in ("coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"):
     _register(_n, VQADataset, VQAEvalDataset)
-_register("snli_ve", MultimodalClassificationDataset, MultimodalClassificationDataset)
+for _n in ("snli_ve", "imagenet"):
+    _register(_n, MultimodalClassificationDataset, MultimodalClassificationDataset)
 _register("nlvr", NLVRPairDataset, NLVRPairDataset)

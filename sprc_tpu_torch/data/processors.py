@@ -8,13 +8,15 @@ src/lavis/processors/blip_processors.py).
 - ``blip2_image_train`` (:197-239): the same without RandAugment;
 - ``blip_image_eval`` (:166-194): resize to (dim, dim) bicubic + normalize;
 - ``blip_caption``: the port's :class:`~sprc_tpu_torch.text.processors.CaptionProcessor`;
-- ``blip_question``: its :class:`~sprc_tpu_torch.text.processors.QuestionProcessor`.
+- ``blip_question``: its :class:`~sprc_tpu_torch.text.processors.QuestionProcessor`;
+- ``clip_image_train`` / ``clip_image_eval`` (:class:`ClipImageProcessor`):
+  the shorter side resized, a centre crop, the normalisation.
 
 Host-side (PIL + numpy), float32 HWC arrays out. Every random draw comes
 from the processor's ``numpy.random.RandomState`` in the JAX package's order,
 so a train processor seeded alike gives equal arrays in both packages
-(``tests/test_torch_framework.py``). The CLIP, video and GPT processors come
-with their families.
+(``tests/test_torch_framework.py``). The video and GPT processors come with
+their families.
 """
 
 from __future__ import annotations
@@ -170,6 +172,21 @@ class BlipImageEvalProcessor:
         return _normalize(image)
 
 
+@dataclasses.dataclass
+class ClipImageProcessor:
+    """CLIP's shorter side resized to ``image_size`` (bicubic), a centre
+    crop and the normalisation (``sprc_tpu/data/processors.py:170-182``): the
+    same for training and evaluation, as in the JAX package."""
+
+    image_size: int = 224
+
+    def __call__(self, image) -> np.ndarray:
+        from sprc_tpu_torch.data.transforms import _center_crop, _resize_shorter
+
+        image = _resize_shorter(image.convert("RGB"), self.image_size)
+        return _normalize(_center_crop(image, self.image_size))
+
+
 registry.register_processor("blip_image_train")(BlipImageTrainProcessor)
 registry.register_processor("blip_image_eval")(BlipImageEvalProcessor)
 registry.register_processor("blip2_image_train")(
@@ -177,5 +194,7 @@ registry.register_processor("blip2_image_train")(
         image_size=image_size, use_randaug=False, **kw
     )
 )
+registry.register_processor("clip_image_train")(ClipImageProcessor)
+registry.register_processor("clip_image_eval")(ClipImageProcessor)
 registry.register_processor("blip_caption")(CaptionProcessor)
 registry.register_processor("blip_question")(QuestionProcessor)

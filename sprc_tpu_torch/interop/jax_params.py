@@ -25,6 +25,8 @@ ALBEF's VQA, classification and NLVR models have :func:`vqa_from_jax`,
 :func:`classifier_from_jax`, :func:`nlvr_from_jax` (BLIP's twin
 cross-attention and merge, ALBEF's tied cross key / value under both layers
 of a pair) and :func:`momentum_copies_from_jax` (their ``params_m``).
+BLIP-1's CIR feature extractor has :func:`blip_cir_base_from_jax`, CLIP
+(ViT or RN50 tower) :func:`clip_from_jax`.
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
 LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
@@ -286,6 +288,83 @@ def blip_caption_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     _linear(out, f"{prefix}transform.dense", head["transform"])
     _ln(out, f"{prefix}transform.LayerNorm", head["ln"])
     _linear(out, f"{prefix}decoder", head["decoder"])
+    return to_torch(out)
+
+
+def blip_cir_base_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``BlipCirBase`` tree -> the port's (LAVIS's) state dict: the timm
+    tower, the text-mode med-BERT under ``text_encoder.``, the projections
+    and ``temp``."""
+    out = eva_vit_from_jax(params["visual_encoder"])
+    out.update(qformer_from_jax(params["text_encoder"], "text_encoder."))
+    for name in ("vision_proj", "text_proj"):
+        _linear(out, name, params[name])
+    out["temp"] = _np(params["temp"]).reshape(())
+    return to_torch(out)
+
+
+def _conv(out: Dict[str, np.ndarray], name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+
+
+def _bn(out: Dict[str, np.ndarray], name: str, p: Mapping[str, Any]) -> None:
+    for key, jkey in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+                      ("running_var", "var")):
+        out[f"{name}.{key}"] = _np(p[jkey])
+
+
+def clip_resnet_from_jax(params: Mapping[str, Any], prefix: str = "visual.") -> Dict[str, np.ndarray]:
+    """A ``ClipResNet`` tree -> OpenAI's ``ModifiedResNet`` names under ``prefix``."""
+    out: Dict[str, np.ndarray] = {}
+    for i in (1, 2, 3):
+        _conv(out, f"{prefix}conv{i}", params[f"conv{i}"])
+        _bn(out, f"{prefix}bn{i}", params[f"bn{i}"])
+    for key, block in params.items():
+        if not key.startswith("layer"):
+            continue
+        stage, b = key[len("layer"):].split("_")
+        bp = f"{prefix}layer{stage}.{b}."
+        for i in (1, 2, 3):
+            _conv(out, f"{bp}conv{i}", block[f"conv{i}"])
+            _bn(out, f"{bp}bn{i}", block[f"bn{i}"])
+        if "down_conv" in block:
+            _conv(out, f"{bp}downsample.0", block["down_conv"])
+            _bn(out, f"{bp}downsample.1", block["down_bn"])
+    pool = params["attnpool"]
+    out[f"{prefix}attnpool.positional_embedding"] = _np(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(out, f"{prefix}attnpool.{name}", pool[name])
+    return out
+
+
+def clip_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``Clip`` tree (ViT or RN50 tower) -> the port's (OpenAI's) state
+    dict: packed qkv kernels transposed to ``in_proj_weight``, the two
+    projections kept as ``x @ proj``."""
+    visual = params["visual"]
+    if "trunk" in visual:
+        out = clip_vit_from_jax(visual, prefix="visual.")
+        _ln(out, "visual.ln_post", visual["trunk"]["norm"])
+        out["visual.proj"] = _np(params["visual_projection"]["kernel"])
+    else:
+        out = clip_resnet_from_jax(visual)
+    text = params["text"]
+    out["token_embedding.weight"] = _np(text["token_embedding"]["embedding"])
+    out["positional_embedding"] = _np(text["positional_embedding"])
+    _ln(out, "ln_final", text["ln_final"])
+    for key, block in text.items():
+        if not key.startswith("block_"):
+            continue
+        bp = f"transformer.resblocks.{int(key.split('_')[1])}."
+        _ln(out, f"{bp}ln_1", block["norm1"])
+        out[f"{bp}attn.in_proj_weight"] = _np(block["qkv"]["kernel"]).T
+        out[f"{bp}attn.in_proj_bias"] = _np(block["qkv"]["bias"])
+        _linear(out, f"{bp}attn.out_proj", block["proj"])
+        _ln(out, f"{bp}ln_2", block["norm2"])
+        _linear(out, f"{bp}mlp.c_fc", block["mlp_fc1"])
+        _linear(out, f"{bp}mlp.c_proj", block["mlp_fc2"])
+    out["text_projection"] = _np(params["text_projection"]["kernel"])
+    out["logit_scale"] = _np(params["logit_scale"]).reshape(())
     return to_torch(out)
 
 

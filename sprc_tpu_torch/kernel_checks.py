@@ -637,7 +637,8 @@ def _vit_block_work(B, S, W, M, int8: bool, dtype=torch.bfloat16) -> Dict[str, f
 # the towers' block shapes: (W, M, heads, QuickGELU, LN eps); blip_l: BLIP-1's
 # timm ViT-L/16 (exact GELU, eps 1e-6), PNP-VQA's two towers at 384 px
 TOWERS = {"vit_l": (1024, 4096, 16, True, 1e-5), "eva_g": (1408, 6144, 16, False, 1e-6),
-          "blip_l": (1024, 4096, 16, False, 1e-6), "blip_b": (768, 3072, 12, False, 1e-6)}
+          "blip_l": (1024, 4096, 16, False, 1e-6), "blip_b": (768, 3072, 12, False, 1e-6),
+          "clip_b": (768, 3072, 12, True, 1e-5)}
 
 
 # K2 in fp32 (the fp32 tower of the COCO retrieval models, 364 px: S = 677):
@@ -788,12 +789,16 @@ VQA_SHAPES = {"vqa queries": (VQA_BATCH, 32, True, False, 257)}
 # queries-only pass is VQA_SHAPES' shape
 INSTRUCT_SHAPES = {"instruct fusion L=128": (VQA_BATCH, 32 + 128, True, True, 257),
                    "instruct fusion L=32": (VQA_BATCH, 32 + 32, True, True, 257)}
+# BLIP-1's CIR feature extractor (blip_cir_base / blip_feature_extractor): its
+# med-BERT's text pass, 32 prompts and up to max_txt_len 40 caption tokens, no
+# image (every row through the text FFN), at the 64 captions of a call
+CIR_TEXT_SHAPES = {"cir text": (2 * QUERY_BATCH, 32 + 40, False, True, 197)}
 SHAPE_Q = {"text": 0, "slt prompt": 4, "coco text": 0}  # query rows where they are not 32
 # image rows' width where it is not 1024
 SHAPE_WI = {s: 1408 for s in (*RETRIEVAL_SHAPES, *CAPTION_SHAPES, *VQA_SHAPES,
                               *INSTRUCT_SHAPES)}
 QF_SHAPES = {**SERVING_SHAPES, **VARIANT_SHAPES, **RETRIEVAL_SHAPES, **CAPTION_SHAPES,
-             **VQA_SHAPES, **INSTRUCT_SHAPES}
+             **VQA_SHAPES, **INSTRUCT_SHAPES, **CIR_TEXT_SHAPES}
 
 
 def _qf_inputs(r, shape, Q, Si, W, Wi):
@@ -2309,6 +2314,64 @@ def run_vqa(device="cuda") -> List[dict]:
     return rows
 
 
+# BLIP-1's captioner trains its tower at caption_coco_ft.yaml's batch of 32 and
+# 384 px (S = 577): ViT-B/16 (the momentum families' retrieval shape,
+# :func:`run_momentum`'s checks) and the ViT-L/16 of caption_coco_large_ft.yaml;
+# its evaluation runs ViT-B/16 at 16 an eval batch (MOMENTUM_SHAPES' "eval").
+CAPTION_TRAIN_SHAPE = (32, 577)
+
+
+def run_blip_caption(device="cuda") -> List[dict]:
+    """The checks that BLIP-1's captioner and CIR feature extractor add: K2
+    through ``FusedViTBlock`` at the large captioner's ViT-L/16 (forward,
+    forward + backward against autograd over the plain block) and its bf16
+    attention (packed qkv, 16 heads of 64), and K3 at the extractor's
+    text-mode pass (:data:`CIR_TEXT_SHAPES`; its ViT-B/16 at 224 px is
+    :data:`MOMENTUM_SHAPES`' "pretrain" shape)."""
+    B, S = CAPTION_TRAIN_SHAPE
+    rows = [dict(check=f"FusedViTBlock blip_l bf16 S={S} B={B}",
+                 **check_function_grad("FusedViTBlock", device, "blip_l", torch.bfloat16, B=B,
+                                       S=S)),
+            dict(check=f"attention D=64 bf16 blip_l S={S} B={B}",
+                 **check_attention(64, torch.bfloat16, device, B=B, S=S, heads=16))]
+    rows += [dict(check=f"K3 qformer_layer {shape}", **check_qformer_layer(shape, device))
+             for shape in CIR_TEXT_SHAPES]
+    torch.cuda.empty_cache()
+    return rows
+
+
+# CLIP's towers are fp32 (configs/models/clip/*.yaml): ViT-L/14 at 336 px (S =
+# 577, 16 heads of 64, QuickGELU, eps 1e-5) at the retrieval evaluation's 32
+# images a call (exp_coco_ret_eval.yaml over 32 images) and the zero-shot
+# evaluation's 64; ViT-B/32 at 224 px (S = 50: under the attention kernel's
+# 128-row floor of the unfused route; K2's chain takes it) at 64 images.
+CLIP_SHAPES = {"retrieval": (32, 577), "zero_shot": (64, 577)}
+CLIP_B32_SHAPE = (64, 50)
+
+
+def run_clip(device="cuda") -> List[dict]:
+    """The checks of CLIP's towers: K2 in fp32 at ViT-L/14-336's shapes and its
+    fp32 attention call (packed qkv, D 64), and K2 in fp32 at ViT-B/32's S = 50
+    with its attention call. The text towers and RN50 run no kernel."""
+    W, M, heads, quick, eps = TOWERS["vit_l"]
+    rows = []
+    for B, S in CLIP_SHAPES.values():
+        rows += [dict(check=f"K2 vit_block vit_l fp32 S={S} B={B}",
+                      **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick,
+                                        eps=eps, dtype=torch.float32)),
+                 dict(check=f"attention D=64 fp32 S={S} B={B}",
+                      **check_attention(64, torch.float32, device, B=B, S=S, heads=heads))]
+    W, M, heads, quick, eps = TOWERS["clip_b"]
+    B, S = CLIP_B32_SHAPE
+    rows += [dict(check=f"K2 vit_block clip_b fp32 S={S} B={B}",
+                  **check_vit_block(device, B=B, S=S, W=W, M=M, heads=heads, quick=quick,
+                                    eps=eps, dtype=torch.float32)),
+             dict(check=f"attention D=64 fp32 S={S} B={B}",
+                  **check_attention(64, torch.float32, device, B=B, S=S, heads=heads))]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2544,4 +2607,5 @@ def run_all(device="cuda") -> List[dict]:
     return (rows + run_int8(device) + run_validate_path(device) + run_stage1(device)
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
             + run_instruct(device) + run_pnp(device) + run_img2prompt(device)
-            + run_momentum(device) + run_vqa(device) + run_edges(device))
+            + run_momentum(device) + run_vqa(device) + run_blip_caption(device)
+            + run_clip(device) + run_edges(device))

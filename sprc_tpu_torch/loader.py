@@ -2,15 +2,16 @@
 
 ``build_model(name, model_type)`` resolves the class from the registry and
 its configuration from :data:`MODEL_CONFIGS` (the BLIP-2 family's
-CirConfig), :data:`FAMILY_CONFIGS` (BLIP-1's ITM and captioner, the FiD
-reader: their own dataclasses) or, for the ``pnp_vqa`` and
+CirConfig), :data:`FAMILY_CONFIGS` (BLIP-1's and ALBEF's models, CLIP, the
+FiD reader: their own dataclasses) or, for the ``pnp_vqa`` and
 ``img2prompt_vqa`` pipelines, :data:`PIPELINE_CONFIGS`, which mirror the model sections of
 ``configs/models/<name>/<model_type>.yaml`` (tests pin them equal to what
 ``sprc_tpu.loader`` builds from the YAML; the port reads no YAML, so it
 needs no PyYAML). Overrides may come as the validate CLI's
 ``--model-overrides`` gives them: precisions as ``"fp32"`` / ``"bf16"`` and the
 sub-configs (``vit_config_override``, ``qformer_config_override``,
-``text_config_override``) as dicts. ``load_model`` fills the weights: from a
+``text_config_override``, CLIP's ``vision`` / ``text`` / ``vision_resnet``) as
+dicts. ``load_model`` fills the weights: from a
 reference-layout checkpoint (``checkpoint_path``: a bare state dict, a
 ``{"model": ...}`` file or the released ``{epoch, ClassName: state_dict}``
 layout; keys the model does not hold are dropped, as the reference's
@@ -40,10 +41,12 @@ from torch import nn
 
 from sprc_tpu_torch import models as _models  # noqa: F401  (registers the models)
 from sprc_tpu_torch.models.cir_base import CirConfig
+from sprc_tpu_torch.models.clip import LOGIT_SCALE_INIT, ClipTextConfig, clip_state_from_hf
 from sprc_tpu_torch.models.llama import LlamaConfig
 from sprc_tpu_torch.models.llm_presets import LLM_KEYS
 from sprc_tpu_torch.models.opt import OPTConfig
 from sprc_tpu_torch.models.qformer import QFormerConfig
+from sprc_tpu_torch.models.resnet_clip import FrozenBatchNorm2d, ResNetConfig
 from sprc_tpu_torch.models.t5 import T5Config, T5LayerNorm
 from sprc_tpu_torch.models.vit import ViTConfig, calibrate_act_scales
 from sprc_tpu_torch.ops import quant
@@ -186,6 +189,49 @@ FAMILY_CONFIGS.update({
     ("blip_nlvr", "nlvr"): {"flavor": "blip", "num_classes": 2, "image_size": 384},
     ("albef_nlvr", "nlvr"): {"flavor": "albef", "num_classes": 2, "image_size": 384},
 })
+# BLIP-1's captioner as configs/runs/caption_coco_ft{,_iter}.yaml name it (no model
+# type: the dataclass's defaults, as the JAX loader builds them), and its CIR feature
+# extractor, as configs/models/{blip_cir_base,blip_feature_extractor}/base.yaml give
+# it (ViT-B/16 at 224 px, bf16; the med-BERT in text mode, fp32)
+CIR_FEATURE_MODELS = ("blip_cir_base", "blip_feature_extractor")
+FAMILY_CONFIGS.update({
+    ("blip_caption", "pretrain"): {},
+    **{(name, "pretrain"): {} for name in CIR_FEATURE_MODELS},
+    ("blip_cir_base", "base"): {"image_size": 224, "embed_dim": 256, "max_txt_len": 40,
+                                "num_prompts": 32},
+    ("blip_feature_extractor", "base"): {"image_size": 224, "embed_dim": 256},
+})
+# CLIP, as configs/models/{clip,clip_feature_extractor}/*.yaml give it: the ViT towers
+# (fp32, ln_pre, QuickGELU, ln_post, no patch bias) or the RN50 (``vision_resnet``),
+# the text tower at each row's width; ``vit_base16`` and ``pretrain`` are the
+# dataclass's ViT-B/16
+CLIP_MODELS = ("clip", "clip_feature_extractor")
+
+
+def _clip_vit(size: int, patch: int, width: int, depth: int, heads: int) -> ViTConfig:
+    return ViTConfig(image_size=size, patch_size=patch, width=width, depth=depth,
+                     num_heads=heads, mlp_hidden=4 * width, layer_norm_eps=1e-5,
+                     use_ln_pre=True, quick_gelu=True, final_norm=True, patch_bias=False,
+                     dtype=torch.float32)
+
+
+_CLIP_TEXT_L = ClipTextConfig(width=768, heads=12)
+FAMILY_CONFIGS.update({
+    **{(name, "pretrain"): {} for name in CLIP_MODELS},
+    **{(name, "vit_base16"): {"embed_dim": 512, "image_size": 224} for name in CLIP_MODELS},
+    ("clip", "vit_base32"): {"embed_dim": 512, "image_size": 224,
+                             "vision": _clip_vit(224, 32, 768, 12, 12)},
+    ("clip", "vit_large14"): {"embed_dim": 768, "image_size": 224,
+                              "vision": _clip_vit(224, 14, 1024, 24, 16),
+                              "text": _CLIP_TEXT_L},
+    ("clip", "vit_large14_336"): {"embed_dim": 768, "image_size": 336,
+                                  "vision": _clip_vit(336, 14, 1024, 24, 16),
+                                  "text": _CLIP_TEXT_L},
+    ("clip", "resnet50"): {"embed_dim": 1024, "image_size": 224,
+                           "vision_resnet": ResNetConfig(layers=(3, 4, 6, 3), width=64,
+                                                         heads=32, output_dim=1024,
+                                                         image_size=224)},
+})
 # the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
 # them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
 # model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
@@ -220,6 +266,10 @@ _SUB_CONFIGS = {
                                                 "initializer_range"}),
     "text_config_override": (QFormerConfig, {"attention_dropout_rate", "initializer_range"}),
     "decoder_config_override": (QFormerConfig, {"attention_dropout_rate", "initializer_range"}),
+    # CLIP's towers (configs/models/clip/*.yaml)
+    "vision": (ViTConfig, {"scan_blocks"}),
+    "text": (ClipTextConfig, set()),
+    "vision_resnet": (ResNetConfig, set()),
 }
 
 
@@ -364,7 +414,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
         done.add(id(p))
 
     for mod in model.modules():
-        if isinstance(mod, LayerNormFP32):
+        if isinstance(mod, (LayerNormFP32, FrozenBatchNorm2d)):
             const(mod.weight, 1.0)
             const(mod.bias, 0.0)
         elif isinstance(mod, T5LayerNorm):
@@ -384,6 +434,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             continue
         if name in ("temp", "temp2"):
             const(p, 0.07)
+        elif name == "logit_scale":  # CLIP's log(1 / 0.07)
+            const(p, LOGIT_SCALE_INIT)
         elif name.endswith(("in_proj_bias", "q_bias", "v_bias")):
             const(p, 0.0)
         else:  # in_proj_weight, class/positional embeddings, query/prompt/rel tokens
@@ -393,6 +445,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             continue
         if name.endswith("position_ids"):
             buf.copy_(torch.arange(buf.shape[-1], device=device)[None])
+        elif name.endswith(("running_mean", "running_var")):  # a frozen BatchNorm
+            buf.fill_(1.0 if name.endswith("var") else 0.0)
         else:
             raise ValueError(f"init_weights: no rule for buffer {name}")
 
@@ -437,8 +491,14 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
     ``lm_head.weight`` dropped, ``embed_positions`` with its offset rows), a
     LLaMA (``rotary_emb.inv_freq`` buffers dropped), and LAVIS's stage-2
     ``blip2_opt`` / ``blip2_t5`` checkpoints, which hold no ``temp``: it
-    takes its init value 0.07, as the JAX reader gives it. Any other weight
-    that is missing raises at the strict load."""
+    takes its init value 0.07, as the JAX reader gives it. CLIP reads
+    OpenAI's layout (the port's names; a file's ``num_batches_tracked``
+    dropped) or an HF ``CLIPModel`` (:func:`~sprc_tpu_torch.models.clip.
+    clip_state_from_hf`), as ``sprc_tpu/interop/lavis_import.py:464-474``
+    dispatches them; a LAVIS ``blip_cir_base`` file holds med's
+    cross-attention, which the text-mode model does not hold (the JAX
+    reader skips it too). Any other weight that is missing raises at the
+    strict load."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in state and isinstance(state["model"], dict):
         state = state["model"]  # blip2_pretrained.pth style
@@ -448,6 +508,8 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
                 state = value
                 break
     own = model.state_dict()
+    if "text_model.embeddings.token_embedding.weight" in state and hasattr(model, "ln_final"):
+        state = clip_state_from_hf(state, model.cfg)  # an HF CLIPModel file (OpenAI's: by name)
     if getattr(model, "MOMENTUM_LAYOUT", False):
         state = _momentum_family_state(state, model, own)
     state = {k: v for k, v in state.items() if k in own}
@@ -551,7 +613,8 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
-           "MOMENTUM_MODELS", "VQA_MODELS", "CLASSIFICATION_MODELS",
+           "MOMENTUM_MODELS", "VQA_MODELS", "CLASSIFICATION_MODELS", "CIR_FEATURE_MODELS",
+           "CLIP_MODELS",
            "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
            "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",

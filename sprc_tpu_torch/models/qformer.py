@@ -262,19 +262,21 @@ def _ffn_params(intermediate: Dense, output: DenseLN, int8: bool) -> dict:
 
 
 class QFormerLayer(nn.Module):
-    def __init__(self, cfg: QFormerConfig, has_cross_attention: bool, text: bool = True):
+    def __init__(self, cfg: QFormerConfig, has_cross_attention: bool, text: bool = True,
+                 image: bool = True):
         super().__init__()
         H, M, eps = cfg.hidden_size, cfg.intermediate_size, cfg.layer_norm_eps
         self.cfg = cfg
-        self.has_cross_attention = has_cross_attention
+        self.has_cross_attention = has_cross_attention and image
         self.attention = QFormerAttention(cfg, H)
-        if has_cross_attention:
+        if self.has_cross_attention:
             self.crossattention = QFormerAttention(cfg, cfg.encoder_width)
         if text:  # the text FFN
             self.intermediate = Dense(H, M, cfg.int8)
             self.output = DenseLN(M, H, eps, cfg.int8)
-        self.intermediate_query = Dense(H, M, cfg.int8)
-        self.output_query = DenseLN(M, H, eps, cfg.int8)
+        if image:  # the query FFN
+            self.intermediate_query = Dense(H, M, cfg.int8)
+            self.output_query = DenseLN(M, H, eps, cfg.int8)
 
     @property
     def text(self) -> bool:
@@ -297,7 +299,8 @@ class QFormerLayer(nn.Module):
             hidden, col_bias, self.attention.kernel_params(),
             image_embeds if cross else None,
             self.crossattention.kernel_params() if cross else None,
-            _ffn_params(self.intermediate_query, self.output_query, cfg.int8),
+            _ffn_params(self.intermediate_query, self.output_query, cfg.int8)
+            if hasattr(self, "intermediate_query") else None,
             _ffn_params(self.intermediate, self.output, cfg.int8) if self.text else None,
             heads=cfg.num_heads, eps=cfg.layer_norm_eps, Q=query_length,
             text_ffn_all=image_embeds is None, int8=cfg.int8,
@@ -332,11 +335,11 @@ class QFormerLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: QFormerConfig, text: bool = True):
+    def __init__(self, cfg: QFormerConfig, text: bool = True, image: bool = True):
         super().__init__()
         self.layer = nn.ModuleList(
             QFormerLayer(cfg, has_cross_attention=(i % cfg.cross_attention_freq == 0),
-                         text=text)
+                         text=text, image=image)
             for i in range(cfg.num_layers))
 
 
@@ -344,14 +347,18 @@ class QFormer(nn.Module):
     """The Q-Former trunk (BertModel analogue; no LM head). ``text=False``
     builds it without its text side (word and position embeddings, the text
     FFN): the queries-only trunk of the LLM caption heads, whose JAX init
-    holds only what the queries pass reaches."""
+    holds only what the queries pass reaches. ``image=False`` builds it
+    without its image side (cross-attention, the query FFN): the med-BERT
+    text encoder of BLIP-1's CIR feature extractor, whose prompt pass sees
+    no image (every row through the text FFN)."""
 
-    def __init__(self, cfg: QFormerConfig, text: bool = True):
+    def __init__(self, cfg: QFormerConfig, text: bool = True, image: bool = True):
         super().__init__()
         self.cfg = cfg
         self.text = text
+        self.image = image
         self.embeddings = QFormerEmbeddings(cfg, text)
-        self.encoder = Encoder(cfg, text)
+        self.encoder = Encoder(cfg, text, image)
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 query_embeds: Optional[torch.Tensor] = None,
@@ -373,6 +380,8 @@ class QFormer(nn.Module):
         if not self.text and (input_ids is not None or image_embeds is None or no_img):
             raise ValueError("this Q-Former has no text side: it runs the queries-only pass "
                              "over an image")
+        if not self.image and image_embeds is not None and not no_img:
+            raise ValueError("this Q-Former has no image side: it runs the text passes only")
         if self.cfg.int8 and training(self):
             raise ValueError("the int8 Q-Former serves only; train the fp32 configuration")
         Q = query_embeds.shape[1] if query_embeds is not None else 0

@@ -495,20 +495,25 @@ class _Tower(nn.Module):
         for block in self.vit_blocks():
             x = block(x)
         if self.cfg.final_norm:
-            x = self.norm(x)
+            x = self.final_norm(x)
         return x
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)
 
 
 class ClipViT(_Tower):
-    """CLIP ViT-L tower under the CLIP checkpoint's names: a conv without
-    bias, ``ln_pre`` before the blocks, packed qkv with bias."""
+    """CLIP ViT tower under the CLIP checkpoint's names: a conv without
+    bias, ``ln_pre`` before the blocks, packed qkv with bias. BLIP-2's CLIP
+    ViT-L ends at its last block; the CLIP models' towers
+    (:mod:`sprc_tpu_torch.models.clip`, ``final_norm=True``) end in OpenAI's
+    ``ln_post``."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if not cfg.use_ln_pre or cfg.patch_bias or cfg.qkv_fused_no_kbias or cfg.final_norm:
+        if not cfg.use_ln_pre or cfg.patch_bias or cfg.qkv_fused_no_kbias:
             raise ValueError("ClipViT holds the CLIP layout: use_ln_pre=True, patch_bias=False, "
-                             "qkv_fused_no_kbias=False, final_norm=False (EvaViT holds EVA's "
-                             "and BLIP-1's)")
+                             "qkv_fused_no_kbias=False (EvaViT holds EVA's and BLIP-1's)")
         _require_scales(cfg)
         self.cfg = cfg
         W, p = cfg.width, cfg.patch_size
@@ -517,6 +522,11 @@ class ClipViT(_Tower):
         self.positional_embedding = nn.Parameter(torch.empty(cfg.seq_len, W))
         self.ln_pre = LayerNormFP32(W, cfg.layer_norm_eps)
         self.transformer = Transformer(cfg)
+        if cfg.final_norm:
+            self.ln_post = LayerNormFP32(W, cfg.layer_norm_eps)
+
+    def final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ln_post(x)
 
     def vit_blocks(self):
         return self.transformer.resblocks
@@ -564,7 +574,7 @@ class EvaViT(_Tower):
 
 def build_tower(cfg: ViTConfig) -> _Tower:
     """The tower class whose checkpoint layout ``cfg`` describes."""
-    return EvaViT(cfg) if cfg.qkv_fused_no_kbias or cfg.final_norm else ClipViT(cfg)
+    return ClipViT(cfg) if cfg.use_ln_pre else EvaViT(cfg)
 
 
 def calibrate_act_scales(tower: _Tower, run) -> Tuple[Tuple[str, float], ...]:

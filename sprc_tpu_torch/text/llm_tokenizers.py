@@ -9,7 +9,9 @@ error that names what is missing: no run falls back to another tokenizer.
 
 Every adapter has the interface the caption glue needs: ``__call__(texts,
 max_length) -> {"input_ids", "attention_mask"}`` (numpy int32, right-padded,
-eos last), ``decode(ids)`` and ``pad_id`` / ``eos_id`` / ``bos_id``.
+eos last), ``decode(ids)`` and ``pad_id`` / ``eos_id`` / ``bos_id``. CLIP's adapter
+(:func:`clip_tokenizer`, :func:`clip_tokenize`) also gives each row's
+end-of-text position.
 :class:`WhitespaceTokenizer` is the synthetic word-level vocabulary of the
 ``--synthetic`` instruct runs and the tests, copied from the JAX package.
 """
@@ -73,6 +75,22 @@ def opt_tokenizer(path: str) -> HFFileTokenizer:
 def t5_tokenizer(path: str) -> HFFileTokenizer:
     """T5: pad 0 (also the decoder start), eos 1."""
     return HFFileTokenizer(path, pad_id=0, eos_id=1)
+
+
+def clip_tokenizer(path: str) -> HFFileTokenizer:
+    """OpenAI CLIP's BPE: start 49406 first, end 49407 last, zero pads
+    (openai/CLIP's simple_tokenizer through an exported tokenizer.json)."""
+    return HFFileTokenizer(path, pad_id=0, eos_id=49407, bos_id=49406, add_bos=True)
+
+
+def clip_tokenize(tok, texts, context_length: int = 77):
+    """-> (ids [N, L], eot_positions [N]) for ``Clip.encode_text``: any
+    tokenizer with the adapters' call (a CLIP BPE, or the BERT WordPiece
+    fallback whose ``[SEP]`` ends a row); the pooled row is each text's last
+    position (reference CLIP.encode_text)."""
+    enc = tok(texts, max_length=context_length)
+    eot = enc["attention_mask"].sum(axis=1).astype(np.int32) - 1
+    return enc["input_ids"], eot
 
 
 class WhitespaceTokenizer:

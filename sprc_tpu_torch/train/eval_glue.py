@@ -11,8 +11,8 @@ tasks: the BLIP-2 LLM heads' branches (``blip2_opt``, ``blip2_t5``).
 :func:`make_vqa_predict_fn` is BLIP-1 / ALBEF's VQA glue (``blip_vqa``,
 ``albef_vqa``): ``rank`` over the run's answer list (tokenized once, at
 ``max_len``) or ``generate``; :func:`make_classification_predict_fn` the
-classifiers' and NLVR's logits beside the targets. The ``blip_caption``
-branch comes with BLIP-1's captioning (ROADMAP A8.6.3).
+classifiers' and NLVR's logits beside the targets. BLIP-1's captioner
+(``blip_caption``) decodes greedily from the ``[DEC]``-prefixed prompt.
 """
 
 from __future__ import annotations
@@ -51,14 +51,18 @@ def collate_eval(items: List[dict]) -> dict:
     return out
 
 
-def _require_llm_head(model) -> None:
-    """Refuse a model that is not a BLIP-2 LLM head."""
+def _is_llm_head(model) -> bool:
     from sprc_tpu_torch.models.blip2_opt import Blip2OPT
     from sprc_tpu_torch.models.blip2_t5 import Blip2T5
 
-    if not isinstance(model, (Blip2OPT, Blip2T5)):
-        raise NotImplementedError(f"{type(model).__name__}: its glue is not ported (BLIP-1's "
-                                  "blip_caption: ROADMAP A8.6.3)")
+    return isinstance(model, (Blip2OPT, Blip2T5))
+
+
+def _require_llm_head(model) -> None:
+    """Refuse a model that is not a BLIP-2 LLM head."""
+    if not _is_llm_head(model):
+        raise NotImplementedError(f"{type(model).__name__}: this glue is the BLIP-2 LLM heads' "
+                                  "(ALPRO's video QA: ROADMAP A8.6.5)")
 
 
 def _generate(model, tokenizer, samples: dict, texts: List[str], max_text: int,
@@ -77,19 +81,45 @@ def _generate(model, tokenizer, samples: dict, texts: List[str], max_text: int,
 
 def make_caption_generate_fn(model, tokenizer, *, prompt: str = "a picture of ",
                              stats: Optional[Dict[str, float]] = None) -> Callable:
-    """``generate_fn(samples, num_beams, max_length, min_length) -> [str]``
-    for the BLIP-2 LLM heads: the prompt tokenized at ``max_length=16``, the
+    """``generate_fn(samples, num_beams, max_length, min_length) -> [str]``.
+
+    The BLIP-2 LLM heads: the prompt tokenized at ``max_length=16``, the
     greedy decode of ``max_length`` tokens with the head's own eos / pad
     defaults (OPT 2 / 1, T5 1 / 0, whatever the tokenizer), each row decoded
-    by the tokenizer (reference blip2_{opt,t5}.generate). ``num_beams`` and
-    ``min_length`` are not read, as in the JAX glue. ``stats`` collects the
-    head's seconds by stage over every batch."""
-    _require_llm_head(model)
+    by the tokenizer and stripped (reference blip2_{opt,t5}.generate).
+    BLIP-1's captioner (``sprc_tpu/train/eval_glue.py:66-85``): the prompt's
+    ids with ``[DEC]`` (``[CLS]`` where the vocabulary has no ``[DEC]``)
+    first and no trailing ``[SEP]`` (reference blip_caption.py:184), the
+    greedy decode of ``max_length`` tokens ending at ``[SEP]``, each row
+    decoded by the tokenizer. ``num_beams`` and ``min_length`` are not
+    read, as in the JAX glue. ``stats`` collects the model's seconds by
+    stage over every batch."""
+    from sprc_tpu_torch.models.blip1 import BlipCaption
+
+    if _is_llm_head(model):
+        def generate_fn(samples: dict, *, num_beams: int = 3, max_length: int = 30,
+                        min_length: int = 10) -> List[str]:
+            n = len(samples["image"])
+            return _generate(model, tokenizer, samples, [prompt or ""] * n, 16, max_length,
+                             stats)
+
+        return generate_fn
+    if not isinstance(model, BlipCaption):
+        raise NotImplementedError(f"{type(model).__name__}: no captioning glue fits it, in "
+                                  "either package (the captioners: blip_caption, blip2_opt, "
+                                  "blip2_t5)")
+    prompt_row = np.asarray(tokenizer.caption_prompt_ids(prompt), np.int64)
+    device = next(model.parameters()).device
 
     def generate_fn(samples: dict, *, num_beams: int = 3, max_length: int = 30,
                     min_length: int = 10) -> List[str]:
-        n = len(samples["image"])
-        return _generate(model, tokenizer, samples, [prompt or ""] * n, 16, max_length, stats)
+        images = torch.from_numpy(np.ascontiguousarray(samples["image"], np.float32)).to(device)
+        prompt_ids = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(prompt_row, (images.shape[0], prompt_row.shape[0])))).to(device)
+        ids = model.generate_ids(images, prompt_ids, eos_token_id=tokenizer.sep_id,
+                                 pad_token_id=tokenizer.pad_id, max_new_tokens=max_length,
+                                 stats=stats)
+        return [tokenizer.decode(row) for row in ids.cpu().numpy()]
 
     return generate_fn
 

@@ -45,10 +45,12 @@ Adapters: ``image_text_pretrain`` (:class:`PretrainAdapter`) and
 ``captioning`` (:class:`CaptionAdapter`; :class:`Seq2SeqCaptionAdapter`
 for ``blip2_t5``) for the parameter-only families, which in the port are
 BLIP-2 stage 1 (``blip2``, ``blip2_feature_extractor``,
-``blip2_image_text_matching``) and stage 2's ``blip2_opt`` and
-``blip2_t5``; ``retrieval`` (:class:`RetrievalAdapter`) for the
-momentum-queue families (``blip_retrieval``, ``albef_retrieval``), to
-which ``image_text_pretrain`` also sends ``blip_pretrain`` and
+``blip2_image_text_matching``), stage 2's ``blip2_opt`` and ``blip2_t5``,
+and BLIP-1's captioner ``blip_caption`` (configs/runs/caption_coco_ft,
+_ft_iter, _large_ft: its tower trains through K2's ``FusedViTBlock``);
+``retrieval`` (:class:`RetrievalAdapter`) for the momentum-queue families
+(``blip_retrieval``, ``albef_retrieval``), to which ``image_text_pretrain``
+also sends ``blip_pretrain`` and
 ``albef_pretrain``. Those carry the trainer's aux state (the momentum
 copies and queues, :mod:`sprc_tpu_torch.models.albef`), ramp ``alpha`` by
 ``0.4 min(1, (epoch n + i) / 2n)`` a batch (``step_extras``), collate
@@ -106,17 +108,21 @@ class CaptionAdapter:
 
     def specialize(self, model):
         """``Blip2T5`` is seq2seq (prompt in the encoder, caption in the
-        decoder); stage 1 and ``Blip2OPT`` keep the decoder-only contract;
-        another family refuses (BLIP-1's captioner: ROADMAP A8.6.3)."""
+        decoder); stage 1, ``Blip2OPT`` and BLIP-1's ``BlipCaption`` keep the
+        decoder-only contract (``BlipCaption``: the plain captions, the
+        loss's first ``prompt_length`` positions masked, its tower trained,
+        its med decoder's dropout drawn from the trainer's generator, as the
+        JAX step applies it with the step's rng); another model refuses."""
+        from sprc_tpu_torch.models.blip1 import BlipCaption
         from sprc_tpu_torch.models.blip2_opt import Blip2OPT
         from sprc_tpu_torch.models.blip2_stage1 import Blip2Stage1
         from sprc_tpu_torch.models.blip2_t5 import Blip2T5
 
         if isinstance(model, Blip2T5):
             return Seq2SeqCaptionAdapter(self.tokenizer, self.max_txt_len)
-        if not isinstance(model, (Blip2Stage1, Blip2OPT)):
-            raise SystemExit(f"{type(model).__name__}: no caption adapter in the port for it "
-                             "(BLIP-1's blip_caption: ROADMAP A8.6.3)")
+        if not isinstance(model, (Blip2Stage1, Blip2OPT, BlipCaption)):
+            raise SystemExit(f"{type(model).__name__}: its forward is not the captioners' "
+                             "(images, input_ids, text_mask), in either package")
         return self
 
 
@@ -502,11 +508,14 @@ def run_generic(cfg, args) -> Dict[str, float]:
         raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (the "
                          "instruction and LLaMA token batches), in either package; its "
                          "training forward runs through models.instruct_cir.InstructAdapter")
+    if arch in loader.CLIP_MODELS + loader.CIR_FEATURE_MODELS:
+        # no run YAML trains them; the JAX run builds the model and fails at the call
+        raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (an "
+                         "evaluation and feature model), in either package")
     if arch not in (loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS
-                    + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS):
-        raise SystemExit(f"model {arch!r}: not ported for generic training (BLIP-1's "
-                         "captioning: ROADMAP A8.6.3; CLIP: A8.6.4; the video families: "
-                         "A8.6.5; the dialogue: A8.6.6)")
+                    + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS + ("blip_caption",)):
+        raise SystemExit(f"model {arch!r}: not ported for generic training (the video "
+                         "families: ROADMAP A8.6.5; the dialogue: A8.6.6)")
     if task_name in ("vqa", "gqa", "aok_vqa") and arch not in loader.VQA_MODELS:
         # the JAX run builds the model and then fails at the adapter's call
         raise SystemExit(f"run.task {task_name!r} trains BLIP-1 / ALBEF's VQA models "

@@ -3,10 +3,12 @@
 the BLIP-2 family (reference tasks/retrieval.py:19-120), over
 ``extract_target_features`` and ``encode_text_cls``, and of the BLIP-1 /
 ALBEF families (``evaluate_pairs_itc``: CLS-projection cosines rank every
-pair, the ITM head rescores each query's top ``k_test``).
+pair, the ITM head rescores each query's top ``k_test``) and of CLIP
+(``evaluate_pairs_clip``: the cosines of the two towers' features, no
+rescoring).
 
-The JAX module's CLIP and video evaluations and its ``CirTask`` come with
-their families (ROADMAP A8).
+The JAX module's video evaluation and its ``CirTask`` come with their
+families (ROADMAP A8.6.5, A8.6.7).
 """
 
 from __future__ import annotations
@@ -140,6 +142,45 @@ class ImageTextRetrievalTask(BaseTask):
                                     score)
         stats["itm_s"] = time.perf_counter() - t0
         return retrieval_recalls(s_i2t, s_t2i, img2txt, txt2img)
+
+    def evaluate_pairs_clip(self, model, images, texts: Sequence[str],
+                            img2txt: Dict[int, Sequence[int]], txt2img: Dict[int, int], *,
+                            tokenize=None, batch: int = 64,
+                            stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """CLIP's retrieval evaluation (``sprc_tpu/train/tasks.py:229``):
+        the L2-normalised image features (``batch`` images a tower call, or
+        the batches of an iterable as they come) against the normalised text
+        features (256 captions a call), ranked by the cosine alone.
+        ``tokenize(texts) -> (ids, eot_positions)``; by default the task's
+        tokenizer at ``min(context_length, max_txt_len)`` with each row's
+        last position as its end of text. ``stats``: ``image_encode_s``,
+        ``text_encode_s``, ``rank_s``."""
+        from sprc_tpu_torch.retrieval.sim_matrix import retrieval_recalls
+        from sprc_tpu_torch.text.llm_tokenizers import clip_tokenize
+
+        stats = {} if stats is None else stats
+        if tokenize is None:
+            ctx = min(int(model.cfg.text.context_length), self.max_txt_len)
+            tokenize = lambda t: clip_tokenize(self.tokenizer, t, ctx)  # noqa: E731
+        device = next(model.parameters()).device
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            feats = [model.encode_image(torch.from_numpy(
+                np.ascontiguousarray(chunk, np.float32)).to(device)).float().cpu().numpy()
+                for chunk in _image_batches(images, batch)]
+            t1 = time.perf_counter()
+            ids, eot = (np.asarray(a) for a in tokenize(list(texts)))
+            text = [model.encode_text(
+                torch.as_tensor(ids[s: s + 256], dtype=torch.long, device=device),
+                torch.as_tensor(eot[s: s + 256], dtype=torch.long, device=device)
+            ).float().cpu().numpy() for s in range(0, ids.shape[0], 256)]
+        t2 = time.perf_counter()
+        image_feat, text_feat = _norm(np.concatenate(feats)), _norm(np.concatenate(text))
+        sims = image_feat @ text_feat.T
+        metrics = retrieval_recalls(sims, sims.T, img2txt, txt2img)
+        stats.update(image_encode_s=t1 - t0, text_encode_s=t2 - t1,
+                     rank_s=time.perf_counter() - t2)
+        return metrics
 
 
 def _norm(x: np.ndarray) -> np.ndarray:

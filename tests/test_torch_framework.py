@@ -88,7 +88,11 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "vqav2_albef_ft.yaml", "eval/vqav2_eval.yaml",
                                            "eval/gqa_eval.yaml", "snli_ve_ft.yaml",
                                            "nlvr_ft.yaml", "eval/snli_ve_eval.yaml",
-                                           "eval/nlvr_eval.yaml", "eval/nlvr_albef_eval.yaml"}
+                                           "eval/nlvr_eval.yaml", "eval/nlvr_albef_eval.yaml",
+                                           "caption_coco_ft.yaml", "caption_coco_large_ft.yaml",
+                                           "eval/caption_coco_eval.yaml",
+                                           "eval/exp_coco_ret_eval.yaml",
+                                           "eval/imnet_zs_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 
@@ -131,7 +135,7 @@ def test_builders_equal_jax(tmp_path):
     assert mine == {"coco_caption", "nocaps", "vg_caption", "sbu_caption",
                     "conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi",
                     "coco_retrieval", "flickr30k", "coco_vqa", "ok_vqa", "aok_vqa", "gqa",
-                    "vg_vqa", "snli_ve", "nlvr"}
+                    "vg_vqa", "snli_ve", "nlvr", "imagenet"}
     assert mine <= set(jregistry.list("dataset"))
     names = _images(tmp_path)
     pairs = [{"image": n, "caption": f"A photo {i}!", "image_id": f"id{i % 3}"}

@@ -111,6 +111,17 @@ assert "multimodal_classification" in registry.list("task")
 assert {"snli_ve", "nlvr"} <= set(registry.list("dataset"))
 assert all(callable(f) for f in (jax_params.vqa_from_jax, jax_params.classifier_from_jax,
                                  jax_params.nlvr_from_jax, jax_params.momentum_copies_from_jax))
+# BLIP-1's captioning and CIR extractor, CLIP (ViT and RN50) and its zero-shot
+# classifier, the flat CLIP index and the feature-extraction entry
+assert {"sprc_tpu_torch.models.clip", "sprc_tpu_torch.models.resnet_clip",
+        "sprc_tpu_torch.models.clip_zero_shot", "sprc_tpu_torch.retrieval.clip_index",
+        "sprc_tpu_torch.features"} <= set(mods)
+assert {"clip", "clip_feature_extractor", "blip_cir_base",
+        "blip_feature_extractor"} <= set(registry.list("model"))
+assert callable(blip1.BlipCaption.generate_ids) and "imagenet" in registry.list("dataset")
+assert {"clip_image_train", "clip_image_eval"} <= set(registry.list("processor"))
+assert callable(llm_tokenizers.clip_tokenize)
+assert callable(tasks.ImageTextRetrievalTask.evaluate_pairs_clip)
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -159,6 +170,17 @@ for arch, (run_yaml, _, _) in chip_smoke.HEAD_TRAIN.items():
 for which, run_yaml in chip_smoke.HEAD_EVAL.items():
     assert Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml]).run["evaluate"] is True
 assert loader.family_config("blip_vqa", "vqav2").vit_config().seq_len == 901
+for which, (run_yaml, _, k2) in chip_smoke.CAPTION_TRAIN.items():
+    cfg = Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml])
+    assert cfg.model["arch"] == "blip_caption" and cfg.run["batch_size"] == 32
+    assert loader.family_config("blip_caption", cfg.model.get("model_type", "pretrain")
+                                ).vit_config().depth == k2
+for run_yaml in (chip_smoke.CAPTION_EVAL, chip_smoke.CLIP_RET, chip_smoke.CLIP_ZS):
+    assert Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml]).run["evaluate"] is True
+assert loader.family_config("clip", "vit_large14_336").vision_config().seq_len == 577
+assert loader.family_config("clip", "vit_base32").vision_config().seq_len == 50
+assert loader.family_config("blip_feature_extractor", "base").vit_config().seq_len == 197
+assert (chip_smoke.STAGE1_CAPTIONS, chip_smoke.INSTRUCT_NEW_TOKENS) == (2, 15)  # the time cuts
 leaked =sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

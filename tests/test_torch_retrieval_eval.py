@@ -145,17 +145,20 @@ def test_evaluate_cli_prints_the_jax_metrics(itm_models, tmp_path, monkeypatch, 
 
 
 def test_evaluate_refuses_what_is_not_ported(tmp_path):
-    """Another task or family exits naming its ROADMAP entry; the default
-    device is the card (nonzero exit without one)."""
+    """Another task or family exits naming its ROADMAP entry, a model with no
+    captioning glue says so (BLIP-1's captioner and CLIP, once refused, run:
+    test_torch_blip_caption.py, test_torch_clip_cli.py); the default device
+    is the card (nonzero exit without one)."""
     import argparse
 
     from sprc_tpu_torch.cli import evaluate
     from sprc_tpu_torch.config import Config
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
-    for run, model in (({"task": "captioning"}, {"arch": "blip2"}),
-                       ({"task": "retrieval"}, {"arch": "alpro_retrieval"})):
-        with pytest.raises(SystemExit, match="ROADMAP A8"):
+    for run, model, match in (({"task": "captioning"}, {"arch": "blip2"},
+                               "no captioning glue fits it"),
+                              ({"task": "retrieval"}, {"arch": "alpro_retrieval"}, "ROADMAP A8")):
+        with pytest.raises(SystemExit, match=match):
             evaluate.evaluate(Config(defaults={"run": run, "model": model}), args)
     assert evaluate.make_parser().parse_args(["--cfg-path", "x"]).device == "cuda"
     if not torch.cuda.is_available():
