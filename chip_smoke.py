@@ -471,6 +471,28 @@ Phases (any failure raises and exits nonzero before the last line):
    CIR text pass (kernel_checks.run_blip_caption), and K2 in fp32 with its
    attention at CLIP ViT-L/14-336's B = 32 and 64 and ViT-B/32's S = 50
    (kernel_checks.run_clip).
+22. The video families (models/alpro.py over models/timesformer.py; random
+   weights from seed 0, the synthetic vocab, full width: the TimeSformer
+   ViT-B/16 over 8 frames at 224 px and the BERT-base med-BERT, both fp32;
+   seeded uint8 clips of 8 x 240 x 320, one a directory of PNG frames). 22a:
+   cli/train.py on msrvtt_retrieval_ft.yaml (the YAML's batch of 16, 3
+   steps; its train processor seeded); 22b: msrvtt_qa_ft.yaml the same way
+   (1500 classes, the model YAML's 16 time rows, 8 sampled frames): step ms,
+   samples/s, peak, K8 a step (12: the spatial attention of each block,
+   through FlashAttention; nothing else launches); then one step's
+   gradients through the kernels (every K8 launch stage by stage) against
+   all-plain, and the same steps all-plain from the same weights, batches,
+   dropout masks and (22a) hard negatives, within TRAIN_BOUNDS["live"]; no
+   last_state.pt is written. 22c: cli/evaluate.py on
+   eval/msrvtt_ret_eval.yaml over 32 clips x 2 captions at k_test 16 (4
+   clips a tower call); 22d: eval/msvd_qa_eval.yaml over 32 questions (8 a
+   batch) and 2423 synthetic answers: seconds by stage, 12 K8 a tower call;
+   the tower's rows against the plain tower's on the same clips within
+   VIDEO_ROW_REL, and from the kernel tower's rows the all-plain recalls and
+   predictions equal. Cut: the evaluations read 32 clips, not a split. The
+   kernel phase holds K8 at TimeSformer's call (fp32, D 64, S = 197, strided
+   views of the packed qkv) through FlashAttention at B·T = 128 and without
+   a graph at 32, beside SDPA fp32 (kernel_checks.run_video).
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -792,6 +814,35 @@ RUN_CONFIGS = {
             "build_info": {"annotations": {"train": []}, "images": ""},
             "vis_processor": {"train": {"name": "blip2_image_train", "image_size": 364}},
             "text_processor": {"train": {"name": "blip_caption"}}}}},
+    **{name: {
+        "run": {"task": task, "batch_size": 16, "max_epochs": epochs, "learning_rate": "1e-5",
+                "weight_decay": 0.001, "max_txt_len": 40, "seed": 42},
+        "model": {"arch": arch, "model_type": "msrvtt"},
+        "datasets": {builder: {
+            "build_info": {"annotations": {"train": []}, "videos": "", "n_frms": 8},
+            "vis_processor": {"train": {"name": "alpro_video_train", "image_size": 224}},
+            "text_processor": {"train": {"name": text}}}}}
+       for name, task, epochs, arch, builder, text in (
+           ("msrvtt_retrieval_ft.yaml", "retrieval", 5, "alpro_retrieval", "msrvtt_retrieval",
+            "blip_caption"),
+           ("msrvtt_qa_ft.yaml", "multimodal_classification", 10, "alpro_qa", "msrvtt_qa",
+            "blip_question"))},
+    "eval/msrvtt_ret_eval.yaml": {
+        "run": {"task": "retrieval", "evaluate": True, "k_test": 128, "max_txt_len": 35,
+                "test_splits": ["test"]},
+        "model": {"arch": "alpro_retrieval", "model_type": "msrvtt"},
+        "datasets": {"msrvtt_retrieval": {
+            "build_info": {"annotations": {"test": []}, "videos": "", "n_frms": 8},
+            "vis_processor": {"eval": {"name": "alpro_video_eval", "image_size": 224}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "eval/msvd_qa_eval.yaml": {
+        "run": {"task": "multimodal_classification", "evaluate": True, "batch_size_eval": 8,
+                "answer_list": [], "test_splits": ["test"]},
+        "model": {"arch": "alpro_qa", "model_type": "msvd"},
+        "datasets": {"msvd_qa": {
+            "build_info": {"annotations": {"test": []}, "videos": "", "n_frms": 8},
+            "vis_processor": {"eval": {"name": "alpro_video_eval", "image_size": 224}},
+            "text_processor": {"eval": {"name": "blip_question"}}}}},
 }
 
 
@@ -7044,6 +7095,355 @@ def caption_clip_kernels(rows, caption_train, caption_eval, cir, clip_eval, clip
               clip_feats["vit_base32"]["launches"]["attention_f32"], *k8)]
 
 
+# Phase 22, the video families (ALPRO: the TimeSformer ViT-B/16 over 8 frames
+# at 224 px and the BERT-base med-BERT, both fp32 as the YAMLs give them; random
+# weights from seed 0, the synthetic vocab, seeded clips). 22a / 22b:
+# cli/train.py on msrvtt_retrieval_ft.yaml and msrvtt_qa_ft.yaml (its model
+# YAML's 1500 classes and 16 time rows, 8 frames sampled) at the YAMLs' batch of
+# 16, VIDEO_STEPS steps; 22c / 22d: cli/evaluate.py on eval/msrvtt_ret_eval.yaml
+# (VIDEO_EVAL_CLIPS clips x VIDEO_EVAL_CAPTIONS captions, k_test VIDEO_K_TEST)
+# and eval/msvd_qa_eval.yaml (VIDEO_EVAL_CLIPS questions over 2423 synthetic
+# answers). Cut for the run's time: the evaluations read 32 clips, not a split.
+# The clips are seeded uint8 [8, 240, 320, 3] .npy files, one of each split a
+# directory of PNG frames (read through PIL); the processors resize them.
+VIDEO_TRAIN = {"retrieval": "msrvtt_retrieval_ft.yaml", "qa": "msrvtt_qa_ft.yaml"}
+VIDEO_EVAL = {"retrieval": "eval/msrvtt_ret_eval.yaml", "qa": "eval/msvd_qa_eval.yaml"}
+VIDEO_STEPS = 3
+VIDEO_EVAL_CLIPS = 32
+VIDEO_EVAL_CAPTIONS = 2
+VIDEO_K_TEST = 16
+VIDEO_SOURCE = (8, 240, 320)  # a synthetic clip's frames, height, width
+VIDEO_ANSWERS = 2423  # MSVD-QA's answer vocabulary (synthetic answers)
+# K8 a TimeSformer call: the spatial attention of each of its 12 blocks (the
+# temporal one, 8 rows, stays under the kernel's 128-row floor); each launch also
+# counts as an fp32 attention launch (attention_f32)
+VIDEO_TOWER_K8 = 12
+VIDEO_EVAL_BATCH = {"retrieval": 4, "qa": 8}  # clips a tower call
+# Bounds, fixed before the first reading: the steps against the all-plain steps
+# of the same weights, batches, dropout masks and hard negatives, and one step's
+# gradients (every K8 launch stage by stage inside it), within
+# TRAIN_BOUNDS["live"]; the evaluations' video rows (the fp32 tower, K8 in
+# 3xTF32 against true fp32 in 12 blocks) within CLIP_FEATURE_REL of their
+# largest |value|, and from the kernel tower's rows the all-plain recalls and
+# predictions equal (the text pass, the fusion and the rescoring run no kernel).
+VIDEO_ROW_REL = CLIP_FEATURE_REL
+
+
+def _write_clips(root, n, seed, kind, split):
+    """``n`` seeded clips under ``root`` (uint8 VIDEO_SOURCE .npy files, the
+    first one a directory of PNG frames) with ``kind``'s annotations
+    (``retrieval``: one caption a clip for training, VIDEO_EVAL_CAPTIONS for
+    evaluation; ``qa``: a question and its answers); the annotation path."""
+    from sprc_tpu_torch.utils.artifacts import encode_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ann = []
+    for i in range(n):
+        clip = rng.integers(0, 256, (*VIDEO_SOURCE, 3), dtype=np.uint8)
+        name = f"{kind}_{split}_{i:04d}"
+        if i == 0:
+            os.makedirs(os.path.join(root, name), exist_ok=True)
+            for t, frame in enumerate(clip):
+                with open(os.path.join(root, name, f"{t:03d}.png"), "wb") as f:
+                    f.write(encode_png(frame))
+        else:
+            name += ".npy"
+            np.save(os.path.join(root, name), clip)
+        words = [str(x) for x in rng.choice(STAGE1_WORDS, 8)]
+        if kind == "retrieval":
+            caps = [" ".join(rng.choice(STAGE1_WORDS, int(rng.integers(5, 20))))
+                    for _ in range(1 if split == "train" else VIDEO_EVAL_CAPTIONS)]
+            ann.append({"video": name, "caption": caps[0] if split == "train" else caps,
+                        "image_id": f"clip{i}"})
+        else:
+            answers = words[1:4] if split == "train" else words[1]
+            ann.append({"video": name, "question": f"what is the {words[0]} doing", 
+                        "answer": answers, "question_id": 22000 + i})
+    path = os.path.join(root, f"{split}.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+@contextlib.contextmanager
+def _negatives_tape(tape, moved=None):
+    """ALPRO's hard negatives recorded (``moved`` None: each draw kept in
+    ``tape``) or replayed (the generator draws as before, so that the dropout
+    masks after it stay aligned, and the recorded picks are returned;
+    ``moved`` counts the picks that the run's own draw would have changed)."""
+    from sprc_tpu_torch.models import alpro
+
+    real, calls = alpro.sample_negatives, [0]
+
+    def record(weights, generator):
+        picks = real(weights, generator)
+        tape.append(picks.clone())
+        return picks
+
+    def replay(weights, generator):
+        own, picks = real(weights, generator), tape[calls[0]]
+        calls[0] += 1
+        moved.append(int((own != picks).sum()))
+        return picks
+
+    alpro.sample_negatives = record if moved is None else replay
+    try:
+        yield
+    finally:
+        alpro.sample_negatives = real
+
+
+def _video_launches(tag, launches, want, what):
+    """``launches`` (counter -> launches) holds K8's ``want`` and as many
+    fp32 attention launches (K8's own), and nothing else."""
+    moved = {k: v for k, v in launches.items() if v}
+    if moved != {"flash_attention": want, "attention_f32": want}:
+        raise RuntimeError(f"{tag}: launches {moved} ({what}), expected K8 {want}")
+
+
+def phase_video_train(work, kind):
+    """22a / 22b: one ALPRO YAML through cli/train.py, one step's gradients
+    kernel against plain (K8 stage by stage), then the same steps all-plain."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch import kernel_checks
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.loop import TrainConfig
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name = VIDEO_TRAIN[kind]
+    tag = f"video train {kind}"
+    t_phase = time.perf_counter()
+    batch_size = RUN_CONFIGS[name]["run"]["batch_size"]
+    (builder,) = RUN_CONFIGS[name]["datasets"]
+    root = os.path.join(work, f"video_{kind}")
+    ann = _write_clips(root, batch_size * VIDEO_STEPS, SEED + 220, kind, "train")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    out = os.path.join(work, f"video_{kind}_train")
+    shutil.rmtree(out, ignore_errors=True)
+    # the train processor seeded, so that the all-plain run sees the same crops
+    cfg, how = _run_config(name, {
+        "run": {"max_epochs": 1, "seed": SEED, "log_freq": 1},
+        "datasets": {builder: {"build_info": {"annotations": {"train": [ann]}, "videos": root},
+                               "vis_processor": {"train": {"seed": SEED + 221}}}}})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=vocab, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    tape = []
+    with _negatives_tape(tape):
+        run = _cli_train_run(cfg, args)
+    params = sum(p.numel() for p in run.pop("trainer").model.parameters())
+    k_rows, times, per_step, launches, peak, run_s, skipped = (run[k] for k in (
+        "rows", "times", "per_step", "launches", "peak", "run_s", "skipped"))
+    log(f"[{tag}] {len(k_rows)} steps at batch {batch_size} ({params / 1e6:.1f} M parameters): "
+        "ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; samples/s (last step) {batch_size / times[-1] * 1e3:.2f}; peak {peak:.2f} GiB; "
+        f"run {run_s:.1f} s; losses " + ", ".join(f"{r['loss']:.4f}" for r in k_rows))
+    log(f"[{tag}] launches: {launches}; a step: {per_step}; state writes skipped: {skipped}")
+    if len(k_rows) != VIDEO_STEPS or any(r["skipped_nonfinite"] for r in k_rows) or not all(
+            np.isfinite(r["loss"]) for r in k_rows):
+        raise RuntimeError(f"{tag}: steps {k_rows}")
+    for i, step in enumerate(per_step):
+        _video_launches(tag, step, VIDEO_TOWER_K8, f"step {i}")
+    _video_launches(tag, launches, VIDEO_TOWER_K8 * VIDEO_STEPS, "the run")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the all-plain run: the same weights (the run's seed), batches (the seeded
+    # processor and order), dropout masks (the trainer's generator) and negatives
+    model_cfg = dict(cfg.model)
+    model_cfg.pop("arch")
+    model = load_model(RUN_CONFIGS[name]["model"]["arch"], model_cfg.pop("model_type"),
+                       device=DEVICE, seed=SEED, **model_cfg)
+    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
+
+    def task():
+        datasets = registry.get("dataset", builder)(dict(cfg.datasets[builder])).build()
+        adapter = generic.TASK_ADAPTERS[cfg.run["task"]](
+            tokenizer, max_txt_len=int(cfg.run["max_txt_len"])).specialize(model)
+        if hasattr(adapter, "attach"):
+            adapter.attach(datasets["train"])
+        return adapter, generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED,
+                                            device=DEVICE)
+
+    adapter, first_task = task()
+    first = first_task.prepare_batch(next(iter(first_task.train_loader(0))))
+    # one step's gradients from the same weights, batch, dropout masks and
+    # negatives: the kernel forward with its K8 launches stage by stage, then
+    # all-plain
+    model.train()
+    grads, stages, first_tape, moved = {}, kernel_checks.StageRecorder(), [], []
+    for run_kind in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(primitives.stage_check(stages) if run_kind == "kernel"
+                                else primitives.plain_reference())
+            stack.enter_context(_negatives_tape(first_tape, None if run_kind == "kernel"
+                                                else moved))
+            loss = adapter.forward(model, first, gen)["loss"]
+            loss.backward()
+        sync()
+        grads[run_kind] = (loss.item(), *_grads(model))
+    model.zero_grad(set_to_none=True)
+    (k_loss, names, k_grads), (p_loss, _, p_grads) = grads["kernel"], grads["plain"]
+    grad = kernel_checks.grad_gap(k_grads, p_grads, names)
+    del grads, k_grads, p_grads, first
+    # the all-plain steps over the batches drawn again, the run's negatives replayed
+    adapter, plain_task = task()
+    tcfg = TrainConfig(learning_rate=float(cfg.run["learning_rate"]),
+                       weight_decay=float(cfg.run["weight_decay"]), total_steps=VIDEO_STEPS)
+    plain = generic.GenericTrainer(model, tcfg, seed=SEED, adapter=adapter, skip_nonfinite=True,
+                                   decay_frozen=True)
+    run_moved = []
+    with primitives.plain_reference(), _negatives_tape(tape, run_moved):
+        p_rows = [plain.train_step(plain_task.prepare_batch(b))
+                  for b in plain_task.train_loader(0)]
+    sync()
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = TRAIN_BOUNDS["live"]
+    gaps = {"loss": max(abs(k["loss"] - p["loss"]) / max(abs(p["loss"]), 1e-6)
+                        for k, p in zip(k_rows, p_rows)),
+            "step_loss": abs(k_loss - p_loss) / max(abs(p_loss), 1e-6), "grad": grad["gap"]}
+    for row in stages.rows():
+        log(f"[{tag}] one step's tower, stage by stage: {row['kind']}: {row['calls']} calls, "
+            f"worst share that differs {row['differ']:.3e}, worst difference {row['err']:.3e} -> "
+            f"{'ok' if row['ok'] else 'FAIL'}")
+    log(f"[{tag}] all-plain losses " + ", ".join(f"{r['loss']:.6f}" for r in p_rows)
+        + "; the kernel run's " + ", ".join(f"{r['loss']:.6f}" for r in k_rows)
+        + (f"; hard negatives replayed, the plain draws would move {sum(run_moved)} of "
+           f"{sum(t.numel() for t in tape)} (the gradient step: {sum(moved)})" if tape else ""))
+    log(f"[{tag}] the kernel run against the all-plain run: losses {gaps['loss']:.3e}, one "
+        f"step's loss {gaps['step_loss']:.3e} (bound {bound['loss']:.0e}), its gradients "
+        f"{grad['gap']:.3e} (bound {bound['grad']}; worst {grad['worst']})")
+    k8_calls = {r["kind"]: r["calls"] for r in stages.rows()}.get("flash_attention -> f32")
+    if (not stages.ok() or max(gaps["loss"], gaps["step_loss"]) > bound["loss"]
+            or grad["gap"] > bound["grad"] or len(p_rows) != VIDEO_STEPS
+            or k8_calls != VIDEO_TOWER_K8):
+        raise RuntimeError(f"{tag}: against the all-plain run {gaps}, stages ok "
+                           f"{stages.ok()} ({k8_calls} K8 calls), {len(p_rows)} steps")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": peak, "parameters": params,
+            "losses": [r["loss"] for r in k_rows], "launches": launches,
+            "launches_step": per_step, "gaps": gaps, "stages": stages.rows(),
+            "seconds": seconds}
+
+
+def phase_video_eval(work, kind):
+    """22c / 22d: one ALPRO eval YAML through cli/evaluate.py, then all-plain
+    from the kernel tower's rows."""
+    from sprc_tpu_torch.models.alpro import AlproQA, AlproRetrieval
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    name = VIDEO_EVAL[kind]
+    tag = f"video eval {kind}"
+    t_phase = time.perf_counter()
+    (builder,) = RUN_CONFIGS[name]["datasets"]
+    root = os.path.join(work, f"video_eval_{kind}")
+    ann = _write_clips(root, VIDEO_EVAL_CLIPS, SEED + 223, kind, "test")
+    vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
+    over = {"run": {"seed": SEED},
+            "datasets": {builder: {"build_info": {"annotations": {"test": [ann]},
+                                                  "videos": root}}}}
+    if kind == "retrieval":
+        over["run"]["k_test"] = VIDEO_K_TEST
+    else:
+        rng = np.random.default_rng(SEED + 224)
+        answers = list(dict.fromkeys(STAGE1_WORDS))
+        while len(answers) < VIDEO_ANSWERS:
+            word = " ".join(f"tok{int(j)}" for j in rng.integers(0, 20000, 2))
+            if word not in answers:
+                answers.append(word)
+        over["run"]["answer_list"] = answers
+    cfg, how = _run_config(name, over)
+    log(f"[{tag}] cli/evaluate.py through {how.split(' run.answer_list=')[0]}"
+        + (f" run.answer_list=<{VIDEO_ANSWERS} answers>" if kind == "qa" else ""))
+    counters = _counters()
+    runs, (f_max, f_mean, f_top) = _eval_twice(tag, cfg, work, f"video_eval_{kind}", vocab,
+                                               AlproRetrieval if kind == "retrieval" else AlproQA,
+                                               "encode_video", counters)
+    k, p = runs["kernel"], runs["plain"]
+    want = VIDEO_TOWER_K8 * -(-VIDEO_EVAL_CLIPS // VIDEO_EVAL_BATCH[kind])
+    log(f"[{tag}] the tower's rows, kernel against plain on the same clips: max {f_max:.3e} of "
+        f"{f_top:.3e} ({f_max / f_top:.3e}; bound {VIDEO_ROW_REL:.0e}), mean {f_mean:.3e}; from "
+        f"the kernel tower's rows the all-plain results "
+        f"{'equal' if k['results'] == p['results'] else 'DIFFER'}, metrics "
+        f"{'equal' if k['metrics'] == p['metrics'] else 'DIFFER'}; K8 {want} expected")
+    if p["launches"]:
+        raise RuntimeError(f"{tag}: the all-plain run launched {p['launches']}")
+    _video_launches(tag, k["launches"], want, "the run")
+    if (k["results"] != p["results"] or k["metrics"] != p["metrics"]
+            or "agg_metrics" not in k["metrics"] or f_max > VIDEO_ROW_REL * f_top):
+        raise RuntimeError(f"{tag}: the kernel evaluation disagrees with the all-plain one")
+    if kind == "qa" and len(k["results"][0]) != VIDEO_EVAL_CLIPS:
+        raise RuntimeError(f"{tag}: {len(k['results'][0])} predictions")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": k["metrics"], "stages_s": k["stats"], "seconds_kernel": k["seconds"],
+            "seconds_plain": p["seconds"], "peak_memory_gib": k["peak"],
+            "launches": k["launches"], "rows_gap": [f_max, f_mean, f_top], "seconds": seconds}
+
+
+def phase_video(work):
+    """Phase 22, each model (and its plain twin) on the card alone."""
+    train, evals = {}, {}
+    for kind in VIDEO_TRAIN:  # 22a, 22b
+        gc.collect()
+        torch.cuda.empty_cache()
+        train[kind] = timed(f"22{'ab'[kind == 'qa']} video train {kind}", phase_video_train,
+                            work, kind)
+    for kind in VIDEO_EVAL:  # 22c, 22d
+        gc.collect()
+        torch.cuda.empty_cache()
+        evals[kind] = timed(f"22{'cd'[kind == 'qa']} video eval {kind}", phase_video_eval, work,
+                            kind)
+    log(f"[counters] phase 22: K8 {VIDEO_TOWER_K8} a TimeSformer call; read: train "
+        + ", ".join(f"{w} {r['launches_step'][-1].get('flash_attention')} a step"
+                    for w, r in train.items())
+        + "; eval " + ", ".join(f"{w} {r['launches'].get('flash_attention')} in "
+                                 f"{-(-VIDEO_EVAL_CLIPS // VIDEO_EVAL_BATCH[w])} calls"
+                                 for w, r in evals.items()))
+    return {"video_train": train, "video_eval": evals}
+
+
+def video_kernels(rows, video):
+    """The kernel rows of phase 22: K8 at TimeSformer's spatial call, through
+    ``FlashAttention`` at the training batch (its launches 22a's and 22b's)
+    and without a graph at the retrieval evaluation's (22c's and 22d's)."""
+    from sprc_tpu_torch.kernel_checks import VIDEO_SHAPES, bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    out = []
+    for kind, runs, label in (("train", video["video_train"], "FlashAttention, training"),
+                              ("eval", video["video_eval"], "evaluation")):
+        B, S = VIDEO_SHAPES[kind]
+        r = by_check[f"K8 flash_attention timesformer fp32 S={S} B={B} {kind}"]
+        row = {"name": f"flash_attention (TimeSformer spatial, fp32, {label})", "route": "cuda",
+               "source": "sprc_tpu_torch/csrc/attention.cu",
+               "replaces": "sprc_tpu/ops/pallas_attention.py:428",
+               "launches": sum(run["launches"].get("flash_attention", 0)
+                               for run in runs.values()),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+               **bound_ms(r), "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+               "plain_device_ms": r["plain_device_ms"],
+               "library_device_ms": r["library_device_ms"]}
+        if "fwd_bwd_ms" in r:
+            row.update(fwd_bwd_ms=r["fwd_bwd_ms"], plain_fwd_bwd_ms=r["plain_fwd_bwd_ms"])
+        out.append(row)
+    return out
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -7174,6 +7574,7 @@ def main():
         phase = 18 if which in ("rank", "generate") else 19
         head_eval[which] = timed(f"{phase} heads eval {which}", phase_head_eval, work, which)
     new = phases_20_21(work)
+    video = phase_video(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -7250,7 +7651,8 @@ def main():
                                                                  k1_stage1]
                       + momentum_kernels(rows, momentum, momentum_eval)
                       + heads_kernels(rows, head_train, head_eval)
-                      + caption_clip_kernels(rows, *new.values()),
+                      + caption_clip_kernels(rows, *new.values())
+                      + video_kernels(rows, video),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -7281,7 +7683,7 @@ def main():
                       "img2prompt_vqa": img2prompt,
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "heads_train": head_train, "heads_eval": head_eval,
-                      **new,
+                      **new, **video,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

@@ -77,10 +77,18 @@ WordPiece fallback at ``run.max_txt_len``), and zero-shot
 classifier from ``run.classnames`` / ``run.classnames_path`` (else the
 labels, which must be 0..C-1, as class names) through the 80 OpenAI
 templates, then ``100 * image features @ classifier`` and the argmax
-accuracy. Every other task or family exits with a message naming its
-ROADMAP entry (ALPRO and video QA: A8.6.5; the dialogue: A8.6.6);
-CIR datasets keep their CLIs (``cli/validate.py``,
-``cli/validate_rerank.py``, ``cli/submission.py``).
+accuracy. And ALPRO (configs/runs/eval/{msrvtt,didemo}_ret_eval.yaml,
+{msrvtt,msvd}_qa_eval.yaml): ``alpro_retrieval``'s ``retrieval`` through
+``evaluate_pairs_video`` (the clips 4 a tower call, the captions 256 a
+call, the VTC cosines, each query's top ``k_test`` rescored by the VTM
+logit), and ``alpro_qa``'s ``multimodal_classification`` over the closed
+answer vocabulary: each item's target is its first answer's index in
+``run.answer_list`` (-1, always wrong, where it is not there), the argmax
+accuracy of ``AlproQA.predict``. ``alpro_qa`` under a VQA task and
+``timesformer`` (a feature extractor) exit: no glue fits them, in either
+package. The dialogue exits naming ROADMAP A8.6.6; CIR datasets keep their
+CLIs (``cli/validate.py``, ``cli/validate_rerank.py``,
+``cli/submission.py``).
 
 The flags are the JAX CLI's plus ``--device`` (default ``cuda``; without a
 GPU the command exits nonzero). Without ``--model-path`` the weights are
@@ -146,27 +154,35 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
                          "instruction and LLaMA token batches), in either package; "
                          "cli/instruct.py runs it")
+    if arch == "timesformer":
+        raise SystemExit(f"model {arch!r}: no evaluation glue fits it (a video feature "
+                         "extractor), in either package")
+    if arch == "alpro_qa" and task_name != CLASSIFICATION:
+        raise SystemExit(f"model {arch!r}: no {task_name} glue fits ALPRO's video QA, in either "
+                         "package: it is evaluated as multimodal_classification over "
+                         "run.answer_list")
     if task_name == "retrieval" and arch not in (loader.STAGE1_MODELS + loader.MOMENTUM_MODELS
-                                                 + loader.CLIP_MODELS):
-        raise SystemExit(f"model {arch!r}: its retrieval evaluation is not ported (ALPRO: "
-                         "ROADMAP A8.6.5)")
+                                                 + loader.CLIP_MODELS + ("alpro_retrieval",)):
+        raise SystemExit(f"model {arch!r}: no retrieval evaluation fits it, in either package")
     if task_name == "captioning" and arch not in loader.LLM_HEADS + ("blip_caption",):
         raise SystemExit(f"model {arch!r}: no captioning glue fits it, in either package (the "
                          f"captioners: blip_caption, {', '.join(loader.LLM_HEADS)})")
     if task_name == CLASSIFICATION and arch not in (loader.CLASSIFICATION_MODELS
-                                                    + loader.CLIP_MODELS):
-        raise SystemExit(f"model {arch!r}: its multimodal_classification evaluation is not "
-                         f"ported (ported: {', '.join(loader.CLASSIFICATION_MODELS)} and CLIP's "
-                         "zero-shot; ALPRO's video QA: ROADMAP A8.6.5)")
+                                                    + loader.CLIP_MODELS + ("alpro_qa",)):
+        raise SystemExit(f"model {arch!r}: no multimodal_classification glue fits it, in either "
+                         f"package (its models: {', '.join(loader.CLASSIFICATION_MODELS)}, "
+                         "alpro_qa and CLIP's zero-shot)")
+    if arch == "alpro_qa" and not run.get("answer_list"):
+        raise SystemExit("ALPRO's video QA evaluation needs run.answer_list (the closed answer "
+                         "vocabulary, 1500 answers for MSRVTT-QA, 2423 for MSVD-QA)")
     pnp = arch in ("pnp_vqa", "img2prompt_vqa")
     if pnp and args.model_path:
         raise SystemExit("pnp pipelines load per-submodel checkpoints: put `finetuned: <path>` "
                          "inside each model sub-section of the YAML instead of --model-path")
     if task_name in VQA_TASKS and arch not in loader.LLM_HEADS + loader.VQA_MODELS and not pnp:
-        raise SystemExit(f"model {arch!r}: its {task_name} evaluation is not ported (ported: "
-                         f"the generative {', '.join(loader.LLM_HEADS)}, pnp_vqa, "
-                         f"img2prompt_vqa, {', '.join(loader.VQA_MODELS)}; ALPRO's video QA: "
-                         "ROADMAP A8.6.5)")
+        raise SystemExit(f"model {arch!r}: no {task_name} glue fits it, in either package (its "
+                         f"models: the generative {', '.join(loader.LLM_HEADS)}, pnp_vqa, "
+                         f"img2prompt_vqa, {', '.join(loader.VQA_MODELS)})")
     if (task_name in VQA_TASKS and arch in loader.LLM_HEADS
             and run.get("inference_method", "rank") != "generate"):
         raise SystemExit(f"run.inference_method {run.get('inference_method', 'rank')!r}: the "
@@ -214,6 +230,9 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         metrics = task.evaluate_pairs_clip(model, _image_stream(ds), ds.text, ds.img2txt,
                                            ds.txt2img, tokenize=_clip_tokenize(model, run),
                                            stats=stats)
+    elif arch == "alpro_retrieval":  # 4 clips a tower call
+        metrics = task.evaluate_pairs_video(model, _image_stream(ds, 4), ds.text, ds.img2txt,
+                                            ds.txt2img, stats=stats)
     elif arch in loader.MOMENTUM_MODELS:  # 16 images a tower call
         metrics = task.evaluate_pairs_itc(model, _image_stream(ds, 16), ds.text, ds.img2txt,
                                           ds.txt2img, stats=stats)
@@ -264,15 +283,22 @@ def _evaluate_captions(model, ds, split, run, tokenizer, args, stats) -> dict:
 def _valid_steps(task, glue, ds, run) -> list:
     """``task.valid_step`` over the split in batches of ``batch_size_eval``,
     the last one padded and its padding's rows dropped; items without an
-    ``instance_id`` get their index, as the JAX CLI gives them."""
+    ``instance_id`` get their index, as the JAX CLI gives them. A
+    classification batch of answers without labels (ALPRO's video QA) gets
+    each item's first answer's index in ``run.answer_list`` as its label, -1
+    where it is not there (``sprc_tpu/cli/evaluate.py:343-351``)."""
     from sprc_tpu_torch.train.eval_glue import collate_eval, eval_loader
 
     batch_size = int(run.get("batch_size_eval", run.get("batch_size", 8)))
+    answers = run.get("answer_list") or []
+    index = {a: i for i, a in reversed(list(enumerate(answers)))}  # the first one's
     results = []
     for idx, items in eval_loader(ds, batch_size):
         samples = collate_eval(items)
         if "instance_id" not in samples:
             samples["instance_id"] = [str(i) for i in range(idx[0], idx[0] + len(items))]
+        if run.get("task") == CLASSIFICATION and "label" not in samples and "answers" in samples:
+            samples["label"] = [index.get(a[0], -1) if a else -1 for a in samples["answers"]]
         results.extend(task.valid_step(glue, samples)[: len(idx)])
     return results
 
@@ -311,8 +337,8 @@ def _evaluate_vqa(model, ds, split, run, tokenizer, args, stats) -> dict:
 
 def _evaluate_classification(model, ds, split, run, tokenizer, args, stats) -> dict:
     """The ``multimodal_classification`` task (``sprc_tpu/cli/evaluate.py:
-    267-310``, its ``predict`` branch): the classifier's or the NLVR pair
-    model's logits, the argmax accuracy and the result file."""
+    267-310``, its ``predict`` branch): the classifier's, the NLVR pair
+    model's or ALPRO QA's logits, the argmax accuracy and the result file."""
     from sprc_tpu_torch.train.eval_glue import make_classification_predict_fn
     from sprc_tpu_torch.train.eval_tasks import MultimodalClassificationTask
 

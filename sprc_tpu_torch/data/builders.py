@@ -26,11 +26,16 @@ builders ``coco_vqa``, ``ok_vqa``, ``aok_vqa``, ``gqa``, ``vg_vqa``, SNLI-VE's
 (``{"images": [image0, image1], "sentence", "label"}``, the label
 ``True`` / ``False`` to 0 / 1 as the reference's class labels), and
 ``imagenet`` (CLIP's zero-shot classification: SNLI-VE's dataset,
-``{"image", "label"}`` with an empty sentence where there is none); the
-video and dialogue builders come with their families (ROADMAP A8.6.5,
-A8.6.6).
-The classes repeat the JAX ones line for line (a test builds both on the
-same files).
+``{"image", "label"}`` with an empty sentence where there is none), and the
+video builders of ALPRO's runs, whose annotations name a ``"video"``
+(``msrvtt_retrieval``, ``didemo_retrieval``, ``msrvtt_qa``, ``msvd_qa``;
+``msrvtt_caption``, ``msvd_caption``, ``vatex_caption``): ``build_info``'s
+``videos`` (or ``images``) is their root and ``n_frms`` (8) the frames each
+clip is sampled to (:func:`_load_video`: a ``.npy`` / ``.npz`` tensor, a
+directory of frame images, or a container decoded by OpenCV, which is
+imported only there). The dialogue's builder comes with its family (ROADMAP
+A8.6.6). The classes repeat the JAX ones line for line (a test builds both
+on the same files).
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from sprc_tpu_torch.data import processors as _processors  # noqa: F401  (registers them)
 from sprc_tpu_torch.registry import registry
@@ -64,17 +71,92 @@ def _load_image(path: str):
     return Image.open(path).convert("RGB")
 
 
+_VIDEO_EXTS = (".mp4", ".avi", ".mkv", ".mov", ".webm", ".mpg", ".mpeg", ".m4v", ".wmv")
+
+
+def _decode_video_cv2(path: str, n_frms: int) -> np.ndarray:
+    """A container -> [n_frms, H, W, 3] uint8 RGB through OpenCV (the decord
+    of reference alpro_processors.load_video: uniform temporal sampling).
+    Only the sampled frames are decoded where the container reports its
+    frame count; otherwise, or where that count was wrong, every frame is
+    read in order and the sample taken from them."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise ValueError(f"{path}: OpenCV could not open the video")
+    total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT) or 0)
+    if total > 0:
+        idx = np.linspace(0, total - 1, n_frms).round().astype(int)
+        want = set(int(i) for i in idx)
+        got = {}
+        pos = 0
+        while pos <= int(idx.max()):
+            if pos in want:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                got[pos] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            elif not cap.grab():
+                break
+            pos += 1
+        cap.release()
+        if len(got) == len(want):
+            return np.stack([got[int(i)] for i in idx])
+        cap = cv2.VideoCapture(path)  # the frame-count metadata was wrong
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not frames:
+        raise ValueError(f"{path}: no decodable frames")
+    arr = np.stack(frames)
+    idx = np.linspace(0, arr.shape[0] - 1, n_frms).round().astype(int)
+    return arr[idx]
+
+
+def _load_video(path: str, n_frms: int) -> np.ndarray:
+    """A video container (OpenCV), a frame directory (its images in sorted
+    order) or a ``.npy`` / ``.npz`` [T, H, W, 3] tensor -> ``n_frms``
+    uniformly sampled frames [n_frms, H, W, 3] float32 in [0, 1]."""
+    if path.endswith((".npy", ".npz")):
+        arr = np.load(path)
+        if hasattr(arr, "files"):
+            arr = arr[arr.files[0]]
+        frames = np.asarray(arr)
+    elif os.path.isdir(path):
+        names = sorted(n for n in os.listdir(path)
+                       if n.lower().endswith((".jpg", ".jpeg", ".png")))
+        frames = np.stack([np.asarray(_load_image(os.path.join(path, n))) for n in names])
+    elif path.lower().endswith(_VIDEO_EXTS) and os.path.isfile(path):
+        frames = _decode_video_cv2(path, n_frms)
+    else:
+        raise ValueError(f"{path}: expected a video container ({', '.join(_VIDEO_EXTS)}), a "
+                         "frame directory, or a .npy/.npz tensor")
+    T = frames.shape[0]
+    idx = np.linspace(0, T - 1, n_frms).round().astype(int)
+    frames = frames[idx]
+    if frames.dtype == np.uint8:
+        frames = frames.astype(np.float32) / 255.0
+    return frames.astype(np.float32)
+
+
 class AnnotationDataset:
-    """Base: annotation list + image root + processors (reference
-    datasets/base_dataset.py)."""
+    """Base: annotation list + media root + processors (reference
+    datasets/base_dataset.py); ``MEDIA_KEY`` ``"video"`` loads ``n_frms``
+    frames of a clip."""
 
     MEDIA_KEY = "image"
 
-    def __init__(self, vis_processor, text_processor, vis_root, ann_paths):
+    def __init__(self, vis_processor, text_processor, vis_root, ann_paths, n_frms: int = 8):
         self.vis_processor = vis_processor or _identity
         self.text_processor = text_processor or _identity
         self.vis_root = vis_root
         self.annotation = _load_annotations(ann_paths)
+        self.n_frms = n_frms
         for i, ann in enumerate(self.annotation):
             ann.setdefault("instance_id", str(i))
 
@@ -82,7 +164,10 @@ class AnnotationDataset:
         return len(self.annotation)
 
     def _media(self, ann: dict):
-        return self.vis_processor(_load_image(os.path.join(self.vis_root, ann[self.MEDIA_KEY])))
+        path = os.path.join(self.vis_root, ann[self.MEDIA_KEY])
+        if self.MEDIA_KEY == "video":
+            return self.vis_processor(_load_video(path, self.n_frms))
+        return self.vis_processor(_load_image(path))
 
 
 class CaptionDataset(AnnotationDataset):
@@ -210,6 +295,22 @@ class NLVRPairDataset(AnnotationDataset):
                 "label": int(label)}
 
 
+class VideoRetrievalDataset(RetrievalDataset):
+    MEDIA_KEY = "video"
+
+
+class VideoRetrievalEvalDataset(RetrievalEvalDataset):
+    MEDIA_KEY = "video"
+
+
+class VideoQADataset(VQADataset):
+    MEDIA_KEY = "video"
+
+
+class VideoCaptionDataset(CaptionDataset):
+    MEDIA_KEY = "video"
+
+
 class DatasetBuilder:
     """Config -> {split: dataset} (base_dataset_builder.py:23-120, minus the
     download step)."""
@@ -233,7 +334,8 @@ class DatasetBuilder:
     def build(self) -> Dict[str, Any]:
         info = self.cfg.get("build_info", {})
         ann = info.get("annotations", {})
-        vis_root = info.get("images", "")
+        vis_root = info.get("images", info.get("videos", ""))
+        n_frms = info.get("n_frms", 8)
         out: Dict[str, Any] = {}
         for split, paths in ann.items():
             if isinstance(paths, str):
@@ -242,7 +344,8 @@ class DatasetBuilder:
             if cls is None:
                 continue
             out[split] = cls(self._processor("vis_processor", split),
-                             self._processor("text_processor", split), vis_root, paths)
+                             self._processor("text_processor", split), vis_root, paths,
+                             n_frms=n_frms)
         return out
 
 
@@ -254,15 +357,21 @@ def _register(name: str, train_cls, eval_cls) -> None:
     registry.register("dataset", name)(factory)
 
 
-# the reference's image builders (builders/*.py), name for name
+# the reference's image and video builders (builders/*.py), name for name
 for _n in ("coco_caption", "nocaps", "vg_caption", "sbu_caption"):
     _register(_n, CaptionDataset, CaptionEvalDataset)
+for _n in ("msrvtt_caption", "msvd_caption", "vatex_caption"):
+    _register(_n, VideoCaptionDataset, VideoCaptionDataset)
 for _n in ("conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi"):
     _register(_n, ImageTextPairDataset, None)
 for _n in ("coco_retrieval", "flickr30k"):
     _register(_n, RetrievalDataset, RetrievalEvalDataset)
+for _n in ("msrvtt_retrieval", "didemo_retrieval"):
+    _register(_n, VideoRetrievalDataset, VideoRetrievalEvalDataset)
 for _n in ("coco_vqa", "ok_vqa", "aok_vqa", "gqa", "vg_vqa"):
     _register(_n, VQADataset, VQAEvalDataset)
+for _n in ("msrvtt_qa", "msvd_qa"):
+    _register(_n, VideoQADataset, VideoQADataset)
 for _n in ("snli_ve", "imagenet"):
     _register(_n, MultimodalClassificationDataset, MultimodalClassificationDataset)
 _register("nlvr", NLVRPairDataset, NLVRPairDataset)

@@ -15,8 +15,10 @@ src/lavis/processors/blip_processors.py).
 Host-side (PIL + numpy), float32 HWC arrays out. Every random draw comes
 from the processor's ``numpy.random.RandomState`` in the JAX package's order,
 so a train processor seeded alike gives equal arrays in both packages
-(``tests/test_torch_framework.py``). The video and GPT processors come with
-their families.
+(``tests/test_torch_framework.py``). ALPRO's video processors
+(``alpro_video_train``, ``alpro_video_eval``) live in :mod:`.video_processors`
+and register when this module is imported; the GPT dialogue's come with its
+family (ROADMAP A8.6.6).
 """
 
 from __future__ import annotations
@@ -198,3 +200,7 @@ registry.register_processor("clip_image_train")(ClipImageProcessor)
 registry.register_processor("clip_image_eval")(ClipImageProcessor)
 registry.register_processor("blip_caption")(CaptionProcessor)
 registry.register_processor("blip_question")(QuestionProcessor)
+
+
+# the sibling family registers on import (video: ALPRO)
+from sprc_tpu_torch.data import video_processors as _video_processors  # noqa: E402,F401

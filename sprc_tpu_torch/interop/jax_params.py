@@ -26,7 +26,10 @@ ALBEF's VQA, classification and NLVR models have :func:`vqa_from_jax`,
 cross-attention and merge, ALBEF's tied cross key / value under both layers
 of a pair) and :func:`momentum_copies_from_jax` (their ``params_m``).
 BLIP-1's CIR feature extractor has :func:`blip_cir_base_from_jax`, CLIP
-(ViT or RN50 tower) :func:`clip_from_jax`.
+(ViT or RN50 tower) :func:`clip_from_jax`, ALPRO (its TimeSformer trunk,
+:func:`timesformer_from_jax`; the med-BERT without cross-attention; the
+retrieval heads or LAVIS's ``classifier.0`` / ``classifier.2``)
+:func:`alpro_from_jax`.
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
 LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
@@ -535,6 +538,49 @@ def fid_t5_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A ``FiDT5`` tree (``{"t5": ...}``) -> the port's state dict, HF's T5
     names without a prefix."""
     return to_torch(t5_from_jax(params["t5"], prefix=""))
+
+
+def timesformer_from_jax(params: Mapping[str, Any],
+                         prefix: str = "visual_encoder.") -> Dict[str, np.ndarray]:
+    """A ``TimeSformer`` tree (``patch_embed``, ``cls_token``, ``pos_embed``,
+    ``time_embed``, ``block_{i}``, ``norm``) -> LAVIS's names under
+    ``prefix``, the patch conv HWIO -> OIHW."""
+    out: Dict[str, np.ndarray] = {}
+    _conv(out, f"{prefix}patch_embed.proj", params["patch_embed"])
+    out[f"{prefix}patch_embed.proj.bias"] = _np(params["patch_embed"]["bias"])
+    for name in ("cls_token", "pos_embed", "time_embed"):
+        out[f"{prefix}{name}"] = _np(params[name])
+    _ln(out, f"{prefix}norm", params["norm"])
+    blocks = sorted(int(k.split("_")[1]) for k in params if k.startswith("block_"))
+    for i in blocks:
+        block, bp = params[f"block_{i}"], f"{prefix}blocks.{i}."
+        for ln in ("temporal_norm1", "norm1", "norm2"):
+            _ln(out, f"{bp}{ln}", block[ln])
+        for attn in ("temporal_attn", "attn"):
+            for proj in ("qkv", "proj"):
+                _linear(out, f"{bp}{attn}.{proj}", block[attn][proj])
+        _linear(out, f"{bp}temporal_fc", block["temporal_fc"])
+        for fc in ("fc1", "fc2"):
+            _linear(out, f"{bp}mlp.{fc}", block["mlp"][fc])
+    return out
+
+
+def alpro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An ``AlproRetrieval`` or ``AlproQA`` tree -> the port's state dict:
+    the trunk under ``visual_encoder.``, the med-BERT (no cross-attention)
+    under ``text_encoder.``, the retrieval heads and ``temp`` or the QA
+    classifier as LAVIS's ``classifier.0`` / ``classifier.2``."""
+    out = timesformer_from_jax(params["visual_encoder"])
+    out.update(med_from_jax(params["text_encoder"], "text_encoder."))
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        if name in params:
+            _linear(out, name, params[name])
+    if "temp" in params:
+        out["temp"] = _np(params["temp"]).reshape(())
+    if "classifier_fc1" in params:
+        _linear(out, "classifier.0", params["classifier_fc1"])
+        _linear(out, "classifier.2", params["classifier_fc2"])
+    return to_torch(out)
 
 
 def to_torch(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -2372,6 +2372,89 @@ def run_clip(device="cuda") -> List[dict]:
     return rows
 
 
+# TimeSformer's spatial attention (ALPRO's video tower, fp32, 12 heads of 64):
+# 1 + 196 rows a frame over B·T frame rows, q / k / v strided views of the
+# packed qkv, read in place. Training at the YAMLs' batch of 16 clips x 8
+# frames (B·T = 128, through FlashAttention), the retrieval evaluation's 4
+# clips a tower call (32, no graph). The temporal attention (8 rows) stays
+# under the kernel's 128-row floor, as in JAX.
+VIDEO_SHAPES = {"train": (128, 197), "eval": (32, 197)}
+
+
+def check_flash_attention_packed(device="cuda", B=128, S=197, heads=12, D=64, grad=True,
+                                 seed=15) -> dict:
+    """K8 on BSHD views of a packed fp32 qkv [B, S, 3 H D], TimeSformer's
+    spatial call: the forward against its plain version within the stage
+    bound of ``flash_attention``; with ``grad`` the packed qkv's gradient
+    through ``FlashAttention`` (the kernel forward, 1 launch; the backward
+    the plain version recomputed) against autograd over the plain version,
+    within GRAD_REL's fp32 1e-5 of its largest value. ``ms`` / ``plain_ms``:
+    the forward (CUDA events); ``device_ms`` / ``plain_device_ms`` /
+    ``library_device_ms`` on the device's clock; ``library_ms``: SDPA in
+    fp32 on the same views; with ``grad``, ``fwd_bwd_ms`` /
+    ``plain_fwd_bwd_ms``."""
+    r = _Rand(device, seed)
+    W = heads * D
+    qkv = r.normal(B, S, 3 * W)
+
+    def views(t):
+        return [t[..., i * W:(i + 1) * W].view(B, S, heads, D) for i in range(3)]
+
+    q, k, v = views(qkv)
+    scale = D ** -0.5
+    with torch.inference_mode():
+        got = flash_attention(q, k, v, scale)
+        want = primitives.flash_attention_plain(q, k, v, scale)
+        torch.cuda.synchronize()
+        row = _errors(got, want)
+        stage = _held("flash_attention", got, want)
+        row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, scale))
+        row["plain_ms"] = cuda_ms(lambda: primitives.flash_attention_plain(q, k, v, scale),
+                                  iters=3, warmup=1)
+        library = _sdpa_fn(q, k, v)
+        row["library_ms"] = cuda_ms(library)
+        _device_times(row, lambda: flash_attention(q, k, v, scale), library)
+        row["plain_device_ms"], _ = device_ms(
+            lambda: primitives.flash_attention_plain(q, k, v, scale))
+    row["ok"] = row["finite"] and stage["ok"] and got.shape == q.shape
+    detail = ""
+    if grad:
+        cot = r.normal(B, S, heads, D)
+
+        def run(fn):
+            leaf = qkv.detach().clone().requires_grad_()
+            fn(*views(leaf), scale=scale).backward(cot)
+            return leaf.grad
+
+        before = flash_attention.launches
+        got_grad = run(FlashAttention.call)
+        row["launches"] = flash_attention.launches - before
+        gap = grad_gap([got_grad], [run(primitives.flash_attention_plain)], ["qkv"])
+        row["grad_rel"] = gap["gap"]
+        row["fwd_bwd_ms"] = cuda_ms(lambda: run(FlashAttention.call), iters=3, warmup=1)
+        row["plain_fwd_bwd_ms"] = cuda_ms(lambda: run(primitives.flash_attention_plain),
+                                          iters=3, warmup=1)
+        row["ok"] = (row["ok"] and bool(torch.isfinite(got_grad).all()) and row["launches"] == 1
+                     and row["grad_rel"] <= GRAD_REL[torch.float32])
+        detail = f", packed qkv's gradient {row['grad_rel']:.2e} of its scale"
+    row["shape"] = (f"B={B} S={S} H={heads} D={D} f32 views of a packed qkv: differ "
+                    f"{stage['differ']:.2e}, relative err {stage['err']:.2e}{detail}; SDPA "
+                    f"{row['library_ms']:.4f} ms")
+    row["bytes"] = 4 * 4 * B * S * W  # q, k, v read, the output written
+    row["op_seconds"] = 4 * B * S * S * W / PEAK_OPS["fp32"]
+    return row
+
+
+def run_video(device="cuda") -> List[dict]:
+    """K8 at TimeSformer's spatial call (:data:`VIDEO_SHAPES`): with a
+    gradient at the training batch, without one at the evaluation's."""
+    rows = [dict(check=f"K8 flash_attention timesformer fp32 S={S} B={B} {kind}",
+                 **check_flash_attention_packed(device, B=B, S=S, grad=kind == "train"))
+            for kind, (B, S) in VIDEO_SHAPES.items()]
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_instruct(device="cuda") -> List[dict]:
     """K3 at the InstructBLIP-style models' fusion passes
     (:data:`INSTRUCT_SHAPES`); their tower's K2 and attention at the batch of
@@ -2608,4 +2691,4 @@ def run_all(device="cuda") -> List[dict]:
             + run_unfrozen(device) + run_caption(device) + run_stage2(device)
             + run_instruct(device) + run_pnp(device) + run_img2prompt(device)
             + run_momentum(device) + run_vqa(device) + run_blip_caption(device)
-            + run_clip(device) + run_edges(device))
+            + run_clip(device) + run_video(device) + run_edges(device))

@@ -48,6 +48,7 @@ from sprc_tpu_torch.models.opt import OPTConfig
 from sprc_tpu_torch.models.qformer import QFormerConfig
 from sprc_tpu_torch.models.resnet_clip import FrozenBatchNorm2d, ResNetConfig
 from sprc_tpu_torch.models.t5 import T5Config, T5LayerNorm
+from sprc_tpu_torch.models.timesformer import TimeSformerConfig
 from sprc_tpu_torch.models.vit import ViTConfig, calibrate_act_scales
 from sprc_tpu_torch.ops import quant
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear
@@ -232,6 +233,19 @@ FAMILY_CONFIGS.update({
                                                          heads=32, output_dim=1024,
                                                          image_size=224)},
 })
+# the video families, as configs/models/{alpro_retrieval,alpro_qa,timesformer}/*.yaml
+# give them (the TimeSformer ViT-B/16 at 224 px and the med-BERT, both fp32): the QA
+# rows build 16 time_embed rows (their runs sample 8 frames) and the answer
+# vocabulary's classes; ``pretrain`` is the type a run YAML without one names
+VIDEO_MODELS = ("alpro_retrieval", "alpro_qa", "timesformer")
+FAMILY_CONFIGS.update({
+    **{(name, "pretrain"): {} for name in VIDEO_MODELS},
+    **{("alpro_retrieval", ds): {"num_frames": 8, "image_size": 224}
+       for ds in ("msrvtt", "didemo")},
+    ("alpro_qa", "msrvtt"): {"num_classes": 1500, "num_frames": 16, "image_size": 224},
+    ("alpro_qa", "msvd"): {"num_classes": 2423, "num_frames": 16, "image_size": 224},
+    ("timesformer", "base"): {},
+})
 # the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
 # them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
 # model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
@@ -270,6 +284,8 @@ _SUB_CONFIGS = {
     "vision": (ViTConfig, {"scan_blocks"}),
     "text": (ClipTextConfig, set()),
     "vision_resnet": (ResNetConfig, set()),
+    # ALPRO's TimeSformer (configs/models/alpro_*)
+    "video_config_override": (TimeSformerConfig, set()),
 }
 
 
@@ -388,7 +404,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     the JAX package's initialisers: normal(0.02) for dense, embedding, token
     and position tables (OPT's among them), normal(1.0) for an embedding that
     says so in its ``init_std`` (T5's ``shared`` and relative-position
-    tables); fan-in normal for the patch conv; zero biases; unit LayerNorms
+    tables), zeros for a dense weight whose ``init_std`` is 0 (TimeSformer's
+    ``temporal_fc`` after the first block); fan-in normal for the patch conv; zero biases; unit LayerNorms
     and RMS scales (T5's, LLaMA's); temperature 0.07. The rerank model's frozen twin is drawn
     like every other module, independently of the tower it copies (as a
     JAX init draws ``fformer``); ``CirRerank.sync_fformer`` on the state
@@ -420,7 +437,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
         elif isinstance(mod, T5LayerNorm):
             const(mod.weight, 1.0)
         elif isinstance(mod, Linear):
-            normal(mod.weight, 0.02)
+            if getattr(mod, "init_std", 0.02) == 0.0:  # TimeSformer's later temporal_fc
+                const(mod.weight, 0.0)
+            else:
+                normal(mod.weight, 0.02)
             if mod.bias is not None:
                 const(mod.bias, 0.0)
         elif isinstance(mod, nn.Embedding):
@@ -512,6 +532,8 @@ def read_checkpoint(path: str, model: nn.Module) -> dict:
         state = clip_state_from_hf(state, model.cfg)  # an HF CLIPModel file (OpenAI's: by name)
     if getattr(model, "MOMENTUM_LAYOUT", False):
         state = _momentum_family_state(state, model, own)
+    if getattr(model, "ALPRO_LAYOUT", False):
+        state = _alpro_state(state, own)
     state = {k: v for k, v in state.items() if k in own}
     if "temp" in state:  # some save paths write the scalar as [1]
         state["temp"] = state["temp"].reshape(())
@@ -566,16 +588,49 @@ def _momentum_family_state(state: dict, model: nn.Module, own: dict) -> dict:
     return out
 
 
+def _alpro_state(state: dict, own: dict) -> dict:
+    """A LAVIS ALPRO state dict (the released msrvtt / didemo / msvd weights,
+    as ``sprc_tpu/models/alpro.py::alpro_params_from_torch`` reads it) in the
+    port's names: the trunk under ``visual_encoder.model.`` (LAVIS's
+    TimeSformer wrapper) or ``visual_encoder.`` feeds ``visual_encoder.``;
+    row 0 of the med-BERT's ``token_type_embeddings`` (ALPRO passes all-zero
+    type ids) is folded into every position-embedding row, and the table
+    dropped; a file without ``position_ids`` gets ``0..n-1``. The keys the
+    model does not hold (the BERT pooler, the tower's head) are dropped by
+    :func:`read_checkpoint`."""
+    out = {}
+    for key, value in state.items():
+        if key.startswith("visual_encoder.model."):
+            key = "visual_encoder." + key[len("visual_encoder.model."):]
+        out[key] = value
+    types = out.pop("text_encoder.embeddings.token_type_embeddings.weight", None)
+    pos = "text_encoder.embeddings.position_embeddings.weight"
+    if types is not None and pos in out:
+        out[pos] = out[pos] + types[0][None, :]
+    ids = "text_encoder.embeddings.position_ids"
+    if ids in own and ids not in out:
+        out[ids] = torch.arange(own[ids].shape[-1])[None]
+    return out
+
+
 def preprocessors(name: str, model_type: str) -> Tuple[dict, dict]:
     """(image processors, text processors), each ``{"train", "eval"}``, of
     the BLIP-1 / ALBEF families (the JAX ``load_model_and_preprocess``'
     branch for them): BLIP's train and eval image processors at the row's
-    image size and the caption processor."""
+    image size and the caption processor; the video families (ALPRO,
+    TimeSformer) get the ALPRO clip processors instead."""
     from sprc_tpu_torch.data.processors import (BlipImageEvalProcessor,
                                                 BlipImageTrainProcessor)
     from sprc_tpu_torch.text.processors import CaptionProcessor, QuestionProcessor
 
     size = family_config(name, model_type).image_size
+    if name in VIDEO_MODELS:
+        from sprc_tpu_torch.data.video_processors import (AlproVideoEvalProcessor,
+                                                          AlproVideoTrainProcessor)
+
+        return ({"train": AlproVideoTrainProcessor(image_size=size),
+                 "eval": AlproVideoEvalProcessor(image_size=size)},
+                {"train": CaptionProcessor(), "eval": CaptionProcessor()})
     # the VQA families resolve blip_question for train and eval
     # (configs/models/{blip_vqa,albef_vqa}/*.yaml), the others blip_caption
     text = QuestionProcessor if name in VQA_MODELS else CaptionProcessor
@@ -614,7 +669,7 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
            "MOMENTUM_MODELS", "VQA_MODELS", "CLASSIFICATION_MODELS", "CIR_FEATURE_MODELS",
-           "CLIP_MODELS",
+           "CLIP_MODELS", "VIDEO_MODELS",
            "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
            "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",

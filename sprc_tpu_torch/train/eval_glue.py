@@ -11,7 +11,8 @@ tasks: the BLIP-2 LLM heads' branches (``blip2_opt``, ``blip2_t5``).
 :func:`make_vqa_predict_fn` is BLIP-1 / ALBEF's VQA glue (``blip_vqa``,
 ``albef_vqa``): ``rank`` over the run's answer list (tokenized once, at
 ``max_len``) or ``generate``; :func:`make_classification_predict_fn` the
-classifiers' and NLVR's logits beside the targets. BLIP-1's captioner
+classifiers', NLVR's and ALPRO QA's (over a batch of clips) logits beside
+the targets. BLIP-1's captioner
 (``blip_caption``) decodes greedily from the ``[DEC]``-prefixed prompt.
 """
 
@@ -62,7 +63,8 @@ def _require_llm_head(model) -> None:
     """Refuse a model that is not a BLIP-2 LLM head."""
     if not _is_llm_head(model):
         raise NotImplementedError(f"{type(model).__name__}: this glue is the BLIP-2 LLM heads' "
-                                  "(ALPRO's video QA: ROADMAP A8.6.5)")
+                                  "(no VQA glue fits ALPRO's video QA, in either package: it "
+                                  "is multimodal_classification over run.answer_list)")
 
 
 def _generate(model, tokenizer, samples: dict, texts: List[str], max_text: int,
@@ -211,9 +213,10 @@ def make_classification_predict_fn(model, tokenizer, *, max_txt_len: int = 35,
                                    stats: Optional[Dict[str, float]] = None) -> Callable:
     """``predict_fn(samples) -> {"predictions", "targets"}``
     (``sprc_tpu/train/eval_glue.py:131-155``; reference
-    {blip,albef}_classification predict, blip_nlvr.py:118-140): the
-    sentences at ``max_txt_len``, the logits of ``predict`` (an NLVR pair
-    when the samples hold ``image0`` / ``image1``) beside the labels.
+    {blip,albef}_classification predict, blip_nlvr.py:118-140,
+    alpro_qa.py:54-105): the sentences at ``max_txt_len``, the logits of
+    ``predict`` (an NLVR pair when the samples hold ``image0`` / ``image1``;
+    ALPRO QA's ``image`` a batch of clips) beside the labels.
     ``stats``: the model's seconds by stage (``tower_s``, ``text_s``)."""
     device = next(model.parameters()).device
 

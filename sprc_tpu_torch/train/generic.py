@@ -67,9 +67,16 @@ trains the SNLI-VE classifiers (``*_classification``) and the NLVR2 pair
 models (``*_nlvr``: ``image0`` / ``image1``), without dropout, with the
 momentum copies where the model distills (ALBEF's NLVR, a classifier with
 ``use_distill``) and ``alpha`` ramped over one epoch (two for NLVR).
-``dialogue`` refuses by name (ROADMAP A8.6.6), as do ALPRO's retrieval in
-``RetrievalAdapter.specialize`` and its video QA in
-``ClassificationAdapter.specialize`` (A8.6.5).
+The video families: ``retrieval`` sends ``alpro_retrieval`` to
+:class:`AlproRetrievalAdapter` (no momentum queues: the forward's in-batch
+VTC and hard-negative VTM, the negatives drawn from the trainer's
+generator), ``multimodal_classification`` sends ``alpro_qa`` to
+:class:`AlproQAAdapter` (classification over the answer vocabulary, which
+``attach`` derives from the train split); both apply the med-BERT's
+dropout from the trainer's generator, as the JAX steps apply them with the
+step's rng. Another task for an ALPRO model, and ``timesformer`` (a feature
+extractor), refuse: no adapter fits, in either package. ``dialogue``
+refuses by name (ROADMAP A8.6.6).
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -162,9 +169,10 @@ class RetrievalAdapter:
         self._alpha = 0.4
 
     def specialize(self, model):
-        if type(model).__name__ == "AlproRetrieval":
-            raise SystemExit("ALPRO's retrieval training (no momentum queues) is not ported "
-                             "(ROADMAP A8.6.5)")
+        from sprc_tpu_torch.models.alpro import AlproRetrieval
+
+        if isinstance(model, AlproRetrieval):  # no momentum queues
+            return AlproRetrievalAdapter(self.tokenizer, self.max_txt_len)
         if not hasattr(model, "MOMENTUM_KEYS"):
             raise SystemExit(f"run.task 'retrieval' trains the momentum-queue models "
                              f"(BLIP-1, ALBEF), not {type(model).__name__}")
@@ -347,13 +355,15 @@ class ClassificationAdapter:
         self._nlvr = False
 
     def specialize(self, model):
+        from sprc_tpu_torch.models.alpro import AlproQA
         from sprc_tpu_torch.models.classification import MultimodalClassifier
         from sprc_tpu_torch.models.nlvr import NLVRClassifier
 
+        if isinstance(model, AlproQA):  # video QA over the answer vocabulary
+            return AlproQAAdapter(self.tokenizer, self.max_txt_len, model.cfg.num_classes)
         if not isinstance(model, (MultimodalClassifier, NLVRClassifier)):
-            raise SystemExit(f"run.task 'multimodal_classification' trains the SNLI-VE and "
-                             f"NLVR2 models, not {type(model).__name__} (ALPRO's video QA: "
-                             "ROADMAP A8.6.5)")
+            raise SystemExit(f"run.task 'multimodal_classification' trains the SNLI-VE, NLVR2 "
+                             f"and ALPRO video QA models, not {type(model).__name__}")
         self._nlvr = isinstance(model, NLVRClassifier)
         self._alpha = float(model.cfg.alpha)
         self.uses_aux = model.distills if self._nlvr else bool(model.cfg.use_distill)
@@ -389,6 +399,63 @@ class ClassificationAdapter:
             step = nlvr_train_step if self._nlvr else classifier_train_step
             return step(model, params, aux, batch, alpha=batch.get("alpha", self._alpha))
         return model(*images, batch["input_ids"], batch["text_mask"], batch["labels"], None, 0.0)
+
+
+class AlproRetrievalAdapter:
+    """ALPRO's video-text retrieval training (``sprc_tpu/train/generic.py:
+    505-542``; reference alpro_retrieval.py:66-240 through
+    projects/alpro/train/{msrvtt,didemo}_retrieval_ft.yaml): items {image (a
+    clip [T, H, W, 3]), text_input} -> ``video``, the captions at
+    ``max_txt_len``; the forward carries both losses, its hard negatives
+    drawn from the trainer's generator."""
+
+    def __init__(self, tokenizer, max_txt_len: int = 35):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        tok = self.tokenizer([it["text_input"] for it in items], max_length=self.max_txt_len)
+        return {"video": np.stack([np.asarray(it["image"], np.float32) for it in items]),
+                "input_ids": tok["input_ids"], "text_mask": tok["attention_mask"]}
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator):
+        return model(batch["video"], batch["input_ids"], batch["text_mask"], generator=generator)
+
+
+class AlproQAAdapter:
+    """ALPRO's video QA as classification over the answer vocabulary
+    (``sprc_tpu/train/generic.py:545-601``; reference alpro_qa.py through
+    projects/alpro/train/{msrvtt,msvd}_qa_ft.yaml). :meth:`attach` derives
+    the vocabulary from the train split's answers by frequency, ties broken
+    by the string, cut to ``num_classes`` (the reference ships it as a
+    file); an item's first answer outside it is the target -1, which the
+    loss leaves out."""
+
+    def __init__(self, tokenizer, max_txt_len: int = 35, num_classes: int = 0):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.num_classes = int(num_classes)
+        self.ans2label: Dict[str, int] = {}
+
+    def attach(self, dataset) -> None:
+        counts: Dict[str, int] = {}
+        for ann in getattr(dataset, "annotation", []):
+            answers = ann.get("answer", ann.get("answers", []))
+            for a in [answers] if isinstance(answers, str) else answers:
+                counts[a] = counts.get(a, 0) + 1
+        ranked = sorted(counts, key=lambda a: (-counts[a], a))
+        self.ans2label = {a: i for i, a in enumerate(ranked[:self.num_classes or len(ranked)])}
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        tok = self.tokenizer([it["text_input"] for it in items], max_length=self.max_txt_len)
+        labels = [self.ans2label.get((it.get("answers") or [""])[0], -1) for it in items]
+        return {"video": np.stack([np.asarray(it["image"], np.float32) for it in items]),
+                "input_ids": tok["input_ids"], "text_mask": tok["attention_mask"],
+                "labels": np.asarray(labels, np.int32)}
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator):
+        return model(batch["video"], batch["input_ids"], batch["text_mask"], batch["labels"],
+                     generator=generator)
 
 
 def _not_ported(task: str):
@@ -512,10 +579,19 @@ def run_generic(cfg, args) -> Dict[str, float]:
         # no run YAML trains them; the JAX run builds the model and fails at the call
         raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (an "
                          "evaluation and feature model), in either package")
+    if arch == "timesformer":  # no run YAML trains it; the JAX run fails at the call
+        raise SystemExit(f"model {arch!r}: no generic task adapter fits its forward (a video "
+                         "feature extractor), in either package")
+    video_task = {"alpro_retrieval": "retrieval", "alpro_qa": "multimodal_classification"}
+    if arch in video_task and task_name != video_task[arch]:
+        raise SystemExit(f"model {arch!r}: no generic task adapter of run.task {task_name!r} "
+                         f"fits its video forward, in either package (its task: "
+                         f"{video_task[arch]})")
     if arch not in (loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS
-                    + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS + ("blip_caption",)):
-        raise SystemExit(f"model {arch!r}: not ported for generic training (the video "
-                         "families: ROADMAP A8.6.5; the dialogue: A8.6.6)")
+                    + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS + tuple(video_task)
+                    + ("blip_caption",)):
+        raise SystemExit(f"model {arch!r}: not ported for generic training (the dialogue: "
+                         "ROADMAP A8.6.6)")
     if task_name in ("vqa", "gqa", "aok_vqa") and arch not in loader.VQA_MODELS:
         # the JAX run builds the model and then fails at the adapter's call
         raise SystemExit(f"run.task {task_name!r} trains BLIP-1 / ALBEF's VQA models "
@@ -539,6 +615,8 @@ def run_generic(cfg, args) -> Dict[str, float]:
         ensure_bert_vocab(getattr(args, "vocab_path", None))))
     adapter = TASK_ADAPTERS[task_name](tokenizer, max_txt_len=int(run.get("max_txt_len", 35)))
     adapter = adapter.specialize(model)
+    if hasattr(adapter, "attach"):  # state derived from the data (ALPRO QA's answers)
+        adapter.attach(datasets["train"])
     batch_size = int(run.get("batch_size", 8))
     task = BuilderTask(datasets, adapter, batch_size=batch_size, seed=seed, device=device)
 

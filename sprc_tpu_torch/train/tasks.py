@@ -5,10 +5,11 @@ the BLIP-2 family (reference tasks/retrieval.py:19-120), over
 ALBEF families (``evaluate_pairs_itc``: CLS-projection cosines rank every
 pair, the ITM head rescores each query's top ``k_test``) and of CLIP
 (``evaluate_pairs_clip``: the cosines of the two towers' features, no
-rescoring).
+rescoring), and of ALPRO (``evaluate_pairs_video``: VTC cosines, each
+query's top ``k_test`` rescored by the VTM logit, through the same
+:func:`rescore_topk`).
 
-The JAX module's video evaluation and its ``CirTask`` come with their
-families (ROADMAP A8.6.5, A8.6.7).
+The JAX module's ``CirTask`` comes with its family (ROADMAP A8.6.7).
 """
 
 from __future__ import annotations
@@ -181,6 +182,63 @@ class ImageTextRetrievalTask(BaseTask):
         stats.update(image_encode_s=t1 - t0, text_encode_s=t2 - t1,
                      rank_s=time.perf_counter() - t2)
         return metrics
+
+
+    def evaluate_pairs_video(self, model, videos, texts: Sequence[str],
+                             img2txt: Dict[int, Sequence[int]], txt2img: Dict[int, int], *,
+                             batch: int = 4,
+                             stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+        """ALPRO's video-text retrieval (``sprc_tpu/train/tasks.py:282-345``;
+        reference alpro_retrieval.py compute_sim_matrix:250-340): the clips
+        [N, T, H, W, 3] ``batch`` a call through ``video_feats`` (or the
+        batches of an iterable as they come; the rows stay on the device),
+        the captions 256 a call through ``text_feats``, the cosines of the
+        model's normalised projections on the host, then the top
+        ``min(k_test, texts, videos)`` of each clip and each caption rescored
+        by ``vtm_score`` over the text rows plus the cosine: one call a clip
+        and one a caption, as in JAX. ``stats``: ``video_encode_s``,
+        ``text_encode_s``, ``vtc_s``, ``vtm_s``."""
+        from sprc_tpu_torch.retrieval.sim_matrix import retrieval_recalls
+
+        stats = {} if stats is None else stats
+        device = next(model.parameters()).device
+        tok = self.tokenizer(list(texts), max_length=self.max_txt_len)
+        t0 = time.perf_counter()
+        embeds, feats = [], []
+        with torch.inference_mode():
+            for chunk in _image_batches(videos, batch):
+                rows, feat = model.video_feats(
+                    torch.from_numpy(np.ascontiguousarray(chunk, np.float32)).to(device))
+                embeds.append(rows)
+                feats.append(feat.float().cpu().numpy())
+        video_embeds, video_feat = torch.cat(embeds), np.concatenate(feats)
+        stats["video_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids = torch.from_numpy(tok["input_ids"]).to(device)
+        mask = torch.from_numpy(tok["attention_mask"]).to(device)
+        te_l, tf_l = [], []
+        with torch.inference_mode():
+            for s in range(0, len(texts), 256):
+                te, tf = model.text_feats(ids[s: s + 256], mask[s: s + 256])
+                te_l.append(te)
+                tf_l.append(tf.float().cpu().numpy())
+        text_embeds, text_feat = torch.cat(te_l), np.concatenate(tf_l)
+        stats["text_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sims = video_feat @ text_feat.T
+        stats["vtc_s"] = time.perf_counter() - t0
+        k_test = min(self.k_test, len(texts), video_embeds.shape[0])
+
+        def score(vid_rows, _ids, rows_mask, txt_rows) -> np.ndarray:
+            with torch.inference_mode():
+                out = model.vtm_score(txt_rows.contiguous(), rows_mask.contiguous(),
+                                      vid_rows.contiguous())
+            return out.float().cpu().numpy()
+
+        t0 = time.perf_counter()
+        s_i2t, s_t2i = rescore_topk(sims, k_test, video_embeds, text_embeds, ids, mask, score)
+        stats["vtm_s"] = time.perf_counter() - t0
+        return retrieval_recalls(s_i2t, s_t2i, img2txt, txt2img)
 
 
 def _norm(x: np.ndarray) -> np.ndarray:

@@ -33,7 +33,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_CONFIGS = ("pretrain_stage1.yaml", "cirr_finetune.yaml", "fiq_finetune.yaml",
                "eval/ret_coco_blip2_eval.yaml", "eval/ret_flickr_blip2_eval.yaml",
                "retrieval_coco_blip2_ft.yaml", "eval/caption_coco_opt2.7b_eval.yaml",
-               "eval/caption_coco_flant5xl_eval.yaml")
+               "eval/caption_coco_flant5xl_eval.yaml", "didemo_ret_ft.yaml",
+               "msrvtt_retrieval_ft.yaml", "msrvtt_qa_ft.yaml", "msvd_qa_ft.yaml",
+               "eval/didemo_ret_eval.yaml", "eval/msrvtt_ret_eval.yaml",
+               "eval/msrvtt_qa_eval.yaml", "eval/msvd_qa_eval.yaml")
 OVERRIDES = ["run.learning_rate=2e-5", "run.k_test=16", "model.image_size=364",
              "datasets.x.build_info.images=/d", "run.flag=true", "run.name=none"]
 
@@ -92,7 +95,10 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "caption_coco_ft.yaml", "caption_coco_large_ft.yaml",
                                            "eval/caption_coco_eval.yaml",
                                            "eval/exp_coco_ret_eval.yaml",
-                                           "eval/imnet_zs_eval.yaml"}
+                                           "eval/imnet_zs_eval.yaml",
+                                           "msrvtt_retrieval_ft.yaml", "msrvtt_qa_ft.yaml",
+                                           "eval/msrvtt_ret_eval.yaml",
+                                           "eval/msvd_qa_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 
@@ -128,14 +134,17 @@ def test_processors_equal_jax(tmp_path):
 
 
 def test_builders_equal_jax(tmp_path):
-    """Every registered image builder of JAX's list is the port's (the VQA
-    builders' items: test_torch_vqa.py; SNLI-VE's and NLVR2's here), and on
-    the same annotation files both build the same splits and items."""
+    """Every registered image and video builder of JAX's list is the port's
+    (the VQA builders' items: test_torch_vqa.py; the video builders' items:
+    test_torch_video_data.py; SNLI-VE's and NLVR2's here), and on the same
+    annotation files both build the same splits and items."""
     mine = set(registry.list("dataset"))
     assert mine == {"coco_caption", "nocaps", "vg_caption", "sbu_caption",
                     "conceptual_caption_3m", "conceptual_caption_12m", "laion2B_multi",
                     "coco_retrieval", "flickr30k", "coco_vqa", "ok_vqa", "aok_vqa", "gqa",
-                    "vg_vqa", "snli_ve", "nlvr", "imagenet"}
+                    "vg_vqa", "snli_ve", "nlvr", "imagenet", "msrvtt_retrieval",
+                    "didemo_retrieval", "msrvtt_qa", "msvd_qa", "msrvtt_caption",
+                    "msvd_caption", "vatex_caption"}
     assert mine <= set(jregistry.list("dataset"))
     names = _images(tmp_path)
     pairs = [{"image": n, "caption": f"A photo {i}!", "image_id": f"id{i % 3}"}

@@ -122,6 +122,19 @@ assert callable(blip1.BlipCaption.generate_ids) and "imagenet" in registry.list(
 assert {"clip_image_train", "clip_image_eval"} <= set(registry.list("processor"))
 assert callable(llm_tokenizers.clip_tokenize)
 assert callable(tasks.ImageTextRetrievalTask.evaluate_pairs_clip)
+# the video families: TimeSformer, ALPRO, their processors, builders, adapters,
+# evaluation and bridges; OpenCV is read only when a container is decoded
+assert {"sprc_tpu_torch.models.timesformer", "sprc_tpu_torch.models.alpro",
+        "sprc_tpu_torch.data.video_processors"} <= set(mods)
+assert {"alpro_retrieval", "alpro_qa", "timesformer"} <= set(registry.list("model"))
+assert {"alpro_video_train", "alpro_video_eval"} <= set(registry.list("processor"))
+assert {"msrvtt_retrieval", "didemo_retrieval", "msrvtt_qa", "msvd_qa", "msrvtt_caption",
+        "msvd_caption", "vatex_caption"} <= set(registry.list("dataset"))
+assert all(callable(f) for f in (
+    generic.AlproRetrievalAdapter.forward, generic.AlproQAAdapter.attach,
+    tasks.ImageTextRetrievalTask.evaluate_pairs_video, jax_params.timesformer_from_jax,
+    jax_params.alpro_from_jax))
+assert "cv2" not in sys.modules, "importing read OpenCV"
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
@@ -181,6 +194,12 @@ assert loader.family_config("clip", "vit_large14_336").vision_config().seq_len =
 assert loader.family_config("clip", "vit_base32").vision_config().seq_len == 50
 assert loader.family_config("blip_feature_extractor", "base").vit_config().seq_len == 197
 assert (chip_smoke.STAGE1_CAPTIONS, chip_smoke.INSTRUCT_NEW_TOKENS) == (2, 15)  # the time cuts
+for run_yaml in list(chip_smoke.VIDEO_TRAIN.values()) + list(chip_smoke.VIDEO_EVAL.values()):
+    cfg = Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml])
+    assert cfg.model["arch"] in ("alpro_retrieval", "alpro_qa")
+    assert loader.family_config(cfg.model["arch"], cfg.model["model_type"]).video_config(
+        ).num_patches + 1 == 197
+assert loader.family_config("alpro_qa", "msrvtt").video_config().num_frames == 16
 leaked =sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked

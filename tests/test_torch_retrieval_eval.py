@@ -144,22 +144,31 @@ def test_evaluate_cli_prints_the_jax_metrics(itm_models, tmp_path, monkeypatch, 
     assert 0.0 < got["r_mean"] < 100.0
 
 
-def test_evaluate_refuses_what_is_not_ported(tmp_path):
-    """Another task or family exits naming its ROADMAP entry, a model with no
-    captioning glue says so (BLIP-1's captioner and CLIP, once refused, run:
-    test_torch_blip_caption.py, test_torch_clip_cli.py); the default device
-    is the card (nonzero exit without one)."""
+def test_evaluate_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """A model with no captioning glue says so (BLIP-1's captioner and CLIP,
+    once refused, run: test_torch_blip_caption.py, test_torch_clip_cli.py);
+    ALPRO's retrieval, once refused, goes on to build its model (it runs:
+    test_torch_alpro_cli.py); the default device is the card (nonzero exit
+    without one)."""
     import argparse
 
+    from sprc_tpu_torch import loader
     from sprc_tpu_torch.cli import evaluate
     from sprc_tpu_torch.config import Config
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
-    for run, model, match in (({"task": "captioning"}, {"arch": "blip2"},
-                               "no captioning glue fits it"),
-                              ({"task": "retrieval"}, {"arch": "alpro_retrieval"}, "ROADMAP A8")):
-        with pytest.raises(SystemExit, match=match):
-            evaluate.evaluate(Config(defaults={"run": run, "model": model}), args)
+    with pytest.raises(SystemExit, match="no captioning glue fits it"):
+        evaluate.evaluate(Config(defaults={"run": {"task": "captioning"},
+                                           "model": {"arch": "blip2"}}), args)
+
+    def load_model(name, model_type, **kw):
+        raise LookupError(f"built {name}")
+
+    monkeypatch.setattr(loader, "load_model", load_model)
+    with pytest.raises(LookupError, match="built alpro_retrieval"):
+        evaluate.evaluate(Config(defaults={"run": {"task": "retrieval"},
+                                           "model": {"arch": "alpro_retrieval"}}), args)
+    monkeypatch.undo()
     assert evaluate.make_parser().parse_args(["--cfg-path", "x"]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA"):

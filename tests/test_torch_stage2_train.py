@@ -357,8 +357,9 @@ def test_frozen_prefixes_never_take_a_gradient():
 def test_train_refuses_what_is_not_ported(data, tmp_path):
     """``run.tokenizer`` llama reads its tokenizer.json (a missing one is a
     FileNotFoundError that names it); the LLaMA models have no generic
-    adapter; a family without one names ROADMAP A8.6 (ALPRO's video
-    retrieval: A8.6.5; BLIP-1's captioner, once refused, trains:
+    adapter; no captioning adapter fits ALPRO's video forward, in either
+    package (ALPRO's retrieval and QA train: test_torch_alpro_cli.py;
+    BLIP-1's captioner, once refused, trains:
     test_torch_blip_caption_cli.py); VQA training refuses a model that is
     not BLIP-1 / ALBEF's."""
     from sprc_tpu_torch.config import Config
@@ -378,7 +379,8 @@ def test_train_refuses_what_is_not_ported(data, tmp_path):
                                                                  "model_type": "vicuna7b"})),
                                 args)
     for run, model, refusal in (
-            ({"task": "captioning"}, {"arch": "alpro_retrieval"}, "ROADMAP A8.6.5"),
+            ({"task": "captioning"}, {"arch": "alpro_retrieval"},
+             "fits its video forward, in either package"),
             ({"task": "vqa"}, {"arch": "blip2_opt"}, "trains BLIP-1 / ALBEF's VQA models")):
         with pytest.raises(SystemExit, match=refusal):
             generic.run_generic(Config(defaults={"run": run, "model": model}), args)

@@ -228,8 +228,9 @@ def test_evaluate_cli_vqa_equals_jax(arch, task, tmp_path, monkeypatch, capsys):
 
 
 def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """ALPRO's video QA names ROADMAP A8.6.5 (BLIP-1 / ALBEF's VQA, once
-    refused, runs: test_torch_blip_vqa_cli.py); ``img2prompt_vqa``
+    """No VQA glue fits ALPRO's video QA, in either package (it evaluates
+    as multimodal_classification: test_torch_alpro_cli.py; BLIP-1 / ALBEF's
+    VQA, once refused, runs: test_torch_blip_vqa_cli.py); ``img2prompt_vqa``
     (once refused) goes on to build its pipeline for any VQA task, whatever
     the run's ``inference_method``, as ``pnp_vqa`` does (both run:
     test_torch_pnp_vqa.py, test_torch_img2prompt.py); a
@@ -246,7 +247,7 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
 
     args = argparse.Namespace(device="cpu", model_path=None, vocab_path=None, split=None)
     for task, arch in (("vqa", "alpro_qa"), ("aok_vqa", "alpro_qa")):
-        with pytest.raises(SystemExit, match="ROADMAP A8.6.5"):
+        with pytest.raises(SystemExit, match="glue fits ALPRO's video QA, in either package"):
             evaluate.evaluate(Config(defaults={"run": {"task": task},
                                                "model": {"arch": arch}}), args)
     built = []
@@ -267,7 +268,7 @@ def test_evaluate_vqa_refuses_what_is_not_ported(tmp_path, monkeypatch):
         with pytest.raises(SystemExit, match="answer generatively"):
             evaluate.evaluate(Config(defaults={"run": run, "model": {"arch": "blip2_t5"}}),
                               args)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8.6"):
+    with pytest.raises(NotImplementedError, match="this glue is the BLIP-2 LLM heads'"):
         make_blip2_vqa_predict_fn(torch.nn.Linear(2, 2), None)
     section = _vqa_config("blip2_opt", "vqa", None, None)["model"]
     model = loader.load_model(section.pop("arch"), section.pop("model_type"), device="cpu",
