@@ -493,6 +493,30 @@ Phases (any failure raises and exits nonzero before the last line):
    kernel phase holds K8 at TimeSformer's call (fp32, D 64, S = 197, strided
    views of the packed qkv) through FlashAttention at B·T = 128 and without
    a graph at 32, beside SDPA fp32 (kernel_checks.run_video).
+23. The GPT-2 video dialogue (models/gpt_dialogue.py) and the Q-Former LM's
+   caption decode (models/lm.py; random weights from seed 0). 23a:
+   cli/train.py on dialogue_avsd_ft.yaml as shipped (GPT-2 base, fp32,
+   vocabulary 50,264, len_video_ft 4224, batch 16) with its streams named
+   through --options (i3d_flow + i3d_rgb + vggish) and the synthetic GPT-2
+   tokenizer, 3 steps over 48 synthetic dialogues of 3 turns (each stream
+   40 to 80 frames): step ms, samples/s, peak; the first step's loss
+   against the same batch through the same initial weights in float64
+   within DIALOGUE_F64_REL, and its logits within DIALOGUE_F64_LOGITS; no
+   launch (the trunk runs no Pallas kernel in JAX) and no last_state.pt.
+   23b: cli/evaluate.py on eval/dialogue_avsd_eval.yaml over 44 dialogues
+   at 8 (the last batch 4 real items) from 23a's model-only file, deleted
+   after: the metric against the same batches' mean computed in process
+   within DIALOGUE_EVAL_REL. 23c: lm.generate_captions on
+   blip2_cir_align_prompt / pretrain (EVA ViT-g bf16 through K2, the
+   BERT-base Q-Former, 32 queries, a seeded LM head) over 16 images, 3
+   beams, max_length 30, min_length 10: seconds by stage, ms a decoded
+   position, peak; K2 39 in the one tower call and its chain, nothing else;
+   the tower stage by stage (the check that holds K2 here); from the kernel
+   tower's rows the all-plain decode's captions equal (the decoder runs no
+   kernel: this holds the decode's repeatability, not K2); the cached beam
+   and greedy decodes equal the recomputing ones. Its kernel rows read
+   phase 3's K2 and bf16 attention at EVA, B = 16
+   (kernel_checks.run_stage2).
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -843,6 +867,22 @@ RUN_CONFIGS = {
             "build_info": {"annotations": {"test": []}, "videos": "", "n_frms": 8},
             "vis_processor": {"eval": {"name": "alpro_video_eval", "image_size": 224}},
             "text_processor": {"eval": {"name": "blip_question"}}}}},
+    "dialogue_avsd_ft.yaml": {
+        "run": {"task": "dialogue", "batch_size": 16, "max_epochs": 20, "learning_rate": "5e-5",
+                "weight_decay": 0.05, "seed": 42},
+        "model": {"arch": "gpt_dialogue", "gpt": {"vocab_size": 50264}},
+        "datasets": {"avsd_dialogue": {
+            "build_info": {"annotations": {"train": []}, "videos": ""},
+            "vis_processor": {"train": {"name": "gpt_video_ft", "tokenizer_json": ""}},
+            "text_processor": {"train": {"name": "gpt_dialogue", "tokenizer_json": ""}}}}},
+    "eval/dialogue_avsd_eval.yaml": {
+        "run": {"task": "dialogue", "evaluate": True, "batch_size_eval": 8,
+                "test_splits": ["val"]},
+        "model": {"arch": "gpt_dialogue", "gpt": {"vocab_size": 50264}},
+        "datasets": {"avsd_dialogue": {
+            "build_info": {"annotations": {"val": []}, "videos": ""},
+            "vis_processor": {"eval": {"name": "gpt_video_ft", "tokenizer_json": ""}},
+            "text_processor": {"eval": {"name": "gpt_dialogue", "tokenizer_json": ""}}}}},
 }
 
 
@@ -7444,6 +7484,378 @@ def video_kernels(rows, video):
     return out
 
 
+# Phase 23, the GPT-2 video dialogue (models/gpt_dialogue.py; random weights from
+# seed 0, the synthetic GPT-2 tokenizer over GPT-2's 50,257 ids with the seven
+# dialogue tokens after them) and the Q-Former LM's caption decode
+# (models/lm.py). 23a: cli/train.py on dialogue_avsd_ft.yaml as shipped (GPT-2
+# base: 12 layers, 768 wide, 12 heads, 1024 positions; vocabulary 50,264;
+# len_video_ft 4224; batch 16; fp32), its streams named through --options
+# (i3d_flow + i3d_rgb + vggish: 2048 + 2048 + 128 = 4224; the YAML names none, and
+# the processor's default i3d_rgb + vggish is 2176 wide), DIALOGUE_STEPS steps
+# over DIALOGUE_TRAIN_ITEMS dialogues of DIALOGUE_TURNS turns whose three streams
+# run 40 to 80 frames, each stream its own length: step ms, samples/s, peak; the
+# first step's fp32 loss and logits against the same batch's through the same
+# initial weights in float64, within DIALOGUE_F64_REL and DIALOGUE_F64_LOGITS; no launch (the GPT-2 trunk runs no
+# Pallas kernel in JAX, so none here) and no last_state.pt. 23b: cli/evaluate.py
+# on eval/dialogue_avsd_eval.yaml over DIALOGUE_EVAL_ITEMS dialogues at its batch
+# of 8 (the last batch of 4 real items), from 23a's model-only file (deleted
+# after): the metric against the mean of the same batches' losses computed here,
+# in this process (the synthetic tokenizer hashes words with Python's salted
+# hash), within DIALOGUE_EVAL_REL. 23c: lm.generate_captions on
+# blip2_cir_align_prompt / pretrain (EVA ViT-g, 39 blocks at 224 px, bf16 tower
+# through K2; the BERT-base Q-Former with 32 queries; a seeded QFormerLMHead)
+# over CAPTION_DECODE["images"] seeded images, 3 beams, max_length 30, min_length
+# 10: seconds by stage (tower, decode), ms a decoded position, peak, K2 39 a
+# tower call and its chain (bf16 products, bf16 attention, LayerNorm), nothing
+# else (the decoder Q-Former runs unfused in both packages); the tower once more
+# stage by stage (STAGE_BOUNDS), which is the check that holds K2 here; from the
+# kernel tower's rows the all-plain decode gives the same captions (the decoder
+# launches no kernel, so this checks that the decode is repeatable, not K2); the
+# cached beam search the recomputing one's ids, the cached greedy decode the
+# recomputing one's.
+DIALOGUE_TRAIN = "dialogue_avsd_ft.yaml"
+DIALOGUE_EVAL = "eval/dialogue_avsd_eval.yaml"
+DIALOGUE_STEPS, DIALOGUE_TURNS = 3, 3
+DIALOGUE_TRAIN_ITEMS = 48  # the YAML's batch of 16, DIALOGUE_STEPS times
+DIALOGUE_EVAL_ITEMS = 44  # 5 batches of 8 and one of 4
+DIALOGUE_STREAMS = {"i3d_flow": 2048, "i3d_rgb": 2048, "vggish": 128}
+DIALOGUE_FRAMES = (40, 80)
+GPT2_BASE_VOCAB = 50257
+# bounds, fixed before the first reading: fp32 against float64 over one GPT-2
+# base forward (12 pre-LN blocks, a 50,264-way log-softmax); the CLI's metric
+# against the same batches' losses in this process (the same program, so equal
+# but for the order of the host mean). The loss at random init is mostly log V
+# and the feature MSE, so a lower-precision product could pass its bound; the
+# logits' bound (the largest gap over the largest magnitude) is one that TF32's
+# 10-bit inputs (about 5e-4 a product) would fail
+DIALOGUE_F64_REL = 1e-5
+DIALOGUE_F64_LOGITS = 1e-4
+DIALOGUE_EVAL_REL = 1e-6
+CAPTION_DECODE = {"images": 16, "num_beams": 3, "max_length": 30, "min_length": 10}
+CAPTION_DECODE_CHAIN = ("gemm", "attention_bf16", "layer_norm")
+
+
+def _write_dialogues(root, n, seed, split):
+    """``n`` AVSD-style dialogues under ``root`` (their three feature streams,
+    each 40 to 80 frames, as ``<stream>/<video>.npy``) and the annotation
+    path."""
+    rng = np.random.default_rng(seed)
+
+    def say(k):
+        return " ".join(str(w) for w in rng.choice(STAGE1_WORDS, k))
+
+    ann = []
+    for v in range(n):
+        name = f"{split}{v:03d}"
+        for stream, width in DIALOGUE_STREAMS.items():
+            os.makedirs(os.path.join(root, stream), exist_ok=True)
+            frames = int(rng.integers(DIALOGUE_FRAMES[0], DIALOGUE_FRAMES[1] + 1))
+            np.save(os.path.join(root, stream, name + ".npy"),
+                    rng.standard_normal((frames, width), dtype=np.float32))
+        ann.append({"image_id": name, "caption": say(8), "summary": say(12),
+                    "dialog": [{"question": say(6), "answer": say(5)}
+                               for _ in range(DIALOGUE_TURNS)],
+                    "question": say(6), "answer": say(int(rng.integers(3, 9)))})
+    path = os.path.join(root, f"{split}.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+def _dialogue_config(name, split, ann, root, run=None):
+    """The YAML with the data, the streams that make 4224 and the synthetic
+    tokenizer on both processors, as --options gives them."""
+    section = "train" if split == "train" else "eval"
+    return _run_config(name, {
+        "run": run or {},
+        "datasets": {"avsd_dialogue": {
+            "build_info": {"annotations": {split: [ann]}, "videos": root},
+            "vis_processor": {section: {"visual_ft": ["i3d_flow", "i3d_rgb"],
+                                        "audio_ft": ["vggish"],
+                                        "synthetic_vocab": GPT2_BASE_VOCAB}},
+            "text_processor": {section: {"synthetic_vocab": GPT2_BASE_VOCAB}}}}})
+
+
+def phase_dialogue_train(work):
+    """23a: dialogue_avsd_ft.yaml through cli/train.py, then the first step's
+    loss against float64 from the same initial weights."""
+    import argparse
+    import shutil
+
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.train import generic
+
+    tag = "dialogue train"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "avsd")
+    ann = _write_dialogues(root, DIALOGUE_TRAIN_ITEMS, SEED + 230, "train")
+    out = os.path.join(work, "dialogue_train")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg, how = _dialogue_config(DIALOGUE_TRAIN, "train", ann, root,
+                                {"max_epochs": 1, "seed": SEED, "log_freq": 1})
+    log(f"[{tag}] cli/train.py through {how}")
+    args = argparse.Namespace(output_dir=out, vocab_path=None, model_path=None, resume=None,
+                              device=DEVICE, data_path=None)
+    run = _cli_train_run(cfg, args)
+    trainer = run.pop("trainer")
+    params = sum(p.numel() for p in trainer.model.parameters())
+    rows, times = run["rows"], run["times"]
+    batch_size = cfg.run["batch_size"]
+    weights = os.path.join(work, "dialogue_model.pth")  # model only: 23b reads it
+    torch.save(trainer.model.state_dict(), weights)
+    del trainer, run["per_step"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    moved = {k: v for k, v in run["launches"].items() if v}
+    log(f"[{tag}] {len(rows)} steps at batch {batch_size} ({params / 1e6:.1f} M parameters): ms "
+        + ", ".join(f"{t:.1f}" for t in times) + f"; samples/s (last step) "
+        f"{batch_size / times[-1] * 1e3:.2f}; peak {run['peak']:.2f} GiB; run {run['run_s']:.1f} "
+        "s; losses " + ", ".join(f"{r['loss']:.6f}" for r in rows)
+        + f"; launches {moved or 'none'}; state writes skipped: {run['skipped']}")
+    written = sorted(os.listdir(out))
+    if (len(rows) != DIALOGUE_STEPS or any(r["skipped_nonfinite"] for r in rows)
+            or not all(np.isfinite(r["loss"]) for r in rows)):
+        raise RuntimeError(f"{tag}: steps {rows}")
+    if moved or any(f.endswith(".pt") for f in written):
+        raise RuntimeError(f"{tag}: launches {moved}, files {written}")
+
+    # the first batch again, through the run's initial weights (the run's seed),
+    # in fp32 and in float64
+    model_cfg = dict(cfg.model)
+    arch = model_cfg.pop("arch")
+    model = load_model(arch, model_cfg.pop("model_type", "pretrain"), device=DEVICE, seed=SEED,
+                       **model_cfg)
+    datasets = registry.get("dataset", "avsd_dialogue")(dict(cfg.datasets["avsd_dialogue"])).build()
+    adapter = generic.DialogueAdapter().specialize(model)
+    adapter.attach(datasets["train"])
+    task = generic.BuilderTask(datasets, adapter, batch_size=batch_size, seed=SEED, device=DEVICE)
+    first = task.prepare_batch(next(iter(task.train_loader(0))))
+    T, L = first["video_fts"].shape[1], first["input_ids"].shape[1]
+    with torch.inference_mode():
+        out32 = adapter.forward(model, first)
+        f32, logits32 = out32["loss"].item(), out32["logits"]
+        del out32
+        model.double()
+        out64 = adapter.forward(model, dict(first, video_fts=first["video_fts"].double()))
+        f64 = out64["loss"].item()
+        logits_gap = ((logits32.double() - out64["logits"]).abs().max()
+                      / out64["logits"].abs().max()).item()
+    del model, first, out64, logits32
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = abs(rows[0]["loss"] - f64) / abs(f64)
+    log(f"[{tag}] the first batch ({batch_size} x [{T} video | {L} text] positions): the run's "
+        f"loss {rows[0]['loss']:.9f}, again in fp32 {f32:.9f}, in float64 {f64:.9f}: relative "
+        f"{gap:.3e} (bound {DIALOGUE_F64_REL:.0e}); the logits, largest gap over largest "
+        f"magnitude {logits_gap:.3e} (bound {DIALOGUE_F64_LOGITS:.0e})")
+    if not gap <= DIALOGUE_F64_REL or not logits_gap <= DIALOGUE_F64_LOGITS or T + L > 1024:
+        raise RuntimeError(f"{tag}: fp32 against float64 loss {gap}, logits {logits_gap}, "
+                           f"{T} + {L} positions")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"step_ms": times, "samples_per_s": batch_size / times[-1] * 1e3,
+            "peak_memory_gib": run["peak"], "parameters": params,
+            "losses": [r["loss"] for r in rows], "first_loss_f64": f64,
+            "first_loss_f32": rows[0]["loss"], "f64_rel_gap": gap,
+            "f64_logits_gap": logits_gap, "positions": [T, L],
+            "launches": moved, "seconds": seconds}, weights
+
+
+def phase_dialogue_eval(work, weights):
+    """23b: eval/dialogue_avsd_eval.yaml through cli/evaluate.py from 23a's
+    weights, against the same batches' losses computed here."""
+    import argparse
+
+    from sprc_tpu_torch.cli import evaluate
+    from sprc_tpu_torch.loader import load_model
+    from sprc_tpu_torch.registry import registry
+    from sprc_tpu_torch.train import generic
+    from sprc_tpu_torch.train.eval_glue import eval_loader
+
+    tag = "dialogue eval"
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "avsd")
+    ann = _write_dialogues(root, DIALOGUE_EVAL_ITEMS, SEED + 231, "val")
+    cfg, how = _dialogue_config(DIALOGUE_EVAL, "val", ann, root)
+    log(f"[{tag}] cli/evaluate.py through {how} --model-path <23a's weights>")
+    args = argparse.Namespace(device=DEVICE, model_path=weights, vocab_path=None, split=None,
+                              output_dir=os.path.join(work, "dialogue_eval"))
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    metrics = evaluate.evaluate(cfg, args, stats)
+    sync()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()
+             if getattr(obj, attr)}
+
+    # the same batches here: real items only, the loss of each
+    model = load_model("gpt_dialogue", checkpoint_path=weights, device=DEVICE,
+                       **{k: v for k, v in cfg.model.items() if k != "arch"})
+    builder = registry.get("dataset", "avsd_dialogue")(dict(cfg.datasets["avsd_dialogue"]))
+    ds = builder.build()["val"]
+    adapter = generic.DialogueAdapter().specialize(model)
+    adapter.attach(ds)
+    losses, sizes = [], []
+    with torch.inference_mode():
+        for idx, items in eval_loader(ds, cfg.run["batch_size_eval"]):
+            batch = {k: torch.as_tensor(v).to(DEVICE)
+                     for k, v in adapter.collate(items[:len(idx)]).items()}
+            losses.append(adapter.forward(model, batch)["loss"].item())
+            sizes.append(len(idx))
+    del model
+    os.remove(weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = float(np.mean(losses))
+    gap = abs(metrics["agg_metrics"] - want) / abs(want)
+    log(f"[{tag}] {len(losses)} batches of {sizes}: metric {metrics['agg_metrics']:.9f}, the "
+        f"batches' mean here {want:.9f}: relative {gap:.3e} (bound {DIALOGUE_EVAL_REL:.0e}); "
+        f"total {total_s:.2f} s (the passes {stats.get('loss_s', 0.0):.2f} s); peak {peak:.2f} "
+        f"GiB; launches {moved or 'none'}")
+    if not gap <= DIALOGUE_EVAL_REL or sizes[-1] == sizes[0] or moved:
+        raise RuntimeError(f"{tag}: metric {metrics} against {want}, batches {sizes}, "
+                           f"launches {moved}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"metrics": metrics, "batch_losses": losses, "batch_items": sizes, "rel_gap": gap,
+            "total_s": total_s, "passes_s": stats.get("loss_s"), "peak_memory_gib": peak,
+            "seconds": seconds}
+
+
+def phase_caption_decode(work):
+    """23c: generate_captions on blip2_cir_align_prompt / pretrain, its K2
+    launches held as the Kernels section of the phase says."""
+    from sprc_tpu_torch import loader
+    from sprc_tpu_torch.models import lm
+    from sprc_tpu_torch.ops import primitives
+    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "caption decode"
+    t_phase = time.perf_counter()
+    model = loader.load_model("blip2_cir_align_prompt", "pretrain", device=DEVICE, seed=SEED)
+    head = lm.QFormerLMHead(model.qformer.cfg).to(DEVICE)
+    loader.init_weights(head, SEED + 232)
+    tok = BertWordPieceTokenizer.from_vocab_file(
+        write_synthetic_bert_vocab(os.path.join(work, "vocab.txt")))
+    (images,) = _pixels(CAPTION_DECODE["images"], CAPTION_DECODE["images"], SEED + 233)
+    decode = {k: v for k, v in CAPTION_DECODE.items() if k != "images"}
+    counters = _counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    captions = lm.generate_captions(model, head, images, tok, stats=stats, **decode)
+    sync()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    positions = decode["max_length"] - 1
+    ms_position = stats["decode_s"] / positions * 1e3
+    log(f"[{tag}] {len(captions)} images, {decode['num_beams']} beams: seconds by stage tower "
+        f"{stats['tower_s']:.3f}, decode {stats['decode_s']:.3f} ({ms_position:.2f} ms a decoded "
+        f"position of {len(captions) * decode['num_beams']} rows); total {total_s:.2f} s; peak "
+        f"{peak:.2f} GiB; e.g. {[c[:40] for c in captions[:2]]}")
+    log(f"[{tag}] launches: {launches}")
+    bad = {k: v for k, v in launches.items()
+           if (k == "fused_vit_block" and v != 39) or (k in CAPTION_DECODE_CHAIN and v <= 0)
+           or (k not in CAPTION_DECODE_CHAIN + ("fused_vit_block",) and v)}
+    if bad or len(captions) != CAPTION_DECODE["images"] or not all(captions):
+        raise RuntimeError(f"{tag}: launches {bad} (K2 39 and its chain expected), "
+                           f"{len(captions)} captions")
+
+    # none of what follows is the main path's: the counters are put back after it
+    kept = dict(launches)
+    stages = stage_pass(tag, "the tower", counters, lambda: model.encode_image(images))
+    with torch.inference_mode():
+        rows_k = model.encode_image(images)
+        with primitives.plain_reference():
+            rows_p = model.encode_image(images)
+            ids_plain = lm.decode_captions(model, head, rows_k, tok, **decode)
+        rows_gap = ((rows_k - rows_p).abs().max().item(), (rows_k - rows_p).abs().mean().item())
+        del rows_p
+        plain_captions = [tok.decode(r) for r in ids_plain.cpu().numpy()]
+        cached_beam = lm.decode_captions(model, head, rows_k, tok, **decode)
+        lmod = lm.QFormerLM(model.qformer.cfg, bert=model.qformer, cls=head)
+        queries = model.query_tokens.expand(rows_k.shape[0], -1, -1)
+        ids = dict(bos_token_id=tok.bos_id, eos_token_id=tok.sep_id, pad_token_id=tok.pad_id,
+                   max_length=decode["max_length"], min_length=decode["min_length"])
+        beam = lm.beam_generate(lmod, queries, rows_k, num_beams=decode["num_beams"], **ids)
+        greedy = lm.greedy_generate(lmod, queries, rows_k, **ids)
+        cached_greedy = lm.cached_greedy_generate(lmod, queries, rows_k, **ids)
+    sync()
+    for k, (obj, attr) in counters.items():
+        setattr(obj, attr, kept[k])
+    same = {"plain_captions": plain_captions == captions,
+            "beam": torch.equal(cached_beam, beam), "greedy": torch.equal(cached_greedy, greedy)}
+    beam_rows = (cached_beam != beam).any(dim=1).nonzero().flatten().tolist()
+    greedy_rows = (cached_greedy != greedy).any(dim=1).nonzero().flatten().tolist()
+    log(f"[{tag}] the tower's rows, kernel against all-plain: max_abs {rows_gap[0]:.3e}, "
+        f"mean_abs {rows_gap[1]:.3e} (report; the gate is the stage check); from the kernel "
+        f"tower's rows the all-plain decode's captions "
+        f"{'equal' if same['plain_captions'] else 'DIFFER'}; the cached beam search against "
+        f"the recomputing one: {'equal' if same['beam'] else f'rows {beam_rows} differ'}; the "
+        f"cached greedy decode against the recomputing one: "
+        f"{'equal' if same['greedy'] else f'rows {greedy_rows} differ'}")
+    del model, head, lmod, rows_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(same.values()):
+        raise RuntimeError(f"{tag}: {same}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {seconds:.1f} s")
+    return {"stage_seconds": {k: stats[k] for k in ("tower_s", "decode_s")},
+            "ms_per_position": ms_position, "total_s": total_s, "peak_memory_gib": peak,
+            "launches": {k: v for k, v in launches.items() if v}, "rows_gap": list(rows_gap),
+            "stages": stages, "captions": captions[:4], "seconds": seconds}
+
+
+def phase_dialogue_caption(work):
+    """Phase 23, each model on the card alone."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, weights = timed("23a dialogue train", phase_dialogue_train, work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    evals = timed("23b dialogue eval", phase_dialogue_eval, work, weights)
+    gc.collect()
+    torch.cuda.empty_cache()
+    caption = timed("23c caption decode", phase_caption_decode, work)
+    log(f"[counters] phase 23: the dialogue none (train {train['launches'] or 'none'}); the "
+        f"caption decode K2 {caption['launches'].get('fused_vit_block')} in one tower call")
+    return {"dialogue_train": train, "dialogue_eval": evals, "caption_decode": caption}
+
+
+def dialogue_caption_kernels(rows, phase):
+    """The kernel rows of phase 23: K2 and its bf16 attention at the caption
+    decode's tower call (EVA ViT-g, B = 16, S = 257), 23c's launches."""
+    from sprc_tpu_torch.kernel_checks import bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    launches = phase["caption_decode"]["launches"]
+    out = []
+    for name, check, count, source, replaces in (
+            ("fused_vit_block (EVA ViT-g, Q-Former LM caption decode)", "K2 vit_block eva_g B=16",
+             "fused_vit_block", "sprc_tpu_torch/ops/fused_block.py",
+             "sprc_tpu/ops/pallas_block.py:609"),
+            ("attention bf16 (EVA ViT-g, Q-Former LM caption decode)", "attention D=88 bf16 B=16",
+             "attention_bf16", "sprc_tpu_torch/csrc/attention.cu",
+             "sprc_tpu/ops/pallas_attention.py:428")):
+        r = by_check[check]
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches.get(count, 0), "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], **bound_ms(r),
+                    "library_ms": r.get("library_ms")})
+    return out
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -7575,6 +7987,7 @@ def main():
         head_eval[which] = timed(f"{phase} heads eval {which}", phase_head_eval, work, which)
     new = phases_20_21(work)
     video = phase_video(work)
+    dialogue = phase_dialogue_caption(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -7652,7 +8065,8 @@ def main():
                       + momentum_kernels(rows, momentum, momentum_eval)
                       + heads_kernels(rows, head_train, head_eval)
                       + caption_clip_kernels(rows, *new.values())
-                      + video_kernels(rows, video),
+                      + video_kernels(rows, video)
+                      + dialogue_caption_kernels(rows, dialogue),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -7683,7 +8097,7 @@ def main():
                       "img2prompt_vqa": img2prompt,
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "heads_train": head_train, "heads_eval": head_eval,
-                      **new, **video,
+                      **new, **video, "dialogue_caption": dialogue,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

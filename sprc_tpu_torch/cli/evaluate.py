@@ -86,7 +86,14 @@ answer vocabulary: each item's target is its first answer's index in
 ``run.answer_list`` (-1, always wrong, where it is not there), the argmax
 accuracy of ``AlproQA.predict``. ``alpro_qa`` under a VQA task and
 ``timesformer`` (a feature extractor) exit: no glue fits them, in either
-package. The dialogue exits naming ROADMAP A8.6.6; CIR datasets keep their
+package. And the ``dialogue`` task of the GPT-2 video dialogue
+(``gpt_dialogue``; configs/runs/eval/dialogue_avsd_eval.yaml): batches of
+``run.batch_size_eval`` collated as in training
+(:class:`~sprc_tpu_torch.train.generic.DialogueAdapter`), each batch's loss
+(text CE + video MSE), ``agg_metrics`` their mean; the last partial batch
+feeds only its real items, as the metric is a per-batch scalar
+(``sprc_tpu/cli/evaluate.py:331-338``); feature streams that are not
+``len_video_ft`` wide exit before the model is built. CIR datasets keep their
 CLIs (``cli/validate.py``, ``cli/validate_rerank.py``,
 ``cli/submission.py``).
 
@@ -138,7 +145,6 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     and VQA: the head's ``generate_ids``', summed over the batches)."""
     from sprc_tpu_torch import loader
     from sprc_tpu_torch.data import builders as _builders  # noqa: F401  (registers them)
-    from sprc_tpu_torch.registry import registry
     from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
     from sprc_tpu_torch.utils.artifacts import ensure_bert_vocab
 
@@ -147,9 +153,12 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
-    if task_name not in ("retrieval", "captioning", CLASSIFICATION) + VQA_TASKS:
-        raise SystemExit(f"task {task_name!r}: not ported to cli/evaluate.py (the dialogue: "
-                         "ROADMAP A8.6.6; CIR -> cli/validate.py)")
+    if task_name not in ("retrieval", "captioning", CLASSIFICATION, "dialogue") + VQA_TASKS:
+        raise SystemExit(f"task {task_name!r} has no evaluate-only path (CIR -> "
+                         "cli/validate.py)")
+    if (task_name == "dialogue") != (arch in loader.DIALOGUE_MODELS):
+        raise SystemExit(f"model {arch!r}: no {task_name} glue fits it, in either package (the "
+                         "dialogue task: gpt_dialogue)")
     if arch in loader.INSTRUCT_MODELS:
         raise SystemExit(f"model {arch!r}: no evaluation glue fits its signature (the "
                          "instruction and LLaMA token batches), in either package; "
@@ -188,15 +197,12 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
         raise SystemExit(f"run.inference_method {run.get('inference_method', 'rank')!r}: the "
                          "BLIP-2 heads answer generatively ('generate'; ranking "
                          "run.answer_list is blip_vqa / albef_vqa's)")
+    if task_name == "dialogue":
+        return _evaluate_dialogue(cfg, args, arch, model_type, model_cfg, run, stats)
     own_config = (arch, model_type) in loader.FAMILY_CONFIGS
     if arch in loader.VQA_MODELS + loader.CLASSIFICATION_MODELS:
         _check_eval_size(cfg, arch, model_type, model_cfg)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(f"--device {args.device}: no CUDA device is available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = _device(args)
     if pnp:  # three models from their sub-sections, the BERT tokenizer from --vocab-path
         model_cfg.setdefault("vocab_path", args.vocab_path)
     elif not own_config:  # (those configs have no freeze_vit)
@@ -204,15 +210,7 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
     model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
                               seed=int(run.get("seed", 42)), **model_cfg)
 
-    datasets_cfg = dict(cfg.datasets or {})
-    assert len(datasets_cfg) == 1, "one dataset builder per eval config"
-    (ds_name, ds_cfg), = datasets_cfg.items()
-    datasets = registry.get("dataset", ds_name)(dict(ds_cfg)).build()
-    splits = run.get("test_splits") or run.get("valid_splits") or ["val"]
-    split = args.split or splits[0]
-    assert split in datasets, (f"builder '{ds_name}' produced splits {sorted(datasets)}; "
-                               f"'{split}' not among them")
-    ds = datasets[split]
+    ds, split = _split(cfg, args, run)
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
     if task_name == "captioning":
         return _evaluate_captions(model, ds, split, run, tokenizer, args, stats)
@@ -241,6 +239,66 @@ def evaluate(cfg, args, stats: Optional[Dict[str, float]] = None) -> dict:
                                       ds.txt2img, stats=stats)
     metrics["agg_metrics"] = metrics["r_mean"]
     return metrics
+
+
+def _device(args) -> torch.device:
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {args.device}: no CUDA device is available")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def _split(cfg, args, run):
+    """(the evaluated split's dataset, its name) from the config's one builder."""
+    from sprc_tpu_torch.registry import registry
+
+    datasets_cfg = dict(cfg.datasets or {})
+    assert len(datasets_cfg) == 1, "one dataset builder per eval config"
+    (ds_name, ds_cfg), = datasets_cfg.items()
+    datasets = registry.get("dataset", ds_name)(dict(ds_cfg)).build()
+    splits = run.get("test_splits") or run.get("valid_splits") or ["val"]
+    split = args.split or splits[0]
+    assert split in datasets, (f"builder '{ds_name}' produced splits {sorted(datasets)}; "
+                               f"'{split}' not among them")
+    return datasets[split], split
+
+
+def _evaluate_dialogue(cfg, args, arch, model_type, model_cfg, run, stats) -> dict:
+    """The ``dialogue`` task (``sprc_tpu/cli/evaluate.py:311-338``): the
+    mean of the batches' losses, every batch of real items only.
+    ``stats``: ``loss_s``, the seconds of the model's passes."""
+    import time
+
+    from sprc_tpu_torch import loader
+    from sprc_tpu_torch.train.eval_glue import eval_loader
+    from sprc_tpu_torch.train.eval_tasks import DialogueTask
+    from sprc_tpu_torch.train.generic import DialogueAdapter, check_dialogue_width
+
+    ds, split = _split(cfg, args, run)
+    check_dialogue_width(ds, arch, model_type, model_cfg)
+    device = _device(args)
+    model = loader.load_model(arch, model_type, checkpoint_path=args.model_path, device=device,
+                              seed=int(run.get("seed", 42)), **model_cfg)
+    adapter = DialogueAdapter().specialize(model)
+    adapter.attach(ds)
+    task = DialogueTask()
+
+    def loss_fn(samples):
+        t0 = time.perf_counter()
+        batch = {k: torch.as_tensor(v).to(device) for k, v in samples.items()}
+        with torch.inference_mode():
+            loss = adapter.forward(model, batch)["loss"].item()
+        if stats is not None:
+            stats["loss_s"] = stats.get("loss_s", 0.0) + time.perf_counter() - t0
+        return loss
+
+    results = []
+    for idx, items in eval_loader(ds, int(run.get("batch_size_eval", run.get("batch_size", 8)))):
+        results.extend(task.valid_step(loss_fn, adapter.collate(items[:len(idx)])))
+    return task.after_evaluation(results, split)
 
 
 def _check_eval_size(cfg, arch, model_type, model_cfg) -> None:

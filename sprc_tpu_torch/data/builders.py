@@ -33,8 +33,10 @@ video builders of ALPRO's runs, whose annotations name a ``"video"``
 ``videos`` (or ``images``) is their root and ``n_frms`` (8) the frames each
 clip is sampled to (:func:`_load_video`: a ``.npy`` / ``.npz`` tensor, a
 directory of frame images, or a container decoded by OpenCV, which is
-imported only there). The dialogue's builder comes with its family (ROADMAP
-A8.6.6). The classes repeat the JAX ones line for line (a test builds both
+imported only there), and the GPT dialogue's ``avsd_dialogue``
+(:class:`AVSDDialDataset`: the AVSD annotation through the ``gpt_dialogue``
+processor, the video's feature streams under ``build_info``'s ``videos``
+through ``gpt_video_ft``). The classes repeat the JAX ones line for line (a test builds both
 on the same files).
 """
 
@@ -295,6 +297,21 @@ class NLVRPairDataset(AnnotationDataset):
                 "label": int(label)}
 
 
+class AVSDDialDataset(AnnotationDataset):
+    """AVSD dialogue turns and pre-extracted video features (reference
+    datasets/avsd_dialogue_datasets.py): the GPT dialogue text processor
+    takes the whole annotation (caption, summary, dialog, question,
+    answer), the video processor loads the feature streams by video name."""
+
+    def __getitem__(self, index):
+        ann = self.annotation[index]
+        item = dict(self.text_processor(ann))
+        vis = self.vis_processor(self.vis_root, ann.get("image_id", ann.get("video_id", "")))
+        item["video_fts"] = vis["video_fts"]
+        item["video_token_type_ids"] = vis["token_type_ids"]
+        return item
+
+
 class VideoRetrievalDataset(RetrievalDataset):
     MEDIA_KEY = "video"
 
@@ -375,3 +392,4 @@ for _n in ("msrvtt_qa", "msvd_qa"):
 for _n in ("snli_ve", "imagenet"):
     _register(_n, MultimodalClassificationDataset, MultimodalClassificationDataset)
 _register("nlvr", NLVRPairDataset, NLVRPairDataset)
+_register("avsd_dialogue", AVSDDialDataset, AVSDDialDataset)

@@ -17,8 +17,8 @@ from the processor's ``numpy.random.RandomState`` in the JAX package's order,
 so a train processor seeded alike gives equal arrays in both packages
 (``tests/test_torch_framework.py``). ALPRO's video processors
 (``alpro_video_train``, ``alpro_video_eval``) live in :mod:`.video_processors`
-and register when this module is imported; the GPT dialogue's come with its
-family (ROADMAP A8.6.6).
+and the GPT dialogue's (``gpt_dialogue``, ``gpt_video_ft``) in
+:mod:`.gpt_processors`; both register when this module is imported.
 """
 
 from __future__ import annotations
@@ -202,5 +202,6 @@ registry.register_processor("blip_caption")(CaptionProcessor)
 registry.register_processor("blip_question")(QuestionProcessor)
 
 
-# the sibling family registers on import (video: ALPRO)
+# the sibling families register on import (video: ALPRO; the GPT dialogue)
+from sprc_tpu_torch.data import gpt_processors as _gpt_processors  # noqa: E402,F401
 from sprc_tpu_torch.data import video_processors as _video_processors  # noqa: E402,F401

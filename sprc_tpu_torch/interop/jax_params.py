@@ -29,7 +29,10 @@ BLIP-1's CIR feature extractor has :func:`blip_cir_base_from_jax`, CLIP
 (ViT or RN50 tower) :func:`clip_from_jax`, ALPRO (its TimeSformer trunk,
 :func:`timesformer_from_jax`; the med-BERT without cross-attention; the
 retrieval heads or LAVIS's ``classifier.0`` / ``classifier.2``)
-:func:`alpro_from_jax`.
+:func:`alpro_from_jax`. The GPT-2 video dialogue has
+:func:`gpt_dialogue_from_jax` (HF's GPT-2 names under ``transformer.``, the
+Conv1D kernels ``[in, out]`` as they are) and the Q-Former LM
+:func:`qformer_lm_from_jax` (``bert.`` and ``cls.predictions.``).
 PNP-VQA's three models have their own: :func:`blip_itm_from_jax`,
 :func:`blip_caption_from_jax` (BLIP-1's timm tower and med-BERTs under
 LAVIS's names), :func:`fid_t5_from_jax` and Img2Prompt's plain T5,
@@ -580,6 +583,39 @@ def alpro_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "classifier_fc1" in params:
         _linear(out, "classifier.0", params["classifier_fc1"])
         _linear(out, "classifier.2", params["classifier_fc2"])
+    return to_torch(out)
+
+
+def gpt_dialogue_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``GPTDialogue`` tree -> the port's state dict: the trunk under HF's
+    names (``transformer.h.{i}.attn.c_attn``, ``.mlp.c_fc``; the Conv1D
+    weights ``[in, out]``, the JAX kernels' own layout), ``video_ff`` and
+    ``video_ff_out`` as ``nn.Linear`` weights ``[out, in]``."""
+    trunk = params["transformer"]
+    out = {"transformer.wte.weight": _np(trunk["wte"]["embedding"]),
+           "transformer.wpe.weight": _np(trunk["wpe"]["embedding"])}
+    _ln(out, "transformer.ln_f", trunk["ln_f"])
+    conv = {"c_attn": "attn.c_attn", "c_proj": "attn.c_proj", "mlp_fc": "mlp.c_fc",
+            "mlp_proj": "mlp.c_proj"}
+    for key, block in trunk.items():
+        if not key.startswith("h_"):
+            continue
+        bp = f"transformer.h.{int(key[2:])}."
+        _ln(out, f"{bp}ln_1", block["ln_1"])
+        _ln(out, f"{bp}ln_2", block["ln_2"])
+        for jname, name in conv.items():
+            out[f"{bp}{name}.weight"] = _np(block[jname]["kernel"])
+            out[f"{bp}{name}.bias"] = _np(block[jname]["bias"])
+    _linear(out, "video_ff", params["video_ff"])
+    _linear(out, "video_ff_out", params["video_ff_out"])
+    return to_torch(out)
+
+
+def qformer_lm_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``QFormerLM`` tree ({"qformer", "lm_head"}) -> the port's
+    ``QFormerLM`` state dict (``bert.*``, ``cls.predictions.*``)."""
+    out = qformer_from_jax(params["qformer"], "bert.")
+    _lm_head(out, "cls.predictions.", params["lm_head"])
     return to_torch(out)
 
 

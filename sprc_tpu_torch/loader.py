@@ -42,6 +42,7 @@ from torch import nn
 from sprc_tpu_torch import models as _models  # noqa: F401  (registers the models)
 from sprc_tpu_torch.models.cir_base import CirConfig
 from sprc_tpu_torch.models.clip import LOGIT_SCALE_INIT, ClipTextConfig, clip_state_from_hf
+from sprc_tpu_torch.models.gpt_dialogue import Conv1D, GPT2Config
 from sprc_tpu_torch.models.llama import LlamaConfig
 from sprc_tpu_torch.models.llm_presets import LLM_KEYS
 from sprc_tpu_torch.models.opt import OPTConfig
@@ -246,6 +247,11 @@ FAMILY_CONFIGS.update({
     ("alpro_qa", "msvd"): {"num_classes": 2423, "num_frames": 16, "image_size": 224},
     ("timesformer", "base"): {},
 })
+# the GPT-2 video dialogue, as configs/models/gpt_dialogue/base.yaml gives it (the
+# dataclass's GPT-2 base, len_video_ft 4224); its run YAMLs name no model type and
+# override ``gpt: {vocab_size: 50264}`` (GPT-2's 50,257 and the 7 dialogue tokens)
+DIALOGUE_MODELS = ("gpt_dialogue",)
+FAMILY_CONFIGS.update({("gpt_dialogue", "pretrain"): {}, ("gpt_dialogue", "base"): {}})
 # the composed pipelines, as configs/models/{pnp_vqa,img2prompt_vqa}/*.yaml give
 # them: the three sub-models by (arch, model_type); PNP-VQA's reader's size is the
 # model type, Img2Prompt's question generator the plain t5-large (``arch: t5``)
@@ -286,6 +292,9 @@ _SUB_CONFIGS = {
     "vision_resnet": (ResNetConfig, set()),
     # ALPRO's TimeSformer (configs/models/alpro_*)
     "video_config_override": (TimeSformerConfig, set()),
+    # the dialogue's GPT-2 (run YAMLs: ``gpt: {vocab_size: 50264}``); the JAX field
+    # ``dtype`` is fp32 there, and the port's model is fp32 throughout
+    "gpt": (GPT2Config, {"dtype"}),
 }
 
 
@@ -401,10 +410,11 @@ def build_model(name: str, model_type: str = "pretrain", *, device="cuda",
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """Random weights from ``torch.Generator(device).manual_seed(seed)``, with
-    the JAX package's initialisers: normal(0.02) for dense, embedding, token
-    and position tables (OPT's among them), normal(1.0) for an embedding that
-    says so in its ``init_std`` (T5's ``shared`` and relative-position
-    tables), zeros for a dense weight whose ``init_std`` is 0 (TimeSformer's
+    the JAX package's initialisers: normal(0.02) for dense (the GPT
+    dialogue's ``nn.Linear`` and ``Conv1D`` among them), embedding, token
+    and position tables (OPT's among them), the std an embedding gives in its
+    ``init_std`` (1.0: T5's ``shared`` and relative-position tables; 0.01:
+    GPT-2's ``wpe``), zeros for a dense weight whose ``init_std`` is 0 (TimeSformer's
     ``temporal_fc`` after the first block); fan-in normal for the patch conv; zero biases; unit LayerNorms
     and RMS scales (T5's, LLaMA's); temperature 0.07. The rerank model's frozen twin is drawn
     like every other module, independently of the tower it copies (as a
@@ -431,8 +441,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
         done.add(id(p))
 
     for mod in model.modules():
-        if isinstance(mod, (LayerNormFP32, FrozenBatchNorm2d)):
+        if isinstance(mod, (LayerNormFP32, FrozenBatchNorm2d, nn.LayerNorm)):
             const(mod.weight, 1.0)
+            const(mod.bias, 0.0)
+        elif isinstance(mod, (nn.Linear, Conv1D)):  # the GPT dialogue's
+            normal(mod.weight, 0.02)
             const(mod.bias, 0.0)
         elif isinstance(mod, T5LayerNorm):
             const(mod.weight, 1.0)
@@ -613,30 +626,120 @@ def _alpro_state(state: dict, own: dict) -> dict:
     return out
 
 
+def _image_size(name: str, model_type: str) -> int:
+    """The image size of a row's configuration (224 where it has none: the
+    pipelines, the dialogue), as the JAX factory reads ``cfg.image_size``."""
+    if (name, model_type) in MODEL_CONFIGS:
+        return model_config(name, model_type).image_size
+    if (name, model_type) in FAMILY_CONFIGS:
+        return getattr(family_config(name, model_type), "image_size", 224)
+    return 224
+
+
 def preprocessors(name: str, model_type: str) -> Tuple[dict, dict]:
-    """(image processors, text processors), each ``{"train", "eval"}``, of
-    the BLIP-1 / ALBEF families (the JAX ``load_model_and_preprocess``'
-    branch for them): BLIP's train and eval image processors at the row's
-    image size and the caption processor; the video families (ALPRO,
-    TimeSformer) get the ALPRO clip processors instead."""
-    from sprc_tpu_torch.data.processors import (BlipImageEvalProcessor,
-                                                BlipImageTrainProcessor)
+    """(image processors, text processors), each ``{"train", "eval"}``, as
+    the JAX ``load_model_and_preprocess`` gives them (``sprc_tpu/loader.py:
+    351-411``): the ALPRO clip processors for the video families (ALPRO,
+    TimeSformer); the target-pad transform (ratio 1.25) for the CIR models
+    and every ``blip2*`` name; BLIP's train and eval image processors for
+    every other model (the dialogue and the pipelines at 224 px); the
+    question processor for BLIP-1 / ALBEF's VQA, the caption processor for
+    every other model."""
     from sprc_tpu_torch.text.processors import CaptionProcessor, QuestionProcessor
 
-    size = family_config(name, model_type).image_size
+    size = _image_size(name, model_type)
     if name in VIDEO_MODELS:
         from sprc_tpu_torch.data.video_processors import (AlproVideoEvalProcessor,
                                                           AlproVideoTrainProcessor)
 
-        return ({"train": AlproVideoTrainProcessor(image_size=size),
-                 "eval": AlproVideoEvalProcessor(image_size=size)},
-                {"train": CaptionProcessor(), "eval": CaptionProcessor()})
+        vis = {"train": AlproVideoTrainProcessor(image_size=size),
+               "eval": AlproVideoEvalProcessor(image_size=size)}
+    elif "cir" in name or name.startswith("blip2"):
+        from sprc_tpu_torch.data.transforms import targetpad_transform
+
+        vis = {"train": targetpad_transform(1.25, size), "eval": targetpad_transform(1.25, size)}
+    else:
+        from sprc_tpu_torch.data.processors import (BlipImageEvalProcessor,
+                                                    BlipImageTrainProcessor)
+
+        vis = {"train": BlipImageTrainProcessor(image_size=size),
+               "eval": BlipImageEvalProcessor(image_size=size)}
     # the VQA families resolve blip_question for train and eval
     # (configs/models/{blip_vqa,albef_vqa}/*.yaml), the others blip_caption
     text = QuestionProcessor if name in VQA_MODELS else CaptionProcessor
-    return ({"train": BlipImageTrainProcessor(image_size=size),
-             "eval": BlipImageEvalProcessor(image_size=size)},
-            {"train": text(), "eval": text()})
+    return vis, {"train": text(), "eval": text()}
+
+
+def load_model_and_preprocess(name: str, model_type: str = "pretrain",
+                              checkpoint_path: Optional[str] = None, *, device="cuda",
+                              seed: int = 0, **overrides: Any) -> Tuple[nn.Module, dict, dict]:
+    """``(model, vis_processors, txt_processors)``: :func:`load_model` and
+    :func:`preprocessors` (the reference factory's return; the JAX one's
+    4-tuple also carries ``params``, which the port's module holds)."""
+    model = load_model(name, model_type, checkpoint_path, device=device, seed=seed, **overrides)
+    vis, txt = preprocessors(name, model_type)
+    return model, vis, txt
+
+
+def load_gpt2_trunk(model: nn.Module, path: str) -> nn.Module:
+    """An HF GPT-2 file (``GPT2LMHeadModel`` or ``GPT2Model`` state dict)
+    into a ``gpt_dialogue`` model's ``transformer``, strict
+    (:func:`~sprc_tpu_torch.models.gpt_dialogue.gpt2_state_from_hf`).
+    The file's ``wte`` rows fill the first rows of the model's; the rows
+    past them (the dialogue's special tokens: 50264 against GPT-2's 50257)
+    keep their seeded init, as after the reference's
+    ``resize_token_embeddings``. ``video_ff`` and ``video_ff_out`` keep
+    their weights, as JAX's reader reads the trunk only."""
+    from sprc_tpu_torch.models.gpt_dialogue import gpt2_state_from_hf
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    prefix = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    state = gpt2_state_from_hf(sd, prefix)
+    own = model.transformer.wte.weight
+    rows = state["wte.weight"].shape[0]
+    if rows > own.shape[0]:
+        raise ValueError(f"{path}: wte has {rows} rows, more than the model's "
+                         f"vocab_size {own.shape[0]}")
+    state["wte.weight"] = torch.cat([state["wte.weight"].to(own.dtype),
+                                     own.detach().cpu()[rows:]])
+    model.transformer.load_state_dict(state, strict=True)
+    return model
+
+
+class ModelZoo:
+    """Every (architecture, model type) of the YAML library
+    (``configs/models/<arch>/<type>.yaml``), as ``sprc_tpu.loader.ModelZoo``
+    lists them (the reference ``lavis.models.model_zoo``); each one builds in
+    the port."""
+
+    def __init__(self) -> None:
+        import os
+
+        from sprc_tpu_torch.config import CONFIG_ROOT
+
+        root = os.path.join(CONFIG_ROOT, "models")
+        zoo = {}
+        for arch in sorted(os.listdir(root)):
+            adir = os.path.join(root, arch)
+            if os.path.isdir(adir):
+                types = sorted(f[:-len(".yaml")] for f in os.listdir(adir) if f.endswith(".yaml"))
+                if types:
+                    zoo[arch] = types
+        self.model_zoo = zoo
+
+    def __str__(self) -> str:
+        return ("=" * 50 + "\n" + f"{'Architectures':<30} {'Types'}\n" + "=" * 50 + "\n"
+                + "\n".join(f"{name:<30} {', '.join(types)}"
+                            for name, types in self.model_zoo.items()))
+
+    def __iter__(self):
+        return iter(self.model_zoo.items())
+
+    def __len__(self) -> int:
+        return sum(len(v) for v in self.model_zoo.values())
+
+
+model_zoo = ModelZoo()
 
 
 def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
@@ -669,8 +772,9 @@ def calibrate_vit_act_scales(model: nn.Module, images: np.ndarray, *,
 
 __all__ = ["CIR_MODELS", "STAGE1_MODELS", "UNFROZEN_VIT", "LLM_HEADS", "INSTRUCT_MODELS",
            "MOMENTUM_MODELS", "VQA_MODELS", "CLASSIFICATION_MODELS", "CIR_FEATURE_MODELS",
-           "CLIP_MODELS", "VIDEO_MODELS",
-           "MOMENTUM_CHECKPOINT_DROPS", "preprocessors",
+           "CLIP_MODELS", "VIDEO_MODELS", "DIALOGUE_MODELS",
+           "MOMENTUM_CHECKPOINT_DROPS", "preprocessors", "load_model_and_preprocess",
+           "load_gpt2_trunk", "ModelZoo", "model_zoo",
            "GENERATION_KEYS", "FAMILY_CONFIGS", "PIPELINE_CONFIGS", "family_config",
            "MODEL_CONFIGS", "model_config", "llm_config", "coerce_overrides", "build_model",
            "init_weights",

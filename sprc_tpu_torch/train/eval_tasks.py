@@ -19,8 +19,13 @@ gets its result file and no metric. As in the JAX package,
 ``answer_list`` and ``num_ans_candidates``, which BLIP-1 / ALBEF's ranked
 glue reads and the BLIP-2 heads' generative glue takes and ignores. And
 :class:`MultimodalClassificationTask` (``multimodal_classification``:
-argmax accuracy, reference tasks/multimodal_classification.py). The
-dialogue task comes with its family (ROADMAP A8.6.6).
+argmax accuracy, reference tasks/multimodal_classification.py). And
+:class:`DialogueTask` (``dialogue``: the mean of per-batch LM losses,
+reference tasks/dialogue.py), :class:`ImageTextPretrainTask`
+(``image_text_pretrain``: no evaluation phase), and the reading-comprehension
+tasks that drive the PNP-VQA pipeline, :class:`VQARCTask`
+(``vqa_reading_comprehension``) and :class:`GQARCTask`
+(``gqa_reading_comprehension``), scored as VQA and GQA.
 """
 
 from __future__ import annotations
@@ -233,3 +238,62 @@ class MultimodalClassificationTask(BaseTask):
         metrics = {"agg_metrics": accuracy, "acc": accuracy}
         _append_eval_log(self.output_dir, {split_name: metrics})
         return metrics
+
+
+@registry.register("task", "dialogue")
+class DialogueTask(BaseTask):
+    """``valid_step`` -> the batch's LM loss; ``agg_metrics`` is their mean
+    (reference tasks/dialogue.py:20-66; ``sprc_tpu/train/eval_tasks.py:277``).
+    The metric is a per-batch scalar, so a partial last batch must feed its
+    real items only."""
+
+    def valid_step(self, loss_fn: Callable, samples: dict) -> List[float]:
+        return [float(loss_fn(samples))]
+
+    def after_evaluation(self, val_result: List[float], split_name: str,
+                         **kw) -> Dict[str, float]:
+        return {"agg_metrics": float(np.mean(val_result))}
+
+
+@registry.register("task", "image_text_pretrain")
+class ImageTextPretrainTask(BaseTask):
+    """Pretraining has no evaluation phase (reference image_text_pretrain.py:12-18)."""
+
+    def evaluation(self, *a, **kw) -> Dict[str, float]:
+        return {}
+
+
+@registry.register("task", "vqa_reading_comprehension")
+class VQARCTask(VQATask):
+    """The PNP-VQA pipeline's task: ``predict_answers`` with the task's
+    caption and patch counts, scored by the VQA protocol (reference
+    vqa_reading_comprehension.py:22-155)."""
+
+    def __init__(self, *, num_captions: int = 50, num_captions_fid: int = 1,
+                 num_patches: int = 50, block_num: int = 7, **kw):
+        super().__init__(**kw)
+        self.pipeline_kwargs = dict(num_captions=num_captions, num_captions_fid=num_captions_fid,
+                                    num_patches=num_patches, block_num=block_num)
+
+    def _answers(self, pipeline, samples: dict) -> List[str]:
+        answers, _, _ = pipeline.predict_answers(np.asarray(samples["image"]),
+                                                 list(samples["text_input"]),
+                                                 **self.pipeline_kwargs)
+        return answers
+
+    def valid_step(self, pipeline, samples: dict) -> List[dict]:
+        return [{"question_id": int(q), "answer": a}
+                for a, q in zip(self._answers(pipeline, samples), samples["question_id"])]
+
+
+@registry.register("task", "gqa_reading_comprehension")
+class GQARCTask(VQARCTask, GQATask):
+    """GQA scored through the reading-comprehension pipeline
+    (vqa_reading_comprehension.py:156-200)."""
+
+    def valid_step(self, pipeline, samples: dict) -> List[dict]:
+        return [{"question_id": int(q), "pred_ans": a, "gt_ans": g}
+                for a, q, g in zip(self._answers(pipeline, samples), samples["question_id"],
+                                   samples["answer"])]
+
+    after_evaluation = GQATask.after_evaluation

@@ -76,7 +76,14 @@ generator), ``multimodal_classification`` sends ``alpro_qa`` to
 dropout from the trainer's generator, as the JAX steps apply them with the
 step's rng. Another task for an ALPRO model, and ``timesformer`` (a feature
 extractor), refuse: no adapter fits, in either package. ``dialogue``
-refuses by name (ROADMAP A8.6.6).
+(:class:`DialogueAdapter`) trains the GPT-2 video dialogue
+(``gpt_dialogue``; configs/runs/dialogue_avsd_ft.yaml): the GPT-processed
+AVSD items padded into ``[video prefix | text]`` batches, the model's
+summed text CE and video MSE, no dropout (the JAX model has none). A run
+whose feature streams are not ``len_video_ft`` wide exits before the model
+is built, naming both widths (the JAX run fails at the loss's broadcast;
+the shipped YAMLs name no streams, and the processor's default
+``i3d_rgb`` + ``vggish`` is 2176 wide, not 4224).
 
 Beyond JAX's: ``--model-path`` starts from a checkpoint (JAX's generic run
 starts from its random init) and ``--resume`` restores a ``last_state.pt``;
@@ -458,12 +465,76 @@ class AlproQAAdapter:
                      generator=generator)
 
 
-def _not_ported(task: str):
-    def refuse(*_a, **_k):
-        raise SystemExit(f"run.task {task!r}: its adapter and model (the GPT dialogue) are not "
-                         "ported (ROADMAP A8.6.6)")
-    refuse.not_ported = True
-    return refuse
+class DialogueAdapter:
+    """AVSD dialogue (``sprc_tpu/train/generic.py:446-496``; reference
+    dialogue.py and the avsd_dialogue_datasets collater): GPT-processed items
+    {input_ids, token_type_ids, labels, video_fts, video_token_type_ids} ->
+    the padded ``[video prefix (T) | text (L)]`` batch of
+    :class:`~sprc_tpu_torch.models.gpt_dialogue.GPTDialogue`: the text and
+    type ids padded with ``<pad>`` (the dataset's text processor's, through
+    :meth:`attach`), the features with 1.0, the labels -1 over the video
+    positions and the padding, ``attn_mask`` over ``[T | L]``."""
+
+    def __init__(self, tokenizer=None, max_txt_len: int = 0):
+        self.pad_id = 0
+
+    def specialize(self, model):
+        from sprc_tpu_torch.models.gpt_dialogue import GPTDialogue
+
+        if not isinstance(model, GPTDialogue):
+            raise SystemExit(f"run.task 'dialogue' trains the GPT video dialogue "
+                             f"(gpt_dialogue), not {type(model).__name__}")
+        return self
+
+    def attach(self, dataset) -> None:
+        tok = getattr(dataset.text_processor, "tokenizer", None)
+        if tok is not None:
+            self.pad_id = tok.special_token_id("<pad>")
+
+    def collate(self, items: List[dict]) -> Dict[str, np.ndarray]:
+        B = len(items)
+        L = max(len(it["input_ids"]) for it in items)
+        T = max(len(it["video_fts"]) for it in items)
+        D = items[0]["video_fts"].shape[1]
+        ids = np.full((B, L), self.pad_id, np.int32)
+        text_tt = np.full((B, L), self.pad_id, np.int32)
+        labels = np.full((B, T + L), -1, np.int32)
+        fts = np.ones((B, T, D), np.float32)  # the reference's pad value 1.0
+        vid_tt = np.full((B, T), self.pad_id, np.int32)
+        attn = np.zeros((B, T + L), np.int32)
+        for i, it in enumerate(items):
+            n, t = len(it["input_ids"]), len(it["video_fts"])
+            ids[i, :n] = it["input_ids"]
+            text_tt[i, :n] = it["token_type_ids"]
+            labels[i, T:T + n] = it["labels"]
+            fts[i, :t] = it["video_fts"]
+            vid_tt[i, :t] = it["video_token_type_ids"]
+            attn[i, :t] = 1
+            attn[i, T:T + n] = 1
+        return {"input_ids": ids, "video_fts": fts, "attn_mask": attn,
+                "token_type_ids": np.concatenate([vid_tt, text_tt], axis=1), "labels": labels}
+
+    def forward(self, model, batch: Dict[str, torch.Tensor], generator=None):
+        return model(batch["input_ids"], batch["video_fts"], batch["attn_mask"],
+                     batch["token_type_ids"], batch["labels"])
+
+
+def check_dialogue_width(dataset, arch: str, model_type: str, model_cfg: dict) -> None:
+    """Exit where the dataset's feature streams are not the model's
+    ``len_video_ft`` wide, naming both widths (the JAX run fails at the
+    video loss's broadcast); read from the split's first item, before any
+    model is built."""
+    from sprc_tpu_torch import loader
+
+    want = loader.family_config(arch, model_type, **model_cfg).len_video_ft
+    proc = dataset.vis_processor
+    got = dataset[0]["video_fts"].shape[1]
+    if got != want:
+        raise SystemExit(
+            f"the video features are {got} wide ({' + '.join(proc.visual_ft + proc.audio_ft)}), "
+            f"the model's len_video_ft is {want}: name the streams that make {want} (4224: "
+            "vis_processor visual_ft [i3d_flow, i3d_rgb], audio_ft [vggish]) or set "
+            "model.len_video_ft")
 
 
 # the JAX table's task names (lavis/tasks/__init__.py names)
@@ -475,7 +546,7 @@ TASK_ADAPTERS: Dict[str, Any] = {
     "image_text_pretrain": PretrainAdapter,
     "retrieval": RetrievalAdapter,
     "multimodal_classification": ClassificationAdapter,
-    "dialogue": _not_ported("dialogue"),
+    "dialogue": DialogueAdapter,
 }
 
 
@@ -565,8 +636,6 @@ def run_generic(cfg, args) -> Dict[str, float]:
     if task_name not in TASK_ADAPTERS:
         raise ValueError(f"run.task {task_name!r} has no generic adapter (available: "
                          f"{sorted(TASK_ADAPTERS)}); CIR tasks go through cli.finetune")
-    if getattr(TASK_ADAPTERS[task_name], "not_ported", False):
-        TASK_ADAPTERS[task_name]()
     model_cfg = dict(cfg.model)
     arch = model_cfg.pop("arch")
     model_type = model_cfg.pop("model_type", "pretrain")
@@ -587,11 +656,14 @@ def run_generic(cfg, args) -> Dict[str, float]:
         raise SystemExit(f"model {arch!r}: no generic task adapter of run.task {task_name!r} "
                          f"fits its video forward, in either package (its task: "
                          f"{video_task[arch]})")
+    if (task_name == "dialogue") != (arch in loader.DIALOGUE_MODELS):
+        # the JAX run builds the model and then fails at the adapter's call
+        raise SystemExit(f"model {arch!r}: no generic task adapter of run.task {task_name!r} "
+                         "fits its forward, in either package (the dialogue: gpt_dialogue)")
     if arch not in (loader.STAGE1_MODELS + loader.LLM_HEADS + loader.MOMENTUM_MODELS
                     + loader.VQA_MODELS + loader.CLASSIFICATION_MODELS + tuple(video_task)
-                    + ("blip_caption",)):
-        raise SystemExit(f"model {arch!r}: not ported for generic training (the dialogue: "
-                         "ROADMAP A8.6.6)")
+                    + loader.DIALOGUE_MODELS + ("blip_caption",)):
+        raise SystemExit(f"model {arch!r}: no generic task adapter fits it, in either package")
     if task_name in ("vqa", "gqa", "aok_vqa") and arch not in loader.VQA_MODELS:
         # the JAX run builds the model and then fails at the adapter's call
         raise SystemExit(f"run.task {task_name!r} trains BLIP-1 / ALBEF's VQA models "
@@ -603,6 +675,8 @@ def run_generic(cfg, args) -> Dict[str, float]:
     (ds_name, ds_cfg), = datasets_cfg.items()
     datasets = registry.get("dataset", ds_name)(dict(ds_cfg)).build()
     assert "train" in datasets, f"builder {ds_name} produced no train split"
+    if task_name == "dialogue":
+        check_dialogue_width(datasets["train"], arch, model_type, model_cfg)
 
     device = torch.device(getattr(args, "device", "cuda"))
     if device.type == "cuda" and torch.cuda.is_available():
@@ -611,11 +685,12 @@ def run_generic(cfg, args) -> Dict[str, float]:
     seed = int(run.get("seed", 42))
     model = loader.load_model(arch, model_type, checkpoint_path=getattr(args, "model_path", None),
                               device=device, seed=seed, **model_cfg)
-    tokenizer = llm_tokenizer(run, lambda: BertWordPieceTokenizer.from_vocab_file(
-        ensure_bert_vocab(getattr(args, "vocab_path", None))))
+    tokenizer = None if task_name == "dialogue" else llm_tokenizer(  # the GPT processors' own
+        run, lambda: BertWordPieceTokenizer.from_vocab_file(
+            ensure_bert_vocab(getattr(args, "vocab_path", None))))
     adapter = TASK_ADAPTERS[task_name](tokenizer, max_txt_len=int(run.get("max_txt_len", 35)))
     adapter = adapter.specialize(model)
-    if hasattr(adapter, "attach"):  # state derived from the data (ALPRO QA's answers)
+    if hasattr(adapter, "attach"):  # state from the data (ALPRO QA's answers, the pad id)
         adapter.attach(datasets["train"])
     batch_size = int(run.get("batch_size", 8))
     task = BuilderTask(datasets, adapter, batch_size=batch_size, seed=seed, device=device)

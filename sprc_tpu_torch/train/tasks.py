@@ -9,7 +9,12 @@ rescoring), and of ALPRO (``evaluate_pairs_video``: VTC cosines, each
 query's top ``k_test`` rescored by the VTM logit, through the same
 :func:`rescore_topk`).
 
-The JAX module's ``CirTask`` comes with its family (ROADMAP A8.6.7).
+And :class:`CirTask` (``composed_retrieval``): CIRR / FashionIQ
+composed-retrieval fine-tuning over the port's threaded
+:class:`~sprc_tpu_torch.data.loader.DataLoader` (shuffled, the last partial
+batch dropped), its captions through the caption processor and, for
+FashionIQ's caption pairs, ``randomize_fiq_captions`` drawn from one
+``RandomState(seed)`` over the run, as the JAX task draws them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,52 @@ import torch
 
 from sprc_tpu_torch.registry import registry
 from sprc_tpu_torch.train.runner import BaseTask
+
+
+@registry.register("task", "composed_retrieval")
+class CirTask(BaseTask):
+    """A CIR model's fine-tuning over triplet batches {reference_image,
+    target_image, caption | captions} (``sprc_tpu/train/tasks.py:21-85``).
+    ``eval_fn(model)`` gives the epoch's validation metrics, and
+    ``selection_key`` picks the one the runner keeps the best by
+    (``arithmetic_mean``: the harmonic and geometric means report 0 while any
+    recall is 0)."""
+
+    def __init__(self, model, tokenizer, train_dataset, *, batch_size: int = 128,
+                 workers: int = 4, seed: int = 42, caption_key: str = "caption", eval_fn=None,
+                 selection_key: str = "arithmetic_mean", device="cuda"):
+        from sprc_tpu_torch.data.loader import DataLoader
+        from sprc_tpu_torch.text.processors import CaptionProcessor
+
+        self.model = model
+        self.tokenizer = tokenizer
+        self.processor = CaptionProcessor()
+        self.caption_key = caption_key
+        self.eval_fn = eval_fn
+        self.selection_key = selection_key
+        self.device = torch.device(device)
+        self._fiq_rng = np.random.RandomState(seed)
+        self.loader = DataLoader(train_dataset, batch_size=batch_size, shuffle=True,
+                                 drop_last=True, num_workers=workers, seed=seed)
+
+    def train_loader(self, epoch: int) -> Iterable[dict]:
+        self.loader.set_epoch(epoch)
+        return self.loader
+
+    def prepare_batch(self, batch: dict) -> Dict[str, torch.Tensor]:
+        from sprc_tpu_torch.cli.finetune import to_device, tokenize_captions
+
+        text = tokenize_captions({self.caption_key: batch[self.caption_key]}, self.tokenizer,
+                                 self.processor, self.model.cfg.max_txt_len, self._fiq_rng)
+        return to_device({"reference": np.asarray(batch["reference_image"], np.float32),
+                          "target": np.asarray(batch["target_image"], np.float32), **text},
+                         self.device)
+
+    def evaluation(self, model) -> Dict[str, float]:
+        return {} if self.eval_fn is None else self.eval_fn(model)
+
+    def selection_metric(self, results: Dict[str, float]) -> Optional[float]:
+        return results.get(self.selection_key)
 
 
 def _image_batches(images, batch: int) -> Iterable[np.ndarray]:

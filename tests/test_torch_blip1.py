@@ -264,6 +264,8 @@ def test_loader_rows_equal_jax():
             continue
         if name in loader.VIDEO_MODELS:  # a TimeSformer: test_torch_alpro.py pins these rows
             continue
+        if name in loader.DIALOGUE_MODELS:  # GPT-2: test_torch_gpt_dialogue.py pins these rows
+            continue
         jmodel = jbuild(name, model_type)
         jcfg = getattr(jmodel, "cfg", None) or jmodel.config  # FiDT5 holds ``config``
         cfg = loader.family_config(name, model_type)

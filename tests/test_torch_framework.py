@@ -98,7 +98,8 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "eval/imnet_zs_eval.yaml",
                                            "msrvtt_retrieval_ft.yaml", "msrvtt_qa_ft.yaml",
                                            "eval/msrvtt_ret_eval.yaml",
-                                           "eval/msvd_qa_eval.yaml"}
+                                           "eval/msvd_qa_eval.yaml", "dialogue_avsd_ft.yaml",
+                                           "eval/dialogue_avsd_eval.yaml"}
     for name, mirror in chip_smoke.RUN_CONFIGS.items():
         assert mirror == config.load_yaml(os.path.join(ROOT, "configs", "runs", name)), name
 
@@ -134,9 +135,10 @@ def test_processors_equal_jax(tmp_path):
 
 
 def test_builders_equal_jax(tmp_path):
-    """Every registered image and video builder of JAX's list is the port's
-    (the VQA builders' items: test_torch_vqa.py; the video builders' items:
-    test_torch_video_data.py; SNLI-VE's and NLVR2's here), and on the same
+    """Every registered image, video and dialogue builder of JAX's list is
+    the port's (the VQA builders' items: test_torch_vqa.py; the video
+    builders' items: test_torch_video_data.py; the dialogue's:
+    test_torch_dialogue_cli.py; SNLI-VE's and NLVR2's here), and on the same
     annotation files both build the same splits and items."""
     mine = set(registry.list("dataset"))
     assert mine == {"coco_caption", "nocaps", "vg_caption", "sbu_caption",
@@ -144,7 +146,7 @@ def test_builders_equal_jax(tmp_path):
                     "coco_retrieval", "flickr30k", "coco_vqa", "ok_vqa", "aok_vqa", "gqa",
                     "vg_vqa", "snli_ve", "nlvr", "imagenet", "msrvtt_retrieval",
                     "didemo_retrieval", "msrvtt_qa", "msvd_qa", "msrvtt_caption",
-                    "msvd_caption", "vatex_caption"}
+                    "msvd_caption", "vatex_caption", "avsd_dialogue"}
     assert mine <= set(jregistry.list("dataset"))
     names = _images(tmp_path)
     pairs = [{"image": n, "caption": f"A photo {i}!", "image_id": f"id{i % 3}"}

@@ -134,6 +134,26 @@ assert all(callable(f) for f in (
     generic.AlproRetrievalAdapter.forward, generic.AlproQAAdapter.attach,
     tasks.ImageTextRetrievalTask.evaluate_pairs_video, jax_params.timesformer_from_jax,
     jax_params.alpro_from_jax))
+# the GPT-2 video dialogue, the Q-Former LM's decodes, the remaining tasks,
+# convert and its interop, the utilities and the package surface
+assert {"sprc_tpu_torch.models.gpt_dialogue", "sprc_tpu_torch.data.gpt_processors",
+        "sprc_tpu_torch.cli.convert", "sprc_tpu_torch.interop.torch_export",
+        "sprc_tpu_torch.interop.torch_import", "sprc_tpu_torch.utils.cache",
+        "sprc_tpu_torch.utils.determinism", "sprc_tpu_torch.utils.profiling",
+        "sprc_tpu_torch.retrieval.visualize"} <= set(mods)
+assert "gpt_dialogue" in registry.list("model") and "avsd_dialogue" in registry.list("dataset")
+assert {"gpt_dialogue", "gpt_video_ft"} <= set(registry.list("processor"))
+assert {"dialogue", "image_text_pretrain", "vqa_reading_comprehension",
+        "gqa_reading_comprehension", "composed_retrieval"} <= set(registry.list("task"))
+assert generic.TASK_ADAPTERS["dialogue"] is generic.DialogueAdapter
+from sprc_tpu_torch.models import lm
+assert all(callable(f) for f in (
+    lm.greedy_generate, lm.beam_generate, lm.cached_greedy_generate, lm.cached_beam_generate,
+    lm.generate_captions, lm.qformer_lm_state_from_torch, jax_params.gpt_dialogue_from_jax,
+    jax_params.qformer_lm_from_jax, loader.load_model_and_preprocess, loader.load_gpt2_trunk))
+assert ("gpt_dialogue", "base") in loader.FAMILY_CONFIGS and len(loader.model_zoo) > 0
+assert {"registry", "extract_features", "load_model", "load_model_and_preprocess",
+        "model_zoo", "__version__"} <= set(sprc_tpu_torch.__all__)
 assert "cv2" not in sys.modules, "importing read OpenCV"
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"
@@ -200,6 +220,13 @@ for run_yaml in list(chip_smoke.VIDEO_TRAIN.values()) + list(chip_smoke.VIDEO_EV
     assert loader.family_config(cfg.model["arch"], cfg.model["model_type"]).video_config(
         ).num_patches + 1 == 197
 assert loader.family_config("alpro_qa", "msrvtt").video_config().num_frames == 16
+for run_yaml in (chip_smoke.DIALOGUE_TRAIN, chip_smoke.DIALOGUE_EVAL):
+    cfg = Config(defaults=chip_smoke.RUN_CONFIGS[run_yaml])
+    gpt = loader.family_config("gpt_dialogue", "pretrain", **{k: v for k, v in cfg.model.items()
+                                                              if k != "arch"})
+    assert (gpt.gpt.vocab_size, gpt.gpt.n_layer, gpt.len_video_ft) == (50264, 12, 4224)
+    assert gpt.gpt.vocab_size == chip_smoke.GPT2_BASE_VOCAB + 7
+assert sum(chip_smoke.DIALOGUE_STREAMS.values()) == 4224
 leaked =sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sprc_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
