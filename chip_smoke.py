@@ -517,6 +517,29 @@ Phases (any failure raises and exits nonzero before the last line):
    and greedy decodes equal the recomputing ones. Its kernel rows read
    phase 3's K2 and bf16 attention at EVA, B = 16
    (kernel_checks.run_stage2).
+24. --mesh at world 1 over NCCL (sprc_tpu_torch/parallel/; this process joins
+   a group of one as a launcher would describe it: RANK 0, WORLD_SIZE 1, a
+   free port on 127.0.0.1), full width: blip2_cir_align_prompt /
+   pretrain_vitL (CLIP ViT-L, bf16 tower; random weights from seed 0) on
+   phase 7's synthetic CIRR (TRAIN_TRIPLETS at TRAIN_BATCH: 4 steps, one
+   epoch, with its validation) written as MESH_PNG px PNG files. Each run
+   goes through the CLI's entry point, with and without --mesh from the same
+   seed: cli/finetune.py live and with --cache-features (the train cache
+   built on rank 0 and mapped; the val gallery's tower rows cached at the
+   first validation), held bit for bit (the losses of every step, the final
+   trainable tensors, the validation's metrics; a run that is not is named
+   by the tensor where the first step's gradients part, and held at
+   TRAIN_BOUNDS["live"]: every step's losses, the first step's gradients);
+   cli/validate.py (the
+   printed JSON equal); cli/serve.py's service behind its HTTP front end
+   answering MESH_QUERIES requests (the answers equal). The phase prints the
+   group's backend, NCCL's version, the world size, the step times with and
+   without --mesh, what the NCCL calls of a step cost at world 1 (the
+   gradient all-reduce, the targets' all-gather; device times), the train
+   cache's host memory in the process, and the K1 / K2 / K3 launches of the
+   --mesh runs, which join the kernels line. One last_state.pt is written
+   (the --mesh live run's, read back and deleted); the others and every
+   best_<metric>.pt are kept in memory only.
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -7856,6 +7879,353 @@ def dialogue_caption_kernels(rows, phase):
     return out
 
 
+MESH_PNG = 96  # the side of the synthetic split's PNG files (targetpad brings them to 224)
+MESH_QUERIES = 4  # /query requests a server answers in phase 24 (the last one 8 queries)
+MESH_KERNELS = ("token_max_sim", "fused_vit_block", "fused_qformer_layer")
+
+
+def _rss_kib():
+    """This process's resident KiB and the part of it that is shared (file
+    pages), from /proc/self/statm."""
+    with open("/proc/self/statm") as f:
+        pages = [int(v) for v in f.read().split()]
+    kib = os.sysconf("SC_PAGE_SIZE") // 1024
+    return {"resident": pages[1] * kib, "shared": pages[2] * kib}
+
+
+def phase_mesh(work):
+    """Phase 24: --mesh at world 1 over NCCL (the docstring's item 24)."""
+    import io
+
+    import torch.distributed as torch_dist
+
+    from sprc_tpu_torch.cli import finetune, serve, validate
+    from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
+    from sprc_tpu_torch.parallel import mesh as mesh_lib
+    from sprc_tpu_torch.train import checkpoint, loop
+    from sprc_tpu_torch.train.feature_cache import FeatureCache
+    from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
+
+    tag = "mesh"
+    root = os.path.join(work, "mesh")
+    os.makedirs(root, exist_ok=True)
+    vocab = write_synthetic_bert_vocab(os.path.join(root, "vocab.txt"))
+    names = [f"trn{i:04d}" for i in range(TRAIN_IMAGES)]
+    data = _write_cirr_train(os.path.join(root, "cirr"), names, TRAIN_TRIPLETS, SEED + 3)
+    _write_cirr_val(data, names, VALIDATE_QUERIES, SEED + 4)
+    _write_pngs(data, ("train", "dev"), names, MESH_PNG, SEED + 6)  # set-up
+    counters = _counters()
+    common = ["--model-type", "pretrain_vitL", "--vocab-path", vocab, "--encode-batch",
+              str(ENCODE_BATCH), "--query-batch", str(QUERY_BATCH), "--device", DEVICE]
+
+    def reset():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    # what a fine-tune run leaves: its steps (losses, host ms) and, in memory,
+    # its last state; one run writes last_state.pt for real
+    record = {}
+    inner_step, inner_save = loop.Trainer.train_step, checkpoint.save_state
+    inner_grads = loop.Trainer.loss_and_grads
+    inner_export = checkpoint.export_torch_compatible
+
+    def loss_and_grads(self, batch):
+        out = inner_grads(self, batch)
+        if "grads" not in record:  # the first step's, kept on the host
+            record["grads"] = [g.detach().cpu().clone() for g in out[2]]
+            record["names"] = list(self.names)
+        return out
+
+    def step(self, batch):
+        t0 = time.perf_counter()
+        out = inner_step(self, batch)  # ends in a host read of the losses
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        record["losses"].append(out)
+        return out
+
+    def save(path, trainer):
+        state = trainer.state_dict()
+        record["trainable"] = {k: v.detach().cpu().clone() for k, v in state["trainable"].items()}
+        if record["write"]:
+            inner_save(path, trainer)
+            record["written"] = path
+
+    def finetune_run(mesh, cached, write=False):
+        out_dir = os.path.join(root, f"finetune_{'mesh' if mesh else 'one'}_"
+                                     f"{'cached' if cached else 'live'}")
+        argv = ["--dataset", "CIRR", "--data-path", data, "--output-dir", out_dir,
+                "--batch-size", str(TRAIN_BATCH), "--num-epochs", "1", "--workers", "4",
+                "--seed", str(SEED), *common, *(["--cache-features"] if cached else []),
+                *(["--mesh"] if mesh else [])]
+        record.clear()
+        record.update(ms=[], losses=[], write=write)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        finetune.main(argv)
+        sync()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "log.jsonl")) as f:
+            val = [e for e in map(json.loads, f) if e.get("kind") == "val"]
+        return dict(record, seconds=seconds, launches=read(), validation=val,
+                    cache=os.path.join(out_dir, "feature_cache"))
+
+    def validate_run(mesh):
+        out = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            validate.main(["--dataset", "CIRR", "--data-path", data, *common,
+                           *(["--mesh"] if mesh else [])])
+        sync()
+        return {"text": out.getvalue(), "seconds": time.perf_counter() - t0, "launches": read()}
+
+    def serve_run(mesh):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        args = serve.make_parser().parse_args(["--dataset", "CIRR", "--data-path", data,
+                                               "--seed", str(SEED), "--port", "0", *common,
+                                               *(["--mesh"] if mesh else [])])
+        service = serve.build_service(args)
+        service.warm()
+        server = serve.make_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        rng = np.random.default_rng(SEED + 240)
+        words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
+        refs = [names[i] for i in rng.choice(len(names), MESH_QUERIES + 7, replace=False)]
+        caps = [" ".join(rng.choice(words, rng.integers(3, 9))) for _ in refs]
+        answers = []
+        try:
+            for i in range(MESH_QUERIES - 1):
+                answers.append(_post(f"{base}/query", {"reference": refs[i], "caption": caps[i],
+                                                       "k": K})[0]["results"])
+            answers.append(_post(f"{base}/query", {"queries": [
+                {"reference": r, "caption": c} for r, c in zip(refs[-8:], caps[-8:])],
+                "k": K})[0]["results"])
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+            server.server_close()
+            service.stop()
+        assert not thread.is_alive(), "server thread did not stop"
+        sync()
+        for res, ref in zip(answers[-1], refs[-8:]):
+            _check_answer([res], [ref], set(names))
+        del service
+        return {"answers": answers, "seconds": time.perf_counter() - t0, "launches": read()}
+
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(mesh_lib.free_port())}
+    before_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    loop.Trainer.train_step, checkpoint.save_state = step, save
+    loop.Trainer.loss_and_grads = loss_and_grads
+    checkpoint.export_torch_compatible = lambda path, model, epoch=0: None
+    runs = {}
+    try:
+        for cached in (False, True):
+            kind = "cached" if cached else "live"
+            runs[f"one_{kind}"] = finetune_run(False, cached)
+            runs[f"mesh_{kind}"] = finetune_run(True, cached, write=not cached)
+        mesh = mesh_lib.make_mesh(device=DEVICE)  # the group the --mesh runs joined
+        group = {"backend": mesh.backend, "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+                 "world": mesh.world, "rank": mesh.rank, "device": str(mesh.device)}
+        log(f"[{tag}] process group: backend {group['backend']}, NCCL {group['nccl']}, world "
+            f"{group['world']} (rank {group['rank']} on {group['device']})")
+        if group["backend"] != "nccl" or group["world"] != 1:
+            raise RuntimeError(f"{tag}: the --mesh runs did not join a NCCL group of one: {group}")
+        written = runs["mesh_live"]["written"]
+        state = torch.load(written, map_location="cpu", weights_only=True)
+        saved_ok = (len(state["generators"]) == 1 and all(
+            torch.equal(state["trainable"][k], v)
+            for k, v in runs["mesh_live"]["trainable"].items()))
+        del state
+        os.remove(written)
+        validate_runs = {m: validate_run(m) for m in (False, True)}
+        serve_runs = {m: serve_run(m) for m in (False, True)}
+
+        # what the NCCL calls of a step cost at world 1 (device time, CUDA events)
+        shapes = [v.shape for v in runs["mesh_live"]["trainable"].values()]
+        grads = [torch.randn(sh, device=mesh.device) for sh in shapes]
+        targets = torch.randn((TRAIN_BATCH, 32, 256), device=mesh.device)
+
+        def device_ms(fn, reps=5):
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            times = []
+            for _ in range(reps):
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            return float(np.median(times))
+
+        nccl = {"all_reduce_ms": device_ms(lambda: mesh_lib.all_reduce_mean_(grads, mesh)),
+                "all_reduce_floats": sum(g.numel() for g in grads),
+                "all_gather_ms": device_ms(lambda: mesh_lib.all_gather_with_grad(targets, mesh)),
+                "all_gather_floats": targets.numel()}
+        del grads, targets
+    finally:
+        loop.Trainer.train_step, checkpoint.save_state = inner_step, inner_save
+        loop.Trainer.loss_and_grads = inner_grads
+        checkpoint.export_torch_compatible = inner_export
+        if torch_dist.is_initialized():
+            torch_dist.destroy_process_group()
+        for k, v in before_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # the train cache in a process: the file's rows, mapped (copy-on-write pages)
+    rss0 = _rss_kib()
+    cache = FeatureCache.load(runs["mesh_cached"]["cache"], mmap=True)
+    rss1 = _rss_kib()
+    touched = float(cache.rows[:, 0, 0].float().sum())  # reads a value of every row
+    rss2 = _rss_kib()
+    cache_host = {"rows": len(cache), "row_shape": list(cache.rows.shape[1:]),
+                  "dtype": str(cache.rows.dtype),
+                  "bytes": cache.rows.numel() * cache.rows.element_size(),
+                  "resident_kib_after_load": rss1["resident"] - rss0["resident"],
+                  "shared_kib_after_load": rss1["shared"] - rss0["shared"],
+                  "resident_kib_after_a_read_of_every_row": rss2["resident"] - rss0["resident"],
+                  "shared_kib_after_a_read_of_every_row": rss2["shared"] - rss0["shared"]}
+    del cache, touched
+
+    result = {"group": group, "nccl_world1": nccl, "train_cache_host": cache_host,
+              "last_state_written_and_read": saved_ok, "finetune": {}, "launches": {}}
+    from sprc_tpu_torch.kernel_checks import grad_gap
+
+    for kind in ("live", "cached"):
+        one, mesh_run = runs[f"one_{kind}"], runs[f"mesh_{kind}"]
+        same_losses = one["losses"] == mesh_run["losses"]
+        tensor_names = list(one["trainable"])
+        same_tensors = tensor_names == list(mesh_run["trainable"]) and all(
+            torch.equal(one["trainable"][k], v) for k, v in mesh_run["trainable"].items())
+        same_val = ([{k: v for k, v in e.items() if k != "seconds"} for e in one["validation"]]
+                    == [{k: v for k, v in e.items() if k != "seconds"}
+                        for e in mesh_run["validation"]])
+        loss_gap = max(abs(m[k] - o[k]) / abs(o[k]) for m, o in zip(mesh_run["losses"],
+                                                                  one["losses"])
+                       for k in o if k.startswith("loss"))
+        first_grads = grad_gap(mesh_run["grads"], one["grads"], one["names"])
+        tensor_diff = max(float((mesh_run["trainable"][n] - one["trainable"][n]).abs().max())
+                          for n in tensor_names)
+        bitwise = same_losses and same_tensors
+        held = bitwise or (loss_gap <= TRAIN_BOUNDS["live"]["loss"]
+                           and first_grads["gap"] <= TRAIN_BOUNDS["live"]["grad"])
+        result["finetune"][kind] = {
+            "steps": len(mesh_run["losses"]), "losses_bitwise_equal": same_losses,
+            "first_step_losses_bitwise_equal": one["losses"][:1] == mesh_run["losses"][:1],
+            "trainable_bitwise_equal": same_tensors, "validation_equal": same_val,
+            "loss_gap": loss_gap, "first_step_grad_gap": first_grads["gap"],
+            "first_step_grad_gap_tensor": first_grads["tensor"],
+            "trainable_max_abs_diff": tensor_diff,
+
+            "step_ms": mesh_run["ms"], "step_ms_without_mesh": one["ms"],
+            "seconds": mesh_run["seconds"], "seconds_without_mesh": one["seconds"],
+            "losses": [m["loss"] for m in mesh_run["losses"]],
+            "validation": mesh_run["validation"][-1] if mesh_run["validation"] else None}
+        log(f"[{tag}] cli/finetune {'--cache-features ' if kind == 'cached' else ''}--mesh: "
+            f"{len(mesh_run['losses'])} steps of {TRAIN_BATCH}, losses "
+            + ", ".join(f"{m['loss']:.6f}" for m in mesh_run["losses"])
+            + f"; step ms {', '.join(f'{t:.1f}' for t in mesh_run['ms'])} (without --mesh "
+            f"{', '.join(f'{t:.1f}' for t in one['ms'])}); run {mesh_run['seconds']:.1f} s "
+            f"(without {one['seconds']:.1f} s); against the run without --mesh: losses bit for "
+            f"bit {same_losses} (the first step's "
+            f"{result['finetune'][kind]['first_step_losses_bitwise_equal']}), "
+            f"{len(tensor_names)} trainable tensors bit for bit {same_tensors}, validation "
+            f"metrics equal {same_val}"
+            + ("" if bitwise else
+               f"; NOT bit for bit (the first step's gradients part first at "
+               f"{first_grads['tensor']}): held at TRAIN_BOUNDS['live']: "
+               f"the losses' worst gap {loss_gap:.3e} (bound {TRAIN_BOUNDS['live']['loss']}), the "
+               f"first step's gradient gap {first_grads['gap']:.3e} in {first_grads['tensor']} "
+               f"(bound {TRAIN_BOUNDS['live']['grad']}); the final trainable tensors differ by at "
+               f"most {tensor_diff:.3e}"))
+        if not (held and len(mesh_run["losses"]) == TRAIN_TRIPLETS // TRAIN_BATCH
+                and mesh_run["validation"]):
+            raise RuntimeError(f"{tag}: the {kind} fine-tune under --mesh is not the run "
+                               f"without it: {result['finetune'][kind]}")
+    same_json = validate_runs[True]["text"] == validate_runs[False]["text"]
+    metrics = json.loads(validate_runs[True]["text"])
+    assert list(metrics) == CIRR_KEYS, list(metrics)
+    same_answers = serve_runs[True]["answers"] == serve_runs[False]["answers"]
+    result.update(validate={"json_equal": same_json, "metrics": metrics,
+                            "seconds": validate_runs[True]["seconds"],
+                            "seconds_without_mesh": validate_runs[False]["seconds"]},
+                  serve={"answers_equal": same_answers, "requests": MESH_QUERIES,
+                         "seconds": serve_runs[True]["seconds"],
+                         "seconds_without_mesh": serve_runs[False]["seconds"]})
+    log(f"[{tag}] cli/validate --mesh: JSON equal to the run without it {same_json} "
+        f"({validate_runs[True]['seconds']:.1f} s, without {validate_runs[False]['seconds']:.1f} "
+        f"s); cli/serve --mesh: {MESH_QUERIES} /query answers equal {same_answers} "
+        f"({serve_runs[True]['seconds']:.1f} s with its build, without "
+        f"{serve_runs[False]['seconds']:.1f} s)")
+    log(f"[{tag}] NCCL at world 1: the gradient's all-reduce ({nccl['all_reduce_floats']} fp32) "
+        f"{nccl['all_reduce_ms']:.4f} ms, the targets' all-gather ({nccl['all_gather_floats']} "
+        f"fp32) {nccl['all_gather_ms']:.4f} ms (device, median of 5); the train cache: "
+        f"{cache_host['rows']} rows of {cache_host['row_shape']} {cache_host['dtype']}, "
+        f"{cache_host['bytes'] / 2 ** 20:.1f} MiB in the file; this process's resident / shared "
+        f"memory +{cache_host['resident_kib_after_load']} / "
+        f"+{cache_host['shared_kib_after_load']} KiB after the load (mapped), "
+        f"+{cache_host['resident_kib_after_a_read_of_every_row']} / "
+        f"+{cache_host['shared_kib_after_a_read_of_every_row']} KiB after a read of every row")
+    if not (same_json and same_answers and saved_ok):
+        raise RuntimeError(f"{tag}: validate / serve under --mesh differ from the runs without "
+                           f"it, or last_state.pt is not the run's: {result}")
+    mesh_runs = [runs["mesh_live"], runs["mesh_cached"], validate_runs[True], serve_runs[True]]
+    result["launches"] = {k: sum(r["launches"][k] for r in mesh_runs) for k in MESH_KERNELS}
+    result["launches_by_run"] = {name: {k: r["launches"][k] for k in MESH_KERNELS}
+                                 for name, r in zip(("finetune_live", "finetune_cached",
+                                                     "validate", "serve"), mesh_runs)}
+    log(f"[counters] phase 24, the --mesh runs: K1 {result['launches']['token_max_sim']}, K2 "
+        f"{result['launches']['fused_vit_block']}, K3 {result['launches']['fused_qformer_layer']}"
+        f"; by run {json.dumps(result['launches_by_run'])}")
+    missing = [k for k, v in result["launches"].items() if v <= 0]
+    if missing:
+        raise RuntimeError(f"{tag}: the --mesh runs launched no {missing}")
+    return result
+
+
+def mesh_kernels(rows, phase):
+    """The kernel rows of phase 24: K1, K2 (ViT-L) and K3 at the main path's
+    shapes (phase 3's checks), with the --mesh runs' launches."""
+    from sprc_tpu_torch.kernel_checks import bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    out = []
+    for name, checks, source, replaces in (
+            ("token_max_sim (--mesh, NCCL world 1)", ["K1 token_max_sim"],
+             "sprc_tpu_torch/csrc/token_max_sim.cu", "sprc_tpu/ops/pallas_sim.py:40"),
+            ("fused_vit_block (--mesh, NCCL world 1)", ["K2 vit_block"],
+             "sprc_tpu_torch/ops/fused_block.py", "sprc_tpu/ops/pallas_block.py:609"),
+            ("fused_qformer_layer (--mesh, NCCL world 1)",
+             [f"K3 qformer_layer {s}" for s in ("queries", "fusion", "prompt")],
+             "sprc_tpu_torch/ops/fused_qformer.py", "sprc_tpu/ops/pallas_qformer.py:360")):
+        rs = [by_check[c] for c in checks]
+        work = {"bytes": sum(r["bytes"] for r in rs),
+                "op_seconds": sum(r["op_seconds"] for r in rs)}
+        count = name.split(" ")[0]
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": phase["launches"][count],
+                    "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                    **bound_ms(work), "library_ms": None})
+    return out
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, its seconds printed on a line of their own."""
     t0 = time.perf_counter()
@@ -7988,6 +8358,9 @@ def main():
     new = phases_20_21(work)
     video = phase_video(work)
     dialogue = phase_dialogue_caption(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = timed("24 mesh", phase_mesh, work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -8066,7 +8439,8 @@ def main():
                       + heads_kernels(rows, head_train, head_eval)
                       + caption_clip_kernels(rows, *new.values())
                       + video_kernels(rows, video)
-                      + dialogue_caption_kernels(rows, dialogue),
+                      + dialogue_caption_kernels(rows, dialogue)
+                      + mesh_kernels(rows, mesh),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -8097,7 +8471,7 @@ def main():
                       "img2prompt_vqa": img2prompt,
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "heads_train": head_train, "heads_eval": head_eval,
-                      **new, **video, "dialogue_caption": dialogue,
+                      **new, **video, "dialogue_caption": dialogue, "mesh_world1": mesh,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

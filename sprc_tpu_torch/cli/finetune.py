@@ -11,9 +11,9 @@ The reference recipe (blip_fine_tune_2.py:196-354): AdamW (0.9, 0.98, eps
 = itc + 0.4 rtc + 0.4 align (the variants' ``loss_itm`` and ``loss_p2p`` at
 1), targetpad 1.25, per-epoch validation keeping
 the best checkpoint by the selection metric (CIRR ``arithmetic_mean``,
-FashionIQ ``average_recall``). The flags are the JAX CLI's without
-``--mesh`` (one device), plus ``--device`` (default ``cuda``; without a GPU
-the command exits nonzero). ``--remat`` keeps only each tower block's and
+FashionIQ ``average_recall``). The flags are the JAX CLI's, plus
+``--device`` (default ``cuda``; without a GPU the command exits nonzero).
+``--remat`` keeps only each tower block's and
 Q-Former layer's input for the backward (``vit_remat`` and
 ``qformer_remat``, as in JAX; the same step bit for bit, dropout
 included). On the card TF32 is off: the Q-Former trains in true fp32.
@@ -23,7 +23,23 @@ epoch logs (``train_metrics.csv``, ``validation_metrics.csv``,
 ``log.jsonl``), ``best_<metric>.pt`` in the released layout and
 ``last_state.pt`` (resume it with ``--resume``). With ``--cache-features``
 the train split's tower rows are computed once (``feature_cache.npz``) and
-every step trains from them (``forward_cached``, which every model has).
+every step trains from them (``forward_cached``, which every model has),
+and the val gallery's tower rows are computed once too (at the first
+validation, held in memory as the JAX CLI's ``_index_stream`` holds them):
+each later validation runs only ``ln_vision``, the queries-only Q-Former
+pass and the projection on them (``RetrievalEngine.build_index_from_tower``).
+
+``--mesh`` (``parallel/mesh.py``) trains data-parallel, one process per
+device: under ``torchrun`` each process joins the group it describes; run
+alone, the CLI starts one process per visible CUDA device itself. Each rank
+takes its ``batch-size / W`` rows of the global batch one device would get
+(a batch size W does not divide is refused before the model is built), the
+step is the global batch's (``train/loop.py``), and the validation encodes
+and scores the gallery sharded (``retrieval/engine.py``). With
+``--cache-features`` rank 0 builds and saves the train cache and every rank
+then maps the file (the ranks share one copy in the page cache); each rank
+caches its own shard of the val gallery. Rank 0 alone writes the outputs;
+``--resume`` loads on every rank.
 
 ``--model-name`` takes every CIR model whose training forward returns a loss
 dict (``LOSSES``): the flagship and the eight variants of
@@ -43,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -142,10 +159,20 @@ def finetune_epochs(trainer, epoch_batches: Callable[[int], Iterable[Dict[str, t
     return history
 
 
-def _feature_cache(args, model, tfm):
+def _feature_cache(args, model, tfm, mesh=None):
     """Load ``--feature-cache-path`` (default ``<output-dir>/feature_cache``)
     or build it with one ``encode_tower`` pass over the train split's
-    images, and save it there."""
+    images, and save it there. Under a mesh rank 0 loads or builds it first
+    and every rank then maps the file."""
+    if mesh is not None:
+        from sprc_tpu_torch.parallel import dist
+        from sprc_tpu_torch.train.feature_cache import FeatureCache
+
+        path = args.feature_cache_path or os.path.join(args.output_dir, "feature_cache")
+        if mesh.is_main:
+            _feature_cache(args, model, tfm)
+        dist.barrier()
+        return FeatureCache.load(path, mmap=True)
     from sprc_tpu_torch.cli.validate import index_batches
     from sprc_tpu_torch.data.datasets import CIRRDataset, FashionIQDataset
     from sprc_tpu_torch.train.feature_cache import FeatureCache, build_feature_cache
@@ -167,9 +194,27 @@ def _feature_cache(args, model, tfm):
     return cache
 
 
-def _validate_fn(args, model, tokenizer, device) -> Callable[[], dict]:
+def index_stream(model, batches, encode_batch: int, val_caches: Optional[dict], key: str):
+    """The gallery's input stream (JAX's ``_index_stream``): ``batches`` of
+    pixels as they are, or with ``val_caches`` (a dict; ``--cache-features``)
+    that stream's tower rows, computed at the first call under ``key`` and
+    streamed again in ``encode_batch`` slices from then on."""
+    if val_caches is None:
+        return batches
+    from sprc_tpu_torch.train.feature_cache import build_feature_cache
+
+    if key not in val_caches:
+        val_caches[key] = build_feature_cache(model, batches)
+    cache = val_caches[key]
+    return ((cache.names[s: s + encode_batch], cache.rows[s: s + encode_batch])
+            for s in range(0, len(cache), encode_batch))
+
+
+def _validate_fn(args, model, tokenizer, device, mesh=None,
+                 val_caches: Optional[dict] = None) -> Callable[[], dict]:
     """The per-epoch validation: the validate CLI's ``evaluate_*`` over the
-    val split, through a fresh ``RetrievalEngine``."""
+    val split, through a fresh ``RetrievalEngine`` (sharded under a mesh);
+    with ``val_caches`` from cached tower rows (:func:`index_stream`)."""
     from sprc_tpu_torch.cli import validate as v
     from sprc_tpu_torch.data.datasets import CIRRDataset, FashionIQDataset
     from sprc_tpu_torch.data.transforms import targetpad_transform
@@ -177,18 +222,22 @@ def _validate_fn(args, model, tokenizer, device) -> Callable[[], dict]:
 
     tfm = targetpad_transform(args.target_ratio, model.cfg.image_size)
 
+    def gallery(dataset, key):
+        return index_stream(model, v.index_batches(dataset, args.encode_batch, args.workers,
+                                                   mesh=mesh),
+                            args.encode_batch, val_caches, key)
+
     def run() -> dict:
         engine = RetrievalEngine(model, tokenizer, device=device, encode_batch=args.encode_batch,
-                                 query_batch=args.query_batch)
+                                 query_batch=args.query_batch, mesh=mesh)
         if args.dataset == "CIRR":
             classic = CIRRDataset(args.data_path, "val", "classic", tfm)
-            return v.evaluate_cirr(engine, v.index_batches(classic, args.encode_batch,
-                                                           args.workers),
+            return v.evaluate_cirr(engine, gallery(classic, "cirr_val"),
                                    v.cirr_queries(args.data_path))
 
         def batches_for(dress_type):
             classic = FashionIQDataset(args.data_path, "val", [dress_type], "classic", tfm)
-            return v.index_batches(classic, args.encode_batch, args.workers)
+            return gallery(classic, f"fiq_{dress_type}")
 
         return v.evaluate_fiq(engine, args.dress_types, batches_for,
                               lambda dress_type: v.fiq_queries(args.data_path, dress_type))
@@ -225,6 +274,16 @@ def finetune(args) -> List[dict]:
             raise SystemExit(f"--device {args.device}: no CUDA device is available")
         torch.backends.cuda.matmul.allow_tf32 = False  # the Q-Former trains in true fp32
         torch.backends.cudnn.allow_tf32 = False
+    mesh = None
+    if getattr(args, "mesh", False):
+        from sprc_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=device)
+        if args.batch_size % mesh.world:
+            raise SystemExit(f"--batch-size {args.batch_size} does not divide over the "
+                             f"{mesh.world} ranks of --mesh")
+        device = mesh.device
+    main = mesh is None or mesh.is_main
     model = load_model(args.model_name, args.model_type, checkpoint_path=args.model_path,
                        device=device, seed=args.seed,
                        vit_dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -239,9 +298,11 @@ def finetune(args) -> List[dict]:
     else:
         train_ds = FashionIQDataset(args.data_path, "train", args.dress_types, "relative",
                                     train_tfm, skip_errors=True)
-    cache = _feature_cache(args, model, tfm) if args.cache_features else None
+    cache = _feature_cache(args, model, tfm, mesh) if args.cache_features else None
     loader = DataLoader(train_ds, batch_size=args.batch_size, shuffle=True, drop_last=True,
-                        num_workers=1 if cache is not None else args.workers, seed=args.seed)
+                        num_workers=1 if cache is not None else args.workers, seed=args.seed,
+                        rank=0 if mesh is None else mesh.rank,
+                        world=1 if mesh is None else mesh.world)
     steps_per_epoch = len(loader)
 
     # the reference schedules OneCycle over 80 epochs whatever it trains (:261)
@@ -250,14 +311,16 @@ def finetune(args) -> List[dict]:
                        loss_weights={"loss_rtc": args.loss_rtc, "loss_align": args.loss_align},
                        grad_accum_steps=args.grad_accum)
     trainer = Trainer(model, tcfg, seed=args.seed, from_embeds=cache is not None,
-                      skip_nonfinite=args.skip_nonfinite)
-    if args.resume and os.path.isfile(args.resume):
+                      skip_nonfinite=args.skip_nonfinite, mesh=mesh)
+    if args.resume and os.path.isfile(args.resume):  # every rank
         restore_state(args.resume, trainer)
-        print(f"resumed from {args.resume} at step {trainer.step}")
+        if main:
+            print(f"resumed from {args.resume} at step {trainer.step}")
 
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "training_hyperparameters.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    if main:
+        with open(os.path.join(args.output_dir, "training_hyperparameters.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
     fiq_rng = np.random.RandomState(args.seed)
 
     def epoch_batches(epoch: int):
@@ -275,11 +338,13 @@ def finetune(args) -> List[dict]:
     return finetune_epochs(
         trainer, epoch_batches, num_epochs=args.num_epochs,
         start_epoch=trainer.step // max(1, steps_per_epoch),
-        validate=_validate_fn(args, model, tokenizer, device),
+        validate=_validate_fn(args, model, tokenizer, device, mesh,
+                              {} if args.cache_features else None),
         validate_every=args.validate_every, selection_metric=args.selection_metric,
-        keeper=BestCheckpointKeeper(args.output_dir, args.selection_metric),
-        logger=MetricsLogger(args.output_dir),
-        state_path=os.path.join(args.output_dir, "last_state.pt"))
+        keeper=BestCheckpointKeeper(args.output_dir, args.selection_metric) if main else None,
+        logger=MetricsLogger(args.output_dir) if main else None,
+        state_path=os.path.join(args.output_dir, "last_state.pt"),
+        log=print if main else (lambda message: None))
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -320,6 +385,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="skip the update of a step with a non-finite loss or gradient, "
                         f"aborting after {MAX_NONFINITE} in a row")
     p.add_argument("--no-skip-nonfinite", dest="skip_nonfinite", action="store_false")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel over the process group (torchrun's, or one process "
+                        "per visible CUDA device started here)")
     p.add_argument("--validate-every", type=int, default=1)
     p.add_argument("--encode-batch", type=int, default=64)
     p.add_argument("--query-batch", type=int, default=32)
@@ -331,7 +399,13 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> None:
-    finetune(make_parser().parse_args(argv))
+    args = make_parser().parse_args(argv)
+    if args.mesh:
+        from sprc_tpu_torch.parallel.mesh import launch_or_join
+
+        launch_or_join("sprc_tpu_torch.cli.finetune", sys.argv[1:] if argv is None else argv,
+                       args.device)
+    finetune(args)
 
 
 if __name__ == "__main__":

@@ -46,7 +46,15 @@ moves to the CPU quietly. Device work is serialized behind a lock; the query
 path (and, with ``--rerank-top``, the rerank path) is warmed at startup so
 that first-request latency is execution only. ``--rerank-top`` with a model
 that has no ``inference_rerank`` (the flagship ``blip2_cir_align_prompt``)
-exits at start. The device mesh (``--mesh``) is not ported.
+exits at start.
+
+``--mesh`` (``parallel/mesh.py``; ``torchrun``'s group, or one process per
+visible CUDA device started here) shards the index over the ranks
+(``retrieval/engine.py``: each rank encodes or loads its shard, and
+``--save-index`` writes the whole index from rank 0). The HTTP front end
+runs on rank 0; each request reaches the other ranks by a broadcast
+(:meth:`RetrievalService.query`, :meth:`RetrievalService.follow`), every
+rank scores it against its shard, and the JSON is unchanged.
 """
 
 from __future__ import annotations
@@ -67,7 +75,9 @@ class RetrievalService:
         self.engine = engine
         self.index = index
         self.rerank_scorer = rerank_scorer
+        self.mesh = getattr(engine, "mesh", None)
         self._lock = threading.Lock()
+        self._order = threading.Lock()  # under a mesh: one request at a time, in one order
         self._name_set = set(index.names)
         # the rerank stage's candidates, by the model's tag: an ITM reranker
         # reads their frozen embeds again, a feature-space one (blip2_cir_cat)
@@ -84,6 +94,41 @@ class RetrievalService:
             self.query([(name, "warm up")], k=1, rerank=True)
 
     def query(self, pairs, k: int = 10, rerank: bool = False):
+        """The answer to one request (:meth:`_query`); under a mesh rank 0
+        calls it, and it reaches the ranks in :meth:`follow` first."""
+        if self.mesh is None:
+            return self._query(pairs, k, rerank)
+        from sprc_tpu_torch.parallel.dist import broadcast_from_main
+
+        with self._order:
+            broadcast_from_main(("query", [tuple(p) for p in pairs], k, rerank))
+            return self._query(pairs, k, rerank)
+
+    def follow(self) -> None:
+        """A rank other than 0: answer (and drop) every request rank 0
+        broadcasts, until it sends the stop. A request that fails fails on
+        every rank alike, before any collective (an unknown reference, a
+        rerank the service cannot run)."""
+        from sprc_tpu_torch.parallel.dist import broadcast_from_main
+
+        while True:
+            message = broadcast_from_main(None)
+            if message[0] == "stop":
+                return
+            try:
+                self._query(*message[1:])
+            except (KeyError, ValueError):
+                pass
+
+    def stop(self) -> None:
+        """Rank 0: end the other ranks' :meth:`follow`."""
+        if self.mesh is not None:
+            from sprc_tpu_torch.parallel.dist import broadcast_from_main
+
+            with self._order:
+                broadcast_from_main(("stop",))
+
+    def _query(self, pairs, k: int = 10, rerank: bool = False):
         """pairs: [(reference_name, caption)] -> per query top-k
         [{'name', 'score'}] (exact ranking, stable on ties, the reference
         image masked out of its own results as in validate_blip.py:258-261).
@@ -187,6 +232,12 @@ def build_service(args) -> RetrievalService:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    mesh = None
+    if getattr(args, "mesh", False):
+        from sprc_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=device)
+        device = mesh.device
     model = load_model(
         args.model_name, args.model_type, checkpoint_path=args.model_path, device=device,
         seed=args.seed, vit_dtype=torch.bfloat16 if args.bf16 else torch.float32,
@@ -195,7 +246,7 @@ def build_service(args) -> RetrievalService:
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
     engine = RetrievalEngine(
         model, tokenizer, device=device, encode_batch=args.encode_batch,
-        query_batch=args.query_batch, frozen_host_dtype=torch.bfloat16,
+        query_batch=args.query_batch, frozen_host_dtype=torch.bfloat16, mesh=mesh,
     )
     scorer = None
     if args.rerank_top > 0:
@@ -204,7 +255,8 @@ def build_service(args) -> RetrievalService:
                              "has no inference_rerank")
         from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer
 
-        scorer = ItmRerankScorer(model, tokenizer, top=args.rerank_top, step=args.rerank_step)
+        scorer = ItmRerankScorer(model, tokenizer, top=args.rerank_top, step=args.rerank_step,
+                                 mesh=mesh)
     if args.index_path:
         return RetrievalService(engine, engine.load_index(args.index_path), rerank_scorer=scorer)
     from sprc_tpu_torch.cli.validate import index_batches
@@ -216,10 +268,12 @@ def build_service(args) -> RetrievalService:
         classic = CIRRDataset(args.data_path, args.split, "classic", tfm)
     else:
         classic = FashionIQDataset(args.data_path, args.split, args.dress_types, "classic", tfm)
-    index = engine.build_index(index_batches(classic, args.encode_batch, args.workers))
+    index = engine.build_index(index_batches(classic, args.encode_batch, args.workers,
+                                             mesh=mesh))
     if args.save_index:
         index.save(args.save_index)
-        print(f"index saved to {args.save_index}.npz ({index.n} images)")
+        if mesh is None or mesh.is_main:
+            print(f"index saved to {args.save_index}.npz ({index.n} images)")
     return RetrievalService(engine, index, rerank_scorer=scorer)
 
 
@@ -254,6 +308,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--qformer-int8", action="store_true",
                    help="int8 dense projections in the Q-Former (query fusion and encode)")
+    p.add_argument("--mesh", action="store_true")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -261,9 +316,14 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[list] = None) -> None:
+    from sprc_tpu_torch.cli.validate import join_mesh
+
     args = make_parser().parse_args(argv)
     if not args.index_path and not args.data_path:
         raise SystemExit("need --data-path (build index) or --index-path (load)")
+    if not join_mesh(args, "sprc_tpu_torch.cli.serve", argv):
+        build_service(args).follow()  # a rank other than 0
+        return
     service = build_service(args)
     service.warm()
     server = make_server(service, args.host, args.port)
@@ -273,6 +333,8 @@ def main(argv: Optional[list] = None) -> None:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        service.stop()
 
 
 if __name__ == "__main__":

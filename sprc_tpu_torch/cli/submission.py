@@ -19,7 +19,8 @@ reranker of :func:`sprc_tpu_torch.cli.validate_rerank.load_rerank_model`
 (without ``--rerank-model-path``, the retrieval model itself, which must then
 have an ``inference_rerank``). The files are the JAX writers' (a test pins
 them equal, byte for byte). The flags are the JAX CLI's, plus ``--device``
-(default ``cuda``) and without ``--mesh``.
+(default ``cuda``). ``--mesh`` runs stage 1 and the rerank as
+``cli/validate_rerank.py`` does; rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def generate_submission(args) -> tuple[str, str]:
     model, engine = build_engine(args)
     tfm = targetpad_transform(args.target_ratio, model.cfg.image_size)
     classic = CIRRDataset(args.data_path, "test1", "classic", tfm)
-    index = engine.build_index(index_batches(classic, args.encode_batch, args.workers))
+    index = engine.build_index(index_batches(classic, args.encode_batch, args.workers,
+                                             mesh=engine.mesh))
 
     relative = CIRRDataset(args.data_path, "test1", "relative")
     proc = CaptionProcessor()
@@ -71,6 +73,8 @@ def generate_submission(args) -> tuple[str, str]:
     predictions, group_predictions = build_submission_dicts(
         sims, index.names, refs, groups, pair_ids,
         rerank_fn=_rerank_fn(args, engine, index, refs, captions))
+    if engine.mesh is not None and not engine.mesh.is_main:
+        return None, None
     return write_submission_files(args.output_dir, args.submission_name, predictions,
                                   group_predictions)
 
@@ -89,7 +93,7 @@ def generate_circo_submission(args) -> str:
     tfm = targetpad_transform(args.target_ratio, model.cfg.image_size)
     classic = CIRCODataset(args.data_path, "test", "classic", tfm)
     index = engine.build_index(index_batches(classic, args.encode_batch, args.workers,
-                                             name_key="img_id"))
+                                             name_key="img_id", mesh=engine.mesh))
 
     relative = CIRCODataset(args.data_path, "test", "relative", load_images=False)
     proc = CaptionProcessor()
@@ -103,6 +107,8 @@ def generate_circo_submission(args) -> str:
     sims = engine.score_queries(index, refs, captions)
     predictions = build_circo_submission(
         sims, index.names, query_ids, rerank_fn=_rerank_fn(args, engine, index, refs, captions))
+    if engine.mesh is not None and not engine.mesh.is_main:
+        return None
     return write_circo_submission(args.output_dir, args.submission_name, predictions)
 
 
@@ -119,12 +125,18 @@ def make_parser():
 
 
 def main(argv: Optional[list] = None) -> None:
+    from sprc_tpu_torch.cli.validate import join_mesh
+
     args = make_parser().parse_args(argv)
+    prints = join_mesh(args, "sprc_tpu_torch.cli.submission", argv)
     if args.dataset == "CIRCO":
-        print(f"wrote {generate_circo_submission(args)}")
+        path = generate_circo_submission(args)
+        if prints:
+            print(f"wrote {path}")
         return
     p1, p2 = generate_submission(args)
-    print(f"wrote {p1}\nwrote {p2}")
+    if prints:
+        print(f"wrote {p1}\nwrote {p2}")
 
 
 if __name__ == "__main__":

@@ -23,12 +23,16 @@ routes, as in JAX:
   of ``cli/finetune.py`` by their argparse names (``dataset`` and
   ``--data-path`` first, ``model.arch`` the ``--model-name``,
   ``model.vit_model: clip_L`` the ``pretrain_vitL`` model type), and the
-  port's ``cli/finetune.finetune`` runs (``run.remat`` as ``--remat``). A
-  key it has no flag for (the JAX CLI's ``mesh``) is not applied: it warns,
-  as the JAX CLI warns on unknown keys.
+  port's ``cli/finetune.finetune`` runs (``run.remat`` as ``--remat``,
+  ``run.mesh`` as ``--mesh``, which then joins the group of a launcher such
+  as ``torchrun``). A key it has no flag for is not applied: it warns, as
+  the JAX CLI warns on unknown keys.
 
-The flags are the JAX CLI's without ``--mesh`` (one device), plus
-``--device`` (default ``cuda``; without a GPU the command exits nonzero).
+The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a
+GPU the command exits nonzero). ``--mesh`` trains a CIR run data-parallel
+(``cli/finetune.py``'s ``--mesh``: ``torchrun``'s group, or one process per
+visible CUDA device started here); the generic route trains on one device,
+as JAX's ``run_generic`` does, and refuses it.
 :func:`train` takes a built :class:`~sprc_tpu_torch.config.Config`, so a
 caller without PyYAML passes ``Config(defaults=<the YAML as a dict>)``.
 """
@@ -53,6 +57,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--output-dir", default="./output")
     p.add_argument("--model-path", default=None)
     p.add_argument("--resume", default=None)
+    p.add_argument("--mesh", action="store_true")
     p.add_argument("--options", nargs="*", default=[], help="dotlist overrides key=value")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; exits nonzero without a GPU) or cpu")
@@ -71,6 +76,7 @@ def finetune_args(cfg, args) -> argparse.Namespace:
     ft.output_dir = args.output_dir
     ft.model_path = args.model_path
     ft.resume = args.resume
+    ft.mesh = getattr(args, "mesh", False)
     ft.device = args.device
     ft.model_name = model_cfg.get("arch", "blip2_cir_align_prompt")
     ft.model_type = "pretrain_vitL" if model_cfg.get("vit_model") == "clip_L" else "pretrain"
@@ -92,6 +98,9 @@ def train(cfg, args):
     from sprc_tpu_torch.train.generic import TASK_ADAPTERS, run_generic
 
     if cfg.run.get("task") in TASK_ADAPTERS:
+        if getattr(args, "mesh", False) or cfg.run.get("mesh"):
+            raise SystemExit("--mesh: the generic route trains on one device (JAX's "
+                             "run_generic takes no mesh); --mesh trains CIR runs")
         best = run_generic(cfg, args)
         print({"task": cfg.run.get("task"), "best": best})
         return best
@@ -106,7 +115,15 @@ def main(argv: Optional[list] = None) -> None:
     from sprc_tpu_torch.config import Config
 
     args = make_parser().parse_args(argv)
-    train(Config(args.cfg_path, overrides=args.options), args)
+    cfg = Config(args.cfg_path, overrides=args.options)
+    if args.mesh:
+        import sys
+
+        from sprc_tpu_torch.parallel.mesh import launch_or_join
+
+        launch_or_join("sprc_tpu_torch.cli.train", sys.argv[1:] if argv is None else argv,
+                       args.device)
+    train(cfg, args)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,14 @@ Loads a checkpoint (torch ``.pt``; random weights from seed 0 without one),
 builds the gallery index with the retrieval engine, scores all validation
 queries, and prints the metric suite as JSON with the JAX CLI's keys, order
 and indent. The flags and defaults are the JAX CLI's, plus ``--device``
-(default ``cuda``; without a GPU the command exits nonzero) and without
-``--mesh`` (one device).
+(default ``cuda``; without a GPU the command exits nonzero).
+
+``--mesh`` shards the gallery over the process group (``torchrun``'s, or
+one process per visible CUDA device started here; ``parallel/mesh.py``):
+each rank decodes and encodes its contiguous shard (:func:`index_batches`
+with the mesh), the engine scores every query against every shard and
+gathers the rows (``retrieval/engine.py``), the metrics are computed on
+rank 0 and broadcast, and rank 0 prints the same JSON.
 
 Each ``validate_*`` has two parts, because the machine with the card may
 hold no Pillow: ``*_queries`` reads a split's relative items (JSON only) and
@@ -23,7 +29,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import sys
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -112,6 +120,8 @@ def parse_model_overrides(pairs, use_yaml: bool = True) -> dict:
 
 
 def build_engine(args):
+    """The model and its engine; under ``--mesh`` on this rank's device, the
+    engine sharded over the mesh."""
     import torch
 
     from sprc_tpu_torch.loader import load_model
@@ -122,23 +132,45 @@ def build_engine(args):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    mesh = None
+    if getattr(args, "mesh", False):
+        from sprc_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=device)
+        device = mesh.device
     overrides = parse_model_overrides(getattr(args, "model_overrides", []))
     overrides.setdefault("vit_dtype", torch.bfloat16 if args.bf16 else torch.float32)
     model = load_model(args.model_name, args.model_type, checkpoint_path=args.model_path,
                        device=device, **overrides)
     tokenizer = BertWordPieceTokenizer.from_vocab_file(ensure_bert_vocab(args.vocab_path))
     engine = RetrievalEngine(model, tokenizer, device=device, encode_batch=args.encode_batch,
-                             query_batch=args.query_batch)
+                             query_batch=args.query_batch, mesh=mesh)
     return model, engine
 
 
-def index_batches(dataset, batch_size: int, num_workers: int = 4, name_key: str = "image_name"):
-    """Stream (names, images) batches from a classic-mode dataset."""
+def index_batches(dataset, batch_size: int, num_workers: int = 4, name_key: str = "image_name",
+                  mesh=None):
+    """Stream (names, images) batches from a classic-mode dataset; with a
+    mesh only this rank's contiguous shard of it (``mesh.shard``)."""
     from sprc_tpu_torch.data.loader import DataLoader
 
+    if mesh is not None:
+        from torch.utils.data import Subset
+
+        dataset = Subset(dataset, mesh.shard(len(dataset)))
     loader = DataLoader(dataset, batch_size=batch_size, num_workers=num_workers)
     for batch in loader:
         yield batch[name_key], batch["image"].astype(np.float32)
+
+
+def metrics_once(engine, compute: Callable[[], dict]) -> dict:
+    """``compute()`` once: under the engine's mesh on rank 0, broadcast to
+    every rank (so every rank keeps the same best epoch)."""
+    if engine.mesh is None:
+        return compute()
+    from sprc_tpu_torch.parallel.dist import broadcast_from_main
+
+    return broadcast_from_main(compute() if engine.mesh.is_main else None)
 
 
 def _transform(args, model):
@@ -174,8 +206,8 @@ def evaluate_cirr(engine, batches: Batches, queries: Dict[str, list]) -> dict:
 
     index = engine.build_index(batches)
     sims = engine.score_queries(index, queries["refs"], queries["captions"])
-    return compute_cirr_metrics(sims, index.names, queries["refs"], queries["targets"],
-                                queries["groups"])
+    return metrics_once(engine, lambda: compute_cirr_metrics(
+        sims, index.names, queries["refs"], queries["targets"], queries["groups"]))
 
 
 def validate_cirr(args) -> dict:
@@ -183,7 +215,8 @@ def validate_cirr(args) -> dict:
 
     model, engine = build_engine(args)
     classic = CIRRDataset(args.data_path, "val", "classic", _transform(args, model))
-    return evaluate_cirr(engine, index_batches(classic, args.encode_batch, args.workers),
+    return evaluate_cirr(engine, index_batches(classic, args.encode_batch, args.workers,
+                                               mesh=engine.mesh),
                          cirr_queries(args.data_path))
 
 
@@ -216,7 +249,8 @@ def evaluate_fiq(engine, dress_types: Sequence[str], batches_for: Callable[[str]
         index = engine.build_index(batches_for(dress_type))
         queries = queries_for(dress_type)
         sims = engine.score_queries(index, queries["refs"], queries["captions"])
-        r10, r50 = compute_fiq_metrics(sims, index.names, queries["targets"])
+        r10, r50 = metrics_once(engine, lambda: compute_fiq_metrics(sims, index.names,
+                                                                    queries["targets"]))
         results[f"{dress_type}_recall_at10"] = r10
         results[f"{dress_type}_recall_at50"] = r50
         recalls.extend([r10, r50])
@@ -236,7 +270,7 @@ def validate_fiq(args) -> dict:
 
     def batches_for(dress_type):
         classic = FashionIQDataset(args.data_path, "val", [dress_type], "classic", tfm)
-        return index_batches(classic, args.encode_batch, args.workers)
+        return index_batches(classic, args.encode_batch, args.workers, mesh=engine.mesh)
 
     return evaluate_fiq(engine, args.dress_types, batches_for,
                         lambda dress_type: fiq_queries(args.data_path, dress_type))
@@ -266,7 +300,7 @@ def evaluate_circo(engine, batches: Batches, queries: Dict[str, list]) -> dict:
 
     index = engine.build_index(batches)
     sims = engine.score_queries(index, queries["refs"], queries["captions"])
-    return compute_circo_metrics(sims, index.names, queries["gts"])
+    return metrics_once(engine, lambda: compute_circo_metrics(sims, index.names, queries["gts"]))
 
 
 def validate_circo(args) -> dict:
@@ -275,7 +309,8 @@ def validate_circo(args) -> dict:
 
     model, engine = build_engine(args)
     classic = CIRCODataset(args.data_path, "val", "classic", _transform(args, model))
-    batches = index_batches(classic, args.encode_batch, args.workers, name_key="img_id")
+    batches = index_batches(classic, args.encode_batch, args.workers, name_key="img_id",
+                            mesh=engine.mesh)
     return evaluate_circo(engine, batches, circo_queries(args.data_path))
 
 
@@ -300,6 +335,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--dress-types", nargs="+", default=["dress", "shirt", "toptee"])
+    p.add_argument("--mesh", action="store_true", help="shard gallery over all devices")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; exits nonzero without a GPU) or cpu")
     p.add_argument(
@@ -310,15 +346,30 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def join_mesh(args, module: str, argv: Optional[list]) -> bool:
+    """A CLI's ``--mesh``: start the ranks where no launcher did (this
+    process then exits with theirs), else go on as one; returns whether this
+    process prints (rank 0, or no mesh)."""
+    if not args.mesh:
+        return True
+    from sprc_tpu_torch.parallel import dist, mesh
+
+    mesh.launch_or_join(module, sys.argv[1:] if argv is None else argv, args.device)
+    rank = dist.get_rank() if dist.is_dist_avail_and_initialized() else int(os.environ["RANK"])
+    return rank == 0
+
+
 def main(argv: Optional[list] = None) -> None:
     args = make_parser().parse_args(argv)
+    prints = join_mesh(args, "sprc_tpu_torch.cli.validate", argv)
     if args.dataset == "CIRR":
         results = validate_cirr(args)
     elif args.dataset == "CIRCO":
         results = validate_circo(args)
     else:
         results = validate_fiq(args)
-    print(json.dumps(results, indent=4))
+    if prints:
+        print(json.dumps(results, indent=4))
 
 
 if __name__ == "__main__":

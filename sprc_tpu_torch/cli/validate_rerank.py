@@ -16,7 +16,10 @@ ranking. Defaults: CIRR top 200 / step 15, FashionIQ top 40 / step 40
 (reference :48-71, :197-221). The CIRR val path drops the reference before
 reranking. The JSON printed has the JAX CLI's keys, order and indent. The
 flags are the JAX CLI's, plus ``--device`` (default ``cuda``; without a GPU
-the command exits nonzero) and without ``--mesh``.
+the command exits nonzero). ``--mesh`` (``cli/validate.py``'s) runs stage 1
+sharded; stage 2's tiles are split over the ranks by query, each query's
+rows fetched from the ranks that hold them, and the scores gathered in query
+order (``retrieval/rerank.py``); rank 0 computes the metrics and prints.
 
 As in :mod:`.validate`, each path has a part that takes the engine and a
 stream of ``(names, pixel batch)`` (``evaluate_rerank_cirr`` /
@@ -43,6 +46,7 @@ def evaluate_rerank_cirr(engine, batches: Batches, queries: Dict[str, list], sco
     """CIRR val metrics of the reranked ranking: ``queries`` as
     :func:`sprc_tpu_torch.cli.validate.cirr_queries` gives them, ``scorer``
     an :class:`~sprc_tpu_torch.retrieval.rerank.ItmRerankScorer`."""
+    from sprc_tpu_torch.cli.validate import metrics_once
     from sprc_tpu_torch.retrieval.metrics import drop_reference, recall_at, sort_gallery
     from sprc_tpu_torch.retrieval.rerank import rerank_rankings
 
@@ -53,19 +57,23 @@ def evaluate_rerank_cirr(engine, batches: Batches, queries: Dict[str, list], sco
     sorted_names = drop_reference(sort_gallery(sims, index.names), refs)
     sorted_names = rerank_rankings(sorted_names, refs, captions, scorer, index.reference_embeds,
                                    top=scorer.top, step=scorer.step)
-    labels = _ranked_labels(sorted_names, queries["targets"])
-    groups = np.asarray(queries["groups"])
-    group_mask = (sorted_names[..., None] == groups[:, None, :]).sum(-1).astype(bool)
-    group_labels = labels[group_mask].reshape(labels.shape[0], -1)
-    return {
-        "group_recall_at1": recall_at(group_labels, 1),
-        "group_recall_at2": recall_at(group_labels, 2),
-        "group_recall_at3": recall_at(group_labels, 3),
-        "recall_at1": recall_at(labels, 1),
-        "recall_at5": recall_at(labels, 5),
-        "recall_at10": recall_at(labels, 10),
-        "recall_at50": recall_at(labels, 50),
-    }
+
+    def compute() -> dict:
+        labels = _ranked_labels(sorted_names, queries["targets"])
+        groups = np.asarray(queries["groups"])
+        group_mask = (sorted_names[..., None] == groups[:, None, :]).sum(-1).astype(bool)
+        group_labels = labels[group_mask].reshape(labels.shape[0], -1)
+        return {
+            "group_recall_at1": recall_at(group_labels, 1),
+            "group_recall_at2": recall_at(group_labels, 2),
+            "group_recall_at3": recall_at(group_labels, 3),
+            "recall_at1": recall_at(labels, 1),
+            "recall_at5": recall_at(labels, 5),
+            "recall_at10": recall_at(labels, 10),
+            "recall_at50": recall_at(labels, 50),
+        }
+
+    return metrics_once(engine, compute)
 
 
 def evaluate_rerank_fiq(engine, dress_types: Sequence[str],
@@ -88,7 +96,7 @@ def evaluate_rerank_fiq(engine, dress_types: Sequence[str],
         out[f"{dress_type}_recall_at10"] = recall_at(labels, 10)
         out[f"{dress_type}_recall_at50"] = recall_at(labels, 50)
     out["average_recall"] = float(np.mean(list(out.values())))
-    return out
+    return out  # every rank reranked the same rankings
 
 
 def make_scorer(args, engine):
@@ -96,15 +104,17 @@ def make_scorer(args, engine):
     engine's tokenizer."""
     from sprc_tpu_torch.retrieval.rerank import ItmRerankScorer
 
-    return ItmRerankScorer(load_rerank_model(args, engine.model), engine.tokenizer,
-                           top=args.rerank_top, step=args.rerank_step)
+    return ItmRerankScorer(load_rerank_model(args, engine.model, engine.device),
+                           engine.tokenizer, top=args.rerank_top, step=args.rerank_step,
+                           mesh=engine.mesh)
 
 
-def load_rerank_model(args, retrieval_model):
+def load_rerank_model(args, retrieval_model, device=None):
     """The rerank stage's model: ``--rerank-model-name`` with the weights of
-    ``--rerank-model-path``, or without that path the retrieval model itself,
-    as the JAX CLI's ``_load_rerank_model`` does (it builds the same model
-    again from the same flags)."""
+    ``--rerank-model-path`` (on ``device``, default ``--device``), or without
+    that path the retrieval model itself, as the JAX CLI's
+    ``_load_rerank_model`` does (it builds the same model again from the
+    same flags)."""
     import torch
 
     from sprc_tpu_torch.cli.validate import parse_model_overrides
@@ -115,7 +125,8 @@ def load_rerank_model(args, retrieval_model):
     overrides = parse_model_overrides(getattr(args, "model_overrides", []))
     overrides.setdefault("vit_dtype", torch.bfloat16 if args.bf16 else torch.float32)
     return load_model(args.rerank_model_name, args.model_type,
-                      checkpoint_path=args.rerank_model_path, device=args.device, **overrides)
+                      checkpoint_path=args.rerank_model_path,
+                      device=args.device if device is None else device, **overrides)
 
 
 def validate_rerank_cirr(args) -> dict:
@@ -126,7 +137,8 @@ def validate_rerank_cirr(args) -> dict:
     model, engine = build_engine(args)
     classic = CIRRDataset(args.data_path, "val", "classic",
                           targetpad_transform(args.target_ratio, model.cfg.image_size))
-    return evaluate_rerank_cirr(engine, index_batches(classic, args.encode_batch, args.workers),
+    return evaluate_rerank_cirr(engine, index_batches(classic, args.encode_batch, args.workers,
+                                                      mesh=engine.mesh),
                                 cirr_queries(args.data_path), make_scorer(args, engine))
 
 
@@ -141,7 +153,7 @@ def validate_rerank_fiq(args) -> dict:
 
     def batches_for(dress_type):
         classic = FashionIQDataset(args.data_path, "val", [dress_type], "classic", tfm)
-        return index_batches(classic, args.encode_batch, args.workers)
+        return index_batches(classic, args.encode_batch, args.workers, mesh=engine.mesh)
 
     return evaluate_rerank_fiq(engine, args.dress_types, batches_for,
                                lambda dress_type: fiq_queries(args.data_path, dress_type), scorer)
@@ -172,12 +184,16 @@ def parse_args(argv: Optional[list] = None):
 
 
 def main(argv: Optional[list] = None) -> None:
+    from sprc_tpu_torch.cli.validate import join_mesh
+
     args = parse_args(argv)
+    prints = join_mesh(args, "sprc_tpu_torch.cli.validate_rerank", argv)
     if args.dataset == "CIRR":
         results = validate_rerank_cirr(args)
     else:
         results = validate_rerank_fiq(args)
-    print(json.dumps(results, indent=4))
+    if prints:
+        print(json.dumps(results, indent=4))
 
 
 if __name__ == "__main__":

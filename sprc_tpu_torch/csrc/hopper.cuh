@@ -12,6 +12,8 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace sprc {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -312,23 +314,34 @@ inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols,
   return true;
 }
 
-// the SMs of the current device, read once (the kernels run on one card)
+// the per-process caches below hold one entry per device (cudaGetDevice), so a
+// process that uses several cards reads each card's own values
+constexpr int MAX_DEVICES = 64;
+
+// the SMs of the current device, read once per device (0 where it cannot be read)
 inline int sm_count() {
-  static int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 0;
-    return sms;
-  }();
+  static std::atomic<int> counts[MAX_DEVICES];  // 0: not read yet
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES) return 0;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  counts[dev].store(n, std::memory_order_relaxed);
   return n;
 }
 
-// opts a kernel in to `bytes` of dynamic shared memory, once per kernel
+// opts a kernel in to `bytes` of dynamic shared memory on the current device,
+// once per kernel and device (a failed opt-in is tried again at the next call)
 template <auto KERNEL>
 cudaError_t allow_smem(int bytes) {
-  static cudaError_t err =
-      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
   return err;
 }
 

@@ -1,10 +1,18 @@
 """Host-side data loading: samples decode in a thread pool, a few batches
 ahead of the consumer, and are collated to numpy (counterpart of
-``sprc_tpu/data/loader.py``, for one host: no per-host shards).
+``sprc_tpu/data/loader.py``).
 
+- ``host_id`` / ``num_hosts``: the JAX loader's per-host shard
+  (:func:`host_shard`, contiguous), then the epoch's permutation of it; no
+  CLI sets them, in either package;
 - ``shuffle``: each epoch's order is ``np.random.RandomState(seed +
   epoch).permutation`` (call :meth:`DataLoader.set_epoch` like a
   ``DistributedSampler``), the JAX loader's order;
+- ``rank`` / ``world`` (``--mesh``): the same order cut into the global
+  batches of ``batch_size`` one device would get, and each of those into
+  ``world`` slices; this rank yields (and decodes) only its slice of
+  ``batch_size / world`` rows. A ``batch_size`` the world does not divide
+  is refused, and so (over two ranks or more) is a ``None`` sample;
 - ``drop_last``: no short last batch (static train shapes);
 - a ``None`` sample (a dataset in ``skip_errors`` mode) is dropped with a
   warning and counted; a sample that raises raises from the iterator.
@@ -20,6 +28,12 @@ from typing import Iterator, List
 import numpy as np
 
 log = logging.getLogger(__name__)
+
+
+def host_shard(n: int, host_id: int, num_hosts: int) -> range:
+    """Contiguous per-host index shard."""
+    per = (n + num_hosts - 1) // num_hosts
+    return range(host_id * per, min(n, (host_id + 1) * per))
 
 
 def default_collate(samples: List[dict]) -> dict:
@@ -42,7 +56,10 @@ class DataLoader:
     life."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4, prefetch: int = 2, *,
-                 shuffle: bool = False, drop_last: bool = False, seed: int = 0):
+                 shuffle: bool = False, drop_last: bool = False, seed: int = 0,
+                 host_id: int = 0, num_hosts: int = 1, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"a batch of {batch_size} does not divide over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
@@ -51,21 +68,30 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.host_id, self.num_hosts = host_id, num_hosts
+        self.rank, self.world = rank, world
         self.dropped_total = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
 
     def indices(self) -> np.ndarray:
-        """This epoch's sample order."""
-        n = len(self.dataset)
+        """This epoch's sample order (of this host's shard)."""
+        idx = np.asarray(host_shard(len(self.dataset), self.host_id, self.num_hosts))
         if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            return idx[np.random.RandomState(self.seed + self.epoch).permutation(len(idx))]
+        return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        """Global batches an epoch."""
+        n = len(host_shard(len(self.dataset), self.host_id, self.num_hosts))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _mine(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's contiguous slice of a global batch (a short last
+        batch is cut as :func:`host_shard` cuts it)."""
+        part = host_shard(len(batch), self.rank, self.world)
+        return batch[part.start: part.stop]
 
     def __iter__(self) -> Iterator[dict]:
         idx, bs = self.indices(), self.batch_size
@@ -79,6 +105,9 @@ class DataLoader:
             for j, f in futures:
                 s = f.result()
                 if s is None:
+                    if self.world > 1:  # the ranks' slices must stay equal for the gathers
+                        raise RuntimeError(f"unreadable sample {j} on rank {self.rank} of "
+                                           f"{self.world}: a rank cannot drop a sample")
                     log.warning("dropped unreadable sample %d", j)
                     dropped += 1
                     self.dropped_total += 1
@@ -91,7 +120,7 @@ class DataLoader:
             try:
                 for i in range(len(self)):
                     pending.append([(int(j), pool.submit(self.dataset.__getitem__, int(j)))
-                                    for j in idx[i * bs: (i + 1) * bs]])
+                                    for j in self._mine(idx[i * bs: (i + 1) * bs])])
                     if len(pending) > self.prefetch:
                         yield from collate(pending.popleft())
                 while pending:

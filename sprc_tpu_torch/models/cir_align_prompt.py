@@ -16,7 +16,9 @@ trunk's. Its training forward gives the three SPRC losses (reference
 The live forward and ``forward_cached`` are the trunk's; both end here in
 ``losses_from_embeds``. Both max-sims go through kernel K1 with a gradient
 (:class:`sprc_tpu_torch.ops.sim_kernels.TokenMaxSim`). The trainer weighs
-them 1 / 0.4 / 0.4 (``sprc_tpu_torch/train/loop.py``).
+them 1 / 0.4 / 0.4 (``sprc_tpu_torch/train/loop.py``). Under ``--mesh`` the
+rank's rows score against the global batch's target feats, gathered with
+their gradient (LAVIS' ``GatherLayer``, the JAX package's SPMD matrix).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from sprc_tpu_torch.models.cir_base import Blip2CirBase, CirConfig, cross_entropy_diagonal
 from sprc_tpu_torch.ops.layers import l2_normalize
+from sprc_tpu_torch.parallel.mesh import gather_batch
 from sprc_tpu_torch.registry import registry
 
 Tensor = torch.Tensor
@@ -50,7 +53,8 @@ class CirAlignPrompt(Blip2CirBase):
         """The three losses from post-ln_vision image embeddings."""
         fused_queries, fusion_feats = self.fuse_reference(ref_embeds, input_ids, text_mask,
                                                           generator)
-        target_feats = self.target_features(tgt_embeds, generator)
+        # under --mesh the global batch's targets (parallel/mesh.py)
+        target_feats = gather_batch(self.target_features(tgt_embeds, generator))
         loss_itc = cross_entropy_diagonal(self.token_max_sim(fusion_feats, target_feats)
                                           / self.temp)
         text_only = self._prompt_text_feature(input_ids, text_mask, generator)

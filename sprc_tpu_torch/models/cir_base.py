@@ -31,6 +31,12 @@ tower runs without a graph, so K2 launches as in serving.
 :meth:`encode_tower` is the boundary the feature cache stores
 (``sprc_tpu_torch/train/feature_cache.py``); ``forward_cached`` trains
 every model from it (the JAX base's generic ``forward_cached``).
+
+Under ``--mesh`` (``parallel/mesh.py``) each rank runs its rows of the
+global batch; every in-batch term sees the global batch: the models gather
+the target side (``gather_batch``, with its gradient) and
+:func:`cross_entropy_diagonal` shifts its labels by the rank's offset, so a
+step over W ranks is JAX's step over the batch sharded on its ``data`` axis.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from sprc_tpu_torch.models.vit import (ViTConfig, build_tower, clip_vit_l_config
 from sprc_tpu_torch.ops import primitives
 from sprc_tpu_torch.ops.layers import LayerNormFP32, Linear, l2_normalize
 from sprc_tpu_torch.ops.sim_kernels import TokenMaxSim
+from sprc_tpu_torch.parallel.mesh import batch_offset
 
 Tensor = torch.Tensor
 
@@ -196,7 +203,11 @@ class Blip2CirBase(nn.Module):
 
     def encode_image(self, images: Tensor) -> Tensor:
         """images [B, H, W, 3] -> image embeddings [B, S, D] fp32 (ln_vision
-        of the tower features); the tower without a graph where it is frozen."""
+        of the tower features); the tower without a graph where it is frozen.
+        A rank-3 input is :meth:`encode_tower` rows (a cache's), which only
+        ``ln_vision`` takes (the JAX base's rank dispatch)."""
+        if images.ndim == 3:
+            return self.embed_cached(images)
         with self.tower_grad():
             tower = self.encode_tower(images)
         return self.ln_vision(tower.float())
@@ -331,6 +342,9 @@ class Blip2CirBase(nn.Module):
 
 
 def cross_entropy_diagonal(logits: Tensor) -> Tensor:
-    """Mean cross-entropy with the diagonal as labels (in-batch contrastive)."""
-    labels = torch.arange(logits.shape[0], device=logits.device)
+    """Mean cross-entropy with the diagonal as labels (in-batch contrastive).
+    Under an active mesh the logits are this rank's rows against the global
+    batch ([b, W b]) and the labels start at the rank's offset."""
+    b = logits.shape[0]
+    labels = torch.arange(b, device=logits.device) + batch_offset(b)
     return F.cross_entropy(logits.float(), labels)

@@ -44,6 +44,12 @@ Q-Former takes its serving branch, so on the card they launch kernel K3 (and
 K1 for the twin's scores) inside a training step, with no dropout, as in JAX.
 Every pass with a gradient runs the Q-Former's unfused training branch and
 K1 through :class:`~sprc_tpu_torch.ops.sim_kernels.TokenMaxSim`.
+
+Under ``--mesh`` every term that mixes samples sees the global batch
+(``parallel/mesh.py``): the in-batch scores are this rank's rows against the
+gathered targets, the hard negatives and ``blip2_cir_cls``'s captions are
+picked over the global matrix, and a pick's rows and ids come from the rank
+that holds them (with their gradient where the single-device step has one).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from torch import nn
 from sprc_tpu_torch.models.cir_base import Blip2CirBase, CirConfig, cross_entropy_diagonal
 from sprc_tpu_torch.models.qformer import QFormer
 from sprc_tpu_torch.ops.layers import Linear, l2_normalize, recomputing
+from sprc_tpu_torch.parallel.mesh import batch_offset, gather_batch
 from sprc_tpu_torch.registry import registry
 
 Tensor = torch.Tensor
@@ -71,9 +78,14 @@ def _cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
 
 def _masked_diag(sim: Tensor) -> Tensor:
     """``sim + eye * NEG_DIAG`` (the reference's ``fill_diagonal_(-10000)``,
-    as the JAX package adds it), detached, fp32."""
+    as the JAX package adds it), detached, fp32. Under ``--mesh`` ``sim`` is
+    this rank's rows [b, W b] and its diagonal starts at the rank's offset."""
     sim = sim.detach().float()
-    return sim + torch.eye(sim.shape[0], device=sim.device) * NEG_DIAG
+    b = sim.shape[0]
+    rows = torch.arange(b, device=sim.device)
+    eye = torch.zeros_like(sim)
+    eye[rows, rows + batch_offset(b)] = 1.0
+    return sim + eye * NEG_DIAG
 
 
 def _stable_top(x: Tensor, k: int) -> Tensor:
@@ -99,13 +111,17 @@ class _HardNegMixin:
     def _neg_indices(self, sim_i2t: Tensor,
                      sample_generator: Generator = None) -> Tuple[Tensor, Tensor]:
         """(neg_target [B], neg_ref [B]): per row, the hardest other target;
-        per column, the hardest other reference."""
+        per column, the hardest other reference. Under ``--mesh`` both run
+        over the global matrix (this rank's rows, then its columns: the
+        gathered rows' transpose) and index the global batch."""
         sim = _masked_diag(sim_i2t)
+        b, off = sim.shape[0], batch_offset(sim.shape[0])
+        cols = gather_batch(sim, grad=False).t()[off: off + b]
         if sample_generator is None:
-            return sim.argmax(dim=1), sim.t().argmax(dim=1)
+            return sim.argmax(dim=1), cols.argmax(dim=1)
         draw = lambda s: torch.multinomial(torch.softmax(s, dim=1), 1,  # noqa: E731
                                            generator=sample_generator)[:, 0]
-        return draw(sim), draw(sim.t())
+        return draw(sim), draw(cols)
 
 
 class _FusionItcBase(Blip2CirBase):
@@ -115,7 +131,8 @@ class _FusionItcBase(Blip2CirBase):
              generator: Generator) -> dict:
         fused_queries, fusion_feats = self.fuse_reference(ref_embeds, input_ids, text_mask,
                                                           generator)
-        target_feats = self.target_features(tgt_embeds, generator)
+        # under --mesh the global batch's targets, with their gradient
+        target_feats = gather_batch(self.target_features(tgt_embeds, generator))
         sim_i2t = self.token_max_sim(fusion_feats, target_feats) / self.temp
         return dict(tgt_embeds=tgt_embeds, fused_queries=fused_queries,
                     target_feats=target_feats, sim_i2t=sim_i2t,
@@ -127,16 +144,17 @@ class _FusionItcBase(Blip2CirBase):
         tokens (...cir_neg.py:168-246 == ...cir_full.py:170-248): 2Q query
         rows cross-attend to the targets; the ITM head reads the first Q.
         The negatives' fused queries and target embeds are detached, the
-        positives' are not."""
+        positives' are not. Under ``--mesh`` a picked negative comes from the
+        rank that holds it (its rows gathered, as LAVIS' ``image_embeds_world``)."""
         bs, Q = input_ids.shape[0], self.cfg.num_query_token
         fused = ctx["fused_queries"]
         neg_target, neg_ref = self._neg_indices(ctx["sim_i2t"], sample_generator)
-        ids_all = torch.cat([input_ids, input_ids, input_ids[neg_ref]])
-        mask_all = torch.cat([text_mask, text_mask, text_mask[neg_ref]])
-        query_fusion = torch.cat([fused, fused, fused.detach()[neg_ref]])
+        ids_all = torch.cat([input_ids, input_ids, gather_batch(input_ids, False)[neg_ref]])
+        mask_all = torch.cat([text_mask, text_mask, gather_batch(text_mask, False)[neg_ref]])
+        query_fusion = torch.cat([fused, fused, gather_batch(fused.detach(), False)[neg_ref]])
         query_embeds = torch.cat([query_fusion, self._queries(3 * bs)], dim=1)  # [3B, 2Q, H]
-        targets_all = torch.cat([ctx["tgt_embeds"], ctx["tgt_embeds"].detach()[neg_target],
-                                 ctx["tgt_embeds"]])
+        tgt = ctx["tgt_embeds"]
+        targets_all = torch.cat([tgt, gather_batch(tgt.detach(), False)[neg_target], tgt])
         with recomputing():  # 3B items: held as inputs only (the peak at batch 128)
             hidden = self.qformer(input_ids=ids_all, query_embeds=query_embeds,
                                   attention_mask=_ones_mask(mask_all, 2 * Q),
@@ -273,7 +291,7 @@ class CirNegRel(_FusionItcBase, _HardNegMixin):
                                   generator=generator)
         rel_feats = l2_normalize(self.vision_proj(rel_hidden))
         text_feat = self.encode_text_cls(input_ids, text_mask, generator)
-        sim_r2t = self.token_max_sim(text_feat, rel_feats) / self.temp
+        sim_r2t = self.token_max_sim(text_feat, gather_batch(rel_feats)) / self.temp
         return {"loss_itc": ctx["loss_itc"], "loss_itm": loss_itm,
                 "loss_rtc": cross_entropy_diagonal(sim_r2t)}
 
@@ -365,21 +383,23 @@ class CirRerank(Blip2CirBase, _HardNegMixin):
                 self.fformer(query_embeds=queries, image_embeds=tgt_embeds)))
             text_hidden = self.fformer(input_ids=input_ids, attention_mask=text_mask)
             text_feat = l2_normalize(self.text_proj_f(text_hidden[:, 0]))
-            return self.token_max_sim(text_feat, target_feats) / self.temp
+            return self.token_max_sim(text_feat, gather_batch(target_feats, False)) / self.temp
 
     def losses_from_embeds(self, ref_embeds: Tensor, tgt_embeds: Tensor, input_ids: Tensor,
                            text_mask: Tensor, *, generator: Generator = None,
                            sample_generator: Generator = None) -> Dict[str, Tensor]:
         """The ITM loss over the memory ``[reference; target]`` (:240-259):
         positives, then a hard-negative target for each reference, then a
-        hard-negative reference (with its caption) for each target."""
+        hard-negative reference (with its caption) for each target. Under
+        ``--mesh`` the negatives' rows come from the ranks that hold them,
+        with their gradient."""
         bs, Q = input_ids.shape[0], self.cfg.num_query_token
         sim_i2t = self._twin_scores(tgt_embeds, input_ids, text_mask)
         neg_target, neg_ref = self._neg_indices(sim_i2t, sample_generator)
-        ids_all = torch.cat([input_ids, input_ids, input_ids[neg_ref]])
-        mask_all = torch.cat([text_mask, text_mask, text_mask[neg_ref]])
-        reference_all = torch.cat([ref_embeds, ref_embeds, ref_embeds[neg_ref]])
-        targets_all = torch.cat([tgt_embeds, tgt_embeds[neg_target], tgt_embeds])
+        ids_all = torch.cat([input_ids, input_ids, gather_batch(input_ids, False)[neg_ref]])
+        mask_all = torch.cat([text_mask, text_mask, gather_batch(text_mask, False)[neg_ref]])
+        reference_all = torch.cat([ref_embeds, ref_embeds, gather_batch(ref_embeds)[neg_ref]])
+        targets_all = torch.cat([tgt_embeds, gather_batch(tgt_embeds)[neg_target], tgt_embeds])
         with recomputing():  # 3B items over 2 S memory rows
             hidden = self.qformer(input_ids=ids_all, query_embeds=self._queries(3 * bs),
                                   attention_mask=_ones_mask(mask_all, Q),
@@ -432,9 +452,10 @@ class CirCls(_FusionItcBase, _HardNegMixin):
         """(cand [B, K]: K - 1 negative captions, then the sample's own;
         label [B]: where the own one stands). With a ``sample_generator`` the
         negatives are drawn without replacement from the softmax and the K
-        columns permuted (:160-200)."""
+        columns permuted (:160-200). Under ``--mesh`` the captions index the
+        global batch."""
         bs, K = sim_t2t.shape[0], self.NUM_CANDIDATES
-        own = torch.arange(bs, device=sim_t2t.device)[:, None]
+        own = torch.arange(bs, device=sim_t2t.device)[:, None] + batch_offset(bs)
         if sample_generator is None:
             cand = torch.cat([_stable_top(sim_t2t, K - 1), own], dim=1)
         else:
@@ -452,12 +473,13 @@ class CirCls(_FusionItcBase, _HardNegMixin):
         ctx = self._itc(ref_embeds, tgt_embeds, input_ids, text_mask, generator)
         with torch.no_grad():  # the text-only similarity that picks the captions
             text_feat = self.encode_text_cls(input_ids, text_mask)
-            sim_t2t = _masked_diag(text_feat @ text_feat.t())
+            sim_t2t = _masked_diag(text_feat @ gather_batch(text_feat, False).t())
         cand, label = self._candidates(sim_t2t, sample_generator)
         flat = cand.reshape(-1)
+        ids_w, mask_w = gather_batch(input_ids, False), gather_batch(text_mask, False)
         with torch.no_grad():  # every candidate caption fused with the reference (:202-218)
-            neg_hidden = self.qformer(input_ids=input_ids[flat], query_embeds=self._queries(bs * K),
-                                      attention_mask=_ones_mask(text_mask[flat], Q),
+            neg_hidden = self.qformer(input_ids=ids_w[flat], query_embeds=self._queries(bs * K),
+                                      attention_mask=_ones_mask(mask_w[flat], Q),
                                       image_embeds=ref_embeds.repeat_interleave(K, dim=0))
         neg_mean = l2_normalize(neg_hidden[:, :Q].mean(dim=1).reshape(bs, K, -1))
         fusion_mean = l2_normalize(ctx["fused_queries"].mean(dim=1))

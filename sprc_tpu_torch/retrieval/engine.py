@@ -1,5 +1,5 @@
 """Retrieval engine: gallery index build + composed-query scoring
-(counterpart of ``sprc_tpu/retrieval/engine.py``, one device, no mesh).
+(counterpart of ``sprc_tpu/retrieval/engine.py``).
 
 - **Index build**: gallery images are encoded in batches padded to
   ``encode_batch`` (``extract_target_features``: tower -> ln_vision ->
@@ -34,6 +34,28 @@
   format (bf16 arrays as uint16 views, a JSON ``meta``), so either package
   reads what the other wrote.
 
+- **Cached tower rows**: :meth:`RetrievalEngine.build_index_from_tower`
+  takes ``encode_tower`` rows (the fine-tune CLI's validation cache) and
+  runs only ``ln_vision``, the queries-only Q-Former pass and the
+  projection (``encode_image`` takes a rank-3 input as tower rows, JAX's
+  rank dispatch).
+- **The mesh** (``mesh``, ``parallel/mesh.py``; JAX's ``mesh=``): each rank
+  encodes its contiguous shard of the gallery (the caller streams that
+  shard: ``cli/validate.py::index_batches``) and pads its target feats to
+  ``ceil(n / W)`` rows as JAX's ``_assemble_index`` pads the gallery to the
+  mesh; the index holds every name, its rank's rows and their offset, and
+  no rank holds another's frozen rows. ``score_queries`` fuses each query on
+  the rank that holds its reference's rows (in ``query_batch`` batches,
+  zero-padded), gathers the composed features in query order, scores every
+  query against each shard with K1 and gathers the ``[B, ceil(n / W)]``
+  rows, cut to ``n``: the unsharded ``[B, n]`` matrix on every rank, so the
+  stable ``topk`` and padding (never ranked) are as before.
+  ``GalleryIndex.reference_embeds`` / ``target_feat_rows`` fetch rows from
+  the ranks that hold them (every rank passes the same names);
+  ``GalleryIndex.save`` streams every shard into rank 0's file and
+  ``load_index`` maps the file and keeps the rank's shard. Every rank calls
+  every method with the same arguments.
+
 Everything runs under ``torch.inference_mode()``.
 """
 
@@ -41,14 +63,19 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import itertools
 import json
 import time
-from typing import Iterable, List, Optional, Sequence, Tuple
+import zipfile
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 
 from sprc_tpu_torch.ops.sim_kernels import token_max_sim
+from sprc_tpu_torch.parallel import mesh as mesh_lib
 
 # host seconds of one build, by stage (RetrievalEngine.feed_seconds): waiting
 # for the producer thread, staging and enqueueing uploads, enqueueing the
@@ -181,6 +208,11 @@ class _PinnedRows:
         return self.buf[: self.n]
 
 
+def _as_tensor(a) -> torch.Tensor:
+    """A host batch (numpy array or CPU tensor) as a contiguous CPU tensor."""
+    return a.contiguous() if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+
+
 def _pack(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -197,27 +229,52 @@ def _unpack(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 @dataclasses.dataclass
 class GalleryIndex:
-    names: List[str]
-    target_feats: torch.Tensor  # [N, Q, E] fp32, on the engine's device
-    frozen_embeds: torch.Tensor  # [N, S, D] on the host
-    n: int
+    names: List[str]  # every name of the gallery
+    target_feats: torch.Tensor  # [N, Q, E] fp32 on the engine's device (a mesh: the shard's)
+    frozen_embeds: torch.Tensor  # [N, S, D] on the host (a mesh: the shard's rows)
+    n: int  # the gallery's size
+    mesh: Any = None
+    offset: int = 0  # the global row of this rank's first row
+
+    @property
+    def rows(self) -> int:
+        """This rank's real rows (the index's, without a mesh)."""
+        return self.frozen_embeds.shape[0]
+
+    @functools.cached_property
+    def _pos(self) -> dict:
+        return {name: i for i, name in enumerate(self.names)}
+
+    def positions(self, names: Sequence[str]) -> List[int]:
+        """Global rows of ``names`` (KeyError on a name not in the gallery)."""
+        return [self._pos[n] for n in names]
 
     def reference_embeds(self, names: Sequence[str]) -> torch.Tensor:
         """Frozen embeds of reference images by name (the reference's
-        name_to_feat dict, validate_blip.py:377)."""
-        index = {name: i for i, name in enumerate(self.names)}
-        return self.frozen_embeds[[index[n] for n in names]]
+        name_to_feat dict, validate_blip.py:377); under a mesh fetched from
+        the ranks that hold them (on the mesh's device)."""
+        rows = self.positions(names)
+        if self.mesh is None:
+            return self.frozen_embeds[rows]
+        return mesh_lib.gather_owned_rows(self.frozen_embeds, self.offset, rows, self.mesh,
+                                          device=self.mesh.device)
 
     def target_feat_rows(self, names: Sequence[str]) -> torch.Tensor:
         """Projected target feats [n, Q, E] fp32 by name, on the engine's
         device: the candidates of a feature-space reranker (``RERANK_INPUT ==
         "feats"``, blip2_cir_cat)."""
-        index = {name: i for i, name in enumerate(self.names)}
-        rows = torch.as_tensor([index[n] for n in names], device=self.target_feats.device)
-        return self.target_feats[rows].float()
+        rows = self.positions(names)
+        if self.mesh is None:
+            idx = torch.as_tensor(rows, device=self.target_feats.device)
+            return self.target_feats[idx].float()
+        return mesh_lib.gather_owned_rows(self.target_feats[: self.rows], self.offset, rows,
+                                          self.mesh).float()
 
     def save(self, path: str) -> None:
-        """Persist to <path>.npz in the format both packages read."""
+        """Persist to <path>.npz in the format both packages read (under a
+        mesh every rank calls it and rank 0 writes every shard's rows)."""
+        if self.mesh is not None:
+            return _save_sharded(self, path)
         feats, feats_dtype = _pack(self.target_feats[: self.n])
         frozen, frozen_dtype = _pack(self.frozen_embeds)
         meta = {"names": self.names, "n": self.n, "feats_dtype": feats_dtype,
@@ -226,12 +283,68 @@ class GalleryIndex:
                  meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
 
 
+SAVE_CHUNK_ROWS = 256  # rows a message when a shard streams to rank 0
+
+
+def _save_sharded(index: GalleryIndex, path: str) -> None:
+    """:meth:`GalleryIndex.save` over a mesh: rank 0 writes the ``.npz``
+    member by member (``np.savez``'s layout: stored, one ``.npy`` each) and
+    every shard's rows reach it in order, ``SAVE_CHUNK_ROWS`` at a time, so
+    no rank holds the whole gallery."""
+    mesh = index.mesh
+    counts = mesh_lib.all_gather_object(index.rows, mesh)
+    parts = {"target_feats": index.target_feats[: index.rows], "frozen_embeds": index.frozen_embeds}
+    dtypes = {k: _pack(v[:0])[1] for k, v in parts.items()}
+    zf = None
+    if mesh.is_main:
+        path = path if path.endswith(".npz") else path + ".npz"
+        zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED, allowZip64=True)
+    try:
+        for key, local in parts.items():
+            member = None
+            if zf is not None:
+                member = zf.open(key + ".npy", "w", force_zip64=True)
+                sample = _pack(local[:0])[0]
+                np.lib.format.write_array_header_2_0(member, {
+                    "descr": np.lib.format.dtype_to_descr(sample.dtype), "fortran_order": False,
+                    "shape": (index.n,) + tuple(local.shape[1:])})
+            for src, count in enumerate(counts):
+                for s in range(0, count, SAVE_CHUNK_ROWS):
+                    rows = min(SAVE_CHUNK_ROWS, count - s)
+                    if src == mesh.rank:
+                        chunk = local[s: s + rows]
+                        if src != 0:
+                            torch_dist.send(chunk.to(mesh.device).contiguous(), dst=0)
+                    elif mesh.is_main:
+                        chunk = torch.empty((rows,) + tuple(local.shape[1:]), dtype=local.dtype,
+                                            device=mesh.device)
+                        torch_dist.recv(chunk, src=src)
+                    if member is not None:
+                        member.write(_pack(chunk)[0].tobytes())
+            if member is not None:
+                member.close()
+        if zf is not None:
+            meta = {"names": index.names, "n": index.n, "feats_dtype": dtypes["target_feats"],
+                    "frozen_dtype": dtypes["frozen_embeds"]}
+            with zf.open("meta.npy", "w", force_zip64=True) as member:
+                np.lib.format.write_array(member, np.frombuffer(json.dumps(meta).encode(),
+                                                                dtype=np.uint8))
+    finally:
+        if zf is not None:
+            zf.close()
+    torch_dist.barrier()
+
+
 class RetrievalEngine:
     def __init__(self, model, tokenizer=None, *, device, encode_batch: int = 64,
-                 query_batch: int = 32, frozen_host_dtype: Optional[torch.dtype] = None):
+                 query_batch: int = 32, frozen_host_dtype: Optional[torch.dtype] = None,
+                 mesh=None):
         self.model = model
         self.tokenizer = tokenizer
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"device {self.device} is not the mesh's {mesh.device}")
         self.encode_batch = encode_batch
         self.query_batch = query_batch
         self.frozen_host_dtype = frozen_host_dtype
@@ -247,6 +360,20 @@ class RetrievalEngine:
         a short batch is padded to ``encode_batch`` with zero images."""
         return self._assemble_index(*self._pipelined_encode(
             ((names, (images,)) for names, images in batches), ((torch.float32, 0),),
+            self.model.extract_target_features))
+
+    def build_index_from_tower(self, batches: Iterable[Tuple[Sequence[str], Any]]
+                               ) -> GalleryIndex:
+        """batches yield (names, ``encode_tower`` rows [b, S, D], a tensor or
+        array in the tower's dtype): the index the pixels would give, with
+        only ``ln_vision``, the queries-only Q-Former pass and the projection
+        run (``encode_image`` dispatches on the input's rank)."""
+        it = iter(batches)
+        first = next(it, None)
+        spec = ((torch.float32, 0),) if first is None else ((torch.as_tensor(first[1]).dtype, 0),)
+        stream = itertools.chain(() if first is None else (first,), it)
+        return self._assemble_index(*self._pipelined_encode(
+            ((names, (rows,)) for names, rows in stream), spec,
             self.model.extract_target_features))
 
     def build_index_raw(
@@ -293,7 +420,7 @@ class RetrievalEngine:
         ring.rotate(-1)
         slot.uploaded.synchronize()  # its last copy out of the pinned buffers is done
         for host, a, (_, fill) in zip(slot.host, arrays, specs):
-            host[:b].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+            host[:b].copy_(_as_tensor(a))
             if b < self.encode_batch:
                 host[b:].fill_(fill)
         self._h2d.wait_event(slot.consumed)
@@ -333,10 +460,12 @@ class RetrievalEngine:
             else:
                 tensors = []
                 for a, (dtype, fill) in zip(arrays, specs):
+                    t = _as_tensor(a)
                     if b < self.encode_batch:
-                        pad = np.full((self.encode_batch - b,) + a.shape[1:], fill, a.dtype)
-                        a = np.concatenate([a, pad], axis=0)
-                    tensors.append(torch.from_numpy(np.ascontiguousarray(a)).to(dtype))
+                        pad = torch.full((self.encode_batch - b,) + tuple(t.shape[1:]), fill,
+                                         dtype=t.dtype)
+                        t = torch.cat([t, pad])
+                    tensors.append(t.to(dtype))
             t1 = clock()
             feats, frozen = encode(*tensors)
             if self.frozen_host_dtype is not None:
@@ -379,62 +508,170 @@ class RetrievalEngine:
         finally:
             it.close()
         if not names:
-            raise ValueError("the gallery is empty: no batch to encode")
+            if self.mesh is None:
+                raise ValueError("the gallery is empty: no batch to encode")
+            return names, feats_parts, None  # a shard with no rows: shaped by the others
         return names, feats_parts, pinned.rows() if cuda else torch.cat(frozen_parts)
 
     def _assemble_index(self, names, feats_parts, frozen) -> GalleryIndex:
         """The index over the device's target feats (concatenated on the
-        device) and the host's frozen embeds."""
+        device) and the host's frozen embeds; under a mesh over this rank's
+        shard, padded to ``ceil(n / W)`` rows."""
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            return self._assemble_shard(names, feats_parts, frozen, t0)
         feats = torch.cat([f.to(self.device, torch.float32) for f in feats_parts]).contiguous()
         index = GalleryIndex(names=list(names), target_feats=feats, frozen_embeds=frozen,
                              n=len(names))
         self.feed_seconds["assembly"] += time.perf_counter() - t0
         return index
 
+    def _assemble_shard(self, names, feats_parts, frozen, t0) -> GalleryIndex:
+        mesh = self.mesh
+        shapes = None
+        if frozen is not None:
+            shapes = (tuple(frozen.shape[1:]), frozen.dtype,
+                      tuple(feats_parts[0].shape[1:]))
+        everyone = mesh_lib.all_gather_object((list(names), shapes), mesh)
+        all_names = [name for part, _ in everyone for name in part]
+        n = len(all_names)
+        if not n:
+            raise ValueError("the gallery is empty: no batch to encode")
+        per = -(-n // mesh.world)
+        for rank, (part, _) in enumerate(everyone):
+            want = len(range(min(n, rank * per), min(n, (rank + 1) * per)))
+            if len(part) != want:
+                raise ValueError(f"rank {rank} encoded {len(part)} images; its contiguous "
+                                 f"shard of {n} holds {want} (stream mesh.shard(n))")
+        frozen_shape, frozen_dtype, feats_shape = next(s for _, s in everyone if s is not None)
+        if frozen is None:
+            frozen = torch.empty((0,) + frozen_shape, dtype=frozen_dtype)
+        feats = torch.zeros((per,) + feats_shape, dtype=torch.float32, device=self.device)
+        start = 0
+        for f in feats_parts:
+            feats[start: start + f.shape[0]] = f.to(self.device, torch.float32)
+            start += f.shape[0]
+        index = GalleryIndex(names=all_names, target_feats=feats, frozen_embeds=frozen, n=n,
+                             mesh=mesh, offset=min(n, mesh.rank * per))
+        self.feed_seconds["assembly"] += time.perf_counter() - t0
+        return index
+
     def load_index(self, path: str) -> GalleryIndex:
-        """Reload a :meth:`GalleryIndex.save` file (from either package)."""
-        npz = np.load(path if path.endswith(".npz") else path + ".npz")
+        """Reload a :meth:`GalleryIndex.save` file (from either package);
+        under a mesh each rank maps the file and keeps its shard."""
+        from sprc_tpu_torch.train.feature_cache import npz_memmap
+
+        path = path if path.endswith(".npz") else path + ".npz"
+        npz = np.load(path)
         meta = json.loads(bytes(npz["meta"].tobytes()).decode())
-        feats = _unpack(npz["target_feats"], meta["feats_dtype"])
-        frozen = _unpack(npz["frozen_embeds"], meta["frozen_dtype"])
+        if self.mesh is None:
+            feats = _unpack(npz["target_feats"], meta["feats_dtype"])
+            frozen = _unpack(npz["frozen_embeds"], meta["frozen_dtype"])
+        else:
+            part = self.mesh.shard(meta["n"])
+            feats, frozen = (_unpack(np.array(npz_memmap(path, key)[part.start: part.stop]),
+                                     meta[dt])
+                             for key, dt in (("target_feats", "feats_dtype"),
+                                             ("frozen_embeds", "frozen_dtype")))
+            if len(feats) != len(part) or len(frozen) != len(part):
+                raise ValueError(f"{path}: index holds fewer rows than meta's {meta['n']}")
+            return self._assemble_index(meta["names"][part.start: part.stop],
+                                        [feats] if len(feats) else [], frozen if len(frozen)
+                                        else None)
         if feats.shape[0] != meta["n"] or frozen.shape[0] != meta["n"]:
             raise ValueError(f"{path}: index holds {feats.shape[0]} rows, meta says {meta['n']}")
         return self._assemble_index(meta["names"], [feats], frozen)
 
     # --------------------------------------------------------------- scoring
 
+    def _sims(self, index: GalleryIndex, feats: torch.Tensor) -> torch.Tensor:
+        """Composed features [B, E] against the gallery: [B, n] on the
+        device (under a mesh each shard's rows gathered and cut to n)."""
+        sims = token_max_sim(feats.float().contiguous(), index.target_feats)
+        if index.mesh is not None:
+            parts = [torch.empty_like(sims) for _ in range(index.mesh.world)]
+            torch_dist.all_gather(parts, sims.contiguous())
+            sims = torch.cat(parts, dim=1)
+        return sims[:, : index.n]
+
     def score_batch(self, index: GalleryIndex, reference_embeds: torch.Tensor,
                     input_ids: np.ndarray, text_mask: np.ndarray) -> np.ndarray:
-        """One query batch -> [B, N] sims (host numpy)."""
+        """One query batch -> [B, N] sims (host numpy); under a mesh every
+        rank passes the same batch."""
         with torch.inference_mode():
             ref = reference_embeds.to(self.device)
             ids = torch.as_tensor(input_ids, device=self.device)
             mask = torch.as_tensor(text_mask, device=self.device)
             feats = self.model.fusion_feature(ref, ids, mask)
-            sims = token_max_sim(feats.float().contiguous(), index.target_feats)
-            return sims[:, : index.n].cpu().numpy()
+            return self._sims(index, feats).cpu().numpy()
+
+    def _padded(self, refs: torch.Tensor, captions: Sequence[str]):
+        """A query batch padded to ``query_batch``: zero references, zero ids
+        and an all-ones mask (never a fully masked row)."""
+        max_txt_len, qb = self.model.cfg.max_txt_len, self.query_batch
+        tok = self.tokenizer(list(captions), max_length=max_txt_len)
+        ids, mask = tok["input_ids"], tok["attention_mask"]
+        b = len(captions)
+        if b < qb:
+            pad = qb - b
+            refs = torch.cat([refs, refs.new_zeros((pad,) + refs.shape[1:])])
+            ids = np.concatenate([ids, np.zeros((pad, max_txt_len), np.int32)])
+            mask = np.concatenate([mask, np.ones((pad, max_txt_len), np.int32)])
+        return refs, ids, mask
 
     def score_queries(self, index: GalleryIndex, reference_names: Sequence[str],
                       captions: Sequence[str]) -> np.ndarray:
         """Full query set -> [num_queries, N] sims. Tokenizes on the host."""
         if self.tokenizer is None:
             raise ValueError("score_queries needs a tokenizer")
-        max_txt_len = self.model.cfg.max_txt_len
+        if index.mesh is not None:
+            return self._score_sharded(index, reference_names, captions)
         out: List[np.ndarray] = []
         qb = self.query_batch
         for i in range(0, len(captions), qb):
             chunk_caps = list(captions[i: i + qb])
-            tok = self.tokenizer(chunk_caps, max_length=max_txt_len)
             refs = index.reference_embeds(reference_names[i: i + qb])
-            ids, mask = tok["input_ids"], tok["attention_mask"]
-            b = len(chunk_caps)
-            if b < qb:  # pad to the batch size; mask ones keep every row unmasked
-                pad = qb - b
-                refs = torch.cat([refs, refs.new_zeros((pad,) + refs.shape[1:])])
-                ids = np.concatenate([ids, np.zeros((pad, max_txt_len), np.int32)])
-                mask = np.concatenate([mask, np.ones((pad, max_txt_len), np.int32)])
-            out.append(self.score_batch(index, refs, ids, mask)[:b])
+            refs, ids, mask = self._padded(refs, chunk_caps)
+            out.append(self.score_batch(index, refs, ids, mask)[: len(chunk_caps)])
+        return np.concatenate(out, axis=0)
+
+    def _score_sharded(self, index: GalleryIndex, reference_names: Sequence[str],
+                       captions: Sequence[str]) -> np.ndarray:
+        """:meth:`score_queries` over a mesh: each query fused on the rank
+        that holds its reference's frozen rows (in ``query_batch`` batches
+        of those queries, zero-padded as unsharded), the composed features
+        gathered in query order, and every ``query_batch`` of them scored
+        against each shard (K1) and gathered (:meth:`_sims`)."""
+        mesh, qb = index.mesh, self.query_batch
+        rows = np.asarray(index.positions(reference_names), dtype=np.int64)
+        per = index.target_feats.shape[0]
+        owner = rows // per
+        mine = np.flatnonzero(owner == mesh.rank)
+        counts = np.bincount(owner, minlength=mesh.world)
+        E = self.model.cfg.embed_dim
+        with torch.inference_mode():
+            local = torch.zeros((max(1, int(counts.max())), E), device=self.device)
+            for s in range(0, len(mine), qb):
+                q = mine[s: s + qb]
+                refs = index.frozen_embeds[torch.as_tensor(rows[q] - index.offset)]
+                refs, ids, mask = self._padded(refs, [captions[j] for j in q])
+                feats = self.model.fusion_feature(
+                    refs.to(self.device), torch.as_tensor(ids, device=self.device),
+                    torch.as_tensor(mask, device=self.device))
+                local[s: s + len(q)] = feats[: len(q)].float()
+            parts = [torch.empty_like(local) for _ in range(mesh.world)]
+            torch_dist.all_gather(parts, local)
+            feats = torch.empty((len(rows), E), device=self.device)
+            for rank, part in enumerate(parts):
+                feats[torch.as_tensor(np.flatnonzero(owner == rank), device=self.device)] = \
+                    part[: counts[rank]]
+            out: List[np.ndarray] = []
+            for i in range(0, len(rows), qb):
+                chunk = feats[i: i + qb]
+                b = chunk.shape[0]
+                if b < qb:  # K1 at the unsharded batch's shape
+                    chunk = torch.cat([chunk, chunk.new_zeros((qb - b, E))])
+                out.append(self._sims(index, chunk)[:b].cpu().numpy())
         return np.concatenate(out, axis=0)
 
     # ----------------------------------------------------------------- top-K

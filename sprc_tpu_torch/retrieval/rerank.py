@@ -16,6 +16,12 @@ rows and text are repeated ``top`` times on the device, and
 bounded by one tile whatever the gallery's size. The JAX scorer pads the
 last tile to ``step`` queries for one compiled shape; this one runs the
 short tile as it is (the scores are the same).
+
+Under ``--mesh`` (the scorer's ``mesh``) every rank runs the same loop:
+the tile's rows come from the ranks that hold them
+(``GalleryIndex.reference_embeds``), each rank scores its contiguous share
+of the tile's queries (all their candidates), and the scores are gathered
+in query order, so every rank rewrites the same ranking.
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ class ItmRerankScorer:
     upload (their gather is the caller's ``cand_to_embed``), the model
     (enqueue and the scores' readback, which waits for the device)."""
 
-    def __init__(self, model, tokenizer, *, top: int, step: int):
+    def __init__(self, model, tokenizer, *, top: int, step: int, mesh=None):
         if not hasattr(model, "inference_rerank"):
             raise ValueError(f"{type(model).__name__} has no inference_rerank: rerank needs a "
                              "rerank-capable model (blip2_cir_rerank, blip2_cir_cat)")
@@ -84,11 +90,29 @@ class ItmRerankScorer:
         self.top = top
         self.step = step
         self.device = next(model.parameters()).device
+        self.mesh = mesh
         self.seconds = {"tokenize": 0.0, "upload": 0.0, "model": 0.0}
 
     def __call__(self, refs, cands, captions) -> np.ndarray:
         """refs [s, S, D]; cands [s * top, ...] (frozen embeds or target
         feats, host or device) -> scores [s * top] (numpy fp32)."""
+        if self.mesh is None:
+            return self._score(refs, cands, captions)
+        import torch.distributed as torch_dist
+
+        s, top, world = len(captions), self.top, self.mesh.world
+        per = -(-s // world)
+        lo, hi = min(s, self.mesh.rank * per), min(s, (self.mesh.rank + 1) * per)
+        mine = torch.zeros(per * top, dtype=torch.float32, device=self.mesh.device)
+        if hi > lo:
+            mine[: (hi - lo) * top] = torch.from_numpy(self._score(
+                refs[lo:hi], cands[lo * top: hi * top], captions[lo:hi])).to(self.mesh.device)
+        parts = [torch.empty_like(mine) for _ in range(world)]
+        torch_dist.all_gather(parts, mine)
+        return torch.cat(parts)[: s * top].cpu().numpy()
+
+    def _score(self, refs, cands, captions) -> np.ndarray:
+        """One device's share of a tile."""
         clock = time.perf_counter
         t0 = clock()
         tok = self.tokenizer(list(captions), max_length=self.model.cfg.max_txt_len)

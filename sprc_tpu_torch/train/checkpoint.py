@@ -22,9 +22,15 @@ CLASS_NAME = "Blip2QformerCirAlignPrompt"
 
 
 def save_state(path: str, trainer) -> None:
-    """Write ``trainer.state_dict()`` to ``path`` (a file)."""
+    """Write ``trainer.state_dict()`` to ``path`` (a file). Under a mesh
+    every rank calls it (the state gathers each rank's generator) and rank 0
+    writes."""
+    state = trainer.state_dict()
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is not None and not mesh.is_main:
+        return
     tmp = path + ".tmp"
-    torch.save(trainer.state_dict(), tmp)
+    torch.save(state, tmp)
     os.replace(tmp, path)
 
 

@@ -52,13 +52,41 @@ class FeatureCache:
             json.dump({"names": self.names, "dtype": stored}, f)
 
     @classmethod
-    def load(cls, path: str) -> "FeatureCache":
+    def load(cls, path: str, mmap: bool = False) -> "FeatureCache":
+        """Read a :meth:`save` file; with ``mmap`` the rows stay in the file
+        (copy-on-write pages, which processes reading one file share)."""
         with open(path + ".names.json") as f:
             meta = json.load(f)
-        rows = np.load(path if path.endswith(".npz") else path + ".npz")["rows"]
+        npz = path if path.endswith(".npz") else path + ".npz"
+        rows = npz_memmap(npz, "rows") if mmap else np.load(npz)["rows"]
         if meta["dtype"] == "bfloat16":
             return cls(meta["names"], torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16))
         return cls(meta["names"], torch.from_numpy(rows))
+
+
+def npz_memmap(path: str, key: str, mode: str = "c") -> np.ndarray:
+    """Array ``key`` of an uncompressed ``.npz`` (``np.savez``'s) mapped from
+    the file, without reading it: the member's offset from its zip header,
+    the array's from its ``.npy`` header."""
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        info = zf.getinfo(key + ".npy")
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise ValueError(f"{path}: {key} is compressed; it cannot be mapped")
+        with zf.open(info) as member:
+            version = np.lib.format.read_magic(member)
+            read = {(1, 0): np.lib.format.read_array_header_1_0,
+                    (2, 0): np.lib.format.read_array_header_2_0}[version]
+            shape, fortran, dtype = read(member)
+            header = member.tell()
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+    start = (info.header_offset + 30 + int.from_bytes(local[26:28], "little")
+             + int.from_bytes(local[28:30], "little"))
+    return np.memmap(path, dtype=dtype, mode=mode, offset=start + header, shape=shape,
+                     order="F" if fortran else "C")
 
 
 def build_feature_cache(model, batches: Iterable[Tuple[Sequence[str], np.ndarray]]

@@ -52,6 +52,19 @@ package has it:
   skipped as non-finite keeps the old one, as JAX's), and saves and
   restores it with the rest.
 
+Under ``--mesh`` (``mesh``, a :class:`~sprc_tpu_torch.parallel.mesh.Mesh`;
+``parallel/mesh.py``) the model's parameters and buffers start as rank 0's,
+each rank runs its rows of the global batch with the mesh active (the
+in-batch terms gather the global batch), its loss is the mean over its
+rows, and the gradients are all-reduced to their mean once an update, after
+the accumulation, so the AdamW update is the global batch's (JAX's step
+with the batch sharded over ``data``); frozen tensors take no gradient and
+no traffic. ``skip_nonfinite`` decides over every rank (an all-reduce of
+the flag, so the ranks skip together), and the losses returned are the
+global batch's. Rank r's dropout generator is seeded ``seed + r * 2**32``
+(rank 0's is world 1's); the state saves every rank's, and each rank
+restores its own.
+
 On the card the step launches kernel K2's chain in the tower (live steps;
 with a trainable tower through ``FusedViTBlock``, whose backward recomputes
 the plain block) and K1 in the in-batch losses; the Q-Former runs unfused in
@@ -69,6 +82,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from sprc_tpu_torch.parallel import mesh as mesh_lib
 from sprc_tpu_torch.train.schedules import onecycle_schedule
 
 Tensor = torch.Tensor
@@ -133,8 +147,10 @@ class Trainer:
     would round a decay of lr x 0.05 away)."""
 
     def __init__(self, model, cfg: TrainConfig, *, seed: int = 0, from_embeds: bool = False,
-                 skip_nonfinite: bool = False, decay_frozen: bool = False):
-        self.model, self.cfg = model, cfg
+                 skip_nonfinite: bool = False, decay_frozen: bool = False, mesh=None):
+        self.model, self.cfg, self.mesh = model, cfg, mesh
+        if mesh is not None:
+            mesh_lib.replicate(mesh, model)
         self.from_embeds, self.skip_nonfinite = from_embeds, skip_nonfinite
         self.names = [n for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -158,7 +174,9 @@ class Trainer:
                        "lr_scale": scale} for scale in dict.fromkeys(scales)]
         self.optimizer = torch.optim.AdamW(groups, lr=self.schedule(0), betas=BETAS,
                                            eps=EPS, weight_decay=cfg.weight_decay)
-        self.generator = torch.Generator(device=self.params[0].device).manual_seed(seed)
+        rank = 0 if mesh is None else mesh.rank
+        self.generator = torch.Generator(device=self.params[0].device).manual_seed(
+            seed + (rank << 32))
         self.step = 0  # micro-steps taken
         self.updates = 0  # optimizer updates applied: the schedule's count
         self.mini_step = 0  # micro-steps in the open accumulation
@@ -200,11 +218,13 @@ class Trainer:
     def forward(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """The model's losses on one batch, in training mode."""
         ids, mask = batch["input_ids"], batch["text_mask"]
-        if self.from_embeds:
-            return self.model.forward_cached(batch["reference_embeds"], batch["target_embeds"],
-                                             ids, mask, generator=self.generator)
-        return self.model(batch["reference"], batch["target"], ids, mask,
-                          generator=self.generator)
+        with mesh_lib.active(self.mesh):
+            if self.from_embeds:
+                return self.model.forward_cached(batch["reference_embeds"],
+                                                 batch["target_embeds"], ids, mask,
+                                                 generator=self.generator)
+            return self.model(batch["reference"], batch["target"], ids, mask,
+                              generator=self.generator)
 
     def train_step(self, batch: Dict[str, Tensor]) -> Dict[str, float]:
         """One micro-step; returns the losses, ``loss`` (the weighted total)
@@ -215,9 +235,14 @@ class Trainer:
         if self.skip_nonfinite:
             finite = torch.stack([torch.isfinite(total)]
                                  + [torch.isfinite(g).all() for g in grads]).all()
-            values.append(finite.float())
-        host = torch.stack(values).tolist()
-        ok = not self.skip_nonfinite or host[-1] == 1.0
+            values.append(1.0 - finite.float())  # non-finite: summed over the ranks
+        values = torch.stack([v.float() for v in values])
+        if self.mesh is not None:  # the global batch's losses, every rank's verdict
+            torch.distributed.all_reduce(values)
+            n = len(values) - (1 if self.skip_nonfinite else 0)
+            values[:n] /= self.mesh.world
+        host = values.tolist()
+        ok = not self.skip_nonfinite or host[-1] == 0.0
         if ok:
             self.apply_gradients(grads)
             if self.next_aux is not None:
@@ -244,6 +269,8 @@ class Trainer:
             if self.mini_step < k:
                 return
             grads, self.mini_step = self.acc, 0
+        if self.mesh is not None:  # the global batch's gradient, once an update
+            mesh_lib.all_reduce_mean_(grads, self.mesh)
         for u, g in zip(self.updated, grads):
             u.grad = g
         lr = self.schedule(self.updates)
@@ -268,8 +295,14 @@ class Trainer:
     # ------------------------------------------------------------ state
 
     def state_dict(self) -> dict:
-        """Everything a resume needs (tensors by reference)."""
-        return {"step": self.step, "updates": self.updates, "mini_step": self.mini_step,
+        """Everything a resume needs (tensors by reference); under a mesh
+        every rank's dropout generator (a collective: every rank calls it)."""
+        extra = {}
+        if self.mesh is not None:
+            extra["generators"] = mesh_lib.all_gather_object(self.generator.get_state(),
+                                                             self.mesh)
+        return {**extra, "step": self.step, "updates": self.updates,
+                "mini_step": self.mini_step,
                 "epoch": self.epoch,
                 "trainable": dict(zip(self.names, (u.detach() for u in self.updated))),
                 "decayed": dict(zip(self.decayed_names, (m.detach() for m in self.masters))),
@@ -294,7 +327,14 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
         device = self.params[0].device
         self.acc = None if state["acc"] is None else [a.to(device) for a in state["acc"]]
-        self.generator.set_state(state["generator"].cpu())
+        generator = state["generator"]
+        if self.mesh is not None and self.mesh.rank > 0:  # this rank's own stream
+            saved = state.get("generators") or []
+            if len(saved) != self.mesh.world:
+                raise ValueError(f"the state holds {len(saved)} ranks' dropout generators; "
+                                 f"the mesh has {self.mesh.world}")
+            generator = saved[self.mesh.rank]
+        self.generator.set_state(generator.cpu())
         self.step, self.updates = state["step"], state["updates"]
         self.mini_step, self.epoch = state["mini_step"], state["epoch"]
         self.aux = _to_device(state.get("aux"), device)

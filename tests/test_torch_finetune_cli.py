@@ -187,18 +187,17 @@ def test_cached_features_build_then_load(cirr_root, vocab, tmp_path, capsys):  #
         assert np.isfinite(json.loads(line)["loss"])
 
 
-def test_flags_are_the_jax_clis_without_mesh_and_remat():
+def test_flags_are_the_jax_clis_with_mesh_and_remat():
     def flags(parser):
         return {a.dest: a.default for a in parser._actions if a.dest != "help"}
 
     jax_flags, port_flags = flags(jcli.make_parser()), flags(pcli.make_parser())
-    assert set(jax_flags) - set(port_flags) == {"mesh"}  # --remat came with the unfrozen tower
+    assert set(jax_flags) - set(port_flags) == set()  # --remat and --mesh included
     assert set(port_flags) - set(jax_flags) == {"device"}
-    assert all(port_flags[k] == v for k, v in jax_flags.items() if k in port_flags)
+    assert all(port_flags[k] == v for k, v in jax_flags.items())
     assert port_flags["device"] == "cuda"
     parser = pcli.make_parser()
-    with pytest.raises(SystemExit):
-        parser.parse_args(["--dataset", "CIRR", "--data-path", "x", "--mesh"])
+    assert parser.parse_args(["--dataset", "CIRR", "--data-path", "x", "--mesh"]).mesh
     assert parser.parse_args(["--dataset", "CIRR", "--data-path", "x", "--remat"]).remat
     if torch.cuda.is_available():
         return

@@ -266,9 +266,9 @@ def test_iter_runner_step_count_equals_jax(tmp_path, monkeypatch):
 def test_cli_train_routes_as_jax(data, tmp_path, monkeypatch, caplog):
     """A CIR run config (configs/runs/cirr_finetune.yaml) starts the fine-tune
     that the equivalent cli/finetune.py flags start, with the JAX CLI's
-    translation (``run.remat`` as ``--remat``); a key the port's finetune has
-    no flag for (``run.mesh``) warns and is not applied; the generic route
-    trains configs/runs/pretrain_stage1.yaml on the tiny model."""
+    translation (``run.remat`` as ``--remat``, ``run.mesh`` as ``--mesh``:
+    applied, as in JAX, not warned about); the generic route trains
+    configs/runs/pretrain_stage1.yaml on the tiny model."""
     from sprc_tpu.cli import finetune as jfinetune
     from sprc_tpu.cli import train as jtrain
 
@@ -284,7 +284,7 @@ def test_cli_train_routes_as_jax(data, tmp_path, monkeypatch, caplog):
     jtrain.main(argv)
     with caplog.at_level("WARNING"):
         train.main(argv)
-    assert any("run.mesh is not a finetune flag" in r.getMessage() for r in caplog.records)
+    assert not any("is not a finetune flag" in r.getMessage() for r in caplog.records)
     want = finetune.make_parser().parse_args(
         ["--dataset", "CIRR", "--data-path", "/data/cirr", "--vocab-path", data["vocab"],
          "--output-dir", str(tmp_path / "cir"), "--batch-size", "128", "--num-epochs", "50",
@@ -292,7 +292,8 @@ def test_cli_train_routes_as_jax(data, tmp_path, monkeypatch, caplog):
          "--loss-align", "0.4", "--target-ratio", "1.25", "--selection-metric",
          "arithmetic_mean", "--remat"])
     got = vars(seen["port"])
-    assert got == vars(want) and got["remat"] is True and not hasattr(seen["port"], "mesh")
+    assert got == dict(vars(want), mesh="1x1") and got["remat"] is True
+    assert vars(seen["jax"])["mesh"] == "1x1"
     port_only = {"device"}  # the port's flag beyond the JAX CLI's
     assert {k: v for k, v in vars(seen["jax"]).items() if k in got} == {
         k: v for k, v in got.items() if k not in port_only}

@@ -154,6 +154,16 @@ assert all(callable(f) for f in (
 assert ("gpt_dialogue", "base") in loader.FAMILY_CONFIGS and len(loader.model_zoo) > 0
 assert {"registry", "extract_features", "load_model", "load_model_and_preprocess",
         "model_zoo", "__version__"} <= set(sprc_tpu_torch.__all__)
+# data parallelism over torch.distributed: the rank helpers, the mesh and its
+# collectives, the dry run; importing them joins no process group
+assert {"sprc_tpu_torch.parallel", "sprc_tpu_torch.parallel.dist",
+        "sprc_tpu_torch.parallel.mesh", "sprc_tpu_torch.parallel.dryrun"} <= set(mods)
+from sprc_tpu_torch.parallel import dist, dryrun, mesh
+assert not dist.is_dist_avail_and_initialized() and mesh.current() is None
+assert all(callable(f) for f in (
+    dist.broadcast_from_main, dist.main_process_first, mesh.make_mesh, mesh.shard_batch,
+    mesh.replicate, mesh.all_gather_with_grad, mesh.concat_all_gather, mesh.launch_or_join,
+    mesh.spawn, dryrun.main))
 assert "cv2" not in sys.modules, "importing read OpenCV"
 assert "tokenizers" not in sys.modules, "importing read the tokenizers package"
 assert "yaml" not in sys.modules or sys.modules["yaml"] is None, "importing read PyYAML"

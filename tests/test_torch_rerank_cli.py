@@ -129,11 +129,11 @@ def test_validate_rerank_matches_jax(dataset, style, rerank_checkpoints, cirr_ro
 
 def test_validate_rerank_flags_and_defaults_are_the_jax_clis():
     """The JAX CLI's flags and defaults (CIRR top 200 / step 15, else 40 /
-    40), plus --device and without --mesh."""
+    40), --mesh included, plus --device."""
     jflags = {a.dest: a.default for a in jrcli.make_parser()._actions}
     pflags = {a.dest: a.default for a in prcli.make_parser()._actions}
-    assert set(jflags) - set(pflags) == {"mesh"} and set(pflags) - set(jflags) == {"device"}
-    assert all(pflags[k] == v for k, v in jflags.items() if k != "mesh")
+    assert set(jflags) - set(pflags) == set() and set(pflags) - set(jflags) == {"device"}
+    assert all(pflags[k] == v for k, v in jflags.items())
     for dataset, want in (("CIRR", (200, 15)), ("fashionIQ", (40, 40)), ("CIRCO", (40, 40))):
         args = prcli.parse_args(["--dataset", dataset, "--data-path", "x"])
         assert (args.rerank_top, args.rerank_step) == want

@@ -133,12 +133,12 @@ def test_rerank_is_refused_by_the_service():
     assert errors[0] == errors[1] and "--rerank-top" in errors[1]
 
 
-# the flags both parsers have (the JAX CLI's --mesh comes with the device
-# mesh; the port's --seed, --qformer-int8 and --device are its own)
+# the flags both parsers have (--mesh among them; the port's --seed,
+# --qformer-int8 and --device are its own)
 SHARED = ["dataset", "data_path", "split", "index_path", "save_index", "model_name",
           "model_type", "model_path", "vocab_path", "target_ratio", "encode_batch",
           "query_batch", "workers", "rerank_top", "rerank_step", "dress_types", "bf16", "host",
-          "port"]
+          "port", "mesh"]
 
 
 def _actions(parser):
@@ -148,7 +148,7 @@ def _actions(parser):
 def test_the_shared_flags_are_the_listed_ones():
     jax_only, port_only = set(_actions(jserve.make_parser())), set(_actions(pserve.make_parser()))
     assert sorted(jax_only & port_only) == sorted(SHARED)
-    assert jax_only - port_only == {"mesh"}
+    assert jax_only - port_only == set()
 
 
 @pytest.mark.parametrize("dest", SHARED)
