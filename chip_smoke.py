@@ -253,7 +253,8 @@ Phases (any failure raises and exits nonzero before the last line):
        (kernel_checks.profile_decode_step: the device's busy share, the ATen
        operators and the launches a step). generate_ids(use_cache=False) on the kernel route over the
        first batch: every step's logits up to each row's first differing
-       id within the head's logits bound. The all-plain run
+       id within the head's logits bound and RECOMPUTE_SPREAD_FRACTION of
+       the cached steps' logits spread. The all-plain run
        (primitives.plain_reference) on the same weights: the frozen rows,
        the query rows, the projected rows and the prefill logits within
        CAPTION_BOUNDS, the LLM's prefill on the kernel run's own projected
@@ -539,7 +540,36 @@ Phases (any failure raises and exits nonzero before the last line):
    cache's host memory in the process, and the K1 / K2 / K3 launches of the
    --mesh runs, which join the kernels line. One last_state.pt is written
    (the --mesh live run's, read back and deleted); the others and every
-   best_<metric>.pt are kept in memory only.
+   best_<metric>.pt are kept in memory only. On the same split with a CIRR
+   test1 split of MESH_TEST1_QUERIES queries and a seeded random
+   blip2_cir_rerank saved in the release layout, each again with and
+   without --mesh: cli/validate_rerank.py (--rerank-top RERANK_TOP
+   --rerank-step RERANK_STEP; the printed JSON equal), cli/submission.py
+   --dataset CIRR --rerank (the files equal byte for byte) and cli/serve.py
+   --rerank-top RERANK_TOP over the reranker (MESH_QUERIES requests with
+   "rerank": true and one with a list reference, which gets its 400; the
+   answers equal), each run's seconds and K1 / K2 / K3 launches printed; the
+   checkpoint and the submission files are deleted at the phase's end.
+25. The largest BLIP-2 rows at full width, one model on the card at a time
+   (random weights from seed 0, drawn on the card; the previous model freed
+   first), each through its evaluation path's entry point: 25a,
+   cli/evaluate.py on eval/caption_coco_opt6.7b_eval.yaml (EVA ViT-g fp32 at
+   364 px, OPT-6.7b fp32) over LARGE_ITEMS images; 25b, cli/evaluate.py on
+   eval/gqa_zeroshot_flant5xl_eval.yaml with model.model_type=
+   pretrain_flant5xxl (EVA bf16, FlanT5-XXL fp32) over LARGE_ITEMS
+   questions; 25c, phase 14a's retrieval path with blip2_vicuna_instruct /
+   vicuna13b over a LARGE_GALLERY-image gallery and LARGE_ITEMS queries (no
+   training step). Each is phase 12a's, 13d's or 14a's run and check with
+   the row swapped (their bounds and launch counts unchanged), with what
+   the LLM moves (the prefill's logits, every step's logits and ids, 25c's
+   reference features and scores) held at CAPTION_WITNESS_FACTOR times the
+   median of three witness draws; 25a and 25b also profile one cached
+   decode step and hold the recompute loop against the cached decode on the
+   first batch's LARGE_RECOMPUTE_TOKENS tokens, as phase 12 does (at
+   RECOMPUTE_SPREAD_FRACTION of the cached logits' spread, and 25a at the
+   OPT head's logits bound too).
+   Each prints its seconds by stage, ms a decoded token, build seconds and
+   peak GiB.
 
 Phases 4, 4b and 5 print their encode rate beside the model alone's: the
 same batches already on the card through extract_target_features (and the
@@ -552,6 +582,7 @@ power limit, and last {"ok": true, "device": {...}}.
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -674,6 +705,14 @@ RUN_CONFIGS = {
         "run": {"task": "captioning", "evaluate": True, "batch_size_eval": 16, "num_beams": 1,
                 "max_len": 30, "min_len": 8, "prompt": "a photo of", "test_splits": ["test"]},
         "model": {"arch": "blip2_opt", "model_type": "caption_coco_opt2.7b"},
+        "datasets": {"coco_caption": {
+            "build_info": {"annotations": {"test": []}, "images": ""},
+            "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
+            "text_processor": {"eval": {"name": "blip_caption"}}}}},
+    "eval/caption_coco_opt6.7b_eval.yaml": {
+        "run": {"task": "captioning", "evaluate": True, "batch_size_eval": 16, "num_beams": 1,
+                "max_len": 30, "min_len": 8, "prompt": "a photo of", "test_splits": ["test"]},
+        "model": {"arch": "blip2_opt", "model_type": "caption_coco_opt6.7b"},
         "datasets": {"coco_caption": {
             "build_info": {"annotations": {"test": []}, "images": ""},
             "vis_processor": {"eval": {"name": "blip_image_eval", "image_size": 364}},
@@ -976,14 +1015,17 @@ def _post(url, payload):
     return body, (time.perf_counter() - t0) * 1e3
 
 
-def _check_answer(results, refs, names):
+def _check_answer(results, refs, names, reranked=False):
+    """K answers a query, its reference masked, finite scores in descending
+    order (stage 1's order; a reranked answer keeps stage 1's scores in the
+    rerank's order)."""
     assert len(results) == len(refs), (len(results), len(refs))
     for res, ref in zip(results, refs):
         assert len(res) == K, len(res)
         assert all(r["name"] in names and r["name"] != ref for r in res), "reference not masked"
         scores = [r["score"] for r in res]
         assert all(np.isfinite(scores)), scores
-        assert scores == sorted(scores, reverse=True), scores
+        assert reranked or scores == sorted(scores, reverse=True), scores
 
 
 def _counters():
@@ -1438,9 +1480,10 @@ def phase_eva_int8(gallery):
     return launches
 
 
-def _write_cirr_val(root, names, n_queries, seed):
-    """A synthetic CIRR val split in the reference's on-disk layout (JSON
-    only: the images are the seeded pixel batches, never files)."""
+def _write_cirr_val(root, names, n_queries, seed, split="val"):
+    """A synthetic CIRR val (or test1) split in the reference's on-disk
+    layout (JSON only: the images are the seeded pixel batches, or the
+    files under dev/ where a phase writes them)."""
     rng = np.random.default_rng(seed)
     words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
     triplets = []
@@ -1449,8 +1492,8 @@ def _write_cirr_val(root, names, n_queries, seed):
         triplets.append({"pairid": i, "reference": members[0], "target_hard": members[1],
                          "caption": " ".join(rng.choice(words, rng.integers(3, 9))),
                          "img_set": {"members": members}})
-    for sub, name, payload in (("captions", "cap.rc2.val.json", triplets),
-                               ("image_splits", "split.rc2.val.json",
+    for sub, name, payload in (("captions", f"cap.rc2.{split}.json", triplets),
+                               ("image_splits", f"split.rc2.{split}.json",
                                 {n: f"dev/{n}.png" for n in names})):
         os.makedirs(os.path.join(root, "cirr", sub), exist_ok=True)
         with open(os.path.join(root, "cirr", sub, name), "w") as f:
@@ -3398,10 +3441,26 @@ CAPTION_HEADS = {"opt": ("eval/caption_coco_opt2.7b_eval.yaml", "blip2_opt"),
 # witness's same reading (the all-plain LLM on the all-plain projected rows
 # plus seeded normal noise of the RMS of the kernel run's difference there,
 # batch by batch), and the recompute loop's against the cached decode's at
-# the head's logits bound. A row's ids may differ only at a step so held.
+# the head's logits bound and at RECOMPUTE_SPREAD_FRACTION of the cached
+# logits' spread. A row's ids may differ only at a step so held.
 CAPTION_BOUNDS = {"frozen": STAGE1_RUN_BOUNDS["frozen"], "queries": 3e-5, "proj": 2e-5,
                   "logits": {"opt": 6e-5, "t5": 2e-2}, "llm": 1e-6}
 CAPTION_WITNESS_FACTOR = 4
+# The recompute loop (generate_ids(use_cache=False)) against the cached
+# decode runs the same kernels on the same tower bits: only the K/V cache and
+# the positions differ. A wrong cache slot or position hands a step another
+# context, which moves its logits by about their spread over the vocabulary
+# (their standard deviation about their mean; a random LLM head at width
+# 4096 gives 0.02 x sqrt(4096) = 1.28), and their largest difference by more.
+# So the loop is held at a tenth of the cached steps' spread, read in the same
+# run, as well as at any bound of the row's own (phase 12's heads and the OPT
+# head of phase 25a: CAPTION_BOUNDS["logits"]). Planted in a copy of
+# models/opt.py and models/t5.py and run through phase 25 on the CPU (OPT at
+# hidden 48; T5 at FlanT5's d_kv 64, d_model 512 and 1024), a cache written one
+# slot off, a stale slot and positions one off each read 2 to 37 times this
+# bound; an honest loop reads 3e-5 of it there, and 0.16 of it in FlanT5-XXL
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (2.102e-2 against 0.128).
+RECOMPUTE_SPREAD_FRACTION = 0.1
 # K2's blocks and K3's layers a batch on this path (the fp32 chain's own kernels,
 # the fp32 GEMM, attention and LayerNorm, launch too; nothing else does)
 CAPTION_BATCH_LAUNCHES = {"fused_vit_block": 39, "fused_qformer_layer": 12}
@@ -3633,33 +3692,124 @@ def _all_plain_and_witness(cls, cfg, run_as, kern, eos, max_len, draws):
             "witnesses": read}
 
 
-def phase_caption(work, head):
+@contextlib.contextmanager
+def _timed_builds():
+    """The seconds of each ``loader.load_model`` call inside (the weights
+    drawn on the card, synchronised), as a list."""
+    from sprc_tpu_torch import loader
+
+    inner, seconds = loader.load_model, []
+
+    def load(*args, **kw):
+        t0 = time.perf_counter()
+        model = inner(*args, **kw)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        return model
+
+    loader.load_model = load
+    try:
+        yield seconds
+    finally:
+        loader.load_model = inner
+
+
+def _recompute_against_cached(tag, model, images, prompt, kern, eos, tokens):
+    """The recompute loop (``generate_ids(use_cache=False)``) on the kernel
+    route against the recorded cached decode ``kern``, on the first batch
+    (``images`` and ``prompt``, its ids and mask, every row: the tower and
+    the Q-Former at the cached run's shapes) for ``tokens`` tokens: the
+    largest step logit difference up to each row's first differing id or eos
+    and the rows whose ids differ (``_held_steps``), read here and held by
+    :func:`_hold_recompute`. -> (seconds, worst, flips, the cached steps'
+    logits spread)."""
+    rows = images.shape[0]
+    t0 = time.perf_counter()
+    with _recording_recompute(model, []) as re_steps, torch.inference_mode():
+        recomputed = model.generate_ids(images, *prompt, max_new_tokens=tokens, use_cache=False)
+    sync()
+    seconds = time.perf_counter() - t0
+    spread = kern["steps"][0].std(dim=-1).mean().item()
+    worst, flips = _held_steps(recomputed, kern["ids"][0][:, :tokens],
+                               torch.stack(re_steps, dim=1), kern["steps"][0], eos)
+    del re_steps
+    log(f"[{tag}] recompute loop (kernel route, batch 0, {rows} rows, {tokens} tokens): "
+        f"{seconds:.2f} s; its step logits against the cached decode's, up to each row's first "
+        f"differing id or eos: max_abs {worst:.3e} (the cached steps' logits spread {spread:.3e} "
+        f"about their mean); rows whose ids differ (row, step, top-2 gap, |difference| there): "
+        f"{flips}")
+    return seconds, worst, flips, spread
+
+
+def _hold_recompute(tag, recompute, own=math.inf):
+    """The recompute loop's reading within RECOMPUTE_SPREAD_FRACTION of the
+    cached logits' spread and within the row's ``own`` bound, and no row's
+    ids differing where the steps do not show it."""
+    _, worst, flips, spread = recompute
+    bound = min(own, RECOMPUTE_SPREAD_FRACTION * spread)
+    log(f"[{tag}] the recompute loop's max_abs {worst:.3e} against its bound {bound:.3e} "
+        f"(the smaller of {RECOMPUTE_SPREAD_FRACTION} x the cached logits' spread "
+        f"{spread:.3e} and the row's own {own:.3e})")
+    if not worst <= bound or any(np.isnan(f[2]) for f in flips):
+        raise RuntimeError(f"{tag}: the recompute loop against the cached decode: {worst} "
+                           f"(bound {bound}), {flips}")
+
+
+def _profile_decode(tag, model, kern, ms_token):
+    """One cached decode step of the recorded first batch (its cache, the
+    first token's position), host against device
+    (``kernel_checks.profile_decode_step``), beside the LLM weights it reads."""
+    from sprc_tpu_torch import kernel_checks
+
+    step_fn, cache, pos0 = kern.pop("step")
+    tok0 = kern["ids"][0][:, 0]
+    with torch.inference_mode():
+        decode = kernel_checks.profile_decode_step(lambda: step_fn(tok0, pos0, cache))
+    del step_fn, cache
+    weight_bytes = _step_weight_bytes(model)
+    decode.update(weights_gb=weight_bytes / 1e9,
+                  weights_ms=weight_bytes / kernel_checks.PEAK_BYTES * 1e3, loop_ms=ms_token)
+    log(f"[{tag}] one cached decode step at batch {tok0.shape[0]} (the first token's "
+        f"position): host {decode['host_ms']:.3f} ms, device {decode['device_ms']:.3f} ms, busy "
+        f"share {decode['busy_share']:.3f} (the graph's output against the step's: max_abs "
+        f"{decode['graph_max_abs']:.3e}); {decode['aten_ops']} ATen operators a step "
+        f"({decode['aten_views']} views), {decode['kernels_profiled']} launches seen by one "
+        f"profile, {decode['kernel_ms_profiled']:.3f} ms of kernels, the most in (name, "
+        f"launches, ms) {decode['top_kernels']}; the weights it reads "
+        f"{decode['weights_gb']:.2f} GB, {decode['weights_ms']:.3f} ms at the card's memory rate; "
+        f"the clean run's loop {ms_token:.2f} ms a token")
+    return decode
+
+
+def phase_caption(work, head, large=False):
     """12a / 12b: the caption evaluation of one BLIP-2 stage-2 head (phase 12
-    of the docstring)."""
+    of the docstring); with ``large``, 25a: the row of LARGE_CAPTION over
+    LARGE_ITEMS images, what the LLM moves held by the witnesses."""
     import argparse
     import inspect
 
-    from sprc_tpu_torch import kernel_checks
     from sprc_tpu_torch import models as _models  # noqa: F401  (registers them)
     from sprc_tpu_torch.cli import evaluate
     from sprc_tpu_torch.registry import registry
-    from sprc_tpu_torch.text.tokenizer import BertWordPieceTokenizer
     from sprc_tpu_torch.utils.artifacts import write_synthetic_bert_vocab
 
     name, arch = CAPTION_HEADS[head]
+    n_images, draws = CAPTION_IMAGES, [("noise", SEED + 120)]
+    if large:
+        name, n_images, draws = LARGE_CAPTION, LARGE_ITEMS, VQA_WITNESS
     cls = registry.get_model_class(arch)
     eos = inspect.signature(cls.generate_ids).parameters["eos_token_id"].default
-    tag = f"caption {head}"
+    tag = f"caption {head}" + (" 25a" if large else "")
     t_phase = time.perf_counter()
-    root = os.path.join(work, "coco_caption")
-    ann = _write_pairs(root, CAPTION_IMAGES, CAPTION_REFS, SEED + 12, "cap")
+    root = os.path.join(work, "coco_caption" + ("_large" if large else ""))
+    ann = _write_pairs(root, n_images, CAPTION_REFS, SEED + 12, "cap")
     vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
     cfg, how = _run_config(name, {
         "run": {"seed": SEED},
         "datasets": {"coco_caption": {"build_info": {"annotations": {"test": [ann]},
                                                      "images": root}}}})
     log(f"[{tag}] cli/evaluate.py through {how}")
-    out_dir = os.path.join(work, f"caption_{head}")
+    out_dir = os.path.join(work, f"caption_{head}" + ("_large" if large else ""))
     args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
                               output_dir=out_dir)
 
@@ -3673,21 +3823,23 @@ def phase_caption(work, head):
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
-    metrics = evaluate.evaluate(cfg, args, stats)
+    with _timed_builds() as builds:
+        metrics = evaluate.evaluate(cfg, args, stats)
     sync()
-    total_s = time.perf_counter() - t0
+    total_s, build_s = time.perf_counter() - t0, sum(builds)
     launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
     with open(os.path.join(out_dir, "result", "test_epochx.json")) as f:
         result = json.load(f)
-    batches = -(-CAPTION_IMAGES // cfg.run["batch_size_eval"])
+    batches = -(-n_images // cfg.run["batch_size_eval"])
     ms_token = stats["decode_s"] / stats["decode_steps"] * 1e3
     stages = ("image_encode_s", "qformer_s", "prefill_s", "decode_s")
     log(f"[{tag}] {batches} batches of {cfg.run['batch_size_eval']}: seconds by stage "
         + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
         + f"; {stats['decode_steps']} cached decode steps, {ms_token:.2f} ms a decoded token "
-        f"({cfg.run['batch_size_eval']} rows); total {total_s:.2f} s; peak {peak:.2f} GiB; "
+        f"({cfg.run['batch_size_eval']} rows); total {total_s:.2f} s (the model's build and "
+        f"draw {build_s:.2f} s of it); peak {peak:.2f} GiB; "
         f"{len(result)} captions, e.g. {result[0]['caption'][:80]!r}")
     want = {k: v * batches for k, v in CAPTION_BATCH_LAUNCHES.items()}
     log(f"[{tag}] launches: {launches}")
@@ -3697,7 +3849,7 @@ def phase_caption(work, head):
                 if k not in want and k not in CAPTION_CHAIN and v != 0})
     if bad:
         raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the fp32 chain's")
-    if len(result) != CAPTION_IMAGES or not all(np.isfinite(v) for v in metrics.values()):
+    if len(result) != n_images or not all(np.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f"{tag}: {len(result)} captions, metrics {metrics}")
     if peak >= 80.0:
         raise RuntimeError(f"{tag}: peak {peak:.2f} GiB")
@@ -3705,74 +3857,53 @@ def phase_caption(work, head):
     # the kernel route again, recorded; none of what follows is a main path's launch
     kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     kern = {}
+    gc.collect()  # the clean run's model goes before the next is built
+    torch.cuda.empty_cache()
     with _recording_caption(cls, kern):
         kern_metrics = evaluate.evaluate(cfg, run_as("_kern"), None)
     model, images = kern.pop("model"), kern.pop("images")
-    step_fn, cache, pos0 = kern.pop("step")
-    tok0 = kern["ids"][0][:, 0]
-    with torch.inference_mode():
-        decode = kernel_checks.profile_decode_step(lambda: step_fn(tok0, pos0, cache))
-    del step_fn, cache
-    weight_bytes = _step_weight_bytes(model)
-    decode.update(weights_gb=weight_bytes / 1e9,
-                  weights_ms=weight_bytes / kernel_checks.PEAK_BYTES * 1e3, loop_ms=ms_token)
-    log(f"[{tag}] one cached decode step at batch {images.shape[0]} (the first token's "
-        f"position): host {decode['host_ms']:.3f} ms, device {decode['device_ms']:.3f} ms, busy "
-        f"share {decode['busy_share']:.3f} (the graph's output against the step's: max_abs "
-        f"{decode['graph_max_abs']:.3e}); {decode['aten_ops']} ATen operators a step "
-        f"({decode['aten_views']} views), {decode['kernels_profiled']} launches seen by one "
-        f"profile, {decode['kernel_ms_profiled']:.3f} ms of kernels, the most in (name, "
-        f"launches, ms) {decode['top_kernels']}; the weights it reads {decode['weights_gb']:.2f} GB, "
-        f"{decode['weights_ms']:.3f} ms at the card's memory rate; the clean run's loop "
-        f"{ms_token:.2f} ms a token; the recorded run's metrics "
+    decode = _profile_decode(tag, model, kern, ms_token)
+    log(f"[{tag}] the recorded run's metrics "
         f"{'equal the clean run' if kern_metrics == metrics else kern_metrics}")
 
     # the recompute loop on the kernel route against the cached decode, first batch
-    tokenizer = BertWordPieceTokenizer.from_vocab_file(vocab)
-    tok = tokenizer([cfg.run["prompt"]] * images.shape[0], max_length=16)
-    prompt = [torch.from_numpy(tok[k]).to(images.device) for k in ("input_ids", "attention_mask")]
     logits_bound = CAPTION_BOUNDS["logits"][head]
-    t0 = time.perf_counter()
-    with _recording_recompute(model, []) as re_steps, torch.inference_mode():
-        recomputed = model.generate_ids(images, *prompt, max_new_tokens=cfg.run["max_len"],
-                                        use_cache=False)
-    sync()
-    recompute_s = time.perf_counter() - t0
-    re_worst, re_flips = _held_steps(recomputed, kern["ids"][0], torch.stack(re_steps, dim=1),
-                                     kern["steps"][0], eos)
-    del re_steps
-    log(f"[{tag}] recompute loop (kernel route, batch 0): {recompute_s:.2f} s; its step logits "
-        f"against the cached decode's, up to each row's first differing id or eos: max_abs "
-        f"{re_worst:.3e} (bound {logits_bound}); rows whose ids differ (row, step, top-2 gap, "
-        f"|difference| there): {re_flips}")
-    if not re_worst <= logits_bound or any(np.isnan(f[2]) for f in re_flips):
-        raise RuntimeError(f"{tag}: the recompute loop against the cached decode: {re_worst}, "
-                           f"{re_flips}")
+    recompute = _recompute_against_cached(
+        tag, model, images, kern["prompts"][0], kern, eos,
+        min(LARGE_RECOMPUTE_TOKENS, cfg.run["max_len"]) if large else cfg.run["max_len"])
+    _hold_recompute(tag, recompute, logits_bound)
+    recompute_s, re_worst, re_flips, _ = recompute
     del model, images
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the all-plain run on the same weights, stage by stage, and the witness
-    plain_run = _all_plain_and_witness(cls, cfg, run_as, kern, eos, cfg.run["max_len"],
-                                       [("noise", SEED + 120)])
+    # the all-plain run on the same weights, stage by stage, and the witnesses
+    plain_run = _all_plain_and_witness(cls, cfg, run_as, kern, eos, cfg.run["max_len"], draws)
     plain_metrics, plain_stats, plain_s, llm_d, readings, noise_rms = (
         plain_run[k] for k in ("metrics", "stats", "seconds", "llm", "readings", "noise_rms"))
     steps_d, flips = plain_run["steps"], plain_run["flips"]
-    w_steps_d, w_flips, w_logits0 = (plain_run["witnesses"][0][k]
-                                     for k in ("steps", "flips", "logits0"))
+    w_steps_d, w_logits0 = (float(np.median([w[k] for w in plain_run["witnesses"]]))
+                            for k in ("steps", "logits0"))
+    w_flips = [f for w in plain_run["witnesses"] for f in w["flips"]]
     steps_bound = CAPTION_WITNESS_FACTOR * w_steps_d
+    if large:  # the prefill's logits by the witnesses too
+        logits_bound = CAPTION_WITNESS_FACTOR * w_logits0
     rows = sum(len(i) for i in kern["ids"])
+    each = [tuple(float(f"{w[k]:.3e}") for k in ("logits0", "steps"))
+            for w in plain_run["witnesses"]]
     log(f"[{tag}] kernel run against the all-plain run: "
         + ", ".join(f"{k} max_abs {v[0]:.3e} mean_abs {v[1]:.3e}" for k, v in readings.items())
         + f"; the LLM on the kernel run's projected rows: logits max_abs {llm_d:.3e} (bounds "
-        f"{CAPTION_BOUNDS}, logits {logits_bound}); the witness (noise of RMS "
-        f"{[float(f'{s:.3e}') for s in noise_rms]} on the all-plain projected rows): prefill "
-        f"logits max_abs {w_logits0:.3e}, step logits max_abs {w_steps_d:.3e}, rows whose ids "
-        f"differ {len(w_flips)} of {rows} (batch, row, step, top-2 gap, |difference| there) "
-        f"{w_flips}; the kernel run's step logits max_abs {steps_d:.3e} (bound "
-        f"{CAPTION_WITNESS_FACTOR} x the witness's, {steps_bound:.3e}), rows whose ids differ "
-        f"{len(flips)} of {rows}: {flips}; all-plain (recorded) total {plain_s:.2f} s, seconds "
-        "by stage " + ", ".join(f"{k} {plain_stats[k]:.3f}" for k in stages)
+        f"{CAPTION_BOUNDS}, logits {logits_bound}); the witnesses ({draws} on the all-plain "
+        f"projected rows; the kernel run's difference has RMS "
+        f"{[float(f'{s:.3e}') for s in noise_rms]}), their median: prefill logits max_abs "
+        f"{w_logits0:.3e}, step logits max_abs {w_steps_d:.3e}; each draw's (prefill, steps) "
+        f"{each}; "
+        f"rows whose ids differ {len(w_flips)} in {len(draws)} x {rows} (batch, row, step, top-2 "
+        f"gap, |difference| there) {w_flips}; the kernel run's step logits max_abs {steps_d:.3e} "
+        f"(bound {CAPTION_WITNESS_FACTOR} x the witnesses', {steps_bound:.3e}), rows whose ids "
+        f"differ {len(flips)} of {rows}: {flips}; all-plain (recorded) total {plain_s:.2f} s, "
+        "seconds by stage " + ", ".join(f"{k} {plain_stats[k]:.3f}" for k in stages)
         + f"; metrics {'equal' if plain_metrics == metrics else plain_metrics}")
     checks = {"frozen": readings["frozen"], "queries": readings["queries"][0],
               "proj": readings["proj"][0], "logits": readings["logits0"][0], "llm": llm_d,
@@ -3798,7 +3929,7 @@ def phase_caption(work, head):
             "witness": {"noise_rms": noise_rms, "logits0_max_abs": w_logits0,
                         "step_logits_max_abs": w_steps_d, "ids_differ": w_flips},
             "recompute_s": recompute_s, "recompute_step_logits_max_abs": re_worst,
-            "recompute_ids_differ": re_flips, "seconds": seconds}
+            "recompute_ids_differ": re_flips, "build_s": build_s, "seconds": seconds}
 
 
 def phase_instruct():
@@ -4182,9 +4313,12 @@ def _write_vqa(root, n, seed):
     return path
 
 
-def phase_vqa(work, head):
+def phase_vqa(work, head, large=False):
     """13c / 13d: the zero-shot VQA of one BLIP-2 stage-2 head (phase 13 of
-    the docstring)."""
+    the docstring); with ``large``, 25b: the T5 head's config with the row
+    LARGE_VQA_TYPE over LARGE_ITEMS questions, one cached decode step
+    profiled, the recompute loop against the cached decode, the prefill's
+    logits held by the witnesses too."""
     import argparse
     import inspect
 
@@ -4196,16 +4330,19 @@ def phase_vqa(work, head):
     name, arch, ds_name = STAGE2_VQA[head]
     cls = registry.get_model_class(arch)
     eos = inspect.signature(cls.generate_ids).parameters["eos_token_id"].default
-    tag = f"vqa {head}"
+    tag = f"vqa {head}" + (" 25b" if large else "")
     t_phase = time.perf_counter()
-    root = os.path.join(work, f"vqa_{head}")
-    ann = _write_vqa(root, VQA_QUESTIONS, SEED + 130)
+    suffix = "_large" if large else ""
+    n_questions = LARGE_ITEMS if large else VQA_QUESTIONS
+    root = os.path.join(work, f"vqa_{head}{suffix}")
+    ann = _write_vqa(root, n_questions, SEED + 130)
     vocab = write_synthetic_bert_vocab(os.path.join(work, "vocab.txt"))
     cfg, how = _run_config(name, {
         "run": {"seed": SEED},
+        **({"model": {"model_type": LARGE_VQA_TYPE}} if large else {}),
         "datasets": {ds_name: {"build_info": {"annotations": {"val": [ann]}, "images": root}}}})
     log(f"[{tag}] cli/evaluate.py through {how}")
-    out_dir = os.path.join(work, f"vqa_{head}_out")
+    out_dir = os.path.join(work, f"vqa_{head}{suffix}_out")
     args = argparse.Namespace(device=DEVICE, model_path=None, vocab_path=vocab, split=None,
                               output_dir=out_dir)
 
@@ -4219,9 +4356,10 @@ def phase_vqa(work, head):
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
-    metrics = evaluate.evaluate(cfg, args, stats)
+    with _timed_builds() as builds:
+        metrics = evaluate.evaluate(cfg, args, stats)
     sync()
-    total_s = time.perf_counter() - t0
+    total_s, build_s = time.perf_counter() - t0, sum(builds)
     launches = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(json.dumps({k: v for k, v in metrics.items() if isinstance(v, (int, float, str))}))
@@ -4230,13 +4368,14 @@ def phase_vqa(work, head):
         result = json.load(f)
     key = "answer" if task == "vqa" else "pred_ans"
     batch = cfg.run["batch_size_eval"]
-    batches = -(-VQA_QUESTIONS // batch)
+    batches = -(-n_questions // batch)
     ms_token = stats["decode_s"] / max(stats["decode_steps"], 1) * 1e3
     stages = ("image_encode_s", "qformer_s", "prefill_s", "decode_s")
     log(f"[{tag}] {batches} batches of {batch}: seconds by stage "
         + ", ".join(f"{k} {stats[k]:.3f}" for k in stages)
         + f"; {stats['decode_steps']} cached decode steps, {ms_token:.2f} ms a decoded token "
-        f"({batch} rows); total {total_s:.2f} s; peak {peak:.2f} GiB; {len(result)} answers, "
+        f"({batch} rows); total {total_s:.2f} s (the model's build and draw {build_s:.2f} s of "
+        f"it); peak {peak:.2f} GiB; {len(result)} answers, "
         f"e.g. {[r[key][:30] for r in result[:3]]}")
     want = {k: v * batches for k, v in VQA_BATCH_LAUNCHES.items()}
     log(f"[{tag}] launches: {launches}")
@@ -4246,7 +4385,7 @@ def phase_vqa(work, head):
                 if k not in want and k not in VQA_CHAIN and v != 0})
     if bad:
         raise RuntimeError(f"{tag}: launches {bad}, expected {want} and the chains'")
-    if (len(result) != VQA_QUESTIONS or "agg_metrics" not in metrics
+    if (len(result) != n_questions or "agg_metrics" not in metrics
             or not all(np.isfinite(v) for v in metrics.values())):
         raise RuntimeError(f"{tag}: {len(result)} answers, metrics {metrics}")
     if peak >= 80.0:
@@ -4255,16 +4394,25 @@ def phase_vqa(work, head):
     # the kernel route again, recorded; none of what follows is a main path's launch
     kept = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     kern = {}
+    gc.collect()  # the clean run's model goes before the next is built
+    torch.cuda.empty_cache()
     with _recording_caption(cls, kern):
         kern_metrics = evaluate.evaluate(cfg, run_as("_kern"), None)
-    model = kern.pop("model")
-    kern.pop("images"), kern.pop("step")
+    model, images = kern.pop("model"), kern.pop("images")
+    decode, recompute = None, None
+    if large:
+        decode = _profile_decode(tag, model, kern, ms_token)
+        recompute = _recompute_against_cached(
+            tag, model, images, kern["prompts"][0], kern, eos,
+            min(LARGE_RECOMPUTE_TOKENS, cfg.run["max_len"]))
+        _hold_recompute(tag, recompute)
+    kern.pop("step", None)
     proj = model.opt_proj if head == "opt" else model.t5_proj
     with torch.inference_mode(), primitives.plain_reference():
         again = [model.embed_image_queries(f) for f in kern["frozen"]]
         own = {"queries": max((a - q).abs().max().item() for a, q in zip(again, kern["queries"])),
                "proj": max((proj(a) - p).abs().max().item() for a, p in zip(again, kern["proj"]))}
-    del model, again, proj
+    del model, images, again, proj
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4274,6 +4422,7 @@ def phase_vqa(work, head):
     readings, witnesses = plain["readings"], plain["witnesses"]
     witness_steps = float(np.median([w["steps"] for w in witnesses]))
     steps_bound = CAPTION_WITNESS_FACTOR * witness_steps
+    logits_bound = CAPTION_WITNESS_FACTOR * float(np.median([w["logits0"] for w in witnesses]))
     rows = sum(len(i) for i in kern["ids"])
     log(f"[{tag}] the all-plain Q-Former on the kernel run's rows: queries max_abs "
         f"{own['queries']:.3e}, projected {own['proj']:.3e}; the all-plain LLM on the kernel "
@@ -4287,7 +4436,8 @@ def phase_vqa(work, head):
                     f"run's / this {plain['steps'] / max(w['steps'], 1e-30):.3f}), rows whose ids differ "
                     f"{len(w['flips'])} of {rows} {w['flips']}" for w in witnesses)
         + f"; the kernel run's step logits max_abs {plain['steps']:.3e} (bound "
-        f"{CAPTION_WITNESS_FACTOR} x the witnesses' median, {steps_bound:.3e}), rows whose answers "
+        f"{CAPTION_WITNESS_FACTOR} x the witnesses' median, {steps_bound:.3e}; the prefill "
+        f"logits' {logits_bound:.3e}{', held' if large else ', reported'}), rows whose answers "
         f"differ {len(plain['flips'])} of {rows}: {plain['flips']}; all-plain (recorded) "
         f"total {plain['seconds']:.2f} s, seconds by stage "
         + ", ".join(f"{k} {plain['stats'][k]:.3f}" for k in stages)
@@ -4296,6 +4446,8 @@ def phase_vqa(work, head):
     checks = {"frozen": readings["frozen"], "queries": own["queries"], "proj": own["proj"],
               "llm": plain["llm"], "steps": plain["steps"]}
     bounds = dict(VQA_BOUNDS, steps=steps_bound)
+    if large:  # the prefill's logits by the witnesses too
+        checks["logits"], bounds["logits"] = readings["logits0"][0], logits_bound
     past = {k: v for k, v in checks.items() if not np.all(np.asarray(v) <= np.asarray(bounds[k]))}
     if past:
         raise RuntimeError(f"{tag}: the kernel run against the all-plain run past {bounds}: "
@@ -4318,6 +4470,9 @@ def phase_vqa(work, head):
             "witnesses": [{"kind": w["kind"], "seed": w["seed"], "logits0_max_abs": w["logits0"],
                            "step_logits_max_abs": w["steps"], "ids_differ": w["flips"]}
                           for w in witnesses],
+            "decode_step": decode, "build_s": build_s,
+            **({"recompute_s": recompute[0], "recompute_step_logits_max_abs": recompute[1],
+                "recompute_ids_differ": recompute[2]} if recompute else {}),
             "seconds": seconds}
 
 
@@ -4373,6 +4528,34 @@ INSTRUCT_STEP_LAUNCHES = STAGE2_STEP_LAUNCHES["t5"]
 INSTRUCT_BOUNDS = {"frozen": EVA_BOUNDS["frozen"], "target": EVA_BOUNDS["target"],
                    "queries": CAPTION_BOUNDS["queries"], "llm": CAPTION_BOUNDS["llm"]}
 INSTRUCT_RECOMPUTE_LOGITS = 1e-3
+
+# phase 25, the largest rows at full width, one model on the card at a time
+# (random weights from seed 0; the rows of loader.py): 25a, cli/evaluate.py on
+# eval/caption_coco_opt6.7b_eval.yaml (EVA ViT-g fp32 at 364 px, OPT-6.7b fp32)
+# over LARGE_ITEMS images, one batch, max_len 30; 25b, cli/evaluate.py on
+# eval/gqa_zeroshot_flant5xl_eval.yaml with model.model_type=pretrain_flant5xxl
+# (EVA bf16 at 224 px, FlanT5-XXL fp32) over LARGE_ITEMS questions, one batch,
+# max_len 10; 25c, phase 14a's retrieval path with blip2_vicuna_instruct /
+# vicuna13b (Vicuna-13B fp32) over a LARGE_GALLERY-image gallery in batches of
+# INSTRUCT_BATCH and LARGE_ITEMS composed queries, no training step. The tower
+# and the Q-Former are phases 12a's, 13d's and 14a's modules at their widths, so
+# their bounds and launch counts hold unchanged (CAPTION_*, VQA_*, INSTRUCT_*).
+# What the LLM moves (the prefill's logits, every decode step's logits and ids,
+# 25c's reference features and scores) is held at CAPTION_WITNESS_FACTOR times
+# the median of VQA_WITNESS's three draws, read in the same run. The recompute
+# loop runs on every row of the first batch, so that the tower and the Q-Former
+# run at the cached run's shapes and hand the LLM the same bits (on 4 of the 16
+# rows the bf16 tower's products took other tiles, and FlanT5-XXL moved its
+# logits by up to 2.774 from the first token on: NVIDIA H100 80GB HBM3,
+# 700.00 W), for its first LARGE_RECOMPUTE_TOKENS tokens (the time limit), and
+# is held as phase 12 holds it: at RECOMPUTE_SPREAD_FRACTION of the cached
+# logits' spread, and 25a at the OPT head's logits bound too. 25b has no
+# logits bound of its own: phase 12's FlanT5 bound, 2e-2 (4 x FlanT5-XL's
+# 3.47e-4 at 30 tokens), is FlanT5-XL's and not FlanT5-XXL's
+LARGE_ITEMS, LARGE_GALLERY, LARGE_RECOMPUTE_TOKENS = 16, 32, 8
+LARGE_CAPTION = "eval/caption_coco_opt6.7b_eval.yaml"
+LARGE_VQA_TYPE = "pretrain_flant5xxl"
+LARGE_INSTRUCT_TYPE = "vicuna13b"
 
 
 def _instruct_texts(rng, n, lengths=INSTRUCT_LLM_LENGTHS):
@@ -4614,14 +4797,18 @@ def _instruct_train(tag, model, batches):
             "rerun_against_main": rerun}
 
 
-def phase_instruct_retrieval(work):
+def phase_instruct_retrieval(work, large=False):
     """14a: blip2_vicuna_instruct / vicuna7b retrieves and trains (phase 14 of
-    the docstring)."""
+    the docstring); with ``large``, 25c: the row LARGE_INSTRUCT_TYPE retrieves
+    over LARGE_GALLERY images with LARGE_ITEMS queries, and does not train."""
     from sprc_tpu_torch.loader import load_model
     from sprc_tpu_torch.ops import primitives
 
     name, model_type = INSTRUCT["retrieval"]
-    tag = "instruct retrieval"
+    n_gallery, n_queries = INSTRUCT_GALLERY, INSTRUCT_QUERIES
+    if large:
+        model_type, n_gallery, n_queries = LARGE_INSTRUCT_TYPE, LARGE_GALLERY, LARGE_ITEMS
+    tag = "instruct retrieval" + (" 25c" if large else "")
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     model = load_model(name, model_type, device=DEVICE, seed=SEED)
@@ -4629,12 +4816,12 @@ def phase_instruct_retrieval(work):
     load_s = time.perf_counter() - t0
     bert, llama = _instruct_tokenizers(work, model)
     rng = np.random.default_rng(SEED + 141)
-    gallery = _pixels(INSTRUCT_GALLERY, INSTRUCT_BATCH, SEED + 142)
-    refs = _pixels(INSTRUCT_QUERIES, INSTRUCT_BATCH, SEED + 143)
-    texts = _instruct_texts(rng, INSTRUCT_QUERIES)
+    gallery = _pixels(n_gallery, INSTRUCT_BATCH, SEED + 142)
+    refs = _pixels(n_queries, INSTRUCT_BATCH, SEED + 143)
+    texts = _instruct_texts(rng, n_queries)
     queries = [_tokens(bert, texts[s:s + INSTRUCT_BATCH], model.cfg.max_txt_len)
                + _tokens(llama, texts[s:s + INSTRUCT_BATCH], INSTRUCT_LLM_LENGTHS[1])
-               for s in range(0, INSTRUCT_QUERIES, INSTRUCT_BATCH)]
+               for s in range(0, n_queries, INSTRUCT_BATCH)]
     lengths = torch.cat([q[3].sum(1) for q in queries]).tolist()
     log(f"[{tag}] {name} / {model_type}: built and drawn in {load_s:.1f} s; "
         f"{sum(p.numel() for p in model.llm_model.parameters()) / 1e9:.3f} G LLaMA values "
@@ -4666,7 +4853,7 @@ def phase_instruct_retrieval(work):
     log(f"[{tag}] launches: {launches}")
     _check_launches(tag, launches, {k: v * batches for k, v in INSTRUCT_BATCH_LAUNCHES.items()},
                     VQA_CHAIN)
-    if scores.shape != (INSTRUCT_QUERIES, INSTRUCT_GALLERY) or not bool(
+    if scores.shape != (n_queries, n_gallery) or not bool(
             torch.isfinite(scores).all()) or peak >= 80.0:
         raise RuntimeError(f"{tag}: scores {list(scores.shape)}, peak {peak:.2f} GiB")
 
@@ -4750,20 +4937,21 @@ def phase_instruct_retrieval(work):
     del kern, plain, own_q, own_llm, feats, scores, gallery, refs
     gc.collect()
     torch.cuda.empty_cache()
-
-    # 14a's training: INSTRUCT_STEPS ITC steps at INSTRUCT_TRAIN_BATCH
-    train_texts = _instruct_texts(rng, INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH)
-    pix = _pixels(2 * INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH, INSTRUCT_TRAIN_BATCH, SEED + 144)
-    train_batches = []
-    for s in range(INSTRUCT_STEPS):
-        chunk = train_texts[s * INSTRUCT_TRAIN_BATCH:(s + 1) * INSTRUCT_TRAIN_BATCH]
-        ids, mask = _tokens(bert, chunk, model.cfg.max_txt_len)
-        llm_ids, llm_mask = _tokens(llama, chunk, INSTRUCT_LLM_LENGTHS[1])
-        train_batches.append({"reference": pix[2 * s], "target": pix[2 * s + 1],
-                              "input_ids": ids, "text_mask": mask, "llm_input_ids": llm_ids,
-                              "llm_mask": llm_mask})
-    train = _instruct_train(f"{tag} train", model, train_batches)
-    del model, train_batches, pix
+    train = None
+    if not large:  # 14a's training: INSTRUCT_STEPS ITC steps at INSTRUCT_TRAIN_BATCH
+        train_texts = _instruct_texts(rng, INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH)
+        pix = _pixels(2 * INSTRUCT_STEPS * INSTRUCT_TRAIN_BATCH, INSTRUCT_TRAIN_BATCH, SEED + 144)
+        train_batches = []
+        for s in range(INSTRUCT_STEPS):
+            chunk = train_texts[s * INSTRUCT_TRAIN_BATCH:(s + 1) * INSTRUCT_TRAIN_BATCH]
+            ids, mask = _tokens(bert, chunk, model.cfg.max_txt_len)
+            llm_ids, llm_mask = _tokens(llama, chunk, INSTRUCT_LLM_LENGTHS[1])
+            train_batches.append({"reference": pix[2 * s], "target": pix[2 * s + 1],
+                                  "input_ids": ids, "text_mask": mask, "llm_input_ids": llm_ids,
+                                  "llm_mask": llm_mask})
+        train = _instruct_train(f"{tag} train", model, train_batches)
+        del train_batches, pix
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     seconds = time.perf_counter() - t_phase
@@ -7882,6 +8070,7 @@ def dialogue_caption_kernels(rows, phase):
 MESH_PNG = 96  # the side of the synthetic split's PNG files (targetpad brings them to 224)
 MESH_QUERIES = 4  # /query requests a server answers in phase 24 (the last one 8 queries)
 MESH_KERNELS = ("token_max_sim", "fused_vit_block", "fused_qformer_layer")
+MESH_TEST1_QUERIES = 64  # the CIRR test1 split's queries (the submission), as many as val's
 
 
 def _rss_kib():
@@ -7899,8 +8088,11 @@ def phase_mesh(work):
 
     import torch.distributed as torch_dist
 
-    from sprc_tpu_torch.cli import finetune, serve, validate
+    import shutil
+
+    from sprc_tpu_torch.cli import finetune, serve, submission, validate, validate_rerank
     from sprc_tpu_torch.kernel_checks import TRAIN_BATCH
+    from sprc_tpu_torch.loader import load_model
     from sprc_tpu_torch.parallel import mesh as mesh_lib
     from sprc_tpu_torch.train import checkpoint, loop
     from sprc_tpu_torch.train.feature_cache import FeatureCache
@@ -7913,7 +8105,13 @@ def phase_mesh(work):
     names = [f"trn{i:04d}" for i in range(TRAIN_IMAGES)]
     data = _write_cirr_train(os.path.join(root, "cirr"), names, TRAIN_TRIPLETS, SEED + 3)
     _write_cirr_val(data, names, VALIDATE_QUERIES, SEED + 4)
+    _write_cirr_val(data, names, MESH_TEST1_QUERIES, SEED + 5, split="test1")
     _write_pngs(data, ("train", "dev"), names, MESH_PNG, SEED + 6)  # set-up
+    # the reranker of the rerank runs: seeded random weights in the release layout
+    reranker = load_model("blip2_cir_rerank", "pretrain_vitL", device=DEVICE, seed=SEED + 250)
+    rerank_ckpt = _save_released(reranker, os.path.join(root, "rerank.pt"))
+    del reranker
+    rerank_flags = ["--rerank-top", str(RERANK_TOP), "--rerank-step", str(RERANK_STEP)]
     counters = _counters()
     common = ["--model-type", "pretrain_vitL", "--vocab-path", vocab, "--encode-batch",
               str(ENCODE_BATCH), "--query-batch", str(QUERY_BATCH), "--device", DEVICE]
@@ -7986,14 +8184,15 @@ def phase_mesh(work):
         sync()
         return {"text": out.getvalue(), "seconds": time.perf_counter() - t0, "launches": read()}
 
-    def serve_run(mesh):
+    def serve_run(mesh, rerank=False):
         gc.collect()
         torch.cuda.empty_cache()
         reset()
         t0 = time.perf_counter()
-        args = serve.make_parser().parse_args(["--dataset", "CIRR", "--data-path", data,
-                                               "--seed", str(SEED), "--port", "0", *common,
-                                               *(["--mesh"] if mesh else [])])
+        args = serve.make_parser().parse_args(
+            ["--dataset", "CIRR", "--data-path", data, "--seed", str(SEED), "--port", "0", *common,
+             *(["--model-name", "blip2_cir_rerank", "--model-path", rerank_ckpt, *rerank_flags]
+               if rerank else []), *(["--mesh"] if mesh else [])])
         service = serve.build_service(args)
         service.warm()
         server = serve.make_server(service, "127.0.0.1", 0)
@@ -8004,14 +8203,21 @@ def phase_mesh(work):
         words = ["red", "dress", "with", "long", "sleeves", "and", "a", "blue", "shirt", "dog"]
         refs = [names[i] for i in rng.choice(len(names), MESH_QUERIES + 7, replace=False)]
         caps = [" ".join(rng.choice(words, rng.integers(3, 9))) for _ in refs]
+        more = {"k": K, **({"rerank": True} if rerank else {})}
         answers = []
         try:
             for i in range(MESH_QUERIES - 1):
                 answers.append(_post(f"{base}/query", {"reference": refs[i], "caption": caps[i],
-                                                       "k": K})[0]["results"])
+                                                       **more})[0]["results"])
+                if rerank and i == 0:  # a request the service refuses: its 400, and serving goes on
+                    try:
+                        _post(f"{base}/query", {"reference": [refs[0]], "caption": caps[0], **more})
+                        answers.append("no 400")
+                    except urllib.error.HTTPError as err:
+                        answers.append((err.code, json.loads(err.read())))
             answers.append(_post(f"{base}/query", {"queries": [
                 {"reference": r, "caption": c} for r, c in zip(refs[-8:], caps[-8:])],
-                "k": K})[0]["results"])
+                **more})[0]["results"])
         finally:
             server.shutdown()
             thread.join(timeout=30)
@@ -8020,9 +8226,33 @@ def phase_mesh(work):
         assert not thread.is_alive(), "server thread did not stop"
         sync()
         for res, ref in zip(answers[-1], refs[-8:]):
-            _check_answer([res], [ref], set(names))
+            _check_answer([res], [ref], set(names), reranked=rerank)
+        if rerank and answers[1] != (400, {"error": "TypeError: unhashable type: 'list'"}):
+            raise RuntimeError(f"{tag}: a list reference was answered {answers[1]}")
         del service
         return {"answers": answers, "seconds": time.perf_counter() - t0, "launches": read()}
+
+    def rerank_cli_run(module, mesh, extra, out_dir=None):
+        """validate_rerank's or submission's main on the split, the reranker
+        from rerank.pt; its printed text (and the files it wrote)."""
+        out = io.StringIO()
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            module.main(["--dataset", "CIRR", "--data-path", data, *common,
+                         "--rerank-model-path", rerank_ckpt, *extra,
+                         *(["--output-dir", out_dir] if out_dir else []),
+                         *(["--mesh"] if mesh else [])])
+        sync()
+        files = {}
+        if out_dir:
+            for name in sorted(os.listdir(out_dir)):
+                with open(os.path.join(out_dir, name), "rb") as f:
+                    files[name] = f.read()
+        return {"text": out.getvalue(), "files": files, "seconds": time.perf_counter() - t0,
+                "launches": read()}
 
     env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1",
            "MASTER_PORT": str(mesh_lib.free_port())}
@@ -8053,6 +8283,14 @@ def phase_mesh(work):
         os.remove(written)
         validate_runs = {m: validate_run(m) for m in (False, True)}
         serve_runs = {m: serve_run(m) for m in (False, True)}
+        rerank_runs = {
+            "validate_rerank": {m: rerank_cli_run(validate_rerank, m, rerank_flags)
+                                for m in (False, True)},
+            "submission": {m: rerank_cli_run(
+                submission, m, ["--rerank", "--rerank-top", str(RERANK_TOP),
+                                "--submission-name", "mesh"],
+                os.path.join(root, f"submission_{'mesh' if m else 'one'}")) for m in (False, True)},
+            "serve_rerank": {m: serve_run(m, rerank=True) for m in (False, True)}}
 
         # what the NCCL calls of a step cost at world 1 (device time, CUDA events)
         shapes = [v.shape for v in runs["mesh_live"]["trainable"].values()]
@@ -8182,14 +8420,51 @@ def phase_mesh(work):
         f"+{cache_host['shared_kib_after_load']} KiB after the load (mapped), "
         f"+{cache_host['resident_kib_after_a_read_of_every_row']} / "
         f"+{cache_host['shared_kib_after_a_read_of_every_row']} KiB after a read of every row")
-    if not (same_json and same_answers and saved_ok):
-        raise RuntimeError(f"{tag}: validate / serve under --mesh differ from the runs without "
-                           f"it, or last_state.pt is not the run's: {result}")
-    mesh_runs = [runs["mesh_live"], runs["mesh_cached"], validate_runs[True], serve_runs[True]]
+    # the rerank entry points (ViT-L, the reranker of rerank.pt, 50 candidates)
+    same_rerank = {
+        "validate_rerank": (rerank_runs["validate_rerank"][True]["text"]
+                            == rerank_runs["validate_rerank"][False]["text"]),
+        "submission": (rerank_runs["submission"][True]["files"]
+                       == rerank_runs["submission"][False]["files"]),
+        "serve_rerank": (rerank_runs["serve_rerank"][True]["answers"]
+                         == rerank_runs["serve_rerank"][False]["answers"])}
+    rerank_metrics = json.loads(rerank_runs["validate_rerank"][True]["text"])
+    sub_files = rerank_runs["submission"][True]["files"]
+    sub_pairs = {n: len(json.loads(v)) - 2 for n, v in sub_files.items()}  # less version, metric
+    for name, run in rerank_runs.items():
+        result[name] = {"equal": same_rerank[name], "seconds": run[True]["seconds"],
+                        "seconds_without_mesh": run[False]["seconds"],
+                        "launches": {k: run[True]["launches"][k] for k in MESH_KERNELS}}
+    result["validate_rerank"]["metrics"] = rerank_metrics
+    result["submission"]["queries_a_file"] = sub_pairs
+    log(f"[{tag}] cli/validate_rerank --mesh (--rerank-top {RERANK_TOP} --rerank-step "
+        f"{RERANK_STEP}, {VALIDATE_QUERIES} queries): JSON equal to the run without it "
+        f"{same_rerank['validate_rerank']} ({list(rerank_metrics.values())[:4]}...); "
+        f"cli/submission --dataset CIRR --rerank --mesh ({MESH_TEST1_QUERIES} test1 queries): "
+        f"files {sorted(sub_files)} equal byte for byte {same_rerank['submission']} ({sub_pairs} "
+        f"queries a file); cli/serve --mesh --rerank-top {RERANK_TOP}: {MESH_QUERIES} rerank "
+        f"requests' answers and the list reference's 400 "
+        f"{rerank_runs['serve_rerank'][True]['answers'][1]} equal {same_rerank['serve_rerank']}")
+    for name, run in rerank_runs.items():
+        log(f"[{tag}] {name}: {run[True]['seconds']:.1f} s with --mesh, "
+            f"{run[False]['seconds']:.1f} s without; K1 / K2 / K3 launches with --mesh "
+            + " / ".join(str(run[True]["launches"][k]) for k in MESH_KERNELS))
+    if not (same_json and same_answers and saved_ok and all(same_rerank.values())
+            and list(rerank_metrics) == CIRR_KEYS[:7]
+            and all(v == MESH_TEST1_QUERIES for v in sub_pairs.values())):
+        raise RuntimeError(f"{tag}: validate / serve / validate_rerank / submission under --mesh "
+                           f"differ from the runs without it, or last_state.pt is not the run's: "
+                           f"{result}")
+    os.remove(rerank_ckpt)
+    for m in (False, True):
+        shutil.rmtree(os.path.join(root, f"submission_{'mesh' if m else 'one'}"))
+    mesh_runs = [runs["mesh_live"], runs["mesh_cached"], validate_runs[True], serve_runs[True],
+                 *(run[True] for run in rerank_runs.values())]
     result["launches"] = {k: sum(r["launches"][k] for r in mesh_runs) for k in MESH_KERNELS}
     result["launches_by_run"] = {name: {k: r["launches"][k] for k in MESH_KERNELS}
                                  for name, r in zip(("finetune_live", "finetune_cached",
-                                                     "validate", "serve"), mesh_runs)}
+                                                     "validate", "serve", *rerank_runs),
+                                                    mesh_runs)}
     log(f"[counters] phase 24, the --mesh runs: K1 {result['launches']['token_max_sim']}, K2 "
         f"{result['launches']['fused_vit_block']}, K3 {result['launches']['fused_qformer_layer']}"
         f"; by run {json.dumps(result['launches_by_run'])}")
@@ -8223,6 +8498,68 @@ def mesh_kernels(rows, phase):
                     "max_abs_err": max(r["max_abs_err"] for r in rs),
                     "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
                     **bound_ms(work), "library_ms": None})
+    return out
+
+
+def phase_large_rows(work):
+    """Phase 25: the three largest rows at full width, one model on the card
+    at a time (the previous one freed first)."""
+    out = {}
+    for key, fn, arg in (("25a caption opt6.7b", phase_caption, "opt"),
+                         ("25b vqa flant5xxl", phase_vqa, "t5"),
+                         ("25c instruct vicuna13b", phase_instruct_retrieval, None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[key] = timed(key, fn, work, *([arg] if arg else []), large=True)
+    log("[counters] phase 25: "
+        + "; ".join(f"{key}: K2 {r['launches']['fused_vit_block']}, K3 "
+                    f"{r['launches']['fused_qformer_layer']}, peak {r['peak_memory_gib']:.2f} GiB"
+                    for key, r in out.items()))
+    return out
+
+
+# phase 25's kernel rows: the checks of phase 3 at these modules' shapes
+# (phases 12, 13 and 14's), with each row's launches
+LARGE_KERNELS = {
+    "25a caption opt6.7b": (("fused_vit_block", ["K2 vit_block eva_g fp32 S=677 B=16"]),
+                            ("attention_f32", ["attention D=88 fp32 S=677 B=16"]),
+                            ("fused_qformer_layer", ["K3 qformer_layer caption queries"])),
+    "25b vqa flant5xxl": (("fused_vit_block", ["K2 vit_block eva_g B=16"]),
+                          ("attention_bf16", ["attention D=88 bf16 B=16"]),
+                          ("fused_qformer_layer", ["K3 qformer_layer vqa queries"])),
+    "25c instruct vicuna13b": (("fused_vit_block", ["K2 vit_block eva_g B=16"]),
+                               ("attention_bf16", ["attention D=88 bf16 B=16"]),
+                               ("fused_qformer_layer", ["K3 qformer_layer vqa queries",
+                                                        "K3 qformer_layer instruct fusion L=128"])),
+}
+KERNEL_SOURCES = {
+    "fused_vit_block": ("sprc_tpu_torch/ops/fused_block.py", "sprc_tpu/ops/pallas_block.py:609"),
+    "attention_f32": ("sprc_tpu_torch/csrc/attention.cu", "sprc_tpu/ops/pallas_attention.py:428"),
+    "attention_bf16": ("sprc_tpu_torch/csrc/attention.cu", "sprc_tpu/ops/pallas_attention.py:428"),
+    "fused_qformer_layer": ("sprc_tpu_torch/ops/fused_qformer.py",
+                            "sprc_tpu/ops/pallas_qformer.py:360"),
+}
+
+
+def large_kernels(rows, phase):
+    """The kernel rows of phase 25, with each sub-phase's launches."""
+    from sprc_tpu_torch.kernel_checks import bound_ms
+
+    by_check = {r["check"]: r for r in rows}
+    out = []
+    for key, kernels in LARGE_KERNELS.items():
+        for kernel, checks in kernels:
+            rs = [by_check[c] for c in checks]
+            work = {"bytes": sum(r["bytes"] for r in rs),
+                    "op_seconds": sum(r["op_seconds"] for r in rs)}
+            library = [r.get("library_ms") for r in rs]
+            source, replaces = KERNEL_SOURCES[kernel]
+            out.append({"name": f"{kernel} ({key})", "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": phase[key]["launches"][kernel],
+                        "max_abs_err": max(r["max_abs_err"] for r in rs),
+                        "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                        **bound_ms(work),
+                        "library_ms": None if None in library else sum(library)})
     return out
 
 
@@ -8361,6 +8698,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mesh = timed("24 mesh", phase_mesh, work)
+    large = phase_large_rows(work)
     log(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
 
     # each kernel's count comes from the path that is its own (K1: the first)
@@ -8440,7 +8778,8 @@ def main():
                       + caption_clip_kernels(rows, *new.values())
                       + video_kernels(rows, video)
                       + dialogue_caption_kernels(rows, dialogue)
-                      + mesh_kernels(rows, mesh),
+                      + mesh_kernels(rows, mesh)
+                      + large_kernels(rows, large),
                       "gemm_launches": {"bf16": launches["gemm"], "fp32": launches["gemm_f32"]},
                       "bf16": {k: bf16[k] for k in keep}, "int8": {k: int8[k] for k in keep},
                       "raw_encode": bf16["raw"],
@@ -8472,6 +8811,7 @@ def main():
                       "momentum_train": momentum, "momentum_eval": momentum_eval,
                       "heads_train": head_train, "heads_eval": head_eval,
                       **new, **video, "dialogue_caption": dialogue, "mesh_world1": mesh,
+                      "large_rows": large,
                       "rerank_eva_validate": {k: rerank_eva[k] for k in (
                           "metrics", "tile_s", "candidates_per_s", "host_gather_s",
                           "gather_share", "peak_memory_gib", "total_s", "launches")}}),

@@ -52,7 +52,9 @@ exits at start.
 visible CUDA device started here) shards the index over the ranks
 (``retrieval/engine.py``: each rank encodes or loads its shard, and
 ``--save-index`` writes the whole index from rank 0). The HTTP front end
-runs on rank 0; each request reaches the other ranks by a broadcast
+runs on rank 0; each request is checked there on the host
+(:meth:`RetrievalService._check`: a request the service refuses gets its 400
+and never leaves rank 0), then reaches the other ranks by a broadcast
 (:meth:`RetrievalService.query`, :meth:`RetrievalService.follow`), every
 rank scores it against its shard, and the JSON is unchanged.
 """
@@ -60,6 +62,7 @@ rank scores it against its shard, and the JSON is unchanged.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -78,7 +81,7 @@ class RetrievalService:
         self.mesh = getattr(engine, "mesh", None)
         self._lock = threading.Lock()
         self._order = threading.Lock()  # under a mesh: one request at a time, in one order
-        self._name_set = set(index.names)
+        self._name_count = collections.Counter(index.names)
         # the rerank stage's candidates, by the model's tag: an ITM reranker
         # reads their frozen embeds again, a feature-space one (blip2_cir_cat)
         # their target feats
@@ -94,8 +97,11 @@ class RetrievalService:
             self.query([(name, "warm up")], k=1, rerank=True)
 
     def query(self, pairs, k: int = 10, rerank: bool = False):
-        """The answer to one request (:meth:`_query`); under a mesh rank 0
-        calls it, and it reaches the ranks in :meth:`follow` first."""
+        """The answer to one request (:meth:`_query`), checked first on the
+        host (:meth:`_check`). Under a mesh rank 0 calls it, so a request the
+        service refuses never reaches the other ranks; one it takes reaches
+        them in :meth:`follow`."""
+        self._check(pairs, rerank)
         if self.mesh is None:
             return self._query(pairs, k, rerank)
         from sprc_tpu_torch.parallel.dist import broadcast_from_main
@@ -106,19 +112,16 @@ class RetrievalService:
 
     def follow(self) -> None:
         """A rank other than 0: answer (and drop) every request rank 0
-        broadcasts, until it sends the stop. A request that fails fails on
-        every rank alike, before any collective (an unknown reference, a
-        rerank the service cannot run)."""
+        broadcasts, until it sends the stop. Rank 0 broadcasts only requests
+        that passed :meth:`_check`, so a failure here comes after a
+        collective: a fault, which ends the rank (and the mesh with it)."""
         from sprc_tpu_torch.parallel.dist import broadcast_from_main
 
         while True:
             message = broadcast_from_main(None)
             if message[0] == "stop":
                 return
-            try:
-                self._query(*message[1:])
-            except (KeyError, ValueError):
-                pass
+            self._query(*message[1:])
 
     def stop(self) -> None:
         """Rank 0: end the other ranks' :meth:`follow`."""
@@ -128,6 +131,35 @@ class RetrievalService:
             with self._order:
                 broadcast_from_main(("stop",))
 
+    def _check(self, pairs, rerank: bool = False) -> None:
+        """Everything :meth:`_query` refuses, decided on the host before any
+        device work or collective: a reference not in the index (a ``KeyError``;
+        one that cannot be looked up, a list, raises the lookup's
+        ``TypeError``), ``rerank`` without a scorer (``ValueError``), a
+        caption that is not a string (``TypeError``), no query
+        (``ValueError``), and a rerank over a gallery with fewer maskable
+        candidates than ``top`` (``ValueError``), in that order."""
+        refs = [p[0] for p in pairs]
+        missing = [r for r in refs if r not in self._name_count]
+        if missing:
+            raise KeyError(f"unknown reference image(s): {missing[:5]}")
+        if rerank and self.rerank_scorer is None:
+            raise ValueError(
+                "rerank requested but the service was started without "
+                "--rerank-top (or the model has no inference_rerank)")
+        bad = [type(p[1]).__name__ for p in pairs if not isinstance(p[1], str)]
+        if bad:
+            raise TypeError(f"a caption must be a string, not {bad[0]}")
+        if not pairs:
+            raise ValueError("a request needs at least one query")
+        if rerank:
+            # a query's candidates: the gallery without its reference
+            n, top = len(self.index.names), self.rerank_scorer.top
+            m = min(n - self._name_count[r] for r in refs)
+            if m < top:
+                raise ValueError(f"gallery too small to rerank: {m} maskable candidates "
+                                 f"< --rerank-top {top}")
+
     def _query(self, pairs, k: int = 10, rerank: bool = False):
         """pairs: [(reference_name, caption)] -> per query top-k
         [{'name', 'score'}] (exact ranking, stable on ties, the reference
@@ -136,18 +168,10 @@ class RetrievalService:
         With ``rerank=True`` the top ``rerank_scorer.top`` stage-1 candidates
         are scored again by the model's ``inference_rerank`` and that prefix
         reordered (the two-stage flow of cirr_test_submission.py:87-112); the
-        scores returned stay stage 1's. Without a scorer, or on a gallery
-        with fewer maskable candidates than ``top``, it raises
-        ``ValueError``."""
+        scores returned stay stage 1's. The request has passed
+        :meth:`_check`."""
         refs = [p[0] for p in pairs]
         caps = [p[1] for p in pairs]
-        missing = [r for r in refs if r not in self._name_set]
-        if missing:
-            raise KeyError(f"unknown reference image(s): {missing[:5]}")
-        if rerank and self.rerank_scorer is None:
-            raise ValueError(
-                "rerank requested but the service was started without "
-                "--rerank-top (or the model has no inference_rerank)")
         with self._lock:
             sims = self.engine.score_queries(self.index, refs, caps)
         names = np.asarray(self.index.names)
@@ -160,9 +184,6 @@ class RetrievalService:
 
             top = self.rerank_scorer.top
             m = min(len(o) for o in orders)
-            if m < top:
-                raise ValueError(f"gallery too small to rerank: {m} maskable candidates "
-                                 f"< --rerank-top {top}")
             with self._lock:
                 sorted_names = rerank_rankings(
                     names[np.asarray([o[:m] for o in orders])], refs, caps,

@@ -201,6 +201,47 @@ def service_case(mesh, spec: dict, images: np.ndarray, names: Sequence[str],
     return answers
 
 
+def post(port: int, body: bytes):
+    """(status, parsed JSON body) of one ``POST /query`` on localhost."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/query", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def http_case(mesh, spec: dict, images: np.ndarray, names: Sequence[str],
+              bodies: Sequence[bytes], *, device=None):
+    """``cli/serve.py``'s HTTP front end over a service without a rerank
+    stage: rank 0 serves and posts each body in order, the other ranks
+    follow; returns rank 0's ``[(status, body)]`` (None elsewhere)."""
+    import threading
+
+    from sprc_tpu_torch.cli.serve import RetrievalService, make_server
+
+    engine = _engine(mesh, spec, device, 2, 3)
+    service = RetrievalService(engine, engine.build_index(
+        _shard_batches(mesh, names, images, 2)))
+    if mesh is not None and not mesh.is_main:
+        service.follow()
+        return None
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        return [post(server.server_address[1], body) for body in bodies]
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        server.server_close()
+        service.stop()
+
+
 def cli_case(mesh, module: str, argv: Sequence[str]) -> str:
     """``module.main(argv)`` on this rank; its standard output."""
     import importlib

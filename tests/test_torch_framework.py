@@ -79,6 +79,7 @@ def test_chip_smoke_config_dicts_equal_their_yaml():
                                            "pretrain_stage1.yaml",
                                            "retrieval_coco_blip2_ft.yaml",
                                            "eval/caption_coco_opt2.7b_eval.yaml",
+                                           "eval/caption_coco_opt6.7b_eval.yaml",
                                            "eval/caption_coco_flant5xl_eval.yaml",
                                            "caption_coco_blip2_ft.yaml", "pretrain_stage2.yaml",
                                            "eval/vqav2_zeroshot_opt_eval.yaml",

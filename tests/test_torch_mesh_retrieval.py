@@ -20,6 +20,15 @@ unsharded port and JAX's mesh engine.
   second epoch runs no tower call) gives the live validation's metrics,
   JAX's ``_validate_with_engine_cirr(..., val_caches)``, and at world 2
   (each rank caching its shard) the same.
+- ``cli/serve.py``'s HTTP front end under the mesh answers the requests
+  the service refuses (a list reference, a caption that is not a string, an
+  unknown reference, ``"rerank": true`` without a rerank stage) with the
+  unsharded server's 400 bodies, without the other rank seeing them, and a
+  valid request after them as the unsharded server does.
+- ``cli/validate_rerank.py --mesh`` prints the JSON of the run without it,
+  and ``cli/submission.py --rerank --mesh`` writes the files of the run
+  without it, byte for byte (CIRR and CIRCO; the checkpoints of
+  ``test_torch_rerank_cli.py``).
 
 One spawn runs every world-2 case (``dryrun.run_cases``).
 """
@@ -33,6 +42,9 @@ jax = pytest.importorskip("jax")
 
 import sprc_tpu.cli.validate as jcli  # noqa: E402
 from test_data import cirr_root  # noqa: E402,F401  (fixture)
+from test_data import circo_root  # noqa: E402,F401  (fixture)
+from test_torch_rerank_cli import RERANK_FLAGS, rerank_checkpoints  # noqa: E402,F401  (fixture)
+from test_torch_submission import _circo_test_split  # noqa: E402
 from test_torch_train_losses import jax_model, jax_params  # noqa: E402
 from test_torch_validate import STYLES, checkpoints  # noqa: E402,F401  (fixture)
 
@@ -83,21 +95,57 @@ def _checkpoint_spec(checkpoints):  # noqa: F811
             "checkpoint": checkpoints["eva"]}
 
 
+# F7: the requests the service refuses, then one it answers
+BODIES = [b'{"reference": ["g0"], "caption": "red"}', b'{"reference": "g0", "caption": 5}',
+          b'{"reference": "zz", "caption": "red"}',
+          b'{"reference": "g0", "caption": "red", "rerank": true}',
+          b'{"queries": [{"reference": "g1", "caption": "blue"}, '
+          b'{"reference": "g4", "caption": "long red"}], "k": 3}']
+
+
+def _rerank_argv(rerank_checkpoints, data, *extra):  # noqa: F811
+    """The argv both rerank CLIs share (the EVA-style tiny models), ``extra``
+    before the model overrides."""
+    model_type, overrides = STYLES["eva"]
+    return ["--data-path", str(data), "--model-path", rerank_checkpoints["eva"],
+            "--rerank-model-path", rerank_checkpoints["rerank"]["eva"], "--model-type",
+            model_type, "--vocab-path", rerank_checkpoints["vocab"], "--encode-batch", "4",
+            "--query-batch", "2", "--workers", "2", "--no-bf16", *RERANK_FLAGS, *extra,
+            "--model-overrides", *overrides]
+
+
+def _submission_argv(rerank_checkpoints, cirr_root, circo_root, out):  # noqa: F811
+    """dataset -> the submission CLI's argv (``--rerank``) writing under
+    ``out / dataset``."""
+    circo = _circo_test_split(circo_root)
+    return {ds: _rerank_argv(rerank_checkpoints, root, "--dataset", ds, "--rerank",
+                             "--submission-name", "tiny", "--output-dir", str(out / ds))
+            for ds, root in (("CIRR", cirr_root), ("CIRCO", circo))}
+
+
 @pytest.fixture(scope="module")
-def ranks(data, checkpoints, cirr_root, tmp_path_factory):  # noqa: F811
+def ranks(data, rerank_checkpoints, cirr_root, circo_root, tmp_path_factory):  # noqa: F811
     d = data
+    checkpoints = rerank_checkpoints
     index_path = str(tmp_path_factory.mktemp("mesh_retrieval") / "index")
+    submissions = tmp_path_factory.mktemp("mesh_submission")
     three = (d["refs"][:3], d["captions"][:3], d["candidates"])
+    mesh_flags = ["--mesh", "--device", "cpu"]
     cases = [("gallery_case", (d["spec"], d["images"], d["names"], d["refs"], d["captions"]),
               {"k": K, "save_path": index_path}),
              ("cli_case", ("sprc_tpu_torch.cli.validate",
-                           _validate_argv(checkpoints, cirr_root) + ["--mesh", "--device", "cpu"]),
-              {}),
+                           _validate_argv(checkpoints, cirr_root) + mesh_flags), {}),
              ("service_case", (d["spec"], d["images"], d["names"], d["requests"]), {"k": K}),
              ("rerank_case", (RERANK, d["images"], d["names"], *three), {}),
              ("validation_case", (_validation_args(cirr_root), _checkpoint_spec(checkpoints),
-                                  checkpoints["vocab"]), {})]
-    return {"results": spawn(dryrun.run_cases, W, cases), "index_path": index_path}
+                                  checkpoints["vocab"]), {}),
+             ("http_case", (d["spec"], d["images"], d["names"], BODIES), {}),
+             ("cli_case", ("sprc_tpu_torch.cli.validate_rerank", _rerank_argv(
+                 checkpoints, cirr_root, "--dataset", "CIRR") + mesh_flags), {})]
+    for argv in _submission_argv(checkpoints, cirr_root, circo_root, submissions).values():
+        cases.append(("cli_case", ("sprc_tpu_torch.cli.submission", argv + mesh_flags), {}))
+    return {"results": spawn(dryrun.run_cases, W, cases), "index_path": index_path,
+            "submissions": submissions}
 
 
 def test_sharded_gallery_equals_unsharded_and_jax_mesh_engine(ranks, data):
@@ -177,3 +225,54 @@ def test_validation_cache_equals_live_validation_and_jax(ranks, checkpoints,  # 
         got = r[4]
         assert got["cached"] == one["cached"] and got["live"] == one["live"]
         assert got["tower_calls"][1] == 0 and sum(got["cached_rows"].values()) == 3
+
+
+def test_refused_requests_never_reach_the_other_rank(ranks, data):
+    """F7: each request the service refuses gets, under the mesh, the 400
+    body the unsharded server gives; the valid request after them is
+    answered as the unsharded server answers it, so rank 1 is still there."""
+    d = data
+    want = dryrun.http_case(None, d["spec"], d["images"], d["names"], BODIES)
+    got, follower = (r[5] for r in ranks["results"])
+    assert follower is None and len(got) == len(want) == len(BODIES)
+    errors = [body["error"] for _, body in want[:-1]]
+    assert [errors[i].split(":")[0] for i in (0, 1, 3)] == ["TypeError"] * 2 + ["ValueError"]
+    assert "unknown reference image(s)" in errors[2]  # a KeyError's text, as the JAX server's
+    assert got[:-1] == want[:-1] and all(status == 400 for status, _ in got[:-1])
+    (status, body), (want_status, want_body) = got[-1], want[-1]
+    assert status == want_status == 200 and len(body["results"]) == 2
+    for g, w in zip(body["results"], want_body["results"]):
+        assert [a["name"] for a in g] == [b["name"] for b in w]
+        np.testing.assert_allclose([a["score"] for a in g], [b["score"] for b in w],
+                                   rtol=0, atol=1e-6)
+
+
+def test_validate_rerank_cli_mesh_prints_the_json_without_it(  # noqa: F811
+        ranks, rerank_checkpoints, cirr_root, capsys):  # noqa: F811
+    import sprc_tpu_torch.cli.validate_rerank as prcli
+
+    prcli.main(_rerank_argv(rerank_checkpoints, cirr_root, "--dataset", "CIRR")
+               + ["--device", "cpu"])
+    want = capsys.readouterr().out
+    assert list(json.loads(want))[0] == "group_recall_at1"
+    assert [r[6] for r in ranks["results"]] == [want, ""]
+
+
+def test_submission_cli_mesh_writes_the_files_without_it(ranks, rerank_checkpoints,  # noqa: F811
+                                                         cirr_root, circo_root,  # noqa: F811
+                                                         tmp_path, capsys):
+    import sprc_tpu_torch.cli.submission as pscli
+
+    argvs = _submission_argv(rerank_checkpoints, cirr_root, circo_root, tmp_path)
+    for i, (dataset, argv) in enumerate(argvs.items()):
+        pscli.main(argv + ["--device", "cpu"])
+        printed = capsys.readouterr().out
+        names = sorted(p.name for p in (tmp_path / dataset).iterdir())
+        assert names == (["circo_submission_tiny.json"] if dataset == "CIRCO" else
+                         ["recall_submission_tiny.json", "recall_subset_submission_tiny.json"])
+        for name in names:
+            assert ((ranks["submissions"] / dataset / name).read_bytes()
+                    == (tmp_path / dataset / name).read_bytes()), (dataset, name)
+        mesh_printed = [r[7 + i] for r in ranks["results"]]
+        assert mesh_printed[1] == "" and mesh_printed[0] == printed.replace(
+            str(tmp_path), str(ranks["submissions"]))
